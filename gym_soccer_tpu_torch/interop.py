@@ -1,0 +1,70 @@
+"""Carry state between the JAX package's layouts and the port's.
+
+Everything here takes and gives numpy arrays on the JAX side, so the port
+never imports JAX: convert a JAX array with ``np.asarray`` first.
+
+* The batched engine's ``EnvState``: the JAX package keeps a typed PRNG
+  key per instance; the port keeps its two uint32 key words
+  (``jax.random.key_data(state.key)``) in int64.
+* The fused kernels' state planes: the JAX package tiles lanes as
+  int32 [B/128, 128] (lane = row * 128 + col); the port keeps them flat
+  int32 [B] in the same lane order.
+* The journal: int32 [T, B/128, 128] in the JAX package, [T, B] in the
+  port, the same words in the same memory order.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.batch import EnvState
+
+LANES = 128
+
+
+def env_state_from_numpy(fields, key_words, device) -> EnvState:
+    """The port's EnvState from the JAX package's as numpy arrays.
+
+    ``fields``: the seven int32 [B] leaves (rows_a, cols_a, rows_b, cols_b,
+    poss, t, n), i.e. ``[np.asarray(x) for x in jax_state[:7]]``;
+    ``key_words``: uint32 [B, 2], ``np.asarray(jax.random.key_data(
+    jax_state.key))``."""
+    fields = [np.asarray(f) for f in fields]
+    if len(fields) != 7:
+        raise ValueError("fields = 7 arrays (rows_a, cols_a, rows_b, "
+                         "cols_b, poss, t, n)")
+    tensors = [torch.as_tensor(f.astype(np.int32), device=device)
+               for f in fields]
+    key = torch.as_tensor(np.asarray(key_words).astype(np.int64),
+                          device=device)
+    return EnvState(*tensors, key=key)
+
+
+def env_state_to_numpy(state: EnvState):
+    """(the seven int32 [B] leaves, uint32 [B, 2] key words) as numpy."""
+    fields = [f.cpu().numpy() for f in state[:7]]
+    return fields, state.key.cpu().numpy().astype(np.uint32)
+
+
+def planes_from_tiles(planes, device):
+    """Lane-tiled int32 [B/128, 128] planes -> flat int32 [B] tensors."""
+    return tuple(torch.tensor(np.asarray(p, np.int32).reshape(-1),
+                              device=device) for p in planes)
+
+
+def planes_to_tiles(planes):
+    """Flat [B] tensors -> lane-tiled int32 [B/128, 128] numpy planes."""
+    return tuple(p.cpu().numpy().astype(np.int32).reshape(-1, LANES)
+                 for p in planes)
+
+
+def journal_from_tiles(journal, device) -> torch.Tensor:
+    """int32 [T, B/128, 128] journal -> int32 [T, B] tensor."""
+    j = np.asarray(journal, np.int32)
+    return torch.tensor(j.reshape(j.shape[0], -1), device=device)
+
+
+def journal_to_tiles(journal: torch.Tensor) -> np.ndarray:
+    """int32 [T, B] journal -> int32 [T, B/128, 128] numpy."""
+    j = journal.cpu().numpy()
+    return j.reshape(j.shape[0], -1, LANES)

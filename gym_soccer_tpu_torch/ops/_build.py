@@ -1,0 +1,79 @@
+"""Build and load the port's CUDA kernels.
+
+Each library is compiled from the ``.cu`` sources in ``csrc/`` by ``nvcc``
+into a shared library with a plain C interface, at first use, and loaded
+with ``ctypes``.  The output lands in ``build/gym_soccer_tpu_torch/`` at
+the root of the checkout, named by a hash of its sources and flags, so an
+edited source is rebuilt and an unchanged one is not.  Nothing is built
+or loaded when this module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gym_soccer_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LIBRARIES = {"step_kernel": ("step_kernel.cu",)}
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: on PATH, else under CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found (looked on PATH, in $CUDA_HOME/bin "
+                       "and /usr/local/cuda/bin); the CUDA kernels cannot "
+                       "be built")
+
+
+def library_path(name: str) -> Path:
+    """Where the library ``name`` is built, keyed on its sources and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in LIBRARIES[name]:
+        h.update((CSRC / src).read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(name: str) -> Path:
+    """Compile library ``name`` unless a build of the same sources exists.
+    The compiler's report (``-Xptxas -v``: registers, spills) is kept
+    beside it as ``<library>.log``.  Raises RuntimeError if nvcc fails."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *(str(CSRC / s) for s in LIBRARIES[name])]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load library ``name``; loaded once a process."""
+    if name not in _loaded:
+        _loaded[name] = ctypes.CDLL(str(build(name)))
+    return _loaded[name]

@@ -1,0 +1,454 @@
+"""Fused random-vs-random rollout: CUDA kernels and their plain versions.
+
+The port of gym_soccer_tpu/ops/step_kernel.py.  Two public wrappers:
+
+* ``fused_rollout``: T steps of random-vs-random play for ``batch`` lanes,
+  returning the final state fields and the (reward sum, goals,
+  truncations) totals.  Replaces ``pallas_rollout`` (kernel K1).
+* ``fused_journal_rollout``: the same, plus one packed int32 journal word
+  per lane-step ([T, B]), decoded by ``unpack_journal``.  Replaces
+  ``pallas_journal_rollout`` (kernel K2).
+
+Each has a plain PyTorch version here (``fused_rollout_plain``,
+``fused_journal_rollout_plain``).  A wrapper runs the plain version when
+its tensors lie on the CPU and launches the CUDA kernel
+(``csrc/step_kernel.cu``) when they lie on a CUDA device; there is no
+fallback from one to the other.
+
+Randomness is a counter PRNG: three murmur3 words per lane-step, a pure
+integer function of (seed, absolute step, word index, global lane id), so
+the kernels, the plain versions and the JAX package agree bit for bit, a
+run resumed with ``init_fields``/``step_offset`` equals one long run, and
+the CUDA block size changes nothing.  Lanes are flat: lane ``i`` of a
+``[B]`` tensor is the JAX package's lane ``row * 128 + col`` (``interop``
+converts the layouts).
+
+uint32 arithmetic is done in int64 and masked to 32 bits, because PyTorch
+has no uint32 add, shift or multiply on the CPU.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..config import EnvConfig
+from ..core import rules, tables
+
+M32 = 0xFFFFFFFF
+BATCH_MULTIPLE = 1024  # the JAX wrappers tile lanes as [B/128, 128], B % 1024 == 0
+
+# Launches of each CUDA kernel in this process, counted by the wrappers
+# where they launch and nowhere else.
+launch_counts = {"fused_rollout": 0, "fused_journal_rollout": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+# ----------------------------------------------------------------------
+# Counter PRNG (uint32 values held in int64 tensors or Python ints)
+# ----------------------------------------------------------------------
+
+def _mul32(x, c: int):
+    """(x * c) mod 2**32 for a uint32 ``x`` and constant ``c``.  ``c`` is
+    split into 16-bit halves so every partial product stays below 2**48."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & M32
+
+
+def _fmix32(x):
+    """murmur3 finalizer: full-avalanche 32-bit mix (uint32 in/out)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def _random_word(seed, step, widx, lane_ctr):
+    """One uint32 of pseudo-randomness per lane from the counter
+    (seed, step, word index, lane)."""
+    c = (_mul32(seed & M32, 0x9E3779B9) + _mul32(step & M32, 0x85EBCA77)
+         + _mul32(widx, 0xC2B2AE3D)) & M32
+    return (_fmix32((_fmix32(lane_ctr ^ c) + c) & M32))
+
+
+def _u16(w, hi):
+    return ((w >> (16 if hi else 0)) & 0xFFFF).to(torch.int32)
+
+
+# ----------------------------------------------------------------------
+# Game transition on [B] int32 tensors
+# ----------------------------------------------------------------------
+
+def _q_int(cfg: EnvConfig) -> int:
+    return int(round(cfg.slip_prob * 65536))
+
+
+def _n_isd(cfg: EnvConfig) -> int:
+    return 4 if len(cfg.goal_rows) % 2 == 0 else 2
+
+
+def _action_move(a):
+    """(dcol, drow) of an action, arithmetically."""
+    mc = (a == 3).to(torch.int32) - (a == 4).to(torch.int32)
+    mr = (a == 2).to(torch.int32) - (a == 1).to(torch.int32)
+    return mc, mr
+
+
+def _slipped_move(a, u16, q_int: int):
+    """Keep the intended move with p = 1-q, else one of the two orthogonals
+    (q/2 each).  ``u16`` uniform in [0, 65536); ``q_int`` = round(q * 65536)."""
+    mc, mr = _action_move(a)
+    keep = u16 < 65536 - q_int
+    first = u16 < 65536 - q_int // 2
+    # orthogonals of (mc, mr): (-mr, mc) then (mr, -mc)
+    omc = torch.where(first, -mr, mr)
+    omr = torch.where(first, mc, -mc)
+    return torch.where(keep, mc, omc), torch.where(keep, mr, omr)
+
+
+def transition_core(ra, ca, rb, cb, p, aa, ab, bits1, bits2,
+                    cfg: EnvConfig, q_int: int):
+    """Game transition under CHOSEN actions: slips, collision chain, goal.
+    Returns (nra, nca, nrb, ncb, npz, goal, r) without autoreset."""
+    mca, mra = _slipped_move(aa, _u16(bits1, 0), q_int)
+    mcb, mrb = _slipped_move(ab, _u16(bits1, 1), q_int)
+
+    nxa, nya = rules.next_cell(torch, ra, ca, mca, mra, p == 0, cfg)
+    nxb, nyb = rules.next_cell(torch, rb, cb, mcb, mrb, p == 1, cfg)
+
+    # collision chain (reference priority order; see core/rules.py)
+    c1 = ((ra == rb) & ((ca - cb).abs() == 1) & (nya == cb) & (nyb == ca)) | \
+         ((ca == cb) & ((ra - rb).abs() == 1) & (nxa == rb) & (nxb == ra))
+    c2 = ~c1 & (((nxa == rb) & (nya == cb) & (ab == 0)) |
+                ((nxb == ra) & (nyb == ca) & (aa == 0)))
+    c3 = ~c1 & ~c2 & (
+        ((ra == nxa) & (ca == nya) & (aa != 0) & (nxb == ra) & (nyb == ca)) |
+        ((rb == nxb) & (cb == nyb) & (ab != 0) & (nxa == rb) & (nya == cb)))
+    c4 = ~c1 & ~c2 & ~c3 & (nxa == nxb) & (nya == nyb)
+    c5 = ~c1 & ~c2 & ~c3 & ~c4
+
+    coin = _u16(bits2, 0)
+    coin_poss = coin & 1                 # 50/50 possession
+    coin_who = ((coin >> 1) & 1) == 1    # c4: who advances
+
+    a_moves = c5 | (c4 & coin_who)
+    b_moves = c5 | (c4 & ~coin_who)
+    nra = torch.where(a_moves, nxa, ra)
+    nca = torch.where(a_moves, nya, ca)
+    nrb = torch.where(b_moves, nxb, rb)
+    ncb = torch.where(b_moves, nyb, cb)
+    npz = torch.where(c2, 1 - p, torch.where(c1 | c3 | c4, coin_poss, p))
+
+    a_ball = npz == 0
+    ball_col = torch.where(a_ball, nca, ncb)
+    gr = torch.where(a_ball, rules.in_goal_rows(nra, cfg),
+                     rules.in_goal_rows(nrb, cfg))
+    goal = gr & ((ball_col == 0) | (ball_col == cfg.W - 1))
+    r = torch.where(goal, torch.where(ball_col == cfg.W - 1, 1, -1), 0)
+    return nra, nca, nrb, ncb, npz, goal, r.to(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _isd_table(cfg: EnvConfig, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(tables.isd_fields(cfg), device=device)
+
+
+def _isd_lookup(idx, cfg: EnvConfig):
+    """Initial state fields (5 tensors) by ISD index."""
+    return _isd_table(cfg, idx.device)[idx.long()].unbind(-1)
+
+
+def autoreset_core(nra, nca, nrb, ncb, npz, t, goal, bits2, cfg: EnvConfig):
+    """Truncation + uniform-ISD autoreset; returns updated fields, t and
+    the truncation flag."""
+    t = t + 1
+    trunc = (t >= cfg.max_steps) & ~goal
+    term = goal | trunc
+    isd_idx = _u16(bits2, 1) % _n_isd(cfg)
+    ira, ica, irb, icb, ip = _isd_lookup(isd_idx, cfg)
+    nra = torch.where(term, ira, nra)
+    nca = torch.where(term, ica, nca)
+    nrb = torch.where(term, irb, nrb)
+    ncb = torch.where(term, icb, ncb)
+    npz = torch.where(term, ip, npz)
+    t = torch.where(term, 0, t)
+    return nra, nca, nrb, ncb, npz, t, trunc
+
+
+def isd_spread_fields(cfg: EnvConfig, batch: int, device):
+    """Initial state fields (5 int32 tensors [batch]) with lane i on ISD
+    entry i % nI.  (Starting every lane in the same ISD entry biases the
+    aggregate reward: possession near one's own goal is an own-goal risk
+    under random play.)"""
+    device = torch.device(device)
+    table = _isd_table(cfg, device)  # built on the device: no copy per call
+    lane_isd = torch.arange(batch, device=device) % table.shape[0]
+    return tuple(table.t()[:, lane_isd].unbind(0))
+
+
+# ----------------------------------------------------------------------
+# Journal words
+# ----------------------------------------------------------------------
+# One int32 per lane-step (the JAX package's layout, step_kernel.py:696-709):
+#   bits  0-15  raw state code of the PRE-autoreset next state
+#               (rules.raw_encode; needs H*W*H*W*2 <= 65536)
+#   bits 16-20  joint action aa * 5 + ab
+#   bit  21     goal (done)
+#   bit  22     truncation
+#   bit  23     reward sign (set iff reward_a == +1)
+#   bits 24-25  autoreset ISD index
+
+def _journal_word(raw, aa, ab, goal, trunc, r, isd_idx):
+    i32 = torch.int32
+    return (raw | ((aa * 5 + ab) << 16) | (goal.to(i32) << 21)
+            | (trunc.to(i32) << 22) | ((r == 1).to(i32) << 23)
+            | (isd_idx << 24))
+
+
+def unpack_journal(cfg: EnvConfig, journal):
+    """Decode a packed journal [T, B] (or [T, B/128, 128]) into the
+    reference-shaped per-step stream.  Returns a dict of [T, B] tensors on
+    the journal's device:
+
+    obs        int32    post-step observation (post-autoreset)
+    final_obs  int32    pre-autoreset observation (goal states -> 0)
+    actions_a/actions_b  int32  the actions the lanes played
+    reward_a   float32  +1 / -1 / 0 (player-A perspective)
+    done       bool     goal this step
+    truncated  bool     truncation this step
+    """
+    ss = tables.build_statespace(cfg)
+    dev = journal.device
+    w = journal.reshape(journal.shape[0], -1)
+    raw = w & 0xFFFF
+    ja = (w >> 16) & 31
+    goal = ((w >> 21) & 1).bool()
+    trunc = ((w >> 22) & 1).bool()
+    rpos = (w >> 23) & 1
+    isd_idx = (w >> 24) & 3
+    raw_to_dense = torch.as_tensor(ss.raw_to_dense, device=dev)
+    isd_dense = torch.as_tensor(ss.raw_to_dense[ss.isd_raw], device=dev)
+    final_obs = raw_to_dense[raw.long()]
+    reward = torch.where(rpos == 1, 1.0, -1.0).to(torch.float32)
+    return {
+        "obs": torch.where(goal | trunc, isd_dense[isd_idx.long()], final_obs),
+        "final_obs": final_obs,
+        "actions_a": ja // 5,
+        "actions_b": ja % 5,
+        "reward_a": torch.where(goal, reward, 0.0),
+        "done": goal,
+        "truncated": trunc,
+    }
+
+
+# ----------------------------------------------------------------------
+# Plain PyTorch versions
+# ----------------------------------------------------------------------
+
+def _plain(cfg: EnvConfig, seed: int, fields, n_steps: int, step_offset: int,
+           journal: bool):
+    ra, ca, rb, cb, p, t = fields
+    B = ra.shape[0]
+    q_int, nI = _q_int(cfg), _n_isd(cfg)
+    lane = torch.arange(B, dtype=torch.int64, device=ra.device)
+    rew = torch.zeros(B, dtype=torch.int64, device=ra.device)
+    goals, truncs = torch.zeros_like(rew), torch.zeros_like(rew)
+    words = (torch.empty((n_steps, B), dtype=torch.int32, device=ra.device)
+             if journal else None)
+    for i in range(n_steps):
+        step = i + step_offset
+        bits0, bits1, bits2 = (_random_word(seed, step, w, lane)
+                               for w in range(3))
+        aa = _u16(bits0, 0) % 5
+        ab = _u16(bits0, 1) % 5
+        ra, ca, rb, cb, p, goal, r = transition_core(
+            ra, ca, rb, cb, p, aa, ab, bits1, bits2, cfg, q_int)
+        if journal:
+            raw = rules.raw_encode(torch, ra, ca, rb, cb, p, cfg)
+        ra, ca, rb, cb, p, t, trunc = autoreset_core(
+            ra, ca, rb, cb, p, t, goal, bits2, cfg)
+        if journal:
+            words[i] = _journal_word(raw, aa, ab, goal, trunc, r,
+                                     _u16(bits2, 1) % nI)
+        rew += r
+        goals += goal
+        truncs += trunc
+    stats = (rew.sum(), goals.sum(), truncs.sum())
+    return (ra, ca, rb, cb, p, t), stats, words
+
+
+def fused_rollout_plain(cfg: EnvConfig, seed: int, batch: int, n_steps: int,
+                        device, init_fields=None, step_offset: int = 0):
+    """Plain PyTorch version of ``fused_rollout``, on any device."""
+    fields = _start_fields(cfg, batch, n_steps, device, init_fields,
+                           step_offset)
+    out, stats, _ = _plain(cfg, seed, fields, n_steps, step_offset, False)
+    return out, stats
+
+
+def fused_journal_rollout_plain(cfg: EnvConfig, seed: int, batch: int,
+                                n_steps: int, device, init_fields=None,
+                                step_offset: int = 0):
+    """Plain PyTorch version of ``fused_journal_rollout``, on any device."""
+    _check_journal_fits(cfg)
+    fields = _start_fields(cfg, batch, n_steps, device, init_fields,
+                           step_offset)
+    return _plain(cfg, seed, fields, n_steps, step_offset, True)
+
+
+# ----------------------------------------------------------------------
+# Public wrappers
+# ----------------------------------------------------------------------
+
+def fused_rollout(cfg: EnvConfig, seed: int, batch: int, n_steps: int,
+                  device, init_fields=None, step_offset: int = 0,
+                  threads: int = 128):
+    """Run ``n_steps`` of random-vs-random play for ``batch`` lanes.
+
+    Returns ``(fields, (reward_sum, goals, truncs))``: the final
+    (ra, ca, rb, cb, p, t) as int32 [batch] tensors and the totals as
+    int64 scalars, all on ``device``.  ``batch`` must be a multiple of
+    1024.  ``init_fields`` (6 int32 [batch] tensors on ``device``) and
+    ``step_offset`` resume from an earlier call's final fields at that
+    absolute step: the two calls equal one long call bit for bit.  Without
+    ``init_fields`` lane i starts on ISD entry i % nI with t = 0.
+    ``threads`` is the CUDA block size (a multiple of 32); it does not
+    change the result.
+
+    On a CPU device this runs ``fused_rollout_plain``; on a CUDA device it
+    launches the K1 kernel.
+    """
+    fields = _start_fields(cfg, batch, n_steps, device, init_fields,
+                           step_offset)
+    if fields[0].device.type == "cpu":
+        out, stats, _ = _plain(cfg, seed, fields, n_steps, step_offset, False)
+        return out, stats
+    out, stats, _ = _launch("fused_rollout", cfg, seed, fields, n_steps,
+                            step_offset, threads)
+    return out, stats
+
+
+def fused_journal_rollout(cfg: EnvConfig, seed: int, batch: int,
+                          n_steps: int, device, init_fields=None,
+                          step_offset: int = 0, threads: int = 128):
+    """``fused_rollout`` that also journals every transition.
+
+    Returns ``(fields, stats, journal)``; the trajectories, fields and
+    stats equal ``fused_rollout``'s for the same arguments, and
+    ``journal`` is int32 [n_steps, batch], one packed word per lane-step
+    (decode with ``unpack_journal``).  On a CPU device this runs
+    ``fused_journal_rollout_plain``; on a CUDA device it launches the K2
+    kernel.
+    """
+    _check_journal_fits(cfg)
+    fields = _start_fields(cfg, batch, n_steps, device, init_fields,
+                           step_offset)
+    if fields[0].device.type == "cpu":
+        return _plain(cfg, seed, fields, n_steps, step_offset, True)
+    return _launch("fused_journal_rollout", cfg, seed, fields, n_steps,
+                   step_offset, threads)
+
+
+def _check_journal_fits(cfg: EnvConfig) -> None:
+    if cfg.n_raw > 65536:
+        raise ValueError(f"raw state code needs {cfg.n_raw} values; the "
+                         "journal word holds 16 bits")
+
+
+def _start_fields(cfg: EnvConfig, batch: int, n_steps: int, device,
+                  init_fields, step_offset: int):
+    """The six int32 [batch] starting planes on ``device``, checked."""
+    if batch <= 0 or batch % BATCH_MULTIPLE:
+        raise ValueError(f"batch must be a positive multiple of "
+                         f"{BATCH_MULTIPLE}, got {batch}")
+    if n_steps < 0 or step_offset < 0 or n_steps + step_offset >= 2**31:
+        raise ValueError(f"steps [{step_offset}, {step_offset + n_steps}) "
+                         "must lie in [0, 2**31)")
+    device = torch.device(device)
+    if init_fields is None:
+        return (*isd_spread_fields(cfg, batch, device),
+                torch.zeros(batch, dtype=torch.int32, device=device))
+    fields = tuple(init_fields)
+    if len(fields) != 6:
+        raise ValueError("init_fields = 6 tensors (ra, ca, rb, cb, p, t)")
+    for f in fields:
+        if (f.dtype != torch.int32 or tuple(f.shape) != (batch,)
+                or not f.is_contiguous() or f.device.type != device.type
+                or (device.index is not None and f.device != device)):
+            raise ValueError(
+                f"init_fields must be contiguous int32 [{batch}] tensors on "
+                f"{device}; got {f.dtype} {tuple(f.shape)} on {f.device}")
+    return fields
+
+
+# ----------------------------------------------------------------------
+# CUDA launch (K1, K2)
+# ----------------------------------------------------------------------
+
+_ENTRY = {"fused_rollout": "gst_fused_rollout",
+          "fused_journal_rollout": "gst_fused_journal_rollout"}
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    """The built kernel library with its C signatures declared."""
+    from . import _build
+    lib = _build.load("step_kernel")
+    vp, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+    tail = [vp, i32, i32, u32, i32, i32, vp]  # params, B, T, seed, offset,
+    #                                            threads, stream
+    lib.gst_fused_rollout.argtypes = [i32, vp, vp, vp] + tail
+    lib.gst_fused_journal_rollout.argtypes = [i32, vp, vp, vp, vp] + tail
+    for fn in (lib.gst_fused_rollout, lib.gst_fused_journal_rollout):
+        fn.restype = i32
+    lib.gst_error_string.argtypes = [i32]
+    lib.gst_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _game_params(cfg: EnvConfig):
+    """The kernels' game description: H, W, goal-row bounds, q_int,
+    max_steps, nI, then the ISD entries' fields."""
+    lo, hi = cfg.goal_row_bounds
+    isd = tables.isd_fields(cfg)
+    vals = [cfg.H, cfg.W, lo, hi, _q_int(cfg), cfg.max_steps, len(isd),
+            *isd.ravel().tolist()]
+    return (ctypes.c_int32 * len(vals))(*vals)
+
+
+def _launch(name: str, cfg: EnvConfig, seed: int, fields, n_steps: int,
+            step_offset: int, threads: int):
+    dev = fields[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    if threads <= 0 or threads > 1024 or threads % 32:
+        raise ValueError(f"threads must be a multiple of 32 in [32, 1024], "
+                         f"got {threads}")
+    lib = _library()
+    B = fields[0].shape[0]
+    out = tuple(torch.empty_like(f) for f in fields)
+    stats = torch.empty(3, dtype=torch.int64, device=dev)
+    in_ptrs = (ctypes.c_void_p * 6)(*(f.data_ptr() for f in fields))
+    out_ptrs = (ctypes.c_void_p * 6)(*(f.data_ptr() for f in out))
+    params = _game_params(cfg)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    head = [dev.index, ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs),
+            stats.data_ptr()]
+    tail = [ctypes.addressof(params), B, n_steps, seed & M32, step_offset,
+            threads, stream]
+    journal = None
+    if name == "fused_journal_rollout":
+        journal = torch.empty((n_steps, B), dtype=torch.int32, device=dev)
+        head.append(journal.data_ptr())
+    rc = getattr(lib, _ENTRY[name])(*head, *tail)
+    if rc:
+        raise RuntimeError(f"{name}: kernel launch failed: "
+                           f"{lib.gst_error_string(rc).decode()} ({rc})")
+    launch_counts[name] += 1
+    return out, tuple(stats.unbind()), journal

@@ -1,0 +1,41 @@
+"""The port imports neither JAX nor the JAX package, builds nothing at
+import, and refuses a CUDA device where there is none."""
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+MODULES = ["gym_soccer_tpu_torch", "gym_soccer_tpu_torch.config",
+           "gym_soccer_tpu_torch.core.rules",
+           "gym_soccer_tpu_torch.core.tables",
+           "gym_soccer_tpu_torch.core.batch",
+           "gym_soccer_tpu_torch.ops.step_kernel",
+           "gym_soccer_tpu_torch.interop"]
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_port_never_imports_jax(module):
+    code = (f"import sys, {module}\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'gym_soccer_tpu.')) or "
+            "m == 'gym_soccer_tpu')\n"
+            "assert not bad, bad\n"
+            "assert 'gym_soccer_tpu_torch.ops._build' not in sys.modules\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+def test_cuda_device_without_a_card_raises():
+    """No path carries on on the CPU when CUDA was asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from gym_soccer_tpu_torch.config import EnvConfig
+    from gym_soccer_tpu_torch.ops import step_kernel as sk
+    cfg = EnvConfig(width=5, height=4, slip_prob=0.2)
+    for fn in (sk.fused_rollout, sk.fused_journal_rollout):
+        with pytest.raises((RuntimeError, AssertionError)):
+            fn(cfg, 0, 1024, 4, "cuda")
