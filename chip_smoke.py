@@ -4,13 +4,17 @@ check it.
 
     python3 chip_smoke.py
 
-The main path is the batched random-play rollout at 8192 lanes on the 5x4
-(slip 0.2) and 11x7 (slip 0.2) boards: ``fused_rollout`` (kernel K1),
-``fused_journal_rollout`` (kernel K2) with ``unpack_journal``, and the
-batched engine ``core.batch``.  Phases, each of which raises on failure:
+Two main paths, each driven with its kernels' launch counters reset just
+before it and read just after.  The rollout path is the batched random
+play at 8192 lanes on the 5x4 (slip 0.2) and 11x7 (slip 0.2) boards:
+``fused_rollout`` (kernel K1), ``fused_journal_rollout`` (kernel K2) with
+``unpack_journal``, and the batched engine ``core.batch``.  The training
+path is ``fused_minimax_train`` (kernel K5, the RM+ re-solve) and
+``exploitability``.  Phases, each of which raises on failure:
 
 1. device: a CUDA device is present; its name and power limit;
-2. build: the kernels compile from the sources in this checkout;
+2. build: the kernels compile from the sources in this checkout, one nvcc
+   per library, in parallel;
 3. main path: the user entry points at 8192 lanes, with the kernels'
    launch counters reset before and read after; outputs are checked by
    the repo's own means (valid states, journal decodes, stats agree);
@@ -20,7 +24,22 @@ batched engine ``core.batch``.  Phases, each of which raises on failure:
 6. small inputs: both kernels equal the plain versions run on the CPU;
 7. batched engine: 8192 lanes x 100 steps on the card equal the CPU run;
 8. timing: env-steps/s of K1, K2 and their plain versions (CUDA events,
-   median of 5 legs of at least 50 ms each, after warmup).
+   median of 5 legs of at least 50 ms each, after warmup);
+9. training path: ``fused_minimax_train`` on 5x4 at 8192 lanes for a few
+   chunks, K5's launch counter reset before and read after; Q finite,
+   |v| <= 1.05, policy rows summing to 1;
+10. K5: bit-equal to its plain version (fields, stats, visit counts and
+    the int64 residual sums) at 8192 lanes x 64 steps on 5x4 and 11x7,
+    for two block sizes, on a non-uniform table with v != 0; and on a
+    small input equal to the plain version run on the CPU;
+11. exact resume: 2 chunks equal 1 + 1 through the resume dict, bit for
+    bit in q, n and the fields;
+12. the 5x4 contract: the JAX package's recipe (65536 lanes, 1000 chunks
+    x 32 steps, seed 1; tests/test_learner_kernel.py:117-120) reaches
+    exploitability <= 0.010 at gamma 0.99; wall time split into chunk
+    calls and the work between them;
+13. timing: learner env-steps/s of K5 and its plain version at 8192 lanes
+    x 64 steps on 5x4 and 11x7.
 
 The second-to-last lines are the kernels' JSON record and the card's name
 and power limit; the last line is the JSON verdict.  Exits non-zero, with
@@ -40,9 +59,20 @@ BOARDS = ((5, 4), (11, 7))
 SLIP = 0.2
 T_K1 = 1000
 T_K2 = 1024
-SOURCE = "gym_soccer_tpu_torch/ops/csrc/step_kernel.cu"
+T_K5 = 64
+SOURCE = {"fused_rollout": "gym_soccer_tpu_torch/ops/csrc/step_kernel.cu",
+          "fused_journal_rollout":
+              "gym_soccer_tpu_torch/ops/csrc/step_kernel.cu",
+          "packed_learner_chunk":
+              "gym_soccer_tpu_torch/ops/csrc/learner_kernel.cu"}
 REPLACES = {"fused_rollout": "gym_soccer_tpu/ops/step_kernel.py:254",
-            "fused_journal_rollout": "gym_soccer_tpu/ops/step_kernel.py:714"}
+            "fused_journal_rollout": "gym_soccer_tpu/ops/step_kernel.py:714",
+            "packed_learner_chunk": "gym_soccer_tpu/ops/learner_kernel.py:666"}
+# tests/test_learner_kernel.py:117-120 (test_equilibrium_convergence_tpu)
+CONTRACT = dict(batch=65536, n_chunks=1000, chunk_len=32, lr=1.0, eps=0.2,
+                lr_anneal_start=500, lr_anneal_tau=25.0, lr_anneal_pow=1.5,
+                solver_iters=400, final_solver_iters=3000, seed=1)
+CONTRACT_EXPLOITABILITY = 0.010
 
 
 class SmokeFailure(RuntimeError):
@@ -107,9 +137,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
 
+    from gym_soccer_tpu_torch.agents.evaluation import exploitability
     from gym_soccer_tpu_torch.config import EnvConfig
     from gym_soccer_tpu_torch.core import batch, tables
     from gym_soccer_tpu_torch.ops import _build
+    from gym_soccer_tpu_torch.ops import learner_kernel as lk
     from gym_soccer_tpu_torch.ops import step_kernel as sk
 
     dev = torch.device("cuda", 0)
@@ -119,10 +151,13 @@ def main() -> int:
 
     # ---- 2. build -----------------------------------------------------
     t0 = time.perf_counter()
-    lib_path = _build.build("step_kernel")
-    _build.load("step_kernel")
-    print(f"[build] {lib_path.name} in {time.perf_counter() - t0:.3f} s")
-    print(lib_path.with_suffix(".log").read_text().strip())
+    built = _build.build_all()
+    for name in built:
+        _build.load(name)
+    print(f"[build] {', '.join(p.name for p in built.values())} in "
+          f"{time.perf_counter() - t0:.3f} s")
+    for path in built.values():
+        print(path.with_suffix(".log").read_text().strip())
 
     cfgs = {b: EnvConfig(width=b[0], height=b[1], slip_prob=SLIP)
             for b in BOARDS}
@@ -267,18 +302,151 @@ def main() -> int:
     print(f"[clocks] sm MHz, power W, temp C after timing: "
           f"{smi('clocks.sm,power.draw,temperature.gpu')}")
 
+    learner_launches, errs["packed_learner_chunk"], learner_ms = \
+        learner_phases(torch, dev, card, cfgs, lk, exploitability)
+    launches.update(learner_launches)
+    ms.update(learner_ms)
+
     record = {"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
+        {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": errs[name], "ms": ms[name],
          "plain_ms": ms[name + "_plain"]}
-        for name in ("fused_rollout", "fused_journal_rollout")]}
+        for name in ("fused_rollout", "fused_journal_rollout",
+                     "packed_learner_chunk")]}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def learner_inputs(torch, lk, cfg, B, dev, seed):
+    """A non-uniform table with v != 0 made from a numpy seed, and the
+    initial fields."""
+    import numpy as np
+    nS = len(lk._cell_rows(cfg))
+    rng = np.random.default_rng(seed)
+    pa, pb = (torch.tensor(rng.dirichlet(np.ones(5), nS), dtype=torch.float32,
+                           device=dev) for _ in range(2))
+    v = torch.tensor(rng.uniform(-1, 1, nS), dtype=torch.float32, device=dev)
+    return lk.pack_m2(cfg, pa, pb, v, 0.2), lk.init_state_fields(cfg, B, dev)
+
+
+def chunk_err(a, b):
+    """max |a - b| over two chunk results' fields, stats, counts and int64
+    residual sums."""
+    (fa, (ra, ca), sa), (fb, (rb, cb), sb) = a, b
+    return max_abs_err([*zip(fa, fb), (ra, rb), (ca, cb),
+                        (ints(sa), ints(sb))])
+
+
+def learner_phases(torch, dev, card, cfgs, lk, exploitability):
+    """Phases 9-13: the training path and kernel K5.  Returns K5's launches
+    on the training path, its max abs error against the plain version,
+    and the ms per call of K5 and its plain version."""
+    cfg = cfgs[(5, 4)]
+
+    # ---- 9. training path, through the entry point ---------------------
+    lk.reset_launch_counts()
+    q, v, pa, pb, hist = lk.fused_minimax_train(
+        cfg, batch=B, n_chunks=4, chunk_len=T_K5, lr=1.0, eps=0.2,
+        solver_iters=200, seed=3, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(lk.launch_counts)
+    print(f"[train path] launches {launches}")
+    check(launches["packed_learner_chunk"] > 0,
+          "packed_learner_chunk was not launched on the training path")
+    check(bool(torch.isfinite(q).all()), "Q is not finite")
+    check(float(v.abs().max()) <= 1.05, f"|v| = {float(v.abs().max())} > 1.05")
+    for pi in (pa, pb):
+        check(float((pi.sum(-1) - 1).abs().max()) < 1e-5,
+              "policy rows do not sum to 1")
+    goals = sum(h[1] for h in hist)
+    check(goals > 0, "no goals on the training path")
+    print(f"[train path] 5x4 B={B} 4 chunks x {T_K5} steps: max|v| "
+          f"{float(v.abs().max())}, goals in recorded chunks {goals}")
+
+    # ---- 10. K5 against its plain version ------------------------------
+    err = 0
+    for board, c in cfgs.items():
+        table, fields = learner_inputs(torch, lk, c, B, dev, seed=board[0])
+        plain = lk.packed_learner_chunk_plain(c, 77, table, fields, B, T_K5,
+                                              0.99, dev)
+        for threads in (128, 256):
+            got = lk.packed_learner_chunk(c, 77, table, fields, B, T_K5, 0.99,
+                                          dev, threads=threads)
+            e = chunk_err(got, plain)
+            err = max(err, e)
+            check(e == 0, f"K5 != plain on {board}, threads {threads}: "
+                  f"max abs err {e}")
+        cnt = int(plain[1][1].sum())
+        check(cnt == B * T_K5, f"{cnt} visits counted, not {B * T_K5}")
+        small = lk.packed_learner_chunk(c, 5, table, fields, B, 8, 0.99,
+                                        dev)
+        cpu = lk.packed_learner_chunk(c, 5, table.cpu(),
+                                      [f.cpu() for f in fields], B, 8, 0.99,
+                                      "cpu")
+        check(chunk_err(small, cpu) == 0, f"K5 != CPU plain on {board}")
+        print(f"[K5] {board[0]}x{board[1]} B={B} T={T_K5}: bit-equal to plain "
+              f"(fields, stats, counts, int64 residual sums; max abs err "
+              f"{err}); threads 128/256 equal; B={B} T=8 equals the CPU "
+              "plain version")
+
+    # ---- 11. exact resume on the card ----------------------------------
+    kw = dict(batch=B, chunk_len=T_K5, lr=0.5, eps=0.3, eps_halflife=64,
+              lr_anneal_start=1, lr_anneal_tau=4.0, solver_iters=100, seed=9,
+              device=dev)
+    whole = lk.fused_minimax_train(cfg, n_chunks=2, return_state=True, **kw)
+    r = lk.fused_minimax_train(cfg, n_chunks=1, return_state=True, **kw)[5]
+    part = lk.fused_minimax_train(
+        cfg, n_chunks=1, return_state=True,
+        init=tuple(r[k] for k in ("q", "v", "pi_a", "pi_b", "n")),
+        fields_init=r["fields"], start_chunk=r["next_chunk"], **kw)
+    check(all(torch.equal(a, b) for a, b in
+              [*zip(whole[:4], part[:4]), (whole[5]["n"], part[5]["n"]),
+               *zip(whole[5]["fields"], part[5]["fields"])]),
+          "2 chunks != 1 + 1 through the resume dict")
+    print("[resume] 2 chunks == 1 + 1 through the resume dict, bit for bit "
+          "in q, v, pi, n and fields")
+
+    # ---- 12. the 5x4 contract ------------------------------------------
+    timing = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q, v, pa, pb, hist = lk.fused_minimax_train(cfg, device=dev,
+                                                timing=timing, **CONTRACT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    ex = exploitability(cfg, pa, pb, gamma=0.99)
+    t_eval = time.perf_counter() - t1
+    steps = CONTRACT["batch"] * CONTRACT["chunk_len"] * CONTRACT["n_chunks"]
+    print(f"[contract] 5x4 recipe {CONTRACT}: exploitability {ex} "
+          f"(limit {CONTRACT_EXPLOITABILITY}) at gamma 0.99 | train wall "
+          f"{wall} s for {steps} env-steps: chunk calls {timing['kernel_ms']} "
+          f"ms, between chunks {timing['between_ms']} ms over "
+          f"{timing['chunks']} chunks; exploitability eval {t_eval} s | {card}")
+    check(ex <= CONTRACT_EXPLOITABILITY,
+          f"exploitability {ex} > {CONTRACT_EXPLOITABILITY}")
+
+    # ---- 13. timing ----------------------------------------------------
+    ms = {}
+    for board, c in cfgs.items():
+        table, fields = learner_inputs(torch, lk, c, B, dev, seed=board[0])
+        for name, fn in (("packed_learner_chunk", lk.packed_learner_chunk),
+                         ("packed_learner_chunk_plain",
+                          lk.packed_learner_chunk_plain)):
+            med, reps, legs = time_cuda(
+                lambda: fn(c, 77, table, fields, B, T_K5, 0.99, dev))
+            if board == (5, 4):
+                ms[name] = med
+            print(f"[time] {name} {board[0]}x{board[1]} B={B} T={T_K5}: "
+                  f"{med} ms/call, {B * T_K5 / (med / 1e3)} learner "
+                  f"env-steps/s (median of {len(legs)} legs x {reps} calls; "
+                  f"legs ms/call {legs}) | {card}")
+    return launches, err, ms
 
 
 if __name__ == "__main__":

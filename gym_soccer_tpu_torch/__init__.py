@@ -8,10 +8,15 @@ reference that the port is tested against.
 Layers (module paths mirror gym_soccer_tpu's):
   config.py        EnvConfig (a copy)
   core/rules.py    branchless game rules over numpy or torch
-  core/tables.py   host-side state-space indexing (numpy)
+  core/tables.py   host-side state-space indexing and transition tensors
+                   (numpy)
   core/batch.py    batched engine on tensors, counter RNG
-  ops/step_kernel.py  fused and journaled random rollouts (CUDA K1, K2)
-  interop.py       state and journal layouts to and from the JAX package
+  agents/          RM+ matrix-game solver; Shapley iteration, best
+                   response and exploitability
+  ops/step_kernel.py     fused and journaled random rollouts (CUDA K1, K2)
+  ops/learner_kernel.py  minimax-Q chunk (CUDA K5) and the chunked trainers
+  interop.py       state, journal and learner layouts to and from the JAX
+                   package
 """
 from .config import EnvConfig, NOOP, NORTH, SOUTH, EAST, WEST  # noqa: F401
 

@@ -1,10 +1,10 @@
 """Host-side indexing layer of the state space (numpy only).
 
-The port of ``build_isd`` and ``build_statespace`` from
+The port of ``build_isd``, ``build_statespace`` and ``build_tables`` from
 gym_soccer_tpu/core/tables.py, copied so that their arrays are
-byte-identical to the JAX package's (pinned by tests/test_torch_tables.py).
-The full transition tensors (``build_tables``) and the native builder are
-not on the device path and are not ported yet.
+byte-identical to the JAX package's (pinned by tests/test_torch_tables.py
+and tests/test_torch_evaluation.py).  ``build_tables`` is the JAX
+package's numpy backend; the native C++ builder is not ported yet.
 """
 from __future__ import annotations
 
@@ -13,8 +13,55 @@ import functools
 
 import numpy as np
 
-from ..config import EnvConfig
+from ..config import (COMBO_VARIANT_A, COMBO_VARIANT_B, MAX_TRANSITIONS,
+                      MOVES, N_ACTIONS, N_COMBOS, EnvConfig, orthogonal_moves)
 from . import rules
+
+
+@dataclasses.dataclass
+class GameTables:
+    cfg: EnvConfig
+    nS: int
+    # Raw mixed-radix code <-> dense observation index
+    raw_to_dense: np.ndarray      # [nRaw] int32; -1 unreachable, 0 goal
+    dense_to_raw: np.ndarray      # [nS] int32; s=0 holds a goal representative
+    fields: np.ndarray            # [nS, 5] int32 (xa, ya, xb, yb, p)
+    goal_mask_raw: np.ndarray     # [nRaw] bool
+    goal_reward_raw: np.ndarray   # [nRaw] float64 (A-perspective)
+    unreachable_raw: np.ndarray   # enumeration-ordered raw codes
+    goal_raw: np.ndarray          # enumeration-ordered raw codes of goals
+    # Initial state distribution (reference _generate_isd, :146-165)
+    isd_probs: np.ndarray         # [nI] float64
+    isd_raw: np.ndarray           # [nI] int32
+    # Padded transition tensors, joint-action-major: ja = aa * nA + ab
+    t_prob: np.ndarray            # [nS, nA*nA, 36] float64
+    t_cum: np.ndarray             # [nS, nA*nA, 36] float64 cumulative sums
+    t_next_raw: np.ndarray        # [nS, nA*nA, 36] int32
+    t_next_dense: np.ndarray      # [nS, nA*nA, 36] int32
+    t_reward: np.ndarray          # [nS, nA*nA, 36] float64 (A-perspective)
+    t_done: np.ndarray            # [nS, nA*nA, 36] bool
+    t_mask: np.ndarray            # [nS, nA*nA, 36] bool
+    t_first: np.ndarray           # [nS, nA*nA] int32: first in-list slot
+
+    @property
+    def n_goal(self) -> int:
+        return int(self.goal_raw.size)
+
+    @property
+    def n_unreachable(self) -> int:
+        return int(self.unreachable_raw.size)
+
+
+def _move_variants():
+    """[nA, 3, 2] array: per action, the (dcol, drow) of the intended move
+    and its two orthogonal slips, in the reference's order (:203-206)."""
+    out = np.zeros((N_ACTIONS, 3, 2), dtype=np.int32)
+    for a, m in enumerate(MOVES):
+        o0, o1 = orthogonal_moves(m)
+        out[a, 0] = m
+        out[a, 1] = o0
+        out[a, 2] = o1
+    return out
 
 
 def build_isd(cfg: EnvConfig):
@@ -101,3 +148,76 @@ def build_statespace(cfg: EnvConfig) -> StateSpace:
         dense_to_raw=dense_to_raw, fields=fields, goal_mask_raw=goal,
         goal_reward_raw=goal_reward_raw, unreachable_raw=unreachable_raw,
         goal_raw=goal_raw, isd_probs=isd_probs, isd_raw=isd_raw)
+
+
+def build_tables(cfg: EnvConfig) -> GameTables:
+    """The full padded transition tensors [nS, 25, 36]: 9 slip combos x 4
+    outcome slots per joint action, in the reference's list order
+    (:167-293), with probability 0 on invalid slots and dropped combos."""
+    ss = build_statespace(cfg)
+    nS = ss.nS
+    raw_to_dense = ss.raw_to_dense
+    dense_to_raw = ss.dense_to_raw
+    goal_mask_raw = ss.goal_mask_raw
+    goal_reward_raw = ss.goal_reward_raw
+    fields = ss.fields
+    fxa, fya, fxb, fyb, fp = (fields[:, i] for i in range(5))
+
+    # ---- joint transition tensors -------------------------------------
+    mv = _move_variants()  # [nA, 3, 2]
+    va = np.array(COMBO_VARIANT_A)  # [9]
+    vb = np.array(COMBO_VARIANT_B)
+    # Effective (dcol, drow) per (action, combo): [nA, 9]
+    a_mc, a_mr = mv[:, va, 0], mv[:, va, 1]
+    b_mc, b_mr = mv[:, vb, 0], mv[:, vb, 1]
+
+    # Broadcast layout: [nS, aa, ab, combo]
+    sxa = fxa[:, None, None, None]
+    sya = fya[:, None, None, None]
+    sxb = fxb[:, None, None, None]
+    syb = fyb[:, None, None, None]
+    sp = fp[:, None, None, None]
+    aa = np.arange(N_ACTIONS, dtype=np.int32)[None, :, None, None]
+    ab = np.arange(N_ACTIONS, dtype=np.int32)[None, None, :, None]
+    mca = a_mc.reshape(1, N_ACTIONS, 1, N_COMBOS)
+    mra = a_mr.reshape(1, N_ACTIONS, 1, N_COMBOS)
+    mcb = b_mc.reshape(1, 1, N_ACTIONS, N_COMBOS)
+    mrb = b_mr.reshape(1, 1, N_ACTIONS, N_COMBOS)
+
+    out = rules.resolve_outcomes(np, sxa, sya, sxb, syb, sp, aa, ab,
+                                 mca, mra, mcb, mrb, cfg)
+    # Outcome arrays: [nS, nA, nA, 9, 4]
+    ns_raw = rules.raw_encode(np, out["rows_a"], out["cols_a"],
+                              out["rows_b"], out["cols_b"], out["poss"], cfg)
+
+    mp = np.array(cfg.combo_probs(), dtype=np.float64)  # [9]
+    prob = out["weight"] * mp[None, None, None, :, None]
+    mask = (out["weight"] > 0) & (mp[None, None, None, :, None] != 0.0)
+    prob = np.where(mask, prob, 0.0)
+
+    st_raw = dense_to_raw[:, None, None, None, None]
+    done = goal_mask_raw[ns_raw]
+    reward = np.where(done & (ns_raw != st_raw), goal_reward_raw[ns_raw], 0.0)
+    # Absorbing goal rows: done=True, reward=0 (:235-236) — covered, since
+    # their only outcome is ns == st.
+
+    shape = (nS, N_ACTIONS * N_ACTIONS, MAX_TRANSITIONS)
+    t_prob = np.ascontiguousarray(prob.reshape(shape))
+    t_next_raw = np.ascontiguousarray(ns_raw.reshape(shape)).astype(np.int32)
+    t_next_dense = raw_to_dense[t_next_raw]
+    t_reward = np.ascontiguousarray(reward.reshape(shape))
+    t_done = np.ascontiguousarray(done.reshape(shape))
+    t_mask = np.ascontiguousarray(mask.reshape(shape))
+    t_cum = np.cumsum(t_prob, axis=-1)
+    t_first = np.argmax(t_mask, axis=-1).astype(np.int32)
+
+    return GameTables(
+        cfg=cfg, nS=nS,
+        raw_to_dense=raw_to_dense, dense_to_raw=dense_to_raw, fields=fields,
+        goal_mask_raw=goal_mask_raw, goal_reward_raw=goal_reward_raw,
+        unreachable_raw=ss.unreachable_raw, goal_raw=ss.goal_raw,
+        isd_probs=ss.isd_probs, isd_raw=ss.isd_raw,
+        t_prob=t_prob, t_cum=t_cum, t_next_raw=t_next_raw,
+        t_next_dense=t_next_dense, t_reward=t_reward, t_done=t_done,
+        t_mask=t_mask, t_first=t_first,
+    )

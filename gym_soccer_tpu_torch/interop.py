@@ -11,15 +11,26 @@ never imports JAX: convert a JAX array with ``np.asarray`` first.
   int32 [B] in the same lane order.
 * The journal: int32 [T, B/128, 128] in the JAX package, [T, B] in the
   port, the same words in the same memory order.
+* The minimax-Q learner's state: the JAX package's packed M (bfloat16
+  [spm, 128], 8 states per row) becomes the port's table (float32
+  [n_codes, 11]); its trainers' resume dict becomes the port's (the
+  port's trainers take a JAX run's (q, v, pi_a, pi_b, n) as numpy arrays
+  in ``init`` as they are).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .config import EnvConfig
+from .core import rules
 from .core.batch import EnvState
 
 LANES = 128
+# The JAX package's packed M: GP states per 128-wide row, GCOLS columns
+# each, pi_a at 0-4, pi_b at 5-9, v split as bf16 hi at 10 and lo at 11
+# (gym_soccer_tpu/ops/learner_kernel.py, GP/GCOLS/PCOL_*).
+M_GP, M_GCOLS, M_V_HI, M_V_LO = 8, 16, 10, 11
 
 
 def env_state_from_numpy(fields, key_words, device) -> EnvState:
@@ -68,3 +79,33 @@ def journal_to_tiles(journal: torch.Tensor) -> np.ndarray:
     """int32 [T, B] journal -> int32 [T, B/128, 128] numpy."""
     j = journal.cpu().numpy()
     return j.reshape(j.shape[0], -1, LANES)
+
+
+def table_from_packed_m(cfg: EnvConfig, m, device) -> torch.Tensor:
+    """The JAX package's packed M (``np.asarray(m, np.float32)``, [spm,
+    128]) -> the port's table float32 [n_codes, 11]: pi columns as they
+    are, v = v_hi + v_lo (the value the JAX kernel bootstraps from)."""
+    m = np.asarray(m, np.float32).reshape(-1)
+    codes = np.arange(rules.n_cellpairs(cfg))
+    base = (codes // M_GP) * LANES + (codes % M_GP) * M_GCOLS
+    pi = m[base[:, None] + np.arange(10)[None, :]]
+    v = m[base + M_V_HI] + m[base + M_V_LO]
+    table = np.concatenate([pi, v[:, None]], axis=1).astype(np.float32)
+    return torch.tensor(table, device=device)
+
+
+def resume_from_numpy(resume: dict, device) -> dict:
+    """A JAX trainer's resume dict (values as numpy arrays; ``fields`` as
+    lane-tiled [B/128, 128] planes) -> the port's: float32 tensors, flat
+    int32 [B] fields, ``next_chunk`` and ``packed`` as Python values."""
+    out = {}
+    for k, val in resume.items():
+        if k == "fields":
+            out[k] = planes_from_tiles(val, device)
+        elif k == "next_chunk":
+            out[k] = int(np.asarray(val))
+        elif k == "packed":
+            out[k] = bool(np.asarray(val))
+        else:
+            out[k] = torch.tensor(np.asarray(val, np.float32), device=device)
+    return out

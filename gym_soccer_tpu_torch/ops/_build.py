@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Each library is compiled from the ``.cu`` sources in ``csrc/`` by ``nvcc``
+Each library is compiled from its ``.cu`` source in ``csrc/`` by ``nvcc``
 into a shared library with a plain C interface, at first use, and loaded
 with ``ctypes``.  The output lands in ``build/gym_soccer_tpu_torch/`` at
-the root of the checkout, named by a hash of its sources and flags, so an
-edited source is rebuilt and an unchanged one is not.  Nothing is built
-or loaded when this module is imported.
+the root of the checkout, named by a hash of its files (the source and the
+headers it includes) and flags, so an edit to any of them is rebuilt and
+an unchanged library is not.  Nothing is built or loaded when this module
+is imported.
 """
 from __future__ import annotations
 
@@ -21,7 +22,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gym_soccer_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-LIBRARIES = {"step_kernel": ("step_kernel.cu",)}
+# Each library's files: the .cu sources it compiles and the headers they
+# include, all of which key its build.
+LIBRARIES = {"step_kernel": ("step_kernel.cu", "game.cuh"),
+             "learner_kernel": ("learner_kernel.cu", "game.cuh")}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -58,7 +62,7 @@ def build(name: str) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(CSRC / s) for s in LIBRARIES[name])]
+           *(str(CSRC / s) for s in LIBRARIES[name] if s.endswith(".cu"))]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -70,6 +74,13 @@ def build(name: str) -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build_all() -> dict[str, Path]:
+    """Build every library, one nvcc process each, all at once."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        return dict(zip(LIBRARIES, pool.map(build, LIBRARIES)))
 
 
 def load(name: str) -> ctypes.CDLL:

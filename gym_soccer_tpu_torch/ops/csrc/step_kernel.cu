@@ -31,165 +31,11 @@
 // 64 blocks of 128 threads on 132 SMs; latency hiding and several lanes
 // per thread are left to later work.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "game.cuh"
+
+using namespace gst;
 
 namespace {
-
-constexpr int kMaxIsd = 4;
-
-struct Game {
-  int H, W, glo, ghi;  // board height, width incl. goal columns, goal rows
-  int q_int;           // round(slip_prob * 65536)
-  int max_steps;
-  int nI;              // number of ISD entries (4 or 2)
-  int isd[kMaxIsd][5]; // ISD entries as (ra, ca, rb, cb, p)
-};
-
-struct Planes {
-  int32_t* f[6];  // ra, ca, rb, cb, p, t
-};
-
-struct State {
-  int ra, ca, rb, cb, p, t;
-};
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ uint32_t random_word(uint32_t seed, uint32_t step,
-                                                uint32_t widx,
-                                                uint32_t lane) {
-  const uint32_t c = seed * 0x9E3779B9u + step * 0x85EBCA77u +
-                     widx * 0xC2B2AE3Du;
-  return fmix32(fmix32(lane ^ c) + c);
-}
-
-__device__ __forceinline__ int u16(uint32_t w, int hi) {
-  return (int)((w >> (hi ? 16 : 0)) & 0xFFFFu);
-}
-
-__device__ __forceinline__ bool in_goal_rows(int x, const Game& g) {
-  return x >= g.glo && x <= g.ghi;
-}
-
-// Keep the intended move with p = 1 - q, else one of the two orthogonals
-// (q / 2 each): (-mr, mc) first, then (mr, -mc).
-__device__ __forceinline__ void slipped_move(int a, int u, int q_int,
-                                             int& mc, int& mr) {
-  const int mc0 = (a == 3) - (a == 4);
-  const int mr0 = (a == 2) - (a == 1);
-  const bool keep = u < 65536 - q_int;
-  const bool first = u < 65536 - q_int / 2;
-  mc = keep ? mc0 : (first ? -mr0 : mr0);
-  mr = keep ? mr0 : (first ? mc0 : -mc0);
-}
-
-__device__ __forceinline__ void next_cell(int x, int y, int mc, int mr,
-                                          bool ball, const Game& g,
-                                          int& nx, int& ny) {
-  nx = min(max(x + mr, 0), g.H - 1);
-  const int nyt = y + mc;
-  const bool xoob = nyt == 0 || nyt == g.W - 1;
-  const bool goal = xoob && in_goal_rows(nx, g) && ball;
-  ny = (xoob && !goal) ? y : nyt;
-}
-
-// One game transition under chosen actions (step_kernel.transition_core).
-__device__ __forceinline__ void transition(State& s, int aa, int ab,
-                                           uint32_t bits1, uint32_t bits2,
-                                           const Game& g, bool& goal,
-                                           int& r) {
-  int mca, mra, mcb, mrb;
-  slipped_move(aa, u16(bits1, 0), g.q_int, mca, mra);
-  slipped_move(ab, u16(bits1, 1), g.q_int, mcb, mrb);
-  int nxa, nya, nxb, nyb;
-  next_cell(s.ra, s.ca, mca, mra, s.p == 0, g, nxa, nya);
-  next_cell(s.rb, s.cb, mcb, mrb, s.p == 1, g, nxb, nyb);
-
-  const int ra = s.ra, ca = s.ca, rb = s.rb, cb = s.cb;
-  const bool c1 =
-      (ra == rb && abs(ca - cb) == 1 && nya == cb && nyb == ca) ||
-      (ca == cb && abs(ra - rb) == 1 && nxa == rb && nxb == ra);
-  const bool c2 = !c1 && ((nxa == rb && nya == cb && ab == 0) ||
-                          (nxb == ra && nyb == ca && aa == 0));
-  const bool c3 =
-      !c1 && !c2 &&
-      ((ra == nxa && ca == nya && aa != 0 && nxb == ra && nyb == ca) ||
-       (rb == nxb && cb == nyb && ab != 0 && nxa == rb && nya == cb));
-  const bool c4 = !c1 && !c2 && !c3 && nxa == nxb && nya == nyb;
-  const bool c5 = !c1 && !c2 && !c3 && !c4;
-
-  const int coin = u16(bits2, 0);
-  const int coin_poss = coin & 1;
-  const bool coin_who = ((coin >> 1) & 1) == 1;
-  const bool a_moves = c5 || (c4 && coin_who);
-  const bool b_moves = c5 || (c4 && !coin_who);
-  if (a_moves) { s.ra = nxa; s.ca = nya; }
-  if (b_moves) { s.rb = nxb; s.cb = nyb; }
-  s.p = c2 ? 1 - s.p : ((c1 || c3 || c4) ? coin_poss : s.p);
-
-  const bool a_ball = s.p == 0;
-  const int ball_col = a_ball ? s.ca : s.cb;
-  const bool gr = a_ball ? in_goal_rows(s.ra, g) : in_goal_rows(s.rb, g);
-  goal = gr && (ball_col == 0 || ball_col == g.W - 1);
-  r = goal ? (ball_col == g.W - 1 ? 1 : -1) : 0;
-}
-
-// Truncation and reset to ISD entry u16(bits2, 1) % nI
-// (step_kernel.autoreset_core).  Returns the ISD index drawn.
-__device__ __forceinline__ int autoreset(State& s, bool goal, uint32_t bits2,
-                                         const Game& g, bool& trunc) {
-  s.t += 1;
-  trunc = s.t >= g.max_steps && !goal;
-  const int idx = u16(bits2, 1) % g.nI;
-  if (goal || trunc) {
-#pragma unroll
-    for (int k = 0; k < kMaxIsd; ++k) {
-      if (k == idx) {
-        s.ra = g.isd[k][0]; s.ca = g.isd[k][1];
-        s.rb = g.isd[k][2]; s.cb = g.isd[k][3];
-        s.p = g.isd[k][4];
-      }
-    }
-    s.t = 0;
-  }
-  return idx;
-}
-
-// Sum three per-thread counters over the block; one atomicAdd per counter
-// per block.  blockDim.x must be a multiple of 32 (checked by the launcher).
-__device__ __forceinline__ void block_sum(long long* stats, long long a,
-                                          long long b, long long c) {
-  __shared__ long long part[32][3];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    a += __shfl_down_sync(0xFFFFFFFFu, a, off);
-    b += __shfl_down_sync(0xFFFFFFFFu, b, off);
-    c += __shfl_down_sync(0xFFFFFFFFu, c, off);
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) { part[warp][0] = a; part[warp][1] = b; part[warp][2] = c; }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    long long sa = 0, sb = 0, sc = 0;
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
-      sa += part[w][0]; sb += part[w][1]; sc += part[w][2];
-    }
-    atomicAdd(reinterpret_cast<unsigned long long*>(stats + 0),
-              (unsigned long long)sa);
-    atomicAdd(reinterpret_cast<unsigned long long*>(stats + 1),
-              (unsigned long long)sb);
-    atomicAdd(reinterpret_cast<unsigned long long*>(stats + 2),
-              (unsigned long long)sc);
-  }
-}
 
 // The step loop of one lane; kJournal adds the journal store.
 template <bool kJournal>
@@ -243,34 +89,6 @@ __global__ void journal_kernel(Planes in, Planes out, long long* stats,
                                int32_t* journal, int B, int n_steps,
                                uint32_t seed, int step_offset, Game g) {
   run_lane<true>(in, out, stats, journal, B, n_steps, seed, step_offset, g);
-}
-
-// params: H, W, glo, ghi, q_int, max_steps, nI, then nI x 5 ISD fields.
-Game make_game(const int32_t* params) {
-  Game g{};
-  g.H = params[0]; g.W = params[1]; g.glo = params[2]; g.ghi = params[3];
-  g.q_int = params[4]; g.max_steps = params[5]; g.nI = params[6];
-  for (int k = 0; k < g.nI && k < kMaxIsd; ++k)
-    for (int f = 0; f < 5; ++f) g.isd[k][f] = params[7 + 5 * k + f];
-  return g;
-}
-
-Planes make_planes(void* const* ptrs) {
-  Planes p;
-  for (int i = 0; i < 6; ++i) p.f[i] = static_cast<int32_t*>(ptrs[i]);
-  return p;
-}
-
-// Shared launch checks, the device the tensors live on, and the zeroing
-// of the stats sums.
-cudaError_t prepare(int device, const int32_t* params, int B, int threads,
-                    long long* stats, cudaStream_t st) {
-  if (B <= 0 || threads <= 0 || threads > 1024 || threads % 32 != 0 ||
-      params[6] < 1 || params[6] > kMaxIsd)
-    return cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
-  return cudaMemsetAsync(stats, 0, 3 * sizeof(long long), st);
 }
 
 }  // namespace

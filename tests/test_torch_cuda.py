@@ -1,4 +1,4 @@
-"""The CUDA kernels K1 and K2 against their plain PyTorch versions on the
+"""The CUDA kernels K1, K2 and K5 against their plain PyTorch versions on the
 card, bit for bit.  Skips without a CUDA device.  This file imports
 neither JAX nor the JAX package, so it runs where only PyTorch is
 installed:
@@ -64,3 +64,77 @@ def test_launch_is_counted(cuda):
     sk.fused_rollout_plain(cfg, 0, 1024, 8, cuda)
     assert sk.launch_counts == {"fused_rollout": 1,
                                 "fused_journal_rollout": 0}
+
+
+# ----------------------------------------------------------------------
+# K5: the packed minimax-Q learner chunk
+# ----------------------------------------------------------------------
+
+def _learner_inputs(cfg, B, device, seed=1):
+    """A non-uniform table with non-zero v, made from a numpy seed, and the
+    initial fields."""
+    import numpy as np
+    from gym_soccer_tpu_torch.ops import learner_kernel as lk
+    nS = len(lk._cell_rows(cfg))
+    rng = np.random.default_rng(seed)
+    pa, pb = (torch.tensor(rng.dirichlet(np.ones(5), nS), dtype=torch.float32,
+                           device=device) for _ in range(2))
+    v = torch.tensor(rng.uniform(-1, 1, nS), dtype=torch.float32,
+                     device=device)
+    return lk.pack_m2(cfg, pa, pb, v, 0.2), lk.init_state_fields(cfg, B,
+                                                                  device)
+
+
+def _same_chunk(a, b):
+    (fa, (ra, ca), sa), (fb, (rb, cb), sb) = a, b
+    return (all(torch.equal(x, y.to(x.device)) for x, y in zip(fa, fb))
+            and torch.equal(ra, rb.to(ra.device))
+            and torch.equal(ca, cb.to(ca.device))
+            and _ints(sa) == _ints(sb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("board", BOARDS)
+def test_learner_kernel_equals_plain_version(cuda, board):
+    """K5 equals its plain version bit for bit (fields, stats, counts and
+    the int64 residual sums) for two block sizes, and on a small input
+    equals the plain version run on the CPU."""
+    from gym_soccer_tpu_torch.ops import learner_kernel as lk
+    cfg = EnvConfig(width=board[0], height=board[1], slip_prob=0.2)
+    B, T = 2048, 32
+    table, fields = _learner_inputs(cfg, B, cuda)
+    plain = lk.packed_learner_chunk_plain(cfg, 5, table, fields, B, T, 0.99,
+                                          cuda)
+    for threads in (128, 256):
+        got = lk.packed_learner_chunk(cfg, 5, table, fields, B, T, 0.99, cuda,
+                                      threads=threads)
+        assert _same_chunk(got, plain)
+    table_c, fields_c = table.cpu(), tuple(f.cpu() for f in fields)
+    cpu = lk.packed_learner_chunk(cfg, 5, table_c, fields_c, B, 8, 0.99,
+                                  "cpu")
+    assert _same_chunk(lk.packed_learner_chunk(cfg, 5, table, fields, B, 8,
+                                               0.99, cuda), cpu)
+
+
+@pytest.mark.cuda
+def test_learner_launch_is_counted_and_resume_is_exact(cuda):
+    """The trainer launches K5 once a chunk, and 2 chunks equal 1 + 1
+    through the resume dict, bit for bit."""
+    from gym_soccer_tpu_torch.ops import learner_kernel as lk
+    cfg = EnvConfig(width=5, height=4, slip_prob=0.2)
+    kw = dict(batch=1024, chunk_len=16, lr=0.5, eps=0.3, eps_halflife=64,
+              lr_anneal_start=1, lr_anneal_tau=4.0, solver_iters=40, seed=3,
+              device=cuda)
+    lk.reset_launch_counts()
+    whole = lk.fused_minimax_train(cfg, n_chunks=2, return_state=True, **kw)
+    assert lk.launch_counts == {"packed_learner_chunk": 2}
+    r = lk.fused_minimax_train(cfg, n_chunks=1, return_state=True, **kw)[5]
+    part = lk.fused_minimax_train(
+        cfg, n_chunks=1, return_state=True,
+        init=tuple(r[k] for k in ("q", "v", "pi_a", "pi_b", "n")),
+        fields_init=r["fields"], start_chunk=r["next_chunk"], **kw)
+    for a, b in zip(whole[:4], part[:4]):
+        assert torch.equal(a, b)
+    assert torch.equal(whole[5]["n"], part[5]["n"])
+    assert all(torch.equal(a, b) for a, b in zip(whole[5]["fields"],
+                                                 part[5]["fields"]))

@@ -14,6 +14,9 @@ MODULES = ["gym_soccer_tpu_torch", "gym_soccer_tpu_torch.config",
            "gym_soccer_tpu_torch.core.tables",
            "gym_soccer_tpu_torch.core.batch",
            "gym_soccer_tpu_torch.ops.step_kernel",
+           "gym_soccer_tpu_torch.ops.learner_kernel",
+           "gym_soccer_tpu_torch.agents.learners",
+           "gym_soccer_tpu_torch.agents.evaluation",
            "gym_soccer_tpu_torch.interop"]
 
 
