@@ -4,13 +4,16 @@ check it.
 
     python3 chip_smoke.py
 
-Two main paths, each driven with its kernels' launch counters reset just
+Three main paths, each driven with its kernels' launch counters reset just
 before it and read just after.  The rollout path is the batched random
 play at 8192 lanes on the 5x4 (slip 0.2) and 11x7 (slip 0.2) boards:
 ``fused_rollout`` (kernel K1), ``fused_journal_rollout`` (kernel K2) with
 ``unpack_journal``, and the batched engine ``core.batch``.  The training
 path is ``fused_minimax_train`` (kernel K5, the RM+ re-solve) and
-``exploitability``.  Phases, each of which raises on failure:
+``exploitability``.  The parity path is ``parity_events`` (kernel K12,
+closed loop) and ``parity_scripted_events`` (kernel K13) with
+``unpack_journal``: bit-exact reference trajectories from seeds, one
+MT19937 draw per event.  Phases, each of which raises on failure:
 
 1. device: a CUDA device is present; its name and power limit;
 2. build: the kernels compile from the sources in this checkout, one nvcc
@@ -39,7 +42,23 @@ path is ``fused_minimax_train`` (kernel K5, the RM+ re-solve) and
     exploitability <= 0.010 at gamma 0.99; wall time split into chunk
     calls and the work between them;
 13. timing: learner env-steps/s of K5 and its plain version at 8192 lanes
-    x 64 steps on 5x4 and 11x7.
+    x 64 steps on 5x4 and 11x7;
+14. parity path: ``parity_events`` at 8192 lanes x 1536 events on 5x4 and
+    11x7 (slip 0.2, numpy-seeded random policies, seeds arange(B) % 997)
+    and ``parity_scripted_events`` at 8192 x 768 events with an 800-row
+    script, the launch counters reset before and read after; the journals
+    decode (reachable raw codes, consistent flags, steps = transition
+    events);
+15. K12/K13: journal and all 8 final fields bit-equal to the plain
+    versions at those shapes for two block sizes, and at 128 lanes x 640
+    events equal to the plain versions run on the CPU;
+16. the reference's own runs through the kernels: all 1000 episodes of
+    the reference main()'s VI-vs-random-B evaluation and the 200-episode
+    joint evaluation through K12 (episode lengths, rewards and the step
+    stream digest), and every multi-agent trajectory fixture through K13,
+    step for step (tests/golden/reference_golden.json, read with json);
+17. timing: events/s and bit-exact env-steps/s of K12, K13 and their plain
+    versions at the phase-14 shapes.
 
 The second-to-last lines are the kernels' JSON record and the card's name
 and power limit; the last line is the JSON verdict.  Exits non-zero, with
@@ -49,6 +68,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -60,14 +80,25 @@ SLIP = 0.2
 T_K1 = 1000
 T_K2 = 1024
 T_K5 = 64
+E_K12 = 1536
+E_K13 = 768
+SCRIPT_ROWS = 800
 SOURCE = {"fused_rollout": "gym_soccer_tpu_torch/ops/csrc/step_kernel.cu",
           "fused_journal_rollout":
               "gym_soccer_tpu_torch/ops/csrc/step_kernel.cu",
           "packed_learner_chunk":
-              "gym_soccer_tpu_torch/ops/csrc/learner_kernel.cu"}
+              "gym_soccer_tpu_torch/ops/csrc/learner_kernel.cu",
+          "parity_events": "gym_soccer_tpu_torch/ops/csrc/parity_kernel.cu",
+          "parity_scripted_events":
+              "gym_soccer_tpu_torch/ops/csrc/parity_kernel.cu"}
 REPLACES = {"fused_rollout": "gym_soccer_tpu/ops/step_kernel.py:254",
             "fused_journal_rollout": "gym_soccer_tpu/ops/step_kernel.py:714",
-            "packed_learner_chunk": "gym_soccer_tpu/ops/learner_kernel.py:666"}
+            "packed_learner_chunk": "gym_soccer_tpu/ops/learner_kernel.py:666",
+            "parity_events": "gym_soccer_tpu/ops/parity_kernel.py:196",
+            "parity_scripted_events":
+                "gym_soccer_tpu/ops/parity_kernel.py:196"}
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "golden", "reference_golden.json")
 # tests/test_learner_kernel.py:117-120 (test_equilibrium_convergence_tpu)
 CONTRACT = dict(batch=65536, n_chunks=1000, chunk_len=32, lr=1.0, eps=0.2,
                 lr_anneal_start=500, lr_anneal_tau=25.0, lr_anneal_pow=1.5,
@@ -108,9 +139,11 @@ def max_abs_err(pairs):
     return err
 
 
-def time_cuda(fn, min_leg_ms=50.0, legs=5):
+def time_cuda(fn, min_leg_ms=50.0, legs=5, slow_legs=None):
     """Median ms per call of ``fn`` over ``legs`` legs, each of enough
-    back-to-back calls to last at least ``min_leg_ms``; CUDA events."""
+    back-to-back calls to last at least ``min_leg_ms``; CUDA events.  With
+    ``slow_legs``, a function whose call takes over a second is timed over
+    that many legs instead."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -119,7 +152,10 @@ def time_cuda(fn, min_leg_ms=50.0, legs=5):
     fn()
     e1.record()
     torch.cuda.synchronize()
-    reps = max(1, math.ceil(min_leg_ms / max(e0.elapsed_time(e1), 1e-3)))
+    one = e0.elapsed_time(e1)
+    if slow_legs is not None and one > 1000.0:
+        legs = slow_legs
+    reps = max(1, math.ceil(min_leg_ms / max(one, 1e-3)))
     per_call = []
     for _ in range(legs):
         e0.record()
@@ -307,13 +343,19 @@ def main() -> int:
     launches.update(learner_launches)
     ms.update(learner_ms)
 
+    parity_launches, parity_errs, parity_ms = parity_phases(torch, dev, card)
+    launches.update(parity_launches)
+    errs.update(parity_errs)
+    ms.update(parity_ms)
+
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": errs[name], "ms": ms[name],
          "plain_ms": ms[name + "_plain"]}
         for name in ("fused_rollout", "fused_journal_rollout",
-                     "packed_learner_chunk")]}
+                     "packed_learner_chunk", "parity_events",
+                     "parity_scripted_events")]}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -447,6 +489,266 @@ def learner_phases(torch, dev, card, cfgs, lk, exploitability):
                   f"env-steps/s (median of {len(legs)} legs x {reps} calls; "
                   f"legs ms/call {legs}) | {card}")
     return launches, err, ms
+
+
+def journal_checks(torch, pk, cfg, out, n_events):
+    """The journal decodes by the repo's own rules: raw codes of reachable
+    or goal states, a reset first on every lane and right after every
+    termination, rewards only on goals, steps = transition events, and
+    final flags that agree with the last event.  Returns the share of
+    events that are transitions."""
+    from gym_soccer_tpu_torch.core import tables
+    J = pk.unpack_journal(out.journal)
+    r2d = torch.as_tensor(tables.build_statespace(cfg).raw_to_dense,
+                          device=out.journal.device)
+    check(bool((r2d[J["raw"].long()] >= 0).all()), "unreachable raw code")
+    reset, done, trunc = J["was_reset"], J["done"], J["truncated"]
+    term = done | trunc
+    check(bool((reset[0] == 1).all()), "a lane did not start with a reset")
+    check(bool(((reset & term) == 0).all()), "reset event with a transition")
+    check(torch.equal(reset[1:], term[:-1]), "resets do not follow ends")
+    check(bool(((J["reward_a"] != 0) <= (done == 1)).all()),
+          "reward without a goal")
+    check(int(J["reward_a"].abs().max()) <= 1, "reward outside {-1, 0, 1}")
+    check(torch.equal(out.steps, (1 - reset).sum(0).int()),
+          "steps != transition events")
+    check(torch.equal(out.needs_reset, term[-1].int()),
+          "final needs_reset != last event's end")
+    check(bool(((out.t >= 0) & (out.t <= cfg.max_steps)).all()),
+          "t out of range")
+    return int(out.steps.sum()) / (n_events * out.steps.shape[0])
+
+
+def parity_inputs(pk, tables, np, cfg, B, seed_a=1, seed_b=7):
+    """Seeds arange(B) % 997 and the joint-row table of two numpy-seeded
+    random policies (tools/bench_parity_kernel.py's inputs)."""
+    nS = tables.build_statespace(cfg).nS
+    pol_a = np.random.RandomState(seed_a).randint(0, 5, nS)
+    pol_b = np.random.RandomState(seed_b).randint(0, 5, nS)
+    return np.arange(B) % 997, pk.jointrow_raw(cfg, pol_a, pol_b)
+
+
+def lane_stream(pk, tables, cfg, out, lane=0):
+    """Lane ``lane``'s events as host lists: (was_reset, state fields, obs,
+    reward, done, truncated) per event."""
+    from gym_soccer_tpu_torch.core import rules
+    import numpy as np
+    J = {k: v[:, lane].cpu().numpy() for k, v in
+         pk.unpack_journal(out.journal).items()}
+    r2d = tables.build_statespace(cfg).raw_to_dense
+    fields = np.stack(rules.raw_decode(np, J["raw"].astype(np.int64), cfg), 1)
+    return [(int(J["was_reset"][k]), fields[k].tolist(), int(r2d[J["raw"][k]]),
+             int(J["reward_a"][k]), bool(J["done"][k]),
+             bool(J["truncated"][k])) for k in range(len(fields))]
+
+
+def check_policy_eval(pk, tables, cfg, out, fx, name):
+    """Episode lengths, rewards and the step stream digest of one
+    closed-loop golden evaluation from lane 0's journal; every lane ran
+    the same seed, so every lane's journal is lane 0's."""
+    import hashlib
+    import numpy as np
+    check(bool((out.journal == out.journal[:, :1]).all()),
+          f"{name}: lanes of one seed differ")
+    h = hashlib.sha256()
+    lengths, rewards, n, total = [], [], 0, np.float64(0.0)
+    for reset, _, obs, r, done, trunc in lane_stream(pk, tables, cfg, out):
+        if reset:
+            continue
+        h.update(obs.to_bytes(4, "little"))
+        h.update(np.float32(r).tobytes())
+        h.update(b"\x01" if done else b"\x00")
+        h.update(b"\x01" if trunc else b"\x00")
+        n += 1
+        total += np.float64(r)
+        if done or trunc:
+            lengths.append(n)
+            rewards.append(total)
+            n, total = 0, np.float64(0.0)
+    want = [np.frombuffer(bytes.fromhex(x), np.float64)[0]
+            for x in fx["episode_rewards"]]
+    check(len(lengths) == fx["n_episodes"],
+          f"{name}: {len(lengths)} episodes, not {fx['n_episodes']}")
+    check(lengths == fx["episode_lengths"], f"{name}: episode lengths differ")
+    check(rewards == want, f"{name}: episode rewards differ")
+    check(h.hexdigest() == fx["step_stream_digest"],
+          f"{name}: step stream digest differs")
+    return len(lengths), sum(lengths)
+
+
+def check_trajectory(pk, tables, cfg, out, rec, name):
+    """Lane 0's events against a golden trajectory: the first event is the
+    seeded reset, then one event per fixture record (resets included)."""
+    import numpy as np
+    ev = lane_stream(pk, tables, cfg, out)
+    check(len(ev) == 1 + len(rec["steps"]), f"{name}: event count")
+    check(ev[0][0] == 1 and ev[0][1] == rec["reset"]["state"],
+          f"{name}: first reset")
+    for k, r in enumerate(rec["steps"], start=1):
+        reset, state, obs, rew, done, trunc = ev[k]
+        if r.get("reset"):
+            check(reset == 1 and state == r["state"],
+                  f"{name}: reset at t={r['t']}")
+            continue
+        want_r = float(np.frombuffer(bytes.fromhex(r["reward"]["player_a"]),
+                                     np.float64)[0])
+        check(reset == 0 and state == r["state"]
+              and obs == r["obs"]["player_a"] and float(rew) == want_r
+              and done == r["done"]["player_a"]
+              and trunc == r["trunc"]["player_a"],
+              f"{name}: step t={r['t']} differs")
+    return len(rec["steps"])
+
+
+def parity_phases(torch, dev, card):
+    """Phases 14-17: the parity path and kernels K12/K13.  Returns their
+    launches on the parity path, their max abs error against the plain
+    versions, and the ms per call of both kernels and plain versions."""
+    import numpy as np
+    from gym_soccer_tpu_torch.config import EnvConfig
+    from gym_soccer_tpu_torch.core import tables
+    from gym_soccer_tpu_torch.ops import parity_kernel as pk
+
+    cfgs = {b: EnvConfig(width=b[0], height=b[1], slip_prob=SLIP)
+            for b in BOARDS}
+    # inputs made with numpy, kept on the card like a user's across calls
+    on_dev = lambda a: torch.as_tensor(a, device=dev)
+    inputs = {b: tuple(map(on_dev, parity_inputs(pk, tables, np, c, B)))
+              for b, c in cfgs.items()}
+    cfg54 = cfgs[(5, 4)]
+    seeds = inputs[(5, 4)][0]
+    rng = np.random.RandomState(3)
+    script_np = (rng.randint(0, 5, (SCRIPT_ROWS, B)) * 5
+                 + rng.randint(0, 5, (SCRIPT_ROWS, B))).astype(np.int32)
+    script = on_dev(script_np)
+    for c in cfgs.values():
+        pk.build_pk(c)  # host tables: set-up, not the path
+
+    # ---- 14. parity path, through the entry points ---------------------
+    pk.reset_launch_counts()
+    closed = {b: pk.parity_events(c, inputs[b][0], inputs[b][1], E_K12, dev)
+              for b, c in cfgs.items()}
+    scripted = pk.parity_scripted_events(cfg54, seeds, script, E_K13, dev)
+    torch.cuda.synchronize()
+    launches = dict(pk.launch_counts)
+    print(f"[parity path] launches {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the parity path")
+    frac = {}
+    for b, out in closed.items():
+        frac[b] = journal_checks(torch, pk, cfgs[b], out, E_K12)
+        goals = int(pk.unpack_journal(out.journal)["done"].sum())
+        print(f"[parity path] {b[0]}x{b[1]} B={B} E={E_K12}: journal "
+              f"decodes; {int(out.steps.sum())} transitions (step fraction "
+              f"{frac[b]}), {goals} goals")
+    frac["script"] = journal_checks(torch, pk, cfg54, scripted, E_K13)
+    check(int(scripted.steps.max()) <= SCRIPT_ROWS,
+          "the script does not cover the events")
+    print(f"[parity path] scripted 5x4 B={B} E={E_K13} rows={SCRIPT_ROWS}: "
+          f"journal decodes; step fraction {frac['script']}, max steps "
+          f"{int(scripted.steps.max())}")
+
+    # ---- 15. K12/K13 against their plain versions ----------------------
+    errs = {"parity_events": 0, "parity_scripted_events": 0}
+
+    def err(a, b):
+        return max_abs_err(list(zip(a, b)))
+
+    for b, c in cfgs.items():
+        plain = pk.parity_events_plain(c, *inputs[b], E_K12, dev)
+        for threads in (128, 256):
+            e = err(closed[b] if threads == 128 else pk.parity_events(
+                c, *inputs[b], E_K12, dev, threads=threads), plain)
+            errs["parity_events"] = max(errs["parity_events"], e)
+            check(e == 0, f"K12 != plain on {b}, threads {threads}: "
+                  f"max abs err {e}")
+    splain = pk.parity_scripted_events_plain(cfg54, seeds, script, E_K13, dev)
+    for threads in (128, 256):
+        e = err(scripted if threads == 128 else pk.parity_scripted_events(
+            cfg54, seeds, script, E_K13, dev, threads=threads), splain)
+        errs["parity_scripted_events"] = e
+        check(e == 0, f"K13 != plain, threads {threads}: max abs err {e}")
+    print(f"[K12/K13] B={B}: K12 (E={E_K12}, 5x4 and 11x7) and K13 "
+          f"(E={E_K13}) bit-equal to the plain versions in the journal and "
+          f"all 8 final fields (max abs err {errs}); threads 128/256 equal")
+    for b, c in cfgs.items():
+        sd, jr = parity_inputs(pk, tables, np, c, 128, 5, 6)
+        check(err(pk.parity_events(c, sd, jr, 640, dev),
+                  pk.parity_events(c, sd, jr, 640, "cpu")) == 0,
+              f"K12 != CPU plain on {b}")
+        check(err(pk.parity_scripted_events(c, sd, script_np[:200, :128],
+                                            640, dev),
+                  pk.parity_scripted_events(c, sd, script_np[:200, :128],
+                                            640, "cpu")) == 0,
+              f"K13 != CPU plain on {b}")
+    print("[K12/K13] B=128 E=640 on 5x4 and 11x7 equal the CPU plain "
+          "versions")
+
+    # ---- 16. the reference's own runs, through the kernels -------------
+    with open(GOLDEN) as f:
+        gold = json.load(f)
+    fx = gold["policy_eval_5x4_slip02_vi_vs_randomB"]
+    pol_b = np.random.RandomState(0).randint(0, 5, 761)
+    runs = (("policy_eval_5x4_slip02_vi_vs_randomB",
+             pk.jointrow_raw(cfg54, fx["policy"], pol_b)),
+            ("policy_eval_5x4_slip02_joint",
+             pk.jointrow_raw(cfg54, gold["policy_eval_5x4_slip02_joint"][
+                 "policy_a"], gold["policy_eval_5x4_slip02_joint"][
+                 "policy_b"])))
+    for name, jr in runs:
+        fx = gold[name]
+        out = pk.parity_events(cfg54, [fx["reset_seed"]] * 128, jr,
+                               fx["total_steps"] + fx["n_episodes"], dev)
+        n_epi, n_steps = check_policy_eval(pk, tables, cfg54, out, fx, name)
+        print(f"[reference] {name}: all {n_epi} episodes ({n_steps} steps, "
+              f"seed {fx['reset_seed']}) reproduced through K12: episode "
+              "lengths, rewards and step stream digest match")
+    slips = {"slip00": 0.0, "slip01": 0.1, "slip02": 0.2, "slip025": 0.25,
+             "slip03": 0.3}
+    for name in sorted(k for k in gold if k.startswith("traj_")
+                       and "_multi_" in k):
+        rec = gold[name]
+        board, slip = name.split("_")[1:3]
+        w, h = (int(x) for x in board.split("x"))
+        c = EnvConfig(width=w, height=h, slip_prob=slips[slip])
+        rows = np.asarray([r["action"]["player_a"] * 5
+                           + r["action"]["player_b"]
+                           for r in rec["steps"] if not r.get("reset")],
+                          np.int32)
+        out = pk.parity_scripted_events(
+            c, [rec["seed"]] * 128, np.repeat(rows[:, None], 128, 1),
+            1 + len(rec["steps"]), dev)
+        n = check_trajectory(pk, tables, c, out, rec, name)
+        print(f"[reference] {name}: {n} records reproduced through K13, "
+              "step for step")
+
+    # ---- 17. timing ----------------------------------------------------
+    ms = {}
+    timed = []
+    for b, c in cfgs.items():
+        timed.append(("parity_events", b, E_K12, frac[b],
+                      lambda c=c, b=b: pk.parity_events(c, *inputs[b], E_K12,
+                                                        dev),
+                      lambda c=c, b=b: pk.parity_events_plain(
+                          c, *inputs[b], E_K12, dev)))
+    timed.append(("parity_scripted_events", (5, 4), E_K13, frac["script"],
+                  lambda: pk.parity_scripted_events(cfg54, seeds, script,
+                                                    E_K13, dev),
+                  lambda: pk.parity_scripted_events_plain(
+                      cfg54, seeds, script, E_K13, dev)))
+    for name, b, E, f, kern, plain in timed:
+        for label, fn in ((name, kern), (name + "_plain", plain)):
+            med, reps, leg_ms = time_cuda(fn, slow_legs=3)
+            few = ("; 3 legs, not 5: a call took over 1 s"
+                   if len(leg_ms) == 3 else "")
+            if b == (5, 4):
+                ms[label] = med
+            ev_s = B * E / (med / 1e3)
+            print(f"[time] {label} {b[0]}x{b[1]} B={B} E={E}: {med} ms/call, "
+                  f"{ev_s} events/s, {ev_s * f} bit-exact env-steps/s (step "
+                  f"fraction {f}; median of {len(leg_ms)} legs x {reps} "
+                  f"calls; legs ms/call {leg_ms}{few}) | {card}")
+    return launches, errs, ms
 
 
 if __name__ == "__main__":

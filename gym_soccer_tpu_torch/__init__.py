@@ -11,12 +11,16 @@ Layers (module paths mirror gym_soccer_tpu's):
   core/tables.py   host-side state-space indexing and transition tensors
                    (numpy)
   core/batch.py    batched engine on tensors, counter RNG
+  core/mt19937.py  the reference's MT19937 on tensors
+  core/parity.py   bit-exact reference trajectories (float64 thresholds)
   agents/          RM+ matrix-game solver; Shapley iteration, best
                    response and exploitability
   ops/step_kernel.py     fused and journaled random rollouts (CUDA K1, K2)
   ops/learner_kernel.py  minimax-Q chunk (CUDA K5) and the chunked trainers
-  interop.py       state, journal and learner layouts to and from the JAX
-                   package
+  ops/parity_kernel.py   bit-exact parity events, closed loop and scripted
+                         (CUDA K12, K13)
+  interop.py       state, journal, learner, MT19937 and parity layouts to
+                   and from the JAX package
 """
 from .config import EnvConfig, NOOP, NORTH, SOUTH, EAST, WEST  # noqa: F401
 

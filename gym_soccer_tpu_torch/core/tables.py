@@ -1,10 +1,11 @@
 """Host-side indexing layer of the state space (numpy only).
 
-The port of ``build_isd``, ``build_statespace`` and ``build_tables`` from
-gym_soccer_tpu/core/tables.py, copied so that their arrays are
-byte-identical to the JAX package's (pinned by tests/test_torch_tables.py
-and tests/test_torch_evaluation.py).  ``build_tables`` is the JAX
-package's numpy backend; the native C++ builder is not ported yet.
+The port of ``build_isd``, ``build_statespace``, ``build_tables`` and
+``collapse_single_agent`` from gym_soccer_tpu/core/tables.py, copied so
+that their arrays are byte-identical to the JAX package's (pinned by
+tests/test_torch_tables.py, tests/test_torch_evaluation.py and
+tests/test_torch_parity.py).  ``build_tables`` is the JAX package's numpy
+backend; the native C++ builder is not ported yet.
 """
 from __future__ import annotations
 
@@ -221,3 +222,43 @@ def build_tables(cfg: EnvConfig) -> GameTables:
         t_next_dense=t_next_dense, t_reward=t_reward, t_done=t_done,
         t_mask=t_mask, t_first=t_first,
     )
+
+
+def collapse_single_agent(tb: GameTables, frozen: str, policy: np.ndarray):
+    """Collapse the joint tensors to single-agent tables by substituting the
+    frozen player's policy at build time (reference :187-188) and flipping
+    rewards when the learner is player B (:242-244).
+
+    ``frozen`` is 'player_a' or 'player_b' (the one WITH the policy);
+    ``policy`` is an int array [nS] of that player's action per dense state.
+
+    Returns dict of [nS, nA, 36] arrays plus the recomputed cumsums.
+    """
+    nA = N_ACTIONS
+    pol = np.asarray(policy, dtype=np.int64).reshape(tb.nS)
+    shape5 = (tb.nS, nA, nA, MAX_TRANSITIONS)
+
+    def pick(arr):
+        a5 = arr.reshape(shape5)
+        if frozen == "player_b":
+            # learner A chooses aa; ab = pol[s]
+            return np.take_along_axis(
+                a5, pol[:, None, None, None], axis=2)[:, :, 0, :]
+        # learner B chooses ab; aa = pol[s]
+        return np.take_along_axis(
+            a5, pol[:, None, None, None], axis=1)[:, 0, :, :]
+
+    reward = pick(tb.t_reward)
+    if frozen == "player_a":
+        reward = -1 * reward  # learner is B: sign flip at build time (:242-244)
+    out = {
+        "t_prob": pick(tb.t_prob),
+        "t_next_raw": pick(tb.t_next_raw),
+        "t_next_dense": pick(tb.t_next_dense),
+        "t_reward": reward,
+        "t_done": pick(tb.t_done),
+        "t_mask": pick(tb.t_mask),
+    }
+    out["t_cum"] = np.cumsum(out["t_prob"], axis=-1)
+    out["t_first"] = np.argmax(out["t_mask"], axis=-1).astype(np.int32)
+    return out

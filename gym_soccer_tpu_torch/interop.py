@@ -11,6 +11,10 @@ never imports JAX: convert a JAX array with ``np.asarray`` first.
   int32 [B] in the same lane order.
 * The journal: int32 [T, B/128, 128] in the JAX package, [T, B] in the
   port, the same words in the same memory order.
+* MT19937 states: uint32 [B, 624] in the JAX package, the same words in
+  int64 [B, 624] in the port (core/mt19937.py).
+* The parity backend's ``ParityState``: the same four [B] leaves (raw, t,
+  cursor int32; needs_reset bool).
 * The minimax-Q learner's state: the JAX package's packed M (bfloat16
   [spm, 128], 8 states per row) becomes the port's table (float32
   [n_codes, 11]); its trainers' resume dict becomes the port's (the
@@ -25,6 +29,7 @@ import torch
 from .config import EnvConfig
 from .core import rules
 from .core.batch import EnvState
+from .core.parity import ParityState
 
 LANES = 128
 # The JAX package's packed M: GP states per 128-wide row, GCOLS columns
@@ -109,3 +114,31 @@ def resume_from_numpy(resume: dict, device) -> dict:
         else:
             out[k] = torch.tensor(np.asarray(val, np.float32), device=device)
     return out
+
+
+def mt_states_from_numpy(states, device) -> torch.Tensor:
+    """uint32 [B, 624] MT19937 states -> the port's int64 [B, 624]."""
+    return torch.as_tensor(np.asarray(states, np.uint32).astype(np.int64),
+                           device=device)
+
+
+def mt_states_to_numpy(states: torch.Tensor) -> np.ndarray:
+    """The port's int64 [B, 624] MT19937 states -> uint32 numpy."""
+    return states.cpu().numpy().astype(np.uint32)
+
+
+def parity_state_from_numpy(state, device) -> ParityState:
+    """The JAX package's ParityState as numpy arrays (``[np.asarray(x) for
+    x in state]``: raw, t, cursor int32 [B]; needs_reset bool [B]) -> the
+    port's."""
+    raw, t, cursor, needs_reset = (np.asarray(x) for x in state)
+    i32 = lambda a: torch.as_tensor(a.astype(np.int32), device=device)
+    return ParityState(raw=i32(raw), t=i32(t), cursor=i32(cursor),
+                       needs_reset=torch.as_tensor(needs_reset.astype(bool),
+                                                   device=device))
+
+
+def parity_state_to_numpy(state: ParityState):
+    """The port's ParityState -> (raw, t, cursor int32; needs_reset bool)
+    numpy arrays, the JAX package's leaves in order."""
+    return tuple(x.cpu().numpy() for x in state)

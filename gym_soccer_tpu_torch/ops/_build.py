@@ -25,7 +25,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Each library's files: the .cu sources it compiles and the headers they
 # include, all of which key its build.
 LIBRARIES = {"step_kernel": ("step_kernel.cu", "game.cuh"),
-             "learner_kernel": ("learner_kernel.cu", "game.cuh")}
+             "learner_kernel": ("learner_kernel.cu", "game.cuh"),
+             "parity_kernel": ("parity_kernel.cu", "game.cuh")}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

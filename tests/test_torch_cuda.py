@@ -1,7 +1,7 @@
-"""The CUDA kernels K1, K2 and K5 against their plain PyTorch versions on the
-card, bit for bit.  Skips without a CUDA device.  This file imports
-neither JAX nor the JAX package, so it runs where only PyTorch is
-installed:
+"""The CUDA kernels K1, K2, K5, K12 and K13 against their plain PyTorch
+versions on the card, bit for bit.  Skips without a CUDA device.  This
+file imports neither JAX nor the JAX package, so it runs where only
+PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -138,3 +138,39 @@ def test_learner_launch_is_counted_and_resume_is_exact(cuda):
     assert torch.equal(whole[5]["n"], part[5]["n"])
     assert all(torch.equal(a, b) for a, b in zip(whole[5]["fields"],
                                                  part[5]["fields"]))
+
+
+# ----------------------------------------------------------------------
+# K12/K13: the parity kernel, closed loop and scripted
+# ----------------------------------------------------------------------
+
+def _same_events(a, b):
+    return all(torch.equal(x, y.to(x.device)) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("board", BOARDS)
+def test_parity_kernels_equal_plain_versions(cuda, board):
+    """K12 and K13 equal their plain versions (journal and the 8 final
+    fields) for two block sizes, and count their launches."""
+    import numpy as np
+    from gym_soccer_tpu_torch.core import tables
+    from gym_soccer_tpu_torch.ops import parity_kernel as pk
+    cfg = EnvConfig(width=board[0], height=board[1], slip_prob=0.2)
+    B, E, T = 2048, 700, 200
+    nS = tables.build_statespace(cfg).nS
+    rng = np.random.RandomState(board[0])
+    jr = pk.jointrow_raw(cfg, *rng.randint(0, 5, (2, nS)))
+    rows = rng.randint(0, 25, (T, B)).astype(np.int32)
+    seeds = np.arange(B) % 997
+    plain = pk.parity_events_plain(cfg, seeds, jr, E, cuda)
+    splain = pk.parity_scripted_events_plain(cfg, seeds, rows, 2 * T, cuda)
+    pk.reset_launch_counts()
+    for threads in (128, 256):
+        assert _same_events(pk.parity_events(cfg, seeds, jr, E, cuda,
+                                             threads=threads), plain)
+        assert _same_events(pk.parity_scripted_events(
+            cfg, seeds, rows, 2 * T, cuda, threads=threads), splain)
+    assert pk.launch_counts == {"parity_events": 2,
+                                "parity_scripted_events": 2}
+    assert bool((splain.steps > T).any()), "no lane ran past the script"

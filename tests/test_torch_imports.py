@@ -13,8 +13,11 @@ MODULES = ["gym_soccer_tpu_torch", "gym_soccer_tpu_torch.config",
            "gym_soccer_tpu_torch.core.rules",
            "gym_soccer_tpu_torch.core.tables",
            "gym_soccer_tpu_torch.core.batch",
+           "gym_soccer_tpu_torch.core.mt19937",
+           "gym_soccer_tpu_torch.core.parity",
            "gym_soccer_tpu_torch.ops.step_kernel",
            "gym_soccer_tpu_torch.ops.learner_kernel",
+           "gym_soccer_tpu_torch.ops.parity_kernel",
            "gym_soccer_tpu_torch.agents.learners",
            "gym_soccer_tpu_torch.agents.evaluation",
            "gym_soccer_tpu_torch.interop"]
@@ -42,3 +45,9 @@ def test_cuda_device_without_a_card_raises():
     for fn in (sk.fused_rollout, sk.fused_journal_rollout):
         with pytest.raises((RuntimeError, AssertionError)):
             fn(cfg, 0, 1024, 4, "cuda")
+    from gym_soccer_tpu_torch.ops import parity_kernel as pk
+    jr = pk.jointrow_raw(cfg, [0] * 761, [0] * 761)
+    with pytest.raises((RuntimeError, AssertionError)):
+        pk.parity_events(cfg, range(128), jr, 4, "cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
+        pk.parity_scripted_events(cfg, range(128), [[0] * 128], 4, "cuda")
