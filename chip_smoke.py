@@ -4,7 +4,7 @@ check it.
 
     python3 chip_smoke.py
 
-Three main paths, each driven with its kernels' launch counters reset just
+Four main paths, each driven with its kernels' launch counters reset just
 before it and read just after.  The rollout path is the batched random
 play at 8192 lanes on the 5x4 (slip 0.2) and 11x7 (slip 0.2) boards:
 ``fused_rollout`` (kernel K1), ``fused_journal_rollout`` (kernel K2) with
@@ -13,11 +13,15 @@ path is ``fused_minimax_train`` (kernel K5, the RM+ re-solve) and
 ``exploitability``.  The parity path is ``parity_events`` (kernel K12,
 closed loop) and ``parity_scripted_events`` (kernel K13) with
 ``unpack_journal``: bit-exact reference trajectories from seeds, one
-MT19937 draw per event.  Phases, each of which raises on failure:
+MT19937 draw per event.  The independent-Q path is ``fused_iql_train``
+(kernel K8, and kernel K9 with ``packed=False``).  Phases, each of which
+raises on failure:
 
 1. device: a CUDA device is present; its name and power limit;
 2. build: the kernels compile from the sources in this checkout, one nvcc
-   per library, in parallel;
+   per library, in parallel; for each kernel's bound, cuobjdump's SASS
+   gives the fewest instructions one step (or event) of its main loop
+   issues (``loop_instructions``);
 3. main path: the user entry points at 8192 lanes, with the kernels'
    launch counters reset before and read after; outputs are checked by
    the repo's own means (valid states, journal decodes, stats agree);
@@ -58,17 +62,42 @@ MT19937 draw per event.  Phases, each of which raises on failure:
     stream digest), and every multi-agent trajectory fixture through K13,
     step for step (tests/golden/reference_golden.json, read with json);
 17. timing: events/s and bit-exact env-steps/s of K12, K13 and their plain
-    versions at the phase-14 shapes.
+    versions at the phase-14 shapes;
+18. IQL path: ``fused_iql_train`` on 5x4 at 8192 lanes for 4 chunks x 64
+    steps through its default device, packed (K8) and unpacked (K9), the
+    launch counters reset before and read after (one launch a chunk); Q
+    finite, |Q| <= 1.05, and the visit counts of one more chunk from the
+    resume state sum to B * T per player;
+19. K8/K9: bit-equal to their plain versions (fields, stats, counts and the
+    int64 sums) at 8192 lanes x 64 steps on 5x4 and 11x7 for two block
+    sizes, on Q tables with near-ties and a step offset; K8 and K9 step the
+    same fields, stats and counts; at 256 x 16 equal to the plain versions
+    run on the CPU, and counting the same values out of the int64 sums'
+    range on tables that hold nan or 1e7;
+20. resume and learning: 2 chunks equal 1 + 1 through the resume dict, bit
+    for bit; the JAX package's learning check (tests/test_iql_kernel.py
+    ``test_fused_iql_training_learns``) on the card; a 65536-lane x 200
+    chunk x 32 step run with its wall time split into chunk calls and the
+    work between them, and greedy-vs-greedy play of its tables through the
+    batched engine (a measurement, not a gate);
+21. timing: learner env-steps/s of K8, K9 and their plain versions at 8192
+    x 64 on 5x4 and 11x7, K8 at 32768 x 64, and ``torch.profiler`` windows
+    of K8 and K9 for device time and idle share.
 
-The second-to-last lines are the kernels' JSON record and the card's name
-and power limit; the last line is the JSON verdict.  Exits non-zero, with
-no verdict, if anything fails or no CUDA device is present.
+The second-to-last lines are the kernels' JSON record (with each
+kernel's bound: the larger of its bytes over the HBM rate and its SASS
+instructions per step times its steps over the instruction rate) and the
+card's name and power
+limit; the last line is the JSON verdict.  The whole run prints its wall
+time.  Exits non-zero, with no verdict, if anything fails or no CUDA
+device is present.
 """
 from __future__ import annotations
 
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -80,6 +109,7 @@ SLIP = 0.2
 T_K1 = 1000
 T_K2 = 1024
 T_K5 = 64
+T_K8 = 64
 E_K12 = 1536
 E_K13 = 768
 SCRIPT_ROWS = 800
@@ -88,15 +118,33 @@ SOURCE = {"fused_rollout": "gym_soccer_tpu_torch/ops/csrc/step_kernel.cu",
               "gym_soccer_tpu_torch/ops/csrc/step_kernel.cu",
           "packed_learner_chunk":
               "gym_soccer_tpu_torch/ops/csrc/learner_kernel.cu",
+          "iql_packed_chunk": "gym_soccer_tpu_torch/ops/csrc/iql_kernel.cu",
+          "iql_chunk": "gym_soccer_tpu_torch/ops/csrc/iql_kernel.cu",
           "parity_events": "gym_soccer_tpu_torch/ops/csrc/parity_kernel.cu",
           "parity_scripted_events":
               "gym_soccer_tpu_torch/ops/csrc/parity_kernel.cu"}
 REPLACES = {"fused_rollout": "gym_soccer_tpu/ops/step_kernel.py:254",
             "fused_journal_rollout": "gym_soccer_tpu/ops/step_kernel.py:714",
             "packed_learner_chunk": "gym_soccer_tpu/ops/learner_kernel.py:666",
+            "iql_packed_chunk": "gym_soccer_tpu/ops/iql_kernel.py:212",
+            "iql_chunk": "gym_soccer_tpu/ops/iql_kernel.py:64",
             "parity_events": "gym_soccer_tpu/ops/parity_kernel.py:196",
             "parity_scripted_events":
                 "gym_soccer_tpu/ops/parity_kernel.py:196"}
+# Each kernel's device function in the built libraries (a substring of its
+# mangled name).
+SYMBOL = {"fused_rollout": "14rollout_kernel", "fused_journal_rollout":
+          "14journal_kernel", "packed_learner_chunk": "14learner_kernel",
+          "iql_packed_chunk": "iql_kernelILb1E", "iql_chunk": "iql_kernelILb0E",
+          "parity_events": "parity_kernelILb0E",
+          "parity_scripted_events": "parity_kernelILb1E"}
+# H100 SXM peaks (NVIDIA's data sheet): 3.35 TB/s of HBM, and 67 TFLOP/s of
+# float32 outside the tensor cores, i.e. 3.35e13 FMA instructions a second
+# (132 SMs x 4 schedulers x 32 lanes x 1.98 GHz), the rate at which the
+# card starts instructions.  A kernel's operations are counted as the SASS
+# instructions a lane runs, each against that rate.
+HBM_BYTES_PER_S = 3.35e12
+INSTRUCTIONS_PER_S = 67e12 / 2
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                       "golden", "reference_golden.json")
 # tests/test_learner_kernel.py:117-120 (test_equilibrium_convergence_tpu)
@@ -104,6 +152,9 @@ CONTRACT = dict(batch=65536, n_chunks=1000, chunk_len=32, lr=1.0, eps=0.2,
                 lr_anneal_start=500, lr_anneal_tau=25.0, lr_anneal_pow=1.5,
                 solver_iters=400, final_solver_iters=3000, seed=1)
 CONTRACT_EXPLOITABILITY = 0.010
+# A longer independent-Q run at the learning check's lr and eps (phase 20).
+IQL_RUN = dict(batch=65536, n_chunks=200, chunk_len=32, lr=0.4, eps=0.3,
+               seed=1)
 
 
 class SmokeFailure(RuntimeError):
@@ -137,6 +188,95 @@ def max_abs_err(pairs):
             d = (a.cpu().long() - b.cpu().long()).abs().max()
             err = max(err, int(d))
     return err
+
+
+def sass_loop_instructions(path):
+    """{mangled kernel name: SASS instructions per trip of its main loop}
+    in the library at ``path``, from ``cuobjdump -sass``; see
+    ``loop_instructions``."""
+    from gym_soccer_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    return loop_instructions(subprocess.run(
+        [tool, "-sass", str(path)], capture_output=True, text=True,
+        timeout=120, check=True).stdout)
+
+
+BRANCH = re.compile(r"^(@!?U?P\d\s+)?BRA\s+(?:!?U?P\d,\s*)?0x([0-9a-f]+)")
+
+
+def loop_instructions(text):
+    """``sass_loop_instructions`` of a ``cuobjdump -sass`` listing.
+
+    The main loop is the span of the longest backward branch (the step or
+    event loop).  A trip around it counts the instructions on the shortest
+    way from its head to that back edge through the loop's control flow:
+    the instructions every step (or event) issues whatever its data.  An
+    if/else counts its shorter side, and a block that a branch may skip (a
+    goal's reset, a collision's resolution, the ISD pick, the MT19937
+    twist) counts not at all, with one exception: a branch that skips
+    global atomics (RED, ATOM) is taken as not taken.  Those blocks are the
+    step's accumulation, which K5/K8/K9 skip only on a lane's first step,
+    the one with no pending visit.  A call counts as one instruction."""
+    kernels, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:   # a function seen before is a second copy of the same code
+            name = m.group(1) if m.group(1) not in kernels else None
+            if name:
+                kernels[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if m and name:
+            kernels[name].append((int(m.group(1), 16), m.group(2).strip()))
+    counts = {}
+    for name, ins in kernels.items():
+        loops = [(int(b.group(2), 16), addr) for addr, op in ins
+                 for b in [BRANCH.match(op)]
+                 if b and int(b.group(2), 16) < addr]
+        check(loops, f"no loop found in the SASS of {name}")
+        lo, hi = max(loops, key=lambda span: span[1] - span[0])
+        body = [(addr, op) for addr, op in ins if lo <= addr <= hi]
+        at = {addr: i for i, (addr, _) in enumerate(body)}
+        atomic = [bool(re.match(r"(@!?U?P\d\s+)?(RED|ATOM)G?\.", op))
+                  for _, op in body]
+        # fewest instructions from the head to each one, inclusive (a
+        # breadth-first search: every instruction weighs one)
+        dist = [math.inf] * len(body)
+        dist[0], todo = 1, [0]
+        for j in todo:
+            for k in _successors(body, at, atomic, j):
+                if dist[k] == math.inf:
+                    dist[k] = dist[j] + 1
+                    todo.append(k)
+        check(dist[-1] < math.inf, f"no way around the loop of {name}")
+        counts[name] = dist[-1]
+    return counts
+
+
+def _successors(body, at, atomic, j):
+    """Indices in ``body`` that instruction ``j`` may pass control to,
+    within the loop; the back edge at the end has none."""
+    if j == len(body) - 1:
+        return ()
+    b = BRANCH.match(body[j][1])
+    if b is None:
+        return () if body[j][1] == "EXIT" else (j + 1,)
+    target = at.get(int(b.group(2), 16))
+    if b.group(1) is None and "," not in body[j][1]:   # unconditional
+        return () if target is None else (target,)
+    if target is not None and target > j and any(atomic[j + 1:target]):
+        return (j + 1,)
+    return (j + 1,) if target is None else (j + 1, target)
+
+
+def bound(units, instructions, nbytes):
+    """(ms, 'bytes' or 'operations'): the least time of ``units`` lane-steps
+    (or lane-events) of ``instructions`` SASS instructions each, moving
+    ``nbytes``, at the card's instruction rate and HBM rate."""
+    ops_ms = units * instructions / INSTRUCTIONS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                               "bytes")
 
 
 def time_cuda(fn, min_leg_ms=50.0, legs=5, slow_legs=None):
@@ -180,6 +320,7 @@ def main() -> int:
     from gym_soccer_tpu_torch.ops import learner_kernel as lk
     from gym_soccer_tpu_torch.ops import step_kernel as sk
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = smi("name,power.limit")
     print(f"[device] {card} | torch {torch.__version__} cuda "
@@ -194,6 +335,17 @@ def main() -> int:
           f"{time.perf_counter() - t0:.3f} s")
     for path in built.values():
         print(path.with_suffix(".log").read_text().strip())
+    loops = {}
+    for path in built.values():
+        loops.update(sass_loop_instructions(path))
+    per_step = {}
+    for name, sym in SYMBOL.items():
+        found = [n for k, n in loops.items() if sym in k]
+        check(len(found) == 1, f"{name}: {len(found)} kernels match {sym}")
+        per_step[name] = found[0]
+    print(f"[build] SASS instructions per lane-step (K12/K13: lane-event) "
+          f"on the shortest way around each kernel's main loop "
+          f"(cuobjdump -sass): {per_step}")
 
     cfgs = {b: EnvConfig(width=b[0], height=b[1], slip_prob=SLIP)
             for b in BOARDS}
@@ -343,20 +495,52 @@ def main() -> int:
     launches.update(learner_launches)
     ms.update(learner_ms)
 
-    parity_launches, parity_errs, parity_ms = parity_phases(torch, dev, card)
+    parity_launches, parity_errs, parity_ms, parity_bytes = parity_phases(
+        torch, dev, card)
     launches.update(parity_launches)
     errs.update(parity_errs)
     ms.update(parity_ms)
 
-    record = {"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE[name],
-         "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": errs[name], "ms": ms[name],
-         "plain_ms": ms[name + "_plain"]}
-        for name in ("fused_rollout", "fused_journal_rollout",
-                     "packed_learner_chunk", "parity_events",
-                     "parity_scripted_events")]}
-    print(json.dumps(record))
+    iql_launches, iql_errs, iql_ms = iql_phases(torch, dev, card, cfgs,
+                                                batch)
+    launches.update(iql_launches)
+    errs.update(iql_errs)
+    ms.update(iql_ms)
+
+    # Each kernel's work at the shape its ms was timed: lane-steps (or
+    # lane-events) and the bytes of its inputs and outputs, each once.
+    fields_bytes = 2 * 6 * 4 * B + 3 * 8   # state planes in and out, stats
+    n54 = lk.n_codes(cfgs[(5, 4)])
+    work = {
+        "fused_rollout": (B * T_K2, fields_bytes),
+        "fused_journal_rollout": (B * T_K2, fields_bytes + 4 * B * T_K2),
+        "packed_learner_chunk": (B * T_K5, fields_bytes
+                                 + n54 * (11 * 4 + 25 * (8 + 4))),
+        "iql_packed_chunk": (B * T_K8, fields_bytes
+                             + n54 * (10 * 4 + 10 * (8 + 4))),
+        "iql_chunk": (B * T_K8, fields_bytes + n54 * (10 * 4 + 10 * (8 + 4))),
+        "parity_events": (B * E_K12, parity_bytes["parity_events"]),
+        "parity_scripted_events": (B * E_K13,
+                                   parity_bytes["parity_scripted_events"]),
+    }
+    kernels = []
+    for name in ("fused_rollout", "fused_journal_rollout",
+                 "packed_learner_chunk", "iql_packed_chunk", "iql_chunk",
+                 "parity_events", "parity_scripted_events"):
+        units, nbytes = work[name]
+        bound_ms, bound_by = bound(units, per_step[name], nbytes)
+        kernels.append(
+            {"name": name, "route": "cuda", "source": SOURCE[name],
+             "replaces": REPLACES[name], "launches": launches[name],
+             "max_abs_err": errs[name], "ms": ms[name],
+             "plain_ms": ms[name + "_plain"], "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": None})
+        print(f"[bound] {name}: {units} units x {per_step[name]} SASS "
+              f"instructions, {nbytes} bytes -> {bound_ms} ms "
+              f"({bound_by}); measured {ms[name]} ms "
+              f"({bound_ms / ms[name] * 100} % of the bound)")
+    print(f"[done] chip_smoke.py ran {time.perf_counter() - t_start} s")
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -415,21 +599,19 @@ def learner_phases(torch, dev, card, cfgs, lk, exploitability):
     for board, c in cfgs.items():
         table, fields = learner_inputs(torch, lk, c, B, dev, seed=board[0])
         plain = lk.packed_learner_chunk_plain(c, 77, table, fields, B, T_K5,
-                                              0.99, dev)
+                                              0.99)
         for threads in (128, 256):
             got = lk.packed_learner_chunk(c, 77, table, fields, B, T_K5, 0.99,
-                                          dev, threads=threads)
+                                          threads=threads)
             e = chunk_err(got, plain)
             err = max(err, e)
             check(e == 0, f"K5 != plain on {board}, threads {threads}: "
                   f"max abs err {e}")
         cnt = int(plain[1][1].sum())
         check(cnt == B * T_K5, f"{cnt} visits counted, not {B * T_K5}")
-        small = lk.packed_learner_chunk(c, 5, table, fields, B, 8, 0.99,
-                                        dev)
+        small = lk.packed_learner_chunk(c, 5, table, fields, B, 8, 0.99)
         cpu = lk.packed_learner_chunk(c, 5, table.cpu(),
-                                      [f.cpu() for f in fields], B, 8, 0.99,
-                                      "cpu")
+                                      [f.cpu() for f in fields], B, 8, 0.99)
         check(chunk_err(small, cpu) == 0, f"K5 != CPU plain on {board}")
         print(f"[K5] {board[0]}x{board[1]} B={B} T={T_K5}: bit-equal to plain "
               f"(fields, stats, counts, int64 residual sums; max abs err "
@@ -481,7 +663,7 @@ def learner_phases(torch, dev, card, cfgs, lk, exploitability):
                          ("packed_learner_chunk_plain",
                           lk.packed_learner_chunk_plain)):
             med, reps, legs = time_cuda(
-                lambda: fn(c, 77, table, fields, B, T_K5, 0.99, dev))
+                lambda: fn(c, 77, table, fields, B, T_K5, 0.99))
             if board == (5, 4):
                 ms[name] = med
             print(f"[time] {name} {board[0]}x{board[1]} B={B} T={T_K5}: "
@@ -748,7 +930,230 @@ def parity_phases(torch, dev, card):
                   f"{ev_s} events/s, {ev_s * f} bit-exact env-steps/s (step "
                   f"fraction {f}; median of {len(leg_ms)} legs x {reps} "
                   f"calls; legs ms/call {leg_ms}{few}) | {card}")
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    # inputs, and the journal and 8 final fields written
+    io_bytes = {"parity_events": nbytes(*inputs[(5, 4)]) + 4 * B * (E_K12 + 8),
+                "parity_scripted_events": nbytes(seeds, script)
+                + 4 * B * (E_K13 + 8)}
+    return launches, errs, ms, io_bytes
+
+
+def iql_inputs(torch, ik, cfg, B, dev, seed):
+    """Q tables in [-1, 1] with near-ties (every third state's action 1 one
+    float32 step above action 0, a tie once double-bf16 rounded) made from
+    a numpy seed, as the chunk's table; and the initial fields."""
+    import numpy as np
+    nS = len(ik.lk._cell_rows(cfg))
+    rng = np.random.default_rng(seed)
+    qa, qb = (torch.tensor(rng.uniform(-1, 1, (nS, 5)), dtype=torch.float32)
+              for _ in range(2))
+    qa[::3, 1] = torch.nextafter(qa[::3, 0], torch.tensor(2.0))
+    return (ik.pack_iql_table(cfg, qa.to(dev), qb.to(dev)),
+            ik.init_iql_state_fields(cfg, B, dev))
+
+
+def iql_phases(torch, dev, card, cfgs, batch):
+    """Phases 18-21: the independent-Q path and kernels K8/K9.  Returns
+    their launches on the IQL path, their max abs error against the plain
+    versions, and the ms per call of both kernels and plain versions."""
+    from gym_soccer_tpu_torch.ops import iql_kernel as ik
+    cfg = cfgs[(5, 4)]
+    names = {True: "iql_packed_chunk", False: "iql_chunk"}
+    eps = int(round(0.3 * 65536))
+
+    # ---- 18. IQL path, through the entry point, on its default device ---
+    ik.reset_launch_counts()
+    path = {packed: ik.fused_iql_train(
+        cfg, batch=B, n_chunks=4, chunk_len=T_K8, lr=0.5, eps=0.3, seed=3,
+        packed=packed, return_state=True) for packed in (True, False)}
+    torch.cuda.synchronize()
+    launches = dict(ik.launch_counts)
+    print(f"[iql path] launches {launches}")
+    check(launches == {"iql_packed_chunk": 4, "iql_chunk": 4},
+          "the IQL path did not launch K8 and K9 once a chunk")
+    for packed, (q_a, q_b, hist, res) in path.items():
+        check(q_a.device.type == "cuda", "fused_iql_train did not default "
+              "to the card")
+        q_max = float(max(q_a.abs().max(), q_b.abs().max()))
+        check(bool(torch.isfinite(q_a).all() & torch.isfinite(q_b).all()),
+              "Q is not finite")
+        check(q_max <= 1.05, f"|Q| = {q_max} > 1.05")
+        goals = sum(h[1] for h in hist)
+        check(goals > 0, "no goals on the IQL path")
+        _, acc, _ = getattr(ik, names[packed])(
+            cfg, 3, eps, ik.pack_iql_table(cfg, q_a, q_b), res["fields"], B,
+            T_K8, 0.99, 4 * T_K8)
+        cnt_a, cnt_b = ik.unpack_iql_acc(cfg, acc)[1::2]
+        check(int(cnt_a.sum()) == int(cnt_b.sum()) == B * T_K8,
+              "visit counts do not sum to B * T per player")
+        print(f"[iql path] 5x4 B={B} 4 chunks x {T_K8} steps, packed="
+              f"{packed}: max|Q| {q_max}, goals in recorded chunks {goals}; "
+              f"a fifth chunk counts {B * T_K8} visits per player")
+
+    # ---- 19. K8/K9 against their plain versions ------------------------
+    errs = {name: 0 for name in names.values()}
+    for board, c in cfgs.items():
+        table, fields = iql_inputs(torch, ik, c, B, dev, seed=board[0])
+        plain = {}
+        for name in names.values():
+            want = getattr(ik, name + "_plain")(c, 77, eps, table, fields, B,
+                                                T_K8, 0.99, 640)
+            for threads in (128, 256):
+                e = chunk_err(getattr(ik, name)(c, 77, eps, table, fields, B,
+                                                T_K8, 0.99, 640, threads),
+                              want)
+                errs[name] = max(errs[name], e)
+                check(e == 0, f"{name} != plain on {board}, threads "
+                      f"{threads}: max abs err {e}")
+            small = [f[:256] for f in fields]
+            check(chunk_err(
+                getattr(ik, name)(c, 5, eps, table, small, 256, 16, 0.99, 9),
+                getattr(ik, name)(c, 5, eps, table.cpu(),
+                                  [f.cpu() for f in small], 256, 16, 0.99,
+                                  9)) == 0,
+                f"{name} != CPU plain on {board}")
+            check(int(want[2][3]) == 0, f"{name}: values out of range")
+            for bad in (float("nan"), 1e7):   # every value; terminal ones
+                counts = [int(getattr(ik, name)(c, 5, eps, t + bad, f, 256, 16,
+                                                0.99, 9)[2][3])
+                          for t, f in ((table, small), (table.cpu(),
+                                       [x.cpu() for x in small]))]
+                check(counts[0] == counts[1] > 0, f"{name} counts {counts} "
+                      f"values out of range with a table + {bad}")
+            plain[name] = want
+        (fa, (_, ca), sa), (fb, (_, cb), sb) = plain.values()
+        check(max_abs_err([*zip(fa, fb), (ca, cb), (ints(sa), ints(sb))]) == 0,
+              f"K8 and K9 step different trajectories on {board}")
+        check(int(ca.sum()) == 2 * B * T_K8, "visit counts != 2 * B * T")
+        print(f"[K8/K9] {board[0]}x{board[1]} B={B} T={T_K8} step offset "
+              f"640: bit-equal to plain (fields, stats, counts, int64 sums; "
+              f"max abs err {errs}); threads 128/256 equal; K8 and K9 step "
+              "the same fields, stats and counts; B=256 T=16 equals the CPU "
+              "plain versions, and counts the same values out of range on "
+              "tables + nan and + 1e7")
+
+    # ---- 20. resume and learning on the card ---------------------------
+    kw = dict(batch=B, chunk_len=T_K8, lr=0.5, eps=0.3, eps_halflife=64,
+              lr_anneal_start=1, lr_anneal_tau=4.0, seed=9)
+    for packed in (True, False):
+        whole = ik.fused_iql_train(cfg, n_chunks=2, return_state=True,
+                                   packed=packed, **kw)
+        r = ik.fused_iql_train(cfg, n_chunks=1, return_state=True,
+                               packed=packed, **kw)[3]
+        part = ik.fused_iql_train(
+            cfg, n_chunks=1, return_state=True, packed=packed,
+            init=(r["q_a"], r["q_b"]), fields_init=r["fields"],
+            start_chunk=r["next_chunk"], **kw)
+        check(all(torch.equal(a, b) for a, b in
+                  [*zip(whole[:2], part[:2]),
+                   *zip(whole[3]["fields"], part[3]["fields"])]),
+              f"2 chunks != 1 + 1 through the resume dict (packed={packed})")
+    print("[iql resume] 2 chunks == 1 + 1 through the resume dict, bit for "
+          "bit in q_a, q_b and fields, packed and unpacked")
+    # tests/test_iql_kernel.py test_fused_iql_training_learns
+    q_a, q_b, hist = ik.fused_iql_train(cfg, batch=1024, n_chunks=30,
+                                        chunk_len=16, lr=0.4, eps=0.3)
+    q_a, q_b = q_a.cpu().numpy(), q_b.cpu().numpy()
+    import numpy as np
+    check(np.abs(q_a).max() > 0.05 and np.abs(q_b).max() > 0.05,
+          "IQL tables did not move")
+    check(np.abs(q_a).max() <= 1.05 and np.abs(q_b).max() <= 1.05,
+          "|Q| > 1.05")
+    check(sum(h[1] for h in hist) > 0, "no goals while learning")
+    va, vb = q_a.max(-1), q_b.max(-1)
+    mask = (np.abs(va) > 0.2) & (np.abs(vb) > 0.2)
+    corr = (float(np.corrcoef(va[mask], vb[mask])[0, 1])
+            if mask.sum() > 20 else None)
+    check(corr is None or corr < 0.5, f"A's and B's values correlate {corr}")
+    print(f"[iql learn] the JAX package's learning check passes on the card: "
+          f"max|q_a| {np.abs(q_a).max()}, max|q_b| {np.abs(q_b).max()}, "
+          f"corr(max q_a, max q_b) on {int(mask.sum())} states {corr}")
+    timing = {}
+    big = IQL_RUN
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q_a, q_b, hist = ik.fused_iql_train(cfg, timing=timing, **big)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = big["batch"] * big["n_chunks"] * big["chunk_len"]
+    print(f"[iql run] 5x4 {big}: train wall {wall} s for {steps} env-steps "
+          f"({steps / wall} env-steps/s): chunk calls {timing['kernel_ms']} "
+          f"ms, between chunks {timing['between_ms']} ms over "
+          f"{timing['chunks']} chunks | {card}")
+    key_words = np.random.default_rng(2).integers(0, 2**32, (512, 2),
+                                                  dtype=np.uint64)
+    state = batch.init_from_keys(cfg, key_words, dev)
+    _, stats = batch.rollout_stats(
+        cfg, state, lambda obs, i: (q_a[obs.long()].argmax(-1).int(),
+                                    q_b[obs.long()].argmax(-1).int()), 200)
+    print(f"[iql run] greedy vs greedy, 512 lanes x 200 steps through the "
+          f"batched engine: reward sum {float(stats.reward_sum)}, goals "
+          f"{int(stats.goals)}, truncations {int(stats.truncs)}")
+
+    # ---- 21. timing ----------------------------------------------------
+    ms = {}
+    for board, c in cfgs.items():
+        table, fields = iql_inputs(torch, ik, c, B, dev, seed=board[0])
+        for name in (*names.values(), *(n + "_plain" for n in names.values())):
+            fn = getattr(ik, name)
+            med, reps, legs = time_cuda(
+                lambda: fn(c, 77, eps, table, fields, B, T_K8, 0.99, 640))
+            if board == (5, 4):
+                ms[name] = med
+            print(f"[time] {name} {board[0]}x{board[1]} B={B} T={T_K8}: "
+                  f"{med} ms/call, {B * T_K8 / (med / 1e3)} learner "
+                  f"env-steps/s (median of {len(legs)} legs x {reps} calls; "
+                  f"legs ms/call {legs}) | {card}")
+    wide = 32768
+    table, fields = iql_inputs(torch, ik, cfg, wide, dev, seed=5)
+    med, reps, legs = time_cuda(lambda: ik.iql_packed_chunk(
+        cfg, 77, eps, table, fields, wide, T_K8, 0.99, 640))
+    print(f"[time] iql_packed_chunk 5x4 B={wide} T={T_K8}: {med} ms/call, "
+          f"{wide * T_K8 / (med / 1e3)} learner env-steps/s (median of "
+          f"{len(legs)} legs x {reps} calls) | {card}")
+    table, fields = iql_inputs(torch, ik, cfg, B, dev, seed=5)
+    for name in names.values():
+        profile_window(torch, lambda: getattr(ik, name)(
+            cfg, 77, eps, table, fields, B, T_K8, 0.99, 640),
+            f"{name} 5x4 B={B} T={T_K8}", "iql_kernel", card)
     return launches, errs, ms
+
+
+def profile_window(torch, fn, label, kernel, card, calls=20):
+    """Device time per call of the kernels whose name holds ``kernel``, all
+    device time, and the device's idle share over ``calls`` back-to-back
+    calls of ``fn`` under ``torch.profiler`` (the profiler's own host cost
+    included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+
+    def device_us(e):
+        return getattr(e, "device_time_total",
+                       getattr(e, "cuda_time_total", 0.0))
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]   # kernels, memsets
+    total = sum(device_us(e) for e in events)
+    mine = sum(device_us(e) for e in events if kernel in e.key)
+    if not events:
+        print(f"[profile] {label}: the profiler saw no device events")
+        return
+    print(f"[profile] {label}: {calls} calls in {window_us} us of window; "
+          f"{kernel} {mine / calls} us of device time per call, all device "
+          f"time {total / calls} us per call, idle share "
+          f"{1 - total / window_us} | {card}")
 
 
 if __name__ == "__main__":

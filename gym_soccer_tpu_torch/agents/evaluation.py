@@ -16,7 +16,9 @@ All operate on the padded joint transition tensors [nS, 5, 5, 36]
 (core/tables.build_tables).  The iterations loop on the host and read the
 convergence test every ``segment_sweeps``/``segment_iters`` sweeps (every
 sweep when 0); ``max_iters`` caps the sweeps without overshoot, as in the
-JAX package.
+JAX package.  ``joint_tensors`` and ``shapley_iteration`` run on
+``device="cuda"`` unless the caller passes "cpu"; the best-response
+functions run where their policy tensors lie.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ class JointTensors(NamedTuple):
     isd_obs: torch.Tensor     # [nI] int64
 
 
-def joint_tensors(cfg: EnvConfig, device="cpu") -> JointTensors:
+def joint_tensors(cfg: EnvConfig, device="cuda") -> JointTensors:
     """The joint transition tensors on ``device`` (built once for each)."""
     return _joint_tensors(cfg, torch.device(device))
 
@@ -90,7 +92,7 @@ def _sweeps(step, V, theta: float, max_iters: int, segment: int):
 def shapley_iteration(cfg: EnvConfig, gamma: float = 0.99,
                       theta: float = 1e-6, max_iters: int = 2000,
                       solver_iters: int = 200, segment_sweeps: int = 0,
-                      device="cpu"):
+                      device="cuda"):
     """Equilibrium solve of the zero-sum Markov game (to RM+ tolerance).
     Returns (V, pi_a, pi_b, Q, iterations).
 

@@ -20,6 +20,11 @@ never imports JAX: convert a JAX array with ``np.asarray`` first.
   [n_codes, 11]); its trainers' resume dict becomes the port's (the
   port's trainers take a JAX run's (q, v, pi_a, pi_b, n) as numpy arrays
   in ``init`` as they are).
+* The independent-Q learner's state: the JAX package's M (bfloat16, both
+  players' Q as double-bf16 hi/lo columns; packed [_spm_i, 128] with 6
+  states per row, or unpacked [spc, 128] with one) becomes the port's
+  table (float32 [n_codes, 10]); its trainer's resume dict (q_a, q_b,
+  fields, next_chunk, packed) goes through ``resume_from_numpy``.
 """
 from __future__ import annotations
 
@@ -36,6 +41,11 @@ LANES = 128
 # each, pi_a at 0-4, pi_b at 5-9, v split as bf16 hi at 10 and lo at 11
 # (gym_soccer_tpu/ops/learner_kernel.py, GP/GCOLS/PCOL_*).
 M_GP, M_GCOLS, M_V_HI, M_V_LO = 8, 16, 10, 11
+# The JAX package's IQL M: each state's 20 columns hold A's Q hi at 0-4
+# and lo at 5-9, B's hi at 10-14 and lo at 15-19; IQL_GP states per row
+# when packed, one when not (gym_soccer_tpu/ops/iql_kernel.py, GP_I and
+# COL_Q*).
+IQL_GP, IQL_GCOLS = 6, 20
 
 
 def env_state_from_numpy(fields, key_words, device) -> EnvState:
@@ -97,6 +107,22 @@ def table_from_packed_m(cfg: EnvConfig, m, device) -> torch.Tensor:
     v = m[base + M_V_HI] + m[base + M_V_LO]
     table = np.concatenate([pi, v[:, None]], axis=1).astype(np.float32)
     return torch.tensor(table, device=device)
+
+
+def iql_table_from_packed_m(cfg: EnvConfig, m, packed: bool,
+                            device) -> torch.Tensor:
+    """The JAX package's IQL M (``np.asarray(m, np.float32)``: [_spm_i,
+    128] from ``pack_iql_m2`` if ``packed``, else [spc, 128] from
+    ``pack_iql_m``) -> the port's table float32 [n_codes, 10]: A's five
+    values, then B's, each hi + lo (the value the JAX kernel acts on)."""
+    m = np.asarray(m, np.float32).reshape(-1)
+    codes = np.arange(rules.n_cellpairs(cfg))
+    base = ((codes // IQL_GP) * LANES + (codes % IQL_GP) * IQL_GCOLS
+            if packed else codes * LANES)
+    k = np.arange(5)[None, :]
+    q_a = m[base[:, None] + k] + m[base[:, None] + 5 + k]
+    q_b = m[base[:, None] + 10 + k] + m[base[:, None] + 15 + k]
+    return torch.tensor(np.concatenate([q_a, q_b], axis=1), device=device)
 
 
 def resume_from_numpy(resume: dict, device) -> dict:

@@ -1,6 +1,7 @@
 // Device code of the soccer game shared by the port's CUDA kernels
-// (step_kernel.cu: K1, K2; learner_kernel.cu: K5), and the host helpers
-// that describe a game to them.
+// (step_kernel.cu: K1, K2; learner_kernel.cu: K5; iql_kernel.cu: K8, K9;
+// parity_kernel.cu: K12, K13), and the host helpers that describe a game
+// to them.
 //
 // Every function here is integer arithmetic on uint32/int32, written to
 // give the same bits as gym_soccer_tpu/ops/step_kernel.py's
@@ -139,6 +140,27 @@ __device__ __forceinline__ int autoreset(State& s, bool goal, uint32_t bits2,
     s.t = 0;
   }
   return idx;
+}
+
+// Number of valid board cells (rules.n_cells).
+__device__ __forceinline__ int n_cells(const Game& g) {
+  return (g.W - 2) * g.H + 2 * (g.ghi - g.glo + 1);
+}
+
+// Closed-form rank of a valid cell (rules.cell_encode).
+__device__ __forceinline__ int cell_encode(int r, int c, const Game& g) {
+  const int ni = (g.W - 2) * g.H;
+  if (c == 0) return ni + r - g.glo;
+  if (c == g.W - 1) return ni + r - g.glo + (g.ghi - g.glo + 1);
+  return (c - 1) * g.H + r;
+}
+
+// Compact state code (rules.cellpair_encode).
+__device__ __forceinline__ int cellpair_encode(const State& s, const Game& g,
+                                               int nc) {
+  const int a = cell_encode(s.ra, s.ca, g);
+  const int b = cell_encode(s.rb, s.cb, g);
+  return (a * (nc - 1) + (b > a ? b - 1 : b)) * 2 + s.p;
 }
 
 // Sum three per-thread counters over the block; one atomicAdd per counter

@@ -51,27 +51,6 @@ constexpr int kColV = 10;
 constexpr int kNJ = 25;    // joint actions
 constexpr float kFix = 4294967296.0f;  // 2^32: residual fixed-point scale
 
-// Number of valid board cells (rules.n_cells).
-__device__ __forceinline__ int n_cells(const Game& g) {
-  return (g.W - 2) * g.H + 2 * (g.ghi - g.glo + 1);
-}
-
-// Closed-form rank of a valid cell (rules.cell_encode).
-__device__ __forceinline__ int cell_encode(int r, int c, const Game& g) {
-  const int ni = (g.W - 2) * g.H;
-  if (c == 0) return ni + r - g.glo;
-  if (c == g.W - 1) return ni + r - g.glo + (g.ghi - g.glo + 1);
-  return (c - 1) * g.H + r;
-}
-
-// Compact state code (rules.cellpair_encode).
-__device__ __forceinline__ int cellpair_encode(const State& s, const Game& g,
-                                               int nc) {
-  const int a = cell_encode(s.ra, s.ca, g);
-  const int b = cell_encode(s.rb, s.cb, g);
-  return (a * (nc - 1) + (b > a ? b - 1 : b)) * 2 + s.p;
-}
-
 // First exceedance of u * total over the running sums of five
 // probabilities, summed in index order (learner_kernel.py `sample5`).
 __device__ __forceinline__ int sample5(const float* __restrict__ pi,

@@ -25,6 +25,9 @@ of addition; ``unpack_acc2`` converts them to float32 per dense state.
 A wrapper runs the plain PyTorch version (``packed_learner_chunk_plain``)
 when its tensors lie on the CPU and launches K5 (``csrc/learner_kernel.cu``)
 when they lie on a CUDA device; there is no fallback from one to the other.
+The chunk wrappers take their device from their tensors; the functions
+that make their own tensors (the trainers, ``init_state_fields``) default
+to "cuda": CPU callers pass "cpu".
 
 Not ported yet: the mixed-geometry trainer (a tuple of configs, kernel K6),
 the unpacked layout (``packed=False``, kernel K7), data parallelism
@@ -86,7 +89,7 @@ def _codes(cfg: EnvConfig, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(_cell_rows(cfg), device=device).long()
 
 
-def init_state_fields(cfg: EnvConfig, batch: int, device):
+def init_state_fields(cfg: EnvConfig, batch: int, device="cuda"):
     """Initial state: lane i on ISD entry i % nI, t = 0 (six int32 [batch]
     tensors ra, ca, rb, cb, p, t)."""
     device = torch.device(device)
@@ -145,7 +148,9 @@ def unpack_acc2(cfg: EnvConfig, acc):
 # ----------------------------------------------------------------------
 
 def _check_chunk_args(cfg: EnvConfig, table, fields, batch: int,
-                      n_steps: int, device):
+                      n_steps: int, cols: int = TABLE_COLS):
+    """The fields as a tuple, once the shapes, types and the one device of
+    the table and the fields are checked."""
     if batch <= 0 or batch % LANES:
         raise ValueError(f"batch must be a positive multiple of {LANES}, "
                          f"got {batch}")
@@ -155,24 +160,18 @@ def _check_chunk_args(cfg: EnvConfig, table, fields, batch: int,
         raise ValueError(
             f"batch * n_steps = {batch * n_steps} exceeds 2**29: the int64 "
             "fixed-point residual sums could overflow")
-    device = torch.device(device)
-
-    def on_device(t):
-        return t.device.type == device.type and (
-            device.index is None or t.device == device)
-
-    shape = (n_codes(cfg), TABLE_COLS)
+    device = table.device
+    shape = (n_codes(cfg), cols)
     if (table.dtype != torch.float32 or tuple(table.shape) != shape
-            or not table.is_contiguous() or not on_device(table)):
-        raise ValueError(f"table must be a contiguous float32 {shape} tensor "
-                         f"on {device}; got {table.dtype} "
-                         f"{tuple(table.shape)} on {table.device}")
+            or not table.is_contiguous()):
+        raise ValueError(f"table must be a contiguous float32 {shape} tensor; "
+                         f"got {table.dtype} {tuple(table.shape)}")
     fields = tuple(fields)
     if len(fields) != 6:
         raise ValueError("fields = 6 tensors (ra, ca, rb, cb, p, t)")
     for f in fields:
         if (f.dtype != torch.int32 or tuple(f.shape) != (batch,)
-                or not f.is_contiguous() or not on_device(f)):
+                or not f.is_contiguous() or f.device != device):
             raise ValueError(
                 f"fields must be contiguous int32 [{batch}] tensors on "
                 f"{device}; got {f.dtype} {tuple(f.shape)} on {f.device}")
@@ -246,23 +245,22 @@ def _plain(cfg: EnvConfig, seed: int, table, fields, n_steps: int,
 
 
 def packed_learner_chunk_plain(cfg: EnvConfig, seed: int, table, fields,
-                               batch: int, n_steps: int, gamma: float = 0.99,
-                               device="cpu"):
+                               batch: int, n_steps: int, gamma: float = 0.99):
     """Plain PyTorch version of ``packed_learner_chunk``, on any device."""
-    fields = _check_chunk_args(cfg, table, fields, batch, n_steps, device)
+    fields = _check_chunk_args(cfg, table, fields, batch, n_steps)
     return _plain(cfg, seed, table, fields, n_steps, gamma)
 
 
 def packed_learner_chunk(cfg: EnvConfig, seed: int, table, fields,
                          batch: int, n_steps: int, gamma: float = 0.99,
-                         device="cpu", threads: int = 128):
+                         threads: int = 128):
     """Run one fused minimax-Q chunk.
 
     ``table``: float32 [n_codes, 11] from ``pack_m2``; ``fields``: six
     int32 [batch] tensors (ra, ca, rb, cb, p, t), e.g. from
-    ``init_state_fields``; both on ``device``.  ``batch`` is a multiple of
-    128 and batch * n_steps at most 2**29.  ``seed`` keys the counter PRNG
-    with the steps numbered from 0.  Returns ``(fields, (res, cnt),
+    ``init_state_fields``; both on one device, where the chunk runs.
+    ``batch`` is a multiple of 128 and batch * n_steps at most 2**29.
+    ``seed`` keys the counter PRNG with the steps numbered from 0.  Returns ``(fields, (res, cnt),
     (reward_sum, goals, truncs))``: the final state, the int64 residual
     sums (units of 2**-32) and int32 visit counts [n_codes, 25] (decode
     with ``unpack_acc2``), and the int64 totals.  ``threads`` is the CUDA
@@ -271,7 +269,7 @@ def packed_learner_chunk(cfg: EnvConfig, seed: int, table, fields,
     On a CPU device this runs ``packed_learner_chunk_plain``; on a CUDA
     device it launches the K5 kernel.
     """
-    fields = _check_chunk_args(cfg, table, fields, batch, n_steps, device)
+    fields = _check_chunk_args(cfg, table, fields, batch, n_steps)
     if table.device.type == "cpu":
         return _plain(cfg, seed, table, fields, n_steps, gamma)
     return _launch(cfg, seed, table, fields, n_steps, gamma, threads)
@@ -415,7 +413,7 @@ def fused_minimax_train(cfg: EnvConfig, batch: int, n_chunks: int,
                         start_chunk: int = 0,
                         fields_init: tuple | None = None,
                         return_state: bool = False,
-                        device="cpu", timing: dict | None = None,
+                        device="cuda", timing: dict | None = None,
                         mesh=None, packed: bool | None = None,
                         single_dispatch: bool = False,
                         chunks_per_dispatch: int = 1):
@@ -507,8 +505,7 @@ def fused_minimax_train(cfg: EnvConfig, batch: int, n_chunks: int,
     for k in range(start_chunk, end_chunk):
         clock.mark()
         fields, acc, stats = packed_learner_chunk(
-            cfg, _chunk_seed(seed, k), m, fields, batch, chunk_len, gamma,
-            device)
+            cfg, _chunk_seed(seed, k), m, fields, batch, chunk_len, gamma)
         clock.mark()
         q, n, v, pi_a, pi_b, m = between(
             q, n, v, acc, _f32(lr_at(k)),
@@ -551,7 +548,8 @@ def fused_best_response_train(cfg: EnvConfig, opp_policy, side: str,
                               start_chunk: int = 0,
                               fields_init: tuple | None = None,
                               return_state: bool = False,
-                              device="cpu", mesh=None, packed: bool | None = None,
+                              device="cuda", mesh=None,
+                              packed: bool | None = None,
                               chunks_per_dispatch: int = 1):
     """Fused single-agent training: the best response of ``side``
     ('player_a' or 'player_b') to a frozen deterministic opponent
@@ -647,8 +645,7 @@ def fused_best_response_train(cfg: EnvConfig, opp_policy, side: str,
     history = []
     for k in range(start_chunk, end_chunk):
         fields, acc, stats = packed_learner_chunk(
-            cfg, _chunk_seed(seed, k), m, fields, batch, chunk_len, gamma,
-            device)
+            cfg, _chunk_seed(seed, k), m, fields, batch, chunk_len, gamma)
         q, n, v, pi_a, pi_b, m = between(q, n, v, acc, _f32(lr_at(k)),
                                          _f32(eps_at(k)))
         if k % 16 == 0 or k == end_chunk - 1:

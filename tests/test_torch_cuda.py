@@ -1,4 +1,4 @@
-"""The CUDA kernels K1, K2, K5, K12 and K13 against their plain PyTorch
+"""The CUDA kernels K1, K2, K5, K8, K9, K12 and K13 against their plain PyTorch
 versions on the card, bit for bit.  Skips without a CUDA device.  This
 file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -103,17 +103,15 @@ def test_learner_kernel_equals_plain_version(cuda, board):
     cfg = EnvConfig(width=board[0], height=board[1], slip_prob=0.2)
     B, T = 2048, 32
     table, fields = _learner_inputs(cfg, B, cuda)
-    plain = lk.packed_learner_chunk_plain(cfg, 5, table, fields, B, T, 0.99,
-                                          cuda)
+    plain = lk.packed_learner_chunk_plain(cfg, 5, table, fields, B, T, 0.99)
     for threads in (128, 256):
-        got = lk.packed_learner_chunk(cfg, 5, table, fields, B, T, 0.99, cuda,
+        got = lk.packed_learner_chunk(cfg, 5, table, fields, B, T, 0.99,
                                       threads=threads)
         assert _same_chunk(got, plain)
     table_c, fields_c = table.cpu(), tuple(f.cpu() for f in fields)
-    cpu = lk.packed_learner_chunk(cfg, 5, table_c, fields_c, B, 8, 0.99,
-                                  "cpu")
+    cpu = lk.packed_learner_chunk(cfg, 5, table_c, fields_c, B, 8, 0.99)
     assert _same_chunk(lk.packed_learner_chunk(cfg, 5, table, fields, B, 8,
-                                               0.99, cuda), cpu)
+                                               0.99), cpu)
 
 
 @pytest.mark.cuda
@@ -138,6 +136,79 @@ def test_learner_launch_is_counted_and_resume_is_exact(cuda):
     assert torch.equal(whole[5]["n"], part[5]["n"])
     assert all(torch.equal(a, b) for a, b in zip(whole[5]["fields"],
                                                  part[5]["fields"]))
+
+
+# ----------------------------------------------------------------------
+# K8/K9: the independent-Q learner chunks
+# ----------------------------------------------------------------------
+
+def _iql_inputs(cfg, B, device, seed=1):
+    """Q tables in [-1, 1] with near-ties (every third state's action 1
+    one float32 step above action 0), made from a numpy seed, as the
+    chunk's table; and the initial fields."""
+    import numpy as np
+    from gym_soccer_tpu_torch.ops import iql_kernel as ik
+    nS = len(ik.lk._cell_rows(cfg))
+    rng = np.random.default_rng(seed)
+    qa, qb = (torch.tensor(rng.uniform(-1, 1, (nS, 5)), dtype=torch.float32)
+              for _ in range(2))
+    qa[::3, 1] = torch.nextafter(qa[::3, 0], torch.tensor(2.0))
+    table = ik.pack_iql_table(cfg, qa.to(device), qb.to(device))
+    return table, ik.init_iql_state_fields(cfg, B, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("board", BOARDS)
+def test_iql_kernels_equal_plain_versions(cuda, board):
+    """K8 and K9 equal their plain versions bit for bit (fields, stats,
+    counts and the int64 sums) for two block sizes with a step offset; K8
+    and K9 step the same fields, stats and counts; on a small input the
+    kernels equal the plain versions run on the CPU."""
+    from gym_soccer_tpu_torch.ops import iql_kernel as ik
+    cfg = EnvConfig(width=board[0], height=board[1], slip_prob=0.2)
+    B, T, eps = 2048, 32, 19661
+    table, fields = _iql_inputs(cfg, B, cuda)
+    ik.reset_launch_counts()
+    runs = {}
+    for name in ("iql_packed_chunk", "iql_chunk"):
+        kernel, plain = getattr(ik, name), getattr(ik, name + "_plain")
+        want = plain(cfg, 5, eps, table, fields, B, T, 0.99, 7)
+        for threads in (128, 256):
+            got = kernel(cfg, 5, eps, table, fields, B, T, 0.99, 7, threads)
+            assert _same_chunk(got, want)
+        cpu = kernel(cfg, 5, eps, table.cpu(), [f.cpu() for f in fields], B,
+                     8, 0.99, 7)
+        assert _same_chunk(kernel(cfg, 5, eps, table, fields, B, 8, 0.99, 7),
+                           cpu)
+        runs[name] = want
+    assert ik.launch_counts == {"iql_packed_chunk": 3, "iql_chunk": 3}
+    (fa, (_, ca), sa), (fb, (_, cb), sb) = runs.values()
+    assert all(torch.equal(x, y) for x, y in zip(fa, fb))
+    assert torch.equal(ca, cb) and _ints(sa) == _ints(sb)
+    assert int(ca.sum()) == 2 * B * T
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False])
+def test_iql_launch_is_counted_and_resume_is_exact(cuda, packed):
+    """The trainer launches K8 (or K9) once a chunk, and 2 chunks equal
+    1 + 1 through the resume dict, bit for bit."""
+    from gym_soccer_tpu_torch.ops import iql_kernel as ik
+    cfg = EnvConfig(width=5, height=4, slip_prob=0.2)
+    kw = dict(batch=1024, chunk_len=16, lr=0.5, eps=0.3, eps_halflife=64,
+              lr_anneal_start=1, lr_anneal_tau=4.0, seed=3, packed=packed)
+    ik.reset_launch_counts()
+    whole = ik.fused_iql_train(cfg, n_chunks=2, return_state=True, **kw)
+    name = "iql_packed_chunk" if packed else "iql_chunk"
+    assert ik.launch_counts[name] == 2 and sum(ik.launch_counts.values()) == 2
+    r = ik.fused_iql_train(cfg, n_chunks=1, return_state=True, **kw)[3]
+    part = ik.fused_iql_train(
+        cfg, n_chunks=1, return_state=True, init=(r["q_a"], r["q_b"]),
+        fields_init=r["fields"], start_chunk=r["next_chunk"], **kw)
+    for a, b in zip(whole[:2], part[:2]):
+        assert torch.equal(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(whole[3]["fields"],
+                                                 part[3]["fields"]))
 
 
 # ----------------------------------------------------------------------

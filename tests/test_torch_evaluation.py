@@ -86,7 +86,7 @@ def test_exploitability_equals_jax(pair):
 def test_shapley_iteration_equals_jax():
     kw = dict(gamma=0.9, max_iters=40, solver_iters=100)
     want = jev.shapley_iteration(JCFG, **kw)
-    got = ev.shapley_iteration(CFG, **kw)
+    got = ev.shapley_iteration(CFG, device="cpu", **kw)
     assert got[4] == int(want[4]) == 40
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=0,
                                atol=1e-4)
@@ -97,7 +97,7 @@ def test_shapley_iteration_equals_jax():
 def test_shapley_segments_never_overshoot_max_iters():
     kw = dict(gamma=0.9, max_iters=12, solver_iters=50, segment_sweeps=5)
     want = jev.shapley_iteration(JCFG, **kw)
-    got = ev.shapley_iteration(CFG, **kw)
+    got = ev.shapley_iteration(CFG, device="cpu", **kw)
     assert got[4] == int(want[4]) == 12
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=0,
                                atol=1e-4)
@@ -105,7 +105,7 @@ def test_shapley_segments_never_overshoot_max_iters():
 
 
 def test_start_value_and_joint_tensors():
-    jt = ev.joint_tensors(CFG)
+    jt = ev.joint_tensors(CFG, "cpu")
     assert tuple(jt.prob.shape) == (NS, 5, 5, 36)
     np.testing.assert_allclose(jt.prob.sum(-1).numpy(), 1.0, atol=1e-6)
     V = torch.arange(NS, dtype=torch.float32)

@@ -17,6 +17,7 @@ MODULES = ["gym_soccer_tpu_torch", "gym_soccer_tpu_torch.config",
            "gym_soccer_tpu_torch.core.parity",
            "gym_soccer_tpu_torch.ops.step_kernel",
            "gym_soccer_tpu_torch.ops.learner_kernel",
+           "gym_soccer_tpu_torch.ops.iql_kernel",
            "gym_soccer_tpu_torch.ops.parity_kernel",
            "gym_soccer_tpu_torch.agents.learners",
            "gym_soccer_tpu_torch.agents.evaluation",
@@ -51,3 +52,30 @@ def test_cuda_device_without_a_card_raises():
         pk.parity_events(cfg, range(128), jr, 4, "cuda")
     with pytest.raises((RuntimeError, AssertionError)):
         pk.parity_scripted_events(cfg, range(128), [[0] * 128], 4, "cuda")
+    # The trainers and the solver run on the card unless asked for the CPU.
+    from gym_soccer_tpu_torch.agents import evaluation as ev
+    from gym_soccer_tpu_torch.ops import iql_kernel as ik
+    from gym_soccer_tpu_torch.ops import learner_kernel as lk
+    kw = dict(batch=256, n_chunks=1, chunk_len=4)
+    for fn, args, extra in (
+            (lk.fused_minimax_train, (cfg,), {}),
+            (lk.fused_best_response_train, (cfg, [0] * 761, "player_a"), {}),
+            (ik.fused_iql_train, (cfg,), {}),
+            (ik.fused_iql_train, (cfg,), {"packed": False})):
+        with pytest.raises((RuntimeError, AssertionError)):
+            fn(*args, **kw, **extra)
+    for fn in (ev.shapley_iteration, ev.joint_tensors):
+        with pytest.raises((RuntimeError, AssertionError)):
+            fn(cfg)
+    # The chunk wrappers run where their tensors lie, and their inputs are
+    # made on the card unless asked for the CPU.
+    for fn in (lk.init_state_fields, ik.init_iql_state_fields):
+        with pytest.raises((RuntimeError, AssertionError)):
+            fn(cfg, 256)
+    fields = [f.to("meta") for f in lk.init_state_fields(cfg, 256, "cpu")]
+    for fn, cols in ((lk.packed_learner_chunk, 11), (ik.iql_packed_chunk, 10),
+                     (ik.iql_chunk, 10)):
+        table = torch.zeros(lk.n_codes(cfg), cols, device="meta")
+        args = (0, table, fields) if cols == 11 else (0, 0, table, fields)
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            fn(cfg, *args, 256, 4)

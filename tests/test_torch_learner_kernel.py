@@ -72,7 +72,7 @@ def test_chunk_plain_equals_jax(board, B, T, seed, uniform):
     table = interop.table_from_packed_m(cfg, np.asarray(m, np.float32), "cpu")
     fields0 = interop.planes_from_tiles(jfields0, "cpu")
     fields, acc, stats = lk.packed_learner_chunk(cfg, seed, table, fields0,
-                                                 B, T, 0.99, "cpu")
+                                                 B, T, 0.99)
     res, cnt = (a.numpy() for a in lk.unpack_acc2(cfg, acc))
 
     _assert_planes_equal(fields, jfields)
@@ -168,7 +168,7 @@ def test_first_between_step_equals_jax():
     jq, jv, jpa, jpb, jhist, jres = jlk.fused_minimax_train(
         JCFG, n_chunks=1, return_state=True, interpret=True, **TRAIN)
     q, v, pa, pb, hist, res = lk.fused_minimax_train(
-        CFG, n_chunks=1, return_state=True, **TRAIN)
+        CFG, n_chunks=1, return_state=True, device="cpu", **TRAIN)
     assert hist == jhist
     assert np.array_equal(q.numpy(), np.asarray(jq))
     assert np.array_equal(res["n"].numpy(), np.asarray(jres["n"]))
@@ -195,7 +195,8 @@ def test_resume_from_jax_state_follows_jax():
                                                   "n"))
     _, _, _, _, hist, res = lk.fused_minimax_train(
         CFG, n_chunks=1, return_state=True, init=init,
-        fields_init=r["fields"], start_chunk=r["next_chunk"], **TRAIN)
+        fields_init=r["fields"], start_chunk=r["next_chunk"], device="cpu",
+        **TRAIN)
     assert hist == jhist[-1:]
     _assert_planes_equal(res["fields"], jres2["fields"])
     assert np.array_equal(res["n"].numpy(), np.asarray(jres2["n"]))
@@ -207,7 +208,8 @@ def test_trainer_exact_resume():
     """2 chunks in one call equal 1 + 1 through the resume dict, bit for
     bit, with annealed lr and eps."""
     kw = dict(batch=256, chunk_len=4, lr=0.5, eps=0.4, eps_halflife=32,
-              lr_anneal_start=1, lr_anneal_tau=4.0, solver_iters=30, seed=7)
+              lr_anneal_start=1, lr_anneal_tau=4.0, solver_iters=30, seed=7,
+              device="cpu")
     q, v, pa, pb, hist, res = lk.fused_minimax_train(
         CFG, n_chunks=2, return_state=True, **kw)
     r1 = lk.fused_minimax_train(CFG, n_chunks=1, return_state=True, **kw)[5]
@@ -229,11 +231,11 @@ def test_warm_start_and_post_processing():
     pi0 = torch.full((NS, 5), 0.2)
     q, _, pa, _, _ = lk.fused_minimax_train(
         CFG, batch=256, n_chunks=1, chunk_len=4, lr=0.0, eps=0.5,
-        solver_iters=50, init=(q0, q0.mean((1, 2)), pi0, pi0))
+        solver_iters=50, init=(q0, q0.mean((1, 2)), pi0, pi0), device="cpu")
     assert torch.equal(q, q0)
     assert not torch.allclose(pa, pi0, atol=1e-3)
     kw = dict(batch=256, n_chunks=4, chunk_len=4, lr=0.7, eps=0.4,
-              solver_iters=40, seed=11)
+              solver_iters=40, seed=11, device="cpu")
     base = lk.fused_minimax_train(CFG, **kw)
     for extra in (dict(avg_after=1), dict(avg_after=1, avg_q=True),
                   dict(final_solver_iters=80)):
@@ -251,7 +253,8 @@ def test_fused_training_learns():
     q, v, pa, pb, hist = lk.fused_minimax_train(
         CFG, batch=4096, n_chunks=120, chunk_len=8, lr=1.0, eps=0.25,
         gamma=gamma, lr_anneal_start=60, lr_anneal_tau=10.0,
-        lr_anneal_pow=1.5, solver_iters=200, final_solver_iters=1500, seed=5)
+        lr_anneal_pow=1.5, solver_iters=200, final_solver_iters=1500, seed=5,
+        device="cpu")
     uniform = torch.full((NS, 5), 0.2)
     ex_uniform = exploitability(CFG, uniform, uniform, gamma=gamma)
     ex_trained = exploitability(CFG, pa, pb, gamma=gamma)
@@ -270,7 +273,8 @@ def test_fused_best_response_matches_exact_br(side, opp_seed, seed):
     opp = np.asarray(get_random_policy_array(NS, 5, seed=opp_seed))
     q, v, pa, pb, hist = lk.fused_best_response_train(
         CFG, opp, side, batch=1024, n_chunks=40, chunk_len=8, lr=1.0,
-        gamma=gamma, eps=0.3, eps_halflife=160, eps_min=0.1, seed=seed)
+        gamma=gamma, eps=0.3, eps_halflife=160, eps_min=0.1, seed=seed,
+        device="cpu")
     opp_oh = torch.nn.functional.one_hot(torch.tensor(opp).long(), 5).float()
     assert torch.equal(pb if side == "player_a" else pa, opp_oh)
     v_br, _ = best_response_value(CFG, opp_oh, side, gamma=gamma)
@@ -284,7 +288,7 @@ def test_best_response_exact_resume():
     opp = np.asarray(get_random_policy_array(NS, 5, seed=3))
     kw = dict(batch=256, chunk_len=4, lr=0.8, eps=0.4, eps_halflife=64,
               eps_min=0.1, lr_anneal_start=1, lr_anneal_tau=4.0, gamma=0.9,
-              seed=13)
+              seed=13, device="cpu")
     whole = lk.fused_best_response_train(CFG, opp, "player_a", n_chunks=3,
                                          return_state=True, **kw)
     r = lk.fused_best_response_train(CFG, opp, "player_a", n_chunks=1,
@@ -312,14 +316,15 @@ def test_chunk_checks_its_arguments():
     with pytest.raises(ValueError, match="int32"):
         lk.packed_learner_chunk(CFG, 0, table, [f.long() for f in fields],
                                 256, 4)
+    with pytest.raises(ValueError, match="on meta"):   # one device for all
+        lk.packed_learner_chunk(CFG, 0, table.to("meta"), fields, 256, 4)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         lk.packed_learner_chunk(CFG, 0, table.to("meta"),
-                                [f.to("meta") for f in fields], 256, 4,
-                                device="meta")
+                                [f.to("meta") for f in fields], 256, 4)
 
 
 def test_unported_modes_raise():
-    kw = dict(batch=256, n_chunks=1, chunk_len=4)
+    kw = dict(batch=256, n_chunks=1, chunk_len=4, device="cpu")
     for extra in (dict(mesh=object()), dict(packed=False),
                   dict(single_dispatch=True), dict(chunks_per_dispatch=4)):
         with pytest.raises(NotImplementedError):
