@@ -4,7 +4,7 @@ check it.
 
     python3 chip_smoke.py
 
-Four main paths, each driven with its kernels' launch counters reset just
+Five main paths, each driven with its kernels' launch counters reset just
 before it and read just after.  The rollout path is the batched random
 play at 8192 lanes on the 5x4 (slip 0.2) and 11x7 (slip 0.2) boards:
 ``fused_rollout`` (kernel K1), ``fused_journal_rollout`` (kernel K2) with
@@ -14,8 +14,11 @@ path is ``fused_minimax_train`` (kernel K5, the RM+ re-solve) and
 closed loop) and ``parity_scripted_events`` (kernel K13) with
 ``unpack_journal``: bit-exact reference trajectories from seeds, one
 MT19937 draw per event.  The independent-Q path is ``fused_iql_train``
-(kernel K8, and kernel K9 with ``packed=False``).  Phases, each of which
-raises on failure:
+(kernel K8, and kernel K9 with ``packed=False``).  The mixed-geometry path
+is ``multigrid_rollout`` (kernel K3) on a mixture of three boards and
+``fused_minimax_train`` on that mixture (kernel K6, and kernel K7's
+multigrid site with ``packed=False``) and on one board with
+``packed=False`` (kernel K7).  Phases, each of which raises on failure:
 
 1. device: a CUDA device is present; its name and power limit;
 2. build: the kernels compile from the sources in this checkout, one nvcc
@@ -82,7 +85,43 @@ raises on failure:
     batched engine (a measurement, not a gate);
 21. timing: learner env-steps/s of K8, K9 and their plain versions at 8192
     x 64 on 5x4 and 11x7, K8 at 32768 x 64, and ``torch.profiler`` windows
-    of K8 and K9 for device time and idle share.
+    of K8 and K9 for device time and idle share;
+22. mixed-geometry path: ``multigrid_rollout`` at 8192 lanes x 1024 steps on
+    tools/bench_all.py's mixture (5x4 slip 0.2, 6x5 slip 0.1, 8x6 slip 0.3)
+    through its default device, ``fused_minimax_train`` on that mixture for
+    4 chunks of 8192 x 64, packed (K6) and ``packed=False`` (K7 multigrid),
+    and on 5x4 with ``packed=False`` (K7), the launch counters reset before
+    and read after; every lane ends on its own board in a reachable state
+    of its variant, the per-variant stats are plausible and sum to the
+    batch's totals, Q finite and |v| <= 1.05, and one more chunk from each
+    mixture run's resume state counts each variant's lanes x 64 visits in
+    its own table block;
+23. K3: bit-equal to its plain version (fields and per-variant stats) at
+    8192 x 1024 for two block sizes; a run split by ``step_offset`` equals
+    one run; the one-variant mixture (5x4,) equals K1; at 1024 x 64 equal
+    to the plain version run on the CPU;
+24. K6 and K7 (both sites): bit-equal to their plain versions (fields,
+    stats, counts, the int64 sums and the out-of-range count) at 8192 x 64
+    on the mixture and on 5x4+11x7 (K6, K7 multigrid) and on 5x4 and 11x7
+    (K7), for two block sizes, on tables with non-uniform pi and v, q != 0;
+    K6 and K7 step the same fields, stats and counts; at 256 x 16 equal to
+    the plain versions run on the CPU; K5, K6 and K7 count the same
+    out-of-range values as their plain versions on tables holding nan and
+    1e7; the (5x4,) mixture trainer equals the static trainer for 3 chunks
+    bit for bit in q, n and the fields; a mixture run resumed 1 + 1 equals
+    2, packed and not;
+25. learning: the JAX package's ``--multigrid`` recipe
+    (examples/train_minimax_tpu.py:141-151: 5x4 + 6x5 at slip 0.2, 16384
+    lanes, 312 chunks x 64 steps, lr 1.0, eps 0.2, anneal from chunk 156
+    with tau 25 and pow 1.5, 2000 final solver iterations), packed and
+    ``packed=False``; each variant's exploitability on its slice of the
+    concatenated policies at most 0.05 on 5x4 and 0.08 on 6x5; wall time
+    split into chunk calls and the work between them;
+26. timing: K3 at 8192 x 1024 on the mixture; K6 at 8192 x 64 and 32768 x
+    64 on the mixture and at 8192 x 64 on 5x4+11x7; K7 at 8192 x 64 on 5x4
+    and 11x7; K7 multigrid at 8192 x 64 on the mixture; each against its
+    plain version, and ``torch.profiler`` windows of K3, K6 (8192 and 32768
+    lanes) and K7 (both sites) for device time and idle share.
 
 The second-to-last lines are the kernels' JSON record (with each
 kernel's bound: the larger of its bytes over the HBM rate and its SASS
@@ -113,11 +152,30 @@ T_K8 = 64
 E_K12 = 1536
 E_K13 = 768
 SCRIPT_ROWS = 800
+# The mixed-geometry cells: tools/bench_all.py:421's mixture, and the
+# JAX package's 5x4 + 11x7 stress mixture (examples/train_minimax_tpu.py:
+# 141-143).
+MIX3 = ((5, 4, 0.2), (6, 5, 0.1), (8, 6, 0.3))
+MIX_BIG = ((5, 4, 0.2), (11, 7, 0.2))
+T_K3 = 1024
+T_K6 = 64
+B_WIDE = 32768   # tools/bench_all.py:333-337, the packed mixture learner
+# examples/train_minimax_tpu.py:141-151 (--multigrid), at the example's
+# 328M env-steps (BASELINE.md:224); gates about twice the JAX package's
+# recorded per-variant exploitability 0.023 / 0.040.
+MG_BOARDS = ((5, 4, 0.2), (6, 5, 0.2))
+MG_RECIPE = dict(batch=16384, n_chunks=312, chunk_len=64, lr=1.0, eps=0.2,
+                 lr_anneal_start=156, lr_anneal_tau=25.0, lr_anneal_pow=1.5,
+                 final_solver_iters=2000)
+MG_EXPLOITABILITY = (0.05, 0.08)
+LEARNER_SRC = "gym_soccer_tpu_torch/ops/csrc/learner_kernel.cu"
 SOURCE = {"fused_rollout": "gym_soccer_tpu_torch/ops/csrc/step_kernel.cu",
           "fused_journal_rollout":
               "gym_soccer_tpu_torch/ops/csrc/step_kernel.cu",
-          "packed_learner_chunk":
-              "gym_soccer_tpu_torch/ops/csrc/learner_kernel.cu",
+          "multigrid_rollout": "gym_soccer_tpu_torch/ops/csrc/step_kernel.cu",
+          "packed_learner_chunk": LEARNER_SRC,
+          "multigrid_packed_learner_chunk": LEARNER_SRC,
+          "learner_chunk": LEARNER_SRC, "multigrid_learner_chunk": LEARNER_SRC,
           "iql_packed_chunk": "gym_soccer_tpu_torch/ops/csrc/iql_kernel.cu",
           "iql_chunk": "gym_soccer_tpu_torch/ops/csrc/iql_kernel.cu",
           "parity_events": "gym_soccer_tpu_torch/ops/csrc/parity_kernel.cu",
@@ -125,7 +183,13 @@ SOURCE = {"fused_rollout": "gym_soccer_tpu_torch/ops/csrc/step_kernel.cu",
               "gym_soccer_tpu_torch/ops/csrc/parity_kernel.cu"}
 REPLACES = {"fused_rollout": "gym_soccer_tpu/ops/step_kernel.py:254",
             "fused_journal_rollout": "gym_soccer_tpu/ops/step_kernel.py:714",
+            "multigrid_rollout": "gym_soccer_tpu/ops/step_kernel.py:526",
             "packed_learner_chunk": "gym_soccer_tpu/ops/learner_kernel.py:666",
+            "multigrid_packed_learner_chunk":
+                "gym_soccer_tpu/ops/learner_kernel.py:677",
+            "learner_chunk": "gym_soccer_tpu/ops/learner_kernel.py:356",
+            "multigrid_learner_chunk":
+                "gym_soccer_tpu/ops/learner_kernel.py:368",
             "iql_packed_chunk": "gym_soccer_tpu/ops/iql_kernel.py:212",
             "iql_chunk": "gym_soccer_tpu/ops/iql_kernel.py:64",
             "parity_events": "gym_soccer_tpu/ops/parity_kernel.py:196",
@@ -134,7 +198,11 @@ REPLACES = {"fused_rollout": "gym_soccer_tpu/ops/step_kernel.py:254",
 # Each kernel's device function in the built libraries (a substring of its
 # mangled name).
 SYMBOL = {"fused_rollout": "14rollout_kernel", "fused_journal_rollout":
-          "14journal_kernel", "packed_learner_chunk": "14learner_kernel",
+          "14journal_kernel", "multigrid_rollout": "17mg_rollout_kernel",
+          "packed_learner_chunk": "learner_kernelILb1ELb0E",
+          "multigrid_packed_learner_chunk": "learner_kernelILb1ELb1E",
+          "learner_chunk": "learner_kernelILb0ELb0E",
+          "multigrid_learner_chunk": "learner_kernelILb0ELb1E",
           "iql_packed_chunk": "iql_kernelILb1E", "iql_chunk": "iql_kernelILb0E",
           "parity_events": "parity_kernelILb0E",
           "parity_scripted_events": "parity_kernelILb1E"}
@@ -360,7 +428,8 @@ def main() -> int:
         traj = sk.unpack_journal(cfg, k2[2])
         main_out[board] = (seed, k1, k2, traj)
     torch.cuda.synchronize()
-    launches = dict(sk.launch_counts)
+    launches = {k: sk.launch_counts[k]
+                for k in ("fused_rollout", "fused_journal_rollout")}
     print(f"[main path] launches {launches}")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
@@ -507,6 +576,13 @@ def main() -> int:
     errs.update(iql_errs)
     ms.update(iql_ms)
 
+    mg_launches, mg_errs, mg_ms, mg_work = multigrid_phases(
+        torch, dev, card, exploitability)
+    launches.update(mg_launches)
+    for name, e in mg_errs.items():
+        errs[name] = max(errs.get(name, 0), e)
+    ms.update(mg_ms)
+
     # Each kernel's work at the shape its ms was timed: lane-steps (or
     # lane-events) and the bytes of its inputs and outputs, each once.
     fields_bytes = 2 * 6 * 4 * B + 3 * 8   # state planes in and out, stats
@@ -522,10 +598,13 @@ def main() -> int:
         "parity_events": (B * E_K12, parity_bytes["parity_events"]),
         "parity_scripted_events": (B * E_K13,
                                    parity_bytes["parity_scripted_events"]),
+        **mg_work,
     }
     kernels = []
     for name in ("fused_rollout", "fused_journal_rollout",
-                 "packed_learner_chunk", "iql_packed_chunk", "iql_chunk",
+                 "multigrid_rollout", "packed_learner_chunk",
+                 "multigrid_packed_learner_chunk", "learner_chunk",
+                 "multigrid_learner_chunk", "iql_packed_chunk", "iql_chunk",
                  "parity_events", "parity_scripted_events"):
         units, nbytes = work[name]
         bound_ms, bound_by = bound(units, per_step[name], nbytes)
@@ -580,7 +659,8 @@ def learner_phases(torch, dev, card, cfgs, lk, exploitability):
         cfg, batch=B, n_chunks=4, chunk_len=T_K5, lr=1.0, eps=0.2,
         solver_iters=200, seed=3, device=dev)
     torch.cuda.synchronize()
-    launches = dict(lk.launch_counts)
+    launches = {"packed_learner_chunk":
+                lk.launch_counts["packed_learner_chunk"]}
     print(f"[train path] launches {launches}")
     check(launches["packed_learner_chunk"] > 0,
           "packed_learner_chunk was not launched on the training path")
@@ -1120,6 +1200,309 @@ def iql_phases(torch, dev, card, cfgs, batch):
             cfg, 77, eps, table, fields, B, T_K8, 0.99, 640),
             f"{name} 5x4 B={B} T={T_K8}", "iql_kernel", card)
     return launches, errs, ms
+
+
+def mg_inputs(torch, lk, cfg, B, dev, seed, bad=None):
+    """Tables with non-uniform pi and v, q in [-1, 1] made from a numpy
+    seed (``bad`` added to every v and q), packed and unpacked, and the
+    initial state: six fields, or (planes, fields) for a mixture."""
+    import numpy as np
+    nS = lk.n_states(cfg)
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    pa, pb = (t(rng.dirichlet(np.ones(5), nS)) for _ in range(2))
+    v, q = t(rng.uniform(-1, 1, nS)), t(rng.uniform(-1, 1, (nS, 5, 5)))
+    if bad is not None:
+        v, q = v + bad, q + bad
+    return (lk.pack_m2(cfg, pa, pb, v, 0.2), lk.pack_m(cfg, pa, pb, q, v, 0.2),
+            lk.init_state_fields(cfg, B, dev))
+
+
+def run_chunk(lk, name, cfg, seed, table, state, B, T, **kw):
+    """One chunk of learner ``name`` (a wrapper or a plain version) from
+    ``state`` as ``mg_inputs`` makes it."""
+    fn = getattr(lk, name)
+    if isinstance(cfg, tuple):
+        planes, fields = state
+        return fn(cfg, seed, table, planes, fields, B, T, 0.99, **kw)
+    return fn(cfg, seed, table, state, B, T, 0.99, **kw)
+
+
+def to_cpu(state):
+    return tuple(to_cpu(x) if isinstance(x, tuple) else x.cpu()
+                 for x in state)
+
+
+def multigrid_phases(torch, dev, card, exploitability):
+    """Phases 22-26: the mixed-geometry path and kernels K3, K6 and K7
+    (both sites).  Returns their launches on the path, their max abs
+    error against the plain versions (K5's too, from phase 24), their ms
+    per call and those of their plain versions, and each kernel's work at
+    its timed shape (lane-steps, bytes)."""
+    import numpy as np
+    from gym_soccer_tpu_torch.config import EnvConfig
+    from gym_soccer_tpu_torch.core import multigrid as mg
+    from gym_soccer_tpu_torch.core import tables
+    from gym_soccer_tpu_torch.ops import learner_kernel as lk
+    from gym_soccer_tpu_torch.ops import step_kernel as sk
+    mix = tuple(EnvConfig(*b) for b in MIX3)
+    big = tuple(EnvConfig(*b) for b in MIX_BIG)
+    c54, c117 = EnvConfig(5, 4, 0.2), EnvConfig(11, 7, 0.2)
+    K6, K7, K7M = ("multigrid_packed_learner_chunk", "learner_chunk",
+                   "multigrid_learner_chunk")
+    train_kw = dict(batch=B, n_chunks=4, chunk_len=T_K6, lr=1.0, eps=0.2,
+                    solver_iters=200, seed=3)
+
+    # ---- 22. mixed-geometry path, through the entry points -------------
+    sk.reset_launch_counts()
+    lk.reset_launch_counts()
+    k3 = sk.multigrid_rollout(mix, 21, B, T_K3)
+    train = {packed: lk.fused_minimax_train(mix, packed=packed,
+                                            return_state=True, **train_kw)
+             for packed in (True, False)}
+    lk.fused_minimax_train(c54, packed=False, **train_kw)
+    torch.cuda.synchronize()
+    launches = {"multigrid_rollout": sk.launch_counts["multigrid_rollout"],
+                **{n: lk.launch_counts[n] for n in (K6, K7, K7M)}}
+    print(f"[mixture path] launches {launches}")
+    check(launches == {"multigrid_rollout": 1, K6: 4, K7: 4, K7M: 4},
+          "the mixed-geometry path did not launch K3 once and K6, K7 and "
+          "K7 multigrid once a chunk")
+    fields, stats = k3
+    check(fields[0].device.type == "cuda",
+          "multigrid_rollout did not default to the card")
+    geo = mg.lane_geometry(mix, B, device=dev)
+    ra, ca, rb, cb, p, t = fields
+    inside = ((ra >= 0) & (ra < geo.H) & (rb >= 0) & (rb < geo.H)
+              & (ca >= 0) & (ca < geo.W) & (cb >= 0) & (cb < geo.W))
+    check(bool(inside.all()), "a lane left its own board")
+    dense = mg.dense_obs(mg.build_codec(mix), fields, geo)
+    check(bool((dense > 0).all()),
+          "a lane ended terminal or unreachable on its own board")
+    check(bool(((t >= 0) & (t < 100)).all()), "t out of range")
+    per_variant = stats.cpu().tolist()
+    for (rew, goals, truncs), b in zip(per_variant, MIX3):
+        check(goals > 0 and abs(rew) <= goals and truncs >= 0,
+              f"implausible stats {[rew, goals, truncs]} on {b}")
+    totals = stats.sum(0).tolist()
+    check(0 < totals[1] < B * T_K3, f"implausible totals {totals}")
+    print(f"[mixture path] K3 {MIX3} B={B} T={T_K3}: per-variant stats "
+          f"{per_variant}, totals {totals}; every lane on its own board in "
+          "a reachable state of its variant")
+    lanes_v = np.bincount(np.arange(B) * len(mix) // B)
+    offs = list(lk.mg_offsets(mix)) + [lk.n_codes(mix)]
+    for packed, (q, v, pa, pb, hist, res) in train.items():
+        check(bool(torch.isfinite(q).all()), "Q is not finite")
+        check(float(v.abs().max()) <= 1.05,
+              f"|v| = {float(v.abs().max())} > 1.05")
+        check(sum(h[1] for h in hist) > 0, "no goals on the mixture path")
+        # one more chunk at v = q = 0: its sums are the rewards, so each
+        # variant's block holds its lanes' reward sum and visit count
+        zv, zq = torch.zeros_like(v), torch.zeros_like(q)
+        table = (lk.pack_m2(mix, pa, pb, zv, 0.2) if packed
+                 else lk.pack_m(mix, pa, pb, zq, zv, 0.2))
+        planes, _ = lk.init_state_fields(mix, B, dev)
+        _, (sums, cnt), st = getattr(lk, K6 if packed else K7M)(
+            mix, 5, table, planes, res["fields"], B, T_K6)
+        rew_v = [int(sums[o:e].sum()) // 2 ** 32
+                 for o, e in zip(offs, offs[1:])]
+        cnt_v = [int(cnt[o:e].sum()) for o, e in zip(offs, offs[1:])]
+        check(cnt_v == [int(n) * T_K6 for n in lanes_v],
+              f"per-variant visits {cnt_v} != lanes x T")
+        check(sum(rew_v) == int(st[0]) and sum(cnt_v) == B * T_K6,
+              "per-variant sums do not add up to the chunk's totals")
+        print(f"[mixture path] fused_minimax_train {MIX3} B={B} 4 chunks x "
+              f"{T_K6} steps, packed={packed}: max|v| "
+              f"{float(v.abs().max())}; a fifth chunk counts {cnt_v} visits "
+              f"per variant block (lanes {lanes_v.tolist()} x {T_K6}) and "
+              f"rewards {rew_v}, summing to its totals {ints(st[:3])}")
+
+    errs = {n: 0 for n in ("multigrid_rollout", "packed_learner_chunk",
+                           K6, K7, K7M)}
+
+    # ---- 23. K3 --------------------------------------------------------
+    pf, ps = sk.multigrid_rollout_plain(mix, 21, B, T_K3, dev)
+    for threads in (128, 256):
+        got = k3 if threads == 128 else sk.multigrid_rollout(
+            mix, 21, B, T_K3, dev, threads=threads)
+        e = max_abs_err([*zip(got[0], pf), (got[1], ps)])
+        errs["multigrid_rollout"] = max(errs["multigrid_rollout"], e)
+        check(e == 0, f"K3 != plain, threads {threads}: max abs err {e}")
+    h = T_K3 // 2
+    fa, sa = sk.multigrid_rollout(mix, 21, B, h, dev)
+    fb, sb = sk.multigrid_rollout(mix, 21, B, T_K3 - h, dev, init_fields=fa,
+                                  step_offset=h)
+    check(max_abs_err([*zip(fb, pf), (sa + sb, ps)]) == 0,
+          f"K3 split at step {h} != one run")
+    f1, s1 = sk.fused_rollout(c54, 21, B, T_K3, dev)
+    fm, sm = sk.multigrid_rollout((c54,), 21, B, T_K3, dev)
+    check(max_abs_err([*zip(f1, fm), (ints(s1), ints(sm[0]))]) == 0,
+          "the (5x4,) mixture != K1")
+    gf, gs = sk.multigrid_rollout(mix, 3, 1024, 64, dev)
+    cf, cs = sk.multigrid_rollout(mix, 3, 1024, 64, "cpu")
+    check(max_abs_err([*zip(gf, cf), (gs, cs)]) == 0, "K3 != CPU plain")
+    print(f"[K3] {MIX3} B={B} T={T_K3}: bit-equal to plain (fields and "
+          f"per-variant stats; max abs err {errs['multigrid_rollout']}); "
+          f"threads 128/256 equal; {h}+{T_K3 - h} split equals one run; the "
+          "(5x4,) mixture equals K1; B=1024 T=64 equals the CPU plain "
+          "version")
+
+    # ---- 24. K6 and K7 against their plain versions --------------------
+    cells = (("mixture", mix, (K6, K7M)), ("5x4+11x7", big, (K6, K7M)),
+             ("5x4", c54, ("packed_learner_chunk", K7)),
+             ("11x7", c117, ("packed_learner_chunk", K7)))
+    for seed, (label, cfg, pair) in enumerate(cells, start=1):
+        m2, m, state = mg_inputs(torch, lk, cfg, B, dev, seed)
+        small = lk.init_state_fields(cfg, 256, dev)
+        plain = {}
+        for name, table in zip(pair, (m2, m)):
+            want = run_chunk(lk, name + "_plain", cfg, 77, table, state, B,
+                             T_K6)
+            for threads in (128, 256):
+                e = chunk_err(run_chunk(lk, name, cfg, 77, table, state, B,
+                                        T_K6, threads=threads), want)
+                errs[name] = max(errs[name], e)
+                check(e == 0, f"{name} != plain on {label}, threads "
+                      f"{threads}: max abs err {e}")
+            check(int(want[2][3]) == 0, f"{name}: values out of range")
+            check(chunk_err(
+                run_chunk(lk, name, cfg, 5, table, small, 256, 16),
+                run_chunk(lk, name, cfg, 5, table.cpu(), to_cpu(small), 256,
+                          16)) == 0, f"{name} != CPU plain on {label}")
+            plain[name] = want
+        for bad in (float("nan"), 1e7):
+            b2, b1, _ = mg_inputs(torch, lk, cfg, 256, dev, seed, bad)
+            for name, table in zip(pair, (b2, b1)):
+                counts = [int(run_chunk(lk, name, cfg, 5, tb, st, 256, 16)[2][3])
+                          for tb, st in ((table, small),
+                                         (table.cpu(), to_cpu(small)))]
+                check(counts[0] == counts[1] > 0, f"{name} counts {counts} "
+                      f"values out of range on {label} with v, q + {bad}")
+        (fa, (_, ca), sa), (fb, (_, cb), sb) = plain.values()
+        check(max_abs_err([*zip(fa, fb), (ca, cb), (ints(sa), ints(sb))]) == 0,
+              f"{pair} step different trajectories on {label}")
+        check(int(ca.sum()) == B * T_K6, "visit counts != B * T")
+        print(f"[K6/K7] {label} B={B} T={T_K6}: {pair} bit-equal to plain "
+              "(fields, stats, counts, int64 sums, out-of-range count); "
+              "threads 128/256 equal; both step the same fields, stats and "
+              "counts; B=256 T=16 equals the CPU plain versions, and counts "
+              "the same values out of range with v, q + nan and + 1e7")
+    print(f"[K6/K7] max abs err {errs}")
+    kw = dict(batch=B, chunk_len=T_K6, lr=0.5, eps=0.3, eps_halflife=64,
+              lr_anneal_start=1, lr_anneal_tau=4.0, solver_iters=100, seed=9,
+              device=dev)
+    one = lk.fused_minimax_train((c54,), n_chunks=3, return_state=True, **kw)
+    static = lk.fused_minimax_train(c54, n_chunks=3, return_state=True, **kw)
+    check(all(torch.equal(a, b) for a, b in
+              [(one[0], static[0]), (one[5]["n"], static[5]["n"]),
+               *zip(one[5]["fields"], static[5]["fields"])]),
+          "the (5x4,) mixture trainer != the static trainer")
+    for packed in (True, False):
+        whole = lk.fused_minimax_train(mix, n_chunks=2, return_state=True,
+                                       packed=packed, **kw)
+        r = lk.fused_minimax_train(mix, n_chunks=1, return_state=True,
+                                   packed=packed, **kw)[5]
+        part = lk.fused_minimax_train(
+            mix, n_chunks=1, return_state=True, packed=packed,
+            init=tuple(r[k] for k in ("q", "v", "pi_a", "pi_b", "n")),
+            fields_init=r["fields"], start_chunk=r["next_chunk"], **kw)
+        check(all(torch.equal(a, b) for a, b in
+                  [*zip(whole[:4], part[:4]), (whole[5]["n"], part[5]["n"]),
+                   *zip(whole[5]["fields"], part[5]["fields"])]),
+              f"mixture: 2 chunks != 1 + 1 (packed={packed})")
+    print("[mixture resume] the (5x4,) mixture trainer equals the static "
+          "trainer for 3 chunks, bit for bit in q, n and fields; mixture "
+          "runs resumed 1 + 1 equal 2, packed and unpacked")
+
+    # ---- 25. learning: the --multigrid recipe --------------------------
+    mgc = tuple(EnvConfig(*b) for b in MG_BOARDS)
+    for packed in (True, False):
+        timing = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q, v, pa, pb, hist = lk.fused_minimax_train(
+            mgc, device=dev, timing=timing, packed=packed, **MG_RECIPE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        off, exs = 0, []
+        for c in mgc:
+            nS = tables.build_statespace(c).nS
+            exs.append(exploitability(c, pa[off:off + nS], pb[off:off + nS],
+                                      gamma=0.99))
+            off += nS
+        t_eval = time.perf_counter() - t1
+        steps = (MG_RECIPE["batch"] * MG_RECIPE["chunk_len"]
+                 * MG_RECIPE["n_chunks"])
+        print(f"[mixture learn] {MG_BOARDS} recipe {MG_RECIPE}, packed="
+              f"{packed}: exploitability per variant {exs} (limits "
+              f"{MG_EXPLOITABILITY}) | train wall {wall} s for {steps} "
+              f"env-steps: chunk calls {timing['kernel_ms']} ms, between "
+              f"chunks {timing['between_ms']} ms over {timing['chunks']} "
+              f"chunks; exploitability eval {t_eval} s | {card}")
+        for ex, limit, b in zip(exs, MG_EXPLOITABILITY, MG_BOARDS):
+            check(ex <= limit, f"exploitability {ex} > {limit} on {b} "
+                  f"(packed={packed})")
+
+    # ---- 26. timing ----------------------------------------------------
+    ms = {}
+    med_k, reps, legs = time_cuda(lambda: sk.multigrid_rollout(mix, 1, B,
+                                                               T_K3, dev))
+    med_p, _, _ = time_cuda(lambda: sk.multigrid_rollout_plain(
+        mix, 1, B, T_K3, dev), slow_legs=3)
+    ms["multigrid_rollout"], ms["multigrid_rollout_plain"] = med_k, med_p
+    print(f"[time] multigrid_rollout {MIX3} B={B} T={T_K3}: {med_k} ms/call, "
+          f"{B * T_K3 / (med_k / 1e3)} env-steps/s (median of {len(legs)} "
+          f"legs x {reps} calls; legs ms/call {legs}); plain {med_p} ms/call "
+          f"| {card}")
+    timed = (("mixture", mix, B, (K6, K7M)), ("mixture", mix, B_WIDE, (K6,)),
+             ("5x4+11x7", big, B, (K6,)), ("5x4", c54, B, (K7,)),
+             ("11x7", c117, B, (K7,)))
+    for label, cfg, BB, names in timed:
+        m2, m, state = mg_inputs(torch, lk, cfg, BB, dev, 5)
+        for name in names:
+            table = m2 if name == K6 else m
+            med_k, reps, legs = time_cuda(lambda: run_chunk(
+                lk, name, cfg, 77, table, state, BB, T_K6))
+            med_p, _, _ = time_cuda(lambda: run_chunk(
+                lk, name + "_plain", cfg, 77, table, state, BB, T_K6),
+                slow_legs=3)
+            if BB == B and label in ("mixture", "5x4"):
+                ms[name], ms[name + "_plain"] = med_k, med_p
+            print(f"[time] {name} {label} B={BB} T={T_K6}: {med_k} ms/call, "
+                  f"{BB * T_K6 / (med_k / 1e3)} learner env-steps/s (median "
+                  f"of {len(legs)} legs x {reps} calls; legs ms/call {legs});"
+                  f" plain {med_p} ms/call | {card}")
+    profile_window(torch, lambda: sk.multigrid_rollout(mix, 1, B, T_K3, dev),
+                   f"multigrid_rollout mixture B={B} T={T_K3}",
+                   "mg_rollout_kernel", card)
+    for label, cfg, BB, name in (("mixture", mix, B, K6),
+                                 ("mixture", mix, B_WIDE, K6),
+                                 ("mixture", mix, B, K7M),
+                                 ("5x4", c54, B, K7)):
+        m2, m, state = mg_inputs(torch, lk, cfg, BB, dev, 5)
+        table = m2 if name == K6 else m
+        profile_window(torch, lambda: run_chunk(lk, name, cfg, 77, table,
+                                                state, BB, T_K6),
+                       f"{name} {label} B={BB} T={T_K6}", "learner_kernel",
+                       card)
+
+    fields_bytes = 2 * 6 * 4 * B + 3 * 8
+    planes_bytes = 6 * 4 * B
+    acc = 25 * (8 + 4)
+    work = {
+        "multigrid_rollout": (B * T_K3, fields_bytes + planes_bytes
+                              + len(mix) * 3 * 8),
+        K6: (B * T_K6, fields_bytes + planes_bytes
+             + lk.n_codes(mix) * (11 * 4 + acc)),
+        K7: (B * T_K6, fields_bytes + lk.n_codes(c54) * (36 * 4 + acc)),
+        K7M: (B * T_K6, fields_bytes + planes_bytes
+              + lk.n_codes(mix) * (36 * 4 + acc)),
+    }
+    return launches, errs, ms, work
 
 
 def profile_window(torch, fn, label, kernel, card, calls=20):

@@ -5,7 +5,9 @@ against an array namespace ``xp``: ``numpy`` (host-side table building) or
 ``torch`` (the batched engine, on any device).  Passing the ``torch``
 module selects ``_TorchXP``, which spells the few numpy calls the rules
 make (``broadcast_arrays``, ``stack(axis=)``, ``clip``, a callable
-``float32``) for tensors.
+``float32``) for tensors.  The geometry (``cfg``) is an ``EnvConfig`` or
+anything with its H, W and ``goal_row_bounds`` as per-lane tensors
+(ops/step_kernel.GeoPlanes, core/multigrid.LaneGeometry).
 
 Semantics are the reference's (gym_soccer/envs/soccer_simultaneous_env.py):
 
@@ -29,10 +31,18 @@ class _TorchXP:
     """The numpy calls of this module, for torch tensors."""
 
     abs = staticmethod(torch.abs)
-    clip = staticmethod(torch.clamp)
     ones_like = staticmethod(torch.ones_like)
     zeros_like = staticmethod(torch.zeros_like)
     broadcast_arrays = staticmethod(torch.broadcast_tensors)
+
+    @staticmethod
+    def clip(a, lo, hi):
+        # torch.clamp takes two numbers or two tensors as bounds, not one of
+        # each; a per-lane board (ops/step_kernel.GeoPlanes) has a tensor H.
+        if isinstance(lo, torch.Tensor) != isinstance(hi, torch.Tensor):
+            lo, hi = (torch.as_tensor(x, dtype=a.dtype, device=a.device)
+                      for x in (lo, hi))
+        return torch.clamp(a, lo, hi)
 
     @staticmethod
     def ascontiguousarray(a):

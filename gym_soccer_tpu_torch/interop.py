@@ -17,9 +17,16 @@ never imports JAX: convert a JAX array with ``np.asarray`` first.
   cursor int32; needs_reset bool).
 * The minimax-Q learner's state: the JAX package's packed M (bfloat16
   [spm, 128], 8 states per row) becomes the port's table (float32
-  [n_codes, 11]); its trainers' resume dict becomes the port's (the
-  port's trainers take a JAX run's (q, v, pi_a, pi_b, n) as numpy arrays
-  in ``init`` as they are).
+  [n_codes, 11], ``table_from_packed_m``), and its unpacked M (bfloat16
+  [spc, 128], one state per row) the port's unpacked table (float32
+  [n_codes, 36], ``table_from_m``), for one board or a mixture (a tuple of
+  configs: both packages concatenate the variants' 8-aligned blocks in the
+  same rows).  A mixture's six geometry planes (H, W, glo, ghi, q_int, row
+  offset; JAX's ``init_state_fields(cfgs, B)[0]``) are lane-tiled like the
+  state fields and go through ``planes_from_tiles`` too.  The trainers'
+  resume dict becomes the port's (the port's trainers take a JAX run's
+  (q, v, pi_a, pi_b, n) as numpy arrays in ``init`` as they are; a
+  mixture's resume dict holds the fields only).
 * The independent-Q learner's state: the JAX package's M (bfloat16, both
   players' Q as double-bf16 hi/lo columns; packed [_spm_i, 128] with 6
   states per row, or unpacked [spc, 128] with one) becomes the port's
@@ -35,12 +42,17 @@ from .config import EnvConfig
 from .core import rules
 from .core.batch import EnvState
 from .core.parity import ParityState
+from .ops.learner_kernel import n_codes
 
 LANES = 128
 # The JAX package's packed M: GP states per 128-wide row, GCOLS columns
 # each, pi_a at 0-4, pi_b at 5-9, v split as bf16 hi at 10 and lo at 11
 # (gym_soccer_tpu/ops/learner_kernel.py, GP/GCOLS/PCOL_*).
 M_GP, M_GCOLS, M_V_HI, M_V_LO = 8, 16, 10, 11
+# The JAX package's unpacked M: one state per 128-wide row, pi_a at 0-4,
+# pi_b at 5-9, q's bf16 hi at 10-34 and lo at 37-61, v's hi at 35 and lo
+# at 36 (gym_soccer_tpu/ops/learner_kernel.py, COL_*).
+M_Q_HI, M_V_HI_U, M_V_LO_U, M_Q_LO = 10, 35, 36, 37
 # The JAX package's IQL M: each state's 20 columns hold A's Q hi at 0-4
 # and lo at 5-9, B's hi at 10-14 and lo at 15-19; IQL_GP states per row
 # when packed, one when not (gym_soccer_tpu/ops/iql_kernel.py, GP_I and
@@ -96,17 +108,31 @@ def journal_to_tiles(journal: torch.Tensor) -> np.ndarray:
     return j.reshape(j.shape[0], -1, LANES)
 
 
-def table_from_packed_m(cfg: EnvConfig, m, device) -> torch.Tensor:
+def table_from_packed_m(cfg, m, device) -> torch.Tensor:
     """The JAX package's packed M (``np.asarray(m, np.float32)``, [spm,
     128]) -> the port's table float32 [n_codes, 11]: pi columns as they
-    are, v = v_hi + v_lo (the value the JAX kernel bootstraps from)."""
+    are, v = v_hi + v_lo (the value the JAX kernel bootstraps from).
+    ``cfg``: one EnvConfig or a mixture's tuple."""
     m = np.asarray(m, np.float32).reshape(-1)
-    codes = np.arange(rules.n_cellpairs(cfg))
+    codes = np.arange(n_codes(cfg))
     base = (codes // M_GP) * LANES + (codes % M_GP) * M_GCOLS
     pi = m[base[:, None] + np.arange(10)[None, :]]
     v = m[base + M_V_HI] + m[base + M_V_LO]
     table = np.concatenate([pi, v[:, None]], axis=1).astype(np.float32)
     return torch.tensor(table, device=device)
+
+
+def table_from_m(cfg, m, device) -> torch.Tensor:
+    """The JAX package's unpacked M (``np.asarray(m, np.float32)``, [spc,
+    128] from ``pack_m``) -> the port's unpacked table float32 [n_codes,
+    36]: pi columns as they are, then v = v_hi + v_lo and q = q_hi + q_lo
+    (the values the JAX kernel reads).  ``cfg``: one EnvConfig or a
+    mixture's tuple."""
+    m = np.asarray(m, np.float32).reshape(-1, LANES)[:n_codes(cfg)]
+    v = m[:, M_V_HI_U] + m[:, M_V_LO_U]
+    q = m[:, M_Q_HI:M_Q_HI + 25] + m[:, M_Q_LO:M_Q_LO + 25]
+    table = np.concatenate([m[:, :10], v[:, None], q], axis=1)
+    return torch.tensor(table.astype(np.float32), device=device)
 
 
 def iql_table_from_packed_m(cfg: EnvConfig, m, packed: bool,

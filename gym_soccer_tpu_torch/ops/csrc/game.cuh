@@ -1,12 +1,19 @@
 // Device code of the soccer game shared by the port's CUDA kernels
-// (step_kernel.cu: K1, K2; learner_kernel.cu: K5; iql_kernel.cu: K8, K9;
-// parity_kernel.cu: K12, K13), and the host helpers that describe a game
-// to them.
+// (step_kernel.cu: K1, K2, K3; learner_kernel.cu: K5, K6, K7;
+// iql_kernel.cu: K8, K9; parity_kernel.cu: K12, K13), and the host helpers
+// that describe a game to them.
 //
 // Every function here is integer arithmetic on uint32/int32, written to
 // give the same bits as gym_soccer_tpu/ops/step_kernel.py's
 // `_random_word`, `transition_core` and `autoreset_core` and as the plain
 // PyTorch versions in ops/step_kernel.py.
+//
+// The game functions take any geometry G with the fields H, W, glo, ghi,
+// q_int, max_steps and nI: a `Game`, one board shared by every lane (its ISD
+// entries listed in `build_isd` order), or a `LaneGame`, a lane's own board
+// read from per-lane geometry planes (the mixed-geometry kernels K3, K6 and
+// K7-multigrid; its ISD entries computed arithmetically, as
+// step_kernel._isd_fields_arith does).  Only the ISD pick differs.
 
 #pragma once
 
@@ -23,6 +30,13 @@ struct Game {
   int max_steps;
   int nI;              // number of ISD entries (4 or 2)
   int isd[kMaxIsd][5]; // ISD entries as (ra, ca, rb, cb, p)
+};
+
+// A lane's own board (step_kernel.GeoPlanes): no ISD table, whose 20
+// registers a thread would carry through its whole step loop.
+struct LaneGame {
+  int H, W, glo, ghi, q_int, max_steps;
+  int nI;  // 4 for even H, 2 for odd H
 };
 
 struct Planes {
@@ -54,7 +68,8 @@ __device__ __forceinline__ int u16(uint32_t w, int hi) {
   return (int)((w >> (hi ? 16 : 0)) & 0xFFFFu);
 }
 
-__device__ __forceinline__ bool in_goal_rows(int x, const Game& g) {
+template <class G>
+__device__ __forceinline__ bool in_goal_rows(int x, const G& g) {
   return x >= g.glo && x <= g.ghi;
 }
 
@@ -70,8 +85,9 @@ __device__ __forceinline__ void slipped_move(int a, int u, int q_int,
   mr = keep ? mr0 : (first ? mc0 : -mc0);
 }
 
+template <class G>
 __device__ __forceinline__ void next_cell(int x, int y, int mc, int mr,
-                                          bool ball, const Game& g,
+                                          bool ball, const G& g,
                                           int& nx, int& ny) {
   nx = min(max(x + mr, 0), g.H - 1);
   const int nyt = y + mc;
@@ -81,9 +97,10 @@ __device__ __forceinline__ void next_cell(int x, int y, int mc, int mr,
 }
 
 // One game transition under chosen actions (step_kernel.transition_core).
+template <class G>
 __device__ __forceinline__ void transition(State& s, int aa, int ab,
                                            uint32_t bits1, uint32_t bits2,
-                                           const Game& g, bool& goal,
+                                           const G& g, bool& goal,
                                            int& r) {
   int mca, mra, mcb, mrb;
   slipped_move(aa, u16(bits1, 0), g.q_int, mca, mra);
@@ -121,34 +138,57 @@ __device__ __forceinline__ void transition(State& s, int aa, int ab,
   r = goal ? (ball_col == g.W - 1 ? 1 : -1) : 0;
 }
 
+// ISD entry idx of a shared board: the listed entries.
+__device__ __forceinline__ void isd_entry(State& s, int idx, const Game& g) {
+#pragma unroll
+  for (int k = 0; k < kMaxIsd; ++k) {
+    if (k == idx) {
+      s.ra = g.isd[k][0]; s.ca = g.isd[k][1];
+      s.rb = g.isd[k][2]; s.cb = g.isd[k][3];
+      s.p = g.isd[k][4];
+    }
+  }
+}
+
+// ISD entry idx of a lane's own board, arithmetically
+// (step_kernel._isd_fields_arith): players in columns 2 and W - 3 on the
+// middle rows (even H: entries 2 and 3 swap the two rows), possession
+// idx % 2.
+__device__ __forceinline__ void isd_entry(State& s, int idx,
+                                          const LaneGame& g) {
+  const bool swap = (g.H % 2) == 0 && idx / 2 == 1;
+  const int mid_hi = g.H / 2, mid_lo = (g.H - 1) / 2;
+  s.ra = swap ? mid_hi : mid_lo;
+  s.rb = swap ? mid_lo : mid_hi;
+  s.ca = 2;
+  s.cb = g.W - 3;
+  s.p = idx % 2;
+}
+
 // Truncation and reset to ISD entry u16(bits2, 1) % nI
 // (step_kernel.autoreset_core).  Returns the ISD index drawn.
+template <class G>
 __device__ __forceinline__ int autoreset(State& s, bool goal, uint32_t bits2,
-                                         const Game& g, bool& trunc) {
+                                         const G& g, bool& trunc) {
   s.t += 1;
   trunc = s.t >= g.max_steps && !goal;
   const int idx = u16(bits2, 1) % g.nI;
   if (goal || trunc) {
-#pragma unroll
-    for (int k = 0; k < kMaxIsd; ++k) {
-      if (k == idx) {
-        s.ra = g.isd[k][0]; s.ca = g.isd[k][1];
-        s.rb = g.isd[k][2]; s.cb = g.isd[k][3];
-        s.p = g.isd[k][4];
-      }
-    }
+    isd_entry(s, idx, g);
     s.t = 0;
   }
   return idx;
 }
 
 // Number of valid board cells (rules.n_cells).
-__device__ __forceinline__ int n_cells(const Game& g) {
+template <class G>
+__device__ __forceinline__ int n_cells(const G& g) {
   return (g.W - 2) * g.H + 2 * (g.ghi - g.glo + 1);
 }
 
 // Closed-form rank of a valid cell (rules.cell_encode).
-__device__ __forceinline__ int cell_encode(int r, int c, const Game& g) {
+template <class G>
+__device__ __forceinline__ int cell_encode(int r, int c, const G& g) {
   const int ni = (g.W - 2) * g.H;
   if (c == 0) return ni + r - g.glo;
   if (c == g.W - 1) return ni + r - g.glo + (g.ghi - g.glo + 1);
@@ -156,7 +196,8 @@ __device__ __forceinline__ int cell_encode(int r, int c, const Game& g) {
 }
 
 // Compact state code (rules.cellpair_encode).
-__device__ __forceinline__ int cellpair_encode(const State& s, const Game& g,
+template <class G>
+__device__ __forceinline__ int cellpair_encode(const State& s, const G& g,
                                                int nc) {
   const int a = cell_encode(s.ra, s.ca, g);
   const int b = cell_encode(s.rb, s.cb, g);
@@ -191,6 +232,19 @@ __device__ __forceinline__ void block_sum(long long* stats, long long a,
   }
 }
 
+// Lane `lane`'s board from the geometry planes H, W, glo, ghi, q_int (the
+// sixth plane is the caller's: a variant id or a table row offset).
+__device__ __forceinline__ LaneGame lane_game(const Planes& geo, int lane,
+                                              int max_steps) {
+  LaneGame g;
+  g.H = geo.f[0][lane]; g.W = geo.f[1][lane];
+  g.glo = geo.f[2][lane]; g.ghi = geo.f[3][lane];
+  g.q_int = geo.f[4][lane];
+  g.max_steps = max_steps;
+  g.nI = g.H % 2 == 0 ? 4 : 2;
+  return g;
+}
+
 // params: H, W, glo, ghi, q_int, max_steps, nI, then nI x 5 ISD fields.
 inline Game make_game(const int32_t* params) {
   Game g{};
@@ -207,14 +261,19 @@ inline Planes make_planes(void* const* ptrs) {
   return p;
 }
 
-// Shared launch checks, the device the tensors live on, and the zeroing
-// of the stats sums.
+// Shared launch checks and the device the tensors live on.
+inline cudaError_t check_launch(int device, int B, int threads) {
+  if (B <= 0 || threads <= 0 || threads > 1024 || threads % 32 != 0)
+    return cudaErrorInvalidValue;
+  return cudaSetDevice(device);
+}
+
+// check_launch, a check of the game description, and the zeroing of the
+// stats sums.
 inline cudaError_t prepare(int device, const int32_t* params, int B,
                            int threads, long long* stats, cudaStream_t st) {
-  if (B <= 0 || threads <= 0 || threads > 1024 || threads % 32 != 0 ||
-      params[6] < 1 || params[6] > kMaxIsd)
-    return cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
+  if (params[6] < 1 || params[6] > kMaxIsd) return cudaErrorInvalidValue;
+  cudaError_t e = check_launch(device, B, threads);
   if (e != cudaSuccess) return e;
   return cudaMemsetAsync(stats, 0, 3 * sizeof(long long), st);
 }

@@ -1,16 +1,23 @@
 // Fused random-vs-random rollout kernels for Hopper (sm_90a).
 //
-// Replaces two Pallas TPU kernels of gym_soccer_tpu/ops/step_kernel.py:
-//   rollout_kernel  <- `_rollout_kernel` (K1, wrapper `pallas_rollout`)
-//   journal_kernel  <- `_journal_kernel` (K2, wrapper `pallas_journal_rollout`)
+// Replaces three Pallas TPU kernels of gym_soccer_tpu/ops/step_kernel.py:
+//   rollout_kernel     <- `_rollout_kernel` (K1, wrapper `pallas_rollout`)
+//   journal_kernel     <- `_journal_kernel` (K2, wrapper
+//                         `pallas_journal_rollout`)
+//   mg_rollout_kernel  <- `_mg_rollout_kernel` (K3, wrapper
+//                         `pallas_multigrid_rollout`)
 //
-// Both compute, for every lane (one independent game) and every step:
+// All compute, for every lane (one independent game) and every step:
 // three murmur3 counter words keyed on (seed, absolute step, word index,
 // global lane id), the random joint action, the slipped moves, the
 // 4-priority collision chain, goal detection, truncation and the reset to
 // an initial-state (ISD) entry, and the per-lane reward/goal/truncation
 // sums.  journal_kernel also stores one packed int32 word per lane-step
-// (bit layout in step_kernel.py's `_journal_word`).  Every operation is
+// (bit layout in step_kernel.py's `_journal_word`).  mg_rollout_kernel
+// steps a mixture of boards: each lane reads its own geometry (H, W, goal
+// rows, slip) and variant id from planes, resets to its board's ISD
+// computed arithmetically, and adds its sums into its variant's row of
+// int64 [nV, 3] stats.  Every operation is
 // integer arithmetic on uint32/int32, so the outputs are bit-identical to
 // the JAX package and to the plain PyTorch versions in step_kernel.py.
 //
@@ -29,7 +36,10 @@
 // sums are exact in any order).  The counter keys on the global lane id,
 // so any block size gives the same bits.  At 8192 lanes this launches only
 // 64 blocks of 128 threads on 132 SMs; latency hiding and several lanes
-// per thread are left to later work.
+// per thread are left to later work.  K3 keeps the lane's board in five
+// more registers (game.cuh `LaneGame`, no ISD table) and sums its stats per
+// variant in shared memory, then one atomicAdd per variant and counter per
+// block, so nothing is added per step.
 
 #include "game.cuh"
 
@@ -37,44 +47,64 @@ using namespace gst;
 
 namespace {
 
-// The step loop of one lane; kJournal adds the journal store.
+// The step loop of one lane on board g; kJournal adds the journal store.
+// Adds the lane's reward, goal and truncation sums to rew, goals, truncs.
+template <bool kJournal, class G>
+__device__ __forceinline__ void run_lane(State& s, int lane,
+                                         int32_t* journal, int B,
+                                         int n_steps, uint32_t seed,
+                                         int step_offset, const G& g,
+                                         int& rew, int& goals, int& truncs) {
+  const uint32_t ctr = (uint32_t)lane;
+  for (int i = 0; i < n_steps; ++i) {
+    const uint32_t step = (uint32_t)(i + step_offset);
+    const uint32_t bits0 = random_word(seed, step, 0u, ctr);
+    const uint32_t bits1 = random_word(seed, step, 1u, ctr);
+    const uint32_t bits2 = random_word(seed, step, 2u, ctr);
+    const int aa = u16(bits0, 0) % 5;
+    const int ab = u16(bits0, 1) % 5;
+    bool goal, trunc;
+    int r;
+    transition(s, aa, ab, bits1, bits2, g, goal, r);
+    // raw code of the pre-reset next state (rules.raw_encode)
+    const int raw =
+        (((s.ra * g.W + s.ca) * g.H + s.rb) * g.W + s.cb) * 2 + s.p;
+    const int idx = autoreset(s, goal, bits2, g, trunc);
+    if constexpr (kJournal) {
+      journal[(size_t)i * (size_t)B + lane] =
+          raw | ((aa * 5 + ab) << 16) | ((int)goal << 21) |
+          ((int)trunc << 22) | ((int)(r == 1) << 23) | (idx << 24);
+    }
+    rew += r;
+    goals += goal;
+    truncs += trunc;
+  }
+}
+
+__device__ __forceinline__ State load_state(const Planes& in, int lane) {
+  return State{in.f[0][lane], in.f[1][lane], in.f[2][lane],
+               in.f[3][lane], in.f[4][lane], in.f[5][lane]};
+}
+
+__device__ __forceinline__ void store_state(const Planes& out, int lane,
+                                            const State& s) {
+  out.f[0][lane] = s.ra; out.f[1][lane] = s.ca;
+  out.f[2][lane] = s.rb; out.f[3][lane] = s.cb;
+  out.f[4][lane] = s.p;  out.f[5][lane] = s.t;
+}
+
 template <bool kJournal>
-__device__ __forceinline__ void run_lane(const Planes& in, const Planes& out,
-                                         long long* stats, int32_t* journal,
-                                         int B, int n_steps, uint32_t seed,
-                                         int step_offset, const Game& g) {
+__device__ __forceinline__ void run_static(const Planes& in, const Planes& out,
+                                           long long* stats, int32_t* journal,
+                                           int B, int n_steps, uint32_t seed,
+                                           int step_offset, const Game& g) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   int rew = 0, goals = 0, truncs = 0;
   if (lane < B) {
-    State s{in.f[0][lane], in.f[1][lane], in.f[2][lane],
-            in.f[3][lane], in.f[4][lane], in.f[5][lane]};
-    const uint32_t ctr = (uint32_t)lane;
-    for (int i = 0; i < n_steps; ++i) {
-      const uint32_t step = (uint32_t)(i + step_offset);
-      const uint32_t bits0 = random_word(seed, step, 0u, ctr);
-      const uint32_t bits1 = random_word(seed, step, 1u, ctr);
-      const uint32_t bits2 = random_word(seed, step, 2u, ctr);
-      const int aa = u16(bits0, 0) % 5;
-      const int ab = u16(bits0, 1) % 5;
-      bool goal, trunc;
-      int r;
-      transition(s, aa, ab, bits1, bits2, g, goal, r);
-      // raw code of the pre-reset next state (rules.raw_encode)
-      const int raw =
-          (((s.ra * g.W + s.ca) * g.H + s.rb) * g.W + s.cb) * 2 + s.p;
-      const int idx = autoreset(s, goal, bits2, g, trunc);
-      if constexpr (kJournal) {
-        journal[(size_t)i * (size_t)B + lane] =
-            raw | ((aa * 5 + ab) << 16) | ((int)goal << 21) |
-            ((int)trunc << 22) | ((int)(r == 1) << 23) | (idx << 24);
-      }
-      rew += r;
-      goals += goal;
-      truncs += trunc;
-    }
-    out.f[0][lane] = s.ra; out.f[1][lane] = s.ca;
-    out.f[2][lane] = s.rb; out.f[3][lane] = s.cb;
-    out.f[4][lane] = s.p;  out.f[5][lane] = s.t;
+    State s = load_state(in, lane);
+    run_lane<kJournal>(s, lane, journal, B, n_steps, seed, step_offset, g,
+                       rew, goals, truncs);
+    store_state(out, lane, s);
   }
   block_sum(stats, rew, goals, truncs);
 }
@@ -82,13 +112,43 @@ __device__ __forceinline__ void run_lane(const Planes& in, const Planes& out,
 __global__ void rollout_kernel(Planes in, Planes out, long long* stats,
                                int B, int n_steps, uint32_t seed,
                                int step_offset, Game g) {
-  run_lane<false>(in, out, stats, nullptr, B, n_steps, seed, step_offset, g);
+  run_static<false>(in, out, stats, nullptr, B, n_steps, seed, step_offset,
+                    g);
 }
 
 __global__ void journal_kernel(Planes in, Planes out, long long* stats,
                                int32_t* journal, int B, int n_steps,
                                uint32_t seed, int step_offset, Game g) {
-  run_lane<true>(in, out, stats, journal, B, n_steps, seed, step_offset, g);
+  run_static<true>(in, out, stats, journal, B, n_steps, seed, step_offset, g);
+}
+
+constexpr int kMaxVariants = 16;
+
+// K3.  geo: the planes H, W, glo, ghi, q_int and the variant id;
+// stats: int64 [n_variants, 3], zeroed by the caller.
+__global__ void mg_rollout_kernel(Planes in, Planes out, Planes geo,
+                                  long long* stats, int B, int n_steps,
+                                  uint32_t seed, int step_offset,
+                                  int max_steps, int n_variants) {
+  __shared__ unsigned long long part[kMaxVariants * 3];
+  for (int k = threadIdx.x; k < n_variants * 3; k += blockDim.x) part[k] = 0;
+  __syncthreads();
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane < B) {
+    int rew = 0, goals = 0, truncs = 0;
+    State s = load_state(in, lane);
+    run_lane<false>(s, lane, nullptr, B, n_steps, seed, step_offset,
+                    lane_game(geo, lane, max_steps), rew, goals, truncs);
+    store_state(out, lane, s);
+    unsigned long long* mine = part + 3 * geo.f[5][lane];
+    atomicAdd(mine + 0, (unsigned long long)(long long)rew);
+    atomicAdd(mine + 1, (unsigned long long)(long long)goals);
+    atomicAdd(mine + 2, (unsigned long long)(long long)truncs);
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < n_variants * 3; k += blockDim.x)
+    if (part[k]) atomicAdd(reinterpret_cast<unsigned long long*>(stats + k),
+                           part[k]);
 }
 
 }  // namespace
@@ -125,6 +185,26 @@ int gst_fused_journal_rollout(int device, void* const* in, void* const* out,
   journal_kernel<<<blocks, threads, 0, st>>>(
       make_planes(in), make_planes(out), stats, journal, B, n_steps, seed,
       step_offset, make_game(params));
+  return (int)cudaGetLastError();
+}
+
+// K3.  geo: host array of 6 device pointers to int32 [B] (H, W, glo, ghi,
+// q_int, variant id); stats: device int64 [n_variants, 3] (reward sum,
+// goals, truncations per variant), zeroed by the caller.
+int gst_multigrid_rollout(int device, void* const* in, void* const* out,
+                          void* const* geo, long long* stats, int B,
+                          int n_steps, uint32_t seed, int step_offset,
+                          int max_steps, int n_variants, int threads,
+                          void* stream) {
+  if (n_variants < 1 || n_variants > kMaxVariants)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = check_launch(device, B, threads);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (B + threads - 1) / threads;
+  mg_rollout_kernel<<<blocks, threads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      make_planes(in), make_planes(out), make_planes(geo), stats, B, n_steps,
+      seed, step_offset, max_steps, n_variants);
   return (int)cudaGetLastError();
 }
 

@@ -326,11 +326,7 @@ def _launch(packed: bool, cfg: EnvConfig, seed: int, eps_int: int, table,
             threads: int):
     name = "iql_packed_chunk" if packed else "iql_chunk"
     dev = table.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {dev}")
-    if threads <= 0 or threads > 1024 or threads % 32:
-        raise ValueError(f"threads must be a multiple of 32 in [32, 1024], "
-                         f"got {threads}")
+    sk.check_threads(name, dev, threads)
     lib = _library()
     B = fields[0].shape[0]
     out = tuple(torch.empty_like(f) for f in fields)
@@ -338,8 +334,7 @@ def _launch(packed: bool, cfg: EnvConfig, seed: int, eps_int: int, table,
                        device=dev)
     cnt = torch.zeros((n_codes(cfg), IQL_COLS), dtype=torch.int32, device=dev)
     stats = torch.zeros(4, dtype=torch.int64, device=dev)
-    in_ptrs = (ctypes.c_void_p * 6)(*(f.data_ptr() for f in fields))
-    out_ptrs = (ctypes.c_void_p * 6)(*(f.data_ptr() for f in out))
+    in_ptrs, out_ptrs = sk.ptr_array(fields), sk.ptr_array(out)
     params = sk._game_params(cfg)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.gst_iql_chunk(

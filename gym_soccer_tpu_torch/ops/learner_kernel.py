@@ -1,38 +1,59 @@
-"""Fused minimax-Q training: CUDA kernel K5, its plain version, and the
-chunked trainers.
+"""Fused minimax-Q training: CUDA kernels K5, K6 and K7, their plain
+versions, and the chunked trainers.
 
-The port of gym_soccer_tpu/ops/learner_kernel.py's packed path.
-``packed_learner_chunk`` runs one act -> step -> TD chunk for ``batch``
-lanes and ``n_steps`` steps against a table that stays frozen for the
-chunk: each lane samples both players' actions from the exploration-mixed
-policies of its state, steps the game (ops/step_kernel's transition and
-autoreset, the same counter PRNG), and accumulates per (state, joint
-action) the visit count and the Bellman residual r + gamma * v(s') - v(s).
-Between chunks, ``fused_minimax_train`` turns the residual sums into TD
-sums (adding cnt * (v - q), constant within a chunk), applies the
+The port of gym_soccer_tpu/ops/learner_kernel.py.  A chunk runs ``n_steps``
+act -> step -> TD steps for ``batch`` lanes against a table that stays
+frozen for the chunk: each lane samples both players' actions from the
+exploration-mixed policies of its state, steps the game (ops/step_kernel's
+transition and autoreset, the same counter PRNG), and accumulates per
+(state, joint action) the visit count and a sum:
+
+* the packed layout (the trainers' default): the Bellman residual
+  r + gamma * v(s') - v(s); between chunks the trainer completes the TD
+  sums with cnt * (v - q), constant within a chunk.
+  ``packed_learner_chunk`` (kernel K5) on one board,
+  ``multigrid_packed_learner_chunk`` (kernel K6) on a mixture;
+* the unpacked layout (``packed=False``): the full TD
+  r + gamma * v(s') - q(s, a).  ``learner_chunk`` and
+  ``multigrid_learner_chunk`` (kernel K7, its two call sites).
+
+Both layouts step the same trajectories and count the same visits for the
+same policy columns.  Between chunks ``fused_minimax_train`` applies the
 count-normalised Q update, re-solves every state's 5x5 matrix game by RM+
-(agents/learners) and repacks the table.  ``fused_best_response_train``
-runs the same chunk against a frozen opponent.
+(agents/learners) and repacks the table; ``fused_best_response_train``
+runs the same chunks against a frozen opponent.
 
 The table is indexed by the compact cellpair code (core/rules
-``cellpair_encode``): float32 [n_codes, 11] holding pi_a (5), pi_b (5) and
-v.  The pi values are the JAX package's: exploration-mixed in float32 and
-rounded to bfloat16 (``pack_m2``), so that both packages sample the same
-actions; v is kept exact.  The accumulators are int64 residual sums in
-units of 2**-32 and int32 counts, [n_codes, 25] each, exact in any order
-of addition; ``unpack_acc2`` converts them to float32 per dense state.
+``cellpair_encode``): float32 [n_codes, 11] (``pack_m2``) holding pi_a (5),
+pi_b (5) and v, or [n_codes, 36] (``pack_m``) with q (25) after them.  The
+pi values are the JAX package's: exploration-mixed in float32 and rounded
+to bfloat16, so that both packages and both layouts sample the same
+actions; v and q are kept exact (the JAX kernels read double-bfloat16
+hi + lo, which moves the sums by ~2**-18 relative and never a
+trajectory).  The accumulators are int64 sums in units of 2**-32 and int32
+counts, [n_codes, 25] each, exact in any order of addition;
+``unpack_acc2``/``unpack_acc`` convert them to float32 per dense state.
 
-A wrapper runs the plain PyTorch version (``packed_learner_chunk_plain``)
-when its tensors lie on the CPU and launches K5 (``csrc/learner_kernel.cu``)
-when they lie on a CUDA device; there is no fallback from one to the other.
-The chunk wrappers take their device from their tensors; the functions
-that make their own tensors (the trainers, ``init_state_fields``) default
-to "cuda": CPU callers pass "cpu".
+A mixture of boards (a tuple of EnvConfigs, BASELINE config 4) trains one
+table concatenated over the variants: each variant's codes form a block,
+8-aligned as in the JAX package (``mg_offsets``), so a JAX table carries
+over row for row, and the dense states concatenate in variant order
+(core/multigrid ``build_codec``).  Lanes are assigned variants in
+contiguous blocks (``init_state_fields``), and six per-lane planes give
+each lane its board (H, W, goal rows, slip) and its block's row offset.
 
-Not ported yet: the mixed-geometry trainer (a tuple of configs, kernel K6),
-the unpacked layout (``packed=False``, kernel K7), data parallelism
-(``mesh``) and the grouped dispatch modes (``single_dispatch``,
-``chunks_per_dispatch``); the trainers raise NotImplementedError for them.
+A wrapper runs the plain PyTorch version when its tensors lie on the CPU
+and launches the kernel (``csrc/learner_kernel.cu``, one template for all
+four) when they lie on a CUDA device; there is no fallback from one to the
+other.  The chunk wrappers take their device from their tensors; the
+functions that make their own tensors (the trainers,
+``init_state_fields``) default to "cuda": CPU callers pass "cpu".
+
+Not ported yet: data parallelism (``mesh``) and the grouped dispatch modes
+(``single_dispatch``, ``chunks_per_dispatch``); the trainers raise
+NotImplementedError for them.  The JAX wrappers' VMEM guards (tables over
+~14 MB) have no counterpart: the port reads its tables from device memory
+and takes any grid and any mixture.
 """
 from __future__ import annotations
 
@@ -50,16 +71,21 @@ from . import step_kernel as sk
 
 LANES = 128                 # batch granularity (the JAX wrapper's lane tile)
 NJ = N_ACTIONS * N_ACTIONS  # 25 joint actions
-TABLE_COLS = 11             # pi_a[5], pi_b[5], v
-COL_PI_A, COL_PI_B, COL_V = 0, 5, 10
-FIX_SCALE = 2.0 ** 32       # residual sums count units of 2**-32
-# |residual| <= 1 + 2 * max|v| <= 3 for values in [-1, 1]: int64 sums stay
-# exact while batch * n_steps * 3 * 2**32 < 2**63, i.e. below ~2**29.4.
+TABLE_COLS = 11             # packed row: pi_a[5], pi_b[5], v
+TABLE_COLS_UNPACKED = 36    # unpacked row: pi_a[5], pi_b[5], v, q[25]
+COL_PI_A, COL_PI_B, COL_V, COL_Q = 0, 5, 10, 11
+FIX_SCALE = 2.0 ** 32       # sums count units of 2**-32
+VARIANT_ALIGN = 8           # a variant's block of rows starts 8-aligned
+# The int32 counts and the int64 sums' reward term stay exact up to
+# batch * n_steps = 2**29; that cap also keeps ``value_limit`` >= 1, so a
+# table with |v|, |q| <= 1 counts nothing out of range.
 MAX_LANE_STEPS = 2 ** 29
 
-# Launches of the CUDA kernel in this process, counted by the wrapper
+# Launches of the CUDA kernels in this process, counted by the wrapper
 # where it launches and nowhere else.
-launch_counts = {"packed_learner_chunk": 0}
+launch_counts = {"packed_learner_chunk": 0,
+                 "multigrid_packed_learner_chunk": 0,
+                 "learner_chunk": 0, "multigrid_learner_chunk": 0}
 
 
 def reset_launch_counts() -> None:
@@ -67,34 +93,79 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
+def value_limit(batch: int, n_steps: int) -> float:
+    """The float32 bound on the table values a chunk reads (v, and q(s, a)
+    unpacked) within which its int64 sums stay exact.  Each summed value
+    is r + cont * v' - v (or - q) with |r| <= 1 and 0 <= cont <= 1, so at
+    most 1 + 2 * limit; batch * n_steps of them, each rounded to units of
+    2**-32, sum below 2**32 * batch * n_steps + 2**62 + batch * n_steps,
+    within int64 while batch * n_steps <= 2**29 (``MAX_LANE_STEPS``)."""
+    return float(np.float32(2.0 ** 29 / (batch * n_steps)))
+
+
 # ----------------------------------------------------------------------
 # Table layout, packing and unpacking
 # ----------------------------------------------------------------------
 
-def n_codes(cfg: EnvConfig) -> int:
-    """Rows of the table and of the accumulators: the compact codes."""
+def mg_offsets(cfgs: tuple) -> np.ndarray:
+    """Each variant's first table row in a mixture: the variants' code
+    blocks concatenated, each rounded up to a multiple of 8
+    (gym_soccer_tpu/ops/learner_kernel.py ``spc_mg``)."""
+    sizes = [-(-rules.n_cellpairs(c) // VARIANT_ALIGN) * VARIANT_ALIGN
+             for c in cfgs]
+    return np.concatenate([[0], np.cumsum(sizes[:-1])]).astype(np.int32)
+
+
+def n_codes(cfg) -> int:
+    """Rows of the table and of the accumulators: the compact codes of one
+    board, or of a mixture's 8-aligned blocks."""
+    if isinstance(cfg, tuple):
+        return int(sum(-(-rules.n_cellpairs(c) // VARIANT_ALIGN)
+                       * VARIANT_ALIGN for c in cfg))
     return rules.n_cellpairs(cfg)
 
 
+def n_states(cfg) -> int:
+    """Dense states of one board, or of a mixture's variants together."""
+    if isinstance(cfg, tuple):
+        return int(sum(tables.build_statespace(c).nS for c in cfg))
+    return tables.build_statespace(cfg).nS
+
+
 @functools.lru_cache(maxsize=None)
-def _cell_rows(cfg: EnvConfig) -> np.ndarray:
-    """Compact cellpair code of each dense state (dense row -> table row)."""
+def _cell_rows(cfg) -> np.ndarray:
+    """Table row of each dense state: its compact cellpair code, for a
+    mixture shifted by its variant's offset, in variant order."""
+    if isinstance(cfg, tuple):
+        return np.concatenate([_cell_rows(c) + o
+                               for c, o in zip(cfg, mg_offsets(cfg))])
     d2r = tables.build_statespace(cfg).dense_to_raw.astype(np.int64)
     xa, ya, xb, yb, p = rules.raw_decode(np, d2r, cfg)
     return rules.cellpair_encode(np, xa, ya, xb, yb, p, cfg).astype(np.int32)
 
 
 @functools.lru_cache(maxsize=None)
-def _codes(cfg: EnvConfig, device: torch.device) -> torch.Tensor:
+def _codes(cfg, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(_cell_rows(cfg), device=device).long()
 
 
-def init_state_fields(cfg: EnvConfig, batch: int, device="cuda"):
+def init_state_fields(cfg, batch: int, device="cuda"):
     """Initial state: lane i on ISD entry i % nI, t = 0 (six int32 [batch]
-    tensors ra, ca, rb, cb, p, t)."""
+    tensors ra, ca, rb, cb, p, t).
+
+    For a mixture (a tuple of EnvConfigs) returns ``(planes, fields)``:
+    lane i plays on variant i * nV // batch (contiguous blocks), its six
+    planes are H, W, glo, ghi, q_int and its variant's table row offset,
+    and it starts on its board's ISD entry (i // nV) % nI."""
     device = torch.device(device)
-    return (*sk.isd_spread_fields(cfg, batch, device),
-            torch.zeros(batch, dtype=torch.int32, device=device))
+    zeros = torch.zeros(batch, dtype=torch.int32, device=device)
+    if isinstance(cfg, tuple):
+        cfgs = sk.check_variants(cfg)
+        geo, start = sk.mg_planes(cfgs, batch, device, layout="blocked")
+        offs = torch.as_tensor(mg_offsets(cfgs), device=device)
+        planes = (*(g.clone() for g in geo[:5]), offs[geo[5].long()])
+        return planes, (*start, zeros)
+    return (*sk.isd_spread_fields(cfg, batch, device), zeros)
 
 
 def _mix_eps(pi, eps):
@@ -111,44 +182,63 @@ def _mix_eps(pi, eps):
     return mixed.to(torch.bfloat16).float()
 
 
-def pack_m2(cfg: EnvConfig, pi_a, pi_b, v, eps, eps_b=None) -> torch.Tensor:
-    """The chunk's table [n_codes, 11] float32 on the tensors' device.
-
-    ``pi_a``/``pi_b`` [nS, 5] and ``v`` [nS] are float32 per dense state.
-    Columns 0-4 hold pi_a mixed with uniform exploration ``eps``, columns
-    5-9 pi_b mixed with ``eps_b`` (default ``eps``), both rounded to
-    bfloat16 like the JAX package's packed M; column 10 holds v exactly.
-    Rows of codes that are no dense state stay zero."""
+def _pack(cfg, cols, pi_a, pi_b, v, eps, eps_b):
     if eps_b is None:
         eps_b = eps
     dev = v.device
     codes = _codes(cfg, dev)
-    table = torch.zeros((n_codes(cfg), TABLE_COLS), dtype=torch.float32,
-                        device=dev)
+    table = torch.zeros((n_codes(cfg), cols), dtype=torch.float32, device=dev)
     table[codes, COL_PI_A:COL_PI_A + N_ACTIONS] = _mix_eps(pi_a, eps)
     table[codes, COL_PI_B:COL_PI_B + N_ACTIONS] = _mix_eps(pi_b, eps_b)
     table[codes, COL_V] = v.float()
+    return table, codes
+
+
+def pack_m2(cfg, pi_a, pi_b, v, eps, eps_b=None) -> torch.Tensor:
+    """The packed chunk's table [n_codes, 11] float32 on the tensors'
+    device.
+
+    ``pi_a``/``pi_b`` [nS, 5] and ``v`` [nS] are float32 per dense state
+    (``cfg`` a mixture: the variants' states concatenated).  Columns 0-4
+    hold pi_a mixed with uniform exploration ``eps``, columns 5-9 pi_b
+    mixed with ``eps_b`` (default ``eps``), both rounded to bfloat16 like
+    the JAX package's packed M; column 10 holds v exactly.  Rows of codes
+    that are no dense state stay zero."""
+    return _pack(cfg, TABLE_COLS, pi_a, pi_b, v, eps, eps_b)[0]
+
+
+def pack_m(cfg, pi_a, pi_b, q, v, eps, eps_b=None) -> torch.Tensor:
+    """The unpacked chunk's table [n_codes, 36] float32: ``pack_m2``'s
+    columns, then q [nS, 5, 5] exactly in columns 11-35 (joint action
+    aa * 5 + ab)."""
+    table, codes = _pack(cfg, TABLE_COLS_UNPACKED, pi_a, pi_b, v, eps, eps_b)
+    table[codes, COL_Q:COL_Q + NJ] = q.float().reshape(-1, NJ)
     return table
 
 
-def unpack_acc2(cfg: EnvConfig, acc):
-    """acc = (residual sums int64, counts int32), each [n_codes, 25] ->
-    dense (sum_residual, cnt), each float32 [nS, 5, 5].  The TD sum of a
-    cell is sum_residual + cnt * (v - q) for the chunk's frozen v and q."""
-    res, cnt = acc
-    codes = _codes(cfg, res.device)
+def unpack_acc2(cfg, acc):
+    """acc = (sums int64, counts int32), each [n_codes, 25] -> dense (sum,
+    cnt), each float32 [nS, 5, 5].  For the packed chunks the sums are
+    residual sums, and the TD sum of a cell is sum + cnt * (v - q) for the
+    chunk's frozen v and q; for the unpacked chunks (``unpack_acc``) they
+    are the TD sums."""
+    sums, cnt = acc
+    codes = _codes(cfg, sums.device)
     nS = codes.shape[0]
-    sum_res = (res[codes].double() * (1.0 / FIX_SCALE)).float()
-    return (sum_res.reshape(nS, N_ACTIONS, N_ACTIONS),
+    dense = (sums[codes].double() * (1.0 / FIX_SCALE)).float()
+    return (dense.reshape(nS, N_ACTIONS, N_ACTIONS),
             cnt[codes].float().reshape(nS, N_ACTIONS, N_ACTIONS))
 
 
+unpack_acc = unpack_acc2
+
+
 # ----------------------------------------------------------------------
-# One chunk: plain version and wrapper
+# One chunk: plain versions and wrappers
 # ----------------------------------------------------------------------
 
-def _check_chunk_args(cfg: EnvConfig, table, fields, batch: int,
-                      n_steps: int, cols: int = TABLE_COLS):
+def _check_chunk_args(cfg, table, fields, batch: int, n_steps: int,
+                      cols: int = TABLE_COLS):
     """The fields as a tuple, once the shapes, types and the one device of
     the table and the fields are checked."""
     if batch <= 0 or batch % LANES:
@@ -159,23 +249,27 @@ def _check_chunk_args(cfg: EnvConfig, table, fields, batch: int,
     if batch * n_steps > MAX_LANE_STEPS:
         raise ValueError(
             f"batch * n_steps = {batch * n_steps} exceeds 2**29: the int64 "
-            "fixed-point residual sums could overflow")
+            "fixed-point sums could overflow")
     device = table.device
     shape = (n_codes(cfg), cols)
     if (table.dtype != torch.float32 or tuple(table.shape) != shape
             or not table.is_contiguous()):
         raise ValueError(f"table must be a contiguous float32 {shape} tensor; "
                          f"got {table.dtype} {tuple(table.shape)}")
-    fields = tuple(fields)
-    if len(fields) != 6:
-        raise ValueError("fields = 6 tensors (ra, ca, rb, cb, p, t)")
-    for f in fields:
+    return _check_planes("fields", fields, batch, device)
+
+
+def _check_planes(what: str, planes, batch: int, device):
+    planes = tuple(planes)
+    if len(planes) != 6:
+        raise ValueError(f"{what} = 6 tensors")
+    for f in planes:
         if (f.dtype != torch.int32 or tuple(f.shape) != (batch,)
                 or not f.is_contiguous() or f.device != device):
             raise ValueError(
-                f"fields must be contiguous int32 [{batch}] tensors on "
+                f"{what} must be contiguous int32 [{batch}] tensors on "
                 f"{device}; got {f.dtype} {tuple(f.shape)} on {f.device}")
-    return fields
+    return planes
 
 
 def _sample5(pi, u):
@@ -192,133 +286,262 @@ def _sample5(pi, u):
     return a
 
 
-def _retire(res, cnt, idx, r, cont, v_next, v_prev):
-    """Add the residuals (r + cont * v_next) - v_prev at cells ``idx``."""
-    delta = (r + cont * v_next) - v_prev
+def _retire(sums, cnt, idx, r, cont, v_next, base):
+    """Add the values (r + cont * v_next) - base at cells ``idx``."""
+    delta = (r + cont * v_next) - base
     fixed = torch.round(delta.double() * FIX_SCALE).long()
-    res.index_add_(0, idx, fixed)
+    sums.index_add_(0, idx, fixed)
     cnt.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
 
 
-def _plain(cfg: EnvConfig, seed: int, table, fields, n_steps: int,
-           gamma: float):
+def _out_of_range(x, limit):
+    return (~(x.abs() <= limit)).sum()
+
+
+def _plain(cfg, seed: int, table, fields, n_steps: int, gamma: float,
+           packed: bool, planes=None):
     ra, ca, rb, cb, p, t = fields
     dev = ra.device
     B = ra.shape[0]
-    q_int = sk._q_int(cfg)
+    if planes is None:
+        geo, cpo = cfg, 0
+    else:
+        geo = sk.GeoPlanes(*planes[:5], cfg[0].max_steps)
+        cpo = planes[5].long()
+    q_int = sk._q_int(geo)
     lane = torch.arange(B, dtype=torch.int64, device=dev)
-    res = torch.zeros(n_codes(cfg) * NJ, dtype=torch.int64, device=dev)
+    sums = torch.zeros(n_codes(cfg) * NJ, dtype=torch.int64, device=dev)
     cnt = torch.zeros(n_codes(cfg) * NJ, dtype=torch.int32, device=dev)
     rew = torch.zeros(B, dtype=torch.int64, device=dev)
     goals, truncs = torch.zeros_like(rew), torch.zeros_like(rew)
+    out_of_range = torch.zeros((), dtype=torch.int64, device=dev)
     gamma_f = torch.tensor(np.float32(gamma), device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
+    limit = value_limit(B, n_steps)
     inv = 1.0 / 65536.0   # u16 * 2**-16 is exact in float32
+
+    def cell(ra, ca, rb, cb, p):
+        return rules.cellpair_encode(torch, ra, ca, rb, cb, p, geo).long() \
+            + cpo
+
     pend = None
     for i in range(n_steps):
         bits0, bits1, bits2 = (sk._random_word(seed, i, w, lane)
                                for w in range(3))
-        cp = rules.cellpair_encode(torch, ra, ca, rb, cb, p, cfg).long()
+        cp = cell(ra, ca, rb, cb, p)
         row = table[cp]
         v_here = row[:, COL_V]
+        out_of_range += _out_of_range(v_here, limit)
         if pend is not None:   # the previous step, bootstrapped from v_here
-            idx, r, cont, v_prev = pend
-            _retire(res, cnt, idx, r, cont, v_here, v_prev)
+            _retire(sums, cnt, *pend[:3], v_here, pend[3])
         aa = _sample5(row[:, COL_PI_A:COL_PI_A + 5],
                       sk._u16(bits0, 0).float() * inv)
         ab = _sample5(row[:, COL_PI_B:COL_PI_B + 5],
                       sk._u16(bits0, 1).float() * inv)
         ra, ca, rb, cb, p, goal, r = sk.transition_core(
-            ra, ca, rb, cb, p, aa, ab, bits1, bits2, cfg, q_int)
+            ra, ca, rb, cb, p, aa, ab, bits1, bits2, geo, q_int)
         ra, ca, rb, cb, p, t, trunc = sk.autoreset_core(
-            ra, ca, rb, cb, p, t, goal, bits2, cfg)
+            ra, ca, rb, cb, p, t, goal, bits2, geo)
         cont = torch.where(goal | trunc, zero, gamma_f)
-        pend = (cp * NJ + aa * N_ACTIONS + ab, r.float(), cont, v_here)
+        ja = (aa * N_ACTIONS + ab).long()
+        if packed:
+            base = v_here
+        else:
+            base = row.gather(1, (COL_Q + ja)[:, None])[:, 0]
+            out_of_range += _out_of_range(base, limit)
+        pend = (cp * NJ + ja, r.float(), cont, base)
         rew += r
         goals += goal
         truncs += trunc
-    cp = rules.cellpair_encode(torch, ra, ca, rb, cb, p, cfg).long()
-    idx, r, cont, v_prev = pend   # the last step, against the final state
-    _retire(res, cnt, idx, r, cont, table[cp, COL_V], v_prev)
-    acc = (res.reshape(-1, NJ), cnt.reshape(-1, NJ))
-    return (ra, ca, rb, cb, p, t), acc, (rew.sum(), goals.sum(), truncs.sum())
+    v_end = table[cell(ra, ca, rb, cb, p), COL_V]
+    out_of_range += _out_of_range(v_end, limit)
+    _retire(sums, cnt, *pend[:3], v_end, pend[3])   # the last step
+    acc = (sums.reshape(-1, NJ), cnt.reshape(-1, NJ))
+    return ((ra, ca, rb, cb, p, t), acc,
+            (rew.sum(), goals.sum(), truncs.sum(), out_of_range))
 
 
-def packed_learner_chunk_plain(cfg: EnvConfig, seed: int, table, fields,
-                               batch: int, n_steps: int, gamma: float = 0.99):
-    """Plain PyTorch version of ``packed_learner_chunk``, on any device."""
-    fields = _check_chunk_args(cfg, table, fields, batch, n_steps)
-    return _plain(cfg, seed, table, fields, n_steps, gamma)
+_NAMES = {(True, False): "packed_learner_chunk",
+          (True, True): "multigrid_packed_learner_chunk",
+          (False, False): "learner_chunk",
+          (False, True): "multigrid_learner_chunk"}
+
+
+def _chunk(packed: bool, cfg, seed, table, planes, fields, batch, n_steps,
+           gamma, threads, plain: bool):
+    multi = planes is not None
+    name = _NAMES[packed, multi]
+    if multi:
+        cfg = sk.check_variants(cfg)
+    elif isinstance(cfg, tuple):
+        raise ValueError(f"{name} takes one EnvConfig; a mixture runs "
+                         f"{_NAMES[packed, True]}")
+    if not 0.0 <= gamma <= 1.0:
+        raise ValueError(f"gamma must lie in [0, 1], got {gamma}")
+    fields = _check_chunk_args(
+        cfg, table, fields, batch, n_steps,
+        TABLE_COLS if packed else TABLE_COLS_UNPACKED)
+    if multi:
+        planes = _check_planes("planes", planes, batch, table.device)
+    if plain or table.device.type == "cpu":
+        return _plain(cfg, seed, table, fields, n_steps, gamma, packed,
+                      planes)
+    return _launch(name, cfg, seed, table, planes, fields, n_steps, gamma,
+                   threads)
 
 
 def packed_learner_chunk(cfg: EnvConfig, seed: int, table, fields,
                          batch: int, n_steps: int, gamma: float = 0.99,
                          threads: int = 128):
-    """Run one fused minimax-Q chunk.
+    """Run one fused minimax-Q chunk with residual accumulation (kernel
+    K5).
 
     ``table``: float32 [n_codes, 11] from ``pack_m2``; ``fields``: six
     int32 [batch] tensors (ra, ca, rb, cb, p, t), e.g. from
     ``init_state_fields``; both on one device, where the chunk runs.
-    ``batch`` is a multiple of 128 and batch * n_steps at most 2**29.
-    ``seed`` keys the counter PRNG with the steps numbered from 0.  Returns ``(fields, (res, cnt),
-    (reward_sum, goals, truncs))``: the final state, the int64 residual
+    ``batch`` is a multiple of 128 and batch * n_steps at most 2**29;
+    ``gamma`` lies in [0, 1].  ``seed`` keys the counter PRNG with the
+    steps numbered from 0.  Returns ``(fields, (sums, cnt), (reward_sum,
+    goals, truncs, out_of_range))``: the final state, the int64 residual
     sums (units of 2**-32) and int32 visit counts [n_codes, 25] (decode
-    with ``unpack_acc2``), and the int64 totals.  ``threads`` is the CUDA
-    block size (a multiple of 32); it does not change the result.
+    with ``unpack_acc2``), and the int64 totals.  The sums are exact when
+    ``out_of_range``, the number of table values read that lie outside
+    +-``value_limit(batch, n_steps)`` or are not finite, is 0 (always
+    while |v| <= 1); it is counted on the device, so the call does not wait
+    for the chunk.  ``threads`` is the CUDA block size (a multiple of 32);
+    it does not change the result.
 
     On a CPU device this runs ``packed_learner_chunk_plain``; on a CUDA
     device it launches the K5 kernel.
     """
-    fields = _check_chunk_args(cfg, table, fields, batch, n_steps)
-    if table.device.type == "cpu":
-        return _plain(cfg, seed, table, fields, n_steps, gamma)
-    return _launch(cfg, seed, table, fields, n_steps, gamma, threads)
+    return _chunk(True, cfg, seed, table, None, fields, batch, n_steps,
+                  gamma, threads, plain=False)
+
+
+def packed_learner_chunk_plain(cfg: EnvConfig, seed: int, table, fields,
+                               batch: int, n_steps: int, gamma: float = 0.99):
+    """Plain PyTorch version of ``packed_learner_chunk``, on any device."""
+    return _chunk(True, cfg, seed, table, None, fields, batch, n_steps,
+                  gamma, None, plain=True)
+
+
+def multigrid_packed_learner_chunk(cfgs: tuple, seed: int, table, planes,
+                                   fields, batch: int, n_steps: int,
+                                   gamma: float = 0.99, threads: int = 128):
+    """``packed_learner_chunk`` over a mixture of boards (kernel K6).
+
+    ``cfgs``: a tuple of 1 to 16 EnvConfigs sharing max_steps; ``table``:
+    float32 [n_codes(cfgs), 11] from ``pack_m2(cfgs, ...)``; ``planes`` and
+    ``fields``: the six int32 [batch] geometry planes and state fields from
+    ``init_state_fields(cfgs, ...)``.  Each lane steps on its own board and
+    accumulates into its variant's block.  Returns what
+    ``packed_learner_chunk`` returns, the accumulators [n_codes(cfgs), 25].
+
+    On a CPU device this runs ``multigrid_packed_learner_chunk_plain``; on
+    a CUDA device it launches the K6 kernel.
+    """
+    return _chunk(True, cfgs, seed, table, planes, fields, batch, n_steps,
+                  gamma, threads, plain=False)
+
+
+def multigrid_packed_learner_chunk_plain(cfgs: tuple, seed: int, table,
+                                         planes, fields, batch: int,
+                                         n_steps: int, gamma: float = 0.99):
+    """Plain PyTorch version of ``multigrid_packed_learner_chunk``."""
+    return _chunk(True, cfgs, seed, table, planes, fields, batch, n_steps,
+                  gamma, None, plain=True)
+
+
+def learner_chunk(cfg: EnvConfig, seed: int, table, fields, batch: int,
+                  n_steps: int, gamma: float = 0.99, threads: int = 128):
+    """``packed_learner_chunk`` accumulating the full TD sums
+    r + cont * v(s') - q(s, a) (kernel K7; decode with ``unpack_acc``).
+    ``table``: float32 [n_codes, 36] from ``pack_m``; the out-of-range
+    count covers the q(s, a) read too.  The fields, stats and counts equal
+    ``packed_learner_chunk``'s for a table with the same pi columns.
+
+    On a CPU device this runs ``learner_chunk_plain``; on a CUDA device it
+    launches the K7 kernel.
+    """
+    return _chunk(False, cfg, seed, table, None, fields, batch, n_steps,
+                  gamma, threads, plain=False)
+
+
+def learner_chunk_plain(cfg: EnvConfig, seed: int, table, fields,
+                        batch: int, n_steps: int, gamma: float = 0.99):
+    """Plain PyTorch version of ``learner_chunk``, on any device."""
+    return _chunk(False, cfg, seed, table, None, fields, batch, n_steps,
+                  gamma, None, plain=True)
+
+
+def multigrid_learner_chunk(cfgs: tuple, seed: int, table, planes, fields,
+                            batch: int, n_steps: int, gamma: float = 0.99,
+                            threads: int = 128):
+    """``learner_chunk`` over a mixture of boards (kernel K7, its
+    multigrid call site): ``table`` from ``pack_m(cfgs, ...)``, ``planes``
+    and ``fields`` as for ``multigrid_packed_learner_chunk``.
+
+    On a CPU device this runs ``multigrid_learner_chunk_plain``; on a CUDA
+    device it launches the K7 kernel's multigrid instance.
+    """
+    return _chunk(False, cfgs, seed, table, planes, fields, batch, n_steps,
+                  gamma, threads, plain=False)
+
+
+def multigrid_learner_chunk_plain(cfgs: tuple, seed: int, table, planes,
+                                  fields, batch: int, n_steps: int,
+                                  gamma: float = 0.99):
+    """Plain PyTorch version of ``multigrid_learner_chunk``."""
+    return _chunk(False, cfgs, seed, table, planes, fields, batch, n_steps,
+                  gamma, None, plain=True)
 
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    """The built kernel library with its C signature declared."""
+    """The built kernel library with its C signatures declared."""
     from . import _build
     lib = _build.load("learner_kernel")
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.gst_packed_learner_chunk.argtypes = [
-        i32, vp, vp, vp, vp, vp, vp,   # device, in, out, table, res, cnt, stats
-        vp, i32, i32, ctypes.c_uint32, ctypes.c_float, i32, vp]
-    #    params, B, T, seed, gamma, threads, stream
-    lib.gst_packed_learner_chunk.restype = i32
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for name in _NAMES.values():
+        fn = getattr(lib, "gst_" + name)
+        fn.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32,
+                       ctypes.c_uint32, f32, f32, i32, vp]
+        # device, in, out, geo, table, sums, cnt, stats, params, B, T,
+        # seed, gamma, limit, threads, stream
+        fn.restype = i32
     lib.gst_error_string.argtypes = [i32]
     lib.gst_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(cfg: EnvConfig, seed: int, table, fields, n_steps: int,
+def _launch(name: str, cfg, seed: int, table, planes, fields, n_steps: int,
             gamma: float, threads: int):
     dev = table.device
-    if dev.type != "cuda":
-        raise ValueError(f"packed_learner_chunk: no kernel for device {dev}")
-    if threads <= 0 or threads > 1024 or threads % 32:
-        raise ValueError(f"threads must be a multiple of 32 in [32, 1024], "
-                         f"got {threads}")
+    sk.check_threads(name, dev, threads)
     lib = _library()
     B = fields[0].shape[0]
     out = tuple(torch.empty_like(f) for f in fields)
-    res = torch.zeros((n_codes(cfg), NJ), dtype=torch.int64, device=dev)
+    sums = torch.zeros((n_codes(cfg), NJ), dtype=torch.int64, device=dev)
     cnt = torch.zeros((n_codes(cfg), NJ), dtype=torch.int32, device=dev)
-    stats = torch.empty(3, dtype=torch.int64, device=dev)
-    in_ptrs = (ctypes.c_void_p * 6)(*(f.data_ptr() for f in fields))
-    out_ptrs = (ctypes.c_void_p * 6)(*(f.data_ptr() for f in out))
-    params = sk._game_params(cfg)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.gst_packed_learner_chunk(
+    stats = torch.zeros(4, dtype=torch.int64, device=dev)
+    in_ptrs, out_ptrs = sk.ptr_array(fields), sk.ptr_array(out)
+    if planes is None:
+        geo_ptrs, params = None, sk._game_params(cfg)
+    else:
+        geo_ptrs = sk.ptr_array(planes)
+        params = (ctypes.c_int32 * 1)(cfg[0].max_steps)
+    rc = getattr(lib, "gst_" + name)(
         dev.index, ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs),
-        table.data_ptr(), res.data_ptr(), cnt.data_ptr(), stats.data_ptr(),
+        None if geo_ptrs is None else ctypes.addressof(geo_ptrs),
+        table.data_ptr(), sums.data_ptr(), cnt.data_ptr(), stats.data_ptr(),
         ctypes.addressof(params), B, n_steps, seed & sk.M32,
-        float(np.float32(gamma)), threads, stream)
+        float(np.float32(gamma)), value_limit(B, n_steps), threads,
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc:
-        raise RuntimeError(f"packed_learner_chunk: kernel launch failed: "
+        raise RuntimeError(f"{name}: kernel launch failed: "
                            f"{lib.gst_error_string(rc).decode()} ({rc})")
-    launch_counts["packed_learner_chunk"] += 1
-    return out, (res, cnt), tuple(stats.unbind())
+    launch_counts[name] += 1
+    return out, (sums, cnt), tuple(stats.unbind())
 
 
 # ----------------------------------------------------------------------
@@ -344,14 +567,7 @@ def _chunk_seed(seed: int, k: int) -> int:
     return (seed * 1_000_003 + k) & sk.M32
 
 
-def _unsupported(cfg, mesh, packed, single_dispatch, chunks_per_dispatch):
-    if isinstance(cfg, tuple):
-        raise NotImplementedError(
-            "a tuple of configs (mixed-geometry training, kernel K6) is not "
-            "ported yet")
-    if packed is False:
-        raise NotImplementedError(
-            "packed=False (the unpacked layout, kernel K7) is not ported yet")
+def _unsupported(mesh, single_dispatch, chunks_per_dispatch):
     if mesh is not None:
         raise NotImplementedError(
             "mesh (data-parallel training) is not ported yet")
@@ -359,6 +575,42 @@ def _unsupported(cfg, mesh, packed, single_dispatch, chunks_per_dispatch):
         raise NotImplementedError(
             "single_dispatch / chunks_per_dispatch are not ported yet; the "
             "port runs one chunk per dispatch")
+
+
+def _chunk_fn(cfg, packed: bool, batch: int, chunk_len: int, gamma: float,
+              device):
+    """(chunk(seed, table, fields) -> chunk result, initial fields): the
+    trainer's chunk for one board or a mixture, packed or unpacked.  A
+    mixture's planes are rebuilt here, never carried in a resume dict."""
+    if not isinstance(cfg, tuple):
+        fn = packed_learner_chunk if packed else learner_chunk
+        return (lambda seed, m, fields:
+                fn(cfg, seed, m, fields, batch, chunk_len, gamma),
+                init_state_fields(cfg, batch, device))
+    planes, fields = init_state_fields(cfg, batch, device)
+    fn = multigrid_packed_learner_chunk if packed else multigrid_learner_chunk
+    return (lambda seed, m, fields:
+            fn(cfg, seed, m, planes, fields, batch, chunk_len, gamma)), fields
+
+
+def _td_sums(cfg, packed: bool, acc, v_chunk, q):
+    """(TD sums, counts) per dense state of a chunk: the unpacked chunk's
+    sums as they are, the packed one's residual sums completed with
+    cnt * (v - q) for the chunk's frozen v and q."""
+    sums, cnt = unpack_acc2(cfg, acc)
+    if packed:
+        sums = sums + cnt * (v_chunk[:, None, None] - q)
+    return sums, cnt
+
+
+def _raise_out_of_range(out_of_range, batch: int, chunk_len: int, v):
+    n = int(out_of_range)   # the run's one read of the device's count
+    if n:
+        raise ValueError(
+            f"{n} table values read left +-{value_limit(batch, chunk_len)}"
+            f": the int64 fixed-point sums could overflow (batch * "
+            f"chunk_len = {batch * chunk_len}, max|v| up to "
+            f"{float(v.abs().max())})")
 
 
 class _Timing:
@@ -395,7 +647,7 @@ class _Timing:
                         chunks=len(self.marks) // 2)
 
 
-def fused_minimax_train(cfg: EnvConfig, batch: int, n_chunks: int,
+def fused_minimax_train(cfg, batch: int, n_chunks: int,
                         chunk_len: int = 64, lr: float = 0.3,
                         gamma: float = 0.99, eps: float = 0.3,
                         lr_halflife: int = 0, eps_halflife: int = 0,
@@ -422,15 +674,22 @@ def fused_minimax_train(cfg: EnvConfig, batch: int, n_chunks: int,
     dispatch mode; the arguments mean what they mean there
     (gym_soccer_tpu/ops/learner_kernel.py ``fused_minimax_train``):
 
+    * ``cfg``: one EnvConfig, or a tuple of them: one table concatenated
+      over the variants is trained on a mixed batch (lanes in contiguous
+      blocks per variant), and the results are per dense state of the
+      variants in order (core/multigrid ``build_codec``'s offsets);
+    * ``packed`` (default True): the residual layout (K5, or K6 for a
+      mixture), whose sums the trainer completes with cnt * (v - q);
+      False: the TD layout (K7), whose table carries q.  Both step the
+      same trajectories for the same policies;
     * schedules over the chunk index k, computed on the host in float64
       and rounded to float32: lr_k = lr * 0.5**(k * chunk_len /
       lr_halflife) * (1 + max(0, k - lr_anneal_start) / lr_anneal_tau)
       ** -lr_anneal_pow; eps_k = max(eps * 0.5**(k * chunk_len /
       eps_halflife), eps_min); ``count_lr_tau`` > 0 scales lr per cell by
       (1 + n / tau) ** -count_lr_pow over lifetime visit counts n;
-    * between chunks: q += lr * (sum_residual + cnt * (v - q)) /
-      max(cnt, 1), then RM+ with ``solver_iters`` iterations and a repack
-      with eps_k;
+    * between chunks: q += lr * sum_td / max(cnt, 1), then RM+ with
+      ``solver_iters`` iterations and a repack with eps_k;
     * ``avg_after``: return strategies averaged over chunks >= avg_after
       (``avg_q``: the equilibrium of the averaged Q instead);
       ``final_solver_iters``: re-solve the final Q with more iterations;
@@ -438,17 +697,24 @@ def fused_minimax_train(cfg: EnvConfig, batch: int, n_chunks: int,
       tensors or numpy arrays (a JAX run's, as ``np.asarray``);
     * ``return_state=True`` adds a sixth element, the resume dict (q, v,
       pi_a, pi_b, n, fields, next_chunk, packed) before post-processing;
-      ``init``/``fields_init``/``start_chunk`` from it continue bit for bit
-      like an uninterrupted run.  Averaging windows restart on resume.
+      ``init``/``fields_init``/``start_chunk`` from it, under the same
+      ``packed``, continue bit for bit like an uninterrupted run (a
+      mixture's planes are rebuilt, not resumed).  Averaging windows
+      restart on resume.
     * ``stats_history`` holds (reward_sum, goals, truncs) of every 16th
       chunk and of the last.
 
-    On a CUDA device every chunk launches K5.  ``timing``, if a dict, is
-    filled with the time spent in chunk calls and between them.
+    On a CUDA device every chunk launches K5, K6 or K7, and no chunk waits
+    for the one before: the chunks' out-of-range counts (see
+    ``packed_learner_chunk``) are summed on the device and read once, at
+    the end, and a run in which a table value left the int64 sums' exact
+    range raises ValueError.  ``timing``, if a dict, is filled with the
+    time spent in chunk calls and between them.
     """
-    _unsupported(cfg, mesh, packed, single_dispatch, chunks_per_dispatch)
+    _unsupported(mesh, single_dispatch, chunks_per_dispatch)
+    packed = True if packed is None else bool(packed)
     device = torch.device(device)
-    nS = tables.build_statespace(cfg).nS
+    nS = n_states(cfg)
     f32 = dict(dtype=torch.float32, device=device)
 
     n = torch.zeros((nS, N_ACTIONS, N_ACTIONS), **f32)
@@ -464,24 +730,26 @@ def fused_minimax_train(cfg: EnvConfig, batch: int, n_chunks: int,
         q, v, pi_a, pi_b = (_float_tensor(x, device) for x in init)
         if tuple(q.shape) != (nS, 5, 5) or tuple(v.shape) != (nS,):
             raise ValueError(f"init q must be [{nS}, 5, 5] and v [{nS}]")
-    if fields_init is None:
-        fields = init_state_fields(cfg, batch, device)
-    else:
+    chunk, fields = _chunk_fn(cfg, packed, batch, chunk_len, gamma, device)
+    if fields_init is not None:
         fields = tuple(torch.as_tensor(f, dtype=torch.int32, device=device)
                        for f in fields_init)
+
+    def repack(pa, pb, q, v, eps_now):
+        return (pack_m2(cfg, pa, pb, v, eps_now) if packed
+                else pack_m(cfg, pa, pb, q, v, eps_now))
 
     def between(q, n, v_chunk, acc, lr_now, eps_now):
         """Count-normalised Q update, RM+ re-solve and repack.  ``v_chunk``
         is the v packed into the chunk's table (the residuals' baseline)."""
-        sum_res, cnt = unpack_acc2(cfg, acc)
-        sum_td = sum_res + cnt * (v_chunk[:, None, None] - q)
+        sum_td, cnt = _td_sums(cfg, packed, acc, v_chunk, q)
         n = n + cnt
         lr_cell = lr_now
         if count_lr_tau > 0:
             lr_cell = lr_now * (1.0 + n / count_lr_tau) ** (-count_lr_pow)
         q = q + lr_cell * sum_td / cnt.clamp_min(1.0)
         v, pa, pb = solve_matrix_games(q, iters=solver_iters)
-        return q, n, v, pa, pb, pack_m2(cfg, pa, pb, v, eps_now)
+        return q, n, v, pa, pb, repack(pa, pb, q, v, eps_now)
 
     def decay(base, hl, k, floor=0.0):
         return max(base * (0.5 ** (k * chunk_len / hl) if hl else 1.0), floor)
@@ -497,30 +765,32 @@ def fused_minimax_train(cfg: EnvConfig, batch: int, n_chunks: int,
     # after chunk start_chunk - 1, with that chunk's epsilon.
     eps0 = eps if start_chunk == 0 else decay(eps, eps_halflife,
                                               start_chunk - 1, eps_min)
-    m = pack_m2(cfg, pi_a, pi_b, v, eps0)
+    m = repack(pi_a, pi_b, q, v, eps0)
     end_chunk = start_chunk + n_chunks
     pa_sum = pb_sum = q_sum = None
     history = []
+    out_of_range = 0
     clock = _Timing(timing, device)
     for k in range(start_chunk, end_chunk):
         clock.mark()
-        fields, acc, stats = packed_learner_chunk(
-            cfg, _chunk_seed(seed, k), m, fields, batch, chunk_len, gamma)
+        fields, acc, stats = chunk(_chunk_seed(seed, k), m, fields)
         clock.mark()
         q, n, v, pi_a, pi_b, m = between(
             q, n, v, acc, _f32(lr_at(k)),
             _f32(decay(eps, eps_halflife, k, eps_min)))
+        out_of_range = out_of_range + stats[3]
         if avg_after and k >= avg_after:
             pa_sum = pi_a if pa_sum is None else pa_sum + pi_a
             pb_sum = pi_b if pb_sum is None else pb_sum + pi_b
             if avg_q:
                 q_sum = q if q_sum is None else q_sum + q
         if k % 16 == 0 or k == end_chunk - 1:
-            history.append(stats)
+            history.append(stats[:3])
     clock.finish()
+    _raise_out_of_range(out_of_range, batch, chunk_len, v)
     history = [tuple(int(x) for x in row) for row in history]
     resume = {"q": q, "v": v, "pi_a": pi_a, "pi_b": pi_b, "n": n,
-              "fields": fields, "next_chunk": end_chunk, "packed": True}
+              "fields": fields, "next_chunk": end_chunk, "packed": packed}
     averaged = bool(avg_after) and end_chunk - 1 >= avg_after
     if averaged and avg_q:
         W = end_chunk - max(avg_after, start_chunk)
@@ -553,21 +823,26 @@ def fused_best_response_train(cfg: EnvConfig, opp_policy, side: str,
                               chunks_per_dispatch: int = 1):
     """Fused single-agent training: the best response of ``side``
     ('player_a' or 'player_b') to a frozen deterministic opponent
-    ``opp_policy`` (int [nS]), with the same K5 chunk as
-    ``fused_minimax_train``.  The frozen side's table columns hold its
-    one-hot policy with no exploration; the learner's hold its greedy
-    policy mixed with eps_k; between chunks the game solve is replaced by
-    the best-response backup (v = max over A's actions of q[s, a,
-    opp(s)], or min over B's of q[s, opp(s), b]; q and v stay in A's
-    reward perspective).
+    ``opp_policy`` (int [nS]), with the same chunks as
+    ``fused_minimax_train`` (K5, or K7 with ``packed=False``).  The frozen
+    side's table columns hold its one-hot policy with no exploration; the
+    learner's hold its greedy policy mixed with eps_k; between chunks the
+    game solve is replaced by the best-response backup (v = max over A's
+    actions of q[s, a, opp(s)], or min over B's of q[s, opp(s), b]; q and
+    v stay in A's reward perspective).
 
     Returns (q, v, pi_a, pi_b, history); ``init`` is (q,) or (q, n); with
     ``return_state=True`` a sixth element is the resume dict (q, n, fields,
     next_chunk, packed), from which ``init``/``fields_init``/
-    ``start_chunk`` continue bit for bit.  As in the JAX package."""
-    _unsupported(cfg, mesh, packed, False, chunks_per_dispatch)
+    ``start_chunk`` continue bit for bit.  As in the JAX package, one
+    board only.  A run in which a table value left the int64 sums' exact
+    range raises ValueError, as in ``fused_minimax_train``."""
+    _unsupported(mesh, False, chunks_per_dispatch)
+    if isinstance(cfg, tuple):
+        raise ValueError("fused_best_response_train takes one EnvConfig")
     if side not in ("player_a", "player_b"):
         raise ValueError(f"side must be 'player_a' or 'player_b', got {side!r}")
+    packed = True if packed is None else bool(packed)
     device = torch.device(device)
     nS = tables.build_statespace(cfg).nS
     f32 = dict(dtype=torch.float32, device=device)
@@ -583,15 +858,17 @@ def fused_best_response_train(cfg: EnvConfig, opp_policy, side: str,
         q = _float_tensor(init[0], device)
         if len(init) > 1:
             n = _float_tensor(init[1], device)
-    if fields_init is None:
-        fields = init_state_fields(cfg, batch, device)
-    else:
+    chunk, fields = _chunk_fn(cfg, packed, batch, chunk_len, gamma, device)
+    if fields_init is not None:
         fields = tuple(torch.as_tensor(f, dtype=torch.int32, device=device)
                        for f in fields_init)
 
+    def repack(pa, pb, q, v, ea, eb):
+        return (pack_m2(cfg, pa, pb, v, ea, eps_b=eb) if packed
+                else pack_m(cfg, pa, pb, q, v, ea, eps_b=eb))
+
     def between(q, n, v_chunk, acc, lr_now, eps_now):
-        sum_res, cnt = unpack_acc2(cfg, acc)
-        sum_td = sum_res + cnt * (v_chunk[:, None, None] - q)
+        sum_td, cnt = _td_sums(cfg, packed, acc, v_chunk, q)
         n = n + cnt
         q = q + lr_now * sum_td / cnt.clamp_min(1.0)
         if learn_a:
@@ -601,7 +878,7 @@ def fused_best_response_train(cfg: EnvConfig, opp_policy, side: str,
             pi_l = torch.nn.functional.one_hot(q_eff.argmax(-1),
                                                N_ACTIONS).float()
             pa, pb = pi_l, opp_oh
-            m = pack_m2(cfg, pa, pb, v, eps_now, eps_b=0.0)
+            m = repack(pa, pb, q, v, eps_now, 0.0)
         else:
             q_eff = q.gather(1, opp[:, None, None].expand(nS, 1, N_ACTIONS))
             q_eff = q_eff[:, 0, :]                       # [nS, 5] over b
@@ -609,7 +886,7 @@ def fused_best_response_train(cfg: EnvConfig, opp_policy, side: str,
             pi_l = torch.nn.functional.one_hot(q_eff.argmin(-1),
                                                N_ACTIONS).float()
             pa, pb = opp_oh, pi_l
-            m = pack_m2(cfg, pa, pb, v, 0.0, eps_b=eps_now)
+            m = repack(pa, pb, q, v, 0.0, eps_now)
         return q, n, v, pa, pb, m
 
     def eps_at(k):
@@ -630,7 +907,7 @@ def fused_best_response_train(cfg: EnvConfig, opp_policy, side: str,
         pi_a, pi_b = (uni, opp_oh) if learn_a else (opp_oh, uni)
         ea0, eb0 = (eps, 0.0) if learn_a else (0.0, eps)
         v = torch.zeros(nS, **f32)
-        m = pack_m2(cfg, pi_a, pi_b, v, ea0, eps_b=eb0)
+        m = repack(pi_a, pi_b, q, v, ea0, eb0)
     else:
         # Rebuild what the continuous run packed after chunk start_chunk-1:
         # greedy pi and v are functions of q, repacked with that chunk's
@@ -643,16 +920,18 @@ def fused_best_response_train(cfg: EnvConfig, opp_policy, side: str,
             q, n, torch.zeros(nS, **f32), empty, 0.0,
             _f32(eps_at(start_chunk - 1)))
     history = []
+    out_of_range = 0
     for k in range(start_chunk, end_chunk):
-        fields, acc, stats = packed_learner_chunk(
-            cfg, _chunk_seed(seed, k), m, fields, batch, chunk_len, gamma)
+        fields, acc, stats = chunk(_chunk_seed(seed, k), m, fields)
         q, n, v, pi_a, pi_b, m = between(q, n, v, acc, _f32(lr_at(k)),
                                          _f32(eps_at(k)))
+        out_of_range = out_of_range + stats[3]
         if k % 16 == 0 or k == end_chunk - 1:
-            history.append(stats)
+            history.append(stats[:3])
+    _raise_out_of_range(out_of_range, batch, chunk_len, v)
     history = [tuple(int(x) for x in row) for row in history]
     if return_state:
         return q, v, pi_a, pi_b, history, {
             "q": q, "n": n, "fields": fields, "next_chunk": end_chunk,
-            "packed": True}
+            "packed": packed}
     return q, v, pi_a, pi_b, history

@@ -35,6 +35,7 @@ import torch
 
 from ..config import EnvConfig, N_ACTIONS
 from ..core import mt19937, parity, rules, tables
+from . import step_kernel as sk
 
 LANES = 128            # the JAX wrappers tile lanes as [B/128, 128]
 N_CODES = 3 ** 9       # base-3 outcome-count pattern codes of 9 combos
@@ -333,11 +334,7 @@ def _launch(name: str, cfg: EnvConfig, pk: ParityKernelTables,
             seeds: torch.Tensor, rows: torch.Tensor, n_events: int,
             threads: int) -> ParityEventsOut:
     dev = seeds.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {dev}")
-    if threads <= 0 or threads > 1024 or threads % 32:
-        raise ValueError(f"threads must be a multiple of 32 in [32, 1024], "
-                         f"got {threads}")
+    sk.check_threads(name, dev, threads)
     lib = _library()
     B = seeds.shape[0]
     # uint32 seed bits in an int32 buffer

@@ -1,6 +1,6 @@
 """Fused random-vs-random rollout: CUDA kernels and their plain versions.
 
-The port of gym_soccer_tpu/ops/step_kernel.py.  Two public wrappers:
+The port of gym_soccer_tpu/ops/step_kernel.py.  Three public wrappers:
 
 * ``fused_rollout``: T steps of random-vs-random play for ``batch`` lanes,
   returning the final state fields and the (reward sum, goals,
@@ -8,12 +8,19 @@ The port of gym_soccer_tpu/ops/step_kernel.py.  Two public wrappers:
 * ``fused_journal_rollout``: the same, plus one packed int32 journal word
   per lane-step ([T, B]), decoded by ``unpack_journal``.  Replaces
   ``pallas_journal_rollout`` (kernel K2).
+* ``multigrid_rollout``: ``fused_rollout`` over a mixture of boards, lane
+  i on variant i % nV, with the totals per variant.  Replaces
+  ``pallas_multigrid_rollout`` (kernel K3).  Per-lane geometry is a
+  ``GeoPlanes``, which ``transition_core``, ``autoreset_core`` and
+  core/rules take where they take an ``EnvConfig``.
 
 Each has a plain PyTorch version here (``fused_rollout_plain``,
-``fused_journal_rollout_plain``).  A wrapper runs the plain version when
-its tensors lie on the CPU and launches the CUDA kernel
-(``csrc/step_kernel.cu``) when they lie on a CUDA device; there is no
-fallback from one to the other.
+``fused_journal_rollout_plain``, ``multigrid_rollout_plain``).  A wrapper
+runs the plain version when its tensors lie on the CPU and launches the
+CUDA kernel (``csrc/step_kernel.cu``) when they lie on a CUDA device;
+there is no fallback from one to the other.  The wrappers run on the card
+unless the caller passes ``device="cpu"``; the plain versions take a
+device always.
 
 Randomness is a counter PRNG: three murmur3 words per lane-step, a pure
 integer function of (seed, absolute step, word index, global lane id), so
@@ -31,6 +38,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from ..config import EnvConfig
@@ -41,7 +49,9 @@ BATCH_MULTIPLE = 1024  # the JAX wrappers tile lanes as [B/128, 128], B % 1024 =
 
 # Launches of each CUDA kernel in this process, counted by the wrappers
 # where they launch and nowhere else.
-launch_counts = {"fused_rollout": 0, "fused_journal_rollout": 0}
+launch_counts = {"fused_rollout": 0, "fused_journal_rollout": 0,
+                 "multigrid_rollout": 0}
+MAX_VARIANTS = 16  # K3 sums its stats per variant in shared memory
 
 
 def reset_launch_counts() -> None:
@@ -84,7 +94,28 @@ def _u16(w, hi):
 # Game transition on [B] int32 tensors
 # ----------------------------------------------------------------------
 
-def _q_int(cfg: EnvConfig) -> int:
+class GeoPlanes:
+    """Per-lane geometry: int32 [B] tensors H, W (internal width), glo, ghi
+    (the inclusive goal-row range) and q_int (round(slip * 65536)), and one
+    ``max_steps`` for all lanes.  Duck-types ``EnvConfig`` in
+    ``transition_core``, ``autoreset_core`` and core/rules, whose geometry
+    reads are elementwise (gym_soccer_tpu/ops/step_kernel.py ``GeoPlanes``).
+    """
+
+    def __init__(self, H, W, glo, ghi, q_int, max_steps: int):
+        self.H, self.W = H, W
+        self.glo, self.ghi = glo, ghi
+        self.q_int = q_int
+        self.max_steps = max_steps
+
+    @property
+    def goal_row_bounds(self):
+        return self.glo, self.ghi
+
+
+def _q_int(cfg) -> int:
+    if isinstance(cfg, GeoPlanes):
+        return cfg.q_int
     return int(round(cfg.slip_prob * 65536))
 
 
@@ -99,9 +130,10 @@ def _action_move(a):
     return mc, mr
 
 
-def _slipped_move(a, u16, q_int: int):
+def _slipped_move(a, u16, q_int):
     """Keep the intended move with p = 1-q, else one of the two orthogonals
-    (q/2 each).  ``u16`` uniform in [0, 65536); ``q_int`` = round(q * 65536)."""
+    (q/2 each).  ``u16`` uniform in [0, 65536); ``q_int`` = round(q * 65536),
+    an int or a per-lane int32 tensor."""
     mc, mr = _action_move(a)
     keep = u16 < 65536 - q_int
     first = u16 < 65536 - q_int // 2
@@ -111,10 +143,10 @@ def _slipped_move(a, u16, q_int: int):
     return torch.where(keep, mc, omc), torch.where(keep, mr, omr)
 
 
-def transition_core(ra, ca, rb, cb, p, aa, ab, bits1, bits2,
-                    cfg: EnvConfig, q_int: int):
+def transition_core(ra, ca, rb, cb, p, aa, ab, bits1, bits2, cfg, q_int):
     """Game transition under CHOSEN actions: slips, collision chain, goal.
-    Returns (nra, nca, nrb, ncb, npz, goal, r) without autoreset."""
+    ``cfg`` is an EnvConfig or a GeoPlanes.  Returns (nra, nca, nrb, ncb,
+    npz, goal, r) without autoreset."""
     mca, mra = _slipped_move(aa, _u16(bits1, 0), q_int)
     mcb, mrb = _slipped_move(ab, _u16(bits1, 1), q_int)
 
@@ -163,14 +195,38 @@ def _isd_lookup(idx, cfg: EnvConfig):
     return _isd_table(cfg, idx.device)[idx.long()].unbind(-1)
 
 
-def autoreset_core(nra, nca, nrb, ncb, npz, t, goal, bits2, cfg: EnvConfig):
+def _isd_fields_arith(idx, H, W, xp=torch):
+    """Initial state fields from the geometry, arithmetically (reference
+    _generate_isd): columns 2 and W - 3 on the middle rows, even-H boards
+    swapping the rows for idx 2 and 3, possession idx % 2.  ``xp`` is torch
+    or numpy."""
+    even = (H % 2) == 0
+    mid_hi = H // 2
+    mid_lo = (H - 1) // 2
+    swap = (idx // 2) == 1
+    ira = xp.where(even & swap, mid_hi, mid_lo)
+    irb = xp.where(even & swap, mid_lo, mid_hi)
+    ip = idx % 2
+    ica = xp.full_like(ira, 2)
+    icb = W - 3
+    return ira, ica, irb, icb, ip
+
+
+def autoreset_core(nra, nca, nrb, ncb, npz, t, goal, bits2, cfg):
     """Truncation + uniform-ISD autoreset; returns updated fields, t and
-    the truncation flag."""
+    the truncation flag.  An EnvConfig ``cfg`` picks among its listed ISD
+    entries (nI by the goal rows); a GeoPlanes computes each lane's entry
+    arithmetically (nI by H % 2), as the two JAX kernels do."""
     t = t + 1
     trunc = (t >= cfg.max_steps) & ~goal
     term = goal | trunc
-    isd_idx = _u16(bits2, 1) % _n_isd(cfg)
-    ira, ica, irb, icb, ip = _isd_lookup(isd_idx, cfg)
+    if isinstance(cfg, GeoPlanes):
+        n_entries = torch.where(cfg.H % 2 == 0, 4, 2).to(torch.int32)
+        isd_idx = _u16(bits2, 1) % n_entries
+        ira, ica, irb, icb, ip = _isd_fields_arith(isd_idx, cfg.H, cfg.W)
+    else:
+        isd_idx = _u16(bits2, 1) % _n_isd(cfg)
+        ira, ica, irb, icb, ip = _isd_lookup(isd_idx, cfg)
     nra = torch.where(term, ira, nra)
     nca = torch.where(term, ica, nca)
     nrb = torch.where(term, irb, nrb)
@@ -189,6 +245,69 @@ def isd_spread_fields(cfg: EnvConfig, batch: int, device):
     table = _isd_table(cfg, device)  # built on the device: no copy per call
     lane_isd = torch.arange(batch, device=device) % table.shape[0]
     return tuple(table.t()[:, lane_isd].unbind(0))
+
+
+@functools.lru_cache(maxsize=None)
+def _mg_planes_on(cfgs: tuple, batch: int, layout: str,
+                  device: torch.device):
+    """int32 [batch] tensors on ``device``, cached: the planes H, W, glo,
+    ghi, q_int, variant id, then the initial ra, ca, rb, cb, p
+    (gym_soccer_tpu/ops/step_kernel.py ``_mg_planes``)."""
+    nV = len(cfgs)
+    lanes = np.arange(batch, dtype=np.int64)
+    if layout == "blocked":
+        idx = lanes * nV // batch
+    elif layout == "roundrobin":
+        idx = lanes % nV
+    else:
+        raise ValueError(f"layout must be 'roundrobin' or 'blocked', got "
+                         f"{layout!r}")
+    per_variant = [[c.H for c in cfgs], [c.W for c in cfgs],
+                   [c.goal_row_bounds[0] for c in cfgs],
+                   [c.goal_row_bounds[1] for c in cfgs],
+                   [_q_int(c) for c in cfgs]]
+    planes = [np.asarray(v, np.int32)[idx] for v in per_variant]
+    planes.append(idx.astype(np.int32))
+    H, W = planes[0], planes[1]
+    n_entries = np.where(H % 2 == 0, 4, 2)
+    # the lane's initial ISD entry, (lane // nV) % n_entries whatever the
+    # layout, as the JAX package spreads it
+    isd = ((lanes // nV) % n_entries).astype(np.int32)
+    init = [np.asarray(a, np.int32)
+            for a in _isd_fields_arith(isd, H, W, xp=np)]
+    return tuple(torch.as_tensor(a, device=device) for a in planes + init)
+
+
+def mg_planes(cfgs: tuple, batch: int, device, layout: str = "roundrobin"):
+    """Per-lane geometry planes and the initial state of a mixed-geometry
+    batch on ``device``: ``(planes, fields)``, six int32 [batch] planes H,
+    W, glo, ghi, q_int and variant id, and five int32 [batch] fields ra,
+    ca, rb, cb, p.  ``layout`` 'roundrobin' puts lane i on variant i % nV
+    (the rollout's); 'blocked' on variant i * nV // batch (the learner's).
+    Either way lane i starts on its board's ISD entry (i // nV) %
+    n_entries, computed arithmetically."""
+    out = _mg_planes_on(tuple(cfgs), batch, layout, torch.device(device))
+    return out[:6], tuple(f.clone() for f in out[6:])
+
+
+def _geo(cfgs: tuple, batch: int, device, layout: str = "roundrobin"):
+    """``mg_planes``'s six geometry planes alone, shared and read-only."""
+    return _mg_planes_on(cfgs, batch, layout, torch.device(device))[:6]
+
+
+def check_variants(cfgs) -> tuple:
+    """``cfgs`` as a tuple of 1 to MAX_VARIANTS EnvConfigs that share
+    max_steps (the kernels' truncation is one value for all lanes)."""
+    cfgs = tuple(cfgs)
+    if not 1 <= len(cfgs) <= MAX_VARIANTS:
+        raise ValueError(f"a mixture takes 1 to {MAX_VARIANTS} variants, "
+                         f"got {len(cfgs)}")
+    if not all(isinstance(c, EnvConfig) for c in cfgs):
+        raise ValueError("a mixture is a tuple of EnvConfigs")
+    if len({c.max_steps for c in cfgs}) != 1:
+        raise ValueError("variants must share max_steps, got "
+                         f"{sorted({c.max_steps for c in cfgs})}")
+    return cfgs
 
 
 # ----------------------------------------------------------------------
@@ -250,11 +369,14 @@ def unpack_journal(cfg: EnvConfig, journal):
 # Plain PyTorch versions
 # ----------------------------------------------------------------------
 
-def _plain(cfg: EnvConfig, seed: int, fields, n_steps: int, step_offset: int,
+def _plain(cfg, seed: int, fields, n_steps: int, step_offset: int,
            journal: bool):
+    """The rollout on an EnvConfig or a GeoPlanes ``cfg``.  Returns the
+    final fields, the per-lane int64 (reward, goal, truncation) sums and
+    the journal words (None unless ``journal``)."""
     ra, ca, rb, cb, p, t = fields
     B = ra.shape[0]
-    q_int, nI = _q_int(cfg), _n_isd(cfg)
+    q_int = _q_int(cfg)
     lane = torch.arange(B, dtype=torch.int64, device=ra.device)
     rew = torch.zeros(B, dtype=torch.int64, device=ra.device)
     goals, truncs = torch.zeros_like(rew), torch.zeros_like(rew)
@@ -274,12 +396,15 @@ def _plain(cfg: EnvConfig, seed: int, fields, n_steps: int, step_offset: int,
             ra, ca, rb, cb, p, t, goal, bits2, cfg)
         if journal:
             words[i] = _journal_word(raw, aa, ab, goal, trunc, r,
-                                     _u16(bits2, 1) % nI)
+                                     _u16(bits2, 1) % _n_isd(cfg))
         rew += r
         goals += goal
         truncs += trunc
-    stats = (rew.sum(), goals.sum(), truncs.sum())
-    return (ra, ca, rb, cb, p, t), stats, words
+    return (ra, ca, rb, cb, p, t), (rew, goals, truncs), words
+
+
+def _totals(lane_sums):
+    return tuple(x.sum() for x in lane_sums)
 
 
 def fused_rollout_plain(cfg: EnvConfig, seed: int, batch: int, n_steps: int,
@@ -287,8 +412,8 @@ def fused_rollout_plain(cfg: EnvConfig, seed: int, batch: int, n_steps: int,
     """Plain PyTorch version of ``fused_rollout``, on any device."""
     fields = _start_fields(cfg, batch, n_steps, device, init_fields,
                            step_offset)
-    out, stats, _ = _plain(cfg, seed, fields, n_steps, step_offset, False)
-    return out, stats
+    out, sums, _ = _plain(cfg, seed, fields, n_steps, step_offset, False)
+    return out, _totals(sums)
 
 
 def fused_journal_rollout_plain(cfg: EnvConfig, seed: int, batch: int,
@@ -298,7 +423,30 @@ def fused_journal_rollout_plain(cfg: EnvConfig, seed: int, batch: int,
     _check_journal_fits(cfg)
     fields = _start_fields(cfg, batch, n_steps, device, init_fields,
                            step_offset)
-    return _plain(cfg, seed, fields, n_steps, step_offset, True)
+    out, sums, words = _plain(cfg, seed, fields, n_steps, step_offset, True)
+    return out, _totals(sums), words
+
+
+def _mg_plain(cfgs: tuple, seed: int, fields, planes, n_steps: int,
+              step_offset: int):
+    *geo, vid = planes
+    out, sums, _ = _plain(GeoPlanes(*geo, cfgs[0].max_steps), seed, fields,
+                          n_steps, step_offset, False)
+    stats = torch.zeros((len(cfgs), 3), dtype=torch.int64,
+                        device=vid.device)
+    for k, x in enumerate(sums):
+        stats[:, k].index_add_(0, vid.long(), x)
+    return out, stats
+
+
+def multigrid_rollout_plain(cfgs, seed: int, batch: int, n_steps: int,
+                            device, init_fields=None, step_offset: int = 0):
+    """Plain PyTorch version of ``multigrid_rollout``, on any device."""
+    cfgs = check_variants(cfgs)
+    fields = _start_fields(cfgs, batch, n_steps, device, init_fields,
+                           step_offset)
+    planes = _geo(cfgs, batch, fields[0].device)
+    return _mg_plain(cfgs, seed, fields, planes, n_steps, step_offset)
 
 
 # ----------------------------------------------------------------------
@@ -306,7 +454,7 @@ def fused_journal_rollout_plain(cfg: EnvConfig, seed: int, batch: int,
 # ----------------------------------------------------------------------
 
 def fused_rollout(cfg: EnvConfig, seed: int, batch: int, n_steps: int,
-                  device, init_fields=None, step_offset: int = 0,
+                  device="cuda", init_fields=None, step_offset: int = 0,
                   threads: int = 128):
     """Run ``n_steps`` of random-vs-random play for ``batch`` lanes.
 
@@ -326,15 +474,15 @@ def fused_rollout(cfg: EnvConfig, seed: int, batch: int, n_steps: int,
     fields = _start_fields(cfg, batch, n_steps, device, init_fields,
                            step_offset)
     if fields[0].device.type == "cpu":
-        out, stats, _ = _plain(cfg, seed, fields, n_steps, step_offset, False)
-        return out, stats
+        out, sums, _ = _plain(cfg, seed, fields, n_steps, step_offset, False)
+        return out, _totals(sums)
     out, stats, _ = _launch("fused_rollout", cfg, seed, fields, n_steps,
                             step_offset, threads)
     return out, stats
 
 
 def fused_journal_rollout(cfg: EnvConfig, seed: int, batch: int,
-                          n_steps: int, device, init_fields=None,
+                          n_steps: int, device="cuda", init_fields=None,
                           step_offset: int = 0, threads: int = 128):
     """``fused_rollout`` that also journals every transition.
 
@@ -349,9 +497,38 @@ def fused_journal_rollout(cfg: EnvConfig, seed: int, batch: int,
     fields = _start_fields(cfg, batch, n_steps, device, init_fields,
                            step_offset)
     if fields[0].device.type == "cpu":
-        return _plain(cfg, seed, fields, n_steps, step_offset, True)
+        out, sums, words = _plain(cfg, seed, fields, n_steps, step_offset,
+                                  True)
+        return out, _totals(sums), words
     return _launch("fused_journal_rollout", cfg, seed, fields, n_steps,
                    step_offset, threads)
+
+
+def multigrid_rollout(cfgs, seed: int, batch: int, n_steps: int,
+                      device="cuda", init_fields=None, step_offset: int = 0,
+                      threads: int = 128):
+    """``fused_rollout`` over a mixture of boards: ``cfgs`` is a tuple of 1
+    to 16 EnvConfigs sharing max_steps, and lane i plays on cfgs[i % nV]
+    (its height, width, goal rows and slip), starting on its board's ISD
+    entry (i // nV) % nI unless ``init_fields`` are given.
+
+    Returns ``(fields, stats)``: the final (ra, ca, rb, cb, p, t) as int32
+    [batch] tensors and int64 [nV, 3] per-variant (reward sum, goals,
+    truncations), on ``device``.  ``batch`` is a multiple of 1024;
+    ``init_fields``/``step_offset`` resume as in ``fused_rollout``, and
+    ``threads`` does not change the result.
+
+    On a CPU device this runs ``multigrid_rollout_plain``; on a CUDA device
+    it launches the K3 kernel.
+    """
+    cfgs = check_variants(cfgs)
+    fields = _start_fields(cfgs, batch, n_steps, device, init_fields,
+                           step_offset)
+    planes = _geo(cfgs, batch, fields[0].device)
+    if fields[0].device.type == "cpu":
+        return _mg_plain(cfgs, seed, fields, planes, n_steps, step_offset)
+    return _launch_mg(cfgs, seed, fields, planes, n_steps, step_offset,
+                      threads)
 
 
 def _check_journal_fits(cfg: EnvConfig) -> None:
@@ -360,9 +537,10 @@ def _check_journal_fits(cfg: EnvConfig) -> None:
                          "journal word holds 16 bits")
 
 
-def _start_fields(cfg: EnvConfig, batch: int, n_steps: int, device,
-                  init_fields, step_offset: int):
-    """The six int32 [batch] starting planes on ``device``, checked."""
+def _start_fields(cfg, batch: int, n_steps: int, device, init_fields,
+                  step_offset: int):
+    """The six int32 [batch] starting planes on ``device``, checked; ``cfg``
+    is an EnvConfig or a tuple of them (a mixture, round-robin)."""
     if batch <= 0 or batch % BATCH_MULTIPLE:
         raise ValueError(f"batch must be a positive multiple of "
                          f"{BATCH_MULTIPLE}, got {batch}")
@@ -371,8 +549,9 @@ def _start_fields(cfg: EnvConfig, batch: int, n_steps: int, device,
                          "must lie in [0, 2**31)")
     device = torch.device(device)
     if init_fields is None:
-        return (*isd_spread_fields(cfg, batch, device),
-                torch.zeros(batch, dtype=torch.int32, device=device))
+        start = (mg_planes(cfg, batch, device)[1] if isinstance(cfg, tuple)
+                 else isd_spread_fields(cfg, batch, device))
+        return (*start, torch.zeros(batch, dtype=torch.int32, device=device))
     fields = tuple(init_fields)
     if len(fields) != 6:
         raise ValueError("init_fields = 6 tensors (ra, ca, rb, cb, p, t)")
@@ -387,7 +566,7 @@ def _start_fields(cfg: EnvConfig, batch: int, n_steps: int, device,
 
 
 # ----------------------------------------------------------------------
-# CUDA launch (K1, K2)
+# CUDA launch (K1, K2, K3)
 # ----------------------------------------------------------------------
 
 _ENTRY = {"fused_rollout": "gst_fused_rollout",
@@ -404,7 +583,12 @@ def _library():
     #                                            threads, stream
     lib.gst_fused_rollout.argtypes = [i32, vp, vp, vp] + tail
     lib.gst_fused_journal_rollout.argtypes = [i32, vp, vp, vp, vp] + tail
-    for fn in (lib.gst_fused_rollout, lib.gst_fused_journal_rollout):
+    lib.gst_multigrid_rollout.argtypes = [i32, vp, vp, vp, vp, i32, i32, u32,
+                                          i32, i32, i32, i32, vp]
+    #    device, in, out, geo, stats, B, T, seed, offset, max_steps,
+    #    n_variants, threads, stream
+    for fn in (lib.gst_fused_rollout, lib.gst_fused_journal_rollout,
+               lib.gst_multigrid_rollout):
         fn.restype = i32
     lib.gst_error_string.argtypes = [i32]
     lib.gst_error_string.restype = ctypes.c_char_p
@@ -422,20 +606,31 @@ def _game_params(cfg: EnvConfig):
     return (ctypes.c_int32 * len(vals))(*vals)
 
 
-def _launch(name: str, cfg: EnvConfig, seed: int, fields, n_steps: int,
-            step_offset: int, threads: int):
-    dev = fields[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {dev}")
+def check_threads(name: str, device: torch.device, threads: int) -> None:
+    """Refuse a device without a kernel and a block size the kernels do not
+    take."""
+    if device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {device}")
     if threads <= 0 or threads > 1024 or threads % 32:
         raise ValueError(f"threads must be a multiple of 32 in [32, 1024], "
                          f"got {threads}")
+
+
+def ptr_array(tensors):
+    """A host array of the tensors' device pointers, as the kernels' entry
+    points take them; keep it alive across the call."""
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def _launch(name: str, cfg: EnvConfig, seed: int, fields, n_steps: int,
+            step_offset: int, threads: int):
+    dev = fields[0].device
+    check_threads(name, dev, threads)
     lib = _library()
     B = fields[0].shape[0]
     out = tuple(torch.empty_like(f) for f in fields)
     stats = torch.empty(3, dtype=torch.int64, device=dev)
-    in_ptrs = (ctypes.c_void_p * 6)(*(f.data_ptr() for f in fields))
-    out_ptrs = (ctypes.c_void_p * 6)(*(f.data_ptr() for f in out))
+    in_ptrs, out_ptrs = ptr_array(fields), ptr_array(out)
     params = _game_params(cfg)
     stream = torch.cuda.current_stream(dev).cuda_stream
     head = [dev.index, ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs),
@@ -452,3 +647,25 @@ def _launch(name: str, cfg: EnvConfig, seed: int, fields, n_steps: int,
                            f"{lib.gst_error_string(rc).decode()} ({rc})")
     launch_counts[name] += 1
     return out, tuple(stats.unbind()), journal
+
+
+def _launch_mg(cfgs: tuple, seed: int, fields, planes, n_steps: int,
+               step_offset: int, threads: int):
+    name = "multigrid_rollout"
+    dev = fields[0].device
+    check_threads(name, dev, threads)
+    lib = _library()
+    B = fields[0].shape[0]
+    out = tuple(torch.empty_like(f) for f in fields)
+    stats = torch.zeros((len(cfgs), 3), dtype=torch.int64, device=dev)
+    in_ptrs, out_ptrs, geo_ptrs = (ptr_array(x) for x in (fields, out, planes))
+    rc = lib.gst_multigrid_rollout(
+        dev.index, ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs),
+        ctypes.addressof(geo_ptrs), stats.data_ptr(), B, n_steps, seed & M32,
+        step_offset, cfgs[0].max_steps, len(cfgs), threads,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc:
+        raise RuntimeError(f"{name}: kernel launch failed: "
+                           f"{lib.gst_error_string(rc).decode()} ({rc})")
+    launch_counts[name] += 1
+    return out, stats

@@ -1,5 +1,5 @@
-"""The CUDA kernels K1, K2, K5, K8, K9, K12 and K13 against their plain PyTorch
-versions on the card, bit for bit.  Skips without a CUDA device.  This
+"""The CUDA kernels K1, K2, K3, K5, K6, K7, K8, K9, K12 and K13 against
+their plain PyTorch versions on the card, bit for bit.  Skips without a CUDA device.  This
 file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed:
 
@@ -63,7 +63,8 @@ def test_launch_is_counted(cuda):
     sk.fused_rollout(cfg, 0, 1024, 8, cuda)
     sk.fused_rollout_plain(cfg, 0, 1024, 8, cuda)
     assert sk.launch_counts == {"fused_rollout": 1,
-                                "fused_journal_rollout": 0}
+                                "fused_journal_rollout": 0,
+                                "multigrid_rollout": 0}
 
 
 # ----------------------------------------------------------------------
@@ -125,7 +126,8 @@ def test_learner_launch_is_counted_and_resume_is_exact(cuda):
               device=cuda)
     lk.reset_launch_counts()
     whole = lk.fused_minimax_train(cfg, n_chunks=2, return_state=True, **kw)
-    assert lk.launch_counts == {"packed_learner_chunk": 2}
+    assert lk.launch_counts["packed_learner_chunk"] == 2
+    assert sum(lk.launch_counts.values()) == 2
     r = lk.fused_minimax_train(cfg, n_chunks=1, return_state=True, **kw)[5]
     part = lk.fused_minimax_train(
         cfg, n_chunks=1, return_state=True,
@@ -136,6 +138,132 @@ def test_learner_launch_is_counted_and_resume_is_exact(cuda):
     assert torch.equal(whole[5]["n"], part[5]["n"])
     assert all(torch.equal(a, b) for a, b in zip(whole[5]["fields"],
                                                  part[5]["fields"]))
+
+
+# ----------------------------------------------------------------------
+# K3: the mixed-geometry rollout; K6/K7: the mixture and unpacked learners
+# ----------------------------------------------------------------------
+
+MIX = [(5, 4, 0.2), (6, 5, 0.1), (8, 6, 0.3)]
+
+
+@pytest.mark.cuda
+def test_multigrid_rollout_equals_plain_version(cuda):
+    """K3 equals its plain version (fields and per-variant stats) for two
+    block sizes, a run split by step_offset equals one run, and a
+    one-variant mixture equals K1."""
+    cfgs = tuple(EnvConfig(*b) for b in MIX)
+    B, T = 2048, 64
+    pf, ps = sk.multigrid_rollout_plain(cfgs, 4, B, T, cuda)
+    sk.reset_launch_counts()
+    for threads in (128, 256):
+        kf, ks = sk.multigrid_rollout(cfgs, 4, B, T, cuda, threads=threads)
+        assert all(torch.equal(a, b) for a, b in zip(kf, pf))
+        assert torch.equal(ks, ps)
+    assert sk.launch_counts["multigrid_rollout"] == 2
+    fa, sa = sk.multigrid_rollout(cfgs, 4, B, T // 2, cuda)
+    fb, sb = sk.multigrid_rollout(cfgs, 4, B, T - T // 2, cuda,
+                                  init_fields=fa, step_offset=T // 2)
+    assert all(torch.equal(a, b) for a, b in zip(fb, pf))
+    assert torch.equal(sa + sb, ps)
+    one = EnvConfig(5, 4, 0.2)
+    f1, s1 = sk.fused_rollout(one, 4, B, T, cuda)
+    fm, sm = sk.multigrid_rollout((one,), 4, B, T, cuda)
+    assert all(torch.equal(a, b) for a, b in zip(f1, fm))
+    assert _ints(s1) == _ints(sm[0])
+
+
+def _mix_tables(cfg, device, seed=1, big=False):
+    """Non-uniform pi, v and q tables made from a numpy seed: the packed
+    and the unpacked table."""
+    import numpy as np
+    from gym_soccer_tpu_torch.ops import learner_kernel as lk
+    nS = lk.n_states(cfg)
+    rng = np.random.default_rng(seed)
+    pa, pb = (torch.tensor(rng.dirichlet(np.ones(5), nS), dtype=torch.float32,
+                           device=device) for _ in range(2))
+    v = torch.tensor(rng.uniform(-1, 1, nS), dtype=torch.float32,
+                     device=device)
+    q = torch.tensor(rng.uniform(-1, 1, (nS, 5, 5)), dtype=torch.float32,
+                     device=device)
+    if big:
+        v[::7] = 1e7
+    return lk.pack_m2(cfg, pa, pb, v, 0.2), lk.pack_m(cfg, pa, pb, q, v, 0.2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mix", [MIX, [(5, 4, 0.2), (11, 7, 0.2)],
+                                 [(5, 4, 0.2)], [(11, 7, 0.2)]],
+                         ids=["3-variant", "5x4+11x7", "5x4", "11x7"])
+def test_learner_kernels_k6_k7_equal_plain_versions(cuda, mix):
+    """K6 and K7 (both sites) equal their plain versions bit for bit
+    (fields, stats, counts, int64 sums, out-of-range count) for two block
+    sizes; K6 and K7 step the same fields, stats and counts; tables holding
+    1e7 are counted alike by kernels and plain versions."""
+    from gym_soccer_tpu_torch.ops import learner_kernel as lk
+    B, T = 2048, 32
+    multi = len(mix) > 1
+    cfg = tuple(EnvConfig(*b) for b in mix) if multi else EnvConfig(*mix[0])
+    m2, m = _mix_tables(cfg, cuda)
+    if multi:
+        planes, fields = lk.init_state_fields(cfg, B, cuda)
+        runs = {"multigrid_packed_learner_chunk": m2,
+                "multigrid_learner_chunk": m}
+        args = lambda t: (cfg, 5, t, planes, fields, B, T, 0.99)
+    else:
+        fields = lk.init_state_fields(cfg, B, cuda)
+        runs = {"packed_learner_chunk": m2, "learner_chunk": m}
+        args = lambda t: (cfg, 5, t, fields, B, T, 0.99)
+    lk.reset_launch_counts()
+    got = {}
+    for name, table in runs.items():
+        want = getattr(lk, name + "_plain")(*args(table))
+        for threads in (128, 256):
+            assert _same_chunk(getattr(lk, name)(*args(table),
+                                                 threads=threads), want)
+        assert int(want[2][3]) == 0
+        got[name] = want
+        assert lk.launch_counts[name] == 2
+    (fa, (_, ca), sa), (fb, (_, cb), sb) = got.values()
+    assert all(torch.equal(x, y) for x, y in zip(fa, fb))
+    assert torch.equal(ca, cb) and _ints(sa) == _ints(sb)
+    assert int(ca.sum()) == B * T
+    bad2, bad = _mix_tables(cfg, cuda, big=True)
+    for name, table in zip(runs, (bad2, bad)):
+        k = getattr(lk, name)(*args(table))[2][3]
+        p = getattr(lk, name + "_plain")(*args(table))[2][3]
+        assert int(k) == int(p) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False])
+def test_mixture_trainer_resume_is_exact(cuda, packed):
+    """The tuple trainer launches K6 (or K7) once a chunk, 2 chunks equal
+    1 + 1 through the resume dict, and a one-variant mixture trains like
+    the static trainer."""
+    from gym_soccer_tpu_torch.ops import learner_kernel as lk
+    cfgs = (EnvConfig(5, 4, 0.2), EnvConfig(6, 5, 0.2))
+    kw = dict(batch=1024, chunk_len=16, lr=0.5, eps=0.3, eps_halflife=64,
+              lr_anneal_start=1, lr_anneal_tau=4.0, solver_iters=40, seed=3,
+              packed=packed, device=cuda)
+    lk.reset_launch_counts()
+    whole = lk.fused_minimax_train(cfgs, n_chunks=2, return_state=True, **kw)
+    name = ("multigrid_packed_learner_chunk" if packed
+            else "multigrid_learner_chunk")
+    assert lk.launch_counts[name] == 2 and sum(lk.launch_counts.values()) == 2
+    r = lk.fused_minimax_train(cfgs, n_chunks=1, return_state=True, **kw)[5]
+    part = lk.fused_minimax_train(
+        cfgs, n_chunks=1, return_state=True,
+        init=tuple(r[k] for k in ("q", "v", "pi_a", "pi_b", "n")),
+        fields_init=r["fields"], start_chunk=r["next_chunk"], **kw)
+    for a, b in zip(whole[:4], part[:4]):
+        assert torch.equal(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(whole[5]["fields"],
+                                                 part[5]["fields"]))
+    one = lk.fused_minimax_train((cfgs[0],), n_chunks=2, **kw)
+    static = lk.fused_minimax_train(cfgs[0], n_chunks=2, **kw)
+    for a, b in zip(one[:4], static[:4]):
+        assert torch.equal(a, b)
 
 
 # ----------------------------------------------------------------------

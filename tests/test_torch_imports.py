@@ -1,5 +1,6 @@
 """The port imports neither JAX nor the JAX package, builds nothing at
 import, and refuses a CUDA device where there is none."""
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -15,6 +16,7 @@ MODULES = ["gym_soccer_tpu_torch", "gym_soccer_tpu_torch.config",
            "gym_soccer_tpu_torch.core.batch",
            "gym_soccer_tpu_torch.core.mt19937",
            "gym_soccer_tpu_torch.core.parity",
+           "gym_soccer_tpu_torch.core.multigrid",
            "gym_soccer_tpu_torch.ops.step_kernel",
            "gym_soccer_tpu_torch.ops.learner_kernel",
            "gym_soccer_tpu_torch.ops.iql_kernel",
@@ -46,6 +48,18 @@ def test_cuda_device_without_a_card_raises():
     for fn in (sk.fused_rollout, sk.fused_journal_rollout):
         with pytest.raises((RuntimeError, AssertionError)):
             fn(cfg, 0, 1024, 4, "cuda")
+    # The rollout wrappers run on the card unless asked for the CPU; their
+    # plain versions take a device always.
+    mix = (cfg, EnvConfig(width=6, height=5, slip_prob=0.1))
+    for fn, c in ((sk.fused_rollout, cfg), (sk.fused_journal_rollout, cfg),
+                  (sk.multigrid_rollout, mix)):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+        with pytest.raises((RuntimeError, AssertionError)):
+            fn(c, 0, 1024, 4)
+    for fn in (sk.fused_rollout_plain, sk.fused_journal_rollout_plain,
+               sk.multigrid_rollout_plain):
+        param = inspect.signature(fn).parameters["device"]
+        assert param.default is inspect.Parameter.empty
     from gym_soccer_tpu_torch.ops import parity_kernel as pk
     jr = pk.jointrow_raw(cfg, [0] * 761, [0] * 761)
     with pytest.raises((RuntimeError, AssertionError)):
@@ -59,6 +73,10 @@ def test_cuda_device_without_a_card_raises():
     kw = dict(batch=256, n_chunks=1, chunk_len=4)
     for fn, args, extra in (
             (lk.fused_minimax_train, (cfg,), {}),
+            (lk.fused_minimax_train, (mix,), {}),
+            (lk.fused_minimax_train, (cfg,), {"packed": False}),
+            (lk.fused_best_response_train, (cfg, [0] * 761, "player_a"),
+             {"packed": False}),
             (lk.fused_best_response_train, (cfg, [0] * 761, "player_a"), {}),
             (ik.fused_iql_train, (cfg,), {}),
             (ik.fused_iql_train, (cfg,), {"packed": False})):
@@ -69,13 +87,15 @@ def test_cuda_device_without_a_card_raises():
             fn(cfg)
     # The chunk wrappers run where their tensors lie, and their inputs are
     # made on the card unless asked for the CPU.
-    for fn in (lk.init_state_fields, ik.init_iql_state_fields):
+    from gym_soccer_tpu_torch.core import multigrid as mg
+    for fn, c in ((lk.init_state_fields, cfg), (lk.init_state_fields, mix),
+                  (ik.init_iql_state_fields, cfg), (mg.lane_geometry, mix)):
         with pytest.raises((RuntimeError, AssertionError)):
-            fn(cfg, 256)
+            fn(c, 256)
     fields = [f.to("meta") for f in lk.init_state_fields(cfg, 256, "cpu")]
-    for fn, cols in ((lk.packed_learner_chunk, 11), (ik.iql_packed_chunk, 10),
-                     (ik.iql_chunk, 10)):
+    for fn, cols in ((lk.packed_learner_chunk, 11), (lk.learner_chunk, 36),
+                     (ik.iql_packed_chunk, 10), (ik.iql_chunk, 10)):
         table = torch.zeros(lk.n_codes(cfg), cols, device="meta")
-        args = (0, table, fields) if cols == 11 else (0, 0, table, fields)
+        args = (0, table, fields) if cols != 10 else (0, 0, table, fields)
         with pytest.raises(ValueError, match="no kernel for device meta"):
             fn(cfg, *args, 256, 4)
