@@ -4,7 +4,7 @@ check it.
 
     python3 chip_smoke.py
 
-Five main paths, each driven with its kernels' launch counters reset just
+Six main paths, each driven with its kernels' launch counters reset just
 before it and read just after.  The rollout path is the batched random
 play at 8192 lanes on the 5x4 (slip 0.2) and 11x7 (slip 0.2) boards:
 ``fused_rollout`` (kernel K1), ``fused_journal_rollout`` (kernel K2) with
@@ -18,7 +18,11 @@ MT19937 draw per event.  The independent-Q path is ``fused_iql_train``
 is ``multigrid_rollout`` (kernel K3) on a mixture of three boards and
 ``fused_minimax_train`` on that mixture (kernel K6, and kernel K7's
 multigrid site with ``packed=False``) and on one board with
-``packed=False`` (kernel K7).  Phases, each of which raises on failure:
+``packed=False`` (kernel K7).  The alternating-turn path is
+``alt_rollout`` (kernel K4) and ``fused_altq_train`` (kernel K10, and
+kernel K11 with ``packed=False``), with ``alt_value_iteration_torch`` and
+``alt_policy_rollout`` for its gate.  Phases, each of which raises on
+failure:
 
 1. device: a CUDA device is present; its name and power limit;
 2. build: the kernels compile from the sources in this checkout, one nvcc
@@ -121,7 +125,34 @@ multigrid site with ``packed=False``) and on one board with
     64 on the mixture and at 8192 x 64 on 5x4+11x7; K7 at 8192 x 64 on 5x4
     and 11x7; K7 multigrid at 8192 x 64 on the mixture; each against its
     plain version, and ``torch.profiler`` windows of K3, K6 (8192 and 32768
-    lanes) and K7 (both sites) for device time and idle share.
+    lanes) and K7 (both sites) for device time and idle share;
+27. alternating path: ``alt_rollout`` at 8192 x 1024 on 5x4 and 11x7 (slip
+    0.2) and ``fused_altq_train`` on 5x4 for 4 chunks of 8192 x 64, packed
+    (K10) and ``packed=False`` (K11), through their default device, the
+    launch counters reset before and read after; every lane ends in a
+    reachable alternating state with turn 0 or 1, the stats are
+    plausible, q finite and |q| <= 1.05, and one more chunk from each
+    resume state counts B * T visits;
+28. K4: bit-equal to its plain version at 8192 x 1024 for two block
+    sizes; a run split by ``step_offset`` equals one run; at 1024 x 64
+    equal to the plain version run on the CPU;
+29. K10/K11: bit-equal to their plain versions (fields, stats with the
+    out-of-range count, counts, int64 sums) at 8192 x 64 on 5x4 and 11x7
+    for two block sizes, on Q tables with near-ties and a step offset; K10
+    and K11 step the same trajectories; at 256 x 16 equal to the plain
+    versions run on the CPU, and counting the same values out of range on
+    tables that hold nan or 1e7;
+30. resume and the gate: 2 chunks equal 1 + 1 through the resume dict,
+    packed and not; the JAX package's ``test_altq_convergence_tpu`` recipe
+    (65536 lanes, 400 chunks x 32 steps, seed 1) reaches mean |V - V*| <=
+    0.05 against ``alt_value_iteration`` at gamma 0.99 (which
+    ``alt_value_iteration_torch`` repeats on the card), and its greedy
+    policy wins more than 95 % of completed episodes against a frozen
+    random policy (``alt_policy_rollout``, 256 lanes x 300 steps, seed 6);
+    wall time split into chunk calls and the work between them;
+31. timing: K4 at 8192 x 1024 and K10/K11 at 8192 x 64, on 5x4 and 11x7,
+    each against its plain version, and ``torch.profiler`` windows of K4
+    and K10 for device time and idle share.
 
 The second-to-last lines are the kernels' JSON record (with each
 kernel's bound: the larger of its bytes over the HBM rate and its SASS
@@ -168,6 +199,14 @@ MG_RECIPE = dict(batch=16384, n_chunks=312, chunk_len=64, lr=1.0, eps=0.2,
                  lr_anneal_start=156, lr_anneal_tau=25.0, lr_anneal_pow=1.5,
                  final_solver_iters=2000)
 MG_EXPLOITABILITY = (0.05, 0.08)
+T_K4 = 1024
+T_K10 = 64
+# tests/test_altq_kernel.py:199-220 (test_altq_convergence_tpu)
+ALT_RECIPE = dict(batch=65536, n_chunks=400, chunk_len=32, lr=1.0, eps=0.25,
+                  eps_min=0.1, eps_halflife=300_000, lr_anneal_start=200,
+                  lr_anneal_tau=25.0, lr_anneal_pow=1.5, seed=1)
+ALT_V_ERR = 0.05
+ALT_WIN_SHARE = 0.95
 LEARNER_SRC = "gym_soccer_tpu_torch/ops/csrc/learner_kernel.cu"
 SOURCE = {"fused_rollout": "gym_soccer_tpu_torch/ops/csrc/step_kernel.cu",
           "fused_journal_rollout":
@@ -180,7 +219,10 @@ SOURCE = {"fused_rollout": "gym_soccer_tpu_torch/ops/csrc/step_kernel.cu",
           "iql_chunk": "gym_soccer_tpu_torch/ops/csrc/iql_kernel.cu",
           "parity_events": "gym_soccer_tpu_torch/ops/csrc/parity_kernel.cu",
           "parity_scripted_events":
-              "gym_soccer_tpu_torch/ops/csrc/parity_kernel.cu"}
+              "gym_soccer_tpu_torch/ops/csrc/parity_kernel.cu",
+          "alt_rollout": "gym_soccer_tpu_torch/ops/csrc/step_kernel.cu",
+          "altq_packed_chunk": "gym_soccer_tpu_torch/ops/csrc/altq_kernel.cu",
+          "altq_chunk": "gym_soccer_tpu_torch/ops/csrc/altq_kernel.cu"}
 REPLACES = {"fused_rollout": "gym_soccer_tpu/ops/step_kernel.py:254",
             "fused_journal_rollout": "gym_soccer_tpu/ops/step_kernel.py:714",
             "multigrid_rollout": "gym_soccer_tpu/ops/step_kernel.py:526",
@@ -194,7 +236,10 @@ REPLACES = {"fused_rollout": "gym_soccer_tpu/ops/step_kernel.py:254",
             "iql_chunk": "gym_soccer_tpu/ops/iql_kernel.py:64",
             "parity_events": "gym_soccer_tpu/ops/parity_kernel.py:196",
             "parity_scripted_events":
-                "gym_soccer_tpu/ops/parity_kernel.py:196"}
+                "gym_soccer_tpu/ops/parity_kernel.py:196",
+            "alt_rollout": "gym_soccer_tpu/ops/step_kernel.py:430",
+            "altq_packed_chunk": "gym_soccer_tpu/ops/altq_kernel.py:222",
+            "altq_chunk": "gym_soccer_tpu/ops/altq_kernel.py:70"}
 # Each kernel's device function in the built libraries (a substring of its
 # mangled name).
 SYMBOL = {"fused_rollout": "14rollout_kernel", "fused_journal_rollout":
@@ -205,7 +250,10 @@ SYMBOL = {"fused_rollout": "14rollout_kernel", "fused_journal_rollout":
           "multigrid_learner_chunk": "learner_kernelILb0ELb1E",
           "iql_packed_chunk": "iql_kernelILb1E", "iql_chunk": "iql_kernelILb0E",
           "parity_events": "parity_kernelILb0E",
-          "parity_scripted_events": "parity_kernelILb1E"}
+          "parity_scripted_events": "parity_kernelILb1E",
+          "alt_rollout": "18alt_rollout_kernel",
+          "altq_packed_chunk": "11altq_kernelILb1E",
+          "altq_chunk": "11altq_kernelILb0E"}
 # H100 SXM peaks (NVIDIA's data sheet): 3.35 TB/s of HBM, and 67 TFLOP/s of
 # float32 outside the tensor cores, i.e. 3.35e13 FMA instructions a second
 # (132 SMs x 4 schedulers x 32 lanes x 1.98 GHz), the rate at which the
@@ -583,6 +631,14 @@ def main() -> int:
         errs[name] = max(errs.get(name, 0), e)
     ms.update(mg_ms)
 
+    t0 = time.perf_counter()
+    alt_launches, alt_errs, alt_ms, alt_work = alt_phases(torch, dev, card,
+                                                          cfgs)
+    print(f"[alt] phases 27-31 ran {time.perf_counter() - t0} s")
+    launches.update(alt_launches)
+    errs.update(alt_errs)
+    ms.update(alt_ms)
+
     # Each kernel's work at the shape its ms was timed: lane-steps (or
     # lane-events) and the bytes of its inputs and outputs, each once.
     fields_bytes = 2 * 6 * 4 * B + 3 * 8   # state planes in and out, stats
@@ -599,13 +655,15 @@ def main() -> int:
         "parity_scripted_events": (B * E_K13,
                                    parity_bytes["parity_scripted_events"]),
         **mg_work,
+        **alt_work,
     }
     kernels = []
     for name in ("fused_rollout", "fused_journal_rollout",
-                 "multigrid_rollout", "packed_learner_chunk",
+                 "multigrid_rollout", "alt_rollout", "packed_learner_chunk",
                  "multigrid_packed_learner_chunk", "learner_chunk",
                  "multigrid_learner_chunk", "iql_packed_chunk", "iql_chunk",
-                 "parity_events", "parity_scripted_events"):
+                 "altq_packed_chunk", "altq_chunk", "parity_events",
+                 "parity_scripted_events"):
         units, nbytes = work[name]
         bound_ms, bound_by = bound(units, per_step[name], nbytes)
         kernels.append(
@@ -1502,6 +1560,258 @@ def multigrid_phases(torch, dev, card, exploitability):
         K7M: (B * T_K6, fields_bytes + planes_bytes
               + lk.n_codes(mix) * (36 * 4 + acc)),
     }
+    return launches, errs, ms, work
+
+
+def alt_inputs(torch, ak, cfg, B, dev, seed, bad=None):
+    """A Q table in [-1, 1] with near-ties (every third state's action 1
+    one float32 step above action 0, a tie once double-bf16 rounded) made
+    from a numpy seed (``bad`` added to every value), as the chunks'
+    table, and the initial fields."""
+    import numpy as np
+    from gym_soccer_tpu_torch.envs.soccer_alternating_env import (
+        build_alt_tables)
+    nS = build_alt_tables(cfg).nS
+    q = torch.tensor(np.random.default_rng(seed).uniform(-1, 1, (nS, 5)),
+                     dtype=torch.float32)
+    q[::3, 1] = torch.nextafter(q[::3, 0], torch.tensor(2.0))
+    if bad is not None:
+        q = q + bad
+    return (ak.pack_alt_table(cfg, q.to(dev)),
+            ak.init_alt_state_fields(cfg, B, dev))
+
+
+def alt_phases(torch, dev, card, cfgs):
+    """Phases 27-31: the alternating-turn path and kernels K4, K10 and
+    K11.  Returns their launches on the path, their max abs error against
+    the plain versions, their ms per call and those of their plain
+    versions, and each kernel's work at its timed shape."""
+    import numpy as np
+    from gym_soccer_tpu_torch.agents.learners import altq_greedy_policy
+    from gym_soccer_tpu_torch.envs import soccer_alternating_env as alt
+    from gym_soccer_tpu_torch.ops import altq_kernel as ak
+    from gym_soccer_tpu_torch.ops import step_kernel as sk
+    c54 = cfgs[(5, 4)]
+    names = {True: "altq_packed_chunk", False: "altq_chunk"}
+    eps = int(round(0.3 * 65536))
+    tables = {b: alt.build_alt_tables(c) for b, c in cfgs.items()}
+
+    # ---- 27. alternating path, through the entry points ----------------
+    sk.reset_launch_counts()
+    ak.reset_launch_counts()
+    rolls = {b: sk.alt_rollout(c, 31 + b[0], B, T_K4)
+             for b, c in cfgs.items()}
+    train = {packed: ak.fused_altq_train(
+        c54, batch=B, n_chunks=4, chunk_len=T_K10, lr=0.5, eps=0.3, seed=3,
+        packed=packed, return_state=True) for packed in (True, False)}
+    torch.cuda.synchronize()
+    launches = {"alt_rollout": sk.launch_counts["alt_rollout"],
+                **ak.launch_counts}
+    print(f"[alt path] launches {launches}")
+    check(launches == {"alt_rollout": 2, "altq_packed_chunk": 4,
+                       "altq_chunk": 4},
+          "the alternating path did not launch K4 once a board and K10 and "
+          "K11 once a chunk")
+    for b, (fields, stats) in rolls.items():
+        cfg, tb = cfgs[b], tables[b]
+        check(fields[0].device.type == "cuda",
+              "alt_rollout did not default to the card")
+        ra, ca, rb, cb, p, turn, t = fields
+        r2d = torch.as_tensor(tb.raw_to_dense, device=dev)
+        dense = r2d[alt.alt_raw_encode(torch, ra, ca, rb, cb, p, turn,
+                                       cfg).long()]
+        check(bool((dense > 0).all()), "a lane ended terminal/unreachable")
+        check(bool(((turn == 0) | (turn == 1)).all()), "turn not 0 or 1")
+        check(bool(((t >= 0) & (t < cfg.max_steps)).all()), "t out of range")
+        rew, goals, truncs = ints(stats)
+        check(0 < goals < B * T_K4 and abs(rew) <= goals and truncs >= 0,
+              f"implausible stats {ints(stats)}")
+        print(f"[alt path] alt_rollout {b[0]}x{b[1]} B={B} T={T_K4}: stats "
+              f"{ints(stats)}; every lane in a reachable alternating state")
+    for packed, (q, hist, res) in train.items():
+        check(q.device.type == "cuda",
+              "fused_altq_train did not default to the card")
+        q_max = float(q.abs().max())
+        check(bool(torch.isfinite(q).all()), "q is not finite")
+        check(q_max <= 1.05, f"|q| = {q_max} > 1.05")
+        check(sum(h[1] for h in hist) > 0, "no goals on the alternating path")
+        _, acc, _ = getattr(ak, names[packed])(
+            c54, 3, eps, ak.pack_alt_table(c54, q), res["fields"], B, T_K10,
+            0.99, 4 * T_K10)
+        check(int(ak.unpack_alt_acc(c54, acc)[1].sum()) == B * T_K10,
+              "visit counts do not sum to B * T")
+        print(f"[alt path] fused_altq_train 5x4 B={B} 4 chunks x {T_K10} "
+              f"steps, packed={packed}: max|q| {q_max}, goals in recorded "
+              f"chunks {sum(h[1] for h in hist)}; a fifth chunk counts "
+              f"{B * T_K10} visits")
+
+    errs = {"alt_rollout": 0, **{n: 0 for n in names.values()}}
+
+    # ---- 28. K4 --------------------------------------------------------
+    for b, c in cfgs.items():
+        seed = 31 + b[0]
+        pf, ps = sk.alt_rollout_plain(c, seed, B, T_K4, dev)
+        for threads in (128, 256):
+            got = rolls[b] if threads == 128 else sk.alt_rollout(
+                c, seed, B, T_K4, dev, threads=threads)
+            e = max_abs_err([*zip(got[0], pf), (ints(got[1]), ints(ps))])
+            errs["alt_rollout"] = max(errs["alt_rollout"], e)
+            check(e == 0, f"K4 != plain on {b}, threads {threads}: max abs "
+                  f"err {e}")
+        h = T_K4 // 2
+        fa, sa = sk.alt_rollout(c, seed, B, h, dev)
+        fb, sb = sk.alt_rollout(c, seed, B, T_K4 - h, dev, init_fields=fa,
+                                step_offset=h)
+        split = [x + y for x, y in zip(ints(sa), ints(sb))]
+        check(max_abs_err([*zip(fb, pf), (split, ints(ps))]) == 0,
+              f"K4 split at step {h} != one run on {b}")
+        gf, gs = sk.alt_rollout(c, 3, 1024, 64, dev)
+        cf, cs = sk.alt_rollout(c, 3, 1024, 64, "cpu")
+        check(max_abs_err([*zip(gf, cf), (ints(gs), ints(cs))]) == 0,
+              f"K4 != CPU plain on {b}")
+        print(f"[K4] {b[0]}x{b[1]} B={B} T={T_K4}: bit-equal to plain (max "
+              f"abs err {errs['alt_rollout']}); threads 128/256 equal; "
+              f"{h}+{T_K4 - h} split equals one run; B=1024 T=64 equals the "
+              "CPU plain version")
+
+    # ---- 29. K10/K11 ---------------------------------------------------
+    for b, c in cfgs.items():
+        table, fields = alt_inputs(torch, ak, c, B, dev, seed=b[0])
+        small = [f[:256] for f in fields]
+        plain = {}
+        for name in names.values():
+            want = getattr(ak, name + "_plain")(c, 77, eps, table, fields, B,
+                                                T_K10, 0.99, 640)
+            for threads in (128, 256):
+                e = chunk_err(getattr(ak, name)(c, 77, eps, table, fields, B,
+                                                T_K10, 0.99, 640, threads),
+                              want)
+                errs[name] = max(errs[name], e)
+                check(e == 0, f"{name} != plain on {b}, threads {threads}: "
+                      f"max abs err {e}")
+            check(int(want[2][3]) == 0, f"{name}: values out of range")
+            check(chunk_err(
+                getattr(ak, name)(c, 5, eps, table, small, 256, 16, 0.99, 9),
+                getattr(ak, name)(c, 5, eps, table.cpu(),
+                                  [f.cpu() for f in small], 256, 16, 0.99,
+                                  9)) == 0, f"{name} != CPU plain on {b}")
+            for bad in (float("nan"), 1e7):
+                tb_bad, _ = alt_inputs(torch, ak, c, 256, dev, b[0], bad)
+                counts = [int(getattr(ak, name)(c, 5, eps, t, f, 256, 16, 0.99,
+                                                9)[2][3])
+                          for t, f in ((tb_bad, small),
+                                       (tb_bad.cpu(), [x.cpu() for x in small]))]
+                check(counts[0] == counts[1] > 0, f"{name} counts {counts} "
+                      f"values out of range with a table + {bad}")
+            plain[name] = want
+        (fa, (_, ca), sa), (fb, (_, cb), sb) = plain.values()
+        check(max_abs_err([*zip(fa, fb), (ca, cb), (ints(sa), ints(sb))]) == 0,
+              f"K10 and K11 step different trajectories on {b}")
+        check(int(ca.sum()) == B * T_K10, "visit counts != B * T")
+        print(f"[K10/K11] {b[0]}x{b[1]} B={B} T={T_K10} step offset 640: "
+              f"bit-equal to plain (fields, stats with the out-of-range "
+              f"count, counts, int64 sums; max abs err {errs}); threads "
+              "128/256 equal; K10 and K11 step the same fields, stats and "
+              "counts; B=256 T=16 equals the CPU plain versions, and counts "
+              "the same values out of range on tables + nan and + 1e7")
+
+    # ---- 30. resume and the gate ---------------------------------------
+    kw = dict(batch=B, chunk_len=T_K10, lr=0.5, eps=0.3, eps_halflife=64,
+              lr_anneal_start=1, lr_anneal_tau=4.0, seed=9)
+    for packed in (True, False):
+        whole = ak.fused_altq_train(c54, n_chunks=2, return_state=True,
+                                    packed=packed, **kw)
+        r = ak.fused_altq_train(c54, n_chunks=1, return_state=True,
+                                packed=packed, **kw)[2]
+        part = ak.fused_altq_train(
+            c54, n_chunks=1, return_state=True, packed=packed, init=r["q"],
+            fields_init=r["fields"], start_chunk=r["next_chunk"], **kw)
+        check(torch.equal(whole[0], part[0]) and all(
+            torch.equal(a, b) for a, b in zip(whole[2]["fields"],
+                                              part[2]["fields"])),
+              f"2 chunks != 1 + 1 through the resume dict (packed={packed})")
+    print("[alt resume] 2 chunks == 1 + 1 through the resume dict, bit for "
+          "bit in q and fields, packed and unpacked")
+    tb = tables[(5, 4)]
+    t0 = time.perf_counter()
+    _, v_star, _, sweeps = alt.alt_value_iteration(tb)
+    t_vi = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, v_dev, _, sweeps_dev = alt.alt_value_iteration_torch(
+        tb.t_prob, tb.t_next_dense, tb.t_reward, tb.t_done, tb.turn,
+        theta=1e-10)
+    t_vi_dev = time.perf_counter() - t0
+    vi_gap = float(np.abs(v_dev.cpu().numpy() - v_star).max())
+    check(vi_gap <= 1e-6, f"alt_value_iteration_torch differs by {vi_gap}")
+    timing = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q, hist = ak.fused_altq_train(c54, timing=timing, **ALT_RECIPE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    q = q.cpu()
+    v_l = torch.where(torch.as_tensor(tb.turn == 0), q.max(-1).values,
+                      q.min(-1).values).numpy()
+    v_err = float(np.abs(v_l - v_star).mean())
+    pol = altq_greedy_policy(c54, q)
+    randpol = np.random.RandomState(0).randint(0, 5, tb.nS).astype(np.int32)
+    t0 = time.perf_counter()
+    w, losses, truncs = alt.alt_policy_rollout(
+        c54, tb.raw_to_dense, pol.numpy(), randpol, batch=256, steps=300,
+        seed=6)
+    t_eval = time.perf_counter() - t0
+    share = w / max(w + losses, 1)
+    steps = (ALT_RECIPE["batch"] * ALT_RECIPE["chunk_len"]
+             * ALT_RECIPE["n_chunks"])
+    print(f"[alt gate] 5x4 recipe {ALT_RECIPE}: mean |V - V*| {v_err} (limit "
+          f"{ALT_V_ERR}; V* by alt_value_iteration in {sweeps} sweeps, "
+          f"{t_vi} s; alt_value_iteration_torch on the card {sweeps_dev} "
+          f"sweeps, {t_vi_dev} s, max gap {vi_gap}); greedy vs frozen random "
+          f"256 x 300: wins {w}, losses {losses}, truncations {truncs}, win "
+          f"share {share} (limit > {ALT_WIN_SHARE}; {t_eval} s) | train wall "
+          f"{wall} s for {steps} env-steps: chunk calls {timing['kernel_ms']} "
+          f"ms, between chunks {timing['between_ms']} ms over "
+          f"{timing['chunks']} chunks | {card}")
+    check(v_err <= ALT_V_ERR, f"mean |V - V*| = {v_err} > {ALT_V_ERR}")
+    check(share > ALT_WIN_SHARE, f"win share {share} <= {ALT_WIN_SHARE}")
+
+    # ---- 31. timing ----------------------------------------------------
+    ms = {}
+    for b, c in cfgs.items():
+        for label, fn in (("alt_rollout", sk.alt_rollout),
+                          ("alt_rollout_plain", sk.alt_rollout_plain)):
+            med, reps, legs = time_cuda(lambda: fn(c, 1, B, T_K4, dev),
+                                        slow_legs=3)
+            if b == (5, 4):
+                ms[label] = med
+            print(f"[time] {label} {b[0]}x{b[1]} B={B} T={T_K4}: {med} "
+                  f"ms/call, {B * T_K4 / (med / 1e3)} env-steps/s (median of "
+                  f"{len(legs)} legs x {reps} calls; legs ms/call {legs}) | "
+                  f"{card}")
+        table, fields = alt_inputs(torch, ak, c, B, dev, seed=5)
+        for name in (*names.values(), *(n + "_plain" for n in names.values())):
+            fn = getattr(ak, name)
+            med, reps, legs = time_cuda(
+                lambda: fn(c, 77, eps, table, fields, B, T_K10, 0.99, 640))
+            if b == (5, 4):
+                ms[name] = med
+            print(f"[time] {name} {b[0]}x{b[1]} B={B} T={T_K10}: {med} "
+                  f"ms/call, {B * T_K10 / (med / 1e3)} learner env-steps/s "
+                  f"(median of {len(legs)} legs x {reps} calls; legs ms/call "
+                  f"{legs}) | {card}")
+    profile_window(torch, lambda: sk.alt_rollout(c54, 1, B, T_K4, dev),
+                   f"alt_rollout 5x4 B={B} T={T_K4}", "alt_rollout_kernel",
+                   card)
+    table, fields = alt_inputs(torch, ak, c54, B, dev, seed=5)
+    profile_window(torch, lambda: ak.altq_packed_chunk(
+        c54, 77, eps, table, fields, B, T_K10, 0.99, 640),
+        f"altq_packed_chunk 5x4 B={B} T={T_K10}", "altq_kernel", card)
+
+    alt_fields_bytes = 2 * 7 * 4 * B + 3 * 8
+    acc = ak.n_codes(c54) * (10 * 4 + 10 * (8 + 4)) + 8
+    work = {"alt_rollout": (B * T_K4, alt_fields_bytes),
+            "altq_packed_chunk": (B * T_K10, alt_fields_bytes + acc),
+            "altq_chunk": (B * T_K10, alt_fields_bytes + acc)}
     return launches, errs, ms, work
 
 

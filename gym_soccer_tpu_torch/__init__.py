@@ -7,16 +7,28 @@ reference that the port is tested against.
 
 Layers (module paths mirror gym_soccer_tpu's):
   config.py        EnvConfig (a copy)
+  spaces.py        Discrete, MultiDiscrete, Dict (a copy)
   core/rules.py    branchless game rules over numpy or torch
   core/tables.py   host-side state-space indexing and transition tensors
                    (numpy)
   core/batch.py    batched engine on tensors, counter RNG
+  core/multigrid.py  mixed-geometry codec and per-lane board geometry
   core/mt19937.py  the reference's MT19937 on tensors
   core/parity.py   bit-exact reference trajectories (float64 thresholds)
-  agents/          RM+ matrix-game solver; Shapley iteration, best
-                   response and exploitability
-  ops/step_kernel.py     fused and journaled random rollouts (CUDA K1, K2)
-  ops/learner_kernel.py  minimax-Q chunk (CUDA K5) and the chunked trainers
+  envs/soccer_alternating_env.py  the alternating-turn game: tables, exact
+                   value iteration (numpy and torch), a policy rollout and
+                   the single-env facade
+  agents/          RM+ matrix-game solver, the alternating game's greedy
+                   policy; Shapley iteration, best response and
+                   exploitability
+  ops/step_kernel.py     fused, journaled, mixed-geometry and alternating
+                         random rollouts (CUDA K1, K2, K3, K4)
+  ops/learner_kernel.py  minimax-Q chunks, packed and unpacked, one board
+                         or a mixture (CUDA K5, K6, K7), and the chunked
+                         trainers
+  ops/iql_kernel.py      independent-Q chunks (CUDA K8, K9) and trainer
+  ops/altq_kernel.py     alternating-turn Q chunks (CUDA K10, K11) and
+                         trainer
   ops/parity_kernel.py   bit-exact parity events, closed loop and scripted
                          (CUDA K12, K13)
   interop.py       state, journal, learner, MT19937 and parity layouts to

@@ -1,9 +1,11 @@
-"""Batched zero-sum matrix-game solver (plain PyTorch).
+"""Batched zero-sum matrix-game solver and the alternating game's greedy
+policy (plain PyTorch).
 
-The port of ``solve_matrix_games`` from gym_soccer_tpu/agents/learners.py.
-The JAX package's generic learners (IQL, minimax-Q over the batched
-engine) are not ported yet; the fused trainers in ops/learner_kernel.py
-and the evaluation tools use this solver.
+The port of ``solve_matrix_games`` and ``altq_greedy_policy`` from
+gym_soccer_tpu/agents/learners.py.  The JAX package's generic learners
+(IQL, minimax-Q and alternating Q over the batched engine) are not ported
+yet; the fused trainers in ops/learner_kernel.py and the evaluation tools
+use this solver.
 """
 from __future__ import annotations
 
@@ -74,3 +76,14 @@ def solve_matrix_games(M: torch.Tensor, iters: int = 100):
     xm = _fma_dot(P64[1], x.double())
     value = _seq_sum(xm * y)
     return value, x, y
+
+
+def altq_greedy_policy(cfg, q) -> torch.Tensor:
+    """The mover's greedy policy per dense state of the alternating game:
+    argmax at A-to-move states, argmin at B-to-move states (``q`` [nS, 5]
+    is A-perspective), the lowest index on a tie; int32 [nS] on ``q``'s
+    device."""
+    from ..envs.soccer_alternating_env import build_alt_tables
+    q = torch.as_tensor(q)
+    turn = torch.as_tensor(build_alt_tables(cfg).turn, device=q.device)
+    return torch.where(turn == 0, q.argmax(-1), q.argmin(-1)).to(torch.int32)

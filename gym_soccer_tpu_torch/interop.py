@@ -32,6 +32,13 @@ never imports JAX: convert a JAX array with ``np.asarray`` first.
   states per row, or unpacked [spc, 128] with one) becomes the port's
   table (float32 [n_codes, 10]); its trainer's resume dict (q_a, q_b,
   fields, next_chunk, packed) goes through ``resume_from_numpy``.
+* The alternating-turn learner's state: the JAX package's M (bfloat16,
+  each turnless cellpair's A-to-move and B-to-move Q as double-bf16 hi/lo
+  column blocks; packed [_spm_t, 128] with 6 cellpairs per row, or
+  unpacked [spc, 128] with one) becomes the port's table (float32
+  [n_codes, 10], ``alt_table_from_m``); its trainer's resume dict (q,
+  seven lane-tiled fields, next_chunk, packed) goes through
+  ``resume_from_numpy``.
 """
 from __future__ import annotations
 
@@ -149,6 +156,16 @@ def iql_table_from_packed_m(cfg: EnvConfig, m, packed: bool,
     q_a = m[base[:, None] + k] + m[base[:, None] + 5 + k]
     q_b = m[base[:, None] + 10 + k] + m[base[:, None] + 15 + k]
     return torch.tensor(np.concatenate([q_a, q_b], axis=1), device=device)
+
+
+# The JAX package's alternating M (``pack_alt_m2``: [_spm_t, 128], GP_T =
+# 6 turnless cellpairs per row; ``pack_alt_m``: [spc, 128], one) holds in
+# each cellpair's 20 columns the A-to-move Q hi at 0-4 and lo at 5-9 and
+# the B-to-move hi at 10-14 and lo at 15-19 (gym_soccer_tpu/ops/
+# altq_kernel.py, COL_QA* and COL_QB*): the IQL M's layout, with the
+# mover in place of the player.  The port's alternating table [n_codes,
+# 10] is the IQL table's layout too, so one reader serves both.
+alt_table_from_m = iql_table_from_packed_m
 
 
 def resume_from_numpy(resume: dict, device) -> dict:

@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LIBRARIES = {"step_kernel": ("step_kernel.cu", "game.cuh"),
              "learner_kernel": ("learner_kernel.cu", "game.cuh"),
              "iql_kernel": ("iql_kernel.cu", "game.cuh"),
+             "altq_kernel": ("altq_kernel.cu", "game.cuh"),
              "parity_kernel": ("parity_kernel.cu", "game.cuh")}
 
 _loaded: dict[str, ctypes.CDLL] = {}

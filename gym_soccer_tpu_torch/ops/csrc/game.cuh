@@ -1,12 +1,12 @@
 // Device code of the soccer game shared by the port's CUDA kernels
-// (step_kernel.cu: K1, K2, K3; learner_kernel.cu: K5, K6, K7;
-// iql_kernel.cu: K8, K9; parity_kernel.cu: K12, K13), and the host helpers
-// that describe a game to them.
+// (step_kernel.cu: K1, K2, K3, K4; learner_kernel.cu: K5, K6, K7;
+// iql_kernel.cu: K8, K9; altq_kernel.cu: K10, K11; parity_kernel.cu: K12,
+// K13), and the host helpers that describe a game to them.
 //
 // Every function here is integer arithmetic on uint32/int32, written to
 // give the same bits as gym_soccer_tpu/ops/step_kernel.py's
-// `_random_word`, `transition_core` and `autoreset_core` and as the plain
-// PyTorch versions in ops/step_kernel.py.
+// `_random_word`, `transition_core`, `alt_transition_core` and
+// `autoreset_core` and as the plain PyTorch versions in ops/step_kernel.py.
 //
 // The game functions take any geometry G with the fields H, W, glo, ghi,
 // q_int, max_steps and nI: a `Game`, one board shared by every lane (its ISD
@@ -41,6 +41,11 @@ struct LaneGame {
 
 struct Planes {
   int32_t* f[6];  // ra, ca, rb, cb, p, t
+};
+
+// The alternating game's state planes (K4, K10, K11).
+struct AltPlanes {
+  int32_t* f[7];  // ra, ca, rb, cb, p, turn, t
 };
 
 struct State {
@@ -130,6 +135,36 @@ __device__ __forceinline__ void transition(State& s, int aa, int ab,
   if (a_moves) { s.ra = nxa; s.ca = nya; }
   if (b_moves) { s.rb = nxb; s.cb = nyb; }
   s.p = c2 ? 1 - s.p : ((c1 || c3 || c4) ? coin_poss : s.p);
+
+  const bool a_ball = s.p == 0;
+  const int ball_col = a_ball ? s.ca : s.cb;
+  const bool gr = a_ball ? in_goal_rows(s.ra, g) : in_goal_rows(s.rb, g);
+  goal = gr && (ball_col == 0 || ball_col == g.W - 1);
+  r = goal ? (ball_col == g.W - 1 ? 1 : -1) : 0;
+}
+
+// One tick of the alternating game under the mover's chosen action a
+// (step_kernel.alt_transition_core): the mover (A at turn 0) takes its
+// slipped move on the low 16 bits of bits1; stepping into the opponent
+// bounces it back and hands the opponent the ball; then the goal check on
+// the carrier's cell.  The caller flips the turn.
+template <class G>
+__device__ __forceinline__ void alt_transition(State& s, int turn, int a,
+                                               uint32_t bits1, const G& g,
+                                               bool& goal, int& r) {
+  int mc, mr;
+  slipped_move(a, u16(bits1, 0), g.q_int, mc, mr);
+  const bool a_moves = turn == 0;
+  const int mx = a_moves ? s.ra : s.rb, my = a_moves ? s.ca : s.cb;
+  const int ox = a_moves ? s.rb : s.ra, oy = a_moves ? s.cb : s.ca;
+  int nx, ny;
+  next_cell(mx, my, mc, mr, s.p == turn, g, nx, ny);
+  if (nx == ox && ny == oy) {
+    nx = mx;
+    ny = my;
+    s.p = 1 - turn;
+  }
+  if (a_moves) { s.ra = nx; s.ca = ny; } else { s.rb = nx; s.cb = ny; }
 
   const bool a_ball = s.p == 0;
   const int ball_col = a_ball ? s.ca : s.cb;
@@ -258,6 +293,12 @@ inline Game make_game(const int32_t* params) {
 inline Planes make_planes(void* const* ptrs) {
   Planes p;
   for (int i = 0; i < 6; ++i) p.f[i] = static_cast<int32_t*>(ptrs[i]);
+  return p;
+}
+
+inline AltPlanes make_alt_planes(void* const* ptrs) {
+  AltPlanes p;
+  for (int i = 0; i < 7; ++i) p.f[i] = static_cast<int32_t*>(ptrs[i]);
   return p;
 }
 

@@ -1,11 +1,13 @@
 // Fused random-vs-random rollout kernels for Hopper (sm_90a).
 //
-// Replaces three Pallas TPU kernels of gym_soccer_tpu/ops/step_kernel.py:
+// Replaces four Pallas TPU kernels of gym_soccer_tpu/ops/step_kernel.py:
 //   rollout_kernel     <- `_rollout_kernel` (K1, wrapper `pallas_rollout`)
 //   journal_kernel     <- `_journal_kernel` (K2, wrapper
 //                         `pallas_journal_rollout`)
 //   mg_rollout_kernel  <- `_mg_rollout_kernel` (K3, wrapper
 //                         `pallas_multigrid_rollout`)
+//   alt_rollout_kernel <- `_alt_rollout_kernel` (K4, wrapper
+//                         `pallas_alt_rollout`)
 //
 // All compute, for every lane (one independent game) and every step:
 // three murmur3 counter words keyed on (seed, absolute step, word index,
@@ -40,6 +42,12 @@
 // more registers (game.cuh `LaneGame`, no ISD table) and sums its stats per
 // variant in shared memory, then one atomicAdd per variant and counter per
 // block, so nothing is added per step.
+//
+// K4 steps the alternating-turn game (envs/soccer_alternating_env): K1's
+// shape and words, but one mover a tick (game.cuh `alt_transition`, about
+// half of K1's transition work: no collision chain), its random action on
+// the low 16 bits of word 0, and a seventh plane, the turn, which flips
+// every tick and goes to A (0) on a goal or a truncation.
 
 #include "game.cuh"
 
@@ -151,6 +159,39 @@ __global__ void mg_rollout_kernel(Planes in, Planes out, Planes geo,
                            part[k]);
 }
 
+// K4: random play of the alternating game (step_kernel._alt_step_once).
+__global__ void alt_rollout_kernel(AltPlanes in, AltPlanes out,
+                                   long long* stats, int B, int n_steps,
+                                   uint32_t seed, int step_offset, Game g) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  int rew = 0, goals = 0, truncs = 0;
+  if (lane < B) {
+    State s{in.f[0][lane], in.f[1][lane], in.f[2][lane],
+            in.f[3][lane], in.f[4][lane], in.f[6][lane]};
+    int turn = in.f[5][lane];
+    const uint32_t ctr = (uint32_t)lane;
+    for (int i = 0; i < n_steps; ++i) {
+      const uint32_t step = (uint32_t)(i + step_offset);
+      const uint32_t bits0 = random_word(seed, step, 0u, ctr);
+      const uint32_t bits1 = random_word(seed, step, 1u, ctr);
+      const uint32_t bits2 = random_word(seed, step, 2u, ctr);
+      bool goal, trunc;
+      int r;
+      alt_transition(s, turn, u16(bits0, 0) % 5, bits1, g, goal, r);
+      autoreset(s, goal, bits2, g, trunc);
+      turn = (goal || trunc) ? 0 : 1 - turn;
+      rew += r;
+      goals += goal;
+      truncs += trunc;
+    }
+    out.f[0][lane] = s.ra; out.f[1][lane] = s.ca;
+    out.f[2][lane] = s.rb; out.f[3][lane] = s.cb;
+    out.f[4][lane] = s.p;  out.f[5][lane] = turn;
+    out.f[6][lane] = s.t;
+  }
+  block_sum(stats, rew, goals, truncs);
+}
+
 }  // namespace
 
 extern "C" {
@@ -205,6 +246,22 @@ int gst_multigrid_rollout(int device, void* const* in, void* const* out,
                       static_cast<cudaStream_t>(stream)>>>(
       make_planes(in), make_planes(out), make_planes(geo), stats, B, n_steps,
       seed, step_offset, max_steps, n_variants);
+  return (int)cudaGetLastError();
+}
+
+// K4.  As K1, with in/out: host arrays of 7 device pointers to int32 [B]
+// (ra, ca, rb, cb, p, turn, t).
+int gst_alt_rollout(int device, void* const* in, void* const* out,
+                    long long* stats, const int32_t* params, int B,
+                    int n_steps, uint32_t seed, int step_offset, int threads,
+                    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = prepare(device, params, B, threads, stats, st);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (B + threads - 1) / threads;
+  alt_rollout_kernel<<<blocks, threads, 0, st>>>(
+      make_alt_planes(in), make_alt_planes(out), stats, B, n_steps, seed,
+      step_offset, make_game(params));
   return (int)cudaGetLastError();
 }
 

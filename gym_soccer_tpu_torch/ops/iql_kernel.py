@@ -131,9 +131,9 @@ init_iql_state_fields = lk.init_state_fields
 # ----------------------------------------------------------------------
 
 def _check_args(cfg: EnvConfig, eps_int: int, table, fields, batch: int,
-                n_steps: int, step_offset: int):
+                n_steps: int, step_offset: int, n_fields: int = 6):
     fields = lk._check_chunk_args(cfg, table, fields, batch, n_steps,
-                                  cols=IQL_COLS)
+                                  cols=IQL_COLS, n_fields=n_fields)
     if not 0 <= eps_int <= EPS_ONE:
         raise ValueError(f"eps_int must lie in [0, {EPS_ONE}], got {eps_int}")
     if step_offset < 0 or step_offset + n_steps >= 2 ** 31:
@@ -403,6 +403,7 @@ def fused_iql_train(cfg: EnvConfig, batch: int, n_chunks: int,
         raise NotImplementedError(
             "chunks_per_dispatch is not ported yet; the port runs one chunk "
             "per dispatch")
+    lk._check_seeds(seed, start_chunk, start_chunk + n_chunks)
     if packed is None:
         packed = True
     device = torch.device(device)

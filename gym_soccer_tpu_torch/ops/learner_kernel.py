@@ -238,9 +238,9 @@ unpack_acc = unpack_acc2
 # ----------------------------------------------------------------------
 
 def _check_chunk_args(cfg, table, fields, batch: int, n_steps: int,
-                      cols: int = TABLE_COLS):
+                      cols: int = TABLE_COLS, n_fields: int = 6):
     """The fields as a tuple, once the shapes, types and the one device of
-    the table and the fields are checked."""
+    the table and the ``n_fields`` fields are checked."""
     if batch <= 0 or batch % LANES:
         raise ValueError(f"batch must be a positive multiple of {LANES}, "
                          f"got {batch}")
@@ -256,13 +256,13 @@ def _check_chunk_args(cfg, table, fields, batch: int, n_steps: int,
             or not table.is_contiguous()):
         raise ValueError(f"table must be a contiguous float32 {shape} tensor; "
                          f"got {table.dtype} {tuple(table.shape)}")
-    return _check_planes("fields", fields, batch, device)
+    return _check_planes("fields", fields, batch, device, n_fields)
 
 
-def _check_planes(what: str, planes, batch: int, device):
+def _check_planes(what: str, planes, batch: int, device, n: int = 6):
     planes = tuple(planes)
-    if len(planes) != 6:
-        raise ValueError(f"{what} = 6 tensors")
+    if len(planes) != n:
+        raise ValueError(f"{what} = {n} tensors")
     for f in planes:
         if (f.dtype != torch.int32 or tuple(f.shape) != (batch,)
                 or not f.is_contiguous() or f.device != device):
@@ -562,8 +562,23 @@ def _float_tensor(x, device) -> torch.Tensor:
     return torch.tensor(np.asarray(x, np.float32), device=device)
 
 
+def _check_seeds(seed: int, start_chunk: int, end_chunk: int) -> None:
+    """Refuse a run, before its first chunk, whose chunk seeds seed *
+    1_000_003 + k (k in [start_chunk, end_chunk)) do not all fit int32:
+    the JAX trainers raise OverflowError for those chunks."""
+    if end_chunk <= start_chunk:
+        return
+    for k in (start_chunk, end_chunk - 1):   # the seed grows with k
+        s = seed * 1_000_003 + k
+        if not -2 ** 31 <= s < 2 ** 31:
+            raise OverflowError(
+                f"chunk seed {seed} * 1_000_003 + {k} = {s} does not fit "
+                "int32")
+
+
 def _chunk_seed(seed: int, k: int) -> int:
-    """The JAX trainer's int32 chunk seed, as the uint32 the kernel reads."""
+    """The JAX trainer's int32 chunk seed (``_check_seeds`` has checked that
+    it fits), as the uint32 the kernel reads."""
     return (seed * 1_000_003 + k) & sk.M32
 
 
@@ -712,6 +727,7 @@ def fused_minimax_train(cfg, batch: int, n_chunks: int,
     time spent in chunk calls and between them.
     """
     _unsupported(mesh, single_dispatch, chunks_per_dispatch)
+    _check_seeds(seed, start_chunk, start_chunk + n_chunks)
     packed = True if packed is None else bool(packed)
     device = torch.device(device)
     nS = n_states(cfg)
@@ -838,6 +854,7 @@ def fused_best_response_train(cfg: EnvConfig, opp_policy, side: str,
     board only.  A run in which a table value left the int64 sums' exact
     range raises ValueError, as in ``fused_minimax_train``."""
     _unsupported(mesh, False, chunks_per_dispatch)
+    _check_seeds(seed, start_chunk, start_chunk + n_chunks)
     if isinstance(cfg, tuple):
         raise ValueError("fused_best_response_train takes one EnvConfig")
     if side not in ("player_a", "player_b"):

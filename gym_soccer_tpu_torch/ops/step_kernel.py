@@ -13,9 +13,14 @@ The port of gym_soccer_tpu/ops/step_kernel.py.  Three public wrappers:
   ``pallas_multigrid_rollout`` (kernel K3).  Per-lane geometry is a
   ``GeoPlanes``, which ``transition_core``, ``autoreset_core`` and
   core/rules take where they take an ``EnvConfig``.
+* ``alt_rollout``: T ticks of random play of the alternating-turn game
+  (envs/soccer_alternating_env), one mover a tick, on seven fields (ra,
+  ca, rb, cb, p, turn, t).  Replaces ``pallas_alt_rollout`` (kernel K4);
+  its transition is ``alt_transition_core``.
 
 Each has a plain PyTorch version here (``fused_rollout_plain``,
-``fused_journal_rollout_plain``, ``multigrid_rollout_plain``).  A wrapper
+``fused_journal_rollout_plain``, ``multigrid_rollout_plain``,
+``alt_rollout_plain``).  A wrapper
 runs the plain version when its tensors lie on the CPU and launches the
 CUDA kernel (``csrc/step_kernel.cu``) when they lie on a CUDA device;
 there is no fallback from one to the other.  The wrappers run on the card
@@ -50,7 +55,7 @@ BATCH_MULTIPLE = 1024  # the JAX wrappers tile lanes as [B/128, 128], B % 1024 =
 # Launches of each CUDA kernel in this process, counted by the wrappers
 # where they launch and nowhere else.
 launch_counts = {"fused_rollout": 0, "fused_journal_rollout": 0,
-                 "multigrid_rollout": 0}
+                 "multigrid_rollout": 0, "alt_rollout": 0}
 MAX_VARIANTS = 16  # K3 sums its stats per variant in shared memory
 
 
@@ -185,6 +190,37 @@ def transition_core(ra, ca, rb, cb, p, aa, ab, bits1, bits2, cfg, q_int):
     return nra, nca, nrb, ncb, npz, goal, r.to(torch.int32)
 
 
+def alt_transition_core(ra, ca, rb, cb, p, turn, a, bits1, cfg, q_int):
+    """Alternating-turn transition under the mover's CHOSEN action
+    ``a``: the mover's slipped move on the low 16 bits of ``bits1``,
+    steal-on-contact (a mover stepping into the opponent bounces back and
+    the opponent gets the ball), the goal check on the carrier's cell.
+    Returns (nra, nca, nrb, ncb, npz, goal, r); the caller flips the
+    turn."""
+    mc, mr = _slipped_move(a, _u16(bits1, 0), q_int)
+    a_moves = turn == 0
+    mx = torch.where(a_moves, ra, rb)
+    my = torch.where(a_moves, ca, cb)
+    ox = torch.where(a_moves, rb, ra)
+    oy = torch.where(a_moves, cb, ca)
+    nx, ny = rules.next_cell(torch, mx, my, mc, mr, p == turn, cfg)
+    collide = (nx == ox) & (ny == oy)
+    nx = torch.where(collide, mx, nx)
+    ny = torch.where(collide, my, ny)
+    npz = torch.where(collide, 1 - turn, p)
+    nra = torch.where(a_moves, nx, ra)
+    nca = torch.where(a_moves, ny, ca)
+    nrb = torch.where(a_moves, rb, nx)
+    ncb = torch.where(a_moves, cb, ny)
+    a_ball = npz == 0
+    ball_col = torch.where(a_ball, nca, ncb)
+    gr = torch.where(a_ball, rules.in_goal_rows(nra, cfg),
+                     rules.in_goal_rows(nrb, cfg))
+    goal = gr & ((ball_col == 0) | (ball_col == cfg.W - 1))
+    r = torch.where(goal, torch.where(ball_col == cfg.W - 1, 1, -1), 0)
+    return nra, nca, nrb, ncb, npz, goal, r.to(torch.int32)
+
+
 @functools.lru_cache(maxsize=None)
 def _isd_table(cfg: EnvConfig, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(tables.isd_fields(cfg), device=device)
@@ -245,6 +281,14 @@ def isd_spread_fields(cfg: EnvConfig, batch: int, device):
     table = _isd_table(cfg, device)  # built on the device: no copy per call
     lane_isd = torch.arange(batch, device=device) % table.shape[0]
     return tuple(table.t()[:, lane_isd].unbind(0))
+
+
+def init_alt_fields(cfg: EnvConfig, batch: int, device="cuda"):
+    """Initial state of the alternating game: seven int32 [batch] tensors
+    (ra, ca, rb, cb, p, turn, t), lane i on ISD entry i % nI, A to move,
+    t = 0."""
+    zeros = torch.zeros(batch, dtype=torch.int32, device=torch.device(device))
+    return (*isd_spread_fields(cfg, batch, device), zeros, zeros.clone())
 
 
 @functools.lru_cache(maxsize=None)
@@ -449,6 +493,39 @@ def multigrid_rollout_plain(cfgs, seed: int, batch: int, n_steps: int,
     return _mg_plain(cfgs, seed, fields, planes, n_steps, step_offset)
 
 
+def _alt_plain(cfg: EnvConfig, seed: int, fields, n_steps: int,
+               step_offset: int):
+    """The alternating game's random rollout: each tick the mover plays
+    the low 16 bits of word 0 mod 5, slips on word 1, and a goal or a
+    truncation resets on word 2 and gives the turn to A.  Returns the
+    final seven fields and the (reward sum, goals, truncations) totals."""
+    ra, ca, rb, cb, p, turn, t = fields
+    q_int = _q_int(cfg)
+    lane = torch.arange(ra.shape[0], dtype=torch.int64, device=ra.device)
+    rew = torch.zeros(ra.shape[0], dtype=torch.int64, device=ra.device)
+    goals, truncs = torch.zeros_like(rew), torch.zeros_like(rew)
+    for i in range(n_steps):
+        bits0, bits1, bits2 = (_random_word(seed, i + step_offset, w, lane)
+                               for w in range(3))
+        ra, ca, rb, cb, p, goal, r = alt_transition_core(
+            ra, ca, rb, cb, p, turn, _u16(bits0, 0) % 5, bits1, cfg, q_int)
+        ra, ca, rb, cb, p, t, trunc = autoreset_core(
+            ra, ca, rb, cb, p, t, goal, bits2, cfg)
+        turn = torch.where(goal | trunc, 0, 1 - turn)
+        rew += r
+        goals += goal
+        truncs += trunc
+    return (ra, ca, rb, cb, p, turn, t), _totals((rew, goals, truncs))
+
+
+def alt_rollout_plain(cfg: EnvConfig, seed: int, batch: int, n_steps: int,
+                      device, init_fields=None, step_offset: int = 0):
+    """Plain PyTorch version of ``alt_rollout``, on any device."""
+    fields = _start_fields(cfg, batch, n_steps, device, init_fields,
+                           step_offset, alt=True)
+    return _alt_plain(cfg, seed, fields, n_steps, step_offset)
+
+
 # ----------------------------------------------------------------------
 # Public wrappers
 # ----------------------------------------------------------------------
@@ -531,6 +608,34 @@ def multigrid_rollout(cfgs, seed: int, batch: int, n_steps: int,
                       threads)
 
 
+def alt_rollout(cfg: EnvConfig, seed: int, batch: int, n_steps: int,
+                device="cuda", init_fields=None, step_offset: int = 0,
+                threads: int = 128):
+    """Run ``n_steps`` ticks of random play of the alternating-turn game for
+    ``batch`` lanes: each tick only the mover acts, with a uniformly random
+    action.
+
+    Returns ``(fields, (reward_sum, goals, truncs))``: the final (ra, ca,
+    rb, cb, p, turn, t) as int32 [batch] tensors and the totals as int64
+    scalars, on ``device``.  ``batch`` is a multiple of 1024.
+    ``init_fields`` (7 int32 [batch] tensors on ``device``) and
+    ``step_offset`` resume from an earlier call at that absolute step, bit
+    for bit; without them lane i starts on ISD entry i % nI, A to move,
+    t = 0 (``init_alt_fields``).  ``threads`` is the CUDA block size and
+    does not change the result.
+
+    On a CPU device this runs ``alt_rollout_plain``; on a CUDA device it
+    launches the K4 kernel.
+    """
+    fields = _start_fields(cfg, batch, n_steps, device, init_fields,
+                           step_offset, alt=True)
+    if fields[0].device.type == "cpu":
+        return _alt_plain(cfg, seed, fields, n_steps, step_offset)
+    out, stats, _ = _launch("alt_rollout", cfg, seed, fields, n_steps,
+                            step_offset, threads)
+    return out, stats
+
+
 def _check_journal_fits(cfg: EnvConfig) -> None:
     if cfg.n_raw > 65536:
         raise ValueError(f"raw state code needs {cfg.n_raw} values; the "
@@ -538,9 +643,10 @@ def _check_journal_fits(cfg: EnvConfig) -> None:
 
 
 def _start_fields(cfg, batch: int, n_steps: int, device, init_fields,
-                  step_offset: int):
+                  step_offset: int, alt: bool = False):
     """The six int32 [batch] starting planes on ``device``, checked; ``cfg``
-    is an EnvConfig or a tuple of them (a mixture, round-robin)."""
+    is an EnvConfig or a tuple of them (a mixture, round-robin).  ``alt``:
+    the alternating game's seven (turn before t)."""
     if batch <= 0 or batch % BATCH_MULTIPLE:
         raise ValueError(f"batch must be a positive multiple of "
                          f"{BATCH_MULTIPLE}, got {batch}")
@@ -549,12 +655,15 @@ def _start_fields(cfg, batch: int, n_steps: int, device, init_fields,
                          "must lie in [0, 2**31)")
     device = torch.device(device)
     if init_fields is None:
+        if alt:
+            return init_alt_fields(cfg, batch, device)
         start = (mg_planes(cfg, batch, device)[1] if isinstance(cfg, tuple)
                  else isd_spread_fields(cfg, batch, device))
         return (*start, torch.zeros(batch, dtype=torch.int32, device=device))
     fields = tuple(init_fields)
-    if len(fields) != 6:
-        raise ValueError("init_fields = 6 tensors (ra, ca, rb, cb, p, t)")
+    if len(fields) != (7 if alt else 6):
+        raise ValueError(f"init_fields = {7 if alt else 6} tensors (ra, ca, "
+                         f"rb, cb, p, {'turn, ' if alt else ''}t)")
     for f in fields:
         if (f.dtype != torch.int32 or tuple(f.shape) != (batch,)
                 or not f.is_contiguous() or f.device.type != device.type
@@ -566,11 +675,12 @@ def _start_fields(cfg, batch: int, n_steps: int, device, init_fields,
 
 
 # ----------------------------------------------------------------------
-# CUDA launch (K1, K2, K3)
+# CUDA launch (K1, K2, K3, K4)
 # ----------------------------------------------------------------------
 
 _ENTRY = {"fused_rollout": "gst_fused_rollout",
-          "fused_journal_rollout": "gst_fused_journal_rollout"}
+          "fused_journal_rollout": "gst_fused_journal_rollout",
+          "alt_rollout": "gst_alt_rollout"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -582,13 +692,14 @@ def _library():
     tail = [vp, i32, i32, u32, i32, i32, vp]  # params, B, T, seed, offset,
     #                                            threads, stream
     lib.gst_fused_rollout.argtypes = [i32, vp, vp, vp] + tail
+    lib.gst_alt_rollout.argtypes = [i32, vp, vp, vp] + tail
     lib.gst_fused_journal_rollout.argtypes = [i32, vp, vp, vp, vp] + tail
     lib.gst_multigrid_rollout.argtypes = [i32, vp, vp, vp, vp, i32, i32, u32,
                                           i32, i32, i32, i32, vp]
     #    device, in, out, geo, stats, B, T, seed, offset, max_steps,
     #    n_variants, threads, stream
     for fn in (lib.gst_fused_rollout, lib.gst_fused_journal_rollout,
-               lib.gst_multigrid_rollout):
+               lib.gst_multigrid_rollout, lib.gst_alt_rollout):
         fn.restype = i32
     lib.gst_error_string.argtypes = [i32]
     lib.gst_error_string.restype = ctypes.c_char_p

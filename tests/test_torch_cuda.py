@@ -1,5 +1,5 @@
-"""The CUDA kernels K1, K2, K3, K5, K6, K7, K8, K9, K12 and K13 against
-their plain PyTorch versions on the card, bit for bit.  Skips without a CUDA device.  This
+"""The CUDA kernels K1-K13 against their plain PyTorch versions on the
+card, bit for bit.  Skips without a CUDA device.  This
 file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed:
 
@@ -64,7 +64,7 @@ def test_launch_is_counted(cuda):
     sk.fused_rollout_plain(cfg, 0, 1024, 8, cuda)
     assert sk.launch_counts == {"fused_rollout": 1,
                                 "fused_journal_rollout": 0,
-                                "multigrid_rollout": 0}
+                                "multigrid_rollout": 0, "alt_rollout": 0}
 
 
 # ----------------------------------------------------------------------
@@ -373,3 +373,74 @@ def test_parity_kernels_equal_plain_versions(cuda, board):
     assert pk.launch_counts == {"parity_events": 2,
                                 "parity_scripted_events": 2}
     assert bool((splain.steps > T).any()), "no lane ran past the script"
+
+
+# ----------------------------------------------------------------------
+# K4, K10, K11: the alternating-turn game
+# ----------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("board", BOARDS)
+def test_alt_rollout_equals_plain_version(cuda, board):
+    """K4 equals its plain version for two block sizes, a run resumed
+    through step_offset equals one run, and the launches are counted."""
+    cfg = EnvConfig(width=board[0], height=board[1], slip_prob=0.2)
+    B, T = 2048, 64
+    pf, ps = sk.alt_rollout_plain(cfg, 4, B, T, cuda)
+    sk.reset_launch_counts()
+    for threads in (128, 256):
+        kf, ks = sk.alt_rollout(cfg, 4, B, T, cuda, threads=threads)
+        assert all(torch.equal(a, b) for a, b in zip(kf, pf))
+        assert _ints(ks) == _ints(ps)
+    fa, _ = sk.alt_rollout(cfg, 4, B, T // 2, cuda)
+    fb, _ = sk.alt_rollout(cfg, 4, B, T - T // 2, cuda, init_fields=fa,
+                           step_offset=T // 2)
+    assert all(torch.equal(a, b) for a, b in zip(fb, pf))
+    assert sk.launch_counts["alt_rollout"] == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("board", BOARDS)
+def test_altq_kernels_equal_plain_versions(cuda, board):
+    """K10 and K11 equal their plain versions bit for bit (fields, stats,
+    counts and the int64 sums) for two block sizes with a step offset, and
+    step the same fields, stats and counts; the trainer launches K10 once
+    a chunk and resumes exactly."""
+    import numpy as np
+    from gym_soccer_tpu_torch.envs.soccer_alternating_env import (
+        build_alt_tables)
+    from gym_soccer_tpu_torch.ops import altq_kernel as ak
+    cfg = EnvConfig(width=board[0], height=board[1], slip_prob=0.2)
+    B, T, eps = 2048, 32, 19661
+    nS = build_alt_tables(cfg).nS
+    q = torch.tensor(np.random.default_rng(3).uniform(-1, 1, (nS, 5)),
+                     dtype=torch.float32)
+    q[::3, 1] = torch.nextafter(q[::3, 0], torch.tensor(2.0))
+    table = ak.pack_alt_table(cfg, q.to(cuda))
+    fields = ak.init_alt_state_fields(cfg, B, cuda)
+    ak.reset_launch_counts()
+    runs = {}
+    for name in ("altq_packed_chunk", "altq_chunk"):
+        kernel, plain = getattr(ak, name), getattr(ak, name + "_plain")
+        want = plain(cfg, 5, eps, table, fields, B, T, 0.99, 7)
+        for threads in (128, 256):
+            got = kernel(cfg, 5, eps, table, fields, B, T, 0.99, 7, threads)
+            assert _same_chunk(got, want)
+        runs[name] = want
+    assert ak.launch_counts == {"altq_packed_chunk": 2, "altq_chunk": 2}
+    (fa, (_, ca), sa), (fb, (_, cb), sb) = runs.values()
+    assert all(torch.equal(x, y) for x, y in zip(fa, fb))
+    assert torch.equal(ca, cb) and _ints(sa) == _ints(sb)
+    assert int(ca.sum()) == B * T
+    kw = dict(batch=1024, chunk_len=16, lr=0.5, eps=0.3, eps_halflife=64,
+              lr_anneal_start=1, lr_anneal_tau=4.0, seed=3)
+    ak.reset_launch_counts()
+    whole = ak.fused_altq_train(cfg, n_chunks=2, return_state=True, **kw)
+    assert ak.launch_counts == {"altq_packed_chunk": 2, "altq_chunk": 0}
+    r = ak.fused_altq_train(cfg, n_chunks=1, return_state=True, **kw)[2]
+    part = ak.fused_altq_train(cfg, n_chunks=1, return_state=True,
+                               init=r["q"], fields_init=r["fields"],
+                               start_chunk=r["next_chunk"], **kw)
+    assert torch.equal(whole[0], part[0])
+    assert all(torch.equal(a, b) for a, b in zip(whole[2]["fields"],
+                                                 part[2]["fields"]))

@@ -21,6 +21,10 @@ MODULES = ["gym_soccer_tpu_torch", "gym_soccer_tpu_torch.config",
            "gym_soccer_tpu_torch.ops.learner_kernel",
            "gym_soccer_tpu_torch.ops.iql_kernel",
            "gym_soccer_tpu_torch.ops.parity_kernel",
+           "gym_soccer_tpu_torch.ops.altq_kernel",
+           "gym_soccer_tpu_torch.spaces",
+           "gym_soccer_tpu_torch.envs",
+           "gym_soccer_tpu_torch.envs.soccer_alternating_env",
            "gym_soccer_tpu_torch.agents.learners",
            "gym_soccer_tpu_torch.agents.evaluation",
            "gym_soccer_tpu_torch.interop"]
@@ -52,12 +56,12 @@ def test_cuda_device_without_a_card_raises():
     # plain versions take a device always.
     mix = (cfg, EnvConfig(width=6, height=5, slip_prob=0.1))
     for fn, c in ((sk.fused_rollout, cfg), (sk.fused_journal_rollout, cfg),
-                  (sk.multigrid_rollout, mix)):
+                  (sk.multigrid_rollout, mix), (sk.alt_rollout, cfg)):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
         with pytest.raises((RuntimeError, AssertionError)):
             fn(c, 0, 1024, 4)
     for fn in (sk.fused_rollout_plain, sk.fused_journal_rollout_plain,
-               sk.multigrid_rollout_plain):
+               sk.multigrid_rollout_plain, sk.alt_rollout_plain):
         param = inspect.signature(fn).parameters["device"]
         assert param.default is inspect.Parameter.empty
     from gym_soccer_tpu_torch.ops import parity_kernel as pk
@@ -68,6 +72,8 @@ def test_cuda_device_without_a_card_raises():
         pk.parity_scripted_events(cfg, range(128), [[0] * 128], 4, "cuda")
     # The trainers and the solver run on the card unless asked for the CPU.
     from gym_soccer_tpu_torch.agents import evaluation as ev
+    from gym_soccer_tpu_torch.envs import soccer_alternating_env as alt
+    from gym_soccer_tpu_torch.ops import altq_kernel as ak
     from gym_soccer_tpu_torch.ops import iql_kernel as ik
     from gym_soccer_tpu_torch.ops import learner_kernel as lk
     kw = dict(batch=256, n_chunks=1, chunk_len=4)
@@ -79,9 +85,22 @@ def test_cuda_device_without_a_card_raises():
              {"packed": False}),
             (lk.fused_best_response_train, (cfg, [0] * 761, "player_a"), {}),
             (ik.fused_iql_train, (cfg,), {}),
-            (ik.fused_iql_train, (cfg,), {"packed": False})):
+            (ik.fused_iql_train, (cfg,), {"packed": False}),
+            (ak.fused_altq_train, (cfg,), {}),
+            (ak.fused_altq_train, (cfg,), {"packed": False})):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
         with pytest.raises((RuntimeError, AssertionError)):
             fn(*args, **kw, **extra)
+    tb = alt.build_alt_tables(cfg)
+    for fn, args in (
+            (alt.alt_value_iteration_torch, (tb.t_prob, tb.t_next_dense,
+                                             tb.t_reward, tb.t_done,
+                                             tb.turn)),
+            (alt.alt_policy_rollout, (cfg, tb.raw_to_dense, tb.turn,
+                                      tb.turn))):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+        with pytest.raises((RuntimeError, AssertionError)):
+            fn(*args)
     for fn in (ev.shapley_iteration, ev.joint_tensors):
         with pytest.raises((RuntimeError, AssertionError)):
             fn(cfg)
@@ -89,7 +108,8 @@ def test_cuda_device_without_a_card_raises():
     # made on the card unless asked for the CPU.
     from gym_soccer_tpu_torch.core import multigrid as mg
     for fn, c in ((lk.init_state_fields, cfg), (lk.init_state_fields, mix),
-                  (ik.init_iql_state_fields, cfg), (mg.lane_geometry, mix)):
+                  (ik.init_iql_state_fields, cfg), (mg.lane_geometry, mix),
+                  (ak.init_alt_state_fields, cfg)):
         with pytest.raises((RuntimeError, AssertionError)):
             fn(c, 256)
     fields = [f.to("meta") for f in lk.init_state_fields(cfg, 256, "cpu")]
@@ -99,3 +119,9 @@ def test_cuda_device_without_a_card_raises():
         args = (0, table, fields) if cols != 10 else (0, 0, table, fields)
         with pytest.raises(ValueError, match="no kernel for device meta"):
             fn(cfg, *args, 256, 4)
+    fields7 = [f.to("meta") for f in ak.init_alt_state_fields(cfg, 256,
+                                                               "cpu")]
+    for fn in (ak.altq_packed_chunk, ak.altq_chunk):
+        table = torch.zeros(lk.n_codes(cfg), 10, device="meta")
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            fn(cfg, 0, 0, table, fields7, 256, 4)
