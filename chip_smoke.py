@@ -28,7 +28,8 @@ failure:
 2. build: the kernels compile from the sources in this checkout, one nvcc
    per library, in parallel; for each kernel's bound, cuobjdump's SASS
    gives the fewest instructions one step (or event) of its main loop
-   issues (``loop_instructions``);
+   issues (``loop_instructions``; K12/K13's MT19937 twist amortised over
+   the 312 events between twists);
 3. main path: the user entry points at 8192 lanes, with the kernels'
    launch counters reset before and read after; outputs are checked by
    the repo's own means (valid states, journal decodes, stats agree);
@@ -61,15 +62,21 @@ failure:
     decode (reachable raw codes, consistent flags, steps = transition
     events);
 15. K12/K13: journal and all 8 final fields bit-equal to the plain
-    versions at those shapes for two block sizes, and at 128 lanes x 640
-    events equal to the plain versions run on the CPU;
+    versions at those shapes for two block sizes that fit the shared-memory
+    budget (the default 64 lanes, and 80, which leaves a ragged last
+    block), and at 128 lanes x 640 events equal to the plain versions run
+    on the CPU, at the default block size and at 2 lanes per block (fewer
+    threads than 5x4's four ISD states); the kernel's shared memory per
+    block equals ``smem_bytes``, and a block that does not fit is refused;
 16. the reference's own runs through the kernels: all 1000 episodes of
     the reference main()'s VI-vs-random-B evaluation and the 200-episode
     joint evaluation through K12 (episode lengths, rewards and the step
     stream digest), and every multi-agent trajectory fixture through K13,
     step for step (tests/golden/reference_golden.json, read with json);
 17. timing: events/s and bit-exact env-steps/s of K12, K13 and their plain
-    versions at the phase-14 shapes;
+    versions at the phase-14 shapes, with each kernel's block size, shared
+    memory per block and registers per thread, beside the previous
+    design's ms per call;
 18. IQL path: ``fused_iql_train`` on 5x4 at 8192 lanes for 4 chunks x 64
     steps through its default device, packed (K8) and unpacked (K9), the
     launch counters reset before and read after (one launch a chunk); Q
@@ -183,6 +190,13 @@ T_K8 = 64
 E_K12 = 1536
 E_K13 = 768
 SCRIPT_ROWS = 800
+# K12/K13's second block size: fits the shared-memory budget and leaves a
+# ragged last block at 8192 lanes (102 blocks of 80 and one of 32).
+RAGGED_LANES = 80
+# ms per call of K12 (8192 x 1536, 5x4) and K13 (8192 x 768) in their
+# previous design (the collision chain per event, MT19937 states in a
+# device-memory scratch), NVIDIA H100 80GB HBM3 at 700 W.
+PARITY_OLD_MS = {"parity_events": 5.30, "parity_scripted_events": 3.18}
 # The mixed-geometry cells: tools/bench_all.py:421's mixture, and the
 # JAX package's 5x4 + 11x7 stress mixture (examples/train_minimax_tpu.py:
 # 141-143).
@@ -306,7 +320,7 @@ def max_abs_err(pairs):
     return err
 
 
-def sass_loop_instructions(path):
+def sass_loop_instructions(path, names=None):
     """{mangled kernel name: SASS instructions per trip of its main loop}
     in the library at ``path``, from ``cuobjdump -sass``; see
     ``loop_instructions``."""
@@ -314,30 +328,44 @@ def sass_loop_instructions(path):
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     return loop_instructions(subprocess.run(
         [tool, "-sass", str(path)], capture_output=True, text=True,
-        timeout=120, check=True).stdout)
+        timeout=120, check=True).stdout, names)
 
 
 BRANCH = re.compile(r"^(@!?U?P\d\s+)?BRA\s+(?:!?U?P\d,\s*)?0x([0-9a-f]+)")
+SHARED_STORE = re.compile(r"^(@!?U?P\d\s+)?STS(\.\S+)?\s")
+# K12/K13 twist each lane's 624-word MT19937 state once every 312 events.
+TWIST = (624, 312)
+TWISTING = (SYMBOL["parity_events"], SYMBOL["parity_scripted_events"])
 
 
-def loop_instructions(text):
-    """``sass_loop_instructions`` of a ``cuobjdump -sass`` listing.
+def loop_instructions(text, names=None):
+    """``sass_loop_instructions`` of a ``cuobjdump -sass`` listing, for the
+    kernels whose mangled name contains one of ``names`` (all by default).
 
     The main loop is the span of the longest backward branch (the step or
     event loop).  A trip around it counts the instructions on the shortest
     way from its head to that back edge through the loop's control flow:
     the instructions every step (or event) issues whatever its data.  An
     if/else counts its shorter side, and a block that a branch may skip (a
-    goal's reset, a collision's resolution, the ISD pick, the MT19937
-    twist) counts not at all, with one exception: a branch that skips
-    global atomics (RED, ATOM) is taken as not taken.  Those blocks are the
-    step's accumulation, which K5/K8/K9 skip only on a lane's first step,
-    the one with no pending visit.  A call counts as one instruction."""
+    goal's reset, a collision's resolution) counts not at all, with one
+    exception: a branch that skips global atomics (RED, ATOM) is taken as
+    not taken.  Those blocks are the step's accumulation, which K5/K8/K9
+    skip only on a lane's first step, the one with no pending visit.  A
+    call counts as one instruction.
+
+    K12 and K13 (``TWISTING``) rewrite each lane's 624-word MT19937 state
+    in shared memory once every 312 events (``TWIST``), in loops nested in
+    the main loop behind a branch.  Their count adds 624 / 312 times the
+    fewest instructions per word of those loops (a nested loop's body over
+    the shared-memory stores it makes)."""
     kernels, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:   # a function seen before is a second copy of the same code
             name = m.group(1) if m.group(1) not in kernels else None
+            if name and names is not None and not any(
+                    n in name for n in names):
+                name = None
             if name:
                 kernels[name] = []
             continue
@@ -366,6 +394,16 @@ def loop_instructions(text):
                     todo.append(k)
         check(dist[-1] < math.inf, f"no way around the loop of {name}")
         counts[name] = dist[-1]
+        if any(sym in name for sym in TWISTING):
+            per_word = [
+                (end - start + 1) / stores
+                for start, end in ((at[t], at[a]) for t, a in loops
+                                   if t in at and (t, a) != (lo, hi))
+                for stores in [sum(bool(SHARED_STORE.match(op))
+                                   for _, op in body[start:end + 1])]
+                if stores]
+            check(per_word, f"no shared-memory loop to amortise in {name}")
+            counts[name] = dist[-1] + TWIST[0] / TWIST[1] * min(per_word)
     return counts
 
 
@@ -383,6 +421,22 @@ def _successors(body, at, atomic, j):
     if target is not None and target > j and any(atomic[j + 1:target]):
         return (j + 1,)
     return (j + 1,) if target is None else (j + 1, target)
+
+
+def ptxas_registers(log):
+    """{mangled kernel name: registers per thread} from nvcc's ``-Xptxas
+    -v`` report."""
+    regs, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs[name] = int(m.group(1))
+            name = None
+    return regs
 
 
 def bound(units, instructions, nbytes):
@@ -453,13 +507,14 @@ def main() -> int:
         print(path.with_suffix(".log").read_text().strip())
     loops = {}
     for path in built.values():
-        loops.update(sass_loop_instructions(path))
+        loops.update(sass_loop_instructions(path, list(SYMBOL.values())))
     per_step = {}
     for name, sym in SYMBOL.items():
         found = [n for k, n in loops.items() if sym in k]
         check(len(found) == 1, f"{name}: {len(found)} kernels match {sym}")
         per_step[name] = found[0]
-    print(f"[build] SASS instructions per lane-step (K12/K13: lane-event) "
+    print(f"[build] SASS instructions per lane-step (K12/K13: lane-event, "
+          f"with the MT19937 twist amortised over its {TWIST[1]} events) "
           f"on the shortest way around each kernel's main loop "
           f"(cuobjdump -sass): {per_step}")
 
@@ -612,8 +667,11 @@ def main() -> int:
     launches.update(learner_launches)
     ms.update(learner_ms)
 
+    regs = {}
+    for path in built.values():
+        regs.update(ptxas_registers(path.with_suffix(".log").read_text()))
     parity_launches, parity_errs, parity_ms, parity_bytes = parity_phases(
-        torch, dev, card)
+        torch, dev, card, regs)
     launches.update(parity_launches)
     errs.update(parity_errs)
     ms.update(parity_ms)
@@ -920,10 +978,11 @@ def check_trajectory(pk, tables, cfg, out, rec, name):
     return len(rec["steps"])
 
 
-def parity_phases(torch, dev, card):
-    """Phases 14-17: the parity path and kernels K12/K13.  Returns their
-    launches on the parity path, their max abs error against the plain
-    versions, and the ms per call of both kernels and plain versions."""
+def parity_phases(torch, dev, card, regs):
+    """Phases 14-17: the parity path and kernels K12/K13.  ``regs``: the
+    build's registers per thread by kernel.  Returns their launches on the
+    parity path, their max abs error against the plain versions, and the
+    ms per call of both kernels and plain versions."""
     import numpy as np
     from gym_soccer_tpu_torch.config import EnvConfig
     from gym_soccer_tpu_torch.core import tables
@@ -974,35 +1033,60 @@ def parity_phases(torch, dev, card):
     def err(a, b):
         return max_abs_err(list(zip(a, b)))
 
+    lanes = {b: pk.lanes_per_block(len(pk.build_pk(c).occ_codes))
+             for b, c in cfgs.items()}
+    check(all(B % RAGGED_LANES and -(-B // n) >= 128
+              for n in lanes.values()),
+          f"block sizes {lanes}, {RAGGED_LANES}: not >= 128 blocks, or no "
+          "ragged block")
     for b, c in cfgs.items():
         plain = pk.parity_events_plain(c, *inputs[b], E_K12, dev)
-        for threads in (128, 256):
-            e = err(closed[b] if threads == 128 else pk.parity_events(
+        for threads in (None, RAGGED_LANES):
+            e = err(closed[b] if threads is None else pk.parity_events(
                 c, *inputs[b], E_K12, dev, threads=threads), plain)
             errs["parity_events"] = max(errs["parity_events"], e)
             check(e == 0, f"K12 != plain on {b}, threads {threads}: "
                   f"max abs err {e}")
     splain = pk.parity_scripted_events_plain(cfg54, seeds, script, E_K13, dev)
-    for threads in (128, 256):
-        e = err(scripted if threads == 128 else pk.parity_scripted_events(
+    for threads in (None, RAGGED_LANES):
+        e = err(scripted if threads is None else pk.parity_scripted_events(
             cfg54, seeds, script, E_K13, dev, threads=threads), splain)
         errs["parity_scripted_events"] = e
         check(e == 0, f"K13 != plain, threads {threads}: max abs err {e}")
     print(f"[K12/K13] B={B}: K12 (E={E_K12}, 5x4 and 11x7) and K13 "
           f"(E={E_K13}) bit-equal to the plain versions in the journal and "
-          f"all 8 final fields (max abs err {errs}); threads 128/256 equal")
+          f"all 8 final fields (max abs err {errs}) at {lanes} lanes per "
+          f"block (the default) and at {RAGGED_LANES} (a ragged last "
+          f"block of {B % RAGGED_LANES} lanes)")
+    lib = pk._library()
+    for b, c in cfgs.items():
+        P = len(pk.build_pk(c).occ_codes)
+        for n in (32, lanes[b], RAGGED_LANES):
+            check(lib.gst_parity_smem_bytes(n, P) == pk.smem_bytes(n, P),
+                  f"the kernel's shared memory at {n} lanes, {P} classes "
+                  "differs from smem_bytes")
+    try:
+        pk.parity_events(cfg54, *inputs[(5, 4)], 8, dev, threads=128)
+        check(False, "a 128-lane block was not refused")
+    except ValueError as e:
+        print(f"[K12/K13] a block whose shared memory does not fit is "
+              f"refused: {e}")
+    # blocks of 2 lanes hold fewer threads than 5x4's four ISD states
     for b, c in cfgs.items():
         sd, jr = parity_inputs(pk, tables, np, c, 128, 5, 6)
-        check(err(pk.parity_events(c, sd, jr, 640, dev),
-                  pk.parity_events(c, sd, jr, 640, "cpu")) == 0,
-              f"K12 != CPU plain on {b}")
-        check(err(pk.parity_scripted_events(c, sd, script_np[:200, :128],
-                                            640, dev),
-                  pk.parity_scripted_events(c, sd, script_np[:200, :128],
-                                            640, "cpu")) == 0,
-              f"K13 != CPU plain on {b}")
+        sc = script_np[:200, :128]
+        want = (pk.parity_events(c, sd, jr, 640, "cpu"),
+                pk.parity_scripted_events(c, sd, sc, 640, "cpu"))
+        for threads in (None, 2):
+            check(err(pk.parity_events(c, sd, jr, 640, dev, threads=threads),
+                      want[0]) == 0, f"K12 != CPU plain on {b}, threads "
+                  f"{threads}")
+            check(err(pk.parity_scripted_events(c, sd, sc, 640, dev,
+                                                threads=threads),
+                      want[1]) == 0, f"K13 != CPU plain on {b}, threads "
+                  f"{threads}")
     print("[K12/K13] B=128 E=640 on 5x4 and 11x7 equal the CPU plain "
-          "versions")
+          "versions at the default block size and at 2 lanes per block")
 
     # ---- 16. the reference's own runs, through the kernels -------------
     with open(GOLDEN) as f:
@@ -1068,6 +1152,17 @@ def parity_phases(torch, dev, card):
                   f"{ev_s} events/s, {ev_s * f} bit-exact env-steps/s (step "
                   f"fraction {f}; median of {len(leg_ms)} legs x {reps} "
                   f"calls; legs ms/call {leg_ms}{few}) | {card}")
+            if label == name:
+                P = len(pk.build_pk(cfgs[b]).occ_codes)
+                n = pk.lanes_per_block(P)
+                reg = [r for k, r in regs.items() if SYMBOL[name] in k]
+                old = (f"; the previous design {PARITY_OLD_MS[name]} ms on "
+                       "5x4 (NVIDIA H100 80GB HBM3, 700 W)"
+                       if b == (5, 4) else "")
+                print(f"[design] {name} {b[0]}x{b[1]}: {n} lanes per block "
+                      f"({-(-B // n)} blocks), {pk.smem_bytes(n, P)} B of "
+                      f"shared memory per block ({P} classes), {reg} "
+                      f"registers per thread; {med} ms/call{old} | {card}")
 
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)

@@ -276,9 +276,9 @@ def joint_row(actions_a, actions_b):
 
 
 def policy_rows(pt: ParityTables, policy_a=None, policy_b=None,
-                device="cpu") -> torch.Tensor:
-    """Dense-obs -> table-row map (int32 [nS] on ``device``) for
-    closed-loop rollouts.
+                device="cuda") -> torch.Tensor:
+    """Dense-obs -> table-row map (int32 [nS] on ``device``, the card
+    unless the caller asks for the CPU) for closed-loop rollouts.
 
     * single-agent tables (n_rows == 5, one side collapsed): pass the
       live side's deterministic policy [nS];

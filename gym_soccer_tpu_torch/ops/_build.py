@@ -28,7 +28,7 @@ LIBRARIES = {"step_kernel": ("step_kernel.cu", "game.cuh"),
              "learner_kernel": ("learner_kernel.cu", "game.cuh"),
              "iql_kernel": ("iql_kernel.cu", "game.cuh"),
              "altq_kernel": ("altq_kernel.cu", "game.cuh"),
-             "parity_kernel": ("parity_kernel.cu", "game.cuh")}
+             "parity_kernel": ("parity_kernel.cu",)}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -61,11 +61,17 @@ def build(name: str) -> Path:
     out = library_path(name)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    return compile_sources(
+        [CSRC / s for s in LIBRARIES[name] if s.endswith(".cu")], out)
+
+
+def compile_sources(sources, out: Path) -> Path:
+    """Compile the ``.cu`` files ``sources`` into the library ``out`` with
+    `NVCC_FLAGS`, its compiler report beside it as ``<library>.log``."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(CSRC / s) for s in LIBRARIES[name] if s.endswith(".cu"))]
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(s) for s in sources)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:

@@ -1,7 +1,8 @@
 // Device code of the soccer game shared by the port's CUDA kernels
 // (step_kernel.cu: K1, K2, K3, K4; learner_kernel.cu: K5, K6, K7;
-// iql_kernel.cu: K8, K9; altq_kernel.cu: K10, K11; parity_kernel.cu: K12,
-// K13), and the host helpers that describe a game to them.
+// iql_kernel.cu: K8, K9; altq_kernel.cu: K10, K11), and the host helpers
+// that describe a game to them.  The parity kernels K12/K13
+// (parity_kernel.cu) step by table lookup and include none of it.
 //
 // Every function here is integer arithmetic on uint32/int32, written to
 // give the same bits as gym_soccer_tpu/ops/step_kernel.py's

@@ -20,84 +20,88 @@
 //   raw | done << 15 | trunc << 16 | was_reset << 17 | (reward + 1) << 18,
 // and the lane's final state goes to eight int32 [B] planes.
 //
-// Every lane consumes one draw per event, so all generators stay at the
-// same position and twist at the same event (every 312).  Each thread owns
-// its lane's 624-word state in a [624, B] scratch array (a warp's loads
-// coalesce; 20 MB at 8192 lanes stays in the 50 MB L2), seeds it
-// (init_genrand) and twists it with the reference's sequential in-place
-// loop.  The double is formed in float64, exactly as numpy does, and the
-// thresholds are compared in float64: the TPU's integer IEEE-754 assembly
-// and 16-bit limb compares are not needed on a card with f64.
+// The design: every transition is a table lookup.  A lane's state is one
+// packed word (ops/parity_kernel.py's pack_word): raw | outcome << 15 |
+// key << 17, the outcome the done flag and reward of the transition that
+// led there.  The host builds, from core/tables, the threshold class and
+// the packed next word of every (key, row, slot) (build_lookup): goal
+// states take code 0's class and step to themselves, zero-probability
+// combos are masked, so the event loop has no collision chain, no pattern
+// code and no goal test.  Scripted (K13), the key is the state's table row
+// and an event reads class[key, row], searches the class's thresholds, and
+// reads the next word at the chosen slot: two dependent loads from L1/L2.
+// Closed loop (K12), a prep kernel launched first (closed_prep_kernel,
+// the twin of closed_tables) gathers the tables by jr into raw-indexed
+// form, each next word keyed by the class of the state it names, so an
+// event is the search and one load.  The search is two-level: which group
+// of six slots (the groups' last thresholds), then which of the group's
+// first five, 11 float64 compares in place of 36.  Each block keeps its
+// lanes' MT19937 states in shared memory, [624][L] lane-inner (a warp's
+// accesses hit 32 banks), seeded and twisted there in place by each lane's
+// own thread, eight words at a time with their old values read first,
+// beside the class rows (36 float64 thresholds and the fallback slot, an
+// odd stride of doubles so that different classes spread over the banks)
+// and the ISD words, which the host supplies (keyed by their table rows
+// scripted; closed loop, the prep kernel keys them by class beside its
+// next words).  Event k+1's draw, ISD pick and script row are made while
+// event k's next-word load is in flight, and the reset merge is one
+// indexed shared read.  Joint rows (jr, the script) arrive in [0, 25): the
+// wrapper clamps them there, for the kernel and the plain versions alike.
 //
-// Thresholds by class: the cumulative row of a (state, joint row) is fixed
-// by its 9-combo outcome-count pattern (ops/parity_kernel.py's build_pk
-// verifies it), ~70 classes on 5x4 and 11x7.  The kernel computes the
-// base-3 pattern code with the collision chain of core/rules.py (combos of
-// zero probability left out), maps it to its class through a 3**9-entry
-// lookup table, scans the class's 36 thresholds from shared memory, and
-// recomputes the sampled outcome from the chosen combo's flags.  No
-// per-state table is read, which at 11x7 would be 84 MB of thresholds.
-//
-// What bounds it on this card: per event about 25 integer operations of
-// tempering, the 9-combo collision chain twice over (~300 integer
-// operations), 36 float64 compares from shared memory, and 3 dependent
-// loads (the two MT words, the row, the class id) from L1/L2; a twist
-// every 312 events adds 624 loads and stores per lane.  At 8192 lanes
-// there are 64 blocks of 128 threads on 132 SMs, so the dependent loads'
-// latency is exposed: latency-bound, as K1 is; at more lanes the chain's
-// instruction issue bounds it.  What the design does about it: one thread
-// per lane, state in registers, a loop over the events with nothing but
-// the journal word leaving the SM between twists, the journal store of
-// event k at journal[k * B + lane], coalesced.  Shared memory for the MT
-// states (64 lanes x 2,496 B = 160 KB a block) is the later alternative to
-// the L2-resident scratch.
+// What bounds it: latency.  At 8192 lanes there are 128 blocks of 64
+// lanes on 132 SMs, two warps a SM, so each lane's dependent chain per
+// event (the threshold loads and compares, the next-word load from L2) is
+// the kernel's time: K12 0.613 ms per 8192 x 1536 call on 5x4 (0.619 ms
+// on 11x7) and K13 0.658 ms per 8192 x 768, about 8x and 16x the time of
+// their SASS instructions at the issue rate.  The chain's parts are the
+// search's two rounds of shared loads and compares, the next-word load
+// from L2 (K12's 5x4 table is 226 KB, K13's 3.3 MB; L1 keeps little beside
+// 177 KB of shared memory) and, every 312 events, the twist.  The design
+// before this one computed the 9-combo collision chain ten times per event
+// and kept the MT states in a [624, B] device scratch: K12 took 5.30 ms
+// and K13 3.18 ms per call.  All times NVIDIA H100 80GB
+// HBM3 at 700 W (chip_smoke.py).
 
-#include "game.cuh"
-
-using namespace gst;
+#include <cstdint>
+#include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kSlots = 36;        // 9 combos x 4 outcome slots
+constexpr int kStride = 37;       // doubles per class row: 36, fallback
+constexpr int kRows = 25;         // joint rows
+constexpr int kMaxIsd = 4;
+constexpr int kMaxClasses = 512;
+constexpr int kSmemBudget = 232448;
 constexpr int kMtN = 624;
 constexpr int kMtM = 397;
 constexpr int kTwistDoubles = kMtN / 2;
 constexpr uint32_t kMatrixA = 0x9908B0DFu;
 constexpr uint32_t kUpper = 0x80000000u;
 constexpr uint32_t kLower = 0x7FFFFFFFu;
-// Movement variant (0 intended, 1 and 2 the orthogonal slips) of each
-// slip combo for A and for B, 2 bits per combo (config.COMBO_VARIANT_A/B:
-// A 0,0,0,1,2,1,1,2,2 and B 0,1,2,0,0,1,2,1,2).
-constexpr uint32_t kVariantA = (1u << 6) | (2u << 8) | (1u << 10) |
-                               (1u << 12) | (2u << 14) | (2u << 16);
-constexpr uint32_t kVariantB = (1u << 2) | (2u << 4) | (1u << 10) |
-                               (2u << 12) | (1u << 14) | (2u << 16);
 
 struct ParityArgs {
   const int32_t* seeds;       // [B] (uint32 bits)
-  uint32_t* mt;               // [624, B] scratch
   const int32_t* rows;        // closed loop: jr [n_raw]; scripted: [T, B]
   int script_rows;            // T (scripted only)
-  const double* cls_cum;      // [n_classes, 36]
+  const int16_t* cls;         // [n_keys * 25] class of (key, row)
+  const int32_t* words;       // closed: [n_raw, 36] (prepared); scripted:
+  //                             [n_keys * 25, 36] next words
+  const double* cum;          // [n_classes, 37]
   int n_classes;
-  const int16_t* code_class;  // [3**9]
+  const int32_t* isd_word;    // [nI] the ISD states' words
+  double isd_cum[kMaxIsd];
+  int nI;
+  int H, W, max_steps;
   int32_t* journal;           // [n_events, B]
   int32_t* out[8];            // ra, ca, rb, cb, p, t, needs_reset, steps
   int B, n_events;
-  int combo_mask;             // bit c set iff combo c has probability > 0
-  double isd_cum[kMaxIsd];
-  Game g;
 };
 
-struct Lane {
-  int ra, ca, rb, cb, p;
-};
-
-// One slip combo's moves and collision case (core/rules.resolve_outcomes).
-struct Combo {
-  int nxa, nya, nxb, nyb;
-  bool c2, c4, c5, c13;
-};
+__host__ __device__ constexpr int smem_bytes(int lanes, int n_classes) {
+  return n_classes * kStride * (int)sizeof(double) +
+         lanes * kMtN * (int)sizeof(uint32_t) + kMaxIsd * (int)sizeof(int);
+}
 
 __device__ __forceinline__ uint32_t temper(uint32_t y) {
   y ^= y >> 11;
@@ -106,220 +110,241 @@ __device__ __forceinline__ uint32_t temper(uint32_t y) {
   return y ^ (y >> 18);
 }
 
-// The reference's in-place twist of one lane's generator (genrand).
-__device__ __forceinline__ void twist(uint32_t* mt, int lane, int B) {
-  const size_t stride = (size_t)B;
-  uint32_t* w = mt + lane;
+__device__ __forceinline__ uint32_t mix(uint32_t cur, uint32_t nxt,
+                                        uint32_t src) {
+  const uint32_t y = (cur & kUpper) | (nxt & kLower);
+  return src ^ (y >> 1) ^ ((y & 1u) ? kMatrixA : 0u);
+}
+
+// The reference's in-place twist of one lane's generator (genrand), on
+// its column of the block's [624][L] state: words k < 227 read the old
+// word k + 397, the later ones the already-updated word k - 227.
+__device__ __forceinline__ void twist(uint32_t* w, int L) {
+  // eight words at a time, their old successors and their sources read
+  // before any is written (a source k - 227 was written at least eight
+  // words earlier)
+  constexpr int kC = 8;
   uint32_t cur = w[0];
-  for (int k = 0; k < kMtN - 1; ++k) {
-    const uint32_t nxt = w[(size_t)(k + 1) * stride];
-    const uint32_t y = (cur & kUpper) | (nxt & kLower);
-    // k + M < N reads an old word; beyond, the already-updated k + M - N
-    const int src = k < kMtN - kMtM ? k + kMtM : k + kMtM - kMtN;
-    w[(size_t)k * stride] =
-        w[(size_t)src * stride] ^ (y >> 1) ^ ((y & 1u) ? kMatrixA : 0u);
+  int k = 0;
+  for (; k + kC <= kMtN - 1; k += kC) {
+    uint32_t nxt[kC], src[kC];
+#pragma unroll
+    for (int i = 0; i < kC; ++i) {
+      nxt[i] = w[(k + i + 1) * L];
+      const int j = k + i < kMtN - kMtM ? k + i + kMtM : k + i + kMtM - kMtN;
+      src[i] = w[j * L];
+    }
+#pragma unroll
+    for (int i = 0; i < kC; ++i) {
+      w[(k + i) * L] = mix(cur, nxt[i], src[i]);
+      cur = nxt[i];
+    }
+  }
+  for (; k < kMtN - 1; ++k) {  // 616..622, all past 227
+    const uint32_t nxt = w[(k + 1) * L];
+    w[k * L] = mix(cur, nxt, w[(k + kMtM - kMtN) * L]);
     cur = nxt;
   }
-  const uint32_t y = (cur & kUpper) | (w[0] & kLower);
-  w[(size_t)(kMtN - 1) * stride] = w[(size_t)(kMtM - 1) * stride] ^
-                                   (y >> 1) ^ ((y & 1u) ? kMatrixA : 0u);
+  w[(kMtN - 1) * L] = mix(cur, w[0], w[(kMtM - 1) * L]);
 }
 
-__device__ __forceinline__ bool is_goal_state(const Lane& s, const Game& g) {
-  const bool ga = s.p == 0 && in_goal_rows(s.ra, g) &&
-                  (s.ca == 0 || s.ca == g.W - 1);
-  const bool gb = s.p == 1 && in_goal_rows(s.rb, g) &&
-                  (s.cb == 0 || s.cb == g.W - 1);
-  return ga || gb;
+// numpy random_sample from words 2c, 2c + 1: ((w0 >> 5) * 2^26 +
+// (w1 >> 6)) / 2^53, exact.
+__device__ __forceinline__ double draw(const uint32_t* w, int L, int c) {
+  const uint32_t w0 = temper(w[(2 * c) * L]);
+  const uint32_t w1 = temper(w[(2 * c + 1) * L]);
+  return __dmul_rn(__dadd_rn(__dmul_rn((double)(w0 >> 5), 67108864.0),
+                             (double)(w1 >> 6)),
+                   0x1p-53);
 }
 
-__device__ __forceinline__ void variant(int mc0, int mr0, int v, int& mc,
-                                        int& mr) {
-  mc = v == 0 ? mc0 : (v == 1 ? -mr0 : mr0);
-  mr = v == 0 ? mr0 : (v == 1 ? mc0 : -mc0);
+// The ISD entry the reset draw u selects, as its packed word.
+__device__ __forceinline__ uint32_t isd_pick(const ParityArgs& a,
+                                             const uint32_t* s_isd,
+                                             double u) {
+  int ii = 0;
+#pragma unroll
+  for (int e = 0; e < kMaxIsd; ++e) ii += (e < a.nI) & (a.isd_cum[e] <= u);
+  return s_isd[min(ii, a.nI - 1)];
 }
 
-__device__ __forceinline__ Combo eval_combo(int c, const Lane& s, int aa,
-                                            int ab, const Game& g) {
-  int mca, mra, mcb, mrb;
-  variant((aa == 3) - (aa == 4), (aa == 2) - (aa == 1),
-          (kVariantA >> (2 * c)) & 3, mca, mra);
-  variant((ab == 3) - (ab == 4), (ab == 2) - (ab == 1),
-          (kVariantB >> (2 * c)) & 3, mcb, mrb);
-  Combo k;
-  next_cell(s.ra, s.ca, mca, mra, s.p == 0, g, k.nxa, k.nya);
-  next_cell(s.rb, s.cb, mcb, mrb, s.p == 1, g, k.nxb, k.nyb);
-  const int ra = s.ra, ca = s.ca, rb = s.rb, cb = s.cb;
-  const bool c1 =
-      (ra == rb && abs(ca - cb) == 1 && k.nya == cb && k.nyb == ca) ||
-      (ca == cb && abs(ra - rb) == 1 && k.nxa == rb && k.nxb == ra);
-  k.c2 = !c1 && ((k.nxa == rb && k.nya == cb && ab == 0) ||
-                 (k.nxb == ra && k.nyb == ca && aa == 0));
-  const bool c3 =
-      !c1 && !k.c2 &&
-      ((ra == k.nxa && ca == k.nya && aa != 0 && k.nxb == ra &&
-        k.nyb == ca) ||
-       (rb == k.nxb && cb == k.nyb && ab != 0 && k.nxa == rb &&
-        k.nya == cb));
-  k.c4 = !c1 && !k.c2 && !c3 && k.nxa == k.nxb && k.nya == k.nyb;
-  k.c5 = !(c1 || k.c2 || c3 || k.c4);
-  k.c13 = c1 || c3;
-  return k;
+template <bool kScripted>
+__device__ __forceinline__ int script_row(const ParityArgs& a, int steps,
+                                          int lane) {
+  if constexpr (kScripted) {
+    if (steps >= a.script_rows) return 0;
+    return __ldg(a.rows + (size_t)steps * a.B + lane);
+  } else {
+    return 0;
+  }
+}
+
+// The closed loop's raw-indexed words (ops/parity_kernel.py's
+// closed_tables): out[raw, j] is the word of (raw, jr[raw], slot j), and
+// out[n_raw * 36 + e] ISD word e, each with its key (the table row of the
+// state it names) replaced by that state's class under jr.
+__global__ void closed_prep_kernel(const int32_t* jr,
+                                   const int32_t* raw_to_key,
+                                   const int16_t* cls, const int32_t* words,
+                                   int n_raw, const int32_t* isd_word, int nI,
+                                   int32_t* out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = n_raw * kSlots;
+  if (i >= n + nI) return;
+  uint32_t w;
+  if (i < n) {
+    const int raw = i / kSlots;
+    const int row = __ldg(raw_to_key + raw) * kRows + __ldg(jr + raw);
+    w = (uint32_t)__ldg(words + (size_t)row * kSlots + (i - raw * kSlots));
+  } else {
+    w = (uint32_t)__ldg(isd_word + (i - n));
+  }
+  const int c = __ldg(cls + (int)(w >> 17) * kRows + __ldg(jr + (w & 0x7FFF)));
+  out[i] = (int32_t)((w & 0x1FFFFu) | ((uint32_t)c << 17));
+}
+
+// The first of a class's 36 thresholds above u (the count of those at
+// or below it: they are sorted), or its fallback slot when u passes all.
+__device__ __forceinline__ int pick_slot(const double* cum, double u) {
+  // which group of six holds it (the groups' last thresholds), then which
+  // of the group's first five, without a branch
+  int g = 0;
+#pragma unroll
+  for (int m = 0; m < 6; ++m) g += cum[6 * m + 5] <= u;
+  const int h = min(g, 5);
+  const double* c = cum + 6 * h;
+  int i = 6 * h;
+#pragma unroll
+  for (int j = 0; j < 5; ++j) i += c[j] <= u;
+  return g >= 6 ? (int)cum[kSlots] : i;
 }
 
 template <bool kScripted>
 __device__ __forceinline__ void run_lane(const ParityArgs& a,
-                                         const double* cls_cum, int lane) {
-  const Game& g = a.g;
+                                         const double* s_cum, uint32_t* w,
+                                         int L, const uint32_t* s_isd,
+                                         int lane) {
   const size_t B = (size_t)a.B;
-  uint32_t* mt = a.mt;
 
   // seed: init_genrand, numpy's legacy RandomState(seed)
   uint32_t x = (uint32_t)a.seeds[lane];
-  mt[lane] = x;
+  w[0] = x;
   for (int i = 1; i < kMtN; ++i) {
     x = 1812433253u * (x ^ (x >> 30)) + (uint32_t)i;
-    mt[(size_t)i * B + lane] = x;
+    w[i * L] = x;
   }
 
-  Lane s{0, 0, 0, 0, 0};
+  uint32_t word = 0, isd_next = 0;
   int t = 0, nr = 1, steps = 0;
-  for (int k = 0; k < a.n_events; ++k) {
-    const int cursor = k % kTwistDoubles;
-    if (cursor == 0) twist(mt, lane, a.B);
-    // numpy random_sample: ((w0 >> 5) * 2^26 + (w1 >> 6)) / 2^53, exact
-    const uint32_t w0 = temper(mt[(size_t)(2 * cursor) * B + lane]);
-    const uint32_t w1 = temper(mt[(size_t)(2 * cursor + 1) * B + lane]);
-    const double u = __dmul_rn(
-        __dadd_rn(__dmul_rn((double)(w0 >> 5), 67108864.0),
-                  (double)(w1 >> 6)),
-        0x1p-53);
-
-    // ---- transition interpretation of the draw ----
-    int row;
-    if constexpr (kScripted) {
-      row = steps < a.script_rows ? a.rows[(size_t)steps * B + lane] : 0;
-    } else {
-      const int raw = (((s.ra * g.W + s.ca) * g.H + s.rb) * g.W + s.cb) * 2 +
-                      s.p;
-      row = __ldg(a.rows + raw);
-    }
-    const int aa = row / 5, ab = row - (row / 5) * 5;
-
-    int code = 0, pow3 = 1;
-#pragma unroll
-    for (int c = 0; c < 9; ++c) {
-      const Combo kc = eval_combo(c, s, aa, ab, g);
-      if ((a.combo_mask >> c) & 1) code += ((int)kc.c13 + 2 * kc.c4) * pow3;
-      pow3 *= 3;
-    }
-    const bool absorbed = is_goal_state(s, g);
-    if (absorbed) code = 0;
-    const double* cum = cls_cum + kSlots * (int)__ldg(a.code_class + code);
-    int i_sel = 0, n_zero = 0;
-#pragma unroll
-    for (int j = 0; j < kSlots; ++j) {
-      const double cj = cum[j];
-      i_sel += cj <= u;
-      n_zero += cj == 0.0;
-    }
-    if (i_sel >= kSlots) i_sel = min(n_zero, kSlots - 1);
-
-    // the sampled outcome: combo i_sel / 4, slot i_sel % 4, in the
-    // reference's outcome order (core/rules.resolve_outcomes slots 0-3)
-    const Combo k2 = eval_combo(i_sel >> 2, s, aa, ab, g);
-    const int o = i_sel & 3;
-    const bool c45 = k2.c4 || k2.c5;
-    Lane n;
-    if (o == 0) {
-      n.ra = k2.c5 ? k2.nxa : s.ra;
-      n.ca = k2.c5 ? k2.nya : s.ca;
-      n.rb = c45 ? k2.nxb : s.rb;
-      n.cb = c45 ? k2.nyb : s.cb;
-      n.p = k2.c2 ? 1 - s.p : (k2.c5 ? s.p : 0);
-    } else if (o == 1) {
-      n.ra = s.ra;
-      n.ca = s.ca;
-      n.rb = k2.c4 ? k2.nxb : s.rb;
-      n.cb = k2.c4 ? k2.nyb : s.cb;
-      n.p = 1;
-    } else {
-      n.ra = k2.nxa;
-      n.ca = k2.nya;
-      n.rb = s.rb;
-      n.cb = s.cb;
-      n.p = o == 2 ? 0 : 1;
-    }
-    if (absorbed) n = s;  // absorbing self-loop (reference :300-301)
-    const bool done = is_goal_state(n, g);
-    const int ball_col = n.p == 0 ? n.ca : n.cb;
-    const int rwd = (done && !absorbed) ? (ball_col == g.W - 1 ? 1 : -1) : 0;
-    const bool trunc = t + 1 >= g.max_steps;
-
-    // ---- reset interpretation of the same draw (ISD categorical) ----
-    int ii = 0;
-    for (int e = 0; e < g.nI; ++e) ii += a.isd_cum[e] <= u;
-    ii = min(ii, g.nI - 1);
-
-    // ---- merge: reset lanes take the ISD state, the others transition --
-    const bool reset = nr != 0;
-    int done_j = 0, trunc_j = 0, rj = 0;
-    if (reset) {
-#pragma unroll
-      for (int e = 0; e < kMaxIsd; ++e) {
-        if (e == ii) {
-          s.ra = g.isd[e][0]; s.ca = g.isd[e][1];
-          s.rb = g.isd[e][2]; s.cb = g.isd[e][3];
-          s.p = g.isd[e][4];
-        }
-      }
-      t = 0;
-    } else {
-      s = n;
-      t = t + 1;
-      done_j = done;
-      trunc_j = trunc;
-      rj = rwd;
-    }
-    const int raw_new =
-        (((s.ra * g.W + s.ca) * g.H + s.rb) * g.W + s.cb) * 2 + s.p;
-    a.journal[(size_t)k * B + lane] = raw_new | (done_j << 15) |
-                                      (trunc_j << 16) | (nr << 17) |
-                                      ((rj + 1) << 18);
-    steps += 1 - nr;
-    nr = reset ? 0 : (done_j | trunc_j);
+  // event 0's state-independent work
+  double u_next = 0.0;
+  int row_next = 0, cursor = 0;
+  if (a.n_events > 0) {
+    twist(w, L);
+    u_next = draw(w, L, 0);
+    isd_next = isd_pick(a, s_isd, u_next);
+    row_next = script_row<kScripted>(a, 0, lane);
   }
-  a.out[0][lane] = s.ra; a.out[1][lane] = s.ca;
-  a.out[2][lane] = s.rb; a.out[3][lane] = s.cb;
-  a.out[4][lane] = s.p;  a.out[5][lane] = t;
-  a.out[6][lane] = nr;   a.out[7][lane] = steps;
+  for (int k = 0; k < a.n_events; ++k) {
+    const double u = u_next;
+    const uint32_t isd_w = isd_next;
+    const int row = row_next;
+    if (++cursor == kTwistDoubles) {
+      cursor = 0;
+      if (k + 1 < a.n_events) twist(w, L);
+    }
+
+    // ---- the transition: class, thresholds, next word ----
+    const int key = (int)(word >> 17);
+    int cls, base;
+    if constexpr (kScripted) {
+      base = key * kRows + row;
+      cls = __ldg(a.cls + base);
+    } else {
+      base = (int)(word & 0x7FFF);
+      cls = key;
+    }
+    const double* cum = s_cum + cls * kStride;
+    const int i_sel = pick_slot(cum, u);
+    const uint32_t nxt =
+        (uint32_t)__ldg(a.words + (size_t)base * kSlots + i_sel);
+
+    // ---- event k + 1's draw, ISD pick and script row, under the load ----
+    u_next = draw(w, L, cursor);
+    isd_next = isd_pick(a, s_isd, u_next);
+    row_next = script_row<kScripted>(a, steps + 1 - nr, lane);
+
+    // ---- merge: reset lanes take the ISD word, the others transition ----
+    const bool reset = nr != 0;
+    word = reset ? isd_w : nxt;
+    const int o = (int)(word >> 15) & 3;     // 0 for an ISD word
+    const int done = o != 0;
+    const int trunc = !reset && t + 1 >= a.max_steps;
+    const int r1 = (0x91 >> (2 * o)) & 3;    // reward + 1 of outcome o
+    a.journal[(size_t)k * B + lane] = (int)(word & 0x7FFF) | (done << 15) |
+                                      (trunc << 16) | (nr << 17) |
+                                      (r1 << 18);
+    t = reset ? 0 : t + 1;
+    steps += 1 - nr;
+    nr = reset ? 0 : (done | trunc);
+  }
+  int raw = (int)(word & 0x7FFF);
+  a.out[4][lane] = raw & 1;
+  raw >>= 1;
+  a.out[3][lane] = raw % a.W;
+  raw /= a.W;
+  a.out[2][lane] = raw % a.H;
+  raw /= a.H;
+  a.out[1][lane] = raw % a.W;
+  a.out[0][lane] = raw / a.W;
+  a.out[5][lane] = t;
+  a.out[6][lane] = nr;
+  a.out[7][lane] = steps;
 }
 
 template <bool kScripted>
 __global__ void parity_kernel(ParityArgs a) {
-  extern __shared__ double s_cum[];
-  for (int i = threadIdx.x; i < a.n_classes * kSlots; i += blockDim.x)
-    s_cum[i] = a.cls_cum[i];
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* s_cum = reinterpret_cast<double*>(smem);
+  uint32_t* s_mt =
+      reinterpret_cast<uint32_t*>(s_cum + a.n_classes * kStride);
+  uint32_t* s_isd = s_mt + kMtN * blockDim.x;
+  for (int i = threadIdx.x; i < a.n_classes * kStride; i += blockDim.x)
+    s_cum[i] = a.cum[i];
+  for (int i = threadIdx.x; i < a.nI; i += blockDim.x)
+    s_isd[i] = (uint32_t)a.isd_word[i];
   __syncthreads();
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < a.B) run_lane<kScripted>(a, s_cum, lane);
+  if (lane < a.B)
+    run_lane<kScripted>(a, s_cum, s_mt + threadIdx.x, blockDim.x, s_isd,
+                        lane);
 }
 
 template <bool kScripted>
-int launch(int device, ParityArgs a, int threads, cudaStream_t st) {
+int launch(int device, ParityArgs a, const int32_t* raw_to_key, int n_raw,
+           int32_t* prepared, int threads, cudaStream_t st) {
   if (a.B <= 0 || a.n_events < 0 || threads <= 0 || threads > 1024 ||
-      threads % 32 != 0 || a.g.nI < 1 || a.g.nI > kMaxIsd ||
-      a.n_classes < 1 || a.n_classes > 512 || a.script_rows < 0)
+      a.nI < 1 || a.nI > kMaxIsd || a.n_classes < 1 ||
+      a.n_classes > kMaxClasses || a.script_rows < 0 || n_raw <= 0 ||
+      n_raw > 1 << 15)
     return (int)cudaErrorInvalidValue;
+  const int smem = smem_bytes(threads, a.n_classes);
+  if (smem > kSmemBudget) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const int smem = a.n_classes * kSlots * (int)sizeof(double);
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(parity_kernel<kScripted>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+  if constexpr (!kScripted) {
+    const int n = n_raw * kSlots + a.nI;
+    closed_prep_kernel<<<(n + 255) / 256, 256, 0, st>>>(
+        a.rows, raw_to_key, a.cls, a.words, n_raw, a.isd_word, a.nI,
+        prepared);
+    e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
+    a.words = prepared;
+    a.isd_word = prepared + n_raw * kSlots;
   }
+  e = cudaFuncSetAttribute(parity_kernel<kScripted>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
   const int blocks = (a.B + threads - 1) / threads;
   parity_kernel<kScripted><<<blocks, threads, smem, st>>>(a);
   return (int)cudaGetLastError();
@@ -331,37 +356,55 @@ extern "C" {
 
 // K12 (scripted == 0) and K13 (scripted == 1).  device: the CUDA ordinal
 // of every pointer and of the stream.  seeds: device int32 [B] (uint32
-// bits); mt: device scratch [624, B]; rows: device int32, jr [n_raw]
-// closed loop or the script [script_rows, B]; cls_cum: device float64
-// [n_classes, 36]; code_class: device int16 [3**9]; params: host int32
-// game description (make_game); isd_cum: host float64 [nI]; journal:
+// bits); rows: device int32, jr [n_raw] closed loop or the script
+// [script_rows, B]; raw_to_key: device int32 [n_raw]; cls: device int16
+// [n_keys * 25]; words: device int32 [n_keys * 25, 36] next words; cum:
+// device float64 [n_classes, 37]; isd_word: device int32 [nI], the ISD
+// states' words keyed by their table rows; isd_cum: host float64 [nI];
+// prepared: device int32 [n_raw * 36 + nI] scratch for the closed loop's
+// raw-indexed and ISD words (closed_prep_kernel, launched first on the
+// same stream); every joint row in rows must lie in [0, 25); journal:
 // device int32 [n_events, B]; out: host array of 8 device pointers to
-// int32 [B].
+// int32 [B]; threads: lanes per block, whose shared memory
+// (gst_parity_smem_bytes) must fit 232,448 bytes.
 int gst_parity_events(int device, int scripted, const int32_t* seeds,
-                      uint32_t* mt, const int32_t* rows, int script_rows,
-                      const double* cls_cum, int n_classes,
-                      const int16_t* code_class, const int32_t* params,
-                      const double* isd_cum, int combo_mask,
-                      int32_t* journal, void* const* out, int B,
-                      int n_events, int threads, void* stream) {
+                      const int32_t* rows, int script_rows,
+                      const int32_t* raw_to_key, const int16_t* cls,
+                      const int32_t* words, int n_raw, const double* cum,
+                      int n_classes, const int32_t* isd_word,
+                      const double* isd_cum, int nI, int32_t* prepared,
+                      int H, int W, int max_steps, int32_t* journal,
+                      void* const* out, int B, int n_events, int threads,
+                      void* stream) {
   ParityArgs a{};
   a.seeds = seeds;
-  a.mt = mt;
   a.rows = rows;
   a.script_rows = script_rows;
-  a.cls_cum = cls_cum;
+  a.cls = cls;
+  a.words = words;
+  a.cum = cum;
   a.n_classes = n_classes;
-  a.code_class = code_class;
+  a.isd_word = isd_word;
+  a.nI = nI;
+  for (int e = 0; e < nI && e < kMaxIsd; ++e) a.isd_cum[e] = isd_cum[e];
+  a.H = H;
+  a.W = W;
+  a.max_steps = max_steps;
   a.journal = journal;
   for (int i = 0; i < 8; ++i) a.out[i] = static_cast<int32_t*>(out[i]);
   a.B = B;
   a.n_events = n_events;
-  a.combo_mask = combo_mask;
-  a.g = make_game(params);
-  for (int e = 0; e < a.g.nI && e < kMaxIsd; ++e) a.isd_cum[e] = isd_cum[e];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return scripted ? launch<true>(device, a, threads, st)
-                  : launch<false>(device, a, threads, st);
+  return scripted ? launch<true>(device, a, raw_to_key, n_raw, prepared,
+                                 threads, st)
+                  : launch<false>(device, a, raw_to_key, n_raw, prepared,
+                                  threads, st);
+}
+
+// Dynamic shared memory of a block of `lanes` lanes (ops/parity_kernel.py's
+// smem_bytes).
+int gst_parity_smem_bytes(int lanes, int n_classes) {
+  return smem_bytes(lanes, n_classes);
 }
 
 const char* gst_error_string(int code) {

@@ -351,7 +351,9 @@ def _same_events(a, b):
 @pytest.mark.parametrize("board", BOARDS)
 def test_parity_kernels_equal_plain_versions(cuda, board):
     """K12 and K13 equal their plain versions (journal and the 8 final
-    fields) for two block sizes, and count their launches."""
+    fields) for two block sizes, the default (64 lanes) and 80 lanes, which
+    leaves a ragged last block, and count their launches; a block whose
+    shared memory does not fit is refused."""
     import numpy as np
     from gym_soccer_tpu_torch.core import tables
     from gym_soccer_tpu_torch.ops import parity_kernel as pk
@@ -365,14 +367,68 @@ def test_parity_kernels_equal_plain_versions(cuda, board):
     plain = pk.parity_events_plain(cfg, seeds, jr, E, cuda)
     splain = pk.parity_scripted_events_plain(cfg, seeds, rows, 2 * T, cuda)
     pk.reset_launch_counts()
-    for threads in (128, 256):
+    for threads in (None, 80):
         assert _same_events(pk.parity_events(cfg, seeds, jr, E, cuda,
                                              threads=threads), plain)
         assert _same_events(pk.parity_scripted_events(
             cfg, seeds, rows, 2 * T, cuda, threads=threads), splain)
     assert pk.launch_counts == {"parity_events": 2,
                                 "parity_scripted_events": 2}
+    with pytest.raises(ValueError, match="budget"):
+        pk.parity_events(cfg, seeds, jr, E, cuda, threads=128)
     assert bool((splain.steps > T).any()), "no lane ran past the script"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threads", [1, 2, 3])
+def test_parity_kernels_blocks_smaller_than_the_isd(cuda, threads):
+    """Blocks of fewer lanes than the 5x4 board's four ISD states still
+    load every ISD word: K12 and K13 equal their plain versions, across a
+    twist and many resets."""
+    import numpy as np
+    from gym_soccer_tpu_torch.core import tables
+    from gym_soccer_tpu_torch.ops import parity_kernel as pk
+    cfg = EnvConfig(width=5, height=4, slip_prob=0.2)
+    assert len(pk.build_pk(cfg).isd_cum) == 4
+    B, E, T = 256, 700, 200
+    rng = np.random.RandomState(threads)
+    jr = pk.jointrow_raw(cfg, *rng.randint(
+        0, 5, (2, tables.build_statespace(cfg).nS)))
+    rows = rng.randint(0, 25, (T, B)).astype(np.int32)
+    seeds = np.arange(B) * 13 + threads
+    assert _same_events(pk.parity_events(cfg, seeds, jr, E, cuda,
+                                         threads=threads),
+                        pk.parity_events_plain(cfg, seeds, jr, E, cuda))
+    assert _same_events(
+        pk.parity_scripted_events(cfg, seeds, rows, 2 * T, cuda,
+                                  threads=threads),
+        pk.parity_scripted_events_plain(cfg, seeds, rows, 2 * T, cuda))
+
+
+@pytest.mark.cuda
+def test_parity_kernels_clamp_rows_like_the_plain_versions(cuda):
+    """Joint rows outside [0, 25), in jr and in the script, given as tensors
+    on the card: K12 and K13 equal their plain versions on the CPU."""
+    import numpy as np
+    import torch
+    from gym_soccer_tpu_torch.core import tables
+    from gym_soccer_tpu_torch.ops import parity_kernel as pk
+    cfg = EnvConfig(width=5, height=4, slip_prob=0.2)
+    B, E, T = 128, 300, 100
+    rng = np.random.RandomState(11)
+    jr = pk.jointrow_raw(cfg, *rng.randint(
+        0, 5, (2, tables.build_statespace(cfg).nS))).astype(np.int64)
+    rows = rng.randint(0, 25, (T, B)).astype(np.int64)
+    jr[::5], rows[::3, ::2] = 40, -9
+    seeds = np.arange(B) + 5
+    assert _same_events(
+        pk.parity_events(cfg, seeds, torch.as_tensor(jr, device=cuda), E,
+                         cuda),
+        pk.parity_events(cfg, seeds, jr, E, "cpu"))
+    assert _same_events(
+        pk.parity_scripted_events(cfg, seeds, torch.as_tensor(
+            rows, device=cuda), 2 * T, cuda),
+        pk.parity_scripted_events(cfg, seeds, rows, 2 * T, "cpu"))
 
 
 # ----------------------------------------------------------------------

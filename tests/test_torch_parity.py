@@ -135,7 +135,7 @@ def test_parity_step_equals_jax(cfg):
     jpt, pt = jparity.parity_tables(jcfg), parity.parity_tables(cfg)
     jst, st = jparity.parity_init(jcfg, B), parity.parity_init(cfg, B, CPU)
     jrows = jparity.policy_rows(jpt, pol_a, pol_b)
-    prow = parity.policy_rows(pt, pol_a, pol_b)
+    prow = parity.policy_rows(pt, pol_a, pol_b, device=CPU)
     assert np.array_equal(prow.numpy(), np.asarray(jrows))
     jstep = jax.jit(lambda s, r, pr: jparity.parity_step(
         jcfg, jpt, s, r, jnp.asarray(jh), jnp.asarray(jl), pol_rows=pr))
@@ -184,7 +184,7 @@ def test_parity_policy_events_equals_jax(cfg):
         jparity.parity_init(jcfg, B))
     fin, ev = parity.parity_policy_events(
         cfg, pt, parity.parity_init(cfg, B, CPU),
-        parity.policy_rows(pt, pol_a, pol_b), E, h, l)
+        parity.policy_rows(pt, pol_a, pol_b, device=CPU), E, h, l)
     _assert_state_equal(fin, jfin)
     _assert_out_equal(ev, jev)
 
@@ -202,7 +202,7 @@ def test_device_rollouts_equal_host_stream_rollouts():
     got = parity.parity_rollout_device(CFG, pt, seeds, rows_t, CPU)
     _assert_state_equal(got[0], want[0])
     _assert_out_equal(got[1], [x.numpy() for x in want[1]])
-    prow = parity.policy_rows(pt, pol_a, pol_b)
+    prow = parity.policy_rows(pt, pol_a, pol_b, device=CPU)
     want = parity.parity_policy_rollout(CFG, pt, st0, prow, T, h, l)
     got = parity.parity_policy_rollout_device(CFG, pt, seeds, prow, T, CPU)
     _assert_state_equal(got[0], want[0])
@@ -336,10 +336,11 @@ def test_policy_eval_fixture_in_full(name):
     if "policy" in fx:  # VI best response vs frozen random B
         pt = parity.parity_tables(CFG, "player_b",
                                   random_policy_array(761, 5, 0))
-        prow = parity.policy_rows(pt, policy_a=fx["policy"])
+        prow = parity.policy_rows(pt, policy_a=fx["policy"], device=CPU)
     else:
         pt = parity.parity_tables(CFG)
-        prow = parity.policy_rows(pt, fx["policy_a"], fx["policy_b"])
+        prow = parity.policy_rows(pt, fx["policy_a"], fx["policy_b"],
+                                  device=CPU)
     T = fx["total_steps"]
     h, l = parity.gen_streams([fx["reset_seed"]] * 2, 2 * T + 2, CPU)
     _, out = parity.parity_policy_rollout(
@@ -351,16 +352,30 @@ def test_policy_eval_fixture_in_full(name):
 def test_policy_rows_validation():
     pt = parity.parity_tables(CFG)
     pol = np.zeros(761, np.int32)
-    joint = parity.policy_rows(pt, pol, pol + 3)
+    joint = parity.policy_rows(pt, pol, pol + 3, device=CPU)
     assert pt.n_rows == 25 and int(joint.min()) == int(joint.max()) == 3
     pt1 = parity.parity_tables(CFG, "player_b", pol)
     assert pt1.n_rows == 5
-    assert np.array_equal(parity.policy_rows(pt1, policy_a=pol + 2).numpy(),
+    assert np.array_equal(parity.policy_rows(pt1, policy_a=pol + 2,
+                                             device=CPU).numpy(),
                           pol + 2)
     with pytest.raises(ValueError):
-        parity.policy_rows(pt, pol)
+        parity.policy_rows(pt, pol, device=CPU)
     with pytest.raises(ValueError):
-        parity.policy_rows(pt1)
+        parity.policy_rows(pt1, device=CPU)
+
+
+def test_policy_rows_default_to_the_card():
+    """Like every function of the port that makes its own tensors,
+    policy_rows makes them on the card unless the caller asks for the CPU
+    (without a card it raises rather than falling back)."""
+    import inspect
+    default = inspect.signature(parity.policy_rows).parameters["device"]
+    assert default.default == "cuda"
+    if not torch.cuda.is_available():
+        pol = np.zeros(761, np.int32)
+        with pytest.raises((RuntimeError, AssertionError)):
+            parity.policy_rows(parity.parity_tables(CFG), pol, pol)
 
 
 def test_state_handed_between_packages():

@@ -3,6 +3,8 @@ package's: the class tables, the joint-row table, and the wrappers'
 outputs, which on the CPU are the plain versions, against the Pallas
 kernel run in interpret mode.  Tolerance 0: journals and final fields are
 int32 and compared for equality."""
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -12,7 +14,7 @@ from gym_soccer_tpu.config import EnvConfig as JaxEnvConfig
 from gym_soccer_tpu.core import parity as jparity
 from gym_soccer_tpu.ops import parity_kernel as jpk
 from gym_soccer_tpu_torch.config import EnvConfig
-from gym_soccer_tpu_torch.core import parity, tables
+from gym_soccer_tpu_torch.core import parity, rules, tables
 from gym_soccer_tpu_torch.ops import parity_kernel as pk
 
 B = 128
@@ -65,7 +67,6 @@ def test_build_pk_equals_jax(cfg):
     lo = (limbs[:, 2] << np.uint64(16)) | limbs[:, 3]
     isd = ((hi << np.uint64(32)) | lo).view(np.float64)
     assert got.isd_cum.tobytes() == isd.tobytes()
-    assert got.isd_fields.tolist() == [list(f) for f in want.isd_fields]
     if cfg.slip_prob == 0.0:
         assert P == 3  # only combo 0 counts: digits 0, 1, 2
 
@@ -94,11 +95,10 @@ CLOSED = {"5x4-0.2": (EnvConfig(5, 4, 0.2), 640, False),
           "11x7-0.3": (EnvConfig(11, 7, 0.3), 256, False)}
 
 
-@pytest.mark.parametrize("case", sorted(CLOSED))
-def test_parity_events_equal_pallas_interpret(case):
-    """Journal and all 8 final fields, across two MT19937 twists (E > 624),
-    goals, truncations and episode chaining; with stand-vs-stand policies
-    every episode of the max_steps=17 case truncates."""
+@functools.lru_cache(maxsize=None)
+def _pallas_closed(case):
+    """(seeds, jr, the Pallas kernel's output in interpret mode) of a CLOSED
+    case, computed once for the tests that hold the port to it."""
     cfg, E, stand = CLOSED[case]
     pa, pb = _policies(cfg)
     if stand:
@@ -106,6 +106,32 @@ def test_parity_events_equal_pallas_interpret(case):
     seeds = np.arange(B, dtype=np.uint32) * 7 + 3
     jr = pk.jointrow_raw(cfg, pa, pb)
     want = jpk.parity_events(_jcfg(cfg), seeds, jr, E, interpret=True)
+    return seeds, jr, jax.tree.map(np.asarray, want)
+
+
+def _script_case():
+    T = 120
+    rng = np.random.RandomState(5)
+    rows = (rng.randint(0, 5, (T, B)) * 5
+            + rng.randint(0, 5, (T, B))).astype(np.int32)
+    return T, rows, np.arange(B, dtype=np.uint32) * 3 + 1
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_scripted(slip):
+    T, rows, seeds = _script_case()
+    want = jpk.parity_scripted_events(_jcfg(EnvConfig(5, 4, slip)), seeds,
+                                      rows, 2 * T, interpret=True)
+    return jax.tree.map(np.asarray, want)
+
+
+@pytest.mark.parametrize("case", sorted(CLOSED))
+def test_parity_events_equal_pallas_interpret(case):
+    """Journal and all 8 final fields, across two MT19937 twists (E > 624),
+    goals, truncations and episode chaining; with stand-vs-stand policies
+    every episode of the max_steps=17 case truncates."""
+    cfg, E, stand = CLOSED[case]
+    seeds, jr, want = _pallas_closed(case)
     got = pk.parity_events(cfg, seeds, jr, E, "cpu")
     _assert_events_equal(got, want)
     J = pk.unpack_journal(got.journal)
@@ -124,16 +150,101 @@ def test_parity_scripted_events_equal_pallas_interpret(slip):
     """A 120-row script over 240 events: every lane runs past the script's
     end (row 0 there) within the run."""
     cfg = EnvConfig(5, 4, slip)
-    T = 120
-    rng = np.random.RandomState(5)
-    rows = (rng.randint(0, 5, (T, B)) * 5
-            + rng.randint(0, 5, (T, B))).astype(np.int32)
-    seeds = np.arange(B, dtype=np.uint32) * 3 + 1
-    want = jpk.parity_scripted_events(_jcfg(cfg), seeds, rows, 2 * T,
-                                      interpret=True)
+    T, rows, seeds = _script_case()
+    want = _pallas_scripted(slip)
     got = pk.parity_scripted_events(cfg, seeds, rows, 2 * T, "cpu")
     _assert_events_equal(got, want)
     assert bool((got.steps > T).all())
+
+
+# ----------------------------------------------------------------------
+# A numpy mirror of the CUDA kernel's event loop (csrc/parity_kernel.cu)
+# ----------------------------------------------------------------------
+
+def _mirror(cfg, seeds, n_events, jr=None, script=None):
+    """The kernel's per-event arithmetic in numpy on the reference's own
+    streams (JAX's gen_streams): the class lookup (the word's key closed
+    loop, class[key, row] scripted), the two-level search of the class's
+    thresholds with the fallback slot, the next-word lookup, and the merge
+    with the ISD pick.  Returns a ParityEventsOut of numpy arrays."""
+    lt = pk.build_lookup(cfg)
+    if script is None:
+        cls, words, isd = (t.numpy() for t in pk.closed_tables(
+            pk.device_lookup(cfg, torch.device("cpu")), torch.as_tensor(jr)))
+    else:
+        cls, words = lt.cls.ravel(), lt.next_word.reshape(-1, 36)
+        isd = lt.isd_word
+    words = words.astype(np.int64) & pk.M32
+    isd = isd.astype(np.int64) & pk.M32
+    hi, lo = jparity.gen_streams(seeds, n_events)
+    u = ((hi.astype(np.uint64) << np.uint64(32))
+         | lo.astype(np.uint64)).view(np.float64)
+    isd_cum = pk.build_pk(cfg).isd_cum
+    n = len(seeds)
+    lane = np.arange(n)
+    word = np.zeros(n, np.int64)
+    t, nr, steps = (np.zeros(n, np.int64), np.ones(n, np.int64),
+                    np.zeros(n, np.int64))
+    journal = np.empty((n_events, n), np.int32)
+    for k in range(n_events):
+        uk = u[:, k]
+        key = word >> 17
+        if script is None:
+            base, c = word & 0x7FFF, key
+        else:
+            T = script.shape[0]
+            row = np.where(steps < T,
+                           script[np.minimum(steps, T - 1), lane], 0)
+            base = key * 25 + row
+            c = cls[base]
+        cum = lt.cum[c]
+        # the group of six (by the groups' last thresholds), then the slot
+        # among the group's first five; the fallback slot past them all
+        g = (cum[:, 5:36:6] <= uk[:, None]).sum(1)
+        h = np.minimum(g, 5)
+        group = np.take_along_axis(cum, 6 * h[:, None] + np.arange(5), 1)
+        i = 6 * h + (group <= uk[:, None]).sum(1)
+        i = np.where(g >= 6, cum[:, 36].astype(np.int64), i)
+        ii = np.minimum((isd_cum[None, :] <= uk[:, None]).sum(1),
+                        len(isd_cum) - 1)
+        reset = nr != 0
+        word = np.where(reset, isd[ii], words[base, i])
+        f = pk.unpack_word(word)
+        trunc = (~reset & (t + 1 >= cfg.max_steps)) * 1
+        journal[k] = (f["raw"] | f["done"] << 15 | trunc << 16 | nr << 17
+                      | (f["reward"] + 1) << 18)
+        t = np.where(reset, 0, t + 1)
+        steps = steps + 1 - nr
+        nr = np.where(reset, 0, f["done"] | trunc)
+    fields = rules.raw_decode(np, word & 0x7FFF, cfg)
+    return pk.ParityEventsOut(journal, *(np.asarray(x, np.int32) for x in
+                                         (*fields, t, nr, steps)))
+
+
+def _assert_np_events_equal(got, want):
+    for name, g, w in zip(got._fields, got, want):
+        assert np.array_equal(np.asarray(g), np.asarray(w)), name
+
+
+@pytest.mark.parametrize("case", sorted(CLOSED))
+def test_kernel_mirror_equals_pallas_interpret(case):
+    """The mirror of the kernel's lookup loop, closed loop, reproduces the
+    Pallas kernel's journal and final fields (max_steps=17, slip 0.0, 11x7
+    and two MT19937 twists included)."""
+    cfg, E, _ = CLOSED[case]
+    seeds, jr, want = _pallas_closed(case)
+    _assert_np_events_equal(_mirror(cfg, seeds, E, jr=jr), want)
+
+
+@pytest.mark.parametrize("slip", [0.2, 0.0])
+def test_kernel_mirror_scripted_equals_pallas_interpret(slip):
+    """The mirror's scripted loop (class[key, row], the script row of the
+    lane's transition count, row 0 past the end) reproduces the Pallas
+    kernel."""
+    T, rows, seeds = _script_case()
+    _assert_np_events_equal(
+        _mirror(EnvConfig(5, 4, slip), seeds, 2 * T, script=rows),
+        _pallas_scripted(slip))
 
 
 def test_scripted_events_equal_step_time_rollout():
@@ -198,6 +309,27 @@ def test_wrappers_check_their_arguments():
         pk._launch("parity_events", cfg, pk.build_pk(cfg),
                    torch.zeros(B, dtype=torch.int64, device="meta"),
                    torch.as_tensor(jr), 4, 128)
+
+
+@pytest.mark.parametrize("scripted", [False, True], ids=["jr", "script"])
+@pytest.mark.parametrize("bad", [-7, 25, 2**31 + 3])
+def test_wrappers_clamp_rows_outside_the_table(scripted, bad):
+    """A joint row outside [0, 25) in jr or the script is clamped into it
+    where the arrays arrive, for the wrapper and its plain version alike:
+    the run equals the run on the clamped rows."""
+    cfg = EnvConfig(5, 4, 0.2)
+    seeds = np.arange(B)
+    if scripted:
+        rows = np.asarray(_script_case()[1][:40], np.int64)
+        calls = (pk.parity_scripted_events, pk.parity_scripted_events_plain)
+    else:
+        rows = pk.jointrow_raw(cfg, *_policies(cfg)).astype(np.int64)
+        calls = (pk.parity_events, pk.parity_events_plain)
+    rows.ravel()[::7] = bad
+    clamped = np.clip(rows, 0, 24).astype(np.int32)
+    for call in calls:
+        got = call(cfg, seeds, rows, 80, "cpu")
+        _assert_events_equal(got, call(cfg, seeds, clamped, 80, "cpu"))
 
 
 def test_zero_events():
