@@ -29,17 +29,25 @@ failure:
    per library, in parallel; for each kernel's bound, cuobjdump's SASS
    gives the fewest instructions one step (or event) of its main loop
    issues (``loop_instructions``; K12/K13's MT19937 twist amortised over
-   the 312 events between twists);
+   the 312 events between twists; K1/K2's producer code loop plus their
+   consumer tile loop over its 8 steps);
 3. main path: the user entry points at 8192 lanes, with the kernels'
    launch counters reset before and read after; outputs are checked by
    the repo's own means (valid states, journal decodes, stats agree);
-4. K1: bit-equal to its plain version, for two block sizes, and a run
-   split by ``step_offset`` equals one run;
-5. K2: journal bit-equal to its plain version; fields and stats equal K1's;
+4. K1: bit-equal to its plain version at 64 lanes per block (the
+   default), 96 (a ragged last block) and 32; a run split by
+   ``step_offset`` equals one run; lanes the step table cannot start from
+   (walked by arithmetic) equal the plain version;
+5. K2: journal bit-equal to its plain version at 64 and 96 lanes per
+   block; fields and stats equal K1's;
 6. small inputs: both kernels equal the plain versions run on the CPU;
 7. batched engine: 8192 lanes x 100 steps on the card equal the CPU run;
 8. timing: env-steps/s of K1, K2 and their plain versions (CUDA events,
-   median of 5 legs of at least 50 ms each, after warmup);
+   median of 5 legs of at least 50 ms each, after warmup), K1/K2 on 11x7
+   too; each board's K1/K2 design line (walk, block shape, shared memory,
+   registers, SASS per lane-step, bound, and the ms beside the previous
+   design's ``ROLLOUT_OLD_MS``); a ``torch.profiler`` window of K1 for
+   device time and idle share;
 9. training path: ``fused_minimax_train`` on 5x4 at 8192 lanes for a few
    chunks, K5's launch counter reset before and read after; Q finite,
    |v| <= 1.05, policy rows summing to 1;
@@ -171,6 +179,7 @@ device is present.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -197,6 +206,16 @@ RAGGED_LANES = 80
 # previous design (the collision chain per event, MT19937 states in a
 # device-memory scratch), NVIDIA H100 80GB HBM3 at 700 W.
 PARITY_OLD_MS = {"parity_events": 5.30, "parity_scripted_events": 3.18}
+# K1/K2's second block size: 96 lanes fit the 5x4 step table's shared
+# memory and leave a ragged last block at 8192 lanes (85 of 96, one of 32).
+ROLLOUT_RAGGED_LANES = 96
+# ms per 8192 x 1024 call of K1/K2 in their previous design (one thread a
+# lane hashing and stepping, 64 blocks of 128), NVIDIA H100 80GB HBM3 at
+# 700 W, as PERF.md section 6 records them.
+ROLLOUT_OLD_MS = {("fused_rollout", (5, 4)): 0.637,
+                  ("fused_journal_rollout", (5, 4)): 0.7148,
+                  ("fused_rollout", (11, 7)): 0.6014,
+                  ("fused_journal_rollout", (11, 7)): 0.6805}
 # The mixed-geometry cells: tools/bench_all.py:421's mixture, and the
 # JAX package's 5x4 + 11x7 stress mixture (examples/train_minimax_tpu.py:
 # 141-143).
@@ -256,8 +275,9 @@ REPLACES = {"fused_rollout": "gym_soccer_tpu/ops/step_kernel.py:254",
             "altq_chunk": "gym_soccer_tpu/ops/altq_kernel.py:70"}
 # Each kernel's device function in the built libraries (a substring of its
 # mangled name).
-SYMBOL = {"fused_rollout": "14rollout_kernel", "fused_journal_rollout":
-          "14journal_kernel", "multigrid_rollout": "17mg_rollout_kernel",
+SYMBOL = {"fused_rollout": "14rollout_kernelILb0ELb1E",
+          "fused_journal_rollout": "14rollout_kernelILb1ELb1E",
+          "multigrid_rollout": "17mg_rollout_kernel",
           "packed_learner_chunk": "learner_kernelILb1ELb0E",
           "multigrid_packed_learner_chunk": "learner_kernelILb1ELb1E",
           "learner_chunk": "learner_kernelILb0ELb0E",
@@ -268,6 +288,10 @@ SYMBOL = {"fused_rollout": "14rollout_kernel", "fused_journal_rollout":
           "alt_rollout": "18alt_rollout_kernel",
           "altq_packed_chunk": "11altq_kernelILb1E",
           "altq_chunk": "11altq_kernelILb0E"}
+# K1/K2 on a board whose step table does not fit (11x7): the arithmetic
+# walk.  SYMBOL's are the table walk's (5x4, the kernels line's board).
+ARITH_SYMBOL = {"fused_rollout": "14rollout_kernelILb0ELb0E",
+                "fused_journal_rollout": "14rollout_kernelILb1ELb0E"}
 # H100 SXM peaks (NVIDIA's data sheet): 3.35 TB/s of HBM, and 67 TFLOP/s of
 # float32 outside the tensor cores, i.e. 3.35e13 FMA instructions a second
 # (132 SMs x 4 schedulers x 32 lanes x 1.98 GHz), the rate at which the
@@ -336,6 +360,14 @@ SHARED_STORE = re.compile(r"^(@!?U?P\d\s+)?STS(\.\S+)?\s")
 # K12/K13 twist each lane's 624-word MT19937 state once every 312 events.
 TWIST = (624, 312)
 TWISTING = (SYMBOL["parity_events"], SYMBOL["parity_scripted_events"])
+BARRIER_WAIT = re.compile(r"^(@!?U?P\d\s+)?BAR\.SYNC")
+# K1/K2 split a lane-step between two threads: a producer makes its step
+# code, one a trip of the innermost loop that stores codes to shared
+# memory, and the lane's consumer walks TILE_STEPS steps a trip of an
+# innermost loop that waits on a barrier for the tile (the table walk and
+# the arithmetic walk; csrc/step_kernel.cu kTileSteps).
+SPLIT = ("14rollout_kernelI",)
+TILE_STEPS = 8
 
 
 def loop_instructions(text, names=None):
@@ -357,7 +389,14 @@ def loop_instructions(text, names=None):
     in shared memory once every 312 events (``TWIST``), in loops nested in
     the main loop behind a branch.  Their count adds 624 / 312 times the
     fewest instructions per word of those loops (a nested loop's body over
-    the shared-memory stores it makes)."""
+    the shared-memory stores it makes).
+
+    K1 and K2 (``SPLIT``) serve each lane-step from two loops, neither
+    nested in another: the count is the shortest way around the producers'
+    (the innermost loop holding a shared-memory store: one step code a
+    trip) plus the shortest way around the consumers' over TILE_STEPS (the
+    innermost loops holding a barrier wait, the fewest of them: a tile a
+    trip)."""
     kernels, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -378,22 +417,13 @@ def loop_instructions(text, names=None):
                  for b in [BRANCH.match(op)]
                  if b and int(b.group(2), 16) < addr]
         check(loops, f"no loop found in the SASS of {name}")
+        if any(sym in name for sym in SPLIT):
+            counts[name] = _split_count(name, ins, loops)
+            continue
         lo, hi = max(loops, key=lambda span: span[1] - span[0])
         body = [(addr, op) for addr, op in ins if lo <= addr <= hi]
         at = {addr: i for i, (addr, _) in enumerate(body)}
-        atomic = [bool(re.match(r"(@!?U?P\d\s+)?(RED|ATOM)G?\.", op))
-                  for _, op in body]
-        # fewest instructions from the head to each one, inclusive (a
-        # breadth-first search: every instruction weighs one)
-        dist = [math.inf] * len(body)
-        dist[0], todo = 1, [0]
-        for j in todo:
-            for k in _successors(body, at, atomic, j):
-                if dist[k] == math.inf:
-                    dist[k] = dist[j] + 1
-                    todo.append(k)
-        check(dist[-1] < math.inf, f"no way around the loop of {name}")
-        counts[name] = dist[-1]
+        counts[name] = _trip(name, body)
         if any(sym in name for sym in TWISTING):
             per_word = [
                 (end - start + 1) / stores
@@ -403,8 +433,43 @@ def loop_instructions(text, names=None):
                                    for _, op in body[start:end + 1])]
                 if stores]
             check(per_word, f"no shared-memory loop to amortise in {name}")
-            counts[name] = dist[-1] + TWIST[0] / TWIST[1] * min(per_word)
+            counts[name] += TWIST[0] / TWIST[1] * min(per_word)
     return counts
+
+
+def _trip(name, body):
+    """The fewest instructions from the head of the loop ``body`` (its
+    (address, op) pairs) to its back edge, inclusive: a breadth-first
+    search in which every instruction weighs one."""
+    at = {addr: i for i, (addr, _) in enumerate(body)}
+    atomic = [bool(re.match(r"(@!?U?P\d\s+)?(RED|ATOM)G?\.", op))
+              for _, op in body]
+    dist = [math.inf] * len(body)
+    dist[0], todo = 1, [0]
+    for j in todo:
+        for k in _successors(body, at, atomic, j):
+            if dist[k] == math.inf:
+                dist[k] = dist[j] + 1
+                todo.append(k)
+    check(dist[-1] < math.inf, f"no way around the loop of {name}")
+    return dist[-1]
+
+
+def _split_count(name, ins, loops):
+    """K1/K2's instructions per lane-step (``loop_instructions``)."""
+    innermost = [(t, a) for t, a in loops
+                 if not any((t2, a2) != (t, a) and t <= t2 and a2 <= a
+                            for t2, a2 in loops)]
+    trips = {"producer": [], "consumer": []}
+    for t, a in innermost:
+        body = [(addr, op) for addr, op in ins if t <= addr <= a]
+        if any(SHARED_STORE.match(op) for _, op in body):
+            trips["producer"].append(_trip(name, body))
+        elif any(BARRIER_WAIT.match(op) for _, op in body):
+            trips["consumer"].append(_trip(name, body))
+    for role, found in trips.items():
+        check(found, f"no {role} loop found in the SASS of {name}")
+    return min(trips["producer"]) + min(trips["consumer"]) / TILE_STEPS
 
 
 def _successors(body, at, atomic, j):
@@ -488,6 +553,7 @@ def main() -> int:
     from gym_soccer_tpu_torch.core import batch, tables
     from gym_soccer_tpu_torch.ops import _build
     from gym_soccer_tpu_torch.ops import learner_kernel as lk
+    from gym_soccer_tpu_torch.ops import rollout_codes as rc
     from gym_soccer_tpu_torch.ops import step_kernel as sk
 
     t_start = time.perf_counter()
@@ -505,18 +571,26 @@ def main() -> int:
           f"{time.perf_counter() - t0:.3f} s")
     for path in built.values():
         print(path.with_suffix(".log").read_text().strip())
+    shape = (ctypes.c_int32 * 3)()
+    sk._library().gst_rollout_shape(ctypes.addressof(shape))
+    check(shape[0] == TILE_STEPS, f"K1/K2 tiles of {shape[0]} steps, the "
+          f"bound counts {TILE_STEPS}")
     loops = {}
     for path in built.values():
-        loops.update(sass_loop_instructions(path, list(SYMBOL.values())))
+        loops.update(sass_loop_instructions(
+            path, [*SYMBOL.values(), *ARITH_SYMBOL.values()]))
     per_step = {}
-    for name, sym in SYMBOL.items():
+    for name, sym in [*SYMBOL.items(),
+                      *((n + " arith", s) for n, s in ARITH_SYMBOL.items())]:
         found = [n for k, n in loops.items() if sym in k]
         check(len(found) == 1, f"{name}: {len(found)} kernels match {sym}")
         per_step[name] = found[0]
     print(f"[build] SASS instructions per lane-step (K12/K13: lane-event, "
-          f"with the MT19937 twist amortised over its {TWIST[1]} events) "
-          f"on the shortest way around each kernel's main loop "
-          f"(cuobjdump -sass): {per_step}")
+          f"with the MT19937 twist amortised over its {TWIST[1]} events; "
+          f"K1/K2: a producer's code loop plus a consumer's tile loop over "
+          f"its {TILE_STEPS} steps, 'arith' the walk of boards whose step "
+          f"table does not fit) on the shortest way around each kernel's "
+          f"main loop (cuobjdump -sass): {per_step}")
 
     cfgs = {b: EnvConfig(width=b[0], height=b[1], slip_prob=SLIP)
             for b in BOARDS}
@@ -570,11 +644,10 @@ def main() -> int:
         e = max_abs_err([*zip(k1[0], pf), (ints(k1[1]), ints(ps))])
         errs["fused_rollout"] = max(errs["fused_rollout"], e)
         check(e == 0, f"K1 != plain on {board}: max abs err {e}")
-        f256, s256 = sk.fused_rollout(cfg, seed, B, T_K1, dev, threads=256)
-        f96, s96 = sk.fused_rollout(cfg, seed, B, T_K1, dev, threads=96)
-        check(max_abs_err([*zip(f256, pf), *zip(f96, pf),
-                           (ints(s256), ints(ps)), (ints(s96), ints(ps))]) == 0,
-              f"K1 depends on the block size on {board}")
+        for lanes in (ROLLOUT_RAGGED_LANES, 32):
+            fl, sl = sk.fused_rollout(cfg, seed, B, T_K1, dev, threads=lanes)
+            check(max_abs_err([*zip(fl, pf), (ints(sl), ints(ps))]) == 0,
+                  f"K1 at {lanes} lanes per block != plain on {board}")
         h = T_K1 // 2
         fa, sa = sk.fused_rollout(cfg, seed, B, h, dev)
         fb, sb = sk.fused_rollout(cfg, seed, B, T_K1 - h, dev,
@@ -582,9 +655,19 @@ def main() -> int:
         split = [x + y for x, y in zip(ints(sa), ints(sb))]
         check(max_abs_err([*zip(fb, pf), (split, ints(ps))]) == 0,
               f"K1 split at step {h} != one run on {board}")
+        # lanes the table walk cannot start from (a player without the ball
+        # in a goal column, every 7th lane): their warps walk by arithmetic
+        bad = [f.clone() for f in pf]
+        bad[0][::7], bad[1][::7], bad[4][::7] = cfg.goal_row_bounds[0], 0, 1
+        kf, ks = sk.fused_rollout(cfg, seed, B, 64, dev, init_fields=bad)
+        qf, qs = sk.fused_rollout_plain(cfg, seed, B, 64, dev,
+                                        init_fields=bad)
+        check(max_abs_err([*zip(kf, qf), (ints(ks), ints(qs))]) == 0,
+              f"K1 from unwalkable lanes != plain on {board}")
         print(f"[K1] {board[0]}x{board[1]} B={B} T={T_K1}: bit-equal to plain "
-              f"(max abs err {e}); threads 128/256/96 equal; "
-              f"{h}+{T_K1 - h} split equals one run")
+              f"(max abs err {e}) at 64 (default), {ROLLOUT_RAGGED_LANES} "
+              f"(ragged) and 32 lanes per block; {h}+{T_K1 - h} split equals "
+              f"one run; from unwalkable lanes equal to plain")
 
     # ---- 5. K2 ---------------------------------------------------------
     for board, (seed, _, k2, _) in main_out.items():
@@ -597,13 +680,13 @@ def main() -> int:
         kf, ks = sk.fused_rollout(cfg, seed, B, T_K2, dev)
         check(max_abs_err([*zip(k2[0], kf), (ints(k2[1]), ints(ks))]) == 0,
               f"K2 fields/stats != K1's on {board}")
-        jf, js, jj = sk.fused_journal_rollout(cfg, seed, B, T_K2, dev,
-                                              threads=256)
-        check(max_abs_err([(jj, pj), *zip(jf, pf)]) == 0,
-              f"K2 depends on the block size on {board}")
+        jf, js, jj = sk.fused_journal_rollout(
+            cfg, seed, B, T_K2, dev, threads=ROLLOUT_RAGGED_LANES)
+        check(max_abs_err([(jj, pj), *zip(jf, pf), (ints(js), ints(ps))])
+              == 0, f"K2 depends on the block size on {board}")
         print(f"[K2] {board[0]}x{board[1]} B={B} T={T_K2}: journal bit-equal "
               f"to plain (max abs err {e}); fields and stats equal K1's; "
-              "threads 128/256 equal")
+              f"64 and {ROLLOUT_RAGGED_LANES} lanes per block equal")
 
     # ---- 6. small inputs against the CPU plain versions ----------------
     for board, cfg in cfgs.items():
@@ -656,9 +739,37 @@ def main() -> int:
         big = cfgs[(11, 7)]
         fn = getattr(sk, name)
         med, reps, legs = time_cuda(lambda: fn(big, 1, B, T, dev))
+        ms[name + " 11x7"] = med
         print(f"[time] {name} 11x7 B={B} T={T}: {med} ms/call, "
               f"{B * T / (med / 1e3)} env-steps/s (median of {len(legs)} "
               f"legs x {reps} calls) | {card}")
+    log = built["step_kernel"].with_suffix(".log").read_text()
+    regs = ptxas_registers(log)
+    for board, c in cfgs.items():
+        table = rc.uses_table(c)
+        n_codes = rc.build_step_table(c).n_codes if table else 0
+        smem = rc.smem_bytes(rc.DEFAULT_LANES, n_codes)
+        check(sk._library().gst_rollout_smem_bytes(rc.DEFAULT_LANES, n_codes)
+              == smem, "K1/K2's shared memory differs from smem_bytes")
+        for name in ("fused_rollout", "fused_journal_rollout"):
+            sym = (SYMBOL if table else ARITH_SYMBOL)[name]
+            reg = [r for k, r in regs.items() if sym in k]
+            key = name if table else name + " arith"
+            now = ms[name] if board == (5, 4) else ms[name + " 11x7"]
+            old = ROLLOUT_OLD_MS[(name, board)]
+            print(f"[design] {name} {board[0]}x{board[1]} "
+                  f"({'table' if table else 'arithmetic'} walk): "
+                  f"{rc.DEFAULT_LANES} lanes and {shape[2]} producer warps "
+                  f"a block ({-(-B // rc.DEFAULT_LANES)} blocks of "
+                  f"{rc.DEFAULT_LANES + 32 * shape[2]} threads), {smem} B of "
+                  f"shared memory per block (ring of {shape[1]} tiles of "
+                  f"{shape[0]} steps), {reg} registers per thread; "
+                  f"{per_step[key]} SASS per lane-step, bound "
+                  f"{bound(B * T, per_step[key], 0)[0]} ms; {now} ms/call "
+                  f"against the previous design's {old} ms ({old / now}x) "
+                  f"| {card}")
+    profile_window(torch, lambda: sk.fused_rollout(cfg, 1, B, T, dev),
+                   f"fused_rollout 5x4 B={B} T={T}", "rollout_kernel<", card)
     print(f"[clocks] sm MHz, power W, temp C after timing: "
           f"{smi('clocks.sm,power.draw,temperature.gpu')}")
 
@@ -701,9 +812,12 @@ def main() -> int:
     # lane-events) and the bytes of its inputs and outputs, each once.
     fields_bytes = 2 * 6 * 4 * B + 3 * 8   # state planes in and out, stats
     n54 = lk.n_codes(cfgs[(5, 4)])
+    st54 = rc.build_step_table(cfgs[(5, 4)])
+    table_bytes = st54.table.nbytes + rc.raw_bytes(st54.n_codes)
     work = {
-        "fused_rollout": (B * T_K2, fields_bytes),
-        "fused_journal_rollout": (B * T_K2, fields_bytes + 4 * B * T_K2),
+        "fused_rollout": (B * T_K2, fields_bytes + table_bytes),
+        "fused_journal_rollout": (B * T_K2, fields_bytes + table_bytes
+                                  + 4 * B * T_K2),
         "packed_learner_chunk": (B * T_K5, fields_bytes
                                  + n54 * (11 * 4 + 25 * (8 + 4))),
         "iql_packed_chunk": (B * T_K8, fields_bytes

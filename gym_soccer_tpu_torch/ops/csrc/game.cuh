@@ -303,7 +303,9 @@ inline AltPlanes make_alt_planes(void* const* ptrs) {
   return p;
 }
 
-// Shared launch checks and the device the tensors live on.
+// Shared launch checks of the kernels whose block is `threads` threads,
+// one a lane (K3-K11; K1/K2 check their lanes per block in
+// step_kernel.cu), and the device the tensors live on.
 inline cudaError_t check_launch(int device, int B, int threads) {
   if (B <= 0 || threads <= 0 || threads > 1024 || threads % 32 != 0)
     return cudaErrorInvalidValue;

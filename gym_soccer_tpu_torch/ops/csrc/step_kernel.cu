@@ -1,53 +1,75 @@
 // Fused random-vs-random rollout kernels for Hopper (sm_90a).
 //
 // Replaces four Pallas TPU kernels of gym_soccer_tpu/ops/step_kernel.py:
-//   rollout_kernel     <- `_rollout_kernel` (K1, wrapper `pallas_rollout`)
-//   journal_kernel     <- `_journal_kernel` (K2, wrapper
-//                         `pallas_journal_rollout`)
-//   mg_rollout_kernel  <- `_mg_rollout_kernel` (K3, wrapper
-//                         `pallas_multigrid_rollout`)
-//   alt_rollout_kernel <- `_alt_rollout_kernel` (K4, wrapper
-//                         `pallas_alt_rollout`)
+//   rollout_kernel<false, *> <- `_rollout_kernel` (K1, wrapper
+//                               `pallas_rollout`)
+//   rollout_kernel<true, *>  <- `_journal_kernel` (K2, wrapper
+//                               `pallas_journal_rollout`)
+//   mg_rollout_kernel        <- `_mg_rollout_kernel` (K3, wrapper
+//                               `pallas_multigrid_rollout`)
+//   alt_rollout_kernel       <- `_alt_rollout_kernel` (K4, wrapper
+//                               `pallas_alt_rollout`)
 //
 // All compute, for every lane (one independent game) and every step:
 // three murmur3 counter words keyed on (seed, absolute step, word index,
 // global lane id), the random joint action, the slipped moves, the
 // 4-priority collision chain, goal detection, truncation and the reset to
 // an initial-state (ISD) entry, and the per-lane reward/goal/truncation
-// sums.  journal_kernel also stores one packed int32 word per lane-step
-// (bit layout in step_kernel.py's `_journal_word`).  mg_rollout_kernel
-// steps a mixture of boards: each lane reads its own geometry (H, W, goal
-// rows, slip) and variant id from planes, resets to its board's ISD
-// computed arithmetically, and adds its sums into its variant's row of
-// int64 [nV, 3] stats.  Every operation is
-// integer arithmetic on uint32/int32, so the outputs are bit-identical to
-// the JAX package and to the plain PyTorch versions in step_kernel.py.
+// sums.  K2 also stores one packed int32 word per lane-step (bit layout in
+// step_kernel.py's `_journal_word`).  mg_rollout_kernel steps a mixture of
+// boards: each lane reads its own geometry (H, W, goal rows, slip) and
+// variant id from planes, resets to its board's ISD computed
+// arithmetically, and adds its sums into its variant's row of int64 [nV, 3]
+// stats.  Every operation is integer arithmetic on uint32/int32, so the
+// outputs are bit-identical to the JAX package and to the plain PyTorch
+// versions in step_kernel.py.
 //
-// What bounds them on this card: integer ALU work, roughly 3 x murmur3
-// (two 32-bit multiplies and six shift/xor each, twice per word) plus the
-// collision chain, on the order of 200 integer instructions per
-// lane-step, with no loads inside the step loop.  journal_kernel also
-// writes 4 B per lane-step to device memory, which is two orders of
-// magnitude below the card's bandwidth at any rate the ALUs reach.
+// K1/K2.  What bounds them on this card: latency, not bandwidth.  8192
+// lanes are 256 warps for 528 schedulers, and each lane's 1024 steps are
+// one dependent chain.  In the previous design (one thread a lane hashing
+// and stepping, 64 blocks of 128) a step took ~1,230 cycles of one warp's
+// chain: 0.62 ms on 5x4, 0.57 ms on 11x7.  Most of a step does not depend
+// on the state: the three words, the actions, the slips, the coin bits and
+// the ISD pick follow from (seed, step, lane) alone.
 //
-// What the design does about it: one thread per lane with the whole state
-// in registers and a loop over the steps, so nothing but the journal
-// leaves the SM inside the loop; the journal store of step t goes to
-// journal[t * B + lane], coalesced across the warp.  The per-lane sums are
-// reduced with warp shuffles and one 64-bit atomicAdd per block (integer
-// sums are exact in any order).  The counter keys on the global lane id,
-// so any block size gives the same bits.  At 8192 lanes this launches only
-// 64 blocks of 128 threads on 132 SMs; latency hiding and several lanes
-// per thread are left to later work.  K3 keeps the lane's board in five
-// more registers (game.cuh `LaneGame`, no ISD table) and sums its stats per
-// variant in shared memory, then one atomicAdd per variant and counter per
-// block, so nothing is added per step.
+// What the design does about it: it splits a lane-step in two.  Producer
+// warps (kProducerWarps a block) hash each (lane, step) into a 16-bit step
+// code (rollout_codes.py: the table input (effective move a, effective
+// move b, coin bits), the ISD index, the joint action) and hand tiles of
+// kTileSteps steps over through a ring of kStages tiles in shared memory,
+// on named barriers (kFull, kEmpty).  A producer thread keeps one step
+// slot, so its words' keys are made once a tile; the ISD pick is a mask or
+// a multiply-high, never a division.  One consumer thread per lane walks
+// its state through the codes, tile k + 1 loaded into registers before
+// tile k's steps.  On a board whose step table fits one block's shared
+// memory (5x4: 1104 compact codes x 100 inputs, 220,800 B, copied in by
+// TMA bulk copies while the producers start) a step is one shared load of
+// the next code (doubled into a byte offset, so the address is one add)
+// with its goal and reward bits, and a select against the reset code; the
+// arithmetic walk (boards whose table does not fit, 11x7, and any warp
+// holding a lane the table cannot start from) runs the collision chain
+// under the decoded moves, without branches, reset fields loaded ahead.
+// K2's journal word takes the raw code from shared memory and is stored
+// coalesced across the warp, predicated, not branched around.  64 lanes a
+// block (threads) gives 128 blocks of 320 threads, one wave on 132 SMs;
+// two consumer warps per SM leave the schedulers' spare issue slots to
+// the producers.  The bound is now both stages' instruction issue: the
+// producers' hashing (~100 SASS a code, on the integer pipes) and the
+// consumers' chain.  On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py)
+// an 8192 x 1024 call takes 0.084 ms for K1 on 5x4 (73 us of it the
+// kernel; the hashing alone 0.05-0.06 ms, the table walk alone about as
+// much), 0.086 ms for K2, and 0.21 / 0.23 ms on 11x7, where the arithmetic
+// walk (~240 SASS a lane-step with the hashing) is the longer stage: 7.6-8.3x
+// and 2.9x faster than the previous design, at 38-41 % (5x4) and 29 %
+// (11x7) of the bound that counts both stages' SASS at the issue rate.
 //
-// K4 steps the alternating-turn game (envs/soccer_alternating_env): K1's
-// shape and words, but one mover a tick (game.cuh `alt_transition`, about
-// half of K1's transition work: no collision chain), its random action on
-// the low 16 bits of word 0, and a seventh plane, the turn, which flips
-// every tick and goes to A (0) on a goal or a truncation.
+// K3 keeps the previous design: one thread per lane, the lane's board in
+// five more registers (game.cuh `LaneGame`, no ISD table), its stats
+// summed per variant in shared memory.  K4 steps the alternating-turn game
+// (envs/soccer_alternating_env) in the same shape: one mover a tick
+// (game.cuh `alt_transition`), its random action on the low 16 bits of
+// word 0, and a seventh plane, the turn, which flips every tick and goes
+// to A (0) on a goal or a truncation.
 
 #include "game.cuh"
 
@@ -55,34 +77,24 @@ using namespace gst;
 
 namespace {
 
-// The step loop of one lane on board g; kJournal adds the journal store.
-// Adds the lane's reward, goal and truncation sums to rew, goals, truncs.
-template <bool kJournal, class G>
-__device__ __forceinline__ void run_lane(State& s, int lane,
-                                         int32_t* journal, int B,
-                                         int n_steps, uint32_t seed,
-                                         int step_offset, const G& g,
-                                         int& rew, int& goals, int& truncs) {
+// K3's step loop of one lane on board g.  Adds the lane's reward, goal and
+// truncation sums to rew, goals, truncs.
+template <class G>
+__device__ __forceinline__ void run_lane(State& s, int lane, int n_steps,
+                                         uint32_t seed, int step_offset,
+                                         const G& g, int& rew, int& goals,
+                                         int& truncs) {
   const uint32_t ctr = (uint32_t)lane;
   for (int i = 0; i < n_steps; ++i) {
     const uint32_t step = (uint32_t)(i + step_offset);
     const uint32_t bits0 = random_word(seed, step, 0u, ctr);
     const uint32_t bits1 = random_word(seed, step, 1u, ctr);
     const uint32_t bits2 = random_word(seed, step, 2u, ctr);
-    const int aa = u16(bits0, 0) % 5;
-    const int ab = u16(bits0, 1) % 5;
     bool goal, trunc;
     int r;
-    transition(s, aa, ab, bits1, bits2, g, goal, r);
-    // raw code of the pre-reset next state (rules.raw_encode)
-    const int raw =
-        (((s.ra * g.W + s.ca) * g.H + s.rb) * g.W + s.cb) * 2 + s.p;
-    const int idx = autoreset(s, goal, bits2, g, trunc);
-    if constexpr (kJournal) {
-      journal[(size_t)i * (size_t)B + lane] =
-          raw | ((aa * 5 + ab) << 16) | ((int)goal << 21) |
-          ((int)trunc << 22) | ((int)(r == 1) << 23) | (idx << 24);
-    }
+    transition(s, u16(bits0, 0) % 5, u16(bits0, 1) % 5, bits1, bits2, g,
+               goal, r);
+    autoreset(s, goal, bits2, g, trunc);
     rew += r;
     goals += goal;
     truncs += trunc;
@@ -101,33 +113,523 @@ __device__ __forceinline__ void store_state(const Planes& out, int lane,
   out.f[4][lane] = s.p;  out.f[5][lane] = s.t;
 }
 
-template <bool kJournal>
-__device__ __forceinline__ void run_static(const Planes& in, const Planes& out,
-                                           long long* stats, int32_t* journal,
-                                           int B, int n_steps, uint32_t seed,
-                                           int step_offset, const Game& g) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  int rew = 0, goals = 0, truncs = 0;
-  if (lane < B) {
-    State s = load_state(in, lane);
-    run_lane<kJournal>(s, lane, journal, B, n_steps, seed, step_offset, g,
-                       rew, goals, truncs);
-    store_state(out, lane, s);
+// ---------------------------------------------------------------------
+// K1 / K2: producer warps make step codes, consumer threads walk them
+// ---------------------------------------------------------------------
+
+constexpr int kTileSteps = 8;       // steps of step codes a ring tile holds
+constexpr int kStages = 3;          // tiles in the ring
+constexpr int kProducerWarps = 8;   // beside the lanes' (consumer) warps
+constexpr int kMaxLanes = 512;      // lanes per block: 768 threads at most
+constexpr int kInputs = 100;        // (effective move a, move b, coin)
+constexpr int kCodeMask = (1 << 13) - 1;  // table entry: 2 x the next code,
+constexpr int kRewardBit = 1 << 13;       // reward +1,
+constexpr int kGoalBit = 1 << 15;         // goal
+static_assert((32 * kProducerWarps) % kTileSteps == 0,
+              "a producer thread keeps one step slot of every tile");
+constexpr int kSmemBudget = 232448;
+constexpr int kFull = 1;            // named barriers: a tile is written
+constexpr int kEmpty = 1 + kStages; // ... and read
+
+struct RolloutArgs {
+  Planes in, out;
+  long long* stats;
+  int32_t* journal;         // [n_steps, B] (K2)
+  const int16_t* table;     // [kInputs * n_codes] step table (table path)
+  const uint16_t* code_raw; // [n_codes, padded to 8] raw code of each code
+  int n_codes, lanes, B, n_steps, step_offset;
+  uint32_t seed;
+  Game g;
+};
+
+// Dynamic shared memory of a block: the table's mbarrier (16 B), the ISD
+// entries (kIsdInts ints: their compact codes, then their fields), the step
+// table and the raw code of each compact code (n_codes 0: neither; the raw
+// codes padded to 16 B) and the ring of step codes
+// (ops/rollout_codes.py smem_bytes).
+constexpr int kIsdInts = kMaxIsd * 6;
+constexpr int kHead = 16 + 4 * kIsdInts;
+__host__ __device__ constexpr int raw_bytes(int n_codes) {
+  return (2 * n_codes + 15) / 16 * 16;
+}
+__host__ __device__ constexpr int smem_bytes(int lanes, int n_codes) {
+  return kHead + kInputs * 2 * n_codes + raw_bytes(n_codes) +
+         kStages * kTileSteps * 2 * lanes;
+}
+
+// u16 % nI without a division (rollout_codes.isd_pick): u & (nI - 1) for
+// nI 1, 2 and 4 (mask), a multiply-high for 3 (kMod3).
+template <bool kMod3>
+__device__ __forceinline__ int isd_pick(int u, int mask) {
+  return kMod3 ? u - 3 * (int)(((uint32_t)u * 43691u) >> 17) : (u & mask);
+}
+
+// The action whose move slipped_move(a, u, q) makes: a, or its first or
+// second orthogonal, one nibble per action (rollout_codes.effective_move).
+__device__ __forceinline__ int effective_move(int a, int u, int t_keep,
+                                              int t_half) {
+  const int orth = ((u < t_half ? 0x12430 : 0x21340) >> (4 * a)) & 7;
+  return u < t_keep ? a : orth;
+}
+
+// random_word's key of word 0 at `step`: the words' keys are c0, c0 + K
+// and c0 + 2K.
+__device__ __forceinline__ uint32_t step_key(uint32_t seed, uint32_t step) {
+  return seed * 0x9E3779B9u + step * 0x85EBCA77u;
+}
+
+// The step code of the lane at the step keyed c0: table input (ea * 5 + eb)
+// * 4 + coin in bits 0-6, the ISD index in bits 7-8, the joint action in
+// bits 9-13.
+template <bool kMod3>
+__device__ __forceinline__ uint32_t step_code(uint32_t c0, uint32_t lane,
+                                              int t_keep, int t_half,
+                                              int isd_mask) {
+  const uint32_t c1 = c0 + 0xC2B2AE3Du, c2 = c0 + 2u * 0xC2B2AE3Du;
+  const uint32_t b0 = fmix32(fmix32(lane ^ c0) + c0);
+  const uint32_t b1 = fmix32(fmix32(lane ^ c1) + c1);
+  const uint32_t b2 = fmix32(fmix32(lane ^ c2) + c2);
+  const int aa = u16(b0, 0) % 5, ab = u16(b0, 1) % 5;
+  const int ea = effective_move(aa, u16(b1, 0), t_keep, t_half);
+  const int eb = effective_move(ab, u16(b1, 1), t_keep, t_half);
+  return (uint32_t)(((ea * 5 + eb) * 4 + (int)(b2 & 3u)) |
+                    (isd_pick<kMod3>(u16(b2, 1), isd_mask) << 7) |
+                    ((aa * 5 + ab) << 9));
+}
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Thread 0: the mbarrier at `bar` (initialised for one arrival) expects
+// `bytes` of bulk copies.
+__device__ __forceinline__ void expect_bytes(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Thread 0: `bytes` (a multiple of 16) from global to shared memory by
+// bulk copies (TMA) that complete on the mbarrier at `bar`; the producers
+// start meanwhile.
+__device__ __forceinline__ void bulk_copy(uint64_t* bar, void* dst,
+                                          const void* src, int bytes) {
+  const uint32_t b = smem_addr(bar);
+  constexpr int kChunk = 1 << 15;
+  for (int off = 0; off < bytes; off += kChunk)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];" ::"r"(smem_addr((char*)dst + off)),
+        "l"((const char*)src + off), "r"(min(kChunk, bytes - off)), "r"(b)
+        : "memory");
+}
+
+__device__ __forceinline__ void wait_table(uint64_t* bar) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}" : "=r"(done) : "r"(smem_addr(bar))
+        : "memory");
+  } while (!done);
+}
+
+// Producer thread pt: the step codes of every tile, [lane][step] in the
+// tile, each tile handed over on its kFull barrier once its ring slot is
+// free again (its kEmpty barrier).  The thread keeps one step slot, pt %
+// kTileSteps, so its words' keys are made once a tile.
+template <bool kMod3>
+__device__ __forceinline__ void produce(const RolloutArgs& a, uint16_t* ring,
+                                       int pt, int lane0, int n_tiles,
+                                       int nthreads) {
+  constexpr int kThreads = 32 * kProducerWarps;
+  const int t_keep = 65536 - a.g.q_int, t_half = 65536 - a.g.q_int / 2;
+  const int per_tile = a.lanes * kTileSteps;
+  const uint32_t slot = (uint32_t)(a.step_offset + pt % kTileSteps);
+  for (int k = 0; k < n_tiles; ++k) {
+    const int st = k % kStages;
+    if (k >= kStages) bar_sync(kEmpty + st, nthreads);
+    uint16_t* tile = ring + st * per_tile;
+    const uint32_t c0 = step_key(a.seed, slot + (uint32_t)(k * kTileSteps));
+    uint32_t lane = (uint32_t)(lane0 + pt / kTileSteps);
+#pragma unroll 1
+    for (int j = pt; j < per_tile; j += kThreads) {
+      tile[j] = (uint16_t)step_code<kMod3>(c0, lane, t_keep, t_half,
+                                           a.g.nI - 1);
+      lane += kThreads / kTileSteps;
+    }
+    bar_arrive(kFull + st, nthreads);
   }
-  block_sum(stats, rew, goals, truncs);
 }
 
-__global__ void rollout_kernel(Planes in, Planes out, long long* stats,
-                               int B, int n_steps, uint32_t seed,
-                               int step_offset, Game g) {
-  run_static<false>(in, out, stats, nullptr, B, n_steps, seed, step_offset,
-                    g);
+__device__ __forceinline__ void load_codes(const uint16_t* p,
+                                           uint32_t (&w)[kTileSteps / 2]) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int v = 0; v < kTileSteps / 8; ++v) {
+    const uint4 x = q[v];
+    w[4 * v] = x.x; w[4 * v + 1] = x.y; w[4 * v + 2] = x.z; w[4 * v + 3] = x.w;
+  }
 }
 
-__global__ void journal_kernel(Planes in, Planes out, long long* stats,
-                               int32_t* journal, int B, int n_steps,
-                               uint32_t seed, int step_offset, Game g) {
-  run_static<true>(in, out, stats, journal, B, n_steps, seed, step_offset, g);
+// A consumer's walk over the ring: tile k + 1's codes are waited for and
+// loaded into registers before tile k's steps, and its slot is released
+// after them (when a producer will wait for it); the last, partial tile
+// is read from its slot, which nothing overwrites.  step(code) takes the
+// lane's next step.
+template <class Step>
+__device__ __forceinline__ void walk(const RolloutArgs& a,
+                                     const uint16_t* ring, int l, int n_tiles,
+                                     int nthreads, Step& step) {
+  const int per_tile = a.lanes * kTileSteps;
+  const int n_full = a.n_steps / kTileSteps;
+  const uint16_t* mine = ring + l * kTileSteps;
+  uint32_t cur[kTileSteps / 2], nxt[kTileSteps / 2];
+  if (n_tiles > 0) {
+    bar_sync(kFull, nthreads);
+    load_codes(mine, cur);
+    if (kStages < n_tiles) bar_arrive(kEmpty, nthreads);
+  }
+  for (int k = 0; k < n_full; ++k) {
+    const int k1 = k + 1, st1 = k1 % kStages;
+    if (k1 < n_tiles) {
+      bar_sync(kFull + st1, nthreads);
+      load_codes(mine + st1 * per_tile, nxt);
+    }
+#pragma unroll
+    for (int s = 0; s < kTileSteps; ++s)
+      step((cur[s / 2] >> (16 * (s & 1))) & 0xFFFFu);
+    if (k1 + kStages < n_tiles) bar_arrive(kEmpty + st1, nthreads);
+#pragma unroll
+    for (int v = 0; v < kTileSteps / 2; ++v) cur[v] = nxt[v];
+  }
+  const uint16_t* last = mine + (n_full % kStages) * per_tile;
+#pragma unroll 1
+  for (int s = 0; s < a.n_steps - n_full * kTileSteps; ++s)
+    step((uint32_t)last[s]);
+}
+
+// A lane's step from a step code by the table: one shared-memory load of
+// the pre-reset next code with its goal (sign) and reward bits, then the
+// reset to the ISD entry's code.  The state is its compact code; the
+// table row, the reset code and the truncation test come off the chain.
+template <bool kJournal>
+struct TableStep {
+  const char* table;         // shared
+  const char* code_raw;      // shared, uint16 a code
+  int32_t* journal;          // this lane's word of the next step
+  int row_bytes, max_steps, B;
+  bool active;
+  uint32_t isd01, isd23;     // the ISD entries' codes x 2, two a register
+  int cs2, t, rew, goals, truncs;  // cs2: 2 x the state's compact code
+
+  __device__ __forceinline__ void operator()(uint32_t code) {
+    const int row = (int)(code & 127u) * row_bytes;
+    const int idx = (code >> 7) & 3;
+    const int reset = ((idx & 2 ? isd23 : isd01) >> (16 * (idx & 1))) & 0xFFFF;
+    const bool late = t + 1 >= max_steps;
+    const int e = *reinterpret_cast<const uint16_t*>(table + row + cs2);
+    const bool goal = (e & kGoalBit) != 0;
+    const bool trunc = late & !goal;
+    const int nxt2 = e & kCodeMask;
+    cs2 = (goal | late) ? reset : nxt2;
+    t = (goal | late) ? 0 : t + 1;
+    if constexpr (kJournal) {
+      const int w = (int)*reinterpret_cast<const uint16_t*>(code_raw + nxt2) |
+                    (int)((code >> 9) << 16) |
+                    ((int)goal << 21) | ((int)trunc << 22) |
+                    ((e & kRewardBit) << 10) | (idx << 24);
+      if (active) *journal = w;
+      journal += B;
+    }
+    rew += goal ? ((e & kRewardBit) ? 1 : -1) : 0;
+    goals += goal;
+    truncs += trunc;
+  }
+};
+
+// A shared-memory load issued where it stands (not sunk under the
+// predicate of its use).
+__device__ __forceinline__ int lds(const int* p) {
+  int v;
+  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(v) : "r"(smem_addr(p)));
+  return v;
+}
+
+// One transition of K1/K2's arithmetic walk under effective moves ea, eb
+// (actions after the slip; a move is (0, 0) exactly when its action is 0)
+// and the coin bits: game.cuh's `transition` after its slips, written
+// without short-circuits, so that it compiles to selects.
+__device__ __forceinline__ void step_moves(State& s, int ea, int eb, int coin,
+                                           const Game& g, bool& goal,
+                                           int& r) {
+  const int ra = s.ra, ca = s.ca, rb = s.rb, cb = s.cb, p = s.p;
+  const int nxa = min(max(ra + (ea == 2) - (ea == 1), 0), g.H - 1);
+  const int nxb = min(max(rb + (eb == 2) - (eb == 1), 0), g.H - 1);
+  const int ya = ca + (ea == 3) - (ea == 4), yb = cb + (eb == 3) - (eb == 4);
+  const bool oa = (ya == 0) | (ya == g.W - 1), ob = (yb == 0) | (yb == g.W - 1);
+  const bool ina = (oa & (nxa >= g.glo) & (nxa <= g.ghi) & (p == 0)) | !oa;
+  const bool inb = (ob & (nxb >= g.glo) & (nxb <= g.ghi) & (p == 1)) | !ob;
+  const int nya = ina ? ya : ca, nyb = inb ? yb : cb;
+  const bool a_onto_b = (nxa == rb) & (nya == cb);
+  const bool b_onto_a = (nxb == ra) & (nyb == ca);
+  const bool c1 = ((ra == rb) & (abs(ca - cb) == 1) & (nya == cb) & (nyb == ca)) |
+                  ((ca == cb) & (abs(ra - rb) == 1) & (nxa == rb) & (nxb == ra));
+  const bool c2 = !c1 & ((a_onto_b & (eb == 0)) | (b_onto_a & (ea == 0)));
+  const bool c3 = !c1 & !c2 &
+                  (((ra == nxa) & (ca == nya) & (ea != 0) & b_onto_a) |
+                   ((rb == nxb) & (cb == nyb) & (eb != 0) & a_onto_b));
+  const bool c4 = !c1 & !c2 & !c3 & (nxa == nxb) & (nya == nyb);
+  const bool c5 = !(c1 | c2 | c3 | c4);
+  const bool who = (coin >> 1) & 1;
+  const bool a_moves = c5 | (c4 & who), b_moves = c5 | (c4 & !who);
+  s.ra = a_moves ? nxa : ra;
+  s.ca = a_moves ? nya : ca;
+  s.rb = b_moves ? nxb : rb;
+  s.cb = b_moves ? nyb : cb;
+  s.p = c2 ? 1 - p : ((c1 | c3 | c4) ? (coin & 1) : p);
+  const bool a_ball = s.p == 0;
+  const int ball_row = a_ball ? s.ra : s.rb, ball_col = a_ball ? s.ca : s.cb;
+  goal = (ball_row >= g.glo) & (ball_row <= g.ghi) &
+         ((ball_col == 0) | (ball_col == g.W - 1));
+  r = goal ? (ball_col == g.W - 1 ? 1 : -1) : 0;
+}
+
+// A lane's step from a step code by arithmetic: the transition under the
+// decoded effective moves, then the reset to the ISD entry's fields.
+template <bool kJournal>
+struct ArithStep {
+  const Game* g;
+  const int* isd_fields;    // shared: [kMaxIsd][5]
+  int32_t* journal;         // this lane's word of the next step
+  int B;
+  bool active;
+  State s;
+  int rew, goals, truncs;
+
+  __device__ __forceinline__ void operator()(uint32_t code) {
+    const int in = (int)(code & 127u);
+    const int idx = (code >> 7) & 3;
+    const int* fp = isd_fields + 5 * idx;
+    const int f[5] = {lds(fp), lds(fp + 1), lds(fp + 2), lds(fp + 3),
+                      lds(fp + 4)};
+    const bool late = s.t + 1 >= g->max_steps;
+    bool goal;
+    int r;
+    step_moves(s, in / 20, (in >> 2) % 5, in & 3, *g, goal, r);
+    const int raw = (((s.ra * g->W + s.ca) * g->H + s.rb) * g->W + s.cb) * 2 +
+                    s.p;
+    const bool term = goal | late;
+    const bool trunc = late & !goal;
+    s.ra = term ? f[0] : s.ra;
+    s.ca = term ? f[1] : s.ca;
+    s.rb = term ? f[2] : s.rb;
+    s.cb = term ? f[3] : s.cb;
+    s.p = term ? f[4] : s.p;
+    s.t = term ? 0 : s.t + 1;
+    if constexpr (kJournal) {
+      const int w = raw | (int)((code >> 9) << 16) | ((int)goal << 21) |
+                    ((int)trunc << 22) | ((int)(r == 1) << 23) | (idx << 24);
+      if (active) *journal = w;
+      journal += B;
+    }
+    rew += r;
+    goals += goal;
+    truncs += trunc;
+  }
+};
+
+// The table walk starts from, and stays among, these states (the
+// reachable non-goal ones; rollout_codes.walkable).
+__device__ __forceinline__ bool walkable(const State& s, const Game& g) {
+  const bool a = s.ra >= 0 && s.ra < g.H && s.ca >= 1 && s.ca <= g.W - 2;
+  const bool b = s.rb >= 0 && s.rb < g.H && s.cb >= 1 && s.cb <= g.W - 2;
+  return a && b && (s.ra != s.rb || s.ca != s.cb) && (s.p == 0 || s.p == 1);
+}
+
+__device__ __forceinline__ State isd_state(const Game& g, int k) {
+  return State{g.isd[k][0], g.isd[k][1], g.isd[k][2], g.isd[k][3],
+               g.isd[k][4], 0};
+}
+
+// A consumer warp's three sums, one 64-bit atomicAdd each.
+__device__ __forceinline__ void warp_sum(long long* stats, int a, int b,
+                                         int c) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    a += __shfl_down_sync(0xFFFFFFFFu, a, off);
+    b += __shfl_down_sync(0xFFFFFFFFu, b, off);
+    c += __shfl_down_sync(0xFFFFFFFFu, c, off);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(reinterpret_cast<unsigned long long*>(stats + 0),
+              (unsigned long long)(long long)a);
+    atomicAdd(reinterpret_cast<unsigned long long*>(stats + 1),
+              (unsigned long long)(long long)b);
+    atomicAdd(reinterpret_cast<unsigned long long*>(stats + 2),
+              (unsigned long long)(long long)c);
+  }
+}
+
+// Consumer thread l: lane lane0 + l.  With the table (kTable) a warp whose
+// lanes are all walkable walks it, any other warp by arithmetic.
+template <bool kJournal, bool kTable>
+__device__ __forceinline__ void consume(const RolloutArgs& a,
+                                        const int16_t* table,
+                                        const uint16_t* code_raw,
+                                        uint64_t* bar, const int* isd,
+                                        const uint16_t* ring, int l,
+                                        int lane0, int n_tiles,
+                                        int nthreads) {
+  const int lane = lane0 + l;
+  const bool active = lane < a.B;
+  // no start planes: lane i starts on ISD entry i % nI with t = 0
+  State s = !active ? isd_state(a.g, 0)
+            : a.in.f[0] != nullptr ? load_state(a.in, lane)
+                                   : isd_state(a.g, lane % a.g.nI);
+  int rew, goals, truncs;
+  bool by_table = false;
+  if constexpr (kTable) {
+    wait_table(bar);  // every consumer: no block leaves before the copy ends
+    by_table = __all_sync(0xFFFFFFFFu, walkable(s, a.g));
+  }
+  if (by_table) {
+    TableStep<kJournal> step{reinterpret_cast<const char*>(table),
+                             reinterpret_cast<const char*>(code_raw),
+                             a.journal + lane, 2 * a.n_codes, a.g.max_steps,
+                             a.B, active};
+    step.isd01 = (uint32_t)(2 * isd[0]) | (uint32_t)(2 * isd[1]) << 16;
+    step.isd23 = (uint32_t)(2 * isd[2]) | (uint32_t)(2 * isd[3]) << 16;
+    step.cs2 = 2 * cellpair_encode(s, a.g, n_cells(a.g));
+    step.t = s.t;
+    step.rew = step.goals = step.truncs = 0;
+    walk(a, ring, l, n_tiles, nthreads, step);
+    int raw = code_raw[step.cs2 / 2];
+    s.p = raw & 1; raw >>= 1;
+    s.cb = raw % a.g.W; raw /= a.g.W;
+    s.rb = raw % a.g.H; raw /= a.g.H;
+    s.ca = raw % a.g.W;
+    s.ra = raw / a.g.W;
+    s.t = step.t;
+    rew = step.rew; goals = step.goals; truncs = step.truncs;
+  } else {
+    ArithStep<kJournal> step{&a.g, isd + kMaxIsd, a.journal + lane, a.B,
+                             active, s, 0, 0, 0};
+    walk(a, ring, l, n_tiles, nthreads, step);
+    s = step.s;
+    rew = step.rew; goals = step.goals; truncs = step.truncs;
+  }
+  if (!active) rew = goals = truncs = 0;  // a ragged block's spare lanes
+  else store_state(a.out, lane, s);
+  warp_sum(a.stats, rew, goals, truncs);
+}
+
+// K1 (kJournal false) and K2: blocks of a.lanes consumer threads, one a
+// lane, then kProducerWarps producer warps.
+template <bool kJournal, bool kTable>
+__global__ void __launch_bounds__(kMaxLanes + 32 * kProducerWarps)
+    rollout_kernel(RolloutArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  int* isd = reinterpret_cast<int*>(smem + 16);
+  const int table_bytes = kTable ? kInputs * 2 * a.n_codes : 0;
+  const int16_t* table = reinterpret_cast<const int16_t*>(smem + kHead);
+  const uint16_t* code_raw =
+      reinterpret_cast<const uint16_t*>(smem + kHead + table_bytes);
+  uint16_t* ring = reinterpret_cast<uint16_t*>(
+      smem + kHead + table_bytes + (kTable ? raw_bytes(a.n_codes) : 0));
+  const int nthreads = a.lanes + 32 * kProducerWarps;
+  const int lane0 = blockIdx.x * a.lanes;
+  const int n_tiles = a.n_steps / kTileSteps + (a.n_steps % kTileSteps != 0);
+  if (threadIdx.x < kMaxIsd) {
+    const int k = min((int)threadIdx.x, a.g.nI - 1);
+    const State e = isd_state(a.g, k);
+    isd[threadIdx.x] = kTable ? cellpair_encode(e, a.g, n_cells(a.g)) : 0;
+    int* f = isd + kMaxIsd + 5 * threadIdx.x;
+    f[0] = e.ra; f[1] = e.ca; f[2] = e.rb; f[3] = e.cb; f[4] = e.p;
+  }
+  if constexpr (kTable) {
+    if (threadIdx.x == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   ::"r"(smem_addr(bar)) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+  }
+  __syncthreads();
+  if constexpr (kTable) {
+    if (threadIdx.x == 0) {
+      expect_bytes(bar, table_bytes + raw_bytes(a.n_codes));
+      bulk_copy(bar, smem + kHead, a.table, table_bytes);
+      bulk_copy(bar, smem + kHead + table_bytes, a.code_raw,
+                raw_bytes(a.n_codes));
+    }
+  }
+  if ((int)threadIdx.x >= a.lanes) {
+    if (a.g.nI == 3)
+      produce<true>(a, ring, threadIdx.x - a.lanes, lane0, n_tiles, nthreads);
+    else
+      produce<false>(a, ring, threadIdx.x - a.lanes, lane0, n_tiles,
+                     nthreads);
+  } else
+    consume<kJournal, kTable>(a, table, code_raw, bar, isd, ring,
+                              threadIdx.x, lane0, n_tiles, nthreads);
+}
+
+constexpr int kMaxDevices = 64;
+
+// The launch; the kernel's shared-memory limit is raised once per device
+// and size, not on every call.
+template <bool kJournal, bool kTable>
+cudaError_t launch_rollout(const RolloutArgs& a, int device, int smem,
+                           cudaStream_t st) {
+  auto kernel = rollout_kernel<kJournal, kTable>;
+  static int allowed[kMaxDevices] = {};
+  if (device >= kMaxDevices || smem > allowed[device]) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    if (device < kMaxDevices) allowed[device] = smem;
+  }
+  const int blocks = (a.B + a.lanes - 1) / a.lanes;
+  kernel<<<blocks, a.lanes + 32 * kProducerWarps, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+// K1/K2's launch: checks, the stats zeroed, the table path when the
+// wrapper passes a step table.
+template <bool kJournal>
+int rollout(int device, void* const* in, void* const* out, long long* stats,
+            int32_t* journal, const int32_t* params, const int16_t* table,
+            const uint16_t* code_raw, int n_codes, int B, int n_steps,
+            uint32_t seed, int step_offset, int lanes, void* stream) {
+  if (params[6] < 1 || params[6] > kMaxIsd || B <= 0 || n_steps < 0 ||
+      lanes < 32 || lanes > kMaxLanes || lanes % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (table != nullptr &&
+      (n_codes < 1 || 2 * n_codes > kCodeMask + 1 || code_raw == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int smem = smem_bytes(lanes, table != nullptr ? n_codes : 0);
+  if (smem > kSmemBudget) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  e = cudaMemsetAsync(stats, 0, 3 * sizeof(long long), st);
+  if (e != cudaSuccess) return (int)e;
+  RolloutArgs a{in != nullptr ? make_planes(in) : Planes{}, make_planes(out),
+                stats, journal, table,
+                code_raw, n_codes, lanes, B, n_steps, step_offset, seed,
+                make_game(params)};
+  return (int)(table != nullptr
+                   ? launch_rollout<kJournal, true>(a, device, smem, st)
+                   : launch_rollout<kJournal, false>(a, device, smem, st));
 }
 
 constexpr int kMaxVariants = 16;
@@ -145,8 +647,8 @@ __global__ void mg_rollout_kernel(Planes in, Planes out, Planes geo,
   if (lane < B) {
     int rew = 0, goals = 0, truncs = 0;
     State s = load_state(in, lane);
-    run_lane<false>(s, lane, nullptr, B, n_steps, seed, step_offset,
-                    lane_game(geo, lane, max_steps), rew, goals, truncs);
+    run_lane(s, lane, n_steps, seed, step_offset,
+             lane_game(geo, lane, max_steps), rew, goals, truncs);
     store_state(out, lane, s);
     unsigned long long* mine = part + 3 * geo.f[5][lane];
     atomicAdd(mine + 0, (unsigned long long)(long long)rew);
@@ -197,36 +699,47 @@ __global__ void alt_rollout_kernel(AltPlanes in, AltPlanes out,
 extern "C" {
 
 // K1.  device: the CUDA ordinal of every pointer and of the stream;
-// in/out: host arrays of 6 device pointers to int32 [B];
-// stats: device int64 [3] (reward sum, goals, truncations).
+// in/out: host arrays of 6 device pointers to int32 [B] (in null: lane i
+// starts on ISD entry i % nI with t = 0); stats: device
+// int64 [3] (reward sum, goals, truncations); params: the game
+// (step_kernel._game_params); table: device int16 [100 * n_codes], the
+// step table (rollout_codes.build_step_table), or null for the arithmetic
+// path; code_raw: device uint16 [n_codes, padded to a multiple of 8], the
+// raw code of each compact code (the table path's); lanes: lanes
+// per block, a multiple of 32 in [32, 512] whose shared memory
+// (gst_rollout_smem_bytes) fits 232,448 bytes.
 int gst_fused_rollout(int device, void* const* in, void* const* out,
-                      long long* stats, const int32_t* params, int B,
-                      int n_steps, uint32_t seed, int step_offset,
-                      int threads, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = prepare(device, params, B, threads, stats, st);
-  if (e != cudaSuccess) return (int)e;
-  const int blocks = (B + threads - 1) / threads;
-  rollout_kernel<<<blocks, threads, 0, st>>>(
-      make_planes(in), make_planes(out), stats, B, n_steps, seed,
-      step_offset, make_game(params));
-  return (int)cudaGetLastError();
+                      long long* stats, const int32_t* params,
+                      const int16_t* table, const uint16_t* code_raw,
+                      int n_codes, int B, int n_steps, uint32_t seed,
+                      int step_offset, int lanes, void* stream) {
+  return rollout<false>(device, in, out, stats, nullptr, params, table,
+                        code_raw, n_codes, B, n_steps, seed, step_offset,
+                        lanes, stream);
 }
 
 // K2.  As K1, plus journal: device int32 [n_steps, B].
 int gst_fused_journal_rollout(int device, void* const* in, void* const* out,
                               long long* stats, int32_t* journal,
-                              const int32_t* params, int B, int n_steps,
-                              uint32_t seed, int step_offset, int threads,
-                              void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = prepare(device, params, B, threads, stats, st);
-  if (e != cudaSuccess) return (int)e;
-  const int blocks = (B + threads - 1) / threads;
-  journal_kernel<<<blocks, threads, 0, st>>>(
-      make_planes(in), make_planes(out), stats, journal, B, n_steps, seed,
-      step_offset, make_game(params));
-  return (int)cudaGetLastError();
+                              const int32_t* params, const int16_t* table,
+                              const uint16_t* code_raw, int n_codes, int B,
+                              int n_steps, uint32_t seed, int step_offset,
+                              int lanes, void* stream) {
+  return rollout<true>(device, in, out, stats, journal, params, table,
+                       code_raw, n_codes, B, n_steps, seed, step_offset,
+                       lanes, stream);
+}
+
+// K1/K2's dynamic shared memory per block (rollout_codes.smem_bytes).
+int gst_rollout_smem_bytes(int lanes, int n_codes) {
+  return smem_bytes(lanes, n_codes);
+}
+
+// K1/K2's pipeline: steps a tile, tiles in the ring, producer warps.
+void gst_rollout_shape(int32_t* out) {
+  out[0] = kTileSteps;
+  out[1] = kStages;
+  out[2] = kProducerWarps;
 }
 
 // K3.  geo: host array of 6 device pointers to int32 [B] (H, W, glo, ghi,

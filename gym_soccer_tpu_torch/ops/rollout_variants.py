@@ -1,0 +1,306 @@
+"""Time variants of the K1/K2 rollout kernels on a CUDA card.
+
+Each variant is ``csrc/step_kernel.cu`` with a few text patches
+(`VARIANTS`), built beside the port's own build and launched through
+``step_kernel``'s launch at ``chip_smoke.py``'s timed shapes: 8192 lanes x
+1024 steps of ``fused_rollout`` (K1) and ``fused_journal_rollout`` (K2) on
+5x4 and 11x7, slip 0.2, each at the lanes per block listed beside it.
+Design variants (the previous design, one thread doing both stages, other
+producer counts, tile and ring sizes, the arithmetic walk on 5x4) must give the
+committed kernel's fields, stats and journal bit for bit, and equal the
+plain versions run on the CPU at 1024 lanes x 64 steps (``chip_smoke.py``
+phase 6's check); they are checked so.  ``diag-`` variants break the
+result on purpose to show what one stage costs (the walk without the
+hashing, the hashing without the walk) and are only timed.
+
+    python -m gym_soccer_tpu_torch.ops.rollout_variants
+
+prints one line per variant and block size and exits 1 if a design
+variant differs.  Each line gives two times per kernel and board, both the
+median of 5 legs of at least 50 ms of back-to-back launches (CUDA events):
+``call``, of the launch as ``fused_rollout`` makes it (its host work
+included), and ``device``, of the same launch captured in a CUDA graph and
+replayed (the kernel and the stats' memset alone); and the registers, the
+card's name and its power limit.  Needs ``nvcc`` and a card.
+"""
+from __future__ import annotations
+
+import re
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+# The committed launch of K1/K2 (`launch_rollout`'s body).
+_LAUNCH = """  auto kernel = rollout_kernel<kJournal, kTable>;
+  static int allowed[kMaxDevices] = {};
+  if (device >= kMaxDevices || smem > allowed[device]) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    if (device < kMaxDevices) allowed[device] = smem;
+  }
+  const int blocks = (a.B + a.lanes - 1) / a.lanes;
+  kernel<<<blocks, a.lanes + 32 * kProducerWarps, smem, st>>>(a);
+  return cudaGetLastError();"""
+_LAUNCH_AT = "template <bool kJournal, bool kTable>\ncudaError_t launch_rollout"
+_SMEM_CHECK = "  if (smem > kSmemBudget) return (int)cudaErrorInvalidValue;\n"
+# The previous design: one thread a lane, the counter words, the
+# slip and the collision chain inline in its step loop.
+_OLD_KERNEL = """template <bool kJournal>
+__global__ void old_rollout_kernel(RolloutArgs a) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  int rew = 0, goals = 0, truncs = 0;
+  if (lane < a.B) {
+    State s = a.in.f[0] != nullptr ? load_state(a.in, lane)
+                                   : isd_state(a.g, lane % a.g.nI);
+    for (int i = 0; i < a.n_steps; ++i) {
+      const uint32_t step = (uint32_t)(i + a.step_offset);
+      const uint32_t bits0 = random_word(a.seed, step, 0u, (uint32_t)lane);
+      const uint32_t bits1 = random_word(a.seed, step, 1u, (uint32_t)lane);
+      const uint32_t bits2 = random_word(a.seed, step, 2u, (uint32_t)lane);
+      const int aa = u16(bits0, 0) % 5;
+      const int ab = u16(bits0, 1) % 5;
+      bool goal, trunc;
+      int r;
+      transition(s, aa, ab, bits1, bits2, a.g, goal, r);
+      const int raw =
+          (((s.ra * a.g.W + s.ca) * a.g.H + s.rb) * a.g.W + s.cb) * 2 + s.p;
+      const int idx = autoreset(s, goal, bits2, a.g, trunc);
+      if constexpr (kJournal)
+        a.journal[(size_t)i * (size_t)a.B + lane] =
+            raw | ((aa * 5 + ab) << 16) | ((int)goal << 21) |
+            ((int)trunc << 22) | ((int)(r == 1) << 23) | (idx << 24);
+      rew += r;
+      goals += goal;
+      truncs += trunc;
+    }
+    store_state(a.out, lane, s);
+  }
+  block_sum(a.stats, rew, goals, truncs);
+}
+
+"""
+_OLD_LAUNCH = """  (void)smem; (void)device;
+  const int blocks = (a.B + a.lanes - 1) / a.lanes;
+  old_rollout_kernel<kJournal><<<blocks, a.lanes, 0, st>>>(a);
+  return cudaGetLastError();"""
+# The committed consumer walk over the ring (`walk`'s body).
+_WALK = """  const int per_tile = a.lanes * kTileSteps;
+  const int n_full = a.n_steps / kTileSteps;
+  const uint16_t* mine = ring + l * kTileSteps;
+  uint32_t cur[kTileSteps / 2], nxt[kTileSteps / 2];
+  if (n_tiles > 0) {
+    bar_sync(kFull, nthreads);
+    load_codes(mine, cur);
+    if (kStages < n_tiles) bar_arrive(kEmpty, nthreads);
+  }
+  for (int k = 0; k < n_full; ++k) {
+    const int k1 = k + 1, st1 = k1 % kStages;
+    if (k1 < n_tiles) {
+      bar_sync(kFull + st1, nthreads);
+      load_codes(mine + st1 * per_tile, nxt);
+    }
+#pragma unroll
+    for (int s = 0; s < kTileSteps; ++s)
+      step((cur[s / 2] >> (16 * (s & 1))) & 0xFFFFu);
+    if (k1 + kStages < n_tiles) bar_arrive(kEmpty + st1, nthreads);
+#pragma unroll
+    for (int v = 0; v < kTileSteps / 2; ++v) cur[v] = nxt[v];
+  }
+  const uint16_t* last = mine + (n_full % kStages) * per_tile;
+#pragma unroll 1
+  for (int s = 0; s < a.n_steps - n_full * kTileSteps; ++s)
+    step((uint32_t)last[s]);"""
+# One role: each lane's thread makes its own step codes, step i + 1's
+# while step i walks (no producer warps, no ring).
+_SINGLE_WALK = """  (void)ring; (void)n_tiles; (void)nthreads;
+  const int t_keep = 65536 - a.g.q_int, t_half = 65536 - a.g.q_int / 2;
+  const uint32_t lane = (uint32_t)(blockIdx.x * a.lanes + l);
+  const uint32_t at = (uint32_t)a.step_offset;
+  const int mask = a.g.nI - 1;
+  auto code_at = [&](uint32_t step) {
+    const uint32_t c0 = step_key(a.seed, step);
+    return a.g.nI == 3 ? step_code<true>(c0, lane, t_keep, t_half, mask)
+                       : step_code<false>(c0, lane, t_keep, t_half, mask);
+  };
+  uint32_t next = code_at(at);
+#pragma unroll 2
+  for (int i = 0; i < a.n_steps; ++i) {
+    const uint32_t code = next;
+    next = code_at(at + (uint32_t)(i + 1));
+    step(code);
+  }"""
+_PRODUCERS = "constexpr int kProducerWarps = 8;"
+_TILE = "constexpr int kTileSteps = 8;"
+_STAGES = "constexpr int kStages = 3;"
+_STEP_CALL = "      step((cur[s / 2] >> (16 * (s & 1))) & 0xFFFFu);"
+_TAIL_CALL = "    step((uint32_t)last[s]);"
+_CODE_STORE = """      tile[j] = (uint16_t)step_code<kMod3>(c0, lane, t_keep, t_half,
+                                           a.g.nI - 1);"""
+_TABLE_CHOICE = """  return (int)(table != nullptr
+                   ? launch_rollout<kJournal, true>(a, device, smem, st)"""
+_SMEM = "  const int smem = smem_bytes(lanes, table != nullptr ? n_codes : 0);"
+
+# name -> ([(text in step_kernel.cu, its replacement)], lanes per block to
+# time); each text must occur exactly once.
+VARIANTS = {
+    "kernel": ([], (64, 32)),
+    "previous-design": ([(_LAUNCH_AT, _OLD_KERNEL + _LAUNCH_AT),
+                         (_LAUNCH, _OLD_LAUNCH), (_SMEM_CHECK, "")],
+                        (128, 32)),
+    "single-role": ([(_PRODUCERS, "constexpr int kProducerWarps = 0;"),
+                     (_WALK, _SINGLE_WALK)], (64, 32)),
+    "arithmetic-walk": ([(_TABLE_CHOICE, _TABLE_CHOICE.replace(
+        "table != nullptr\n", "false\n")), (_SMEM, _SMEM.replace(
+            "table != nullptr ? n_codes : 0", "0"))], (64,)),
+    "producers-4": ([(_PRODUCERS, "constexpr int kProducerWarps = 4;")],
+                    (64,)),
+    "producers-16": ([(_PRODUCERS, "constexpr int kProducerWarps = 16;")],
+                     (64,)),
+    "tile-16": ([(_TILE, "constexpr int kTileSteps = 16;")], (64,)),
+    "stages-2": ([(_STAGES, "constexpr int kStages = 2;")], (64,)),
+    # diagnostics: wrong results, by design
+    "diag-hash-only": ([(_STEP_CALL, "      step.rew += (int)((cur[s / 2] >> "
+                         "(16 * (s & 1))) & 0xFFFFu);"),
+                        (_TAIL_CALL, "    step.rew += (int)last[s];")],
+                       (64,)),
+    "diag-walk-only": ([(_CODE_STORE, "      tile[j] = (uint16_t)(j % 100);")],
+                       (64,)),
+}
+B, T, SLIP = 8192, 1024, 0.2
+BOARDS = ((5, 4), (11, 7))
+NAMES = ("fused_rollout", "fused_journal_rollout")
+
+
+def variant_source(name: str, source: str) -> str:
+    """``source`` with variant ``name``'s patches applied; ValueError if a
+    patched text does not occur exactly once."""
+    for old, new in VARIANTS[name][0]:
+        if source.count(old) != 1:
+            raise ValueError(f"variant {name}: its patch matches "
+                             f"{source.count(old)} times, not once")
+        source = source.replace(old, new)
+    return source
+
+
+def _out_dir():
+    """Where the variants are built, beside the header they include."""
+    from . import _build
+    out_dir = _build.BUILD_DIR / "rollout_variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "game.cuh").write_text((_build.CSRC / "game.cuh").read_text())
+    return out_dir
+
+
+def _build_variant(name: str, out_dir):
+    from . import _build
+    src = out_dir / f"step_kernel-{name}.cu"
+    src.write_text(variant_source(
+        name, (_build.CSRC / "step_kernel.cu").read_text()))
+    return _build.compile_sources([src], out_dir / f"step_kernel-{name}.so")
+
+
+def _registers(log: str) -> dict:
+    """{'K1 table' ...: registers} of the K1/K2 kernels in an nvcc log."""
+    regs = {}
+    for m in re.finditer(r"Compiling entry function '(\S+)'.*?Used (\d+) "
+                         r"registers", log, re.S):
+        k = re.search(r"rollout_kernelILb([01])E(?:Lb([01])E)?", m.group(1))
+        if k and "mg_" not in m.group(1) and "alt_" not in m.group(1):
+            label = f"K{2 if k.group(1) == '1' else 1}" + (
+                "" if k.group(2) is None else
+                " table" if k.group(2) == "1" else " arith")
+            regs[label] = int(m.group(2))
+    return regs
+
+
+def _device_ms(fn) -> float:
+    """ms per replay of ``fn``'s launches captured in a CUDA graph."""
+    import torch
+
+    from . import parity_variants
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return parity_variants._time(graph.replay)
+
+
+def main() -> int:
+    import ctypes
+
+    import torch
+
+    from ..config import EnvConfig
+    from . import parity_variants
+    from . import step_kernel as sk
+
+    if not torch.cuda.is_available():
+        print("rollout_variants: no CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    out_dir = _out_dir()
+    with ThreadPoolExecutor(len(VARIANTS)) as pool:
+        built = dict(zip(VARIANTS, pool.map(
+            lambda n: _build_variant(n, out_dir), VARIANTS)))
+
+    dev = torch.device("cuda", 0)
+    cfgs = {b: EnvConfig(width=b[0], height=b[1], slip_prob=SLIP)
+            for b in BOARDS}
+
+    def call(name, cfg, lanes, batch=B, steps=T, seed=1):
+        return sk._launch_rollout(name, cfg, seed, dev, batch, None, steps, 0,
+                                  lanes)
+
+    def flat(out):
+        fields, stats, journal = out
+        return [*fields, *stats] + ([] if journal is None else [journal])
+
+    cpu = {(n, b): flat(sk.fused_journal_rollout(c, 3, 1024, 64, "cpu")
+                        if n == NAMES[1] else
+                        (*sk.fused_rollout(c, 3, 1024, 64, "cpu"), None))
+           for n in NAMES for b, c in cfgs.items()}
+    committed = sk._library
+    want, ok = {}, True
+    try:
+        for name, path in built.items():
+            lib = sk.declare(ctypes.CDLL(str(path)))
+            sk._library = lambda lib=lib: lib
+            regs = _registers(path.with_suffix(".log").read_text())
+            diag = name.startswith("diag-")
+            for lanes in VARIANTS[name][1]:
+                ms, same = {}, []
+                for n in NAMES:
+                    for b, c in cfgs.items():
+                        out = [x.cpu() for x in flat(call(n, c, lanes))]
+                        if name == "kernel" and lanes == 64:
+                            want[(n, b)] = out
+                        same.append(all(torch.equal(x, y) for x, y in
+                                        zip(out, want[(n, b)])))
+                        small = flat(call(n, c, 64, 1024, 64, 3))
+                        same.append(all(torch.equal(x.cpu(), y) for x, y in
+                                        zip(small, cpu[(n, b)])))
+                        fn = lambda: call(n, c, lanes)
+                        ms[f"K{NAMES.index(n) + 1} {b[0]}x{b[1]}"] = (
+                            parity_variants._time(fn), _device_ms(fn))
+                if not diag and not all(same):
+                    ok = False
+                equal = ("diagnostic, not compared" if diag
+                         else "bit-equal to the kernel and to the CPU plain "
+                         "versions" if all(same) else
+                         "DIFFERS from the kernel or the CPU plain versions")
+                print(f"[variant] {name}, {lanes} lanes per block: "
+                      + ", ".join(f"{k} call {v[0]} / device {v[1]} ms"
+                                  for k, v in ms.items())
+                      + f"; registers {regs}; {equal} | {card}", flush=True)
+    finally:
+        sk._library = committed
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -532,7 +532,7 @@ def alt_rollout_plain(cfg: EnvConfig, seed: int, batch: int, n_steps: int,
 
 def fused_rollout(cfg: EnvConfig, seed: int, batch: int, n_steps: int,
                   device="cuda", init_fields=None, step_offset: int = 0,
-                  threads: int = 128):
+                  threads=None):
     """Run ``n_steps`` of random-vs-random play for ``batch`` lanes.
 
     Returns ``(fields, (reward_sum, goals, truncs))``: the final
@@ -542,43 +542,51 @@ def fused_rollout(cfg: EnvConfig, seed: int, batch: int, n_steps: int,
     ``step_offset`` resume from an earlier call's final fields at that
     absolute step: the two calls equal one long call bit for bit.  Without
     ``init_fields`` lane i starts on ISD entry i % nI with t = 0.
-    ``threads`` is the CUDA block size (a multiple of 32); it does not
-    change the result.
+    ``threads`` is the kernel's lanes per block: a multiple of 32 in [32,
+    512] whose shared memory fits (``rollout_codes.check_lanes``; 64 by
+    default, ValueError otherwise, on any device); it does not change the
+    result.
 
     On a CPU device this runs ``fused_rollout_plain``; on a CUDA device it
     launches the K1 kernel.
     """
+    device = torch.device(device)
     fields = _start_fields(cfg, batch, n_steps, device, init_fields,
-                           step_offset)
-    if fields[0].device.type == "cpu":
+                           step_offset, make=device.type == "cpu")
+    lanes = _lanes(cfg, threads)
+    if device.type == "cpu":
         out, sums, _ = _plain(cfg, seed, fields, n_steps, step_offset, False)
         return out, _totals(sums)
-    out, stats, _ = _launch("fused_rollout", cfg, seed, fields, n_steps,
-                            step_offset, threads)
+    out, stats, _ = _launch_rollout("fused_rollout", cfg, seed, device,
+                                    batch, fields, n_steps, step_offset,
+                                    lanes)
     return out, stats
 
 
 def fused_journal_rollout(cfg: EnvConfig, seed: int, batch: int,
                           n_steps: int, device="cuda", init_fields=None,
-                          step_offset: int = 0, threads: int = 128):
+                          step_offset: int = 0, threads=None):
     """``fused_rollout`` that also journals every transition.
 
     Returns ``(fields, stats, journal)``; the trajectories, fields and
     stats equal ``fused_rollout``'s for the same arguments, and
     ``journal`` is int32 [n_steps, batch], one packed word per lane-step
-    (decode with ``unpack_journal``).  On a CPU device this runs
+    (decode with ``unpack_journal``).  ``threads`` as in
+    ``fused_rollout``.  On a CPU device this runs
     ``fused_journal_rollout_plain``; on a CUDA device it launches the K2
     kernel.
     """
     _check_journal_fits(cfg)
+    device = torch.device(device)
     fields = _start_fields(cfg, batch, n_steps, device, init_fields,
-                           step_offset)
-    if fields[0].device.type == "cpu":
+                           step_offset, make=device.type == "cpu")
+    lanes = _lanes(cfg, threads)
+    if device.type == "cpu":
         out, sums, words = _plain(cfg, seed, fields, n_steps, step_offset,
                                   True)
         return out, _totals(sums), words
-    return _launch("fused_journal_rollout", cfg, seed, fields, n_steps,
-                   step_offset, threads)
+    return _launch_rollout("fused_journal_rollout", cfg, seed, device, batch,
+                           fields, n_steps, step_offset, lanes)
 
 
 def multigrid_rollout(cfgs, seed: int, batch: int, n_steps: int,
@@ -636,6 +644,11 @@ def alt_rollout(cfg: EnvConfig, seed: int, batch: int, n_steps: int,
     return out, stats
 
 
+def _lanes(cfg: EnvConfig, threads) -> int:
+    from . import rollout_codes
+    return rollout_codes.check_lanes(cfg, threads)
+
+
 def _check_journal_fits(cfg: EnvConfig) -> None:
     if cfg.n_raw > 65536:
         raise ValueError(f"raw state code needs {cfg.n_raw} values; the "
@@ -643,10 +656,12 @@ def _check_journal_fits(cfg: EnvConfig) -> None:
 
 
 def _start_fields(cfg, batch: int, n_steps: int, device, init_fields,
-                  step_offset: int, alt: bool = False):
+                  step_offset: int, alt: bool = False, make: bool = True):
     """The six int32 [batch] starting planes on ``device``, checked; ``cfg``
     is an EnvConfig or a tuple of them (a mixture, round-robin).  ``alt``:
-    the alternating game's seven (turn before t)."""
+    the alternating game's seven (turn before t).  Without ``init_fields``
+    and ``make``, None: K1/K2 start lane i on ISD entry i % nI
+    themselves."""
     if batch <= 0 or batch % BATCH_MULTIPLE:
         raise ValueError(f"batch must be a positive multiple of "
                          f"{BATCH_MULTIPLE}, got {batch}")
@@ -654,6 +669,8 @@ def _start_fields(cfg, batch: int, n_steps: int, device, init_fields,
         raise ValueError(f"steps [{step_offset}, {step_offset + n_steps}) "
                          "must lie in [0, 2**31)")
     device = torch.device(device)
+    if init_fields is None and not make:
+        return None
     if init_fields is None:
         if alt:
             return init_alt_fields(cfg, batch, device)
@@ -678,22 +695,27 @@ def _start_fields(cfg, batch: int, n_steps: int, device, init_fields,
 # CUDA launch (K1, K2, K3, K4)
 # ----------------------------------------------------------------------
 
-_ENTRY = {"fused_rollout": "gst_fused_rollout",
-          "fused_journal_rollout": "gst_fused_journal_rollout",
-          "alt_rollout": "gst_alt_rollout"}
-
-
 @functools.lru_cache(maxsize=None)
 def _library():
     """The built kernel library with its C signatures declared."""
     from . import _build
-    lib = _build.load("step_kernel")
+    return declare(_build.load("step_kernel"))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a build of ``csrc/step_kernel.cu``."""
     vp, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
     tail = [vp, i32, i32, u32, i32, i32, vp]  # params, B, T, seed, offset,
     #                                            threads, stream
-    lib.gst_fused_rollout.argtypes = [i32, vp, vp, vp] + tail
+    # params, table, code_raw, n_codes, B, T, seed, offset, lanes, stream
+    k1k2 = [vp, vp, vp, i32, i32, i32, u32, i32, i32, vp]
+    lib.gst_fused_rollout.argtypes = [i32, vp, vp, vp] + k1k2
+    lib.gst_fused_journal_rollout.argtypes = [i32, vp, vp, vp, vp] + k1k2
     lib.gst_alt_rollout.argtypes = [i32, vp, vp, vp] + tail
-    lib.gst_fused_journal_rollout.argtypes = [i32, vp, vp, vp, vp] + tail
+    lib.gst_rollout_smem_bytes.argtypes = [i32, i32]
+    lib.gst_rollout_smem_bytes.restype = i32
+    lib.gst_rollout_shape.argtypes = [vp]
+    lib.gst_rollout_shape.restype = None
     lib.gst_multigrid_rollout.argtypes = [i32, vp, vp, vp, vp, i32, i32, u32,
                                           i32, i32, i32, i32, vp]
     #    device, in, out, geo, stats, B, T, seed, offset, max_steps,
@@ -718,8 +740,9 @@ def _game_params(cfg: EnvConfig):
 
 
 def check_threads(name: str, device: torch.device, threads: int) -> None:
-    """Refuse a device without a kernel and a block size the kernels do not
-    take."""
+    """Refuse a device without a kernel and a block size (threads a block)
+    the kernels K3-K11 do not take.  K1/K2 take lanes per block instead
+    (``rollout_codes.check_lanes``)."""
     if device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {device}")
     if threads <= 0 or threads > 1024 or threads % 32:
@@ -733,8 +756,50 @@ def ptr_array(tensors):
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
+def _launch_rollout(name: str, cfg: EnvConfig, seed: int, dev: torch.device,
+                    B: int, fields, n_steps: int, step_offset: int,
+                    lanes: int):
+    """Launch K1 or K2 on ``B`` lanes from ``fields`` (None: the kernel's
+    ISD spread) at ``lanes`` lanes per block, on the step table when the
+    geometry takes it (``rollout_codes.uses_table``)."""
+    from . import rollout_codes
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    lib = _library()
+    if fields is not None:
+        dev = fields[0].device
+    elif dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    planes = torch.empty((6, B), dtype=torch.int32, device=dev)
+    out = tuple(planes.unbind(0))
+    stats = torch.empty(3, dtype=torch.int64, device=dev)
+    in_ptrs = None if fields is None else ptr_array(fields)
+    out_ptrs = (ctypes.c_void_p * 6)(*(planes.data_ptr() + 4 * B * k
+                                      for k in range(6)))
+    head = [dev.index, None if in_ptrs is None else ctypes.addressof(in_ptrs),
+            ctypes.addressof(out_ptrs), stats.data_ptr()]
+    journal = None
+    if name == "fused_journal_rollout":
+        journal = torch.empty((n_steps, B), dtype=torch.int32, device=dev)
+        head.append(journal.data_ptr())
+    table = (rollout_codes.device_step_table(cfg, dev)
+             if rollout_codes.uses_table(cfg) else None)
+    rc = getattr(lib, "gst_" + name)(
+        *head, ctypes.addressof(_game_params(cfg)),
+        None if table is None else table.table.data_ptr(),
+        None if table is None else table.code_raw.data_ptr(),
+        0 if table is None else table.n_codes, B, n_steps, seed & M32,
+        step_offset, lanes, torch.cuda.current_stream(dev).cuda_stream)
+    if rc:
+        raise RuntimeError(f"{name}: kernel launch failed: "
+                           f"{lib.gst_error_string(rc).decode()} ({rc})")
+    launch_counts[name] += 1
+    return out, tuple(stats.unbind()), journal
+
+
 def _launch(name: str, cfg: EnvConfig, seed: int, fields, n_steps: int,
             step_offset: int, threads: int):
+    """Launch K4 (``alt_rollout``) at ``threads`` threads a block."""
     dev = fields[0].device
     check_threads(name, dev, threads)
     lib = _library()
@@ -743,21 +808,15 @@ def _launch(name: str, cfg: EnvConfig, seed: int, fields, n_steps: int,
     stats = torch.empty(3, dtype=torch.int64, device=dev)
     in_ptrs, out_ptrs = ptr_array(fields), ptr_array(out)
     params = _game_params(cfg)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    head = [dev.index, ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs),
-            stats.data_ptr()]
-    tail = [ctypes.addressof(params), B, n_steps, seed & M32, step_offset,
-            threads, stream]
-    journal = None
-    if name == "fused_journal_rollout":
-        journal = torch.empty((n_steps, B), dtype=torch.int32, device=dev)
-        head.append(journal.data_ptr())
-    rc = getattr(lib, _ENTRY[name])(*head, *tail)
+    rc = lib.gst_alt_rollout(
+        dev.index, ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs),
+        stats.data_ptr(), ctypes.addressof(params), B, n_steps, seed & M32,
+        step_offset, threads, torch.cuda.current_stream(dev).cuda_stream)
     if rc:
         raise RuntimeError(f"{name}: kernel launch failed: "
                            f"{lib.gst_error_string(rc).decode()} ({rc})")
     launch_counts[name] += 1
-    return out, tuple(stats.unbind()), journal
+    return out, tuple(stats.unbind()), None
 
 
 def _launch_mg(cfgs: tuple, seed: int, fields, planes, n_steps: int,

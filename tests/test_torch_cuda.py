@@ -28,12 +28,13 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("board", BOARDS)
 def test_kernels_equal_plain_versions(cuda, board):
-    """K1 and K2 equal the plain versions for two block sizes, and a run
-    resumed through step_offset equals one run."""
+    """K1 and K2 equal the plain versions at 64 lanes per block (the
+    default), 96 (a ragged last block) and 32, and a run resumed through
+    step_offset equals one run."""
     cfg = EnvConfig(width=board[0], height=board[1], slip_prob=0.2)
     B, T = 2048, 64
     pf, ps, pj = sk.fused_journal_rollout_plain(cfg, 4, B, T, cuda)
-    for threads in (128, 256):
+    for threads in (None, 96, 32):
         kf, ks = sk.fused_rollout(cfg, 4, B, T, cuda, threads=threads)
         jf, js, jj = sk.fused_journal_rollout(cfg, 4, B, T, cuda,
                                               threads=threads)
@@ -45,6 +46,32 @@ def test_kernels_equal_plain_versions(cuda, board):
     fb, _ = sk.fused_rollout(cfg, 4, B, T - T // 2, cuda, init_fields=fa,
                              step_offset=T // 2)
     assert all(torch.equal(a, b) for a, b in zip(fb, pf))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("board", BOARDS)
+def test_kernels_odd_steps_and_unwalkable_lanes(cuda, board):
+    """A partial last tile of step codes (37 steps), no steps at all, and
+    lanes the step table cannot start from (a player without the ball in
+    a goal column: their warps walk by arithmetic) equal the plain
+    versions; a block whose shared memory does not fit is refused."""
+    cfg = EnvConfig(width=board[0], height=board[1], slip_prob=0.2)
+    B = 1024
+    fields = [f.clone() for f in sk.fused_rollout(cfg, 2, B, 50, cuda)[0]]
+    fields[0][::5], fields[1][::5], fields[4][::5] = \
+        cfg.goal_row_bounds[0], 0, 1
+    for T in (37, 0):
+        got = sk.fused_journal_rollout(cfg, 6, B, T, cuda, init_fields=fields,
+                                       step_offset=50)
+        want = sk.fused_journal_rollout_plain(cfg, 6, B, T, cuda,
+                                              init_fields=fields,
+                                              step_offset=50)
+        assert all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+        assert _ints(got[1]) == _ints(want[1])
+        assert torch.equal(got[2], want[2])
+    if board == (5, 4):
+        with pytest.raises(ValueError, match="shared memory"):
+            sk.fused_rollout(cfg, 0, B, 8, cuda, threads=224)
 
 
 @pytest.mark.cuda

@@ -1,0 +1,210 @@
+"""The two stages of the K1/K2 kernels (gym_soccer_tpu_torch.ops.rollout_codes)
+on the CPU: step codes made from the counter words, then the walk of the
+state chain from the codes, by the step table and by arithmetic, held to
+the plain versions and to the JAX package's ``pallas_journal_rollout`` in
+interpret mode; the step table held to the JAX package's
+``transition_core`` for every walkable state and all 100 inputs; the
+constant-divisor ISD pick and the effective moves.  Tolerance: exact
+equality throughout, since every operation is integer."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gym_soccer_tpu.config import EnvConfig as JaxConfig
+from gym_soccer_tpu.ops import step_kernel as jsk
+from gym_soccer_tpu_torch import interop
+from gym_soccer_tpu_torch.config import EnvConfig
+from gym_soccer_tpu_torch.core import rules
+from gym_soccer_tpu_torch.ops import rollout_codes as rc
+from gym_soccer_tpu_torch.ops import rollout_variants
+from gym_soccer_tpu_torch.ops import step_kernel as sk
+
+B, T = 1024, 64
+BOARDS = [(5, 4), (11, 7)]
+
+
+def _cfgs(board, q=0.2):
+    w, h = board
+    return JaxConfig(width=w, height=h, slip_prob=q), \
+        EnvConfig(width=w, height=h, slip_prob=q)
+
+
+def _two_stages(cfg, seed, fields, n_steps, step_offset=0, table=None):
+    codes = rc.step_codes(cfg, seed, torch.arange(B), n_steps, step_offset)
+    return rc.walk_codes(cfg, fields, codes, True, table)
+
+
+def _equal(got, want):
+    (gf, gs, gj), (wf, ws, wj) = got, want
+    assert all(torch.equal(a, b) for a, b in zip(gf, wf))
+    assert [int(x.sum()) for x in gs] == [int(x.sum()) for x in ws]
+    assert torch.equal(gj, wj)
+
+
+@pytest.mark.parametrize("board", BOARDS)
+def test_two_stages_equal_the_plain_version_and_pallas(board):
+    """Codes then walk equal ``_plain`` (fields, per-lane sums, journal)
+    and the JAX package's Pallas journal kernel in interpret mode; on 5x4
+    the table walk and the arithmetic walk agree."""
+    jcfg, cfg = _cfgs(board)
+    fields = sk._start_fields(cfg, B, T, "cpu", None, 0)
+    got = _two_stages(cfg, 7, fields, T)
+    out, sums, words = sk._plain(cfg, 7, fields, T, 0, True)
+    assert all(torch.equal(a, b) for a, b in zip(got[1], sums))
+    _equal(got, (out, sums, words))
+    if rc.uses_table(cfg):
+        _equal(_two_stages(cfg, 7, fields, T, table=False), got)
+    jfields, jstats, jjournal = jsk.pallas_journal_rollout(
+        jcfg, jnp.int32(7), B, T, interpret=True)
+    assert [int(x.sum()) for x in got[1]] == [int(x) for x in jstats]
+    assert np.array_equal(interop.journal_to_tiles(got[2]),
+                          np.asarray(jjournal))
+    for a, b in zip(interop.planes_to_tiles(got[0]), jfields):
+        assert np.array_equal(a, np.asarray(b))
+
+
+@pytest.mark.parametrize("board", BOARDS)
+def test_two_stages_resume_at_a_step_offset(board):
+    """Walking 24 steps, then 40 more from their fields with codes made at
+    step offset 24, equals one 64-step walk, and the JAX kernel resumed
+    from the same fields."""
+    jcfg, cfg = _cfgs(board)
+    fields = sk._start_fields(cfg, B, T, "cpu", None, 0)
+    whole = _two_stages(cfg, 9, fields, T)
+    first = _two_stages(cfg, 9, fields, 24)
+    second = _two_stages(cfg, 9, first[0], T - 24, step_offset=24)
+    assert all(torch.equal(a, b) for a, b in zip(second[0], whole[0]))
+    assert torch.equal(torch.cat([first[2], second[2]]), whole[2])
+    assert [int(x.sum() + y.sum()) for x, y in zip(first[1], second[1])] \
+        == [int(x.sum()) for x in whole[1]]
+    _, jstats, jjournal = jsk.pallas_journal_rollout(
+        jcfg, jnp.int32(9), B, T - 24, interpret=True, step_offset=24,
+        init_fields=[jnp.asarray(p)
+                     for p in interop.planes_to_tiles(first[0])])
+    assert np.array_equal(interop.journal_to_tiles(second[2]),
+                          np.asarray(jjournal))
+    assert [int(x.sum()) for x in second[1]] == [int(x) for x in jstats]
+
+
+def test_unwalkable_warps_walk_by_arithmetic():
+    """Lanes that start where the game cannot go (a player without the
+    ball in a goal column, both players on one cell) take their warp off
+    the table; the result still equals the plain version."""
+    _, cfg = _cfgs((5, 4))
+    ra, ca, rb, cb, p, t = (f.clone() for f in
+                            sk._start_fields(cfg, B, T, "cpu", None, 0))
+    ca[5::97], ra[5::97] = 0, 1            # goal column, ball with B
+    p[5::97] = 1
+    rb[40::131], cb[40::131] = ra[40::131], ca[40::131]   # one cell
+    fields = (ra, ca, rb, cb, p, t)
+    walkable = rc.walkable(cfg, ra, ca, rb, cb, p)
+    assert not walkable.all() and walkable.reshape(-1, 32).all(1).any()
+    _equal(_two_stages(cfg, 5, fields, T),
+           sk._plain(cfg, 5, fields, T, 0, True))
+
+
+def _entries(st, codes, inputs):
+    e = st.table.reshape(rc.INPUTS, st.n_codes)[inputs, codes].astype(
+        np.int64)
+    return (e & rc.CODE_MASK) >> 1, e < 0, np.where(
+        e < 0, np.where(e & rc.REWARD_BIT, 1, -1), 0)
+
+
+def test_step_table_equals_jax_transition_core():
+    """Every walkable state under all 100 inputs: the table's next code,
+    goal and reward equal the JAX package's transition_core under the
+    effective moves played without slip; and under slipped actions the
+    table at the effective moves equals transition_core with the slip."""
+    jcfg, cfg = _cfgs((5, 4))
+    st = rc.build_step_table(cfg)
+    live = np.flatnonzero(rc.walkable(cfg, *st.code_fields.T))
+    assert len(live) == 2 * 20 * 19       # 20 interior cells, distinct, p
+    code, inp = (a.ravel() for a in np.meshgrid(live, np.arange(rc.INPUTS)))
+    f = [jnp.asarray(st.code_fields[code, k]) for k in range(5)]
+    ea, eb, coin = inp // 20, (inp // 4) % 5, inp % 4
+    out = jsk.transition_core(*f, jnp.asarray(ea), jnp.asarray(eb),
+                              jnp.zeros(len(code), jnp.uint32),
+                              jnp.asarray(coin, jnp.uint32), jcfg, 0)
+    nra, nca, nrb, ncb, npz, goal, r = (np.asarray(x) for x in out)
+    nxt, tgoal, tr = _entries(st, code, inp)
+    assert np.array_equal(
+        nxt, rules.cellpair_encode(np, nra, nca, nrb, ncb, npz, cfg))
+    assert np.array_equal(tgoal, goal) and np.array_equal(tr, r)
+    # slipped actions: the effective moves carry the whole slip
+    rng = np.random.default_rng(0)
+    n = 20000
+    code = rng.choice(live, n)
+    a, b = rng.integers(0, 5, n), rng.integers(0, 5, n)
+    u = rng.integers(0, 65536, (2, n))
+    coin = rng.integers(0, 4, n)
+    q = sk._q_int(cfg)
+    f = [jnp.asarray(st.code_fields[code, k]) for k in range(5)]
+    out = jsk.transition_core(
+        *f, jnp.asarray(a), jnp.asarray(b),
+        jnp.asarray((u[0] | (u[1] << 16)).astype(np.uint32)),
+        jnp.asarray(coin.astype(np.uint32)), jcfg, q)
+    nra, nca, nrb, ncb, npz, goal, r = (np.asarray(x) for x in out)
+    em = [rc.effective_move(torch.as_tensor(x), torch.as_tensor(y), q)
+          .numpy() for x, y in ((a, u[0]), (b, u[1]))]
+    nxt, tgoal, tr = _entries(st, code, (em[0] * 5 + em[1]) * 4 + coin)
+    assert np.array_equal(
+        nxt, rules.cellpair_encode(np, nra, nca, nrb, ncb, npz, cfg))
+    assert np.array_equal(tgoal, goal) and np.array_equal(tr, r)
+
+
+def test_step_table_fits_one_block():
+    """5x4's table, 220,800 B, fits one block's shared memory beside the
+    ring of 64 or 96 lanes (the default and the ragged size), up to 192,
+    not of 224; 11x7's does not fit and walks by arithmetic."""
+    _, c54 = _cfgs((5, 4))
+    _, c117 = _cfgs((11, 7))
+    st = rc.build_step_table(c54)
+    assert st.n_codes == 1104 and st.table.nbytes == 220800
+    assert rc.smem_bytes(64, 1104) == 112 + 220800 + 2208 + 3072 \
+        <= rc.SMEM_BUDGET
+    assert rc.smem_bytes(64, 0) == 112 + 3072
+    assert rc.smem_bytes(96, 1104) <= rc.SMEM_BUDGET
+    assert rc.smem_bytes(192, 1104) <= rc.SMEM_BUDGET
+    assert rc.smem_bytes(224, 1104) > rc.SMEM_BUDGET
+    assert rc.uses_table(c54) and not rc.uses_table(c117)
+    assert rules.n_cellpairs(c117) == 13612
+    assert rc.table_bytes(13612) > rc.SMEM_BUDGET
+    with pytest.raises(ValueError, match="13 bits"):
+        rc.build_step_table(c117)
+
+
+@pytest.mark.parametrize("nI", [1, 2, 3, 4])
+def test_isd_pick_equals_the_remainder(nI):
+    u = torch.arange(65536, dtype=torch.int64)
+    assert torch.equal(rc.isd_pick(u, nI), u % nI)
+    with pytest.raises(ValueError):
+        rc.isd_pick(u, 5)
+
+
+@pytest.mark.parametrize("q_int", [0, 13107, 32768, 65535, 65536])
+def test_effective_move_is_the_slipped_move(q_int):
+    """The action ``effective_move`` names moves as ``_slipped_move`` does,
+    for every action and every u16; it is 0 exactly when the action is."""
+    a = torch.arange(5).repeat_interleave(65536)
+    u = torch.arange(65536).repeat(5)
+    e = rc.effective_move(a, u, q_int)
+    assert torch.equal(torch.stack(sk._slipped_move(e, torch.zeros_like(u),
+                                                    0)),
+                       torch.stack(sk._slipped_move(a, u, q_int)))
+    assert torch.equal(e == 0, a == 0)
+
+
+@pytest.mark.parametrize("name", sorted(rollout_variants.VARIANTS))
+def test_rollout_variants_patch_the_committed_kernel(name):
+    """Each timed variant of K1/K2 (ops/rollout_variants.py) applies its
+    patches, each to exactly one place in the committed source, and changes
+    it unless it is the kernel itself."""
+    from gym_soccer_tpu_torch.ops import _build
+    src = (_build.CSRC / "step_kernel.cu").read_text()
+    got = rollout_variants.variant_source(name, src)
+    assert (got == src) == (name == "kernel")
+    for _, new in rollout_variants.VARIANTS[name][0]:
+        assert new in got
+    with pytest.raises(ValueError, match="matches 0 times"):
+        rollout_variants.variant_source("tile-16", "no kernel here")

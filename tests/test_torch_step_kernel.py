@@ -163,3 +163,25 @@ def test_no_kernel_for_other_devices():
     _, cfg = _cfgs((5, 4))
     with pytest.raises(ValueError, match="no kernel for device meta"):
         sk.fused_rollout(cfg, 0, B, 4, "meta")
+
+
+def test_wrappers_check_lanes_per_block():
+    """``threads`` is K1/K2's lanes per block: a multiple of 32 in [32,
+    512] whose shared memory fits, checked before any launch on every
+    device; 5x4's step table leaves room for 192 lanes, not 224, and 11x7,
+    walked by arithmetic, takes 512."""
+    _, cfg = _cfgs((5, 4))
+    _, big = _cfgs((11, 7))
+    for bad in (0, 48, 544, 1024):
+        for fn in (sk.fused_rollout, sk.fused_journal_rollout):
+            with pytest.raises(ValueError, match="multiple of 32"):
+                fn(cfg, 0, B, 4, "cpu", threads=bad)
+    with pytest.raises(ValueError, match="shared memory"):
+        sk.fused_rollout(cfg, 0, B, 4, "cpu", threads=224)
+    want = sk.fused_rollout(cfg, 0, B, 4, "cpu")
+    for lanes in (32, 96, 192):
+        got = sk.fused_rollout(cfg, 0, B, 4, "cpu", threads=lanes)
+        assert all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+    sk.fused_journal_rollout(big, 0, B, 4, "cpu", threads=512)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        sk.fused_journal_rollout(cfg, 0, B, 4, "meta", threads=64)
