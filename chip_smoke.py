@@ -29,8 +29,8 @@ failure:
    per library, in parallel; for each kernel's bound, cuobjdump's SASS
    gives the fewest instructions one step (or event) of its main loop
    issues (``loop_instructions``; K12/K13's MT19937 twist amortised over
-   the 312 events between twists; K1/K2's producer code loop plus their
-   consumer tile loop over its 8 steps);
+   the 312 events between twists; K1/K2/K4/K5's producer code loop plus
+   their consumer tile loop over its 8 steps);
 3. main path: the user entry points at 8192 lanes, with the kernels'
    launch counters reset before and read after; outputs are checked by
    the repo's own means (valid states, journal decodes, stats agree);
@@ -52,9 +52,11 @@ failure:
    chunks, K5's launch counter reset before and read after; Q finite,
    |v| <= 1.05, policy rows summing to 1;
 10. K5: bit-equal to its plain version (fields, stats, visit counts and
-    the int64 residual sums) at 8192 lanes x 64 steps on 5x4 and 11x7,
-    for two block sizes, on a non-uniform table with v != 0; and on a
-    small input equal to the plain version run on the CPU;
+    the int64 residual sums) at 8192 lanes x 64 steps and at the contract's
+    65536 x 32 on 5x4 and 11x7, at the default lanes per block (one wave:
+    64 and 512) and at a size that leaves a ragged last block (96, 480),
+    on a non-uniform table with v != 0; from goal states; and on a small
+    input equal to the plain version run on the CPU;
 11. exact resume: 2 chunks equal 1 + 1 through the resume dict, bit for
     bit in q, n and the fields;
 12. the 5x4 contract: the JAX package's recipe (65536 lanes, 1000 chunks
@@ -62,7 +64,10 @@ failure:
     exploitability <= 0.010 at gamma 0.99; wall time split into chunk
     calls and the work between them;
 13. timing: learner env-steps/s of K5 and its plain version at 8192 lanes
-    x 64 steps on 5x4 and 11x7;
+    x 64 steps and 65536 x 32 on 5x4 and 11x7; each one's design line
+    (the rows' place, block shape, shared memory, registers, SASS per
+    lane-step, bound, the previous design's ms) and a ``torch.profiler``
+    window of K5 for its device time beside the call's;
 14. parity path: ``parity_events`` at 8192 lanes x 1536 events on 5x4 and
     11x7 (slip 0.2, numpy-seeded random policies, seeds arange(B) % 997)
     and ``parity_scripted_events`` at 8192 x 768 events with an 800-row
@@ -148,9 +153,11 @@ failure:
     reachable alternating state with turn 0 or 1, the stats are
     plausible, q finite and |q| <= 1.05, and one more chunk from each
     resume state counts B * T visits;
-28. K4: bit-equal to its plain version at 8192 x 1024 for two block
-    sizes; a run split by ``step_offset`` equals one run; at 1024 x 64
-    equal to the plain version run on the CPU;
+28. K4: bit-equal to its plain version at 8192 x 1024 on 5x4 and 11x7 at
+    64 lanes per block (the default), 96 (a ragged last block) and 32; a
+    run split by ``step_offset`` equals one run; lanes the tick table
+    cannot start from (walked by arithmetic) equal the plain version; at
+    1024 x 64 equal to the plain version run on the CPU;
 29. K10/K11: bit-equal to their plain versions (fields, stats with the
     out-of-range count, counts, int64 sums) at 8192 x 64 on 5x4 and 11x7
     for two block sizes, on Q tables with near-ties and a step offset; K10
@@ -166,8 +173,10 @@ failure:
     random policy (``alt_policy_rollout``, 256 lanes x 300 steps, seed 6);
     wall time split into chunk calls and the work between them;
 31. timing: K4 at 8192 x 1024 and K10/K11 at 8192 x 64, on 5x4 and 11x7,
-    each against its plain version, and ``torch.profiler`` windows of K4
-    and K10 for device time and idle share.
+    each against its plain version; K4's design line per board (walk,
+    block shape, shared memory, registers, SASS per lane-step, bound, the
+    previous design's ms) and ``torch.profiler`` windows of K4 (both
+    boards) and K10 for device time and idle share.
 
 The second-to-last lines are the kernels' JSON record (with each
 kernel's bound: the larger of its bytes over the HBM rate and its SASS
@@ -216,6 +225,16 @@ ROLLOUT_OLD_MS = {("fused_rollout", (5, 4)): 0.637,
                   ("fused_journal_rollout", (5, 4)): 0.7148,
                   ("fused_rollout", (11, 7)): 0.6014,
                   ("fused_journal_rollout", (11, 7)): 0.6805}
+# ms per call of K4 (8192 x 1024) and K5 (8192 x 64) in their previous
+# design (one thread a lane hashing and stepping, 64 blocks of 128), NVIDIA
+# H100 80GB HBM3 at 700 W, as PERF.md section 6 records them.
+ALT_OLD_MS = {(5, 4): 0.4087, (11, 7): 0.3878}
+LEARNER_OLD_MS = {(5, 4): 0.1549, (11, 7): 0.1348}
+# K5 at the 5x4 contract's chunk (65536 lanes x 32 steps) beside the
+# flagship 8192 x 64; the second block sizes leave a ragged last block
+# (8192 / 96, 65536 / 480).
+B_CONTRACT, T_CONTRACT = 65536, 32
+LEARNER_RAGGED_LANES = {B: 96, B_CONTRACT: 480}
 # The mixed-geometry cells: tools/bench_all.py:421's mixture, and the
 # JAX package's 5x4 + 11x7 stress mixture (examples/train_minimax_tpu.py:
 # 141-143).
@@ -278,20 +297,23 @@ REPLACES = {"fused_rollout": "gym_soccer_tpu/ops/step_kernel.py:254",
 SYMBOL = {"fused_rollout": "14rollout_kernelILb0ELb1E",
           "fused_journal_rollout": "14rollout_kernelILb1ELb1E",
           "multigrid_rollout": "17mg_rollout_kernel",
-          "packed_learner_chunk": "learner_kernelILb1ELb0E",
+          "packed_learner_chunk": "13packed_kernelILb1E",
           "multigrid_packed_learner_chunk": "learner_kernelILb1ELb1E",
           "learner_chunk": "learner_kernelILb0ELb0E",
           "multigrid_learner_chunk": "learner_kernelILb0ELb1E",
           "iql_packed_chunk": "iql_kernelILb1E", "iql_chunk": "iql_kernelILb0E",
           "parity_events": "parity_kernelILb0E",
           "parity_scripted_events": "parity_kernelILb1E",
-          "alt_rollout": "18alt_rollout_kernel",
+          "alt_rollout": "18alt_rollout_kernelILb1E",
           "altq_packed_chunk": "11altq_kernelILb1E",
           "altq_chunk": "11altq_kernelILb0E"}
-# K1/K2 on a board whose step table does not fit (11x7): the arithmetic
-# walk.  SYMBOL's are the table walk's (5x4, the kernels line's board).
+# K1/K2/K4 on a board whose table does not fit (11x7): the arithmetic
+# walk; K5 there: its prepared rows read from L2.  SYMBOL's are the 5x4
+# kernels' (the kernels line's board).
 ARITH_SYMBOL = {"fused_rollout": "14rollout_kernelILb0ELb0E",
-                "fused_journal_rollout": "14rollout_kernelILb1ELb0E"}
+                "fused_journal_rollout": "14rollout_kernelILb1ELb0E",
+                "alt_rollout": "18alt_rollout_kernelILb0E",
+                "packed_learner_chunk": "13packed_kernelILb0E"}
 # H100 SXM peaks (NVIDIA's data sheet): 3.35 TB/s of HBM, and 67 TFLOP/s of
 # float32 outside the tensor cores, i.e. 3.35e13 FMA instructions a second
 # (132 SMs x 4 schedulers x 32 lanes x 1.98 GHz), the rate at which the
@@ -361,12 +383,13 @@ SHARED_STORE = re.compile(r"^(@!?U?P\d\s+)?STS(\.\S+)?\s")
 TWIST = (624, 312)
 TWISTING = (SYMBOL["parity_events"], SYMBOL["parity_scripted_events"])
 BARRIER_WAIT = re.compile(r"^(@!?U?P\d\s+)?BAR\.SYNC")
-# K1/K2 split a lane-step between two threads: a producer makes its step
-# code, one a trip of the innermost loop that stores codes to shared
-# memory, and the lane's consumer walks TILE_STEPS steps a trip of an
+# K1/K2, K4 and K5 split a lane-step between two threads: a producer makes
+# its step code, one a trip of the innermost loop that stores codes to
+# shared memory, and the lane's consumer walks TILE_STEPS steps a trip of an
 # innermost loop that waits on a barrier for the tile (the table walk and
-# the arithmetic walk; csrc/step_kernel.cu kTileSteps).
-SPLIT = ("14rollout_kernelI",)
+# the arithmetic walk; csrc/step_kernel.cu kTileSteps, csrc/
+# learner_kernel.cu kTile).
+SPLIT = ("14rollout_kernelI", "18alt_rollout_kernelI", "13packed_kernelI")
 TILE_STEPS = 8
 
 
@@ -391,12 +414,12 @@ def loop_instructions(text, names=None):
     fewest instructions per word of those loops (a nested loop's body over
     the shared-memory stores it makes).
 
-    K1 and K2 (``SPLIT``) serve each lane-step from two loops, neither
-    nested in another: the count is the shortest way around the producers'
-    (the innermost loop holding a shared-memory store: one step code a
-    trip) plus the shortest way around the consumers' over TILE_STEPS (the
-    innermost loops holding a barrier wait, the fewest of them: a tile a
-    trip)."""
+    K1, K2, K4 and K5 (``SPLIT``) serve each lane-step from two loops,
+    neither nested in another: the count is the shortest way around the
+    producers' (the innermost loop holding a shared-memory store: one step
+    code a trip) plus the shortest way around the consumers' over
+    TILE_STEPS (the innermost loops holding a barrier wait, the fewest of
+    them: a tile a trip)."""
     kernels, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -456,7 +479,7 @@ def _trip(name, body):
 
 
 def _split_count(name, ins, loops):
-    """K1/K2's instructions per lane-step (``loop_instructions``)."""
+    """A split kernel's instructions per lane-step (``loop_instructions``)."""
     innermost = [(t, a) for t, a in loops
                  if not any((t2, a2) != (t, a) and t <= t2 and a2 <= a
                             for t2, a2 in loops)]
@@ -552,6 +575,7 @@ def main() -> int:
     from gym_soccer_tpu_torch.config import EnvConfig
     from gym_soccer_tpu_torch.core import batch, tables
     from gym_soccer_tpu_torch.ops import _build
+    from gym_soccer_tpu_torch.ops import learner_codes as lc
     from gym_soccer_tpu_torch.ops import learner_kernel as lk
     from gym_soccer_tpu_torch.ops import rollout_codes as rc
     from gym_soccer_tpu_torch.ops import step_kernel as sk
@@ -573,8 +597,15 @@ def main() -> int:
         print(path.with_suffix(".log").read_text().strip())
     shape = (ctypes.c_int32 * 3)()
     sk._library().gst_rollout_shape(ctypes.addressof(shape))
-    check(shape[0] == TILE_STEPS, f"K1/K2 tiles of {shape[0]} steps, the "
+    check(shape[0] == TILE_STEPS, f"K1/K2/K4 tiles of {shape[0]} steps, "
+          f"the bound counts {TILE_STEPS}")
+    k5_shape = (ctypes.c_int32 * 3)()
+    lk._library().gst_packed_shape(ctypes.addressof(k5_shape))
+    check(k5_shape[0] == TILE_STEPS, f"K5 tiles of {k5_shape[0]} steps, the "
           f"bound counts {TILE_STEPS}")
+    check((k5_shape[0], k5_shape[1], k5_shape[2]) ==
+          (lc.TILE_STEPS, lc.STAGES, lc.PRODUCER_WARPS),
+          "K5's ring differs from learner_codes'")
     loops = {}
     for path in built.values():
         loops.update(sass_loop_instructions(
@@ -587,8 +618,8 @@ def main() -> int:
         per_step[name] = found[0]
     print(f"[build] SASS instructions per lane-step (K12/K13: lane-event, "
           f"with the MT19937 twist amortised over its {TWIST[1]} events; "
-          f"K1/K2: a producer's code loop plus a consumer's tile loop over "
-          f"its {TILE_STEPS} steps, 'arith' the walk of boards whose step "
+          f"K1/K2/K4/K5: a producer's code loop plus a consumer's tile loop "
+          f"over its {TILE_STEPS} steps, 'arith' the walk of boards whose "
           f"table does not fit) on the shortest way around each kernel's "
           f"main loop (cuobjdump -sass): {per_step}")
 
@@ -773,14 +804,15 @@ def main() -> int:
     print(f"[clocks] sm MHz, power W, temp C after timing: "
           f"{smi('clocks.sm,power.draw,temperature.gpu')}")
 
-    learner_launches, errs["packed_learner_chunk"], learner_ms = \
-        learner_phases(torch, dev, card, cfgs, lk, exploitability)
-    launches.update(learner_launches)
-    ms.update(learner_ms)
-
     regs = {}
     for path in built.values():
         regs.update(ptxas_registers(path.with_suffix(".log").read_text()))
+    learner_launches, errs["packed_learner_chunk"], learner_ms = \
+        learner_phases(torch, dev, card, cfgs, lk, exploitability, per_step,
+                       regs)
+    launches.update(learner_launches)
+    ms.update(learner_ms)
+
     parity_launches, parity_errs, parity_ms, parity_bytes = parity_phases(
         torch, dev, card, regs)
     launches.update(parity_launches)
@@ -801,8 +833,8 @@ def main() -> int:
     ms.update(mg_ms)
 
     t0 = time.perf_counter()
-    alt_launches, alt_errs, alt_ms, alt_work = alt_phases(torch, dev, card,
-                                                          cfgs)
+    alt_launches, alt_errs, alt_ms, alt_work = alt_phases(
+        torch, dev, card, cfgs, per_step, regs)
     print(f"[alt] phases 27-31 ran {time.perf_counter() - t0} s")
     launches.update(alt_launches)
     errs.update(alt_errs)
@@ -877,10 +909,12 @@ def chunk_err(a, b):
                         (ints(sa), ints(sb))])
 
 
-def learner_phases(torch, dev, card, cfgs, lk, exploitability):
+def learner_phases(torch, dev, card, cfgs, lk, exploitability, per_step,
+                   regs):
     """Phases 9-13: the training path and kernel K5.  Returns K5's launches
     on the training path, its max abs error against the plain version,
     and the ms per call of K5 and its plain version."""
+    from gym_soccer_tpu_torch.ops import learner_codes as lc
     cfg = cfgs[(5, 4)]
 
     # ---- 9. training path, through the entry point ---------------------
@@ -907,26 +941,40 @@ def learner_phases(torch, dev, card, cfgs, lk, exploitability):
     # ---- 10. K5 against its plain version ------------------------------
     err = 0
     for board, c in cfgs.items():
+        for BB, TT in ((B, T_K5), (B_CONTRACT, T_CONTRACT)):
+            table, fields = learner_inputs(torch, lk, c, BB, dev, seed=board[0])
+            plain = lk.packed_learner_chunk_plain(c, 77, table, fields, BB, TT,
+                                                  0.99)
+            for lanes in (None, LEARNER_RAGGED_LANES[BB]):
+                got = lk.packed_learner_chunk(c, 77, table, fields, BB, TT,
+                                              0.99, threads=lanes)
+                e = chunk_err(got, plain)
+                err = max(err, e)
+                check(e == 0, f"K5 != plain on {board} at {BB} x {TT}, "
+                      f"{lanes or 'default'} lanes per block: max abs err {e}")
+            cnt = int(plain[1][1].sum())
+            check(cnt == BB * TT, f"{cnt} visits counted, not {BB * TT}")
         table, fields = learner_inputs(torch, lk, c, B, dev, seed=board[0])
-        plain = lk.packed_learner_chunk_plain(c, 77, table, fields, B, T_K5,
-                                              0.99)
-        for threads in (128, 256):
-            got = lk.packed_learner_chunk(c, 77, table, fields, B, T_K5, 0.99,
-                                          threads=threads)
-            e = chunk_err(got, plain)
-            err = max(err, e)
-            check(e == 0, f"K5 != plain on {board}, threads {threads}: "
-                  f"max abs err {e}")
-        cnt = int(plain[1][1].sum())
-        check(cnt == B * T_K5, f"{cnt} visits counted, not {B * T_K5}")
+        # lanes that start in goal states, every 7th lane
+        bad = [f.clone() for f in fields]
+        bad[0][::7], bad[1][::7], bad[4][::7] = c.goal_row_bounds[0], c.W - 1, 0
+        e = chunk_err(lk.packed_learner_chunk(c, 8, table, bad, B, T_K5, 0.99),
+                      lk.packed_learner_chunk_plain(c, 8, table, bad, B, T_K5,
+                                                    0.99))
+        check(e == 0, f"K5 from goal states != plain on {board}")
         small = lk.packed_learner_chunk(c, 5, table, fields, B, 8, 0.99)
         cpu = lk.packed_learner_chunk(c, 5, table.cpu(),
                                       [f.cpu() for f in fields], B, 8, 0.99)
         check(chunk_err(small, cpu) == 0, f"K5 != CPU plain on {board}")
-        print(f"[K5] {board[0]}x{board[1]} B={B} T={T_K5}: bit-equal to plain "
-              f"(fields, stats, counts, int64 residual sums; max abs err "
-              f"{err}); threads 128/256 equal; B={B} T=8 equals the CPU "
-              "plain version")
+        print(f"[K5] {board[0]}x{board[1]} (rows in "
+              f"{'shared memory' if lc.shared_rows(c) else 'L2'}): "
+              f"bit-equal to plain (fields, stats, counts, int64 residual "
+              f"sums; max abs err {err}) at {B} x {T_K5} and {B_CONTRACT} x "
+              f"{T_CONTRACT}, at the default lanes per block ("
+              f"{lc.default_lanes(B)}, {lc.default_lanes(B_CONTRACT)}) and "
+              f"at {LEARNER_RAGGED_LANES[B]}, {LEARNER_RAGGED_LANES[B_CONTRACT]} "
+              f"(ragged); from goal states equal to plain; B={B} T=8 "
+              "equals the CPU plain version")
 
     # ---- 11. exact resume on the card ----------------------------------
     kw = dict(batch=B, chunk_len=T_K5, lr=0.5, eps=0.3, eps_halflife=64,
@@ -968,18 +1016,52 @@ def learner_phases(torch, dev, card, cfgs, lk, exploitability):
     # ---- 13. timing ----------------------------------------------------
     ms = {}
     for board, c in cfgs.items():
-        table, fields = learner_inputs(torch, lk, c, B, dev, seed=board[0])
-        for name, fn in (("packed_learner_chunk", lk.packed_learner_chunk),
-                         ("packed_learner_chunk_plain",
-                          lk.packed_learner_chunk_plain)):
-            med, reps, legs = time_cuda(
-                lambda: fn(c, 77, table, fields, B, T_K5, 0.99))
-            if board == (5, 4):
-                ms[name] = med
-            print(f"[time] {name} {board[0]}x{board[1]} B={B} T={T_K5}: "
-                  f"{med} ms/call, {B * T_K5 / (med / 1e3)} learner "
-                  f"env-steps/s (median of {len(legs)} legs x {reps} calls; "
-                  f"legs ms/call {legs}) | {card}")
+        for BB, TT in ((B, T_K5), (B_CONTRACT, T_CONTRACT)):
+            table, fields = learner_inputs(torch, lk, c, BB, dev, seed=board[0])
+            for name, fn in (("packed_learner_chunk", lk.packed_learner_chunk),
+                             ("packed_learner_chunk_plain",
+                              lk.packed_learner_chunk_plain)):
+                med, reps, legs = time_cuda(
+                    lambda: fn(c, 77, table, fields, BB, TT, 0.99))
+                if board == (5, 4) and BB == B:
+                    ms[name] = med
+                if name == "packed_learner_chunk":
+                    now = med
+                print(f"[time] {name} {board[0]}x{board[1]} B={BB} T={TT}: "
+                      f"{med} ms/call, {BB * TT / (med / 1e3)} learner "
+                      f"env-steps/s (median of {len(legs)} legs x {reps} "
+                      f"calls; legs ms/call {legs}) | {card}")
+            us = profile_window(
+                torch, lambda: lk.packed_learner_chunk(c, 77, table, fields,
+                                                       BB, TT, 0.99),
+                f"packed_learner_chunk {board[0]}x{board[1]} B={BB} T={TT}",
+                "packed_kernel", card)
+            shared = lc.shared_rows(c)
+            lanes = lc.default_lanes(BB)
+            key = "packed_learner_chunk" + ("" if shared else " arith")
+            sym = (SYMBOL if shared else ARITH_SYMBOL)["packed_learner_chunk"]
+            smem = lc.smem_bytes(lanes, lk.n_codes(c) if shared else 0)
+            check(lk._library().gst_packed_smem_bytes(lanes, lk.n_codes(c))
+                  == smem, "K5's shared memory differs from smem_bytes")
+            offsets = (ctypes.c_longlong * 7)()
+            lk._library().gst_packed_chunk_layout(lk.n_codes(c), BB,
+                                                  ctypes.addressof(offsets))
+            check(tuple(offsets) == tuple(lc.layout(lk.n_codes(c), BB)),
+                  "K5's layout differs from learner_codes.layout")
+            reg = [r for k, r in regs.items() if sym in k]
+            old = (f" against the previous design's "
+                   f"{LEARNER_OLD_MS[board]} ms ({LEARNER_OLD_MS[board] / now}x)"
+                   if BB == B else "")
+            print(f"[design] packed_learner_chunk {board[0]}x{board[1]} B={BB} "
+                  f"T={TT} (rows in {'shared memory' if shared else 'L2'}): "
+                  f"{lanes} lanes and {lc.PRODUCER_WARPS} producer warps a "
+                  f"block ({-(-BB // lanes)} blocks of "
+                  f"{lanes + 32 * lc.PRODUCER_WARPS} threads), "
+                  f"{smem} B of shared memory "
+                  f"per block, {reg} registers per thread; {per_step[key]} "
+                  f"SASS per lane-step, bound "
+                  f"{bound(BB * TT, per_step[key], 0)[0]} ms; {now} ms/call, "
+                  f"{us} us of kernel a launch{old} | {card}")
     return launches, err, ms
 
 
@@ -1790,7 +1872,7 @@ def alt_inputs(torch, ak, cfg, B, dev, seed, bad=None):
             ak.init_alt_state_fields(cfg, B, dev))
 
 
-def alt_phases(torch, dev, card, cfgs):
+def alt_phases(torch, dev, card, cfgs, per_step, regs):
     """Phases 27-31: the alternating-turn path and kernels K4, K10 and
     K11.  Returns their launches on the path, their max abs error against
     the plain versions, their ms per call and those of their plain
@@ -1799,6 +1881,7 @@ def alt_phases(torch, dev, card, cfgs):
     from gym_soccer_tpu_torch.agents.learners import altq_greedy_policy
     from gym_soccer_tpu_torch.envs import soccer_alternating_env as alt
     from gym_soccer_tpu_torch.ops import altq_kernel as ak
+    from gym_soccer_tpu_torch.ops import rollout_codes as rc
     from gym_soccer_tpu_torch.ops import step_kernel as sk
     c54 = cfgs[(5, 4)]
     names = {True: "altq_packed_chunk", False: "altq_chunk"}
@@ -1860,13 +1943,13 @@ def alt_phases(torch, dev, card, cfgs):
     for b, c in cfgs.items():
         seed = 31 + b[0]
         pf, ps = sk.alt_rollout_plain(c, seed, B, T_K4, dev)
-        for threads in (128, 256):
-            got = rolls[b] if threads == 128 else sk.alt_rollout(
-                c, seed, B, T_K4, dev, threads=threads)
+        for lanes in (None, ROLLOUT_RAGGED_LANES, 32):
+            got = rolls[b] if lanes is None else sk.alt_rollout(
+                c, seed, B, T_K4, dev, threads=lanes)
             e = max_abs_err([*zip(got[0], pf), (ints(got[1]), ints(ps))])
             errs["alt_rollout"] = max(errs["alt_rollout"], e)
-            check(e == 0, f"K4 != plain on {b}, threads {threads}: max abs "
-                  f"err {e}")
+            check(e == 0, f"K4 != plain on {b}, {lanes or 'default'} lanes "
+                  f"per block: max abs err {e}")
         h = T_K4 // 2
         fa, sa = sk.alt_rollout(c, seed, B, h, dev)
         fb, sb = sk.alt_rollout(c, seed, B, T_K4 - h, dev, init_fields=fa,
@@ -1874,14 +1957,26 @@ def alt_phases(torch, dev, card, cfgs):
         split = [x + y for x, y in zip(ints(sa), ints(sb))]
         check(max_abs_err([*zip(fb, pf), (split, ints(ps))]) == 0,
               f"K4 split at step {h} != one run on {b}")
+        # lanes the tick table cannot start from (a player without the ball
+        # in a goal column every 7th lane, turn 2 every 11th): their warps
+        # walk by arithmetic
+        bad = [f.clone() for f in pf]
+        bad[0][::7], bad[1][::7], bad[4][::7] = c.goal_row_bounds[0], 0, 1
+        bad[5][::11] = 2
+        kf, ks = sk.alt_rollout(c, seed, B, 64, dev, init_fields=bad)
+        qf, qs = sk.alt_rollout_plain(c, seed, B, 64, dev, init_fields=bad)
+        check(max_abs_err([*zip(kf, qf), (ints(ks), ints(qs))]) == 0,
+              f"K4 from unwalkable lanes != plain on {b}")
         gf, gs = sk.alt_rollout(c, 3, 1024, 64, dev)
         cf, cs = sk.alt_rollout(c, 3, 1024, 64, "cpu")
         check(max_abs_err([*zip(gf, cf), (ints(gs), ints(cs))]) == 0,
               f"K4 != CPU plain on {b}")
-        print(f"[K4] {b[0]}x{b[1]} B={B} T={T_K4}: bit-equal to plain (max "
-              f"abs err {errs['alt_rollout']}); threads 128/256 equal; "
-              f"{h}+{T_K4 - h} split equals one run; B=1024 T=64 equals the "
-              "CPU plain version")
+        print(f"[K4] {b[0]}x{b[1]} B={B} T={T_K4} "
+              f"({'tick table' if rc.uses_alt_table(c) else 'arithmetic walk'}"
+              f"): bit-equal to plain (max abs err {errs['alt_rollout']}) at "
+              f"64 (default), {ROLLOUT_RAGGED_LANES} (ragged) and 32 lanes per "
+              f"block; {h}+{T_K4 - h} split equals one run; from unwalkable "
+              "lanes equal to plain; B=1024 T=64 equals the CPU plain version")
 
     # ---- 29. K10/K11 ---------------------------------------------------
     for b, c in cfgs.items():
@@ -1993,10 +2088,34 @@ def alt_phases(torch, dev, card, cfgs):
                                         slow_legs=3)
             if b == (5, 4):
                 ms[label] = med
+            if label == "alt_rollout":
+                now = med
             print(f"[time] {label} {b[0]}x{b[1]} B={B} T={T_K4}: {med} "
                   f"ms/call, {B * T_K4 / (med / 1e3)} env-steps/s (median of "
                   f"{len(legs)} legs x {reps} calls; legs ms/call {legs}) | "
                   f"{card}")
+        us = profile_window(torch, lambda: sk.alt_rollout(c, 1, B, T_K4, dev),
+                            f"alt_rollout {b[0]}x{b[1]} B={B} T={T_K4}",
+                            "alt_rollout_kernel", card)
+        table = rc.uses_alt_table(c)
+        smem = rc.alt_smem_bytes(rc.DEFAULT_LANES,
+                                 rc.build_alt_table(c).n_codes if table else 0)
+        check(sk._library().gst_alt_rollout_smem_bytes(
+            rc.DEFAULT_LANES, rc.build_alt_table(c).n_codes if table else 0)
+            == smem, "K4's shared memory differs from alt_smem_bytes")
+        key = "alt_rollout" + ("" if table else " arith")
+        sym = (SYMBOL if table else ARITH_SYMBOL)["alt_rollout"]
+        reg = [r for k, r in regs.items() if sym in k]
+        print(f"[design] alt_rollout {b[0]}x{b[1]} "
+              f"({'tick table' if table else 'arithmetic walk'}): "
+              f"{rc.DEFAULT_LANES} lanes and {rc.PRODUCER_WARPS} producer "
+              f"warps a block ({-(-B // rc.DEFAULT_LANES)} blocks of "
+              f"{rc.DEFAULT_LANES + 32 * rc.PRODUCER_WARPS} threads), {smem} B "
+              f"of shared memory per block, {reg} registers per thread; "
+              f"{per_step[key]} SASS per lane-step, bound "
+              f"{bound(B * T_K4, per_step[key], 0)[0]} ms; {now} ms/call, "
+              f"{us} us of kernel a launch, against the previous design's "
+              f"{ALT_OLD_MS[b]} ms ({ALT_OLD_MS[b] / now}x) | {card}")
         table, fields = alt_inputs(torch, ak, c, B, dev, seed=5)
         for name in (*names.values(), *(n + "_plain" for n in names.values())):
             fn = getattr(ak, name)
@@ -2008,9 +2127,6 @@ def alt_phases(torch, dev, card, cfgs):
                   f"ms/call, {B * T_K10 / (med / 1e3)} learner env-steps/s "
                   f"(median of {len(legs)} legs x {reps} calls; legs ms/call "
                   f"{legs}) | {card}")
-    profile_window(torch, lambda: sk.alt_rollout(c54, 1, B, T_K4, dev),
-                   f"alt_rollout 5x4 B={B} T={T_K4}", "alt_rollout_kernel",
-                   card)
     table, fields = alt_inputs(torch, ak, c54, B, dev, seed=5)
     profile_window(torch, lambda: ak.altq_packed_chunk(
         c54, 77, eps, table, fields, B, T_K10, 0.99, 640),
@@ -2018,17 +2134,20 @@ def alt_phases(torch, dev, card, cfgs):
 
     alt_fields_bytes = 2 * 7 * 4 * B + 3 * 8
     acc = ak.n_codes(c54) * (10 * 4 + 10 * (8 + 4)) + 8
-    work = {"alt_rollout": (B * T_K4, alt_fields_bytes),
+    alt_table = rc.build_alt_table(c54)
+    work = {"alt_rollout": (B * T_K4, alt_fields_bytes + alt_table.table.nbytes
+                            + rc.raw_bytes(alt_table.n_codes)),
             "altq_packed_chunk": (B * T_K10, alt_fields_bytes + acc),
             "altq_chunk": (B * T_K10, alt_fields_bytes + acc)}
     return launches, errs, ms, work
 
 
 def profile_window(torch, fn, label, kernel, card, calls=20):
-    """Device time per call of the kernels whose name holds ``kernel``, all
-    device time, and the device's idle share over ``calls`` back-to-back
-    calls of ``fn`` under ``torch.profiler`` (the profiler's own host cost
-    included)."""
+    """Device time per launch of the kernel whose name holds ``kernel``
+    (launched once a call), all device time, and the device's idle share
+    over ``calls`` back-to-back calls of ``fn`` under ``torch.profiler``
+    (the profiler's own host cost included); returns the first, in us
+    (None if the profiler recorded no launch of it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -2048,14 +2167,22 @@ def profile_window(torch, fn, label, kernel, card, calls=20):
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]   # kernels, memsets
     total = sum(device_us(e) for e in events)
-    mine = sum(device_us(e) for e in events if kernel in e.key)
-    if not events:
-        print(f"[profile] {label}: the profiler saw no device events")
-        return
+    mine = [e for e in events if kernel in e.key]
+    seen = sum(e.count for e in mine)
+    if not seen:
+        print(f"[profile] {label}: the profiler saw no {kernel} launch")
+        return None
+    # The profiler can drop device records late in a long process: the
+    # kernel's time is taken per launch it recorded, and the idle share
+    # only when it recorded every launch.
+    idle = (f"all device time {total / calls} us per call, idle share "
+            f"{1 - total / window_us}" if seen == calls else
+            "idle share not measured")
+    per_launch = sum(device_us(e) for e in mine) / seen
     print(f"[profile] {label}: {calls} calls in {window_us} us of window; "
-          f"{kernel} {mine / calls} us of device time per call, all device "
-          f"time {total / calls} us per call, idle share "
-          f"{1 - total / window_us} | {card}")
+          f"{kernel} {per_launch} us of device time per launch ({seen} of "
+          f"{calls} launches recorded), {idle} | {card}")
+    return per_launch
 
 
 if __name__ == "__main__":

@@ -23,9 +23,14 @@ Layers (module paths mirror gym_soccer_tpu's):
                    exploitability
   ops/step_kernel.py     fused, journaled, mixed-geometry and alternating
                          random rollouts (CUDA K1, K2, K3, K4)
+  ops/rollout_codes.py   K1/K2's and K4's two stages on the host: step
+                         codes, the step and tick tables, plain twins
   ops/learner_kernel.py  minimax-Q chunks, packed and unpacked, one board
                          or a mixture (CUDA K5, K6, K7), and the chunked
                          trainers
+  ops/learner_codes.py   K5's two stages on the host: step codes, the walk
+                         table, prepared rows, the call's layout, twins
+  ops/*_variants.py      the redesigned kernels' timed variants (a card)
   ops/iql_kernel.py      independent-Q chunks (CUDA K8, K9) and trainer
   ops/altq_kernel.py     alternating-turn Q chunks (CUDA K10, K11) and
                          trainer

@@ -24,8 +24,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Each library's files: the .cu sources it compiles and the headers they
 # include, all of which key its build.
-LIBRARIES = {"step_kernel": ("step_kernel.cu", "game.cuh"),
-             "learner_kernel": ("learner_kernel.cu", "game.cuh"),
+LIBRARIES = {"step_kernel": ("step_kernel.cu", "game.cuh", "pipeline.cuh"),
+             "learner_kernel": ("learner_kernel.cu", "game.cuh",
+                                "pipeline.cuh"),
              "iql_kernel": ("iql_kernel.cu", "game.cuh"),
              "altq_kernel": ("altq_kernel.cu", "game.cuh"),
              "parity_kernel": ("parity_kernel.cu",)}

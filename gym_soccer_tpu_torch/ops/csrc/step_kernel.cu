@@ -7,7 +7,7 @@
 //                               `pallas_journal_rollout`)
 //   mg_rollout_kernel        <- `_mg_rollout_kernel` (K3, wrapper
 //                               `pallas_multigrid_rollout`)
-//   alt_rollout_kernel       <- `_alt_rollout_kernel` (K4, wrapper
+//   alt_rollout_kernel<*>    <- `_alt_rollout_kernel` (K4, wrapper
 //                               `pallas_alt_rollout`)
 //
 // All compute, for every lane (one independent game) and every step:
@@ -63,15 +63,35 @@
 // and 2.9x faster than the previous design, at 38-41 % (5x4) and 29 %
 // (11x7) of the bound that counts both stages' SASS at the issue rate.
 //
+// K4 steps the alternating-turn game (envs/soccer_alternating_env): one
+// mover a tick (game.cuh `alt_transition`), its random action on the low
+// 16 bits of word 0, and a seventh plane, the turn, which flips every tick
+// and goes to A (0) on a goal or a truncation.  What bounded it on this
+// card was K1/K2's latency: in the previous design (one thread a lane,
+// 64 blocks of 128, 68 SMs idle at 8192 lanes) a tick took ~790 cycles of
+// one warp's chain for ~133 SASS, 0.39-0.41 ms per 8192 x 1024 call.  Its
+// design is now K1/K2's split, with a code and a step of its own.  The
+// producers make a 5-bit tick code (AltCode: the mover's effective move
+// after the slip, which does not depend on which player moves, and the
+// ISD index).  The consumers walk a tick table on 5x4 (1104 codes x 2
+// turns x 5 moves, int16 entries holding 2 x (2 x the next code + the next
+// turn) with the goal and reward bits, 22,080 B, copied in by bulk copies:
+// rollout_codes.build_alt_table), so a tick is one shared load and a
+// select against the reset code, the turn carried in the state's index;
+// boards whose codes do not fit the entry (11x7) and warps holding a lane
+// the table cannot start from walk by a branch-free `alt_moves`.  `threads`
+// is lanes per block (64 by default: 128 blocks, one wave).  On an NVIDIA
+// H100 80GB HBM3 at 700 W (ops/rollout_variants.py, device time of one
+// 8192 x 1024 call) K4 takes 0.0669 ms on 5x4 and 0.1188 ms on 11x7,
+// against the previous design's 0.3831 and 0.3657 (5.7x and 3.1x); the
+// arithmetic walk on 5x4 takes 0.1189 ms, so the table is worth 1.8x there.  The bound
+// is both stages' instruction issue, as for K1/K2.
+//
 // K3 keeps the previous design: one thread per lane, the lane's board in
 // five more registers (game.cuh `LaneGame`, no ISD table), its stats
-// summed per variant in shared memory.  K4 steps the alternating-turn game
-// (envs/soccer_alternating_env) in the same shape: one mover a tick
-// (game.cuh `alt_transition`), its random action on the low 16 bits of
-// word 0, and a seventh plane, the turn, which flips every tick and goes
-// to A (0) on a goal or a truncation.
+// summed per variant in shared memory.
 
-#include "game.cuh"
+#include "pipeline.cuh"
 
 using namespace gst;
 
@@ -157,27 +177,6 @@ __host__ __device__ constexpr int smem_bytes(int lanes, int n_codes) {
          kStages * kTileSteps * 2 * lanes;
 }
 
-// u16 % nI without a division (rollout_codes.isd_pick): u & (nI - 1) for
-// nI 1, 2 and 4 (mask), a multiply-high for 3 (kMod3).
-template <bool kMod3>
-__device__ __forceinline__ int isd_pick(int u, int mask) {
-  return kMod3 ? u - 3 * (int)(((uint32_t)u * 43691u) >> 17) : (u & mask);
-}
-
-// The action whose move slipped_move(a, u, q) makes: a, or its first or
-// second orthogonal, one nibble per action (rollout_codes.effective_move).
-__device__ __forceinline__ int effective_move(int a, int u, int t_keep,
-                                              int t_half) {
-  const int orth = ((u < t_half ? 0x12430 : 0x21340) >> (4 * a)) & 7;
-  return u < t_keep ? a : orth;
-}
-
-// random_word's key of word 0 at `step`: the words' keys are c0, c0 + K
-// and c0 + 2K.
-__device__ __forceinline__ uint32_t step_key(uint32_t seed, uint32_t step) {
-  return seed * 0x9E3779B9u + step * 0x85EBCA77u;
-}
-
 // The step code of the lane at the step keyed c0: table input (ea * 5 + eb)
 // * 4 + coin in bits 0-6, the ISD index in bits 7-8, the joint action in
 // bits 9-13.
@@ -197,59 +196,25 @@ __device__ __forceinline__ uint32_t step_code(uint32_t c0, uint32_t lane,
                     ((aa * 5 + ab) << 9));
 }
 
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// Thread 0: the mbarrier at `bar` (initialised for one arrival) expects
-// `bytes` of bulk copies.
-__device__ __forceinline__ void expect_bytes(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-// Thread 0: `bytes` (a multiple of 16) from global to shared memory by
-// bulk copies (TMA) that complete on the mbarrier at `bar`; the producers
-// start meanwhile.
-__device__ __forceinline__ void bulk_copy(uint64_t* bar, void* dst,
-                                          const void* src, int bytes) {
-  const uint32_t b = smem_addr(bar);
-  constexpr int kChunk = 1 << 15;
-  for (int off = 0; off < bytes; off += kChunk)
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];" ::"r"(smem_addr((char*)dst + off)),
-        "l"((const char*)src + off), "r"(min(kChunk, bytes - off)), "r"(b)
-        : "memory");
-}
-
-__device__ __forceinline__ void wait_table(uint64_t* bar) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-        " selp.u32 %0, 1, 0, p;\n}" : "=r"(done) : "r"(smem_addr(bar))
-        : "memory");
-  } while (!done);
-}
+template <bool kMod3>
+struct SimCode {
+  __device__ __forceinline__ uint32_t operator()(uint32_t c0, uint32_t lane,
+                                                 int t_keep, int t_half,
+                                                 int isd_mask) const {
+    return step_code<kMod3>(c0, lane, t_keep, t_half, isd_mask);
+  }
+};
 
 // Producer thread pt: the step codes of every tile, [lane][step] in the
 // tile, each tile handed over on its kFull barrier once its ring slot is
 // free again (its kEmpty barrier).  The thread keeps one step slot, pt %
-// kTileSteps, so its words' keys are made once a tile.
-template <bool kMod3>
-__device__ __forceinline__ void produce(const RolloutArgs& a, uint16_t* ring,
+// kTileSteps, so its words' keys are made once a tile.  code(c0, lane,
+// t_keep, t_half, isd_mask) is the kernel's step code (K1/K2: SimCode,
+// K4: AltCode).
+template <class Args, class Code>
+__device__ __forceinline__ void produce(const Args& a, uint16_t* ring,
                                        int pt, int lane0, int n_tiles,
-                                       int nthreads) {
+                                       int nthreads, Code code) {
   constexpr int kThreads = 32 * kProducerWarps;
   const int t_keep = 65536 - a.g.q_int, t_half = 65536 - a.g.q_int / 2;
   const int per_tile = a.lanes * kTileSteps;
@@ -262,8 +227,7 @@ __device__ __forceinline__ void produce(const RolloutArgs& a, uint16_t* ring,
     uint32_t lane = (uint32_t)(lane0 + pt / kTileSteps);
 #pragma unroll 1
     for (int j = pt; j < per_tile; j += kThreads) {
-      tile[j] = (uint16_t)step_code<kMod3>(c0, lane, t_keep, t_half,
-                                           a.g.nI - 1);
+      tile[j] = (uint16_t)code(c0, lane, t_keep, t_half, a.g.nI - 1);
       lane += kThreads / kTileSteps;
     }
     bar_arrive(kFull + st, nthreads);
@@ -285,8 +249,8 @@ __device__ __forceinline__ void load_codes(const uint16_t* p,
 // after them (when a producer will wait for it); the last, partial tile
 // is read from its slot, which nothing overwrites.  step(code) takes the
 // lane's next step.
-template <class Step>
-__device__ __forceinline__ void walk(const RolloutArgs& a,
+template <class Args, class Step>
+__device__ __forceinline__ void walk(const Args& a,
                                      const uint16_t* ring, int l, int n_tiles,
                                      int nthreads, Step& step) {
   const int per_tile = a.lanes * kTileSteps;
@@ -356,53 +320,6 @@ struct TableStep {
   }
 };
 
-// A shared-memory load issued where it stands (not sunk under the
-// predicate of its use).
-__device__ __forceinline__ int lds(const int* p) {
-  int v;
-  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(v) : "r"(smem_addr(p)));
-  return v;
-}
-
-// One transition of K1/K2's arithmetic walk under effective moves ea, eb
-// (actions after the slip; a move is (0, 0) exactly when its action is 0)
-// and the coin bits: game.cuh's `transition` after its slips, written
-// without short-circuits, so that it compiles to selects.
-__device__ __forceinline__ void step_moves(State& s, int ea, int eb, int coin,
-                                           const Game& g, bool& goal,
-                                           int& r) {
-  const int ra = s.ra, ca = s.ca, rb = s.rb, cb = s.cb, p = s.p;
-  const int nxa = min(max(ra + (ea == 2) - (ea == 1), 0), g.H - 1);
-  const int nxb = min(max(rb + (eb == 2) - (eb == 1), 0), g.H - 1);
-  const int ya = ca + (ea == 3) - (ea == 4), yb = cb + (eb == 3) - (eb == 4);
-  const bool oa = (ya == 0) | (ya == g.W - 1), ob = (yb == 0) | (yb == g.W - 1);
-  const bool ina = (oa & (nxa >= g.glo) & (nxa <= g.ghi) & (p == 0)) | !oa;
-  const bool inb = (ob & (nxb >= g.glo) & (nxb <= g.ghi) & (p == 1)) | !ob;
-  const int nya = ina ? ya : ca, nyb = inb ? yb : cb;
-  const bool a_onto_b = (nxa == rb) & (nya == cb);
-  const bool b_onto_a = (nxb == ra) & (nyb == ca);
-  const bool c1 = ((ra == rb) & (abs(ca - cb) == 1) & (nya == cb) & (nyb == ca)) |
-                  ((ca == cb) & (abs(ra - rb) == 1) & (nxa == rb) & (nxb == ra));
-  const bool c2 = !c1 & ((a_onto_b & (eb == 0)) | (b_onto_a & (ea == 0)));
-  const bool c3 = !c1 & !c2 &
-                  (((ra == nxa) & (ca == nya) & (ea != 0) & b_onto_a) |
-                   ((rb == nxb) & (cb == nyb) & (eb != 0) & a_onto_b));
-  const bool c4 = !c1 & !c2 & !c3 & (nxa == nxb) & (nya == nyb);
-  const bool c5 = !(c1 | c2 | c3 | c4);
-  const bool who = (coin >> 1) & 1;
-  const bool a_moves = c5 | (c4 & who), b_moves = c5 | (c4 & !who);
-  s.ra = a_moves ? nxa : ra;
-  s.ca = a_moves ? nya : ca;
-  s.rb = b_moves ? nxb : rb;
-  s.cb = b_moves ? nyb : cb;
-  s.p = c2 ? 1 - p : ((c1 | c3 | c4) ? (coin & 1) : p);
-  const bool a_ball = s.p == 0;
-  const int ball_row = a_ball ? s.ra : s.rb, ball_col = a_ball ? s.ca : s.cb;
-  goal = (ball_row >= g.glo) & (ball_row <= g.ghi) &
-         ((ball_col == 0) | (ball_col == g.W - 1));
-  r = goal ? (ball_col == g.W - 1 ? 1 : -1) : 0;
-}
-
 // A lane's step from a step code by arithmetic: the transition under the
 // decoded effective moves, then the reset to the ISD entry's fields.
 template <bool kJournal>
@@ -446,38 +363,6 @@ struct ArithStep {
     truncs += trunc;
   }
 };
-
-// The table walk starts from, and stays among, these states (the
-// reachable non-goal ones; rollout_codes.walkable).
-__device__ __forceinline__ bool walkable(const State& s, const Game& g) {
-  const bool a = s.ra >= 0 && s.ra < g.H && s.ca >= 1 && s.ca <= g.W - 2;
-  const bool b = s.rb >= 0 && s.rb < g.H && s.cb >= 1 && s.cb <= g.W - 2;
-  return a && b && (s.ra != s.rb || s.ca != s.cb) && (s.p == 0 || s.p == 1);
-}
-
-__device__ __forceinline__ State isd_state(const Game& g, int k) {
-  return State{g.isd[k][0], g.isd[k][1], g.isd[k][2], g.isd[k][3],
-               g.isd[k][4], 0};
-}
-
-// A consumer warp's three sums, one 64-bit atomicAdd each.
-__device__ __forceinline__ void warp_sum(long long* stats, int a, int b,
-                                         int c) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    a += __shfl_down_sync(0xFFFFFFFFu, a, off);
-    b += __shfl_down_sync(0xFFFFFFFFu, b, off);
-    c += __shfl_down_sync(0xFFFFFFFFu, c, off);
-  }
-  if ((threadIdx.x & 31) == 0) {
-    atomicAdd(reinterpret_cast<unsigned long long*>(stats + 0),
-              (unsigned long long)(long long)a);
-    atomicAdd(reinterpret_cast<unsigned long long*>(stats + 1),
-              (unsigned long long)(long long)b);
-    atomicAdd(reinterpret_cast<unsigned long long*>(stats + 2),
-              (unsigned long long)(long long)c);
-  }
-}
 
 // Consumer thread l: lane lane0 + l.  With the table (kTable) a warp whose
 // lanes are all walkable walks it, any other warp by arithmetic.
@@ -574,10 +459,11 @@ __global__ void __launch_bounds__(kMaxLanes + 32 * kProducerWarps)
   }
   if ((int)threadIdx.x >= a.lanes) {
     if (a.g.nI == 3)
-      produce<true>(a, ring, threadIdx.x - a.lanes, lane0, n_tiles, nthreads);
+      produce(a, ring, threadIdx.x - a.lanes, lane0, n_tiles, nthreads,
+              SimCode<true>{});
     else
-      produce<false>(a, ring, threadIdx.x - a.lanes, lane0, n_tiles,
-                     nthreads);
+      produce(a, ring, threadIdx.x - a.lanes, lane0, n_tiles, nthreads,
+              SimCode<false>{});
   } else
     consume<kJournal, kTable>(a, table, code_raw, bar, isd, ring,
                               threadIdx.x, lane0, n_tiles, nthreads);
@@ -661,37 +547,251 @@ __global__ void mg_rollout_kernel(Planes in, Planes out, Planes geo,
                            part[k]);
 }
 
-// K4: random play of the alternating game (step_kernel._alt_step_once).
-__global__ void alt_rollout_kernel(AltPlanes in, AltPlanes out,
-                                   long long* stats, int B, int n_steps,
-                                   uint32_t seed, int step_offset, Game g) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  int rew = 0, goals = 0, truncs = 0;
-  if (lane < B) {
-    State s{in.f[0][lane], in.f[1][lane], in.f[2][lane],
-            in.f[3][lane], in.f[4][lane], in.f[6][lane]};
-    int turn = in.f[5][lane];
-    const uint32_t ctr = (uint32_t)lane;
-    for (int i = 0; i < n_steps; ++i) {
-      const uint32_t step = (uint32_t)(i + step_offset);
-      const uint32_t bits0 = random_word(seed, step, 0u, ctr);
-      const uint32_t bits1 = random_word(seed, step, 1u, ctr);
-      const uint32_t bits2 = random_word(seed, step, 2u, ctr);
-      bool goal, trunc;
-      int r;
-      alt_transition(s, turn, u16(bits0, 0) % 5, bits1, g, goal, r);
-      autoreset(s, goal, bits2, g, trunc);
-      turn = (goal || trunc) ? 0 : 1 - turn;
-      rew += r;
-      goals += goal;
-      truncs += trunc;
-    }
-    out.f[0][lane] = s.ra; out.f[1][lane] = s.ca;
-    out.f[2][lane] = s.rb; out.f[3][lane] = s.cb;
-    out.f[4][lane] = s.p;  out.f[5][lane] = turn;
-    out.f[6][lane] = s.t;
+// ---------------------------------------------------------------------
+// K4: the alternating game's ticks, split as K1/K2's steps
+// ---------------------------------------------------------------------
+
+constexpr int kAltInputs = 5;   // the mover's effective move
+
+struct AltArgs {
+  AltPlanes in, out;
+  long long* stats;
+  const int16_t* table;     // [kAltInputs][2 * n_codes] tick table (table
+                            // path), entries keyed code * 2 + turn
+  const uint16_t* code_raw; // [n_codes, padded to 8] raw code of each code
+  int n_codes, lanes, B, n_steps, step_offset;
+  uint32_t seed;
+  Game g;
+};
+
+// K4's dynamic shared memory: K1/K2's head, the tick table, the raw codes
+// (n_codes 0: neither) and the ring (rollout_codes.alt_smem_bytes).
+__host__ __device__ constexpr int alt_smem_bytes(int lanes, int n_codes) {
+  return kHead + kAltInputs * 4 * n_codes + raw_bytes(n_codes) +
+         kStages * kTileSteps * 2 * lanes;
+}
+
+// The tick code of the lane at the tick keyed c0: the mover's effective
+// move (its action u16(word 0) % 5 after the slip on u16(word 1)) in bits
+// 0-2, the ISD index of a reset in bits 3-4.  Which player moves does not
+// change it.
+template <bool kMod3>
+struct AltCode {
+  __device__ __forceinline__ uint32_t operator()(uint32_t c0, uint32_t lane,
+                                                 int t_keep, int t_half,
+                                                 int isd_mask) const {
+    const uint32_t c1 = c0 + 0xC2B2AE3Du, c2 = c0 + 2u * 0xC2B2AE3Du;
+    const uint32_t b0 = fmix32(fmix32(lane ^ c0) + c0);
+    const uint32_t b1 = fmix32(fmix32(lane ^ c1) + c1);
+    const uint32_t b2 = fmix32(fmix32(lane ^ c2) + c2);
+    const int e = effective_move(u16(b0, 0) % 5, u16(b1, 0), t_keep, t_half);
+    return (uint32_t)(e | (isd_pick<kMod3>(u16(b2, 1), isd_mask) << 3));
   }
-  block_sum(stats, rew, goals, truncs);
+};
+
+// A lane's tick from a tick code by the table: one shared-memory load of
+// the pre-reset next (code, turn) with its goal and reward bits, then the
+// reset to the ISD entry's code with A to move.  The state is 2 x (2 x its
+// compact code + turn), a byte offset into a row; the row, the reset code
+// and the truncation test come off the chain.
+struct AltTableStep {
+  const char* table;         // shared
+  int row_bytes, max_steps;
+  uint32_t isd01, isd23;     // the ISD entries' states, two a register
+  int cs2, t, rew, goals, truncs;
+
+  __device__ __forceinline__ void operator()(uint32_t code) {
+    const int row = (int)(code & 7u) * row_bytes;
+    const int idx = (code >> 3) & 3;
+    const int reset = ((idx & 2 ? isd23 : isd01) >> (16 * (idx & 1))) & 0xFFFF;
+    const bool late = t + 1 >= max_steps;
+    const int e = *reinterpret_cast<const uint16_t*>(table + row + cs2);
+    const bool goal = (e & kGoalBit) != 0;
+    cs2 = (goal | late) ? reset : e & kCodeMask;
+    t = (goal | late) ? 0 : t + 1;
+    rew += goal ? ((e & kRewardBit) ? 1 : -1) : 0;
+    goals += goal;
+    truncs += late & !goal;
+  }
+};
+
+// One tick of the alternating game under the mover's effective move e:
+// game.cuh's `alt_transition` after its slip, without branches.
+__device__ __forceinline__ void alt_moves(State& s, int turn, int e,
+                                          const Game& g, bool& goal, int& r) {
+  const int mc = (e == 3) - (e == 4), mr = (e == 2) - (e == 1);
+  const bool a_moves = turn == 0;
+  const int mx = a_moves ? s.ra : s.rb, my = a_moves ? s.ca : s.cb;
+  const int ox = a_moves ? s.rb : s.ra, oy = a_moves ? s.cb : s.ca;
+  const int nx0 = min(max(mx + mr, 0), g.H - 1), nyt = my + mc;
+  const bool xoob = (nyt == 0) | (nyt == g.W - 1);
+  const bool in_goal = xoob & (nx0 >= g.glo) & (nx0 <= g.ghi) & (s.p == turn);
+  const int ny0 = (xoob & !in_goal) ? my : nyt;
+  const bool collide = (nx0 == ox) & (ny0 == oy);
+  const int nx = collide ? mx : nx0, ny = collide ? my : ny0;
+  s.p = collide ? 1 - turn : s.p;
+  s.ra = a_moves ? nx : s.ra;
+  s.ca = a_moves ? ny : s.ca;
+  s.rb = a_moves ? s.rb : nx;
+  s.cb = a_moves ? s.cb : ny;
+  const bool a_ball = s.p == 0;
+  const int ball_row = a_ball ? s.ra : s.rb, ball_col = a_ball ? s.ca : s.cb;
+  goal = (ball_row >= g.glo) & (ball_row <= g.ghi) &
+         ((ball_col == 0) | (ball_col == g.W - 1));
+  r = goal ? (ball_col == g.W - 1 ? 1 : -1) : 0;
+}
+
+// A lane's tick from a tick code by arithmetic: alt_moves, then the reset
+// to the ISD entry's fields with A to move.
+struct AltArithStep {
+  const Game* g;
+  const int* isd_fields;    // shared: [kMaxIsd][5]
+  State s;
+  int turn, rew, goals, truncs;
+
+  __device__ __forceinline__ void operator()(uint32_t code) {
+    const int* fp = isd_fields + 5 * ((code >> 3) & 3);
+    const int f[5] = {lds(fp), lds(fp + 1), lds(fp + 2), lds(fp + 3),
+                      lds(fp + 4)};
+    const bool late = s.t + 1 >= g->max_steps;
+    bool goal;
+    int r;
+    alt_moves(s, turn, (int)(code & 7u), *g, goal, r);
+    const bool term = goal | late;
+    s.ra = term ? f[0] : s.ra;
+    s.ca = term ? f[1] : s.ca;
+    s.rb = term ? f[2] : s.rb;
+    s.cb = term ? f[3] : s.cb;
+    s.p = term ? f[4] : s.p;
+    s.t = term ? 0 : s.t + 1;
+    turn = term ? 0 : 1 - turn;
+    rew += r;
+    goals += goal;
+    truncs += late & !goal;
+  }
+};
+
+// K4's consumer thread l: lane lane0 + l.  With the table (kTable) a warp
+// whose lanes are all walkable, with turn 0 or 1, walks it, any other warp
+// by arithmetic.
+template <bool kTable>
+__device__ __forceinline__ void alt_consume(const AltArgs& a,
+                                            const int16_t* table,
+                                            const uint16_t* code_raw,
+                                            uint64_t* bar, const int* isd,
+                                            const uint16_t* ring, int l,
+                                            int lane0, int n_tiles,
+                                            int nthreads) {
+  const int lane = lane0 + l;
+  const bool active = lane < a.B;
+  // no start planes: lane i starts on ISD entry i % nI, A to move, t = 0
+  const bool given = active && a.in.f[0] != nullptr;
+  State s = given ? State{a.in.f[0][lane], a.in.f[1][lane], a.in.f[2][lane],
+                          a.in.f[3][lane], a.in.f[4][lane], a.in.f[6][lane]}
+                  : isd_state(a.g, active ? lane % a.g.nI : 0);
+  int turn = given ? a.in.f[5][lane] : 0;
+  int rew, goals, truncs;
+  bool by_table = false;
+  if constexpr (kTable) {
+    wait_table(bar);  // every consumer: no block leaves before the copy ends
+    by_table = __all_sync(0xFFFFFFFFu,
+                          walkable(s, a.g) && (turn == 0 || turn == 1));
+  }
+  if (by_table) {
+    AltTableStep step{reinterpret_cast<const char*>(table), 4 * a.n_codes,
+                      a.g.max_steps};
+    step.isd01 = (uint32_t)(4 * isd[0]) | (uint32_t)(4 * isd[1]) << 16;
+    step.isd23 = (uint32_t)(4 * isd[2]) | (uint32_t)(4 * isd[3]) << 16;
+    step.cs2 = 2 * (2 * cellpair_encode(s, a.g, n_cells(a.g)) + turn);
+    step.t = s.t;
+    step.rew = step.goals = step.truncs = 0;
+    walk(a, ring, l, n_tiles, nthreads, step);
+    turn = (step.cs2 >> 1) & 1;
+    int raw = code_raw[step.cs2 >> 2];
+    s.p = raw & 1; raw >>= 1;
+    s.cb = raw % a.g.W; raw /= a.g.W;
+    s.rb = raw % a.g.H; raw /= a.g.H;
+    s.ca = raw % a.g.W;
+    s.ra = raw / a.g.W;
+    s.t = step.t;
+    rew = step.rew; goals = step.goals; truncs = step.truncs;
+  } else {
+    AltArithStep step{&a.g, isd + kMaxIsd, s, turn, 0, 0, 0};
+    walk(a, ring, l, n_tiles, nthreads, step);
+    s = step.s;
+    turn = step.turn;
+    rew = step.rew; goals = step.goals; truncs = step.truncs;
+  }
+  if (!active) {
+    rew = goals = truncs = 0;  // a ragged block's spare lanes
+  } else {
+    a.out.f[0][lane] = s.ra; a.out.f[1][lane] = s.ca;
+    a.out.f[2][lane] = s.rb; a.out.f[3][lane] = s.cb;
+    a.out.f[4][lane] = s.p;  a.out.f[5][lane] = turn;
+    a.out.f[6][lane] = s.t;
+  }
+  warp_sum(a.stats, rew, goals, truncs);
+}
+
+// K4: blocks of a.lanes consumer threads, one a lane, then
+// kProducerWarps producer warps, as K1/K2's.
+template <bool kTable>
+__global__ void __launch_bounds__(kMaxLanes + 32 * kProducerWarps)
+    alt_rollout_kernel(AltArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  int* isd = reinterpret_cast<int*>(smem + 16);
+  const int table_bytes = kTable ? kAltInputs * 4 * a.n_codes : 0;
+  const int16_t* table = reinterpret_cast<const int16_t*>(smem + kHead);
+  const uint16_t* code_raw =
+      reinterpret_cast<const uint16_t*>(smem + kHead + table_bytes);
+  uint16_t* ring = reinterpret_cast<uint16_t*>(
+      smem + kHead + table_bytes + (kTable ? raw_bytes(a.n_codes) : 0));
+  const int nthreads = a.lanes + 32 * kProducerWarps;
+  const int lane0 = blockIdx.x * a.lanes;
+  const int n_tiles = a.n_steps / kTileSteps + (a.n_steps % kTileSteps != 0);
+  if (threadIdx.x < kMaxIsd) {
+    const int k = min((int)threadIdx.x, a.g.nI - 1);
+    const State e = isd_state(a.g, k);
+    isd[threadIdx.x] = kTable ? cellpair_encode(e, a.g, n_cells(a.g)) : 0;
+    int* f = isd + kMaxIsd + 5 * threadIdx.x;
+    f[0] = e.ra; f[1] = e.ca; f[2] = e.rb; f[3] = e.cb; f[4] = e.p;
+  }
+  if (kTable && threadIdx.x == 0) init_bar(bar);
+  __syncthreads();
+  if (kTable && threadIdx.x == 0) {
+    expect_bytes(bar, table_bytes + raw_bytes(a.n_codes));
+    bulk_copy(bar, smem + kHead, a.table, table_bytes);
+    bulk_copy(bar, smem + kHead + table_bytes, a.code_raw,
+              raw_bytes(a.n_codes));
+  }
+  if ((int)threadIdx.x >= a.lanes) {
+    if (a.g.nI == 3)
+      produce(a, ring, threadIdx.x - a.lanes, lane0, n_tiles, nthreads,
+              AltCode<true>{});
+    else
+      produce(a, ring, threadIdx.x - a.lanes, lane0, n_tiles, nthreads,
+              AltCode<false>{});
+  } else {
+    alt_consume<kTable>(a, table, code_raw, bar, isd, ring, threadIdx.x,
+                        lane0, n_tiles, nthreads);
+  }
+}
+
+template <bool kTable>
+cudaError_t launch_alt(const AltArgs& a, int device, int smem,
+                       cudaStream_t st) {
+  auto kernel = alt_rollout_kernel<kTable>;
+  static int allowed[kMaxDevices] = {};
+  if (device >= kMaxDevices || smem > allowed[device]) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    if (device < kMaxDevices) allowed[device] = smem;
+  }
+  const int blocks = (a.B + a.lanes - 1) / a.lanes;
+  kernel<<<blocks, a.lanes + 32 * kProducerWarps, smem, st>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -763,19 +863,39 @@ int gst_multigrid_rollout(int device, void* const* in, void* const* out,
 }
 
 // K4.  As K1, with in/out: host arrays of 7 device pointers to int32 [B]
-// (ra, ca, rb, cb, p, turn, t).
+// (ra, ca, rb, cb, p, turn, t; in null: lane i starts on ISD entry i % nI,
+// A to move, t = 0); table: device int16 [5 * 2 * n_codes], the tick table
+// (rollout_codes.build_alt_table), or null for the arithmetic path;
+// lanes: lanes per block, a multiple of 32 in [32, 512] whose shared
+// memory (gst_alt_rollout_smem_bytes) fits 232,448 bytes.
 int gst_alt_rollout(int device, void* const* in, void* const* out,
-                    long long* stats, const int32_t* params, int B,
-                    int n_steps, uint32_t seed, int step_offset, int threads,
-                    void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = prepare(device, params, B, threads, stats, st);
+                    long long* stats, const int32_t* params,
+                    const int16_t* table, const uint16_t* code_raw,
+                    int n_codes, int B, int n_steps, uint32_t seed,
+                    int step_offset, int lanes, void* stream) {
+  if (params[6] < 1 || params[6] > kMaxIsd || B <= 0 || n_steps < 0 ||
+      lanes < 32 || lanes > kMaxLanes || lanes % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (table != nullptr &&
+      (n_codes < 1 || 4 * n_codes > kCodeMask + 1 || code_raw == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int smem = alt_smem_bytes(lanes, table != nullptr ? n_codes : 0);
+  if (smem > kSmemBudget) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const int blocks = (B + threads - 1) / threads;
-  alt_rollout_kernel<<<blocks, threads, 0, st>>>(
-      make_alt_planes(in), make_alt_planes(out), stats, B, n_steps, seed,
-      step_offset, make_game(params));
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  e = cudaMemsetAsync(stats, 0, 3 * sizeof(long long), st);
+  if (e != cudaSuccess) return (int)e;
+  AltArgs a{in != nullptr ? make_alt_planes(in) : AltPlanes{},
+            make_alt_planes(out), stats, table, code_raw, n_codes, lanes, B,
+            n_steps, step_offset, seed, make_game(params)};
+  return (int)(table != nullptr ? launch_alt<true>(a, device, smem, st)
+                                : launch_alt<false>(a, device, smem, st));
+}
+
+// K4's dynamic shared memory per block (rollout_codes.alt_smem_bytes).
+int gst_alt_rollout_smem_bytes(int lanes, int n_codes) {
+  return alt_smem_bytes(lanes, n_codes);
 }
 
 const char* gst_error_string(int code) {

@@ -93,6 +93,7 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
+@functools.lru_cache(maxsize=64)
 def value_limit(batch: int, n_steps: int) -> float:
     """The float32 bound on the table values a chunk reads (v, and q(s, a)
     unpacked) within which its int64 sums stay exact.  Each summed value
@@ -386,13 +387,16 @@ def _chunk(packed: bool, cfg, seed, table, planes, fields, batch, n_steps,
     if plain or table.device.type == "cpu":
         return _plain(cfg, seed, table, fields, n_steps, gamma, packed,
                       planes)
+    if name == "packed_learner_chunk":
+        return _launch_packed(cfg, seed, table, fields, batch, n_steps, gamma,
+                              threads)
     return _launch(name, cfg, seed, table, planes, fields, n_steps, gamma,
                    threads)
 
 
 def packed_learner_chunk(cfg: EnvConfig, seed: int, table, fields,
                          batch: int, n_steps: int, gamma: float = 0.99,
-                         threads: int = 128):
+                         threads=None):
     """Run one fused minimax-Q chunk with residual accumulation (kernel
     K5).
 
@@ -408,12 +412,17 @@ def packed_learner_chunk(cfg: EnvConfig, seed: int, table, fields,
     ``out_of_range``, the number of table values read that lie outside
     +-``value_limit(batch, n_steps)`` or are not finite, is 0 (always
     while |v| <= 1); it is counted on the device, so the call does not wait
-    for the chunk.  ``threads`` is the CUDA block size (a multiple of 32);
-    it does not change the result.
+    for the chunk.  ``threads`` is the kernel's lanes per block: a multiple
+    of 32 in [32, 512], by default the fewest that keep the grid to one
+    wave of 132 blocks (``learner_codes.check_lanes``: 64 at 8192 lanes, 512
+    at 65536; ValueError otherwise, on any device); it does not change the
+    result.  On the card the outputs are views of one allocation.
 
     On a CPU device this runs ``packed_learner_chunk_plain``; on a CUDA
     device it launches the K5 kernel.
     """
+    from . import learner_codes
+    threads = learner_codes.check_lanes(batch, threads)
     return _chunk(True, cfg, seed, table, None, fields, batch, n_steps,
                   gamma, threads, plain=False)
 
@@ -500,9 +509,25 @@ def multigrid_learner_chunk_plain(cfgs: tuple, seed: int, table, planes,
 def _library():
     """The built kernel library with its C signatures declared."""
     from . import _build
-    lib = _build.load("learner_kernel")
+    return declare(_build.load("learner_kernel"))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a build of ``csrc/learner_kernel.cu``."""
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for name in _NAMES.values():
+    lib.gst_packed_learner_chunk.argtypes = [
+        i32, vp, vp, vp, vp, i32, i32, i32, ctypes.c_uint32, f32, f32, i32,
+        vp]
+    # device, in, buf, table, params, n_codes, B, T, seed, gamma, limit,
+    # lanes, stream
+    lib.gst_packed_learner_chunk.restype = i32
+    lib.gst_packed_chunk_layout.argtypes = [i32, i32, vp]
+    lib.gst_packed_chunk_layout.restype = None
+    lib.gst_packed_smem_bytes.argtypes = [i32, i32]
+    lib.gst_packed_smem_bytes.restype = i32
+    lib.gst_packed_shape.argtypes = [vp]
+    lib.gst_packed_shape.restype = None
+    for name in list(_NAMES.values())[1:]:
         fn = getattr(lib, "gst_" + name)
         fn.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32,
                        ctypes.c_uint32, f32, f32, i32, vp]
@@ -512,6 +537,44 @@ def _library():
     lib.gst_error_string.argtypes = [i32]
     lib.gst_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=8)
+def _packed_host(cfg: EnvConfig):
+    """(cached per board) What K5's call passes unchanged: the entry point,
+    the game description's address and the number of codes."""
+    return (_library().gst_packed_learner_chunk,
+            ctypes.addressof(sk._game_params(cfg)), n_codes(cfg))
+
+
+def _launch_packed(cfg: EnvConfig, seed: int, table, fields, batch: int,
+                   n_steps: int, gamma: float, lanes: int):
+    """Launch K5 at ``lanes`` lanes per block.  Its outputs (the six
+    planes, the sums, the counts and the stats) and the prep pass's rows
+    are one allocation, zeroed where it sums by one memset in the
+    launch."""
+    from . import learner_codes
+    dev = table.device
+    if dev.type != "cuda":
+        raise ValueError(f"packed_learner_chunk: no kernel for device {dev}")
+    fn, params, n = _packed_host(cfg)
+    lay = learner_codes.layout(n, batch)
+    b64 = torch.empty(lay.total // 8, dtype=torch.int64, device=dev)
+    in_ptrs = sk.ptr_array(fields)
+    rc = fn(dev.index, ctypes.addressof(in_ptrs), b64.data_ptr(),
+            table.data_ptr(), params, n, batch, n_steps, seed & sk.M32,
+            _f32(gamma), value_limit(batch, n_steps), lanes,
+            torch._C._cuda_getCurrentRawStream(dev.index))
+    if rc:
+        raise RuntimeError("packed_learner_chunk: kernel launch failed: "
+                           f"{_library().gst_error_string(rc).decode()} "
+                           f"({rc})")
+    launch_counts["packed_learner_chunk"] += 1
+    b32 = b64.view(torch.int32)
+    return (b32.as_strided((6, batch), (batch, 1), lay.fields // 4).unbind(0),
+            (b64.as_strided((n, NJ), (NJ, 1), 0),
+             b32.as_strided((n, NJ), (NJ, 1), lay.cnt // 4)),
+            b64.as_strided((4,), (1,), lay.stats // 8).unbind())
 
 
 def _launch(name: str, cfg, seed: int, table, planes, fields, n_steps: int,

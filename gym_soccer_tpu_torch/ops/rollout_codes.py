@@ -1,4 +1,4 @@
-"""The two stages of the K1/K2 rollout kernels, on the host.
+"""The two stages of the K1/K2 and K4 rollout kernels, on the host.
 
 ``csrc/step_kernel.cu`` splits a lane-step of ``fused_rollout`` (K1) and
 ``fused_journal_rollout`` (K2) in two.  Producer warps turn the three
@@ -30,6 +30,17 @@ both players on the interior columns, on distinct cells, p 0 or 1: the
 reachable states that are not goals), since a goal resets; entries of the
 other codes are 0 and never read.  A lane that starts elsewhere (an
 ``init_fields`` the game cannot reach) walks by arithmetic, with its warp.
+
+K4 (``alt_rollout``, the alternating-turn game) splits its ticks the same
+way (``alt_step_codes``, ``alt_walk_codes``).  A tick code packs the
+mover's effective move (bits 0-2) and the ISD index (bits 3-4): only one
+player moves, and which one does not change its effective move, so a tick
+is a function of (state, turn, move).  The tick table (``build_alt_table``)
+holds, for every compact code, turn and move, the pre-reset next (code,
+turn) with its goal and reward bits (int16: 2 x (2 x code + turn) | (r ==
+1) << 13 | goal << 15), move-major; 22,080 B on 5x4.  The next turn is the
+other player's; a goal or a truncation resets to an ISD entry with A to
+move.
 """
 from __future__ import annotations
 
@@ -51,6 +62,7 @@ CODE_MASK = REWARD_BIT - 1   # 2 x the next compact code
 # steps of step codes, 3 tiles in shared memory.
 TILE_STEPS = 8
 STAGES = 3
+PRODUCER_WARPS = 8      # kProducerWarps, beside a block's lanes
 SMEM_BUDGET = 232448    # shared memory one H100 block may use
 DEFAULT_LANES = 64      # 128 blocks at 8192 lanes: one wave on 132 SMs
 MAX_LANES = 512         # kMaxLanes: 768 threads a block with the producers
@@ -348,3 +360,189 @@ def walk_codes(cfg: EnvConfig, fields, codes: torch.Tensor, journal: bool,
                        zip((*dec, tt), fields))
     return (tuple(f.to(torch.int32) for f in fields), (rew, goals, truncs),
             words)
+
+
+# ----------------------------------------------------------------------
+# K4: the alternating game's two stages
+# ----------------------------------------------------------------------
+
+ALT_INPUTS = 5          # the mover's effective move
+
+
+def alt_step_codes(cfg: EnvConfig, seed: int, lanes: torch.Tensor,
+                   n_steps: int, step_offset: int = 0) -> torch.Tensor:
+    """K4's producers' stage: int32 [n_steps, len(lanes)] tick codes,
+    the mover's effective move | the ISD index << 3."""
+    q_int = sk._q_int(cfg)
+    nI = sk._n_isd(cfg)
+    codes = torch.empty((n_steps, lanes.shape[0]), dtype=torch.int32,
+                        device=lanes.device)
+    for i in range(n_steps):
+        bits0, bits1, bits2 = (sk._random_word(seed, i + step_offset, w, lanes)
+                               for w in range(3))
+        e = effective_move(sk._u16(bits0, 0) % 5, sk._u16(bits1, 0), q_int)
+        codes[i] = e | (isd_pick(sk._u16(bits2, 1), nI) << 3)
+    return codes
+
+
+class AltTable(NamedTuple):
+    n_codes: int
+    table: np.ndarray       # int16 [ALT_INPUTS * 2 * n_codes], move-major
+    isd_code: np.ndarray    # int32 [nI]: compact codes of the ISD entries
+
+
+@functools.lru_cache(maxsize=None)
+def build_alt_table(cfg: EnvConfig) -> AltTable:
+    """(cached) The next (code, turn) of every walkable compact code, turn
+    and effective move, from the port's ``alt_transition_core`` with no
+    slip (``q_int`` 0)."""
+    fields = code_fields(cfg)
+    n = len(fields)
+    if 4 * n > CODE_MASK + 1:
+        raise ValueError(f"{n} compact codes do not fit the entry's 13 bits "
+                         "(four times the code)")
+    live = np.flatnonzero(walkable(cfg, *fields.T))
+    src = fields[live]
+    shape = (ALT_INPUTS, 2, len(src))
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(np.broadcast_to(
+        a, shape)), dtype=torch.int64)
+    turn = np.arange(2)[None, :, None]
+    move = np.arange(ALT_INPUTS)[:, None, None]
+    out = sk.alt_transition_core(*(t(src[:, k]) for k in range(5)), t(turn),
+                                 t(move), t(0), cfg, 0)
+    nra, nca, nrb, ncb, npz, goal, r = (x.numpy() for x in out)
+    goal_state = rules.is_goal_state(np, nra, nca, nrb, ncb, npz, cfg)
+    if not (walkable(cfg, nra, nca, nrb, ncb, npz) | goal_state).all():
+        raise AssertionError("a tick left the walkable states")
+    nxt = rules.cellpair_encode(np, nra, nca, nrb, ncb, npz, cfg)
+    entry = np.zeros((ALT_INPUTS, n, 2), np.int64)
+    entry[:, live, :] = np.moveaxis(
+        2 * (2 * nxt + 1 - turn) | np.where(r == 1, REWARD_BIT, 0)
+        | np.where(goal, GOAL_BIT, 0), 1, 2)
+    isd = sk.tables.isd_fields(cfg)
+    isd_code = rules.cellpair_encode(np, *isd.T, cfg).astype(np.int32)
+    return AltTable(n, entry.astype(np.uint16).view(np.int16).ravel(),
+                    isd_code)
+
+
+def alt_table_bytes(n_codes: int) -> int:
+    return ALT_INPUTS * 4 * n_codes
+
+
+def alt_smem_bytes(lanes: int, n_codes: int) -> int:
+    """K4's dynamic shared memory a block: K1/K2's head, the tick table and
+    the raw codes (neither when ``n_codes`` is 0) and the ring
+    (csrc/step_kernel.cu ``alt_smem_bytes``)."""
+    return (16 + 96 + ring_bytes(lanes)
+            + (alt_table_bytes(n_codes) + raw_bytes(n_codes) if n_codes
+               else 0))
+
+
+@functools.lru_cache(maxsize=None)
+def uses_alt_table(cfg: EnvConfig) -> bool:
+    """K4's geometry choice: the tick table when its entries hold four
+    times the codes and it fits one block's shared memory beside the ring
+    of the default block size (5x4: 1104 codes, 22,080 B); the arithmetic
+    walk otherwise (11x7: 13612 codes)."""
+    n = rules.n_cellpairs(cfg)
+    return (4 * n <= CODE_MASK + 1
+            and alt_smem_bytes(DEFAULT_LANES, n) <= SMEM_BUDGET)
+
+
+def check_alt_lanes(cfg: EnvConfig, threads) -> int:
+    """The lanes per block of a K4 launch: ``threads``, or DEFAULT_LANES
+    when None: a multiple of 32 in [32, MAX_LANES] whose shared memory
+    fits, else ValueError."""
+    lanes = DEFAULT_LANES if threads is None else threads
+    if (not isinstance(lanes, int) or lanes <= 0 or lanes % 32
+            or lanes > MAX_LANES):
+        raise ValueError(f"threads (lanes per block) must be a multiple of 32 "
+                         f"in [32, {MAX_LANES}], got {threads}")
+    need = alt_smem_bytes(lanes, rules.n_cellpairs(cfg)
+                          if uses_alt_table(cfg) else 0)
+    if need > SMEM_BUDGET:
+        raise ValueError(f"threads={lanes} needs {need} B of shared memory "
+                         f"with the tick table; the budget is {SMEM_BUDGET} "
+                         "B a block")
+    return lanes
+
+
+@functools.lru_cache(maxsize=8)
+def device_alt_table(cfg: EnvConfig, device: torch.device) -> DeviceStepTable:
+    """(cached) ``build_alt_table`` on ``device``, with the raw codes as
+    ``device_step_table`` holds them."""
+    at = build_alt_table(cfg)
+    raw = np.zeros(raw_bytes(at.n_codes) // 2, np.uint16)
+    raw[:at.n_codes] = rules.raw_encode(np, *code_fields(cfg).T, cfg)
+    return DeviceStepTable(torch.as_tensor(at.table, device=device),
+                           torch.as_tensor(raw.view(np.int16), device=device),
+                           at.n_codes)
+
+
+def _alt_arith_step(cfg: EnvConfig, fields, code):
+    """One tick from a tick code by arithmetic: ``alt_transition_core``
+    under the effective move, no slip, then the reset to ISD entry bits
+    3-4 with A to move.  Returns the fields, goal, truncation and
+    reward."""
+    ra, ca, rb, cb, p, turn, t = fields
+    ra, ca, rb, cb, p, goal, r = sk.alt_transition_core(
+        ra, ca, rb, cb, p, turn, code & 7, torch.zeros_like(code), cfg, 0)
+    t = t + 1
+    trunc = (t >= cfg.max_steps) & ~goal
+    term = goal | trunc
+    reset = sk._isd_lookup((code >> 3) & 3, cfg)
+    out = tuple(torch.where(term, i, f)
+                for i, f in zip(reset, (ra, ca, rb, cb, p)))
+    return ((*out, torch.where(term, 0, 1 - turn), torch.where(term, 0, t)),
+            goal, trunc, r.long())
+
+
+def alt_walk_codes(cfg: EnvConfig, fields, codes: torch.Tensor,
+                   table: bool | None = None):
+    """K4's consumers' stage: the seven fields after the ticks whose codes
+    are ``codes`` [T, B] and the per-lane int64 (reward, goal, truncation)
+    sums.  ``table`` (default: ``uses_alt_table(cfg)``) walks the tick
+    table for each warp whose lanes are all ``walkable`` with turn 0 or 1,
+    the others by arithmetic, as the kernel does."""
+    if table is None:
+        table = uses_alt_table(cfg)
+    fields = tuple(f.to(torch.int64) for f in fields)
+    B = fields[0].shape[0]
+    by_table = torch.zeros(B, dtype=torch.bool)
+    if table:
+        at = build_alt_table(cfg)
+        tbl = torch.as_tensor(at.table.astype(np.int64))
+        isd2 = torch.as_tensor(4 * at.isd_code.astype(np.int64))
+        valid = (walkable(cfg, *fields[:5])
+                 & ((fields[5] == 0) | (fields[5] == 1)))
+        pad = torch.ones(-B % 32, dtype=torch.bool)
+        by_table = torch.cat([valid, pad]).reshape(-1, 32).all(1) \
+            .repeat_interleave(32)[:B]
+        safe = [torch.where(by_table, f, int(v)) for f, v in
+                zip(fields[:6], (*code_fields(cfg)[at.isd_code[0]], 0))]
+        cs2 = 2 * (2 * rules.cellpair_encode(torch, *safe[:5], cfg) + safe[5])
+        tt = fields[6]
+    rew = torch.zeros(B, dtype=torch.int64)
+    goals, truncs = torch.zeros_like(rew), torch.zeros_like(rew)
+    for code in codes.to(torch.int64):
+        fields, goal, trunc, r = _alt_arith_step(cfg, fields, code)
+        if table:
+            e = tbl[(code & 7) * (2 * at.n_codes) + (cs2 >> 1)]
+            tgoal = e < 0
+            late = tt + 1 >= cfg.max_steps
+            term = tgoal | late
+            cs2 = torch.where(term, isd2[(code >> 3) & 3], e & CODE_MASK)
+            tt = torch.where(term, 0, tt + 1)
+            tr = torch.where(tgoal, torch.where((e & REWARD_BIT) != 0, 1, -1),
+                             0)
+            goal, trunc, r = (torch.where(by_table, a, b) for a, b in
+                              ((tgoal, goal), (late & ~tgoal, trunc),
+                               (tr, r)))
+        rew += r
+        goals += goal
+        truncs += trunc
+    if table:
+        dec = torch.as_tensor(code_fields(cfg).astype(np.int64))[cs2 >> 2]
+        fields = tuple(torch.where(by_table, a, b) for a, b in
+                       zip((*dec.unbind(1), (cs2 >> 1) & 1, tt), fields))
+    return tuple(f.to(torch.int32) for f in fields), (rew, goals, truncs)

@@ -1,4 +1,4 @@
-"""Time variants of the K1/K2 rollout kernels on a CUDA card.
+"""Time variants of the K1/K2 and K4 rollout kernels on a CUDA card.
 
 Each variant is ``csrc/step_kernel.cu`` with a few text patches
 (`VARIANTS`), built beside the port's own build and launched through
@@ -11,7 +11,10 @@ committed kernel's fields, stats and journal bit for bit, and equal the
 plain versions run on the CPU at 1024 lanes x 64 steps (``chip_smoke.py``
 phase 6's check); they are checked so.  ``diag-`` variants break the
 result on purpose to show what one stage costs (the walk without the
-hashing, the hashing without the walk) and are only timed.
+hashing, the hashing without the walk) and are only timed.  K4's variants
+(`ALT_VARIANTS`: the previous design, the arithmetic walk on 5x4, other
+lanes per block) run ``alt_rollout`` at 8192 x 1024 on both boards and are
+checked against the kernel and the CPU plain version at 1024 x 64.
 
     python -m gym_soccer_tpu_torch.ops.rollout_variants
 
@@ -43,7 +46,9 @@ _LAUNCH = """  auto kernel = rollout_kernel<kJournal, kTable>;
   kernel<<<blocks, a.lanes + 32 * kProducerWarps, smem, st>>>(a);
   return cudaGetLastError();"""
 _LAUNCH_AT = "template <bool kJournal, bool kTable>\ncudaError_t launch_rollout"
-_SMEM_CHECK = "  if (smem > kSmemBudget) return (int)cudaErrorInvalidValue;\n"
+_SMEM_CHECK = ("  const int smem = smem_bytes(lanes, table != nullptr ? n_codes : "
+               "0);\n  if (smem > kSmemBudget) return "
+               "(int)cudaErrorInvalidValue;\n")
 # The previous design: one thread a lane, the counter words, the
 # slip and the collision chain inline in its step loop.
 _OLD_KERNEL = """template <bool kJournal>
@@ -135,8 +140,7 @@ _TILE = "constexpr int kTileSteps = 8;"
 _STAGES = "constexpr int kStages = 3;"
 _STEP_CALL = "      step((cur[s / 2] >> (16 * (s & 1))) & 0xFFFFu);"
 _TAIL_CALL = "    step((uint32_t)last[s]);"
-_CODE_STORE = """      tile[j] = (uint16_t)step_code<kMod3>(c0, lane, t_keep, t_half,
-                                           a.g.nI - 1);"""
+_CODE_STORE = """      tile[j] = (uint16_t)code(c0, lane, t_keep, t_half, a.g.nI - 1);"""
 _TABLE_CHOICE = """  return (int)(table != nullptr
                    ? launch_rollout<kJournal, true>(a, device, smem, st)"""
 _SMEM = "  const int smem = smem_bytes(lanes, table != nullptr ? n_codes : 0);"
@@ -146,7 +150,8 @@ _SMEM = "  const int smem = smem_bytes(lanes, table != nullptr ? n_codes : 0);"
 VARIANTS = {
     "kernel": ([], (64, 32)),
     "previous-design": ([(_LAUNCH_AT, _OLD_KERNEL + _LAUNCH_AT),
-                         (_LAUNCH, _OLD_LAUNCH), (_SMEM_CHECK, "")],
+                         (_LAUNCH, _OLD_LAUNCH),
+                         (_SMEM_CHECK, "  const int smem = 0;\n")],
                         (128, 32)),
     "single-role": ([(_PRODUCERS, "constexpr int kProducerWarps = 0;"),
                      (_WALK, _SINGLE_WALK)], (64, 32)),
@@ -167,15 +172,83 @@ VARIANTS = {
     "diag-walk-only": ([(_CODE_STORE, "      tile[j] = (uint16_t)(j % 100);")],
                        (64,)),
 }
+# K4's variants, timed through ``step_kernel._launch_alt``.  The previous
+# design: one thread a tick hashing and stepping (64 blocks of 128).
+_ALT_LAUNCH = """  auto kernel = alt_rollout_kernel<kTable>;
+  static int allowed[kMaxDevices] = {};
+  if (device >= kMaxDevices || smem > allowed[device]) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    if (device < kMaxDevices) allowed[device] = smem;
+  }
+  const int blocks = (a.B + a.lanes - 1) / a.lanes;
+  kernel<<<blocks, a.lanes + 32 * kProducerWarps, smem, st>>>(a);
+  return cudaGetLastError();"""
+_ALT_LAUNCH_AT = "template <bool kTable>\ncudaError_t launch_alt"
+_OLD_ALT_KERNEL = """__global__ void old_alt_rollout_kernel(AltArgs a) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  int rew = 0, goals = 0, truncs = 0;
+  if (lane < a.B) {
+    const bool given = a.in.f[0] != nullptr;
+    State s = given ? State{a.in.f[0][lane], a.in.f[1][lane], a.in.f[2][lane],
+                            a.in.f[3][lane], a.in.f[4][lane], a.in.f[6][lane]}
+                    : isd_state(a.g, lane % a.g.nI);
+    int turn = given ? a.in.f[5][lane] : 0;
+    for (int i = 0; i < a.n_steps; ++i) {
+      const uint32_t step = (uint32_t)(i + a.step_offset);
+      const uint32_t bits0 = random_word(a.seed, step, 0u, (uint32_t)lane);
+      const uint32_t bits1 = random_word(a.seed, step, 1u, (uint32_t)lane);
+      const uint32_t bits2 = random_word(a.seed, step, 2u, (uint32_t)lane);
+      bool goal, trunc;
+      int r;
+      alt_transition(s, turn, u16(bits0, 0) % 5, bits1, a.g, goal, r);
+      autoreset(s, goal, bits2, a.g, trunc);
+      turn = (goal || trunc) ? 0 : 1 - turn;
+      rew += r;
+      goals += goal;
+      truncs += trunc;
+    }
+    a.out.f[0][lane] = s.ra; a.out.f[1][lane] = s.ca;
+    a.out.f[2][lane] = s.rb; a.out.f[3][lane] = s.cb;
+    a.out.f[4][lane] = s.p;  a.out.f[5][lane] = turn;
+    a.out.f[6][lane] = s.t;
+  }
+  block_sum(a.stats, rew, goals, truncs);
+}
+
+"""
+_OLD_ALT_LAUNCH = """  (void)smem; (void)device;
+  const int blocks = (a.B + a.lanes - 1) / a.lanes;
+  old_alt_rollout_kernel<<<blocks, a.lanes, 0, st>>>(a);
+  return cudaGetLastError();"""
+_ALT_CHOICE = "  return (int)(table != nullptr ? launch_alt<true>(a, device, smem, st)"
+_ALT_SMEM = "  const int smem = alt_smem_bytes(lanes, table != nullptr ? n_codes : 0);"
+_ALT_SMEM_CHECK = ("  const int smem = alt_smem_bytes(lanes, table != nullptr ? "
+                   "n_codes : 0);\n  if (smem > kSmemBudget) return "
+                   "(int)cudaErrorInvalidValue;\n")
+# name -> ([(text, replacement)], lanes per block): K4's variants, timed on
+# both boards; "kernel" is VARIANTS' build.
+ALT_VARIANTS = {
+    "kernel": ([], (64, 32, 128)),
+    "alt-previous-design": ([(_ALT_LAUNCH_AT, _OLD_ALT_KERNEL + _ALT_LAUNCH_AT),
+                             (_ALT_LAUNCH, _OLD_ALT_LAUNCH),
+                             (_ALT_SMEM_CHECK, "  const int smem = 0;\n")],
+                            (128, 32)),
+    "alt-arithmetic-walk": ([(_ALT_CHOICE, _ALT_CHOICE.replace(
+        "table != nullptr ?", "false ?")), (_ALT_SMEM, _ALT_SMEM.replace(
+            "table != nullptr ? n_codes : 0", "0"))], (64,)),
+}
 B, T, SLIP = 8192, 1024, 0.2
 BOARDS = ((5, 4), (11, 7))
 NAMES = ("fused_rollout", "fused_journal_rollout")
 
 
 def variant_source(name: str, source: str) -> str:
-    """``source`` with variant ``name``'s patches applied; ValueError if a
-    patched text does not occur exactly once."""
-    for old, new in VARIANTS[name][0]:
+    """``source`` with variant ``name``'s patches (of VARIANTS or
+    ALT_VARIANTS) applied; ValueError if a patched text does not occur
+    exactly once."""
+    for old, new in {**ALT_VARIANTS, **VARIANTS}[name][0]:
         if source.count(old) != 1:
             raise ValueError(f"variant {name}: its patch matches "
                              f"{source.count(old)} times, not once")
@@ -184,11 +257,12 @@ def variant_source(name: str, source: str) -> str:
 
 
 def _out_dir():
-    """Where the variants are built, beside the header they include."""
+    """Where the variants are built, beside the headers they include."""
     from . import _build
     out_dir = _build.BUILD_DIR / "rollout_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "game.cuh").write_text((_build.CSRC / "game.cuh").read_text())
+    for header in _build.CSRC.glob("*.cuh"):
+        (out_dir / header.name).write_text(header.read_text())
     return out_dir
 
 
@@ -227,6 +301,49 @@ def _device_ms(fn) -> float:
     return parity_variants._time(graph.replay)
 
 
+def _alt_variants(built, cfgs, dev, card) -> bool:
+    """Time K4's variants on both boards, each design variant checked
+    against the kernel and the CPU plain version; False if one differs."""
+    import ctypes
+
+    import torch
+
+    from . import parity_variants
+    from . import step_kernel as sk
+    cpu = {b: [*f, *s] for b, c in cfgs.items()
+           for f, s in [sk.alt_rollout(c, 3, 1024, 64, "cpu")]}
+    want, ok = {}, True
+    for name, (_, lane_sizes) in ALT_VARIANTS.items():
+        lib = sk.declare(ctypes.CDLL(str(built[name])))
+        sk._library = lambda lib=lib: lib
+        for lanes in lane_sizes:
+            ms, same = {}, []
+            for b, c in cfgs.items():
+                def fn():
+                    return sk._launch_alt(c, 1, dev, B, None, T, 0, lanes)
+                out = [x.cpu() for f, s in [fn()] for x in (*f, *s)]
+                if name == "kernel" and lanes == 64:
+                    want[b] = out
+                same.append(all(torch.equal(x, y)
+                                for x, y in zip(out, want[b])))
+                small = [x.cpu() for f, s in
+                         [sk._launch_alt(c, 3, dev, 1024, None, 64, 0, 64)]
+                         for x in (*f, *s)]
+                same.append(all(torch.equal(x, y)
+                                for x, y in zip(small, cpu[b])))
+                ms[f"K4 {b[0]}x{b[1]}"] = (parity_variants._time(fn),
+                                           _device_ms(fn))
+            ok &= all(same)
+            print(f"[variant] {name} (K4), {lanes} lanes per block: "
+                  + ", ".join(f"{k} call {v[0]} / device {v[1]} ms"
+                              for k, v in ms.items())
+                  + "; " + ("bit-equal to the kernel and to the CPU plain "
+                            "version" if all(same) else "DIFFERS from the "
+                            "kernel or the CPU plain version")
+                  + f" | {card}", flush=True)
+    return ok
+
+
 def main() -> int:
     import ctypes
 
@@ -244,9 +361,10 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     out_dir = _out_dir()
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        built = dict(zip(VARIANTS, pool.map(
-            lambda n: _build_variant(n, out_dir), VARIANTS)))
+    names = [*VARIANTS, *(n for n in ALT_VARIANTS if n not in VARIANTS)]
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = dict(zip(names, pool.map(
+            lambda n: _build_variant(n, out_dir), names)))
 
     dev = torch.device("cuda", 0)
     cfgs = {b: EnvConfig(width=b[0], height=b[1], slip_prob=SLIP)
@@ -267,7 +385,9 @@ def main() -> int:
     committed = sk._library
     want, ok = {}, True
     try:
-        for name, path in built.items():
+        ok = _alt_variants(built, cfgs, dev, card)
+        for name in VARIANTS:
+            path = built[name]
             lib = sk.declare(ctypes.CDLL(str(path)))
             sk._library = lambda lib=lib: lib
             regs = _registers(path.with_suffix(".log").read_text())

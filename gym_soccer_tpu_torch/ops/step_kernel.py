@@ -618,7 +618,7 @@ def multigrid_rollout(cfgs, seed: int, batch: int, n_steps: int,
 
 def alt_rollout(cfg: EnvConfig, seed: int, batch: int, n_steps: int,
                 device="cuda", init_fields=None, step_offset: int = 0,
-                threads: int = 128):
+                threads=None):
     """Run ``n_steps`` ticks of random play of the alternating-turn game for
     ``batch`` lanes: each tick only the mover acts, with a uniformly random
     action.
@@ -629,24 +629,32 @@ def alt_rollout(cfg: EnvConfig, seed: int, batch: int, n_steps: int,
     ``init_fields`` (7 int32 [batch] tensors on ``device``) and
     ``step_offset`` resume from an earlier call at that absolute step, bit
     for bit; without them lane i starts on ISD entry i % nI, A to move,
-    t = 0 (``init_alt_fields``).  ``threads`` is the CUDA block size and
-    does not change the result.
+    t = 0 (``init_alt_fields``).  ``threads`` is the kernel's lanes per
+    block: a multiple of 32 in [32, 512] whose shared memory fits
+    (``rollout_codes.check_alt_lanes``; 64 by default, ValueError
+    otherwise, on any device); it does not change the result.
 
     On a CPU device this runs ``alt_rollout_plain``; on a CUDA device it
     launches the K4 kernel.
     """
+    device = torch.device(device)
     fields = _start_fields(cfg, batch, n_steps, device, init_fields,
-                           step_offset, alt=True)
-    if fields[0].device.type == "cpu":
+                           step_offset, alt=True, make=device.type == "cpu")
+    lanes = _alt_lanes(cfg, threads)
+    if device.type == "cpu":
         return _alt_plain(cfg, seed, fields, n_steps, step_offset)
-    out, stats, _ = _launch("alt_rollout", cfg, seed, fields, n_steps,
-                            step_offset, threads)
-    return out, stats
+    return _launch_alt(cfg, seed, device, batch, fields, n_steps, step_offset,
+                       lanes)
 
 
 def _lanes(cfg: EnvConfig, threads) -> int:
     from . import rollout_codes
     return rollout_codes.check_lanes(cfg, threads)
+
+
+def _alt_lanes(cfg: EnvConfig, threads) -> int:
+    from . import rollout_codes
+    return rollout_codes.check_alt_lanes(cfg, threads)
 
 
 def _check_journal_fits(cfg: EnvConfig) -> None:
@@ -705,15 +713,14 @@ def _library():
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures of a build of ``csrc/step_kernel.cu``."""
     vp, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-    tail = [vp, i32, i32, u32, i32, i32, vp]  # params, B, T, seed, offset,
-    #                                            threads, stream
     # params, table, code_raw, n_codes, B, T, seed, offset, lanes, stream
     k1k2 = [vp, vp, vp, i32, i32, i32, u32, i32, i32, vp]
     lib.gst_fused_rollout.argtypes = [i32, vp, vp, vp] + k1k2
     lib.gst_fused_journal_rollout.argtypes = [i32, vp, vp, vp, vp] + k1k2
-    lib.gst_alt_rollout.argtypes = [i32, vp, vp, vp] + tail
-    lib.gst_rollout_smem_bytes.argtypes = [i32, i32]
-    lib.gst_rollout_smem_bytes.restype = i32
+    lib.gst_alt_rollout.argtypes = [i32, vp, vp, vp] + k1k2
+    for fn in (lib.gst_rollout_smem_bytes, lib.gst_alt_rollout_smem_bytes):
+        fn.argtypes = [i32, i32]
+        fn.restype = i32
     lib.gst_rollout_shape.argtypes = [vp]
     lib.gst_rollout_shape.restype = None
     lib.gst_multigrid_rollout.argtypes = [i32, vp, vp, vp, vp, i32, i32, u32,
@@ -797,26 +804,41 @@ def _launch_rollout(name: str, cfg: EnvConfig, seed: int, dev: torch.device,
     return out, tuple(stats.unbind()), journal
 
 
-def _launch(name: str, cfg: EnvConfig, seed: int, fields, n_steps: int,
-            step_offset: int, threads: int):
-    """Launch K4 (``alt_rollout``) at ``threads`` threads a block."""
-    dev = fields[0].device
-    check_threads(name, dev, threads)
+def _launch_alt(cfg: EnvConfig, seed: int, dev: torch.device, B: int,
+                fields, n_steps: int, step_offset: int, lanes: int):
+    """Launch K4 on ``B`` lanes from ``fields`` (None: the kernel's ISD
+    spread) at ``lanes`` lanes per block, on the tick table when the
+    geometry takes it (``rollout_codes.uses_alt_table``).  The seven
+    output planes and the stats are views of one allocation."""
+    from . import rollout_codes
+    name = "alt_rollout"
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
     lib = _library()
-    B = fields[0].shape[0]
-    out = tuple(torch.empty_like(f) for f in fields)
-    stats = torch.empty(3, dtype=torch.int64, device=dev)
-    in_ptrs, out_ptrs = ptr_array(fields), ptr_array(out)
-    params = _game_params(cfg)
+    if fields is not None:
+        dev = fields[0].device
+    elif dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    buf = torch.empty(3 + 7 * B // 2, dtype=torch.int64, device=dev)
+    in_ptrs = None if fields is None else ptr_array(fields)
+    base = buf.data_ptr() + 24
+    out_ptrs = (ctypes.c_void_p * 7)(*(base + 4 * B * k for k in range(7)))
+    table = (rollout_codes.device_alt_table(cfg, dev)
+             if rollout_codes.uses_alt_table(cfg) else None)
     rc = lib.gst_alt_rollout(
-        dev.index, ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs),
-        stats.data_ptr(), ctypes.addressof(params), B, n_steps, seed & M32,
-        step_offset, threads, torch.cuda.current_stream(dev).cuda_stream)
+        dev.index, None if in_ptrs is None else ctypes.addressof(in_ptrs),
+        ctypes.addressof(out_ptrs), buf.data_ptr(),
+        ctypes.addressof(_game_params(cfg)),
+        None if table is None else table.table.data_ptr(),
+        None if table is None else table.code_raw.data_ptr(),
+        0 if table is None else table.n_codes, B, n_steps, seed & M32,
+        step_offset, lanes, torch._C._cuda_getCurrentRawStream(dev.index))
     if rc:
         raise RuntimeError(f"{name}: kernel launch failed: "
                            f"{lib.gst_error_string(rc).decode()} ({rc})")
     launch_counts[name] += 1
-    return out, tuple(stats.unbind()), None
+    return (buf.view(torch.int32).as_strided((7, B), (B, 1), 6).unbind(0),
+            buf.as_strided((3,), (1,), 0).unbind())
 
 
 def _launch_mg(cfgs: tuple, seed: int, fields, planes, n_steps: int,

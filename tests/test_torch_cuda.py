@@ -125,17 +125,25 @@ def _same_chunk(a, b):
 @pytest.mark.parametrize("board", BOARDS)
 def test_learner_kernel_equals_plain_version(cuda, board):
     """K5 equals its plain version bit for bit (fields, stats, counts and
-    the int64 residual sums) for two block sizes, and on a small input
-    equals the plain version run on the CPU."""
+    the int64 residual sums) at the default lanes per block and at sizes
+    that leave a ragged last block, from states the walk table cannot
+    start from (goal states), and on a small input equals the plain
+    version run on the CPU."""
     from gym_soccer_tpu_torch.ops import learner_kernel as lk
     cfg = EnvConfig(width=board[0], height=board[1], slip_prob=0.2)
     B, T = 2048, 32
     table, fields = _learner_inputs(cfg, B, cuda)
     plain = lk.packed_learner_chunk_plain(cfg, 5, table, fields, B, T, 0.99)
-    for threads in (128, 256):
+    for threads in (None, 32, 96, 480):
         got = lk.packed_learner_chunk(cfg, 5, table, fields, B, T, 0.99,
                                       threads=threads)
         assert _same_chunk(got, plain)
+    bad = [f.clone() for f in fields]
+    bad[0][::7], bad[1][::7], bad[4][::7] = cfg.goal_row_bounds[0], \
+        cfg.W - 1, 0
+    assert _same_chunk(
+        lk.packed_learner_chunk(cfg, 6, table, bad, B, 13, 0.9),
+        lk.packed_learner_chunk_plain(cfg, 6, table, bad, B, 13, 0.9))
     table_c, fields_c = table.cpu(), tuple(f.cpu() for f in fields)
     cpu = lk.packed_learner_chunk(cfg, 5, table_c, fields_c, B, 8, 0.99)
     assert _same_chunk(lk.packed_learner_chunk(cfg, 5, table, fields, B, 8,
@@ -465,13 +473,15 @@ def test_parity_kernels_clamp_rows_like_the_plain_versions(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("board", BOARDS)
 def test_alt_rollout_equals_plain_version(cuda, board):
-    """K4 equals its plain version for two block sizes, a run resumed
-    through step_offset equals one run, and the launches are counted."""
+    """K4 equals its plain version at the default lanes per block and at
+    sizes that leave a ragged last block, a run resumed through
+    step_offset equals one run, lanes the tick table cannot start from
+    walk by arithmetic, and the launches are counted."""
     cfg = EnvConfig(width=board[0], height=board[1], slip_prob=0.2)
-    B, T = 2048, 64
+    B, T = 2048, 61
     pf, ps = sk.alt_rollout_plain(cfg, 4, B, T, cuda)
     sk.reset_launch_counts()
-    for threads in (128, 256):
+    for threads in (None, 32, 96):
         kf, ks = sk.alt_rollout(cfg, 4, B, T, cuda, threads=threads)
         assert all(torch.equal(a, b) for a, b in zip(kf, pf))
         assert _ints(ks) == _ints(ps)
@@ -479,7 +489,14 @@ def test_alt_rollout_equals_plain_version(cuda, board):
     fb, _ = sk.alt_rollout(cfg, 4, B, T - T // 2, cuda, init_fields=fa,
                            step_offset=T // 2)
     assert all(torch.equal(a, b) for a, b in zip(fb, pf))
-    assert sk.launch_counts["alt_rollout"] == 4
+    assert sk.launch_counts["alt_rollout"] == 5
+    bad = [f.clone() for f in pf]
+    bad[0][::7], bad[1][::7], bad[4][::7] = cfg.goal_row_bounds[0], 0, 1
+    bad[5][::11] = 2
+    kf, ks = sk.alt_rollout(cfg, 4, B, 40, cuda, init_fields=bad)
+    qf, qs = sk.alt_rollout_plain(cfg, 4, B, 40, cuda, init_fields=bad)
+    assert all(torch.equal(a, b) for a, b in zip(kf, qf))
+    assert _ints(ks) == _ints(qs)
 
 
 @pytest.mark.cuda

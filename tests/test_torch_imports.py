@@ -24,6 +24,8 @@ MODULES = ["gym_soccer_tpu_torch", "gym_soccer_tpu_torch.config",
            "gym_soccer_tpu_torch.ops.parity_variants",
            "gym_soccer_tpu_torch.ops.rollout_codes",
            "gym_soccer_tpu_torch.ops.rollout_variants",
+           "gym_soccer_tpu_torch.ops.learner_codes",
+           "gym_soccer_tpu_torch.ops.learner_variants",
            "gym_soccer_tpu_torch.ops.altq_kernel",
            "gym_soccer_tpu_torch.spaces",
            "gym_soccer_tpu_torch.envs",

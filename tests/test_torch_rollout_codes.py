@@ -208,3 +208,165 @@ def test_rollout_variants_patch_the_committed_kernel(name):
         assert new in got
     with pytest.raises(ValueError, match="matches 0 times"):
         rollout_variants.variant_source("tile-16", "no kernel here")
+
+
+@pytest.mark.parametrize("name", sorted(rollout_variants.ALT_VARIANTS))
+def test_alt_variants_patch_the_committed_kernel(name):
+    """Each timed variant of K4 applies its patches, each to exactly one
+    place in the committed source, and changes it unless it is the kernel
+    itself."""
+    from gym_soccer_tpu_torch.ops import _build
+    src = (_build.CSRC / "step_kernel.cu").read_text()
+    got = rollout_variants.variant_source(name, src)
+    assert (got == src) == (name == "kernel")
+    for _, new in rollout_variants.ALT_VARIANTS[name][0]:
+        assert new in got
+
+
+# ----------------------------------------------------------------------
+# K4: the alternating game's tick codes and walk
+# ----------------------------------------------------------------------
+
+def _alt_two_stages(cfg, seed, fields, n_steps, step_offset=0, table=None):
+    codes = rc.alt_step_codes(cfg, seed, torch.arange(B), n_steps,
+                              step_offset)
+    return rc.alt_walk_codes(cfg, fields, codes, table)
+
+
+def _alt_equal(got, want):
+    (gf, gs), (wf, ws) = got, want
+    assert all(torch.equal(a, b) for a, b in zip(gf, wf))
+    assert [int(x.sum()) for x in gs] == [int(x) for x in ws]
+
+
+@pytest.mark.parametrize("board", BOARDS)
+def test_alt_two_stages_equal_the_plain_version_and_pallas(board):
+    """K4's tick codes then walk equal ``alt_rollout_plain`` and the JAX
+    package's ``pallas_alt_rollout`` in interpret mode (1024 lanes x 64
+    ticks); on 5x4 the table walk and the arithmetic walk agree."""
+    jcfg, cfg = _cfgs(board)
+    fields = sk.init_alt_fields(cfg, B, "cpu")
+    got = _alt_two_stages(cfg, 7, fields, T)
+    _alt_equal(got, sk.alt_rollout_plain(cfg, 7, B, T, "cpu"))
+    if rc.uses_alt_table(cfg):
+        _alt_equal(_alt_two_stages(cfg, 7, fields, T, table=False),
+                   (got[0], [x.sum() for x in got[1]]))
+    jf, js = jsk.pallas_alt_rollout(jcfg, 7, B, T, interpret=True)
+    assert [int(x.sum()) for x in got[1]] == [int(x) for x in js]
+    for a, b in zip(interop.planes_to_tiles(got[0]), jf):
+        assert np.array_equal(a, np.asarray(b))
+
+
+@pytest.mark.parametrize("board", BOARDS)
+def test_alt_two_stages_resume_at_a_step_offset(board):
+    """24 ticks, then 40 more from their fields with codes made at step
+    offset 24, equal one 64-tick walk, and the JAX kernel resumed from the
+    same fields."""
+    jcfg, cfg = _cfgs(board)
+    fields = sk.init_alt_fields(cfg, B, "cpu")
+    whole = _alt_two_stages(cfg, 9, fields, T)
+    first = _alt_two_stages(cfg, 9, fields, 24)
+    second = _alt_two_stages(cfg, 9, first[0], T - 24, step_offset=24)
+    assert all(torch.equal(a, b) for a, b in zip(second[0], whole[0]))
+    assert [int(x.sum() + y.sum()) for x, y in zip(first[1], second[1])] \
+        == [int(x.sum()) for x in whole[1]]
+    jf, js = jsk.pallas_alt_rollout(
+        jcfg, 9, B, T - 24, interpret=True, step_offset=24,
+        init_fields=[jnp.asarray(p)
+                     for p in interop.planes_to_tiles(first[0])])
+    assert [int(x.sum()) for x in second[1]] == [int(x) for x in js]
+    for a, b in zip(interop.planes_to_tiles(second[0]), jf):
+        assert np.array_equal(a, np.asarray(b))
+
+
+def test_alt_unwalkable_warps_walk_by_arithmetic():
+    """Lanes the tick table cannot start from (a player without the ball in
+    a goal column, a turn other than 0 or 1) take their warp off the
+    table; the result still equals the plain version."""
+    _, cfg = _cfgs((5, 4))
+    ra, ca, rb, cb, p, turn, t = (f.clone() for f in
+                                  sk.init_alt_fields(cfg, B, "cpu"))
+    ca[5::97], ra[5::97], p[5::97] = 0, 1, 1
+    turn[40::131] = 2
+    t[::3] = cfg.max_steps - 2
+    fields = (ra, ca, rb, cb, p, turn, t)
+    walkable = rc.walkable(cfg, ra, ca, rb, cb, p) & (turn <= 1)
+    assert not walkable.all() and walkable.reshape(-1, 32).all(1).any()
+    _alt_equal(_alt_two_stages(cfg, 5, fields, T),
+               sk.alt_rollout_plain(cfg, 5, B, T, "cpu", init_fields=fields))
+
+
+def test_alt_table_equals_jax_alt_step_once():
+    """Every walkable (code, turn) under all 5 moves: the tick table's next
+    (code, turn), goal and reward equal the port's alt_transition_core and
+    the JAX package's ``_alt_step_once`` with the move as the action, no
+    slip and no truncation (a goal resets, so only its flag and reward are
+    compared)."""
+    jcfg, cfg = _cfgs((5, 4))
+    at = rc.build_alt_table(cfg)
+    fields = rc.code_fields(cfg)
+    live = np.flatnonzero(rc.walkable(cfg, *fields.T))
+    code, turn, move = (a.ravel() for a in np.meshgrid(
+        live, np.arange(2), np.arange(rc.ALT_INPUTS), indexing="ij"))
+    e = at.table.reshape(rc.ALT_INPUTS, at.n_codes, 2)[move, code, turn] \
+        .astype(np.int64)
+    goal, nxt2 = e < 0, (e & rc.CODE_MASK) >> 1
+    reward = np.where(goal, np.where(e & rc.REWARD_BIT, 1, -1), 0)
+    f = [fields[code, k] for k in range(5)]
+    port = sk.alt_transition_core(
+        *(torch.as_tensor(x.astype(np.int64)) for x in (*f, turn, move)),
+        torch.zeros(len(code), dtype=torch.int64), cfg, 0)
+    zeros = jnp.zeros(len(code), jnp.int32)
+    jout = jsk._alt_step_once(
+        (*(jnp.asarray(x, jnp.int32) for x in (*f, turn)), zeros, zeros,
+         zeros, zeros), jnp.asarray(move, jnp.uint32),
+        jnp.zeros(len(code), jnp.uint32), jnp.zeros(len(code), jnp.uint32),
+        jcfg, 0)
+    jfields = [np.asarray(x) for x in jout[:6]]
+    assert np.array_equal(np.asarray(jout[8]), goal)
+    assert np.array_equal(np.asarray(jout[7]), reward)
+    assert np.array_equal(port[5].numpy(), goal)
+    assert np.array_equal(port[6].numpy(), reward)
+    moved = ~goal
+    want = rules.cellpair_encode(np, *(x[moved] for x in jfields[:5]), cfg)
+    assert np.array_equal(nxt2[moved] >> 1, want)
+    assert np.array_equal(nxt2[moved] & 1, jfields[5][moved])
+    assert np.array_equal(nxt2[moved] >> 1, rules.cellpair_encode(
+        np, *(x.numpy()[moved] for x in port[:5]), cfg))
+    assert np.array_equal(nxt2[moved] & 1, 1 - turn[moved])
+
+
+def test_alt_table_fits_one_block():
+    """5x4's tick table is 22,080 B, a tenth of K1's step table, and fits
+    one block's shared memory beside the ring of any block size up to 512
+    lanes; 11x7's entries would not hold its codes, so it walks by
+    arithmetic."""
+    _, c54 = _cfgs((5, 4))
+    _, c117 = _cfgs((11, 7))
+    at = rc.build_alt_table(c54)
+    assert at.n_codes == 1104 and at.table.nbytes == 22080
+    assert rc.alt_smem_bytes(64, 1104) == 112 + 22080 + 2208 + 3072
+    assert rc.alt_smem_bytes(rc.MAX_LANES, 1104) <= rc.SMEM_BUDGET
+    assert rc.uses_alt_table(c54) and not rc.uses_alt_table(c117)
+    with pytest.raises(ValueError, match="13 bits"):
+        rc.build_alt_table(c117)
+
+
+@pytest.mark.parametrize("board", BOARDS)
+def test_alt_lanes_per_block(board):
+    """``threads`` is K4's lanes per block: 64 by default, any multiple of
+    32 up to 512 (all fit), anything else refused with a ValueError on any
+    device, before a launch; it does not change the CPU result."""
+    _, cfg = _cfgs(board)
+    assert rc.check_alt_lanes(cfg, None) == 64
+    for lanes in (32, 96, 480, 512):
+        assert rc.check_alt_lanes(cfg, lanes) == lanes
+    for bad in (0, 48, 544, 1024, 64.0):
+        with pytest.raises(ValueError, match="lanes per block"):
+            rc.check_alt_lanes(cfg, bad)
+        for dev in ("cpu", "meta"):
+            with pytest.raises(ValueError, match="lanes per block"):
+                sk.alt_rollout(cfg, 0, 1024, 4, dev, threads=bad)
+    want = sk.alt_rollout(cfg, 3, 1024, 8, "cpu")
+    got = sk.alt_rollout(cfg, 3, 1024, 8, "cpu", threads=32)
+    assert all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
