@@ -29,7 +29,7 @@ failure:
    per library, in parallel; for each kernel's bound, cuobjdump's SASS
    gives the fewest instructions one step (or event) of its main loop
    issues (``loop_instructions``; K12/K13's MT19937 twist amortised over
-   the 312 events between twists; K1/K2/K4/K5's producer code loop plus
+   the 312 events between twists; K1-K5 and K7's producer code loop plus
    their consumer tile loop over its 8 steps);
 3. main path: the user entry points at 8192 lanes, with the kernels'
    launch counters reset before and read after; outputs are checked by
@@ -121,13 +121,16 @@ failure:
     mixture run's resume state counts each variant's lanes x 64 visits in
     its own table block;
 23. K3: bit-equal to its plain version (fields and per-variant stats) at
-    8192 x 1024 for two block sizes; a run split by ``step_offset`` equals
-    one run; the one-variant mixture (5x4,) equals K1; at 1024 x 64 equal
-    to the plain version run on the CPU;
+    8192 x 1024 at 64 lanes per block (the default) and 96 (a ragged last
+    block); a run split by ``step_offset`` equals one run; the one-variant
+    mixture (5x4,) equals K1; at 1024 x 64 equal to the plain version run
+    on the CPU;
 24. K6 and K7 (both sites): bit-equal to their plain versions (fields,
     stats, counts, the int64 sums and the out-of-range count) at 8192 x 64
     on the mixture and on 5x4+11x7 (K6, K7 multigrid) and on 5x4 and 11x7
-    (K7), for two block sizes, on tables with non-uniform pi and v, q != 0;
+    (K7), K6 at 128 and 256 threads a block, K5 and K7 at the default
+    lanes per block and 96 (a ragged last block), on tables with
+    non-uniform pi and v, q != 0;
     K6 and K7 step the same fields, stats and counts; at 256 x 16 equal to
     the plain versions run on the CPU; K5, K6 and K7 count the same
     out-of-range values as their plain versions on tables holding nan and
@@ -144,7 +147,9 @@ failure:
 26. timing: K3 at 8192 x 1024 on the mixture; K6 at 8192 x 64 and 32768 x
     64 on the mixture and at 8192 x 64 on 5x4+11x7; K7 at 8192 x 64 on 5x4
     and 11x7; K7 multigrid at 8192 x 64 on the mixture; each against its
-    plain version, and ``torch.profiler`` windows of K3, K6 (8192 and 32768
+    plain version; the design lines of K3 and K7 (both sites: block shape,
+    shared memory, registers, SASS per lane-step, bound, the previous
+    design's ms) and ``torch.profiler`` windows of K3, K6 (8192 and 32768
     lanes) and K7 (both sites) for device time and idle share;
 27. alternating path: ``alt_rollout`` at 8192 x 1024 on 5x4 and 11x7 (slip
     0.2) and ``fused_altq_train`` on 5x4 for 4 chunks of 8192 x 64, packed
@@ -230,6 +235,12 @@ ROLLOUT_OLD_MS = {("fused_rollout", (5, 4)): 0.637,
 # H100 80GB HBM3 at 700 W, as PERF.md section 6 records them.
 ALT_OLD_MS = {(5, 4): 0.4087, (11, 7): 0.3878}
 LEARNER_OLD_MS = {(5, 4): 0.1549, (11, 7): 0.1348}
+# ms per call of K3 (8192 x 1024, the 3-board mixture), K7 (8192 x 64, 5x4)
+# and K7 multigrid (8192 x 64, the mixture) in their previous design (one
+# thread a lane hashing and stepping, 64 blocks of 128), NVIDIA H100 80GB
+# HBM3 at 700 W (run 6 of the K4/K5 redesign, PERF.md section 6).
+MG_OLD_MS = {"multigrid_rollout": 0.4705, "learner_chunk": 0.0947,
+             "multigrid_learner_chunk": 0.0730}
 # K5 at the 5x4 contract's chunk (65536 lanes x 32 steps) beside the
 # flagship 8192 x 64; the second block sizes leave a ragged last block
 # (8192 / 96, 65536 / 480).
@@ -297,10 +308,10 @@ REPLACES = {"fused_rollout": "gym_soccer_tpu/ops/step_kernel.py:254",
 SYMBOL = {"fused_rollout": "14rollout_kernelILb0ELb1E",
           "fused_journal_rollout": "14rollout_kernelILb1ELb1E",
           "multigrid_rollout": "17mg_rollout_kernel",
-          "packed_learner_chunk": "13packed_kernelILb1E",
+          "packed_learner_chunk": "12chunk_kernelILb1ELb1ELb0E",
           "multigrid_packed_learner_chunk": "learner_kernelILb1ELb1E",
-          "learner_chunk": "learner_kernelILb0ELb0E",
-          "multigrid_learner_chunk": "learner_kernelILb0ELb1E",
+          "learner_chunk": "12chunk_kernelILb0ELb1ELb0E",
+          "multigrid_learner_chunk": "12chunk_kernelILb0ELb0ELb1E",
           "iql_packed_chunk": "iql_kernelILb1E", "iql_chunk": "iql_kernelILb0E",
           "parity_events": "parity_kernelILb0E",
           "parity_scripted_events": "parity_kernelILb1E",
@@ -308,12 +319,13 @@ SYMBOL = {"fused_rollout": "14rollout_kernelILb0ELb1E",
           "altq_packed_chunk": "11altq_kernelILb1E",
           "altq_chunk": "11altq_kernelILb0E"}
 # K1/K2/K4 on a board whose table does not fit (11x7): the arithmetic
-# walk; K5 there: its prepared rows read from L2.  SYMBOL's are the 5x4
-# kernels' (the kernels line's board).
+# walk; K5 and K7 there: their prepared rows read from L2.  SYMBOL's are
+# the 5x4 kernels' (the kernels line's board).
 ARITH_SYMBOL = {"fused_rollout": "14rollout_kernelILb0ELb0E",
                 "fused_journal_rollout": "14rollout_kernelILb1ELb0E",
                 "alt_rollout": "18alt_rollout_kernelILb0E",
-                "packed_learner_chunk": "13packed_kernelILb0E"}
+                "packed_learner_chunk": "12chunk_kernelILb1ELb0ELb0E",
+                "learner_chunk": "12chunk_kernelILb0ELb0ELb0E"}
 # H100 SXM peaks (NVIDIA's data sheet): 3.35 TB/s of HBM, and 67 TFLOP/s of
 # float32 outside the tensor cores, i.e. 3.35e13 FMA instructions a second
 # (132 SMs x 4 schedulers x 32 lanes x 1.98 GHz), the rate at which the
@@ -383,13 +395,14 @@ SHARED_STORE = re.compile(r"^(@!?U?P\d\s+)?STS(\.\S+)?\s")
 TWIST = (624, 312)
 TWISTING = (SYMBOL["parity_events"], SYMBOL["parity_scripted_events"])
 BARRIER_WAIT = re.compile(r"^(@!?U?P\d\s+)?BAR\.SYNC")
-# K1/K2, K4 and K5 split a lane-step between two threads: a producer makes
-# its step code, one a trip of the innermost loop that stores codes to
-# shared memory, and the lane's consumer walks TILE_STEPS steps a trip of an
+# K1-K5 and K7 split a lane-step between two threads: a producer makes its
+# step code, one a trip of the innermost loop that stores codes to shared
+# memory, and the lane's consumer walks TILE_STEPS steps a trip of an
 # innermost loop that waits on a barrier for the tile (the table walk and
 # the arithmetic walk; csrc/step_kernel.cu kTileSteps, csrc/
 # learner_kernel.cu kTile).
-SPLIT = ("14rollout_kernelI", "18alt_rollout_kernelI", "13packed_kernelI")
+SPLIT = ("14rollout_kernelI", "18alt_rollout_kernelI", "17mg_rollout_kernel",
+         "12chunk_kernelI")
 TILE_STEPS = 8
 
 
@@ -414,7 +427,7 @@ def loop_instructions(text, names=None):
     fewest instructions per word of those loops (a nested loop's body over
     the shared-memory stores it makes).
 
-    K1, K2, K4 and K5 (``SPLIT``) serve each lane-step from two loops,
+    K1-K5 and K7 (``SPLIT``) serve each lane-step from two loops,
     neither nested in another: the count is the shortest way around the
     producers' (the innermost loop holding a shared-memory store: one step
     code a trip) plus the shortest way around the consumers' over
@@ -600,12 +613,12 @@ def main() -> int:
     check(shape[0] == TILE_STEPS, f"K1/K2/K4 tiles of {shape[0]} steps, "
           f"the bound counts {TILE_STEPS}")
     k5_shape = (ctypes.c_int32 * 3)()
-    lk._library().gst_packed_shape(ctypes.addressof(k5_shape))
-    check(k5_shape[0] == TILE_STEPS, f"K5 tiles of {k5_shape[0]} steps, the "
-          f"bound counts {TILE_STEPS}")
+    lk._library().gst_chunk_shape(ctypes.addressof(k5_shape))
+    check(k5_shape[0] == TILE_STEPS, f"K5/K7 tiles of {k5_shape[0]} steps, "
+          f"the bound counts {TILE_STEPS}")
     check((k5_shape[0], k5_shape[1], k5_shape[2]) ==
           (lc.TILE_STEPS, lc.STAGES, lc.PRODUCER_WARPS),
-          "K5's ring differs from learner_codes'")
+          "K5/K7's ring differs from learner_codes'")
     loops = {}
     for path in built.values():
         loops.update(sass_loop_instructions(
@@ -618,7 +631,7 @@ def main() -> int:
         per_step[name] = found[0]
     print(f"[build] SASS instructions per lane-step (K12/K13: lane-event, "
           f"with the MT19937 twist amortised over its {TWIST[1]} events; "
-          f"K1/K2/K4/K5: a producer's code loop plus a consumer's tile loop "
+          f"K1-K5, K7: a producer's code loop plus a consumer's tile loop "
           f"over its {TILE_STEPS} steps, 'arith' the walk of boards whose "
           f"table does not fit) on the shortest way around each kernel's "
           f"main loop (cuobjdump -sass): {per_step}")
@@ -826,7 +839,7 @@ def main() -> int:
     ms.update(iql_ms)
 
     mg_launches, mg_errs, mg_ms, mg_work = multigrid_phases(
-        torch, dev, card, exploitability)
+        torch, dev, card, exploitability, per_step, regs)
     launches.update(mg_launches)
     for name, e in mg_errs.items():
         errs[name] = max(errs.get(name, 0), e)
@@ -1035,17 +1048,17 @@ def learner_phases(torch, dev, card, cfgs, lk, exploitability, per_step,
                 torch, lambda: lk.packed_learner_chunk(c, 77, table, fields,
                                                        BB, TT, 0.99),
                 f"packed_learner_chunk {board[0]}x{board[1]} B={BB} T={TT}",
-                "packed_kernel", card)
+                "chunk_kernel<true", card)
             shared = lc.shared_rows(c)
             lanes = lc.default_lanes(BB)
             key = "packed_learner_chunk" + ("" if shared else " arith")
             sym = (SYMBOL if shared else ARITH_SYMBOL)["packed_learner_chunk"]
             smem = lc.smem_bytes(lanes, lk.n_codes(c) if shared else 0)
-            check(lk._library().gst_packed_smem_bytes(lanes, lk.n_codes(c))
+            check(lk._library().gst_chunk_smem_bytes(lanes, lk.n_codes(c), 0)
                   == smem, "K5's shared memory differs from smem_bytes")
             offsets = (ctypes.c_longlong * 7)()
-            lk._library().gst_packed_chunk_layout(lk.n_codes(c), BB,
-                                                  ctypes.addressof(offsets))
+            lk._library().gst_chunk_layout(lk.n_codes(c), BB,
+                                           ctypes.addressof(offsets))
             check(tuple(offsets) == tuple(lc.layout(lk.n_codes(c), BB)),
                   "K5's layout differs from learner_codes.layout")
             reg = [r for k, r in regs.items() if sym in k]
@@ -1585,7 +1598,7 @@ def to_cpu(state):
                  for x in state)
 
 
-def multigrid_phases(torch, dev, card, exploitability):
+def multigrid_phases(torch, dev, card, exploitability, per_step, regs):
     """Phases 22-26: the mixed-geometry path and kernels K3, K6 and K7
     (both sites).  Returns their launches on the path, their max abs
     error against the plain versions (K5's too, from phase 24), their ms
@@ -1595,7 +1608,9 @@ def multigrid_phases(torch, dev, card, exploitability):
     from gym_soccer_tpu_torch.config import EnvConfig
     from gym_soccer_tpu_torch.core import multigrid as mg
     from gym_soccer_tpu_torch.core import tables
+    from gym_soccer_tpu_torch.ops import learner_codes as lc
     from gym_soccer_tpu_torch.ops import learner_kernel as lk
+    from gym_soccer_tpu_torch.ops import rollout_codes as rc
     from gym_soccer_tpu_torch.ops import step_kernel as sk
     mix = tuple(EnvConfig(*b) for b in MIX3)
     big = tuple(EnvConfig(*b) for b in MIX_BIG)
@@ -1674,12 +1689,13 @@ def multigrid_phases(torch, dev, card, exploitability):
 
     # ---- 23. K3 --------------------------------------------------------
     pf, ps = sk.multigrid_rollout_plain(mix, 21, B, T_K3, dev)
-    for threads in (128, 256):
-        got = k3 if threads == 128 else sk.multigrid_rollout(
-            mix, 21, B, T_K3, dev, threads=threads)
+    for lanes in (None, ROLLOUT_RAGGED_LANES):
+        got = k3 if lanes is None else sk.multigrid_rollout(
+            mix, 21, B, T_K3, dev, threads=lanes)
         e = max_abs_err([*zip(got[0], pf), (got[1], ps)])
         errs["multigrid_rollout"] = max(errs["multigrid_rollout"], e)
-        check(e == 0, f"K3 != plain, threads {threads}: max abs err {e}")
+        check(e == 0, f"K3 != plain at {lanes or 'default'} lanes per block: "
+              f"max abs err {e}")
     h = T_K3 // 2
     fa, sa = sk.multigrid_rollout(mix, 21, B, h, dev)
     fb, sb = sk.multigrid_rollout(mix, 21, B, T_K3 - h, dev, init_fields=fa,
@@ -1694,8 +1710,9 @@ def multigrid_phases(torch, dev, card, exploitability):
     cf, cs = sk.multigrid_rollout(mix, 3, 1024, 64, "cpu")
     check(max_abs_err([*zip(gf, cf), (gs, cs)]) == 0, "K3 != CPU plain")
     print(f"[K3] {MIX3} B={B} T={T_K3}: bit-equal to plain (fields and "
-          f"per-variant stats; max abs err {errs['multigrid_rollout']}); "
-          f"threads 128/256 equal; {h}+{T_K3 - h} split equals one run; the "
+          f"per-variant stats; max abs err {errs['multigrid_rollout']}) at "
+          f"{rc.DEFAULT_LANES} (default) and {ROLLOUT_RAGGED_LANES} (ragged) "
+          f"lanes per block; {h}+{T_K3 - h} split equals one run; the "
           "(5x4,) mixture equals K1; B=1024 T=64 equals the CPU plain "
           "version")
 
@@ -1710,7 +1727,10 @@ def multigrid_phases(torch, dev, card, exploitability):
         for name, table in zip(pair, (m2, m)):
             want = run_chunk(lk, name + "_plain", cfg, 77, table, state, B,
                              T_K6)
-            for threads in (128, 256):
+            # K6 takes threads a block, K5 and K7 lanes per block
+            sizes = ((128, 256) if name == K6
+                     else (None, LEARNER_RAGGED_LANES[B]))
+            for threads in sizes:
                 e = chunk_err(run_chunk(lk, name, cfg, 77, table, state, B,
                                         T_K6, threads=threads), want)
                 errs[name] = max(errs[name], e)
@@ -1735,8 +1755,10 @@ def multigrid_phases(torch, dev, card, exploitability):
               f"{pair} step different trajectories on {label}")
         check(int(ca.sum()) == B * T_K6, "visit counts != B * T")
         print(f"[K6/K7] {label} B={B} T={T_K6}: {pair} bit-equal to plain "
-              "(fields, stats, counts, int64 sums, out-of-range count); "
-              "threads 128/256 equal; both step the same fields, stats and "
+              "(fields, stats, counts, int64 sums, out-of-range count); K6 "
+              f"at 128/256 threads a block, K5/K7 at {lc.default_lanes(B)}"
+              f"/{LEARNER_RAGGED_LANES[B]} lanes per block equal; both step "
+              "the same fields, stats and "
               "counts; B=256 T=16 equals the CPU plain versions, and counts "
               "the same values out of range with v, q + nan and + 1e7")
     print(f"[K6/K7] max abs err {errs}")
@@ -1821,23 +1843,62 @@ def multigrid_phases(torch, dev, card, exploitability):
                 slow_legs=3)
             if BB == B and label in ("mixture", "5x4"):
                 ms[name], ms[name + "_plain"] = med_k, med_p
+            if name == K7 and label == "11x7":
+                ms_117 = med_k
             print(f"[time] {name} {label} B={BB} T={T_K6}: {med_k} ms/call, "
                   f"{BB * T_K6 / (med_k / 1e3)} learner env-steps/s (median "
                   f"of {len(legs)} legs x {reps} calls; legs ms/call {legs});"
                   f" plain {med_p} ms/call | {card}")
-    profile_window(torch, lambda: sk.multigrid_rollout(mix, 1, B, T_K3, dev),
-                   f"multigrid_rollout mixture B={B} T={T_K3}",
-                   "mg_rollout_kernel", card)
+    us = {"multigrid_rollout": profile_window(
+        torch, lambda: sk.multigrid_rollout(mix, 1, B, T_K3, dev),
+        f"multigrid_rollout mixture B={B} T={T_K3}", "mg_rollout_kernel",
+        card)}
     for label, cfg, BB, name in (("mixture", mix, B, K6),
                                  ("mixture", mix, B_WIDE, K6),
                                  ("mixture", mix, B, K7M),
                                  ("5x4", c54, B, K7)):
         m2, m, state = mg_inputs(torch, lk, cfg, BB, dev, 5)
         table = m2 if name == K6 else m
-        profile_window(torch, lambda: run_chunk(lk, name, cfg, 77, table,
-                                                state, BB, T_K6),
-                       f"{name} {label} B={BB} T={T_K6}", "learner_kernel",
-                       card)
+        got = profile_window(
+            torch, lambda: run_chunk(lk, name, cfg, 77, table, state, BB,
+                                     T_K6),
+            f"{name} {label} B={BB} T={T_K6}",
+            "learner_kernel" if name == K6 else "chunk_kernel<false", card)
+        if name != K6:
+            us[name] = got
+    # the design lines of the split kernels K3 and K7 (both sites)
+    lanes = rc.DEFAULT_LANES
+    check(sk._library().gst_mg_rollout_smem_bytes(lanes)
+          == rc.mg_smem_bytes(lanes), "K3's shared memory differs from "
+          "mg_smem_bytes")
+    design = [("multigrid_rollout", "mixture", T_K3, "multigrid_rollout",
+               SYMBOL["multigrid_rollout"], lanes, rc.mg_smem_bytes(lanes),
+               "")]
+    lanes = lc.default_lanes(B)
+    for name, label, cfg, arith in ((K7, "5x4", c54, False),
+                                    (K7, "11x7", c117, True),
+                                    (K7M, "mixture", mix, False)):
+        shared = lc.shared_rows(cfg)
+        smem = lc.smem_bytes(lanes, lk.n_codes(cfg) if shared else 0,
+                             name == K7M)
+        check(lk._library().gst_chunk_smem_bytes(
+            lanes, lk.n_codes(cfg), int(name == K7M)) == smem,
+            f"{name}'s shared memory differs from learner_codes.smem_bytes")
+        design.append((name, label, T_K6, name + " arith" if arith else name,
+                       (ARITH_SYMBOL if arith else SYMBOL)[name], lanes, smem,
+                       f" (rows in {'shared memory' if shared else 'L2'})"))
+    for name, label, T, key, sym, lanes, smem, rows in design:
+        reg = [r for k, r in regs.items() if sym in k]
+        now = ms_117 if label == "11x7" else ms[name]
+        old = ("" if label == "11x7" else
+               f", {us[name]} us of kernel a launch, against the previous "
+               f"design's {MG_OLD_MS[name]} ms ({MG_OLD_MS[name] / now}x)")
+        print(f"[design] {name} {label}{rows}: {lanes} lanes and 8 producer "
+              f"warps a block ({-(-B // lanes)} blocks of {lanes + 256} "
+              f"threads), {smem} B of shared memory per block, {reg} "
+              f"registers per thread; {per_step[key]} SASS per lane-step, "
+              f"bound {bound(B * T, per_step[key], 0)[0]} ms; {now} "
+              f"ms/call{old} | {card}")
 
     fields_bytes = 2 * 6 * 4 * B + 3 * 8
     planes_bytes = 6 * 4 * B

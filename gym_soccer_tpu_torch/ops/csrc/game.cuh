@@ -12,9 +12,11 @@
 // The game functions take any geometry G with the fields H, W, glo, ghi,
 // q_int, max_steps and nI: a `Game`, one board shared by every lane (its ISD
 // entries listed in `build_isd` order), or a `LaneGame`, a lane's own board
-// read from per-lane geometry planes (the mixed-geometry kernels K3, K6 and
-// K7-multigrid; its ISD entries computed arithmetically, as
-// step_kernel._isd_fields_arith does).  Only the ISD pick differs.
+// read from per-lane geometry planes (K6, and the previous designs of K3
+// and K7-multigrid that ops/*_variants.py time; its ISD entries computed
+// arithmetically, as step_kernel._isd_fields_arith does).  Only the ISD
+// pick differs.  The split mixed-geometry kernels (K3, K7-multigrid) walk
+// pipeline.cuh's LaneBoard instead.
 
 #pragma once
 

@@ -2,19 +2,21 @@
 //
 // Replaces four Pallas TPU call sites of gym_soccer_tpu/ops/
 // learner_kernel.py, one body each side:
-//   packed_kernel<*>              <- `_packed_kernel` (K5, wrapper
-//                                    `packed_learner_chunk`), with its
-//                                    prep pass prep_rows_kernel
-//   learner_kernel<true, true>    <- `_mg_packed_kernel` (K6, wrapper
-//                                    `multigrid_packed_learner_chunk`)
-//   learner_kernel<false, false>  <- `_learner_kernel` (K7, wrapper
-//                                    `learner_chunk`)
-//   learner_kernel<false, true>   <- `_mg_learner_kernel` (K7, wrapper
-//                                    `multigrid_learner_chunk`)
-// The JAX package serves all four from `_packed_body` / `_learner_body`,
-// whose only switches are the accumulation layout and `planes is None`;
-// here K6 and K7 are learner_kernel's two template flags, and K5, the
-// flagship's kernel, has a design of its own (below).
+//   chunk_kernel<true, *, false>   <- `_packed_kernel` (K5, wrapper
+//                                     `packed_learner_chunk`)
+//   learner_kernel<true, true>     <- `_mg_packed_kernel` (K6, wrapper
+//                                     `multigrid_packed_learner_chunk`)
+//   chunk_kernel<false, *, false>  <- `_learner_kernel` (K7, wrapper
+//                                     `learner_chunk`)
+//   chunk_kernel<false, *, true>   <- `_mg_learner_kernel` (K7, wrapper
+//                                     `multigrid_learner_chunk`)
+// each chunk_kernel launch after its prep pass prep_rows_kernel (its
+// middle flag: the prepared rows in shared memory or in L2).  The JAX
+// package serves all four from `_packed_body` / `_learner_body`, whose
+// only switches are the accumulation layout and `planes is None`.  Here
+// K5 and K7 share the split design below (chunk_kernel<kPacked, kShared,
+// kMulti>); learner_kernel, the previous design, serves K6 alone (and
+// ops/learner_variants.py's previous-design variants of K5 and K7).
 //
 // What it computes, for every lane (one independent game) and step i:
 // three murmur3 counter words keyed on (chunk seed, i, word, global lane);
@@ -56,13 +58,13 @@
 // after resets.  The 5x4 tables are 48 KB packed and 159 KB unpacked, the
 // accumulators 331 KB; all of it stays in the 50 MB L2.
 //
-// What the design of K6/K7 does about it: one thread per lane with the
-// state, its board (kMulti) and the pending retirement in registers and a
-// loop over the steps (K1's previous shape); the table is indexed directly
-// by compact code and read through the read-only path (__ldg), in place of
-// the TPU's one-hot matmul gathers and scatters over packed rows; atomics
-// go straight to L2.  There is no VMEM budget to guard: any grid and any
-// mixture runs.
+// What the design of K6 (learner_kernel) does about it: one thread per
+// lane with the state, its board (kMulti) and the pending retirement in
+// registers and a loop over the steps (K1's previous shape); the table is
+// indexed directly by compact code and read through the read-only path
+// (__ldg), in place of the TPU's one-hot matmul gathers and scatters over
+// packed rows; atomics go straight to L2.  There is no VMEM budget to
+// guard: any grid and any mixture runs.
 //
 // K5.  In that design (64 blocks of 128 at 8192 lanes, 68 SMs idle) a
 // step took ~2,160 cycles of one warp's chain for ~281 SASS: 76.6 us of
@@ -99,6 +101,26 @@
 // distinct cells (7,577 of 16,384 on 5x4), so privatising the accumulators
 // in shared memory is the next lever; they do not fit beside the rows and
 // the ring on 5x4 (19,000 walkable cells at 10 B), so it is not built here.
+//
+// K7 (both sites) takes K5's design.  In the previous one (learner_kernel,
+// 64 blocks of 128 at 8192 lanes) an 8192 x 64 chunk took 86.7 us of
+// kernel on 5x4 and 67.0 us on the mixture, each step one dependent chain
+// from the hash to the q(s, a) load.  The producers hand over K5's word
+// and side byte; on a mixture the slip class and the ISD index are the
+// lane's (its slip entry in shared memory, filled by its consumer once a
+// block; the blocked layout puts at most two variants in a block).  The
+// prep pass reads the 36-column table into K5's prepared rows, so a step
+// samples as K5's does; the rows are in shared memory on 5x4 and in L2 on
+// 11x7 and on the mixture (8,928 codes).  The baseline q(s, a) stays in the
+// table: its load is issued right after the sample and first read by the
+// next step's retirement, off the chain.  On a mixture the consumer keeps
+// its board (LaneBoard) and its row offset in registers and computes its
+// ISD resets; the prepared row's cell carries the offset.  On an NVIDIA
+// H100 80GB HBM3 at 700 W (ops/learner_variants.py, device time with the
+// memset and the prep pass) an 8192 x 64 chunk takes 33.1 us on 5x4, 46.5
+// on 11x7 and 43.7 on the 3-board mixture, against the previous design's
+// 91.3, 96.0 and 69.8 us; q(s, a) in shared memory too gains 2 % on 5x4,
+// so it stays in L2.  The calls are host-bound (the wrapper's work).
 
 #include "pipeline.cuh"
 
@@ -238,7 +260,8 @@ __global__ void learner_kernel(Planes in, Planes out, Planes geo,
 }
 
 // ---------------------------------------------------------------------
-// K5: producer warps make step codes, consumer threads walk and learn
+// K5 and K7 (both sites): producer warps make step codes, consumer
+// threads walk and learn
 // ---------------------------------------------------------------------
 
 constexpr int kTile = 8;          // steps a ring tile holds
@@ -250,6 +273,7 @@ constexpr int kSmemBudget = 232448;
 constexpr int kHead = 16 + 4 * kMaxIsd * 5;  // mbarrier, ISD fields
 constexpr int kFull = 1;          // named barriers: a tile is written
 constexpr int kEmpty = 1 + kRingStages;  // ... and read
+constexpr int kColsUnpacked = kColQ + kNJ;  // an unpacked table row
 // (slip class, action) -> the action whose move is made, a nibble each
 // (learner_codes.EFFECT).
 constexpr unsigned long long kEffect =
@@ -257,20 +281,24 @@ constexpr unsigned long long kEffect =
 static_assert((32 * kProducers) % kTile == 0,
               "a producer thread keeps one step slot of every tile");
 
-// Shared memory of a K5 block (learner_codes.smem_bytes): the head, the
-// prepared rows of n_rows codes (0: the rows stay in device memory) and
-// the ring.
-__host__ __device__ constexpr int packed_smem_bytes(int lanes, int n_rows) {
-  return kHead + kRowBytes * n_rows + kRingStages * kTile * 5 * lanes;
+// Shared memory of a split chunk's block (learner_codes.smem_bytes): the
+// head, the prepared rows of n_rows codes (0: the rows stay in device
+// memory), the ring and, on a mixture (multi), each lane's slip entry
+// (lane_slip).
+__host__ __device__ constexpr int chunk_smem_bytes(int lanes, int n_rows,
+                                                   bool multi) {
+  return kHead + kRowBytes * n_rows + kRingStages * kTile * 5 * lanes +
+         (multi ? 16 * lanes : 0);
 }
 
 // The rows go to shared memory when they fit beside the ring of the
 // widest block (learner_codes.shared_rows: 5x4's 1104 codes, 52,992 B).
-__host__ __device__ constexpr bool shared_rows(int n_codes) {
-  return packed_smem_bytes(kMaxLanes, n_codes) <= kSmemBudget;
+__host__ __device__ constexpr bool shared_rows(int n_codes, bool multi) {
+  return chunk_smem_bytes(kMaxLanes, n_codes, multi) <= kSmemBudget;
 }
 
-// Byte offsets in a K5 call's one allocation (learner_codes.layout).
+// Byte offsets in a split chunk call's one allocation
+// (learner_codes.layout).
 struct ChunkLayout {
   long long sums, stats, cnt, zero, fields, rows, total;
 };
@@ -287,25 +315,27 @@ inline ChunkLayout chunk_layout(int n_codes, int B) {
   return l;
 }
 
-struct PackedArgs {
-  Planes in, out;
+struct ChunkArgs {
+  Planes in, out, geo;  // geo (a mixture): H, W, glo, ghi, q_int, row offset
   const float4* rows;   // the prep pass's rows, [n_codes][3]
+  const float* q;       // the unpacked table's q(s, 0) column (K7)
   long long* sums;
   int* cnt;
   long long* stats;
   int n_codes, lanes, B, n_steps;
   uint32_t seed;
   float gamma, limit;
-  Game g;
+  Game g;               // a mixture: max_steps alone
 };
 
-// The prep pass: compact code k's table row as a prepared row, the
-// running sums of pi in index order (sample5's roundings).
-__global__ void prep_rows_kernel(const float* __restrict__ table,
+// The prep pass: compact code k's row of a table of `cols` columns as a
+// prepared row, the running sums of pi in index order (sample5's
+// roundings), v and the row's first accumulator cell.
+__global__ void prep_rows_kernel(const float* __restrict__ table, int cols,
                                  int n_codes, float4* rows) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= n_codes) return;
-  const float* src = table + (size_t)k * kColQ;
+  const float* src = table + (size_t)k * cols;
   float c[10];
 #pragma unroll
   for (int j = 0; j < 10; ++j) c[j] = src[j];
@@ -322,14 +352,18 @@ __global__ void prep_rows_kernel(const float* __restrict__ table,
 
 // Producer thread pt: each tile's words [lane][step] and side bytes
 // (slip class a | slip class b << 2 | coin << 4 | ISD index << 6), handed
-// over as K1/K2's tiles are.  The steps of a chunk count from 0.
-template <bool kMod3>
-__device__ __forceinline__ void learn_produce(const PackedArgs& a,
-                                             unsigned char* ring, int pt,
+// over as K1/K2's tiles are.  The steps of a chunk count from 0.  One
+// board: its slip thresholds and ISD pick; a mixture (kMulti): lane lane0
+// + l's, from its slip entry.
+template <bool kMod3, bool kMulti>
+__device__ __forceinline__ void learn_produce(const ChunkArgs& a,
+                                             unsigned char* ring,
+                                             const int4* slip, int pt,
                                              int lane0, int n_tiles,
                                              int nthreads) {
   constexpr int kThreads = 32 * kProducers;
-  const int t_keep = 65536 - a.g.q_int, t_half = 65536 - a.g.q_int / 2;
+  int t_keep = 65536 - a.g.q_int, t_half = 65536 - a.g.q_int / 2;
+  int mask = a.g.nI - 1;
   const int per_tile = a.lanes * kTile;
   const uint32_t slot = (uint32_t)(pt % kTile);
   for (int k = 0; k < n_tiles; ++k) {
@@ -339,9 +373,14 @@ __device__ __forceinline__ void learn_produce(const PackedArgs& a,
     uint8_t* side = ring + st * 5 * per_tile + 4 * per_tile;
     const uint32_t c0 = step_key(a.seed, slot + (uint32_t)(k * kTile));
     const uint32_t c1 = c0 + 0xC2B2AE3Du, c2 = c0 + 2u * 0xC2B2AE3Du;
-    uint32_t lane = (uint32_t)(lane0 + pt / kTile);
+    int l = pt / kTile;
 #pragma unroll 1
     for (int j = pt; j < per_tile; j += kThreads) {
+      if constexpr (kMulti) {
+        const int4 b = slip[l];
+        t_keep = b.x; t_half = b.y; mask = b.z;
+      }
+      const uint32_t lane = (uint32_t)(lane0 + l);
       const uint32_t b0 = fmix32(fmix32(lane ^ c0) + c0);
       const uint32_t b1 = fmix32(fmix32(lane ^ c1) + c1);
       const uint32_t b2 = fmix32(fmix32(lane ^ c2) + c2);
@@ -350,8 +389,8 @@ __device__ __forceinline__ void learn_produce(const PackedArgs& a,
       const int cb = (ub >= t_keep) + (ub >= t_half);
       words[j] = b0;
       side[j] = (uint8_t)(ca | (cb << 2) | ((b2 & 3u) << 4) |
-                          (isd_pick<kMod3>(u16(b2, 1), a.g.nI - 1) << 6));
-      lane += kThreads / kTile;
+                          (isd_pick<kMod3>(u16(b2, 1), mask) << 6));
+      l += kThreads / kTile;
     }
     bar_arrive(kFull + st, nthreads);
   }
@@ -376,7 +415,7 @@ __device__ __forceinline__ void load_tile(const unsigned char* stage,
 // A consumer's walk over the ring, as K1/K2's `walk`: tile k + 1 loaded
 // into registers before tile k's steps; step(word, side) takes one step.
 template <class Step>
-__device__ __forceinline__ void learn_walk(const PackedArgs& a,
+__device__ __forceinline__ void learn_walk(const ChunkArgs& a,
                                            const unsigned char* ring, int l,
                                            int n_tiles, int nthreads,
                                            Step& step) {
@@ -427,46 +466,95 @@ __device__ __forceinline__ void load_row(const float4* rows, int k,
   }
 }
 
+// A lane's board on one board: the launch's game, its ISD entries' fields
+// in shared memory.
+struct OneBoard {
+  const Game* g;
+  const int* isd;  // shared: [kMaxIsd][5]
+  int nc;
+
+  __device__ __forceinline__ int row(const State& s) const {
+    return cellpair_encode(s, *g, nc);
+  }
+  __device__ __forceinline__ const Game& geo() const { return *g; }
+  __device__ __forceinline__ int max_steps() const { return g->max_steps; }
+  __device__ __forceinline__ void isd_fields(int idx, int (&f)[5]) const {
+    const int* fp = isd + 5 * idx;
+    f[0] = lds(fp); f[1] = lds(fp + 1); f[2] = lds(fp + 2);
+    f[3] = lds(fp + 3); f[4] = lds(fp + 4);
+  }
+};
+
+// A lane's own board on a mixture (K7 multigrid): its geometry in
+// registers, its rows from row offset cpo of the concatenated table.
+struct OwnBoard {
+  LaneBoard b;
+  int nc, cpo;
+
+  __device__ __forceinline__ int row(const State& s) const {
+    return cellpair_encode(s, b, nc) + cpo;
+  }
+  __device__ __forceinline__ const LaneBoard& geo() const { return b; }
+  __device__ __forceinline__ int max_steps() const { return b.max_steps; }
+  __device__ __forceinline__ void isd_fields(int idx, int (&f)[5]) const {
+    b.isd(idx, f);
+  }
+};
+
 // A lane-step: the state's prepared row (x, y, z: the running sums of
 // pi_a and pi_b with their totals, v, the first accumulator cell), the
 // previous step's retirement against its v, both actions sampled by first
 // exceedance of u * total (one multiply and four compares: sample5), the
 // transition under the effective moves (step_moves), the reset to the ISD
-// entry's fields; the visit stays pending until the next row's v.
-template <bool kShared>
+// entry's fields; the visit stays pending until the next row's v.  Its
+// baseline is v(s) (kPacked, K5) or q(s, a) (K7), loaded from the table
+// right after the sample and first read by the next step's retirement, off
+// the chain; its out-of-range test is made there too.
+template <bool kPacked, bool kShared, class Board>
 struct LearnStep {
-  const Game* g;
+  Board b;
   const float4* rows;
-  const int* isd_fields;  // shared: [kMaxIsd][5]
+  const float* q;         // the unpacked table's q(s, 0) column
   long long* sums;
   int* cnt;
   float gamma, limit;
   bool active;
-  int nc;
   State s;
   int p_idx;              // the pending visit: cell (-1: none),
-  float p_r, p_cont, p_base;  // reward, continuation, baseline v(s)
+  float p_r, p_cont, p_base;  // reward, continuation, baseline
   int rew, goals, truncs, oor;
 
+  // The pending visit's retirement against v_next, its baseline's range
+  // test with it (K7).
+  __device__ __forceinline__ void settle(float v_next) {
+    if (p_idx >= 0) {
+      if constexpr (!kPacked) oor += out_of(p_base, limit);
+      retire(sums, cnt, p_idx, p_r, p_cont, v_next, p_base);
+    }
+  }
+
   __device__ __forceinline__ void operator()(uint32_t word, uint32_t side) {
+    const int k = b.row(s);
     float4 x, y, z;
-    load_row<kShared>(rows, cellpair_encode(s, *g, nc), x, y, z);
+    load_row<kShared>(rows, k, x, y, z);
     oor += out_of(z.z, limit);
-    if (p_idx >= 0) retire(sums, cnt, p_idx, p_r, p_cont, z.z, p_base);
+    settle(z.z);
     // u16 / 65536 is exact in float32
     const float ta = __fmul_rn((float)(word & 0xFFFFu) * (1.0f / 65536.0f),
                                y.x);
     const float tb = __fmul_rn((float)(word >> 16) * (1.0f / 65536.0f), z.y);
     const int aa = (x.x <= ta) + (x.y <= ta) + (x.z <= ta) + (x.w <= ta);
     const int ab = (y.y <= tb) + (y.z <= tb) + (y.w <= tb) + (z.x <= tb);
-    const int* fp = isd_fields + 5 * (int)(side >> 6);
-    const int f[5] = {lds(fp), lds(fp + 1), lds(fp + 2), lds(fp + 3),
-                      lds(fp + 4)};
-    const bool late = s.t + 1 >= g->max_steps;
+    const int ja = aa * 5 + ab;
+    float base = z.z;
+    if constexpr (!kPacked) base = __ldg(q + (size_t)k * kColsUnpacked + ja);
+    int f[5];
+    b.isd_fields((int)(side >> 6), f);
+    const bool late = s.t + 1 >= b.max_steps();
     bool goal;
     int r;
     step_moves(s, class_move(side & 3u, aa), class_move((side >> 2) & 3u, ab),
-               (int)((side >> 4) & 3u), *g, goal, r);
+               (int)((side >> 4) & 3u), b.geo(), goal, r);
     const bool term = goal | late;
     s.ra = term ? f[0] : s.ra;
     s.ca = term ? f[1] : s.ca;
@@ -474,45 +562,41 @@ struct LearnStep {
     s.cb = term ? f[3] : s.cb;
     s.p = term ? f[4] : s.p;
     s.t = term ? 0 : s.t + 1;
-    p_idx = active ? __float_as_int(z.w) + aa * 5 + ab : -1;
+    p_idx = active ? __float_as_int(z.w) + ja : -1;
     p_r = (float)r;
     p_cont = term ? 0.0f : gamma;
-    p_base = z.z;
+    p_base = base;
     rew += r;
     goals += goal;
     truncs += late & !goal;
   }
 };
 
-// K5's consumer thread l: lane lane0 + l; then the trailing retirement
-// against the final state's v.
-template <bool kShared>
-__device__ __forceinline__ void learn_consume(const PackedArgs& a,
+// Consumer thread l: lane lane0 + l on its board; then the trailing
+// retirement against the final state's v.  A ragged block's spare lanes
+// step lane B - 1's state and keep nothing.
+template <bool kPacked, bool kShared, class Board>
+__device__ __forceinline__ void learn_consume(const ChunkArgs& a, Board board,
                                               const float4* rows,
-                                              uint64_t* bar, const int* isd,
+                                              uint64_t* bar,
                                               const unsigned char* ring,
                                               int l, int lane0, int n_tiles,
                                               int nthreads) {
-  const int lane = lane0 + l;
+  const int lane = lane0 + l, src = min(lane, a.B - 1);
   const bool active = lane < a.B;
-  LearnStep<kShared> step{
-      &a.g, rows, isd, a.sums, a.cnt, a.gamma, a.limit, active,
-      n_cells(a.g),
-      active ? State{a.in.f[0][lane], a.in.f[1][lane], a.in.f[2][lane],
-                     a.in.f[3][lane], a.in.f[4][lane], a.in.f[5][lane]}
-             : isd_state(a.g, 0),
+  LearnStep<kPacked, kShared, Board> step{
+      board, rows, a.q, a.sums, a.cnt, a.gamma, a.limit, active,
+      State{a.in.f[0][src], a.in.f[1][src], a.in.f[2][src],
+            a.in.f[3][src], a.in.f[4][src], a.in.f[5][src]},
       -1, 0.0f, 0.0f, 0.0f, 0, 0, 0, 0};
   if constexpr (kShared) wait_table(bar);
   learn_walk(a, ring, l, n_tiles, nthreads, step);
-  if (step.p_idx >= 0) {  // the last step, against the final state's v
-    float4 x, y, z;
-    load_row<kShared>(rows, cellpair_encode(step.s, a.g, step.nc), x, y, z);
-    step.oor += out_of(z.z, a.limit);
-    retire(a.sums, a.cnt, step.p_idx, step.p_r, step.p_cont, z.z,
-           step.p_base);
-  }
+  float4 x, y, z;   // the last step, against the final state's v
+  load_row<kShared>(rows, step.b.row(step.s), x, y, z);
+  if (step.p_idx >= 0) step.oor += out_of(z.z, a.limit);
+  step.settle(z.z);
   if (!active) {
-    step.rew = step.goals = step.truncs = 0;  // a ragged block's spare lanes
+    step.rew = step.goals = step.truncs = 0;
   } else {
     const State& s = step.s;
     a.out.f[0][lane] = s.ra; a.out.f[1][lane] = s.ca;
@@ -525,12 +609,14 @@ __device__ __forceinline__ void learn_consume(const PackedArgs& a,
   warp_sum(a.stats, step.rew, step.goals, step.truncs);
 }
 
-// K5: blocks of a.lanes consumer threads, one a lane, then kProducers
-// producer warps; with kShared the prepared rows are copied into shared
-// memory by bulk copies while the producers start.
-template <bool kShared>
+// K5 (kPacked) and K7: blocks of a.lanes consumer threads, one a lane,
+// then kProducers producer warps; with kShared the prepared rows are
+// copied into shared memory by bulk copies while the producers start.  On
+// a mixture (kMulti, K7 multigrid) each consumer first puts its lane's
+// slip entry in shared memory for the producers.
+template <bool kPacked, bool kShared, bool kMulti>
 __global__ void __launch_bounds__(kMaxLanes + 32 * kProducers)
-    packed_kernel(PackedArgs a) {
+    chunk_kernel(ChunkArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
   int* isd = reinterpret_cast<int*>(smem + 16);
@@ -538,10 +624,15 @@ __global__ void __launch_bounds__(kMaxLanes + 32 * kProducers)
   const float4* rows =
       kShared ? reinterpret_cast<const float4*>(smem + kHead) : a.rows;
   unsigned char* ring = smem + kHead + rbytes;
+  int4* slip = reinterpret_cast<int4*>(ring + kRingStages * kTile * 5 *
+                                                  a.lanes);
   const int nthreads = a.lanes + 32 * kProducers;
   const int lane0 = blockIdx.x * a.lanes;
   const int n_tiles = a.n_steps / kTile + (a.n_steps % kTile != 0);
-  if (threadIdx.x < kMaxIsd) {
+  const int l = threadIdx.x, src = min(lane0 + l, a.B - 1);
+  if constexpr (kMulti) {
+    if (l < a.lanes) slip[l] = lane_slip(a.geo.f[4][src], a.geo.f[0][src]);
+  } else if (threadIdx.x < kMaxIsd) {
     const State e = isd_state(a.g, min((int)threadIdx.x, a.g.nI - 1));
     int* f = isd + 5 * threadIdx.x;
     f[0] = e.ra; f[1] = e.ca; f[2] = e.rb; f[3] = e.cb; f[4] = e.p;
@@ -552,27 +643,36 @@ __global__ void __launch_bounds__(kMaxLanes + 32 * kProducers)
     expect_bytes(bar, rbytes);
     bulk_copy(bar, smem + kHead, a.rows, rbytes);
   }
-  if ((int)threadIdx.x >= a.lanes) {
-    if (a.g.nI == 3)
-      learn_produce<true>(a, ring, threadIdx.x - a.lanes, lane0, n_tiles,
-                          nthreads);
+  if (l >= a.lanes) {
+    if constexpr (kMulti)
+      learn_produce<false, true>(a, ring, slip, l - a.lanes, lane0, n_tiles,
+                                 nthreads);
+    else if (a.g.nI == 3)
+      learn_produce<true, false>(a, ring, slip, l - a.lanes, lane0, n_tiles,
+                                 nthreads);
     else
-      learn_produce<false>(a, ring, threadIdx.x - a.lanes, lane0, n_tiles,
-                           nthreads);
+      learn_produce<false, false>(a, ring, slip, l - a.lanes, lane0,
+                                  n_tiles, nthreads);
+  } else if constexpr (kMulti) {
+    const LaneBoard b = lane_board(a.geo, src, a.g.max_steps);
+    learn_consume<kPacked, kShared>(a, OwnBoard{b, n_cells(b), a.geo.f[5][src]},
+                                    rows, bar, ring, l, lane0, n_tiles,
+                                    nthreads);
   } else {
-    learn_consume<kShared>(a, rows, bar, isd, ring, threadIdx.x, lane0,
-                           n_tiles, nthreads);
+    learn_consume<kPacked, kShared>(a, OneBoard{&a.g, isd, n_cells(a.g)},
+                                    rows, bar, ring, l, lane0, n_tiles,
+                                    nthreads);
   }
 }
 
 constexpr int kMaxDevices = 64;
 
-// The main launch; the kernel's shared-memory limit is raised once per
-// device and size, not on every call.
-template <bool kShared>
-cudaError_t launch_packed(const PackedArgs& a, int device, int smem,
-                          cudaStream_t st) {
-  auto kernel = packed_kernel<kShared>;
+// A split chunk's launch; the kernel's shared-memory limit is raised once
+// per device and size, not on every call.
+template <bool kPacked, bool kShared, bool kMulti>
+cudaError_t launch_chunk(const ChunkArgs& a, int device, int smem,
+                         cudaStream_t st) {
+  auto kernel = chunk_kernel<kPacked, kShared, kMulti>;
   static int allowed[kMaxDevices] = {};
   if (device >= kMaxDevices || smem > allowed[device]) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -585,17 +685,23 @@ cudaError_t launch_packed(const PackedArgs& a, int device, int smem,
   return cudaGetLastError();
 }
 
-// K5's call: checks, one memset of the sums, stats and counts, the prep
-// pass, the chunk.
-int packed_chunk(int device, void* const* in, void* buf, const float* table,
-                 const int32_t* params, int n_codes, int B, int n_steps,
-                 uint32_t seed, float gamma, float limit, int lanes,
-                 void* stream) {
-  if (params[6] < 1 || params[6] > kMaxIsd || B <= 0 || n_steps <= 0 ||
-      n_codes < 1 || lanes < 32 || lanes > kMaxLanes || lanes % 32 != 0)
+// A split chunk call (K5, K7; kMulti: geo and params = {max_steps}):
+// checks, one memset of the sums, stats and counts, the prep pass, the
+// chunk.
+template <bool kPacked, bool kMulti>
+int chunk(int device, void* const* in, void* const* geo, void* buf,
+          const float* table, const int32_t* params, int n_codes, int B,
+          int n_steps, uint32_t seed, float gamma, float limit, int lanes,
+          void* stream) {
+  if (B <= 0 || n_steps <= 0 || n_codes < 1 || lanes < 32 ||
+      lanes > kMaxLanes || lanes % 32 != 0 || (kMulti && geo == nullptr) ||
+      (!kMulti && (params[6] < 1 || params[6] > kMaxIsd)))
     return (int)cudaErrorInvalidValue;
-  const bool shared = shared_rows(n_codes);
-  const int smem = packed_smem_bytes(lanes, shared ? n_codes : 0);
+  Game g{};
+  if constexpr (kMulti) g.max_steps = params[0];
+  else g = make_game(params);
+  const bool shared = shared_rows(n_codes, kMulti);
+  const int smem = chunk_smem_bytes(lanes, shared ? n_codes : 0, kMulti);
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -604,20 +710,24 @@ int packed_chunk(int device, void* const* in, void* buf, const float* table,
   e = cudaMemsetAsync(base, 0, (size_t)l.zero, st);
   if (e != cudaSuccess) return (int)e;
   float4* rows = reinterpret_cast<float4*>(base + l.rows);
-  prep_rows_kernel<<<(n_codes + 255) / 256, 256, 0, st>>>(table, n_codes,
-                                                          rows);
+  prep_rows_kernel<<<(n_codes + 255) / 256, 256, 0, st>>>(
+      table, kPacked ? kColQ : kColsUnpacked, n_codes, rows);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   int32_t* out[6];
   for (int k = 0; k < 6; ++k)
     out[k] = reinterpret_cast<int32_t*>(base + l.fields) + (size_t)k * B;
-  PackedArgs a{make_planes(in), make_planes(reinterpret_cast<void* const*>(out)),
-               rows, reinterpret_cast<long long*>(base + l.sums),
-               reinterpret_cast<int*>(base + l.cnt),
-               reinterpret_cast<long long*>(base + l.stats), n_codes, lanes,
-               B, n_steps, seed, gamma, limit, make_game(params)};
-  return (int)(shared ? launch_packed<true>(a, device, smem, st)
-                      : launch_packed<false>(a, device, smem, st));
+  const ChunkArgs a{make_planes(in),
+                    make_planes(reinterpret_cast<void* const*>(out)),
+                    kMulti ? make_planes(geo) : Planes{}, rows,
+                    table + kColQ,
+                    reinterpret_cast<long long*>(base + l.sums),
+                    reinterpret_cast<int*>(base + l.cnt),
+                    reinterpret_cast<long long*>(base + l.stats), n_codes,
+                    lanes, B, n_steps, seed, gamma, limit, g};
+  return (int)(shared ? launch_chunk<kPacked, true, kMulti>(a, device, smem, st)
+                      : launch_chunk<kPacked, false, kMulti>(a, device, smem,
+                                                             st));
 }
 
 template <bool kPacked, bool kMulti>
@@ -649,63 +759,88 @@ int launch(int device, void* const* in, void* const* out, void* const* geo,
 
 extern "C" {
 
-// Every entry: device: the CUDA ordinal of every pointer and of the
-// stream; in/out: host arrays of 6 device pointers to int32 [B]; geo: host
-// array of 6 device pointers to int32 [B] (H, W, glo, ghi, q_int, row
-// offset; multigrid entries only, else ignored); table: device float32
-// [n_codes, 11] (packed) or [n_codes, 36] (unpacked); sums: device int64
-// [n_codes, 25] and cnt: device int32 [n_codes, 25], both zeroed by the
-// caller; stats: device int64 [4] (reward sum, goals, truncations, table
-// values outside +-limit), zeroed by the caller; params: the game
-// description (make_game), or for the multigrid entries {max_steps}.
-#define GST_LEARNER_ENTRY(name, kPacked, kMulti)                            \
-  int name(int device, void* const* in, void* const* out, void* const* geo, \
-           const float* table, long long* sums, int* cnt, long long* stats, \
-           const int32_t* params, int B, int n_steps, uint32_t seed,        \
-           float gamma, float limit, int threads, void* stream) {           \
-    return launch<kPacked, kMulti>(device, in, out, geo, table, sums, cnt,  \
-                                   stats, params, B, n_steps, seed, gamma,  \
-                                   limit, threads, stream);                 \
-  }
+// K6.  device: the CUDA ordinal of every pointer and of the stream;
+// in/out: host arrays of 6 device pointers to int32 [B]; geo: host array of
+// 6 device pointers to int32 [B] (H, W, glo, ghi, q_int, row offset);
+// table: device float32 [n_codes, 11]; sums: device int64 [n_codes, 25]
+// and cnt: device int32 [n_codes, 25], both zeroed by the caller; stats:
+// device int64 [4] (reward sum, goals, truncations, table values outside
+// +-limit), zeroed by the caller; params: {max_steps}; threads: a
+// multiple of 32 in [32, 1024].
+int gst_multigrid_packed_learner_chunk(int device, void* const* in,
+                                       void* const* out, void* const* geo,
+                                       const float* table, long long* sums,
+                                       int* cnt, long long* stats,
+                                       const int32_t* params, int B,
+                                       int n_steps, uint32_t seed,
+                                       float gamma, float limit, int threads,
+                                       void* stream) {
+  return launch<true, true>(device, in, out, geo, table, sums, cnt, stats,
+                            params, B, n_steps, seed, gamma, limit, threads,
+                            stream);
+}
 
 // K5.  in: host array of 6 device pointers to int32 [B]; buf: one device
-// allocation of gst_packed_chunk_layout's total bytes, which receives the
-// int64 sums [n_codes, 25], the int64 stats [4], the int32 counts
-// [n_codes, 25] (all three zeroed here), the 6 output planes and the
-// prepared rows; table: device float32 [n_codes, 11]; lanes: lanes per
-// block, a multiple of 32 in [32, 512] (any fits: gst_packed_smem_bytes).
+// allocation of gst_chunk_layout's total bytes, which receives the int64
+// sums [n_codes, 25], the int64 stats [4], the int32 counts [n_codes, 25]
+// (all three zeroed here), the 6 output planes and the prepared rows;
+// table: device float32 [n_codes, 11]; params: the game description
+// (make_game); lanes: lanes per block, a multiple of 32 in [32, 512] (any
+// fits: gst_chunk_smem_bytes).
 int gst_packed_learner_chunk(int device, void* const* in, void* buf,
                              const float* table, const int32_t* params,
                              int n_codes, int B, int n_steps, uint32_t seed,
                              float gamma, float limit, int lanes,
                              void* stream) {
-  return packed_chunk(device, in, buf, table, params, n_codes, B, n_steps,
-                      seed, gamma, limit, lanes, stream);
+  return chunk<true, false>(device, in, nullptr, buf, table, params, n_codes,
+                            B, n_steps, seed, gamma, limit, lanes, stream);
 }
 
-// K5's byte offsets in buf (learner_codes.layout): sums, stats, cnt, the
-// end of the zeroed span, the fields, the rows and the total.
-void gst_packed_chunk_layout(int n_codes, int B, long long* out) {
+// K7.  As K5, with table: device float32 [n_codes, 36].
+int gst_learner_chunk(int device, void* const* in, void* buf,
+                      const float* table, const int32_t* params, int n_codes,
+                      int B, int n_steps, uint32_t seed, float gamma,
+                      float limit, int lanes, void* stream) {
+  return chunk<false, false>(device, in, nullptr, buf, table, params,
+                             n_codes, B, n_steps, seed, gamma, limit, lanes,
+                             stream);
+}
+
+// K7 multigrid.  As K7, with geo: host array of 6 device pointers to int32
+// [B] (H, W, glo, ghi, q_int, row offset) and params: {max_steps}.
+int gst_multigrid_learner_chunk(int device, void* const* in,
+                                void* const* geo, void* buf,
+                                const float* table, const int32_t* params,
+                                int n_codes, int B, int n_steps,
+                                uint32_t seed, float gamma, float limit,
+                                int lanes, void* stream) {
+  return chunk<false, true>(device, in, geo, buf, table, params, n_codes, B,
+                            n_steps, seed, gamma, limit, lanes, stream);
+}
+
+// The split chunks' byte offsets in buf (learner_codes.layout): sums,
+// stats, cnt, the end of the zeroed span, the fields, the rows and the
+// total.
+void gst_chunk_layout(int n_codes, int B, long long* out) {
   const ChunkLayout l = chunk_layout(n_codes, B);
   out[0] = l.sums; out[1] = l.stats; out[2] = l.cnt; out[3] = l.zero;
   out[4] = l.fields; out[5] = l.rows; out[6] = l.total;
 }
 
-// K5's dynamic shared memory per block (learner_codes.smem_bytes).
-int gst_packed_smem_bytes(int lanes, int n_codes) {
-  return packed_smem_bytes(lanes, shared_rows(n_codes) ? n_codes : 0);
+// A split chunk's dynamic shared memory per block (learner_codes.
+// smem_bytes); multi: a mixture's.
+int gst_chunk_smem_bytes(int lanes, int n_codes, int multi) {
+  return chunk_smem_bytes(
+      lanes, shared_rows(n_codes, multi != 0) ? n_codes : 0, multi != 0);
 }
 
-// K5's pipeline: steps a tile, tiles in the ring, producer warps.
-void gst_packed_shape(int32_t* out) {
+// The split chunks' pipeline: steps a tile, tiles in the ring, producer
+// warps.
+void gst_chunk_shape(int32_t* out) {
   out[0] = kTile;
   out[1] = kRingStages;
   out[2] = kProducers;
 }
-
-GST_LEARNER_ENTRY(gst_multigrid_packed_learner_chunk, true, true)  // K6
-GST_LEARNER_ENTRY(gst_learner_chunk, false, false)                 // K7
-GST_LEARNER_ENTRY(gst_multigrid_learner_chunk, false, true)        // K7 mg
 
 const char* gst_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,8 +1,9 @@
 // Device code shared by the split rollout and learner kernels (step_kernel.cu:
-// K1, K2, K4; learner_kernel.cu: K5): the pieces of a lane-step that follow
-// from (seed, step, lane) alone, the named barriers and bulk copies
-// (TMA) of the producer/consumer pipeline, and the branch-free
-// transition under effective moves.
+// K1, K2, K3, K4; learner_kernel.cu: K5, K7): the pieces of a lane-step that
+// follow from (seed, step, lane) alone, the named barriers and bulk copies
+// (TMA) of the producer/consumer pipeline, the branch-free transition under
+// effective moves, and a lane's own board as the mixed-geometry kernels (K3,
+// K7 multigrid) walk it.
 //
 // A kernel that includes it splits each lane-step in two: producer warps
 // hash the counter words into a small step code and hand tiles of codes
@@ -92,13 +93,14 @@ __device__ __forceinline__ int lds(const int* p) {
   return v;
 }
 
-// One transition of K1/K2's arithmetic walk under effective moves ea, eb
+// One transition of the arithmetic walk under effective moves ea, eb
 // (actions after the slip; a move is (0, 0) exactly when its action is 0)
 // and the coin bits: game.cuh's `transition` after its slips, written
-// without short-circuits, so that it compiles to selects.
+// without short-circuits, so that it compiles to selects.  G: any geometry
+// with the fields H, W, glo, ghi (a Game, a LaneBoard).
+template <class G>
 __device__ __forceinline__ void step_moves(State& s, int ea, int eb, int coin,
-                                           const Game& g, bool& goal,
-                                           int& r) {
+                                           const G& g, bool& goal, int& r) {
   const int ra = s.ra, ca = s.ca, rb = s.rb, cb = s.cb, p = s.p;
   const int nxa = min(max(ra + (ea == 2) - (ea == 1), 0), g.H - 1);
   const int nxb = min(max(rb + (eb == 2) - (eb == 1), 0), g.H - 1);
@@ -170,6 +172,43 @@ __device__ __forceinline__ void init_bar(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
                ::"r"(smem_addr(bar)) : "memory");
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// A lane's own board as the split mixed-geometry kernels (K3, K7
+// multigrid) walk it, in registers: the geometry step_moves and
+// cellpair_encode read, the truncation length, and the rows of its ISD
+// entries.  An entry's fields are computed, as game.cuh's isd_entry on a
+// LaneGame computes them, without its parity test: A at (row idx < 2 ?
+// mid_lo : mid_hi, column 2), B on the other middle row at column W - 3,
+// possession idx % 2 (an odd board's two rows are one, and its ISD index,
+// masked to 1 bit by the producers, is 0 or 1).
+struct LaneBoard {
+  int H, W, glo, ghi, max_steps;
+  int mid_lo, mid_hi;  // (H - 1) / 2, H / 2
+
+  __device__ __forceinline__ void isd(int idx, int (&f)[5]) const {
+    const bool swap = (idx >> 1) != 0;
+    f[0] = swap ? mid_hi : mid_lo;
+    f[1] = 2;
+    f[2] = swap ? mid_lo : mid_hi;
+    f[3] = W - 3;
+    f[4] = idx & 1;
+  }
+};
+
+// Lane `lane`'s board from the geometry planes (lane_game's).
+__device__ __forceinline__ LaneBoard lane_board(const Planes& geo, int lane,
+                                                int max_steps) {
+  const int H = geo.f[0][lane];
+  return LaneBoard{H, geo.f[1][lane], geo.f[2][lane], geo.f[3][lane],
+                   max_steps, (H - 1) / 2, H / 2};
+}
+
+// What a producer needs of a lane's own board, kept a lane in shared
+// memory: the slip thresholds 65536 - q and 65536 - q / 2 of its q_int and
+// the ISD mask nI - 1 (nI 4 on an even board, 2 on an odd one).
+__device__ __forceinline__ int4 lane_slip(int q_int, int H) {
+  return make_int4(65536 - q_int, 65536 - q_int / 2, H % 2 == 0 ? 3 : 1, 0);
 }
 
 // Inverse of cell_encode (rules.cell_decode): row r and column c of a

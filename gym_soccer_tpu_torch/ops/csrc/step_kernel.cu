@@ -87,39 +87,33 @@
 // arithmetic walk on 5x4 takes 0.1189 ms, so the table is worth 1.8x there.  The bound
 // is both stages' instruction issue, as for K1/K2.
 //
-// K3 keeps the previous design: one thread per lane, the lane's board in
-// five more registers (game.cuh `LaneGame`, no ISD table), its stats
-// summed per variant in shared memory.
+// K3 steps a mixture of boards, lane i on variant i % nV (three boards in
+// every warp on the 3-board mixture).  What bounded it was K1/K2's latency:
+// in the previous design (one thread a lane hashing and stepping on its
+// LaneGame, 64 blocks of 128 at 8192 lanes, 68 SMs idle) an 8192 x 1024
+// call took 0.47 ms at 201 SASS per lane-step, 11 % of that bound.  Its
+// design is now K1's split with the lane's board.  The producers make K1's
+// step code without the joint action (the table input and the ISD index,
+// MgCode): the slip thresholds and the ISD mask are the lane's, read from
+// a 16-B entry a lane in shared memory that the lane's consumer fills from
+// the geometry planes once a block.  One consumer thread per lane walks by
+// K1's branch-free arithmetic on its board in registers (LaneBoard: H, W,
+// glo, ghi, the ISD rows; there is no step table: 5x4's alone is 220,800
+// B), so the mixture costs no divergence; the ISD reset is computed, not
+// loaded.  The per-variant sums go to shared memory, then once a block to
+// the int64 [nV, 3] stats.  `threads` is lanes per block (64 by default:
+// 128 blocks of 320 threads, one wave).  On an NVIDIA H100 80GB HBM3 at
+// 700 W (ops/rollout_variants.py, device time of one 8192 x 1024 call on
+// the 3-board mixture) K3 takes 0.207 ms against the previous design's
+// 0.461 (2.2x), at 239 SASS per lane-step both stages, 27 % of the bound
+// that counts them at the issue rate: the walk's dependent chain bounds it,
+// as it bounds K1 on 11x7.
 
 #include "pipeline.cuh"
 
 using namespace gst;
 
 namespace {
-
-// K3's step loop of one lane on board g.  Adds the lane's reward, goal and
-// truncation sums to rew, goals, truncs.
-template <class G>
-__device__ __forceinline__ void run_lane(State& s, int lane, int n_steps,
-                                         uint32_t seed, int step_offset,
-                                         const G& g, int& rew, int& goals,
-                                         int& truncs) {
-  const uint32_t ctr = (uint32_t)lane;
-  for (int i = 0; i < n_steps; ++i) {
-    const uint32_t step = (uint32_t)(i + step_offset);
-    const uint32_t bits0 = random_word(seed, step, 0u, ctr);
-    const uint32_t bits1 = random_word(seed, step, 1u, ctr);
-    const uint32_t bits2 = random_word(seed, step, 2u, ctr);
-    bool goal, trunc;
-    int r;
-    transition(s, u16(bits0, 0) % 5, u16(bits0, 1) % 5, bits1, bits2, g,
-               goal, r);
-    autoreset(s, goal, bits2, g, trunc);
-    rew += r;
-    goals += goal;
-    truncs += trunc;
-  }
-}
 
 __device__ __forceinline__ State load_state(const Planes& in, int lane) {
   return State{in.f[0][lane], in.f[1][lane], in.f[2][lane],
@@ -179,8 +173,8 @@ __host__ __device__ constexpr int smem_bytes(int lanes, int n_codes) {
 
 // The step code of the lane at the step keyed c0: table input (ea * 5 + eb)
 // * 4 + coin in bits 0-6, the ISD index in bits 7-8, the joint action in
-// bits 9-13.
-template <bool kMod3>
+// bits 9-13 (kJoint; K3 keeps no journal and leaves it out).
+template <bool kMod3, bool kJoint = true>
 __device__ __forceinline__ uint32_t step_code(uint32_t c0, uint32_t lane,
                                               int t_keep, int t_half,
                                               int isd_mask) {
@@ -191,32 +185,42 @@ __device__ __forceinline__ uint32_t step_code(uint32_t c0, uint32_t lane,
   const int aa = u16(b0, 0) % 5, ab = u16(b0, 1) % 5;
   const int ea = effective_move(aa, u16(b1, 0), t_keep, t_half);
   const int eb = effective_move(ab, u16(b1, 1), t_keep, t_half);
-  return (uint32_t)(((ea * 5 + eb) * 4 + (int)(b2 & 3u)) |
-                    (isd_pick<kMod3>(u16(b2, 1), isd_mask) << 7) |
-                    ((aa * 5 + ab) << 9));
+  const int in = (ea * 5 + eb) * 4 + (int)(b2 & 3u);
+  const int idx = isd_pick<kMod3>(u16(b2, 1), isd_mask);
+  const uint32_t code = (uint32_t)(in | (idx << 7));
+  return kJoint ? code | (uint32_t)((aa * 5 + ab) << 9) : code;
+}
+
+// The slip thresholds and the ISD mask of the launch's one board, which
+// K1/K2's and K4's codes take.
+struct BoardSlip {
+  int t_keep, t_half, isd_mask;
+};
+
+__host__ __device__ inline BoardSlip board_slip(const Game& g) {
+  return BoardSlip{65536 - g.q_int, 65536 - g.q_int / 2, g.nI - 1};
 }
 
 template <bool kMod3>
 struct SimCode {
+  BoardSlip b;
   __device__ __forceinline__ uint32_t operator()(uint32_t c0, uint32_t lane,
-                                                 int t_keep, int t_half,
-                                                 int isd_mask) const {
-    return step_code<kMod3>(c0, lane, t_keep, t_half, isd_mask);
+                                                 int) const {
+    return step_code<kMod3>(c0, lane, b.t_keep, b.t_half, b.isd_mask);
   }
 };
 
 // Producer thread pt: the step codes of every tile, [lane][step] in the
 // tile, each tile handed over on its kFull barrier once its ring slot is
 // free again (its kEmpty barrier).  The thread keeps one step slot, pt %
-// kTileSteps, so its words' keys are made once a tile.  code(c0, lane,
-// t_keep, t_half, isd_mask) is the kernel's step code (K1/K2: SimCode,
+// kTileSteps, so its words' keys are made once a tile.  code(c0, lane, l)
+// is the kernel's step code of lane lane0 + l (K1/K2: SimCode, K3: MgCode,
 // K4: AltCode).
 template <class Args, class Code>
 __device__ __forceinline__ void produce(const Args& a, uint16_t* ring,
                                        int pt, int lane0, int n_tiles,
                                        int nthreads, Code code) {
   constexpr int kThreads = 32 * kProducerWarps;
-  const int t_keep = 65536 - a.g.q_int, t_half = 65536 - a.g.q_int / 2;
   const int per_tile = a.lanes * kTileSteps;
   const uint32_t slot = (uint32_t)(a.step_offset + pt % kTileSteps);
   for (int k = 0; k < n_tiles; ++k) {
@@ -224,11 +228,11 @@ __device__ __forceinline__ void produce(const Args& a, uint16_t* ring,
     if (k >= kStages) bar_sync(kEmpty + st, nthreads);
     uint16_t* tile = ring + st * per_tile;
     const uint32_t c0 = step_key(a.seed, slot + (uint32_t)(k * kTileSteps));
-    uint32_t lane = (uint32_t)(lane0 + pt / kTileSteps);
+    int l = pt / kTileSteps;
 #pragma unroll 1
     for (int j = pt; j < per_tile; j += kThreads) {
-      tile[j] = (uint16_t)code(c0, lane, t_keep, t_half, a.g.nI - 1);
-      lane += kThreads / kTileSteps;
+      tile[j] = (uint16_t)code(c0, (uint32_t)(lane0 + l), l);
+      l += kThreads / kTileSteps;
     }
     bar_arrive(kFull + st, nthreads);
   }
@@ -460,10 +464,10 @@ __global__ void __launch_bounds__(kMaxLanes + 32 * kProducerWarps)
   if ((int)threadIdx.x >= a.lanes) {
     if (a.g.nI == 3)
       produce(a, ring, threadIdx.x - a.lanes, lane0, n_tiles, nthreads,
-              SimCode<true>{});
+              SimCode<true>{board_slip(a.g)});
     else
       produce(a, ring, threadIdx.x - a.lanes, lane0, n_tiles, nthreads,
-              SimCode<false>{});
+              SimCode<false>{board_slip(a.g)});
   } else
     consume<kJournal, kTable>(a, table, code_raw, bar, isd, ring,
                               threadIdx.x, lane0, n_tiles, nthreads);
@@ -518,33 +522,104 @@ int rollout(int device, void* const* in, void* const* out, long long* stats,
                    : launch_rollout<kJournal, false>(a, device, smem, st));
 }
 
-constexpr int kMaxVariants = 16;
+// ---------------------------------------------------------------------
+// K3: K1's split on each lane's own board
+// ---------------------------------------------------------------------
 
-// K3.  geo: the planes H, W, glo, ghi, q_int and the variant id;
-// stats: int64 [n_variants, 3], zeroed by the caller.
-__global__ void mg_rollout_kernel(Planes in, Planes out, Planes geo,
-                                  long long* stats, int B, int n_steps,
-                                  uint32_t seed, int step_offset,
-                                  int max_steps, int n_variants) {
-  __shared__ unsigned long long part[kMaxVariants * 3];
-  for (int k = threadIdx.x; k < n_variants * 3; k += blockDim.x) part[k] = 0;
+constexpr int kMaxVariants = 16;
+constexpr int kPartBytes = 8 * 3 * kMaxVariants;  // per-variant sums
+
+struct MgArgs {
+  Planes in, out, geo;  // geo: H, W, glo, ghi, q_int, variant id
+  long long* stats;     // int64 [n_variants, 3]
+  int lanes, B, n_steps, step_offset, max_steps, n_variants;
+  uint32_t seed;
+};
+
+// K3's dynamic shared memory: the per-variant sums, each lane's slip entry
+// (lane_slip) and the ring (rollout_codes.mg_smem_bytes); 33,152 B at 512
+// lanes, under the 48 KB a launch takes without an attribute.
+__host__ __device__ constexpr int mg_smem_bytes(int lanes) {
+  return kPartBytes + 16 * lanes + kStages * kTileSteps * 2 * lanes;
+}
+
+// K3's step code of lane lane0 + l: step_code without the joint action, on
+// the slip thresholds and ISD mask of the lane's board.
+struct MgCode {
+  const int4* slip;  // shared, lane_slip a lane
+  __device__ __forceinline__ uint32_t operator()(uint32_t c0, uint32_t lane,
+                                                 int l) const {
+    const int4 b = slip[l];
+    return step_code<false, false>(c0, lane, b.x, b.y, b.z);
+  }
+};
+
+// A lane's step on its own board from a step code: the transition under
+// the decoded effective moves, then the reset to the computed ISD entry.
+struct MgStep {
+  LaneBoard g;
+  State s;
+  int rew, goals, truncs;
+
+  __device__ __forceinline__ void operator()(uint32_t code) {
+    const int in = (int)(code & 127u);
+    int f[5];
+    g.isd((code >> 7) & 3, f);
+    const bool late = s.t + 1 >= g.max_steps;
+    bool goal;
+    int r;
+    step_moves(s, in / 20, (in >> 2) % 5, in & 3, g, goal, r);
+    const bool term = goal | late;
+    s.ra = term ? f[0] : s.ra;
+    s.ca = term ? f[1] : s.ca;
+    s.rb = term ? f[2] : s.rb;
+    s.cb = term ? f[3] : s.cb;
+    s.p = term ? f[4] : s.p;
+    s.t = term ? 0 : s.t + 1;
+    rew += r;
+    goals += goal;
+    truncs += late & !goal;
+  }
+};
+
+// K3: blocks of a.lanes consumer threads, one a lane, then kProducerWarps
+// producer warps, as K1's.  A ragged block's spare lanes step lane B - 1's
+// board and keep nothing.
+__global__ void __launch_bounds__(kMaxLanes + 32 * kProducerWarps)
+    mg_rollout_kernel(MgArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned long long* part = reinterpret_cast<unsigned long long*>(smem);
+  int4* slip = reinterpret_cast<int4*>(smem + kPartBytes);
+  uint16_t* ring = reinterpret_cast<uint16_t*>(smem + kPartBytes +
+                                               16 * a.lanes);
+  const int nthreads = a.lanes + 32 * kProducerWarps;
+  const int lane0 = blockIdx.x * a.lanes;
+  const int n_tiles = a.n_steps / kTileSteps + (a.n_steps % kTileSteps != 0);
+  const int l = threadIdx.x, lane = lane0 + l, src = min(lane, a.B - 1);
+  MgStep step{};
+  if (l < a.lanes) {
+    step.g = lane_board(a.geo, src, a.max_steps);
+    step.s = load_state(a.in, src);
+    slip[l] = lane_slip(a.geo.f[4][src], step.g.H);
+  }
+  if (threadIdx.x < 3 * kMaxVariants) part[threadIdx.x] = 0;
   __syncthreads();
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane < B) {
-    int rew = 0, goals = 0, truncs = 0;
-    State s = load_state(in, lane);
-    run_lane(s, lane, n_steps, seed, step_offset,
-             lane_game(geo, lane, max_steps), rew, goals, truncs);
-    store_state(out, lane, s);
-    unsigned long long* mine = part + 3 * geo.f[5][lane];
-    atomicAdd(mine + 0, (unsigned long long)(long long)rew);
-    atomicAdd(mine + 1, (unsigned long long)(long long)goals);
-    atomicAdd(mine + 2, (unsigned long long)(long long)truncs);
+  if (l >= a.lanes) {
+    produce(a, ring, l - a.lanes, lane0, n_tiles, nthreads, MgCode{slip});
+  } else {
+    walk(a, ring, l, n_tiles, nthreads, step);
+    if (lane < a.B) {
+      store_state(a.out, lane, step.s);
+      unsigned long long* mine = part + 3 * a.geo.f[5][lane];
+      atomicAdd(mine + 0, (unsigned long long)(long long)step.rew);
+      atomicAdd(mine + 1, (unsigned long long)(long long)step.goals);
+      atomicAdd(mine + 2, (unsigned long long)(long long)step.truncs);
+    }
   }
   __syncthreads();
-  for (int k = threadIdx.x; k < n_variants * 3; k += blockDim.x)
-    if (part[k]) atomicAdd(reinterpret_cast<unsigned long long*>(stats + k),
-                           part[k]);
+  if ((int)threadIdx.x < 3 * a.n_variants && part[threadIdx.x])
+    atomicAdd(reinterpret_cast<unsigned long long*>(a.stats + threadIdx.x),
+              part[threadIdx.x]);
 }
 
 // ---------------------------------------------------------------------
@@ -577,15 +652,16 @@ __host__ __device__ constexpr int alt_smem_bytes(int lanes, int n_codes) {
 // change it.
 template <bool kMod3>
 struct AltCode {
+  BoardSlip b;
   __device__ __forceinline__ uint32_t operator()(uint32_t c0, uint32_t lane,
-                                                 int t_keep, int t_half,
-                                                 int isd_mask) const {
+                                                 int) const {
     const uint32_t c1 = c0 + 0xC2B2AE3Du, c2 = c0 + 2u * 0xC2B2AE3Du;
     const uint32_t b0 = fmix32(fmix32(lane ^ c0) + c0);
     const uint32_t b1 = fmix32(fmix32(lane ^ c1) + c1);
     const uint32_t b2 = fmix32(fmix32(lane ^ c2) + c2);
-    const int e = effective_move(u16(b0, 0) % 5, u16(b1, 0), t_keep, t_half);
-    return (uint32_t)(e | (isd_pick<kMod3>(u16(b2, 1), isd_mask) << 3));
+    const int e = effective_move(u16(b0, 0) % 5, u16(b1, 0), b.t_keep,
+                                 b.t_half);
+    return (uint32_t)(e | (isd_pick<kMod3>(u16(b2, 1), b.isd_mask) << 3));
   }
 };
 
@@ -768,10 +844,10 @@ __global__ void __launch_bounds__(kMaxLanes + 32 * kProducerWarps)
   if ((int)threadIdx.x >= a.lanes) {
     if (a.g.nI == 3)
       produce(a, ring, threadIdx.x - a.lanes, lane0, n_tiles, nthreads,
-              AltCode<true>{});
+              AltCode<true>{board_slip(a.g)});
     else
       produce(a, ring, threadIdx.x - a.lanes, lane0, n_tiles, nthreads,
-              AltCode<false>{});
+              AltCode<false>{board_slip(a.g)});
   } else {
     alt_consume<kTable>(a, table, code_raw, bar, isd, ring, threadIdx.x,
                         lane0, n_tiles, nthreads);
@@ -842,25 +918,33 @@ void gst_rollout_shape(int32_t* out) {
   out[2] = kProducerWarps;
 }
 
-// K3.  geo: host array of 6 device pointers to int32 [B] (H, W, glo, ghi,
-// q_int, variant id); stats: device int64 [n_variants, 3] (reward sum,
-// goals, truncations per variant), zeroed by the caller.
+// K3.  in/out: host arrays of 6 device pointers to int32 [B]; geo: host
+// array of 6 device pointers to int32 [B] (H, W, glo, ghi, q_int, variant
+// id); stats: device int64 [n_variants, 3] (reward sum, goals, truncations
+// per variant), zeroed here; lanes: lanes per block, a multiple of 32 in
+// [32, 512].
 int gst_multigrid_rollout(int device, void* const* in, void* const* out,
                           void* const* geo, long long* stats, int B,
                           int n_steps, uint32_t seed, int step_offset,
-                          int max_steps, int n_variants, int threads,
+                          int max_steps, int n_variants, int lanes,
                           void* stream) {
-  if (n_variants < 1 || n_variants > kMaxVariants)
+  if (n_variants < 1 || n_variants > kMaxVariants || B <= 0 || n_steps < 0 ||
+      lanes < 32 || lanes > kMaxLanes || lanes % 32 != 0)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = check_launch(device, B, threads);
+  cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const int blocks = (B + threads - 1) / threads;
-  mg_rollout_kernel<<<blocks, threads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      make_planes(in), make_planes(out), make_planes(geo), stats, B, n_steps,
-      seed, step_offset, max_steps, n_variants);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  e = cudaMemsetAsync(stats, 0, 3 * sizeof(long long) * n_variants, st);
+  if (e != cudaSuccess) return (int)e;
+  const MgArgs a{make_planes(in), make_planes(out), make_planes(geo), stats,
+                 lanes, B, n_steps, step_offset, max_steps, n_variants, seed};
+  mg_rollout_kernel<<<(B + lanes - 1) / lanes, lanes + 32 * kProducerWarps,
+                      mg_smem_bytes(lanes), st>>>(a);
   return (int)cudaGetLastError();
 }
+
+// K3's dynamic shared memory per block (rollout_codes.mg_smem_bytes).
+int gst_mg_rollout_smem_bytes(int lanes) { return mg_smem_bytes(lanes); }
 
 // K4.  As K1, with in/out: host arrays of 7 device pointers to int32 [B]
 // (ra, ca, rb, cb, p, turn, t; in null: lane i starts on ISD entry i % nI,

@@ -43,11 +43,12 @@ contiguous blocks (``init_state_fields``), and six per-lane planes give
 each lane its board (H, W, goal rows, slip) and its block's row offset.
 
 A wrapper runs the plain PyTorch version when its tensors lie on the CPU
-and launches the kernel (``csrc/learner_kernel.cu``, one template for all
-four) when they lie on a CUDA device; there is no fallback from one to the
-other.  The chunk wrappers take their device from their tensors; the
-functions that make their own tensors (the trainers,
-``init_state_fields``) default to "cuda": CPU callers pass "cpu".
+and launches the kernel (``csrc/learner_kernel.cu``: K5 and K7 one split
+template, K6 the previous design) when they lie on a CUDA device; there is
+no fallback from one to the other.  The chunk wrappers take their device
+from their tensors; the functions that make their own tensors (the
+trainers, ``init_state_fields``) default to "cuda": CPU callers pass
+"cpu".
 
 Not ported yet: data parallelism (``mesh``) and the grouped dispatch modes
 (``single_dispatch``, ``chunks_per_dispatch``); the trainers raise
@@ -117,9 +118,10 @@ def mg_offsets(cfgs: tuple) -> np.ndarray:
     return np.concatenate([[0], np.cumsum(sizes[:-1])]).astype(np.int32)
 
 
+@functools.lru_cache(maxsize=None)
 def n_codes(cfg) -> int:
-    """Rows of the table and of the accumulators: the compact codes of one
-    board, or of a mixture's 8-aligned blocks."""
+    """(cached) Rows of the table and of the accumulators: the compact
+    codes of one board, or of a mixture's 8-aligned blocks."""
     if isinstance(cfg, tuple):
         return int(sum(-(-rules.n_cellpairs(c) // VARIANT_ALIGN)
                        * VARIANT_ALIGN for c in cfg))
@@ -387,11 +389,11 @@ def _chunk(packed: bool, cfg, seed, table, planes, fields, batch, n_steps,
     if plain or table.device.type == "cpu":
         return _plain(cfg, seed, table, fields, n_steps, gamma, packed,
                       planes)
-    if name == "packed_learner_chunk":
-        return _launch_packed(cfg, seed, table, fields, batch, n_steps, gamma,
-                              threads)
-    return _launch(name, cfg, seed, table, planes, fields, n_steps, gamma,
-                   threads)
+    if name == "multigrid_packed_learner_chunk":
+        return _launch(name, cfg, seed, table, planes, fields, n_steps, gamma,
+                       threads)
+    return _launch_chunk(name, cfg, seed, table, planes, fields, batch,
+                         n_steps, gamma, threads)
 
 
 def packed_learner_chunk(cfg: EnvConfig, seed: int, table, fields,
@@ -462,16 +464,20 @@ def multigrid_packed_learner_chunk_plain(cfgs: tuple, seed: int, table,
 
 
 def learner_chunk(cfg: EnvConfig, seed: int, table, fields, batch: int,
-                  n_steps: int, gamma: float = 0.99, threads: int = 128):
+                  n_steps: int, gamma: float = 0.99, threads=None):
     """``packed_learner_chunk`` accumulating the full TD sums
     r + cont * v(s') - q(s, a) (kernel K7; decode with ``unpack_acc``).
     ``table``: float32 [n_codes, 36] from ``pack_m``; the out-of-range
     count covers the q(s, a) read too.  The fields, stats and counts equal
     ``packed_learner_chunk``'s for a table with the same pi columns.
+    ``threads`` is the kernel's lanes per block, as for
+    ``packed_learner_chunk``.
 
     On a CPU device this runs ``learner_chunk_plain``; on a CUDA device it
     launches the K7 kernel.
     """
+    from . import learner_codes
+    threads = learner_codes.check_lanes(batch, threads)
     return _chunk(False, cfg, seed, table, None, fields, batch, n_steps,
                   gamma, threads, plain=False)
 
@@ -485,14 +491,17 @@ def learner_chunk_plain(cfg: EnvConfig, seed: int, table, fields,
 
 def multigrid_learner_chunk(cfgs: tuple, seed: int, table, planes, fields,
                             batch: int, n_steps: int, gamma: float = 0.99,
-                            threads: int = 128):
+                            threads=None):
     """``learner_chunk`` over a mixture of boards (kernel K7, its
     multigrid call site): ``table`` from ``pack_m(cfgs, ...)``, ``planes``
-    and ``fields`` as for ``multigrid_packed_learner_chunk``.
+    and ``fields`` as for ``multigrid_packed_learner_chunk``; ``threads``
+    is the kernel's lanes per block, as for ``packed_learner_chunk``.
 
     On a CPU device this runs ``multigrid_learner_chunk_plain``; on a CUDA
     device it launches the K7 kernel's multigrid instance.
     """
+    from . import learner_codes
+    threads = learner_codes.check_lanes(batch, threads)
     return _chunk(False, cfgs, seed, table, planes, fields, batch, n_steps,
                   gamma, threads, plain=False)
 
@@ -515,61 +524,66 @@ def _library():
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures of a build of ``csrc/learner_kernel.cu``."""
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.gst_packed_learner_chunk.argtypes = [
-        i32, vp, vp, vp, vp, i32, i32, i32, ctypes.c_uint32, f32, f32, i32,
-        vp]
-    # device, in, buf, table, params, n_codes, B, T, seed, gamma, limit,
-    # lanes, stream
-    lib.gst_packed_learner_chunk.restype = i32
-    lib.gst_packed_chunk_layout.argtypes = [i32, i32, vp]
-    lib.gst_packed_chunk_layout.restype = None
-    lib.gst_packed_smem_bytes.argtypes = [i32, i32]
-    lib.gst_packed_smem_bytes.restype = i32
-    lib.gst_packed_shape.argtypes = [vp]
-    lib.gst_packed_shape.restype = None
-    for name in list(_NAMES.values())[1:]:
-        fn = getattr(lib, "gst_" + name)
-        fn.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32,
-                       ctypes.c_uint32, f32, f32, i32, vp]
-        # device, in, out, geo, table, sums, cnt, stats, params, B, T,
-        # seed, gamma, limit, threads, stream
+    # params, n_codes, B, T, seed, gamma, limit, lanes, stream
+    tail = [vp, i32, i32, i32, ctypes.c_uint32, f32, f32, i32, vp]
+    for fn in (lib.gst_packed_learner_chunk, lib.gst_learner_chunk):
+        fn.argtypes = [i32, vp, vp, vp] + tail   # device, in, buf, table
         fn.restype = i32
+    # device, in, geo, buf, table
+    lib.gst_multigrid_learner_chunk.argtypes = [i32, vp, vp, vp, vp] + tail
+    lib.gst_multigrid_learner_chunk.restype = i32
+    lib.gst_chunk_layout.argtypes = [i32, i32, vp]
+    lib.gst_chunk_layout.restype = None
+    lib.gst_chunk_smem_bytes.argtypes = [i32, i32, i32]
+    lib.gst_chunk_smem_bytes.restype = i32
+    lib.gst_chunk_shape.argtypes = [vp]
+    lib.gst_chunk_shape.restype = None
+    fn = lib.gst_multigrid_packed_learner_chunk
+    fn.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32,
+                   ctypes.c_uint32, f32, f32, i32, vp]
+    # device, in, out, geo, table, sums, cnt, stats, params, B, T, seed,
+    # gamma, limit, threads, stream
+    fn.restype = i32
     lib.gst_error_string.argtypes = [i32]
     lib.gst_error_string.restype = ctypes.c_char_p
     return lib
 
 
-@functools.lru_cache(maxsize=8)
-def _packed_host(cfg: EnvConfig):
-    """(cached per board) What K5's call passes unchanged: the entry point,
-    the game description's address and the number of codes."""
-    return (_library().gst_packed_learner_chunk,
-            ctypes.addressof(sk._game_params(cfg)), n_codes(cfg))
+@functools.lru_cache(maxsize=16)
+def _chunk_host(name: str, cfg):
+    """(cached per kernel and board) What a split chunk's call passes
+    unchanged: the entry point, the game description (a mixture's:
+    {max_steps}) and the number of codes."""
+    params = (sk._game_params(cfg) if not isinstance(cfg, tuple)
+              else (ctypes.c_int32 * 1)(cfg[0].max_steps))
+    return getattr(_library(), "gst_" + name), params, n_codes(cfg)
 
 
-def _launch_packed(cfg: EnvConfig, seed: int, table, fields, batch: int,
-                   n_steps: int, gamma: float, lanes: int):
-    """Launch K5 at ``lanes`` lanes per block.  Its outputs (the six
-    planes, the sums, the counts and the stats) and the prep pass's rows
-    are one allocation, zeroed where it sums by one memset in the
-    launch."""
+def _launch_chunk(name: str, cfg, seed: int, table, planes, fields,
+                  batch: int, n_steps: int, gamma: float, lanes: int):
+    """Launch K5 or K7 (``planes``: its multigrid site) at ``lanes`` lanes
+    per block.  Its outputs (the six planes, the sums, the counts and the
+    stats) and the prep pass's rows are one allocation, zeroed where it
+    sums by one memset in the launch."""
     from . import learner_codes
     dev = table.device
     if dev.type != "cuda":
-        raise ValueError(f"packed_learner_chunk: no kernel for device {dev}")
-    fn, params, n = _packed_host(cfg)
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    fn, params, n = _chunk_host(name, cfg)
     lay = learner_codes.layout(n, batch)
     b64 = torch.empty(lay.total // 8, dtype=torch.int64, device=dev)
     in_ptrs = sk.ptr_array(fields)
-    rc = fn(dev.index, ctypes.addressof(in_ptrs), b64.data_ptr(),
-            table.data_ptr(), params, n, batch, n_steps, seed & sk.M32,
-            _f32(gamma), value_limit(batch, n_steps), lanes,
+    geo_ptrs = None if planes is None else sk.ptr_array(planes)
+    geo = () if geo_ptrs is None else (ctypes.addressof(geo_ptrs),)
+    rc = fn(dev.index, ctypes.addressof(in_ptrs), *geo, b64.data_ptr(),
+            table.data_ptr(), ctypes.addressof(params), n, batch, n_steps,
+            seed & sk.M32, _f32(gamma), value_limit(batch, n_steps), lanes,
             torch._C._cuda_getCurrentRawStream(dev.index))
     if rc:
-        raise RuntimeError("packed_learner_chunk: kernel launch failed: "
+        raise RuntimeError(f"{name}: kernel launch failed: "
                            f"{_library().gst_error_string(rc).decode()} "
                            f"({rc})")
-    launch_counts["packed_learner_chunk"] += 1
+    launch_counts[name] += 1
     b32 = b64.view(torch.int32)
     return (b32.as_strided((6, batch), (batch, 1), lay.fields // 4).unbind(0),
             (b64.as_strided((n, NJ), (NJ, 1), 0),
@@ -579,6 +593,7 @@ def _launch_packed(cfg: EnvConfig, seed: int, table, fields, batch: int,
 
 def _launch(name: str, cfg, seed: int, table, planes, fields, n_steps: int,
             gamma: float, threads: int):
+    """Launch K6 (the previous design) at ``threads`` threads a block."""
     dev = table.device
     sk.check_threads(name, dev, threads)
     lib = _library()
@@ -588,14 +603,11 @@ def _launch(name: str, cfg, seed: int, table, planes, fields, n_steps: int,
     cnt = torch.zeros((n_codes(cfg), NJ), dtype=torch.int32, device=dev)
     stats = torch.zeros(4, dtype=torch.int64, device=dev)
     in_ptrs, out_ptrs = sk.ptr_array(fields), sk.ptr_array(out)
-    if planes is None:
-        geo_ptrs, params = None, sk._game_params(cfg)
-    else:
-        geo_ptrs = sk.ptr_array(planes)
-        params = (ctypes.c_int32 * 1)(cfg[0].max_steps)
+    geo_ptrs = sk.ptr_array(planes)
+    params = (ctypes.c_int32 * 1)(cfg[0].max_steps)
     rc = getattr(lib, "gst_" + name)(
         dev.index, ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs),
-        None if geo_ptrs is None else ctypes.addressof(geo_ptrs),
+        ctypes.addressof(geo_ptrs),
         table.data_ptr(), sums.data_ptr(), cnt.data_ptr(), stats.data_ptr(),
         ctypes.addressof(params), B, n_steps, seed & sk.M32,
         float(np.float32(gamma)), value_limit(B, n_steps), threads,

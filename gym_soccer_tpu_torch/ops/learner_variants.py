@@ -1,27 +1,30 @@
-"""Time variants of the K5 learner kernel on a CUDA card.
+"""Time variants of the K5 and K7 learner kernels on a CUDA card.
 
 Each variant is ``csrc/learner_kernel.cu`` with a few text patches
-(`VARIANTS`), built beside the port's own build and launched through
-``packed_learner_chunk`` at ``chip_smoke.py``'s shapes: 8192 lanes x 64
-steps (the flagship chunk) and 65536 x 32 (the 5x4 contract's chunk), on
-5x4 and 11x7, slip 0.2, each at the lanes per block listed beside it (None:
+(`VARIANTS` for K5, `K7_VARIANTS` for K7), built beside the port's own
+build.  K5's are launched through ``packed_learner_chunk`` at
+``chip_smoke.py``'s shapes: 8192 lanes x 64 steps (the flagship chunk) and
+65536 x 32 (the 5x4 contract's chunk), on 5x4 and 11x7, slip 0.2.  K7's
+are launched through ``learner_chunk`` at 8192 x 64 on 5x4 and 11x7 and
+``multigrid_learner_chunk`` at 8192 x 64 on ``tools/bench_all.py``'s
+3-board mixture.  Each runs at the lanes per block listed beside it (None:
 the default for the batch).  Design variants (the previous design, the
-rows read from L2 on 5x4 too, warp-aggregated atomics, the block sizes)
-must give the committed kernel's
-fields, stats, counts and int64 sums bit for bit, and equal the plain
-version run on the CPU at 1024 lanes x 16 steps; they are checked so.
-``diag-`` variants break the result on purpose to show what one part costs
-(the walk without the hashing, the hashing without the walk, the step
-without its accumulation atomics) and are only timed.
+rows read from L2 on 5x4 too, warp-aggregated atomics, q(s, a) read from
+the table in shared memory on 5x4, the block sizes) must give the
+committed kernel's fields, stats, counts and int64 sums bit for bit, and
+equal the plain version run on the CPU at 1024 lanes x 16 steps; they are
+checked so.  ``diag-`` variants break the result on purpose to show what
+one part costs (the walk without the hashing, the hashing without the
+walk, the step without its accumulation atomics) and are only timed.
 
     python -m gym_soccer_tpu_torch.ops.learner_variants
 
 prints one line per variant, shape and block size and exits 1 if a design
 variant differs.  Each line gives, per board, two times, both the median of
-5 legs of at least 50 ms (CUDA events): ``call``, of ``packed_learner_chunk``
-as a user calls it (its host work included), and ``device``, of the same
-call captured in a CUDA graph and replayed (the memset, the prep pass and
-the kernel alone); and the registers, the card's name and its power limit.
+5 legs of at least 50 ms (CUDA events): ``call``, of the wrapper as a user
+calls it (its host work included), and ``device``, of the same call
+captured in a CUDA graph and replayed (the memset, the prep pass and the
+kernel alone); and the registers, the card's name and its power limit.
 Needs ``nvcc`` and a card.
 """
 from __future__ import annotations
@@ -31,13 +34,23 @@ import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
-# The committed K5 entry's body.
-_ENTRY = """  return packed_chunk(device, in, buf, table, params, n_codes, B, n_steps,
-                      seed, gamma, limit, lanes, stream);"""
-# The previous design: one thread a lane hashing, sampling and stepping
-# (learner_kernel<true, false>, 64 blocks of 128 at 8192 lanes), its
-# outputs placed in the call's one allocation.
-_OLD_ENTRY = """  (void)lanes;
+# The committed entries' bodies: K5, K7 and K7 multigrid.
+_ENTRY = {
+    (True, False): """  return chunk<true, false>(device, in, nullptr, buf, table, params, n_codes,
+                            B, n_steps, seed, gamma, limit, lanes, stream);""",
+    (False, False): """  return chunk<false, false>(device, in, nullptr, buf, table, params,
+                             n_codes, B, n_steps, seed, gamma, limit, lanes,
+                             stream);""",
+    (False, True): """  return chunk<false, true>(device, in, geo, buf, table, params, n_codes, B,
+                            n_steps, seed, gamma, limit, lanes, stream);"""}
+
+
+def _old_entry(packed: bool, multi: bool) -> str:
+    """The previous design's body of an entry: one thread a lane hashing,
+    sampling and stepping (learner_kernel<kPacked, kMulti>, 64 blocks of
+    128 at 8192 lanes), its outputs placed in the call's one allocation."""
+    flags = f"{str(packed).lower()}, {str(multi).lower()}"
+    return f"""  (void)lanes;
   const ChunkLayout l = chunk_layout(n_codes, B);
   char* base = static_cast<char*>(buf);
   cudaError_t e = cudaSetDevice(device);
@@ -47,14 +60,16 @@ _OLD_ENTRY = """  (void)lanes;
   void* out[6];
   for (int k = 0; k < 6; ++k)
     out[k] = reinterpret_cast<int32_t*>(base + l.fields) + (size_t)k * B;
-  return launch<true, false>(device, in, out, nullptr, table,
+  return launch<{flags}>(device, in, out, {"geo" if multi else "nullptr"}, table,
                              reinterpret_cast<long long*>(base + l.sums),
                              reinterpret_cast<int*>(base + l.cnt),
                              reinterpret_cast<long long*>(base + l.stats),
                              params, B, n_steps, seed, gamma, limit, 128,
                              stream);"""
+
+
 # The rows' place: shared memory where they fit (the kernel), or L2.
-_SHARED = "  const bool shared = shared_rows(n_codes);"
+_SHARED = "  const bool shared = shared_rows(n_codes, kMulti);"
 # retire's two global atomics
 _ATOMICS = """  atomicAdd(reinterpret_cast<unsigned long long*>(sums + idx),
             (unsigned long long)fixed);
@@ -77,12 +92,40 @@ _HASH = """      const uint32_t b0 = fmix32(fmix32(lane ^ c0) + c0);
 _NO_HASH = """      const uint32_t b0 = lane * 0x9E3779B9u + c0;
       const uint32_t b1 = lane * 0x85EBCA6Bu + c1;
       const uint32_t b2 = lane * 0xC2B2AE35u + c2;"""
+# K7 with the whole 36-column table (q(s, a) with it) in shared memory
+# beside the prepared rows where they are there (5x4: 158,976 B more, up to
+# 224 lanes a block), read from there in place of L2.
+_Q_SMEM = [
+    ("""  const int smem = chunk_smem_bytes(lanes, shared ? n_codes : 0, kMulti);
+""", """  const int smem = chunk_smem_bytes(lanes, shared ? n_codes : 0, kMulti) +
+                   (shared && !kPacked ? 4 * kColsUnpacked * n_codes : 0);
+  if (smem > kSmemBudget) return (int)cudaErrorInvalidValue;
+"""),
+    ("""  unsigned char* ring = smem + kHead + rbytes;
+""", """  const int qbytes = kShared && !kPacked ? 4 * kColsUnpacked * a.n_codes : 0;
+  unsigned char* ring = smem + kHead + rbytes + qbytes;
+"""),
+    ("""    expect_bytes(bar, rbytes);
+    bulk_copy(bar, smem + kHead, a.rows, rbytes);
+""", """    expect_bytes(bar, rbytes + qbytes);
+    bulk_copy(bar, smem + kHead, a.rows, rbytes);
+    bulk_copy(bar, smem + kHead + rbytes, a.q - kColQ, qbytes);
+"""),
+    ("""      board, rows, a.q, a.sums,""",
+     """      board, rows, kShared && !kPacked ? reinterpret_cast<const float*>(
+          rows + 3 * a.n_codes) + kColQ : a.q, a.sums,"""),
+    ("""    if constexpr (!kPacked) base = __ldg(q + (size_t)k * kColsUnpacked + ja);
+""", """    if constexpr (!kPacked)
+      base = kShared ? q[(size_t)k * kColsUnpacked + ja]
+                     : __ldg(q + (size_t)k * kColsUnpacked + ja);
+""")]
 
 # name -> ([(text in learner_kernel.cu, its replacement)], lanes per block
 # to time (None: the batch's default)); each text must occur exactly once.
 VARIANTS = {
     "kernel": ([], (None, 32, 128, 256)),
-    "previous-design": ([(_ENTRY, _OLD_ENTRY)], (None,)),
+    "previous-design": ([(_ENTRY[True, False], _old_entry(True, False))],
+                        (None,)),
     "rows-in-l2": ([(_SHARED, "  const bool shared = false;")], (None,)),
     "warp-aggregated-atomics": ([(_ATOMICS, _AGGREGATED)], (None,)),
     # diagnostics: wrong results, by design
@@ -93,15 +136,26 @@ VARIANTS = {
                        (None,)),
     "diag-walk-only": ([(_HASH, _NO_HASH)], (None,)),
 }
+# K7's: "kernel" and "rows-in-l2" are VARIANTS' builds.
+K7_VARIANTS = {
+    "kernel": ([], (None, 32, 96, 128)),
+    "k7-previous-design": ([(_ENTRY[k], _old_entry(*k))
+                            for k in ((False, False), (False, True))],
+                           (None,)),
+    "k7-q-in-shared-memory": (_Q_SMEM, (None,)),
+    "rows-in-l2": VARIANTS["rows-in-l2"],
+}
 SHAPES = ((8192, 64), (65536, 32))
 BOARDS = ((5, 4), (11, 7))
+MIX3 = ((5, 4, 0.2), (6, 5, 0.1), (8, 6, 0.3))   # tools/bench_all.py:421
 SLIP = 0.2
 
 
 def variant_source(name: str, source: str) -> str:
-    """``source`` with variant ``name``'s patches applied; ValueError if a
-    patched text does not occur exactly once."""
-    for old, new in VARIANTS[name][0]:
+    """``source`` with variant ``name``'s patches (of VARIANTS or
+    K7_VARIANTS) applied; ValueError if a patched text does not occur
+    exactly once."""
+    for old, new in {**K7_VARIANTS, **VARIANTS}[name][0]:
         if source.count(old) != 1:
             raise ValueError(f"variant {name}: its patch matches "
                              f"{source.count(old)} times, not once")
@@ -118,20 +172,60 @@ def _build_variant(name: str, out_dir):
 
 
 def _registers(log: str) -> dict:
-    """{'K5 table' ...: registers} of K5's kernels in an nvcc log."""
+    """{'K5 shared rows' ...: registers} of K5's and K7's kernels in an
+    nvcc log."""
     regs = {}
     for m in re.finditer(r"Compiling entry function '(\S+)'.*?Used (\d+) "
                          r"registers", log, re.S):
-        k = re.search(r"packed_kernelILb([01])E", m.group(1))
+        k = re.search(r"chunk_kernelILb([01])ELb([01])ELb([01])E", m.group(1))
+        old = re.search(r"learner_kernelILb([01])ELb([01])E", m.group(1))
         if k:
-            regs["K5 " + ("shared rows" if k.group(1) == "1" else
-                          "rows in L2")] = int(m.group(2))
-        elif "learner_kernelILb1ELb0E" in m.group(1):
-            regs["K5 previous"] = int(m.group(2))
+            regs[("K5 " if k.group(1) == "1" else
+                  "K7 multigrid " if k.group(3) == "1" else "K7 ")
+                 + ("shared rows" if k.group(2) == "1" else "rows in L2")] = \
+                int(m.group(2))
+        elif old:
+            regs["previous " + ("K6" if old.group(1) == "1" else "K7")
+                 + (" multigrid" if old.group(2) == "1" else "")] = \
+                int(m.group(2))
     return regs
 
 
+def _inputs(torch, lk, cfg, batch, device, seed, packed):
+    """A non-uniform table (v, and q when unpacked, in [-1, 1]) made from
+    a numpy seed, and the initial state: six fields, or (planes, fields)
+    for a mixture."""
+    import numpy as np
+    nS = lk.n_states(cfg)
+    rng = np.random.default_rng(seed)
+    pa, pb = (torch.tensor(rng.dirichlet(np.ones(5), nS), dtype=torch.float32,
+                           device=device) for _ in range(2))
+    v = torch.tensor(rng.uniform(-1, 1, nS), dtype=torch.float32,
+                     device=device)
+    q = torch.tensor(rng.uniform(-1, 1, (nS, 5, 5)), dtype=torch.float32,
+                     device=device)
+    table = (lk.pack_m2(cfg, pa, pb, v, 0.2) if packed
+             else lk.pack_m(cfg, pa, pb, q, v, 0.2))
+    return table, lk.init_state_fields(cfg, batch, device)
+
+
+def _chunk(lk, cfg, seed, table, state, batch, steps, lanes=None):
+    """K5 (an 11-column table), K7 or K7 multigrid (``cfg`` a tuple)."""
+    if isinstance(cfg, tuple):
+        return lk.multigrid_learner_chunk(cfg, seed, table, *state, batch,
+                                          steps, 0.99, threads=lanes)
+    fn = (lk.packed_learner_chunk if table.shape[1] == lk.TABLE_COLS
+          else lk.learner_chunk)
+    return fn(cfg, seed, table, state, batch, steps, 0.99, threads=lanes)
+
+
+def _to(x, dev):
+    return x.to(dev) if hasattr(x, "to") else type(x)(_to(y, dev) for y in x)
+
+
 def main() -> int:
+    import ctypes
+
     import torch
 
     from ..config import EnvConfig
@@ -146,70 +240,63 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     out_dir = rollout_variants._out_dir()
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        built = dict(zip(VARIANTS, pool.map(
-            lambda n: _build_variant(n, out_dir), VARIANTS)))
+    names = [*VARIANTS, *(n for n in K7_VARIANTS if n not in VARIANTS)]
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = dict(zip(names, pool.map(
+            lambda n: _build_variant(n, out_dir), names)))
 
-    import ctypes
-
-    import numpy as np
     dev = torch.device("cuda", 0)
-    cfgs = {b: EnvConfig(width=b[0], height=b[1], slip_prob=SLIP)
-            for b in BOARDS}
-
-    def inputs(cfg, batch, device, seed):
-        nS = len(lk._cell_rows(cfg))
-        rng = np.random.default_rng(seed)
-        pa, pb = (torch.tensor(rng.dirichlet(np.ones(5), nS),
-                               dtype=torch.float32, device=device)
-                  for _ in range(2))
-        v = torch.tensor(rng.uniform(-1, 1, nS), dtype=torch.float32,
-                         device=device)
-        return (lk.pack_m2(cfg, pa, pb, v, 0.2),
-                lk.init_state_fields(cfg, batch, device))
+    cfgs = {f"{b[0]}x{b[1]}": EnvConfig(width=b[0], height=b[1],
+                                        slip_prob=SLIP) for b in BOARDS}
 
     def flat(out):
         fields, (sums, cnt), stats = out
         return [*fields, sums, cnt, *stats]
 
-    data = {(b, s): inputs(c, s[0], dev, b[0])
-            for b, c in cfgs.items() for s in SHAPES}
-    small = {b: inputs(c, 1024, "cpu", 3) for b, c in cfgs.items()}
-    cpu = {b: flat(lk.packed_learner_chunk(c, 5, *small[b], 1024, 16))
-           for b, c in cfgs.items()}
+    # (kernel, shape) -> {label: (cfg, table, state)}, timed by the variants
+    # named in the dict of that kernel
+    runs = {("K5", s): {k: (c, *_inputs(torch, lk, c, s[0], dev, len(k), True))
+                        for k, c in cfgs.items()} for s in SHAPES}
+    k7_cells = {**cfgs, "mixture": tuple(EnvConfig(*b) for b in MIX3)}
+    runs["K7", SHAPES[0]] = {k: (c, *_inputs(torch, lk, c, SHAPES[0][0], dev,
+                                             len(k), False))
+                             for k, c in k7_cells.items()}
+    small = {(kern, k): (c, *_inputs(torch, lk, c, 1024, "cpu", 3,
+                                     kern == "K5"))
+             for kern, cells in (("K5", cfgs), ("K7", k7_cells))
+             for k, c in cells.items()}
+    cpu = {key: flat(_chunk(lk, c, 5, t, st, 1024, 16))
+           for key, (c, t, st) in small.items()}
     committed = lk._library
     want, ok = {}, True
     try:
-        for name, path in built.items():
-            lib = lk.declare(ctypes.CDLL(str(path)))
-            lk._library = lambda lib=lib: lib
-            lk._packed_host.cache_clear()
-            regs = _registers(path.with_suffix(".log").read_text())
-            diag = name.startswith("diag-")
-            for shape in SHAPES:
-                for lanes in VARIANTS[name][1]:
+        for (kern, shape), cells in runs.items():
+            table_of = VARIANTS if kern == "K5" else K7_VARIANTS
+            for name in table_of:
+                lib = lk.declare(ctypes.CDLL(str(built[name])))
+                lk._library = lambda lib=lib: lib
+                lk._chunk_host.cache_clear()
+                regs = _registers(built[name].with_suffix(".log").read_text())
+                diag = name.startswith("diag-")
+                for lanes in table_of[name][1]:
                     ms, same = {}, []
-                    for b, c in cfgs.items():
-                        table, fields = data[(b, shape)]
-
+                    for label, (c, table, state) in cells.items():
                         def fn():
-                            return lk.packed_learner_chunk(
-                                c, 77, table, fields, *shape, 0.99,
-                                threads=lanes)
+                            return _chunk(lk, c, 77, table, state, *shape,
+                                          lanes)
                         out = [x.cpu() for x in flat(fn())]
+                        key = (kern, shape, label)
                         if name == "kernel" and lanes is None:
-                            want[(b, shape)] = out
+                            want[key] = out
                         same.append(all(torch.equal(x, y) for x, y in
-                                        zip(out, want[(b, shape)])))
-                        got = flat(lk.packed_learner_chunk(
-                            c, 5, *(x.to(dev) if isinstance(x, torch.Tensor)
-                                    else [f.to(dev) for f in x]
-                                    for x in small[b]), 1024, 16))
+                                        zip(out, want[key])))
+                        sc, st, ss = small[kern, label]
+                        got = flat(_chunk(lk, sc, 5, st.to(dev),
+                                          _to(ss, dev), 1024, 16))
                         same.append(all(torch.equal(x.cpu(), y) for x, y in
-                                        zip(got, cpu[b])))
-                        ms[f"{b[0]}x{b[1]}"] = (
-                            parity_variants._time(fn),
-                            rollout_variants._device_ms(fn))
+                                        zip(got, cpu[kern, label])))
+                        ms[label] = (parity_variants._time(fn),
+                                     rollout_variants._device_ms(fn))
                     if not diag and not all(same):
                         ok = False
                     equal = ("diagnostic, not compared" if diag
@@ -217,7 +304,7 @@ def main() -> int:
                              "plain version" if all(same) else
                              "DIFFERS from the kernel or the CPU plain "
                              "version")
-                    print(f"[variant] K5 {name}, {shape[0]} x {shape[1]}, "
+                    print(f"[variant] {kern} {name}, {shape[0]} x {shape[1]}, "
                           f"{lanes or 'default'} lanes per block: "
                           + ", ".join(f"{k} call {v[0]} / device {v[1]} ms"
                                       for k, v in ms.items())
@@ -225,7 +312,7 @@ def main() -> int:
                           flush=True)
     finally:
         lk._library = committed
-        lk._packed_host.cache_clear()
+        lk._chunk_host.cache_clear()
     return 0 if ok else 1
 
 

@@ -1,4 +1,4 @@
-"""The two stages of the K1/K2 and K4 rollout kernels, on the host.
+"""The two stages of the K1-K4 rollout kernels, on the host.
 
 ``csrc/step_kernel.cu`` splits a lane-step of ``fused_rollout`` (K1) and
 ``fused_journal_rollout`` (K2) in two.  Producer warps turn the three
@@ -41,6 +41,14 @@ turn) with its goal and reward bits (int16: 2 x (2 x code + turn) | (r ==
 1) << 13 | goal << 15), move-major; 22,080 B on 5x4.  The next turn is the
 other player's; a goal or a truncation resets to an ISD entry with A to
 move.
+
+K3 (``multigrid_rollout``, a mixture of boards) splits its steps as K1
+does, each lane on its own board (``mg_step_codes``, ``mg_walk_codes``).
+Its step code is K1's without the joint action (K3 keeps no journal),
+made with the slip thresholds and the ISD mask of the lane's board, which
+a producer reads from a 16-B entry a lane in shared memory.  Every lane
+walks by arithmetic on its board and resets to its board's ISD entry,
+computed from the index; there is no step table.
 """
 from __future__ import annotations
 
@@ -231,15 +239,24 @@ def uses_table(cfg: EnvConfig) -> bool:
     return smem_bytes(DEFAULT_LANES, rules.n_cellpairs(cfg)) <= SMEM_BUDGET
 
 
-def check_lanes(cfg: EnvConfig, threads) -> int:
-    """The lanes per block of a K1/K2 launch: ``threads``, or DEFAULT_LANES
-    when None: a multiple of 32 in [32, MAX_LANES] whose shared memory
-    fits, else ValueError."""
-    lanes = DEFAULT_LANES if threads is None else threads
+def lanes_per_block(threads, default: int = DEFAULT_LANES) -> int:
+    """The lanes per block of a split kernel's launch: ``threads``, or
+    ``default`` when None, if a multiple of 32 in [32, MAX_LANES], else
+    ValueError.  K3 takes any such size (``mg_smem_bytes`` fits); K1/K2
+    and K4 check their tables' shared memory besides."""
+    lanes = default if threads is None else threads
     if (not isinstance(lanes, int) or lanes <= 0 or lanes % 32
             or lanes > MAX_LANES):
         raise ValueError(f"threads (lanes per block) must be a multiple of 32 "
                          f"in [32, {MAX_LANES}], got {threads}")
+    return lanes
+
+
+def check_lanes(cfg: EnvConfig, threads) -> int:
+    """The lanes per block of a K1/K2 launch: ``threads``, or DEFAULT_LANES
+    when None: a multiple of 32 in [32, MAX_LANES] whose shared memory
+    fits, else ValueError."""
+    lanes = lanes_per_block(threads)
     need = smem_bytes(lanes, rules.n_cellpairs(cfg) if uses_table(cfg) else 0)
     if need > SMEM_BUDGET:
         raise ValueError(f"threads={lanes} needs {need} B of shared memory "
@@ -453,11 +470,7 @@ def check_alt_lanes(cfg: EnvConfig, threads) -> int:
     """The lanes per block of a K4 launch: ``threads``, or DEFAULT_LANES
     when None: a multiple of 32 in [32, MAX_LANES] whose shared memory
     fits, else ValueError."""
-    lanes = DEFAULT_LANES if threads is None else threads
-    if (not isinstance(lanes, int) or lanes <= 0 or lanes % 32
-            or lanes > MAX_LANES):
-        raise ValueError(f"threads (lanes per block) must be a multiple of 32 "
-                         f"in [32, {MAX_LANES}], got {threads}")
+    lanes = lanes_per_block(threads)
     need = alt_smem_bytes(lanes, rules.n_cellpairs(cfg)
                           if uses_alt_table(cfg) else 0)
     if need > SMEM_BUDGET:
@@ -546,3 +559,71 @@ def alt_walk_codes(cfg: EnvConfig, fields, codes: torch.Tensor,
         fields = tuple(torch.where(by_table, a, b) for a, b in
                        zip((*dec.unbind(1), (cs2 >> 1) & 1, tt), fields))
     return tuple(f.to(torch.int32) for f in fields), (rew, goals, truncs)
+
+
+# ----------------------------------------------------------------------
+# K3: the mixture's two stages
+# ----------------------------------------------------------------------
+
+def mg_smem_bytes(lanes: int) -> int:
+    """K3's dynamic shared memory a block: the per-variant int64 sums (16
+    variants x 3), a 16-B slip entry a lane and the ring
+    (csrc/step_kernel.cu ``mg_smem_bytes``); 33,152 B at 512 lanes."""
+    return 8 * 3 * sk.MAX_VARIANTS + 16 * lanes + ring_bytes(lanes)
+
+
+def mg_step_codes(geo: sk.GeoPlanes, seed: int, lanes: torch.Tensor,
+                  n_steps: int, step_offset: int = 0) -> torch.Tensor:
+    """K3's producers' stage: int32 [n_steps, len(lanes)] step codes, the
+    table input | the ISD index << 7, of the global lane ids ``lanes``
+    (int64) at absolute steps step_offset + i, each on its own board:
+    ``geo``'s planes, indexed like ``lanes``, give its q_int and its ISD
+    mask (3 on an even board, 1 on an odd one)."""
+    mask = torch.where(geo.H % 2 == 0, 3, 1)
+    codes = torch.empty((n_steps, lanes.shape[0]), dtype=torch.int32,
+                        device=lanes.device)
+    for i in range(n_steps):
+        bits0, bits1, bits2 = (sk._random_word(seed, i + step_offset, w, lanes)
+                               for w in range(3))
+        ea = effective_move(sk._u16(bits0, 0) % 5, sk._u16(bits1, 0),
+                            geo.q_int)
+        eb = effective_move(sk._u16(bits0, 1) % 5, sk._u16(bits1, 1),
+                            geo.q_int)
+        coin = sk._u16(bits2, 0) & 3
+        codes[i] = ((ea * 5 + eb) * 4 + coin) | ((sk._u16(bits2, 1) & mask)
+                                                 << 7)
+    return codes
+
+
+def mg_walk_codes(cfgs: tuple, fields, planes, codes: torch.Tensor):
+    """K3's consumers' stage: the six fields after the steps whose codes
+    are ``codes`` [T, B], each lane on its own board (``planes``: H, W,
+    glo, ghi, q_int, variant id), walked by arithmetic and reset to its
+    board's ISD entry computed from the index as the kernel computes it
+    (csrc/pipeline.cuh ``LaneBoard``), and the per-variant int64 [nV, 3]
+    (reward sum, goals, truncations)."""
+    *geo, vid = planes
+    g = sk.GeoPlanes(*geo, cfgs[0].max_steps)
+    mid_lo, mid_hi = (g.H - 1) // 2, g.H // 2
+    fields = tuple(f.to(torch.int64) for f in fields)
+    B = fields[0].shape[0]
+    sums = torch.zeros((3, B), dtype=torch.int64)
+    for code in codes.to(torch.int64):
+        ra, ca, rb, cb, p, t = fields
+        inp = code & 127
+        ra, ca, rb, cb, p, goal, r = sk.transition_core(
+            ra, ca, rb, cb, p, inp // 20, (inp >> 2) % 5,
+            torch.zeros_like(code), inp & 3, g, 0)
+        late = t + 1 >= g.max_steps
+        term = goal | late
+        idx = (code >> 7) & 3
+        swap = (idx >> 1) == 1
+        reset = (torch.where(swap, mid_hi, mid_lo), torch.full_like(ra, 2),
+                 torch.where(swap, mid_lo, mid_hi), g.W - 3, idx & 1)
+        fields = (*(torch.where(term, i, f) for i, f in
+                    zip(reset, (ra, ca, rb, cb, p))),
+                  torch.where(term, 0, t + 1))
+        sums += torch.stack([r.long(), goal.long(), (late & ~goal).long()])
+    stats = torch.zeros((len(cfgs), 3), dtype=torch.int64)
+    stats.index_add_(0, vid.long(), sums.t())
+    return tuple(f.to(torch.int32) for f in fields), stats

@@ -1,4 +1,4 @@
-"""Time variants of the K1/K2 and K4 rollout kernels on a CUDA card.
+"""Time variants of the K1-K4 rollout kernels on a CUDA card.
 
 Each variant is ``csrc/step_kernel.cu`` with a few text patches
 (`VARIANTS`), built beside the port's own build and launched through
@@ -14,7 +14,11 @@ result on purpose to show what one stage costs (the walk without the
 hashing, the hashing without the walk) and are only timed.  K4's variants
 (`ALT_VARIANTS`: the previous design, the arithmetic walk on 5x4, other
 lanes per block) run ``alt_rollout`` at 8192 x 1024 on both boards and are
-checked against the kernel and the CPU plain version at 1024 x 64.
+checked against the kernel and the CPU plain version at 1024 x 64.  K3's
+(`MG_VARIANTS`: the previous design, other lanes per block) run
+``multigrid_rollout`` at 8192 x 1024 on ``tools/bench_all.py``'s 3-board
+mixture and are checked against the kernel and the CPU plain version at
+1024 x 64.
 
     python -m gym_soccer_tpu_torch.ops.rollout_variants
 
@@ -116,9 +120,13 @@ _WALK = """  const int per_tile = a.lanes * kTileSteps;
 #pragma unroll 1
   for (int s = 0; s < a.n_steps - n_full * kTileSteps; ++s)
     step((uint32_t)last[s]);"""
-# One role: each lane's thread makes its own step codes, step i + 1's
-# while step i walks (no producer warps, no ring).
-_SINGLE_WALK = """  (void)ring; (void)n_tiles; (void)nthreads;
+# One role for K1/K2: each lane's thread makes its own step codes, step
+# i + 1's while step i walks (no producer warps, no ring); K3 and K4 keep
+# the ring's walk (and are not timed in this variant).
+_SINGLE_WALK = """  if constexpr (!std::is_same<Args, RolloutArgs>::value) {
+""" + _WALK + """
+  } else {
+  (void)ring; (void)n_tiles; (void)nthreads;
   const int t_keep = 65536 - a.g.q_int, t_half = 65536 - a.g.q_int / 2;
   const uint32_t lane = (uint32_t)(blockIdx.x * a.lanes + l);
   const uint32_t at = (uint32_t)a.step_offset;
@@ -134,13 +142,14 @@ _SINGLE_WALK = """  (void)ring; (void)n_tiles; (void)nthreads;
     const uint32_t code = next;
     next = code_at(at + (uint32_t)(i + 1));
     step(code);
+  }
   }"""
 _PRODUCERS = "constexpr int kProducerWarps = 8;"
 _TILE = "constexpr int kTileSteps = 8;"
 _STAGES = "constexpr int kStages = 3;"
 _STEP_CALL = "      step((cur[s / 2] >> (16 * (s & 1))) & 0xFFFFu);"
 _TAIL_CALL = "    step((uint32_t)last[s]);"
-_CODE_STORE = """      tile[j] = (uint16_t)code(c0, lane, t_keep, t_half, a.g.nI - 1);"""
+_CODE_STORE = """      tile[j] = (uint16_t)code(c0, (uint32_t)(lane0 + l), l);"""
 _TABLE_CHOICE = """  return (int)(table != nullptr
                    ? launch_rollout<kJournal, true>(a, device, smem, st)"""
 _SMEM = "  const int smem = smem_bytes(lanes, table != nullptr ? n_codes : 0);"
@@ -154,7 +163,10 @@ VARIANTS = {
                          (_SMEM_CHECK, "  const int smem = 0;\n")],
                         (128, 32)),
     "single-role": ([(_PRODUCERS, "constexpr int kProducerWarps = 0;"),
-                     (_WALK, _SINGLE_WALK)], (64, 32)),
+                     (_WALK, _SINGLE_WALK),
+                     ('#include "pipeline.cuh"',
+                      '#include <type_traits>\n\n#include "pipeline.cuh"')],
+                    (64, 32)),
     "arithmetic-walk": ([(_TABLE_CHOICE, _TABLE_CHOICE.replace(
         "table != nullptr\n", "false\n")), (_SMEM, _SMEM.replace(
             "table != nullptr ? n_codes : 0", "0"))], (64,)),
@@ -239,6 +251,57 @@ ALT_VARIANTS = {
         "table != nullptr ?", "false ?")), (_ALT_SMEM, _ALT_SMEM.replace(
             "table != nullptr ? n_codes : 0", "0"))], (64,)),
 }
+# K3's variants, timed through ``step_kernel._launch_mg``.  The previous
+# design: one thread a lane hashing and stepping on its LaneGame (blocks of
+# 128 threads).
+_MG_AT = "// K3's dynamic shared memory:"
+_OLD_MG_KERNEL = """__global__ void old_mg_rollout_kernel(MgArgs a) {
+  __shared__ unsigned long long part[kMaxVariants * 3];
+  for (int k = threadIdx.x; k < a.n_variants * 3; k += blockDim.x) part[k] = 0;
+  __syncthreads();
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane < a.B) {
+    int rew = 0, goals = 0, truncs = 0;
+    State s = load_state(a.in, lane);
+    const LaneGame g = lane_game(a.geo, lane, a.max_steps);
+    for (int i = 0; i < a.n_steps; ++i) {
+      const uint32_t step = (uint32_t)(i + a.step_offset);
+      const uint32_t bits0 = random_word(a.seed, step, 0u, (uint32_t)lane);
+      const uint32_t bits1 = random_word(a.seed, step, 1u, (uint32_t)lane);
+      const uint32_t bits2 = random_word(a.seed, step, 2u, (uint32_t)lane);
+      bool goal, trunc;
+      int r;
+      transition(s, u16(bits0, 0) % 5, u16(bits0, 1) % 5, bits1, bits2, g,
+                 goal, r);
+      autoreset(s, goal, bits2, g, trunc);
+      rew += r;
+      goals += goal;
+      truncs += trunc;
+    }
+    store_state(a.out, lane, s);
+    unsigned long long* mine = part + 3 * a.geo.f[5][lane];
+    atomicAdd(mine + 0, (unsigned long long)(long long)rew);
+    atomicAdd(mine + 1, (unsigned long long)(long long)goals);
+    atomicAdd(mine + 2, (unsigned long long)(long long)truncs);
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < a.n_variants * 3; k += blockDim.x)
+    if (part[k]) atomicAdd(reinterpret_cast<unsigned long long*>(a.stats + k),
+                           part[k]);
+}
+
+"""
+_MG_LAUNCH = """  mg_rollout_kernel<<<(B + lanes - 1) / lanes, lanes + 32 * kProducerWarps,
+                      mg_smem_bytes(lanes), st>>>(a);"""
+_OLD_MG_LAUNCH = """  old_mg_rollout_kernel<<<(B + 127) / 128, 128, 0, st>>>(a);"""
+# name -> ([(text, replacement)], lanes per block): K3's variants; "kernel"
+# is VARIANTS' build.
+MG_VARIANTS = {
+    "kernel": ([], (64, 32, 96, 128)),
+    "mg-previous-design": ([(_MG_AT, _OLD_MG_KERNEL + _MG_AT),
+                            (_MG_LAUNCH, _OLD_MG_LAUNCH)], (64,)),
+}
+MIX3 = ((5, 4, 0.2), (6, 5, 0.1), (8, 6, 0.3))   # tools/bench_all.py:421
 B, T, SLIP = 8192, 1024, 0.2
 BOARDS = ((5, 4), (11, 7))
 NAMES = ("fused_rollout", "fused_journal_rollout")
@@ -248,7 +311,7 @@ def variant_source(name: str, source: str) -> str:
     """``source`` with variant ``name``'s patches (of VARIANTS or
     ALT_VARIANTS) applied; ValueError if a patched text does not occur
     exactly once."""
-    for old, new in {**ALT_VARIANTS, **VARIANTS}[name][0]:
+    for old, new in {**MG_VARIANTS, **ALT_VARIANTS, **VARIANTS}[name][0]:
         if source.count(old) != 1:
             raise ValueError(f"variant {name}: its patch matches "
                              f"{source.count(old)} times, not once")
@@ -344,6 +407,47 @@ def _alt_variants(built, cfgs, dev, card) -> bool:
     return ok
 
 
+def _mg_variants(built, dev, card) -> bool:
+    """Time K3's variants on the mixture, each design variant checked
+    against the kernel and the CPU plain version; False if one differs."""
+    import ctypes
+
+    import torch
+
+    from ..config import EnvConfig
+    from . import parity_variants
+    from . import step_kernel as sk
+    mix = tuple(EnvConfig(*b) for b in MIX3)
+    cf, cs = sk.multigrid_rollout(mix, 3, 1024, 64, "cpu")
+    cpu = [*cf, cs]
+    start = {b: sk._start_fields(mix, b, T, dev, None, 0) for b in (B, 1024)}
+    planes = {b: sk._geo(mix, b, dev) for b in (B, 1024)}
+    want, ok = None, True
+    for name, (_, lane_sizes) in MG_VARIANTS.items():
+        lib = sk.declare(ctypes.CDLL(str(built[name])))
+        sk._library = lambda lib=lib: lib
+        for lanes in lane_sizes:
+            def fn(b=B, steps=T, seed=1):
+                return sk._launch_mg(mix, seed, start[b], planes[b], steps, 0,
+                                     lanes)
+            f, st = fn()
+            out = [*(x.cpu() for x in f), st.cpu()]
+            if want is None:
+                want = out
+            f, st = fn(1024, 64, 3)
+            small = [*(x.cpu() for x in f), st.cpu()]
+            same = (all(torch.equal(x, y) for x, y in zip(out, want))
+                    and all(torch.equal(x, y) for x, y in zip(small, cpu)))
+            ok &= same
+            print(f"[variant] {name} (K3), {lanes} lanes per block: mixture "
+                  f"call {parity_variants._time(fn)} / device "
+                  f"{_device_ms(fn)} ms; "
+                  + ("bit-equal to the kernel and to the CPU plain version"
+                     if same else "DIFFERS from the kernel or the CPU plain "
+                     "version") + f" | {card}", flush=True)
+    return ok
+
+
 def main() -> int:
     import ctypes
 
@@ -361,7 +465,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     out_dir = _out_dir()
-    names = [*VARIANTS, *(n for n in ALT_VARIANTS if n not in VARIANTS)]
+    names = [*VARIANTS, *(n for n in (*ALT_VARIANTS, *MG_VARIANTS)
+                          if n not in VARIANTS)]
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(
             lambda n: _build_variant(n, out_dir), names)))
@@ -385,7 +490,8 @@ def main() -> int:
     committed = sk._library
     want, ok = {}, True
     try:
-        ok = _alt_variants(built, cfgs, dev, card)
+        ok = _mg_variants(built, dev, card)
+        ok &= _alt_variants(built, cfgs, dev, card)
         for name in VARIANTS:
             path = built[name]
             lib = sk.declare(ctypes.CDLL(str(path)))

@@ -591,7 +591,7 @@ def fused_journal_rollout(cfg: EnvConfig, seed: int, batch: int,
 
 def multigrid_rollout(cfgs, seed: int, batch: int, n_steps: int,
                       device="cuda", init_fields=None, step_offset: int = 0,
-                      threads: int = 128):
+                      threads=None):
     """``fused_rollout`` over a mixture of boards: ``cfgs`` is a tuple of 1
     to 16 EnvConfigs sharing max_steps, and lane i plays on cfgs[i % nV]
     (its height, width, goal rows and slip), starting on its board's ISD
@@ -600,20 +600,24 @@ def multigrid_rollout(cfgs, seed: int, batch: int, n_steps: int,
     Returns ``(fields, stats)``: the final (ra, ca, rb, cb, p, t) as int32
     [batch] tensors and int64 [nV, 3] per-variant (reward sum, goals,
     truncations), on ``device``.  ``batch`` is a multiple of 1024;
-    ``init_fields``/``step_offset`` resume as in ``fused_rollout``, and
-    ``threads`` does not change the result.
+    ``init_fields``/``step_offset`` resume as in ``fused_rollout``.
+    ``threads`` is the kernel's lanes per block: a multiple of 32 in [32,
+    512] (``rollout_codes.lanes_per_block``; 64 by default, ValueError
+    otherwise, on any device); it does not change the result.
 
     On a CPU device this runs ``multigrid_rollout_plain``; on a CUDA device
     it launches the K3 kernel.
     """
+    from . import rollout_codes
     cfgs = check_variants(cfgs)
+    lanes = rollout_codes.lanes_per_block(threads)
     fields = _start_fields(cfgs, batch, n_steps, device, init_fields,
                            step_offset)
     planes = _geo(cfgs, batch, fields[0].device)
     if fields[0].device.type == "cpu":
         return _mg_plain(cfgs, seed, fields, planes, n_steps, step_offset)
     return _launch_mg(cfgs, seed, fields, planes, n_steps, step_offset,
-                      threads)
+                      lanes)
 
 
 def alt_rollout(cfg: EnvConfig, seed: int, batch: int, n_steps: int,
@@ -721,12 +725,14 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     for fn in (lib.gst_rollout_smem_bytes, lib.gst_alt_rollout_smem_bytes):
         fn.argtypes = [i32, i32]
         fn.restype = i32
+    lib.gst_mg_rollout_smem_bytes.argtypes = [i32]
+    lib.gst_mg_rollout_smem_bytes.restype = i32
     lib.gst_rollout_shape.argtypes = [vp]
     lib.gst_rollout_shape.restype = None
     lib.gst_multigrid_rollout.argtypes = [i32, vp, vp, vp, vp, i32, i32, u32,
                                           i32, i32, i32, i32, vp]
     #    device, in, out, geo, stats, B, T, seed, offset, max_steps,
-    #    n_variants, threads, stream
+    #    n_variants, lanes, stream
     for fn in (lib.gst_fused_rollout, lib.gst_fused_journal_rollout,
                lib.gst_multigrid_rollout, lib.gst_alt_rollout):
         fn.restype = i32
@@ -748,8 +754,9 @@ def _game_params(cfg: EnvConfig):
 
 def check_threads(name: str, device: torch.device, threads: int) -> None:
     """Refuse a device without a kernel and a block size (threads a block)
-    the kernels K3-K11 do not take.  K1/K2 take lanes per block instead
-    (``rollout_codes.check_lanes``)."""
+    the kernels K6 and K8-K11 do not take.  K1-K5 and K7 take lanes per
+    block instead (``rollout_codes.check_lanes``,
+    ``learner_codes.check_lanes``)."""
     if device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {device}")
     if threads <= 0 or threads > 1024 or threads % 32:
@@ -842,20 +849,23 @@ def _launch_alt(cfg: EnvConfig, seed: int, dev: torch.device, B: int,
 
 
 def _launch_mg(cfgs: tuple, seed: int, fields, planes, n_steps: int,
-               step_offset: int, threads: int):
+               step_offset: int, lanes: int):
+    """Launch K3 at ``lanes`` lanes per block; the launch zeroes the
+    stats."""
     name = "multigrid_rollout"
     dev = fields[0].device
-    check_threads(name, dev, threads)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
     lib = _library()
     B = fields[0].shape[0]
     out = tuple(torch.empty_like(f) for f in fields)
-    stats = torch.zeros((len(cfgs), 3), dtype=torch.int64, device=dev)
+    stats = torch.empty((len(cfgs), 3), dtype=torch.int64, device=dev)
     in_ptrs, out_ptrs, geo_ptrs = (ptr_array(x) for x in (fields, out, planes))
     rc = lib.gst_multigrid_rollout(
         dev.index, ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs),
         ctypes.addressof(geo_ptrs), stats.data_ptr(), B, n_steps, seed & M32,
-        step_offset, cfgs[0].max_steps, len(cfgs), threads,
-        torch.cuda.current_stream(dev).cuda_stream)
+        step_offset, cfgs[0].max_steps, len(cfgs), lanes,
+        torch._C._cuda_getCurrentRawStream(dev.index))
     if rc:
         raise RuntimeError(f"{name}: kernel launch failed: "
                            f"{lib.gst_error_string(rc).decode()} ({rc})")

@@ -184,14 +184,15 @@ MIX = [(5, 4, 0.2), (6, 5, 0.1), (8, 6, 0.3)]
 
 @pytest.mark.cuda
 def test_multigrid_rollout_equals_plain_version(cuda):
-    """K3 equals its plain version (fields and per-variant stats) for two
-    block sizes, a run split by step_offset equals one run, and a
-    one-variant mixture equals K1."""
+    """K3 equals its plain version (fields and per-variant stats) at 64
+    lanes per block (the default) and 96 (a ragged last block), a run
+    split by step_offset equals one run, and a one-variant mixture equals
+    K1."""
     cfgs = tuple(EnvConfig(*b) for b in MIX)
     B, T = 2048, 64
     pf, ps = sk.multigrid_rollout_plain(cfgs, 4, B, T, cuda)
     sk.reset_launch_counts()
-    for threads in (128, 256):
+    for threads in (None, 96):
         kf, ks = sk.multigrid_rollout(cfgs, 4, B, T, cuda, threads=threads)
         assert all(torch.equal(a, b) for a, b in zip(kf, pf))
         assert torch.equal(ks, ps)
@@ -206,6 +207,45 @@ def test_multigrid_rollout_equals_plain_version(cuda):
     fm, sm = sk.multigrid_rollout((one,), 4, B, T, cuda)
     assert all(torch.equal(a, b) for a, b in zip(f1, fm))
     assert _ints(s1) == _ints(sm[0])
+
+
+@pytest.mark.cuda
+def test_split_k3_k7_partial_tiles_and_goal_states(cuda):
+    """K3 and K7 (both sites) from lanes in goal states or a step before
+    truncation, over a partial last tile of steps (37 and 13) and no steps
+    (K3), at 32 lanes per block: equal to the plain versions."""
+    from gym_soccer_tpu_torch.ops import learner_kernel as lk
+    cfgs = tuple(EnvConfig(*b) for b in MIX)
+    B = 1024
+    fields = [f.clone() for f in sk.multigrid_rollout(cfgs, 2, B, 50, cuda)[0]]
+    _, W, glo, *_ = sk.mg_planes(cfgs, B, cuda)[0]
+    fields[0][::5], fields[1][::5], fields[4][::5] = glo[::5], W[::5] - 1, 0
+    fields[5][1::3] = 99
+    for T in (37, 0):
+        got = sk.multigrid_rollout(cfgs, 6, B, T, cuda, init_fields=fields,
+                                   step_offset=50, threads=32)
+        want = sk.multigrid_rollout_plain(cfgs, 6, B, T, cuda,
+                                          init_fields=fields, step_offset=50)
+        assert all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+        assert torch.equal(got[1], want[1])
+    for cfg in (EnvConfig(5, 4, 0.2), EnvConfig(11, 7, 0.2), cfgs):
+        _, m = _mix_tables(cfg, cuda)
+        state = lk.init_state_fields(cfg, B, cuda)
+        planes, f = state if isinstance(cfg, tuple) else (None, state)
+        f = [x.clone() for x in f]
+        W = planes[1] if planes is not None else torch.full_like(f[0], cfg.W)
+        glo = (planes[2] if planes is not None
+               else torch.full_like(f[0], cfg.goal_row_bounds[0]))
+        f[0][::7], f[1][::7], f[4][::7] = glo[::7], W[::7] - 1, 0
+        f[5][2::3] = 99
+        if planes is None:
+            args = (cfg, 6, m, f, B, 13, 0.9)
+            fn, plain = lk.learner_chunk, lk.learner_chunk_plain
+        else:
+            args = (cfg, 6, m, planes, f, B, 13, 0.9)
+            fn = lk.multigrid_learner_chunk
+            plain = lk.multigrid_learner_chunk_plain
+        assert _same_chunk(fn(*args, threads=32), plain(*args))
 
 
 def _mix_tables(cfg, device, seed=1, big=False):
@@ -233,8 +273,10 @@ def _mix_tables(cfg, device, seed=1, big=False):
 def test_learner_kernels_k6_k7_equal_plain_versions(cuda, mix):
     """K6 and K7 (both sites) equal their plain versions bit for bit
     (fields, stats, counts, int64 sums, out-of-range count) for two block
-    sizes; K6 and K7 step the same fields, stats and counts; tables holding
-    1e7 are counted alike by kernels and plain versions."""
+    sizes (K6: threads a block; K5 and K7: lanes per block, the default and
+    96, a ragged last block); K6 and K7 step the same fields, stats and
+    counts; tables holding 1e7 are counted alike by kernels and plain
+    versions."""
     from gym_soccer_tpu_torch.ops import learner_kernel as lk
     B, T = 2048, 32
     multi = len(mix) > 1
@@ -253,7 +295,9 @@ def test_learner_kernels_k6_k7_equal_plain_versions(cuda, mix):
     got = {}
     for name, table in runs.items():
         want = getattr(lk, name + "_plain")(*args(table))
-        for threads in (128, 256):
+        sizes = ((128, 256) if name == "multigrid_packed_learner_chunk"
+                 else (None, 96))
+        for threads in sizes:
             assert _same_chunk(getattr(lk, name)(*args(table),
                                                  threads=threads), want)
         assert int(want[2][3]) == 0

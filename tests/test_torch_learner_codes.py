@@ -188,3 +188,194 @@ def test_learner_variants_patch_the_committed_kernel(name):
         assert new in got
     with pytest.raises(ValueError, match="matches 0 times"):
         learner_variants.variant_source("rows-in-l2", "no kernel here")
+
+
+# ----------------------------------------------------------------------
+# K7 (both sites): the unpacked chunk's two stages
+# ----------------------------------------------------------------------
+
+MIX3 = ((5, 4, 0.2), (6, 5, 0.1), (8, 6, 0.3))   # tools/bench_all.py:421
+jax_pack_m = jax.jit(jlk.pack_m, static_argnums=(0,))
+
+
+def _k7_cfg(boards):
+    """(JAX config, port config): one board, or a mixture's tuples."""
+    if len(boards) == 1:
+        return JaxConfig(*boards[0]), EnvConfig(*boards[0])
+    return (tuple(JaxConfig(*b) for b in boards),
+            tuple(EnvConfig(*b) for b in boards))
+
+
+def _k7_tables(cfg, seed, bad=None):
+    """The unpacked and the packed table of random policies, v and q in
+    [-1, 1] (``bad`` added to every third state's q), as numpy and as
+    the port's tables."""
+    nS = lk.n_states(cfg)
+    rng = np.random.default_rng(seed)
+    pa, pb = (rng.dirichlet(np.ones(5), nS).astype(np.float32)
+              for _ in range(2))
+    v = rng.uniform(-1, 1, nS).astype(np.float32)
+    q = rng.uniform(-1, 1, (nS, 5, 5)).astype(np.float32)
+    if bad is not None:
+        q[::3] += np.float32(bad)
+    t = [torch.as_tensor(x) for x in (pa, pb, q, v)]
+    return ((pa, pb, q, v), lk.pack_m(cfg, *t, 0.2),
+            lk.pack_m2(cfg, t[0], t[1], t[3], 0.2))
+
+
+def _k7_twin(cfg, seed, table, state, T):
+    if isinstance(cfg, tuple):
+        planes, fields = state
+        return lc.chunk_twin(cfg, seed, table, fields, T, 0.99, planes)
+    return lc.chunk_twin(cfg, seed, table, state, T, 0.99)
+
+
+def _k7_plain(cfg, seed, table, state, B, T):
+    if isinstance(cfg, tuple):
+        return lk.multigrid_learner_chunk_plain(cfg, seed, table, *state, B, T)
+    return lk.learner_chunk_plain(cfg, seed, table, state, B, T)
+
+
+@pytest.mark.parametrize("boards,B,T,seed", [
+    (((5, 4, 0.2),), 1024, 12, 3),
+    (((11, 7, 0.2),), 256, 4, 5),
+    (MIX3, 512, 8, 6),
+], ids=["5x4", "11x7", "mixture"])
+def test_k7_two_stages_equal_the_plain_versions_and_jax(boards, B, T, seed):
+    """K7's codes then steps (the 36-column table's prepared rows, q(s, a)
+    read after the sample) equal ``learner_chunk_plain`` /
+    ``multigrid_learner_chunk_plain`` bit for bit (fields, stats, counts,
+    int64 sums, out-of-range count), and JAX's ``learner_chunk`` /
+    ``multigrid_learner_chunk`` in interpret mode fed the same table and
+    state: fields, stats and counts exactly, the TD sums within cnt *
+    (2**-8 * max|delta| + 1e-6), max|delta| <= 1 + 2 * max(|v|, |q|)
+    (ROADMAP Queue 3: JAX rounds each TD to bfloat16 and reads v, q as
+    double bfloat16)."""
+    jc, cfg = _k7_cfg(boards)
+    arrays, table, _ = _k7_tables(cfg, seed)
+    m = jax_pack_m(jc, *(jnp.asarray(x) for x in arrays), 0.2)
+    table = interop.table_from_m(cfg, np.asarray(m, np.float32), "cpu")
+    if isinstance(cfg, tuple):
+        jplanes, jfields0 = jlk.init_state_fields(jc, B)
+        jfields, jacc, jstats = jlk.multigrid_learner_chunk(
+            jc, seed, m, jplanes, jfields0, B, T, interpret=True)
+        state = lk.init_state_fields(cfg, B, "cpu")
+    else:
+        jfields0 = jlk.init_state_fields(jc, B)
+        jfields, jacc, jstats = jlk.learner_chunk(
+            jc, seed, m, jfields0, B, T, interpret=True)
+        state = interop.planes_from_tiles(jfields0, "cpu")
+    got = _k7_twin(cfg, seed, table, state, T)
+    _same(got, _k7_plain(cfg, seed, table, state, B, T))
+    for a, b in zip(interop.planes_to_tiles(got[0]), jfields):
+        assert np.array_equal(a, np.asarray(b))
+    assert [int(x) for x in got[2][:3]] == [int(x) for x in jstats]
+    assert int(got[2][3]) == 0
+    td, cnt = (a.numpy() for a in lk.unpack_acc(cfg, got[1]))
+    jtd, jcnt = (np.asarray(a) for a in jlk.unpack_acc(jc, jacc))
+    assert np.array_equal(cnt, jcnt) and int(cnt.sum()) == B * T
+    max_delta = 1 + 2 * float(table[:, lk.COL_V:].abs().max())
+    assert (np.abs(td - jtd) <= cnt * (2.0 ** -8 * max_delta + 1e-6)).all()
+
+
+@pytest.mark.parametrize("boards", [((5, 4, 0.2),), MIX3],
+                         ids=["5x4", "mixture"])
+def test_k7_goal_states_and_late_truncations_equal_the_plain_version(boards):
+    """K7's two stages from lanes in goal states (where the tables still
+    have rows) or a few steps before truncation, on one board and on each
+    board of a mixture: equal to the plain version."""
+    _, cfg = _k7_cfg(boards)
+    B = 1024
+    _, table, _ = _k7_tables(cfg, 1)
+    state = lk.init_state_fields(cfg, B, "cpu")
+    planes, fields = state if isinstance(cfg, tuple) else (None, state)
+    ra, ca, rb, cb, p, t = (f.clone() for f in fields)
+    W = planes[1] if planes is not None else torch.full_like(ra, cfg.W)
+    glo = (planes[2] if planes is not None
+           else torch.full_like(ra, cfg.goal_row_bounds[0]))
+    ca[5::97], ra[5::97], p[5::97] = W[5::97] - 1, glo[5::97], 0
+    rb[40::131], cb[40::131], p[40::131] = glo[40::131], W[40::131] - 1, 1
+    t[::3] = 100 - 3
+    fields = (ra, ca, rb, cb, p, t)
+    state = fields if planes is None else (planes, fields)
+    got = _k7_twin(cfg, 4, table, state, 12)
+    want = _k7_plain(cfg, 4, table, state, B, 12)
+    _same(got, want)
+    assert int(want[2][2]) > 0
+
+
+@pytest.mark.parametrize("boards", [((5, 4, 0.2),), MIX3],
+                         ids=["5x4", "mixture"])
+@pytest.mark.parametrize("bad", [float("nan"), 1e7])
+def test_k7_counts_values_out_of_range_as_the_plain_version(boards, bad):
+    """Tables whose q holds nan or 1e7: K7's two stages count the values
+    read outside +-value_limit as the plain version does (the q(s, a) of
+    each visit, tested at its retirement), and leave the sums and counts
+    equal."""
+    _, cfg = _k7_cfg(boards)
+    B, T = 256, 16
+    _, table, _ = _k7_tables(cfg, 2, bad)
+    state = lk.init_state_fields(cfg, B, "cpu")
+    got = _k7_twin(cfg, 5, table, state, T)
+    want = _k7_plain(cfg, 5, table, state, B, T)
+    assert int(want[2][3]) > 0
+    assert int(got[2][3]) == int(want[2][3])
+    assert torch.equal(got[1][1], want[1][1])
+    assert all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+
+
+def test_prepared_rows_of_the_unpacked_table():
+    """The prep pass reads K7's 36-column table into the rows it makes of
+    K5's 11-column one for the same pi and v: the same 48-B rows."""
+    cfg = EnvConfig(5, 4, 0.2)
+    _, table, packed = _k7_tables(cfg, 7)
+    assert table.shape[1] == lk.TABLE_COLS_UNPACKED
+    assert torch.equal(lc.prepare_rows(table), lc.prepare_rows(packed))
+
+
+def test_k7_lanes_per_block_and_shared_memory():
+    """K7's ``threads`` is lanes per block at both sites, as K5's: by
+    default one wave, any multiple of 32 up to 512, anything else refused
+    with a ValueError on any device before a launch; a mixture's block
+    keeps a 16-B slip entry a lane beside the ring, its rows in L2 (8,928
+    codes on the 3-board mixture) and a one-board mixture's in shared
+    memory."""
+    c54 = EnvConfig(5, 4, 0.2)
+    mix = tuple(EnvConfig(*b) for b in MIX3)
+    assert lc.smem_bytes(64, 0, multi=True) == 96 + 5120 + 1024
+    assert lc.smem_bytes(512, 1104, multi=True) <= lc.SMEM_BUDGET
+    assert not lc.shared_rows(mix) and lk.n_codes(mix) == 8928
+    assert lc.shared_rows((c54,)) and lc.shared_rows(c54)
+    for cfg in (c54, mix):
+        _, table, _ = _k7_tables(cfg, 4)
+        state = lk.init_state_fields(cfg, 256, "cpu")
+        for bad in (0, 48, 544, 1024, 64.0):
+            for dev in ("cpu", "meta"):
+                moved = (lambda x: x.to(dev) if hasattr(x, "to")
+                         else type(x)(moved(y) for y in x))
+                with pytest.raises(ValueError, match="lanes per block"):
+                    if isinstance(cfg, tuple):
+                        lk.multigrid_learner_chunk(
+                            cfg, 0, table.to(dev), *moved(state), 256, 4,
+                            threads=bad)
+                    else:
+                        lk.learner_chunk(cfg, 0, table.to(dev), moved(state),
+                                         256, 4, threads=bad)
+        got = (lk.multigrid_learner_chunk(cfg, 2, table, *state, 256, 4,
+                                          threads=32)
+               if isinstance(cfg, tuple) else
+               lk.learner_chunk(cfg, 2, table, state, 256, 4, threads=32))
+        _same(got, _k7_plain(cfg, 2, table, state, 256, 4))
+
+
+@pytest.mark.parametrize("name", sorted(learner_variants.K7_VARIANTS))
+def test_k7_variants_patch_the_committed_kernel(name):
+    """Each timed variant of K7 applies its patches, each to exactly one
+    place in the committed source, and changes it unless it is the kernel
+    itself."""
+    from gym_soccer_tpu_torch.ops import _build
+    src = (_build.CSRC / "learner_kernel.cu").read_text()
+    got = learner_variants.variant_source(name, src)
+    assert (got == src) == (name == "kernel")
+    for _, new in learner_variants.K7_VARIANTS[name][0]:
+        assert new in got

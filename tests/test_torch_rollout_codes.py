@@ -370,3 +370,145 @@ def test_alt_lanes_per_block(board):
     want = sk.alt_rollout(cfg, 3, 1024, 8, "cpu")
     got = sk.alt_rollout(cfg, 3, 1024, 8, "cpu", threads=32)
     assert all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+
+
+# ----------------------------------------------------------------------
+# K3: the mixture's step codes and walk
+# ----------------------------------------------------------------------
+
+MIX3 = ((5, 4, 0.2), (6, 5, 0.1), (8, 6, 0.3))   # tools/bench_all.py:421
+MG_T, MG_SPLIT = 20, 12
+
+
+def _mg_cfgs():
+    return (tuple(JaxConfig(*b) for b in MIX3),
+            tuple(EnvConfig(*b) for b in MIX3))
+
+
+def _mg_two_stages(cfgs, seed, fields, n_steps, step_offset=0):
+    """K3's step codes of each lane on its board, then its walk."""
+    planes = sk._geo(cfgs, fields[0].shape[0], torch.device("cpu"))
+    geo = sk.GeoPlanes(*planes[:5], cfgs[0].max_steps)
+    codes = rc.mg_step_codes(geo, seed, torch.arange(fields[0].shape[0]),
+                             n_steps, step_offset)
+    return rc.mg_walk_codes(cfgs, fields, planes, codes)
+
+
+@pytest.fixture(scope="module")
+def mg_runs():
+    """The two stages over MG_T steps, and over MG_SPLIT then the rest at
+    that step offset, from the mixture's ISD spread; the JAX kernel in
+    interpret mode over MG_T steps and resumed from the first part's
+    fields."""
+    jcfgs, cfgs = _mg_cfgs()
+    fields = sk._start_fields(cfgs, B, MG_T, "cpu", None, 0)
+    whole = _mg_two_stages(cfgs, 9, fields, MG_T)
+    first = _mg_two_stages(cfgs, 9, fields, MG_SPLIT)
+    second = _mg_two_stages(cfgs, 9, first[0], MG_T - MG_SPLIT, MG_SPLIT)
+    jwhole = jsk.pallas_multigrid_rollout(jcfgs, jnp.int32(9), B, MG_T,
+                                          interpret=True)
+    jsecond = jsk.pallas_multigrid_rollout(
+        jcfgs, jnp.int32(9), B, MG_T - MG_SPLIT, interpret=True,
+        step_offset=MG_SPLIT,
+        init_fields=[jnp.asarray(p) for p in interop.planes_to_tiles(
+            first[0])])
+    return cfgs, whole, first, second, jwhole, jsecond
+
+
+def _mg_equal_jax(got, jgot):
+    (fields, stats), (jfields, jstats) = got, jgot
+    for a, b in zip(interop.planes_to_tiles(fields), jfields):
+        assert np.array_equal(a, np.asarray(b))
+    assert np.array_equal(stats.numpy(), np.asarray(jstats))
+
+
+def test_mg_two_stages_equal_the_plain_version_and_pallas(mg_runs):
+    """K3's step codes then walk (1024 lanes x 20 steps on the 3-board
+    mixture) equal ``multigrid_rollout_plain`` (fields and per-variant
+    stats) and the JAX package's ``pallas_multigrid_rollout`` in interpret
+    mode."""
+    cfgs, whole, _, _, jwhole, _ = mg_runs
+    pf, ps = sk.multigrid_rollout_plain(cfgs, 9, B, MG_T, "cpu")
+    assert all(torch.equal(a, b) for a, b in zip(whole[0], pf))
+    assert torch.equal(whole[1], ps) and int(ps[:, 1].sum()) > 0
+    _mg_equal_jax(whole, jwhole)
+
+
+def test_mg_two_stages_resume_at_a_step_offset(mg_runs):
+    """12 steps, then 8 more from their fields with codes made at step
+    offset 12, equal one 20-step walk, and the JAX kernel resumed from the
+    same fields."""
+    _, whole, first, second, _, jsecond = mg_runs
+    assert all(torch.equal(a, b) for a, b in zip(second[0], whole[0]))
+    assert torch.equal(first[1] + second[1], whole[1])
+    _mg_equal_jax(second, jsecond)
+
+
+def test_mg_two_stages_from_goal_states_and_late_steps():
+    """Lanes that start in goal states, on one cell, or a step before
+    truncation, on every board of the mixture: the two stages equal the
+    plain version, truncations counted."""
+    _, cfgs = _mg_cfgs()
+    ra, ca, rb, cb, p, t = (f.clone() for f in
+                            sk._start_fields(cfgs, B, 8, "cpu", None, 0))
+    _, W, glo, *_ = sk._geo(cfgs, B, torch.device("cpu"))
+    ca[5::97], ra[5::97], p[5::97] = W[5::97] - 1, glo[5::97], 0   # goal
+    rb[40::131], cb[40::131] = ra[40::131], ca[40::131]   # one cell
+    t[::3] = cfgs[0].max_steps - 1
+    fields = (ra, ca, rb, cb, p, t)
+    got = _mg_two_stages(cfgs, 5, fields, 8)
+    pf, ps = sk.multigrid_rollout_plain(cfgs, 5, B, 8, "cpu",
+                                        init_fields=fields)
+    assert all(torch.equal(a, b) for a, b in zip(got[0], pf))
+    assert torch.equal(got[1], ps) and int(ps[:, 2].sum()) > 0
+
+
+def test_mg_step_codes_use_each_lanes_board():
+    """A lane's K3 code is K1's on its own board without the joint action:
+    for the one-variant mixtures of each board, the low 9 bits of
+    ``step_codes``."""
+    _, cfgs = _mg_cfgs()
+    lanes = torch.arange(B)
+    planes = sk._geo(cfgs, B, torch.device("cpu"))
+    codes = rc.mg_step_codes(sk.GeoPlanes(*planes[:5], 100), 4, lanes, 6, 3)
+    for v, cfg in enumerate(cfgs):
+        mine = planes[5] == v
+        want = rc.step_codes(cfg, 4, lanes[mine], 6, 3) & 0x1FF
+        assert torch.equal(codes[:, mine], want)
+
+
+def test_mg_lanes_per_block_and_shared_memory():
+    """``threads`` is K3's lanes per block: 64 by default, any multiple of
+    32 up to 512 (33,152 B of shared memory at 512: the per-variant sums, a
+    16-B slip entry and the ring a lane), anything else refused with a
+    ValueError on any device, before a launch; it does not change the CPU
+    result."""
+    _, cfgs = _mg_cfgs()
+    assert rc.lanes_per_block(None) == 64
+    for lanes in (32, 96, 480, 512):
+        assert rc.lanes_per_block(lanes) == lanes
+    assert rc.mg_smem_bytes(64) == 384 + 16 * 64 + 3 * 8 * 2 * 64
+    assert rc.mg_smem_bytes(512) == 33152 < 48 * 1024
+    for bad in (0, 48, 544, 1024, 64.0):
+        with pytest.raises(ValueError, match="lanes per block"):
+            rc.lanes_per_block(bad)
+        for dev in ("cpu", "meta"):
+            with pytest.raises(ValueError, match="lanes per block"):
+                sk.multigrid_rollout(cfgs, 0, 1024, 4, dev, threads=bad)
+    want = sk.multigrid_rollout(cfgs, 3, 1024, 8, "cpu")
+    got = sk.multigrid_rollout(cfgs, 3, 1024, 8, "cpu", threads=32)
+    assert all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("name", sorted(rollout_variants.MG_VARIANTS))
+def test_mg_variants_patch_the_committed_kernel(name):
+    """Each timed variant of K3 applies its patches, each to exactly one
+    place in the committed source, and changes it unless it is the kernel
+    itself."""
+    from gym_soccer_tpu_torch.ops import _build
+    src = (_build.CSRC / "step_kernel.cu").read_text()
+    got = rollout_variants.variant_source(name, src)
+    assert (got == src) == (name == "kernel")
+    for _, new in rollout_variants.MG_VARIANTS[name][0]:
+        assert new in got
