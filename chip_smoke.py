@@ -29,8 +29,8 @@ failure:
    per library, in parallel; for each kernel's bound, cuobjdump's SASS
    gives the fewest instructions one step (or event) of its main loop
    issues (``loop_instructions``; K12/K13's MT19937 twist amortised over
-   the 312 events between twists; K1-K5 and K7's producer code loop plus
-   their consumer tile loop over its 8 steps);
+   the 312 events between twists; K1-K5 and K7-K9's producer code loop
+   plus their consumer tile loop over its 8 steps);
 3. main path: the user entry points at 8192 lanes, with the kernels'
    launch counters reset before and read after; outputs are checked by
    the repo's own means (valid states, journal decodes, stats agree);
@@ -96,11 +96,14 @@ failure:
     finite, |Q| <= 1.05, and the visit counts of one more chunk from the
     resume state sum to B * T per player;
 19. K8/K9: bit-equal to their plain versions (fields, stats, counts and the
-    int64 sums) at 8192 lanes x 64 steps on 5x4 and 11x7 for two block
-    sizes, on Q tables with near-ties and a step offset; K8 and K9 step the
-    same fields, stats and counts; at 256 x 16 equal to the plain versions
-    run on the CPU, and counting the same values out of the int64 sums'
-    range on tables that hold nan or 1e7;
+    int64 sums) at 8192 lanes x 64 steps on 5x4 and 11x7 at the default
+    lanes per block (64) and 96 (a ragged last block), on Q tables with
+    near-ties, from step 640, and at 1024 x 129 at 512 lanes per block
+    (more visits a cell than a block's private accumulators take, so
+    added by device-memory atomics); K8 and K9 step the same fields, stats
+    and counts; at 256 x 16 equal to the plain versions run on the CPU, and
+    counting the same values out of the int64 sums' range on tables that
+    hold nan or 1e7;
 20. resume and learning: 2 chunks equal 1 + 1 through the resume dict, bit
     for bit; the JAX package's learning check (tests/test_iql_kernel.py
     ``test_fused_iql_training_learns``) on the card; a 65536-lane x 200
@@ -108,8 +111,10 @@ failure:
     work between them, and greedy-vs-greedy play of its tables through the
     batched engine (a measurement, not a gate);
 21. timing: learner env-steps/s of K8, K9 and their plain versions at 8192
-    x 64 on 5x4 and 11x7, K8 at 32768 x 64, and ``torch.profiler`` windows
-    of K8 and K9 for device time and idle share;
+    x 64 on 5x4 and 11x7, K8 at 32768 x 64; each one's design line per
+    board (the rows' place, block shape, shared memory, registers, SASS
+    per lane-step, bound, the previous design's ms) and ``torch.profiler``
+    windows of K8 and K9 for device time and idle share;
 22. mixed-geometry path: ``multigrid_rollout`` at 8192 lanes x 1024 steps on
     tools/bench_all.py's mixture (5x4 slip 0.2, 6x5 slip 0.1, 8x6 slip 0.3)
     through its default device, ``fused_minimax_train`` on that mixture for
@@ -241,6 +246,14 @@ LEARNER_OLD_MS = {(5, 4): 0.1549, (11, 7): 0.1348}
 # HBM3 at 700 W (run 6 of the K4/K5 redesign, PERF.md section 6).
 MG_OLD_MS = {"multigrid_rollout": 0.4705, "learner_chunk": 0.0947,
              "multigrid_learner_chunk": 0.0730}
+# ms per 8192 x 64 call of K8/K9 in their previous design (one thread a
+# lane hashing, scanning and stepping, 64 blocks of 128), NVIDIA H100 80GB
+# HBM3 at 700 W (run 2 of the K3/K7 redesign, PERF.md section 6).
+IQL_OLD_MS = {("iql_packed_chunk", (5, 4)): 0.1465,
+              ("iql_packed_chunk", (11, 7)): 0.1202,
+              ("iql_chunk", (5, 4)): 0.1442, ("iql_chunk", (11, 7)): 0.1369}
+# K8/K9's second block size: a ragged last block at 8192 lanes.
+IQL_RAGGED_LANES = 96
 # K5 at the 5x4 contract's chunk (65536 lanes x 32 steps) beside the
 # flagship 8192 x 64; the second block sizes leave a ragged last block
 # (8192 / 96, 65536 / 480).
@@ -312,7 +325,8 @@ SYMBOL = {"fused_rollout": "14rollout_kernelILb0ELb1E",
           "multigrid_packed_learner_chunk": "learner_kernelILb1ELb1E",
           "learner_chunk": "12chunk_kernelILb0ELb1ELb0E",
           "multigrid_learner_chunk": "12chunk_kernelILb0ELb0ELb1E",
-          "iql_packed_chunk": "iql_kernelILb1E", "iql_chunk": "iql_kernelILb0E",
+          "iql_packed_chunk": "16iql_chunk_kernelILb1ELb1ELb1E",
+          "iql_chunk": "16iql_chunk_kernelILb0ELb1ELb1E",
           "parity_events": "parity_kernelILb0E",
           "parity_scripted_events": "parity_kernelILb1E",
           "alt_rollout": "18alt_rollout_kernelILb1E",
@@ -320,12 +334,16 @@ SYMBOL = {"fused_rollout": "14rollout_kernelILb0ELb1E",
           "altq_chunk": "11altq_kernelILb0E"}
 # K1/K2/K4 on a board whose table does not fit (11x7): the arithmetic
 # walk; K5 and K7 there: their prepared rows read from L2.  SYMBOL's are
-# the 5x4 kernels' (the kernels line's board).
+# the 5x4 kernels' (the kernels line's board); K8/K9 keep both boards'
+# prepared rows in shared memory, and on 11x7 add each visit to device
+# memory (its accumulators do not fit beside them).
 ARITH_SYMBOL = {"fused_rollout": "14rollout_kernelILb0ELb0E",
                 "fused_journal_rollout": "14rollout_kernelILb1ELb0E",
                 "alt_rollout": "18alt_rollout_kernelILb0E",
                 "packed_learner_chunk": "12chunk_kernelILb1ELb0ELb0E",
-                "learner_chunk": "12chunk_kernelILb0ELb0ELb0E"}
+                "learner_chunk": "12chunk_kernelILb0ELb0ELb0E",
+                "iql_packed_chunk": "16iql_chunk_kernelILb1ELb1ELb0E",
+                "iql_chunk": "16iql_chunk_kernelILb0ELb1ELb0E"}
 # H100 SXM peaks (NVIDIA's data sheet): 3.35 TB/s of HBM, and 67 TFLOP/s of
 # float32 outside the tensor cores, i.e. 3.35e13 FMA instructions a second
 # (132 SMs x 4 schedulers x 32 lanes x 1.98 GHz), the rate at which the
@@ -395,14 +413,20 @@ SHARED_STORE = re.compile(r"^(@!?U?P\d\s+)?STS(\.\S+)?\s")
 TWIST = (624, 312)
 TWISTING = (SYMBOL["parity_events"], SYMBOL["parity_scripted_events"])
 BARRIER_WAIT = re.compile(r"^(@!?U?P\d\s+)?BAR\.SYNC")
-# K1-K5 and K7 split a lane-step between two threads: a producer makes its
-# step code, one a trip of the innermost loop that stores codes to shared
-# memory, and the lane's consumer walks TILE_STEPS steps a trip of an
-# innermost loop that waits on a barrier for the tile (the table walk and
-# the arithmetic walk; csrc/step_kernel.cu kTileSteps, csrc/
-# learner_kernel.cu kTile).
+# fmix32's first multiplier, 0x85EBCA6B, as SASS writes it: every
+# producer's code loop hashes.
+HASH = re.compile(r"-0x7a143595|0x85ebca6b")
+# Accumulation atomics: to device memory (RED, ATOM) or to a block's own
+# accumulators in shared memory (ATOMS).
+ATOMIC = re.compile(r"(@!?U?P\d\s+)?(RED|ATOM)[GS]?\.")
+# K1-K5 and K7-K9 split a lane-step between two threads: a producer makes
+# its step code, one a trip of the innermost loop that stores codes to
+# shared memory, and the lane's consumer walks TILE_STEPS steps a trip of
+# an innermost loop that waits on a barrier for the tile (the table walk
+# and the arithmetic walk; csrc/step_kernel.cu kTileSteps, csrc/
+# learner_kernel.cu and csrc/iql_kernel.cu kTile).
 SPLIT = ("14rollout_kernelI", "18alt_rollout_kernelI", "17mg_rollout_kernel",
-         "12chunk_kernelI")
+         "12chunk_kernelI", "16iql_chunk_kernelI")
 TILE_STEPS = 8
 
 
@@ -416,10 +440,10 @@ def loop_instructions(text, names=None):
     the instructions every step (or event) issues whatever its data.  An
     if/else counts its shorter side, and a block that a branch may skip (a
     goal's reset, a collision's resolution) counts not at all, with one
-    exception: a branch that skips global atomics (RED, ATOM) is taken as
-    not taken.  Those blocks are the step's accumulation, which K5/K8/K9
-    skip only on a lane's first step, the one with no pending visit.  A
-    call counts as one instruction.
+    exception: a branch that skips atomics (RED, ATOM to device memory,
+    ATOMS to shared memory) is taken as not taken.  Those blocks are the
+    step's accumulation, which K5/K7-K9 skip only on a lane's first step,
+    the one with no pending visit.  A call counts as one instruction.
 
     K12 and K13 (``TWISTING``) rewrite each lane's 624-word MT19937 state
     in shared memory once every 312 events (``TWIST``), in loops nested in
@@ -427,12 +451,14 @@ def loop_instructions(text, names=None):
     fewest instructions per word of those loops (a nested loop's body over
     the shared-memory stores it makes).
 
-    K1-K5 and K7 (``SPLIT``) serve each lane-step from two loops,
+    K1-K5 and K7-K9 (``SPLIT``) serve each lane-step from two loops,
     neither nested in another: the count is the shortest way around the
     producers' (the innermost loop holding a shared-memory store: one step
     code a trip) plus the shortest way around the consumers' over
     TILE_STEPS (the innermost loops holding a barrier wait, the fewest of
-    them: a tile a trip)."""
+    them: a tile a trip).  A producer's loop hashes (``HASH``): a loop that
+    stores to shared memory without hashing (K8/K9 zeroing their private
+    accumulators) is no producer's."""
     kernels, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -478,8 +504,7 @@ def _trip(name, body):
     (address, op) pairs) to its back edge, inclusive: a breadth-first
     search in which every instruction weighs one."""
     at = {addr: i for i, (addr, _) in enumerate(body)}
-    atomic = [bool(re.match(r"(@!?U?P\d\s+)?(RED|ATOM)G?\.", op))
-              for _, op in body]
+    atomic = [bool(ATOMIC.match(op)) for _, op in body]
     dist = [math.inf] * len(body)
     dist[0], todo = 1, [0]
     for j in todo:
@@ -499,7 +524,8 @@ def _split_count(name, ins, loops):
     trips = {"producer": [], "consumer": []}
     for t, a in innermost:
         body = [(addr, op) for addr, op in ins if t <= addr <= a]
-        if any(SHARED_STORE.match(op) for _, op in body):
+        if any(SHARED_STORE.match(op) for _, op in body) and any(
+                HASH.search(op) for _, op in body):
             trips["producer"].append(_trip(name, body))
         elif any(BARRIER_WAIT.match(op) for _, op in body):
             trips["consumer"].append(_trip(name, body))
@@ -619,6 +645,13 @@ def main() -> int:
     check((k5_shape[0], k5_shape[1], k5_shape[2]) ==
           (lc.TILE_STEPS, lc.STAGES, lc.PRODUCER_WARPS),
           "K5/K7's ring differs from learner_codes'")
+    from gym_soccer_tpu_torch.ops import iql_codes as qc
+    from gym_soccer_tpu_torch.ops import iql_kernel as ik
+    k8_shape = (ctypes.c_int32 * 3)()
+    ik._library().gst_iql_shape(ctypes.addressof(k8_shape))
+    check((k8_shape[0], k8_shape[1], k8_shape[2]) ==
+          (TILE_STEPS, qc.STAGES, qc.PRODUCER_WARPS),
+          "K8/K9's ring differs from iql_codes' or the bound's tile")
     loops = {}
     for path in built.values():
         loops.update(sass_loop_instructions(
@@ -631,7 +664,7 @@ def main() -> int:
         per_step[name] = found[0]
     print(f"[build] SASS instructions per lane-step (K12/K13: lane-event, "
           f"with the MT19937 twist amortised over its {TWIST[1]} events; "
-          f"K1-K5, K7: a producer's code loop plus a consumer's tile loop "
+          f"K1-K5, K7-K9: a producer's code loop plus a consumer's tile loop "
           f"over its {TILE_STEPS} steps, 'arith' the walk of boards whose "
           f"table does not fit) on the shortest way around each kernel's "
           f"main loop (cuobjdump -sass): {per_step}")
@@ -833,7 +866,7 @@ def main() -> int:
     ms.update(parity_ms)
 
     iql_launches, iql_errs, iql_ms = iql_phases(torch, dev, card, cfgs,
-                                                batch)
+                                                batch, per_step, regs)
     launches.update(iql_launches)
     errs.update(iql_errs)
     ms.update(iql_ms)
@@ -1397,10 +1430,11 @@ def iql_inputs(torch, ik, cfg, B, dev, seed):
             ik.init_iql_state_fields(cfg, B, dev))
 
 
-def iql_phases(torch, dev, card, cfgs, batch):
+def iql_phases(torch, dev, card, cfgs, batch, per_step, regs):
     """Phases 18-21: the independent-Q path and kernels K8/K9.  Returns
     their launches on the IQL path, their max abs error against the plain
     versions, and the ms per call of both kernels and plain versions."""
+    from gym_soccer_tpu_torch.ops import iql_codes as qc
     from gym_soccer_tpu_torch.ops import iql_kernel as ik
     cfg = cfgs[(5, 4)]
     names = {True: "iql_packed_chunk", False: "iql_chunk"}
@@ -1443,13 +1477,23 @@ def iql_phases(torch, dev, card, cfgs, batch):
         for name in names.values():
             want = getattr(ik, name + "_plain")(c, 77, eps, table, fields, B,
                                                 T_K8, 0.99, 640)
-            for threads in (128, 256):
+            for lanes in (None, IQL_RAGGED_LANES):
                 e = chunk_err(getattr(ik, name)(c, 77, eps, table, fields, B,
-                                                T_K8, 0.99, 640, threads),
+                                                T_K8, 0.99, 640, lanes),
                               want)
                 errs[name] = max(errs[name], e)
-                check(e == 0, f"{name} != plain on {board}, threads "
-                      f"{threads}: max abs err {e}")
+                check(e == 0, f"{name} != plain on {board}, "
+                      f"{lanes or 'default'} lanes per block: max abs err "
+                      f"{e}")
+            # 512 lanes x 129 steps: more visits than a block's private
+            # accumulators take (2**16), added by device-memory atomics
+            long = [f[:1024] for f in fields]
+            check(chunk_err(
+                getattr(ik, name)(c, 6, eps, table, long, 1024, 129, 0.99, 3,
+                                  512),
+                getattr(ik, name + "_plain")(c, 6, eps, table, long, 1024, 129,
+                                             0.99, 3)) == 0,
+                f"{name} != plain on {board} at 512 lanes x 129 steps")
             small = [f[:256] for f in fields]
             check(chunk_err(
                 getattr(ik, name)(c, 5, eps, table, small, 256, 16, 0.99, 9),
@@ -1472,10 +1516,13 @@ def iql_phases(torch, dev, card, cfgs, batch):
         check(int(ca.sum()) == 2 * B * T_K8, "visit counts != 2 * B * T")
         print(f"[K8/K9] {board[0]}x{board[1]} B={B} T={T_K8} step offset "
               f"640: bit-equal to plain (fields, stats, counts, int64 sums; "
-              f"max abs err {errs}); threads 128/256 equal; K8 and K9 step "
-              "the same fields, stats and counts; B=256 T=16 equals the CPU "
-              "plain versions, and counts the same values out of range on "
-              "tables + nan and + 1e7")
+              f"max abs err {errs}) at the default lanes per block "
+              f"({qc.default_lanes(B)}) and {IQL_RAGGED_LANES} (ragged), and "
+              "at B=1024 T=129 at 512 lanes per block (device-memory "
+              "atomics); K8 and K9 step the same fields, stats and counts; "
+              "B=256 T=16 "
+              "equals the CPU plain versions, and counts the same values out "
+              "of range on tables + nan and + 1e7")
 
     # ---- 20. resume and learning on the card ---------------------------
     kw = dict(batch=B, chunk_len=T_K8, lr=0.5, eps=0.3, eps_halflife=64,
@@ -1537,18 +1584,46 @@ def iql_phases(torch, dev, card, cfgs, batch):
 
     # ---- 21. timing ----------------------------------------------------
     ms = {}
+    lanes = qc.default_lanes(B)
     for board, c in cfgs.items():
         table, fields = iql_inputs(torch, ik, c, B, dev, seed=board[0])
         for name in (*names.values(), *(n + "_plain" for n in names.values())):
             fn = getattr(ik, name)
             med, reps, legs = time_cuda(
                 lambda: fn(c, 77, eps, table, fields, B, T_K8, 0.99, 640))
-            if board == (5, 4):
-                ms[name] = med
+            ms[name, board] = med
             print(f"[time] {name} {board[0]}x{board[1]} B={B} T={T_K8}: "
                   f"{med} ms/call, {B * T_K8 / (med / 1e3)} learner "
                   f"env-steps/s (median of {len(legs)} legs x {reps} calls; "
                   f"legs ms/call {legs}) | {card}")
+        n = ik.n_codes(c)
+        shared = qc.shared_rows(c)
+        acc = qc.shared_acc(c, lanes, T_K8)
+        smem = qc.block_smem_bytes(c, lanes, T_K8)
+        check(ik._library().gst_iql_smem_bytes(lanes, n, T_K8) == smem,
+              "K8/K9's shared memory differs from iql_codes.smem_bytes")
+        offsets = (ctypes.c_longlong * 7)()
+        ik._library().gst_iql_layout(n, B, ctypes.addressof(offsets))
+        check(tuple(offsets) == tuple(qc.layout(n, B)),
+              "K8/K9's layout differs from iql_codes.layout")
+        for name in names.values():
+            sym = (SYMBOL if acc else ARITH_SYMBOL)[name]
+            key = name if acc else name + " arith"
+            reg = [r for k, r in regs.items() if sym in k]
+            now, old = ms[name, board], IQL_OLD_MS[name, board]
+            print(f"[design] {name} {board[0]}x{board[1]} B={B} T={T_K8} "
+                  f"(rows in {'shared memory' if shared else 'L2'}, "
+                  f"accumulators in "
+                  f"{'shared memory' if acc else 'device memory'}): {lanes} "
+                  f"lanes and {qc.PRODUCER_WARPS} producer warps a block "
+                  f"({-(-B // lanes)} blocks of "
+                  f"{lanes + 32 * qc.PRODUCER_WARPS} threads), {smem} B of "
+                  f"shared memory per block ({qc.row_bytes(n)} B of rows), "
+                  f"{reg} registers per thread; {per_step[key]} SASS per "
+                  f"lane-step, bound {bound(B * T_K8, per_step[key], 0)[0]} "
+                  f"ms; {now} ms/call against the previous design's {old} "
+                  f"ms ({old / now}x) | {card}")
+    ms = {name: t for (name, board), t in ms.items() if board == (5, 4)}
     wide = 32768
     table, fields = iql_inputs(torch, ik, cfg, wide, dev, seed=5)
     med, reps, legs = time_cuda(lambda: ik.iql_packed_chunk(
@@ -1557,10 +1632,11 @@ def iql_phases(torch, dev, card, cfgs, batch):
           f"{wide * T_K8 / (med / 1e3)} learner env-steps/s (median of "
           f"{len(legs)} legs x {reps} calls) | {card}")
     table, fields = iql_inputs(torch, ik, cfg, B, dev, seed=5)
-    for name in names.values():
+    for packed, name in names.items():
         profile_window(torch, lambda: getattr(ik, name)(
             cfg, 77, eps, table, fields, B, T_K8, 0.99, 640),
-            f"{name} 5x4 B={B} T={T_K8}", "iql_kernel", card)
+            f"{name} 5x4 B={B} T={T_K8}",
+            f"iql_chunk_kernel<{str(packed).lower()}", card)
     return launches, errs, ms
 
 

@@ -32,10 +32,11 @@ addition; ``unpack_iql_acc2``/``unpack_iql_acc`` convert them to float32
 per dense state.
 
 A wrapper runs the plain PyTorch version when its tensors lie on the CPU
-and launches the kernel (``csrc/iql_kernel.cu``) when they lie on a CUDA
-device; there is no fallback from one to the other.  The chunk wrappers
-take their device from their tensors; ``fused_iql_train`` and
-``init_iql_state_fields`` default to "cuda": CPU callers pass "cpu".
+and launches the kernel (``csrc/iql_kernel.cu``, its two stages twinned in
+``ops/iql_codes.py``) when they lie on a CUDA device; there is no fallback
+from one to the other.  The chunk wrappers take their device from their
+tensors; ``fused_iql_train`` and ``init_iql_state_fields`` default to
+"cuda": CPU callers pass "cpu".
 
 Not ported: data parallelism (``mesh``) and grouped dispatches
 (``chunks_per_dispatch`` > 1); the trainer raises NotImplementedError for
@@ -247,7 +248,7 @@ def _chunk(packed: bool, cfg, seed, eps_int, table, fields, batch, n_steps,
 
 def iql_packed_chunk(cfg: EnvConfig, seed: int, eps_int: int, table, fields,
                      batch: int, n_steps: int, gamma: float = 0.99,
-                     step_offset: int = 0, threads: int = 128):
+                     step_offset: int = 0, threads=None):
     """Run one fused IQL chunk with residual accumulation (kernel K8).
 
     ``table``: float32 [n_codes, 10] from ``pack_iql_table``; ``fields``:
@@ -262,12 +263,17 @@ def iql_packed_chunk(cfg: EnvConfig, seed: int, eps_int: int, table, fields,
     int64 totals.  The sums are exact when ``out_of_range``, the number of
     values outside +-``value_limit(batch, n_steps)`` or not finite, is 0
     (always while max|q| <= 0.5); it is counted on the device, so the call
-    does not wait for the chunk.  ``threads`` is the CUDA block size (a
-    multiple of 32); it does not change the result.
+    does not wait for the chunk.  ``threads`` is the kernel's lanes per
+    block: a multiple of 32 in [32, 512], by default the fewest that keep
+    the grid to one wave of 132 blocks (``iql_codes.check_lanes``: 64 at
+    8192 lanes, 512 at 65536; ValueError otherwise, on any device); it does
+    not change the result.  On the card the outputs are views of one
+    allocation.
 
     On a CPU device this runs ``iql_packed_chunk_plain``; on a CUDA device
     it launches the K8 kernel.
     """
+    threads = _check_lanes(batch, threads)
     return _chunk(True, cfg, seed, eps_int, table, fields, batch, n_steps,
                   gamma, step_offset, threads, plain=False)
 
@@ -282,15 +288,17 @@ def iql_packed_chunk_plain(cfg: EnvConfig, seed: int, eps_int: int, table,
 
 def iql_chunk(cfg: EnvConfig, seed: int, eps_int: int, table, fields,
               batch: int, n_steps: int, gamma: float = 0.99,
-              step_offset: int = 0, threads: int = 128):
+              step_offset: int = 0, threads=None):
     """``iql_packed_chunk`` accumulating the full TD sums
     r + cont * max q(s') - q(s, a) (kernel K9; decode with
     ``unpack_iql_acc``).  The fields, stats and counts equal
-    ``iql_packed_chunk``'s for the same arguments.
+    ``iql_packed_chunk``'s for the same arguments; ``threads`` is the
+    kernel's lanes per block, as there.
 
     On a CPU device this runs ``iql_chunk_plain``; on a CUDA device it
     launches the K9 kernel.
     """
+    threads = _check_lanes(batch, threads)
     return _chunk(False, cfg, seed, eps_int, table, fields, batch, n_steps,
                   gamma, step_offset, threads, plain=False)
 
@@ -303,51 +311,77 @@ def iql_chunk_plain(cfg: EnvConfig, seed: int, eps_int: int, table, fields,
                   gamma, step_offset, None, plain=True)
 
 
+def _check_lanes(batch: int, threads) -> int:
+    from . import iql_codes
+    return iql_codes.check_lanes(batch, threads)
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
-    """The built kernel library with its C signature declared."""
+    """The built kernel library with its C signatures declared."""
     from . import _build
-    lib = _build.load("iql_kernel")
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    return declare(_build.load("iql_kernel"))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a build of ``csrc/iql_kernel.cu``."""
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.gst_iql_chunk.argtypes = [
-        i32, vp, vp, vp, vp, vp, vp,   # device, in, out, table, sums, cnt, stats
-        vp, i32, i32, ctypes.c_uint32, i32, i32, ctypes.c_float, ctypes.c_float,
-        i32, i32, vp]
-    #    params, B, T, seed, eps_int, step_offset, gamma, limit, packed,
-    #    threads, stream
+        i32, vp, vp, vp, vp, i32, i32, i32, ctypes.c_uint32, i32, i32, f32,
+        f32, i32, i32, vp]
+    #    device, in, buf, table, params, n_codes, B, T, seed, eps_int,
+    #    step_offset, gamma, limit, packed, lanes, stream
     lib.gst_iql_chunk.restype = i32
+    lib.gst_iql_layout.argtypes = [i32, i32, vp]
+    lib.gst_iql_layout.restype = None
+    lib.gst_iql_smem_bytes.argtypes = [i32, i32, i32]
+    lib.gst_iql_smem_bytes.restype = i32
+    lib.gst_iql_shape.argtypes = [vp]
+    lib.gst_iql_shape.restype = None
     lib.gst_error_string.argtypes = [i32]
     lib.gst_error_string.restype = ctypes.c_char_p
     return lib
 
 
+@functools.lru_cache(maxsize=16)
+def _host(cfg: EnvConfig):
+    """(cached per board) The game description and the number of codes."""
+    return sk._game_params(cfg), n_codes(cfg)
+
+
 def _launch(packed: bool, cfg: EnvConfig, seed: int, eps_int: int, table,
             fields, n_steps: int, gamma: float, step_offset: int,
-            threads: int):
+            lanes: int):
+    """Launch K8 or K9 at ``lanes`` lanes per block.  Its outputs (the six
+    planes, the sums, the counts and the stats) and the prep pass's rows
+    are one allocation, zeroed where it sums by one memset in the
+    launch."""
+    from . import iql_codes
     name = "iql_packed_chunk" if packed else "iql_chunk"
     dev = table.device
-    sk.check_threads(name, dev, threads)
-    lib = _library()
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    params, n = _host(cfg)
     B = fields[0].shape[0]
-    out = tuple(torch.empty_like(f) for f in fields)
-    sums = torch.zeros((n_codes(cfg), IQL_COLS), dtype=torch.int64,
-                       device=dev)
-    cnt = torch.zeros((n_codes(cfg), IQL_COLS), dtype=torch.int32, device=dev)
-    stats = torch.zeros(4, dtype=torch.int64, device=dev)
-    in_ptrs, out_ptrs = sk.ptr_array(fields), sk.ptr_array(out)
-    params = sk._game_params(cfg)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.gst_iql_chunk(
-        dev.index, ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs),
-        table.data_ptr(), sums.data_ptr(), cnt.data_ptr(), stats.data_ptr(),
-        ctypes.addressof(params), B, n_steps, seed & sk.M32, eps_int,
-        step_offset, float(np.float32(gamma)), value_limit(B, n_steps),
-        int(packed), threads, stream)
+    lay = iql_codes.layout(n, B)
+    b64 = torch.empty(lay.total // 8, dtype=torch.int64, device=dev)
+    in_ptrs = sk.ptr_array(fields)
+    rc = _library().gst_iql_chunk(
+        dev.index, ctypes.addressof(in_ptrs), b64.data_ptr(),
+        table.data_ptr(), ctypes.addressof(params), n, B, n_steps,
+        seed & sk.M32, eps_int, step_offset, lk._f32(gamma),
+        value_limit(B, n_steps), int(packed), lanes,
+        torch._C._cuda_getCurrentRawStream(dev.index))
     if rc:
         raise RuntimeError(f"{name}: kernel launch failed: "
-                           f"{lib.gst_error_string(rc).decode()} ({rc})")
+                           f"{_library().gst_error_string(rc).decode()} "
+                           f"({rc})")
     launch_counts[name] += 1
-    return out, (sums, cnt), tuple(stats.unbind())
+    b32 = b64.view(torch.int32)
+    return (b32.as_strided((6, B), (B, 1), lay.fields // 4).unbind(0),
+            (b64.as_strided((n, IQL_COLS), (IQL_COLS, 1), 0),
+             b32.as_strided((n, IQL_COLS), (IQL_COLS, 1), lay.cnt // 4)),
+            b64.as_strided((4,), (1,), lay.stats // 8).unbind())
 
 
 # ----------------------------------------------------------------------

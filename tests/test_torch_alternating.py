@@ -15,6 +15,8 @@ Tolerances:
 
 K4 is held against ``alt_rollout_plain`` on the card by chip_smoke.py and
 tests/test_torch_cuda.py."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +34,11 @@ from gym_soccer_tpu_torch.core.tables import build_isd
 from gym_soccer_tpu_torch.envs import SoccerAlternatingEnv
 from gym_soccer_tpu_torch.envs import soccer_alternating_env as alt
 from gym_soccer_tpu_torch.ops import step_kernel as sk
+
+# One torch intra-op thread in each xdist worker: the workers share the
+# machine's cores, and a default-sized pool in each oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 TABLE_FIELDS = ("raw_to_dense", "dense_to_raw", "fields", "turn", "t_prob",
                 "t_next_dense", "t_reward", "t_done")

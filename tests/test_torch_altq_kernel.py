@@ -25,6 +25,8 @@ Tolerances:
 
 K10/K11 are held against the plain versions on the card by chip_smoke.py
 and tests/test_torch_cuda.py."""
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -40,6 +42,11 @@ from gym_soccer_tpu_torch.envs.soccer_alternating_env import build_alt_tables
 from gym_soccer_tpu_torch.ops import altq_kernel as ak
 from gym_soccer_tpu_torch.ops import iql_kernel as ik
 from gym_soccer_tpu_torch.ops import learner_kernel as lk
+
+# One torch intra-op thread in each xdist worker: the workers share the
+# machine's cores, and a default-sized pool in each oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 CFG, JCFG = EnvConfig(5, 4, 0.2), JaxConfig(5, 4, 0.2)
 NS = 1521

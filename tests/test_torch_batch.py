@@ -3,6 +3,8 @@ JAX package's with ``rng="counter"``, from the same state: the JAX state is
 carried over by ``interop`` and actions come from numpy.  Tolerance: zero,
 for every field including the float32 rewards and transition
 probabilities (the counter RNG and every threshold are exact)."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +16,11 @@ from gym_soccer_tpu.core import batch as jbatch
 from gym_soccer_tpu_torch import interop
 from gym_soccer_tpu_torch.config import EnvConfig
 from gym_soccer_tpu_torch.core import batch
+
+# One torch intra-op thread in each xdist worker: the workers share the
+# machine's cores, and a default-sized pool in each oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 B = 1024
 BOARDS = [(5, 4, 0.2), (11, 7, 0.2), (6, 5, 0.1)]

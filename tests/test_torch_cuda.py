@@ -5,11 +5,18 @@ PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import os
+
 import pytest
 import torch
 
 from gym_soccer_tpu_torch.config import EnvConfig
 from gym_soccer_tpu_torch.ops import step_kernel as sk
+
+# One torch intra-op thread in each xdist worker: the workers share the
+# machine's cores, and a default-sized pool in each oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 BOARDS = [(5, 4), (11, 7)]
 
@@ -368,9 +375,11 @@ def _iql_inputs(cfg, B, device, seed=1):
 @pytest.mark.parametrize("board", BOARDS)
 def test_iql_kernels_equal_plain_versions(cuda, board):
     """K8 and K9 equal their plain versions bit for bit (fields, stats,
-    counts and the int64 sums) for two block sizes with a step offset; K8
-    and K9 step the same fields, stats and counts; on a small input the
-    kernels equal the plain versions run on the CPU."""
+    counts and the int64 sums) at the default lanes per block and at 96 (a
+    ragged last block) with a step offset, and at 512 lanes x 129 steps
+    (device-memory atomics); K8 and K9 step the same fields, stats and
+    counts; on a small input the kernels equal the plain versions run on
+    the CPU."""
     from gym_soccer_tpu_torch.ops import iql_kernel as ik
     cfg = EnvConfig(width=board[0], height=board[1], slip_prob=0.2)
     B, T, eps = 2048, 32, 19661
@@ -380,15 +389,19 @@ def test_iql_kernels_equal_plain_versions(cuda, board):
     for name in ("iql_packed_chunk", "iql_chunk"):
         kernel, plain = getattr(ik, name), getattr(ik, name + "_plain")
         want = plain(cfg, 5, eps, table, fields, B, T, 0.99, 7)
-        for threads in (128, 256):
-            got = kernel(cfg, 5, eps, table, fields, B, T, 0.99, 7, threads)
+        for lanes in (None, 96):
+            got = kernel(cfg, 5, eps, table, fields, B, T, 0.99, 7, lanes)
             assert _same_chunk(got, want)
+        # past a block's private accumulators (512 lanes x 129 steps)
+        assert _same_chunk(
+            kernel(cfg, 6, eps, table, fields, B, 129, 0.99, 3, 512),
+            plain(cfg, 6, eps, table, fields, B, 129, 0.99, 3))
         cpu = kernel(cfg, 5, eps, table.cpu(), [f.cpu() for f in fields], B,
                      8, 0.99, 7)
         assert _same_chunk(kernel(cfg, 5, eps, table, fields, B, 8, 0.99, 7),
                            cpu)
         runs[name] = want
-    assert ik.launch_counts == {"iql_packed_chunk": 3, "iql_chunk": 3}
+    assert ik.launch_counts == {"iql_packed_chunk": 4, "iql_chunk": 4}
     (fa, (_, ca), sa), (fb, (_, cb), sb) = runs.values()
     assert all(torch.equal(x, y) for x, y in zip(fa, fb))
     assert torch.equal(ca, cb) and _ints(sa) == _ints(sb)

@@ -9,6 +9,7 @@ within 1e-5 (float32 value iteration, summed in another order); Shapley
 V within 1e-4 (the RM+ solve inside each sweep amplifies one-ulp
 differences of the backup)."""
 import dataclasses
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +24,11 @@ from gym_soccer_tpu_torch.agents import evaluation as ev
 from gym_soccer_tpu_torch.agents.learners import solve_matrix_games
 from gym_soccer_tpu_torch.config import EnvConfig
 from gym_soccer_tpu_torch.core import tables
+
+# One torch intra-op thread in each xdist worker: the workers share the
+# machine's cores, and a default-sized pool in each oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 CFG, JCFG = EnvConfig(5, 4, 0.2), JaxConfig(5, 4, 0.2)
 NS = 761

@@ -1,12 +1,18 @@
 """The port imports neither JAX nor the JAX package, builds nothing at
 import, and refuses a CUDA device where there is none."""
 import inspect
+import os
 import subprocess
 import sys
 from pathlib import Path
 
 import pytest
 import torch
+
+# One torch intra-op thread in each xdist worker: the workers share the
+# machine's cores, and a default-sized pool in each oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -26,6 +32,8 @@ MODULES = ["gym_soccer_tpu_torch", "gym_soccer_tpu_torch.config",
            "gym_soccer_tpu_torch.ops.rollout_variants",
            "gym_soccer_tpu_torch.ops.learner_codes",
            "gym_soccer_tpu_torch.ops.learner_variants",
+           "gym_soccer_tpu_torch.ops.iql_codes",
+           "gym_soccer_tpu_torch.ops.iql_variants",
            "gym_soccer_tpu_torch.ops.altq_kernel",
            "gym_soccer_tpu_torch.spaces",
            "gym_soccer_tpu_torch.envs",

@@ -20,6 +20,8 @@ Tolerances:
 
 The K8/K9 kernels are held against the plain versions on the card by
 chip_smoke.py and tests/test_torch_cuda.py."""
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +32,11 @@ from gym_soccer_tpu.ops import iql_kernel as jik
 from gym_soccer_tpu_torch import interop
 from gym_soccer_tpu_torch.config import EnvConfig
 from gym_soccer_tpu_torch.ops import iql_kernel as ik
+
+# One torch intra-op thread in each xdist worker: the workers share the
+# machine's cores, and a default-sized pool in each oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 CFG, JCFG = EnvConfig(5, 4, 0.2), JaxConfig(5, 4, 0.2)
 NS = 761

@@ -7,6 +7,8 @@ interpret mode (fields, stats and counts exactly; the sums within the bf16
 tolerance of ``tests/test_torch_learner_kernel.py``, since JAX rounds each
 visit to bfloat16); the prepared rows, their shared memory, the layout of
 the one allocation and the lanes per block."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,11 @@ from gym_soccer_tpu_torch.ops import learner_codes as lc
 from gym_soccer_tpu_torch.ops import learner_kernel as lk
 from gym_soccer_tpu_torch.ops import learner_variants
 from gym_soccer_tpu_torch.ops import rollout_codes as rc
+
+# One torch intra-op thread in each xdist worker: the workers share the
+# machine's cores, and a default-sized pool in each oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 jax_pack = jax.jit(jlk.pack_m2, static_argnums=(0,))
 

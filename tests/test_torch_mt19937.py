@@ -13,6 +13,11 @@ from gym_soccer_tpu.core import mt19937 as jmt
 from gym_soccer_tpu.core import parity as jparity
 from gym_soccer_tpu_torch.core import mt19937, parity
 
+# One torch intra-op thread in each xdist worker: the workers share the
+# machine's cores, and a default-sized pool in each oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 SEEDS = np.asarray([0, 1, 7, 42, 2**31 - 1, 2**32 - 1], np.uint32)
 
 

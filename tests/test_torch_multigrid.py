@@ -20,6 +20,8 @@ Tolerances:
 
 The K3 and K6 kernels are held against these plain versions on the card
 by chip_smoke.py and tests/test_torch_cuda.py."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +37,11 @@ from gym_soccer_tpu_torch.config import EnvConfig
 from gym_soccer_tpu_torch.core import multigrid as mg
 from gym_soccer_tpu_torch.ops import learner_kernel as lk
 from gym_soccer_tpu_torch.ops import step_kernel as sk
+
+# One torch intra-op thread in each xdist worker: the workers share the
+# machine's cores, and a default-sized pool in each oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 MIX3 = ((5, 4, 0.2), (6, 5, 0.1), (8, 6, 0.3))   # tools/bench_all.py:421
 MIX_BIG = ((5, 4, 0.2), (11, 7, 0.2))

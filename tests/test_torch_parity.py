@@ -19,6 +19,11 @@ from gym_soccer_tpu.core import parity as jparity
 from gym_soccer_tpu_torch.config import EnvConfig
 from gym_soccer_tpu_torch.core import mt19937, parity, rules, tables
 
+# One torch intra-op thread in each xdist worker: the workers share the
+# machine's cores, and a default-sized pool in each oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
+
 with open(os.path.join(os.path.dirname(__file__), "golden",
                        "reference_golden.json")) as f:
     GOLD = json.load(f)

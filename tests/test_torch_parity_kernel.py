@@ -4,6 +4,7 @@ outputs, which on the CPU are the plain versions, against the Pallas
 kernel run in interpret mode.  Tolerance 0: journals and final fields are
 int32 and compared for equality."""
 import functools
+import os
 
 import jax
 import numpy as np
@@ -16,6 +17,11 @@ from gym_soccer_tpu.ops import parity_kernel as jpk
 from gym_soccer_tpu_torch.config import EnvConfig
 from gym_soccer_tpu_torch.core import parity, rules, tables
 from gym_soccer_tpu_torch.ops import parity_kernel as pk
+
+# One torch intra-op thread in each xdist worker: the workers share the
+# machine's cores, and a default-sized pool in each oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 B = 128
 

@@ -2,6 +2,8 @@
 closed_tables) against the JAX package's parity tables and pattern-code
 classes, and its shared-memory budget.  Tolerance 0: every entry is an
 integer or a float64 compared for equality."""
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -13,6 +15,11 @@ from gym_soccer_tpu.ops import parity_kernel as jpk
 from gym_soccer_tpu_torch.config import EnvConfig
 from gym_soccer_tpu_torch.ops import parity_kernel as pk
 from gym_soccer_tpu_torch.ops import parity_variants
+
+# One torch intra-op thread in each xdist worker: the workers share the
+# machine's cores, and a default-sized pool in each oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 CASES = {"5x4-0.2": EnvConfig(5, 4, 0.2), "5x4-0.0": EnvConfig(5, 4, 0.0),
          "7x5-0.3": EnvConfig(7, 5, 0.3)}

@@ -6,6 +6,8 @@ interpret mode; the step table held to the JAX package's
 ``transition_core`` for every walkable state and all 100 inputs; the
 constant-divisor ISD pick and the effective moves.  Tolerance: exact
 equality throughout, since every operation is integer."""
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +21,11 @@ from gym_soccer_tpu_torch.core import rules
 from gym_soccer_tpu_torch.ops import rollout_codes as rc
 from gym_soccer_tpu_torch.ops import rollout_variants
 from gym_soccer_tpu_torch.ops import step_kernel as sk
+
+# One torch intra-op thread in each xdist worker: the workers share the
+# machine's cores, and a default-sized pool in each oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 B, T = 1024, 64
 BOARDS = [(5, 4), (11, 7)]

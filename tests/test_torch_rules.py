@@ -2,6 +2,8 @@
 tensors) against the JAX package's (run on jax.numpy), on the same
 numpy-seeded random states and actions.  Tolerance: exact equality, for
 the integer outputs and for the float32 outcome weights alike."""
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,6 +13,11 @@ from gym_soccer_tpu.config import EnvConfig as JaxConfig
 from gym_soccer_tpu.core import rules as jrules
 from gym_soccer_tpu_torch.config import EnvConfig
 from gym_soccer_tpu_torch.core import rules
+
+# One torch intra-op thread in each xdist worker: the workers share the
+# machine's cores, and a default-sized pool in each oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 BOARDS = [(5, 4), (11, 7)]
 N = 4096

@@ -5,6 +5,8 @@ and ``pallas_rollout``/``pallas_journal_rollout`` in interpret mode
 (stats).  Tolerance: exact equality throughout, since every operation is
 integer.  The CUDA kernels are held against these plain versions on the
 card by chip_smoke.py and tests/test_torch_cuda.py."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,11 @@ from gym_soccer_tpu.ops import step_kernel as jsk
 from gym_soccer_tpu_torch import interop
 from gym_soccer_tpu_torch.config import EnvConfig
 from gym_soccer_tpu_torch.ops import step_kernel as sk
+
+# One torch intra-op thread in each xdist worker: the workers share the
+# machine's cores, and a default-sized pool in each oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 B = 1024
 BOARDS = [(5, 4), (11, 7)]

@@ -1,12 +1,20 @@
 """The port's host tables (numpy copies) are byte-equal to the JAX
 package's on the 5x4 and 11x7 boards."""
+import os
+
 import numpy as np
 import pytest
+import torch
 
 from gym_soccer_tpu.config import EnvConfig as JaxConfig
 from gym_soccer_tpu.core import tables as jtables
 from gym_soccer_tpu_torch.config import EnvConfig
 from gym_soccer_tpu_torch.core import tables
+
+# One torch intra-op thread in each xdist worker: the workers share the
+# machine's cores, and a default-sized pool in each oversubscribes them.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 BOARDS = [(5, 4, 0.2), (11, 7, 0.2), (5, 4, 0.0)]
 
