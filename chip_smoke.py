@@ -29,7 +29,7 @@ failure:
    per library, in parallel; for each kernel's bound, cuobjdump's SASS
    gives the fewest instructions one step (or event) of its main loop
    issues (``loop_instructions``; K12/K13's MT19937 twist amortised over
-   the 312 events between twists; K1-K5 and K7-K9's producer code loop
+   the 312 events between twists; K1-K5 and K7-K11's producer code loop
    plus their consumer tile loop over its 8 steps);
 3. main path: the user entry points at 8192 lanes, with the kernels'
    launch counters reset before and read after; outputs are checked by
@@ -170,8 +170,12 @@ failure:
     1024 x 64 equal to the plain version run on the CPU;
 29. K10/K11: bit-equal to their plain versions (fields, stats with the
     out-of-range count, counts, int64 sums) at 8192 x 64 on 5x4 and 11x7
-    for two block sizes, on Q tables with near-ties and a step offset; K10
-    and K11 step the same trajectories; at 256 x 16 equal to the plain
+    at 64 lanes per block (the default), 96 (a ragged last block) and 32,
+    on Q tables with near-ties and a step offset; a chunk split by
+    ``step_offset`` equals one chunk; lanes in goal states, a few steps
+    before truncation or with turn 2 (walked by arithmetic) equal the
+    plain version; at the gate's 65536 x 32 on 5x4 (512 lanes per block);
+    K10 and K11 step the same trajectories; at 256 x 16 equal to the plain
     versions run on the CPU, and counting the same values out of range on
     tables that hold nan or 1e7;
 30. resume and the gate: 2 chunks equal 1 + 1 through the resume dict,
@@ -183,10 +187,12 @@ failure:
     random policy (``alt_policy_rollout``, 256 lanes x 300 steps, seed 6);
     wall time split into chunk calls and the work between them;
 31. timing: K4 at 8192 x 1024 and K10/K11 at 8192 x 64, on 5x4 and 11x7,
-    each against its plain version; K4's design line per board (walk,
-    block shape, shared memory, registers, SASS per lane-step, bound, the
-    previous design's ms) and ``torch.profiler`` windows of K4 (both
-    boards) and K10 for device time and idle share.
+    each against its plain version; K4's and K10/K11's design lines per
+    board (walk, block shape, shared memory, registers, SASS per
+    lane-step, bound; K4's previous design's ms, and K10/K11's device time
+    by CUDA-graph replay beside their previous design's) and
+    ``torch.profiler`` windows of K4 (both boards) and K10 for device time
+    and idle share.
 
 The second-to-last lines are the kernels' JSON record (with each
 kernel's bound: the larger of its bytes over the HBM rate and its SASS
@@ -277,6 +283,18 @@ MG_RECIPE = dict(batch=16384, n_chunks=312, chunk_len=64, lr=1.0, eps=0.2,
 MG_EXPLOITABILITY = (0.05, 0.08)
 T_K4 = 1024
 T_K10 = 64
+# K10/K11's second block size (a ragged last block at 8192 lanes) and the
+# alternating gate's chunk (ALT_RECIPE's 65536 lanes x 32 steps).
+ALTQ_RAGGED_LANES = 96
+B_GATE, T_GATE = 65536, 32
+# Device ms (CUDA-graph replay: memset and kernel) of an 8192 x 64 call of
+# K10/K11 in their previous design (one thread a lane hashing, scanning and
+# stepping, 64 blocks of 128), NVIDIA H100 80GB HBM3 at 700 W
+# (ops/altq_variants.py in run 7 of the K10/K11 redesign, PERF.md section 6).
+ALTQ_OLD_DEVICE_MS = {("altq_packed_chunk", (5, 4)): 0.0577,
+                      ("altq_packed_chunk", (11, 7)): 0.0672,
+                      ("altq_chunk", (5, 4)): 0.0570,
+                      ("altq_chunk", (11, 7)): 0.0667}
 # tests/test_altq_kernel.py:199-220 (test_altq_convergence_tpu)
 ALT_RECIPE = dict(batch=65536, n_chunks=400, chunk_len=32, lr=1.0, eps=0.25,
                   eps_min=0.1, eps_halflife=300_000, lr_anneal_start=200,
@@ -330,20 +348,24 @@ SYMBOL = {"fused_rollout": "14rollout_kernelILb0ELb1E",
           "parity_events": "parity_kernelILb0E",
           "parity_scripted_events": "parity_kernelILb1E",
           "alt_rollout": "18alt_rollout_kernelILb1E",
-          "altq_packed_chunk": "11altq_kernelILb1E",
-          "altq_chunk": "11altq_kernelILb0E"}
+          "altq_packed_chunk": "17altq_chunk_kernelILb1ELb1ELb1ELb1E",
+          "altq_chunk": "17altq_chunk_kernelILb0ELb1ELb1ELb1E"}
 # K1/K2/K4 on a board whose table does not fit (11x7): the arithmetic
 # walk; K5 and K7 there: their prepared rows read from L2.  SYMBOL's are
 # the 5x4 kernels' (the kernels line's board); K8/K9 keep both boards'
 # prepared rows in shared memory, and on 11x7 add each visit to device
-# memory (its accumulators do not fit beside them).
+# memory (its accumulators do not fit beside them); K10/K11 on 5x4 walk
+# K4's tick table beside their rows and private accumulators, and on 11x7
+# walk by arithmetic beside their rows, adding to device memory.
 ARITH_SYMBOL = {"fused_rollout": "14rollout_kernelILb0ELb0E",
                 "fused_journal_rollout": "14rollout_kernelILb1ELb0E",
                 "alt_rollout": "18alt_rollout_kernelILb0E",
                 "packed_learner_chunk": "12chunk_kernelILb1ELb0ELb0E",
                 "learner_chunk": "12chunk_kernelILb0ELb0ELb0E",
                 "iql_packed_chunk": "16iql_chunk_kernelILb1ELb1ELb0E",
-                "iql_chunk": "16iql_chunk_kernelILb0ELb1ELb0E"}
+                "iql_chunk": "16iql_chunk_kernelILb0ELb1ELb0E",
+                "altq_packed_chunk": "17altq_chunk_kernelILb1ELb0ELb1ELb0E",
+                "altq_chunk": "17altq_chunk_kernelILb0ELb0ELb1ELb0E"}
 # H100 SXM peaks (NVIDIA's data sheet): 3.35 TB/s of HBM, and 67 TFLOP/s of
 # float32 outside the tensor cores, i.e. 3.35e13 FMA instructions a second
 # (132 SMs x 4 schedulers x 32 lanes x 1.98 GHz), the rate at which the
@@ -419,14 +441,14 @@ HASH = re.compile(r"-0x7a143595|0x85ebca6b")
 # Accumulation atomics: to device memory (RED, ATOM) or to a block's own
 # accumulators in shared memory (ATOMS).
 ATOMIC = re.compile(r"(@!?U?P\d\s+)?(RED|ATOM)[GS]?\.")
-# K1-K5 and K7-K9 split a lane-step between two threads: a producer makes
+# K1-K5 and K7-K11 split a lane-step between two threads: a producer makes
 # its step code, one a trip of the innermost loop that stores codes to
 # shared memory, and the lane's consumer walks TILE_STEPS steps a trip of
 # an innermost loop that waits on a barrier for the tile (the table walk
 # and the arithmetic walk; csrc/step_kernel.cu kTileSteps, csrc/
-# learner_kernel.cu and csrc/iql_kernel.cu kTile).
+# learner_kernel.cu, csrc/iql_kernel.cu and csrc/altq_kernel.cu kTile).
 SPLIT = ("14rollout_kernelI", "18alt_rollout_kernelI", "17mg_rollout_kernel",
-         "12chunk_kernelI", "16iql_chunk_kernelI")
+         "12chunk_kernelI", "16iql_chunk_kernelI", "17altq_chunk_kernelI")
 TILE_STEPS = 8
 
 
@@ -442,7 +464,7 @@ def loop_instructions(text, names=None):
     goal's reset, a collision's resolution) counts not at all, with one
     exception: a branch that skips atomics (RED, ATOM to device memory,
     ATOMS to shared memory) is taken as not taken.  Those blocks are the
-    step's accumulation, which K5/K7-K9 skip only on a lane's first step,
+    step's accumulation, which K5/K7-K11 skip only on a lane's first step,
     the one with no pending visit.  A call counts as one instruction.
 
     K12 and K13 (``TWISTING``) rewrite each lane's 624-word MT19937 state
@@ -451,13 +473,13 @@ def loop_instructions(text, names=None):
     fewest instructions per word of those loops (a nested loop's body over
     the shared-memory stores it makes).
 
-    K1-K5 and K7-K9 (``SPLIT``) serve each lane-step from two loops,
+    K1-K5 and K7-K11 (``SPLIT``) serve each lane-step from two loops,
     neither nested in another: the count is the shortest way around the
     producers' (the innermost loop holding a shared-memory store: one step
     code a trip) plus the shortest way around the consumers' over
     TILE_STEPS (the innermost loops holding a barrier wait, the fewest of
     them: a tile a trip).  A producer's loop hashes (``HASH``): a loop that
-    stores to shared memory without hashing (K8/K9 zeroing their private
+    stores to shared memory without hashing (K8-K11 zeroing their private
     accumulators) is no producer's."""
     kernels, name = {}, None
     for line in text.splitlines():
@@ -652,6 +674,13 @@ def main() -> int:
     check((k8_shape[0], k8_shape[1], k8_shape[2]) ==
           (TILE_STEPS, qc.STAGES, qc.PRODUCER_WARPS),
           "K8/K9's ring differs from iql_codes' or the bound's tile")
+    from gym_soccer_tpu_torch.ops import altq_codes as ac
+    from gym_soccer_tpu_torch.ops import altq_kernel as ak
+    k10_shape = (ctypes.c_int32 * 3)()
+    ak._library().gst_altq_shape(ctypes.addressof(k10_shape))
+    check((k10_shape[0], k10_shape[1], k10_shape[2]) ==
+          (TILE_STEPS, ac.STAGES, ac.PRODUCER_WARPS),
+          "K10/K11's ring differs from altq_codes' or the bound's tile")
     loops = {}
     for path in built.values():
         loops.update(sass_loop_instructions(
@@ -664,7 +693,7 @@ def main() -> int:
         per_step[name] = found[0]
     print(f"[build] SASS instructions per lane-step (K12/K13: lane-event, "
           f"with the MT19937 twist amortised over its {TWIST[1]} events; "
-          f"K1-K5, K7-K9: a producer's code loop plus a consumer's tile loop "
+          f"K1-K5, K7-K11: a producer's code loop plus a consumer's tile loop "
           f"over its {TILE_STEPS} steps, 'arith' the walk of boards whose "
           f"table does not fit) on the shortest way around each kernel's "
           f"main loop (cuobjdump -sass): {per_step}")
@@ -2017,7 +2046,9 @@ def alt_phases(torch, dev, card, cfgs, per_step, regs):
     import numpy as np
     from gym_soccer_tpu_torch.agents.learners import altq_greedy_policy
     from gym_soccer_tpu_torch.envs import soccer_alternating_env as alt
+    from gym_soccer_tpu_torch.ops import altq_codes as ac
     from gym_soccer_tpu_torch.ops import altq_kernel as ak
+    from gym_soccer_tpu_torch.ops import rollout_variants
     from gym_soccer_tpu_torch.ops import rollout_codes as rc
     from gym_soccer_tpu_torch.ops import step_kernel as sk
     c54 = cfgs[(5, 4)]
@@ -2119,27 +2150,48 @@ def alt_phases(torch, dev, card, cfgs, per_step, regs):
     for b, c in cfgs.items():
         table, fields = alt_inputs(torch, ak, c, B, dev, seed=b[0])
         small = [f[:256] for f in fields]
+        # lanes in goal states (A carrying the ball into the right goal, B
+        # into the left), a few steps before truncation, or with turn 2:
+        # their warps step by arithmetic
+        odd = [f.clone() for f in fields]
+        lo = c.goal_row_bounds[0]
+        odd[1][5::97], odd[0][5::97], odd[4][5::97] = c.W - 1, lo, 0
+        odd[2][40::131], odd[3][40::131], odd[4][40::131] = lo, 0, 1
+        odd[6][::3] = c.max_steps - 3
+        odd[5][7::301] = 2
         plain = {}
         for name in names.values():
-            want = getattr(ak, name + "_plain")(c, 77, eps, table, fields, B,
-                                                T_K10, 0.99, 640)
-            for threads in (128, 256):
-                e = chunk_err(getattr(ak, name)(c, 77, eps, table, fields, B,
-                                                T_K10, 0.99, 640, threads),
-                              want)
+            kernel, plain_fn = getattr(ak, name), getattr(ak, name + "_plain")
+            want = plain_fn(c, 77, eps, table, fields, B, T_K10, 0.99, 640)
+            for lanes in (None, ALTQ_RAGGED_LANES, 32):
+                e = chunk_err(kernel(c, 77, eps, table, fields, B, T_K10,
+                                     0.99, 640, lanes), want)
                 errs[name] = max(errs[name], e)
-                check(e == 0, f"{name} != plain on {b}, threads {threads}: "
-                      f"max abs err {e}")
+                check(e == 0, f"{name} != plain on {b}, "
+                      f"{lanes or 'default'} lanes per block: max abs err "
+                      f"{e}")
+            h = T_K10 // 2
+            fa, (ra, ca), sa = kernel(c, 77, eps, table, fields, B, h, 0.99,
+                                      640)
+            fb, (rb, cb), sb = kernel(c, 77, eps, table, fa, B, T_K10 - h,
+                                      0.99, 640 + h)
+            check(max_abs_err([*zip(fb, want[0]), (ra + rb, want[1][0]),
+                               (ca + cb, want[1][1]),
+                               ([x + y for x, y in zip(ints(sa), ints(sb))],
+                                ints(want[2]))]) == 0,
+                  f"{name} split at step {h} != one chunk on {b}")
+            check(chunk_err(kernel(c, 4, 0, table, odd, B, 24, 0.9, 21),
+                            plain_fn(c, 4, 0, table, odd, B, 24, 0.9, 21))
+                  == 0, f"{name} from goal-state, late and odd-turn lanes "
+                  f"!= plain on {b}")
             check(int(want[2][3]) == 0, f"{name}: values out of range")
             check(chunk_err(
-                getattr(ak, name)(c, 5, eps, table, small, 256, 16, 0.99, 9),
-                getattr(ak, name)(c, 5, eps, table.cpu(),
-                                  [f.cpu() for f in small], 256, 16, 0.99,
-                                  9)) == 0, f"{name} != CPU plain on {b}")
+                kernel(c, 5, eps, table, small, 256, 16, 0.99, 9),
+                kernel(c, 5, eps, table.cpu(), [f.cpu() for f in small], 256,
+                       16, 0.99, 9)) == 0, f"{name} != CPU plain on {b}")
             for bad in (float("nan"), 1e7):
                 tb_bad, _ = alt_inputs(torch, ak, c, 256, dev, b[0], bad)
-                counts = [int(getattr(ak, name)(c, 5, eps, t, f, 256, 16, 0.99,
-                                                9)[2][3])
+                counts = [int(kernel(c, 5, eps, t, f, 256, 16, 0.99, 9)[2][3])
                           for t, f in ((tb_bad, small),
                                        (tb_bad.cpu(), [x.cpu() for x in small]))]
                 check(counts[0] == counts[1] > 0, f"{name} counts {counts} "
@@ -2149,12 +2201,30 @@ def alt_phases(torch, dev, card, cfgs, per_step, regs):
         check(max_abs_err([*zip(fa, fb), (ca, cb), (ints(sa), ints(sb))]) == 0,
               f"K10 and K11 step different trajectories on {b}")
         check(int(ca.sum()) == B * T_K10, "visit counts != B * T")
-        print(f"[K10/K11] {b[0]}x{b[1]} B={B} T={T_K10} step offset 640: "
+        print(f"[K10/K11] {b[0]}x{b[1]} B={B} T={T_K10} step offset 640 "
+              f"({'tick table' if ac.uses_table(c) else 'arithmetic walk'}): "
               f"bit-equal to plain (fields, stats with the out-of-range "
-              f"count, counts, int64 sums; max abs err {errs}); threads "
-              "128/256 equal; K10 and K11 step the same fields, stats and "
-              "counts; B=256 T=16 equals the CPU plain versions, and counts "
-              "the same values out of range on tables + nan and + 1e7")
+              f"count, counts, int64 sums; max abs err {errs}) at "
+              f"{ac.default_lanes(B)} (default), {ALTQ_RAGGED_LANES} (ragged) "
+              f"and 32 lanes per block; {h}+{T_K10 - h} split equals one "
+              "chunk; from goal-state, late and odd-turn lanes equal to "
+              "plain; K10 and K11 step the same fields, stats and counts; "
+              "B=256 T=16 equals the CPU plain versions, and counts the same "
+              "values out of range on tables + nan and + 1e7")
+    table, fields = alt_inputs(torch, ak, c54, B_GATE, dev, seed=7)
+    for name in names.values():
+        e = chunk_err(
+            getattr(ak, name)(c54, 77, eps, table, fields, B_GATE, T_GATE,
+                              0.99, 640),
+            getattr(ak, name + "_plain")(c54, 77, eps, table, fields, B_GATE,
+                                         T_GATE, 0.99, 640))
+        errs[name] = max(errs[name], e)
+        check(e == 0, f"{name} != plain at {B_GATE} x {T_GATE}: max abs err "
+              f"{e}")
+    print(f"[K10/K11] 5x4 B={B_GATE} T={T_GATE} (the gate's chunk, "
+          f"{ac.default_lanes(B_GATE)} lanes per block, private accumulators "
+          f"{ac.shared_acc(c54, ac.default_lanes(B_GATE), T_GATE)}): bit-equal "
+          "to plain")
 
     # ---- 30. resume and the gate ---------------------------------------
     kw = dict(batch=B, chunk_len=T_K10, lr=0.5, eps=0.3, eps_halflife=64,
@@ -2254,20 +2324,58 @@ def alt_phases(torch, dev, card, cfgs, per_step, regs):
               f"{us} us of kernel a launch, against the previous design's "
               f"{ALT_OLD_MS[b]} ms ({ALT_OLD_MS[b] / now}x) | {card}")
         table, fields = alt_inputs(torch, ak, c, B, dev, seed=5)
+        call = {}
         for name in (*names.values(), *(n + "_plain" for n in names.values())):
             fn = getattr(ak, name)
             med, reps, legs = time_cuda(
                 lambda: fn(c, 77, eps, table, fields, B, T_K10, 0.99, 640))
+            call[name] = med
             if b == (5, 4):
                 ms[name] = med
             print(f"[time] {name} {b[0]}x{b[1]} B={B} T={T_K10}: {med} "
                   f"ms/call, {B * T_K10 / (med / 1e3)} learner env-steps/s "
                   f"(median of {len(legs)} legs x {reps} calls; legs ms/call "
                   f"{legs}) | {card}")
+        lanes, n = ac.default_lanes(B), ak.n_codes(c)
+        table_walk = ac.uses_table(c)
+        acc = ac.shared_acc(c, lanes, T_K10)
+        smem = ac.block_smem_bytes(c, lanes, T_K10)
+        where = (ctypes.c_int32 * 1)()
+        check(ak._library().gst_altq_smem_bytes(
+            lanes, n, int(table_walk), T_K10, ctypes.addressof(where)) == smem
+            and where[0] == (ac.shared_rows(c) | table_walk << 1 | acc << 2),
+            "K10/K11's shared memory or placement differs from altq_codes'")
+        offsets = (ctypes.c_longlong * 7)()
+        ak._library().gst_altq_layout(n, B, ctypes.addressof(offsets))
+        check(tuple(offsets) == tuple(ac.layout(n, B)),
+              "K10/K11's layout differs from altq_codes.layout")
+        for name in names.values():
+            fn = getattr(ak, name)
+            device = rollout_variants._device_ms(
+                lambda: fn(c, 77, eps, table, fields, B, T_K10, 0.99, 640))
+            key = name if table_walk else name + " arith"
+            sym = (SYMBOL if table_walk else ARITH_SYMBOL)[name]
+            reg = [r for k, r in regs.items() if sym in k]
+            old = ALTQ_OLD_DEVICE_MS[name, b]
+            print(f"[design] {name} {b[0]}x{b[1]} B={B} T={T_K10} "
+                  f"({'tick table' if table_walk else 'arithmetic walk'}, "
+                  f"rows in {'shared memory' if ac.shared_rows(c) else 'L2'}, "
+                  f"accumulators in "
+                  f"{'shared memory' if acc else 'device memory'}): {lanes} "
+                  f"lanes and {ac.PRODUCER_WARPS} producer warps a block "
+                  f"({-(-B // lanes)} blocks of "
+                  f"{lanes + 32 * ac.PRODUCER_WARPS} threads), {smem} B of "
+                  f"shared memory per block, {reg} registers per thread; "
+                  f"{per_step[key]} SASS per lane-step, bound "
+                  f"{bound(B * T_K10, per_step[key], 0)[0]} ms; "
+                  f"{call[name]} ms/call, {device} ms of device time (CUDA "
+                  f"graph replay: memset, prep pass, kernel) against the "
+                  f"previous design's {old} ({old / device}x) | {card}")
     table, fields = alt_inputs(torch, ak, c54, B, dev, seed=5)
     profile_window(torch, lambda: ak.altq_packed_chunk(
         c54, 77, eps, table, fields, B, T_K10, 0.99, 640),
-        f"altq_packed_chunk 5x4 B={B} T={T_K10}", "altq_kernel", card)
+        f"altq_packed_chunk 5x4 B={B} T={T_K10}", "altq_chunk_kernel<true",
+        card)
 
     alt_fields_bytes = 2 * 7 * 4 * B + 3 * 8
     acc = ak.n_codes(c54) * (10 * 4 + 10 * (8 + 4)) + 8

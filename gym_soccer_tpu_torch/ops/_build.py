@@ -27,8 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LIBRARIES = {"step_kernel": ("step_kernel.cu", "game.cuh", "pipeline.cuh"),
              "learner_kernel": ("learner_kernel.cu", "game.cuh",
                                 "pipeline.cuh"),
-             "iql_kernel": ("iql_kernel.cu", "game.cuh"),
-             "altq_kernel": ("altq_kernel.cu", "game.cuh"),
+             "iql_kernel": ("iql_kernel.cu", "game.cuh", "pipeline.cuh"),
+             "altq_kernel": ("altq_kernel.cu", "game.cuh", "pipeline.cuh"),
              "parity_kernel": ("parity_kernel.cu",)}
 
 _loaded: dict[str, ctypes.CDLL] = {}

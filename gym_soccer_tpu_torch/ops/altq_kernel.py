@@ -33,8 +33,9 @@ The accumulators are int64 sums in units of 2**-32 and int32 counts,
 ``unpack_alt_acc`` convert them to float32 per dense state.
 
 A wrapper runs the plain PyTorch version when its tensors lie on the CPU
-and launches the kernel (``csrc/altq_kernel.cu``) when they lie on a CUDA
-device; there is no fallback from one to the other.  The chunk wrappers
+and launches the kernel (``csrc/altq_kernel.cu``, its two stages twinned
+in ``ops/altq_codes.py``) when they lie on a CUDA device; there is no
+fallback from one to the other.  The chunk wrappers
 take their device from their tensors; ``fused_altq_train`` and
 ``init_alt_state_fields`` default to "cuda": CPU callers pass "cpu".
 
@@ -217,6 +218,8 @@ def _plain(cfg: EnvConfig, seed: int, eps_int: int, table, fields,
 def _chunk(packed: bool, cfg, seed, eps_int, table, fields, batch, n_steps,
            gamma, step_offset, threads, plain: bool):
     _check_cfg(cfg)
+    if not plain:
+        threads = _check_lanes(batch, threads)
     fields = ik._check_args(cfg, eps_int, table, fields, batch, n_steps,
                             step_offset, n_fields=7)
     if plain or table.device.type == "cpu":
@@ -228,7 +231,7 @@ def _chunk(packed: bool, cfg, seed, eps_int, table, fields, batch, n_steps,
 
 def altq_packed_chunk(cfg: EnvConfig, seed: int, eps_int: int, table,
                       fields, batch: int, n_steps: int, gamma: float = 0.99,
-                      step_offset: int = 0, threads: int = 128):
+                      step_offset: int = 0, threads=None):
     """Run one fused alternating-turn Q chunk with residual accumulation
     (kernel K10).
 
@@ -244,8 +247,14 @@ def altq_packed_chunk(cfg: EnvConfig, seed: int, eps_int: int, table,
     int64 totals.  The sums are exact when ``out_of_range``, the number of
     values outside +-``value_limit(batch, n_steps)`` or not finite, is 0;
     it is counted on the device, so the call does not wait for the chunk.
-    ``threads`` is the CUDA block size (a multiple of 32); it does not
-    change the result.
+    ``threads`` is the kernel's lanes per block: a multiple of 32 in [32,
+    512], by default the fewest that keep the grid to one wave of 132
+    blocks (``altq_codes.check_lanes``: 64 at 8192 lanes, 512 at 65536;
+    ValueError otherwise, on any device); it does not change the result.
+    On the card the outputs are views of one allocation.  ``fields`` hold
+    the alternating game's turns, 0 or 1, as ``init_alt_state_fields``
+    makes them; a lane with another turn reads its table row block
+    ``turn`` as the plain version does.
 
     On a CPU device this runs ``altq_packed_chunk_plain``; on a CUDA device
     it launches the K10 kernel.
@@ -264,11 +273,12 @@ def altq_packed_chunk_plain(cfg: EnvConfig, seed: int, eps_int: int, table,
 
 def altq_chunk(cfg: EnvConfig, seed: int, eps_int: int, table, fields,
                batch: int, n_steps: int, gamma: float = 0.99,
-               step_offset: int = 0, threads: int = 128):
+               step_offset: int = 0, threads=None):
     """``altq_packed_chunk`` accumulating the full TD sums
     r + cont * V(s') - q(s, a) (kernel K11; decode with
     ``unpack_alt_acc``).  The fields, stats and counts equal
-    ``altq_packed_chunk``'s for the same arguments.
+    ``altq_packed_chunk``'s for the same arguments; ``threads`` is the
+    kernel's lanes per block, as there.
 
     On a CPU device this runs ``altq_chunk_plain``; on a CUDA device it
     launches the K11 kernel.
@@ -285,51 +295,85 @@ def altq_chunk_plain(cfg: EnvConfig, seed: int, eps_int: int, table, fields,
                   gamma, step_offset, None, plain=True)
 
 
+def _check_lanes(batch: int, threads) -> int:
+    from . import altq_codes
+    return altq_codes.check_lanes(batch, threads)
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
-    """The built kernel library with its C signature declared."""
+    """The built kernel library with its C signatures declared."""
     from . import _build
-    lib = _build.load("altq_kernel")
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    return declare(_build.load("altq_kernel"))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a build of ``csrc/altq_kernel.cu``."""
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.gst_altq_chunk.argtypes = [
-        i32, vp, vp, vp, vp, vp, vp,   # device, in, out, table, sums, cnt, stats
-        vp, i32, i32, ctypes.c_uint32, i32, i32, ctypes.c_float, ctypes.c_float,
-        i32, i32, vp]
-    #    params, B, T, seed, eps_int, step_offset, gamma, limit, packed,
-    #    threads, stream
+        i32, vp, vp, vp, vp, vp, vp, i32, i32, i32, ctypes.c_uint32, i32, i32,
+        f32, f32, i32, i32, vp]
+    #    device, in, buf, table, tick, code_raw, params, n_codes, B, T, seed,
+    #    eps_int, step_offset, gamma, limit, packed, lanes, stream
     lib.gst_altq_chunk.restype = i32
+    lib.gst_altq_layout.argtypes = [i32, i32, vp]
+    lib.gst_altq_layout.restype = None
+    lib.gst_altq_smem_bytes.argtypes = [i32, i32, i32, i32, vp]
+    lib.gst_altq_smem_bytes.restype = i32
+    lib.gst_altq_shape.argtypes = [vp]
+    lib.gst_altq_shape.restype = None
     lib.gst_error_string.argtypes = [i32]
     lib.gst_error_string.restype = ctypes.c_char_p
     return lib
 
 
+@functools.lru_cache(maxsize=16)
+def _host(cfg: EnvConfig, device: torch.device):
+    """(cached per board and device) The game description, the number of
+    codes and K4's tick table with its raw codes (None where the kernel
+    walks by arithmetic: ``altq_codes.uses_table``)."""
+    from . import altq_codes
+    from . import rollout_codes as rc
+    tick = rc.device_alt_table(cfg, device) if altq_codes.uses_table(cfg) \
+        else None
+    return sk._game_params(cfg), n_codes(cfg), tick
+
+
 def _launch(packed: bool, cfg: EnvConfig, seed: int, eps_int: int, table,
             fields, n_steps: int, gamma: float, step_offset: int,
-            threads: int):
+            lanes: int):
+    """Launch K10 or K11 at ``lanes`` lanes per block.  Its outputs (the
+    seven planes, the sums, the counts and the stats) and the prep pass's
+    rows are one allocation, zeroed where it sums by one memset in the
+    launch."""
+    from . import altq_codes
     name = "altq_packed_chunk" if packed else "altq_chunk"
     dev = table.device
-    sk.check_threads(name, dev, threads)
-    lib = _library()
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    params, n, tick = _host(cfg, dev)
     B = fields[0].shape[0]
-    out = tuple(torch.empty_like(f) for f in fields)
-    sums = torch.zeros((n_codes(cfg), ALT_COLS), dtype=torch.int64,
-                       device=dev)
-    cnt = torch.zeros((n_codes(cfg), ALT_COLS), dtype=torch.int32, device=dev)
-    stats = torch.zeros(4, dtype=torch.int64, device=dev)
-    in_ptrs, out_ptrs = sk.ptr_array(fields), sk.ptr_array(out)
-    params = sk._game_params(cfg)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.gst_altq_chunk(
-        dev.index, ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs),
-        table.data_ptr(), sums.data_ptr(), cnt.data_ptr(), stats.data_ptr(),
-        ctypes.addressof(params), B, n_steps, seed & sk.M32, eps_int,
-        step_offset, float(np.float32(gamma)), value_limit(B, n_steps),
-        int(packed), threads, stream)
+    lay = altq_codes.layout(n, B)
+    b64 = torch.empty(lay.total // 8, dtype=torch.int64, device=dev)
+    in_ptrs = sk.ptr_array(fields)
+    tick_ptrs = ((tick.table.data_ptr(), tick.code_raw.data_ptr())
+                 if tick is not None else (None, None))
+    rc = _library().gst_altq_chunk(
+        dev.index, ctypes.addressof(in_ptrs), b64.data_ptr(),
+        table.data_ptr(), *tick_ptrs, ctypes.addressof(params), n, B,
+        n_steps, seed & sk.M32, eps_int, step_offset, lk._f32(gamma),
+        value_limit(B, n_steps), int(packed), lanes,
+        torch._C._cuda_getCurrentRawStream(dev.index))
     if rc:
         raise RuntimeError(f"{name}: kernel launch failed: "
-                           f"{lib.gst_error_string(rc).decode()} ({rc})")
+                           f"{_library().gst_error_string(rc).decode()} "
+                           f"({rc})")
     launch_counts[name] += 1
-    return out, (sums, cnt), tuple(stats.unbind())
+    b32 = b64.view(torch.int32)
+    return (b32.as_strided((7, B), (B, 1), lay.fields // 4).unbind(0),
+            (b64.as_strided((n, ALT_COLS), (ALT_COLS, 1), 0),
+             b32.as_strided((n, ALT_COLS), (ALT_COLS, 1), lay.cnt // 4)),
+            b64.as_strided((4,), (1,), lay.stats // 8).unbind())
 
 
 # ----------------------------------------------------------------------

@@ -1,9 +1,10 @@
 // Device code shared by the split rollout and learner kernels (step_kernel.cu:
-// K1, K2, K3, K4; learner_kernel.cu: K5, K7): the pieces of a lane-step that
-// follow from (seed, step, lane) alone, the named barriers and bulk copies
-// (TMA) of the producer/consumer pipeline, the branch-free transition under
-// effective moves, and a lane's own board as the mixed-geometry kernels (K3,
-// K7 multigrid) walk it.
+// K1, K2, K3, K4; learner_kernel.cu: K5, K7; iql_kernel.cu: K8, K9;
+// altq_kernel.cu: K10, K11): the pieces of a lane-step that follow from
+// (seed, step, lane) alone, the named barriers and bulk copies (TMA) of the
+// producer/consumer pipeline, the branch-free transitions under effective
+// moves, and a lane's own board as the mixed-geometry kernels (K3, K7
+// multigrid) walk it.
 //
 // A kernel that includes it splits each lane-step in two: producer warps
 // hash the counter words into a small step code and hand tiles of codes
@@ -126,6 +127,33 @@ __device__ __forceinline__ void step_moves(State& s, int ea, int eb, int coin,
   s.rb = b_moves ? nxb : rb;
   s.cb = b_moves ? nyb : cb;
   s.p = c2 ? 1 - p : ((c1 | c3 | c4) ? (coin & 1) : p);
+  const bool a_ball = s.p == 0;
+  const int ball_row = a_ball ? s.ra : s.rb, ball_col = a_ball ? s.ca : s.cb;
+  goal = (ball_row >= g.glo) & (ball_row <= g.ghi) &
+         ((ball_col == 0) | (ball_col == g.W - 1));
+  r = goal ? (ball_col == g.W - 1 ? 1 : -1) : 0;
+}
+
+// One tick of the alternating game under the mover's effective move e
+// (K4, K10, K11): game.cuh's `alt_transition` after its slip, without
+// branches.
+__device__ __forceinline__ void alt_moves(State& s, int turn, int e,
+                                          const Game& g, bool& goal, int& r) {
+  const int mc = (e == 3) - (e == 4), mr = (e == 2) - (e == 1);
+  const bool a_moves = turn == 0;
+  const int mx = a_moves ? s.ra : s.rb, my = a_moves ? s.ca : s.cb;
+  const int ox = a_moves ? s.rb : s.ra, oy = a_moves ? s.cb : s.ca;
+  const int nx0 = min(max(mx + mr, 0), g.H - 1), nyt = my + mc;
+  const bool xoob = (nyt == 0) | (nyt == g.W - 1);
+  const bool in_goal = xoob & (nx0 >= g.glo) & (nx0 <= g.ghi) & (s.p == turn);
+  const int ny0 = (xoob & !in_goal) ? my : nyt;
+  const bool collide = (nx0 == ox) & (ny0 == oy);
+  const int nx = collide ? mx : nx0, ny = collide ? my : ny0;
+  s.p = collide ? 1 - turn : s.p;
+  s.ra = a_moves ? nx : s.ra;
+  s.ca = a_moves ? ny : s.ca;
+  s.rb = a_moves ? s.rb : nx;
+  s.cb = a_moves ? s.cb : ny;
   const bool a_ball = s.p == 0;
   const int ball_row = a_ball ? s.ra : s.rb, ball_col = a_ball ? s.ca : s.cb;
   goal = (ball_row >= g.glo) & (ball_row <= g.ghi) &

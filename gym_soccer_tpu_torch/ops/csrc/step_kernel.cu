@@ -691,32 +691,6 @@ struct AltTableStep {
   }
 };
 
-// One tick of the alternating game under the mover's effective move e:
-// game.cuh's `alt_transition` after its slip, without branches.
-__device__ __forceinline__ void alt_moves(State& s, int turn, int e,
-                                          const Game& g, bool& goal, int& r) {
-  const int mc = (e == 3) - (e == 4), mr = (e == 2) - (e == 1);
-  const bool a_moves = turn == 0;
-  const int mx = a_moves ? s.ra : s.rb, my = a_moves ? s.ca : s.cb;
-  const int ox = a_moves ? s.rb : s.ra, oy = a_moves ? s.cb : s.ca;
-  const int nx0 = min(max(mx + mr, 0), g.H - 1), nyt = my + mc;
-  const bool xoob = (nyt == 0) | (nyt == g.W - 1);
-  const bool in_goal = xoob & (nx0 >= g.glo) & (nx0 <= g.ghi) & (s.p == turn);
-  const int ny0 = (xoob & !in_goal) ? my : nyt;
-  const bool collide = (nx0 == ox) & (ny0 == oy);
-  const int nx = collide ? mx : nx0, ny = collide ? my : ny0;
-  s.p = collide ? 1 - turn : s.p;
-  s.ra = a_moves ? nx : s.ra;
-  s.ca = a_moves ? ny : s.ca;
-  s.rb = a_moves ? s.rb : nx;
-  s.cb = a_moves ? s.cb : ny;
-  const bool a_ball = s.p == 0;
-  const int ball_row = a_ball ? s.ra : s.rb, ball_col = a_ball ? s.ca : s.cb;
-  goal = (ball_row >= g.glo) & (ball_row <= g.ghi) &
-         ((ball_col == 0) | (ball_col == g.W - 1));
-  r = goal ? (ball_col == g.W - 1 ? 1 : -1) : 0;
-}
-
 // A lane's tick from a tick code by arithmetic: alt_moves, then the reset
 // to the ISD entry's fields with A to move.
 struct AltArithStep {

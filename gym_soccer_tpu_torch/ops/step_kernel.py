@@ -754,9 +754,9 @@ def _game_params(cfg: EnvConfig):
 
 def check_threads(name: str, device: torch.device, threads: int) -> None:
     """Refuse a device without a kernel and a block size (threads a block)
-    the kernels K6, K10 and K11 do not take.  K1-K5 and K7-K9 take lanes
-    per block instead (``rollout_codes.check_lanes``,
-    ``learner_codes.check_lanes``, ``iql_codes.check_lanes``)."""
+    the kernel K6 does not take.  K1-K5 and K7-K11 take lanes per block
+    instead (``rollout_codes.check_lanes``, ``learner_codes.check_lanes``,
+    ``iql_codes.check_lanes``, ``altq_codes.check_lanes``)."""
     if device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {device}")
     if threads <= 0 or threads > 1024 or threads % 32:

@@ -560,15 +560,17 @@ def test_alt_rollout_equals_plain_version(cuda, board):
 @pytest.mark.parametrize("board", BOARDS)
 def test_altq_kernels_equal_plain_versions(cuda, board):
     """K10 and K11 equal their plain versions bit for bit (fields, stats,
-    counts and the int64 sums) for two block sizes with a step offset, and
-    step the same fields, stats and counts; the trainer launches K10 once
-    a chunk and resumes exactly."""
+    counts and the int64 sums) at 64 lanes per block (the default for 8192
+    lanes), 96 (a ragged last block) and 32 with a step offset, across a
+    step_offset split, and from goal-state, late-truncation and odd-turn
+    lanes; K10 and K11 step the same fields, stats and counts; the
+    trainer launches K10 once a chunk and resumes exactly."""
     import numpy as np
     from gym_soccer_tpu_torch.envs.soccer_alternating_env import (
         build_alt_tables)
     from gym_soccer_tpu_torch.ops import altq_kernel as ak
     cfg = EnvConfig(width=board[0], height=board[1], slip_prob=0.2)
-    B, T, eps = 2048, 32, 19661
+    B, T, eps = 8192, 32, 19661
     nS = build_alt_tables(cfg).nS
     q = torch.tensor(np.random.default_rng(3).uniform(-1, 1, (nS, 5)),
                      dtype=torch.float32)
@@ -580,11 +582,28 @@ def test_altq_kernels_equal_plain_versions(cuda, board):
     for name in ("altq_packed_chunk", "altq_chunk"):
         kernel, plain = getattr(ak, name), getattr(ak, name + "_plain")
         want = plain(cfg, 5, eps, table, fields, B, T, 0.99, 7)
-        for threads in (128, 256):
+        for threads in (None, 96, 32):
             got = kernel(cfg, 5, eps, table, fields, B, T, 0.99, 7, threads)
             assert _same_chunk(got, want)
+        h = T // 2
+        fa, (sa, ca), ta = kernel(cfg, 5, eps, table, fields, B, h, 0.99, 7)
+        fb, (sb, cb), tb = kernel(cfg, 5, eps, table, fa, B, T - h, 0.99,
+                                  7 + h)
+        assert all(torch.equal(x, y) for x, y in zip(fb, want[0]))
+        assert torch.equal(sa + sb, want[1][0])
+        assert torch.equal(ca + cb, want[1][1])
+        assert [x + y for x, y in zip(_ints(ta), _ints(tb))] == \
+            _ints(want[2])
+        odd = [f.clone() for f in fields]
+        lo = cfg.goal_row_bounds[0]
+        odd[1][5::97], odd[0][5::97], odd[4][5::97] = cfg.W - 1, lo, 0
+        odd[2][40::131], odd[3][40::131], odd[4][40::131] = lo, 0, 1
+        odd[6][::3] = cfg.max_steps - 3
+        odd[5][7::301] = 2
+        assert _same_chunk(kernel(cfg, 4, 0, table, odd, B, 24, 0.9, 21),
+                           plain(cfg, 4, 0, table, odd, B, 24, 0.9, 21))
         runs[name] = want
-    assert ak.launch_counts == {"altq_packed_chunk": 2, "altq_chunk": 2}
+    assert ak.launch_counts == {"altq_packed_chunk": 6, "altq_chunk": 6}
     (fa, (_, ca), sa), (fb, (_, cb), sb) = runs.values()
     assert all(torch.equal(x, y) for x, y in zip(fa, fb))
     assert torch.equal(ca, cb) and _ints(sa) == _ints(sb)
