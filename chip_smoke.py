@@ -29,8 +29,8 @@ failure:
    per library, in parallel; for each kernel's bound, cuobjdump's SASS
    gives the fewest instructions one step (or event) of its main loop
    issues (``loop_instructions``; K12/K13's MT19937 twist amortised over
-   the 312 events between twists; K1-K5 and K7-K11's producer code loop
-   plus their consumer tile loop over its 8 steps);
+   the 312 events between twists; K1-K11's producer code loop plus their
+   consumer tile loop over its 8 steps);
 3. main path: the user entry points at 8192 lanes, with the kernels'
    launch counters reset before and read after; outputs are checked by
    the repo's own means (valid states, journal decodes, stats agree);
@@ -132,10 +132,11 @@ failure:
     on the CPU;
 24. K6 and K7 (both sites): bit-equal to their plain versions (fields,
     stats, counts, the int64 sums and the out-of-range count) at 8192 x 64
-    on the mixture and on 5x4+11x7 (K6, K7 multigrid) and on 5x4 and 11x7
-    (K7), K6 at 128 and 256 threads a block, K5 and K7 at the default
-    lanes per block and 96 (a ragged last block), on tables with
-    non-uniform pi and v, q != 0;
+    on the mixture, on 5x4+11x7 and on the ``--multigrid`` recipe's 5x4+6x5
+    (K6, K7 multigrid; the recipe's prepared rows in shared memory, the
+    others' in L2) and on 5x4 and 11x7 (K5, K7), at the default lanes per
+    block and 96 (a ragged last block), on tables with non-uniform pi and
+    v, q != 0;
     K6 and K7 step the same fields, stats and counts; at 256 x 16 equal to
     the plain versions run on the CPU; K5, K6 and K7 count the same
     out-of-range values as their plain versions on tables holding nan and
@@ -150,12 +151,14 @@ failure:
     concatenated policies at most 0.05 on 5x4 and 0.08 on 6x5; wall time
     split into chunk calls and the work between them;
 26. timing: K3 at 8192 x 1024 on the mixture; K6 at 8192 x 64 and 32768 x
-    64 on the mixture and at 8192 x 64 on 5x4+11x7; K7 at 8192 x 64 on 5x4
-    and 11x7; K7 multigrid at 8192 x 64 on the mixture; each against its
-    plain version; the design lines of K3 and K7 (both sites: block shape,
-    shared memory, registers, SASS per lane-step, bound, the previous
-    design's ms) and ``torch.profiler`` windows of K3, K6 (8192 and 32768
-    lanes) and K7 (both sites) for device time and idle share;
+    64 on the mixture, at 8192 x 64 on 5x4+11x7 and at the recipe's 16384
+    x 64 on 5x4+6x5; K7 at 8192 x 64 on 5x4 and 11x7; K7 multigrid at 8192
+    x 64 on the mixture and 16384 x 64 on 5x4+6x5; each against its plain
+    version; the design lines of K3, K6 (each cell) and K7 (both sites:
+    the rows' place, block shape, shared memory, registers, SASS per
+    lane-step, bound, device time by CUDA-graph replay for K6 and K7
+    multigrid, the previous design's time) and ``torch.profiler`` windows
+    of K3 and K7 (both sites) for device time and idle share;
 27. alternating path: ``alt_rollout`` at 8192 x 1024 on 5x4 and 11x7 (slip
     0.2) and ``fused_altq_train`` on 5x4 for 4 chunks of 8192 x 64, packed
     (K10) and ``packed=False`` (K11), through their default device, the
@@ -246,12 +249,22 @@ ROLLOUT_OLD_MS = {("fused_rollout", (5, 4)): 0.637,
 # H100 80GB HBM3 at 700 W, as PERF.md section 6 records them.
 ALT_OLD_MS = {(5, 4): 0.4087, (11, 7): 0.3878}
 LEARNER_OLD_MS = {(5, 4): 0.1549, (11, 7): 0.1348}
-# ms per call of K3 (8192 x 1024, the 3-board mixture), K7 (8192 x 64, 5x4)
-# and K7 multigrid (8192 x 64, the mixture) in their previous design (one
-# thread a lane hashing and stepping, 64 blocks of 128), NVIDIA H100 80GB
-# HBM3 at 700 W (run 6 of the K4/K5 redesign, PERF.md section 6).
-MG_OLD_MS = {"multigrid_rollout": 0.4705, "learner_chunk": 0.0947,
-             "multigrid_learner_chunk": 0.0730}
+# ms per call of K3 (8192 x 1024, the 3-board mixture) and K7 (8192 x 64,
+# 5x4) in their previous design (one thread a lane hashing and stepping, 64
+# blocks of 128), NVIDIA H100 80GB HBM3 at 700 W (run 6 of the K4/K5
+# redesign, PERF.md section 6).
+MG_OLD_MS = {"multigrid_rollout": 0.4705, "learner_chunk": 0.0947}
+# Device ms (CUDA-graph replay: memset, prep pass and kernel) of K6's
+# previous design (one thread a lane hashing and stepping, blocks of 128)
+# in each of its timed cells and of K7 multigrid's on the mixture, NVIDIA
+# H100 80GB HBM3 at 700 W (ops/learner_variants.py in run 1 of the K6
+# redesign, PERF.md section 6).
+MG_OLD_DEVICE_MS = {
+    ("multigrid_packed_learner_chunk", "mixture", 8192): 0.05568,
+    ("multigrid_packed_learner_chunk", "5x4+11x7", 8192): 0.05573,
+    ("multigrid_packed_learner_chunk", "mixture", 32768): 0.09594,
+    ("multigrid_packed_learner_chunk", "5x4+6x5", 16384): 0.05645,
+    ("multigrid_learner_chunk", "mixture", 8192): 0.06906}
 # ms per 8192 x 64 call of K8/K9 in their previous design (one thread a
 # lane hashing, scanning and stepping, 64 blocks of 128), NVIDIA H100 80GB
 # HBM3 at 700 W (run 2 of the K3/K7 redesign, PERF.md section 6).
@@ -275,7 +288,8 @@ T_K6 = 64
 B_WIDE = 32768   # tools/bench_all.py:333-337, the packed mixture learner
 # examples/train_minimax_tpu.py:141-151 (--multigrid), at the example's
 # 328M env-steps (BASELINE.md:224); gates about twice the JAX package's
-# recorded per-variant exploitability 0.023 / 0.040.
+# recorded per-variant exploitability 0.023 / 0.040.  Its 3,624 prepared
+# rows fit a block's shared memory (K6 and K7 multigrid).
 MG_BOARDS = ((5, 4, 0.2), (6, 5, 0.2))
 MG_RECIPE = dict(batch=16384, n_chunks=312, chunk_len=64, lr=1.0, eps=0.2,
                  lr_anneal_start=156, lr_anneal_tau=25.0, lr_anneal_pow=1.5,
@@ -340,7 +354,7 @@ SYMBOL = {"fused_rollout": "14rollout_kernelILb0ELb1E",
           "fused_journal_rollout": "14rollout_kernelILb1ELb1E",
           "multigrid_rollout": "17mg_rollout_kernel",
           "packed_learner_chunk": "12chunk_kernelILb1ELb1ELb0E",
-          "multigrid_packed_learner_chunk": "learner_kernelILb1ELb1E",
+          "multigrid_packed_learner_chunk": "12chunk_kernelILb1ELb0ELb1E",
           "learner_chunk": "12chunk_kernelILb0ELb1ELb0E",
           "multigrid_learner_chunk": "12chunk_kernelILb0ELb0ELb1E",
           "iql_packed_chunk": "16iql_chunk_kernelILb1ELb1ELb1E",
@@ -352,7 +366,10 @@ SYMBOL = {"fused_rollout": "14rollout_kernelILb0ELb1E",
           "altq_chunk": "17altq_chunk_kernelILb0ELb1ELb1ELb1E"}
 # K1/K2/K4 on a board whose table does not fit (11x7): the arithmetic
 # walk; K5 and K7 there: their prepared rows read from L2.  SYMBOL's are
-# the 5x4 kernels' (the kernels line's board); K8/K9 keep both boards'
+# the 5x4 kernels' (the kernels line's board).  K6's and K7 multigrid's
+# SYMBOL is the 3-board mixture's (rows in L2); here is their instance on
+# the --multigrid recipe's 5x4+6x5, whose rows fit shared memory (the
+# "arith" key of their SASS count names it).  K8/K9 keep both boards'
 # prepared rows in shared memory, and on 11x7 add each visit to device
 # memory (its accumulators do not fit beside them); K10/K11 on 5x4 walk
 # K4's tick table beside their rows and private accumulators, and on 11x7
@@ -361,7 +378,10 @@ ARITH_SYMBOL = {"fused_rollout": "14rollout_kernelILb0ELb0E",
                 "fused_journal_rollout": "14rollout_kernelILb1ELb0E",
                 "alt_rollout": "18alt_rollout_kernelILb0E",
                 "packed_learner_chunk": "12chunk_kernelILb1ELb0ELb0E",
+                "multigrid_packed_learner_chunk":
+                    "12chunk_kernelILb1ELb1ELb1E",
                 "learner_chunk": "12chunk_kernelILb0ELb0ELb0E",
+                "multigrid_learner_chunk": "12chunk_kernelILb0ELb1ELb1E",
                 "iql_packed_chunk": "16iql_chunk_kernelILb1ELb1ELb0E",
                 "iql_chunk": "16iql_chunk_kernelILb0ELb1ELb0E",
                 "altq_packed_chunk": "17altq_chunk_kernelILb1ELb0ELb1ELb0E",
@@ -441,11 +461,11 @@ HASH = re.compile(r"-0x7a143595|0x85ebca6b")
 # Accumulation atomics: to device memory (RED, ATOM) or to a block's own
 # accumulators in shared memory (ATOMS).
 ATOMIC = re.compile(r"(@!?U?P\d\s+)?(RED|ATOM)[GS]?\.")
-# K1-K5 and K7-K11 split a lane-step between two threads: a producer makes
-# its step code, one a trip of the innermost loop that stores codes to
-# shared memory, and the lane's consumer walks TILE_STEPS steps a trip of
-# an innermost loop that waits on a barrier for the tile (the table walk
-# and the arithmetic walk; csrc/step_kernel.cu kTileSteps, csrc/
+# K1-K11 split a lane-step between two threads: a producer makes its step
+# code, one a trip of the innermost loop that stores codes to shared
+# memory, and the lane's consumer walks TILE_STEPS steps a trip of an
+# innermost loop that waits on a barrier for the tile (the table walk and
+# the arithmetic walk; csrc/step_kernel.cu kTileSteps, csrc/
 # learner_kernel.cu, csrc/iql_kernel.cu and csrc/altq_kernel.cu kTile).
 SPLIT = ("14rollout_kernelI", "18alt_rollout_kernelI", "17mg_rollout_kernel",
          "12chunk_kernelI", "16iql_chunk_kernelI", "17altq_chunk_kernelI")
@@ -464,7 +484,7 @@ def loop_instructions(text, names=None):
     goal's reset, a collision's resolution) counts not at all, with one
     exception: a branch that skips atomics (RED, ATOM to device memory,
     ATOMS to shared memory) is taken as not taken.  Those blocks are the
-    step's accumulation, which K5/K7-K11 skip only on a lane's first step,
+    step's accumulation, which K5-K11 skip only on a lane's first step,
     the one with no pending visit.  A call counts as one instruction.
 
     K12 and K13 (``TWISTING``) rewrite each lane's 624-word MT19937 state
@@ -473,8 +493,8 @@ def loop_instructions(text, names=None):
     fewest instructions per word of those loops (a nested loop's body over
     the shared-memory stores it makes).
 
-    K1-K5 and K7-K11 (``SPLIT``) serve each lane-step from two loops,
-    neither nested in another: the count is the shortest way around the
+    K1-K11 (``SPLIT``) serve each lane-step from two loops, neither
+    nested in another: the count is the shortest way around the
     producers' (the innermost loop holding a shared-memory store: one step
     code a trip) plus the shortest way around the consumers' over
     TILE_STEPS (the innermost loops holding a barrier wait, the fewest of
@@ -693,7 +713,7 @@ def main() -> int:
         per_step[name] = found[0]
     print(f"[build] SASS instructions per lane-step (K12/K13: lane-event, "
           f"with the MT19937 twist amortised over its {TWIST[1]} events; "
-          f"K1-K5, K7-K11: a producer's code loop plus a consumer's tile loop "
+          f"K1-K11: a producer's code loop plus a consumer's tile loop "
           f"over its {TILE_STEPS} steps, 'arith' the walk of boards whose "
           f"table does not fit) on the shortest way around each kernel's "
           f"main loop (cuobjdump -sass): {per_step}")
@@ -1719,6 +1739,7 @@ def multigrid_phases(torch, dev, card, exploitability, per_step, regs):
     from gym_soccer_tpu_torch.ops import step_kernel as sk
     mix = tuple(EnvConfig(*b) for b in MIX3)
     big = tuple(EnvConfig(*b) for b in MIX_BIG)
+    mgc = tuple(EnvConfig(*b) for b in MG_BOARDS)
     c54, c117 = EnvConfig(5, 4, 0.2), EnvConfig(11, 7, 0.2)
     K6, K7, K7M = ("multigrid_packed_learner_chunk", "learner_chunk",
                    "multigrid_learner_chunk")
@@ -1824,7 +1845,8 @@ def multigrid_phases(torch, dev, card, exploitability, per_step, regs):
     # ---- 24. K6 and K7 against their plain versions --------------------
     cells = (("mixture", mix, (K6, K7M)), ("5x4+11x7", big, (K6, K7M)),
              ("5x4", c54, ("packed_learner_chunk", K7)),
-             ("11x7", c117, ("packed_learner_chunk", K7)))
+             ("11x7", c117, ("packed_learner_chunk", K7)),
+             ("5x4+6x5", mgc, (K6, K7M)))
     for seed, (label, cfg, pair) in enumerate(cells, start=1):
         m2, m, state = mg_inputs(torch, lk, cfg, B, dev, seed)
         small = lk.init_state_fields(cfg, 256, dev)
@@ -1832,10 +1854,7 @@ def multigrid_phases(torch, dev, card, exploitability, per_step, regs):
         for name, table in zip(pair, (m2, m)):
             want = run_chunk(lk, name + "_plain", cfg, 77, table, state, B,
                              T_K6)
-            # K6 takes threads a block, K5 and K7 lanes per block
-            sizes = ((128, 256) if name == K6
-                     else (None, LEARNER_RAGGED_LANES[B]))
-            for threads in sizes:
+            for threads in (None, LEARNER_RAGGED_LANES[B]):
                 e = chunk_err(run_chunk(lk, name, cfg, 77, table, state, B,
                                         T_K6, threads=threads), want)
                 errs[name] = max(errs[name], e)
@@ -1859,13 +1878,14 @@ def multigrid_phases(torch, dev, card, exploitability, per_step, regs):
         check(max_abs_err([*zip(fa, fb), (ca, cb), (ints(sa), ints(sb))]) == 0,
               f"{pair} step different trajectories on {label}")
         check(int(ca.sum()) == B * T_K6, "visit counts != B * T")
-        print(f"[K6/K7] {label} B={B} T={T_K6}: {pair} bit-equal to plain "
-              "(fields, stats, counts, int64 sums, out-of-range count); K6 "
-              f"at 128/256 threads a block, K5/K7 at {lc.default_lanes(B)}"
-              f"/{LEARNER_RAGGED_LANES[B]} lanes per block equal; both step "
-              "the same fields, stats and "
-              "counts; B=256 T=16 equals the CPU plain versions, and counts "
-              "the same values out of range with v, q + nan and + 1e7")
+        print(f"[K6/K7] {label} B={B} T={T_K6} (rows in "
+              f"{'shared memory' if lc.shared_rows(cfg) else 'L2'}): {pair} "
+              "bit-equal to plain (fields, stats, counts, int64 sums, "
+              f"out-of-range count) at {lc.default_lanes(B)} (default) and "
+              f"{LEARNER_RAGGED_LANES[B]} (ragged) lanes per block; both "
+              "step the same fields, stats and counts; B=256 T=16 equals the "
+              "CPU plain versions, and counts the same values out of range "
+              "with v, q + nan and + 1e7")
     print(f"[K6/K7] max abs err {errs}")
     kw = dict(batch=B, chunk_len=T_K6, lr=0.5, eps=0.3, eps_halflife=64,
               lr_anneal_start=1, lr_anneal_tau=4.0, solver_iters=100, seed=9,
@@ -1894,7 +1914,6 @@ def multigrid_phases(torch, dev, card, exploitability, per_step, regs):
           "runs resumed 1 + 1 equal 2, packed and unpacked")
 
     # ---- 25. learning: the --multigrid recipe --------------------------
-    mgc = tuple(EnvConfig(*b) for b in MG_BOARDS)
     for packed in (True, False):
         timing = {}
         torch.cuda.synchronize()
@@ -1934,9 +1953,12 @@ def multigrid_phases(torch, dev, card, exploitability, per_step, regs):
           f"{B * T_K3 / (med_k / 1e3)} env-steps/s (median of {len(legs)} "
           f"legs x {reps} calls; legs ms/call {legs}); plain {med_p} ms/call "
           f"| {card}")
+    b_recipe = MG_RECIPE["batch"]
     timed = (("mixture", mix, B, (K6, K7M)), ("mixture", mix, B_WIDE, (K6,)),
-             ("5x4+11x7", big, B, (K6,)), ("5x4", c54, B, (K7,)),
-             ("11x7", c117, B, (K7,)))
+             ("5x4+11x7", big, B, (K6,)),
+             ("5x4+6x5", mgc, b_recipe, (K6, K7M)),
+             ("5x4", c54, B, (K7,)), ("11x7", c117, B, (K7,)))
+    calls = {}
     for label, cfg, BB, names in timed:
         m2, m, state = mg_inputs(torch, lk, cfg, BB, dev, 5)
         for name in names:
@@ -1948,8 +1970,7 @@ def multigrid_phases(torch, dev, card, exploitability, per_step, regs):
                 slow_legs=3)
             if BB == B and label in ("mixture", "5x4"):
                 ms[name], ms[name + "_plain"] = med_k, med_p
-            if name == K7 and label == "11x7":
-                ms_117 = med_k
+            calls[name, label, BB] = med_k
             print(f"[time] {name} {label} B={BB} T={T_K6}: {med_k} ms/call, "
                   f"{BB * T_K6 / (med_k / 1e3)} learner env-steps/s (median "
                   f"of {len(legs)} legs x {reps} calls; legs ms/call {legs});"
@@ -1958,20 +1979,45 @@ def multigrid_phases(torch, dev, card, exploitability, per_step, regs):
         torch, lambda: sk.multigrid_rollout(mix, 1, B, T_K3, dev),
         f"multigrid_rollout mixture B={B} T={T_K3}", "mg_rollout_kernel",
         card)}
-    for label, cfg, BB, name in (("mixture", mix, B, K6),
-                                 ("mixture", mix, B_WIDE, K6),
-                                 ("mixture", mix, B, K7M),
+    for label, cfg, BB, name in (("mixture", mix, B, K7M),
                                  ("5x4", c54, B, K7)):
+        _, m, state = mg_inputs(torch, lk, cfg, BB, dev, 5)
+        us[name] = profile_window(
+            torch, lambda: run_chunk(lk, name, cfg, 77, m, state, BB, T_K6),
+            f"{name} {label} B={BB} T={T_K6}", "chunk_kernel<false", card)
+    # the design lines of K6 and K7 multigrid in each cell, with their
+    # device time by CUDA-graph replay (memset, prep pass, kernel)
+    from gym_soccer_tpu_torch.ops import rollout_variants
+    for label, cfg, BB, names in timed[:4]:
         m2, m, state = mg_inputs(torch, lk, cfg, BB, dev, 5)
-        table = m2 if name == K6 else m
-        got = profile_window(
-            torch, lambda: run_chunk(lk, name, cfg, 77, table, state, BB,
-                                     T_K6),
-            f"{name} {label} B={BB} T={T_K6}",
-            "learner_kernel" if name == K6 else "chunk_kernel<false", card)
-        if name != K6:
-            us[name] = got
-    # the design lines of the split kernels K3 and K7 (both sites)
+        n, lanes = lk.n_codes(cfg), lc.default_lanes(BB)
+        shared = lc.shared_rows(cfg)
+        smem = lc.smem_bytes(lanes, n if shared else 0, True)
+        check(lk._library().gst_chunk_smem_bytes(lanes, n, 1) == smem,
+              "K6/K7 multigrid's shared memory differs from "
+              "learner_codes.smem_bytes")
+        for name in names:
+            table = m2 if name == K6 else m
+            device = rollout_variants._device_ms(lambda: run_chunk(
+                lk, name, cfg, 77, table, state, BB, T_K6))
+            key = name + (" arith" if shared else "")
+            sym = (ARITH_SYMBOL if shared else SYMBOL)[name]
+            reg = [r for k, r in regs.items() if sym in k]
+            old = MG_OLD_DEVICE_MS.get((name, label, BB))
+            old = ("" if old is None else f" against the previous design's "
+                   f"{old} ms ({old / device}x)")
+            print(f"[design] {name} {label} B={BB} T={T_K6} (rows in "
+                  f"{'shared memory' if shared else 'L2'}): {lanes} lanes and "
+                  f"{lc.PRODUCER_WARPS} producer warps a block "
+                  f"({-(-BB // lanes)} blocks of "
+                  f"{lanes + 32 * lc.PRODUCER_WARPS} threads), {smem} B of "
+                  f"shared memory per block, {reg} registers per thread; "
+                  f"{per_step[key]} SASS per lane-step, bound "
+                  f"{bound(BB * T_K6, per_step[key], 0)[0]} ms; "
+                  f"{calls[name, label, BB]} ms/call, {device} ms of device "
+                  f"time (CUDA graph replay: memset, prep pass, kernel){old} "
+                  f"| {card}")
+    # the design lines of the split kernels K3 and K7
     lanes = rc.DEFAULT_LANES
     check(sk._library().gst_mg_rollout_smem_bytes(lanes)
           == rc.mg_smem_bytes(lanes), "K3's shared memory differs from "
@@ -1981,20 +2027,18 @@ def multigrid_phases(torch, dev, card, exploitability, per_step, regs):
                "")]
     lanes = lc.default_lanes(B)
     for name, label, cfg, arith in ((K7, "5x4", c54, False),
-                                    (K7, "11x7", c117, True),
-                                    (K7M, "mixture", mix, False)):
+                                    (K7, "11x7", c117, True)):
         shared = lc.shared_rows(cfg)
-        smem = lc.smem_bytes(lanes, lk.n_codes(cfg) if shared else 0,
-                             name == K7M)
+        smem = lc.smem_bytes(lanes, lk.n_codes(cfg) if shared else 0)
         check(lk._library().gst_chunk_smem_bytes(
-            lanes, lk.n_codes(cfg), int(name == K7M)) == smem,
+            lanes, lk.n_codes(cfg), 0) == smem,
             f"{name}'s shared memory differs from learner_codes.smem_bytes")
         design.append((name, label, T_K6, name + " arith" if arith else name,
                        (ARITH_SYMBOL if arith else SYMBOL)[name], lanes, smem,
                        f" (rows in {'shared memory' if shared else 'L2'})"))
     for name, label, T, key, sym, lanes, smem, rows in design:
         reg = [r for k, r in regs.items() if sym in k]
-        now = ms_117 if label == "11x7" else ms[name]
+        now = (calls[name, label, B] if name == K7 else ms[name])
         old = ("" if label == "11x7" else
                f", {us[name]} us of kernel a launch, against the previous "
                f"design's {MG_OLD_MS[name]} ms ({MG_OLD_MS[name] / now}x)")

@@ -4,19 +4,19 @@
 // learner_kernel.py, one body each side:
 //   chunk_kernel<true, *, false>   <- `_packed_kernel` (K5, wrapper
 //                                     `packed_learner_chunk`)
-//   learner_kernel<true, true>     <- `_mg_packed_kernel` (K6, wrapper
+//   chunk_kernel<true, *, true>    <- `_mg_packed_kernel` (K6, wrapper
 //                                     `multigrid_packed_learner_chunk`)
 //   chunk_kernel<false, *, false>  <- `_learner_kernel` (K7, wrapper
 //                                     `learner_chunk`)
 //   chunk_kernel<false, *, true>   <- `_mg_learner_kernel` (K7, wrapper
 //                                     `multigrid_learner_chunk`)
-// each chunk_kernel launch after its prep pass prep_rows_kernel (its
-// middle flag: the prepared rows in shared memory or in L2).  The JAX
-// package serves all four from `_packed_body` / `_learner_body`, whose
-// only switches are the accumulation layout and `planes is None`.  Here
-// K5 and K7 share the split design below (chunk_kernel<kPacked, kShared,
-// kMulti>); learner_kernel, the previous design, serves K6 alone (and
-// ops/learner_variants.py's previous-design variants of K5 and K7).
+// each launch after its prep pass prep_rows_kernel (the middle flag: the
+// prepared rows in shared memory or in L2).  The JAX package serves all
+// four from `_packed_body` / `_learner_body`, whose only switches are the
+// accumulation layout and `planes is None`.  Here all four share the split
+// design below (chunk_kernel<kPacked, kShared, kMulti>); learner_kernel,
+// the previous design, serves only ops/learner_variants.py's
+// previous-design variants of K5, K6 and K7.
 //
 // What it computes, for every lane (one independent game) and step i:
 // three murmur3 counter words keyed on (chunk seed, i, word, global lane);
@@ -58,13 +58,13 @@
 // after resets.  The 5x4 tables are 48 KB packed and 159 KB unpacked, the
 // accumulators 331 KB; all of it stays in the 50 MB L2.
 //
-// What the design of K6 (learner_kernel) does about it: one thread per
-// lane with the state, its board (kMulti) and the pending retirement in
-// registers and a loop over the steps (K1's previous shape); the table is
-// indexed directly by compact code and read through the read-only path
-// (__ldg), in place of the TPU's one-hot matmul gathers and scatters over
-// packed rows; atomics go straight to L2.  There is no VMEM budget to
-// guard: any grid and any mixture runs.
+// What the previous design (learner_kernel, PRs 1-6) did about it: one
+// thread per lane with the state, its board (kMulti) and the pending
+// retirement in registers and a loop over the steps (K1's previous shape);
+// the table indexed directly by compact code and read through the
+// read-only path (__ldg), in place of the TPU's one-hot matmul gathers and
+// scatters over packed rows; atomics straight to L2.  There is no VMEM
+// budget to guard: any grid and any mixture runs.
 //
 // K5.  In that design (64 blocks of 128 at 8192 lanes, 68 SMs idle) a
 // step took ~2,160 cycles of one warp's chain for ~281 SASS: 76.6 us of
@@ -121,6 +121,22 @@
 // on 11x7 and 43.7 on the 3-board mixture, against the previous design's
 // 91.3, 96.0 and 69.8 us; q(s, a) in shared memory too gains 2 % on 5x4,
 // so it stays in L2.  The calls are host-bound (the wrapper's work).
+//
+// K6 is K7 multigrid's instance on the packed table, chunk_kernel<true,
+// kShared, true>: the same producers (the lane's slip entry from shared
+// memory), one consumer a lane keeping its board and row offset in
+// registers, and K5's baseline v(s) from the prepared row, so no q(s, a)
+// load.  The rows go to shared memory where shared_rows allows it (the
+// --multigrid recipe's 5x4 + 6x5: 3,624 codes, 223,200 B a block at 512
+// lanes; a one-board mixture) and are read from L2 elsewhere (the 3-board
+// mixture's 8,928 codes, 5x4 + 11x7's 14,720).  A window of a block's own
+// variants' rows would not bring those under the budget: 8x6's rows alone
+// are 254,592 B.  On an NVIDIA H100 80GB HBM3 at 700 W
+// (ops/learner_variants.py, device time with the memset and the prep pass)
+// an 8192 x 64 chunk takes 43.1 us on the 3-board mixture and a 16384 x 64
+// one 44.4 us on 5x4 + 6x5, against the previous design's 55.7 and 56.4
+// (64 or 128 blocks of 128 threads, each thread a whole lane-step); at
+// 32768 x 64 both take 92-96 us, 41 of them the accumulation atomics.
 
 #include "pipeline.cuh"
 
@@ -134,9 +150,10 @@ constexpr int kNJ = 25;    // joint actions
 constexpr float kFix = 4294967296.0f;  // 2^32: fixed-point scale
 
 // First exceedance of u * total over the running sums of five
-// probabilities, summed in index order (learner_kernel.py `sample5`).
-__device__ __forceinline__ int sample5(const float* __restrict__ pi,
-                                       float u) {
+// probabilities, summed in index order (learner_kernel.py `sample5`); the
+// previous design's sampler, so unreferenced where no variant builds it.
+[[maybe_unused]] __device__ __forceinline__ int sample5(
+    const float* __restrict__ pi, float u) {
   float c[5];
 #pragma unroll
   for (int k = 0; k < 5; ++k) c[k] = __ldg(pi + k);
@@ -260,7 +277,7 @@ __global__ void learner_kernel(Planes in, Planes out, Planes geo,
 }
 
 // ---------------------------------------------------------------------
-// K5 and K7 (both sites): producer warps make step codes, consumer
+// K5, K6 and K7 (both sites): producer warps make step codes, consumer
 // threads walk and learn
 // ---------------------------------------------------------------------
 
@@ -292,7 +309,8 @@ __host__ __device__ constexpr int chunk_smem_bytes(int lanes, int n_rows,
 }
 
 // The rows go to shared memory when they fit beside the ring of the
-// widest block (learner_codes.shared_rows: 5x4's 1104 codes, 52,992 B).
+// widest block (learner_codes.shared_rows: 5x4's 1104 codes, 52,992 B; the
+// mixture 5x4 + 6x5's 3,624, 173,952 B).
 __host__ __device__ constexpr bool shared_rows(int n_codes, bool multi) {
   return chunk_smem_bytes(kMaxLanes, n_codes, multi) <= kSmemBudget;
 }
@@ -485,7 +503,7 @@ struct OneBoard {
   }
 };
 
-// A lane's own board on a mixture (K7 multigrid): its geometry in
+// A lane's own board on a mixture (K6, K7 multigrid): its geometry in
 // registers, its rows from row offset cpo of the concatenated table.
 struct OwnBoard {
   LaneBoard b;
@@ -609,10 +627,10 @@ __device__ __forceinline__ void learn_consume(const ChunkArgs& a, Board board,
   warp_sum(a.stats, step.rew, step.goals, step.truncs);
 }
 
-// K5 (kPacked) and K7: blocks of a.lanes consumer threads, one a lane,
-// then kProducers producer warps; with kShared the prepared rows are
+// K5, K6 (kPacked) and K7: blocks of a.lanes consumer threads, one a
+// lane, then kProducers producer warps; with kShared the prepared rows are
 // copied into shared memory by bulk copies while the producers start.  On
-// a mixture (kMulti, K7 multigrid) each consumer first puts its lane's
+// a mixture (kMulti: K6, K7 multigrid) each consumer first puts its lane's
 // slip entry in shared memory for the producers.
 template <bool kPacked, bool kShared, bool kMulti>
 __global__ void __launch_bounds__(kMaxLanes + 32 * kProducers)
@@ -685,7 +703,7 @@ cudaError_t launch_chunk(const ChunkArgs& a, int device, int smem,
   return cudaGetLastError();
 }
 
-// A split chunk call (K5, K7; kMulti: geo and params = {max_steps}):
+// A split chunk call (K5, K6, K7; kMulti: geo and params = {max_steps}):
 // checks, one memset of the sums, stats and counts, the prep pass, the
 // chunk.
 template <bool kPacked, bool kMulti>
@@ -759,25 +777,17 @@ int launch(int device, void* const* in, void* const* out, void* const* geo,
 
 extern "C" {
 
-// K6.  device: the CUDA ordinal of every pointer and of the stream;
-// in/out: host arrays of 6 device pointers to int32 [B]; geo: host array of
-// 6 device pointers to int32 [B] (H, W, glo, ghi, q_int, row offset);
-// table: device float32 [n_codes, 11]; sums: device int64 [n_codes, 25]
-// and cnt: device int32 [n_codes, 25], both zeroed by the caller; stats:
-// device int64 [4] (reward sum, goals, truncations, table values outside
-// +-limit), zeroed by the caller; params: {max_steps}; threads: a
-// multiple of 32 in [32, 1024].
+// K6.  As K7 multigrid (gst_multigrid_learner_chunk), with table: device
+// float32 [n_codes, 11].
 int gst_multigrid_packed_learner_chunk(int device, void* const* in,
-                                       void* const* out, void* const* geo,
-                                       const float* table, long long* sums,
-                                       int* cnt, long long* stats,
-                                       const int32_t* params, int B,
-                                       int n_steps, uint32_t seed,
-                                       float gamma, float limit, int threads,
+                                       void* const* geo, void* buf,
+                                       const float* table,
+                                       const int32_t* params, int n_codes,
+                                       int B, int n_steps, uint32_t seed,
+                                       float gamma, float limit, int lanes,
                                        void* stream) {
-  return launch<true, true>(device, in, out, geo, table, sums, cnt, stats,
-                            params, B, n_steps, seed, gamma, limit, threads,
-                            stream);
+  return chunk<true, true>(device, in, geo, buf, table, params, n_codes, B,
+                           n_steps, seed, gamma, limit, lanes, stream);
 }
 
 // K5.  in: host array of 6 device pointers to int32 [B]; buf: one device

@@ -1,9 +1,9 @@
 // Device code shared by the split rollout and learner kernels (step_kernel.cu:
-// K1, K2, K3, K4; learner_kernel.cu: K5, K7; iql_kernel.cu: K8, K9;
+// K1, K2, K3, K4; learner_kernel.cu: K5, K6, K7; iql_kernel.cu: K8, K9;
 // altq_kernel.cu: K10, K11): the pieces of a lane-step that follow from
 // (seed, step, lane) alone, the named barriers and bulk copies (TMA) of the
 // producer/consumer pipeline, the branch-free transitions under effective
-// moves, and a lane's own board as the mixed-geometry kernels (K3, K7
+// moves, and a lane's own board as the mixed-geometry kernels (K3, K6, K7
 // multigrid) walk it.
 //
 // A kernel that includes it splits each lane-step in two: producer warps

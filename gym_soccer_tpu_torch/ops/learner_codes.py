@@ -1,19 +1,20 @@
-"""The two stages of the K5 and K7 learner kernels, on the host.
+"""The two stages of the K5, K6 and K7 learner kernels, on the host.
 
 ``csrc/learner_kernel.cu`` splits a lane-step of ``packed_learner_chunk``
-(K5), ``learner_chunk`` and ``multigrid_learner_chunk`` (K7, its two
-call sites) in two, as K1/K2 split a rollout step (ops/rollout_codes.py).
-Producer warps hash each (lane, step) into the step's 40 random bits that
-follow from (chunk seed, step, lane) alone: word 0 as it is (the two 16-bit
-sampling uniforms) and a side byte holding each player's slip class (0:
-keep the move, 1: its first orthogonal, 2: its second), the two coin bits
-and the ISD index.  Consumer threads, one a lane, read the state's
-prepared row, retire the previous step, sample both actions, map each
-action and slip class to its effective move and step by the branch-free
-transition.  This module holds what the host needs for that and a plain
-PyTorch twin of both stages, written the way the kernel computes them, so
-that the CPU tests can hold the design to the plain versions
-(``packed_learner_chunk_plain``, ``learner_chunk_plain``,
+(K5), ``multigrid_packed_learner_chunk`` (K6), ``learner_chunk`` and
+``multigrid_learner_chunk`` (K7, its two call sites) in two, as K1/K2 split
+a rollout step (ops/rollout_codes.py).  Producer warps hash each (lane,
+step) into the step's 40 random bits that follow from (chunk seed, step,
+lane) alone: word 0 as it is (the two 16-bit sampling uniforms) and a side
+byte holding each player's slip class (0: keep the move, 1: its first
+orthogonal, 2: its second), the two coin bits and the ISD index.  Consumer
+threads, one a lane, read the state's prepared row, retire the previous
+step, sample both actions, map each action and slip class to its effective
+move and step by the branch-free transition.  This module holds what the
+host needs for that and a plain PyTorch twin of both stages, written the
+way the kernel computes them, so that the CPU tests can hold the design to
+the plain versions (``packed_learner_chunk_plain``,
+``multigrid_packed_learner_chunk_plain``, ``learner_chunk_plain``,
 ``multigrid_learner_chunk_plain``) bit for bit and to the JAX package:
 
 * ``learner_codes``: the producers' stage.
@@ -23,14 +24,16 @@ that the CPU tests can hold the design to the plain versions
   roundings as ``sample5``), v and the row's first accumulator cell (k *
   25, as int32 bits): [cA0, cA1, cA2, cA3 | totA, cB0, cB1, cB2 | cB3,
   totB, v, cell], 48 B.  Where they fit one block's shared memory beside
-  the widest ring (``shared_rows``: 5x4's 1104 rows, 52,992 B), the kernel
-  copies them there; elsewhere (11x7, a mixture's 8,928) it reads them
-  from L2.  K7's 36-column table gives the same rows.
-* ``chunk_twin``: the consumers' stage over a whole chunk.  K7 retires
-  each visit against q(s, a), loaded from its table after the sample; on
-  a mixture each lane's slip classes and ISD index are its board's, its
-  row is offset by its variant's block, and its resets are computed as
-  K3's are (csrc/pipeline.cuh ``LaneBoard``).
+  the widest ring (``shared_rows``: 5x4's 1104 rows, 52,992 B; the
+  ``--multigrid`` recipe's 5x4 + 6x5, 3,624 rows), the kernel copies them
+  there; elsewhere (11x7, the 3-board mixture's 8,928) it reads them from
+  L2.  K7's 36-column table gives the same rows.
+* ``chunk_twin``: the consumers' stage over a whole chunk.  K5 and K6
+  retire each visit against v(s), K7 against q(s, a), loaded from its
+  table after the sample; on a mixture (K6, K7 multigrid) each lane's slip
+  classes and ISD index are its board's, its row is offset by its
+  variant's block, and its resets are computed as K3's are
+  (csrc/pipeline.cuh ``LaneBoard``).
 """
 from __future__ import annotations
 
@@ -125,27 +128,29 @@ def smem_bytes(lanes: int, n_rows: int, multi: bool = False) -> int:
 def shared_rows(cfg) -> bool:
     """The geometry's choice (``cfg`` one board or a mixture): the prepared
     rows in shared memory when they fit beside the ring of the widest block
-    (5x4: 1104 codes); in device memory otherwise (11x7: 13612; the
-    3-board mixture: 8928)."""
+    (5x4: 1104 codes; 5x4 + 6x5: 3624, 223,200 B with a mixture's slip
+    entries); in device memory otherwise (11x7: 13612; the 3-board
+    mixture: 8928; 5x4 + 11x7: 14720)."""
     multi = isinstance(cfg, tuple)
     return smem_bytes(MAX_LANES, lk.n_codes(cfg), multi) <= SMEM_BUDGET
 
 
 def default_lanes(batch: int) -> int:
     """Lanes per block for ``batch`` lanes: the fewest multiple of 32 that
-    keeps the grid to one wave of SMS blocks (8192: 64, 65536: 512)."""
+    keeps the grid to one wave of SMS blocks (8192: 64, 16384: 128, 32768:
+    256, 65536: 512)."""
     return min(MAX_LANES, max(32, -(-batch // (SMS * 32)) * 32))
 
 
 def check_lanes(batch: int, threads) -> int:
-    """The lanes per block of a K5 or K7 launch: ``threads``, or
+    """The lanes per block of a K5, K6 or K7 launch: ``threads``, or
     ``default_lanes(batch)`` when None: a multiple of 32 in [32,
     MAX_LANES] (every one fits its shared memory), else ValueError."""
     return rc.lanes_per_block(threads, default_lanes(batch))
 
 
 class Layout(NamedTuple):
-    """Byte offsets in the one allocation of a K5 or K7 call: the int64
+    """Byte offsets in the one allocation of a K5, K6 or K7 call: the int64
     sums, the int64 stats and the int32 counts (zeroed together, up to
     ``zero``), the six output planes and the prep pass's rows
     (csrc/learner_kernel.cu ``chunk_layout``)."""
@@ -208,7 +213,7 @@ def chunk_twin(cfg, seed: int, table: torch.Tensor, fields, n_steps: int,
     plain version returns.  ``table``'s width picks the layout: 11 columns
     K5's residuals against v(s), 36 K7's TD against q(s, a); ``planes``
     (the six planes of ``init_state_fields(cfgs, ...)``, ``cfg`` a tuple)
-    puts each lane on its own board, K7's multigrid site."""
+    puts each lane on its own board, K6 or K7's multigrid site."""
     packed = table.shape[1] == lk.TABLE_COLS
     fields = tuple(f.to(torch.int64) for f in fields)
     B = fields[0].shape[0]

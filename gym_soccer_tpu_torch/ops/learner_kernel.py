@@ -43,9 +43,9 @@ contiguous blocks (``init_state_fields``), and six per-lane planes give
 each lane its board (H, W, goal rows, slip) and its block's row offset.
 
 A wrapper runs the plain PyTorch version when its tensors lie on the CPU
-and launches the kernel (``csrc/learner_kernel.cu``: K5 and K7 one split
-template, K6 the previous design) when they lie on a CUDA device; there is
-no fallback from one to the other.  The chunk wrappers take their device
+and launches the kernel (``csrc/learner_kernel.cu``: K5, K6 and K7 one
+split template) when they lie on a CUDA device; there is no fallback from
+one to the other.  The chunk wrappers take their device
 from their tensors; the functions that make their own tensors (the
 trainers, ``init_state_fields``) default to "cuda": CPU callers pass
 "cpu".
@@ -241,9 +241,10 @@ unpack_acc = unpack_acc2
 # ----------------------------------------------------------------------
 
 def _check_chunk_args(cfg, table, fields, batch: int, n_steps: int,
-                      cols: int = TABLE_COLS, n_fields: int = 6):
+                      cols: int = TABLE_COLS, n_fields: int = 6, n=None):
     """The fields as a tuple, once the shapes, types and the one device of
-    the table and the ``n_fields`` fields are checked."""
+    the table (``n`` rows: by default ``n_codes(cfg)``) and the
+    ``n_fields`` fields are checked."""
     if batch <= 0 or batch % LANES:
         raise ValueError(f"batch must be a positive multiple of {LANES}, "
                          f"got {batch}")
@@ -254,7 +255,7 @@ def _check_chunk_args(cfg, table, fields, batch: int, n_steps: int,
             f"batch * n_steps = {batch * n_steps} exceeds 2**29: the int64 "
             "fixed-point sums could overflow")
     device = table.device
-    shape = (n_codes(cfg), cols)
+    shape = (n_codes(cfg) if n is None else n, cols)
     if (table.dtype != torch.float32 or tuple(table.shape) != shape
             or not table.is_contiguous()):
         raise ValueError(f"table must be a contiguous float32 {shape} tensor; "
@@ -369,30 +370,79 @@ _NAMES = {(True, False): "packed_learner_chunk",
           (False, False): "learner_chunk",
           (False, True): "multigrid_learner_chunk"}
 
+# The mixture and the planes the mixture wrappers checked last, with what
+# they found: a trainer passes the same ones every chunk.
+_seen = {"mixture": None, "planes": None}
+
+
+def _mixture(cfgs):
+    """(the variants as ``check_variants`` returns them, their n_codes).  A
+    tuple is remembered by identity: a tuple of frozen EnvConfigs cannot
+    change, and holding it keeps its id its own."""
+    seen = _seen["mixture"]
+    if seen is not None and cfgs is seen[0]:
+        return seen[1]
+    checked = sk.check_variants(cfgs)
+    found = (checked, n_codes(checked))
+    if type(cfgs) is tuple:
+        _seen["mixture"] = (cfgs, found)
+    return found
+
+
+def _versions(planes):
+    """The planes' version counters, which an in-place change (``add_``,
+    ``resize_``, ``set_``) moves on; None if a plane keeps none (an
+    inference tensor)."""
+    if any(p.is_inference() for p in planes):
+        return None
+    return tuple(p._version for p in planes)
+
+
+def _mixture_planes(planes, batch: int, device):
+    """(the six geometry planes as a tuple, once ``_check_planes`` passes
+    them, and their device pointers).  The last planes passed are
+    remembered: the same six tensors at the versions they were checked at,
+    for the same batch and device, are not checked again (planes without
+    version counters are checked every call).  Holding them keeps their
+    ids their own."""
+    planes = tuple(planes)
+    seen = _seen["planes"]
+    if (seen is not None and seen[2] == batch and seen[3] == device
+            and len(planes) == 6
+            and all(a is b for a, b in zip(planes, seen[0]))
+            and _versions(planes) == seen[1]):
+        return seen[0], seen[4]
+    planes = _check_planes("planes", planes, batch, device)
+    ptrs = sk.ptr_array(planes)
+    versions = _versions(planes)
+    if versions is not None:
+        _seen["planes"] = (planes, versions, batch, device, ptrs)
+    return planes, ptrs
+
 
 def _chunk(packed: bool, cfg, seed, table, planes, fields, batch, n_steps,
            gamma, threads, plain: bool):
     multi = planes is not None
     name = _NAMES[packed, multi]
     if multi:
-        cfg = sk.check_variants(cfg)
+        cfg, n = _mixture(cfg)
     elif isinstance(cfg, tuple):
         raise ValueError(f"{name} takes one EnvConfig; a mixture runs "
                          f"{_NAMES[packed, True]}")
+    else:
+        n = n_codes(cfg)
     if not 0.0 <= gamma <= 1.0:
         raise ValueError(f"gamma must lie in [0, 1], got {gamma}")
     fields = _check_chunk_args(
         cfg, table, fields, batch, n_steps,
-        TABLE_COLS if packed else TABLE_COLS_UNPACKED)
+        TABLE_COLS if packed else TABLE_COLS_UNPACKED, n=n)
+    geo_ptrs = None
     if multi:
-        planes = _check_planes("planes", planes, batch, table.device)
+        planes, geo_ptrs = _mixture_planes(planes, batch, table.device)
     if plain or table.device.type == "cpu":
         return _plain(cfg, seed, table, fields, n_steps, gamma, packed,
                       planes)
-    if name == "multigrid_packed_learner_chunk":
-        return _launch(name, cfg, seed, table, planes, fields, n_steps, gamma,
-                       threads)
-    return _launch_chunk(name, cfg, seed, table, planes, fields, batch,
+    return _launch_chunk(name, cfg, n, seed, table, geo_ptrs, fields, batch,
                          n_steps, gamma, threads)
 
 
@@ -438,7 +488,7 @@ def packed_learner_chunk_plain(cfg: EnvConfig, seed: int, table, fields,
 
 def multigrid_packed_learner_chunk(cfgs: tuple, seed: int, table, planes,
                                    fields, batch: int, n_steps: int,
-                                   gamma: float = 0.99, threads: int = 128):
+                                   gamma: float = 0.99, threads=None):
     """``packed_learner_chunk`` over a mixture of boards (kernel K6).
 
     ``cfgs``: a tuple of 1 to 16 EnvConfigs sharing max_steps; ``table``:
@@ -447,10 +497,18 @@ def multigrid_packed_learner_chunk(cfgs: tuple, seed: int, table, planes,
     ``init_state_fields(cfgs, ...)``.  Each lane steps on its own board and
     accumulates into its variant's block.  Returns what
     ``packed_learner_chunk`` returns, the accumulators [n_codes(cfgs), 25].
+    ``threads`` is the kernel's lanes per block, as for
+    ``packed_learner_chunk`` (by default one wave: 64 at 8192 lanes, 128 at
+    16384, 256 at 32768).  A trainer passes the same mixture and planes
+    every chunk; they are checked on the first (``_mixture``,
+    ``_mixture_planes``).
 
     On a CPU device this runs ``multigrid_packed_learner_chunk_plain``; on
-    a CUDA device it launches the K6 kernel.
+    a CUDA device it launches the K6 kernel (K7 multigrid's split kernel on
+    the packed table) after its prep pass.
     """
+    from . import learner_codes
+    threads = learner_codes.check_lanes(batch, threads)
     return _chunk(True, cfgs, seed, table, planes, fields, batch, n_steps,
                   gamma, threads, plain=False)
 
@@ -530,51 +588,49 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [i32, vp, vp, vp] + tail   # device, in, buf, table
         fn.restype = i32
     # device, in, geo, buf, table
-    lib.gst_multigrid_learner_chunk.argtypes = [i32, vp, vp, vp, vp] + tail
-    lib.gst_multigrid_learner_chunk.restype = i32
+    for fn in (lib.gst_multigrid_packed_learner_chunk,
+               lib.gst_multigrid_learner_chunk):
+        fn.argtypes = [i32, vp, vp, vp, vp] + tail
+        fn.restype = i32
     lib.gst_chunk_layout.argtypes = [i32, i32, vp]
     lib.gst_chunk_layout.restype = None
     lib.gst_chunk_smem_bytes.argtypes = [i32, i32, i32]
     lib.gst_chunk_smem_bytes.restype = i32
     lib.gst_chunk_shape.argtypes = [vp]
     lib.gst_chunk_shape.restype = None
-    fn = lib.gst_multigrid_packed_learner_chunk
-    fn.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp, vp, i32, i32,
-                   ctypes.c_uint32, f32, f32, i32, vp]
-    # device, in, out, geo, table, sums, cnt, stats, params, B, T, seed,
-    # gamma, limit, threads, stream
-    fn.restype = i32
     lib.gst_error_string.argtypes = [i32]
     lib.gst_error_string.restype = ctypes.c_char_p
     return lib
 
 
 @functools.lru_cache(maxsize=16)
-def _chunk_host(name: str, cfg):
-    """(cached per kernel and board) What a split chunk's call passes
-    unchanged: the entry point, the game description (a mixture's:
-    {max_steps}) and the number of codes."""
-    params = (sk._game_params(cfg) if not isinstance(cfg, tuple)
-              else (ctypes.c_int32 * 1)(cfg[0].max_steps))
-    return getattr(_library(), "gst_" + name), params, n_codes(cfg)
+def _entry(name: str, key):
+    """(cached per kernel and board) A split chunk's entry point and the
+    game description its call passes unchanged: board ``key``'s, or for a
+    mixture ({max_steps}) ``key`` the max_steps."""
+    params = (sk._game_params(key) if isinstance(key, EnvConfig)
+              else (ctypes.c_int32 * 1)(key))
+    return getattr(_library(), "gst_" + name), params
 
 
-def _launch_chunk(name: str, cfg, seed: int, table, planes, fields,
-                  batch: int, n_steps: int, gamma: float, lanes: int):
-    """Launch K5 or K7 (``planes``: its multigrid site) at ``lanes`` lanes
-    per block.  Its outputs (the six planes, the sums, the counts and the
-    stats) and the prep pass's rows are one allocation, zeroed where it
-    sums by one memset in the launch."""
+def _launch_chunk(name: str, cfg, n: int, seed: int, table, geo_ptrs,
+                  fields, batch: int, n_steps: int, gamma: float,
+                  lanes: int):
+    """Launch K5, K6 or K7 (``geo_ptrs``: a mixture's planes, K6 and K7
+    multigrid) on ``n`` codes at ``lanes`` lanes per block.  Its outputs
+    (the six planes, the sums, the counts and the stats) and the prep
+    pass's rows are one allocation, zeroed where it sums by one memset in
+    the launch."""
     from . import learner_codes
     dev = table.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
-    fn, params, n = _chunk_host(name, cfg)
+    multi = geo_ptrs is not None
+    fn, params = _entry(name, cfg[0].max_steps if multi else cfg)
     lay = learner_codes.layout(n, batch)
     b64 = torch.empty(lay.total // 8, dtype=torch.int64, device=dev)
     in_ptrs = sk.ptr_array(fields)
-    geo_ptrs = None if planes is None else sk.ptr_array(planes)
-    geo = () if geo_ptrs is None else (ctypes.addressof(geo_ptrs),)
+    geo = (ctypes.addressof(geo_ptrs),) if multi else ()
     rc = fn(dev.index, ctypes.addressof(in_ptrs), *geo, b64.data_ptr(),
             table.data_ptr(), ctypes.addressof(params), n, batch, n_steps,
             seed & sk.M32, _f32(gamma), value_limit(batch, n_steps), lanes,
@@ -589,34 +645,6 @@ def _launch_chunk(name: str, cfg, seed: int, table, planes, fields,
             (b64.as_strided((n, NJ), (NJ, 1), 0),
              b32.as_strided((n, NJ), (NJ, 1), lay.cnt // 4)),
             b64.as_strided((4,), (1,), lay.stats // 8).unbind())
-
-
-def _launch(name: str, cfg, seed: int, table, planes, fields, n_steps: int,
-            gamma: float, threads: int):
-    """Launch K6 (the previous design) at ``threads`` threads a block."""
-    dev = table.device
-    sk.check_threads(name, dev, threads)
-    lib = _library()
-    B = fields[0].shape[0]
-    out = tuple(torch.empty_like(f) for f in fields)
-    sums = torch.zeros((n_codes(cfg), NJ), dtype=torch.int64, device=dev)
-    cnt = torch.zeros((n_codes(cfg), NJ), dtype=torch.int32, device=dev)
-    stats = torch.zeros(4, dtype=torch.int64, device=dev)
-    in_ptrs, out_ptrs = sk.ptr_array(fields), sk.ptr_array(out)
-    geo_ptrs = sk.ptr_array(planes)
-    params = (ctypes.c_int32 * 1)(cfg[0].max_steps)
-    rc = getattr(lib, "gst_" + name)(
-        dev.index, ctypes.addressof(in_ptrs), ctypes.addressof(out_ptrs),
-        ctypes.addressof(geo_ptrs),
-        table.data_ptr(), sums.data_ptr(), cnt.data_ptr(), stats.data_ptr(),
-        ctypes.addressof(params), B, n_steps, seed & sk.M32,
-        float(np.float32(gamma)), value_limit(B, n_steps), threads,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc:
-        raise RuntimeError(f"{name}: kernel launch failed: "
-                           f"{lib.gst_error_string(rc).decode()} ({rc})")
-    launch_counts[name] += 1
-    return out, (sums, cnt), tuple(stats.unbind())
 
 
 # ----------------------------------------------------------------------
@@ -770,7 +798,8 @@ def fused_minimax_train(cfg, batch: int, n_chunks: int,
       variants in order (core/multigrid ``build_codec``'s offsets);
     * ``packed`` (default True): the residual layout (K5, or K6 for a
       mixture), whose sums the trainer completes with cnt * (v - q);
-      False: the TD layout (K7), whose table carries q.  Both step the
+      False: the TD layout (K7, at its multigrid site for a mixture), whose
+      table carries q.  Both step the
       same trajectories for the same policies;
     * schedules over the chunk index k, computed on the host in float64
       and rounded to float32: lr_k = lr * 0.5**(k * chunk_len /

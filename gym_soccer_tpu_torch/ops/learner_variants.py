@@ -1,15 +1,20 @@
-"""Time variants of the K5 and K7 learner kernels on a CUDA card.
+"""Time variants of the K5, K6 and K7 learner kernels on a CUDA card.
 
 Each variant is ``csrc/learner_kernel.cu`` with a few text patches
-(`VARIANTS` for K5, `K7_VARIANTS` for K7), built beside the port's own
-build.  K5's are launched through ``packed_learner_chunk`` at
-``chip_smoke.py``'s shapes: 8192 lanes x 64 steps (the flagship chunk) and
-65536 x 32 (the 5x4 contract's chunk), on 5x4 and 11x7, slip 0.2.  K7's
-are launched through ``learner_chunk`` at 8192 x 64 on 5x4 and 11x7 and
-``multigrid_learner_chunk`` at 8192 x 64 on ``tools/bench_all.py``'s
-3-board mixture.  Each runs at the lanes per block listed beside it (None:
-the default for the batch).  Design variants (the previous design, the
-rows read from L2 on 5x4 too, warp-aggregated atomics, q(s, a) read from
+(`VARIANTS` for K5, `K6_VARIANTS` for K6, `K7_VARIANTS` for K7), built
+beside the port's own build.  K5's are launched through
+``packed_learner_chunk`` at ``chip_smoke.py``'s shapes: 8192 lanes x 64
+steps (the flagship chunk) and 65536 x 32 (the 5x4 contract's chunk), on
+5x4 and 11x7, slip 0.2.  K6's are launched through
+``multigrid_packed_learner_chunk`` on ``tools/bench_all.py``'s 3-board
+mixture at 8192 x 64 and 32768 x 64, on 5x4 + 11x7 at 8192 x 64 and on
+the ``--multigrid`` recipe's 5x4 + 6x5 (slip 0.2) at its 16384 x 64, the
+one whose prepared rows fit shared memory.  K7's are launched through
+``learner_chunk`` at 8192 x 64 on 5x4 and 11x7 and
+``multigrid_learner_chunk`` at 8192 x 64 on the 3-board mixture.  Each
+runs at the lanes per block listed beside it (None: the default for the
+batch).  Design variants (the previous design, the rows read from L2
+where they fit shared memory, warp-aggregated atomics, q(s, a) read from
 the table in shared memory on 5x4, the block sizes) must give the
 committed kernel's fields, stats, counts and int64 sums bit for bit, and
 equal the plain version run on the CPU at 1024 lanes x 16 steps; they are
@@ -25,19 +30,32 @@ variant differs.  Each line gives, per board, two times, both the median of
 calls it (its host work included), and ``device``, of the same call
 captured in a CUDA graph and replayed (the memset, the prep pass and the
 kernel alone); and the registers, the card's name and its power limit.
-Needs ``nvcc`` and a card.
+
+    python gym_soccer_tpu_torch/ops/learner_variants.py --wrappers ROOT...
+
+times, for each checkout ROOT in turn (each in a process of its own that
+imports the package from there and builds its kernels there), the
+committed K5, K6 and K7 multigrid wrappers at 8192 x 64 (K5 on 5x4, the
+others on the 3-board mixture): call and device ms, their difference, and
+``host``, the host clock's time to issue one call of 100 issued back to
+back from an idle card (the wrapper's host work alone: 100 calls do not
+fill the launch queue).  Give the checkouts to compare in the order
+A B B A.  Needs ``nvcc`` and a card.
 """
 from __future__ import annotations
 
+import os
 import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
-# The committed entries' bodies: K5, K7 and K7 multigrid.
+# The committed entries' bodies: K5, K6, K7 and K7 multigrid.
 _ENTRY = {
     (True, False): """  return chunk<true, false>(device, in, nullptr, buf, table, params, n_codes,
                             B, n_steps, seed, gamma, limit, lanes, stream);""",
+    (True, True): """  return chunk<true, true>(device, in, geo, buf, table, params, n_codes, B,
+                           n_steps, seed, gamma, limit, lanes, stream);""",
     (False, False): """  return chunk<false, false>(device, in, nullptr, buf, table, params,
                              n_codes, B, n_steps, seed, gamma, limit, lanes,
                              stream);""",
@@ -48,7 +66,8 @@ _ENTRY = {
 def _old_entry(packed: bool, multi: bool) -> str:
     """The previous design's body of an entry: one thread a lane hashing,
     sampling and stepping (learner_kernel<kPacked, kMulti>, 64 blocks of
-    128 at 8192 lanes), its outputs placed in the call's one allocation."""
+    128 at 8192 lanes; K6's design up to its redesign), its outputs placed
+    in the call's one allocation."""
     flags = f"{str(packed).lower()}, {str(multi).lower()}"
     return f"""  (void)lanes;
   const ChunkLayout l = chunk_layout(n_codes, B);
@@ -136,6 +155,16 @@ VARIANTS = {
                        (None,)),
     "diag-walk-only": ([(_HASH, _NO_HASH)], (None,)),
 }
+# K6's: "kernel" and "rows-in-l2" are VARIANTS' builds (the rows in L2
+# differ from the kernel on the recipe's mixture alone).
+K6_VARIANTS = {
+    "kernel": ([], (None, 32, 128)),
+    "k6-previous-design": ([(_ENTRY[True, True], _old_entry(True, True))],
+                           (None,)),
+    "rows-in-l2": VARIANTS["rows-in-l2"],
+    "warp-aggregated-atomics": VARIANTS["warp-aggregated-atomics"],
+    "diag-no-atomics": VARIANTS["diag-no-atomics"],
+}
 # K7's: "kernel" and "rows-in-l2" are VARIANTS' builds.
 K7_VARIANTS = {
     "kernel": ([], (None, 32, 96, 128)),
@@ -148,14 +177,20 @@ K7_VARIANTS = {
 SHAPES = ((8192, 64), (65536, 32))
 BOARDS = ((5, 4), (11, 7))
 MIX3 = ((5, 4, 0.2), (6, 5, 0.1), (8, 6, 0.3))   # tools/bench_all.py:421
+MIX_BIG = ((5, 4, 0.2), (11, 7, 0.2))    # examples/train_minimax_tpu.py:141
+MG_BOARDS = ((5, 4, 0.2), (6, 5, 0.2))   # its --multigrid recipe
+# K6's cells: (label, boards, lanes, steps); tools/bench_all.py:333-337
+# runs the packed mixture learner at 32768 lanes, the recipe at 16384.
+K6_CELLS = (("mixture", MIX3, 8192, 64), ("5x4+11x7", MIX_BIG, 8192, 64),
+            ("mixture", MIX3, 32768, 64), ("5x4+6x5", MG_BOARDS, 16384, 64))
 SLIP = 0.2
 
 
 def variant_source(name: str, source: str) -> str:
-    """``source`` with variant ``name``'s patches (of VARIANTS or
-    K7_VARIANTS) applied; ValueError if a patched text does not occur
-    exactly once."""
-    for old, new in {**K7_VARIANTS, **VARIANTS}[name][0]:
+    """``source`` with variant ``name``'s patches (of VARIANTS,
+    K6_VARIANTS or K7_VARIANTS) applied; ValueError if a patched text does
+    not occur exactly once."""
+    for old, new in {**K6_VARIANTS, **K7_VARIANTS, **VARIANTS}[name][0]:
         if source.count(old) != 1:
             raise ValueError(f"variant {name}: its patch matches "
                              f"{source.count(old)} times, not once")
@@ -172,16 +207,16 @@ def _build_variant(name: str, out_dir):
 
 
 def _registers(log: str) -> dict:
-    """{'K5 shared rows' ...: registers} of K5's and K7's kernels in an
-    nvcc log."""
+    """{'K5 shared rows' ...: registers} of K5's, K6's and K7's kernels in
+    an nvcc log."""
     regs = {}
     for m in re.finditer(r"Compiling entry function '(\S+)'.*?Used (\d+) "
                          r"registers", log, re.S):
         k = re.search(r"chunk_kernelILb([01])ELb([01])ELb([01])E", m.group(1))
         old = re.search(r"learner_kernelILb([01])ELb([01])E", m.group(1))
         if k:
-            regs[("K5 " if k.group(1) == "1" else
-                  "K7 multigrid " if k.group(3) == "1" else "K7 ")
+            regs[{"10": "K5 ", "11": "K6 ", "00": "K7 ",
+                  "01": "K7 multigrid "}[k.group(1) + k.group(3)]
                  + ("shared rows" if k.group(2) == "1" else "rows in L2")] = \
                 int(m.group(2))
         elif old:
@@ -210,12 +245,15 @@ def _inputs(torch, lk, cfg, batch, device, seed, packed):
 
 
 def _chunk(lk, cfg, seed, table, state, batch, steps, lanes=None):
-    """K5 (an 11-column table), K7 or K7 multigrid (``cfg`` a tuple)."""
+    """K5 or K6 (an 11-column table), K7 or K7 multigrid (``cfg`` a
+    tuple: K6 or K7 multigrid)."""
+    packed = table.shape[1] == lk.TABLE_COLS
     if isinstance(cfg, tuple):
-        return lk.multigrid_learner_chunk(cfg, seed, table, *state, batch,
-                                          steps, 0.99, threads=lanes)
-    fn = (lk.packed_learner_chunk if table.shape[1] == lk.TABLE_COLS
-          else lk.learner_chunk)
+        fn = (lk.multigrid_packed_learner_chunk if packed
+              else lk.multigrid_learner_chunk)
+        return fn(cfg, seed, table, *state, batch, steps, 0.99,
+                  threads=lanes)
+    fn = lk.packed_learner_chunk if packed else lk.learner_chunk
     return fn(cfg, seed, table, state, batch, steps, 0.99, threads=lanes)
 
 
@@ -240,7 +278,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     out_dir = rollout_variants._out_dir()
-    names = [*VARIANTS, *(n for n in K7_VARIANTS if n not in VARIANTS)]
+    names = list(dict.fromkeys([*VARIANTS, *K6_VARIANTS, *K7_VARIANTS]))
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(
             lambda n: _build_variant(n, out_dir), names)))
@@ -261,9 +299,16 @@ def main() -> int:
     runs["K7", SHAPES[0]] = {k: (c, *_inputs(torch, lk, c, SHAPES[0][0], dev,
                                              len(k), False))
                              for k, c in k7_cells.items()}
+    k6_cells = {}
+    for label, boards, lanes, steps in K6_CELLS:
+        c = tuple(EnvConfig(*b) for b in boards)
+        k6_cells[label] = c
+        runs.setdefault(("K6", (lanes, steps)), {})[label] = (
+            c, *_inputs(torch, lk, c, lanes, dev, len(label), True))
     small = {(kern, k): (c, *_inputs(torch, lk, c, 1024, "cpu", 3,
-                                     kern == "K5"))
-             for kern, cells in (("K5", cfgs), ("K7", k7_cells))
+                                     kern != "K7"))
+             for kern, cells in (("K5", cfgs), ("K6", k6_cells),
+                                 ("K7", k7_cells))
              for k, c in cells.items()}
     cpu = {key: flat(_chunk(lk, c, 5, t, st, 1024, 16))
            for key, (c, t, st) in small.items()}
@@ -271,11 +316,12 @@ def main() -> int:
     want, ok = {}, True
     try:
         for (kern, shape), cells in runs.items():
-            table_of = VARIANTS if kern == "K5" else K7_VARIANTS
+            table_of = {"K5": VARIANTS, "K6": K6_VARIANTS,
+                        "K7": K7_VARIANTS}[kern]
             for name in table_of:
                 lib = lk.declare(ctypes.CDLL(str(built[name])))
                 lk._library = lambda lib=lib: lib
-                lk._chunk_host.cache_clear()
+                lk._entry.cache_clear()
                 regs = _registers(built[name].with_suffix(".log").read_text())
                 diag = name.startswith("diag-")
                 for lanes in table_of[name][1]:
@@ -312,9 +358,70 @@ def main() -> int:
                           flush=True)
     finally:
         lk._library = committed
-        lk._chunk_host.cache_clear()
+        lk._entry.cache_clear()
     return 0 if ok else 1
 
 
+def wrapper_times() -> int:
+    """Call, device and host ms of the K5, K6 and K7 multigrid wrappers of
+    the package first on ``sys.path``, at 8192 x 64 (K5 on 5x4, the others
+    on the 3-board mixture), at their default block sizes; one line each."""
+    import statistics
+    import time
+
+    import torch
+
+    from gym_soccer_tpu_torch.config import EnvConfig
+    from gym_soccer_tpu_torch.ops import learner_kernel as lk
+    from gym_soccer_tpu_torch.ops import parity_variants, rollout_variants
+    if not torch.cuda.is_available():
+        print("learner_variants: no CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda", 0)
+    mix = tuple(EnvConfig(*b) for b in MIX3)
+    c54 = EnvConfig(5, 4, SLIP)
+    where = os.path.dirname(os.path.dirname(lk.__file__))
+    for name, cfg, packed in (("packed_learner_chunk", c54, True),
+                              ("multigrid_packed_learner_chunk", mix, True),
+                              ("multigrid_learner_chunk", mix, False)):
+        table, state = _inputs(torch, lk, cfg, 8192, dev, 5, packed)
+        fn = getattr(lk, name)
+        if isinstance(cfg, tuple):
+            def call():
+                return fn(cfg, 77, table, *state, 8192, 64, 0.99)
+        else:
+            def call():
+                return fn(cfg, 77, table, state, 8192, 64, 0.99)
+        ms = parity_variants._time(call)
+        device = rollout_variants._device_ms(call)
+        legs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                call()
+            legs.append((time.perf_counter() - t0) * 10.0)
+        host = statistics.median(legs)
+        torch.cuda.synchronize()
+        print(f"[wrapper] {name} ({where}) 8192 x 64: call {ms} / device "
+              f"{device} ms, call - device {ms - device} ms, host {host} ms "
+              f"a call (legs {legs}) | {card}", flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--wrappers"]:
+        rc = 0
+        for root in sys.argv[2:]:
+            root = os.path.abspath(root)
+            rc |= subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--here"],
+                cwd=root, env={**os.environ, "PYTHONPATH": root}).returncode
+        sys.exit(rc)
+    if sys.argv[1:2] == ["--here"]:
+        sys.exit(wrapper_times())
     sys.exit(main())

@@ -752,18 +752,6 @@ def _game_params(cfg: EnvConfig):
     return (ctypes.c_int32 * len(vals))(*vals)
 
 
-def check_threads(name: str, device: torch.device, threads: int) -> None:
-    """Refuse a device without a kernel and a block size (threads a block)
-    the kernel K6 does not take.  K1-K5 and K7-K11 take lanes per block
-    instead (``rollout_codes.check_lanes``, ``learner_codes.check_lanes``,
-    ``iql_codes.check_lanes``, ``altq_codes.check_lanes``)."""
-    if device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {device}")
-    if threads <= 0 or threads > 1024 or threads % 32:
-        raise ValueError(f"threads must be a multiple of 32 in [32, 1024], "
-                         f"got {threads}")
-
-
 def ptr_array(tensors):
     """A host array of the tensors' device pointers, as the kernels' entry
     points take them; keep it alive across the call."""

@@ -275,15 +275,18 @@ def _mix_tables(cfg, device, seed=1, big=False):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mix", [MIX, [(5, 4, 0.2), (11, 7, 0.2)],
-                                 [(5, 4, 0.2)], [(11, 7, 0.2)]],
-                         ids=["3-variant", "5x4+11x7", "5x4", "11x7"])
+                                 [(5, 4, 0.2)], [(11, 7, 0.2)],
+                                 [(5, 4, 0.2), (6, 5, 0.2)]],
+                         ids=["3-variant", "5x4+11x7", "5x4", "11x7",
+                              "5x4+6x5"])
 def test_learner_kernels_k6_k7_equal_plain_versions(cuda, mix):
     """K6 and K7 (both sites) equal their plain versions bit for bit
-    (fields, stats, counts, int64 sums, out-of-range count) for two block
-    sizes (K6: threads a block; K5 and K7: lanes per block, the default and
-    96, a ragged last block); K6 and K7 step the same fields, stats and
-    counts; tables holding 1e7 are counted alike by kernels and plain
-    versions."""
+    (fields, stats, counts, int64 sums, out-of-range count) at two sizes of
+    lanes per block (the default and 96, a ragged last block), their
+    prepared rows in L2 (the 3-variant mixture, 5x4+11x7, 11x7) or in
+    shared memory (5x4, the --multigrid recipe's 5x4+6x5); K6 and K7 step
+    the same fields, stats and counts; tables holding 1e7 are counted alike
+    by kernels and plain versions."""
     from gym_soccer_tpu_torch.ops import learner_kernel as lk
     B, T = 2048, 32
     multi = len(mix) > 1
@@ -302,9 +305,7 @@ def test_learner_kernels_k6_k7_equal_plain_versions(cuda, mix):
     got = {}
     for name, table in runs.items():
         want = getattr(lk, name + "_plain")(*args(table))
-        sizes = ((128, 256) if name == "multigrid_packed_learner_chunk"
-                 else (None, 96))
-        for threads in sizes:
+        for threads in (None, 96):
             assert _same_chunk(getattr(lk, name)(*args(table),
                                                  threads=threads), want)
         assert int(want[2][3]) == 0

@@ -386,3 +386,171 @@ def test_k7_variants_patch_the_committed_kernel(name):
     assert (got == src) == (name == "kernel")
     for _, new in learner_variants.K7_VARIANTS[name][0]:
         assert new in got
+
+
+# ----------------------------------------------------------------------
+# K6: the packed chunk over a mixture, K7 multigrid's split on the packed
+# table
+# ----------------------------------------------------------------------
+
+MIX_BIG = ((5, 4, 0.2), (11, 7, 0.2))     # examples/train_minimax_tpu.py:141
+MG_BOARDS = ((5, 4, 0.2), (6, 5, 0.2))    # its --multigrid recipe
+
+
+@pytest.mark.parametrize("boards,B,T,seed", [
+    (MIX3, 512, 8, 6),
+    (MG_BOARDS, 512, 8, 9),
+], ids=["mixture", "5x4+6x5"])
+def test_k6_two_stages_equal_the_plain_version_and_jax(boards, B, T, seed):
+    """K6's codes then steps (the packed table's prepared rows, each lane on
+    its own board, the baseline v(s) from the row) equal
+    ``multigrid_packed_learner_chunk_plain`` bit for bit (fields, stats,
+    counts, int64 sums, out-of-range count), and JAX's
+    ``multigrid_packed_learner_chunk`` in interpret mode fed the same table
+    and state: fields, stats and counts exactly, the residual sums within
+    cnt * (2**-8 * max|delta| + 1e-6), max|delta| <= 1 + 2 * max|v| (JAX
+    rounds each residual to bfloat16 and reads v as double bfloat16)."""
+    jc, cfg = _k7_cfg(boards)
+    (pa, pb, _, v), _, _ = _k7_tables(cfg, seed)
+    m = jax_pack(jc, jnp.asarray(pa), jnp.asarray(pb), jnp.asarray(v), 0.2)
+    table = interop.table_from_packed_m(cfg, np.asarray(m, np.float32), "cpu")
+    jplanes, jfields0 = jlk.init_state_fields(jc, B)
+    jfields, jacc, jstats = jlk.multigrid_packed_learner_chunk(
+        jc, seed, m, jplanes, jfields0, B, T, interpret=True)
+    planes, fields0 = lk.init_state_fields(cfg, B, "cpu")
+    got = lc.chunk_twin(cfg, seed, table, fields0, T, 0.99, planes)
+    _same(got, lk.multigrid_packed_learner_chunk_plain(
+        cfg, seed, table, planes, fields0, B, T))
+    for a, b in zip(interop.planes_to_tiles(got[0]), jfields):
+        assert np.array_equal(a, np.asarray(b))
+    assert [int(x) for x in got[2][:3]] == [int(x) for x in jstats]
+    assert int(got[2][3]) == 0
+    res, cnt = (a.numpy() for a in lk.unpack_acc2(cfg, got[1]))
+    jres, jcnt = (np.asarray(a) for a in jlk.unpack_acc2(jc, jacc))
+    assert np.array_equal(cnt, jcnt) and int(cnt.sum()) == B * T
+    max_delta = 1 + 2 * float(table[:, lk.COL_V].abs().max())
+    assert (np.abs(res - jres) <= cnt * (2.0 ** -8 * max_delta + 1e-6)).all()
+
+
+@pytest.mark.parametrize("bad", [float("nan"), 1e7])
+def test_k6_counts_values_out_of_range_as_the_plain_version(bad):
+    """A packed mixture table whose v holds nan or 1e7 on every third
+    state: K6's two stages count the v values read outside +-value_limit
+    as the plain version does, and leave the fields and counts equal."""
+    _, cfg = _k7_cfg(MG_BOARDS)
+    B, T = 256, 16
+    (pa, pb, _, v), _, _ = _k7_tables(cfg, 2)
+    v[::3] += np.float32(bad)
+    table = lk.pack_m2(cfg, *(torch.as_tensor(x) for x in (pa, pb, v)), 0.2)
+    planes, fields = lk.init_state_fields(cfg, B, "cpu")
+    got = lc.chunk_twin(cfg, 5, table, fields, T, 0.99, planes)
+    want = lk.multigrid_packed_learner_chunk_plain(cfg, 5, table, planes,
+                                                  fields, B, T)
+    assert int(want[2][3]) > 0
+    assert int(got[2][3]) == int(want[2][3])
+    assert torch.equal(got[1][1], want[1][1])
+    assert all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+
+
+def test_k6_rows_in_shared_memory_on_the_recipes_mixture():
+    """A packed mixture's prepared rows go to shared memory where they fit
+    beside the widest block's ring and its lanes' slip entries: the
+    --multigrid recipe's 5x4+6x5 (3,624 codes, 223,200 B at 512 lanes) and
+    a one-board mixture do; the 3-board mixture (8,928 codes) and 5x4+11x7
+    (14,720) read them from L2."""
+    recipe, mix, big = (_k7_cfg(b)[1] for b in (MG_BOARDS, MIX3, MIX_BIG))
+    assert lk.n_codes(recipe) == 3624
+    assert lc.smem_bytes(512, 3624, multi=True) == 223200 <= lc.SMEM_BUDGET
+    assert lc.shared_rows(recipe) and lc.shared_rows((EnvConfig(5, 4, 0.2),))
+    assert (lk.n_codes(mix), lk.n_codes(big)) == (8928, 14720)
+    assert not lc.shared_rows(mix) and not lc.shared_rows(big)
+    assert lc.smem_bytes(512, 8928, multi=True) > lc.SMEM_BUDGET
+    # the recipe's 16384 lanes take the one-wave default of 128 a block
+    assert lc.default_lanes(16384) == 128
+    assert lc.smem_bytes(128, 3624, multi=True) == 96 + 173952 + 10240 + 2048
+
+
+def test_k6_lanes_per_block():
+    """``multigrid_packed_learner_chunk``'s ``threads`` is lanes per block,
+    as ``packed_learner_chunk``'s: by default one wave, any multiple of 32
+    up to 512, anything else refused with a ValueError on any device before
+    a launch; it does not change the CPU result."""
+    _, cfg = _k7_cfg(MG_BOARDS)
+    (pa, pb, _, v), _, _ = _k7_tables(cfg, 4)
+    table = lk.pack_m2(cfg, *(torch.as_tensor(x) for x in (pa, pb, v)), 0.2)
+    planes, fields = lk.init_state_fields(cfg, 256, "cpu")
+    for bad in (0, 48, 128 + 16, 544, 1024, 64.0):
+        for dev in ("cpu", "meta"):
+            with pytest.raises(ValueError, match="lanes per block"):
+                lk.multigrid_packed_learner_chunk(
+                    cfg, 0, table.to(dev), [p.to(dev) for p in planes],
+                    [f.to(dev) for f in fields], 256, 4, threads=bad)
+    want = lk.multigrid_packed_learner_chunk_plain(cfg, 2, table, planes,
+                                                  fields, 256, 4)
+    for lanes in (None, 32, 96, 512):
+        _same(lk.multigrid_packed_learner_chunk(cfg, 2, table, planes,
+                                                fields, 256, 4,
+                                                threads=lanes), want)
+
+
+def test_mixture_wrappers_check_new_planes_and_remember_checked_ones():
+    """The mixture wrappers check a mixture's planes once and remember the
+    six tensors they checked: the same planes pass unchecked, while new
+    planes, the same planes changed in place, or another batch or device
+    are checked again and refused when bad."""
+    _, cfg = _k7_cfg(MG_BOARDS)
+    (pa, pb, _, v), _, _ = _k7_tables(cfg, 4)
+    table = lk.pack_m2(cfg, *(torch.as_tensor(x) for x in (pa, pb, v)), 0.2)
+    planes, fields = lk.init_state_fields(cfg, 256, "cpu")
+    want = lk.multigrid_packed_learner_chunk(cfg, 2, table, planes, fields,
+                                             256, 4)
+    assert all(a is b for a, b in zip(lk._seen["planes"][0], planes))
+    _same(lk.multigrid_packed_learner_chunk(cfg, 2, table, planes, fields,
+                                            256, 4), want)
+    bad = list(planes)
+    bad[2] = bad[2].long()
+    with pytest.raises(ValueError, match="planes must be contiguous int32"):
+        lk.multigrid_packed_learner_chunk(cfg, 2, table, bad, fields, 256, 4)
+    moved = [p.clone() for p in planes]
+    moved[0].resize_(128)
+    with pytest.raises(ValueError, match="planes must be contiguous int32"):
+        lk.multigrid_packed_learner_chunk(cfg, 2, table, moved, fields, 256,
+                                          4)
+    lk.multigrid_packed_learner_chunk(cfg, 2, table, planes, fields, 256, 4)
+    planes[0].resize_(128)
+    try:
+        with pytest.raises(ValueError, match="planes must be contiguous"):
+            lk.multigrid_learner_chunk(cfg, 2, lk.pack_m(
+                cfg, *(torch.as_tensor(x) for x in (pa, pb)),
+                torch.zeros(lk.n_states(cfg), 5, 5), torch.as_tensor(v),
+                0.2), planes, fields, 256, 4)
+    finally:
+        planes[0].resize_(256)
+    with pytest.raises(ValueError, match=r"\[128\]"):
+        lk.multigrid_packed_learner_chunk(cfg, 2, table, planes,
+                                          [f[:128] for f in fields], 128, 4)
+    with pytest.raises(ValueError, match="planes = 6 tensors"):
+        lk.multigrid_packed_learner_chunk(cfg, 2, table, planes[:5], fields,
+                                          256, 4)
+    with torch.inference_mode():   # planes that keep no version counter
+        iplanes = tuple(p.clone() for p in planes)
+        for _ in range(2):
+            _same(lk.multigrid_packed_learner_chunk(cfg, 2, table, iplanes,
+                                                    fields, 256, 4), want)
+        iplanes[1].resize_(128)
+        with pytest.raises(ValueError, match="planes must be contiguous"):
+            lk.multigrid_packed_learner_chunk(cfg, 2, table, iplanes, fields,
+                                              256, 4)
+
+
+@pytest.mark.parametrize("name", sorted(learner_variants.K6_VARIANTS))
+def test_k6_variants_patch_the_committed_kernel(name):
+    """Each timed variant of K6 (ops/learner_variants.py: the previous
+    design, the rows in L2) applies its patches, each to exactly one place
+    in the committed source, and changes it unless it is the kernel."""
+    from gym_soccer_tpu_torch.ops import _build
+    src = (_build.CSRC / "learner_kernel.cu").read_text()
+    got = learner_variants.variant_source(name, src)
+    assert (got == src) == (name == "kernel")
+    for _, new in learner_variants.K6_VARIANTS[name][0]:
+        assert new in got

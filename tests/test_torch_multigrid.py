@@ -46,6 +46,8 @@ if os.environ.get("PYTEST_XDIST_WORKER"):
 MIX3 = ((5, 4, 0.2), (6, 5, 0.1), (8, 6, 0.3))   # tools/bench_all.py:421
 MIX_BIG = ((5, 4, 0.2), (11, 7, 0.2))
 TRAIN_MIX = ((5, 4, 0.2), (6, 5, 0.1))
+# examples/train_minimax_tpu.py:141-151, the --multigrid recipe's mixture
+MG_BOARDS = ((5, 4, 0.2), (6, 5, 0.2))
 
 
 def _cfgs(boards):
@@ -241,9 +243,13 @@ def _tables(nS, seed):
 jax_pack = jax.jit(jlk.pack_m2, static_argnums=(0,))
 
 
-@pytest.mark.parametrize("boards", [TRAIN_MIX, MIX_BIG],
-                         ids=["5x4+6x5", "5x4+11x7"])
+@pytest.mark.parametrize("boards", [TRAIN_MIX, MIX_BIG, MG_BOARDS],
+                         ids=["5x4+6x5", "5x4+11x7", "5x4+6x5-slip0.2"])
 def test_mg_packed_chunk_plain_equals_jax(boards):
+    """K6's plain version on a mixture equals JAX's
+    ``multigrid_packed_learner_chunk`` in interpret mode fed the same
+    table and state (the tolerances of the module docstring); the
+    --multigrid recipe's own mixture among them."""
     jc, pc = _cfgs(boards)
     B, T = 256, 4
     pa, pb, v = _tables(lk.n_states(pc), len(boards[-1]) + boards[-1][0])
