@@ -9,8 +9,8 @@ before it and read just after.  The rollout path is the batched random
 play at 8192 lanes on the 5x4 (slip 0.2) and 11x7 (slip 0.2) boards:
 ``fused_rollout`` (kernel K1), ``fused_journal_rollout`` (kernel K2) with
 ``unpack_journal``, and the batched engine ``core.batch``.  The training
-path is ``fused_minimax_train`` (kernel K5, the RM+ re-solve) and
-``exploitability``.  The parity path is ``parity_events`` (kernel K12,
+path is ``fused_minimax_train`` (kernel K5, and kernel R1 for the RM+
+re-solve) and ``exploitability``.  The parity path is ``parity_events`` (kernel K12,
 closed loop) and ``parity_scripted_events`` (kernel K13) with
 ``unpack_journal``: bit-exact reference trajectories from seeds, one
 MT19937 draw per event.  The independent-Q path is ``fused_iql_train``
@@ -61,8 +61,12 @@ failure:
     bit in q, n and the fields;
 12. the 5x4 contract: the JAX package's recipe (65536 lanes, 1000 chunks
     x 32 steps, seed 1; tests/test_learner_kernel.py:117-120) reaches
-    exploitability <= 0.010 at gamma 0.99; wall time split into chunk
-    calls and the work between them;
+    exploitability <= 0.010 at gamma 0.99, reading 0.0034149587; wall time
+    split into chunk calls and the work between them; then at
+    ``chunks_per_dispatch=8`` (``grouped_phase``: 125 CUDA-graph replays,
+    K5 and R1 launched once a chunk by the counts, q, v, pi and the history
+    bit-equal to the per-chunk run), with its wall, capture and replay
+    times;
 13. timing: learner env-steps/s of K5 and its plain version at 8192 lanes
     x 64 steps and 65536 x 32 on 5x4 and 11x7; each one's design line
     (the rows' place, block shape, shared memory, registers, SASS per
@@ -108,7 +112,8 @@ failure:
     for bit; the JAX package's learning check (tests/test_iql_kernel.py
     ``test_fused_iql_training_learns``) on the card; a 65536-lane x 200
     chunk x 32 step run with its wall time split into chunk calls and the
-    work between them, and greedy-vs-greedy play of its tables through the
+    work between them, and at ``chunks_per_dispatch=8`` (``grouped_phase``)
+    bit-equal to it, and greedy-vs-greedy play of its tables through the
     batched engine (a measurement, not a gate);
 21. timing: learner env-steps/s of K8, K9 and their plain versions at 8192
     x 64 on 5x4 and 11x7, K8 at 32768 x 64; each one's design line per
@@ -149,7 +154,8 @@ failure:
     with tau 25 and pow 1.5, 2000 final solver iterations), packed and
     ``packed=False``; each variant's exploitability on its slice of the
     concatenated policies at most 0.05 on 5x4 and 0.08 on 6x5; wall time
-    split into chunk calls and the work between them;
+    split into chunk calls and the work between them; each again at
+    ``chunks_per_dispatch=8`` (``grouped_phase``), bit-equal;
 26. timing: K3 at 8192 x 1024 on the mixture; K6 at 8192 x 64 and 32768 x
     64 on the mixture, at 8192 x 64 on 5x4+11x7 and at the recipe's 16384
     x 64 on 5x4+6x5; K7 at 8192 x 64 on 5x4 and 11x7; K7 multigrid at 8192
@@ -188,19 +194,32 @@ failure:
     ``alt_value_iteration_torch`` repeats on the card), and its greedy
     policy wins more than 95 % of completed episodes against a frozen
     random policy (``alt_policy_rollout``, 256 lanes x 300 steps, seed 6);
-    wall time split into chunk calls and the work between them;
+    wall time split into chunk calls and the work between them; the gate's
+    run again at ``chunks_per_dispatch=8`` (``grouped_phase``), bit-equal;
 31. timing: K4 at 8192 x 1024 and K10/K11 at 8192 x 64, on 5x4 and 11x7,
     each against its plain version; K4's and K10/K11's design lines per
     board (walk, block shape, shared memory, registers, SASS per
     lane-step, bound; K4's previous design's ms, and K10/K11's device time
     by CUDA-graph replay beside their previous design's) and
     ``torch.profiler`` windows of K4 (both boards) and K10 for device time
-    and idle share.
+    and idle share;
+32. R1 (``solve_matrix_games``, ``csrc/rmplus_kernel.cu``): bit-equal to
+    ``solve_matrix_games_plain`` on the card on the 5x4 contract's own Q
+    after a chunk (761 games) at 400 and 3000 iterations and on 11705
+    random games at the 11x7 contract's 600; its ms at each, the plain
+    version's at 761 x 400, and its design line (block, registers, SASS
+    per game-iteration, bound);
+33. the 11x7 contract: the JAX package's test_equilibrium_11x7_tpu recipe
+    (65536 lanes, 6000 chunks x 32 steps, solver 600, avg_q from chunk
+    4000, a 3000-iteration final solve, seed 2) at its
+    ``chunks_per_dispatch=8``, K5 and R1 counted once a chunk over 750
+    replays, reaches exploitability <= 0.005 at gamma 0.99
+    (``segment_iters=200``), with its wall and evaluation times.
 
-The second-to-last lines are the kernels' JSON record (with each
-kernel's bound: the larger of its bytes over the HBM rate and its SASS
-instructions per step times its steps over the instruction rate) and the
-card's name and power
+The second-to-last lines are the kernels' JSON record (the 14 kernel
+sites and R1, with each kernel's bound: the larger of its bytes over the
+HBM rate and its SASS instructions per step, or R1's per game-iteration,
+times its steps over the instruction rate) and the card's name and power
 limit; the last line is the JSON verdict.  The whole run prints its wall
 time.  Exits non-zero, with no verdict, if anything fails or no CUDA
 device is present.
@@ -400,6 +419,27 @@ CONTRACT = dict(batch=65536, n_chunks=1000, chunk_len=32, lr=1.0, eps=0.2,
                 lr_anneal_start=500, lr_anneal_tau=25.0, lr_anneal_pow=1.5,
                 solver_iters=400, final_solver_iters=3000, seed=1)
 CONTRACT_EXPLOITABILITY = 0.010
+# The contract's exploitability as the port has read it since the K5
+# redesign, to 10 digits: R1 and the grouped mode change no bit of it.
+CONTRACT_READING = 0.0034149587
+# The grouped dispatch mode's chunks a CUDA-graph replay, as the JAX
+# package runs its recipes (examples/train_minimax_tpu.py:151, :199).
+GROUPED_CHUNKS = 8
+# tests/test_learner_kernel.py:145-151 (test_equilibrium_11x7_tpu), at its
+# chunks_per_dispatch; evaluated with segment_iters=200.
+CONTRACT_11X7 = dict(batch=65536, n_chunks=6000, chunk_len=32, lr=1.0,
+                     eps=0.25, eps_halflife=40000, eps_min=0.15,
+                     lr_anneal_start=2500, lr_anneal_tau=160.0,
+                     lr_anneal_pow=1.2, solver_iters=600, avg_after=4000,
+                     avg_q=True, final_solver_iters=3000, seed=2,
+                     chunks_per_dispatch=GROUPED_CHUNKS)
+CONTRACT_11X7_EXPLOITABILITY = 0.005
+# R1, the RM+ solve (no TPU kernel: the JAX package's XLA ops), in the
+# kernels line beside the 14 pallas_call sites.
+RMPLUS = "solve_matrix_games"
+RMPLUS_SRC = "gym_soccer_tpu_torch/ops/csrc/rmplus_kernel.cu"
+RMPLUS_REPLACES = "gym_soccer_tpu/agents/learners.py:84"
+RMPLUS_SYMBOL = "13rmplus_kernel"
 # A longer independent-Q run at the learning check's lr and eps (phase 20).
 IQL_RUN = dict(batch=65536, n_chunks=200, chunk_len=32, lr=0.4, eps=0.3,
                seed=1)
@@ -646,6 +686,54 @@ def time_cuda(fn, min_leg_ms=50.0, legs=5, slow_legs=None):
     return statistics.median(per_call), reps, per_call
 
 
+def grouped_phase(torch, label, train, per, per_wall, n_tensors, counts,
+                  kernel, n_chunks, card, solves=None):
+    """A trainer's grouped mode against its per-chunk run ``per`` on the
+    card.  ``train(chunks_per_dispatch=GROUPED_CHUNKS, timing=...)`` runs
+    with the launch counters ``counts`` and R1's reset just before and read
+    just after: it must launch ``kernel`` replays x g plus the remainder
+    times (R1 ``solves`` times, where given), which rules out an eager run
+    in place of the replays, and give the per-chunk run's first
+    ``n_tensors`` outputs bit for bit and its history's rows.  Returns the
+    grouped run's outputs, its wall time in s and its timing."""
+    from gym_soccer_tpu_torch.agents import learners
+    g = GROUPED_CHUNKS
+    for d in (counts, learners.launch_counts):
+        for k in d:
+            d[k] = 0
+    timing = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = train(chunks_per_dispatch=g, timing=timing)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    replays, rest = divmod(n_chunks, g)
+    launched = counts[kernel]
+    check(timing["replays"] == replays and launched == replays * g + rest,
+          f"{label}: {launched} launches of {kernel} over "
+          f"{timing['replays']} replays, not {replays} x {g} + {rest}")
+    if solves is not None:
+        check(learners.launch_counts[RMPLUS] == solves,
+              f"{label}: {learners.launch_counts[RMPLUS]} launches of R1, "
+              f"not {solves}")
+    same = all(torch.equal(a, b.to(a.device))
+               for a, b in zip(per[:n_tensors], out[:n_tensors]))
+    rows = [r for k, r in enumerate(out[n_tensors])
+            if k % 16 == 0 or k == n_chunks - 1]
+    check(same and per[n_tensors] == rows and len(out[n_tensors]) == n_chunks,
+          f"{label}: the grouped run differs from the per-chunk run")
+    print(f"[grouped] {label}, chunks_per_dispatch={g}: {replays} replays "
+          f"of one CUDA graph of {g} chunks and {rest} chunk(s) one at a "
+          f"time; {kernel} launched {launched} times"
+          + (f", R1 {solves}" if solves is not None else "")
+          + f"; outputs and history bit-equal to the per-chunk run | wall "
+          f"{wall} s against the per-chunk run's {per_wall} s: capture "
+          f"{timing['capture_ms']} ms (host clock, with one warm-up "
+          f"chunk), replays {timing['segments_ms']} ms, remainder "
+          f"{timing['remainder_ms']} ms (CUDA events) | {card}")
+    return out, wall, timing
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -704,10 +792,11 @@ def main() -> int:
     loops = {}
     for path in built.values():
         loops.update(sass_loop_instructions(
-            path, [*SYMBOL.values(), *ARITH_SYMBOL.values()]))
+            path, [*SYMBOL.values(), *ARITH_SYMBOL.values(), RMPLUS_SYMBOL]))
     per_step = {}
     for name, sym in [*SYMBOL.items(),
-                      *((n + " arith", s) for n, s in ARITH_SYMBOL.items())]:
+                      *((n + " arith", s) for n, s in ARITH_SYMBOL.items()),
+                      (RMPLUS, RMPLUS_SYMBOL)]:
         found = [n for k, n in loops.items() if sym in k]
         check(len(found) == 1, f"{name}: {len(found)} kernels match {sym}")
         per_step[name] = found[0]
@@ -715,8 +804,8 @@ def main() -> int:
           f"with the MT19937 twist amortised over its {TWIST[1]} events; "
           f"K1-K11: a producer's code loop plus a consumer's tile loop "
           f"over its {TILE_STEPS} steps, 'arith' the walk of boards whose "
-          f"table does not fit) on the shortest way around each kernel's "
-          f"main loop (cuobjdump -sass): {per_step}")
+          f"table does not fit; R1: a game-iteration) on the shortest way "
+          f"around each kernel's main loop (cuobjdump -sass): {per_step}")
 
     cfgs = {b: EnvConfig(width=b[0], height=b[1], slip_prob=SLIP)
             for b in BOARDS}
@@ -935,6 +1024,12 @@ def main() -> int:
     errs.update(alt_errs)
     ms.update(alt_ms)
 
+    rm_err, rm_ms, rm_work = rmplus_phase(torch, dev, card, lk, per_step,
+                                          regs)
+    errs[RMPLUS] = rm_err
+    ms.update(rm_ms)
+    contract_11x7_phase(torch, dev, card, lk, exploitability)
+
     # Each kernel's work at the shape its ms was timed: lane-steps (or
     # lane-events) and the bytes of its inputs and outputs, each once.
     fields_bytes = 2 * 6 * 4 * B + 3 * 8   # state planes in and out, stats
@@ -955,6 +1050,7 @@ def main() -> int:
                                    parity_bytes["parity_scripted_events"]),
         **mg_work,
         **alt_work,
+        RMPLUS: rm_work,
     }
     kernels = []
     for name in ("fused_rollout", "fused_journal_rollout",
@@ -962,12 +1058,14 @@ def main() -> int:
                  "multigrid_packed_learner_chunk", "learner_chunk",
                  "multigrid_learner_chunk", "iql_packed_chunk", "iql_chunk",
                  "altq_packed_chunk", "altq_chunk", "parity_events",
-                 "parity_scripted_events"):
+                 "parity_scripted_events", RMPLUS):
         units, nbytes = work[name]
         bound_ms, bound_by = bound(units, per_step[name], nbytes)
         kernels.append(
-            {"name": name, "route": "cuda", "source": SOURCE[name],
-             "replaces": REPLACES[name], "launches": launches[name],
+            {"name": name, "route": "cuda",
+             "source": SOURCE.get(name, RMPLUS_SRC),
+             "replaces": REPLACES.get(name, RMPLUS_REPLACES),
+             "launches": launches[name],
              "max_abs_err": errs[name], "ms": ms[name],
              "plain_ms": ms[name + "_plain"], "bound_ms": bound_ms,
              "bound_by": bound_by, "library_ms": None})
@@ -982,6 +1080,98 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def rmplus_phase(torch, dev, card, lk, per_step, regs):
+    """Phase 32: R1 against ``solve_matrix_games_plain`` on the card, bit
+    for bit, on the 5x4 contract's own Q after its first chunk (761 games)
+    at the contract's 400 iterations and its final 3000, and on 11705
+    random games at the 11x7 contract's 600; R1 timed at each, the plain
+    version at 761 x 400.  Returns R1's max abs error, its ms and the plain
+    version's at 761 x 400, and its work there (game-iterations, bytes)."""
+    import numpy as np
+    from gym_soccer_tpu_torch.agents import learners
+    from gym_soccer_tpu_torch.config import EnvConfig
+    c54 = EnvConfig(5, 4, 0.2)
+    q = lk.fused_minimax_train(c54, device=dev, **dict(
+        CONTRACT, n_chunks=1, final_solver_iters=0))[0]
+    q117 = torch.tensor(np.random.default_rng(5).uniform(-1, 1, (11705, 5, 5)),
+                        dtype=torch.float32, device=dev)
+    err, ms = 0.0, {}
+    for label, M, iters in (("the contract's Q", q, 400),
+                            ("the contract's Q", q, 3000),
+                            ("random 11x7 games", q117, 600)):
+        got = learners.solve_matrix_games(M, iters)
+        want = learners.solve_matrix_games_plain(M, iters)
+        torch.cuda.synchronize()
+        e = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, want))
+        err = max(err, e)
+        check(same, f"R1 != plain on {label}, {M.shape[0]} x {iters}: max "
+              f"abs err {e}")
+        med, reps, legs = time_cuda(
+            lambda: learners.solve_matrix_games(M, iters))
+        if (M.shape[0], iters) == (761, 400):
+            ms[RMPLUS] = med
+        print(f"[R1] {label}, {M.shape[0]} games x {iters} iterations: "
+              f"bit-equal to the plain version (max abs err {e}); {med} "
+              f"ms/call (median of {len(legs)} legs x {reps} calls) | "
+              f"{card}")
+    med, reps, legs = time_cuda(
+        lambda: learners.solve_matrix_games_plain(q, 400), slow_legs=3)
+    ms[RMPLUS + "_plain"] = med
+    games, iters = 761, 400
+    nbytes = games * (25 + 11) * 4
+    bound_ms, by = bound(games * iters, per_step[RMPLUS], nbytes)
+    reg = [r for k, r in regs.items() if RMPLUS_SYMBOL in k]
+    block = learners._library().gst_rmplus_block()
+    print(f"[design] R1 {games} x {iters}: one thread a game, {block} games "
+          f"a block ({-(-games // block)} blocks), {reg} registers per "
+          f"thread; {per_step[RMPLUS]} SASS per game-iteration, bound "
+          f"{bound_ms} ms ({by}); {ms[RMPLUS]} ms/call against the plain "
+          f"version's {med} ms ({med / ms[RMPLUS]}x) | {card}")
+    return err, ms, (games * iters, nbytes)
+
+
+def contract_11x7_phase(torch, dev, card, lk, exploitability):
+    """Phase 33: the JAX package's 11x7 contract (test_equilibrium_11x7_tpu)
+    at its chunks_per_dispatch, with K5's and R1's launch counters reset
+    just before and read just after: exploitability at most 0.005 at gamma
+    0.99 (``segment_iters=200``)."""
+    from gym_soccer_tpu_torch.agents import learners
+    from gym_soccer_tpu_torch.config import EnvConfig
+    cfg117 = EnvConfig(11, 7, 0.2)
+    lk.reset_launch_counts()
+    learners.reset_launch_counts()
+    timing = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q, v, pa, pb, hist = lk.fused_minimax_train(cfg117, device=dev,
+                                                timing=timing,
+                                                **CONTRACT_11X7)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n, g = CONTRACT_11X7["n_chunks"], CONTRACT_11X7["chunks_per_dispatch"]
+    check(lk.launch_counts["packed_learner_chunk"] == n
+          and timing["replays"] == n // g
+          and learners.launch_counts[RMPLUS] == n + 1,
+          f"11x7 contract: launches {lk.launch_counts}, "
+          f"{learners.launch_counts}, {timing['replays']} replays")
+    t1 = time.perf_counter()
+    ex = exploitability(cfg117, pa, pb, gamma=0.99, segment_iters=200)
+    t_eval = time.perf_counter() - t1
+    steps = (CONTRACT_11X7["batch"] * CONTRACT_11X7["chunk_len"] * n)
+    print(f"[contract 11x7] recipe {CONTRACT_11X7}: exploitability {ex} "
+          f"(limit {CONTRACT_11X7_EXPLOITABILITY}) at gamma 0.99 | train "
+          f"wall {wall} s for {steps} env-steps: {timing['replays']} replays "
+          f"of {g} chunks ({timing['segments_ms']} ms), capture "
+          f"{timing['capture_ms']} ms, remainder {timing['remainder_ms']} "
+          f"ms; K5 launched {lk.launch_counts['packed_learner_chunk']} "
+          f"times, R1 {learners.launch_counts[RMPLUS]}; exploitability eval "
+          f"{t_eval} s | {card}")
+    check(ex <= CONTRACT_11X7_EXPLOITABILITY,
+          f"11x7 exploitability {ex} > {CONTRACT_11X7_EXPLOITABILITY}")
 
 
 def learner_inputs(torch, lk, cfg, B, dev, seed):
@@ -1013,16 +1203,20 @@ def learner_phases(torch, dev, card, cfgs, lk, exploitability, per_step,
     cfg = cfgs[(5, 4)]
 
     # ---- 9. training path, through the entry point ---------------------
+    from gym_soccer_tpu_torch.agents import learners
     lk.reset_launch_counts()
+    learners.reset_launch_counts()
     q, v, pa, pb, hist = lk.fused_minimax_train(
         cfg, batch=B, n_chunks=4, chunk_len=T_K5, lr=1.0, eps=0.2,
         solver_iters=200, seed=3, device=dev)
     torch.cuda.synchronize()
     launches = {"packed_learner_chunk":
-                lk.launch_counts["packed_learner_chunk"]}
+                lk.launch_counts["packed_learner_chunk"],
+                RMPLUS: learners.launch_counts[RMPLUS]}
     print(f"[train path] launches {launches}")
     check(launches["packed_learner_chunk"] > 0,
           "packed_learner_chunk was not launched on the training path")
+    check(launches[RMPLUS] > 0, "R1 was not launched on the training path")
     check(bool(torch.isfinite(q).all()), "Q is not finite")
     check(float(v.abs().max()) <= 1.05, f"|v| = {float(v.abs().max())} > 1.05")
     for pi in (pa, pb):
@@ -1088,14 +1282,14 @@ def learner_phases(torch, dev, card, cfgs, lk, exploitability, per_step,
     print("[resume] 2 chunks == 1 + 1 through the resume dict, bit for bit "
           "in q, v, pi, n and fields")
 
-    # ---- 12. the 5x4 contract ------------------------------------------
+    # ---- 12. the 5x4 contract, per chunk and grouped --------------------
     timing = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    q, v, pa, pb, hist = lk.fused_minimax_train(cfg, device=dev,
-                                                timing=timing, **CONTRACT)
+    per = lk.fused_minimax_train(cfg, device=dev, timing=timing, **CONTRACT)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    q, v, pa, pb, hist = per
     t1 = time.perf_counter()
     ex = exploitability(cfg, pa, pb, gamma=0.99)
     t_eval = time.perf_counter() - t1
@@ -1107,6 +1301,13 @@ def learner_phases(torch, dev, card, cfgs, lk, exploitability, per_step,
           f"{timing['chunks']} chunks; exploitability eval {t_eval} s | {card}")
     check(ex <= CONTRACT_EXPLOITABILITY,
           f"exploitability {ex} > {CONTRACT_EXPLOITABILITY}")
+    check(round(ex, 10) == CONTRACT_READING,
+          f"exploitability {ex} does not read {CONTRACT_READING}")
+    grouped_phase(
+        torch, "5x4 contract",
+        lambda **g: lk.fused_minimax_train(cfg, device=dev, **CONTRACT, **g),
+        per, wall, 4, lk.launch_counts, "packed_learner_chunk",
+        CONTRACT["n_chunks"], card, solves=CONTRACT["n_chunks"] + 1)
 
     # ---- 13. timing ----------------------------------------------------
     ms = {}
@@ -1621,6 +1822,10 @@ def iql_phases(torch, dev, card, cfgs, batch, per_step, regs):
           f"({steps / wall} env-steps/s): chunk calls {timing['kernel_ms']} "
           f"ms, between chunks {timing['between_ms']} ms over "
           f"{timing['chunks']} chunks | {card}")
+    grouped_phase(torch, "IQL run",
+                  lambda **g: ik.fused_iql_train(cfg, **big, **g),
+                  (q_a, q_b, hist), wall, 2, ik.launch_counts,
+                  "iql_packed_chunk", big["n_chunks"], card)
     key_words = np.random.default_rng(2).integers(0, 2**32, (512, 2),
                                                   dtype=np.uint64)
     state = batch.init_from_keys(cfg, key_words, dev)
@@ -1941,6 +2146,13 @@ def multigrid_phases(torch, dev, card, exploitability, per_step, regs):
         for ex, limit, b in zip(exs, MG_EXPLOITABILITY, MG_BOARDS):
             check(ex <= limit, f"exploitability {ex} > {limit} on {b} "
                   f"(packed={packed})")
+        grouped_phase(
+            torch, f"--multigrid recipe, packed={packed}",
+            lambda **g: lk.fused_minimax_train(mgc, device=dev, packed=packed,
+                                               **MG_RECIPE, **g),
+            (q, v, pa, pb, hist), wall, 4, lk.launch_counts,
+            K6 if packed else K7M, MG_RECIPE["n_chunks"], card,
+            solves=MG_RECIPE["n_chunks"] + 1)
 
     # ---- 26. timing ----------------------------------------------------
     ms = {}
@@ -2304,6 +2516,10 @@ def alt_phases(torch, dev, card, cfgs, per_step, regs):
     q, hist = ak.fused_altq_train(c54, timing=timing, **ALT_RECIPE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    grouped_phase(torch, "alternating gate",
+                  lambda **g: ak.fused_altq_train(c54, **ALT_RECIPE, **g),
+                  (q, hist), wall, 1, ak.launch_counts, "altq_packed_chunk",
+                  ALT_RECIPE["n_chunks"], card)
     q = q.cpu()
     v_l = torch.where(torch.as_tensor(tb.turn == 0), q.max(-1).values,
                       q.min(-1).values).numpy()

@@ -39,9 +39,11 @@ fallback from one to the other.  The chunk wrappers
 take their device from their tensors; ``fused_altq_train`` and
 ``init_alt_state_fields`` default to "cuda": CPU callers pass "cpu".
 
-Not ported: data parallelism (``mesh``) and grouped dispatches
-(``chunks_per_dispatch`` > 1); the trainer raises NotImplementedError for
-them.  The JAX wrappers' VMEM guard (a grid over ~14 MB of tables) has no
+``chunks_per_dispatch`` > 1 runs g chunks and the work between them as
+one CUDA-graph replay (ops/dispatch), the chunk's seed, eps_int and step
+offset read from device memory.  Not ported: data parallelism (``mesh``);
+the trainer raises NotImplementedError for it.  The JAX wrappers' VMEM
+guard (a grid over ~14 MB of tables) has no
 counterpart: the port takes any grid.
 """
 from __future__ import annotations
@@ -55,6 +57,7 @@ import torch
 from ..config import N_ACTIONS, EnvConfig
 from ..core import rules
 from ..envs.soccer_alternating_env import build_alt_tables
+from . import dispatch
 from . import iql_kernel as ik
 from . import learner_kernel as lk
 from . import step_kernel as sk
@@ -220,13 +223,15 @@ def _chunk(packed: bool, cfg, seed, eps_int, table, fields, batch, n_steps,
     _check_cfg(cfg)
     if not plain:
         threads = _check_lanes(batch, threads)
+    seed, eps_int, step_offset, scalars = ik.scalar_args(
+        seed, eps_int, step_offset, table, plain)
     fields = ik._check_args(cfg, eps_int, table, fields, batch, n_steps,
                             step_offset, n_fields=7)
     if plain or table.device.type == "cpu":
         return _plain(cfg, seed, eps_int, table, fields, n_steps, gamma,
                       step_offset, packed)
     return _launch(packed, cfg, seed, eps_int, table, fields, n_steps, gamma,
-                   step_offset, threads)
+                   step_offset, threads, scalars)
 
 
 def altq_packed_chunk(cfg: EnvConfig, seed: int, eps_int: int, table,
@@ -240,10 +245,13 @@ def altq_packed_chunk(cfg: EnvConfig, seed: int, eps_int: int, table,
     ``init_alt_state_fields``; all on one device, where the chunk runs.
     ``batch`` is a multiple of 128 and batch * n_steps at most 2**29.
     ``eps_int`` = round(eps * 65536) in [0, 65536].  ``seed`` keys the
-    counter PRNG with the steps numbered from ``step_offset``.  Returns
-    ``(fields, (res, cnt), (reward_sum, goals, truncs, out_of_range))``:
-    the final state, the int64 residual sums (units of 2**-32) and int32
-    visit counts [n_codes, 10] (decode with ``unpack_alt_acc2``), and the
+    counter PRNG with the steps numbered from ``step_offset``; the three
+    may instead come in an int32 [3] tensor passed as ``seed``
+    (``iql_kernel.scalar_args``), which the kernel reads when it runs.
+    Returns ``(fields, (res, cnt), (reward_sum, goals, truncs,
+    out_of_range))``: the final state, the int64 residual sums (units of
+    2**-32) and int32 visit counts [n_codes, 10] (decode with
+    ``unpack_alt_acc2``), and the
     int64 totals.  The sums are exact when ``out_of_range``, the number of
     values outside +-``value_limit(batch, n_steps)`` or not finite, is 0;
     it is counted on the device, so the call does not wait for the chunk.
@@ -312,9 +320,9 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.gst_altq_chunk.argtypes = [
         i32, vp, vp, vp, vp, vp, vp, i32, i32, i32, ctypes.c_uint32, i32, i32,
-        f32, f32, i32, i32, vp]
+        vp, f32, f32, i32, i32, vp]
     #    device, in, buf, table, tick, code_raw, params, n_codes, B, T, seed,
-    #    eps_int, step_offset, gamma, limit, packed, lanes, stream
+    #    eps_int, step_offset, scalars, gamma, limit, packed, lanes, stream
     lib.gst_altq_chunk.restype = i32
     lib.gst_altq_layout.argtypes = [i32, i32, vp]
     lib.gst_altq_layout.restype = None
@@ -341,8 +349,9 @@ def _host(cfg: EnvConfig, device: torch.device):
 
 def _launch(packed: bool, cfg: EnvConfig, seed: int, eps_int: int, table,
             fields, n_steps: int, gamma: float, step_offset: int,
-            lanes: int):
-    """Launch K10 or K11 at ``lanes`` lanes per block.  Its outputs (the
+            lanes: int, scalars=None):
+    """Launch K10 or K11 at ``lanes`` lanes per block (``scalars``: the
+    device tensor of ``iql_kernel.scalar_args`` or None).  Its outputs (the
     seven planes, the sums, the counts and the stats) and the prep pass's
     rows are one allocation, zeroed where it sums by one memset in the
     launch."""
@@ -361,7 +370,8 @@ def _launch(packed: bool, cfg: EnvConfig, seed: int, eps_int: int, table,
     rc = _library().gst_altq_chunk(
         dev.index, ctypes.addressof(in_ptrs), b64.data_ptr(),
         table.data_ptr(), *tick_ptrs, ctypes.addressof(params), n, B,
-        n_steps, seed & sk.M32, eps_int, step_offset, lk._f32(gamma),
+        n_steps, seed & sk.M32, eps_int, step_offset,
+        None if scalars is None else scalars.data_ptr(), lk._f32(gamma),
         value_limit(B, n_steps), int(packed), lanes,
         torch._C._cuda_getCurrentRawStream(dev.index))
     if rc:
@@ -395,8 +405,8 @@ def fused_altq_train(cfg: EnvConfig, batch: int, n_chunks: int,
     """Chunked fused alternating-turn Q-learning.  Returns (q,
     stats_history), ``q`` [nS_alt, 5] A-perspective on ``device``, whose
     fixpoint is ``alt_value_iteration``'s exact minimax values (extract a
-    policy with agents/learners ``altq_greedy_policy``).  The JAX package's
-    per-chunk dispatch mode; the arguments mean what they mean there
+    policy with agents/learners ``altq_greedy_policy``).  The arguments
+    mean what they mean in the JAX package
     (gym_soccer_tpu/ops/altq_kernel.py ``fused_altq_train``):
 
     * chunk k runs with seed ``seed * 1_000_003 + k`` (a run whose chunk
@@ -416,22 +426,20 @@ def fused_altq_train(cfg: EnvConfig, batch: int, n_chunks: int,
       fields, next_chunk, packed); ``init``/``fields_init``/``start_chunk``
       from it continue bit for bit like an uninterrupted run;
     * ``stats_history`` holds (reward_sum, goals, truncs) of every 16th
-      chunk and of the last.
+      chunk and of the last, or of every chunk in the grouped mode;
+    * ``chunks_per_dispatch`` = g > 1: the grouped mode, as in
+      ``iql_kernel.fused_iql_train``: the same q and fields bit for bit.
 
     On a CUDA device every chunk launches K10 (or K11), and no chunk waits
     for the one before: the chunks' out-of-range counts (see
     ``altq_packed_chunk``) are summed on the device and read once, at the
     end, and a run in which any value left the int64 sums' exact range
     raises ValueError.  ``timing``, if a dict, is filled with the time
-    spent in chunk calls and between them.
+    spent in chunk calls and between them (the per-chunk mode), or with
+    ``dispatch.run``'s capture, replay and remainder times.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh (data-parallel training) is not ported yet")
-    if chunks_per_dispatch != 1:
-        raise NotImplementedError(
-            "chunks_per_dispatch is not ported yet; the port runs one chunk "
-            "per dispatch")
+    lk.check_mesh(mesh)
+    g = dispatch.group_size(n_chunks, False, chunks_per_dispatch)
     _check_cfg(cfg)
     lk._check_seeds(seed, start_chunk, start_chunk + n_chunks)
     packed = True if packed is None else bool(packed)
@@ -474,26 +482,47 @@ def fused_altq_train(cfg: EnvConfig, batch: int, n_chunks: int,
 
     m = pack_alt_table(cfg, q)
     end_chunk = start_chunk + n_chunks
-    history = []
-    out_of_range = 0
-    clock = lk._Timing(timing, device)
-    for k in range(start_chunk, end_chunk):
-        clock.mark()
-        fields, acc, stats = chunk_fn(
-            cfg, lk._chunk_seed(seed, k), int(round(eps_at(k) * 65536)), m,
-            fields, batch, chunk_len, gamma, k * chunk_len)
-        clock.mark()
-        q, m = between(q, acc, lk._f32(lr_at(k)))
-        out_of_range = out_of_range + stats[3]
-        if k % 16 == 0 or k == end_chunk - 1:
-            history.append(stats[:3])
-    clock.finish()
+    if g is not None:
+        sched = ik.schedule(seed, start_chunk, end_chunk, chunk_len,
+                            lambda k: lk._f32(lr_at(k)),
+                            lambda k: int(round(eps_at(k) * 65536)), device)
+        carry = [t.clone() for t in (*fields, q, m)]
+        *fields, q, m = carry
+        fields = tuple(fields)
+
+        def body():
+            lr, ints = sched.row()
+            new_fields, acc, stats = chunk_fn(cfg, ints, None, m, fields,
+                                              batch, chunk_len, gamma)
+            new = between(q, acc, lr[0])
+            for dst, src in zip((*fields, q, m), (*new_fields, *new)):
+                dst.copy_(src)
+            sched.record(stats)
+
+        dispatch.run(body, carry + sched.state(), n_chunks, g,
+                     (launch_counts,), timing)
+        history, out_of_range = sched.history()
+    else:
+        history = []
+        out_of_range = 0
+        clock = lk._Timing(timing, device)
+        for k in range(start_chunk, end_chunk):
+            clock.mark()
+            fields, acc, stats = chunk_fn(
+                cfg, lk._chunk_seed(seed, k), int(round(eps_at(k) * 65536)),
+                m, fields, batch, chunk_len, gamma, k * chunk_len)
+            clock.mark()
+            q, m = between(q, acc, lk._f32(lr_at(k)))
+            out_of_range = out_of_range + stats[3]
+            if k % 16 == 0 or k == end_chunk - 1:
+                history.append(stats[:3])
+        clock.finish()
+        history = [tuple(int(x) for x in row) for row in history]
     if int(out_of_range):
         raise ValueError(
             f"{int(out_of_range)} values left +-{value_limit(batch, chunk_len)}"
             f": the int64 fixed-point sums could overflow (batch * chunk_len "
             f"= {batch * chunk_len}, max|q| up to {float(q.abs().max())})")
-    history = [tuple(int(x) for x in row) for row in history]
     if return_state:
         return q, history, {"q": q, "fields": fields,
                             "next_chunk": end_chunk, "packed": packed}

@@ -38,9 +38,9 @@ from concurrent.futures import ThreadPoolExecutor
 # 64 blocks of 128 at 8192 lanes), its outputs placed in the call's one
 # allocation.
 _ENTRY = """  return chunk(device, in, buf, table, tick, code_raw, params, n_codes, B,
-               n_steps, seed, eps_int, step_offset, gamma, limit, packed,
-               lanes, stream);"""
-_OLD_ENTRY = """  (void)tick; (void)code_raw; (void)lanes;
+               n_steps, seed, eps_int, step_offset, scalars, gamma, limit,
+               packed, lanes, stream);"""
+_OLD_ENTRY = """  (void)tick; (void)code_raw; (void)lanes; (void)scalars;
   if (B <= 0 || n_steps <= 0 || params[6] < 1 || params[6] > kMaxIsd)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);

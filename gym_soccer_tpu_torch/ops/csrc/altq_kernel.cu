@@ -6,7 +6,10 @@
 // gym_soccer_tpu/ops/altq_kernel.py.  One template,
 // `altq_chunk_kernel<kPacked, kTable, kSharedRows, kSharedAcc>`, computes
 // both after its prep pass `altq_prep_kernel`; they differ only in the
-// baseline a visit carries.
+// baseline a visit carries.  `altq_graph_chunk_kernel` is the same body
+// reading the chunk's seed, eps_int and step offset from device memory:
+// the calls the trainer's grouped mode captures in a CUDA graph
+// (ops/dispatch.py).
 //
 // What it computes, for every lane (one independent game) and step i:
 // three murmur3 counter words keyed on (chunk seed, i + step_offset, word,
@@ -195,6 +198,9 @@ struct AltqArgs {
   uint32_t seed;
   float gamma, limit;
   Game g;
+  // altq_graph_chunk_kernel: (seed, eps_int, step_offset) in device memory,
+  // scalars[0..2]; last, so that the other fields keep their places
+  const int32_t* scalars;
 };
 
 __device__ __forceinline__ float max_nan(float a, float b) {
@@ -294,7 +300,7 @@ __global__ void altq_prep_kernel(const float* __restrict__ table,
 // tile, each tile handed over on its kFull barrier once its ring slot is
 // free again (its kEmpty barrier).  The thread keeps one step slot, so its
 // words' keys are made once a tile.
-template <bool kMod3>
+template <bool kMod3, bool kScalars>
 __device__ __forceinline__ void altq_produce(const AltqArgs& a,
                                              uint16_t* ring, int pt,
                                              int lane0, int n_tiles,
@@ -304,12 +310,19 @@ __device__ __forceinline__ void altq_produce(const AltqArgs& a,
   const int t_keep = 65536 - a.g.q_int, t_half = 65536 - a.g.q_int / 2;
   const int mask = a.g.nI - 1;
   const int per_tile = a.lanes * kTile;
-  const uint32_t slot = (uint32_t)a.step_offset + (uint32_t)(pt % kTile);
+  // kScalars: (seed, eps_int, step_offset) read from device memory when
+  // the kernel runs (a call captured in a CUDA graph)
+  const uint32_t seed_dev = kScalars ? (uint32_t)__ldg(a.scalars) : 0u;
+  const int eps_dev = kScalars ? __ldg(a.scalars + 1) : 0;
+  const int off_dev = kScalars ? __ldg(a.scalars + 2) : 0;
+  const uint32_t slot = (uint32_t)(kScalars ? off_dev : a.step_offset) +
+                        (uint32_t)(pt % kTile);
   for (int k = 0; k < n_tiles; ++k) {
     const int st = k % kRingStages;
     if (k >= kRingStages) bar_sync(kEmpty + st, nthreads);
     uint16_t* tile = ring + st * per_tile;
-    const uint32_t c0 = step_key(a.seed, slot + (uint32_t)(k * kTile));
+    const uint32_t c0 =
+        step_key(kScalars ? seed_dev : a.seed, slot + (uint32_t)(k * kTile));
     const uint32_t c1 = c0 + kW, c2 = c0 + 2u * kW;
     int l = pt / kTile;
 #pragma unroll 1
@@ -318,7 +331,9 @@ __device__ __forceinline__ void altq_produce(const AltqArgs& a,
       const uint32_t b0 = fmix32(fmix32(lane ^ c0) + c0);
       const uint32_t b1 = fmix32(fmix32(lane ^ c1) + c1);
       const uint32_t b2 = fmix32(fmix32(lane ^ c2) + c2);
-      const int x = u16(b0, 0) < a.eps_int ? u16(b0, 1) % 5 : kGreedy;
+      const int x = u16(b0, 0) < (kScalars ? eps_dev : a.eps_int)
+                        ? u16(b0, 1) % 5
+                        : kGreedy;
       const int u = u16(b1, 0);
       tile[j] = (uint16_t)(x | ((u >= t_keep) + (u >= t_half)) << 3 |
                            isd_pick<kMod3>(u16(b2, 1), mask) << 5);
@@ -635,9 +650,9 @@ __device__ __forceinline__ void altq_consume(
 // block's visits go to private accumulators in shared memory
 // (retire_shared), added to the device's once, at the end, where a cell
 // was visited.
-template <bool kPacked, bool kTable, bool kSharedRows, bool kSharedAcc>
-__global__ void __launch_bounds__(kMaxLanes + 32 * kProducers)
-    altq_chunk_kernel(AltqArgs a) {
+template <bool kPacked, bool kTable, bool kSharedRows, bool kSharedAcc,
+          bool kScalars>
+__device__ __forceinline__ void altq_chunk_body(const AltqArgs& a) {
   static_assert(kSharedRows || !(kTable || kSharedAcc),
                 "the tick table and the accumulators sit beside the rows");
   extern __shared__ __align__(16) unsigned char smem[];
@@ -679,9 +694,11 @@ __global__ void __launch_bounds__(kMaxLanes + 32 * kProducers)
   }
   if (l >= a.lanes) {
     if (a.g.nI == 3)
-      altq_produce<true>(a, ring, l - a.lanes, lane0, n_tiles, nthreads);
+      altq_produce<true, kScalars>(a, ring, l - a.lanes, lane0, n_tiles,
+                                   nthreads);
     else
-      altq_produce<false>(a, ring, l - a.lanes, lane0, n_tiles, nthreads);
+      altq_produce<false, kScalars>(a, ring, l - a.lanes, lane0, n_tiles,
+                                    nthreads);
   } else {
     altq_consume<kPacked, kTable, kSharedRows, kSharedAcc>(
         a, isd, vals, greedy, reinterpret_cast<const char*>(tick), code_raw,
@@ -768,20 +785,39 @@ __global__ void altq_kernel(AltPlanes in, AltPlanes out,
   block_sum(stats, rew, goals, truncs);
 }
 
+template <bool kPacked, bool kTable, bool kSharedRows, bool kSharedAcc>
+__global__ void __launch_bounds__(kMaxLanes + 32 * kProducers)
+    altq_chunk_kernel(AltqArgs a) {
+  altq_chunk_body<kPacked, kTable, kSharedRows, kSharedAcc, false>(a);
+}
+
+// The same chunk with its scalars read from device memory (a.scalars): the
+// calls a CUDA graph captures.  A kernel of its own, so that the by-value
+// kernel keeps its code.
+template <bool kPacked, bool kTable, bool kSharedRows, bool kSharedAcc>
+__global__ void __launch_bounds__(kMaxLanes + 32 * kProducers)
+    altq_graph_chunk_kernel(AltqArgs a) {
+  altq_chunk_body<kPacked, kTable, kSharedRows, kSharedAcc, true>(a);
+}
+
 constexpr int kMaxDevices = 64;
 
-// A chunk's launch; the kernel's shared-memory limit is raised once per
-// device and size, not on every call.
+// A chunk's launch (altq_graph_chunk_kernel where a.scalars is set); the
+// kernel's shared-memory limit is raised once per device and size, not on
+// every call.
 template <bool kPacked, bool kTable, bool kSharedRows, bool kSharedAcc>
 cudaError_t launch_chunk(const AltqArgs& a, int device, int smem,
                          cudaStream_t st) {
-  auto kernel = altq_chunk_kernel<kPacked, kTable, kSharedRows, kSharedAcc>;
-  static int allowed[kMaxDevices] = {};
-  if (device >= kMaxDevices || smem > allowed[device]) {
+  const bool graph = a.scalars != nullptr;
+  auto kernel =
+      graph ? altq_graph_chunk_kernel<kPacked, kTable, kSharedRows, kSharedAcc>
+            : altq_chunk_kernel<kPacked, kTable, kSharedRows, kSharedAcc>;
+  static int allowed[2][kMaxDevices] = {};
+  if (device >= kMaxDevices || smem > allowed[graph][device]) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
-    if (device < kMaxDevices) allowed[device] = smem;
+    if (device < kMaxDevices) allowed[graph][device] = smem;
   }
   const int blocks = (a.B + a.lanes - 1) / a.lanes;
   kernel<<<blocks, a.lanes + 32 * kProducers, smem, st>>>(a);
@@ -827,8 +863,9 @@ cudaError_t dispatch(const AltqArgs& a, Placement p, int device, int smem,
 int chunk(int device, void* const* in, void* buf, const float* table,
           const int16_t* tick, const uint16_t* code_raw,
           const int32_t* params, int n_codes, int B, int n_steps,
-          uint32_t seed, int eps_int, int step_offset, float gamma,
-          float limit, int packed, int lanes, void* stream) {
+          uint32_t seed, int eps_int, int step_offset,
+          const int32_t* scalars, float gamma, float limit, int packed,
+          int lanes, void* stream) {
   if (B <= 0 || n_steps <= 0 || n_codes < 1 || lanes < 32 ||
       lanes > kMaxLanes || lanes % 32 != 0 || params[6] < 1 ||
       params[6] > kMaxIsd || eps_int < 0 || eps_int > 65536 ||
@@ -861,8 +898,8 @@ int chunk(int device, void* const* in, void* buf, const float* table,
                    reinterpret_cast<long long*>(base + l.sums),
                    reinterpret_cast<int*>(base + l.cnt),
                    reinterpret_cast<long long*>(base + l.stats), n_codes,
-                   lanes, B, n_steps, step_offset, eps_int, seed, gamma,
-                   limit, g};
+                   lanes, B, n_steps, step_offset, eps_int, seed,
+                   gamma, limit, g, scalars};
   return (int)(packed ? dispatch<true>(a, p, device, smem, st)
                       : dispatch<false>(a, p, device, smem, st));
 }
@@ -882,15 +919,19 @@ extern "C" {
 // n_codes], K4's tick table (rollout_codes.build_alt_table), with code_raw
 // its raw codes, or null for the arithmetic walk; params: the game
 // description (make_game); lanes: lanes per block, a multiple of 32 in
-// [32, 512] (any fits: gst_altq_smem_bytes).
+// [32, 512] (any fits: gst_altq_smem_bytes); scalars: null, or a device
+// int32 [3] holding (seed, eps_int, step_offset), which the kernel then
+// reads in place of those three arguments when it runs (a call captured
+// in a CUDA graph); the caller keeps them in range.
 int gst_altq_chunk(int device, void* const* in, void* buf, const float* table,
                    const int16_t* tick, const uint16_t* code_raw,
                    const int32_t* params, int n_codes, int B, int n_steps,
-                   uint32_t seed, int eps_int, int step_offset, float gamma,
-                   float limit, int packed, int lanes, void* stream) {
+                   uint32_t seed, int eps_int, int step_offset,
+                   const int32_t* scalars, float gamma, float limit,
+                   int packed, int lanes, void* stream) {
   return chunk(device, in, buf, table, tick, code_raw, params, n_codes, B,
-               n_steps, seed, eps_int, step_offset, gamma, limit, packed,
-               lanes, stream);
+               n_steps, seed, eps_int, step_offset, scalars, gamma, limit,
+               packed, lanes, stream);
 }
 
 // A call's byte offsets in buf (altq_codes.layout): sums, stats, cnt, the

@@ -5,7 +5,9 @@
 // gym_soccer_tpu/ops/iql_kernel.py.  One template,
 // `iql_chunk_kernel<kPacked, kSharedRows, kSharedAcc>`, computes both after
 // its prep pass `iql_prep_kernel`; they differ only in the baseline a
-// visit carries.
+// visit carries.  `iql_graph_chunk_kernel` is the same body reading the
+// chunk's seed, eps_int and step offset from device memory: the calls the
+// trainer's grouped mode captures in a CUDA graph (ops/dispatch.py).
 //
 // What it computes, for every lane (one independent game) and step i:
 // four murmur3 counter words keyed on (chunk seed, i + step_offset, word,
@@ -162,6 +164,9 @@ struct IqlArgs {
   uint32_t seed;
   float gamma, limit;
   Game g;
+  // iql_graph_chunk_kernel: (seed, eps_int, step_offset) in device memory,
+  // scalars[0..2]; last, so that the other fields keep their places
+  const int32_t* scalars;
 };
 
 // Greedy action (strict > from action 0) and max of five Q values.
@@ -234,7 +239,7 @@ __global__ void iql_prep_kernel(const float* __restrict__ table, int n_codes,
 // tile, each tile handed over on its kFull barrier once its ring slot is
 // free again (its kEmpty barrier).  The thread keeps one step slot, so its
 // words' keys are made once a tile.
-template <bool kMod3>
+template <bool kMod3, bool kScalars>
 __device__ __forceinline__ void iql_produce(const IqlArgs& a, uint16_t* ring,
                                             int pt, int lane0, int n_tiles,
                                             int nthreads) {
@@ -243,12 +248,19 @@ __device__ __forceinline__ void iql_produce(const IqlArgs& a, uint16_t* ring,
   const int t_keep = 65536 - a.g.q_int, t_half = 65536 - a.g.q_int / 2;
   const int mask = a.g.nI - 1;
   const int per_tile = a.lanes * kTile;
-  const uint32_t slot = (uint32_t)a.step_offset + (uint32_t)(pt % kTile);
+  // kScalars: (seed, eps_int, step_offset) read from device memory when
+  // the kernel runs (a call captured in a CUDA graph)
+  const uint32_t seed_dev = kScalars ? (uint32_t)__ldg(a.scalars) : 0u;
+  const int eps_dev = kScalars ? __ldg(a.scalars + 1) : 0;
+  const int off_dev = kScalars ? __ldg(a.scalars + 2) : 0;
+  const uint32_t slot = (uint32_t)(kScalars ? off_dev : a.step_offset) +
+                        (uint32_t)(pt % kTile);
   for (int k = 0; k < n_tiles; ++k) {
     const int st = k % kRingStages;
     if (k >= kRingStages) bar_sync(kEmpty + st, nthreads);
     uint16_t* tile = ring + st * per_tile;
-    const uint32_t c0 = step_key(a.seed, slot + (uint32_t)(k * kTile));
+    const uint32_t c0 =
+        step_key(kScalars ? seed_dev : a.seed, slot + (uint32_t)(k * kTile));
     const uint32_t c1 = c0 + kW, c2 = c0 + 2u * kW, c3 = c0 + 3u * kW;
     int l = pt / kTile;
 #pragma unroll 1
@@ -258,8 +270,12 @@ __device__ __forceinline__ void iql_produce(const IqlArgs& a, uint16_t* ring,
       const uint32_t b1 = fmix32(fmix32(lane ^ c1) + c1);
       const uint32_t b2 = fmix32(fmix32(lane ^ c2) + c2);
       const uint32_t b3 = fmix32(fmix32(lane ^ c3) + c3);
-      const int xa = u16(b0, 0) < a.eps_int ? u16(b0, 1) % 5 : kGreedy;
-      const int xb = u16(b3, 0) < a.eps_int ? u16(b3, 1) % 5 : kGreedy;
+      const int xa = u16(b0, 0) < (kScalars ? eps_dev : a.eps_int)
+                         ? u16(b0, 1) % 5
+                         : kGreedy;
+      const int xb = u16(b3, 0) < (kScalars ? eps_dev : a.eps_int)
+                         ? u16(b3, 1) % 5
+                         : kGreedy;
       const int ua = u16(b1, 0), ub = u16(b1, 1);
       const int sa = (ua >= t_keep) + (ua >= t_half);
       const int sb = (ub >= t_keep) + (ub >= t_half);
@@ -445,9 +461,8 @@ __device__ __forceinline__ void iql_consume(
 // with kSharedAcc the block's visits go to private accumulators in shared
 // memory (retire_shared), added to the device's once, at the end, where a
 // cell was visited.
-template <bool kPacked, bool kSharedRows, bool kSharedAcc>
-__global__ void __launch_bounds__(kMaxLanes + 32 * kProducers)
-    iql_chunk_kernel(IqlArgs a) {
+template <bool kPacked, bool kSharedRows, bool kSharedAcc, bool kScalars>
+__device__ __forceinline__ void iql_chunk_body(const IqlArgs& a) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
   int* isd = reinterpret_cast<int*>(smem + 16);
@@ -480,9 +495,11 @@ __global__ void __launch_bounds__(kMaxLanes + 32 * kProducers)
   }
   if (l >= a.lanes) {
     if (a.g.nI == 3)
-      iql_produce<true>(a, ring, l - a.lanes, lane0, n_tiles, nthreads);
+      iql_produce<true, kScalars>(a, ring, l - a.lanes, lane0, n_tiles,
+                                  nthreads);
     else
-      iql_produce<false>(a, ring, l - a.lanes, lane0, n_tiles, nthreads);
+      iql_produce<false, kScalars>(a, ring, l - a.lanes, lane0, n_tiles,
+                                   nthreads);
   } else {
     iql_consume<kPacked, kSharedRows, kSharedAcc>(
         a, isd, vals, greedy, reinterpret_cast<unsigned*>(acc), bar, ring, l,
@@ -502,20 +519,39 @@ __global__ void __launch_bounds__(kMaxLanes + 32 * kProducers)
   }
 }
 
+template <bool kPacked, bool kSharedRows, bool kSharedAcc>
+__global__ void __launch_bounds__(kMaxLanes + 32 * kProducers)
+    iql_chunk_kernel(IqlArgs a) {
+  iql_chunk_body<kPacked, kSharedRows, kSharedAcc, false>(a);
+}
+
+// The same chunk with its scalars read from device memory (a.scalars): the
+// calls a CUDA graph captures.  A kernel of its own, so that the by-value
+// kernel keeps its code.
+template <bool kPacked, bool kSharedRows, bool kSharedAcc>
+__global__ void __launch_bounds__(kMaxLanes + 32 * kProducers)
+    iql_graph_chunk_kernel(IqlArgs a) {
+  iql_chunk_body<kPacked, kSharedRows, kSharedAcc, true>(a);
+}
+
 constexpr int kMaxDevices = 64;
 
-// A chunk's launch; the kernel's shared-memory limit is raised once per
-// device and size, not on every call.
+// A chunk's launch (iql_graph_chunk_kernel where a.scalars is set); the
+// kernel's shared-memory limit is raised once per device and size, not on
+// every call.
 template <bool kPacked, bool kSharedRows, bool kSharedAcc>
 cudaError_t launch_chunk(const IqlArgs& a, int device, int smem,
                          cudaStream_t st) {
-  auto kernel = iql_chunk_kernel<kPacked, kSharedRows, kSharedAcc>;
-  static int allowed[kMaxDevices] = {};
-  if (device >= kMaxDevices || smem > allowed[device]) {
+  const bool graph = a.scalars != nullptr;
+  auto kernel =
+      graph ? iql_graph_chunk_kernel<kPacked, kSharedRows, kSharedAcc>
+            : iql_chunk_kernel<kPacked, kSharedRows, kSharedAcc>;
+  static int allowed[2][kMaxDevices] = {};
+  if (device >= kMaxDevices || smem > allowed[graph][device]) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
-    if (device < kMaxDevices) allowed[device] = smem;
+    if (device < kMaxDevices) allowed[graph][device] = smem;
   }
   const int blocks = (a.B + a.lanes - 1) / a.lanes;
   kernel<<<blocks, a.lanes + 32 * kProducers, smem, st>>>(a);
@@ -541,8 +577,9 @@ inline Placement placement(int n_codes, int lanes, int n_steps) {
 template <bool kPacked>
 int chunk(int device, void* const* in, void* buf, const float* table,
           const int32_t* params, int n_codes, int B, int n_steps,
-          uint32_t seed, int eps_int, int step_offset, float gamma,
-          float limit, int lanes, void* stream) {
+          uint32_t seed, int eps_int, int step_offset,
+          const int32_t* scalars, float gamma, float limit, int lanes,
+          void* stream) {
   if (B <= 0 || n_steps <= 0 || n_codes < 1 || lanes < 32 ||
       lanes > kMaxLanes || lanes % 32 != 0 || params[6] < 1 ||
       params[6] > kMaxIsd || eps_int < 0 || eps_int > 65536 ||
@@ -572,8 +609,8 @@ int chunk(int device, void* const* in, void* buf, const float* table,
                   vals, reinterpret_cast<long long*>(base + l.sums),
                   reinterpret_cast<int*>(base + l.cnt),
                   reinterpret_cast<long long*>(base + l.stats), n_codes,
-                  lanes, B, n_steps, step_offset, eps_int, seed, gamma,
-                  limit, g};
+                  lanes, B, n_steps, step_offset, eps_int, seed,
+                  gamma, limit, g, scalars};
   if (p.acc)
     return (int)launch_chunk<kPacked, true, true>(a, device, smem, st);
   return (int)(p.rows ? launch_chunk<kPacked, true, false>(a, device, smem, st)
@@ -593,17 +630,21 @@ extern "C" {
 // +-limit), the int32 counts [n_codes, 10] (all three zeroed here), the 6
 // output planes and the prepared rows; table: device float32 [n_codes,
 // 10]; params: the game description (make_game); lanes: lanes per block, a
-// multiple of 32 in [32, 512] (any fits: gst_iql_smem_bytes).
+// multiple of 32 in [32, 512] (any fits: gst_iql_smem_bytes); scalars:
+// null, or a device int32 [3] holding (seed, eps_int, step_offset), which
+// the kernel then reads in place of those three arguments when it runs (a
+// call captured in a CUDA graph); the caller keeps them in range.
 int gst_iql_chunk(int device, void* const* in, void* buf, const float* table,
                   const int32_t* params, int n_codes, int B, int n_steps,
-                  uint32_t seed, int eps_int, int step_offset, float gamma,
-                  float limit, int packed, int lanes, void* stream) {
+                  uint32_t seed, int eps_int, int step_offset,
+                  const int32_t* scalars, float gamma, float limit,
+                  int packed, int lanes, void* stream) {
   return packed ? chunk<true>(device, in, buf, table, params, n_codes, B,
-                              n_steps, seed, eps_int, step_offset, gamma,
-                              limit, lanes, stream)
+                              n_steps, seed, eps_int, step_offset, scalars,
+                              gamma, limit, lanes, stream)
                 : chunk<false>(device, in, buf, table, params, n_codes, B,
-                               n_steps, seed, eps_int, step_offset, gamma,
-                               limit, lanes, stream);
+                               n_steps, seed, eps_int, step_offset, scalars,
+                               gamma, limit, lanes, stream);
 }
 
 // A call's byte offsets in buf (iql_codes.layout): sums, stats, cnt, the

@@ -14,7 +14,10 @@
 // prepared rows in shared memory or in L2).  The JAX package serves all
 // four from `_packed_body` / `_learner_body`, whose only switches are the
 // accumulation layout and `planes is None`.  Here all four share the split
-// design below (chunk_kernel<kPacked, kShared, kMulti>); learner_kernel,
+// design below (chunk_kernel<kPacked, kShared, kMulti>, and
+// graph_chunk_kernel, the same body reading the chunk seed from device
+// memory for the calls the trainers' grouped modes capture in a CUDA
+// graph, ops/dispatch.py); learner_kernel,
 // the previous design, serves only ops/learner_variants.py's
 // previous-design variants of K5, K6 and K7.
 //
@@ -344,6 +347,9 @@ struct ChunkArgs {
   uint32_t seed;
   float gamma, limit;
   Game g;               // a mixture: max_steps alone
+  // graph_chunk_kernel: the chunk seed in device memory, scalars[0]; last,
+  // so that the other fields keep their places
+  const int32_t* scalars;
 };
 
 // The prep pass: compact code k's row of a table of `cols` columns as a
@@ -370,10 +376,12 @@ __global__ void prep_rows_kernel(const float* __restrict__ table, int cols,
 
 // Producer thread pt: each tile's words [lane][step] and side bytes
 // (slip class a | slip class b << 2 | coin << 4 | ISD index << 6), handed
-// over as K1/K2's tiles are.  The steps of a chunk count from 0.  One
-// board: its slip thresholds and ISD pick; a mixture (kMulti): lane lane0
-// + l's, from its slip entry.
-template <bool kMod3, bool kMulti>
+// over as K1/K2's tiles are.  The steps of a chunk count from 0; its seed
+// is a.seed, or with kScalars scalars[0] in device memory, read when the
+// kernel runs (a call captured in a CUDA graph, whose arguments are
+// frozen).  One board: its slip thresholds and ISD pick; a mixture
+// (kMulti): lane lane0 + l's, from its slip entry.
+template <bool kMod3, bool kMulti, bool kScalars>
 __device__ __forceinline__ void learn_produce(const ChunkArgs& a,
                                              unsigned char* ring,
                                              const int4* slip, int pt,
@@ -384,12 +392,14 @@ __device__ __forceinline__ void learn_produce(const ChunkArgs& a,
   int mask = a.g.nI - 1;
   const int per_tile = a.lanes * kTile;
   const uint32_t slot = (uint32_t)(pt % kTile);
+  const uint32_t seed_dev = kScalars ? (uint32_t)__ldg(a.scalars) : 0u;
   for (int k = 0; k < n_tiles; ++k) {
     const int st = k % kRingStages;
     if (k >= kRingStages) bar_sync(kEmpty + st, nthreads);
     uint32_t* words = reinterpret_cast<uint32_t*>(ring + st * 5 * per_tile);
     uint8_t* side = ring + st * 5 * per_tile + 4 * per_tile;
-    const uint32_t c0 = step_key(a.seed, slot + (uint32_t)(k * kTile));
+    const uint32_t c0 =
+        step_key(kScalars ? seed_dev : a.seed, slot + (uint32_t)(k * kTile));
     const uint32_t c1 = c0 + 0xC2B2AE3Du, c2 = c0 + 2u * 0xC2B2AE3Du;
     int l = pt / kTile;
 #pragma unroll 1
@@ -632,9 +642,8 @@ __device__ __forceinline__ void learn_consume(const ChunkArgs& a, Board board,
 // copied into shared memory by bulk copies while the producers start.  On
 // a mixture (kMulti: K6, K7 multigrid) each consumer first puts its lane's
 // slip entry in shared memory for the producers.
-template <bool kPacked, bool kShared, bool kMulti>
-__global__ void __launch_bounds__(kMaxLanes + 32 * kProducers)
-    chunk_kernel(ChunkArgs a) {
+template <bool kPacked, bool kShared, bool kMulti, bool kScalars>
+__device__ __forceinline__ void chunk_body(const ChunkArgs& a) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
   int* isd = reinterpret_cast<int*>(smem + 16);
@@ -663,14 +672,14 @@ __global__ void __launch_bounds__(kMaxLanes + 32 * kProducers)
   }
   if (l >= a.lanes) {
     if constexpr (kMulti)
-      learn_produce<false, true>(a, ring, slip, l - a.lanes, lane0, n_tiles,
-                                 nthreads);
+      learn_produce<false, true, kScalars>(a, ring, slip, l - a.lanes, lane0,
+                                           n_tiles, nthreads);
     else if (a.g.nI == 3)
-      learn_produce<true, false>(a, ring, slip, l - a.lanes, lane0, n_tiles,
-                                 nthreads);
+      learn_produce<true, false, kScalars>(a, ring, slip, l - a.lanes, lane0,
+                                           n_tiles, nthreads);
     else
-      learn_produce<false, false>(a, ring, slip, l - a.lanes, lane0,
-                                  n_tiles, nthreads);
+      learn_produce<false, false, kScalars>(a, ring, slip, l - a.lanes,
+                                            lane0, n_tiles, nthreads);
   } else if constexpr (kMulti) {
     const LaneBoard b = lane_board(a.geo, src, a.g.max_steps);
     learn_consume<kPacked, kShared>(a, OwnBoard{b, n_cells(b), a.geo.f[5][src]},
@@ -683,20 +692,38 @@ __global__ void __launch_bounds__(kMaxLanes + 32 * kProducers)
   }
 }
 
+template <bool kPacked, bool kShared, bool kMulti>
+__global__ void __launch_bounds__(kMaxLanes + 32 * kProducers)
+    chunk_kernel(ChunkArgs a) {
+  chunk_body<kPacked, kShared, kMulti, false>(a);
+}
+
+// The same chunk with its seed read from device memory (a.scalars): the
+// calls a CUDA graph captures.  A kernel of its own, so that the seed
+// argument's kernel keeps its code.
+template <bool kPacked, bool kShared, bool kMulti>
+__global__ void __launch_bounds__(kMaxLanes + 32 * kProducers)
+    graph_chunk_kernel(ChunkArgs a) {
+  chunk_body<kPacked, kShared, kMulti, true>(a);
+}
+
 constexpr int kMaxDevices = 64;
 
-// A split chunk's launch; the kernel's shared-memory limit is raised once
-// per device and size, not on every call.
+// A split chunk's launch (graph_chunk_kernel where a.scalars is set); the
+// kernel's shared-memory limit is raised once per device and size, not on
+// every call.
 template <bool kPacked, bool kShared, bool kMulti>
 cudaError_t launch_chunk(const ChunkArgs& a, int device, int smem,
                          cudaStream_t st) {
-  auto kernel = chunk_kernel<kPacked, kShared, kMulti>;
-  static int allowed[kMaxDevices] = {};
-  if (device >= kMaxDevices || smem > allowed[device]) {
+  const bool graph = a.scalars != nullptr;
+  auto kernel = graph ? graph_chunk_kernel<kPacked, kShared, kMulti>
+                      : chunk_kernel<kPacked, kShared, kMulti>;
+  static int allowed[2][kMaxDevices] = {};
+  if (device >= kMaxDevices || smem > allowed[graph][device]) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
-    if (device < kMaxDevices) allowed[device] = smem;
+    if (device < kMaxDevices) allowed[graph][device] = smem;
   }
   const int blocks = (a.B + a.lanes - 1) / a.lanes;
   kernel<<<blocks, a.lanes + 32 * kProducers, smem, st>>>(a);
@@ -709,8 +736,8 @@ cudaError_t launch_chunk(const ChunkArgs& a, int device, int smem,
 template <bool kPacked, bool kMulti>
 int chunk(int device, void* const* in, void* const* geo, void* buf,
           const float* table, const int32_t* params, int n_codes, int B,
-          int n_steps, uint32_t seed, float gamma, float limit, int lanes,
-          void* stream) {
+          int n_steps, uint32_t seed, const int32_t* scalars, float gamma,
+          float limit, int lanes, void* stream) {
   if (B <= 0 || n_steps <= 0 || n_codes < 1 || lanes < 32 ||
       lanes > kMaxLanes || lanes % 32 != 0 || (kMulti && geo == nullptr) ||
       (!kMulti && (params[6] < 1 || params[6] > kMaxIsd)))
@@ -742,7 +769,7 @@ int chunk(int device, void* const* in, void* const* geo, void* buf,
                     reinterpret_cast<long long*>(base + l.sums),
                     reinterpret_cast<int*>(base + l.cnt),
                     reinterpret_cast<long long*>(base + l.stats), n_codes,
-                    lanes, B, n_steps, seed, gamma, limit, g};
+                    lanes, B, n_steps, seed, gamma, limit, g, scalars};
   return (int)(shared ? launch_chunk<kPacked, true, kMulti>(a, device, smem, st)
                       : launch_chunk<kPacked, false, kMulti>(a, device, smem,
                                                              st));
@@ -784,10 +811,11 @@ int gst_multigrid_packed_learner_chunk(int device, void* const* in,
                                        const float* table,
                                        const int32_t* params, int n_codes,
                                        int B, int n_steps, uint32_t seed,
-                                       float gamma, float limit, int lanes,
-                                       void* stream) {
+                                       const int32_t* scalars, float gamma,
+                                       float limit, int lanes, void* stream) {
   return chunk<true, true>(device, in, geo, buf, table, params, n_codes, B,
-                           n_steps, seed, gamma, limit, lanes, stream);
+                           n_steps, seed, scalars, gamma, limit, lanes,
+                           stream);
 }
 
 // K5.  in: host array of 6 device pointers to int32 [B]; buf: one device
@@ -795,25 +823,29 @@ int gst_multigrid_packed_learner_chunk(int device, void* const* in,
 // sums [n_codes, 25], the int64 stats [4], the int32 counts [n_codes, 25]
 // (all three zeroed here), the 6 output planes and the prepared rows;
 // table: device float32 [n_codes, 11]; params: the game description
-// (make_game); lanes: lanes per block, a multiple of 32 in [32, 512] (any
-// fits: gst_chunk_smem_bytes).
+// (make_game); seed: the chunk seed, unless scalars (a device int32 [1]
+// holding it, or null) is set: a call captured in a CUDA graph reads its
+// seed when it runs; lanes: lanes per block, a multiple of 32 in [32, 512]
+// (any fits: gst_chunk_smem_bytes).
 int gst_packed_learner_chunk(int device, void* const* in, void* buf,
                              const float* table, const int32_t* params,
                              int n_codes, int B, int n_steps, uint32_t seed,
-                             float gamma, float limit, int lanes,
-                             void* stream) {
+                             const int32_t* scalars, float gamma,
+                             float limit, int lanes, void* stream) {
   return chunk<true, false>(device, in, nullptr, buf, table, params, n_codes,
-                            B, n_steps, seed, gamma, limit, lanes, stream);
+                            B, n_steps, seed, scalars, gamma, limit, lanes,
+                            stream);
 }
 
 // K7.  As K5, with table: device float32 [n_codes, 36].
 int gst_learner_chunk(int device, void* const* in, void* buf,
                       const float* table, const int32_t* params, int n_codes,
-                      int B, int n_steps, uint32_t seed, float gamma,
-                      float limit, int lanes, void* stream) {
+                      int B, int n_steps, uint32_t seed,
+                      const int32_t* scalars, float gamma, float limit,
+                      int lanes, void* stream) {
   return chunk<false, false>(device, in, nullptr, buf, table, params,
-                             n_codes, B, n_steps, seed, gamma, limit, lanes,
-                             stream);
+                             n_codes, B, n_steps, seed, scalars, gamma,
+                             limit, lanes, stream);
 }
 
 // K7 multigrid.  As K7, with geo: host array of 6 device pointers to int32
@@ -822,10 +854,12 @@ int gst_multigrid_learner_chunk(int device, void* const* in,
                                 void* const* geo, void* buf,
                                 const float* table, const int32_t* params,
                                 int n_codes, int B, int n_steps,
-                                uint32_t seed, float gamma, float limit,
-                                int lanes, void* stream) {
+                                uint32_t seed, const int32_t* scalars,
+                                float gamma, float limit, int lanes,
+                                void* stream) {
   return chunk<false, true>(device, in, geo, buf, table, params, n_codes, B,
-                            n_steps, seed, gamma, limit, lanes, stream);
+                            n_steps, seed, scalars, gamma, limit, lanes,
+                            stream);
 }
 
 // The split chunks' byte offsets in buf (learner_codes.layout): sums,

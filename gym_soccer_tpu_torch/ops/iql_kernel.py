@@ -38,9 +38,11 @@ from one to the other.  The chunk wrappers take their device from their
 tensors; ``fused_iql_train`` and ``init_iql_state_fields`` default to
 "cuda": CPU callers pass "cpu".
 
-Not ported: data parallelism (``mesh``) and grouped dispatches
-(``chunks_per_dispatch`` > 1); the trainer raises NotImplementedError for
-them.  The JAX wrappers' VMEM guard (a grid over ~14 MB of tables) has no
+``chunks_per_dispatch`` > 1 runs g chunks and the work between them as
+one CUDA-graph replay (ops/dispatch), the chunk's seed, eps_int and step
+offset read from device memory.  Not ported: data parallelism (``mesh``);
+the trainer raises NotImplementedError for it.  The JAX wrappers' VMEM
+guard (a grid over ~14 MB of tables) has no
 counterpart: the port takes any grid.
 """
 from __future__ import annotations
@@ -53,6 +55,7 @@ import torch
 
 from ..config import N_ACTIONS, EnvConfig
 from ..core import rules, tables
+from . import dispatch
 from . import learner_kernel as lk
 from . import step_kernel as sk
 
@@ -235,15 +238,35 @@ def _plain(cfg: EnvConfig, seed: int, eps_int: int, table, fields,
             (rew.sum(), goals.sum(), truncs.sum(), out_of_range))
 
 
+def scalar_args(seed, eps_int, step_offset, table, plain: bool):
+    """(seed, eps_int, step_offset, scalars) of a K8-K11 call.  ``seed``
+    may be an int32 [3] tensor holding (seed, eps_int, step_offset) on the
+    table's device (``eps_int`` then None and ``step_offset`` 0): a plain
+    version reads them now, a kernel when it runs (``scalars``; the three
+    ints are then 0, and the caller keeps the values in range)."""
+    if not isinstance(seed, torch.Tensor):
+        return seed, eps_int, step_offset, None
+    if eps_int is not None or step_offset != 0:
+        raise ValueError("with scalars in a tensor, eps_int is None and "
+                         "step_offset 0")
+    scalars = lk.check_scalars(seed, 3, table.device)
+    if plain or not table.is_cuda:
+        seed, eps_int, step_offset = (int(x) for x in scalars.tolist())
+        return seed & sk.M32, eps_int, step_offset, None
+    return 0, 0, 0, scalars
+
+
 def _chunk(packed: bool, cfg, seed, eps_int, table, fields, batch, n_steps,
            gamma, step_offset, threads, plain: bool):
+    seed, eps_int, step_offset, scalars = scalar_args(
+        seed, eps_int, step_offset, table, plain)
     fields = _check_args(cfg, eps_int, table, fields, batch, n_steps,
                          step_offset)
     if plain or table.device.type == "cpu":
         return _plain(cfg, seed, eps_int, table, fields, n_steps, gamma,
                       step_offset, packed)
     return _launch(packed, cfg, seed, eps_int, table, fields, n_steps, gamma,
-                   step_offset, threads)
+                   step_offset, threads, scalars)
 
 
 def iql_packed_chunk(cfg: EnvConfig, seed: int, eps_int: int, table, fields,
@@ -256,7 +279,9 @@ def iql_packed_chunk(cfg: EnvConfig, seed: int, eps_int: int, table, fields,
     ``init_iql_state_fields``; all on one device, where the chunk runs.
     ``batch`` is a multiple of 128 and batch * n_steps at most 2**29.
     ``eps_int`` = round(eps * 65536) in [0, 65536].  ``seed`` keys the
-    counter PRNG with the steps numbered from ``step_offset``.  Returns
+    counter PRNG with the steps numbered from ``step_offset``; the three
+    may instead come in an int32 [3] tensor passed as ``seed``
+    (``scalar_args``), which the kernel reads when it runs.  Returns
     ``(fields, (res, cnt), (reward_sum, goals, truncs, out_of_range))``:
     the final state, the int64 residual sums (units of 2**-32) and int32
     visit counts [n_codes, 10] (decode with ``unpack_iql_acc2``), and the
@@ -327,10 +352,10 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures of a build of ``csrc/iql_kernel.cu``."""
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.gst_iql_chunk.argtypes = [
-        i32, vp, vp, vp, vp, i32, i32, i32, ctypes.c_uint32, i32, i32, f32,
-        f32, i32, i32, vp]
+        i32, vp, vp, vp, vp, i32, i32, i32, ctypes.c_uint32, i32, i32, vp,
+        f32, f32, i32, i32, vp]
     #    device, in, buf, table, params, n_codes, B, T, seed, eps_int,
-    #    step_offset, gamma, limit, packed, lanes, stream
+    #    step_offset, scalars, gamma, limit, packed, lanes, stream
     lib.gst_iql_chunk.restype = i32
     lib.gst_iql_layout.argtypes = [i32, i32, vp]
     lib.gst_iql_layout.restype = None
@@ -351,8 +376,9 @@ def _host(cfg: EnvConfig):
 
 def _launch(packed: bool, cfg: EnvConfig, seed: int, eps_int: int, table,
             fields, n_steps: int, gamma: float, step_offset: int,
-            lanes: int):
-    """Launch K8 or K9 at ``lanes`` lanes per block.  Its outputs (the six
+            lanes: int, scalars=None):
+    """Launch K8 or K9 at ``lanes`` lanes per block (``scalars``: the
+    device tensor of ``scalar_args`` or None).  Its outputs (the six
     planes, the sums, the counts and the stats) and the prep pass's rows
     are one allocation, zeroed where it sums by one memset in the
     launch."""
@@ -369,7 +395,8 @@ def _launch(packed: bool, cfg: EnvConfig, seed: int, eps_int: int, table,
     rc = _library().gst_iql_chunk(
         dev.index, ctypes.addressof(in_ptrs), b64.data_ptr(),
         table.data_ptr(), ctypes.addressof(params), n, B, n_steps,
-        seed & sk.M32, eps_int, step_offset, lk._f32(gamma),
+        seed & sk.M32, eps_int, step_offset,
+        None if scalars is None else scalars.data_ptr(), lk._f32(gamma),
         value_limit(B, n_steps), int(packed), lanes,
         torch._C._cuda_getCurrentRawStream(dev.index))
     if rc:
@@ -388,6 +415,25 @@ def _launch(packed: bool, cfg: EnvConfig, seed: int, eps_int: int, table,
 # Chunked trainer
 # ----------------------------------------------------------------------
 
+def schedule(seed: int, start_chunk: int, end_chunk: int, chunk_len: int,
+             lr_at, eps_int_at, device) -> dispatch.Schedule:
+    """A grouped IQL or turn-based Q run's schedule: chunk k's lr
+    (``lr_at(k)``, a float32 value) and its scalars (seed * 1_000_003 + k,
+    ``eps_int_at(k)``, k * chunk_len), the per-chunk mode's values.  The
+    kernel cannot check them when it runs, so they are checked here, before
+    the first chunk, as the per-chunk mode checks each chunk's."""
+    ks = range(start_chunk, end_chunk)
+    ints = [(seed * 1_000_003 + k, eps_int_at(k), k * chunk_len) for k in ks]
+    for _, eps_int, offset in ints:
+        if not 0 <= eps_int <= EPS_ONE:
+            raise ValueError(f"eps_int must lie in [0, {EPS_ONE}], got "
+                             f"{eps_int}")
+        if offset + chunk_len >= 2 ** 31:
+            raise ValueError(f"steps [{offset}, {offset + chunk_len}) must "
+                             "lie in [0, 2**31)")
+    return dispatch.Schedule([(lr_at(k),) for k in ks], ints, device)
+
+
 def fused_iql_train(cfg: EnvConfig, batch: int, n_chunks: int,
                     chunk_len: int = 64, lr: float = 0.3,
                     gamma: float = 0.99, eps: float = 0.3,
@@ -401,9 +447,9 @@ def fused_iql_train(cfg: EnvConfig, batch: int, n_chunks: int,
                     chunks_per_dispatch: int = 1,
                     device="cuda", timing: dict | None = None):
     """Chunked fused independent-Q self-play.  Returns (q_a, q_b,
-    stats_history), tensors on ``device``, in the JAX package's per-chunk
-    dispatch mode; the arguments mean what they mean there
-    (gym_soccer_tpu/ops/iql_kernel.py ``fused_iql_train``):
+    stats_history), tensors on ``device``; the arguments mean what they
+    mean in the JAX package (gym_soccer_tpu/ops/iql_kernel.py
+    ``fused_iql_train``):
 
     * chunk k runs with seed ``seed * 1_000_003 + k``, its steps numbered
       from ``k * chunk_len``, eps_int = round(eps_k * 65536) with eps_k =
@@ -421,22 +467,24 @@ def fused_iql_train(cfg: EnvConfig, batch: int, n_chunks: int,
       ``start_chunk`` from it continue bit for bit like an uninterrupted
       run;
     * ``stats_history`` holds (reward_sum, goals, truncs) of every 16th
-      chunk and of the last.
+      chunk and of the last, or of every chunk in the grouped mode;
+    * ``chunks_per_dispatch`` = g > 1: the grouped mode, g chunks and the
+      work after each as one CUDA-graph replay on the card (ops/dispatch),
+      with the per-chunk mode's host schedule (lr_k, and eps_int and the
+      step offset beside the seed) read from tables on the device: the
+      same q and fields bit for bit (the JAX package's grouped mode rounds
+      eps_int in the graph, within one count of these).
 
     On a CUDA device every chunk launches K8 (or K9), and no chunk waits
     for the one before: the chunks' out-of-range counts (see
     ``iql_packed_chunk``) are summed on the device and read once, at the
     end, and a run in which any value left the int64 sums' exact range
     raises ValueError.  ``timing``, if a dict, is filled with the time
-    spent in chunk calls and between them.
+    spent in chunk calls and between them (the per-chunk mode), or with
+    ``dispatch.run``'s capture, replay and remainder times.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh (data-parallel training) is not ported yet")
-    if chunks_per_dispatch != 1:
-        raise NotImplementedError(
-            "chunks_per_dispatch is not ported yet; the port runs one chunk "
-            "per dispatch")
+    lk.check_mesh(mesh)
+    g = dispatch.group_size(n_chunks, False, chunks_per_dispatch)
     lk._check_seeds(seed, start_chunk, start_chunk + n_chunks)
     if packed is None:
         packed = True
@@ -480,27 +528,48 @@ def fused_iql_train(cfg: EnvConfig, batch: int, n_chunks: int,
 
     m = pack_iql_table(cfg, q_a, q_b)
     end_chunk = start_chunk + n_chunks
-    history = []
-    out_of_range = 0
-    clock = lk._Timing(timing, device)
-    for k in range(start_chunk, end_chunk):
-        clock.mark()
-        fields, acc, stats = chunk_fn(
-            cfg, lk._chunk_seed(seed, k), int(round(eps_at(k) * 65536)), m,
-            fields, batch, chunk_len, gamma, k * chunk_len)
-        clock.mark()
-        q_a, q_b, m = between(q_a, q_b, acc, lk._f32(lr_at(k)))
-        out_of_range = out_of_range + stats[3]
-        if k % 16 == 0 or k == end_chunk - 1:
-            history.append(stats[:3])
-    clock.finish()
+    if g is not None:
+        sched = schedule(seed, start_chunk, end_chunk, chunk_len,
+                         lambda k: lk._f32(lr_at(k)),
+                         lambda k: int(round(eps_at(k) * 65536)), device)
+        carry = [t.clone() for t in (*fields, q_a, q_b, m)]
+        *fields, q_a, q_b, m = carry
+        fields = tuple(fields)
+
+        def body():
+            lr, ints = sched.row()
+            new_fields, acc, stats = chunk_fn(cfg, ints, None, m, fields,
+                                              batch, chunk_len, gamma)
+            new = between(q_a, q_b, acc, lr[0])
+            for dst, src in zip((*fields, q_a, q_b, m), (*new_fields, *new)):
+                dst.copy_(src)
+            sched.record(stats)
+
+        dispatch.run(body, carry + sched.state(), n_chunks, g,
+                     (launch_counts,), timing)
+        history, out_of_range = sched.history()
+    else:
+        history = []
+        out_of_range = 0
+        clock = lk._Timing(timing, device)
+        for k in range(start_chunk, end_chunk):
+            clock.mark()
+            fields, acc, stats = chunk_fn(
+                cfg, lk._chunk_seed(seed, k), int(round(eps_at(k) * 65536)),
+                m, fields, batch, chunk_len, gamma, k * chunk_len)
+            clock.mark()
+            q_a, q_b, m = between(q_a, q_b, acc, lk._f32(lr_at(k)))
+            out_of_range = out_of_range + stats[3]
+            if k % 16 == 0 or k == end_chunk - 1:
+                history.append(stats[:3])
+        clock.finish()
+        history = [tuple(int(x) for x in row) for row in history]
     if int(out_of_range):
         raise ValueError(
             f"{int(out_of_range)} values left +-{value_limit(batch, chunk_len)}"
             f": the int64 fixed-point sums could overflow (batch * chunk_len "
             f"= {batch * chunk_len}, max|q| up to "
             f"{float(max(q_a.abs().max(), q_b.abs().max()))})")
-    history = [tuple(int(x) for x in row) for row in history]
     if return_state:
         return q_a, q_b, history, {"q_a": q_a, "q_b": q_b, "fields": fields,
                                    "next_chunk": end_chunk, "packed": packed}

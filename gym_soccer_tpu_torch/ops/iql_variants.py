@@ -38,12 +38,13 @@ from concurrent.futures import ThreadPoolExecutor
 # 64 blocks of 128 at 8192 lanes), its outputs placed in the call's one
 # allocation.
 _ENTRY = """  return packed ? chunk<true>(device, in, buf, table, params, n_codes, B,
-                              n_steps, seed, eps_int, step_offset, gamma,
-                              limit, lanes, stream)
+                              n_steps, seed, eps_int, step_offset, scalars,
+                              gamma, limit, lanes, stream)
                 : chunk<false>(device, in, buf, table, params, n_codes, B,
-                               n_steps, seed, eps_int, step_offset, gamma,
-                               limit, lanes, stream);"""
+                               n_steps, seed, eps_int, step_offset, scalars,
+                               gamma, limit, lanes, stream);"""
 _OLD_ENTRY = """  (void)lanes;
+  (void)scalars;
   if (B <= 0 || n_steps <= 0 || params[6] < 1 || params[6] > kMaxIsd)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);

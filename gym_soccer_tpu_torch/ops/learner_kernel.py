@@ -50,11 +50,14 @@ from their tensors; the functions that make their own tensors (the
 trainers, ``init_state_fields``) default to "cuda": CPU callers pass
 "cpu".
 
-Not ported yet: data parallelism (``mesh``) and the grouped dispatch modes
-(``single_dispatch``, ``chunks_per_dispatch``); the trainers raise
-NotImplementedError for them.  The JAX wrappers' VMEM guards (tables over
-~14 MB) have no counterpart: the port reads its tables from device memory
-and takes any grid and any mixture.
+The trainers' grouped dispatch modes (``single_dispatch``,
+``chunks_per_dispatch``) run g chunks and the work between them as one
+CUDA-graph replay (ops/dispatch), with the chunk's seed read from device
+memory; the re-solve is kernel R1 (agents/learners ``solve_matrix_games``)
+on the card.  Not ported yet: data parallelism (``mesh``); the trainers
+raise NotImplementedError for it.  The JAX wrappers' VMEM guards (tables
+over ~14 MB) have no counterpart: the port reads its tables from device
+memory and takes any grid and any mixture.
 """
 from __future__ import annotations
 
@@ -65,9 +68,11 @@ import time
 import numpy as np
 import torch
 
+from ..agents import learners
 from ..agents.learners import solve_matrix_games
 from ..config import N_ACTIONS, EnvConfig
 from ..core import rules, tables
+from . import dispatch
 from . import step_kernel as sk
 
 LANES = 128                 # batch granularity (the JAX wrapper's lane tile)
@@ -171,16 +176,24 @@ def init_state_fields(cfg, batch: int, device="cuda"):
     return (*sk.isd_spread_fields(cfg, batch, device), zeros)
 
 
+_FIFTH = float(np.float32(0.2))
+
+
 def _mix_eps(pi, eps):
     """pi * (1 - eps) + eps / 5, rounded to bfloat16, as the JAX package
     computes it under jit on the CPU: eps in float32, eps / 5 as
     eps * float32(0.2), and one fused multiply-add.  The FMA is formed in
     float64, where the product of two float32 is exact, and rounded once
     to float32 (see agents/learners._fma_dot for the one case where that
-    differs from a true FMA)."""
-    e = np.float32(eps)
-    e1 = float(np.float32(1.0) - e)
-    e2 = float(e * np.float32(0.2))
+    differs from a true FMA).  ``eps`` is a number, or a float32 scalar
+    tensor on pi's device (a grouped run's schedule), whose 1 - eps and
+    eps * 0.2 are the same float32 operations on the device."""
+    if isinstance(eps, torch.Tensor):
+        e1, e2 = (1.0 - eps).double(), (eps * _FIFTH).double()
+    else:
+        e = np.float32(eps)
+        e1 = float(np.float32(1.0) - e)
+        e2 = float(e * np.float32(0.2))
     mixed = (pi.double() * e1 + e2).float()
     return mixed.to(torch.bfloat16).float()
 
@@ -420,6 +433,20 @@ def _mixture_planes(planes, batch: int, device):
     return planes, ptrs
 
 
+def check_scalars(scalars, n: int, device) -> torch.Tensor:
+    """A chunk's scalars given as a tensor (its seed; for K8-K11 the seed,
+    eps_int and step offset), checked to be a contiguous int32 [n] tensor
+    on ``device``, where the chunk runs.  A kernel reads them from device
+    memory when it runs, so a call captured in a CUDA graph takes the
+    values the graph has written there."""
+    if (not isinstance(scalars, torch.Tensor) or scalars.dtype != torch.int32
+            or tuple(scalars.shape) != (n,) or not scalars.is_contiguous()
+            or scalars.device != device):
+        raise ValueError(f"scalars must be a contiguous int32 [{n}] tensor on "
+                         f"{device}")
+    return scalars
+
+
 def _chunk(packed: bool, cfg, seed, table, planes, fields, batch, n_steps,
            gamma, threads, plain: bool):
     multi = planes is not None
@@ -439,11 +466,16 @@ def _chunk(packed: bool, cfg, seed, table, planes, fields, batch, n_steps,
     geo_ptrs = None
     if multi:
         planes, geo_ptrs = _mixture_planes(planes, batch, table.device)
+    scalars = None
+    if isinstance(seed, torch.Tensor):
+        scalars = check_scalars(seed, 1, table.device)
+        seed = int(scalars[0]) & sk.M32 if plain or not table.is_cuda \
+            else 0
     if plain or table.device.type == "cpu":
         return _plain(cfg, seed, table, fields, n_steps, gamma, packed,
                       planes)
-    return _launch_chunk(name, cfg, n, seed, table, geo_ptrs, fields, batch,
-                         n_steps, gamma, threads)
+    return _launch_chunk(name, cfg, n, seed, scalars, table, geo_ptrs, fields,
+                         batch, n_steps, gamma, threads)
 
 
 def packed_learner_chunk(cfg: EnvConfig, seed: int, table, fields,
@@ -457,7 +489,9 @@ def packed_learner_chunk(cfg: EnvConfig, seed: int, table, fields,
     ``init_state_fields``; both on one device, where the chunk runs.
     ``batch`` is a multiple of 128 and batch * n_steps at most 2**29;
     ``gamma`` lies in [0, 1].  ``seed`` keys the counter PRNG with the
-    steps numbered from 0.  Returns ``(fields, (sums, cnt), (reward_sum,
+    steps numbered from 0; it may instead be an int32 [1] tensor holding
+    it on the chunk's device (``check_scalars``), which the kernel reads
+    when it runs.  Returns ``(fields, (sums, cnt), (reward_sum,
     goals, truncs, out_of_range))``: the final state, the int64 residual
     sums (units of 2**-32) and int32 visit counts [n_codes, 25] (decode
     with ``unpack_acc2``), and the int64 totals.  The sums are exact when
@@ -582,8 +616,8 @@ def _library():
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures of a build of ``csrc/learner_kernel.cu``."""
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # params, n_codes, B, T, seed, gamma, limit, lanes, stream
-    tail = [vp, i32, i32, i32, ctypes.c_uint32, f32, f32, i32, vp]
+    # params, n_codes, B, T, seed, scalars, gamma, limit, lanes, stream
+    tail = [vp, i32, i32, i32, ctypes.c_uint32, vp, f32, f32, i32, vp]
     for fn in (lib.gst_packed_learner_chunk, lib.gst_learner_chunk):
         fn.argtypes = [i32, vp, vp, vp] + tail   # device, in, buf, table
         fn.restype = i32
@@ -613,11 +647,12 @@ def _entry(name: str, key):
     return getattr(_library(), "gst_" + name), params
 
 
-def _launch_chunk(name: str, cfg, n: int, seed: int, table, geo_ptrs,
-                  fields, batch: int, n_steps: int, gamma: float,
+def _launch_chunk(name: str, cfg, n: int, seed: int, scalars, table,
+                  geo_ptrs, fields, batch: int, n_steps: int, gamma: float,
                   lanes: int):
     """Launch K5, K6 or K7 (``geo_ptrs``: a mixture's planes, K6 and K7
-    multigrid) on ``n`` codes at ``lanes`` lanes per block.  Its outputs
+    multigrid) on ``n`` codes at ``lanes`` lanes per block, with the seed
+    ``seed`` or, where ``scalars`` is a tensor, the one it holds.  Its outputs
     (the six planes, the sums, the counts and the stats) and the prep
     pass's rows are one allocation, zeroed where it sums by one memset in
     the launch."""
@@ -633,7 +668,8 @@ def _launch_chunk(name: str, cfg, n: int, seed: int, table, geo_ptrs,
     geo = (ctypes.addressof(geo_ptrs),) if multi else ()
     rc = fn(dev.index, ctypes.addressof(in_ptrs), *geo, b64.data_ptr(),
             table.data_ptr(), ctypes.addressof(params), n, batch, n_steps,
-            seed & sk.M32, _f32(gamma), value_limit(batch, n_steps), lanes,
+            seed & sk.M32, None if scalars is None else scalars.data_ptr(),
+            _f32(gamma), value_limit(batch, n_steps), lanes,
             torch._C._cuda_getCurrentRawStream(dev.index))
     if rc:
         raise RuntimeError(f"{name}: kernel launch failed: "
@@ -685,14 +721,12 @@ def _chunk_seed(seed: int, k: int) -> int:
     return (seed * 1_000_003 + k) & sk.M32
 
 
-def _unsupported(mesh, single_dispatch, chunks_per_dispatch):
+def check_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "mesh (data-parallel training) is not ported yet")
-    if single_dispatch or chunks_per_dispatch != 1:
-        raise NotImplementedError(
-            "single_dispatch / chunks_per_dispatch are not ported yet; the "
-            "port runs one chunk per dispatch")
+
+
 
 
 def _chunk_fn(cfg, packed: bool, batch: int, chunk_len: int, gamma: float,
@@ -788,9 +822,9 @@ def fused_minimax_train(cfg, batch: int, n_chunks: int,
                         single_dispatch: bool = False,
                         chunks_per_dispatch: int = 1):
     """Chunked fused minimax-Q training.  Returns (q, v, pi_a, pi_b,
-    stats_history), tensors on ``device``, in the JAX package's per-chunk
-    dispatch mode; the arguments mean what they mean there
-    (gym_soccer_tpu/ops/learner_kernel.py ``fused_minimax_train``):
+    stats_history), tensors on ``device``; the arguments mean what they
+    mean in the JAX package (gym_soccer_tpu/ops/learner_kernel.py
+    ``fused_minimax_train``):
 
     * ``cfg``: one EnvConfig, or a tuple of them: one table concatenated
       over the variants is trained on a mixed batch (lanes in contiguous
@@ -821,16 +855,28 @@ def fused_minimax_train(cfg, batch: int, n_chunks: int,
       mixture's planes are rebuilt, not resumed).  Averaging windows
       restart on resume.
     * ``stats_history`` holds (reward_sum, goals, truncs) of every 16th
-      chunk and of the last.
+      chunk and of the last in the per-chunk mode, of every chunk in the
+      grouped modes (the JAX package's cadences);
+    * ``chunks_per_dispatch`` = g > 1: the grouped mode, g chunks and the
+      work after each as one CUDA-graph replay on the card (ops/dispatch);
+      ``single_dispatch``: the same in segments of
+      ``dispatch.SINGLE_DISPATCH_CHUNKS`` (no host round trip between
+      chunks).  Their schedules are the per-chunk mode's host values, read
+      from a table on the device, so every mode gives the same q, v, pi, n
+      and fields bit for bit, and exact resume holds in each (the JAX
+      package computes its grouped schedules in float32 in the graph:
+      eps within an ulp of these, lr within a few).
 
-    On a CUDA device every chunk launches K5, K6 or K7, and no chunk waits
-    for the one before: the chunks' out-of-range counts (see
-    ``packed_learner_chunk``) are summed on the device and read once, at
-    the end, and a run in which a table value left the int64 sums' exact
-    range raises ValueError.  ``timing``, if a dict, is filled with the
-    time spent in chunk calls and between them.
+    On a CUDA device every chunk launches K5, K6 or K7 and every re-solve
+    R1, and no chunk waits for the one before: the chunks' out-of-range
+    counts (see ``packed_learner_chunk``) are summed on the device and read
+    once, at the end, and a run in which a table value left the int64
+    sums' exact range raises ValueError.  ``timing``, if a dict, is filled
+    with the time spent in chunk calls and between them (the per-chunk
+    mode), or with ``dispatch.run``'s capture, replay and remainder times.
     """
-    _unsupported(mesh, single_dispatch, chunks_per_dispatch)
+    check_mesh(mesh)
+    g = dispatch.group_size(n_chunks, single_dispatch, chunks_per_dispatch)
     _check_seeds(seed, start_chunk, start_chunk + n_chunks)
     packed = True if packed is None else bool(packed)
     device = torch.device(device)
@@ -888,27 +934,62 @@ def fused_minimax_train(cfg, batch: int, n_chunks: int,
     m = repack(pi_a, pi_b, q, v, eps0)
     end_chunk = start_chunk + n_chunks
     pa_sum = pb_sum = q_sum = None
-    history = []
-    out_of_range = 0
-    clock = _Timing(timing, device)
-    for k in range(start_chunk, end_chunk):
-        clock.mark()
-        fields, acc, stats = chunk(_chunk_seed(seed, k), m, fields)
-        clock.mark()
-        q, n, v, pi_a, pi_b, m = between(
-            q, n, v, acc, _f32(lr_at(k)),
-            _f32(decay(eps, eps_halflife, k, eps_min)))
-        out_of_range = out_of_range + stats[3]
-        if avg_after and k >= avg_after:
-            pa_sum = pi_a if pa_sum is None else pa_sum + pi_a
-            pb_sum = pi_b if pb_sum is None else pb_sum + pi_b
-            if avg_q:
-                q_sum = q if q_sum is None else q_sum + q
-        if k % 16 == 0 or k == end_chunk - 1:
-            history.append(stats[:3])
-    clock.finish()
+    if g is not None:
+        ks = range(start_chunk, end_chunk)
+        sched = dispatch.Schedule(
+            [(_f32(lr_at(k)), _f32(decay(eps, eps_halflife, k, eps_min)),
+              float(bool(avg_after) and k >= avg_after)) for k in ks],
+            [(seed * 1_000_003 + k,) for k in ks], device)
+        # copies: the bodies overwrite them, not the caller's init tensors
+        carry = [t.clone() for t in (*fields, q, n, v, pi_a, pi_b, m)]
+        if avg_after:
+            carry += [torch.zeros_like(pi_a), torch.zeros_like(pi_b),
+                      torch.zeros_like(q)]
+        *fields, q, n, v, pi_a, pi_b, m = carry[:len(fields) + 6]
+        fields = tuple(fields)
+        if avg_after:
+            pa_sum, pb_sum, q_sum = carry[-3:]
+
+        def body():
+            lr_eps_w, ints = sched.row()
+            new_fields, acc, stats = chunk(ints, m, fields)
+            new = between(q, n, v, acc, lr_eps_w[0], lr_eps_w[1])
+            for dst, src in zip((*fields, q, n, v, pi_a, pi_b, m),
+                                (*new_fields, *new)):
+                dst.copy_(src)
+            if avg_after:
+                w = lr_eps_w[2]
+                pa_sum.add_(w * new[3])
+                pb_sum.add_(w * new[4])
+                if avg_q:
+                    q_sum.add_(w * new[0])
+            sched.record(stats)
+
+        dispatch.run(body, carry + sched.state(), n_chunks, g,
+                     (launch_counts, learners.launch_counts), timing)
+        history, out_of_range = sched.history()
+    else:
+        history = []
+        out_of_range = 0
+        clock = _Timing(timing, device)
+        for k in range(start_chunk, end_chunk):
+            clock.mark()
+            fields, acc, stats = chunk(_chunk_seed(seed, k), m, fields)
+            clock.mark()
+            q, n, v, pi_a, pi_b, m = between(
+                q, n, v, acc, _f32(lr_at(k)),
+                _f32(decay(eps, eps_halflife, k, eps_min)))
+            out_of_range = out_of_range + stats[3]
+            if avg_after and k >= avg_after:
+                pa_sum = pi_a if pa_sum is None else pa_sum + pi_a
+                pb_sum = pi_b if pb_sum is None else pb_sum + pi_b
+                if avg_q:
+                    q_sum = q if q_sum is None else q_sum + q
+            if k % 16 == 0 or k == end_chunk - 1:
+                history.append(stats[:3])
+        clock.finish()
+        history = [tuple(int(x) for x in row) for row in history]
     _raise_out_of_range(out_of_range, batch, chunk_len, v)
-    history = [tuple(int(x) for x in row) for row in history]
     resume = {"q": q, "v": v, "pi_a": pi_a, "pi_b": pi_b, "n": n,
               "fields": fields, "next_chunk": end_chunk, "packed": packed}
     averaged = bool(avg_after) and end_chunk - 1 >= avg_after
@@ -956,8 +1037,10 @@ def fused_best_response_train(cfg: EnvConfig, opp_policy, side: str,
     next_chunk, packed), from which ``init``/``fields_init``/
     ``start_chunk`` continue bit for bit.  As in the JAX package, one
     board only.  A run in which a table value left the int64 sums' exact
-    range raises ValueError, as in ``fused_minimax_train``."""
-    _unsupported(mesh, False, chunks_per_dispatch)
+    range raises ValueError, and ``chunks_per_dispatch`` runs the grouped
+    mode, as in ``fused_minimax_train``."""
+    check_mesh(mesh)
+    g = dispatch.group_size(n_chunks, False, chunks_per_dispatch)
     _check_seeds(seed, start_chunk, start_chunk + n_chunks)
     if isinstance(cfg, tuple):
         raise ValueError("fused_best_response_train takes one EnvConfig")
@@ -1040,17 +1123,39 @@ def fused_best_response_train(cfg: EnvConfig, opp_policy, side: str,
         q, n, v, pi_a, pi_b, m = between(
             q, n, torch.zeros(nS, **f32), empty, 0.0,
             _f32(eps_at(start_chunk - 1)))
-    history = []
-    out_of_range = 0
-    for k in range(start_chunk, end_chunk):
-        fields, acc, stats = chunk(_chunk_seed(seed, k), m, fields)
-        q, n, v, pi_a, pi_b, m = between(q, n, v, acc, _f32(lr_at(k)),
-                                         _f32(eps_at(k)))
-        out_of_range = out_of_range + stats[3]
-        if k % 16 == 0 or k == end_chunk - 1:
-            history.append(stats[:3])
+    if g is not None:
+        ks = range(start_chunk, end_chunk)
+        sched = dispatch.Schedule(
+            [(_f32(lr_at(k)), _f32(eps_at(k))) for k in ks],
+            [(seed * 1_000_003 + k,) for k in ks], device)
+        carry = [t.clone() for t in (*fields, q, n, v, pi_a, pi_b, m)]
+        *fields, q, n, v, pi_a, pi_b, m = carry
+        fields = tuple(fields)
+
+        def body():
+            lr_eps, ints = sched.row()
+            new_fields, acc, stats = chunk(ints, m, fields)
+            new = between(q, n, v, acc, lr_eps[0], lr_eps[1])
+            for dst, src in zip((*fields, q, n, v, pi_a, pi_b, m),
+                                (*new_fields, *new)):
+                dst.copy_(src)
+            sched.record(stats)
+
+        dispatch.run(body, carry + sched.state(), n_chunks, g,
+                     (launch_counts,))
+        history, out_of_range = sched.history()
+    else:
+        history = []
+        out_of_range = 0
+        for k in range(start_chunk, end_chunk):
+            fields, acc, stats = chunk(_chunk_seed(seed, k), m, fields)
+            q, n, v, pi_a, pi_b, m = between(q, n, v, acc, _f32(lr_at(k)),
+                                             _f32(eps_at(k)))
+            out_of_range = out_of_range + stats[3]
+            if k % 16 == 0 or k == end_chunk - 1:
+                history.append(stats[:3])
+        history = [tuple(int(x) for x in row) for row in history]
     _raise_out_of_range(out_of_range, batch, chunk_len, v)
-    history = [tuple(int(x) for x in row) for row in history]
     if return_state:
         return q, v, pi_a, pi_b, history, {
             "q": q, "n": n, "fields": fields, "next_chunk": end_chunk,

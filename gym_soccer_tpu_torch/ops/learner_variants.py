@@ -31,6 +31,12 @@ calls it (its host work included), and ``device``, of the same call
 captured in a CUDA graph and replayed (the memset, the prep pass and the
 kernel alone); and the registers, the card's name and its power limit.
 
+    python -m gym_soccer_tpu_torch.ops.learner_variants --sass OLD NEW
+
+builds the learner, IQL and turn-based Q libraries of two checkouts and
+compares the SASS of every kernel both builds have (a change that must
+leave a kernel's code as it was shows it so).
+
     python gym_soccer_tpu_torch/ops/learner_variants.py --wrappers ROOT...
 
 times, for each checkout ROOT in turn (each in a process of its own that
@@ -53,14 +59,17 @@ from concurrent.futures import ThreadPoolExecutor
 # The committed entries' bodies: K5, K6, K7 and K7 multigrid.
 _ENTRY = {
     (True, False): """  return chunk<true, false>(device, in, nullptr, buf, table, params, n_codes,
-                            B, n_steps, seed, gamma, limit, lanes, stream);""",
+                            B, n_steps, seed, scalars, gamma, limit, lanes,
+                            stream);""",
     (True, True): """  return chunk<true, true>(device, in, geo, buf, table, params, n_codes, B,
-                           n_steps, seed, gamma, limit, lanes, stream);""",
+                           n_steps, seed, scalars, gamma, limit, lanes,
+                           stream);""",
     (False, False): """  return chunk<false, false>(device, in, nullptr, buf, table, params,
-                             n_codes, B, n_steps, seed, gamma, limit, lanes,
-                             stream);""",
+                             n_codes, B, n_steps, seed, scalars, gamma,
+                             limit, lanes, stream);""",
     (False, True): """  return chunk<false, true>(device, in, geo, buf, table, params, n_codes, B,
-                            n_steps, seed, gamma, limit, lanes, stream);"""}
+                            n_steps, seed, scalars, gamma, limit, lanes,
+                            stream);"""}
 
 
 def _old_entry(packed: bool, multi: bool) -> str:
@@ -70,6 +79,7 @@ def _old_entry(packed: bool, multi: bool) -> str:
     in the call's one allocation."""
     flags = f"{str(packed).lower()}, {str(multi).lower()}"
     return f"""  (void)lanes;
+  (void)scalars;
   const ChunkLayout l = chunk_layout(n_codes, B);
   char* base = static_cast<char*>(buf);
   cudaError_t e = cudaSetDevice(device);
@@ -413,7 +423,53 @@ def wrapper_times() -> int:
     return 0
 
 
+def sass_compare(old_root: str, new_root: str) -> int:
+    """Build the learner, IQL and turn-based Q libraries of two checkouts
+    (each with its own ``_build``, in a process of its own) and compare
+    the SASS of every kernel the two builds share, instruction by
+    instruction (addresses and encodings aside); one line a library."""
+    from . import _build
+    names = ("learner_kernel", "iql_kernel", "altq_kernel")
+    code = ("from gym_soccer_tpu_torch.ops import _build; "
+            f"print(*(_build.build(n) for n in {names!r}))")
+    libs = [subprocess.run([sys.executable, "-c", code], cwd=root,
+                           env={**os.environ, "PYTHONPATH": root},
+                           capture_output=True, text=True, check=True,
+                           timeout=600).stdout.split()
+            for root in (os.path.abspath(old_root), os.path.abspath(new_root))]
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    # the anonymous namespace's mangled name, which carries a build hash
+    anon = re.compile(r"\d+_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}")
+
+    def functions(path):
+        listing = subprocess.run([tool, "-sass", path], capture_output=True,
+                                 text=True, check=True, timeout=300).stdout
+        found, name = {}, None
+        for line in listing.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                name = anon.sub("", m.group(1))
+                found.setdefault(name, [])
+                continue
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+([^;]*);", line)
+            if m and name:
+                found[name].append(anon.sub("", m.group(1).strip()))
+        return found
+
+    for lib, old, new in zip(names, *libs):
+        a, b = functions(old), functions(new)
+        both = sorted(set(a) & set(b))
+        differ = [n for n in both if a[n] != b[n]]
+        print(f"[sass] {lib}: {len(both)} kernels in both builds, "
+              f"{len(both) - len(differ)} with the same SASS; differing: "
+              f"{differ or 'none'}; only in {new_root}: "
+              f"{sorted(set(b) - set(a)) or 'none'}", flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sass"]:
+        sys.exit(sass_compare(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--wrappers"]:
         rc = 0
         for root in sys.argv[2:]:

@@ -370,8 +370,45 @@ def test_trainer_refuses_a_run_out_of_range_and_unported_modes():
         ak.fused_altq_train(CFG, init=big[:-1], **kw)
     with pytest.raises(NotImplementedError, match="mesh"):
         ak.fused_altq_train(CFG, mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="chunks_per_dispatch"):
-        ak.fused_altq_train(CFG, chunks_per_dispatch=4, **kw)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        ak.fused_altq_train(CFG, mesh=object(), chunks_per_dispatch=4, **kw)
+    assert len(ak.fused_altq_train(CFG, chunks_per_dispatch=4, **kw)[1]) == 1
+    with pytest.raises(ValueError, match="chunks_per_dispatch"):
+        ak.fused_altq_train(CFG, chunks_per_dispatch=0, **kw)
+
+
+GROUPED = dict(batch=256, n_chunks=7, chunk_len=4, lr=0.5, eps=0.4,
+               eps_halflife=12, eps_min=0.1, lr_anneal_start=2,
+               lr_anneal_tau=3.0, lr_anneal_pow=1.2, seed=11, device="cpu",
+               return_state=True)
+
+
+def _assert_same_run(a, b):
+    assert torch.equal(a[0], b[0])
+    assert all(torch.equal(f, g) for f, g in zip(a[2]["fields"],
+                                                  b[2]["fields"]))
+    assert a[2]["next_chunk"] == b[2]["next_chunk"]
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["K10", "K11"])
+def test_grouped_mode_equals_the_per_chunk_mode(packed):
+    """chunks_per_dispatch=3 gives the per-chunk run's q and fields bit for
+    bit under annealed lr and eps, across a remainder, with every chunk's
+    stats; a grouped run resumed inside a segment equals it too."""
+    per = ak.fused_altq_train(CFG, packed=packed, **GROUPED)
+    grouped = ak.fused_altq_train(CFG, packed=packed, chunks_per_dispatch=3,
+                                  **GROUPED)
+    _assert_same_run(per, grouped)
+    assert len(grouped[1]) == 7
+    assert per[1] == [grouped[1][0], grouped[1][6]]
+    r = ak.fused_altq_train(CFG, packed=packed, chunks_per_dispatch=3,
+                            **dict(GROUPED, n_chunks=4))[2]
+    part = ak.fused_altq_train(
+        CFG, packed=packed, chunks_per_dispatch=3, init=r["q"],
+        fields_init=r["fields"], start_chunk=r["next_chunk"],
+        **dict(GROUPED, n_chunks=3))
+    _assert_same_run(grouped, part)
+    assert part[1] == grouped[1][4:]
 
 
 _SEED_RUNS = {

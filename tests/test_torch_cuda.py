@@ -1,5 +1,6 @@
-"""The CUDA kernels K1-K13 against their plain PyTorch versions on the
-card, bit for bit.  Skips without a CUDA device.  This
+"""The CUDA kernels K1-K13 and R1 against their plain PyTorch versions on
+the card, bit for bit, and the trainers' grouped dispatch modes (CUDA-graph
+replays) against their per-chunk runs.  Skips without a CUDA device.  This
 file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed:
 
@@ -621,3 +622,169 @@ def test_altq_kernels_equal_plain_versions(cuda, board):
     assert torch.equal(whole[0], part[0])
     assert all(torch.equal(a, b) for a, b in zip(whole[2]["fields"],
                                                  part[2]["fields"]))
+
+
+# ----------------------------------------------------------------------
+# R1: the RM+ solve; the trainers' grouped dispatch modes
+# ----------------------------------------------------------------------
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("games,iters", [(761, 400), (11705, 60), (64, 1),
+                                         (33, 0)])
+def test_rmplus_kernel_equals_plain_version(cuda, games, iters):
+    """R1 equals the plain version on the card bit for bit (NaN for NaN at
+    iters == 0), on random games with near-ties among them; it takes only
+    float32 games of 5 actions, and counts its launches."""
+    import numpy as np
+
+    from gym_soccer_tpu_torch.agents import learners
+    rng = np.random.default_rng(games + iters)
+    M = rng.uniform(-1, 1, (games, 5, 5)).astype(np.float32)
+    M[::3] = np.round(M[::3] * 4) / 4
+    M = torch.tensor(M, device=cuda)
+    learners.reset_launch_counts()
+    got = learners.solve_matrix_games(M, iters)
+    assert learners.launch_counts == {"solve_matrix_games": 1}
+    want = learners.solve_matrix_games_plain(M, iters)
+    for a, b in zip(got, want):
+        assert torch.equal(_bits(a), _bits(b))
+    with pytest.raises(ValueError, match="float32"):
+        learners.solve_matrix_games(M.double(), iters)
+    with pytest.raises(ValueError, match="float32"):
+        learners.solve_matrix_games(M[:, :4, :4], iters)
+
+
+def _grouped_runs(cuda):
+    """(name, per-chunk run, grouped run, launch counter dict, kernel) of
+    each trainer at 1024 lanes x 7 chunks of 16 steps in segments of 3,
+    under annealed schedules."""
+    import numpy as np
+
+    from gym_soccer_tpu_torch.ops import altq_kernel as ak
+    from gym_soccer_tpu_torch.ops import iql_kernel as ik
+    from gym_soccer_tpu_torch.ops import learner_kernel as lk
+    cfg = EnvConfig(width=5, height=4, slip_prob=0.2)
+    mix = (cfg, EnvConfig(width=6, height=5, slip_prob=0.2))
+    kw = dict(batch=1024, n_chunks=7, chunk_len=16, lr=0.5, eps=0.35,
+              eps_halflife=64, eps_min=0.1, lr_anneal_start=2,
+              lr_anneal_tau=3.0, lr_anneal_pow=1.2, seed=3, device=cuda,
+              return_state=True)
+    mm = dict(kw, solver_iters=40, avg_after=3, avg_q=True)
+    opp = np.random.default_rng(2).integers(0, 5, 761)
+    return [
+        ("K5", lambda **g: lk.fused_minimax_train(cfg, **mm, **g),
+         lk.launch_counts, "packed_learner_chunk"),
+        ("K7", lambda **g: lk.fused_minimax_train(cfg, packed=False, **mm,
+                                                  **g),
+         lk.launch_counts, "learner_chunk"),
+        ("K6", lambda **g: lk.fused_minimax_train(mix, **mm, **g),
+         lk.launch_counts, "multigrid_packed_learner_chunk"),
+        ("K7-multigrid", lambda **g: lk.fused_minimax_train(
+            mix, packed=False, **mm, **g),
+         lk.launch_counts, "multigrid_learner_chunk"),
+        ("K5-best-response", lambda **g: lk.fused_best_response_train(
+            cfg, opp, "player_b", **kw, **g),
+         lk.launch_counts, "packed_learner_chunk"),
+        ("K8", lambda **g: ik.fused_iql_train(cfg, **kw, **g),
+         ik.launch_counts, "iql_packed_chunk"),
+        ("K9", lambda **g: ik.fused_iql_train(cfg, packed=False, **kw, **g),
+         ik.launch_counts, "iql_chunk"),
+        ("K10", lambda **g: ak.fused_altq_train(cfg, **kw, **g),
+         ak.launch_counts, "altq_packed_chunk"),
+        ("K11", lambda **g: ak.fused_altq_train(cfg, packed=False, **kw,
+                                                **g),
+         ak.launch_counts, "altq_chunk"),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", range(9), ids=["K5", "K7", "K6",
+                                                 "K7-multigrid", "K5-br",
+                                                 "K8", "K9", "K10", "K11"])
+def test_grouped_run_equals_per_chunk_run(cuda, index):
+    """Each trainer's grouped mode (two CUDA-graph replays of 3 chunks and
+    one chunk more) equals its per-chunk run bit for bit, with its chunk
+    kernel and, for minimax, R1 launched replays x 3 + 1 times."""
+    from gym_soccer_tpu_torch.agents import learners
+    name, train, counts, kernel = _grouped_runs(cuda)[index]
+    per = train()
+    for d in (counts, learners.launch_counts):
+        for k in d:
+            d[k] = 0
+    timing = {}
+    grouped = train(chunks_per_dispatch=3, timing=timing) \
+        if "best-response" not in name else train(chunks_per_dispatch=3)
+    torch.cuda.synchronize()
+    assert counts[kernel] == 7 and sum(counts.values()) == 7
+    if name.startswith(("K5", "K6", "K7")) and "best" not in name:
+        assert timing["replays"] == 2 and timing["chunks_per_replay"] == 3
+        # 7 re-solves and the final solve of the averaged Q
+        assert learners.launch_counts["solve_matrix_games"] == 8
+    n = len(per) - 2   # the tensors before the history
+    for a, b in zip(per[:n], grouped[:n]):
+        assert torch.equal(a, b)
+    for key, x in per[-1].items():
+        y = grouped[-1][key]
+        if key == "fields":
+            assert all(torch.equal(f, g) for f, g in zip(x, y))
+        elif isinstance(x, torch.Tensor):
+            assert torch.equal(x, y), key
+    assert len(grouped[-2]) == 7
+
+
+@pytest.mark.cuda
+def test_chunk_kernels_read_their_scalars_from_device_memory(cuda):
+    """K5-K11 with their seed (K8-K11: seed, eps_int, step offset) in an
+    int32 tensor on the card equal the by-value calls bit for bit."""
+    import numpy as np
+
+    from gym_soccer_tpu_torch.envs.soccer_alternating_env import \
+        build_alt_tables
+    from gym_soccer_tpu_torch.ops import altq_kernel as ak
+    from gym_soccer_tpu_torch.ops import iql_kernel as ik
+    from gym_soccer_tpu_torch.ops import learner_kernel as lk
+    cfg = EnvConfig(width=5, height=4, slip_prob=0.2)
+    mix = (cfg, EnvConfig(width=6, height=5, slip_prob=0.2))
+    rng = np.random.default_rng(8)
+    B, T = 2048, 24
+    seed = torch.tensor([123457], dtype=torch.int32, device=cuda)
+    for c in (cfg, mix):
+        nS = lk.n_states(c)
+        pa, pb = (torch.tensor(rng.dirichlet(np.ones(5), nS),
+                               dtype=torch.float32, device=cuda)
+                  for _ in range(2))
+        v = torch.tensor(rng.uniform(-1, 1, nS), dtype=torch.float32,
+                         device=cuda)
+        q = torch.tensor(rng.uniform(-1, 1, (nS, 5, 5)), dtype=torch.float32,
+                         device=cuda)
+        state = lk.init_state_fields(c, B, cuda)
+        args = state if isinstance(c, tuple) else (state,)
+        for packed in (True, False):
+            table = (lk.pack_m2(c, pa, pb, v, 0.2) if packed
+                     else lk.pack_m(c, pa, pb, q, v, 0.2))
+            fn = ((lk.multigrid_packed_learner_chunk if packed
+                   else lk.multigrid_learner_chunk) if isinstance(c, tuple)
+                  else lk.packed_learner_chunk if packed
+                  else lk.learner_chunk)
+            assert _same_chunk(fn(c, seed, table, *args, B, T),
+                               fn(c, 123457, table, *args, B, T))
+    scalars = torch.tensor([99, 20000, 640], dtype=torch.int32, device=cuda)
+    nS = lk.n_states(cfg)
+    qa, qb = (torch.tensor(rng.uniform(-1, 1, (nS, 5)), dtype=torch.float32,
+                           device=cuda) for _ in range(2))
+    table = ik.pack_iql_table(cfg, qa, qb)
+    fields = ik.init_iql_state_fields(cfg, B, cuda)
+    for fn in (ik.iql_packed_chunk, ik.iql_chunk):
+        assert _same_chunk(fn(cfg, scalars, None, table, fields, B, T),
+                           fn(cfg, 99, 20000, table, fields, B, T, 0.99, 640))
+    nA = build_alt_tables(cfg).nS
+    table = ak.pack_alt_table(cfg, torch.tensor(
+        rng.uniform(-1, 1, (nA, 5)), dtype=torch.float32, device=cuda))
+    fields = ak.init_alt_state_fields(cfg, B, cuda)
+    for fn in (ak.altq_packed_chunk, ak.altq_chunk):
+        assert _same_chunk(fn(cfg, scalars, None, table, fields, B, T),
+                           fn(cfg, 99, 20000, table, fields, B, T, 0.99, 640))

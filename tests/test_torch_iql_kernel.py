@@ -387,8 +387,67 @@ def test_trainer_refuses_a_run_out_of_range():
 
 
 def test_unported_modes_raise():
+    """Only mesh raises; the grouped mode runs (below), and a group size
+    that is no positive integer is refused."""
     kw = dict(batch=256, n_chunks=1, chunk_len=4, device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         ik.fused_iql_train(CFG, mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="chunks_per_dispatch"):
-        ik.fused_iql_train(CFG, chunks_per_dispatch=4, **kw)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        ik.fused_iql_train(CFG, mesh=object(), chunks_per_dispatch=4, **kw)
+    assert len(ik.fused_iql_train(CFG, chunks_per_dispatch=4, **kw)[2]) == 1
+    with pytest.raises(ValueError, match="chunks_per_dispatch"):
+        ik.fused_iql_train(CFG, chunks_per_dispatch=0, **kw)
+
+
+GROUPED = dict(batch=256, n_chunks=7, chunk_len=4, lr=0.4, eps=0.4,
+               eps_halflife=12, eps_min=0.1, lr_anneal_start=2,
+               lr_anneal_tau=3.0, lr_anneal_pow=1.2, seed=13, device="cpu",
+               return_state=True)
+
+
+def _assert_same_run(a, b):
+    for x, y in zip(a[:2], b[:2]):
+        assert torch.equal(x, y)
+    assert all(torch.equal(f, g) for f, g in zip(a[3]["fields"],
+                                                  b[3]["fields"]))
+    assert a[3]["next_chunk"] == b[3]["next_chunk"]
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["K8", "K9"])
+def test_grouped_mode_equals_the_per_chunk_mode(packed):
+    """chunks_per_dispatch=3 gives the per-chunk run's q and fields bit for
+    bit under annealed lr and eps, across a remainder, with every chunk's
+    stats; a grouped run resumed inside a segment equals it too."""
+    per = ik.fused_iql_train(CFG, packed=packed, **GROUPED)
+    grouped = ik.fused_iql_train(CFG, packed=packed, chunks_per_dispatch=3,
+                                 **GROUPED)
+    _assert_same_run(per, grouped)
+    assert len(grouped[2]) == 7
+    assert per[2] == [grouped[2][0], grouped[2][6]]
+    r = ik.fused_iql_train(CFG, packed=packed, chunks_per_dispatch=3,
+                           **dict(GROUPED, n_chunks=4))[3]
+    part = ik.fused_iql_train(
+        CFG, packed=packed, chunks_per_dispatch=3, init=(r["q_a"], r["q_b"]),
+        fields_init=r["fields"], start_chunk=r["next_chunk"],
+        **dict(GROUPED, n_chunks=3))
+    _assert_same_run(grouped, part)
+    assert part[2] == grouped[2][4:]
+
+
+def test_chunk_takes_its_scalars_from_a_tensor():
+    """(seed, eps_int, step_offset) in an int32 [3] tensor give the
+    by-value call's chunk; the tensor form takes no eps_int or offset
+    beside it."""
+    table = ik.pack_iql_table(CFG, *(torch.tensor(q) for q in
+                                     _q((5, 4), 2, "random")))
+    fields = ik.init_iql_state_fields(CFG, 256, "cpu")
+    want = ik.iql_packed_chunk(CFG, 77, EPS, table, fields, 256, 4, 0.99, 40)
+    scalars = torch.tensor([77, EPS, 40], dtype=torch.int32)
+    got = ik.iql_packed_chunk(CFG, scalars, None, table, fields, 256, 4, 0.99)
+    for a, b in zip([*want[0], *want[1], *want[2]],
+                    [*got[0], *got[1], *got[2]]):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="eps_int is None"):
+        ik.iql_packed_chunk(CFG, scalars, EPS, table, fields, 256, 4)
+    with pytest.raises(ValueError, match="int32"):
+        ik.iql_packed_chunk(CFG, scalars.long(), None, table, fields, 256, 4)

@@ -332,20 +332,170 @@ def test_chunk_checks_its_arguments():
 
 
 def test_unported_modes_raise():
-    """mesh and the grouped dispatch modes raise, for one board and for a
-    mixture, packed or not; tuples and packed=False run
-    (tests/test_torch_multigrid.py, tests/test_torch_learner_unpacked.py)."""
-    kw = dict(batch=256, n_chunks=1, chunk_len=4, device="cpu")
+    """Only mesh raises, for one board and for a mixture, packed or not;
+    the grouped dispatch modes run (below), tuples and packed=False too
+    (tests/test_torch_multigrid.py, tests/test_torch_learner_unpacked.py),
+    and a group size that is no positive integer is refused."""
+    kw = dict(batch=256, n_chunks=1, chunk_len=4, device="cpu",
+              solver_iters=2)
     for cfg in (CFG, (CFG, EnvConfig(6, 5, 0.1))):
-        for extra in (dict(mesh=object()), dict(single_dispatch=True),
-                      dict(chunks_per_dispatch=4),
-                      dict(mesh=object(), packed=False)):
-            with pytest.raises(NotImplementedError):
+        for extra in (dict(mesh=object()), dict(mesh=object(), packed=False),
+                      dict(mesh=object(), chunks_per_dispatch=4)):
+            with pytest.raises(NotImplementedError, match="mesh"):
                 lk.fused_minimax_train(cfg, **kw, **extra)
-    for extra in (dict(mesh=object()), dict(chunks_per_dispatch=2)):
-        with pytest.raises(NotImplementedError):
-            lk.fused_best_response_train(CFG, np.zeros(NS, int), "player_a",
-                                         **kw, **extra)
+        for extra in (dict(single_dispatch=True), dict(chunks_per_dispatch=4),
+                      dict(chunks_per_dispatch=2, packed=False)):
+            assert len(lk.fused_minimax_train(cfg, **kw, **extra)[4]) == 1
+    with pytest.raises(ValueError, match="chunks_per_dispatch"):
+        lk.fused_minimax_train(CFG, chunks_per_dispatch=0, **kw)
+    kw.pop("solver_iters")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        lk.fused_best_response_train(CFG, np.zeros(NS, int), "player_a",
+                                     mesh=object(), **kw)
+    assert len(lk.fused_best_response_train(
+        CFG, np.zeros(NS, int), "player_a", chunks_per_dispatch=2,
+        **kw)[4]) == 1
+
+
+# The grouped runs' shape (7 chunks in segments of 3: two full segments
+# and a remainder) and annealed schedules like the JAX tests' (lr halving
+# and annealing, eps halving to a floor).
+GROUPED = dict(batch=256, n_chunks=7, chunk_len=4, lr=0.6, eps=0.35,
+               lr_halflife=40, eps_halflife=12, eps_min=0.1,
+               lr_anneal_start=2, lr_anneal_tau=3.0, lr_anneal_pow=1.2,
+               solver_iters=40, seed=5, device="cpu", return_state=True)
+MIX = (CFG, EnvConfig(6, 5, 0.2))
+
+
+def _assert_same_run(a, b, n_tensors):
+    """Two trainer results equal bit for bit: the first ``n_tensors``
+    outputs and every tensor of the resume dict."""
+    for x, y in zip(a[:n_tensors], b[:n_tensors]):
+        assert torch.equal(x, y)
+    for key, x in a[-1].items():
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x, b[-1][key]), key
+        elif key == "fields":
+            assert all(torch.equal(f, g) for f, g in zip(x, b[-1][key]))
+        else:
+            assert x == b[-1][key], key
+
+
+def _per_chunk_rows(grouped_history, start, n):
+    """The rows the per-chunk mode keeps (every 16th chunk and the last)
+    of a grouped run's history of every chunk."""
+    return [row for k, row in enumerate(grouped_history, start)
+            if k % 16 == 0 or k == start + n - 1]
+
+
+@pytest.mark.parametrize("cfg,packed,extra", [
+    (CFG, True, dict(avg_after=3, avg_q=True, final_solver_iters=60)),
+    (CFG, False, dict(avg_after=2, count_lr_tau=50.0)),
+    (MIX, True, dict(avg_after=3, avg_q=True)),
+    (MIX, False, dict(final_solver_iters=60)),
+], ids=["5x4-packed-avg-q", "5x4-unpacked-avg-count-lr", "mixture-packed",
+        "mixture-unpacked"])
+def test_grouped_modes_equal_the_per_chunk_mode(cfg, packed, extra):
+    """chunks_per_dispatch=3 and single_dispatch give the per-chunk run's
+    q, v, pi, n, fields and post-processing bit for bit, across a
+    remainder, and record every chunk's stats where the per-chunk mode
+    keeps every 16th and the last."""
+    per = lk.fused_minimax_train(cfg, packed=packed, **GROUPED, **extra)
+    grouped = lk.fused_minimax_train(cfg, packed=packed, chunks_per_dispatch=3,
+                                     **GROUPED, **extra)
+    single = lk.fused_minimax_train(cfg, packed=packed, single_dispatch=True,
+                                    **GROUPED, **extra)
+    _assert_same_run(per, grouped, 4)
+    _assert_same_run(grouped, single, 4)
+    assert len(grouped[4]) == 7 and grouped[4] == single[4]
+    assert per[4] == _per_chunk_rows(grouped[4], 0, 7)
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_grouped_resume_inside_a_segment(packed):
+    """A grouped run resumed at chunk 4, inside the uninterrupted run's
+    second segment of 3, equals the uninterrupted grouped run."""
+    kw = dict(GROUPED, n_chunks=None, packed=packed, chunks_per_dispatch=3)
+    whole = lk.fused_minimax_train(CFG, **dict(kw, n_chunks=7))
+    r = lk.fused_minimax_train(CFG, **dict(kw, n_chunks=4))[5]
+    part = lk.fused_minimax_train(
+        CFG, init=tuple(r[k] for k in ("q", "v", "pi_a", "pi_b", "n")),
+        fields_init=r["fields"], start_chunk=r["next_chunk"],
+        **dict(kw, n_chunks=3))
+    _assert_same_run(whole, part, 4)
+    assert part[4] == whole[4][4:]
+
+
+@pytest.mark.parametrize("side", ["player_a", "player_b"])
+def test_best_response_grouped_equals_per_chunk(side):
+    opp = np.random.default_rng(4).integers(0, 5, NS)
+    kw = {k: v for k, v in GROUPED.items()
+          if k not in ("solver_iters", "lr_halflife")}
+    per = lk.fused_best_response_train(CFG, opp, side, **kw)
+    grouped = lk.fused_best_response_train(CFG, opp, side,
+                                           chunks_per_dispatch=3, **kw)
+    _assert_same_run(per, grouped, 4)
+    assert per[4] == _per_chunk_rows(grouped[4], 0, 7)
+    r = lk.fused_best_response_train(CFG, opp, side, chunks_per_dispatch=3,
+                                     **dict(kw, n_chunks=4))[5]
+    part = lk.fused_best_response_train(
+        CFG, opp, side, init=(r["q"], r["n"]), fields_init=r["fields"],
+        start_chunk=r["next_chunk"], chunks_per_dispatch=3,
+        **dict(kw, n_chunks=3))
+    _assert_same_run(grouped, part, 4)
+
+
+def test_grouped_run_leaves_its_init_tensors_alone():
+    """The grouped mode writes its carry in place: a copy, never the
+    caller's init or resume tensors."""
+    r = lk.fused_minimax_train(CFG, **dict(GROUPED, n_chunks=2))[5]
+    init = tuple(r[k] for k in ("q", "v", "pi_a", "pi_b", "n"))
+    before = [t.clone() for t in (*init, *r["fields"])]
+    lk.fused_minimax_train(CFG, init=init, fields_init=r["fields"],
+                           start_chunk=2, chunks_per_dispatch=3,
+                           **dict(GROUPED, n_chunks=2))
+    assert all(torch.equal(a, b) for a, b in zip(before,
+                                                 (*init, *r["fields"])))
+
+
+@pytest.mark.parametrize("packed,multi", [(True, False), (False, False),
+                                          (True, True), (False, True)],
+                         ids=["K5", "K7", "K6", "K7-multigrid"])
+def test_chunk_takes_its_seed_from_a_tensor(packed, multi):
+    """An int32 [1] seed tensor gives the by-value call's chunk (a kernel
+    reads it when it runs); any other tensor is refused."""
+    cfg = MIX if multi else CFG
+    pa, pb, v = (torch.tensor(np.concatenate(x)) for x in zip(
+        *[_tables(c, 3, False) for c in ([(5, 4), (6, 5)] if multi
+                                         else [(5, 4)])]))
+    q = torch.zeros((len(v), 5, 5))
+    table = (lk.pack_m2(cfg, pa, pb, v, 0.2) if packed
+             else lk.pack_m(cfg, pa, pb, q, v, 0.2))
+    state = lk.init_state_fields(cfg, 256, "cpu")
+    fn = {(True, False): lk.packed_learner_chunk,
+          (False, False): lk.learner_chunk,
+          (True, True): lk.multigrid_packed_learner_chunk,
+          (False, True): lk.multigrid_learner_chunk}[packed, multi]
+    args = state if multi else (state,)
+    seed = lk._chunk_seed(-3, 11)   # a negative int32 seed's uint32 view
+    want = fn(cfg, seed, table, *args, 256, 4)
+    held = torch.tensor([-3 * 1_000_003 + 11], dtype=torch.int32)
+    got = fn(cfg, held, table, *args, 256, 4)
+    for a, b in zip([*want[0], *want[1], *want[2]],
+                    [*got[0], *got[1], *got[2]]):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="int32"):
+        fn(cfg, held.long(), table, *args, 256, 4)
+
+
+def test_mix_eps_takes_a_device_scalar():
+    """A grouped run's eps is a float32 scalar tensor: its 1 - eps and
+    eps * 0.2 are the host's float32 values, so the packed pi is the same
+    bit for bit."""
+    pi = torch.tensor(np.concatenate([p for _, p in _eps_pins()])[:5000])
+    for eps in (0.3, 0.1879010796546936, 0.15, 1.0, 0.0, 2.0 ** -20):
+        e = torch.tensor(np.float32(eps))
+        assert torch.equal(lk._mix_eps(pi, e), lk._mix_eps(pi, float(e)))
 
 
 def test_cuda_device_without_a_card_raises():
