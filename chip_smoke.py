@@ -3,6 +3,7 @@
 check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --surface   # phases 34-38 alone, in a fresh process
 
 Six main paths, each driven with its kernels' launch counters reset just
 before it and read just after.  The rollout path is the batched random
@@ -21,8 +22,11 @@ multigrid site with ``packed=False``) and on one board with
 ``packed=False`` (kernel K7).  The alternating-turn path is
 ``alt_rollout`` (kernel K4) and ``fused_altq_train`` (kernel K10, and
 kernel K11 with ``packed=False``), with ``alt_value_iteration_torch`` and
-``alt_policy_rollout`` for its gate.  Phases, each of which raises on
-failure:
+``alt_policy_rollout`` for its gate.  The reference-user surface runs
+last: the native host libraries, the ``SoccerSimultaneousEnv`` facade,
+``value_iteration_torch``, the best-response gate through
+``fused_best_response_train`` (kernel K5) and ``entry()`` (kernel K5).
+Phases, each of which raises on failure:
 
 1. device: a CUDA device is present; its name and power limit;
 2. build: the kernels compile from the sources in this checkout, one nvcc
@@ -214,7 +218,34 @@ failure:
     4000, a 3000-iteration final solve, seed 2) at its
     ``chunks_per_dispatch=8``, K5 and R1 counted once a chunk over 750
     replays, reaches exploitability <= 0.005 at gamma 0.99
-    (``segment_iters=200``), with its wall and evaluation times.
+    (``segment_iters=200``), with its wall and evaluation times;
+34. native: both C++ host libraries (``gym_soccer_tpu_torch/native``)
+    compile with g++ from this checkout and load, timed in a fresh
+    process, and
+    ``build_tables(backend="native")`` equals the numpy backend byte for
+    byte on 5x4 and 11x7 (slip 0.2), with both build times and the host's
+    CPU model;
+35. facade: 20,000 random-action steps with resets through
+    ``SoccerSimultaneousEnv`` on 11x7 slip 0.2, multi-agent and against
+    ``get_random_policy(nS, 5, 42)`` as B, equal step for step on the
+    native and the numpy tables; steps/s (host clock) with the CPU model;
+36. planners: ``value_iteration_torch`` in float32 on the card against
+    ``value_iteration_arrays`` in float64 at theta 1e-4, gamma 0.99 (5x4
+    against the stand policy, 11x7 against a random B) on
+    tests/test_planners_jax.py's terms; ms a sweep and in all;
+37. the best-response gate (tests/test_learner_kernel.py:459-486):
+    ``fused_best_response_train`` at 32768 lanes x 300 chunks x 32 steps
+    against ``get_random_policy_array(761, 5, seed=42)``, K5's counter
+    +300 and nothing else launched, per chunk and at
+    ``chunks_per_dispatch=8``, each mode twice (a mode's first and second
+    run in the process, with their walls and splits), all four bit-equal;
+    the greedy policy wins more than 95 % of the ended episodes
+    (``evaluation.greedy_win_share``, 2048 lanes x 400 steps of the
+    batched engine: a statistical twin of the JAX test's threefry score);
+    the mean gap of v to ``best_response_value``;
+38. ``entry()``: one K5 chunk at 8192 x 64 (K5's counter +1) bit-equal to
+    the plain version on the card (fields, counts, int64 sums, stats), and
+    its ms.
 
 The second-to-last lines are the kernels' JSON record (the 14 kernel
 sites and R1, with each kernel's bound: the larger of its bytes over the
@@ -226,6 +257,7 @@ device is present.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import math
@@ -443,6 +475,36 @@ RMPLUS_SYMBOL = "13rmplus_kernel"
 # A longer independent-Q run at the learning check's lr and eps (phase 20).
 IQL_RUN = dict(batch=65536, n_chunks=200, chunk_len=32, lr=0.4, eps=0.3,
                seed=1)
+# Phases 34-35: the facade's random-action steps on 11x7 slip 0.2, and
+# the tensors the native builder must give byte for byte.
+FACADE_STEPS = 20_000
+# Phase 34's fresh process: loads native/__init__.py by its path (no torch,
+# no package import), times the g++ build of library argv[2], then loads it
+# with its prototypes; prints the seconds and whether it loaded.
+NATIVE_BUILD = """
+import importlib.util, sys, time
+spec = importlib.util.spec_from_file_location("native", sys.argv[1])
+native = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(native)
+t0 = time.perf_counter()
+native.build(sys.argv[2])
+took = time.perf_counter() - t0
+load = {"tables_builder": native.have_native_tables,
+        "mt19937_stream": native.have_native}[sys.argv[2]]
+print(took, load())
+"""
+TABLE_FIELDS = ("t_prob", "t_cum", "t_next_raw", "t_next_dense",
+                "t_reward", "t_done", "t_mask", "t_first")
+# Phase 36: tests/test_planners_jax.py:35-57's theta and gamma.
+VI_THETA, VI_GAMMA = 1e-4, 0.99
+# Phase 37: tests/test_learner_kernel.py:459-486 (test_br_convergence_tpu),
+# scored on 2048 lanes x 400 steps of the batched engine.
+BR_RECIPE = dict(batch=32768, n_chunks=300, chunk_len=32, lr=1.0,
+                 gamma=0.99, eps=0.3, eps_halflife=2400, eps_min=0.05,
+                 lr_anneal_start=150, lr_anneal_tau=25.0, lr_anneal_pow=1.0,
+                 seed=1)
+BR_OPP_SEED, BR_LANES, BR_STEPS, BR_EVAL_SEED = 42, 2048, 400, 9
+BR_WIN_SHARE = 0.95
 
 
 class SmokeFailure(RuntimeError):
@@ -734,7 +796,15 @@ def grouped_phase(torch, label, train, per, per_wall, n_tensors, counts,
     return out, wall, timing
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        description="Build and drive the port on one CUDA device.")
+    parser.add_argument(
+        "--surface", action="store_true",
+        help="build K5 only and run phases 34-38 alone, in this fresh "
+             "process: their figures before any earlier phase has run; "
+             "prints no kernels line and no verdict")
+    args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -754,6 +824,14 @@ def main() -> int:
     card = smi("name,power.limit")
     print(f"[device] {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
+    if args.surface:
+        t0 = time.perf_counter()
+        _build.load("learner_kernel")
+        print(f"[build] learner_kernel in {time.perf_counter() - t0:.3f} s")
+        surface_phases(torch, dev, card, lk)
+        print(f"[done] chip_smoke.py --surface ran "
+              f"{time.perf_counter() - t_start} s")
+        return 0
 
     # ---- 2. build -----------------------------------------------------
     t0 = time.perf_counter()
@@ -1030,6 +1108,8 @@ def main() -> int:
     ms.update(rm_ms)
     contract_11x7_phase(torch, dev, card, lk, exploitability)
 
+    surface_phases(torch, dev, card, lk)
+
     # Each kernel's work at the shape its ms was timed: lane-steps (or
     # lane-events) and the bytes of its inputs and outputs, each once.
     fields_bytes = 2 * 6 * 4 * B + 3 * 8   # state planes in and out, stats
@@ -1172,6 +1252,304 @@ def contract_11x7_phase(torch, dev, card, lk, exploitability):
           f"{t_eval} s | {card}")
     check(ex <= CONTRACT_11X7_EXPLOITABILITY,
           f"11x7 exploitability {ex} > {CONTRACT_11X7_EXPLOITABILITY}")
+
+
+def surface_phases(torch, dev, card, lk):
+    """Phases 34-38, the reference-user surface, with their wall time."""
+    t0 = time.perf_counter()
+    host_phases(card)
+    planner_phase(torch, dev, card)
+    best_response_phase(torch, dev, card, lk)
+    entry_phase(torch, dev, card, lk)
+    print(f"[surface] phases 34-38 ran {time.perf_counter() - t0} s")
+
+
+def cpu_model():
+    """The host's CPU, for host-side rates: /proc/cpuinfo's model name, or
+    where the host hides it its vendor, family, model number and clock,
+    and the count."""
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if not line.strip():
+                break   # the first processor's block
+            key, _, value = line.partition(":")
+            info[key.strip()] = value.strip()
+    name = info.get("model name", "unknown")
+    if name == "unknown":
+        name = (f"{info.get('vendor_id')} family {info.get('cpu family')} "
+                f"model {info.get('model')} at {info.get('cpu MHz')} MHz")
+    return f"{name} x {os.cpu_count()}"
+
+
+def facade_run(env, n_steps, seed):
+    """``n_steps`` random actions (numpy ``RandomState(seed)``) through
+    the facade from ``reset(seed=seed)``, resetting when an episode ends.
+    Returns every reset's and step's return value and the steps' wall time
+    in s (host clock)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    actions = [{a: int(x) for a, x in zip(env.return_agent, row)}
+               for row in rng.randint(0, 5, (n_steps,
+                                             len(env.return_agent)))]
+    out = [env.reset(seed=seed)]
+    t0 = time.perf_counter()
+    for action in actions:
+        if env.needs_reset:
+            out.append(env.reset())
+        out.append(env.step(action))
+    return out, time.perf_counter() - t0
+
+
+def host_phases(card):
+    """Phases 34-35: the native libraries and the facade, on the host.
+
+    34: both native libraries compile with g++ from this checkout, each
+    removed first and compiled, timed and loaded by a fresh process (this
+    process may hold the handle of an earlier phase's first build of the
+    same source; it loads or reuses it for the comparison), and
+    ``build_tables(backend="native")`` gives the numpy backend's tensors
+    byte for byte on 5x4 and 11x7 (slip 0.2); a failed build fails here,
+    with no numpy stand-in.  35: 20,000 random-action steps with resets
+    through ``SoccerSimultaneousEnv`` on 11x7 slip 0.2, multi-agent and
+    against ``get_random_policy(nS, 5, 42)`` as player B, equal step for
+    step to a second facade built on the numpy backend's tables; steps/s
+    for each.  The facade's cache keeps the native 11x7 tables."""
+    from gym_soccer_tpu_torch import native
+    from gym_soccer_tpu_torch.config import EnvConfig
+    from gym_soccer_tpu_torch.core import tables
+    from gym_soccer_tpu_torch.envs import soccer_simultaneous_env as sse
+    from gym_soccer_tpu_torch.utils.policies import get_random_policy
+    cpu = cpu_model()
+    for name in ("tables_builder", "mt19937_stream"):
+        path = native.library_path(name)
+        if path.exists():
+            path.unlink()
+        proc = subprocess.run(
+            [sys.executable, "-c", NATIVE_BUILD, native.__file__, name],
+            capture_output=True, text=True, timeout=300)
+        check(proc.returncode == 0 and proc.stdout.split()[-1:] == ["True"]
+              and path.exists(), f"native {name} did not build and load in "
+              f"a fresh process:\n{proc.stdout}{proc.stderr}")
+        print(f"[native] {name}: g++ {' '.join(native.CXX_FLAGS)} in "
+              f"{proc.stdout.split()[0]} s in a fresh process, which then "
+              f"loads it -> {path.name} | host {cpu}")
+    check(native.have_native() and native.have_native_tables(),
+          "a native library does not load")
+    built = {}
+    for board in BOARDS:
+        cfg = EnvConfig(*board, SLIP)
+        times = {}
+        for backend in ("native", "numpy"):
+            t0 = time.perf_counter()
+            built[board, backend] = tables.build_tables(cfg, backend=backend)
+            times[backend] = time.perf_counter() - t0
+        nat, ref = built[board, "native"], built[board, "numpy"]
+        same = all(getattr(nat, f).tobytes() == getattr(ref, f).tobytes()
+                   for f in TABLE_FIELDS)
+        check(same, f"native tables differ from numpy's on {board}")
+        print(f"[native] build_tables {board[0]}x{board[1]} slip {SLIP} "
+              f"(nS {nat.nS}): native {times['native']} s, numpy "
+              f"{times['numpy']} s, {len(TABLE_FIELDS)} tensors byte-equal "
+              f"| host {cpu}")
+
+    big = (11, 7)
+    cfg = EnvConfig(*big, SLIP)
+    nS = built[big, "numpy"].nS
+    for mode, kw in (("multi-agent", {}),
+                     ("player_b_policy=get_random_policy(nS, 5, 42)",
+                      {"player_b_policy": get_random_policy(nS, 5, 42)})):
+        runs = {}
+        for backend in ("native", "numpy"):
+            sse._TABLE_CACHE[cfg] = built[big, backend]
+            env = sse.SoccerSimultaneousEnv(width=big[0], height=big[1],
+                                            slip_prob=SLIP, **kw)
+            check(env._tb is built[big, backend], "the facade's tables")
+            runs[backend] = facade_run(env, FACADE_STEPS, seed=5)
+        (a, ta), (b, tb_) = runs["native"], runs["numpy"]
+        check(repr(a) == repr(b), f"11x7 facade ({mode}): the native and "
+              f"numpy tables give different trajectories")
+        resets = len(a) - 1 - FACADE_STEPS
+        print(f"[facade] 11x7 slip {SLIP}, {mode}: {FACADE_STEPS} random "
+              f"steps with {resets} resets equal on native and numpy "
+              f"tables; {FACADE_STEPS / ta} / {FACADE_STEPS / tb_} steps/s "
+              f"(host clock, row cache cold) | host {cpu}")
+    sse._TABLE_CACHE[cfg] = built[big, "native"]
+
+
+def planner_phase(torch, dev, card):
+    """Phase 36: ``value_iteration_torch`` on the card in float32 against
+    ``value_iteration_arrays`` (float64, host) at theta 1e-4, gamma 0.99,
+    on 5x4 against the stand policy and 11x7 against a random B, on
+    tests/test_planners_jax.py's terms: greedy actions equal wherever the
+    float64 gap exceeds 1e-3, V within 2e-3, max|V - max_a Q| < theta,
+    sweep counts within 2.  Prints ms per sweep and the total."""
+    import numpy as np
+    from gym_soccer_tpu_torch.agents import planners
+    from gym_soccer_tpu_torch.config import EnvConfig
+    from gym_soccer_tpu_torch.core import tables
+    from gym_soccer_tpu_torch.envs import SoccerSimultaneousEnv
+    from gym_soccer_tpu_torch.utils import policies
+    cpu = cpu_model()
+    for board, opp in (((5, 4), "stand"), ((11, 7), "random")):
+        nS = tables.build_statespace(EnvConfig(*board, SLIP)).nS
+        pol = (policies.get_stand_policy(nS) if opp == "stand"
+               else policies.get_random_policy(nS, 5, 42))
+        env = SoccerSimultaneousEnv(width=board[0], height=board[1],
+                                    slip_prob=SLIP, player_b_policy=pol)
+        prob, ns, rew, done = planners._env_arrays(env)
+        t0 = time.perf_counter()
+        pi_np, V_np, Q_np, cc_np = planners.value_iteration_arrays(
+            prob, ns, rew, done, VI_THETA, VI_GAMMA)
+        host_s = time.perf_counter() - t0
+        args = (torch.as_tensor(prob, dtype=torch.float32, device=dev),
+                torch.as_tensor(ns, device=dev),
+                torch.as_tensor(rew, dtype=torch.float32, device=dev),
+                torch.as_tensor(done, device=dev))
+        planners.value_iteration_torch(*args, VI_THETA, VI_GAMMA,
+                                       max_sweeps=3)   # warm-up
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pi, V, Q, cc = planners.value_iteration_torch(
+                *args, VI_THETA, VI_GAMMA)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall = statistics.median(walls)
+        sweeps_ms = sorted(w * 1e3 / cc for w in walls)
+        V64, Q64 = V.double().cpu().numpy(), Q.double().cpu().numpy()
+        gap = np.sort(Q_np, axis=1)
+        distinct = (gap[:, -1] - gap[:, -2]) > 1e-3
+        greedy = bool((pi.cpu().numpy()[distinct] == pi_np[distinct]).all())
+        v_err = float(np.abs(V64 - V_np).max())
+        resid = float(np.abs(V64 - Q64.max(axis=1)).max())
+        print(f"[planners] value_iteration_torch {board[0]}x{board[1]} vs "
+              f"{opp} B (nS {nS}), float32 on the card: {cc} sweeps in "
+              f"{wall * 1e3} ms ({wall * 1e3 / cc} ms a sweep, median of 3; "
+              f"the three {sweeps_ms}; one host read of the residual a "
+              f"sweep); "
+              f"value_iteration_arrays float64: {cc_np} sweeps in "
+              f"{host_s * 1e3} ms on the host ({cpu}); greedy equal on "
+              f"{int(distinct.sum())} states with a gap > 1e-3: {greedy}; "
+              f"max|V - V64| {v_err}; max|V - max_a Q| {resid} | {card}")
+        check(greedy and v_err < 2e-3 and resid < VI_THETA
+              and abs(cc - cc_np) <= 2,
+              f"value_iteration_torch on {board} outside the JAX test's "
+              f"terms")
+
+
+def best_response_phase(torch, dev, card, lk):
+    """Phase 37: the JAX package's best-response gate
+    (test_br_convergence_tpu) through ``fused_best_response_train``, K5's
+    launch counter reset just before and read just after each run (+300);
+    per chunk and at ``chunks_per_dispatch=8``, each mode run twice, all
+    four runs bit-equal.  Each run prints its wall and its split (chunk
+    calls and between them; or capture, replays and remainder): a mode's
+    first run in a process pays what that process has not yet done (K5's
+    first launch at this shape, the first CUDA-graph capture), its second
+    does not.  Then the greedy policy's win share against the frozen
+    policy on the batched engine (2048 lanes x 400 steps) above 0.95, and
+    the mean gap of v to ``best_response_value``
+    (examples/train_minimax_tpu.py's --best-response metric)."""
+    import numpy as np
+    from gym_soccer_tpu_torch.agents import evaluation, learners
+    from gym_soccer_tpu_torch.config import EnvConfig
+    from gym_soccer_tpu_torch.utils.policies import get_random_policy_array
+    cfg = EnvConfig(5, 4, SLIP)
+    opp = get_random_policy_array(761, 5, seed=BR_OPP_SEED)
+    n = BR_RECIPE["n_chunks"]
+    runs = {}
+    for g in (1, GROUPED_CHUNKS):
+        for call in (1, 2):
+            lk.reset_launch_counts()
+            learners.reset_launch_counts()
+            timing = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = lk.fused_best_response_train(
+                cfg, opp, "player_a", device=dev, chunks_per_dispatch=g,
+                timing=timing, **BR_RECIPE)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(lk.launch_counts)
+            check(counts["packed_learner_chunk"] == n
+                  and sum(counts.values()) == n
+                  and learners.launch_counts[RMPLUS] == 0,
+                  f"BR gate (chunks_per_dispatch={g}): launches {counts}, "
+                  f"R1 {learners.launch_counts[RMPLUS]}, not {n} of K5 "
+                  f"alone")
+            runs[g, call] = out
+            split = (f"chunk calls {timing['kernel_ms']} ms, between "
+                     f"{timing['between_ms']} ms (CUDA events)" if g == 1
+                     else f"capture {timing['capture_ms']} ms (host clock, "
+                     f"with one warm-up chunk), {timing['replays']} replays "
+                     f"{timing['segments_ms']} ms, remainder "
+                     f"{timing['remainder_ms']} ms (CUDA events)")
+            print(f"[best response] chunks_per_dispatch={g}, run {call} of "
+                  f"this mode in this process: {n} chunks of "
+                  f"{BR_RECIPE['batch']} x {BR_RECIPE['chunk_len']} in "
+                  f"{wall} s (host clock; {split}; K5 launched "
+                  f"{counts['packed_learner_chunk']} times) | {card}")
+    (q, v, pa, pb, hist) = runs[1, 1]
+    for (g, call), other in runs.items():
+        # the grouped mode keeps every chunk's row, the per-chunk mode
+        # every 16th and the last
+        rows = (other[4] if g == 1 else
+                [r for k, r in enumerate(other[4]) if k % 16 == 0
+                 or k == n - 1] if len(other[4]) == n else None)
+        check(all(torch.equal(a, b) for a, b in zip((q, v, pa, pb), other))
+              and rows == hist, f"BR gate: run {call} at "
+              f"chunks_per_dispatch={g} differs from the first per-chunk run")
+    pol_a = pa.argmax(-1)
+    t0 = time.perf_counter()
+    share = evaluation.greedy_win_share(cfg, pol_a, opp, lanes=BR_LANES,
+                                        steps=BR_STEPS, seed=BR_EVAL_SEED,
+                                        device=dev)
+    t_share = time.perf_counter() - t0
+    opp_oh = torch.nn.functional.one_hot(
+        torch.as_tensor(opp, device=dev).long(), 5).float()
+    v_br, _ = evaluation.best_response_value(cfg, opp_oh, "player_a")
+    gap = float((v - v_br).abs().mean())
+    print(f"[best response] recipe {BR_RECIPE}, opponent "
+          f"get_random_policy_array(761, 5, seed={BR_OPP_SEED}): all four "
+          f"runs bit-equal; greedy win share {share} (limit > "
+          f"{BR_WIN_SHARE}) over {BR_LANES} lanes x {BR_STEPS} steps "
+          f"(default_rng({BR_EVAL_SEED}) key words, {t_share} s); mean "
+          f"|v - v_br| {gap}, start value {evaluation.start_value(cfg, v)} "
+          f"against {evaluation.start_value(cfg, v_br)} | {card}")
+    check(share > BR_WIN_SHARE, f"BR win share {share} <= {BR_WIN_SHARE}")
+
+
+def entry_phase(torch, dev, card, lk):
+    """Phase 38: the twin of ``__graft_entry__.entry()`` on the card at
+    8192 x 64, K5's launch counter reset just before and read just after
+    (+1); its fields, counts, int64 sums and stats bit-equal to the plain
+    version on the card from the same inputs; its ms by ``time_cuda``."""
+    from gym_soccer_tpu_torch import entry
+    lk.reset_launch_counts()
+    fn, args = entry.entry()
+    fields, (sums, cnt), stats = fn(*args)
+    torch.cuda.synchronize()
+    launched = lk.launch_counts["packed_learner_chunk"]
+    check(launched == 1, f"entry(): K5 launched {launched} times, not 1")
+    got = [*(f.clone() for f in fields), sums.clone(), cnt.clone(),
+           torch.stack([torch.as_tensor(x, device=dev) for x in stats])]
+    B, T = entry.CARD_SHAPE
+    pf, (ps, pc), pstats = lk.packed_learner_chunk_plain(entry.CFG, *args,
+                                                         B, T)
+    want = [*pf, ps, pc, torch.stack([torch.as_tensor(x, device=dev)
+                                      for x in pstats])]
+    err = max_abs_err(list(zip(got, want)))
+    check(err == 0, f"entry(): K5 != plain, max abs err {err}")
+    check(int(cnt.sum()) == B * T and args[1].device == dev,
+          "entry(): visits do not sum to B * T on the card")
+    med, reps, legs = time_cuda(lambda: fn(*args))
+    print(f"[entry] entry() {B} x {T} on 5x4 slip {SLIP}: K5 launched "
+          f"{launched} time(s), fields, counts, int64 sums and stats "
+          f"bit-equal to the plain version; {med} ms/call, "
+          f"{B * T / (med / 1e3)} env-steps/s (median of {len(legs)} legs "
+          f"x {reps} calls) | {card}")
 
 
 def learner_inputs(torch, lk, cfg, B, dev, seed):

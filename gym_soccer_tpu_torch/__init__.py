@@ -8,19 +8,27 @@ reference that the port is tested against.
 Layers (module paths mirror gym_soccer_tpu's):
   config.py        EnvConfig (a copy)
   spaces.py        Discrete, MultiDiscrete, Dict (a copy)
+  registry.py      ``make``, ``register``, ``registry_ids`` (a copy)
+  entry.py         ``entry()``: one K5 chunk of the default trainer
+  native/          the C++ table builder and MT19937 stream generator
+                   (copies of the JAX package's sources), built with g++
   core/rules.py    branchless game rules over numpy or torch
   core/tables.py   host-side state-space indexing and transition tensors
-                   (numpy)
+                   (numpy or the native builder)
   core/batch.py    batched engine on tensors, counter RNG
   core/multigrid.py  mixed-geometry codec and per-lane board geometry
   core/mt19937.py  the reference's MT19937 on tensors
   core/parity.py   bit-exact reference trajectories (float64 thresholds)
+  envs/soccer_simultaneous_env.py  the reference-compatible facade
+                   ``SoccerSimultaneousEnv`` (host numpy, a copy)
   envs/soccer_alternating_env.py  the alternating-turn game: tables, exact
                    value iteration (numpy and torch), a policy rollout and
                    the single-env facade
   agents/          RM+ matrix-game solver, the alternating game's greedy
                    policy; Shapley iteration, best response and
-                   exploitability
+                   exploitability; the DP planners (VI/PI/MPI in numpy,
+                   ``value_iteration_torch``)
+  utils/policies.py  policy factories and persistence (a copy)
   ops/step_kernel.py     fused, journaled, mixed-geometry and alternating
                          random rollouts (CUDA K1, K2, K3, K4)
   ops/rollout_codes.py   K1/K2's and K4's two stages on the host: step
@@ -38,7 +46,11 @@ Layers (module paths mirror gym_soccer_tpu's):
                          (CUDA K12, K13)
   interop.py       state, journal, learner, MT19937 and parity layouts to
                    and from the JAX package
+  tools/           check_parity (the facade and planners against the
+                   reference's golden fixtures), the refcompat shim and
+                   run_reference_tests
 """
 from .config import EnvConfig, NOOP, NORTH, SOUTH, EAST, WEST  # noqa: F401
+from .registry import make, register, registry_ids  # noqa: F401
 
 __version__ = "0.1.0"

@@ -10,7 +10,10 @@ device:
   FIXED (possibly mixed) opponent policy, by single-agent value iteration
   on the induced MDP;
 * `exploitability` — BR_A(pi_b) + BR_B(pi_a) at the initial state
-  distribution; 0 exactly at a Nash equilibrium.
+  distribution; 0 exactly at a Nash equilibrium;
+* `greedy_win_share` / `win_share` — the JAX package's best-response gate
+  score (tests/test_learner_kernel.py:478-486): two deterministic policies
+  played on the batched engine, player A's share of the ended episodes.
 
 All operate on the padded joint transition tensors [nS, 5, 5, 36]
 (core/tables.build_tables).  The iterations loop on the host and read the
@@ -25,10 +28,11 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..config import EnvConfig, N_ACTIONS
-from ..core import tables
+from ..core import batch, tables
 from .learners import _fma_dot, solve_matrix_games
 
 
@@ -162,3 +166,33 @@ def exploitability(cfg: EnvConfig, pi_a, pi_b, gamma: float = 0.99,
     vb, _ = best_response_value(cfg, pi_a, "player_b", gamma,
                                 segment_iters=segment_iters, device=device)
     return start_value(cfg, va) + start_value(cfg, vb)
+
+
+def win_share(out: batch.StepOut) -> float:
+    """Player A's wins over the episodes that ended in a rollout's stacked
+    StepOut: ``((reward_a > 0) & done).sum() / (done | truncated).sum()``,
+    as the JAX package's best-response gate counts them."""
+    wins = int(((out.reward_a > 0) & out.done).sum())
+    return wins / int((out.done | out.truncated).sum())
+
+
+def greedy_win_share(cfg: EnvConfig, pol_a, pol_b, lanes: int = 2048,
+                     steps: int = 400, seed: int = 9,
+                     device="cuda") -> float:
+    """``win_share`` of the deterministic int [nS] policies ``pol_a`` and
+    ``pol_b`` played against each other for ``steps`` steps on ``lanes``
+    lanes of the counter-RNG batched engine (core/batch.rollout, with
+    autoreset).  The lanes' key words come from numpy's
+    ``default_rng(seed)``; the JAX gate plays its threefry engine from
+    ``key(seed)``, so this is a statistical twin of its score, not a bit
+    twin."""
+    device = torch.device(device)
+    key_words = np.random.default_rng(seed).integers(
+        0, 2 ** 32, (lanes, 2), dtype=np.uint64)
+    state = batch.init_from_keys(cfg, key_words, device)
+    pa = torch.as_tensor(pol_a, device=device).long()
+    pb = torch.as_tensor(pol_b, device=device).long()
+    _, out = batch.rollout(cfg, state,
+                           lambda obs, i: (pa[obs.long()], pb[obs.long()]),
+                           steps)
+    return win_share(out)

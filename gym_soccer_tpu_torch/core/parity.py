@@ -8,8 +8,9 @@ float64 cumulative sum exceeds it.  This module reproduces that per
 batched instance:
 
 * per-instance uniform streams from numpy's ``RandomState(seed_i)``
-  (`gen_streams`) or from the tensor MT19937 (core/mt19937.py), as the
-  (hi, lo) words of each double's bit pattern, held in int64;
+  (`gen_streams`, through the native generator) or from the tensor
+  MT19937 (core/mt19937.py), as the (hi, lo) words of each double's bit
+  pattern, held in int64;
 * float64 cumulative-sum thresholds from the padded transition tensors
   (byte-identical to the JAX package's, see core/tables);
 * the threshold comparison in float64: non-negative doubles order like
@@ -152,11 +153,17 @@ def gen_streams(seeds, n_draws: int, device):
     """Per-instance MT19937 uniform streams as (hi, lo) uint32 bit words
     held in int64, [B, n_draws] each, on ``device``.  seeds[i] seeds
     instance i exactly like the reference's ctor/reset(seed)
-    (``RandomState(seed_i)``, on the host)."""
+    (``RandomState(seed_i)``, on the host).
+
+    Draws through the threaded C++ generator (``native.mt19937_streams``)
+    when it builds, else the numpy ``RandomState`` loop: the same bits."""
+    from .. import native
     seeds = np.asarray(seeds)
-    out = np.empty((len(seeds), n_draws), dtype=np.float64)
-    for i, s in enumerate(seeds):
-        out[i] = np.random.RandomState(int(s)).random_sample(n_draws)
+    out = native.mt19937_streams(seeds, n_draws)
+    if out is None:
+        out = np.empty((len(seeds), n_draws), dtype=np.float64)
+        for i, s in enumerate(seeds):
+            out[i] = np.random.RandomState(int(s)).random_sample(n_draws)
     return tuple(torch.as_tensor(w.astype(np.int64), device=device)
                  for w in f64_bits(out))
 

@@ -4,13 +4,15 @@ The port of ``build_isd``, ``build_statespace``, ``build_tables`` and
 ``collapse_single_agent`` from gym_soccer_tpu/core/tables.py, copied so
 that their arrays are byte-identical to the JAX package's (pinned by
 tests/test_torch_tables.py, tests/test_torch_evaluation.py and
-tests/test_torch_parity.py).  ``build_tables`` is the JAX package's numpy
-backend; the native C++ builder is not ported yet.
+tests/test_torch_parity.py).  ``build_tables`` has the JAX package's two
+backends, the threaded C++ builder (``native``) and the vectorized numpy
+one, which give byte-identical tensors (tests/test_torch_native.py).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 
 import numpy as np
 
@@ -151,11 +153,59 @@ def build_statespace(cfg: EnvConfig) -> StateSpace:
         goal_raw=goal_raw, isd_probs=isd_probs, isd_raw=isd_raw)
 
 
-def build_tables(cfg: EnvConfig) -> GameTables:
+def build_tables(cfg: EnvConfig, backend: str | None = None) -> GameTables:
     """The full padded transition tensors [nS, 25, 36]: 9 slip combos x 4
     outcome slots per joint action, in the reference's list order
-    (:167-293), with probability 0 on invalid slots and dropped combos."""
+    (:167-293), with probability 0 on invalid slots and dropped combos.
+
+    ``backend``: 'native' (the C++ threaded builder), 'numpy' (vectorized
+    broadcast), or None = the GYM_SOCCER_TPU_TABLES environment variable,
+    by default 'auto' (native when g++ builds it, else numpy).  Both give
+    byte-identical tensors.  'native' raises RuntimeError when the library
+    cannot be built; an unknown backend raises ValueError.  The variable
+    is the JAX package's own, read the same way, so a deployment that
+    sets it there keeps its choice after moving to the port: 'native' in
+    CI, where a missing compiler should fail the run rather than fall back
+    silently, or 'numpy' where no compiler may be started."""
     ss = build_statespace(cfg)
+    if backend is None:
+        backend = os.environ.get("GYM_SOCCER_TPU_TABLES", "auto")
+    if backend not in ("auto", "native", "numpy"):
+        raise ValueError(f"unknown tables backend {backend!r} "
+                         "(expected 'auto', 'native' or 'numpy')")
+    if backend in ("auto", "native"):
+        tb = _build_tables_native(cfg, ss)
+        if tb is not None:
+            return tb
+        if backend == "native":
+            raise RuntimeError("native table builder unavailable "
+                               "(g++ missing or build failed)")
+    return _build_tables_numpy(cfg, ss)
+
+
+def _from_parts(cfg: EnvConfig, ss: StateSpace, parts: dict) -> GameTables:
+    return GameTables(
+        cfg=cfg, nS=ss.nS,
+        raw_to_dense=ss.raw_to_dense, dense_to_raw=ss.dense_to_raw,
+        fields=ss.fields, goal_mask_raw=ss.goal_mask_raw,
+        goal_reward_raw=ss.goal_reward_raw,
+        unreachable_raw=ss.unreachable_raw, goal_raw=ss.goal_raw,
+        isd_probs=ss.isd_probs, isd_raw=ss.isd_raw, **parts)
+
+
+def _build_tables_native(cfg: EnvConfig, ss: StateSpace) -> GameTables | None:
+    from .. import native
+
+    lo, hi = cfg.goal_row_bounds
+    parts = native.build_tables_arrays(
+        cfg.W, cfg.H, lo, hi, cfg.combo_probs(), ss.dense_to_raw,
+        ss.raw_to_dense, ss.goal_mask_raw, ss.goal_reward_raw)
+    if parts is None:
+        return None
+    return _from_parts(cfg, ss, parts)
+
+
+def _build_tables_numpy(cfg: EnvConfig, ss: StateSpace) -> GameTables:
     nS = ss.nS
     raw_to_dense = ss.raw_to_dense
     dense_to_raw = ss.dense_to_raw
@@ -212,16 +262,10 @@ def build_tables(cfg: EnvConfig) -> GameTables:
     t_cum = np.cumsum(t_prob, axis=-1)
     t_first = np.argmax(t_mask, axis=-1).astype(np.int32)
 
-    return GameTables(
-        cfg=cfg, nS=nS,
-        raw_to_dense=raw_to_dense, dense_to_raw=dense_to_raw, fields=fields,
-        goal_mask_raw=goal_mask_raw, goal_reward_raw=goal_reward_raw,
-        unreachable_raw=ss.unreachable_raw, goal_raw=ss.goal_raw,
-        isd_probs=ss.isd_probs, isd_raw=ss.isd_raw,
+    return _from_parts(cfg, ss, dict(
         t_prob=t_prob, t_cum=t_cum, t_next_raw=t_next_raw,
         t_next_dense=t_next_dense, t_reward=t_reward, t_done=t_done,
-        t_mask=t_mask, t_first=t_first,
-    )
+        t_mask=t_mask, t_first=t_first))
 
 
 def collapse_single_agent(tb: GameTables, frozen: str, policy: np.ndarray):

@@ -1021,7 +1021,8 @@ def fused_best_response_train(cfg: EnvConfig, opp_policy, side: str,
                               return_state: bool = False,
                               device="cuda", mesh=None,
                               packed: bool | None = None,
-                              chunks_per_dispatch: int = 1):
+                              chunks_per_dispatch: int = 1,
+                              timing: dict | None = None):
     """Fused single-agent training: the best response of ``side``
     ('player_a' or 'player_b') to a frozen deterministic opponent
     ``opp_policy`` (int [nS]), with the same chunks as
@@ -1038,7 +1039,7 @@ def fused_best_response_train(cfg: EnvConfig, opp_policy, side: str,
     ``start_chunk`` continue bit for bit.  As in the JAX package, one
     board only.  A run in which a table value left the int64 sums' exact
     range raises ValueError, and ``chunks_per_dispatch`` runs the grouped
-    mode, as in ``fused_minimax_train``."""
+    mode and ``timing`` splits the time, as in ``fused_minimax_train``."""
     check_mesh(mesh)
     g = dispatch.group_size(n_chunks, False, chunks_per_dispatch)
     _check_seeds(seed, start_chunk, start_chunk + n_chunks)
@@ -1142,18 +1143,22 @@ def fused_best_response_train(cfg: EnvConfig, opp_policy, side: str,
             sched.record(stats)
 
         dispatch.run(body, carry + sched.state(), n_chunks, g,
-                     (launch_counts,))
+                     (launch_counts,), timing)
         history, out_of_range = sched.history()
     else:
         history = []
         out_of_range = 0
+        clock = _Timing(timing, device)
         for k in range(start_chunk, end_chunk):
+            clock.mark()
             fields, acc, stats = chunk(_chunk_seed(seed, k), m, fields)
+            clock.mark()
             q, n, v, pi_a, pi_b, m = between(q, n, v, acc, _f32(lr_at(k)),
                                              _f32(eps_at(k)))
             out_of_range = out_of_range + stats[3]
             if k % 16 == 0 or k == end_chunk - 1:
                 history.append(stats[:3])
+        clock.finish()
         history = [tuple(int(x) for x in row) for row in history]
     _raise_out_of_range(out_of_range, batch, chunk_len, v)
     if return_state:

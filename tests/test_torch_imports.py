@@ -35,6 +35,8 @@ MODULES = ["gym_soccer_tpu_torch", "gym_soccer_tpu_torch.config",
            "gym_soccer_tpu_torch.ops.iql_codes",
            "gym_soccer_tpu_torch.ops.iql_variants",
            "gym_soccer_tpu_torch.ops.altq_kernel",
+           "gym_soccer_tpu_torch.ops.altq_codes",
+           "gym_soccer_tpu_torch.ops.altq_variants",
            "gym_soccer_tpu_torch.ops.dispatch",
            "gym_soccer_tpu_torch.ops.rmplus_variants",
            "gym_soccer_tpu_torch.spaces",
@@ -42,7 +44,17 @@ MODULES = ["gym_soccer_tpu_torch", "gym_soccer_tpu_torch.config",
            "gym_soccer_tpu_torch.envs.soccer_alternating_env",
            "gym_soccer_tpu_torch.agents.learners",
            "gym_soccer_tpu_torch.agents.evaluation",
-           "gym_soccer_tpu_torch.interop"]
+           "gym_soccer_tpu_torch.agents.planners",
+           "gym_soccer_tpu_torch.interop",
+           "gym_soccer_tpu_torch.native",
+           "gym_soccer_tpu_torch.utils",
+           "gym_soccer_tpu_torch.utils.policies",
+           "gym_soccer_tpu_torch.envs.soccer_simultaneous_env",
+           "gym_soccer_tpu_torch.registry",
+           "gym_soccer_tpu_torch.entry",
+           "gym_soccer_tpu_torch.tools",
+           "gym_soccer_tpu_torch.tools.check_parity",
+           "gym_soccer_tpu_torch.tools.run_reference_tests"]
 
 
 @pytest.mark.parametrize("module", MODULES)
@@ -53,6 +65,24 @@ def test_port_never_imports_jax(module):
             "m == 'gym_soccer_tpu')\n"
             "assert not bad, bad\n"
             "assert 'gym_soccer_tpu_torch.ops._build' not in sys.modules\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+def test_importing_builds_nothing():
+    """Importing the package, its native loader and the modules that use
+    it runs no compiler and loads no library (torch and numpy, which load
+    their own, are imported first): the native libraries are built at
+    their first use."""
+    code = ("import ctypes, subprocess, numpy, torch\n"
+            "def refuse(*a, **k):\n"
+            "    raise AssertionError('built or loaded at import')\n"
+            "subprocess.run = subprocess.Popen = ctypes.CDLL = refuse\n"
+            "import gym_soccer_tpu_torch, gym_soccer_tpu_torch.native as n\n"
+            "import gym_soccer_tpu_torch.core.parity\n"
+            "import gym_soccer_tpu_torch.envs\n"
+            "import gym_soccer_tpu_torch.tools.check_parity\n"
+            "assert n._libs == {}, n._libs\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
 

@@ -311,6 +311,26 @@ def test_best_response_exact_resume():
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("g", [1, 2])
+def test_best_response_timing(g):
+    """``timing`` splits a best-response run as it splits the minimax
+    trainer's (chunk calls and between them, or ``dispatch.run``'s spans)
+    and changes nothing in the result."""
+    opp = np.asarray(get_random_policy_array(NS, 5, seed=3))
+    kw = dict(batch=256, n_chunks=3, chunk_len=4, eps=0.4, seed=5,
+              device="cpu", chunks_per_dispatch=g)
+    timing = {}
+    timed = lk.fused_best_response_train(CFG, opp, "player_a",
+                                         timing=timing, **kw)
+    plain = lk.fused_best_response_train(CFG, opp, "player_a", **kw)
+    for a, b in zip(timed[:4], plain[:4]):
+        assert torch.equal(a, b)
+    assert timed[4] == plain[4] and timing["chunks"] == 3
+    spans = (("kernel_ms", "between_ms") if g == 1
+             else ("capture_ms", "segments_ms", "remainder_ms"))
+    assert all(timing[k] >= 0 for k in spans)
+
+
 def test_chunk_checks_its_arguments():
     table = torch.zeros((lk.n_codes(CFG), lk.TABLE_COLS))
     fields = lk.init_state_fields(CFG, 256, "cpu")
