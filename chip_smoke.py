@@ -3,9 +3,9 @@
 check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --surface   # phases 34-38 alone, in a fresh process
+    python3 chip_smoke.py --phases 34-38  # one block alone, in a fresh process
 
-Six main paths, each driven with its kernels' launch counters reset just
+Seven main paths, each driven with its kernels' launch counters reset just
 before it and read just after.  The rollout path is the batched random
 play at 8192 lanes on the 5x4 (slip 0.2) and 11x7 (slip 0.2) boards:
 ``fused_rollout`` (kernel K1), ``fused_journal_rollout`` (kernel K2) with
@@ -26,6 +26,10 @@ kernel K11 with ``packed=False``), with ``alt_value_iteration_torch`` and
 last: the native host libraries, the ``SoccerSimultaneousEnv`` facade,
 ``value_iteration_torch``, the best-response gate through
 ``fused_best_response_train`` (kernel K5) and ``entry()`` (kernel K5).
+The threefry path runs last: the entry point
+``gym_soccer_tpu_torch.examples.train_minimax``, whose HBM-table learner
+draws every step through kernel T1 and re-solves through kernel R1, the
+learners, the engines and ``SoccerVectorEnv``.
 Phases, each of which raises on failure:
 
 1. device: a CUDA device is present; its name and power limit;
@@ -241,16 +245,53 @@ Phases, each of which raises on failure:
     run in the process, with their walls and splits), all four bit-equal;
     the greedy policy wins more than 95 % of the ended episodes
     (``evaluation.greedy_win_share``, 2048 lanes x 400 steps of the
-    batched engine: a statistical twin of the JAX test's threefry score);
-    the mean gap of v to ``best_response_value``;
+    counter-RNG batched engine), and scored again as the JAX test scores
+    it (``batch.init(cfg, key(9), 2048)``, a threefry rollout of 400
+    steps); the mean gap of v to ``best_response_value``;
 38. ``entry()``: one K5 chunk at 8192 x 64 (K5's counter +1) bit-equal to
     the plain version on the card (fields, counts, int64 sums, stats), and
-    its ms.
+    its ms;
+39. the threefry slice's main path: the entry point
+    ``gym_soccer_tpu_torch.examples.train_minimax``'s default mode (the
+    HBM-table minimax-Q learner at 8192 envs, 2000 steps in chunks of 500,
+    then ``eval_episode_stats`` at 1024 x 400) through ``main`` in this
+    process, T1's and R1's counters reset just before and read just after
+    (T1 ``ENTRY_T1`` launches, R1 ``ENTRY_R1``); its JSON lines checked;
+40. T1 (``threefry_uniforms``, ``csrc/threefry_kernel.cu``): bit-equal to
+    its plain version on the card at 8192 lanes with count 1, 2, 4 and 7,
+    salt 0, 1 and 9, counters 0, 37 and 2**31 - 1, and to the plain
+    version on the CPU; T1 and the plain version timed at 8192 x 4 and
+    8192 x 2 (salt 9); its bound from the SASS of its 4-uniform instance;
+41. the threefry engine: ``batch.init`` and 64 steps of ``rollout`` with
+    ``random_policy_fn`` at 8192 lanes on 5x4 and 11x7, equal to the CPU
+    run in every field;
+42. the JAX package's learning checks on the card at their own sizes and
+    thresholds (tests/test_learners.py:48, :73, :87, :130, :159 and
+    tests/test_multigrid.py:206), 64 steps a CUDA-graph replay
+    (``learners.GROUP_STEPS``), each with its wall seconds;
+43. the entry point through ``python -m`` in fresh processes: the default
+    mode at 8192 envs; ``--fused`` stopped at 640 steps and resumed to 1280
+    from ``--ckpt``, bit-identical to one uninterrupted run; and
+    ``--best-response player_a``;
+44. ``SoccerVectorEnv`` at 8192 envs x 1000 steps, the card's stream equal
+    to the CPU's;
+45. the learners' CUDA-graph replays against the CPU: at 2 lanes, 162
+    steps of minimax-Q, IQL, turn-based Q and mixture minimax-Q (an
+    unaligned head, two replays, a period on its own, a tail) bit-equal
+    to the same calls on the CPU, with T1's and R1's launches counted;
+    at 512 lanes, one 64-step minimax-Q period (one replay, the re-solve
+    on its last step) with the env and the visit counts exact and q, the
+    per-step |TD|, v and pi within stated tolerances.
+
+``--phases`` runs one block of phases alone in a fresh process, building
+only its libraries: 34-38 (K5) or 39-45 (T1, R1, K5); it prints the
+block's figures but no kernels line and no verdict.
 
 The second-to-last lines are the kernels' JSON record (the 14 kernel
-sites and R1, with each kernel's bound: the larger of its bytes over the
-HBM rate and its SASS instructions per step, or R1's per game-iteration,
-times its steps over the instruction rate) and the card's name and power
+sites, R1 and T1, with each kernel's bound: the larger of its bytes over
+the HBM rate and its SASS instructions per step, R1's per game-iteration
+and T1's per lane, times its steps over the instruction rate) and the
+card's name and power
 limit; the last line is the JSON verdict.  The whole run prints its wall
 time.  Exits non-zero, with no verdict, if anything fails or no CUDA
 device is present.
@@ -507,6 +548,38 @@ BR_OPP_SEED, BR_LANES, BR_STEPS, BR_EVAL_SEED = 42, 2048, 400, 9
 BR_WIN_SHARE = 0.95
 
 
+# Phases 39-45, the threefry slice.  T1, the per-lane threefry draw (no
+# TPU kernel: the JAX package's XLA threefry under batch.per_env_uniforms).
+T1 = "threefry_uniforms"
+T1_SRC = "gym_soccer_tpu_torch/ops/csrc/threefry_kernel.cu"
+T1_REPLACES = "gym_soccer_tpu/core/batch.py:157"
+# T1's instance for a step's draw (4 uniforms, no salt), the shape its ms
+# and bound are taken at; and the policies' draw (2 uniforms, salt 9).
+T1_SYMBOL = "24threefry_uniforms_kernelILi4ELb0E"
+T1_SHAPES = ((4, 0), (2, 9))
+# The entry point's default mode at its own widths (examples/
+# train_minimax_tpu.py:247-251), 2000 steps in chunks of 500: per step T1
+# draws the actions, the transition and the resets (3 launches), R1
+# re-solves every 64th step; then eval_episode_stats' 400 steps (2 a step)
+# and the two initialisations.
+ENTRY = ["--envs", "8192", "--chunk", "500", "--steps", "2000"]
+ENTRY_T1 = 1 + 3 * 2000 + 1 + 2 * 400
+ENTRY_R1 = 2000 // 64
+# Phase 45: two lanes keep every scatter-add cell to at most two addends
+# a step (a sum of two floats does not depend on their order), so the
+# card's tables equal the CPU's bit for bit.  GRAPH_STEPS from step
+# GRAPH_START at resolve_every 16 (4 periods a replay) run a head of 11
+# steps, two replays, one period on its own and a tail of 7.  GRAPH_WIDE:
+# the learning checks' width, for one 64-step period (one replay).
+GRAPH_LANES, GRAPH_START, GRAPH_STEPS, GRAPH_WIDE = 2, 5, 162, 512
+# Phase 45's tolerances at GRAPH_WIDE, where the card's scatter-adds sum
+# by atomics in no fixed order: q and |TD| relative to 1 + |x|; v and pi
+# after the re-solve (RM+'s 200 iterations on the perturbed q) absolute.
+GRAPH_TOL, GRAPH_SOLVE_TOL = 1e-6, 1e-4
+# --fused stopped at 640 steps and resumed to 1280 from --ckpt.
+FUSED_STEPS = (640, 1280)
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -540,15 +613,26 @@ def max_abs_err(pairs):
     return err
 
 
-def sass_loop_instructions(path, names=None):
-    """{mangled kernel name: SASS instructions per trip of its main loop}
-    in the library at ``path``, from ``cuobjdump -sass``; see
-    ``loop_instructions``."""
+def sass_listing(path):
+    """``cuobjdump -sass`` of the library at ``path``."""
     from gym_soccer_tpu_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
-    return loop_instructions(subprocess.run(
-        [tool, "-sass", str(path)], capture_output=True, text=True,
-        timeout=120, check=True).stdout, names)
+    return subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+
+
+def t1_instructions(_build):
+    """SASS instructions a lane of T1's step-draw instance issues."""
+    found = straight_instructions(
+        sass_listing(_build.build("threefry_kernel")), [T1_SYMBOL])
+    check(len(found) == 1, f"T1: {len(found)} kernels match {T1_SYMBOL}")
+    return next(iter(found.values()))
+
+
+def sass_loop_instructions(path, names=None):
+    """{mangled kernel name: SASS instructions per trip of its main loop}
+    in the library at ``path``; see ``loop_instructions``."""
+    return loop_instructions(sass_listing(path), names)
 
 
 BRANCH = re.compile(r"^(@!?U?P\d\s+)?BRA\s+(?:!?U?P\d,\s*)?0x([0-9a-f]+)")
@@ -603,22 +687,8 @@ def loop_instructions(text, names=None):
     them: a tile a trip).  A producer's loop hashes (``HASH``): a loop that
     stores to shared memory without hashing (K8-K11 zeroing their private
     accumulators) is no producer's."""
-    kernels, name = {}, None
-    for line in text.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:   # a function seen before is a second copy of the same code
-            name = m.group(1) if m.group(1) not in kernels else None
-            if name and names is not None and not any(
-                    n in name for n in names):
-                name = None
-            if name:
-                kernels[name] = []
-            continue
-        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
-        if m and name:
-            kernels[name].append((int(m.group(1), 16), m.group(2).strip()))
     counts = {}
-    for name, ins in kernels.items():
+    for name, ins in sass_functions(text, names).items():
         loops = [(int(b.group(2), 16), addr) for addr, op in ins
                  for b in [BRANCH.match(op)]
                  if b and int(b.group(2), 16) < addr]
@@ -640,6 +710,43 @@ def loop_instructions(text, names=None):
                 if stores]
             check(per_word, f"no shared-memory loop to amortise in {name}")
             counts[name] += TWIST[0] / TWIST[1] * min(per_word)
+    return counts
+
+
+def sass_functions(text, names=None):
+    """{mangled kernel name: [(address, instruction), ...]} of a
+    ``cuobjdump -sass`` listing, for the kernels whose name contains one
+    of ``names`` (all by default)."""
+    kernels, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:   # a function seen before is a second copy of the same code
+            name = m.group(1) if m.group(1) not in kernels else None
+            if name and names is not None and not any(
+                    n in name for n in names):
+                name = None
+            if name:
+                kernels[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if m and name:
+            kernels[name].append((int(m.group(1), 16), m.group(2).strip()))
+    return kernels
+
+
+def straight_instructions(text, names=None):
+    """{mangled kernel name: SASS instructions a thread issues} for
+    kernels with no loop (T1's unrolled instances): the instructions from
+    the entry to the first unpredicated EXIT, inclusive (a predicated
+    early exit is issued and not taken)."""
+    counts = {}
+    for name, ins in sass_functions(text, names).items():
+        check(not any(b and int(b.group(2), 16) < addr for addr, op in ins
+                      for b in [BRANCH.match(op)]),
+              f"{name} has a loop; count its trips instead")
+        ends = [i for i, (_, op) in enumerate(ins) if op == "EXIT"]
+        check(ends, f"no EXIT in the SASS of {name}")
+        counts[name] = ends[0] + 1
     return counts
 
 
@@ -800,10 +907,11 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Build and drive the port on one CUDA device.")
     parser.add_argument(
-        "--surface", action="store_true",
-        help="build K5 only and run phases 34-38 alone, in this fresh "
-             "process: their figures before any earlier phase has run; "
-             "prints no kernels line and no verdict")
+        "--phases", choices=("34-38", "39-45"),
+        help="build only the block's libraries (34-38: K5; 39-45: T1, R1 "
+             "and K5) and run its phases alone, in this fresh process: their "
+             "figures before any earlier phase has run; prints no kernels "
+             "line and no verdict")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -824,12 +932,21 @@ def main(argv=None) -> int:
     card = smi("name,power.limit")
     print(f"[device] {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
-    if args.surface:
+    if args.phases:
+        libraries, run = {
+            "34-38": (("learner_kernel",),
+                      lambda: surface_phases(torch, dev, card, lk)),
+            "39-45": (("threefry_kernel", "rmplus_kernel", "learner_kernel"),
+                      lambda: threefry_phases(torch, dev, card,
+                                              t1_instructions(_build))),
+        }[args.phases]
         t0 = time.perf_counter()
-        _build.load("learner_kernel")
-        print(f"[build] learner_kernel in {time.perf_counter() - t0:.3f} s")
-        surface_phases(torch, dev, card, lk)
-        print(f"[done] chip_smoke.py --surface ran "
+        for name in libraries:
+            _build.load(name)
+        print(f"[build] {', '.join(libraries)} in "
+              f"{time.perf_counter() - t0:.3f} s")
+        run()
+        print(f"[done] chip_smoke.py --phases {args.phases} ran "
               f"{time.perf_counter() - t_start} s")
         return 0
 
@@ -998,8 +1115,8 @@ def main(argv=None) -> int:
     for board, cfg in cfgs.items():
         runs = []
         for d in (dev, torch.device("cpu")):
-            st = batch.init_from_keys(cfg, key_words, d)
-            st, acc = batch.random_rollout_stats(cfg, st, 100)
+            st = batch.init_from_keys(cfg, key_words, d, rng="counter")
+            st, acc = batch.random_rollout_stats(cfg, st, 100, rng="counter")
             runs.append((st, acc))
         (gst, gacc), (cst, cacc) = runs
         check(max_abs_err(list(zip(gst, cst))) == 0,
@@ -1109,6 +1226,11 @@ def main(argv=None) -> int:
     contract_11x7_phase(torch, dev, card, lk, exploitability)
 
     surface_phases(torch, dev, card, lk)
+    per_step[T1] = t1_instructions(_build)
+    t1_launches, errs[T1], t1_ms, t1_work = threefry_phases(
+        torch, dev, card, per_step[T1])
+    launches[T1] = t1_launches
+    ms.update(t1_ms)
 
     # Each kernel's work at the shape its ms was timed: lane-steps (or
     # lane-events) and the bytes of its inputs and outputs, each once.
@@ -1131,6 +1253,7 @@ def main(argv=None) -> int:
         **mg_work,
         **alt_work,
         RMPLUS: rm_work,
+        T1: t1_work,
     }
     kernels = []
     for name in ("fused_rollout", "fused_journal_rollout",
@@ -1138,13 +1261,15 @@ def main(argv=None) -> int:
                  "multigrid_packed_learner_chunk", "learner_chunk",
                  "multigrid_learner_chunk", "iql_packed_chunk", "iql_chunk",
                  "altq_packed_chunk", "altq_chunk", "parity_events",
-                 "parity_scripted_events", RMPLUS):
+                 "parity_scripted_events", RMPLUS, T1):
         units, nbytes = work[name]
         bound_ms, bound_by = bound(units, per_step[name], nbytes)
         kernels.append(
             {"name": name, "route": "cuda",
-             "source": SOURCE.get(name, RMPLUS_SRC),
-             "replaces": REPLACES.get(name, RMPLUS_REPLACES),
+             "source": SOURCE.get(name, T1_SRC if name == T1
+                                  else RMPLUS_SRC),
+             "replaces": REPLACES.get(name, T1_REPLACES if name == T1
+                                      else RMPLUS_REPLACES),
              "launches": launches[name],
              "max_abs_err": errs[name], "ms": ms[name],
              "plain_ms": ms[name + "_plain"], "bound_ms": bound_ms,
@@ -1519,6 +1644,21 @@ def best_response_phase(torch, dev, card, lk):
           f"|v - v_br| {gap}, start value {evaluation.start_value(cfg, v)} "
           f"against {evaluation.start_value(cfg, v_br)} | {card}")
     check(share > BR_WIN_SHARE, f"BR win share {share} <= {BR_WIN_SHARE}")
+    # scored a second time as the JAX test scores it: batch.init(CFG,
+    # key(9), 2048) and a threefry rollout (tests/test_learner_kernel.py:481)
+    from gym_soccer_tpu_torch.core import batch, threefry
+    opp_t = torch.as_tensor(opp, device=dev).long()
+    t0 = time.perf_counter()
+    st = batch.init(cfg, threefry.key(BR_EVAL_SEED), BR_LANES, dev)
+    _, out = batch.rollout(
+        cfg, st, lambda obs, i: (pol_a[obs.long()], opp_t[obs.long()]),
+        BR_STEPS)
+    share_tf = evaluation.win_share(out)
+    print(f"[best response] greedy win share on the threefry engine from "
+          f"key({BR_EVAL_SEED}) as the JAX test scores it: {share_tf} "
+          f"(limit > {BR_WIN_SHARE}; {time.perf_counter() - t0} s) | {card}")
+    check(share_tf > BR_WIN_SHARE,
+          f"BR win share (threefry) {share_tf} <= {BR_WIN_SHARE}")
 
 
 def entry_phase(torch, dev, card, lk):
@@ -2206,10 +2346,11 @@ def iql_phases(torch, dev, card, cfgs, batch, per_step, regs):
                   "iql_packed_chunk", big["n_chunks"], card)
     key_words = np.random.default_rng(2).integers(0, 2**32, (512, 2),
                                                   dtype=np.uint64)
-    state = batch.init_from_keys(cfg, key_words, dev)
+    state = batch.init_from_keys(cfg, key_words, dev, rng="counter")
     _, stats = batch.rollout_stats(
         cfg, state, lambda obs, i: (q_a[obs.long()].argmax(-1).int(),
-                                    q_b[obs.long()].argmax(-1).int()), 200)
+                                    q_b[obs.long()].argmax(-1).int()), 200,
+        rng="counter")
     print(f"[iql run] greedy vs greedy, 512 lanes x 200 steps through the "
           f"batched engine: reward sum {float(stats.reward_sum)}, goals "
           f"{int(stats.goals)}, truncations {int(stats.truncs)}")
@@ -3023,6 +3164,535 @@ def alt_phases(torch, dev, card, cfgs, per_step, regs):
             "altq_packed_chunk": (B * T_K10, alt_fields_bytes + acc),
             "altq_chunk": (B * T_K10, alt_fields_bytes + acc)}
     return launches, errs, ms, work
+
+
+def threefry_phases(torch, dev, card, t1_instructions):
+    """Phases 39-45, the threefry slice, each with its wall seconds.
+    Returns T1's launches on the slice's main path, its max abs error
+    against the plain version, its ms and plain ms, and its work."""
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    launches = entry_main_path(torch, dev, card)
+    print(f"[phase 39] {time.perf_counter() - t0} s")
+    t0 = time.perf_counter()
+    err, ms, work = t1_phase(torch, dev, card, t1_instructions)
+    print(f"[phase 40] {time.perf_counter() - t0} s")
+    t0 = time.perf_counter()
+    engine_phase(torch, dev, card)
+    print(f"[phase 41] {time.perf_counter() - t0} s")
+    t0 = time.perf_counter()
+    learning_checks(torch, dev, card)
+    print(f"[phase 42] {time.perf_counter() - t0} s")
+    t0 = time.perf_counter()
+    entry_cli_phase(torch, dev, card)
+    print(f"[phase 43] {time.perf_counter() - t0} s")
+    t0 = time.perf_counter()
+    vector_env_phase(torch, dev, card)
+    print(f"[phase 44] {time.perf_counter() - t0} s")
+    t0 = time.perf_counter()
+    graph_phase(torch, dev, card)
+    print(f"[phase 45] {time.perf_counter() - t0} s")
+    print(f"[threefry] phases 39-45 ran {time.perf_counter() - t_all} s")
+    return launches, err, ms, work
+
+
+def json_lines(text):
+    return [json.loads(x) for x in text.splitlines() if x.startswith("{")]
+
+
+def entry_main_path(torch, dev, card):
+    """Phase 39, the slice's main path: the entry point's default mode
+    (``train_minimax.main``, the HBM-table minimax-Q learner, then
+    ``eval_episode_stats``) at 8192 envs in this process, T1's and R1's
+    launch counters reset just before and read just after; T1 launched
+    ENTRY_T1 times, R1 ENTRY_R1; its lines are the JAX example's, v in
+    [-1.05, 1.05], the exploitability finite, the eval's episodes
+    counted."""
+    import contextlib
+    import io
+    from gym_soccer_tpu_torch.agents import learners
+    from gym_soccer_tpu_torch.examples import train_minimax
+    from gym_soccer_tpu_torch.ops import threefry_kernel as tk
+    out = io.StringIO()
+    tk.reset_launch_counts()
+    learners.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        train_minimax.main(ENTRY)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t1, r1 = tk.launch_counts[T1], learners.launch_counts[RMPLUS]
+    check(t1 == ENTRY_T1 and r1 == ENTRY_R1,
+          f"entry point: T1 launched {t1} times (not {ENTRY_T1}), R1 {r1} "
+          f"(not {ENTRY_R1})")
+    lines = json_lines(out.getvalue())
+    events = [ln.get("event") for ln in lines]
+    check(events == ["compiled", None, None, None, "finished",
+                     "eval_episode_stats"], f"entry point lines {events}")
+    fin, ev = lines[4], lines[5]
+    check(fin["steps"] == 2000 and -1.05 <= fin["v_min"] <= fin["v_max"]
+          <= 1.05 and math.isfinite(fin["exploitability"])
+          and ev["episodes"] > 0, f"entry point: {fin} {ev}")
+    print(f"[main path] python -m gym_soccer_tpu_torch.examples."
+          f"train_minimax {' '.join(ENTRY)} (default mode) in this process: "
+          f"{wall} s (host clock; the first chunk {lines[0]['seconds']} s "
+          f"with T1's and R1's loads); T1 launched {t1} times, R1 {r1}; "
+          f"finished {fin}; eval_episode_stats {ev} | {card}")
+    return t1
+
+
+def t1_phase(torch, dev, card, t1_instructions):
+    """Phase 40: T1 against its plain version on the card bit for bit at
+    8192 lanes with count 1, 2 and 4, salt 0, 1 and 9 and counters 0, 37
+    and 2**31 - 1 (random key words), and the generic count 7; one shape
+    against the plain version on the CPU; T1 and the plain version timed
+    at 8192 x 4 (a step's draw) and 8192 x 2 (salt 9, a policy's)."""
+    import numpy as np
+    from gym_soccer_tpu_torch.ops import threefry_kernel as tk
+    rng = np.random.default_rng(16)
+    key = torch.as_tensor(rng.integers(0, 2 ** 32, (B, 2), dtype=np.uint64)
+                          .astype(np.int64), device=dev)
+    err, cases = 0.0, 0
+    for n0 in (0, 37, 2 ** 31 - 1):
+        n = torch.full((B,), n0, dtype=torch.int32, device=dev)
+        n[::3] = torch.as_tensor(rng.integers(0, 2 ** 31, B)[::3]
+                                 .astype(np.int32), device=dev)
+        for count in (1, 2, 4, 7):
+            for salt in (0, 1, 9):
+                got = tk.threefry_uniforms(key, n, count, salt)
+                want = tk.threefry_uniforms_plain(key, n, count, salt)
+                check(got.shape == (B, count) and torch.equal(got, want),
+                      f"T1 != plain at count {count}, salt {salt}, n {n0}")
+                err = max(err, float((got - want).abs().max()))
+                cases += 1
+    cpu = tk.threefry_uniforms_plain(key.cpu(), n.cpu(), 4, 9)
+    check(torch.equal(tk.threefry_uniforms(key, n, 4, 9).cpu(), cpu),
+          "T1 != the plain version on the CPU")
+    ms = {}
+    for count, salt in T1_SHAPES:
+        n = torch.arange(B, dtype=torch.int32, device=dev)
+        for name, fn in ((T1, tk.threefry_uniforms),
+                         (T1 + "_plain", tk.threefry_uniforms_plain)):
+            med, reps, legs = time_cuda(lambda: fn(key, n, count, salt))
+            ms.setdefault(name, med)
+            print(f"[time] {name} {B} x {count} (salt {salt}): {med} "
+                  f"ms/call (median of {len(legs)} legs x {reps} calls) "
+                  f"| {card}")
+    count = T1_SHAPES[0][0]
+    nbytes = B * (2 * 8 + 4) + B * count * 4
+    bound_ms, bound_by = bound(B, t1_instructions, nbytes)
+    # device time: a CUDA graph of 100 calls, replayed (the call is bound
+    # by the host's launch)
+    n = torch.arange(B, dtype=torch.int32, device=dev)
+    tk.threefry_uniforms(key, n, count, 0)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(100):
+            tk.threefry_uniforms(key, n, count, 0)
+    device_ms = time_cuda(graph.replay)[0] / 100
+    lib = tk._library()
+    print(f"[T1] bit-equal to the plain version in {cases} cases (max abs "
+          f"err {err}) and to the CPU's; {lib.gst_threefry_block()} lanes a "
+          f"block, {t1_instructions} SASS instructions a lane at "
+          f"{B} x {count}, bound {bound_ms} ms ({bound_by}); {ms[T1]} ms a "
+          f"call, {device_ms} ms of device time (CUDA-graph replay), "
+          f"against the plain version's {ms[T1 + '_plain']} ms "
+          f"({ms[T1 + '_plain'] / ms[T1]}x) | {card}")
+    return err, ms, (B, nbytes)
+
+
+def engine_phase(torch, dev, card):
+    """Phase 41: the threefry engine: ``batch.init`` then 64 steps of
+    ``rollout`` with ``random_policy_fn`` at 8192 lanes on 5x4 and 11x7,
+    every StepOut field and the final state equal to the same call on the
+    CPU bit for bit."""
+    from gym_soccer_tpu_torch.config import EnvConfig
+    from gym_soccer_tpu_torch.core import batch, threefry
+    for w, h in BOARDS:
+        cfg = EnvConfig(width=w, height=h, slip_prob=SLIP)
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            st = batch.init(cfg, threefry.key(5), B, d)
+            pol = batch.random_policy_fn(cfg, threefry.key(6), B)
+            runs.append(batch.rollout(cfg, st, pol, 64))
+        (gend, gout), (cend, cout) = runs
+        check(all(torch.equal(a.cpu(), b) for a, b in
+                  zip((*gend, *gout), (*cend, *cout))),
+              f"threefry engine differs CUDA vs CPU on {w}x{h}")
+        print(f"[engine] threefry {w}x{h} B={B} x 64 steps (init, "
+              f"random_policy_fn, rollout): CUDA == CPU in every field; "
+              f"goals {int(gout.done.sum())}, truncations "
+              f"{int(gout.truncated.sum())}")
+
+
+def learning_checks(torch, dev, card):
+    """Phase 42: the JAX package's learning checks on the card at their
+    own sizes and thresholds, each with its wall seconds:
+    tests/test_learners.py:48 (IQL self-play: goals > truncations), :73
+    (minimax-Q: |v| <= 1 + 1e-3, max |v| > 0.05, pi rows sum to 1), :87
+    (IQL against a frozen random B: B untouched, win share > 0.9), :130
+    (turn-based Q: mean |V - V*| < 0.08, > 95 % wins against random through
+    the threefry alt_policy_rollout), :159 (against a frozen standing B),
+    and tests/test_multigrid.py:206 (mixture slices match); each trains
+    ``learners.GROUP_STEPS`` steps a CUDA-graph replay (single steps are
+    host-bound at ~600 launches a step)."""
+    import numpy as np
+    from gym_soccer_tpu_torch.agents import learners as L
+    from gym_soccer_tpu_torch.config import EnvConfig
+    from gym_soccer_tpu_torch.core import batch, threefry
+    from gym_soccer_tpu_torch.envs import soccer_alternating_env as alt
+    from gym_soccer_tpu_torch.utils.policies import get_random_policy_array
+    cfg = EnvConfig(5, 4, 0.2)
+    key = threefry.key
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        msg = fn()
+        torch.cuda.synchronize()
+        print(f"[learning] {label}: {msg}; {time.perf_counter() - t0} s "
+              f"| {card}")
+
+    def greedy_rollout(pol, seed, lanes, steps):
+        st = batch.init(cfg, key(seed), lanes, dev)
+        return batch.rollout(cfg, st, lambda obs, i: pol(obs.long()),
+                             steps)[1]
+
+    def iql():
+        st = L.iql_init(cfg, key(0), 512, dev)
+        st, _ = L.iql_train(cfg, L.IQLConfig(lr=0.5, eps=0.25), st, 6000)
+        qmax = float(st.q_a.abs().max())
+        check(qmax > 0.3, f"IQL: Q never moved ({qmax})")
+        out = greedy_rollout(lambda o: (st.q_a[o].argmax(-1),
+                                        st.q_b[o].argmax(-1)), 3, 512, 200)
+        goals, truncs = int(out.done.sum()), int(out.truncated.sum())
+        check(goals > truncs, f"IQL: {goals} goals vs {truncs} truncations")
+        return (f"test_learners.py:48 IQL 512 x 6000: max |Q_a| {qmax}, "
+                f"greedy self-play {goals} goals > {truncs} truncations")
+
+    def minimax():
+        st = L.minimax_init(cfg, key(0), 512, dev)
+        st, _ = L.minimax_train(cfg, L.MinimaxQConfig(lr=0.2,
+                                                      resolve_every=16),
+                                st, 2000)
+        v, pi = st.v.abs(), st.pi_a
+        check(float(v.max()) <= 1.0 + 1e-3 and float(v.max()) > 0.05
+              and bool(((pi.sum(-1) - 1).abs() <= 1e-3).all())
+              and bool((pi >= -1e-6).all()),
+              f"minimax-Q: max |v| {float(v.max())}")
+        return (f"test_learners.py:73 minimax-Q 512 x 2000: max |v| "
+                f"{float(v.max())}, pi rows sum to 1")
+
+    def iql_frozen():
+        frozen_b = get_random_policy_array(761, 5, seed=42)
+        st = L.iql_init(cfg, key(0), 512, dev)
+        st, _ = L.iql_train(cfg, L.IQLConfig(lr=0.5, eps=0.25), st, 8000,
+                            frozen_b=frozen_b)
+        check(float(st.q_b.abs().max()) == 0.0, "frozen side learned")
+        fb = torch.as_tensor(frozen_b, device=dev).long()
+        out = greedy_rollout(lambda o: (st.q_a[o].argmax(-1), fb[o]), 9,
+                             512, 300)
+        wins = int(((out.reward_a > 0) & out.done).sum())
+        share = wins / int((out.done | out.truncated).sum())
+        check(share > 0.9, f"IQL vs frozen B: win share {share}")
+        return (f"test_learners.py:87 IQL vs frozen random B 512 x 8000: "
+                f"q_b untouched, win share {share} > 0.9")
+
+    def altq(frozen):
+        tb = alt.build_alt_tables(cfg)
+        stand = np.zeros(tb.nS, dtype=np.int32)
+        kw = {} if frozen is None else {"frozen_b": stand}
+        n = 15000 if frozen is None else 12000
+        st = L.altq_init(cfg, key(0 if frozen is None else 1), 256, dev)
+        for lr, eps in ((0.25, 0.3), (0.08, 0.15)):
+            st, _ = L.altq_train(cfg, L.AltQConfig(lr=lr, gamma=0.99,
+                                                   eps=eps), st, n,
+                                 **kw)
+        q = st.q.cpu().numpy()
+        turn = tb.turn
+        pol = L.altq_greedy_policy(cfg, st.q).cpu().numpy()
+        if frozen is None:
+            V_star = alt.alt_value_iteration(tb)[1]
+            err = float(np.abs(np.where(turn == 0, q.max(-1), q.min(-1))
+                               - V_star).mean())
+            opp, seed = np.random.RandomState(0).randint(
+                0, 5, tb.nS).astype(np.int32), 6
+        else:
+            V_br = alt.alt_value_iteration(tb, frozen_b=stand)[1]
+            b_rows = turn == 1
+            b_rows[0] = False
+            check((q[b_rows][:, 1:] == 0.0).all()
+                  and (q[b_rows][:, 0] != 0.0).any(),
+                  "turn-based Q: frozen B rows")
+            visited = (q != 0.0).any(-1)
+            visited[0] = False
+            check(visited.sum() > 50, "turn-based Q: too few states visited")
+            V_l = np.where(turn == 0, q.max(-1), q[np.arange(tb.nS), stand])
+            err = float(np.abs(V_l - V_br)[visited].mean())
+            opp, seed = stand, 3
+        w, lo, tr = alt.alt_policy_rollout(cfg, tb.raw_to_dense, pol, opp,
+                                           batch=128, steps=300, seed=seed,
+                                           device=dev)
+        check(err < 0.08 and w > 0 and w / max(w + lo, 1) > 0.95,
+              f"turn-based Q ({frozen}): err {err}, wins {w}, losses {lo}")
+        return (f"test_learners.py:{130 if frozen is None else 159} "
+                f"turn-based Q 256 x {2 * n}"
+                f"{'' if frozen is None else ' vs frozen standing B'}: mean "
+                f"|V - V*| {err} < 0.08, alt_policy_rollout (threefry) wins "
+                f"{w}, losses {lo}, truncations {tr}: share "
+                f"{w / max(w + lo, 1)} > 0.95")
+
+    def mixture():
+        mcfg = L.MinimaxQConfig(resolve_every=32, solver_iters=50)
+        nS = 761
+
+        def corr(a, b):
+            m = (np.abs(a) > 0) & (np.abs(b) > 0)
+            return np.corrcoef(a[m], b[m])[0, 1]
+
+        cfgs = (cfg, cfg)
+        st = L.multigrid_minimax_init(cfgs, key(7), 512, dev)
+        st, _ = L.multigrid_minimax_train(cfgs, mcfg, st, 2000)
+        q, v = st.q.cpu().numpy(), st.v.cpu().numpy()
+        ca, cv = corr(q[:nS], q[nS:]), np.corrcoef(v[:nS], v[nS:])[0, 1]
+        cfgs2 = (cfg, EnvConfig(6, 4, 0.1))
+        st2 = L.multigrid_minimax_init(cfgs2, key(8), 512, dev)
+        st2, _ = L.multigrid_minimax_train(cfgs2, mcfg, st2, 2000)
+        sg = L.minimax_init(cfg, key(9), 256, dev)
+        sg, _ = L.minimax_train(cfg, mcfg, sg, 2000)
+        cb = corr(st2.q.cpu().numpy()[:nS], sg.q.cpu().numpy())
+        cvb = np.corrcoef(st2.v.cpu().numpy()[:nS], sg.v.cpu().numpy())[0, 1]
+        check(ca > 0.75 and cv > 0.9 and cb > 0.75 and cvb > 0.9,
+              f"mixture slices: {ca} {cv} {cb} {cvb}")
+        return (f"test_multigrid.py:206 mixture slices: same-variant q corr "
+                f"{ca} > 0.75, v corr {cv} > 0.9; 5x4 in 5x4+6x4 against "
+                f"one board: q corr {cb} > 0.75, v corr {cvb} > 0.9")
+
+    timed("IQL self-play", iql)
+    timed("minimax-Q", minimax)
+    timed("IQL vs frozen", iql_frozen)
+    timed("turn-based Q", lambda: altq(None))
+    timed("turn-based Q vs frozen", lambda: altq("b"))
+    timed("mixture minimax-Q", mixture)
+
+
+def entry_cli_phase(torch, dev, card):
+    """Phase 43: the entry point through ``python -m``: the default mode
+    at full width (its finished line's exploitability and its
+    eval_episode_stats printed); ``--fused --steps 1280`` stopped at 640
+    and resumed from ``--ckpt``, bit-identical in q, v, pi, n and the
+    fields to one uninterrupted ``fused_minimax_train`` with the first
+    segment's anneal anchor; ``--best-response player_a``."""
+    import tempfile
+    from gym_soccer_tpu_torch.config import EnvConfig
+    from gym_soccer_tpu_torch.ops import learner_kernel as lk
+    from gym_soccer_tpu_torch.utils import checkpoint
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def run(*args):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "gym_soccer_tpu_torch.examples."
+             "train_minimax", *args], cwd=root, capture_output=True,
+            text=True, timeout=600)
+        check(proc.returncode == 0, f"train_minimax {args} exited "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        lines = json_lines(proc.stdout)
+        print(f"[entry cli] train_minimax {' '.join(args)}: "
+              f"{time.perf_counter() - t0} s (host clock, a fresh process)")
+        return lines
+
+    lines = run(*ENTRY)
+    fin = [ln for ln in lines if ln.get("event") == "finished"]
+    ev = [ln for ln in lines if ln.get("event") == "eval_episode_stats"]
+    check(len(fin) == 1 and len(ev) == 1, "default mode: no finished line")
+    print(f"[entry cli] default mode: exploitability "
+          f"{fin[0]['exploitability']}, {fin[0]['env_steps_per_s']} "
+          f"env-steps/s; eval_episode_stats {ev[0]} | {card}")
+    build = os.path.join(root, "build", "gym_soccer_tpu_torch")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        ckpt = os.path.join(tmp, "fused.npz")
+        for steps in FUSED_STEPS:
+            lines = run("--fused", "--steps", str(steps), "--ckpt", ckpt)
+        events = [ln.get("event") for ln in lines]
+        check(events[:2] == ["resumed_fused", "checkpointed"],
+              f"--fused resume: {events}")
+        cfg = EnvConfig(5, 4, SLIP)
+        n1 = FUSED_STEPS[0] // 64
+        *_, res = lk.fused_minimax_train(
+            cfg, batch=8192, n_chunks=FUSED_STEPS[1] // 64, chunk_len=64,
+            lr=1.0, eps=0.2, lr_anneal_start=n1 // 2, lr_anneal_tau=25.0,
+            lr_anneal_pow=1.5, final_solver_iters=2000, return_state=True,
+            device=dev)
+        saved = checkpoint.load_pytree(ckpt, dict(res, lr_anneal_start=0))
+        same = all(torch.equal(saved[k], res[k])
+                   for k in ("q", "v", "pi_a", "pi_b", "n")) and all(
+            torch.equal(a, b) for a, b in zip(saved["fields"],
+                                              res["fields"]))
+        check(same and saved["next_chunk"] == res["next_chunk"],
+              "--fused resumed from --ckpt differs from one run")
+    fin = [ln for ln in lines if ln.get("event") == "finished_fused"][0]
+    print(f"[entry cli] --fused {FUSED_STEPS[0]} + resume to "
+          f"{FUSED_STEPS[1]} from --ckpt: bit-identical to one run of "
+          f"{FUSED_STEPS[1] // 64} chunks (q, v, pi, n, fields); "
+          f"exploitability {fin['exploitability']} | {card}")
+    lines = run("--best-response", "player_a")
+    br = [ln for ln in lines if ln.get("event") == "finished_best_response"]
+    ev = [ln for ln in lines if ln.get("event") == "eval_episode_stats"]
+    check(len(br) == 1 and len(ev) == 1
+          and math.isfinite(br[0]["mean_gap_to_exact_br"])
+          and ev[0]["episodes"] > 0, f"--best-response: {lines}")
+    print(f"[entry cli] --best-response player_a: {br[0]}; "
+          f"eval_episode_stats {ev[0]} | {card}")
+
+
+def vector_env_phase(torch, dev, card):
+    """Phase 44: ``SoccerVectorEnv`` at 8192 envs for 1000 random-action
+    steps on the card and on the CPU from the same seed (slip 0.2, with a
+    reseed at step 500): every observation, reward, flag and info equal."""
+    import numpy as np
+    from gym_soccer_tpu_torch.envs import SoccerVectorEnv
+    envs = [SoccerVectorEnv(B, slip_prob=SLIP, seed=3, device=d)
+            for d in (dev, "cpu")]
+    rng = np.random.RandomState(0)
+    walls = [0.0, 0.0]
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return set(a) == set(b) and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, tuple):
+            return all(same(x, y) for x, y in zip(a, b))
+        return a.dtype == b.dtype and np.array_equal(a, b)
+
+    ended = 0
+    for k in range(1000):
+        if k % 500 == 0:
+            outs = [e.reset(seed=None if k == 0 else 17) for e in envs]
+            check(same(*outs), f"vector env reset {k} differs")
+        acts = {a: rng.randint(0, 5, B) for a in envs[0].agents}
+        outs = []
+        for i, e in enumerate(envs):
+            t0 = time.perf_counter()
+            outs.append(e.step(acts))
+            walls[i] += time.perf_counter() - t0
+        check(same(*outs), f"vector env step {k} differs CUDA vs CPU")
+        ended += int(outs[0][2]["player_a"].sum())
+    stats = envs[0].episode_stats
+    print(f"[vector env] SoccerVectorEnv {B} envs x 1000 steps: CUDA == CPU "
+          f"in every return value; {ended} goals; episode stats since the "
+          f"reseed {[float(x) for x in stats]}; step wall {walls[0]} s on "
+          f"the card, {walls[1]} s on the CPU (host clock) | {card}")
+
+
+def graph_phase(torch, dev, card):
+    """Phase 45: the HBM-table learners' grouped path on the card (steps as
+    CUDA-graph replays, each step's lr and eps read from the schedule
+    table at the device's step counter, the carry written back, the
+    re-solve on each period's last step) against the same call on the CPU,
+    both from one state.  At GRAPH_LANES lanes, from the state after
+    GRAPH_START steps, GRAPH_STEPS steps of minimax-Q (lr and eps
+    halflives), IQL, turn-based Q against a frozen standing B and mixture
+    minimax-Q on 5x4+6x5: every leaf and every step's |TD| bit-equal, T1
+    launched a single step's count each step and R1 once a period.  At
+    GRAPH_WIDE lanes, one 64-step minimax-Q period from step 0 (one replay,
+    the re-solve on its last step): pi is uniform until then, so the env
+    fields and the visit counts equal the CPU's exactly; q and each step's
+    |TD| within GRAPH_TOL * (1 + |x|), v and pi within GRAPH_SOLVE_TOL."""
+    import numpy as np
+    from gym_soccer_tpu_torch.agents import learners as L
+    from gym_soccer_tpu_torch.config import EnvConfig
+    from gym_soccer_tpu_torch.core import threefry
+    from gym_soccer_tpu_torch.envs import soccer_alternating_env as alt
+    from gym_soccer_tpu_torch.ops import threefry_kernel as tk
+    cfg = EnvConfig(5, 4, SLIP)
+    mix = (cfg, EnvConfig(6, 5, SLIP))
+    cpu, key = torch.device("cpu"), threefry.key
+
+    def to(state, d):
+        return L._rebuild(state, [t.to(d) for t in L._tensors(state)])
+
+    def reset():
+        torch.cuda.synchronize()
+        tk.reset_launch_counts()
+        L.reset_launch_counts()
+
+    mc = L.MinimaxQConfig(lr=0.3, resolve_every=16, solver_iters=50,
+                          lr_halflife=40, eps_halflife=30, eps_min=0.05)
+    ic, ac = L.IQLConfig(lr=0.5, eps=0.25), L.AltQConfig()
+    stand = np.zeros(alt.build_alt_tables(cfg).nS, np.int32)
+    runs = {
+        "minimax-Q": (L.minimax_init(cfg, key(0), GRAPH_LANES, cpu),
+                      lambda s, n: L.minimax_train(cfg, mc, s, n), 16),
+        "IQL": (L.iql_init(cfg, key(1), GRAPH_LANES, cpu),
+                lambda s, n: L.iql_train(cfg, ic, s, n), 0),
+        "turn-based Q vs frozen B": (
+            L.altq_init(cfg, key(2), GRAPH_LANES, cpu),
+            lambda s, n: L.altq_train(cfg, ac, s, n, frozen_b=stand), 0),
+        "mixture minimax-Q 5x4+6x5": (
+            L.multigrid_minimax_init(mix, key(3), GRAPH_LANES, cpu),
+            lambda s, n: L.multigrid_minimax_train(mix, mc, s, n), 16),
+    }
+    steps = range(GRAPH_START, GRAPH_START + GRAPH_STEPS)
+    for name, (st, train, period) in runs.items():
+        st, _ = train(st, GRAPH_START)
+        reset()
+        train(to(st, dev), 1)
+        torch.cuda.synchronize()
+        per_step = tk.launch_counts[T1]
+        reset()
+        t0 = time.perf_counter()
+        got, gtd = train(to(st, dev), GRAPH_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t1, r1 = tk.launch_counts[T1], L.launch_counts[RMPLUS]
+        want, wtd = train(st, GRAPH_STEPS)
+        leaves = list(zip(L._tensors(got), L._tensors(want)))
+        bad = [i for i, (x, y) in enumerate(leaves)
+               if not torch.equal(x.cpu(), y)]
+        resolves = sum(1 for s in steps if period and s % period == period - 1)
+        check(not bad and torch.equal(gtd.cpu(), wtd),
+              f"{name}: the graph run differs from the CPU's in leaves {bad} "
+              f"(max abs err {max_abs_err(leaves)}) or in |TD|")
+        check(per_step > 0 and t1 == per_step * GRAPH_STEPS
+              and r1 == resolves,
+              f"{name}: T1 launched {t1} times (not {per_step} x "
+              f"{GRAPH_STEPS}), R1 {r1} (not {resolves})")
+        group = -(-L.GROUP_STEPS // max(period, 1)) * max(period, 1)
+        print(f"[graph] {name} {GRAPH_LANES} lanes, steps {steps.start}-"
+              f"{steps.stop - 1} (replays of {group} steps, with the steps "
+              f"around them on their own): all {len(leaves)} leaves "
+              f"and every step's |TD| equal the CPU's bit for bit; T1 "
+              f"{t1} launches, R1 {r1}; {wall} s on the card | {card}")
+
+    wide = L.MinimaxQConfig(lr=0.3, resolve_every=64, solver_iters=200,
+                            lr_halflife=400, eps_halflife=667)
+    st = L.minimax_init(cfg, key(4), GRAPH_WIDE, cpu)
+    got, gtd = L.minimax_train(cfg, wide, to(st, dev), 64)
+    want, wtd = L.minimax_train(cfg, wide, st, 64)
+
+    def rel(a, b):
+        return float(((a.cpu() - b).abs() / (1 + b.abs())).max())
+
+    env_same = all(torch.equal(x.cpu(), y) for x, y in
+                   zip(L._tensors(got.env), L._tensors(want.env)))
+    eq, etd = rel(got.q, want.q), rel(gtd, wtd)
+    ev = float((got.v.cpu() - want.v).abs().max())
+    epi = max(float((got.pi_a.cpu() - want.pi_a).abs().max()),
+              float((got.pi_b.cpu() - want.pi_b).abs().max()))
+    print(f"[graph] minimax-Q {GRAPH_WIDE} lanes, one 64-step period (one "
+          f"replay, the re-solve on step 63): env fields equal "
+          f"{env_same}, visit counts equal {torch.equal(got.n.cpu(), want.n)}"
+          f"; max |dq| / (1 + |q|) {eq}, max |d|TD|| / (1 + |TD|) {etd}, "
+          f"max |dv| {ev}, max |dpi| {epi}; q changed in "
+          f"{int((want.q != 0).sum())} cells | {card}")
+    check(env_same and torch.equal(got.n.cpu(), want.n)
+          and eq <= GRAPH_TOL and etd <= GRAPH_TOL
+          and ev <= GRAPH_SOLVE_TOL and epi <= GRAPH_SOLVE_TOL
+          and int(got.step) == 64,
+          f"minimax-Q {GRAPH_WIDE} lanes: the graph run differs from the "
+          f"CPU's beyond the tolerances")
 
 
 def profile_window(torch, fn, label, kernel, card, calls=20):

@@ -15,20 +15,31 @@ Layers (module paths mirror gym_soccer_tpu's):
   core/rules.py    branchless game rules over numpy or torch
   core/tables.py   host-side state-space indexing and transition tensors
                    (numpy or the native builder)
-  core/batch.py    batched engine on tensors, counter RNG
-  core/multigrid.py  mixed-geometry codec and per-lane board geometry
+  core/threefry.py jax.random's threefry2x32 (key, fold_in, split, bits,
+                   uniform, randint), bit-equal
+  core/batch.py    batched engine on tensors, threefry (default; kernel
+                   T1 on the card) or counter RNG
+  core/invariants.py  state invariants and a checked step
+  core/multigrid.py  mixed-geometry codec, per-lane board geometry and
+                   the threefry engine
   core/mt19937.py  the reference's MT19937 on tensors
   core/parity.py   bit-exact reference trajectories (float64 thresholds)
   envs/soccer_simultaneous_env.py  the reference-compatible facade
                    ``SoccerSimultaneousEnv`` (host numpy, a copy)
   envs/soccer_alternating_env.py  the alternating-turn game: tables, exact
-                   value iteration (numpy and torch), a policy rollout and
-                   the single-env facade
-  agents/          RM+ matrix-game solver, the alternating game's greedy
+                   value iteration (numpy and torch), the threefry engine,
+                   a policy rollout and the single-env facade
+  envs/vector_env.py  SoccerVectorEnv, the gym.vector-style facade
+  agents/          RM+ matrix-game solver, the HBM-table learners (IQL,
+                   minimax-Q, turn-based Q), the alternating game's greedy
                    policy; Shapley iteration, best response and
                    exploitability; the DP planners (VI/PI/MPI in numpy,
                    ``value_iteration_torch``)
   utils/policies.py  policy factories and persistence (a copy)
+  utils/metrics.py, profiling.py, checkpoint.py  episode stats, timers and
+                   traces, .npz checkpoints (reads the JAX package's)
+  examples/        train_minimax (the entry point) and demo
+  ops/threefry_kernel.py  per-lane threefry draws (CUDA T1)
   ops/step_kernel.py     fused, journaled, mixed-geometry and alternating
                          random rollouts (CUDA K1, K2, K3, K4)
   ops/rollout_codes.py   K1/K2's and K4's two stages on the host: step

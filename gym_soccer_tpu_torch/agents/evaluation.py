@@ -189,10 +189,10 @@ def greedy_win_share(cfg: EnvConfig, pol_a, pol_b, lanes: int = 2048,
     device = torch.device(device)
     key_words = np.random.default_rng(seed).integers(
         0, 2 ** 32, (lanes, 2), dtype=np.uint64)
-    state = batch.init_from_keys(cfg, key_words, device)
+    state = batch.init_from_keys(cfg, key_words, device, rng="counter")
     pa = torch.as_tensor(pol_a, device=device).long()
     pb = torch.as_tensor(pol_b, device=device).long()
     _, out = batch.rollout(cfg, state,
                            lambda obs, i: (pa[obs.long()], pb[obs.long()]),
-                           steps)
+                           steps, rng="counter")
     return win_share(out)

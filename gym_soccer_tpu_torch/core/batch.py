@@ -10,13 +10,19 @@ the dense-observation lookup.  The factored sampler (slip variant per
 player, then outcome slot) draws from the same joint distribution as the
 reference's 36-entry categorical.
 
-RNG: the counter generator only (the JAX package's ``rng="counter"``).
-Each env instance carries its per-instance key as two uint32 key words
-(held in int64) and a monotonic draw counter ``n``; a step's uniforms are
-a murmur3 hash of (key words, n, word index, salt).  Given the same key
-words (``jax.random.key_data`` of the JAX package's keys) and counters,
-every function here equals the JAX package's ``rng="counter"`` path bit
-for bit.  The JAX package's default threefry generator is not ported.
+RNG: each env instance carries its per-instance key as two uint32 key
+words (held in int64, core/threefry) and a monotonic draw counter ``n``.
+Every function that draws takes JAX's ``rng=`` argument:
+
+* ``"threefry"`` (the default, as in the JAX package): a step's uniforms
+  are ``uniform(fold_in(fold_in(key_i, n_i), salt), (count,))``; on a CUDA
+  tensor kernel T1 (ops/threefry_kernel) computes them;
+* ``"counter"``: a murmur3 hash of (key words, n, word index, salt), the
+  stream of the fused kernels.
+
+Given the same key words (``jax.random.key_data`` of the JAX package's
+keys) and counters, every function here equals the JAX package's under
+the same ``rng`` bit for bit.
 """
 from __future__ import annotations
 
@@ -27,8 +33,9 @@ import numpy as np
 import torch
 
 from ..config import EnvConfig
+from ..ops import threefry_kernel
 from ..ops.step_kernel import M32, _fmix32, _mul32
-from . import rules, tables
+from . import rules, tables, threefry
 
 
 class EnvState(NamedTuple):
@@ -70,33 +77,51 @@ def device_maps(cfg: EnvConfig, device: torch.device) -> DeviceMaps:
     )
 
 
-def init_from_keys(cfg: EnvConfig, key_words, device) -> EnvState:
-    """Initialize from explicit per-instance key words [B, 2] (uint32
-    values, e.g. ``jax.random.key_data`` of the JAX package's per-instance
-    keys), resetting every instance with the counter RNG.
+def init(cfg: EnvConfig, key: torch.Tensor, batch: int,
+         device="cuda") -> EnvState:
+    """Per-instance keys and initial states on ``device``: instance i's
+    key is ``fold_in(key, i)`` (``key``: one key, core/threefry), and every
+    instance resets with threefry."""
+    key = threefry.wrap_key_data(key, device)
+    keys = threefry.fold_in(key, torch.arange(batch, device=key.device))
+    return init_from_keys(cfg, keys, device)
 
-    The JAX package's ``batch.init_from_keys`` resets with threefry, which
-    is not ported; this function's counterpart there is
-    ``batch._reset_where(cfg, state, ones, rng="counter")`` on a zero state
-    holding the same keys.
-    """
-    key = torch.as_tensor(np.asarray(key_words, dtype=np.int64),
-                          device=device)
+
+def init_from_keys(cfg: EnvConfig, key_words, device="cuda",
+                   rng: str = "threefry") -> EnvState:
+    """Initialize from explicit per-instance key words [B, 2] (uint32
+    values: a tensor, or e.g. ``jax.random.key_data`` of the JAX package's
+    per-instance keys as numpy), resetting every instance with ``rng``.
+
+    With ``rng="threefry"`` this is the JAX package's
+    ``batch.init_from_keys``; with ``"counter"`` its
+    ``_reset_where(cfg, state, ones, rng="counter")`` on a zero state
+    holding the same keys."""
+    key = threefry.wrap_key_data(key_words, device)
     if key.ndim != 2 or key.shape[1] != 2:
         raise ValueError(f"key_words must be [B, 2], got {tuple(key.shape)}")
-    zeros = torch.zeros(key.shape[0], dtype=torch.int32, device=device)
+    zeros = torch.zeros(key.shape[0], dtype=torch.int32, device=key.device)
     st = EnvState(zeros, zeros, zeros, zeros, zeros, t=zeros, n=zeros,
                   key=key)
-    return _reset_where(cfg, st, torch.ones_like(zeros, dtype=torch.bool))
+    return _reset_where(cfg, st, torch.ones_like(zeros, dtype=torch.bool),
+                        rng=rng)
 
 
-def per_env_uniforms(state: EnvState, count: int,
-                     salt: int = 0) -> torch.Tensor:
-    """float32 [B, count] uniforms on a 2**-24 grid from (key_i, n_i, salt).
+def per_env_uniforms(state: EnvState, count: int, salt: int = 0,
+                     rng: str = "threefry") -> torch.Tensor:
+    """float32 [B, count] uniforms from (key_i, n_i, salt).
 
     ``salt`` separates independent consumer streams (0 = the env
-    transition itself; policies use nonzero salts).  Both 32-bit key words
-    enter the hash, at separate stages."""
+    transition itself; learners and policies use nonzero salts).
+    ``rng="threefry"``: ``threefry_kernel.threefry_uniforms`` (kernel T1
+    on a CUDA tensor); ``"counter"``: 24-bit uniforms of a murmur3 hash
+    into which both 32-bit key words enter, at separate stages."""
+    if rng == "threefry":
+        return threefry_kernel.threefry_uniforms(state.key, state.n, count,
+                                                 salt)
+    if rng != "counter":
+        raise ValueError(f"unknown rng mode {rng!r} "
+                         "(expected 'threefry' or 'counter')")
     base = state.key[:, 0]
     base2 = _fmix32(state.key[:, 1] ^ 0x3C6EF372)
     n = state.n.to(torch.int64) & M32
@@ -118,10 +143,10 @@ def _sample_isd(cfg: EnvConfig, u: torch.Tensor):
     return maps.isd_fields[i].unbind(-1)
 
 
-def _reset_where(cfg: EnvConfig, state: EnvState,
-                 mask: torch.Tensor) -> EnvState:
+def _reset_where(cfg: EnvConfig, state: EnvState, mask: torch.Tensor,
+                 rng: str = "threefry") -> EnvState:
     """Re-sample initial states for masked instances (consumes one draw)."""
-    u = per_env_uniforms(state, 1)[:, 0]
+    u = per_env_uniforms(state, 1, rng=rng)[:, 0]
     ra, ca, rb, cb, p = _sample_isd(cfg, u)
     pick = lambda new, old: torch.where(mask, new, old)  # noqa: E731
     return EnvState(
@@ -169,13 +194,13 @@ def _slipped_move_arith(a: torch.Tensor, variant: torch.Tensor):
 
 
 def step(cfg: EnvConfig, state: EnvState, actions_a: torch.Tensor,
-         actions_b: torch.Tensor,
-         autoreset: bool = True) -> tuple[EnvState, StepOut]:
+         actions_b: torch.Tensor, autoreset: bool = True,
+         rng: str = "threefry") -> tuple[EnvState, StepOut]:
     """One lockstep transition for the whole batch.
 
     Factored sampling: slip variant per player, then one categorical over
     the <=4 collision outcome slots."""
-    u = per_env_uniforms(state, 4)
+    u = per_env_uniforms(state, 4, rng=rng)
     actions_a = actions_a.to(torch.int32)
     actions_b = actions_b.to(torch.int32)
 
@@ -231,7 +256,8 @@ def step(cfg: EnvConfig, state: EnvState, actions_a: torch.Tensor,
                    poss=npz, t=t_next, n=state.n + 1, key=state.key)
     final_obs = observe(cfg, mid)
 
-    new_state = _reset_where(cfg, mid, done | truncated) if autoreset else mid
+    new_state = (_reset_where(cfg, mid, done | truncated, rng=rng)
+                 if autoreset else mid)
     return new_state, StepOut(obs=observe(cfg, new_state),
                               reward_a=reward_a, done=done,
                               truncated=truncated, final_obs=final_obs,
@@ -242,14 +268,14 @@ PolicyFn = Callable[[torch.Tensor, int], tuple[torch.Tensor, torch.Tensor]]
 
 
 def rollout(cfg: EnvConfig, state: EnvState, policy_fn: PolicyFn,
-            n_steps: int):
+            n_steps: int, rng: str = "threefry"):
     """``policy_fn(obs, i) -> (actions_a, actions_b)`` for steps
     i = 0 .. n_steps-1.  Returns the final state and the StepOut
     trajectory stacked to [T, B] per field."""
     outs = []
     for i in range(n_steps):
         aa, ab = policy_fn(observe(cfg, state), i)
-        state, out = step(cfg, state, aa, ab)
+        state, out = step(cfg, state, aa, ab, rng=rng)
         outs.append(out)
     return state, StepOut(*(torch.stack(f) for f in zip(*outs)))
 
@@ -274,29 +300,45 @@ def _zero_stats(device) -> RolloutStats:
 
 
 def rollout_stats(cfg: EnvConfig, state: EnvState, policy_fn: PolicyFn,
-                  n_steps: int):
+                  n_steps: int, rng: str = "threefry"):
     """``rollout`` that accumulates summary statistics instead of stacking
     per-step outputs.  Returns (final_state, RolloutStats)."""
     acc = _zero_stats(state.t.device)
     for i in range(n_steps):
         aa, ab = policy_fn(observe(cfg, state), i)
-        state, out = step(cfg, state, aa, ab)
+        state, out = step(cfg, state, aa, ab, rng=rng)
         acc = _accumulate(acc, out)
     return state, acc
+
+
+def random_policy_fn(cfg: EnvConfig, key: torch.Tensor, batch: int):
+    """Uniform-random joint policy: step i's actions are
+    ``randint(fold_in(key, i), (2, batch), 0, 5)`` (int32), on the
+    observations' device."""
+    on = {}   # the key on each device it was asked on
+
+    def fn(obs, i):
+        if obs.device not in on:
+            on[obs.device] = key.to(obs.device)
+        k = threefry.fold_in(on[obs.device], i)
+        acts = threefry.randint(k, (2, batch), 0, 5)
+        return acts[0], acts[1]
+    return fn
 
 
 _POLICY_SALT = 9
 
 
-def random_rollout_stats(cfg: EnvConfig, state: EnvState, n_steps: int):
+def random_rollout_stats(cfg: EnvConfig, state: EnvState, n_steps: int,
+                         rng: str = "threefry"):
     """Random-vs-random rollout accumulating stats only: actions come from
     the per-instance stream (salted so they never correlate with the
     transition draws).  Returns (state, RolloutStats)."""
     acc = _zero_stats(state.t.device)
     for _ in range(n_steps):
-        u = per_env_uniforms(state, 2, salt=_POLICY_SALT)
+        u = per_env_uniforms(state, 2, salt=_POLICY_SALT, rng=rng)
         aa = (u[:, 0] * 5).to(torch.int32).clamp(max=4)
         ab = (u[:, 1] * 5).to(torch.int32).clamp(max=4)
-        state, out = step(cfg, state, aa, ab)
+        state, out = step(cfg, state, aa, ab, rng=rng)
         acc = _accumulate(acc, out)
     return state, acc

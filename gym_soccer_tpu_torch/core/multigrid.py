@@ -1,21 +1,18 @@
-"""Mixed-geometry batches: per-lane board geometry and the observation
-codec over a mixture of boards.
+"""Mixed-geometry batches: a mixture of board geometries in one batch.
 
-The port of gym_soccer_tpu/core/multigrid.py's host and codec parts.  A
-mixture is a tuple of EnvConfigs; each lane plays on its own variant, and
-its geometry (height, width, goal rows, slip) is per-lane data that
-core/rules takes where it takes an EnvConfig.  ``build_codec`` gives each
-variant's dense state index and its block in tables concatenated over the
-variants; ``dense_obs`` and ``global_obs`` map lanes' state fields to them.
+The port of gym_soccer_tpu/core/multigrid.py.  A mixture is a tuple of
+EnvConfigs; each lane plays on its own variant, and its geometry (height,
+width, goal rows, slip) is per-lane data that core/rules takes where it
+takes an EnvConfig.  ``build_codec`` gives each variant's dense state
+index and its block in tables concatenated over the variants;
+``dense_obs`` and ``global_obs`` map lanes' state fields to them.
 
-Not ported yet: the threefry-driven engine, ``init``, ``uniforms``,
-``reset_where``, ``step`` and ``rollout`` (ROADMAP Queue 1 item 16).  JAX's
-``multigrid.step`` draws its uniforms from per-instance threefry keys with
-no counter switch (``uniforms`` passes no ``rng``, so
-``batch.per_env_uniforms`` takes its threefry default), and the port has
-no threefry yet, so those functions have no bit oracle.  The fused
-mixed-geometry kernels (ops/step_kernel ``multigrid_rollout``,
-ops/learner_kernel's tuple configs) use the counter PRNG and are ported.
+The engine (``MultiGridState``, ``init``, ``uniforms``, ``reset_where``,
+``step``, ``rollout``) draws from per-instance keys with JAX's threefry by
+default (``uniforms`` passes its ``rng`` to ``batch.per_env_uniforms``,
+kernel T1 on a CUDA tensor), and equals the JAX package's bit for bit.
+The fused mixed-geometry kernels (ops/step_kernel ``multigrid_rollout``,
+ops/learner_kernel's tuple configs) use the counter PRNG.
 """
 from __future__ import annotations
 
@@ -26,7 +23,8 @@ import numpy as np
 import torch
 
 from ..config import EnvConfig
-from . import rules, tables
+from . import batch as corebatch
+from . import rules, tables, threefry
 
 
 class LaneGeometry(NamedTuple):
@@ -62,6 +60,20 @@ def lane_geometry(cfgs: Sequence[EnvConfig], batch_size: int,
         max_steps=max_steps)
 
 
+class MultiGridState(NamedTuple):
+    """The mixed-geometry engine's state: the batch engine's eight leaves
+    (int32 [B] fields, int64 [B, 2] key words) and the lanes' geometry."""
+    rows_a: torch.Tensor
+    cols_a: torch.Tensor
+    rows_b: torch.Tensor
+    cols_b: torch.Tensor
+    poss: torch.Tensor
+    t: torch.Tensor
+    n: torch.Tensor
+    key: torch.Tensor
+    geo: LaneGeometry
+
+
 class MultiGridCodec(NamedTuple):
     """Per-variant dense observation codec over a mixed-geometry batch (the
     reference's dense indexing for one geometry, soccer_simultaneous_env.py
@@ -94,19 +106,24 @@ def _codec_on(cfgs: tuple, device: torch.device):
             torch.as_tensor(codec.offsets, device=device))
 
 
-def dense_obs(codec: MultiGridCodec, fields, geo: LaneGeometry):
+def dense_obs(codec: MultiGridCodec, fields, geo: LaneGeometry = None):
     """Per-lane dense observation under the lane's own variant (goal -> 0,
-    reachable -> enumeration-order index).  ``fields``: (ra, ca, rb, cb, p)
-    int32 [B] tensors; ``geo``: their lanes' geometry."""
+    reachable -> enumeration-order index).  ``fields``: a MultiGridState,
+    or (ra, ca, rb, cb, p) int32 [B] tensors with ``geo`` their lanes'
+    geometry."""
+    if geo is None:
+        geo = fields.geo
     ra, ca, rb, cb, p = fields[:5]
     raw = rules.raw_encode(torch, ra, ca, rb, cb, p, geo)
     r2d, _ = _codec_on(codec.cfgs, raw.device)
     return r2d[geo.vid.long(), raw.long()]
 
 
-def global_obs(codec: MultiGridCodec, fields, geo: LaneGeometry):
+def global_obs(codec: MultiGridCodec, fields, geo: LaneGeometry = None):
     """``offsets[vid] + dense_obs``: the index into learner tables
     concatenated over the variants."""
+    if geo is None:
+        geo = fields.geo
     _, offsets = _codec_on(codec.cfgs, geo.vid.device)
     return offsets[geo.vid.long()] + dense_obs(codec, fields, geo)
 
@@ -125,3 +142,103 @@ def _isd_fields(geo: LaneGeometry, u: torch.Tensor):
     row_b = torch.where(even, torch.where(swap, mid_lo, mid_hi), geo.H // 2)
     poss = idx % 2
     return row_a, torch.full_like(row_a, 2), row_b, geo.W - 3, poss
+
+
+def init(cfgs: Sequence[EnvConfig], key: torch.Tensor, batch_size: int,
+         device="cuda") -> MultiGridState:
+    """Lanes round-robin over ``cfgs`` on ``device``, lane i's key
+    ``fold_in(key, i)``, every lane reset with threefry."""
+    geo = lane_geometry(cfgs, batch_size, device=device)
+    key = threefry.wrap_key_data(key, device)
+    keys = threefry.fold_in(key, torch.arange(batch_size, device=key.device))
+    zeros = torch.zeros(batch_size, dtype=torch.int32, device=key.device)
+    st = MultiGridState(zeros, zeros, zeros, zeros, zeros, t=zeros, n=zeros,
+                        key=keys, geo=geo)
+    return _reset_where(st, torch.ones_like(zeros, dtype=torch.bool))
+
+
+def uniforms(st: MultiGridState, count: int, salt: int = 0,
+             rng: str = "threefry") -> torch.Tensor:
+    """Per-lane uniforms; ``salt`` separates consumer streams (a policy
+    sampling actions must use a nonzero salt, or its choices correlate
+    with the transition's draws, salt 0)."""
+    return corebatch.per_env_uniforms(corebatch.EnvState(*st[:8]), count,
+                                      salt=salt, rng=rng)
+
+
+def _reset_where(st: MultiGridState, mask: torch.Tensor) -> MultiGridState:
+    u = uniforms(st, 1)[:, 0]
+    ra, ca, rb, cb, p = _isd_fields(st.geo, u)
+    pick = lambda new, old: torch.where(mask, new, old)  # noqa: E731
+    return st._replace(
+        rows_a=pick(ra, st.rows_a), cols_a=pick(ca, st.cols_a),
+        rows_b=pick(rb, st.rows_b), cols_b=pick(cb, st.cols_b),
+        poss=pick(p, st.poss), t=pick(torch.zeros_like(st.t), st.t),
+        n=st.n + 1)
+
+
+def reset_where(st: MultiGridState, mask: torch.Tensor) -> MultiGridState:
+    """Re-sample masked lanes (one draw, batch-aligned), for learners that
+    need the pre-reset state (the same stream as autoreset)."""
+    return _reset_where(st, mask)
+
+
+def step(st: MultiGridState, actions_a: torch.Tensor,
+         actions_b: torch.Tensor, autoreset: bool = True):
+    """core/batch.step with per-lane geometry.  Returns (state,
+    (reward_a, goal, truncated))."""
+    geo = st.geo
+    u = uniforms(st, 4)
+    actions_a = actions_a.to(torch.int32)
+    actions_b = actions_b.to(torch.int32)
+
+    q = geo.slip  # per-lane slip probability, float32
+    var = lambda uu: torch.where(  # noqa: E731
+        uu < 1.0 - q, 0, torch.where(uu < 1.0 - q * 0.5, 1, 2)
+    ).to(torch.int32)
+    mca, mra = corebatch._slipped_move_arith(actions_a, var(u[:, 0]))
+    mcb, mrb = corebatch._slipped_move_arith(actions_b, var(u[:, 1]))
+
+    out = rules.resolve_outcomes(
+        torch, st.rows_a, st.cols_a, st.rows_b, st.cols_b, st.poss,
+        actions_a, actions_b, mca, mra, mcb, mrb, geo)
+    wcum = torch.cumsum(out["weight"], dim=-1)
+    k = (wcum <= u[:, 2:3]).sum(dim=-1).clamp(0, 3)
+    take = lambda a: a.gather(-1, k[:, None])[:, 0]  # noqa: E731
+    nra, nca = take(out["rows_a"]), take(out["cols_a"])
+    nrb, ncb = take(out["rows_b"]), take(out["cols_b"])
+    npz = take(out["poss"])
+
+    # Absorbing goal states: with autoreset=False a terminated lane
+    # self-loops and pays 0, like core/batch.step.
+    was_goal = rules.is_goal_state(torch, st.rows_a, st.cols_a, st.rows_b,
+                                   st.cols_b, st.poss, geo)
+    nra = torch.where(was_goal, st.rows_a, nra)
+    nca = torch.where(was_goal, st.cols_a, nca)
+    nrb = torch.where(was_goal, st.rows_b, nrb)
+    ncb = torch.where(was_goal, st.cols_b, ncb)
+    npz = torch.where(was_goal, st.poss, npz)
+
+    now_goal = rules.is_goal_state(torch, nra, nca, nrb, ncb, npz, geo)
+    ball_col = torch.where(npz == 0, nca, ncb)
+    reward_a = torch.where(now_goal & ~was_goal,
+                           torch.where(ball_col == geo.W - 1, 1.0, -1.0),
+                           0.0).to(torch.float32)
+    t_next = st.t + 1
+    truncated = t_next >= geo.max_steps
+    mid = st._replace(rows_a=nra, cols_a=nca, rows_b=nrb, cols_b=ncb,
+                      poss=npz, t=t_next, n=st.n + 1)
+    new = _reset_where(mid, now_goal | truncated) if autoreset else mid
+    return new, (reward_a, now_goal, truncated)
+
+
+def rollout(st: MultiGridState, policy_fn, n_steps: int):
+    """``policy_fn(state, i) -> (actions_a, actions_b)`` for steps i = 0 ..
+    n_steps-1.  Returns the final state and (reward_a, goal, truncated)
+    stacked to [T, B]."""
+    outs = []
+    for i in range(n_steps):
+        aa, ab = policy_fn(st, i)
+        st, out = step(st, aa, ab)
+        outs.append(out)
+    return st, tuple(torch.stack(f) for f in zip(*outs))

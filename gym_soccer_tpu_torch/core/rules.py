@@ -39,8 +39,11 @@ class _TorchXP:
     def clip(a, lo, hi):
         # torch.clamp takes two numbers or two tensors as bounds, not one of
         # each; a per-lane board (ops/step_kernel.GeoPlanes) has a tensor H.
+        # The number becomes a 0-d tensor filled on the device (no copy
+        # from the host, which a CUDA-graph capture refuses).
         if isinstance(lo, torch.Tensor) != isinstance(hi, torch.Tensor):
-            lo, hi = (torch.as_tensor(x, dtype=a.dtype, device=a.device)
+            lo, hi = (x if isinstance(x, torch.Tensor) else
+                      torch.full((), x, dtype=a.dtype, device=a.device)
                       for x in (lo, hi))
         return torch.clamp(a, lo, hi)
 
@@ -63,7 +66,7 @@ class _TorchXP:
         # torch.where of two Python floats would take the default dtype;
         # the rules' weights are float32 like the JAX engine's.
         if isinstance(a, float) and isinstance(b, float):
-            a = torch.tensor(a, dtype=torch.float32, device=cond.device)
+            a = torch.full((), a, dtype=torch.float32, device=cond.device)
         return torch.where(cond, a, b)
 
 

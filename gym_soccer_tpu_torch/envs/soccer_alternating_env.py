@@ -12,29 +12,33 @@ A-perspective reward +-1.
   numpy, copied so that their arrays equal the JAX package's byte for
   byte; ``alt_value_iteration_torch`` is the twin of the JAX package's
   jitted ``alt_value_iteration_jax`` on tensors.
-* ``alt_policy_rollout`` plays two policy arrays against each other on
-  ops/step_kernel's counter PRNG (the JAX version draws threefry), so it
-  is a statistical twin of the JAX function, not a bit twin.
+* ``AltEnvState``, ``alt_init``, ``alt_step`` and ``alt_reset_where``
+  are the batched engine on per-instance threefry keys (core/batch's
+  draws, kernel T1 on a CUDA tensor), equal to the JAX package's bit for
+  bit.
+* ``alt_policy_rollout`` plays two policy arrays against each other
+  through ``alt_step`` from ``key(seed)``, as the JAX version does: the
+  same (wins, losses, truncations) bit for bit.
 * ``SoccerAlternatingEnv`` is the single-env facade, stepping on numpy's
   ``RandomState`` exactly as the JAX package's does.
 
-The JAX package's batched threefry engine (``alt_init``, ``alt_step``,
-``alt_reset_where``) is not ported; the fused random rollout of this game
-is ops/step_kernel ``alt_rollout`` and its learner ops/altq_kernel.
+The fused random rollout of this game is ops/step_kernel ``alt_rollout``
+(the counter PRNG) and its learner ops/altq_kernel.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import spaces
 from ..config import MOVES, N_ACTIONS, EnvConfig, orthogonal_moves
-from ..core import rules
+from ..core import batch as corebatch
+from ..core import rules, threefry
 from ..core.tables import _move_variants, build_isd
-from ..ops import step_kernel as sk
 
 
 def alt_transition(xp, xa, ya, xb, yb, p, turn, action, mc, mr, cfg):
@@ -61,6 +65,74 @@ def alt_transition(xp, xa, ya, xb, yb, p, turn, action, mc, mr, cfg):
     nxb = xp.where(turn == 0, xb, nx)
     nyb = xp.where(turn == 0, yb, ny)
     return nxa, nya, nxb, nyb, npz, 1 - turn
+
+
+class AltEnvState(NamedTuple):
+    """Batched alternating-turn state: int32 [B] fields, the mover
+    ``turn`` (0 = A), int64 [B, 2] per-instance key words."""
+    rows_a: torch.Tensor
+    cols_a: torch.Tensor
+    rows_b: torch.Tensor
+    cols_b: torch.Tensor
+    poss: torch.Tensor
+    turn: torch.Tensor
+    t: torch.Tensor
+    n: torch.Tensor
+    key: torch.Tensor
+
+
+def _env_view(state: AltEnvState) -> corebatch.EnvState:
+    return corebatch.EnvState(state.rows_a, state.cols_a, state.rows_b,
+                              state.cols_b, state.poss, state.t, state.n,
+                              state.key)
+
+
+def alt_init(cfg: EnvConfig, key: torch.Tensor, batch: int,
+             first_mover: int = 0, device="cuda") -> AltEnvState:
+    """``batch.init`` on ``device`` with every lane's turn ``first_mover``."""
+    st = corebatch.init(cfg, key, batch, device)
+    return AltEnvState(rows_a=st.rows_a, cols_a=st.cols_a, rows_b=st.rows_b,
+                       cols_b=st.cols_b, poss=st.poss,
+                       turn=torch.full_like(st.poss, first_mover),
+                       t=st.t, n=st.n, key=st.key)
+
+
+def alt_step(cfg: EnvConfig, state: AltEnvState, action: torch.Tensor,
+             autoreset: bool = True):
+    """Batched alternating-turn step for the current mover of each lane.
+    Returns (state, (reward_a, goal, truncated))."""
+    u = corebatch.per_env_uniforms(_env_view(state), 2)
+    action = action.to(torch.int32)
+    variant = corebatch._slip_variant(cfg, u[:, 0])
+    mc, mr = corebatch._slipped_move_arith(action, variant)
+
+    nra, nca, nrb, ncb, npz, nturn = alt_transition(
+        torch, state.rows_a, state.cols_a, state.rows_b, state.cols_b,
+        state.poss, state.turn, action, mc, mr, cfg)
+
+    now_goal = rules.is_goal_state(torch, nra, nca, nrb, ncb, npz, cfg)
+    ball_col = torch.where(npz == 0, nca, ncb)
+    reward_a = torch.where(
+        now_goal, torch.where(ball_col == cfg.W - 1, 1.0, -1.0), 0.0
+    ).to(torch.float32)
+
+    t = state.t + 1
+    truncated = t >= cfg.max_steps
+    mid = AltEnvState(nra, nca, nrb, ncb, npz, nturn, t, state.n + 1,
+                      state.key)
+    if autoreset:
+        mid = alt_reset_where(cfg, mid, now_goal | truncated)
+    return mid, (reward_a, now_goal, truncated)
+
+
+def alt_reset_where(cfg: EnvConfig, state: AltEnvState,
+                    mask: torch.Tensor) -> AltEnvState:
+    """Re-sample masked lanes from the ISD (turn resets to first mover 0)."""
+    env_new = corebatch._reset_where(cfg, _env_view(state), mask)
+    return AltEnvState(env_new.rows_a, env_new.cols_a, env_new.rows_b,
+                       env_new.cols_b, env_new.poss,
+                       torch.where(mask, 0, state.turn),
+                       env_new.t, env_new.n, state.key)
 
 
 # Per (state, action) there are at most 3 outcomes: the intended move
@@ -232,39 +304,27 @@ def alt_value_iteration_torch(t_prob, t_next_dense, t_reward, t_done, turn,
 def alt_policy_rollout(cfg: EnvConfig, raw_to_dense, pol_a, pol_b,
                        batch: int = 512, steps: int = 400, seed: int = 0,
                        first_mover: int = 0, device="cuda"):
-    """Closed-loop evaluation: both sides play their int [nS] policy arrays
-    for ``steps`` ticks on ``batch`` lanes, with autoreset.  Returns
-    (wins_a, losses_a, truncations) summed over all lanes and steps.
+    """Batched closed-loop evaluation: both sides play their int [nS]
+    policy arrays through ``alt_step`` (autoreset on) for ``steps`` ticks
+    on ``batch`` lanes from ``alt_init(cfg, key(seed), batch,
+    first_mover)`` on ``device``.
 
-    The JAX package's arguments and result, on another random stream: this
-    port steps ops/step_kernel ``alt_transition_core`` and
-    ``autoreset_core`` on the counter PRNG (the slip on word 1, the reset's
-    ISD pick on word 2, at (seed, step, word, lane)), where the JAX
-    version draws threefry.  It is a statistical twin, not a bit twin.
-    Lane i starts on ISD entry i % nI with turn ``first_mover``; a reset
-    gives the turn to A, as the JAX engine's does."""
+    Returns (wins_a, losses_a, truncations) summed over all lanes and
+    steps, the JAX package's numbers bit for bit."""
     device = torch.device(device)
     r2d = torch.as_tensor(np.asarray(raw_to_dense), device=device).long()
     pa = torch.as_tensor(np.asarray(pol_a), device=device).to(torch.int32)
     pb = torch.as_tensor(np.asarray(pol_b), device=device).to(torch.int32)
-    ra, ca, rb, cb, p = sk.isd_spread_fields(cfg, batch, device)
-    turn = torch.full((batch,), first_mover, dtype=torch.int32, device=device)
-    t = torch.zeros(batch, dtype=torch.int32, device=device)
-    lane = torch.arange(batch, dtype=torch.int64, device=device)
-    q_int = sk._q_int(cfg)
+    st = alt_init(cfg, threefry.key(seed), batch, first_mover, device)
     wins = torch.zeros((), dtype=torch.int64, device=device)
     losses, truncs = torch.zeros_like(wins), torch.zeros_like(wins)
-    for i in range(steps):
-        s = r2d[alt_raw_encode(torch, ra, ca, rb, cb, p, turn, cfg).long()]
-        a = torch.where(turn == 0, pa[s], pb[s])
-        bits1, bits2 = (sk._random_word(seed, i, w, lane) for w in (1, 2))
-        ra, ca, rb, cb, p, goal, r = sk.alt_transition_core(
-            ra, ca, rb, cb, p, turn, a, bits1, cfg, q_int)
-        ra, ca, rb, cb, p, t, trunc = sk.autoreset_core(
-            ra, ca, rb, cb, p, t, goal, bits2, cfg)
-        turn = torch.where(goal | trunc, 0, 1 - turn)
-        wins += (r > 0).sum()
-        losses += (r < 0).sum()
+    for _ in range(steps):
+        s = r2d[alt_raw_encode(torch, st.rows_a, st.cols_a, st.rows_b,
+                               st.cols_b, st.poss, st.turn, cfg).long()]
+        a = torch.where(st.turn == 0, pa[s], pb[s])
+        st, (rew, _, trunc) = alt_step(cfg, st, a)
+        wins += (rew > 0).sum()
+        losses += (rew < 0).sum()
         truncs += trunc.sum()
     return int(wins), int(losses), int(truncs)
 

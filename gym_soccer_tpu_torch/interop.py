@@ -5,7 +5,13 @@ never imports JAX: convert a JAX array with ``np.asarray`` first.
 
 * The batched engine's ``EnvState``: the JAX package keeps a typed PRNG
   key per instance; the port keeps its two uint32 key words
-  (``jax.random.key_data(state.key)``) in int64.
+  (``jax.random.key_data(state.key)``) in int64.  The alternating engine's
+  ``AltEnvState`` (eight int32 leaves and the key) and the mixed-geometry
+  engine's ``MultiGridState`` (seven and the key; the geometry is rebuilt
+  from the configs) likewise.
+* The HBM-table learners' states (``IQLState``, ``MinimaxQState``,
+  ``AltQState``): their tables as they are, the env state as above, the
+  step as an int32 scalar (``learner_state_from_numpy``).
 * The fused kernels' state planes: the JAX package tiles lanes as
   int32 [B/128, 128] (lane = row * 128 + col); the port keeps them flat
   int32 [B] in the same lane order.
@@ -83,6 +89,41 @@ def env_state_from_numpy(fields, key_words, device) -> EnvState:
     key = torch.as_tensor(np.asarray(key_words).astype(np.int64),
                           device=device)
     return EnvState(*tensors, key=key)
+
+
+def alt_env_state_from_numpy(fields, key_words, device):
+    """The port's AltEnvState from the JAX package's: the eight int32 [B]
+    leaves (rows_a, cols_a, rows_b, cols_b, poss, turn, t, n) and uint32
+    [B, 2] key words, as numpy."""
+    from .envs.soccer_alternating_env import AltEnvState
+    fields = [np.asarray(f) for f in fields]
+    if len(fields) != 8:
+        raise ValueError("fields = 8 arrays (rows_a, cols_a, rows_b, "
+                         "cols_b, poss, turn, t, n)")
+    return AltEnvState(*(torch.as_tensor(f.astype(np.int32), device=device)
+                         for f in fields),
+                       key=torch.as_tensor(np.asarray(key_words).astype(
+                           np.int64), device=device))
+
+
+def multigrid_state_from_numpy(cfgs, fields, key_words, device,
+                               max_steps: int = 100):
+    """The port's MultiGridState from the JAX package's: its seven int32
+    [B] leaves and uint32 [B, 2] key words as numpy; the lanes' geometry
+    is rebuilt from ``cfgs`` (round-robin, as both packages assign it)."""
+    from .core import multigrid
+    st = env_state_from_numpy(fields, key_words, device)
+    geo = multigrid.lane_geometry(tuple(cfgs), st.t.shape[0], max_steps,
+                                  device=device)
+    return multigrid.MultiGridState(*st, geo=geo)
+
+
+def learner_state_from_numpy(cls, env, device, **arrays):
+    """A learner state ``cls`` (agents/learners ``IQLState``,
+    ``MinimaxQState`` or ``AltQState``) from the JAX package's leaves as
+    numpy (``step`` a 0-d int32) and the port's env state ``env``."""
+    return cls(env=env, **{k: torch.tensor(np.asarray(v), device=device)
+                           for k, v in arrays.items()})
 
 
 def env_state_to_numpy(state: EnvState):

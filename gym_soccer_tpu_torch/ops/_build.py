@@ -30,7 +30,8 @@ LIBRARIES = {"step_kernel": ("step_kernel.cu", "game.cuh", "pipeline.cuh"),
              "iql_kernel": ("iql_kernel.cu", "game.cuh", "pipeline.cuh"),
              "altq_kernel": ("altq_kernel.cu", "game.cuh", "pipeline.cuh"),
              "parity_kernel": ("parity_kernel.cu",),
-             "rmplus_kernel": ("rmplus_kernel.cu",)}
+             "rmplus_kernel": ("rmplus_kernel.cu",),
+             "threefry_kernel": ("threefry_kernel.cu",)}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

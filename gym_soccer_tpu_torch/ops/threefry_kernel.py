@@ -1,0 +1,99 @@
+"""Per-lane threefry uniforms: CUDA kernel T1 and its plain version.
+
+``threefry_uniforms(key, n, count, salt)`` gives lane i's ``count``
+float32 uniforms of ``fold_in(fold_in(key_i, n_i), salt)`` (the second
+fold_in only when ``salt`` != 0): the JAX package's
+``batch.per_env_uniforms(state, count, salt, rng="threefry")``, bit for
+bit.  On CPU tensors it runs ``threefry_uniforms_plain``, the composition
+of core/threefry's functions; on CUDA tensors it launches T1
+(``csrc/threefry_kernel.cu``, one thread a lane, every round in
+registers).  There is no fallback from one to the other.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..core import threefry
+
+# Launches of T1 in this process, counted by the wrapper where it launches
+# and nowhere else.
+launch_counts = {"threefry_uniforms": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _check(key: torch.Tensor, n: torch.Tensor, count: int, salt: int):
+    if key.dim() != 2 or key.shape[1] != 2 or n.shape != key.shape[:1]:
+        raise ValueError(f"threefry_uniforms: key [B, 2] and n [B], got "
+                         f"{tuple(key.shape)} and {tuple(n.shape)}")
+    if count < 1:
+        raise ValueError(f"count must be >= 1, got {count}")
+    if not 0 <= salt <= threefry.M32:
+        raise ValueError(f"salt must be a uint32, got {salt}")
+
+
+def threefry_uniforms(key: torch.Tensor, n: torch.Tensor, count: int,
+                      salt: int = 0) -> torch.Tensor:
+    """float32 [B, count] uniforms of lane i's key ``key[i]`` (int64 [B, 2]
+    uint32 words) at draw counter ``n[i]`` (int32 [B]) under ``salt``."""
+    _check(key, n, count, salt)
+    if key.device.type == "cpu":
+        return threefry_uniforms_plain(key, n, count, salt)
+    return _launch(key, n, count, salt)
+
+
+def threefry_uniforms_plain(key: torch.Tensor, n: torch.Tensor, count: int,
+                            salt: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of ``threefry_uniforms``, on any device."""
+    _check(key, n, count, salt)
+    sub = threefry.fold_in(key, n)
+    if salt:
+        sub = threefry.fold_in(sub, salt)
+    return threefry.uniform(sub, (count,))
+
+
+def _launch(key: torch.Tensor, n: torch.Tensor, count: int, salt: int):
+    dev = key.device
+    if dev.type != "cuda":
+        raise ValueError(f"threefry_uniforms: no kernel for device {dev}")
+    if key.dtype != torch.int64 or n.dtype != torch.int32 or \
+            n.device != dev:
+        raise ValueError("threefry_uniforms: the kernel takes int64 key "
+                         f"words and int32 counters on one device; got "
+                         f"{key.dtype} on {dev}, {n.dtype} on {n.device}")
+    key, n = key.contiguous(), n.contiguous()
+    lanes = key.shape[0]
+    out = torch.empty((lanes, count), dtype=torch.float32, device=dev)
+    if lanes:
+        lib = _library()
+        rc = lib.gst_threefry_uniforms(
+            dev.index, key.data_ptr(), n.data_ptr(), lanes, count, salt,
+            out.data_ptr(), torch._C._cuda_getCurrentRawStream(dev.index))
+        if rc:
+            raise RuntimeError("threefry_uniforms: kernel launch failed: "
+                               f"{lib.gst_error_string(rc).decode()} ({rc})")
+        launch_counts["threefry_uniforms"] += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    """The built T1 library with its C signatures declared."""
+    from . import _build
+    lib = _build.load("threefry_kernel")
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    # device, key, n, lanes, count, salt, out, stream
+    lib.gst_threefry_uniforms.argtypes = [i32, vp, vp, i32, i32,
+                                          ctypes.c_uint32, vp, vp]
+    lib.gst_threefry_uniforms.restype = i32
+    lib.gst_threefry_block.argtypes = []
+    lib.gst_threefry_block.restype = i32
+    lib.gst_error_string.argtypes = [i32]
+    lib.gst_error_string.restype = ctypes.c_char_p
+    return lib

@@ -1,2 +1,3 @@
-"""Policy factories and persistence."""
+"""Policy factories and persistence, episode metrics, profiling and
+checkpoints."""
 from . import policies  # noqa: F401

@@ -10,8 +10,8 @@ Tolerances:
   within 1e-6 of JAX's ``alt_value_iteration_jax`` (x64) and of the numpy
   sweep at theta 1e-8 (sums may be taken in another order);
 * the win-rate gates: the JAX package's own thresholds.  The port's
-  ``alt_policy_rollout`` draws the counter PRNG, not threefry, so it
-  plays other episodes than JAX's on the same seed.
+  ``alt_policy_rollout`` steps the threefry ``alt_step`` as JAX's does
+  (tests/test_torch_batch_threefry.py holds it bit-equal to JAX's).
 
 K4 is held against ``alt_rollout_plain`` on the card by chip_smoke.py and
 tests/test_torch_cuda.py."""

@@ -79,7 +79,7 @@ def test_step_counter_bit_equal(w, h, q):
         ab = rng.integers(0, 5, B).astype(np.int32)
         jst, jout = jstep(jst, jnp.asarray(aa), jnp.asarray(ab))
         st, out = batch.step(cfg, st, torch.as_tensor(aa),
-                             torch.as_tensor(ab))
+                             torch.as_tensor(ab), rng="counter")
         _assert_out_equal(out, jout)
         n_goal += int(out.done.sum())
         n_trunc += int(out.truncated.sum())
@@ -100,7 +100,8 @@ def test_step_without_autoreset_bit_equal():
         ab = rng.integers(0, 5, B).astype(np.int32)
         jst, jout = jstep(jst, jnp.asarray(aa), jnp.asarray(ab))
         st, out = batch.step(cfg, st, torch.as_tensor(aa),
-                             torch.as_tensor(ab), autoreset=False)
+                             torch.as_tensor(ab), autoreset=False,
+                             rng="counter")
         _assert_out_equal(out, jout)
     _assert_state_equal(st, jst)
 
@@ -116,7 +117,7 @@ def test_init_from_keys_equals_counter_reset(w, h, q):
     jst = jbatch.EnvState(z, z, z, z, z, t=z, n=z, key=keys)
     jst = jbatch._reset_where(jcfg, jst, jnp.ones(B, bool), rng="counter")
     st = batch.init_from_keys(cfg, np.asarray(jax.random.key_data(keys)),
-                              "cpu")
+                              "cpu", rng="counter")
     _assert_state_equal(st, jst)
 
 
@@ -125,7 +126,8 @@ def test_reset_where_masked_bit_equal():
     jst = _jax_state(jcfg, 9)
     mask = np.random.default_rng(7).integers(0, 2, B).astype(bool)
     jout = jbatch._reset_where(jcfg, jst, jnp.asarray(mask), rng="counter")
-    out = batch._reset_where(cfg, _port_state(jst), torch.as_tensor(mask))
+    out = batch._reset_where(cfg, _port_state(jst), torch.as_tensor(mask),
+                             rng="counter")
     _assert_state_equal(out, jout)
 
 
@@ -138,7 +140,7 @@ def test_per_env_uniforms_bit_equal():
     st = _port_state(jst)
     for salt in (0, 9):
         ju = jbatch.per_env_uniforms(jst, 4, salt=salt, rng="counter")
-        u = batch.per_env_uniforms(st, 4, salt=salt)
+        u = batch.per_env_uniforms(st, 4, salt=salt, rng="counter")
         assert u.dtype == torch.float32
         assert np.array_equal(u.numpy(), np.asarray(ju))
 
@@ -163,7 +165,7 @@ def test_random_rollout_stats_bit_equal(w, h, q):
     st = _port_state(jst)
     jst, jacc = jax.jit(lambda s: jbatch.random_rollout_stats(
         jcfg, s, 110, rng="counter"))(jst)
-    st, acc = batch.random_rollout_stats(cfg, st, 110)
+    st, acc = batch.random_rollout_stats(cfg, st, 110, rng="counter")
     _assert_state_equal(st, jst)
     for a, b in zip(acc, jacc):
         assert a.numpy().dtype == np.asarray(b).dtype
@@ -184,13 +186,14 @@ def test_rollout_and_rollout_stats_bit_equal():
 
     jst, jtraj = jax.jit(lambda s: jbatch.rollout(
         jcfg, s, jpol, T, rng="counter"))(jst0)
-    st, traj = batch.rollout(cfg, _port_state(jst0), pol, T)
+    st, traj = batch.rollout(cfg, _port_state(jst0), pol, T, rng="counter")
     _assert_out_equal(traj, jtraj)
     _assert_state_equal(st, jst)
 
     jst, jacc = jax.jit(lambda s: jbatch.rollout_stats(
         jcfg, s, jpol, T, rng="counter"))(jst0)
-    st, acc = batch.rollout_stats(cfg, _port_state(jst0), pol, T)
+    st, acc = batch.rollout_stats(cfg, _port_state(jst0), pol, T,
+                                  rng="counter")
     _assert_state_equal(st, jst)
     assert [a.item() for a in acc] == [np.asarray(b).item() for b in jacc]
 

@@ -787,3 +787,45 @@ def test_chunk_kernels_read_their_scalars_from_device_memory(cuda):
     for fn in (ak.altq_packed_chunk, ak.altq_chunk):
         assert _same_chunk(fn(cfg, scalars, None, table, fields, B, T),
                            fn(cfg, 99, 20000, table, fields, B, T, 0.99, 640))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count,salt", [(1, 0), (2, 9), (4, 0), (7, 1)])
+def test_t1_equals_its_plain_version(cuda, count, salt):
+    """T1 (per-lane threefry uniforms) bit-equal to its plain version on
+    the card and on the CPU, counters up to 2**31 - 1; one launch a call."""
+    from gym_soccer_tpu_torch.ops import threefry_kernel as tk
+    g = torch.Generator().manual_seed(count)
+    key = torch.randint(0, 2 ** 32, (3000, 2), generator=g,
+                        dtype=torch.int64)
+    n = torch.randint(0, 2 ** 31 - 1, (3000,), generator=g,
+                      dtype=torch.int32)
+    n[:2] = torch.tensor([0, 2 ** 31 - 1], dtype=torch.int32)
+    tk.reset_launch_counts()
+    got = tk.threefry_uniforms(key.to(cuda), n.to(cuda), count, salt)
+    assert tk.launch_counts["threefry_uniforms"] == 1
+    assert torch.equal(got, tk.threefry_uniforms_plain(
+        key.to(cuda), n.to(cuda), count, salt))
+    assert torch.equal(got.cpu(), tk.threefry_uniforms(key, n, count, salt))
+
+
+@pytest.mark.cuda
+def test_learner_graph_mode_counts_every_step(cuda):
+    """The HBM-table learners' grouped mode on the card (150 steps at
+    resolve_every 8: two replays of 64 steps, two periods on their own and
+    a tail of 6): T1 and R1 counted once a step and a re-solve, as for
+    single steps; the tables finite."""
+    from gym_soccer_tpu_torch.agents import learners
+    from gym_soccer_tpu_torch.core import threefry
+    from gym_soccer_tpu_torch.ops import threefry_kernel as tk
+    cfg = EnvConfig(width=5, height=4, slip_prob=0.2)
+    st = learners.minimax_init(cfg, threefry.key(0), 512, cuda)
+    tk.reset_launch_counts()
+    learners.reset_launch_counts()
+    st, td = learners.minimax_train(
+        cfg, learners.MinimaxQConfig(resolve_every=8), st, 150)
+    torch.cuda.synchronize()
+    assert tk.launch_counts["threefry_uniforms"] == 3 * 150
+    assert learners.launch_counts["solve_matrix_games"] == 150 // 8
+    assert int(st.step) == 150 and td.shape == (150,)
+    assert bool(torch.isfinite(st.q).all()) and float(st.v.abs().max()) <= 1

@@ -124,8 +124,9 @@ def test_greedy_win_share_scores_a_rollout():
     keys = np.random.default_rng(9).integers(0, 2 ** 32, (128, 2),
                                              dtype=np.uint64)
     pa, pb = torch.as_tensor(pol_a).long(), torch.as_tensor(pol_b).long()
-    _, out = batch.rollout(cfg, batch.init_from_keys(cfg, keys, "cpu"),
+    _, out = batch.rollout(cfg, batch.init_from_keys(cfg, keys, "cpu",
+                                                     rng="counter"),
                            lambda obs, i: (pa[obs.long()], pb[obs.long()]),
-                           120)
+                           120, rng="counter")
     assert got == _jax_test_formula(out)
     assert int(out.truncated.sum()) > 0 and int(out.done.sum()) > 0

@@ -23,6 +23,16 @@ MODULES = ["gym_soccer_tpu_torch", "gym_soccer_tpu_torch.config",
            "gym_soccer_tpu_torch.core.mt19937",
            "gym_soccer_tpu_torch.core.parity",
            "gym_soccer_tpu_torch.core.multigrid",
+           "gym_soccer_tpu_torch.core.threefry",
+           "gym_soccer_tpu_torch.core.invariants",
+           "gym_soccer_tpu_torch.ops.threefry_kernel",
+           "gym_soccer_tpu_torch.envs.vector_env",
+           "gym_soccer_tpu_torch.utils.metrics",
+           "gym_soccer_tpu_torch.utils.profiling",
+           "gym_soccer_tpu_torch.utils.checkpoint",
+           "gym_soccer_tpu_torch.examples",
+           "gym_soccer_tpu_torch.examples.train_minimax",
+           "gym_soccer_tpu_torch.examples.demo",
            "gym_soccer_tpu_torch.ops.step_kernel",
            "gym_soccer_tpu_torch.ops.learner_kernel",
            "gym_soccer_tpu_torch.ops.iql_kernel",
