@@ -211,12 +211,20 @@ Phases, each of which raises on failure:
     by CUDA-graph replay beside their previous design's) and
     ``torch.profiler`` windows of K4 (both boards) and K10 for device time
     and idle share;
-32. R1 (``solve_matrix_games``, ``csrc/rmplus_kernel.cu``): bit-equal to
-    ``solve_matrix_games_plain`` on the card on the 5x4 contract's own Q
-    after a chunk (761 games) at 400 and 3000 iterations and on 11705
-    random games at the 11x7 contract's 600; its ms at each, the plain
-    version's at 761 x 400, and its design line (block, registers, SASS
-    per game-iteration, bound);
+32. R1 (``solve_matrix_games``, ``csrc/rmplus_kernel.cu``, a group of
+    lanes of one warp a game): bit-equal to ``solve_matrix_games_plain``
+    on the card on the 5x4 contract's own Q after a chunk (761 games) at
+    400, 3000 and 200 iterations (the contract's re-solve and final solve,
+    the HBM-table learner's re-solve), on random games at the
+    ``--multigrid`` recipe's 2502 x 200 and the 11x7 contract's
+    11705 x 600, and on 7 games and 1 (a warp partly empty); bit-equal to
+    its previous design (one thread a game, ``csrc/rmplus_thread_kernel.cu``
+    built beside the libraries); both timed at each shape by CUDA events
+    and by CUDA-graph replay, with cycles an iteration; the plain
+    version's ms at 761 x 400; its design line (lanes a game, games a
+    warp, blocks, registers, SASS per lane-iteration and per
+    game-iteration, the bound at this design's count and at the previous
+    design's, the share of the smaller);
 33. the 11x7 contract: the JAX package's test_equilibrium_11x7_tpu recipe
     (65536 lanes, 6000 chunks x 32 steps, solver 600, avg_q from chunk
     4000, a 3000-iteration final solve, seed 2) at its
@@ -261,7 +269,9 @@ Phases, each of which raises on failure:
     its plain version on the card at 8192 lanes with count 1, 2, 4 and 7,
     salt 0, 1 and 9, counters 0, 37 and 2**31 - 1, and to the plain
     version on the CPU; T1 and the plain version timed at 8192 x 4 and
-    8192 x 2 (salt 9); its bound from the SASS of its 4-uniform instance;
+    8192 x 2 (salt 9), T1's device time by the replay of a CUDA graph of
+    100 calls there and at 1 lane (the floor of a launch); its bound from
+    the SASS of its 4-uniform instance;
 41. the threefry engine: ``batch.init`` and 64 steps of ``rollout`` with
     ``random_policy_fn`` at 8192 lanes on 5x4 and 11x7, equal to the CPU
     run in every field;
@@ -290,11 +300,12 @@ block's figures but no kernels line and no verdict.
 The second-to-last lines are the kernels' JSON record (the 14 kernel
 sites, R1 and T1, with each kernel's bound: the larger of its bytes over
 the HBM rate and its SASS instructions per step, R1's per game-iteration
-and T1's per lane, times its steps over the instruction rate) and the
-card's name and power
-limit; the last line is the JSON verdict.  The whole run prints its wall
-time.  Exits non-zero, with no verdict, if anything fails or no CUDA
-device is present.
+(the fewer of its lanes' and its previous design's, so that the shuffles
+and sums the split repeats in each lane do not raise its bound) and T1's
+per lane, times its steps over the instruction rate) and the card's name
+and power limit; the last line is the JSON verdict.  The whole run prints
+its wall time.  Exits non-zero, with no verdict, if anything fails or no
+CUDA device is present.
 """
 from __future__ import annotations
 
@@ -513,6 +524,19 @@ RMPLUS = "solve_matrix_games"
 RMPLUS_SRC = "gym_soccer_tpu_torch/ops/csrc/rmplus_kernel.cu"
 RMPLUS_REPLACES = "gym_soccer_tpu/agents/learners.py:84"
 RMPLUS_SYMBOL = "13rmplus_kernel"
+# Phase 32: (label, input, games, iterations); "contract" the 5x4
+# contract's Q after its first chunk (its first games where fewer), a
+# number random games from a numpy seed.  761 x 400 and x 3000: the
+# contract's re-solve and final solve; 761 x 200: the HBM-table learner's
+# re-solve; 2502 x 200: the --multigrid recipe's; 11705 x 600: the 11x7
+# contract's; 7 and 1 games leave a warp's lane groups partly empty.
+RMPLUS_SHAPES = (("the contract's Q", "contract", 761, 400),
+                 ("the contract's Q", "contract", 761, 3000),
+                 ("the contract's Q", "contract", 761, 200),
+                 ("random recipe games", 2502, 2502, 200),
+                 ("random 11x7 games", 11705, 11705, 600),
+                 ("the contract's first games", "contract", 7, 400),
+                 ("the contract's first game", "contract", 1, 400))
 # A longer independent-Q run at the learning check's lr and eps (phase 20).
 IQL_RUN = dict(batch=65536, n_chunks=200, chunk_len=32, lr=0.4, eps=0.3,
                seed=1)
@@ -951,11 +975,19 @@ def main(argv=None) -> int:
         return 0
 
     # ---- 2. build -----------------------------------------------------
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gym_soccer_tpu_torch.ops import rmplus_variants
     t0 = time.perf_counter()
-    built = _build.build_all()
+    with ThreadPoolExecutor(1) as pool:   # R1's previous design, beside
+        thread_build = pool.submit(rmplus_variants.build_variant,
+                                   rmplus_variants.PREVIOUS)
+        built = _build.build_all()
+        thread_build = thread_build.result()
     for name in built:
         _build.load(name)
-    print(f"[build] {', '.join(p.name for p in built.values())} in "
+    print(f"[build] {', '.join(p.name for p in built.values())} and R1's "
+          f"previous design {thread_build.name} in "
           f"{time.perf_counter() - t0:.3f} s")
     for path in built.values():
         print(path.with_suffix(".log").read_text().strip())
@@ -999,7 +1031,7 @@ def main(argv=None) -> int:
           f"with the MT19937 twist amortised over its {TWIST[1]} events; "
           f"K1-K11: a producer's code loop plus a consumer's tile loop "
           f"over its {TILE_STEPS} steps, 'arith' the walk of boards whose "
-          f"table does not fit; R1: a game-iteration) on the shortest way "
+          f"table does not fit; R1: a lane-iteration) on the shortest way "
           f"around each kernel's main loop (cuobjdump -sass): {per_step}")
 
     cfgs = {b: EnvConfig(width=b[0], height=b[1], slip_prob=SLIP)
@@ -1220,7 +1252,7 @@ def main(argv=None) -> int:
     ms.update(alt_ms)
 
     rm_err, rm_ms, rm_work = rmplus_phase(torch, dev, card, lk, per_step,
-                                          regs)
+                                          regs, thread_build)
     errs[RMPLUS] = rm_err
     ms.update(rm_ms)
     contract_11x7_phase(torch, dev, card, lk, exploitability)
@@ -1287,25 +1319,42 @@ def main(argv=None) -> int:
     return 0
 
 
-def rmplus_phase(torch, dev, card, lk, per_step, regs):
+def rmplus_phase(torch, dev, card, lk, per_step, regs, thread_path):
     """Phase 32: R1 against ``solve_matrix_games_plain`` on the card, bit
-    for bit, on the 5x4 contract's own Q after its first chunk (761 games)
-    at the contract's 400 iterations and its final 3000, and on 11705
-    random games at the 11x7 contract's 600; R1 timed at each, the plain
-    version at 761 x 400.  Returns R1's max abs error, its ms and the plain
-    version's at 761 x 400, and its work there (game-iterations, bytes)."""
+    for bit, at each of ``RMPLUS_SHAPES`` (the 5x4 contract's own Q after
+    its first chunk, random games at the recipe's and the 11x7 contract's
+    counts, games that leave a warp partly empty), and against its previous
+    design (one thread a game, built from ``thread_path``); both timed at
+    each shape, by CUDA events and by CUDA-graph replay, the plain version
+    at 761 x 400.  Sets ``per_step[RMPLUS]`` to the smaller of R1's SASS
+    per game-iteration and its previous design's, the work its bound
+    counts.  Returns R1's max abs error, its ms and the plain version's at
+    761 x 400, and its work there (game-iterations, bytes)."""
     import numpy as np
     from gym_soccer_tpu_torch.agents import learners
     from gym_soccer_tpu_torch.config import EnvConfig
+    from gym_soccer_tpu_torch.ops import rmplus_variants
     c54 = EnvConfig(5, 4, 0.2)
-    q = lk.fused_minimax_train(c54, device=dev, **dict(
-        CONTRACT, n_chunks=1, final_solver_iters=0))[0]
-    q117 = torch.tensor(np.random.default_rng(5).uniform(-1, 1, (11705, 5, 5)),
-                        dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(5)
+    inputs = {"contract": lk.fused_minimax_train(c54, device=dev, **dict(
+        CONTRACT, n_chunks=1, final_solver_iters=0))[0]}
+    for n in (11705, 2502):
+        inputs[n] = torch.tensor(rng.uniform(-1, 1, (n, 5, 5)),
+                                 dtype=torch.float32, device=dev)
+    thread = learners.declare(ctypes.CDLL(str(thread_path)))
+    committed = learners._library
+    shape = (ctypes.c_int32 * 3)()
+    committed().gst_rmplus_shape(shape)
+    lanes, per_warp, warps = shape
+    lane_sass = per_step[RMPLUS]
+    game_sass = lanes * lane_sass
+    found = sass_loop_instructions(thread_path, [RMPLUS_SYMBOL])
+    check(len(found) == 1, f"R1's previous design: {len(found)} kernels")
+    thread_sass = next(iter(found.values()))
+    per_step[RMPLUS] = min(game_sass, thread_sass)
     err, ms = 0.0, {}
-    for label, M, iters in (("the contract's Q", q, 400),
-                            ("the contract's Q", q, 3000),
-                            ("random 11x7 games", q117, 600)):
+    for label, key, games, iters in RMPLUS_SHAPES:
+        M = inputs[key][:games]
         got = learners.solve_matrix_games(M, iters)
         want = learners.solve_matrix_games_plain(M, iters)
         torch.cuda.synchronize()
@@ -1313,29 +1362,64 @@ def rmplus_phase(torch, dev, card, lk, per_step, regs):
         same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                    for a, b in zip(got, want))
         err = max(err, e)
-        check(same, f"R1 != plain on {label}, {M.shape[0]} x {iters}: max "
-              f"abs err {e}")
-        med, reps, legs = time_cuda(
-            lambda: learners.solve_matrix_games(M, iters))
-        if (M.shape[0], iters) == (761, 400):
-            ms[RMPLUS] = med
-        print(f"[R1] {label}, {M.shape[0]} games x {iters} iterations: "
-              f"bit-equal to the plain version (max abs err {e}); {med} "
-              f"ms/call (median of {len(legs)} legs x {reps} calls) | "
-              f"{card}")
+        check(same, f"R1 != plain on {label}, {games} x {iters}: max abs "
+              f"err {e}")
+
+        def call(M=M, iters=iters):
+            return learners.solve_matrix_games(M, iters)
+        med, reps, legs = time_cuda(call)
+        dms = rmplus_variants.device_ms(call)
+        learners._library = lambda: thread
+        try:
+            old = call()
+            check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                      for a, b in zip(old, got)),
+                  f"R1's previous design != R1 on {label}, {games} x "
+                  f"{iters}")
+            old_med = time_cuda(call)[0]
+            old_dms = rmplus_variants.device_ms(call)
+        finally:
+            learners._library = committed
+        if (games, iters) == (761, 400) and RMPLUS not in ms:
+            ms[RMPLUS], now_dms, then_dms = med, dms, old_dms
+        nbytes = games * (25 + 11) * 4
+        b = bound(games * iters, per_step[RMPLUS], nbytes)[0]
+        print(f"[R1] {label}, {games} games x {iters} iterations: bit-equal "
+              f"to the plain version (max abs err {e}) and to the previous "
+              f"design; {med} ms/call (median of {len(legs)} legs x {reps} "
+              f"calls), {dms} ms of device time (CUDA-graph replay), "
+              f"{dms * 1e-3 * rmplus_variants.CLOCK_HZ / iters} cycles an "
+              f"iteration at 1.98 GHz, {b / dms * 100} % of the bound "
+              f"{b} ms; the previous design (one thread a game) {old_med} "
+              f"ms/call, {old_dms} ms of device time ({old_dms / dms}x) "
+              f"| {card}")
     med, reps, legs = time_cuda(
-        lambda: learners.solve_matrix_games_plain(q, 400), slow_legs=3)
+        lambda: learners.solve_matrix_games_plain(inputs["contract"], 400),
+        slow_legs=3)
     ms[RMPLUS + "_plain"] = med
     games, iters = 761, 400
     nbytes = games * (25 + 11) * 4
-    bound_ms, by = bound(games * iters, per_step[RMPLUS], nbytes)
+    new_ms, by = bound(games * iters, game_sass, nbytes)
+    old_ms = bound(games * iters, thread_sass, nbytes)[0]
     reg = [r for k, r in regs.items() if RMPLUS_SYMBOL in k]
-    block = learners._library().gst_rmplus_block()
-    print(f"[design] R1 {games} x {iters}: one thread a game, {block} games "
-          f"a block ({-(-games // block)} blocks), {reg} registers per "
-          f"thread; {per_step[RMPLUS]} SASS per game-iteration, bound "
-          f"{bound_ms} ms ({by}); {ms[RMPLUS]} ms/call against the plain "
-          f"version's {med} ms ({med / ms[RMPLUS]}x) | {card}")
+    old_reg = list(ptxas_registers(
+        thread_path.with_suffix(".log").read_text()).values())
+    print(f"[design] R1 {games} x {iters}: {lanes} lanes a game, {per_warp} "
+          f"games a warp, {warps} warp(s) a block "
+          f"({-(-games // (per_warp * warps))} blocks of {32 * warps} "
+          f"threads), {reg} registers per thread; {lane_sass} SASS per "
+          f"lane-iteration, {game_sass} per game-iteration ({lanes} lanes); "
+          f"the previous design {thread_sass} per game-iteration, "
+          f"{old_reg} registers; "
+          f"{now_dms * 1e-3 * rmplus_variants.CLOCK_HZ / iters} cycles an "
+          f"iteration (device ms x 1.98e6 / iterations), the previous "
+          f"design {then_dms * 1e-3 * rmplus_variants.CLOCK_HZ / iters}; "
+          f"bound {new_ms} ms at this design's count and {old_ms} ms at the "
+          f"previous design's ({by}); {ms[RMPLUS]} ms/call and "
+          f"{now_dms} ms of device time, "
+          f"{min(new_ms, old_ms) / now_dms * 100} % of the smaller "
+          f"bound; the plain version {med} ms ({med / ms[RMPLUS]}x) "
+          f"| {card}")
     return err, ms, (games * iters, nbytes)
 
 
@@ -3247,7 +3331,9 @@ def t1_phase(torch, dev, card, t1_instructions):
     8192 lanes with count 1, 2 and 4, salt 0, 1 and 9 and counters 0, 37
     and 2**31 - 1 (random key words), and the generic count 7; one shape
     against the plain version on the CPU; T1 and the plain version timed
-    at 8192 x 4 (a step's draw) and 8192 x 2 (salt 9, a policy's)."""
+    at 8192 x 4 (a step's draw) and 8192 x 2 (salt 9, a policy's); T1's
+    device time by the replay of a CUDA graph of 100 calls at both shapes
+    and at 1 lane (the floor of a launch, whatever its lanes do)."""
     import numpy as np
     from gym_soccer_tpu_torch.ops import threefry_kernel as tk
     rng = np.random.default_rng(16)
@@ -3283,22 +3369,30 @@ def t1_phase(torch, dev, card, t1_instructions):
     nbytes = B * (2 * 8 + 4) + B * count * 4
     bound_ms, bound_by = bound(B, t1_instructions, nbytes)
     # device time: a CUDA graph of 100 calls, replayed (the call is bound
-    # by the host's launch)
-    n = torch.arange(B, dtype=torch.int32, device=dev)
-    tk.threefry_uniforms(key, n, count, 0)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(100):
-            tk.threefry_uniforms(key, n, count, 0)
-    device_ms = time_cuda(graph.replay)[0] / 100
+    # by the host's launch); at 1 lane, what a launch costs the device
+    device_ms = {}
+    for lanes in (B, 1):
+        for c, salt in ((count, 0), T1_SHAPES[1]):
+            k, n = key[:lanes], torch.arange(lanes, dtype=torch.int32,
+                                             device=dev)
+            tk.threefry_uniforms(k, n, c, salt)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(100):
+                    tk.threefry_uniforms(k, n, c, salt)
+            device_ms[lanes, c] = time_cuda(graph.replay)[0] / 100
     lib = tk._library()
     print(f"[T1] bit-equal to the plain version in {cases} cases (max abs "
           f"err {err}) and to the CPU's; {lib.gst_threefry_block()} lanes a "
           f"block, {t1_instructions} SASS instructions a lane at "
           f"{B} x {count}, bound {bound_ms} ms ({bound_by}); {ms[T1]} ms a "
-          f"call, {device_ms} ms of device time (CUDA-graph replay), "
-          f"against the plain version's {ms[T1 + '_plain']} ms "
+          f"call, {device_ms[B, count]} ms of device time (CUDA-graph "
+          f"replay), against the plain version's {ms[T1 + '_plain']} ms "
           f"({ms[T1 + '_plain'] / ms[T1]}x) | {card}")
+    print(f"[T1] device ms a call by the replay of 100 calls (lanes, "
+          f"count): {device_ms}; 1 lane, a launch's floor, is "
+          f"{device_ms[1, count] / device_ms[B, count] * 100} % of "
+          f"{B} x {count} | {card}")
     return err, ms, (B, nbytes)
 
 

@@ -98,9 +98,10 @@ def solve_matrix_games(M: torch.Tensor, iters: int = 100):
     ``solve_matrix_games_plain`` does, bit for bit.
 
     On a CPU tensor this runs ``solve_matrix_games_plain``; on a CUDA
-    tensor it launches kernel R1 (one thread a game, every iteration in
-    the kernel), which takes float32 games of 5 actions only and raises
-    ValueError for any other.  On the card the three outputs are views of
+    tensor it launches kernel R1 (a group of ten lanes of one warp a game,
+    one player's action a lane, every iteration in the kernel), which
+    takes float32 games of 5 actions only and raises ValueError for any
+    other.  On the card the three outputs are views of
     one allocation."""
     if M.device.type == "cpu":
         return solve_matrix_games_plain(M, iters)
@@ -150,8 +151,9 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     # device, games, n_games, iters, out, stream
     lib.gst_rmplus_solve.argtypes = [i32, vp, i32, i32, vp, vp]
     lib.gst_rmplus_solve.restype = i32
-    lib.gst_rmplus_block.argtypes = []
-    lib.gst_rmplus_block.restype = i32
+    # shape: int32 [3]: lanes a game, games a warp, warps a block
+    lib.gst_rmplus_shape.argtypes = [vp]
+    lib.gst_rmplus_shape.restype = None
     lib.gst_error_string.argtypes = [i32]
     lib.gst_error_string.restype = ctypes.c_char_p
     return lib

@@ -71,10 +71,11 @@ def build(name: str) -> Path:
 def compile_sources(sources, out: Path) -> Path:
     """Compile the ``.cu`` files ``sources`` into the library ``out`` with
     `NVCC_FLAGS`, its compiler report beside it as ``<library>.log``."""
+    nvcc = find_nvcc()   # before the temporary file, which it would leave
     out.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(s) for s in sources)]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(s) for s in sources)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:

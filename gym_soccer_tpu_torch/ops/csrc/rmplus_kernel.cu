@@ -9,7 +9,7 @@
 // once a sweep; the plain version issues ~38 PyTorch ops an iteration,
 // ~15,000 launches a 400-iteration solve, which would also be the nodes of
 // a CUDA graph of the trainers' work between chunks.  R1 runs all the
-// iterations of a game in one thread.
+// iterations of a game in one launch.
 //
 // What it computes, for each game M[g] (float32, row-major 5x5), with
 // x, y the row maximizer's and the column minimizer's strategies, R the
@@ -23,32 +23,88 @@
 // then x = sx / sum(sx), y = sy / sum(sy) and value = sum_i (x M)_i y[i].
 // iters == 0 gives 0 / 0: NaN strategies, as the plain version gives.
 //
+// Design: a game runs on a group of kLanes lanes of one warp.  Only the
+// sums over actions (s, vx, the final sum(S) and the value) couple the
+// actions; everything else is ten independent values.  At kLanes = 10
+// lane (p, i) owns player p's action i: its regret, its strategy sum and
+// the row i of M (p = 0, for (M y)[i]) or its column i (p = 1, for
+// (x M)[i]), converted to float64 once, before the loop.  An iteration is
+// three rounds of shuffles: the player's regrets for its sum, the shares
+// for the other player's FMA chains (each owner converts its share to
+// float64 once, and the readers shuffle that), and the products
+// x[i] * (M y)[i] for vx.  Three games fill 30 lanes of a warp; the two
+// spare lanes shadow the warp's last game, as a game past the last
+// shadows the last game, so that every lane takes part in the full-mask
+// shuffles, and write nothing.  kLanes = 5 (lane i owns action i of both
+// players, six games a warp, two interleaved chains a lane) is a variant:
+// on an H100 80GB HBM3 at 700 W it took 1.33x as long at the 5x4
+// contract's 761 games x 400 iterations and was 2 % faster at the 11x7
+// contract's 11705 x 600 (ops/rmplus_variants.py), far from the 1.2x that
+// would pay for a switch by game count.  Three choices each cut the time
+// at 761 x 400 there: every lane divides (`share`), 0.101 -> 0.089 ms; the
+// owners convert the shares to float64, 0.094 -> 0.089 ms (0.419 -> 0.359
+// at 11705 x 600); the weight is counted in float64 rather than converted
+// from t, within 2 %.
+//
 // Exactness: the plain version's arithmetic is fixed operation by
-// operation, so R1 equals it bit for bit.  An FMA-chain step (`_fma_dot`)
-// is the product of two float32, exact in float64, added to the float32
-// accumulator in float64 and rounded to float32: one float64 FMA (the
-// product is exact, so fusing it rounds nothing) and a conversion.  The
+// operation, so R1 equals it bit for bit.  Every sum over actions is
+// computed by every lane of the group from the five values read through
+// __shfl_sync, added in index order as the plain version adds them (no
+// tree, no __reduce_*), so all the lanes hold the same bits.  An FMA-chain
+// step (`_fma_dot`) is the product of two float32, exact in float64, added
+// to the float32 accumulator in float64 and rounded to float32: one
+// float64 FMA (the product is exact, so fusing it rounds nothing) and a
+// conversion; the chain's first step is the rounded float32 product.  The
 // averaging step is likewise one float64 FMA (a float32 times t + 1 <
 // 2^24 is exact).  Every float32 product, sum and quotient is written with
 // an explicit rounding intrinsic, so that nvcc's default -fmad=true cannot
 // contract s + a * b into an FMA; the clamp keeps a NaN as torch's
 // clamp_min does.
 //
-// What bounds it on this card: the latency of each thread's dependent
-// chain, ~280 SASS instructions an iteration (the strategies' sums and
-// divisions, four FMA-chain steps of a float32 -> float64 conversion, a
-// float64 FMA and a conversion back, vx, the regret update).  The time
-// does not move with the games a block or the games a call (761 to 11705,
-// one to three warps a SM); the divisions (`strategy`) and the float64 FMA
-// chains take most of it (ops/rmplus_variants.py times each part).  The
-// games' 100 B each are read once; there is nothing else to move.
+// What bounds it on this card: at the contract's 761 games (254 warps,
+// about two an SM) the latency of an iteration's dependent chain, which
+// the split cuts from one thread's ~2,700 cycles (ten divisions and ten
+// FMA chains a game: the previous design, csrc/rmplus_thread_kernel.cu) to
+// three shuffle rounds, a 4-add sum, one division, one 4-step float64
+// chain (each step a conversion, an FMA and a conversion back), vx and the
+// update: ~440 cycles an iteration, of which the chain's conversions
+// take ~100; at 11705 games (~7 warps a scheduler) the issue of the
+// float32 <-> float64 conversions (11 a lane-iteration, at a quarter of
+// the float64 FMA rate) and of the shuffles.  The games' 100 B each are
+// read once; there is nothing else to move.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kA = 5;           // actions a player
-constexpr int kThreads = 32;    // games a block: one warp
+constexpr int kA = 5;                  // actions a player
+constexpr int kLanes = 10;             // lanes a game: 10 or 5
+constexpr int kGames = 32 / kLanes;    // games a warp
+constexpr int kOwn = 2 * kA / kLanes;  // (player, action) pairs a lane owns
+constexpr int kWarps = 1;              // warps a block
+constexpr int kThreads = 32 * kWarps;
+constexpr unsigned kWarp = 0xffffffffu;
+
+// The lane of the game's group starting at lane `base` that owns player
+// p's action j.
+__device__ __forceinline__ int owner(int base, int p, int j) {
+  return base + (kLanes == kA ? j : kA * p + j);
+}
+
+// The slot of a lane's values that holds player p's: at kLanes = 10 a lane
+// holds its one player's in slot 0.
+__device__ __forceinline__ int slot(int p) { return kLanes == kA ? p : 0; }
+
+// sum_j v(p, j) over player p's actions in index order, `v` the lane's
+// value of player p: every lane reads the five values from their owners
+// and adds them as the plain version's index-order sum does.
+__device__ __forceinline__ float group_sum(float v, int base, int p) {
+  float s = __shfl_sync(kWarp, v, owner(base, p, 0));
+#pragma unroll
+  for (int j = 1; j < kA; ++j)
+    s = __fadd_rn(s, __shfl_sync(kWarp, v, owner(base, p, j)));
+  return s;
+}
 
 // One step of `_fma_dot`'s chain: float32(p * double(z) + acc), p and z
 // float32 values held in float64.
@@ -56,35 +112,16 @@ __device__ __forceinline__ float chain(float acc, double p, double z) {
   return __double2float_rn(__fma_rn(p, z, (double)acc));
 }
 
-// sum_i a[i] in index order.
-__device__ __forceinline__ float seq_sum(const float (&a)[kA]) {
-  float s = a[0];
-#pragma unroll
-  for (int i = 1; i < kA; ++i) s = __fadd_rn(s, a[i]);
-  return s;
-}
-
-// sum_i a[i] * b[i]: each product rounded, then summed in index order.
-__device__ __forceinline__ float seq_dot(const float (&a)[kA],
-                                         const float (&b)[kA]) {
-  float s = __fmul_rn(a[0], b[0]);
-#pragma unroll
-  for (int i = 1; i < kA; ++i) s = __fadd_rn(s, __fmul_rn(a[i], b[i]));
-  return s;
-}
-
-// The RM+ strategy of regrets r: r / sum(r), or uniform if the sum is not
-// positive, each share as IEEE division rounds it.  A zero regret's share
-// is the regret itself (0 / d for d > 0, with its sign), with no division:
-// RM+ clamps many regrets to zero, and __fdiv_rn on every share took 1.7x
-// as long (ops/rmplus_variants.py).
-__device__ __forceinline__ void strategy(const float (&r)[kA],
-                                         float (&x)[kA]) {
-  const float s = seq_sum(r);
+// The RM+ share of regret r, s the sum of its player's regrets: r / s, or
+// uniform if the sum is not positive, as IEEE division rounds it.  A zero
+// regret's share is the regret itself (0 / d for d > 0, with its sign).
+// Every lane divides, a zero regret d by d: RM+ clamps many regrets to
+// zero, and a branch around their division split the group's lanes, while
+// __fdiv_rn of a zero takes its slow path.
+__device__ __forceinline__ float share(float r, float s) {
   const float d = fmaxf(s, 1e-30f);
-#pragma unroll
-  for (int i = 0; i < kA; ++i)
-    x[i] = s > 0.0f ? (r[i] == 0.0f ? r[i] : __fdiv_rn(r[i], d)) : 0.2f;
+  const float q = __fdiv_rn(r == 0.0f ? d : r, d);
+  return s > 0.0f ? (r == 0.0f ? r : q) : 0.2f;
 }
 
 // torch.clamp_min(v, 0) on the card: a NaN stays NaN.
@@ -92,84 +129,91 @@ __device__ __forceinline__ float clamp0(float v) {
   return v != v ? v : fmaxf(v, 0.0f);
 }
 
-// (M y)[i] and (x M)[i], each an FMA chain over j from j = 0.
-__device__ __forceinline__ void payoffs(const float (&m)[kA * kA],
-                                        const float (&x)[kA],
-                                        const float (&y)[kA],
-                                        float (&px)[kA], float (&py)[kA]) {
-  double xd[kA], yd[kA];
+// A payoff against player q's shares, read from their owners: the FMA
+// chain over j from j = 0 of the lane's row or column of M (m0 its first
+// entry, md the others in float64), its first step the float32 product
+// with the share z, the others with the share in float64, zd, which its
+// owner converted once.
+__device__ __forceinline__ float payoff(float m0, const double (&md)[kA - 1],
+                                        float z, double zd, int base, int q) {
+  float acc = __fmul_rn(m0, __shfl_sync(kWarp, z, owner(base, q, 0)));
 #pragma unroll
-  for (int j = 0; j < kA; ++j) {
-    xd[j] = (double)x[j];
-    yd[j] = (double)y[j];
-  }
-#pragma unroll
-  for (int i = 0; i < kA; ++i) {
-    float a = __fmul_rn(m[i * kA], y[0]);
-    float b = __fmul_rn(m[i], x[0]);
-#pragma unroll
-    for (int j = 1; j < kA; ++j) {
-      a = chain(a, (double)m[i * kA + j], yd[j]);
-      b = chain(b, (double)m[j * kA + i], xd[j]);
-    }
-    px[i] = a;
-    py[i] = b;
-  }
-}
-
-// Iteration t's updates from the strategies x, y: the payoffs, vx, the
-// regrets and the strategy sums.
-__device__ __forceinline__ void update(const float (&m)[kA * kA],
-                                       const float (&x)[kA],
-                                       const float (&y)[kA], int t,
-                                       float (&rx)[kA], float (&ry)[kA],
-                                       float (&sx)[kA], float (&sy)[kA]) {
-  float px[kA], py[kA];
-  payoffs(m, x, y, px, py);
-  const float vx = seq_dot(x, px);
-  const double w = (double)(t + 1);
-#pragma unroll
-  for (int i = 0; i < kA; ++i) {
-    rx[i] = clamp0(__fadd_rn(rx[i], __fsub_rn(px[i], vx)));
-    ry[i] = clamp0(__fadd_rn(ry[i], -__fsub_rn(py[i], vx)));
-    sx[i] = __double2float_rn(__fma_rn((double)x[i], w, (double)sx[i]));
-    sy[i] = __double2float_rn(__fma_rn((double)y[i], w, (double)sy[i]));
-  }
+  for (int j = 1; j < kA; ++j)
+    acc = chain(acc, md[j - 1], __shfl_sync(kWarp, zd, owner(base, q, j)));
+  return acc;
 }
 
 __global__ void __launch_bounds__(kThreads)
     rmplus_kernel(const float* __restrict__ games, int n_games, int iters,
                   float* __restrict__ value, float* __restrict__ xs,
                   float* __restrict__ ys) {
-  const int g = blockIdx.x * kThreads + threadIdx.x;
-  if (g >= n_games) return;
-  float m[kA * kA];
+  const int lane = threadIdx.x % 32;
+  const int warp = blockIdx.x * kWarps + threadIdx.x / 32;
+  const bool spare = lane >= kGames * kLanes;
+  const int group = spare ? kGames - 1 : lane / kLanes;
+  const int sub = spare ? lane - kGames * kLanes : lane % kLanes;
+  const int base = group * kLanes;
+  const int action = sub % kA;
+  const int me = sub / kA;               // the lane's player at kLanes = 10
+  const int first = warp * kGames + group;
+  const bool writes = !spare && first < n_games;
+  const size_t g = min(first, n_games - 1);
+  // slot k's player: k at kLanes = 5, the lane's at kLanes = 10
+  int player[kOwn];
+  float m0[kOwn], r[kOwn], s[kOwn], z[kOwn], pay[kOwn];
+  double md[kOwn][kA - 1], zd[kOwn];
 #pragma unroll
-  for (int k = 0; k < kA * kA; ++k) m[k] = games[(size_t)g * kA * kA + k];
-  float rx[kA], ry[kA], sx[kA], sy[kA];
+  for (int k = 0; k < kOwn; ++k) {
+    player[k] = kLanes == kA ? k : me;
+    const float* m = games + g * kA * kA;
+    // player 0's payoff for action i is row i of M, player 1's column i
+    const int at = player[k] == 0 ? action * kA : action;
+    const int step = player[k] == 0 ? 1 : kA;
+    m0[k] = m[at];
 #pragma unroll
-  for (int i = 0; i < kA; ++i) rx[i] = ry[i] = sx[i] = sy[i] = 0.0f;
+    for (int j = 1; j < kA; ++j) md[k][j - 1] = (double)m[at + j * step];
+    r[k] = s[k] = 0.0f;
+  }
+  double w = 0.0;   // the averaging weight t + 1, counted in float64
 #pragma unroll 1
   for (int t = 0; t < iters; ++t) {
-    float x[kA], y[kA];
-    strategy(rx, x);
-    strategy(ry, y);
-    update(m, x, y, t, rx, ry, sx, sy);
-  }
-  const float nx = seq_sum(sx), ny = seq_sum(sy);
-  float x[kA], y[kA], px[kA], py[kA];
+    w = __dadd_rn(w, 1.0);
 #pragma unroll
-  for (int i = 0; i < kA; ++i) {
-    x[i] = __fdiv_rn(sx[i], nx);
-    y[i] = __fdiv_rn(sy[i], ny);
-  }
-  payoffs(m, x, y, px, py);   // py = x M
-  value[g] = seq_dot(py, y);
+    for (int k = 0; k < kOwn; ++k) {
+      z[k] = share(r[k], group_sum(r[k], base, player[k]));
+      zd[k] = (double)z[k];
+    }
 #pragma unroll
-  for (int i = 0; i < kA; ++i) {
-    xs[(size_t)g * kA + i] = x[i];
-    ys[(size_t)g * kA + i] = y[i];
+    for (int k = 0; k < kOwn; ++k) {
+      const int q = 1 - player[k];
+      pay[k] = payoff(m0[k], md[k], z[slot(q)], zd[slot(q)], base, q);
+    }
+    // vx = sum_i x[i] * (M y)[i]: player 0's owners round the products
+    const float vx = group_sum(__fmul_rn(z[0], pay[0]), base, 0);
+#pragma unroll
+    for (int k = 0; k < kOwn; ++k) {
+      const float d = __fsub_rn(pay[k], vx);
+      r[k] = clamp0(__fadd_rn(r[k], player[k] == 0 ? d : -d));
+      s[k] = __double2float_rn(__fma_rn(zd[k], w, (double)s[k]));
+    }
   }
+#pragma unroll
+  for (int k = 0; k < kOwn; ++k) {
+    z[k] = __fdiv_rn(s[k], group_sum(s[k], base, player[k]));
+    zd[k] = (double)z[k];
+  }
+#pragma unroll
+  for (int k = 0; k < kOwn; ++k) {
+    const int q = 1 - player[k];
+    pay[k] = payoff(m0[k], md[k], z[slot(q)], zd[slot(q)], base, q);
+  }
+  // value = sum_i (x M)[i] * y[i], from player 1's owners
+  const float v = group_sum(__fmul_rn(pay[slot(1)], z[slot(1)]), base, 1);
+  if (!writes) return;
+#pragma unroll
+  for (int k = 0; k < kOwn; ++k)
+    (player[k] == 0 ? xs : ys)[g * kA + action] = z[k];
+  if (sub == 0) value[g] = v;
 }
 
 }  // namespace
@@ -186,14 +230,18 @@ int gst_rmplus_solve(int device, const float* games, int n_games, int iters,
   if (n_games == 0) return 0;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const int blocks = (n_games + kThreads - 1) / kThreads;
+  const int blocks = (n_games + kGames * kWarps - 1) / (kGames * kWarps);
   rmplus_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       games, n_games, iters, out, out + n_games, out + 6 * (size_t)n_games);
   return (int)cudaGetLastError();
 }
 
-// Games a block (kThreads), for chip_smoke.py's design line.
-int gst_rmplus_block() { return kThreads; }
+// The launch's shape: lanes a game, games a warp, warps a block.
+void gst_rmplus_shape(int* shape) {
+  shape[0] = kLanes;
+  shape[1] = kGames;
+  shape[2] = kWarps;
+}
 
 const char* gst_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -634,11 +634,12 @@ def _bits(t):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("games,iters", [(761, 400), (11705, 60), (64, 1),
-                                         (33, 0)])
+                                         (33, 0), (7, 300), (1, 300)])
 def test_rmplus_kernel_equals_plain_version(cuda, games, iters):
     """R1 equals the plain version on the card bit for bit (NaN for NaN at
-    iters == 0), on random games with near-ties among them; it takes only
-    float32 games of 5 actions, and counts its launches."""
+    iters == 0), on random games with near-ties among them, also where the
+    games leave a warp's lane groups partly empty (7 games, 1 game); it
+    takes only float32 games of 5 actions, and counts its launches."""
     import numpy as np
 
     from gym_soccer_tpu_torch.agents import learners
