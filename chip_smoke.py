@@ -3,7 +3,7 @@
 check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phases 34-38  # one block alone, in a fresh process
+    python3 chip_smoke.py --phases 39-46  # one block alone, in a fresh process
 
 Seven main paths, each driven with its kernels' launch counters reset just
 before it and read just after.  The rollout path is the batched random
@@ -28,8 +28,10 @@ last: the native host libraries, the ``SoccerSimultaneousEnv`` facade,
 ``fused_best_response_train`` (kernel K5) and ``entry()`` (kernel K5).
 The threefry path runs last: the entry point
 ``gym_soccer_tpu_torch.examples.train_minimax``, whose HBM-table learner
-draws every step through kernel T1 and re-solves through kernel R1, the
-learners, the engines and ``SoccerVectorEnv``.
+steps the engine through kernel S1 (the transition's and the resets'
+draws inside it), draws its actions through kernel T1 and re-solves
+through kernel R1, and whose evaluation draws its policy through T1's
+keyed entry; the learners, the engines and ``SoccerVectorEnv``.
 Phases, each of which raises on failure:
 
 1. device: a CUDA device is present; its name and power limit;
@@ -263,15 +265,17 @@ Phases, each of which raises on failure:
     ``gym_soccer_tpu_torch.examples.train_minimax``'s default mode (the
     HBM-table minimax-Q learner at 8192 envs, 2000 steps in chunks of 500,
     then ``eval_episode_stats`` at 1024 x 400) through ``main`` in this
-    process, T1's and R1's counters reset just before and read just after
-    (T1 ``ENTRY_T1`` launches, R1 ``ENTRY_R1``); its JSON lines checked;
+    process, S1's, T1's and R1's counters reset just before and read just
+    after (T1 ``ENTRY_T1`` launches, its keyed entry ``ENTRY_T1_KEYED``,
+    S1 ``ENTRY_S1``, R1 ``ENTRY_R1``); its JSON lines checked;
 40. T1 (``threefry_uniforms``, ``csrc/threefry_kernel.cu``): bit-equal to
     its plain version on the card at 8192 lanes with count 1, 2, 4 and 7,
     salt 0, 1 and 9, counters 0, 37 and 2**31 - 1, and to the plain
-    version on the CPU; T1 and the plain version timed at 8192 x 4 and
-    8192 x 2 (salt 9), T1's device time by the replay of a CUDA graph of
-    100 calls there and at 1 lane (the floor of a launch); its bound from
-    the SASS of its 4-uniform instance;
+    version on the CPU; T1 and the plain version timed at 8192 x 2 (salt
+    1, the learner's action draw) and 8192 x 1 (the inits' reset draw),
+    T1's device time by the replay of a CUDA graph of 100 calls there and
+    at 1 lane (the floor of a launch); its bound from the SASS of the
+    action draw's instance;
 41. the threefry engine: ``batch.init`` and 64 steps of ``rollout`` with
     ``random_policy_fn`` at 8192 lanes on 5x4 and 11x7, equal to the CPU
     run in every field;
@@ -288,22 +292,40 @@ Phases, each of which raises on failure:
 45. the learners' CUDA-graph replays against the CPU: at 2 lanes, 162
     steps of minimax-Q, IQL, turn-based Q and mixture minimax-Q (an
     unaligned head, two replays, a period on its own, a tail) bit-equal
-    to the same calls on the CPU, with T1's and R1's launches counted;
+    to the same calls on the CPU, with S1's, T1's and R1's launches
+    counted;
     at 512 lanes, one 64-step minimax-Q period (one replay, the re-solve
     on its last step) with the env and the visit counts exact and q, the
-    per-step |TD|, v and pi within stated tolerances.
+    per-step |TD|, v and pi within stated tolerances;
+46. S1 (``batch.step`` on the card, ``csrc/engine_kernel.cu``): bit-equal
+    to ``batch.step_plain`` on the card in every state and StepOut field
+    at 8192 lanes on 5x4 and 11x7, slip 0.2 and 0, autoreset on and off,
+    threefry and counter, from goal-state, wrapping and truncating lanes,
+    one launch a step; captured in a CUDA graph and replayed, equal to its
+    eager call; S1 and ``step_plain`` timed (call ms, and device ms by
+    CUDA-graph replay) beside T1's device ms, with S1's bound; counted by
+    ``torch.profiler`` right after the build, the device operations of
+    one engine step, one eager minimax learner step and one evaluation
+    policy draw, before (``step_plain``, the plain draw) and after (S1,
+    the keyed entry); ``eval_episode_stats``' loop on both designs, in
+    turns; T1's keyed entry (``keyed_kernel``) bit-equal to its plain
+    versions, timed at the evaluation's 2 x 1024 (call ms, device ms by
+    CUDA-graph replay) beside its plain version, with its bound.
 
 ``--phases`` runs one block of phases alone in a fresh process, building
-only its libraries: 34-38 (K5) or 39-45 (T1, R1, K5); it prints the
+only its libraries: 34-38 (K5) or 39-46 (S1, T1, R1, K5); it prints the
 block's figures but no kernels line and no verdict.
 
 The second-to-last lines are the kernels' JSON record (the 14 kernel
-sites, R1 and T1, with each kernel's bound: the larger of its bytes over
-the HBM rate and its SASS instructions per step, R1's per game-iteration
-(the fewer of its lanes' and its previous design's, so that the shuffles
-and sums the split repeats in each lane do not raise its bound) and T1's
-per lane, times its steps over the instruction rate) and the card's name
-and power limit; the last line is the JSON verdict.  The whole run prints
+sites, R1, T1, its keyed entry and S1, with each kernel's bound: the
+larger of its bytes over the HBM rate and its SASS instructions per
+step, R1's per
+game-iteration (the fewer of its lanes' and its previous design's, so
+that the shuffles and sums the split repeats in each lane do not raise
+its bound), T1's, its keyed entry's and S1's on the shortest way
+through a thread (``path_instructions``), times its steps over the
+instruction rate) and
+the card's name and power limit; the last line is the JSON verdict.  The whole run prints
 its wall time.  Exits non-zero, with no verdict, if anything fails or no
 CUDA device is present.
 """
@@ -572,22 +594,51 @@ BR_OPP_SEED, BR_LANES, BR_STEPS, BR_EVAL_SEED = 42, 2048, 400, 9
 BR_WIN_SHARE = 0.95
 
 
-# Phases 39-45, the threefry slice.  T1, the per-lane threefry draw (no
+# Phases 39-46, the threefry slice.  T1, the per-lane threefry draw (no
 # TPU kernel: the JAX package's XLA threefry under batch.per_env_uniforms).
 T1 = "threefry_uniforms"
 T1_SRC = "gym_soccer_tpu_torch/ops/csrc/threefry_kernel.cu"
 T1_REPLACES = "gym_soccer_tpu/core/batch.py:157"
-# T1's instance for a step's draw (4 uniforms, no salt), the shape its ms
-# and bound are taken at; and the policies' draw (2 uniforms, salt 9).
-T1_SYMBOL = "24threefry_uniforms_kernelILi4ELb0E"
-T1_SHAPES = ((4, 0), (2, 9))
+# T1's instance on the main path, the learner's action draw (2 uniforms,
+# salt 1), whose SASS gives T1's bound; the shapes T1 is timed at, that
+# draw first (its ms and bound) and the inits' reset draw (1 uniform).
+T1_SYMBOL = "24threefry_uniforms_kernelILi2ELb1E"
+T1_SHAPES = ((2, 1), (1, 0))
+# T1's keyed entry, a kernel of its own (keyed_kernel<RANDINT>): the
+# evaluation's policy draw uniform(fold_in(key, i), (2, 1024)) on the main
+# path (no TPU kernel: the JAX example's jax.random draw), its uniform
+# instance's symbol, and the calls a CUDA graph replays to time it.
+T1_KEYED = "threefry_keyed"
+T1_KEYED_REPLACES = "examples/train_minimax_tpu.py:37"
+T1_KEYED_SYMBOL = "12keyed_kernelILb0E"
+T1_KEYED_SHAPE = (2, 1024)
+KEYED_GRAPH_CALLS = 100
+# Phase 46, S1: the batched engine's step, its draws inside (no TPU
+# kernel: the JAX package's XLA batch.step).  Its instance on the main
+# path (threefry, autoreset, int64 actions), whose SASS gives its bound;
+# each bit-equality case's steps; the calls a CUDA graph replays to time
+# S1 and its plain version.
+S1 = "engine_step"
+S1_SRC = "gym_soccer_tpu_torch/ops/csrc/engine_kernel.cu"
+S1_REPLACES = "gym_soccer_tpu/core/batch.py:227"
+S1_SYMBOL = "18engine_step_kernelILi0ELb1ELb1E"
+S1_STEPS = 6
+S1_GRAPH_CALLS, PLAIN_GRAPH_CALLS = 100, 10
+# The kernels no TPU kernel precedes: their sources and the JAX functions
+# they compute.
+ADDED_SOURCE = {RMPLUS: RMPLUS_SRC, T1: T1_SRC, T1_KEYED: T1_SRC,
+                S1: S1_SRC}
+ADDED_REPLACES = {RMPLUS: RMPLUS_REPLACES, T1: T1_REPLACES,
+                  T1_KEYED: T1_KEYED_REPLACES, S1: S1_REPLACES}
 # The entry point's default mode at its own widths (examples/
 # train_minimax_tpu.py:247-251), 2000 steps in chunks of 500: per step T1
-# draws the actions, the transition and the resets (3 launches), R1
-# re-solves every 64th step; then eval_episode_stats' 400 steps (2 a step)
-# and the two initialisations.
+# draws the learner's actions and S1 steps the engine (the transition's
+# and the resets' draws inside it), R1 re-solves every 64th step; then
+# eval_episode_stats' 400 steps (T1's keyed entry and S1 a step) and the
+# two initialisations (T1).
 ENTRY = ["--envs", "8192", "--chunk", "500", "--steps", "2000"]
-ENTRY_T1 = 1 + 3 * 2000 + 1 + 2 * 400
+ENTRY_T1, ENTRY_T1_KEYED = 1 + 2000 + 1, 400
+ENTRY_S1 = 2000 + 400
 ENTRY_R1 = 2000 // 64
 # Phase 45: two lanes keep every scatter-add cell to at most two addends
 # a step (a sum of two floats does not depend on their order), so the
@@ -645,12 +696,18 @@ def sass_listing(path):
                           text=True, timeout=120, check=True).stdout
 
 
-def t1_instructions(_build):
-    """SASS instructions a lane of T1's step-draw instance issues."""
-    found = straight_instructions(
-        sass_listing(_build.build("threefry_kernel")), [T1_SYMBOL])
-    check(len(found) == 1, f"T1: {len(found)} kernels match {T1_SYMBOL}")
-    return next(iter(found.values()))
+def added_instructions(_build):
+    """{kernel name: SASS instructions on the shortest way through a
+    thread} of T1's main path instance, its keyed entry's and S1's
+    (``path_instructions``)."""
+    counts = {}
+    for name, library, sym in ((T1, "threefry_kernel", T1_SYMBOL),
+                               (T1_KEYED, "threefry_kernel", T1_KEYED_SYMBOL),
+                               (S1, "engine_kernel", S1_SYMBOL)):
+        found = path_instructions(sass_listing(_build.build(library)), [sym])
+        check(len(found) == 1, f"{name}: {len(found)} kernels match {sym}")
+        counts[name] = next(iter(found.values()))
+    return counts
 
 
 def sass_loop_instructions(path, names=None):
@@ -758,37 +815,45 @@ def sass_functions(text, names=None):
     return kernels
 
 
-def straight_instructions(text, names=None):
-    """{mangled kernel name: SASS instructions a thread issues} for
-    kernels with no loop (T1's unrolled instances): the instructions from
-    the entry to the first unpredicated EXIT, inclusive (a predicated
-    early exit is issued and not taken)."""
+def path_instructions(text, names=None):
+    """{mangled kernel name: SASS instructions a thread issues on the
+    shortest way from the kernel's entry to an unpredicated EXIT} for the
+    kernels of one thread a lane (T1, its keyed entry, S1): ``_shortest``
+    over the whole kernel.  A predicated EXIT (the lanes past the last)
+    counts as issued and not taken, a loop as the fewest trips its
+    branches allow, a call as one instruction."""
     counts = {}
     for name, ins in sass_functions(text, names).items():
-        check(not any(b and int(b.group(2), 16) < addr for addr, op in ins
-                      for b in [BRANCH.match(op)]),
-              f"{name} has a loop; count its trips instead")
-        ends = [i for i, (_, op) in enumerate(ins) if op == "EXIT"]
-        check(ends, f"no EXIT in the SASS of {name}")
-        counts[name] = ends[0] + 1
+        found = _shortest(ins, lambda j: ins[j][1] == "EXIT")
+        check(found < math.inf, f"no way to an EXIT in the SASS of {name}")
+        counts[name] = found
     return counts
 
 
 def _trip(name, body):
     """The fewest instructions from the head of the loop ``body`` (its
-    (address, op) pairs) to its back edge, inclusive: a breadth-first
-    search in which every instruction weighs one."""
+    (address, op) pairs) to its back edge, inclusive."""
+    found = _shortest(body, lambda j: j == len(body) - 1)
+    check(found < math.inf, f"no way around the loop of {name}")
+    return found
+
+
+def _shortest(body, end):
+    """The fewest instructions from ``body[0]`` to an instruction ``j``
+    with ``end(j)``, both inclusive (math.inf if none): a breadth-first
+    search over ``_successors`` in which every instruction weighs one."""
     at = {addr: i for i, (addr, _) in enumerate(body)}
     atomic = [bool(ATOMIC.match(op)) for _, op in body]
     dist = [math.inf] * len(body)
     dist[0], todo = 1, [0]
     for j in todo:
+        if end(j):
+            return dist[j]
         for k in _successors(body, at, atomic, j):
             if dist[k] == math.inf:
                 dist[k] = dist[j] + 1
                 todo.append(k)
-    check(dist[-1] < math.inf, f"no way around the loop of {name}")
-    return dist[-1]
+    return math.inf
 
 
 def _split_count(name, ins, loops):
@@ -810,8 +875,10 @@ def _split_count(name, ins, loops):
 
 
 def _successors(body, at, atomic, j):
-    """Indices in ``body`` that instruction ``j`` may pass control to,
-    within the loop; the back edge at the end has none."""
+    """Indices in ``body`` (a loop or a whole kernel) that instruction
+    ``j`` may pass control to; the last (a loop's back edge) and an
+    unpredicated EXIT have none, and a forward branch over an atomic is
+    not taken (atomics count in full)."""
     if j == len(body) - 1:
         return ()
     b = BRANCH.match(body[j][1])
@@ -931,11 +998,11 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Build and drive the port on one CUDA device.")
     parser.add_argument(
-        "--phases", choices=("34-38", "39-45"),
-        help="build only the block's libraries (34-38: K5; 39-45: T1, R1 "
-             "and K5) and run its phases alone, in this fresh process: their "
-             "figures before any earlier phase has run; prints no kernels "
-             "line and no verdict")
+        "--phases", choices=("34-38", "39-46"),
+        help="build only the block's libraries (34-38: K5; 39-46: S1, T1, "
+             "R1 and K5) and run its phases alone, in this fresh process: "
+             "their figures before any earlier phase has run; prints no "
+             "kernels line and no verdict")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -960,15 +1027,19 @@ def main(argv=None) -> int:
         libraries, run = {
             "34-38": (("learner_kernel",),
                       lambda: surface_phases(torch, dev, card, lk)),
-            "39-45": (("threefry_kernel", "rmplus_kernel", "learner_kernel"),
-                      lambda: threefry_phases(torch, dev, card,
-                                              t1_instructions(_build))),
+            "39-46": (("engine_kernel", "threefry_kernel", "rmplus_kernel",
+                       "learner_kernel"),
+                      lambda: threefry_phases(
+                          torch, dev, card, added_instructions(_build),
+                          step_counts)),
         }[args.phases]
         t0 = time.perf_counter()
         for name in libraries:
             _build.load(name)
         print(f"[build] {', '.join(libraries)} in "
               f"{time.perf_counter() - t0:.3f} s")
+        step_counts = (step_kernel_counts(torch, dev, card)
+                       if args.phases == "39-46" else None)
         run()
         print(f"[done] chip_smoke.py --phases {args.phases} ran "
               f"{time.perf_counter() - t_start} s")
@@ -991,6 +1062,8 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.3f} s")
     for path in built.values():
         print(path.with_suffix(".log").read_text().strip())
+    # early in the process, where the profiler records every launch
+    step_counts = step_kernel_counts(torch, dev, card)
     shape = (ctypes.c_int32 * 3)()
     sk._library().gst_rollout_shape(ctypes.addressof(shape))
     check(shape[0] == TILE_STEPS, f"K1/K2/K4 tiles of {shape[0]} steps, "
@@ -1258,11 +1331,12 @@ def main(argv=None) -> int:
     contract_11x7_phase(torch, dev, card, lk, exploitability)
 
     surface_phases(torch, dev, card, lk)
-    per_step[T1] = t1_instructions(_build)
-    t1_launches, errs[T1], t1_ms, t1_work = threefry_phases(
-        torch, dev, card, per_step[T1])
-    launches[T1] = t1_launches
-    ms.update(t1_ms)
+    per_step.update(added_instructions(_build))
+    t_launches, t_errs, t_ms, t_work = threefry_phases(
+        torch, dev, card, per_step, step_counts)
+    launches.update(t_launches)
+    errs.update(t_errs)
+    ms.update(t_ms)
 
     # Each kernel's work at the shape its ms was timed: lane-steps (or
     # lane-events) and the bytes of its inputs and outputs, each once.
@@ -1285,7 +1359,7 @@ def main(argv=None) -> int:
         **mg_work,
         **alt_work,
         RMPLUS: rm_work,
-        T1: t1_work,
+        **t_work,
     }
     kernels = []
     for name in ("fused_rollout", "fused_journal_rollout",
@@ -1293,15 +1367,13 @@ def main(argv=None) -> int:
                  "multigrid_packed_learner_chunk", "learner_chunk",
                  "multigrid_learner_chunk", "iql_packed_chunk", "iql_chunk",
                  "altq_packed_chunk", "altq_chunk", "parity_events",
-                 "parity_scripted_events", RMPLUS, T1):
+                 "parity_scripted_events", RMPLUS, T1, T1_KEYED, S1):
         units, nbytes = work[name]
         bound_ms, bound_by = bound(units, per_step[name], nbytes)
         kernels.append(
             {"name": name, "route": "cuda",
-             "source": SOURCE.get(name, T1_SRC if name == T1
-                                  else RMPLUS_SRC),
-             "replaces": REPLACES.get(name, T1_REPLACES if name == T1
-                                      else RMPLUS_REPLACES),
+             "source": {**SOURCE, **ADDED_SOURCE}[name],
+             "replaces": {**REPLACES, **ADDED_REPLACES}[name],
              "launches": launches[name],
              "max_abs_err": errs[name], "ms": ms[name],
              "plain_ms": ms[name + "_plain"], "bound_ms": bound_ms,
@@ -3250,16 +3322,19 @@ def alt_phases(torch, dev, card, cfgs, per_step, regs):
     return launches, errs, ms, work
 
 
-def threefry_phases(torch, dev, card, t1_instructions):
-    """Phases 39-45, the threefry slice, each with its wall seconds.
-    Returns T1's launches on the slice's main path, its max abs error
-    against the plain version, its ms and plain ms, and its work."""
+def threefry_phases(torch, dev, card, instructions, step_counts):
+    """Phases 39-46, the threefry slice, each with its wall seconds.
+    Returns the launches of T1, its keyed entry and S1 on the slice's main
+    path, their max abs errors against the plain versions, their ms and
+    plain ms, and their work, each a dict by kernel name; ``instructions``
+    is ``added_instructions``."""
     t_all = time.perf_counter()
     t0 = time.perf_counter()
     launches = entry_main_path(torch, dev, card)
     print(f"[phase 39] {time.perf_counter() - t0} s")
     t0 = time.perf_counter()
-    err, ms, work = t1_phase(torch, dev, card, t1_instructions)
+    err, ms, work = t1_phase(torch, dev, card, instructions[T1])
+    errs, work = {T1: err}, {T1: work}
     print(f"[phase 40] {time.perf_counter() - t0} s")
     t0 = time.perf_counter()
     engine_phase(torch, dev, card)
@@ -3276,8 +3351,16 @@ def threefry_phases(torch, dev, card, t1_instructions):
     t0 = time.perf_counter()
     graph_phase(torch, dev, card)
     print(f"[phase 45] {time.perf_counter() - t0} s")
-    print(f"[threefry] phases 39-45 ran {time.perf_counter() - t_all} s")
-    return launches, err, ms, work
+    t0 = time.perf_counter()
+    errs[S1], s1_ms, work[S1] = s1_phase(torch, dev, card, instructions[S1],
+                                         ms[T1 + "_device"], step_counts)
+    ms.update(s1_ms)
+    errs[T1_KEYED], keyed_ms, work[T1_KEYED] = keyed_phase(
+        torch, dev, card, instructions[T1_KEYED])
+    ms.update(keyed_ms)
+    print(f"[phase 46] {time.perf_counter() - t0} s")
+    print(f"[threefry] phases 39-46 ran {time.perf_counter() - t_all} s")
+    return launches, errs, ms, work
 
 
 def json_lines(text):
@@ -3287,18 +3370,22 @@ def json_lines(text):
 def entry_main_path(torch, dev, card):
     """Phase 39, the slice's main path: the entry point's default mode
     (``train_minimax.main``, the HBM-table minimax-Q learner, then
-    ``eval_episode_stats``) at 8192 envs in this process, T1's and R1's
-    launch counters reset just before and read just after; T1 launched
-    ENTRY_T1 times, R1 ENTRY_R1; its lines are the JAX example's, v in
-    [-1.05, 1.05], the exploitability finite, the eval's episodes
-    counted."""
+    ``eval_episode_stats``) at 8192 envs in this process, S1's, T1's and
+    R1's launch counters reset just before and read just after: T1's
+    per-lane entry launched ENTRY_T1 times, its keyed entry
+    ENTRY_T1_KEYED, S1 ENTRY_S1, R1 ENTRY_R1; its lines are the JAX
+    example's, v in [-1.05, 1.05], the exploitability finite, the eval's
+    episodes counted.  Returns the launches of T1, its keyed entry and S1
+    by kernel name."""
     import contextlib
     import io
     from gym_soccer_tpu_torch.agents import learners
     from gym_soccer_tpu_torch.examples import train_minimax
+    from gym_soccer_tpu_torch.ops import engine_kernel as ek
     from gym_soccer_tpu_torch.ops import threefry_kernel as tk
     out = io.StringIO()
     tk.reset_launch_counts()
+    ek.reset_launch_counts()
     learners.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3306,10 +3393,13 @@ def entry_main_path(torch, dev, card):
         train_minimax.main(ENTRY)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    t1, r1 = tk.launch_counts[T1], learners.launch_counts[RMPLUS]
-    check(t1 == ENTRY_T1 and r1 == ENTRY_R1,
-          f"entry point: T1 launched {t1} times (not {ENTRY_T1}), R1 {r1} "
-          f"(not {ENTRY_R1})")
+    t1, keyed = tk.launch_counts[T1], tk.launch_counts[T1_KEYED]
+    s1, r1 = ek.launch_counts[S1], learners.launch_counts[RMPLUS]
+    check((t1, keyed, s1, r1) == (ENTRY_T1, ENTRY_T1_KEYED, ENTRY_S1,
+                                  ENTRY_R1),
+          f"entry point: T1 launched {t1} + {keyed} (keyed) times, S1 {s1}, "
+          f"R1 {r1}; not {ENTRY_T1} ({ENTRY_T1_KEYED} keyed), {ENTRY_S1}, "
+          f"{ENTRY_R1}")
     lines = json_lines(out.getvalue())
     events = [ln.get("event") for ln in lines]
     check(events == ["compiled", None, None, None, "finished",
@@ -3321,9 +3411,10 @@ def entry_main_path(torch, dev, card):
     print(f"[main path] python -m gym_soccer_tpu_torch.examples."
           f"train_minimax {' '.join(ENTRY)} (default mode) in this process: "
           f"{wall} s (host clock; the first chunk {lines[0]['seconds']} s "
-          f"with T1's and R1's loads); T1 launched {t1} times, R1 {r1}; "
-          f"finished {fin}; eval_episode_stats {ev} | {card}")
-    return t1
+          f"with the kernels' loads); T1 launched {t1} times, its keyed "
+          f"entry {keyed}, S1 {s1}, R1 {r1}; finished {fin}; "
+          f"eval_episode_stats {ev} | {card}")
+    return {T1: t1, T1_KEYED: keyed, S1: s1}
 
 
 def t1_phase(torch, dev, card, t1_instructions):
@@ -3331,9 +3422,10 @@ def t1_phase(torch, dev, card, t1_instructions):
     8192 lanes with count 1, 2 and 4, salt 0, 1 and 9 and counters 0, 37
     and 2**31 - 1 (random key words), and the generic count 7; one shape
     against the plain version on the CPU; T1 and the plain version timed
-    at 8192 x 4 (a step's draw) and 8192 x 2 (salt 9, a policy's); T1's
-    device time by the replay of a CUDA graph of 100 calls at both shapes
-    and at 1 lane (the floor of a launch, whatever its lanes do)."""
+    at T1_SHAPES (the learner's action draw, 8192 x 2 salt 1, which gives
+    T1's ms and bound, and the inits' reset draw, 8192 x 1); T1's device
+    time by the replay of a CUDA graph of 100 calls at both shapes and at
+    1 lane (the floor of a launch, whatever its lanes do)."""
     import numpy as np
     from gym_soccer_tpu_torch.ops import threefry_kernel as tk
     rng = np.random.default_rng(16)
@@ -3372,7 +3464,7 @@ def t1_phase(torch, dev, card, t1_instructions):
     # by the host's launch); at 1 lane, what a launch costs the device
     device_ms = {}
     for lanes in (B, 1):
-        for c, salt in ((count, 0), T1_SHAPES[1]):
+        for c, salt in T1_SHAPES:
             k, n = key[:lanes], torch.arange(lanes, dtype=torch.int32,
                                              device=dev)
             tk.threefry_uniforms(k, n, c, salt)
@@ -3385,7 +3477,8 @@ def t1_phase(torch, dev, card, t1_instructions):
     print(f"[T1] bit-equal to the plain version in {cases} cases (max abs "
           f"err {err}) and to the CPU's; {lib.gst_threefry_block()} lanes a "
           f"block, {t1_instructions} SASS instructions a lane at "
-          f"{B} x {count}, bound {bound_ms} ms ({bound_by}); {ms[T1]} ms a "
+          f"{B} x {count} (salt {T1_SHAPES[0][1]}), bound {bound_ms} ms "
+          f"({bound_by}); {ms[T1]} ms a "
           f"call, {device_ms[B, count]} ms of device time (CUDA-graph "
           f"replay), against the plain version's {ms[T1 + '_plain']} ms "
           f"({ms[T1 + '_plain'] / ms[T1]}x) | {card}")
@@ -3393,6 +3486,7 @@ def t1_phase(torch, dev, card, t1_instructions):
           f"count): {device_ms}; 1 lane, a launch's floor, is "
           f"{device_ms[1, count] / device_ms[B, count] * 100} % of "
           f"{B} x {count} | {card}")
+    ms[T1 + "_device"] = device_ms[B, count]
     return err, ms, (B, nbytes)
 
 
@@ -3689,16 +3783,18 @@ def graph_phase(torch, dev, card):
     GRAPH_START steps, GRAPH_STEPS steps of minimax-Q (lr and eps
     halflives), IQL, turn-based Q against a frozen standing B and mixture
     minimax-Q on 5x4+6x5: every leaf and every step's |TD| bit-equal, T1
-    launched a single step's count each step and R1 once a period.  At
-    GRAPH_WIDE lanes, one 64-step minimax-Q period from step 0 (one replay,
-    the re-solve on its last step): pi is uniform until then, so the env
-    fields and the visit counts equal the CPU's exactly; q and each step's
-    |TD| within GRAPH_TOL * (1 + |x|), v and pi within GRAPH_SOLVE_TOL."""
+    and S1 launched a single step's count each step and R1 once a period.
+    At GRAPH_WIDE lanes, one 64-step minimax-Q period from step 0 (one
+    replay, the re-solve on its last step): pi is uniform until then, so
+    the env fields and the visit counts equal the CPU's exactly; q and
+    each step's |TD| within GRAPH_TOL * (1 + |x|), v and pi within
+    GRAPH_SOLVE_TOL."""
     import numpy as np
     from gym_soccer_tpu_torch.agents import learners as L
     from gym_soccer_tpu_torch.config import EnvConfig
     from gym_soccer_tpu_torch.core import threefry
     from gym_soccer_tpu_torch.envs import soccer_alternating_env as alt
+    from gym_soccer_tpu_torch.ops import engine_kernel as ek
     from gym_soccer_tpu_torch.ops import threefry_kernel as tk
     cfg = EnvConfig(5, 4, SLIP)
     mix = (cfg, EnvConfig(6, 5, SLIP))
@@ -3710,6 +3806,7 @@ def graph_phase(torch, dev, card):
     def reset():
         torch.cuda.synchronize()
         tk.reset_launch_counts()
+        ek.reset_launch_counts()
         L.reset_launch_counts()
 
     mc = L.MinimaxQConfig(lr=0.3, resolve_every=16, solver_iters=50,
@@ -3734,13 +3831,14 @@ def graph_phase(torch, dev, card):
         reset()
         train(to(st, dev), 1)
         torch.cuda.synchronize()
-        per_step = tk.launch_counts[T1]
+        per_step, s1_step = tk.launch_counts[T1], ek.launch_counts[S1]
         reset()
         t0 = time.perf_counter()
         got, gtd = train(to(st, dev), GRAPH_STEPS)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         t1, r1 = tk.launch_counts[T1], L.launch_counts[RMPLUS]
+        s1 = ek.launch_counts[S1]
         want, wtd = train(st, GRAPH_STEPS)
         leaves = list(zip(L._tensors(got), L._tensors(want)))
         bad = [i for i, (x, y) in enumerate(leaves)
@@ -3750,15 +3848,17 @@ def graph_phase(torch, dev, card):
               f"{name}: the graph run differs from the CPU's in leaves {bad} "
               f"(max abs err {max_abs_err(leaves)}) or in |TD|")
         check(per_step > 0 and t1 == per_step * GRAPH_STEPS
-              and r1 == resolves,
+              and s1 == s1_step * GRAPH_STEPS and r1 == resolves,
               f"{name}: T1 launched {t1} times (not {per_step} x "
-              f"{GRAPH_STEPS}), R1 {r1} (not {resolves})")
+              f"{GRAPH_STEPS}), S1 {s1} (not {s1_step} x {GRAPH_STEPS}), "
+              f"R1 {r1} (not {resolves})")
         group = -(-L.GROUP_STEPS // max(period, 1)) * max(period, 1)
         print(f"[graph] {name} {GRAPH_LANES} lanes, steps {steps.start}-"
               f"{steps.stop - 1} (replays of {group} steps, with the steps "
               f"around them on their own): all {len(leaves)} leaves "
               f"and every step's |TD| equal the CPU's bit for bit; T1 "
-              f"{t1} launches, R1 {r1}; {wall} s on the card | {card}")
+              f"{t1} launches, S1 {s1}, R1 {r1}; {wall} s on the card | "
+              f"{card}")
 
     wide = L.MinimaxQConfig(lr=0.3, resolve_every=64, solver_iters=200,
                             lr_halflife=400, eps_halflife=667)
@@ -3787,6 +3887,306 @@ def graph_phase(torch, dev, card):
           and int(got.step) == 64,
           f"minimax-Q {GRAPH_WIDE} lanes: the graph run differs from the "
           f"CPU's beyond the tolerances")
+
+
+def device_ops(torch, fn, calls=3):
+    """Device operations (kernels, copies, memsets) a call of ``fn(i)``
+    under ``torch.profiler`` over calls i = 1 .. ``calls``, after the
+    warm-up call fn(0)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(i + 1)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / calls
+
+
+def step_kernel_counts(torch, dev, card):
+    """Phase 46's launch counts, taken early in the process (where the
+    profiler records every launch): device operations a call of the
+    engine's step at 8192 lanes (5x4 slip 0.2, threefry, autoreset) as
+    ``step_plain`` (the previous design: ~350 ops and two T1 draws) and as
+    ``batch.step`` (S1); of an eager minimax learner step at the entry
+    point's 8192 lanes and lr/eps (no re-solve) on ``step_plain`` and on
+    S1; and of ``eval_episode_stats``' policy draw at 2 x 1024, plain and
+    keyed.  S1's step and the keyed draw must be one operation each."""
+    from gym_soccer_tpu_torch.agents import learners as L
+    from gym_soccer_tpu_torch.config import EnvConfig
+    from gym_soccer_tpu_torch.core import batch, threefry
+    from gym_soccer_tpu_torch.ops import threefry_kernel as tk
+    cfg = EnvConfig(5, 4, SLIP)
+    st = batch.init(cfg, threefry.key(3), B, dev)
+    acts = torch.randint(0, 5, (2, B), device=dev)
+    lcfg = L.MinimaxQConfig(lr=0.3, eps=0.3, resolve_every=64,
+                            solver_iters=200, lr_halflife=400,
+                            eps_halflife=666)
+    lst = L.minimax_init(cfg, threefry.key(0), B, dev)
+    eng = L._batch_engine(cfg)
+
+    def plain_step(env, aa, ab):
+        env2, out = batch.step_plain(cfg, env, aa, ab)
+        return env2, out.reward_a, out.done, out.truncated, out.final_obs
+
+    key = threefry.key(7, dev)
+    counts = {
+        "engine step, step_plain": device_ops(
+            torch, lambda i: batch.step_plain(cfg, st, acts[0], acts[1])),
+        "engine step, S1": device_ops(
+            torch, lambda i: batch.step(cfg, st, acts[0], acts[1])),
+        "learner step, step_plain": device_ops(
+            torch, lambda i: L._minimax_step_engine(
+                eng._replace(step=plain_step), lcfg, lst, i)),
+        "learner step, S1": device_ops(
+            torch, lambda i: L._minimax_step_engine(eng, lcfg, lst, i)),
+        "eval draw, plain": device_ops(
+            torch, lambda i: tk.keyed_uniform_plain(key, i, (2, 1024))),
+        "eval draw, keyed T1": device_ops(
+            torch, lambda i: tk.keyed_uniform(key, i, (2, 1024))),
+    }
+    print(f"[S1] device operations a call (torch.profiler, 3 calls after a "
+          f"warm-up, early in the process; {B} lanes, 5x4 slip 0.2, "
+          f"threefry): {counts} | {card}")
+    check(counts["engine step, S1"] == 1 and counts["eval draw, keyed T1"]
+          == 1, f"S1's step or the keyed draw is not one operation: {counts}")
+    return counts
+
+
+def engine_start(torch, cfg, rng, lanes, dev, seed):
+    """``lanes`` lanes after 8 steps of ``step_plain`` without autoreset
+    from random key words (the lanes that scored stay in their goal
+    states), every 5th counter at 2**31 - 3 (the draws' counters wrap) and
+    every 7th clock one step from truncation; on ``dev``."""
+    import numpy as np
+    from gym_soccer_tpu_torch.core import batch
+    rng_np = np.random.default_rng(seed)
+    words = rng_np.integers(0, 2 ** 32, (lanes, 2), dtype=np.uint64)
+    st = batch.init_from_keys(cfg, words, dev, rng=rng)
+    for _ in range(8):
+        aa, ab = (torch.as_tensor(rng_np.integers(0, 5, lanes), device=dev)
+                  for _ in range(2))
+        st, _ = batch.step_plain(cfg, st, aa, ab, autoreset=False, rng=rng)
+    n, t = st.n.clone(), st.t.clone()
+    n[::5] = 2 ** 31 - 3
+    t[1::7] = cfg.max_steps - 1
+    return st._replace(n=n, t=t)
+
+
+def s1_phase(torch, dev, card, s1_instructions, t1_device_ms, step_counts):
+    """Phase 46: S1 (``batch.step`` on the card, csrc/engine_kernel.cu)
+    against ``batch.step_plain`` on the card, bit for bit in every state
+    and StepOut field, at 8192 lanes on 5x4 and 11x7, slip 0.2 and 0,
+    autoreset on and off, threefry and counter, S1_STEPS steps from
+    goal-state, wrapping and truncating lanes (``engine_start``), int64
+    and int32 actions in turn, one launch a step; S1 captured once in a
+    CUDA graph and replayed, equal to its eager call; S1's and
+    ``step_plain``'s call ms (CUDA
+    events) and device ms (graph replay of S1_GRAPH_CALLS /
+    PLAIN_GRAPH_CALLS calls) beside T1's; the bound from S1's SASS; the
+    launch counts of ``step_kernel_counts``.  Returns S1's max abs error,
+    its ms and plain ms, and its work."""
+    import numpy as np
+    from gym_soccer_tpu_torch.config import EnvConfig
+    from gym_soccer_tpu_torch.core import batch, rules
+    from gym_soccer_tpu_torch.ops import engine_kernel as ek
+    err, cases, seen = 0, 0, {"goal lanes": 0, "done": 0, "truncated": 0}
+    rng_np = np.random.default_rng(46)
+    for (w, h), q, auto, rng in [(b, q, a, r) for b in BOARDS
+                                 for q in (SLIP, 0.0) for a in (True, False)
+                                 for r in ("threefry", "counter")]:
+        cfg = EnvConfig(width=w, height=h, slip_prob=q)
+        st = engine_start(torch, cfg, rng, B, dev, cases)
+        seen["goal lanes"] += int(rules.is_goal_state(torch, *st[:5],
+                                                      cfg).sum())
+        for k in range(S1_STEPS):
+            acts = torch.as_tensor(rng_np.integers(0, 5, (2, B)), device=dev)
+            acts = acts if k % 2 else acts.int()
+            ek.reset_launch_counts()
+            got = batch.step(cfg, st, acts[0], acts[1], auto, rng)
+            check(ek.launch_counts[S1] == 1, "S1 not launched once a step")
+            want = batch.step_plain(cfg, st, acts[0], acts[1], auto, rng)
+            pairs = list(zip((*got[0], *got[1]), (*want[0], *want[1])))
+            same = all(a.dtype == b.dtype and a.shape == b.shape
+                       and torch.equal(a, b) for a, b in pairs)
+            e = max(float((a.double() - b.double()).abs().max())
+                    for a, b in pairs)
+            err = max(err, e)
+            check(same, f"S1 != step_plain on {w}x{h} slip {q} autoreset "
+                        f"{auto} {rng}, step {k}: max abs err {e}")
+            seen["done"] += int(got[1].done.sum())
+            seen["truncated"] += int(got[1].truncated.sum())
+            st = got[0]
+        cases += 1
+    check(all(seen.values()), f"S1's cases missed a kind of lane: {seen}")
+    print(f"[S1] bit-equal to step_plain on the card in every state and "
+          f"StepOut field: {cases} cases ({B} lanes, 5x4 and 11x7, slip "
+          f"{SLIP} and 0, autoreset on and off, threefry and counter) x "
+          f"{S1_STEPS} steps, one launch a step, max abs err {err}; "
+          f"{seen} | {card}")
+
+    cfg = EnvConfig(5, 4, SLIP)
+    st = engine_start(torch, cfg, "threefry", B, dev, 99)
+    aa, ab = (torch.as_tensor(x, device=dev) for x in
+              np.random.default_rng(7).integers(0, 5, (2, B)))
+    eager = batch.step(cfg, st, aa, ab)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = batch.step(cfg, st, aa, ab)
+    for t in (*captured[0][:7], *captured[1]):
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip((*captured[0], *captured[1]),
+                                               (*eager[0], *eager[1]))),
+          "S1 replayed from a CUDA graph != its eager call")
+
+    ms = {}
+    for name, fn in ((S1, batch.step), (S1 + "_plain", batch.step_plain)):
+        med, reps, legs = time_cuda(lambda: fn(cfg, st, aa, ab))
+        ms[name] = med
+        print(f"[time] {name} {B} lanes 5x4 (threefry, autoreset): {med} "
+              f"ms/call (median of {len(legs)} legs x {reps} calls) | "
+              f"{card}")
+    device_ms = {}
+    for name, fn, calls in ((S1, batch.step, S1_GRAPH_CALLS),
+                            (S1 + "_plain", batch.step_plain,
+                             PLAIN_GRAPH_CALLS)):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn(cfg, st, aa, ab)
+        device_ms[name] = time_cuda(graph.replay)[0] / calls
+        del graph
+    maps = batch.device_maps(cfg, dev)
+    nbytes = B * (7 * 4 + 2 * 8 + 2 * 8 + 9 * 4 + 2 * 4 + 2) + sum(
+        t.numel() * t.element_size() for t in maps)
+    bound_ms, bound_by = bound(B, s1_instructions, nbytes)
+    from gym_soccer_tpu_torch.ops import _build
+    regs = ptxas_registers(
+        _build.build("engine_kernel").with_suffix(".log").read_text())
+    shape = (ctypes.c_int32 * 2)()
+    ek._library().gst_engine_shape(ctypes.addressof(shape))
+    print(f"[S1] {shape[0]} lanes a block, "
+          f"{[r for k, r in regs.items() if S1_SYMBOL in k]} registers, "
+          f"{s1_instructions} SASS instructions on the shortest way through "
+          f"a lane, {nbytes} B; bound {bound_ms} ms ({bound_by}); {ms[S1]} "
+          f"ms a call, {device_ms[S1]} ms of device time (CUDA-graph "
+          f"replay of {S1_GRAPH_CALLS} calls), against step_plain's "
+          f"{ms[S1 + '_plain']} ms a call and {device_ms[S1 + '_plain']} ms "
+          f"of device time (the previous design; {PLAIN_GRAPH_CALLS} calls "
+          f"a replay) and T1's {t1_device_ms} ms of device time a draw | "
+          f"{card}")
+    print(f"[S1] device operations a call: {step_counts} | {card}")
+    eval_walls(torch, dev, card)
+    ms[S1 + "_device"] = device_ms[S1]
+    return err, ms, (B, nbytes)
+
+
+def eval_walls(torch, dev, card):
+    """The loop of ``eval_episode_stats`` (1024 lanes x 400 steps of
+    uniform policies) written out, host clock, on S1 and the keyed draw
+    (``batch.step``, ``keyed_uniform``) and on the previous design
+    (``step_plain``, ``keyed_uniform_plain``), in turns previous, S1, S1,
+    previous; every run's trajectory equal, and equal to
+    ``eval_episode_stats``' statistics."""
+    from gym_soccer_tpu_torch.agents import learners
+    from gym_soccer_tpu_torch.config import EnvConfig
+    from gym_soccer_tpu_torch.core import batch, threefry
+    from gym_soccer_tpu_torch.examples import train_minimax
+    from gym_soccer_tpu_torch.ops import threefry_kernel as tk
+    from gym_soccer_tpu_torch.utils.metrics import chunk_stats
+    cfg = EnvConfig(5, 4, SLIP)
+    pi = torch.full((761, 5), 0.2, device=dev)
+    key = threefry.key(7, dev)
+
+    def run(step, draw):
+        st = batch.init(cfg, threefry.key(8), 1024, dev)
+        obs, outs = batch.observe(cfg, st), []
+        for i in range(400):
+            u = draw(key, i, (2, 1024))
+            rows = pi[obs.long()]
+            st, out = step(cfg, st, learners._sample_mixed(rows, u[0]),
+                           learners._sample_mixed(rows, u[1]))
+            outs.append(out)
+            obs = out.obs
+        return batch.StepOut(*(torch.stack(f) for f in zip(*outs)))
+
+    designs = {"previous": (batch.step_plain, tk.keyed_uniform_plain),
+               "S1": (batch.step, tk.keyed_uniform)}
+    walls, runs = {"previous": [], "S1": []}, []
+    for design in ("previous", "S1", "S1", "previous"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(run(*designs[design]))
+        torch.cuda.synchronize()
+        walls[design].append(time.perf_counter() - t0)
+    check(all(torch.equal(a, b) for r in runs[1:] for a, b in zip(r, runs[0])),
+          "eval_episode_stats' loop differs between the designs")
+    s = chunk_stats(runs[0])
+    ev = train_minimax.eval_episode_stats(cfg, pi, pi, device=dev)
+    check((int(s.episodes), int(s.goals), int(s.truncations)) ==
+          (ev["episodes"], ev["goals"], ev["truncations"]),
+          f"eval_episode_stats {ev} != its loop written out {s}")
+    print(f"[S1] eval_episode_stats' loop 1024 x 400 (host clock, in "
+          f"turns): on S1 and T1's keyed entry {walls['S1']} s, on the "
+          f"previous design's step_plain and plain draw {walls['previous']} "
+          f"s; equal trajectories, eval_episode_stats {ev} | {card}")
+
+
+def keyed_phase(torch, dev, card, instructions):
+    """Phase 46, T1's keyed entry: ``keyed_uniform`` and ``keyed_randint``
+    against their plain versions on the card bit for bit at the
+    evaluation's T1_KEYED_SHAPE, 2 x 8192, 7 and 3 x 5 x 2, i 0, 399 and
+    2**31 - 1; ``keyed_uniform`` and its plain version timed at
+    T1_KEYED_SHAPE by CUDA events a call and by the replay of a CUDA graph
+    of KEYED_GRAPH_CALLS calls (10 for the plain version) for device time;
+    the bound from ``instructions`` SASS a thread of its uniform instance.
+    Returns its max abs error, its ms and plain ms, and its work."""
+    from gym_soccer_tpu_torch.core import threefry
+    from gym_soccer_tpu_torch.ops import threefry_kernel as tk
+    key = threefry.key(5, dev)
+    err = 0.0
+    for shape in (T1_KEYED_SHAPE, (2, B), (7,), (3, 5, 2)):
+        for i in (0, 399, 2 ** 31 - 1):
+            pairs = ((tk.keyed_uniform(key, i, shape),
+                      tk.keyed_uniform_plain(key, i, shape)),
+                     (tk.keyed_randint(key, i, shape, 0, 5),
+                      tk.keyed_randint_plain(key, i, shape, 0, 5)))
+            check(all(a.dtype == b.dtype and torch.equal(a, b)
+                      for a, b in pairs),
+                  f"T1's keyed entry != plain at {shape}, i {i}")
+            err = max(err, *(float((a.double() - b.double()).abs().max())
+                             for a, b in pairs))
+    ms, device_ms = {}, {}
+    for name, fn, calls in ((T1_KEYED, tk.keyed_uniform, KEYED_GRAPH_CALLS),
+                            (T1_KEYED + "_plain", tk.keyed_uniform_plain,
+                             10)):
+        ms[name] = time_cuda(lambda: fn(key, 399, T1_KEYED_SHAPE))[0]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for i in range(calls):
+                fn(key, i, T1_KEYED_SHAPE)
+        device_ms[name] = time_cuda(graph.replay)[0] / calls
+        del graph
+    units = math.prod(T1_KEYED_SHAPE)
+    nbytes = 2 * 8 + units * 4
+    bound_ms, bound_by = bound(units, instructions, nbytes)
+    print(f"[T1 keyed] keyed_uniform and keyed_randint bit-equal to their "
+          f"plain versions at {T1_KEYED_SHAPE}, 2 x {B}, 7 and 3 x 5 x 2, i "
+          f"0, 399 and 2**31 - 1 (max abs err {err}); keyed_uniform at "
+          f"{T1_KEYED_SHAPE}: {instructions} SASS instructions on the "
+          f"shortest way through a thread, {nbytes} B, bound {bound_ms} ms "
+          f"({bound_by}); {ms[T1_KEYED]} ms a call, {device_ms[T1_KEYED]} "
+          f"ms of device time (CUDA-graph replay of {KEYED_GRAPH_CALLS} "
+          f"calls), against the plain version's {ms[T1_KEYED + '_plain']} "
+          f"ms a call and {device_ms[T1_KEYED + '_plain']} ms of device "
+          f"time | {card}")
+    ms[T1_KEYED + "_device"] = device_ms[T1_KEYED]
+    return err, ms, (units, nbytes)
 
 
 def profile_window(torch, fn, label, kernel, card, calls=20):

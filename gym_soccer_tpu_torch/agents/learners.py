@@ -14,7 +14,8 @@ The port of gym_soccer_tpu/agents/learners.py:
   the mixed-geometry engine (core/multigrid, ``multigrid_*``): tables in
   device memory, one act/step/update a call over the whole lockstep batch,
   the updates as count-normalized scatter-adds.  Their draws come from the
-  engines' per-instance threefry streams (kernel T1 on the card).  Given
+  engines' per-instance threefry streams (kernel T1 on the card; the
+  single-geometry engine's step, its draws included, is kernel S1).  Given
   the JAX package's state (interop.learner_state_from_numpy) they step the
   same observations and actions on the CPU with the same tables, but for
   the last bit where minimax-Q's schedules take a float32 power (XLA's
@@ -28,8 +29,12 @@ NotImplementedError.  The trainers keep the step count on the host beside
 ``state.step`` (read once a ``*_train`` call), so the schedules and
 minimax-Q's re-solve cadence need no device read a step.
 
-A step is ~600 small PyTorch launches (the engine's rules, the updates)
-and one to three of T1, so a loop of single steps is bound by the host.
+A step is tens to hundreds of small launches: on the card a minimax-Q
+step on the single-geometry engine is 61 device operations (S1, one T1
+draw, the observation, the action sampling and the updates; 396 with
+``batch.step_plain``; chip_smoke.py phase 46 on an NVIDIA H100 80GB HBM3
+at 700 W), and the mixed-geometry and alternating engines still step as
+chains of PyTorch ops around T1's draws.  So a loop of single steps is bound by the host.
 The ``*_train`` functions therefore run ``GROUP_STEPS`` steps (rounded up
 to whole re-solve periods) a replay of one CUDA graph (ops/dispatch, as
 the fused trainers' grouped modes do; on the CPU the same bodies one after
@@ -50,7 +55,7 @@ import torch
 
 from ..config import EnvConfig
 from ..core import batch, multigrid, tables
-from ..ops import dispatch, threefry_kernel
+from ..ops import dispatch, engine_kernel, threefry_kernel
 
 N_ACTIONS = 5
 
@@ -436,7 +441,8 @@ def _grouped(step, state, first: int, n_periods: int, period: int, g: int,
     """``n_periods`` x ``period`` steps from host step ``first`` (a multiple
     of ``period``) through ``dispatch.run``: the carry is a copy of the
     state's tensors, each body runs ``period`` steps and writes them back;
-    T1's and R1's launch counts are kept as the fused trainers' are."""
+    S1's, T1's and R1's launch counts are kept as the fused trainers'
+    are."""
     carry = [t.clone() for t in _tensors(state)]
     dev = carry[0].device
     tds = torch.zeros(n_periods * period, dtype=torch.float32, device=dev)
@@ -457,7 +463,8 @@ def _grouped(step, state, first: int, n_periods: int, period: int, g: int,
             dst.copy_(src)
 
     dispatch.run(body, carry + [tds, k], n_periods, g,
-                 counters=(threefry_kernel.launch_counts, launch_counts))
+                 counters=(engine_kernel.launch_counts,
+                           threefry_kernel.launch_counts, launch_counts))
     return _rebuild(state, carry), tds
 
 

@@ -15,10 +15,16 @@ words (held in int64, core/threefry) and a monotonic draw counter ``n``.
 Every function that draws takes JAX's ``rng=`` argument:
 
 * ``"threefry"`` (the default, as in the JAX package): a step's uniforms
-  are ``uniform(fold_in(fold_in(key_i, n_i), salt), (count,))``; on a CUDA
-  tensor kernel T1 (ops/threefry_kernel) computes them;
+  are ``uniform(fold_in(fold_in(key_i, n_i), salt), (count,))``;
 * ``"counter"``: a murmur3 hash of (key words, n, word index, salt), the
   stream of the fused kernels.
+
+On CUDA tensors ``step`` is kernel S1 (ops/engine_kernel): the whole step,
+its transition and reset draws included, in one launch, under either
+``rng``; ``step_plain`` is its plain version, which ``step`` runs on CPU
+tensors.  The other draws go through kernel T1 (ops/threefry_kernel):
+``per_env_uniforms`` per lane, ``random_policy_fn``'s single-key draw by
+its keyed entry.
 
 Given the same key words (``jax.random.key_data`` of the JAX package's
 keys) and counters, every function here equals the JAX package's under
@@ -33,7 +39,7 @@ import numpy as np
 import torch
 
 from ..config import EnvConfig
-from ..ops import threefry_kernel
+from ..ops import engine_kernel, threefry_kernel
 from ..ops.step_kernel import M32, _fmix32, _mul32
 from . import rules, tables, threefry
 
@@ -112,10 +118,11 @@ def per_env_uniforms(state: EnvState, count: int, salt: int = 0,
     """float32 [B, count] uniforms from (key_i, n_i, salt).
 
     ``salt`` separates independent consumer streams (0 = the env
-    transition itself; learners and policies use nonzero salts).
-    ``rng="threefry"``: ``threefry_kernel.threefry_uniforms`` (kernel T1
-    on a CUDA tensor); ``"counter"``: 24-bit uniforms of a murmur3 hash
-    into which both 32-bit key words enter, at separate stages."""
+    transition itself, which ``step`` draws inside kernel S1 on the card;
+    learners and policies use nonzero salts).  ``rng="threefry"``:
+    ``threefry_kernel.threefry_uniforms`` (kernel T1 on a CUDA tensor);
+    ``"counter"``: 24-bit uniforms of a murmur3 hash into which both 32-bit
+    key words enter, at separate stages (plain PyTorch on any device)."""
     if rng == "threefry":
         return threefry_kernel.threefry_uniforms(state.key, state.n, count,
                                                  salt)
@@ -196,7 +203,25 @@ def _slipped_move_arith(a: torch.Tensor, variant: torch.Tensor):
 def step(cfg: EnvConfig, state: EnvState, actions_a: torch.Tensor,
          actions_b: torch.Tensor, autoreset: bool = True,
          rng: str = "threefry") -> tuple[EnvState, StepOut]:
-    """One lockstep transition for the whole batch.
+    """One lockstep transition for the whole batch: ``step_plain`` on CPU
+    tensors; on CUDA tensors one launch of kernel S1, which computes the
+    same outputs bit for bit and raises if it cannot launch."""
+    if state.key.device.type == "cpu":
+        return step_plain(cfg, state, actions_a, actions_b, autoreset, rng)
+    ints, floats, flags = engine_kernel.engine_step(
+        cfg, state[:7], state.key, actions_a, actions_b,
+        device_maps(cfg, state.key.device), autoreset, rng)
+    ra, ca, rb, cb, poss, t, n, obs, final_obs = ints.unbind()
+    return (EnvState(ra, ca, rb, cb, poss, t, n, key=state.key),
+            StepOut(obs=obs, reward_a=floats[0], done=flags[0],
+                    truncated=flags[1], final_obs=final_obs,
+                    prob=floats[1]))
+
+
+def step_plain(cfg: EnvConfig, state: EnvState, actions_a: torch.Tensor,
+               actions_b: torch.Tensor, autoreset: bool = True,
+               rng: str = "threefry") -> tuple[EnvState, StepOut]:
+    """Plain PyTorch version of ``step``, on any device.
 
     Factored sampling: slip variant per player, then one categorical over
     the <=4 collision outcome slots."""
@@ -270,13 +295,16 @@ PolicyFn = Callable[[torch.Tensor, int], tuple[torch.Tensor, torch.Tensor]]
 def rollout(cfg: EnvConfig, state: EnvState, policy_fn: PolicyFn,
             n_steps: int, rng: str = "threefry"):
     """``policy_fn(obs, i) -> (actions_a, actions_b)`` for steps
-    i = 0 .. n_steps-1.  Returns the final state and the StepOut
+    i = 0 .. n_steps-1 (step i's obs is step i - 1's ``StepOut.obs``, the
+    state's observation).  Returns the final state and the StepOut
     trajectory stacked to [T, B] per field."""
     outs = []
+    obs = observe(cfg, state)
     for i in range(n_steps):
-        aa, ab = policy_fn(observe(cfg, state), i)
+        aa, ab = policy_fn(obs, i)
         state, out = step(cfg, state, aa, ab, rng=rng)
         outs.append(out)
+        obs = out.obs
     return state, StepOut(*(torch.stack(f) for f in zip(*outs)))
 
 
@@ -304,24 +332,26 @@ def rollout_stats(cfg: EnvConfig, state: EnvState, policy_fn: PolicyFn,
     """``rollout`` that accumulates summary statistics instead of stacking
     per-step outputs.  Returns (final_state, RolloutStats)."""
     acc = _zero_stats(state.t.device)
+    obs = observe(cfg, state)
     for i in range(n_steps):
-        aa, ab = policy_fn(observe(cfg, state), i)
+        aa, ab = policy_fn(obs, i)
         state, out = step(cfg, state, aa, ab, rng=rng)
         acc = _accumulate(acc, out)
+        obs = out.obs
     return state, acc
 
 
 def random_policy_fn(cfg: EnvConfig, key: torch.Tensor, batch: int):
     """Uniform-random joint policy: step i's actions are
     ``randint(fold_in(key, i), (2, batch), 0, 5)`` (int32), on the
-    observations' device."""
+    observations' device (one launch of T1's keyed entry on the card)."""
     on = {}   # the key on each device it was asked on
 
     def fn(obs, i):
         if obs.device not in on:
             on[obs.device] = key.to(obs.device)
-        k = threefry.fold_in(on[obs.device], i)
-        acts = threefry.randint(k, (2, batch), 0, 5)
+        acts = threefry_kernel.keyed_randint(on[obs.device], i, (2, batch),
+                                             0, 5)
         return acts[0], acts[1]
     return fn
 

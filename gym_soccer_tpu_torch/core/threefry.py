@@ -20,9 +20,11 @@ bit:
   them with ``jax.random.randint``'s span and multiplier.
 
 Every function takes keys with leading batch dimensions (JAX's under
-``vmap``) and runs where its key tensor lies.  ``per_env_uniforms`` of
-core/batch composes them; on a CUDA tensor it runs kernel T1
-(ops/threefry_kernel) instead.
+``vmap``) and runs where its key tensor lies.  On CUDA tensors the port
+draws through kernels instead: ``per_env_uniforms`` of core/batch and the
+single-key draws of ``threefry_kernel.keyed_uniform`` / ``keyed_randint``
+through T1 (ops/threefry_kernel), the engine's step through S1
+(ops/engine_kernel).
 """
 from __future__ import annotations
 
@@ -140,15 +142,21 @@ def _mul32(x, c: int):
     return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & M32
 
 
-def randint(k: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
-    """``jax.random.randint(k, shape, minval, maxval)`` with int32 output:
-    two sets of 32 random bits from ``split(k)``, each reduced modulo the
-    span, joined by the multiplier 2**32 mod span."""
+def randint_span(minval: int, maxval: int) -> tuple[int, int]:
+    """``randint``'s span and multiplier (2**32 mod span) of the int32
+    bounds [minval, maxval)."""
     if not (-2 ** 31 <= minval < 2 ** 31 and -2 ** 31 <= maxval < 2 ** 31):
         raise ValueError(f"randint bounds [{minval}, {maxval}) must be int32")
     span = (maxval - minval) & M32 if maxval > minval else 1
     multiplier = (2 ** 16) % span
-    multiplier = ((multiplier * multiplier) & M32) % span
+    return span, ((multiplier * multiplier) & M32) % span
+
+
+def randint(k: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint(k, shape, minval, maxval)`` with int32 output:
+    two sets of 32 random bits from ``split(k)``, each reduced modulo the
+    span, joined by the multiplier 2**32 mod span."""
+    span, multiplier = randint_span(minval, maxval)
     keys = split(k)
     higher = random_bits(keys[..., 0, :], shape)
     lower = random_bits(keys[..., 1, :], shape)

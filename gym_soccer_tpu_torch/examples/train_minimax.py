@@ -5,8 +5,8 @@ kernels' plain versions), and ``--device`` (default ``cuda``).
 
 * default: the HBM-table learner (agents/learners ``minimax_train``) in
   chunks of ``--chunk`` steps, with ``--ckpt`` save/resume of its state;
-  its draws are the engine's threefry streams (kernel T1 on the card),
-  the re-solve is R1;
+  its draws are the engine's threefry streams (on the card the step is
+  kernel S1 and the learner's action draw kernel T1), the re-solve is R1;
 * ``--fused``: ``fused_minimax_train`` (K5) with an exact ``--ckpt``
   resume; ``--multigrid [--with-big]``: the mixture trainer (K6);
   ``--converge [--grid W H]``: the equilibrium recipe;
@@ -31,6 +31,7 @@ from ..agents import learners
 from ..agents.evaluation import exploitability
 from ..config import EnvConfig
 from ..core import batch, tables, threefry
+from ..ops import threefry_kernel
 from ..utils import checkpoint
 from ..utils.metrics import chunk_stats
 from ..utils.profiling import Throughput, log_json
@@ -40,16 +41,18 @@ def eval_episode_stats(cfg, pi_a, pi_b, n_envs=1024, n_steps=400, seed=7,
                        device="cuda"):
     """Play the mixed strategies against each other for ``n_steps`` on
     ``n_envs`` lanes of the threefry engine from ``key(seed + 1)``, the
-    actions sampled from ``uniform(fold_in(key(seed), i), (2, n_envs))``;
-    the episode aggregates (utils/metrics) as the JAX example reports them
-    (the reference main()'s 1000-episode eval loop, batched)."""
+    actions sampled from ``uniform(fold_in(key(seed), i), (2, n_envs))``
+    (on the card one launch of T1's keyed entry a step, and the step one
+    launch of S1); the episode aggregates (utils/metrics) as the JAX
+    example reports them (the reference main()'s 1000-episode eval loop,
+    batched)."""
     device = torch.device(device)
     pi_a = torch.as_tensor(pi_a, device=device)
     pi_b = torch.as_tensor(pi_b, device=device)
     key = threefry.key(seed, device)
 
     def policy_fn(obs, i):
-        u = threefry.uniform(threefry.fold_in(key, i), (2, obs.shape[0]))
+        u = threefry_kernel.keyed_uniform(key, i, (2, obs.shape[0]))
         obs = obs.long()
         return (learners._sample_mixed(pi_a[obs], u[0]),
                 learners._sample_mixed(pi_b[obs], u[1]))
@@ -261,7 +264,7 @@ def default(args, device):
         state = checkpoint.load_pytree(args.ckpt, state)
         log_json(event="resumed", step=int(state.step))
 
-    # The first chunk also builds and loads the kernels (T1, R1).
+    # The first chunk also builds and loads the kernels (S1, T1, R1).
     t_first = time.perf_counter()
     state, td = learners.minimax_train(cfg, lcfg, state, args.chunk)
     float(td.mean())

@@ -31,7 +31,9 @@ LIBRARIES = {"step_kernel": ("step_kernel.cu", "game.cuh", "pipeline.cuh"),
              "altq_kernel": ("altq_kernel.cu", "game.cuh", "pipeline.cuh"),
              "parity_kernel": ("parity_kernel.cu",),
              "rmplus_kernel": ("rmplus_kernel.cu",),
-             "threefry_kernel": ("threefry_kernel.cu",)}
+             "threefry_kernel": ("threefry_kernel.cu", "threefry.cuh"),
+             "engine_kernel": ("engine_kernel.cu", "game.cuh",
+                               "threefry.cuh")}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -1,15 +1,19 @@
-// Per-lane threefry uniforms for Hopper (sm_90a): kernel T1.
+// Per-lane threefry uniforms for Hopper (sm_90a): kernel T1, with its keyed
+// entry for draws from one key.
 //
 // It has no Pallas counterpart: the JAX package draws these with XLA's
 // threefry under `batch.per_env_uniforms(state, count, salt)`
-// (gym_soccer_tpu/core/batch.py, rng="threefry", its default), and the
-// port's plain version (ops/threefry_kernel.py `threefry_uniforms_plain`)
-// composes core/threefry's functions.  Every step of every threefry path
-// (the batched engine, the HBM-table learners, SoccerVectorEnv, the
-// mixed-geometry and alternating engines) draws this; as PyTorch ops it is
-// ~100 elementwise launches a threefry block.
+// (gym_soccer_tpu/core/batch.py, rng="threefry", its default) and under
+// `jax.random.uniform` / `randint` of `fold_in(key, i)` (its examples'
+// policies), and the port's plain versions (ops/threefry_kernel.py) compose
+// core/threefry's functions.  The batched engine's own step draws inside
+// kernel S1 (engine_kernel.cu); T1 draws for the learners' salted action
+// draws, `batch.init`'s reset, `random_rollout_stats`' policy and the
+// mixed-geometry and alternating engines.  As PyTorch ops a threefry block
+// is ~100 elementwise launches.
 //
-// What it computes, one thread a lane i, all in registers:
+// What `threefry_uniforms_kernel` computes, one thread a lane i, all in
+// registers (threefry.cuh):
 //   k = threefry2x32(key_i, (0, n_i))                 fold_in(key_i, n_i)
 //   k = threefry2x32(k, (0, salt))    if salt != 0    fold_in(k, salt)
 //   for j < count:
@@ -20,69 +24,36 @@
 // (the float lies in [1, 2)), so the result equals the plain version's bit
 // for bit.
 //
+// The keyed entry (`keyed_kernel<RANDINT>`), one thread an output element
+// j of a flat shape, from one key [2] in device memory and a host index i:
+//   k = fold_in(key, i)
+//   uniform:  out[j] = to_uniform(random_bits(k, j))
+//   randint:  (k0, k1) = split(k); hi = random_bits(k0, j),
+//             lo = random_bits(k1, j);
+//             out[j] = minval + ((hi % span) * mult + lo % span) % span
+// with the span and multiplier of `jax.random.randint` from the host, all
+// in uint32 arithmetic.  Each element repeats the fold_in (and the split):
+// a draw of 2 x 1024 elements is one launch either way.
+//
 // What bounds it: integer ALU work, 1 + (salt != 0) + count blocks of 20
 // rounds (an add, a rotate and a xor each) and 6 key injections; per lane
 // it reads 20 B and writes 4 * count B.  Counts 1 to 4 and both salt cases
-// are instantiated with their loops unrolled; other counts loop.
+// are instantiated with their loops unrolled; other counts loop.  At the
+// callers' sizes a launch's floor bounds every call.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "threefry.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;   // lanes a block
-constexpr uint32_t kParity = 0x1BD11BDAu;
+using gst::fold_in;
+using gst::lane_key;
+using gst::random_bits;
+using gst::threefry2x32;
+using gst::to_uniform;
 
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int d) {
-  return __funnelshift_l(x, x, d);
-}
-
-// One round: mix x1 into x0, rotate x1 by r, xor x0 into it.  Four rounds
-// make a group; after group g (1-based) the key schedule's word g % 3 is
-// added to x0 and word (g + 1) % 3 plus g to x1.
-#define GST_ROUND(r)  \
-  x0 += x1;           \
-  x1 = rotl(x1, r);   \
-  x1 ^= x0;
-
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
-                                             uint32_t& x0, uint32_t& x1) {
-  const uint32_t k2 = k0 ^ k1 ^ kParity;
-  x0 += k0;
-  x1 += k1;
-  GST_ROUND(13) GST_ROUND(15) GST_ROUND(26) GST_ROUND(6)
-  x0 += k1; x1 += k2 + 1u;
-  GST_ROUND(17) GST_ROUND(29) GST_ROUND(16) GST_ROUND(24)
-  x0 += k2; x1 += k0 + 2u;
-  GST_ROUND(13) GST_ROUND(15) GST_ROUND(26) GST_ROUND(6)
-  x0 += k0; x1 += k1 + 3u;
-  GST_ROUND(17) GST_ROUND(29) GST_ROUND(16) GST_ROUND(24)
-  x0 += k1; x1 += k2 + 4u;
-  GST_ROUND(13) GST_ROUND(15) GST_ROUND(26) GST_ROUND(6)
-  x0 += k2; x1 += k0 + 5u;
-}
-#undef GST_ROUND
-
-__device__ __forceinline__ float to_uniform(uint32_t bits) {
-  return __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
-}
-
-// The lane's key after fold_in(key, n) and, when SALTED, fold_in(., salt).
-template <bool SALTED>
-__device__ __forceinline__ void lane_key(const int64_t* __restrict__ key,
-                                         const int32_t* __restrict__ n,
-                                         uint32_t salt, int i, uint32_t& k0,
-                                         uint32_t& k1) {
-  uint32_t x0 = 0u, x1 = (uint32_t)n[i];
-  threefry2x32((uint32_t)key[2 * i], (uint32_t)key[2 * i + 1], x0, x1);
-  if (SALTED) {
-    k0 = 0u;
-    k1 = salt;
-    threefry2x32(x0, x1, k0, k1);
-  } else {
-    k0 = x0;
-    k1 = x1;
-  }
-}
+constexpr int kThreads = 256;   // lanes (or elements) a block
 
 // COUNT > 0: that many uniforms, unrolled; COUNT == 0: `count` of them.
 template <int COUNT, bool SALTED>
@@ -97,11 +68,33 @@ threefry_uniforms_kernel(const int64_t* __restrict__ key,
   const int c = COUNT > 0 ? COUNT : count;
   float* o = out + (size_t)i * c;
 #pragma unroll
-  for (int j = 0; j < (COUNT > 0 ? COUNT : c); ++j) {
-    uint32_t x0 = 0u, x1 = (uint32_t)j;
-    threefry2x32(k0, k1, x0, x1);
-    o[j] = to_uniform(x0 ^ x1);
+  for (int j = 0; j < (COUNT > 0 ? COUNT : c); ++j)
+    o[j] = to_uniform(random_bits(k0, k1, (uint32_t)j));
+}
+
+// The keyed entry: element j of `uniform(fold_in(key, i), shape)` (float32
+// into `out`) or of `randint(fold_in(key, i), shape, minval, maxval)`
+// (int32), `numel` elements.  key: device int64 [2] (uint32 words).
+template <bool RANDINT>
+__global__ void __launch_bounds__(kThreads)
+keyed_kernel(const int64_t* __restrict__ key, uint32_t i, int numel,
+             uint32_t minval, uint32_t span, uint32_t mult,
+             void* __restrict__ out) {
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  if (j >= numel) return;
+  uint32_t k0 = (uint32_t)key[0], k1 = (uint32_t)key[1];
+  fold_in(k0, k1, i);
+  if (!RANDINT) {
+    static_cast<float*>(out)[j] = to_uniform(random_bits(k0, k1, j));
+    return;
   }
+  uint32_t a0 = 0u, a1 = 0u, b0 = 0u, b1 = 1u;   // split(k): keys 0 and 1
+  threefry2x32(k0, k1, a0, a1);
+  threefry2x32(k0, k1, b0, b1);
+  const uint32_t higher = random_bits(a0, a1, j);
+  const uint32_t lower = random_bits(b0, b1, j);
+  const uint32_t offset = ((higher % span) * mult + lower % span) % span;
+  static_cast<int32_t*>(out)[j] = (int32_t)(minval + offset);
 }
 
 template <int COUNT>
@@ -141,6 +134,29 @@ int gst_threefry_uniforms(int device, const int64_t* key, const int32_t* n,
     case 4: launch<4>(salted, blocks, s, key, n, lanes, count, salt, out); break;
     default: launch<0>(salted, blocks, s, key, n, lanes, count, salt, out);
   }
+  return (int)cudaGetLastError();
+}
+
+// T1's keyed entry.  key: device int64 [2] (uint32 words); i: the index
+// folded in; out: device float32 [numel] (randint == 0) or int32 [numel]
+// (randint == 1, with minval as uint32 bits, span >= 1 and the multiplier
+// 2**32 mod span, both from the host).  Launches on `stream` and returns
+// its cudaError_t; numel == 0 launches nothing.
+int gst_threefry_keyed(int device, const int64_t* key, uint32_t i, int numel,
+                       int randint, uint32_t minval, uint32_t span,
+                       uint32_t mult, void* out, void* stream) {
+  if (numel < 0 || span == 0u) return (int)cudaErrorInvalidValue;
+  if (numel == 0) return 0;
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (numel + kThreads - 1) / kThreads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (randint)
+    keyed_kernel<true><<<blocks, kThreads, 0, s>>>(key, i, numel, minval,
+                                                   span, mult, out);
+  else
+    keyed_kernel<false><<<blocks, kThreads, 0, s>>>(key, i, numel, minval,
+                                                    span, mult, out);
   return (int)cudaGetLastError();
 }
 

@@ -1,26 +1,33 @@
-"""Per-lane threefry uniforms: CUDA kernel T1 and its plain version.
+"""Threefry uniforms on the card: CUDA kernel T1 and its plain versions.
 
 ``threefry_uniforms(key, n, count, salt)`` gives lane i's ``count``
 float32 uniforms of ``fold_in(fold_in(key_i, n_i), salt)`` (the second
 fold_in only when ``salt`` != 0): the JAX package's
 ``batch.per_env_uniforms(state, count, salt, rng="threefry")``, bit for
-bit.  On CPU tensors it runs ``threefry_uniforms_plain``, the composition
-of core/threefry's functions; on CUDA tensors it launches T1
-(``csrc/threefry_kernel.cu``, one thread a lane, every round in
-registers).  There is no fallback from one to the other.
+bit.  ``keyed_uniform(key, i, shape)`` and ``keyed_randint(key, i, shape,
+lo, hi)`` are T1's keyed entry: ``threefry.uniform`` / ``randint`` of
+``fold_in(key, i)`` for one key [2], the single-key draws of the
+policies (``jax.random.uniform(jax.random.fold_in(key, i), shape)``).
+
+On CPU tensors each runs its plain version, the composition of
+core/threefry's functions; on CUDA tensors it launches T1
+(``csrc/threefry_kernel.cu``: one thread a lane, or an output element,
+every round in registers; the rounds in ``csrc/threefry.cuh``, which
+kernel S1 shares).  There is no fallback from one to the other.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
 from ..core import threefry
 
-# Launches of T1 in this process, counted by the wrapper where it launches
-# and nowhere else.
-launch_counts = {"threefry_uniforms": 0}
+# Launches of T1 in this process (its per-lane and its keyed entry),
+# counted by the wrappers where they launch and nowhere else.
+launch_counts = {"threefry_uniforms": 0, "threefry_keyed": 0}
 
 
 def reset_launch_counts() -> None:
@@ -82,6 +89,70 @@ def _launch(key: torch.Tensor, n: torch.Tensor, count: int, salt: int):
     return out
 
 
+def _check_key(key: torch.Tensor):
+    if key.shape != (2,) or key.dtype != torch.int64:
+        raise ValueError(f"keyed draw: one key, int64 [2], got {key.dtype} "
+                         f"{tuple(key.shape)}")
+
+
+def keyed_uniform(key: torch.Tensor, i: int, shape) -> torch.Tensor:
+    """float32 ``uniform(fold_in(key, i), shape)`` for one key (int64 [2]
+    uint32 words) and an int ``i``, where ``key`` lies."""
+    _check_key(key)
+    if key.device.type == "cpu":
+        return keyed_uniform_plain(key, i, shape)
+    return _launch_keyed(key, i, shape, None)
+
+
+def keyed_uniform_plain(key: torch.Tensor, i: int, shape) -> torch.Tensor:
+    """Plain PyTorch version of ``keyed_uniform``, on any device."""
+    return threefry.uniform(threefry.fold_in(key, i), shape)
+
+
+def keyed_randint(key: torch.Tensor, i: int, shape, minval: int,
+                  maxval: int) -> torch.Tensor:
+    """int32 ``randint(fold_in(key, i), shape, minval, maxval)`` for one
+    key (int64 [2]) and an int ``i``, where ``key`` lies."""
+    _check_key(key)
+    if key.device.type == "cpu":
+        return keyed_randint_plain(key, i, shape, minval, maxval)
+    return _launch_keyed(key, i, shape,
+                         (minval, *threefry.randint_span(minval, maxval)))
+
+
+def keyed_randint_plain(key: torch.Tensor, i: int, shape, minval: int,
+                        maxval: int) -> torch.Tensor:
+    """Plain PyTorch version of ``keyed_randint``, on any device."""
+    return threefry.randint(threefry.fold_in(key, i), shape, minval, maxval)
+
+
+def _launch_keyed(key: torch.Tensor, i: int, shape, randint):
+    """T1's keyed entry: ``randint`` None for uniforms, else (minval, span,
+    multiplier)."""
+    dev = key.device
+    if dev.type != "cuda":
+        raise ValueError(f"keyed draw: no kernel for device {dev}")
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    numel = math.prod(shape)
+    if numel >= 2 ** 31:
+        raise ValueError(f"keyed draw: {numel} elements do not fit int32")
+    key = key.contiguous()
+    dtype = torch.float32 if randint is None else torch.int32
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    minval, span, mult = (0, 1, 0) if randint is None else randint
+    if numel:
+        lib = _library()
+        rc = lib.gst_threefry_keyed(
+            dev.index, key.data_ptr(), int(i) & threefry.M32,
+            numel, randint is not None, minval & threefry.M32, span, mult,
+            out.data_ptr(), torch._C._cuda_getCurrentRawStream(dev.index))
+        if rc:
+            raise RuntimeError("keyed draw: kernel launch failed: "
+                               f"{lib.gst_error_string(rc).decode()} ({rc})")
+        launch_counts["threefry_keyed"] += 1
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     """The built T1 library with its C signatures declared."""
@@ -92,6 +163,11 @@ def _library():
     lib.gst_threefry_uniforms.argtypes = [i32, vp, vp, i32, i32,
                                           ctypes.c_uint32, vp, vp]
     lib.gst_threefry_uniforms.restype = i32
+    u32 = ctypes.c_uint32
+    # device, key, i, numel, randint, minval, span, mult, out, stream
+    lib.gst_threefry_keyed.argtypes = [i32, vp, u32, i32, i32, u32, u32, u32,
+                                       vp, vp]
+    lib.gst_threefry_keyed.restype = i32
     lib.gst_threefry_block.argtypes = []
     lib.gst_threefry_block.restype = i32
     lib.gst_error_string.argtypes = [i32]

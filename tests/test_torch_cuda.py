@@ -1,6 +1,6 @@
-"""The CUDA kernels K1-K13 and R1 against their plain PyTorch versions on
-the card, bit for bit, and the trainers' grouped dispatch modes (CUDA-graph
-replays) against their per-chunk runs.  Skips without a CUDA device.  This
+"""The CUDA kernels K1-K13, R1, T1 and S1 against their plain PyTorch
+versions on the card, bit for bit, and the trainers' grouped dispatch
+modes (CUDA-graph replays) against their per-chunk runs.  Skips without a CUDA device.  This
 file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed:
 
@@ -814,19 +814,79 @@ def test_t1_equals_its_plain_version(cuda, count, salt):
 def test_learner_graph_mode_counts_every_step(cuda):
     """The HBM-table learners' grouped mode on the card (150 steps at
     resolve_every 8: two replays of 64 steps, two periods on their own and
-    a tail of 6): T1 and R1 counted once a step and a re-solve, as for
-    single steps; the tables finite."""
+    a tail of 6): T1 (the action draw) and S1 (the engine's step) counted
+    once a step and R1 once a re-solve, as for single steps; the tables
+    finite."""
     from gym_soccer_tpu_torch.agents import learners
     from gym_soccer_tpu_torch.core import threefry
+    from gym_soccer_tpu_torch.ops import engine_kernel as ek
     from gym_soccer_tpu_torch.ops import threefry_kernel as tk
     cfg = EnvConfig(width=5, height=4, slip_prob=0.2)
     st = learners.minimax_init(cfg, threefry.key(0), 512, cuda)
     tk.reset_launch_counts()
+    ek.reset_launch_counts()
     learners.reset_launch_counts()
     st, td = learners.minimax_train(
         cfg, learners.MinimaxQConfig(resolve_every=8), st, 150)
     torch.cuda.synchronize()
-    assert tk.launch_counts["threefry_uniforms"] == 3 * 150
+    assert tk.launch_counts["threefry_uniforms"] == 150
+    assert ek.launch_counts["engine_step"] == 150
     assert learners.launch_counts["solve_matrix_games"] == 150 // 8
     assert int(st.step) == 150 and td.shape == (150,)
     assert bool(torch.isfinite(st.q).all()) and float(st.v.abs().max()) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rng", ["threefry", "counter"])
+@pytest.mark.parametrize("autoreset", [True, False])
+def test_s1_equals_step_plain(cuda, rng, autoreset):
+    """S1 (the engine's step) bit-equal to step_plain on the card and on
+    the CPU in every state and StepOut field, on 5x4 and 11x7 at slip 0
+    and 0.2, from goal-state, wrapping and truncating lanes, under int32
+    and int64 actions; one launch a step."""
+    from chip_smoke import engine_start
+    from gym_soccer_tpu_torch.core import batch
+    from gym_soccer_tpu_torch.ops import engine_kernel as ek
+    for (w, h), q in [(b, q) for b in BOARDS for q in (0.0, 0.2)]:
+        cfg = EnvConfig(width=w, height=h, slip_prob=q)
+        st = engine_start(torch, cfg, rng, 3000, cuda, w)
+        g = torch.Generator().manual_seed(w)
+        for s in range(12):
+            acts = torch.randint(0, 5, (2, 3000), generator=g).to(cuda)
+            if s % 2:
+                acts = acts.int()
+            ek.reset_launch_counts()
+            got = batch.step(cfg, st, acts[0], acts[1], autoreset, rng)
+            assert ek.launch_counts["engine_step"] == 1
+            want = batch.step_plain(cfg, st, acts[0], acts[1], autoreset,
+                                    rng)
+            cpu = batch.step_plain(
+                cfg, batch.EnvState(*(f.cpu() for f in st)), acts[0].cpu(),
+                acts[1].cpu(), autoreset, rng)
+            for a, b, c in zip((*got[0], *got[1]), (*want[0], *want[1]),
+                               (*cpu[0], *cpu[1])):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+                assert torch.equal(a.cpu(), c)
+            st = got[0]
+
+
+@pytest.mark.cuda
+def test_keyed_entry_equals_its_plain_version(cuda):
+    """T1's keyed entry bit-equal to its plain versions on the card and on
+    the CPU at odd shapes and indices up to 2**31 - 1; one launch a
+    call."""
+    from gym_soccer_tpu_torch.core import threefry
+    from gym_soccer_tpu_torch.ops import threefry_kernel as tk
+    key = threefry.key(7, cuda)
+    for shape in ((3,), (2, 7), (5, 1, 3), (2, 1024), (2, 8192)):
+        for i in (0, 37, 2 ** 31 - 1):
+            tk.reset_launch_counts()
+            u = tk.keyed_uniform(key, i, shape)
+            r = tk.keyed_randint(key, i, shape, -3, 100_000)
+            assert tk.launch_counts["threefry_keyed"] == 2
+            assert torch.equal(u, tk.keyed_uniform_plain(key, i, shape))
+            assert torch.equal(u.cpu(), tk.keyed_uniform(key.cpu(), i, shape))
+            assert torch.equal(r, tk.keyed_randint_plain(key, i, shape, -3,
+                                                         100_000))
+            assert torch.equal(r.cpu(), tk.keyed_randint(
+                key.cpu(), i, shape, -3, 100_000))

@@ -144,10 +144,13 @@ def test_wrapper_runs_the_plain_version_on_the_cpu_and_checks_shapes():
 
 
 def test_kernel_source_constants_match():
-    """T1's rotation and parity constants and its entry point are the
-    module's."""
-    src = (_build.CSRC / "threefry_kernel.cu").read_text()
+    """The rotation and parity constants of the device threefry that T1
+    and S1 share (csrc/threefry.cuh) are the module's, and T1's entry
+    points include it."""
+    cuh = (_build.CSRC / "threefry.cuh").read_text()
     for r in (*threefry.ROTATIONS[0], *threefry.ROTATIONS[1]):
-        assert f"GST_ROUND({r})" in src
-    assert f"0x{threefry.PARITY:08X}u" in src
-    assert "gst_threefry_uniforms" in src
+        assert f"GST_ROUND({r})" in cuh
+    assert f"0x{threefry.PARITY:08X}u" in cuh
+    src = (_build.CSRC / "threefry_kernel.cu").read_text()
+    assert '#include "threefry.cuh"' in src
+    assert "gst_threefry_uniforms" in src and "gst_threefry_keyed" in src
