@@ -4,8 +4,9 @@ check it.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 39-46  # one block alone, in a fresh process
+    python3 chip_smoke.py --phases 47-48  # the data-parallel block alone
 
-Seven main paths, each driven with its kernels' launch counters reset just
+Eight main paths, each driven with its kernels' launch counters reset just
 before it and read just after.  The rollout path is the batched random
 play at 8192 lanes on the 5x4 (slip 0.2) and 11x7 (slip 0.2) boards:
 ``fused_rollout`` (kernel K1), ``fused_journal_rollout`` (kernel K2) with
@@ -31,7 +32,12 @@ The threefry path runs last: the entry point
 steps the engine through kernel S1 (the transition's and the resets'
 draws inside it), draws its actions through kernel T1 and re-solves
 through kernel R1, and whose evaluation draws its policy through T1's
-keyed entry; the learners, the engines and ``SoccerVectorEnv``.
+keyed entry; the learners, the engines and ``SoccerVectorEnv``.  The
+data-parallel path (parallel/mesh) runs after it: the four trainers with
+``mesh=`` (K5, K6, K8, K10 and R1, their all-reduces in the CUDA graphs
+on an NCCL mesh), the HBM-table learners through ``sharded_*_train_fn``,
+the sharded chunks of K5-K11 and the sharded re-solve on two ranks that
+share the card over gloo.
 Phases, each of which raises on failure:
 
 1. device: a CUDA device is present; its name and power limit;
@@ -310,11 +316,27 @@ Phases, each of which raises on failure:
     the keyed entry); ``eval_episode_stats``' loop on both designs, in
     turns; T1's keyed entry (``keyed_kernel``) bit-equal to its plain
     versions, timed at the evaluation's 2 x 1024 (call ms, device ms by
-    CUDA-graph replay) beside its plain version, with its bound.
+    CUDA-graph replay) beside its plain version, with its bound;
+47. data parallelism (parallel/mesh), NCCL at world size 1 in this
+    process: the 5x4 contract, the IQL run, the alternating gate, the
+    best-response gate and the --multigrid recipe (packed) at
+    chunks_per_dispatch=8 without and with ``mesh=`` (the all-reduces
+    captured in the CUDA graph), launches counted, bit-equal, both walls;
+    the contract's exploitability 0.0034149587 and each gate's threshold
+    under the mesh; ``sharded_solve_fn`` at 11705 x 600 bit-equal to R1
+    replicated; the minimax-Q and IQL learning checks through
+    ``sharded_*_train_fn``; ``dryrun_multichip(1)`` in a spawned rank;
+48. two spawned processes on the one card over gloo with CUDA tensors
+    (killed by their PIDs past a time limit): K5, K6, K7 (both sites) and
+    K8-K11 at 2 x 4096 lanes x 64 steps, the all-reduced sums, counts and
+    stats bit-equal to the sum of the same two shard-seed chunks run in
+    this process; R1's sharded solve bit-equal to the replicated one; the
+    5x4 contract at 2 x 32768 lanes per chunk, exploitability <= 0.010.
 
 ``--phases`` runs one block of phases alone in a fresh process, building
-only its libraries: 34-38 (K5) or 39-46 (S1, T1, R1, K5); it prints the
-block's figures but no kernels line and no verdict.
+only its libraries: 34-38 (K5), 39-46 (S1, T1, R1, K5) or 47-48 (every
+library); it prints the block's figures but no kernels line and no
+verdict.
 
 The second-to-last lines are the kernels' JSON record (the 14 kernel
 sites, R1, T1, its keyed entry and S1, with each kernel's bound: the
@@ -653,6 +675,24 @@ GRAPH_LANES, GRAPH_START, GRAPH_STEPS, GRAPH_WIDE = 2, 5, 162, 512
 GRAPH_TOL, GRAPH_SOLVE_TOL = 1e-6, 1e-4
 # --fused stopped at 640 steps and resumed to 1280 from --ckpt.
 FUSED_STEPS = (640, 1280)
+# Phases 47-48, data parallelism (parallel/mesh).  Phase 48's chunks: the
+# eight kernel sites (launch-count name -> game, packed, mixture) on
+# 2 ranks x DP_LANES lanes x DP_STEPS steps, the mixture the --multigrid
+# recipe's boards; the sharded re-solve at the 11x7 contract's games and
+# iterations (phase 47 too); the ranks' time limit, past which they are
+# killed by their PIDs.
+DP_SITES = {"packed_learner_chunk": ("minimax", True, False),
+            "multigrid_packed_learner_chunk": ("minimax", True, True),
+            "learner_chunk": ("minimax", False, False),
+            "multigrid_learner_chunk": ("minimax", False, True),
+            "iql_packed_chunk": ("iql", True, False),
+            "iql_chunk": ("iql", False, False),
+            "altq_packed_chunk": ("altq", True, False),
+            "altq_chunk": ("altq", False, False)}
+DP_RANKS, DP_LANES, DP_STEPS = 2, 4096, 64
+DP_SEED, DP_EPS_INT, DP_OFFSET = 7, int(0.3 * 65536), 64
+DP_SOLVE = (11705, 600)
+DP_TIMEOUT = 300.0
 
 
 class SmokeFailure(RuntimeError):
@@ -998,11 +1038,11 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Build and drive the port on one CUDA device.")
     parser.add_argument(
-        "--phases", choices=("34-38", "39-46"),
+        "--phases", choices=("34-38", "39-46", "47-48"),
         help="build only the block's libraries (34-38: K5; 39-46: S1, T1, "
-             "R1 and K5) and run its phases alone, in this fresh process: "
-             "their figures before any earlier phase has run; prints no "
-             "kernels line and no verdict")
+             "R1 and K5; 47-48: every library) and run its phases alone, "
+             "in this fresh process: their figures before any earlier "
+             "phase has run; prints no kernels line and no verdict")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1032,8 +1072,13 @@ def main(argv=None) -> int:
                       lambda: threefry_phases(
                           torch, dev, card, added_instructions(_build),
                           step_counts)),
+            "47-48": (tuple(_build.LIBRARIES),
+                      lambda: mesh_phases(torch, dev, card, exploitability)),
         }[args.phases]
         t0 = time.perf_counter()
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(len(libraries)) as pool:   # one nvcc each
+            list(pool.map(_build.build, libraries))
         for name in libraries:
             _build.load(name)
         print(f"[build] {', '.join(libraries)} in "
@@ -1337,6 +1382,7 @@ def main(argv=None) -> int:
     launches.update(t_launches)
     errs.update(t_errs)
     ms.update(t_ms)
+    mesh_phases(torch, dev, card, exploitability)
 
     # Each kernel's work at the shape its ms was timed: lane-steps (or
     # lane-events) and the bytes of its inputs and outputs, each once.
@@ -4230,6 +4276,421 @@ def profile_window(torch, fn, label, kernel, card, calls=20):
           f"{kernel} {per_launch} us of device time per launch ({seen} of "
           f"{calls} launches recorded), {idle} | {card}")
     return per_launch
+
+
+# ----------------------------------------------------------------------
+# Phases 47-48: data parallelism (parallel/mesh)
+# ----------------------------------------------------------------------
+
+def mesh_phases(torch, dev, card, exploitability):
+    """Phases 47 (NCCL at world size 1, in this process) and 48 (two
+    processes on the one card over gloo), each with its wall seconds."""
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    nccl_phase(torch, dev, card, exploitability)
+    print(f"[phase 47] {time.perf_counter() - t0} s")
+    t0 = time.perf_counter()
+    two_ranks_phase(torch, dev, card, exploitability)
+    print(f"[phase 48] {time.perf_counter() - t0} s")
+    print(f"[mesh] phases 47-48 ran {time.perf_counter() - t_all} s")
+
+
+def _dp_counts():
+    from gym_soccer_tpu_torch.agents import learners
+    from gym_soccer_tpu_torch.ops import altq_kernel as ak
+    from gym_soccer_tpu_torch.ops import iql_kernel as ik
+    from gym_soccer_tpu_torch.ops import learner_kernel as lk
+    return lk.launch_counts, ik.launch_counts, ak.launch_counts, \
+        learners.launch_counts
+
+
+def _dp_reset():
+    for d in _dp_counts():
+        for k in d:
+            d[k] = 0
+
+
+def _dp_launched() -> dict:
+    return {k: n for d in _dp_counts() for k, n in d.items() if n}
+
+
+def nccl_phase(torch, dev, card, exploitability):
+    """Phase 47: an NCCL process group of one rank in this process
+    (``distributed_init(..., backend="nccl")``), so every all-reduce of
+    the data-parallel paths runs (and, in the grouped modes, is captured
+    in the CUDA graph with the chunks).  Each recipe runs at
+    chunks_per_dispatch=8 without and then with ``mesh=``, its launches
+    counted (K5-K11 replays x 8 + remainder, R1 once a re-solve): the 5x4
+    contract (q bit-equal, exploitability 0.0034149587), the IQL run, the
+    alternating gate (|V - V*| <= 0.05, win share > 0.95), the
+    best-response gate (win share > 0.95) and the --multigrid recipe
+    packed, each bit-equal to its run without the mesh, with both walls;
+    ``sharded_solve_fn`` at 11705 x 600 bit-equal to R1 replicated; the
+    minimax-Q and IQL learning checks (tests/test_learners.py:48, :73)
+    through ``sharded_*_train_fn``; then ``dryrun_multichip(1)`` in a
+    spawned rank."""
+    import tempfile
+
+    import numpy as np
+    from gym_soccer_tpu_torch import entry
+    from gym_soccer_tpu_torch.agents import evaluation, learners
+    from gym_soccer_tpu_torch.agents.learners import solve_matrix_games
+    from gym_soccer_tpu_torch.config import EnvConfig
+    from gym_soccer_tpu_torch.envs import soccer_alternating_env as alt
+    from gym_soccer_tpu_torch.ops import altq_kernel as ak
+    from gym_soccer_tpu_torch.ops import iql_kernel as ik
+    from gym_soccer_tpu_torch.ops import learner_kernel as lk
+    from gym_soccer_tpu_torch.parallel import mesh as pmesh
+    from gym_soccer_tpu_torch.utils.policies import get_random_policy_array
+    cfg = EnvConfig(5, 4, SLIP)
+    g = GROUPED_CHUNKS
+
+    def pair(label, train, n_tensors, kernel, n_chunks, solves=None):
+        """``train`` at chunks_per_dispatch=8 without and with the mesh:
+        launches, outputs bit for bit, walls."""
+        runs = {}
+        for which, m in (("no mesh", None), ("mesh", mesh)):
+            _dp_reset()
+            timing = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = train(mesh=m, chunks_per_dispatch=g, timing=timing)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = _dp_launched()
+            check(got.get(kernel) == n_chunks
+                  and timing["replays"] == n_chunks // g
+                  and (solves is None or got.get(RMPLUS, 0) == solves),
+                  f"{label} ({which}): launches {got}, replays "
+                  f"{timing['replays']}")
+            runs[which] = (out, wall, timing, got)
+        (a, wa, ta, _), (b, wb, tb, got) = runs["no mesh"], runs["mesh"]
+        check(all(torch.equal(x, y) for x, y in zip(a[:n_tensors],
+                                                     b[:n_tensors]))
+              and a[n_tensors] == b[n_tensors],
+              f"{label}: the mesh run differs from the run without it")
+        print(f"[mesh nccl] {label}, chunks_per_dispatch={g}: outputs and "
+              f"history bit-equal without and with the 1-rank NCCL mesh; "
+              f"launches with the mesh {got}; wall {wb} s with the mesh "
+              f"(capture {tb['capture_ms']} ms, replays {tb['segments_ms']} "
+              f"ms) against {wa} s without (capture {ta['capture_ms']} ms, "
+              f"replays {ta['segments_ms']} ms) | {card}")
+        return b
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pmesh.distributed_init(f"file://{tmp}/store", 1, 0, backend="nccl",
+                               device=dev)
+        try:
+            mesh = pmesh.env_mesh(1, device=dev)
+            check(mesh.backend == "nccl" and mesh.capturable,
+                  f"phase 47's mesh {mesh}")
+            q, v, pa, pb, _ = pair(
+                "5x4 contract",
+                lambda **k: lk.fused_minimax_train(cfg, device=dev,
+                                                   **CONTRACT, **k),
+                4, "packed_learner_chunk", CONTRACT["n_chunks"],
+                CONTRACT["n_chunks"] + 1)
+            ex = exploitability(cfg, pa, pb, gamma=0.99)
+            check(round(ex, 10) == CONTRACT_READING,
+                  f"mesh contract: exploitability {ex} does not read "
+                  f"{CONTRACT_READING}")
+            print(f"[mesh nccl] 5x4 contract with the mesh: exploitability "
+                  f"{ex} | {card}")
+            pair("IQL run", lambda **k: ik.fused_iql_train(cfg, **IQL_RUN,
+                                                           **k),
+                 2, "iql_packed_chunk", IQL_RUN["n_chunks"])
+            q, _ = pair("alternating gate",
+                        lambda **k: ak.fused_altq_train(cfg, **ALT_RECIPE,
+                                                        **k),
+                        1, "altq_packed_chunk", ALT_RECIPE["n_chunks"])
+            tb = alt.build_alt_tables(cfg)
+            q = q.cpu()
+            v_star = alt.alt_value_iteration(tb)[1]
+            v_l = torch.where(torch.as_tensor(tb.turn == 0),
+                              q.max(-1).values, q.min(-1).values).numpy()
+            v_err = float(np.abs(v_l - v_star).mean())
+            randpol = np.random.RandomState(0).randint(
+                0, 5, tb.nS).astype(np.int32)
+            w, losses, _ = alt.alt_policy_rollout(
+                cfg, tb.raw_to_dense,
+                learners.altq_greedy_policy(cfg, q).numpy(), randpol,
+                batch=256, steps=300, seed=6, device=dev)
+            share = w / max(w + losses, 1)
+            check(v_err <= ALT_V_ERR and share > ALT_WIN_SHARE,
+                  f"mesh alternating gate: |V - V*| {v_err}, share {share}")
+            print(f"[mesh nccl] alternating gate with the mesh: mean |V - "
+                  f"V*| {v_err}, win share {share}")
+            opp = get_random_policy_array(761, 5, seed=BR_OPP_SEED)
+            _, _, pa, _, _ = pair(
+                "best-response gate",
+                lambda **k: lk.fused_best_response_train(
+                    cfg, opp, "player_a", device=dev, **BR_RECIPE, **k),
+                4, "packed_learner_chunk", BR_RECIPE["n_chunks"], 0)
+            share = evaluation.greedy_win_share(
+                cfg, pa.argmax(-1), opp, lanes=BR_LANES, steps=BR_STEPS,
+                seed=BR_EVAL_SEED, device=dev)
+            check(share > BR_WIN_SHARE, f"mesh BR gate: win share {share}")
+            print(f"[mesh nccl] best-response gate with the mesh: win "
+                  f"share {share}")
+            mgc = tuple(EnvConfig(*b) for b in MG_BOARDS)
+            pair("--multigrid recipe, packed",
+                 lambda **k: lk.fused_minimax_train(mgc, device=dev,
+                                                    packed=True, **MG_RECIPE,
+                                                    **k),
+                 4, "multigrid_packed_learner_chunk", MG_RECIPE["n_chunks"],
+                 MG_RECIPE["n_chunks"] + 1)
+            games = _dp_games(torch, dev)
+            want = solve_matrix_games(games, iters=DP_SOLVE[1])
+            solve = pmesh.sharded_solve_fn(mesh, DP_SOLVE[1])
+            got = solve(games)
+            check(all(torch.equal(a, b) for a, b in zip(want, got)),
+                  "sharded solve != R1 replicated")
+            ms_rep, _, _ = time_cuda(
+                lambda: solve_matrix_games(games, iters=DP_SOLVE[1]))
+            ms_mesh, _, _ = time_cuda(lambda: solve(games))
+            print(f"[mesh nccl] sharded_solve_fn {DP_SOLVE[0]} x "
+                  f"{DP_SOLVE[1]}: bit-equal to R1 replicated; {ms_mesh} "
+                  f"ms/call against {ms_rep} ms replicated (CUDA events) "
+                  f"| {card}")
+            dp_learning_checks(torch, dev, card, mesh)
+        finally:
+            torch.distributed.destroy_process_group()
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(1)
+    print(f"[mesh nccl] dryrun_multichip(1) in a spawned rank: "
+          f"{time.perf_counter() - t0} s | {card}")
+
+
+def dp_learning_checks(torch, dev, card, mesh):
+    """Phase 47's learning checks through ``sharded_*_train_fn`` on the
+    1-rank NCCL mesh: tests/test_learners.py:73 (minimax-Q: |v| <= 1 +
+    1e-3, max |v| > 0.05, pi rows sum to 1) and :48 (IQL self-play: greedy
+    goals > truncations), the HBM-table learners' sums and counts
+    all-reduced every step inside their 64-step CUDA-graph replays."""
+    from gym_soccer_tpu_torch.agents import learners as L
+    from gym_soccer_tpu_torch.config import EnvConfig
+    from gym_soccer_tpu_torch.core import batch, threefry
+    from gym_soccer_tpu_torch.parallel import mesh as pmesh
+    cfg = EnvConfig(5, 4, SLIP)
+    f32 = dict(dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = L.minimax_init(cfg, threefry.key(0), 512, dev)._replace(
+        env=pmesh.sharded_init(cfg, mesh, threefry.key(0), 512))
+    train = pmesh.sharded_minimax_train_fn(
+        cfg, L.MinimaxQConfig(lr=0.2, resolve_every=16), mesh, 2000)
+    st, _ = train(st)
+    v, pi = st.v.abs(), st.pi_a
+    check(float(v.max()) <= 1.0 + 1e-3 and float(v.max()) > 0.05
+          and bool(((pi.sum(-1) - 1).abs() <= 1e-3).all()),
+          f"mesh minimax-Q: max |v| {float(v.max())}")
+    torch.cuda.synchronize()
+    print(f"[mesh learning] test_learners.py:73 minimax-Q 512 x 2000 through "
+          f"sharded_minimax_train_fn: max |v| {float(v.max())}, pi rows sum "
+          f"to 1; {time.perf_counter() - t0} s | {card}")
+    t0 = time.perf_counter()
+    st = L.IQLState(q_a=torch.zeros((761, 5), **f32),
+                    q_b=torch.zeros((761, 5), **f32),
+                    env=pmesh.sharded_init(cfg, mesh, threefry.key(0), 512),
+                    step=torch.zeros((), dtype=torch.int32, device=dev))
+    st, _ = pmesh.sharded_iql_train_fn(cfg, L.IQLConfig(lr=0.5, eps=0.25),
+                                       mesh, 6000)(st)
+    env = batch.init(cfg, threefry.key(3), 512, dev)
+    out = batch.rollout(cfg, env, lambda o, i: (
+        st.q_a[o.long()].argmax(-1), st.q_b[o.long()].argmax(-1)), 200)[1]
+    goals, truncs = int(out.done.sum()), int(out.truncated.sum())
+    check(goals > truncs, f"mesh IQL: {goals} goals vs {truncs} truncations")
+    torch.cuda.synchronize()
+    print(f"[mesh learning] test_learners.py:48 IQL 512 x 6000 through "
+          f"sharded_iql_train_fn: greedy self-play {goals} goals > {truncs} "
+          f"truncations; {time.perf_counter() - t0} s | {card}")
+
+
+def _dp_games(torch, dev):
+    import numpy as np
+    rng = np.random.default_rng(DP_SOLVE[0])
+    return torch.tensor(rng.uniform(-1, 1, (DP_SOLVE[0], 5, 5)).astype(
+        np.float32), device=dev)
+
+
+def _dp_inputs(torch, name, dev):
+    """(config, table, planes or None, fields) of a phase-48 kernel site
+    on the global batch: tables from a numpy seed, made alike on every
+    rank and in the script's process."""
+    import numpy as np
+    from gym_soccer_tpu_torch.config import EnvConfig
+    from gym_soccer_tpu_torch.envs import soccer_alternating_env as alt
+    from gym_soccer_tpu_torch.ops import altq_kernel as ak
+    from gym_soccer_tpu_torch.ops import iql_kernel as ik
+    from gym_soccer_tpu_torch.ops import learner_kernel as lk
+    game, packed, mix = DP_SITES[name]
+    cfg = (tuple(EnvConfig(*b) for b in MG_BOARDS) if mix
+           else EnvConfig(5, 4, SLIP))
+    n = DP_RANKS * DP_LANES
+    rng = np.random.default_rng(11)
+
+    def t(a):
+        return torch.tensor(a.astype(np.float32), device=dev)
+    if game == "minimax":
+        nS = lk.n_states(cfg)
+        pa, pb = (t(rng.dirichlet(np.ones(5), nS)) for _ in range(2))
+        q, v = t(rng.uniform(-1, 1, (nS, 5, 5))), t(rng.uniform(-1, 1, nS))
+        table = (lk.pack_m2(cfg, pa, pb, v, 0.2) if packed
+                 else lk.pack_m(cfg, pa, pb, q, v, 0.2))
+        made = lk.init_state_fields(cfg, n, dev)
+        planes, fields = made if mix else (None, made)
+        return cfg, table, planes, fields
+    if game == "iql":
+        nS = lk.n_states(cfg)
+        table = ik.pack_iql_table(cfg, t(rng.uniform(-0.5, 0.5, (nS, 5))),
+                                  t(rng.uniform(-0.5, 0.5, (nS, 5))))
+        return cfg, table, None, ik.init_iql_state_fields(cfg, n, dev)
+    nS = alt.build_alt_tables(cfg).nS
+    table = ak.pack_alt_table(cfg, t(rng.uniform(-0.5, 0.5, (nS, 5))))
+    return cfg, table, None, ak.init_alt_state_fields(cfg, n, dev)
+
+
+def _dp_chunk(torch, name, dev, mesh=None, rank=None):
+    """A phase-48 kernel site's chunk: the sharded one on ``mesh``'s rank,
+    or (``rank`` given) that rank's shard-seed chunk standalone."""
+    from gym_soccer_tpu_torch.ops import altq_kernel as ak
+    from gym_soccer_tpu_torch.ops import iql_kernel as ik
+    from gym_soccer_tpu_torch.ops import learner_kernel as lk
+    from gym_soccer_tpu_torch.parallel import mesh as pmesh
+    game, packed, mix = DP_SITES[name]
+    cfg, table, planes, fields = _dp_inputs(torch, name, dev)
+    n = DP_RANKS * DP_LANES
+    if mesh is None:
+        blk = slice(rank * DP_LANES, (rank + 1) * DP_LANES)
+        fields = tuple(f[blk].clone() for f in fields)
+        planes = None if planes is None else \
+            tuple(p[blk].clone() for p in planes)
+        seed = pmesh.shard_seed(DP_SEED, rank)
+        fn = getattr({"minimax": lk, "iql": ik, "altq": ak}[game], name)
+        if game != "minimax":
+            return fn(cfg, seed, DP_EPS_INT, table, fields, DP_LANES,
+                      DP_STEPS, step_offset=DP_OFFSET, global_batch=n)
+        args = (planes, fields) if mix else (fields,)
+        return fn(cfg, seed, table, *args, DP_LANES, DP_STEPS,
+                  global_batch=n)
+    fields = pmesh.shard_fields(fields, mesh, n)
+    if game == "iql":
+        return pmesh.sharded_iql_chunk_fn(cfg, mesh, n, DP_STEPS,
+                                          packed=packed)(
+            DP_SEED, DP_EPS_INT, table, fields, DP_OFFSET)
+    if game == "altq":
+        return pmesh.sharded_altq_chunk_fn(cfg, mesh, n, DP_STEPS,
+                                           packed=packed)(
+            DP_SEED, DP_EPS_INT, table, fields, DP_OFFSET)
+    fn = pmesh.sharded_learner_chunk_fn(cfg, mesh, n, DP_STEPS,
+                                        packed=packed)
+    if mix:
+        return fn(DP_SEED, table, fields, pmesh.shard_fields(planes, mesh, n))
+    return fn(DP_SEED, table, fields)
+
+
+def _to_cpu(x):
+    if hasattr(x, "cpu"):
+        return x.cpu()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to_cpu(y) for y in x)
+    return x
+
+
+def dp_rank(mesh):
+    """One of phase 48's ranks (a spawned process on the card, gloo with
+    CUDA tensors): the eight kernel sites' sharded chunks, the sharded
+    re-solve and the 5x4 contract per chunk on its half of the 65536
+    lanes, with the kernels it launched and its walls."""
+    import torch
+    from gym_soccer_tpu_torch.config import EnvConfig
+    from gym_soccer_tpu_torch.ops import learner_kernel as lk
+    from gym_soccer_tpu_torch.parallel import mesh as pmesh
+    dev = mesh.device
+    out = {"mesh": str(mesh), "chunks": {}}
+    _dp_reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for name in DP_SITES:
+        out["chunks"][name] = _to_cpu(_dp_chunk(torch, name, dev, mesh))
+    out["chunks_s"] = time.perf_counter() - t0
+    out["solve"] = _to_cpu(pmesh.sharded_solve_fn(mesh, DP_SOLVE[1])(
+        _dp_games(torch, dev)))
+    out["chunk_launches"] = _dp_launched()
+    _dp_reset()
+    cfg = EnvConfig(5, 4, SLIP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, pa, pb, hist = lk.fused_minimax_train(cfg, device=dev, mesh=mesh,
+                                                **CONTRACT)
+    torch.cuda.synchronize()
+    out["contract"] = (pa.cpu(), pb.cpu(), hist,
+                       time.perf_counter() - t0, _dp_launched())
+    return out
+
+
+def two_ranks_phase(torch, dev, card, exploitability):
+    """Phase 48: two spawned processes share the card over gloo with CUDA
+    tensors (NCCL refuses two ranks on one device), killed by their PIDs
+    past ``DP_TIMEOUT``.  The eight kernel sites' all-reduced sums, counts
+    and stats at 2 x 4096 lanes x 64 steps equal, bit for bit, the sum of
+    the same two shard-seed chunks run here on the card, and each rank's
+    fields its chunk's; R1's sharded solve equals the replicated one; the
+    5x4 contract at 2 x 32768 lanes, per chunk, reads exploitability <=
+    0.010 (other shard seeds: another run than the 1-process one)."""
+    from gym_soccer_tpu_torch.agents.learners import solve_matrix_games
+    from gym_soccer_tpu_torch.config import EnvConfig
+    from gym_soccer_tpu_torch.parallel import mesh as pmesh
+    t0 = time.perf_counter()
+    ranks = pmesh.spawn(dp_rank, DP_RANKS, device="cuda", backend="gloo",
+                        timeout=DP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    print(f"[mesh gloo] {DP_RANKS} ranks on {ranks[0]['mesh']} and "
+          f"{ranks[1]['mesh']}: {wall} s from spawn to their results; the "
+          f"eight chunks {[r['chunks_s'] for r in ranks]} s a rank, "
+          f"launches {ranks[0]['chunk_launches']} | {card}")
+    for name in DP_SITES:
+        sums = cnt = stats = None
+        for r in range(DP_RANKS):
+            f, (s, c), st = _dp_chunk(torch, name, dev, rank=r)
+            check(all(torch.equal(a.cpu(), b) for a, b in
+                      zip(f, ranks[r]["chunks"][name][0])),
+                  f"{name}: rank {r}'s fields differ from its chunk's")
+            sums = s if sums is None else sums + s
+            cnt = c if cnt is None else cnt + c
+            stats = st if stats is None else [a + b for a, b in zip(stats,
+                                                                    st)]
+        for r in range(DP_RANKS):
+            _, (s, c), st = ranks[r]["chunks"][name]
+            check(torch.equal(s, sums.cpu()) and torch.equal(c, cnt.cpu())
+                  and [int(x) for x in st] == [int(x) for x in stats],
+                  f"{name}: rank {r}'s all-reduced sums differ from the "
+                  f"summed shard chunks")
+        check(int(stats[3]) == 0, f"{name}: values out of range")
+        print(f"[mesh gloo] {name} {DP_RANKS} x {DP_LANES} x {DP_STEPS}: "
+              f"all-reduced int64 sums, int32 counts ({int(cnt.sum())} "
+              f"visits) and stats equal on both ranks the sum of the two "
+              f"shard-seed chunks run in one process, bit for bit")
+    want = solve_matrix_games(_dp_games(torch, dev), iters=DP_SOLVE[1])
+    for r in range(DP_RANKS):
+        check(all(torch.equal(a.cpu(), b) for a, b in
+                  zip(want, ranks[r]["solve"])),
+              f"rank {r}'s sharded solve != R1 replicated")
+    print(f"[mesh gloo] sharded_solve_fn {DP_SOLVE[0]} x {DP_SOLVE[1]} "
+          f"over 2 ranks: bit-equal to R1 replicated on both")
+    pa, pb, hist, c_wall, launched = ranks[0]["contract"]
+    cfg = EnvConfig(5, 4, SLIP)
+    ex = exploitability(cfg, pa.to(dev), pb.to(dev), gamma=0.99)
+    same = all(torch.equal(a, b) for a, b in
+               zip((pa, pb), ranks[1]["contract"][:2]))
+    print(f"[mesh gloo] 5x4 contract {CONTRACT} per chunk over {DP_RANKS} "
+          f"ranks x {CONTRACT['batch'] // DP_RANKS} lanes: exploitability "
+          f"{ex} (limit {CONTRACT_EXPLOITABILITY}); ranks' pi equal {same}; "
+          f"train wall {c_wall} s on rank 0 ({ranks[1]['contract'][3]} s on "
+          f"rank 1); rank 0's launches {launched} | {card}")
+    check(same, "the two ranks' tables differ")
+    check(ex <= CONTRACT_EXPLOITABILITY,
+          f"2-rank contract: exploitability {ex} > {CONTRACT_EXPLOITABILITY}")
 
 
 if __name__ == "__main__":

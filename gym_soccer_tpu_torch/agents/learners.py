@@ -23,9 +23,15 @@ The port of gym_soccer_tpu/agents/learners.py:
   ``index_add_`` sums by atomics in no fixed order.
 * ``altq_greedy_policy``: the alternating game's greedy policy.
 
-``psum_axis`` (the JAX package's data-parallel all-reduce over a mesh
-axis) waits for the port of parallel/mesh.py and raises
-NotImplementedError.  The trainers keep the step count on the host beside
+``psum_axis`` takes a data-parallel ``Mesh`` (parallel/mesh) where the
+JAX package takes a mesh axis name: each step's table sums and counts are
+all-reduced over the ranks before the count-normalised divide, so every
+rank applies the whole batch's update (``parallel.mesh.sharded_*_train_fn``
+average the TD summary over the ranks, JAX's ``pmean``).  On the card an
+NCCL mesh's collectives are captured in the ``*_train`` replays; a gloo
+mesh's cannot be, and ``dispatch.run`` refuses it there (ValueError)
+before a capture.  The
+trainers keep the step count on the host beside
 ``state.step`` (read once a ``*_train`` call), so the schedules and
 minimax-Q's re-solve cadence need no device read a step.
 
@@ -48,7 +54,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -264,11 +270,12 @@ def _multigrid_engine(codec: multigrid.MultiGridCodec) -> _Engine:
         nS=codec.nS_total)
 
 
-def _no_psum(psum_axis) -> None:
-    if psum_axis is not None:
-        raise NotImplementedError(
-            "psum_axis: data-parallel training over a mesh waits for the "
-            "port of parallel/mesh.py")
+def _psum(mesh, *sums):
+    """The tensors ``sums`` (float32, one shape) summed over the ranks of
+    ``mesh`` (no collective where it is None), as one all-reduce."""
+    if mesh is None:
+        return sums
+    return mesh.all_reduce_(torch.stack(sums)).unbind()
 
 
 def _f32(x) -> float:
@@ -335,7 +342,7 @@ def _eps_greedy(q_row: torch.Tensor, u_explore: torch.Tensor,
 
 
 def _iql_step_engine(eng: _Engine, lcfg: IQLConfig, state: IQLState,
-                     frozen_a=None, frozen_b=None):
+                     frozen_a=None, frozen_b=None, mesh=None):
     q_a, q_b = state.q_a, state.q_b
     obs = eng.observe(state.env).long()
     u = eng.uniforms(state.env, 4, 1).T
@@ -355,14 +362,16 @@ def _iql_step_engine(eng: _Engine, lcfg: IQLConfig, state: IQLState,
     td_b = tgt_b - q_b[obs, ab]
 
     # Count-normalized scatter updates: the mean TD of the lanes that hit
-    # a cell, at learning rate lr.
+    # a cell, at learning rate lr; under a mesh the sums and counts are
+    # all-reduced before the divide.
     n = q_a.numel()
     ia, ib = obs * N_ACTIONS + aa, obs * N_ACTIONS + ab
     lr = _f32(lcfg.lr)
-    delta_a = (lr * _scatter_add(n, ia, td_a)
-               / _scatter_add(n, ia, 1.0).clamp_min(1.0)).view_as(q_a)
-    delta_b = (lr * _scatter_add(n, ib, td_b)
-               / _scatter_add(n, ib, 1.0).clamp_min(1.0)).view_as(q_b)
+    sum_a, cnt_a, sum_b, cnt_b = _psum(
+        mesh, _scatter_add(n, ia, td_a), _scatter_add(n, ia, 1.0),
+        _scatter_add(n, ib, td_b), _scatter_add(n, ib, 1.0))
+    delta_a = (lr * sum_a / cnt_a.clamp_min(1.0)).view_as(q_a)
+    delta_b = (lr * sum_b / cnt_b.clamp_min(1.0)).view_as(q_b)
     if frozen_a is not None:
         delta_a = torch.zeros_like(delta_a)
     if frozen_b is not None:
@@ -373,15 +382,17 @@ def _iql_step_engine(eng: _Engine, lcfg: IQLConfig, state: IQLState,
 
 
 def iql_step(cfg: EnvConfig, lcfg: IQLConfig, state: IQLState,
-             psum_axis: Optional[str] = None, frozen_a=None, frozen_b=None):
+             psum_axis=None, frozen_a=None, frozen_b=None):
     """One act/step/update for the whole batch.  Returns (state, mean
-    |TD|).  ``frozen_a``/``frozen_b``: an int policy [nS] fixing that
-    player's actions (the reference's frozen-opponent mode, batched); the
-    frozen side's table is left untouched."""
-    _no_psum(psum_axis)
+    |TD|, this rank's).  ``frozen_a``/``frozen_b``: an int policy [nS]
+    fixing that player's actions (the reference's frozen-opponent mode,
+    batched); the frozen side's table is left untouched.  ``psum_axis``: a
+    ``parallel.mesh.Mesh`` over whose ranks the update's sums and counts
+    are all-reduced, or None."""
     dev = state.q_a.device
     return _iql_step_engine(_batch_engine(cfg), lcfg, state,
-                            _policy(frozen_a, dev), _policy(frozen_b, dev))
+                            _policy(frozen_a, dev), _policy(frozen_b, dev),
+                            psum_axis)
 
 
 def _tensors(tree) -> list:
@@ -407,14 +418,16 @@ def _rebuild(tree, tensors):
 
 
 def _train(step, state, n_steps: int, period: int = 1, step0: int = 0,
-           coeffs=None):
+           coeffs=None, mesh=None):
     """``n_steps`` of ``step(state, step_now, co) -> (state, td)``; returns
     (state, td per step).  ``step_now`` is the host's step count;  ``co``
     is None for a step run on its own (the step computes its own scalars
     from ``step_now``) and, in a group, the 0-d tensors of
     ``coeffs(step_now)`` read from a device table.  ``period``: the steps
     whose pattern repeats (minimax-Q's re-solve cadence); the whole periods
-    run grouped, ``-(-GROUP_STEPS // period)`` periods a replay."""
+    run grouped, ``-(-GROUP_STEPS // period)`` periods a replay; ``mesh``,
+    the data-parallel mesh the steps all-reduce over, goes to
+    ``dispatch.run``, which refuses one its replays cannot capture."""
     tds, done = [], 0
 
     def single(state, n):
@@ -429,7 +442,7 @@ def _train(step, state, n_steps: int, period: int = 1, step0: int = 0,
     n_periods = (n_steps - done) // period
     if n_periods:
         state, td = _grouped(step, state, step0 + done, n_periods, period,
-                             -(-GROUP_STEPS // period), coeffs)
+                             -(-GROUP_STEPS // period), coeffs, mesh)
         tds.append(td)
         done += n_periods * period
     state = single(state, n_steps - done)
@@ -437,7 +450,7 @@ def _train(step, state, n_steps: int, period: int = 1, step0: int = 0,
 
 
 def _grouped(step, state, first: int, n_periods: int, period: int, g: int,
-             coeffs):
+             coeffs, mesh):
     """``n_periods`` x ``period`` steps from host step ``first`` (a multiple
     of ``period``) through ``dispatch.run``: the carry is a copy of the
     state's tensors, each body runs ``period`` steps and writes them back;
@@ -464,20 +477,20 @@ def _grouped(step, state, first: int, n_periods: int, period: int, g: int,
 
     dispatch.run(body, carry + [tds, k], n_periods, g,
                  counters=(engine_kernel.launch_counts,
-                           threefry_kernel.launch_counts, launch_counts))
+                           threefry_kernel.launch_counts, launch_counts),
+                 mesh=mesh)
     return _rebuild(state, carry), tds
 
 
 def iql_train(cfg: EnvConfig, lcfg: IQLConfig, state: IQLState,
-              n_steps: int, psum_axis: Optional[str] = None,
-              frozen_a=None, frozen_b=None):
+              n_steps: int, psum_axis=None, frozen_a=None, frozen_b=None):
     """``n_steps`` of ``iql_step``.  Returns (state, mean |TD| per
     step)."""
-    _no_psum(psum_axis)
     eng, dev = _batch_engine(cfg), state.q_a.device
     fa, fb = _policy(frozen_a, dev), _policy(frozen_b, dev)
-    return _train(lambda s, i, co: _iql_step_engine(eng, lcfg, s, fa, fb),
-                  state, n_steps)
+    return _train(lambda s, i, co: _iql_step_engine(eng, lcfg, s, fa, fb,
+                                                    psum_axis),
+                  state, n_steps, mesh=psum_axis)
 
 
 def multigrid_iql_init(cfgs, key, n_envs: int, device="cuda") -> IQLState:
@@ -489,15 +502,15 @@ def multigrid_iql_init(cfgs, key, n_envs: int, device="cuda") -> IQLState:
 
 
 def multigrid_iql_train(cfgs, lcfg: IQLConfig, state: IQLState,
-                        n_steps: int, psum_axis: Optional[str] = None,
+                        n_steps: int, psum_axis=None,
                         frozen_a=None, frozen_b=None):
     """IQL training over a mixed-geometry batch."""
-    _no_psum(psum_axis)
     eng = _multigrid_engine(multigrid.build_codec(tuple(cfgs)))
     dev = state.q_a.device
     fa, fb = _policy(frozen_a, dev), _policy(frozen_b, dev)
-    return _train(lambda s, i, co: _iql_step_engine(eng, lcfg, s, fa, fb),
-                  state, n_steps)
+    return _train(lambda s, i, co: _iql_step_engine(eng, lcfg, s, fa, fb,
+                                                    psum_axis),
+                  state, n_steps, mesh=psum_axis)
 
 
 # ----------------------------------------------------------------------
@@ -573,7 +586,8 @@ def _minimax_coeffs(lcfg: MinimaxQConfig, step_now: int):
 
 
 def _minimax_step_engine(eng: _Engine, lcfg: MinimaxQConfig,
-                         state: MinimaxQState, step_now: int, co=None):
+                         state: MinimaxQState, step_now: int, co=None,
+                         mesh=None):
     """One step; ``co``: (lr, keep, explore) as 0-d tensors, or None to
     take them from ``step_now`` as Python floats (the same float32
     values)."""
@@ -592,8 +606,9 @@ def _minimax_step_engine(eng: _Engine, lcfg: MinimaxQConfig,
     # Count-normalized update (see iql_step): mean TD per visited cell.
     cells = (obs * N_ACTIONS + aa) * N_ACTIONS + ab
     shape = state.q.shape
-    sum_td = _scatter_add(state.q.numel(), cells, td).view(shape)
-    cnt = _scatter_add(state.q.numel(), cells, 1.0).view(shape)
+    sum_td, cnt = (x.view(shape) for x in _psum(
+        mesh, _scatter_add(state.q.numel(), cells, td),
+        _scatter_add(state.q.numel(), cells, 1.0)))
     n = state.n + cnt
     if lcfg.count_lr_tau > 0:
         lr = lr * (1.0 + n / _f32(lcfg.count_lr_tau)) ** _f32(
@@ -610,28 +625,28 @@ def _minimax_step_engine(eng: _Engine, lcfg: MinimaxQConfig,
 
 
 def _minimax_train(eng: _Engine, lcfg: MinimaxQConfig,
-                   state: MinimaxQState, n_steps: int):
+                   state: MinimaxQState, n_steps: int, mesh=None):
     step0 = int(state.step)   # the host's step count, read once
     return _train(
-        lambda s, i, co: _minimax_step_engine(eng, lcfg, s, i, co), state,
-        n_steps, period=lcfg.resolve_every, step0=step0,
-        coeffs=lambda i: _minimax_coeffs(lcfg, i))
+        lambda s, i, co: _minimax_step_engine(eng, lcfg, s, i, co, mesh),
+        state, n_steps, period=lcfg.resolve_every, step0=step0,
+        coeffs=lambda i: _minimax_coeffs(lcfg, i), mesh=mesh)
 
 
 def minimax_step(cfg: EnvConfig, lcfg: MinimaxQConfig, state: MinimaxQState,
-                 psum_axis: Optional[str] = None):
-    """One act/step/update.  Returns (state, mean |TD|)."""
-    _no_psum(psum_axis)
-    state, td = _minimax_train(_batch_engine(cfg), lcfg, state, 1)
+                 psum_axis=None):
+    """One act/step/update.  Returns (state, mean |TD|, this rank's);
+    ``psum_axis`` as for ``iql_step``."""
+    state, td = _minimax_train(_batch_engine(cfg), lcfg, state, 1,
+                               psum_axis)
     return state, td[0]
 
 
 def minimax_train(cfg: EnvConfig, lcfg: MinimaxQConfig,
-                  state: MinimaxQState, n_steps: int,
-                  psum_axis: Optional[str] = None):
+                  state: MinimaxQState, n_steps: int, psum_axis=None):
     """``n_steps`` of minimax-Q.  Returns (state, mean |TD| per step)."""
-    _no_psum(psum_axis)
-    return _minimax_train(_batch_engine(cfg), lcfg, state, n_steps)
+    return _minimax_train(_batch_engine(cfg), lcfg, state, n_steps,
+                          psum_axis)
 
 
 def multigrid_minimax_init(cfgs, key, n_envs: int,
@@ -645,11 +660,10 @@ def multigrid_minimax_init(cfgs, key, n_envs: int,
 
 def multigrid_minimax_train(cfgs, lcfg: MinimaxQConfig,
                             state: MinimaxQState, n_steps: int,
-                            psum_axis: Optional[str] = None):
+                            psum_axis=None):
     """Minimax-Q training over a mixed-geometry batch."""
-    _no_psum(psum_axis)
     return _minimax_train(_multigrid_engine(multigrid.build_codec(
-        tuple(cfgs))), lcfg, state, n_steps)
+        tuple(cfgs))), lcfg, state, n_steps, psum_axis)
 
 
 # ----------------------------------------------------------------------
@@ -685,7 +699,8 @@ def _alt_maps(cfg: EnvConfig, device: torch.device):
             torch.as_tensor(tb.turn, device=device))
 
 
-def _altq_step(cfg: EnvConfig, lcfg: AltQConfig, state: AltQState, fa, fb):
+def _altq_step(cfg: EnvConfig, lcfg: AltQConfig, state: AltQState, fa, fb,
+               mesh=None):
     from ..envs import soccer_alternating_env as alt
     st = state.env
     r2d, turn_of = _alt_maps(cfg, state.q.device)
@@ -724,34 +739,34 @@ def _altq_step(cfg: EnvConfig, lcfg: AltQConfig, state: AltQState, fa, fb):
 
     cells = obs * N_ACTIONS + a
     n = state.q.numel()
-    q = state.q + (_f32(lcfg.lr) * _scatter_add(n, cells, td)
-                   / _scatter_add(n, cells, 1.0).clamp_min(1.0)
+    sum_td, cnt = _psum(mesh, _scatter_add(n, cells, td),
+                        _scatter_add(n, cells, 1.0))
+    q = state.q + (_f32(lcfg.lr) * sum_td / cnt.clamp_min(1.0)
                    ).view_as(state.q)
     env2 = alt.alt_reset_where(cfg, mid, term)
     return AltQState(q=q, env=env2, step=state.step + 1), td.abs().mean()
 
 
 def altq_step(cfg: EnvConfig, lcfg: AltQConfig, state: AltQState,
-              psum_axis: Optional[str] = None, frozen_a=None, frozen_b=None):
+              psum_axis=None, frozen_a=None, frozen_b=None):
     """One act/step/update on the alternating-turn game: Q-learning on the
     exact minimax Bellman operator of ``alt_value_iteration`` (bootstrap
     max at A-to-move states, min at B-to-move states), eps-greedy for the
     mover.  ``frozen_a``/``frozen_b`` clamp that side's moves to an int
     [nS] policy and bootstrap its next states with Q[s', frozen[s']].
-    Returns (state, mean |TD|)."""
-    _no_psum(psum_axis)
+    Returns (state, mean |TD|, this rank's); ``psum_axis`` as for
+    ``iql_step``."""
     dev = state.q.device
     return _altq_step(cfg, lcfg, state, _policy(frozen_a, dev),
-                      _policy(frozen_b, dev))
+                      _policy(frozen_b, dev), psum_axis)
 
 
 def altq_train(cfg: EnvConfig, lcfg: AltQConfig, state: AltQState,
-               n_steps: int, psum_axis: Optional[str] = None,
-               frozen_a=None, frozen_b=None):
+               n_steps: int, psum_axis=None, frozen_a=None, frozen_b=None):
     """``n_steps`` of ``altq_step``.  Returns (state, mean |TD| per
     step)."""
-    _no_psum(psum_axis)
     dev = state.q.device
     fa, fb = _policy(frozen_a, dev), _policy(frozen_b, dev)
-    return _train(lambda s, i, co: _altq_step(cfg, lcfg, s, fa, fb), state,
-                  n_steps)
+    return _train(lambda s, i, co: _altq_step(cfg, lcfg, s, fa, fb,
+                                              psum_axis),
+                  state, n_steps, mesh=psum_axis)

@@ -41,8 +41,9 @@ take their device from their tensors; ``fused_altq_train`` and
 
 ``chunks_per_dispatch`` > 1 runs g chunks and the work between them as
 one CUDA-graph replay (ops/dispatch), the chunk's seed, eps_int and step
-offset read from device memory.  Not ported: data parallelism (``mesh``);
-the trainer raises NotImplementedError for it.  The JAX wrappers' VMEM
+offset read from device memory.  ``mesh`` (parallel/mesh) trains
+data-parallel: each rank runs its block of the lanes and the chunks' sums
+are all-reduced.  The JAX wrappers' VMEM
 guard (a grid over ~14 MB of tables) has no
 counterpart: the port takes any grid.
 """
@@ -150,7 +151,8 @@ unpack_alt_acc2 = unpack_alt_acc = _unpack
 # ----------------------------------------------------------------------
 
 def _plain(cfg: EnvConfig, seed: int, eps_int: int, table, fields,
-           n_steps: int, gamma: float, step_offset: int, packed: bool):
+           n_steps: int, gamma: float, step_offset: int, packed: bool,
+           total: int):
     ra, ca, rb, cb, p, turn, t = fields
     dev = ra.device
     B = ra.shape[0]
@@ -163,7 +165,7 @@ def _plain(cfg: EnvConfig, seed: int, eps_int: int, table, fields,
     out_of_range = torch.zeros((), dtype=torch.int64, device=dev)
     gamma_f = torch.tensor(np.float32(gamma), device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    limit = value_limit(B, n_steps)
+    limit = value_limit(total, n_steps)
     flat = table.reshape(-1)
     five = torch.arange(N_ACTIONS, device=dev)
 
@@ -219,24 +221,26 @@ def _plain(cfg: EnvConfig, seed: int, eps_int: int, table, fields,
 
 
 def _chunk(packed: bool, cfg, seed, eps_int, table, fields, batch, n_steps,
-           gamma, step_offset, threads, plain: bool):
+           gamma, step_offset, threads, plain: bool, global_batch=None):
     _check_cfg(cfg)
     if not plain:
         threads = _check_lanes(batch, threads)
     seed, eps_int, step_offset, scalars = ik.scalar_args(
         seed, eps_int, step_offset, table, plain)
     fields = ik._check_args(cfg, eps_int, table, fields, batch, n_steps,
-                            step_offset, n_fields=7)
+                            step_offset, n_fields=7,
+                            global_batch=global_batch)
+    total = lk.sum_batch(batch, global_batch)
     if plain or table.device.type == "cpu":
         return _plain(cfg, seed, eps_int, table, fields, n_steps, gamma,
-                      step_offset, packed)
+                      step_offset, packed, total)
     return _launch(packed, cfg, seed, eps_int, table, fields, n_steps, gamma,
-                   step_offset, threads, scalars)
+                   step_offset, threads, scalars, total)
 
 
 def altq_packed_chunk(cfg: EnvConfig, seed: int, eps_int: int, table,
                       fields, batch: int, n_steps: int, gamma: float = 0.99,
-                      step_offset: int = 0, threads=None):
+                      step_offset: int = 0, threads=None, global_batch=None):
     """Run one fused alternating-turn Q chunk with residual accumulation
     (kernel K10).
 
@@ -262,13 +266,17 @@ def altq_packed_chunk(cfg: EnvConfig, seed: int, eps_int: int, table,
     On the card the outputs are views of one allocation.  ``fields`` hold
     the alternating game's turns, 0 or 1, as ``init_alt_state_fields``
     makes them; a lane with another turn reads its table row block
-    ``turn`` as the plain version does.
+    ``turn`` as the plain version does.  ``global_batch``: where the sums
+    are added to other chunks' (a data-parallel run, parallel/mesh), the
+    lanes of them all, whose ``value_limit`` and 2**29 cap apply in place
+    of ``batch``'s.
 
     On a CPU device this runs ``altq_packed_chunk_plain``; on a CUDA device
     it launches the K10 kernel.
     """
     return _chunk(True, cfg, seed, eps_int, table, fields, batch, n_steps,
-                  gamma, step_offset, threads, plain=False)
+                  gamma, step_offset, threads, plain=False,
+                  global_batch=global_batch)
 
 
 def altq_packed_chunk_plain(cfg: EnvConfig, seed: int, eps_int: int, table,
@@ -281,18 +289,19 @@ def altq_packed_chunk_plain(cfg: EnvConfig, seed: int, eps_int: int, table,
 
 def altq_chunk(cfg: EnvConfig, seed: int, eps_int: int, table, fields,
                batch: int, n_steps: int, gamma: float = 0.99,
-               step_offset: int = 0, threads=None):
+               step_offset: int = 0, threads=None, global_batch=None):
     """``altq_packed_chunk`` accumulating the full TD sums
     r + cont * V(s') - q(s, a) (kernel K11; decode with
     ``unpack_alt_acc``).  The fields, stats and counts equal
-    ``altq_packed_chunk``'s for the same arguments; ``threads`` is the
-    kernel's lanes per block, as there.
+    ``altq_packed_chunk``'s for the same arguments; ``threads`` and
+    ``global_batch`` are as there.
 
     On a CPU device this runs ``altq_chunk_plain``; on a CUDA device it
     launches the K11 kernel.
     """
     return _chunk(False, cfg, seed, eps_int, table, fields, batch, n_steps,
-                  gamma, step_offset, threads, plain=False)
+                  gamma, step_offset, threads, plain=False,
+                  global_batch=global_batch)
 
 
 def altq_chunk_plain(cfg: EnvConfig, seed: int, eps_int: int, table, fields,
@@ -349,9 +358,10 @@ def _host(cfg: EnvConfig, device: torch.device):
 
 def _launch(packed: bool, cfg: EnvConfig, seed: int, eps_int: int, table,
             fields, n_steps: int, gamma: float, step_offset: int,
-            lanes: int, scalars=None):
+            lanes: int, scalars, total: int):
     """Launch K10 or K11 at ``lanes`` lanes per block (``scalars``: the
-    device tensor of ``iql_kernel.scalar_args`` or None).  Its outputs (the
+    device tensor of ``iql_kernel.scalar_args`` or None), counting the
+    values outside ``value_limit(total, n_steps)``.  Its outputs (the
     seven planes, the sums, the counts and the stats) and the prep pass's
     rows are one allocation, zeroed where it sums by one memset in the
     launch."""
@@ -372,7 +382,7 @@ def _launch(packed: bool, cfg: EnvConfig, seed: int, eps_int: int, table,
         table.data_ptr(), *tick_ptrs, ctypes.addressof(params), n, B,
         n_steps, seed & sk.M32, eps_int, step_offset,
         None if scalars is None else scalars.data_ptr(), lk._f32(gamma),
-        value_limit(B, n_steps), int(packed), lanes,
+        value_limit(total, n_steps), int(packed), lanes,
         torch._C._cuda_getCurrentRawStream(dev.index))
     if rc:
         raise RuntimeError(f"{name}: kernel launch failed: "
@@ -428,7 +438,9 @@ def fused_altq_train(cfg: EnvConfig, batch: int, n_chunks: int,
     * ``stats_history`` holds (reward_sum, goals, truncs) of every 16th
       chunk and of the last, or of every chunk in the grouped mode;
     * ``chunks_per_dispatch`` = g > 1: the grouped mode, as in
-      ``iql_kernel.fused_iql_train``: the same q and fields bit for bit.
+      ``iql_kernel.fused_iql_train``: the same q and fields bit for bit;
+    * ``mesh``: data-parallel training (``sharded_altq_chunk_fn``), as in
+      ``iql_kernel.fused_iql_train``.
 
     On a CUDA device every chunk launches K10 (or K11), and no chunk waits
     for the one before: the chunks' out-of-range counts (see
@@ -438,12 +450,11 @@ def fused_altq_train(cfg: EnvConfig, batch: int, n_chunks: int,
     spent in chunk calls and between them (the per-chunk mode), or with
     ``dispatch.run``'s capture, replay and remainder times.
     """
-    lk.check_mesh(mesh)
     g = dispatch.group_size(n_chunks, False, chunks_per_dispatch)
     _check_cfg(cfg)
     lk._check_seeds(seed, start_chunk, start_chunk + n_chunks)
     packed = True if packed is None else bool(packed)
-    device = torch.device(device)
+    device = lk._trainer_device(device, mesh)
     tb = build_alt_tables(cfg)
     if init is None:
         q = torch.zeros((tb.nS, N_ACTIONS), dtype=torch.float32,
@@ -457,7 +468,18 @@ def fused_altq_train(cfg: EnvConfig, batch: int, n_chunks: int,
     else:
         fields = tuple(torch.as_tensor(f, dtype=torch.int32, device=device)
                        for f in fields_init)
-    chunk_fn = altq_packed_chunk if packed else altq_chunk
+    if mesh is None:
+        chunk_fn = altq_packed_chunk if packed else altq_chunk
+
+        def chunk(seed, eps_int, m, fields, step_offset):
+            return chunk_fn(cfg, seed, eps_int, m, fields, batch, chunk_len,
+                            gamma, step_offset)
+    else:   # the global batch's fields, or the rank's own from a resume
+        from ..parallel import mesh as pmesh
+        chunk = pmesh.sharded_altq_chunk_fn(cfg, mesh, batch, chunk_len,
+                                            gamma, packed)
+        if fields_init is None:
+            fields = pmesh.shard_fields(fields, mesh, batch)
     is_a = torch.as_tensor(tb.turn == 0, device=device)
 
     def between(q, acc, lr_now):
@@ -492,15 +514,14 @@ def fused_altq_train(cfg: EnvConfig, batch: int, n_chunks: int,
 
         def body():
             lr, ints = sched.row()
-            new_fields, acc, stats = chunk_fn(cfg, ints, None, m, fields,
-                                              batch, chunk_len, gamma)
+            new_fields, acc, stats = chunk(ints, None, m, fields, 0)
             new = between(q, acc, lr[0])
             for dst, src in zip((*fields, q, m), (*new_fields, *new)):
                 dst.copy_(src)
             sched.record(stats)
 
         dispatch.run(body, carry + sched.state(), n_chunks, g,
-                     (launch_counts,), timing)
+                     (launch_counts,), timing, mesh=mesh)
         history, out_of_range = sched.history()
     else:
         history = []
@@ -508,9 +529,9 @@ def fused_altq_train(cfg: EnvConfig, batch: int, n_chunks: int,
         clock = lk._Timing(timing, device)
         for k in range(start_chunk, end_chunk):
             clock.mark()
-            fields, acc, stats = chunk_fn(
-                cfg, lk._chunk_seed(seed, k), int(round(eps_at(k) * 65536)),
-                m, fields, batch, chunk_len, gamma, k * chunk_len)
+            fields, acc, stats = chunk(
+                lk._chunk_seed(seed, k), int(round(eps_at(k) * 65536)), m,
+                fields, k * chunk_len)
             clock.mark()
             q, m = between(q, acc, lk._f32(lr_at(k)))
             out_of_range = out_of_range + stats[3]

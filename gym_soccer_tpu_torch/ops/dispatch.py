@@ -27,6 +27,14 @@ body is once at capture: ``run`` takes the counts the capture added (the g
 bodies' launches) back, and adds them again at every replay, so that a
 kernel's count is replays x g plus the remainder, as if each chunk had
 been launched on its own.
+
+Under a data-parallel mesh (parallel/mesh) a body all-reduces its chunk's
+sums: an NCCL collective is captured like a kernel once its communicator
+exists, which the warm-up body before the capture creates; a gloo
+collective on CUDA tensors goes through the host and cannot be captured,
+so ``run``, handed the mesh, refuses such a mesh (``check_capture``)
+before the warm-up body of a capture.  On the CPU the bodies run one
+after another under any mesh.
 """
 from __future__ import annotations
 
@@ -95,8 +103,19 @@ class Schedule:
         return [tuple(r[:3]) for r in rows], sum(r[3] for r in rows)
 
 
+def check_capture(mesh) -> None:
+    """Refuse, with ValueError naming the backend, a mesh whose
+    collectives a CUDA graph cannot capture (gloo on CUDA tensors); None
+    or a mesh on the CPU passes."""
+    if mesh is not None and not mesh.capturable:
+        raise ValueError(
+            f"a {mesh.backend} mesh's collectives on CUDA tensors cannot be "
+            "captured in a CUDA graph: the grouped modes and the learners' "
+            "*_train need an NCCL mesh on the card")
+
+
 def run(body, carry, n_chunks: int, g: int, counters=(),
-        timing: dict | None = None) -> None:
+        timing: dict | None = None, mesh=None) -> None:
     """Run ``body`` ``n_chunks`` times: on a CUDA device as replays of one
     CUDA graph of ``g`` bodies for each full segment, then one body at a
     time for the rest; on the CPU one body at a time.
@@ -109,9 +128,14 @@ def run(body, carry, n_chunks: int, g: int, counters=(),
     (the warm-up and the capture, host clock), ``segments_ms`` (the
     replays, CUDA events; the chunks and the work between them cannot be
     told apart inside a graph), ``replays``, ``chunks_per_replay``,
-    ``remainder_ms`` (the bodies run one at a time) and ``chunks``."""
+    ``remainder_ms`` (the bodies run one at a time) and ``chunks``.
+    ``mesh``: the data-parallel mesh the body's collectives run on, or
+    None; where a full segment would be captured, a mesh that cannot be
+    captured is refused (``check_capture``) before any body runs."""
     device = carry[0].device
     cuda = device.type == "cuda"
+    if n_chunks >= g:
+        check_capture(mesh)
     n_full = n_chunks // g if cuda else 0
     spans = {"capture_ms": 0.0, "segments_ms": 0.0, "remainder_ms": 0.0}
     if n_full:

@@ -40,8 +40,9 @@ tensors; ``fused_iql_train`` and ``init_iql_state_fields`` default to
 
 ``chunks_per_dispatch`` > 1 runs g chunks and the work between them as
 one CUDA-graph replay (ops/dispatch), the chunk's seed, eps_int and step
-offset read from device memory.  Not ported: data parallelism (``mesh``);
-the trainer raises NotImplementedError for it.  The JAX wrappers' VMEM
+offset read from device memory.  ``mesh`` (parallel/mesh) trains
+data-parallel: each rank runs its block of the lanes and the chunks' sums
+are all-reduced.  The JAX wrappers' VMEM
 guard (a grid over ~14 MB of tables) has no
 counterpart: the port takes any grid.
 """
@@ -135,9 +136,11 @@ init_iql_state_fields = lk.init_state_fields
 # ----------------------------------------------------------------------
 
 def _check_args(cfg: EnvConfig, eps_int: int, table, fields, batch: int,
-                n_steps: int, step_offset: int, n_fields: int = 6):
+                n_steps: int, step_offset: int, n_fields: int = 6,
+                global_batch=None):
     fields = lk._check_chunk_args(cfg, table, fields, batch, n_steps,
-                                  cols=IQL_COLS, n_fields=n_fields)
+                                  cols=IQL_COLS, n_fields=n_fields,
+                                  global_batch=global_batch)
     if not 0 <= eps_int <= EPS_ONE:
         raise ValueError(f"eps_int must lie in [0, {EPS_ONE}], got {eps_int}")
     if step_offset < 0 or step_offset + n_steps >= 2 ** 31:
@@ -176,7 +179,8 @@ def _retire(sums, cnt, idx, r, cont, v_next, base, limit):
 
 
 def _plain(cfg: EnvConfig, seed: int, eps_int: int, table, fields,
-           n_steps: int, gamma: float, step_offset: int, packed: bool):
+           n_steps: int, gamma: float, step_offset: int, packed: bool,
+           total: int):
     ra, ca, rb, cb, p, t = fields
     dev = ra.device
     B = ra.shape[0]
@@ -189,7 +193,7 @@ def _plain(cfg: EnvConfig, seed: int, eps_int: int, table, fields,
     out_of_range = torch.zeros((), dtype=torch.int64, device=dev)
     gamma_f = torch.tensor(np.float32(gamma), device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    limit = value_limit(B, n_steps)
+    limit = value_limit(total, n_steps)
 
     def maxes(cp):
         row = table[cp]
@@ -257,21 +261,22 @@ def scalar_args(seed, eps_int, step_offset, table, plain: bool):
 
 
 def _chunk(packed: bool, cfg, seed, eps_int, table, fields, batch, n_steps,
-           gamma, step_offset, threads, plain: bool):
+           gamma, step_offset, threads, plain: bool, global_batch=None):
     seed, eps_int, step_offset, scalars = scalar_args(
         seed, eps_int, step_offset, table, plain)
     fields = _check_args(cfg, eps_int, table, fields, batch, n_steps,
-                         step_offset)
+                         step_offset, global_batch=global_batch)
+    total = lk.sum_batch(batch, global_batch)
     if plain or table.device.type == "cpu":
         return _plain(cfg, seed, eps_int, table, fields, n_steps, gamma,
-                      step_offset, packed)
+                      step_offset, packed, total)
     return _launch(packed, cfg, seed, eps_int, table, fields, n_steps, gamma,
-                   step_offset, threads, scalars)
+                   step_offset, threads, scalars, total)
 
 
 def iql_packed_chunk(cfg: EnvConfig, seed: int, eps_int: int, table, fields,
                      batch: int, n_steps: int, gamma: float = 0.99,
-                     step_offset: int = 0, threads=None):
+                     step_offset: int = 0, threads=None, global_batch=None):
     """Run one fused IQL chunk with residual accumulation (kernel K8).
 
     ``table``: float32 [n_codes, 10] from ``pack_iql_table``; ``fields``:
@@ -293,14 +298,17 @@ def iql_packed_chunk(cfg: EnvConfig, seed: int, eps_int: int, table, fields,
     the grid to one wave of 132 blocks (``iql_codes.check_lanes``: 64 at
     8192 lanes, 512 at 65536; ValueError otherwise, on any device); it does
     not change the result.  On the card the outputs are views of one
-    allocation.
+    allocation.  ``global_batch``: where the sums are added to other
+    chunks' (a data-parallel run, parallel/mesh), the lanes of them all,
+    whose ``value_limit`` and 2**29 cap apply in place of ``batch``'s.
 
     On a CPU device this runs ``iql_packed_chunk_plain``; on a CUDA device
     it launches the K8 kernel.
     """
     threads = _check_lanes(batch, threads)
     return _chunk(True, cfg, seed, eps_int, table, fields, batch, n_steps,
-                  gamma, step_offset, threads, plain=False)
+                  gamma, step_offset, threads, plain=False,
+                  global_batch=global_batch)
 
 
 def iql_packed_chunk_plain(cfg: EnvConfig, seed: int, eps_int: int, table,
@@ -313,19 +321,20 @@ def iql_packed_chunk_plain(cfg: EnvConfig, seed: int, eps_int: int, table,
 
 def iql_chunk(cfg: EnvConfig, seed: int, eps_int: int, table, fields,
               batch: int, n_steps: int, gamma: float = 0.99,
-              step_offset: int = 0, threads=None):
+              step_offset: int = 0, threads=None, global_batch=None):
     """``iql_packed_chunk`` accumulating the full TD sums
     r + cont * max q(s') - q(s, a) (kernel K9; decode with
     ``unpack_iql_acc``).  The fields, stats and counts equal
-    ``iql_packed_chunk``'s for the same arguments; ``threads`` is the
-    kernel's lanes per block, as there.
+    ``iql_packed_chunk``'s for the same arguments; ``threads`` and
+    ``global_batch`` are as there.
 
     On a CPU device this runs ``iql_chunk_plain``; on a CUDA device it
     launches the K9 kernel.
     """
     threads = _check_lanes(batch, threads)
     return _chunk(False, cfg, seed, eps_int, table, fields, batch, n_steps,
-                  gamma, step_offset, threads, plain=False)
+                  gamma, step_offset, threads, plain=False,
+                  global_batch=global_batch)
 
 
 def iql_chunk_plain(cfg: EnvConfig, seed: int, eps_int: int, table, fields,
@@ -376,9 +385,10 @@ def _host(cfg: EnvConfig):
 
 def _launch(packed: bool, cfg: EnvConfig, seed: int, eps_int: int, table,
             fields, n_steps: int, gamma: float, step_offset: int,
-            lanes: int, scalars=None):
+            lanes: int, scalars, total: int):
     """Launch K8 or K9 at ``lanes`` lanes per block (``scalars``: the
-    device tensor of ``scalar_args`` or None).  Its outputs (the six
+    device tensor of ``scalar_args`` or None), counting the values outside
+    ``value_limit(total, n_steps)``.  Its outputs (the six
     planes, the sums, the counts and the stats) and the prep pass's rows
     are one allocation, zeroed where it sums by one memset in the
     launch."""
@@ -397,7 +407,7 @@ def _launch(packed: bool, cfg: EnvConfig, seed: int, eps_int: int, table,
         table.data_ptr(), ctypes.addressof(params), n, B, n_steps,
         seed & sk.M32, eps_int, step_offset,
         None if scalars is None else scalars.data_ptr(), lk._f32(gamma),
-        value_limit(B, n_steps), int(packed), lanes,
+        value_limit(total, n_steps), int(packed), lanes,
         torch._C._cuda_getCurrentRawStream(dev.index))
     if rc:
         raise RuntimeError(f"{name}: kernel launch failed: "
@@ -473,7 +483,12 @@ def fused_iql_train(cfg: EnvConfig, batch: int, n_chunks: int,
       with the per-chunk mode's host schedule (lr_k, and eps_int and the
       step offset beside the seed) read from tables on the device: the
       same q and fields bit for bit (the JAX package's grouped mode rounds
-      eps_int in the graph, within one count of these).
+      eps_int in the graph, within one count of these);
+    * ``mesh`` (parallel/mesh ``env_mesh``): data-parallel training over
+      the global ``batch``, each rank on its block of the lanes with its
+      shard seed and the sums, counts and stats all-reduced
+      (``sharded_iql_chunk_fn``), as in
+      ``learner_kernel.fused_minimax_train``.
 
     On a CUDA device every chunk launches K8 (or K9), and no chunk waits
     for the one before: the chunks' out-of-range counts (see
@@ -483,12 +498,11 @@ def fused_iql_train(cfg: EnvConfig, batch: int, n_chunks: int,
     spent in chunk calls and between them (the per-chunk mode), or with
     ``dispatch.run``'s capture, replay and remainder times.
     """
-    lk.check_mesh(mesh)
     g = dispatch.group_size(n_chunks, False, chunks_per_dispatch)
     lk._check_seeds(seed, start_chunk, start_chunk + n_chunks)
     if packed is None:
         packed = True
-    device = torch.device(device)
+    device = lk._trainer_device(device, mesh)
     nS = tables.build_statespace(cfg).nS
     if init is None:
         q_a = torch.zeros((nS, N_ACTIONS), dtype=torch.float32, device=device)
@@ -503,7 +517,18 @@ def fused_iql_train(cfg: EnvConfig, batch: int, n_chunks: int,
     else:
         fields = tuple(torch.as_tensor(f, dtype=torch.int32, device=device)
                        for f in fields_init)
-    chunk_fn = iql_packed_chunk if packed else iql_chunk
+    if mesh is None:
+        chunk_fn = iql_packed_chunk if packed else iql_chunk
+
+        def chunk(seed, eps_int, m, fields, step_offset):
+            return chunk_fn(cfg, seed, eps_int, m, fields, batch, chunk_len,
+                            gamma, step_offset)
+    else:   # the global batch's fields, or the rank's own from a resume
+        from ..parallel import mesh as pmesh
+        chunk = pmesh.sharded_iql_chunk_fn(cfg, mesh, batch, chunk_len, gamma,
+                                           packed)
+        if fields_init is None:
+            fields = pmesh.shard_fields(fields, mesh, batch)
 
     def between(q_a, q_b, acc, lr_now):
         sum_a, cnt_a, sum_b, cnt_b = _unpack(cfg, acc)
@@ -538,15 +563,14 @@ def fused_iql_train(cfg: EnvConfig, batch: int, n_chunks: int,
 
         def body():
             lr, ints = sched.row()
-            new_fields, acc, stats = chunk_fn(cfg, ints, None, m, fields,
-                                              batch, chunk_len, gamma)
+            new_fields, acc, stats = chunk(ints, None, m, fields, 0)
             new = between(q_a, q_b, acc, lr[0])
             for dst, src in zip((*fields, q_a, q_b, m), (*new_fields, *new)):
                 dst.copy_(src)
             sched.record(stats)
 
         dispatch.run(body, carry + sched.state(), n_chunks, g,
-                     (launch_counts,), timing)
+                     (launch_counts,), timing, mesh=mesh)
         history, out_of_range = sched.history()
     else:
         history = []
@@ -554,9 +578,9 @@ def fused_iql_train(cfg: EnvConfig, batch: int, n_chunks: int,
         clock = lk._Timing(timing, device)
         for k in range(start_chunk, end_chunk):
             clock.mark()
-            fields, acc, stats = chunk_fn(
-                cfg, lk._chunk_seed(seed, k), int(round(eps_at(k) * 65536)),
-                m, fields, batch, chunk_len, gamma, k * chunk_len)
+            fields, acc, stats = chunk(
+                lk._chunk_seed(seed, k), int(round(eps_at(k) * 65536)), m,
+                fields, k * chunk_len)
             clock.mark()
             q_a, q_b, m = between(q_a, q_b, acc, lk._f32(lr_at(k)))
             out_of_range = out_of_range + stats[3]

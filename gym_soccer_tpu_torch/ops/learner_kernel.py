@@ -54,10 +54,10 @@ The trainers' grouped dispatch modes (``single_dispatch``,
 ``chunks_per_dispatch``) run g chunks and the work between them as one
 CUDA-graph replay (ops/dispatch), with the chunk's seed read from device
 memory; the re-solve is kernel R1 (agents/learners ``solve_matrix_games``)
-on the card.  Not ported yet: data parallelism (``mesh``); the trainers
-raise NotImplementedError for it.  The JAX wrappers' VMEM guards (tables
-over ~14 MB) have no counterpart: the port reads its tables from device
-memory and takes any grid and any mixture.
+on the card.  ``mesh`` (parallel/mesh) trains data-parallel: each rank
+runs its block of the lanes and the chunks' sums are all-reduced.  The JAX
+wrappers' VMEM guards (tables over ~14 MB) have no counterpart: the port
+reads its tables from device memory and takes any grid and any mixture.
 """
 from __future__ import annotations
 
@@ -254,18 +254,22 @@ unpack_acc = unpack_acc2
 # ----------------------------------------------------------------------
 
 def _check_chunk_args(cfg, table, fields, batch: int, n_steps: int,
-                      cols: int = TABLE_COLS, n_fields: int = 6, n=None):
+                      cols: int = TABLE_COLS, n_fields: int = 6, n=None,
+                      global_batch=None):
     """The fields as a tuple, once the shapes, types and the one device of
     the table (``n`` rows: by default ``n_codes(cfg)``) and the
-    ``n_fields`` fields are checked."""
+    ``n_fields`` fields are checked, and the lane-steps whose sums are
+    added together (``global_batch``, by default ``batch``, times
+    ``n_steps``) within ``MAX_LANE_STEPS``."""
     if batch <= 0 or batch % LANES:
         raise ValueError(f"batch must be a positive multiple of {LANES}, "
                          f"got {batch}")
     if n_steps <= 0:
         raise ValueError(f"n_steps must be positive, got {n_steps}")
-    if batch * n_steps > MAX_LANE_STEPS:
+    total = sum_batch(batch, global_batch)
+    if total * n_steps > MAX_LANE_STEPS:
         raise ValueError(
-            f"batch * n_steps = {batch * n_steps} exceeds 2**29: the int64 "
+            f"batch * n_steps = {total * n_steps} exceeds 2**29: the int64 "
             "fixed-point sums could overflow")
     device = table.device
     shape = (n_codes(cfg) if n is None else n, cols)
@@ -274,6 +278,18 @@ def _check_chunk_args(cfg, table, fields, batch: int, n_steps: int,
         raise ValueError(f"table must be a contiguous float32 {shape} tensor; "
                          f"got {table.dtype} {tuple(table.shape)}")
     return _check_planes("fields", fields, batch, device, n_fields)
+
+
+def sum_batch(batch: int, global_batch) -> int:
+    """The lanes whose sums a chunk's are added to: ``global_batch`` (a
+    data-parallel run's whole batch, parallel/mesh), a multiple of the
+    chunk's ``batch``, or ``batch`` itself."""
+    if global_batch is None:
+        return batch
+    if global_batch < batch or global_batch % batch:
+        raise ValueError(f"global_batch {global_batch} is not a multiple of "
+                         f"batch {batch}")
+    return int(global_batch)
 
 
 def _check_planes(what: str, planes, batch: int, device, n: int = 6):
@@ -316,7 +332,7 @@ def _out_of_range(x, limit):
 
 
 def _plain(cfg, seed: int, table, fields, n_steps: int, gamma: float,
-           packed: bool, planes=None):
+           packed: bool, planes, total: int):
     ra, ca, rb, cb, p, t = fields
     dev = ra.device
     B = ra.shape[0]
@@ -334,7 +350,7 @@ def _plain(cfg, seed: int, table, fields, n_steps: int, gamma: float,
     out_of_range = torch.zeros((), dtype=torch.int64, device=dev)
     gamma_f = torch.tensor(np.float32(gamma), device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    limit = value_limit(B, n_steps)
+    limit = value_limit(total, n_steps)
     inv = 1.0 / 65536.0   # u16 * 2**-16 is exact in float32
 
     def cell(ra, ca, rb, cb, p):
@@ -448,7 +464,7 @@ def check_scalars(scalars, n: int, device) -> torch.Tensor:
 
 
 def _chunk(packed: bool, cfg, seed, table, planes, fields, batch, n_steps,
-           gamma, threads, plain: bool):
+           gamma, threads, plain: bool, global_batch=None):
     multi = planes is not None
     name = _NAMES[packed, multi]
     if multi:
@@ -462,7 +478,9 @@ def _chunk(packed: bool, cfg, seed, table, planes, fields, batch, n_steps,
         raise ValueError(f"gamma must lie in [0, 1], got {gamma}")
     fields = _check_chunk_args(
         cfg, table, fields, batch, n_steps,
-        TABLE_COLS if packed else TABLE_COLS_UNPACKED, n=n)
+        TABLE_COLS if packed else TABLE_COLS_UNPACKED, n=n,
+        global_batch=global_batch)
+    total = sum_batch(batch, global_batch)
     geo_ptrs = None
     if multi:
         planes, geo_ptrs = _mixture_planes(planes, batch, table.device)
@@ -473,14 +491,14 @@ def _chunk(packed: bool, cfg, seed, table, planes, fields, batch, n_steps,
             else 0
     if plain or table.device.type == "cpu":
         return _plain(cfg, seed, table, fields, n_steps, gamma, packed,
-                      planes)
+                      planes, total)
     return _launch_chunk(name, cfg, n, seed, scalars, table, geo_ptrs, fields,
-                         batch, n_steps, gamma, threads)
+                         batch, n_steps, gamma, threads, total)
 
 
 def packed_learner_chunk(cfg: EnvConfig, seed: int, table, fields,
                          batch: int, n_steps: int, gamma: float = 0.99,
-                         threads=None):
+                         threads=None, global_batch=None):
     """Run one fused minimax-Q chunk with residual accumulation (kernel
     K5).
 
@@ -503,6 +521,9 @@ def packed_learner_chunk(cfg: EnvConfig, seed: int, table, fields,
     wave of 132 blocks (``learner_codes.check_lanes``: 64 at 8192 lanes, 512
     at 65536; ValueError otherwise, on any device); it does not change the
     result.  On the card the outputs are views of one allocation.
+    ``global_batch``: where the sums are added to other chunks' (a
+    data-parallel run, parallel/mesh), the lanes of them all, whose
+    ``value_limit`` and 2**29 cap apply in place of ``batch``'s.
 
     On a CPU device this runs ``packed_learner_chunk_plain``; on a CUDA
     device it launches the K5 kernel.
@@ -510,7 +531,7 @@ def packed_learner_chunk(cfg: EnvConfig, seed: int, table, fields,
     from . import learner_codes
     threads = learner_codes.check_lanes(batch, threads)
     return _chunk(True, cfg, seed, table, None, fields, batch, n_steps,
-                  gamma, threads, plain=False)
+                  gamma, threads, plain=False, global_batch=global_batch)
 
 
 def packed_learner_chunk_plain(cfg: EnvConfig, seed: int, table, fields,
@@ -522,7 +543,8 @@ def packed_learner_chunk_plain(cfg: EnvConfig, seed: int, table, fields,
 
 def multigrid_packed_learner_chunk(cfgs: tuple, seed: int, table, planes,
                                    fields, batch: int, n_steps: int,
-                                   gamma: float = 0.99, threads=None):
+                                   gamma: float = 0.99, threads=None,
+                                   global_batch=None):
     """``packed_learner_chunk`` over a mixture of boards (kernel K6).
 
     ``cfgs``: a tuple of 1 to 16 EnvConfigs sharing max_steps; ``table``:
@@ -535,7 +557,8 @@ def multigrid_packed_learner_chunk(cfgs: tuple, seed: int, table, planes,
     ``packed_learner_chunk`` (by default one wave: 64 at 8192 lanes, 128 at
     16384, 256 at 32768).  A trainer passes the same mixture and planes
     every chunk; they are checked on the first (``_mixture``,
-    ``_mixture_planes``).
+    ``_mixture_planes``).  ``global_batch`` as for
+    ``packed_learner_chunk``.
 
     On a CPU device this runs ``multigrid_packed_learner_chunk_plain``; on
     a CUDA device it launches the K6 kernel (K7 multigrid's split kernel on
@@ -544,7 +567,7 @@ def multigrid_packed_learner_chunk(cfgs: tuple, seed: int, table, planes,
     from . import learner_codes
     threads = learner_codes.check_lanes(batch, threads)
     return _chunk(True, cfgs, seed, table, planes, fields, batch, n_steps,
-                  gamma, threads, plain=False)
+                  gamma, threads, plain=False, global_batch=global_batch)
 
 
 def multigrid_packed_learner_chunk_plain(cfgs: tuple, seed: int, table,
@@ -556,14 +579,15 @@ def multigrid_packed_learner_chunk_plain(cfgs: tuple, seed: int, table,
 
 
 def learner_chunk(cfg: EnvConfig, seed: int, table, fields, batch: int,
-                  n_steps: int, gamma: float = 0.99, threads=None):
+                  n_steps: int, gamma: float = 0.99, threads=None,
+                  global_batch=None):
     """``packed_learner_chunk`` accumulating the full TD sums
     r + cont * v(s') - q(s, a) (kernel K7; decode with ``unpack_acc``).
     ``table``: float32 [n_codes, 36] from ``pack_m``; the out-of-range
     count covers the q(s, a) read too.  The fields, stats and counts equal
     ``packed_learner_chunk``'s for a table with the same pi columns.
-    ``threads`` is the kernel's lanes per block, as for
-    ``packed_learner_chunk``.
+    ``threads`` is the kernel's lanes per block and ``global_batch`` the
+    lanes of the summed chunks, as for ``packed_learner_chunk``.
 
     On a CPU device this runs ``learner_chunk_plain``; on a CUDA device it
     launches the K7 kernel.
@@ -571,7 +595,7 @@ def learner_chunk(cfg: EnvConfig, seed: int, table, fields, batch: int,
     from . import learner_codes
     threads = learner_codes.check_lanes(batch, threads)
     return _chunk(False, cfg, seed, table, None, fields, batch, n_steps,
-                  gamma, threads, plain=False)
+                  gamma, threads, plain=False, global_batch=global_batch)
 
 
 def learner_chunk_plain(cfg: EnvConfig, seed: int, table, fields,
@@ -583,11 +607,11 @@ def learner_chunk_plain(cfg: EnvConfig, seed: int, table, fields,
 
 def multigrid_learner_chunk(cfgs: tuple, seed: int, table, planes, fields,
                             batch: int, n_steps: int, gamma: float = 0.99,
-                            threads=None):
+                            threads=None, global_batch=None):
     """``learner_chunk`` over a mixture of boards (kernel K7, its
     multigrid call site): ``table`` from ``pack_m(cfgs, ...)``, ``planes``
     and ``fields`` as for ``multigrid_packed_learner_chunk``; ``threads``
-    is the kernel's lanes per block, as for ``packed_learner_chunk``.
+    and ``global_batch`` as for ``packed_learner_chunk``.
 
     On a CPU device this runs ``multigrid_learner_chunk_plain``; on a CUDA
     device it launches the K7 kernel's multigrid instance.
@@ -595,7 +619,7 @@ def multigrid_learner_chunk(cfgs: tuple, seed: int, table, planes, fields,
     from . import learner_codes
     threads = learner_codes.check_lanes(batch, threads)
     return _chunk(False, cfgs, seed, table, planes, fields, batch, n_steps,
-                  gamma, threads, plain=False)
+                  gamma, threads, plain=False, global_batch=global_batch)
 
 
 def multigrid_learner_chunk_plain(cfgs: tuple, seed: int, table, planes,
@@ -649,10 +673,11 @@ def _entry(name: str, key):
 
 def _launch_chunk(name: str, cfg, n: int, seed: int, scalars, table,
                   geo_ptrs, fields, batch: int, n_steps: int, gamma: float,
-                  lanes: int):
+                  lanes: int, total: int):
     """Launch K5, K6 or K7 (``geo_ptrs``: a mixture's planes, K6 and K7
     multigrid) on ``n`` codes at ``lanes`` lanes per block, with the seed
-    ``seed`` or, where ``scalars`` is a tensor, the one it holds.  Its outputs
+    ``seed`` or, where ``scalars`` is a tensor, the one it holds, counting
+    the values outside ``value_limit(total, n_steps)``.  Its outputs
     (the six planes, the sums, the counts and the stats) and the prep
     pass's rows are one allocation, zeroed where it sums by one memset in
     the launch."""
@@ -669,7 +694,7 @@ def _launch_chunk(name: str, cfg, n: int, seed: int, scalars, table,
     rc = fn(dev.index, ctypes.addressof(in_ptrs), *geo, b64.data_ptr(),
             table.data_ptr(), ctypes.addressof(params), n, batch, n_steps,
             seed & sk.M32, None if scalars is None else scalars.data_ptr(),
-            _f32(gamma), value_limit(batch, n_steps), lanes,
+            _f32(gamma), value_limit(total, n_steps), lanes,
             torch._C._cuda_getCurrentRawStream(dev.index))
     if rc:
         raise RuntimeError(f"{name}: kernel launch failed: "
@@ -721,19 +746,26 @@ def _chunk_seed(seed: int, k: int) -> int:
     return (seed * 1_000_003 + k) & sk.M32
 
 
-def check_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh (data-parallel training) is not ported yet")
-
-
-
-
 def _chunk_fn(cfg, packed: bool, batch: int, chunk_len: int, gamma: float,
-              device):
+              device, mesh=None):
     """(chunk(seed, table, fields) -> chunk result, initial fields): the
     trainer's chunk for one board or a mixture, packed or unpacked.  A
-    mixture's planes are rebuilt here, never carried in a resume dict."""
+    mixture's planes are rebuilt here, never carried in a resume dict.
+    Under ``mesh`` the chunk is the data-parallel one over the global
+    ``batch`` (parallel/mesh ``sharded_learner_chunk_fn``), and the fields
+    and a mixture's planes are the rank's block of the global batch's: a
+    lane's variant and ISD entry follow from its global index."""
+    if mesh is not None:
+        from ..parallel import mesh as pmesh
+        sharded = pmesh.sharded_learner_chunk_fn(cfg, mesh, batch, chunk_len,
+                                                 gamma, packed)
+        if not isinstance(cfg, tuple):
+            return sharded, pmesh.shard_fields(
+                init_state_fields(cfg, batch, device), mesh, batch)
+        planes, fields = init_state_fields(cfg, batch, device)
+        planes = pmesh.shard_fields(planes, mesh, batch)
+        return ((lambda seed, m, fields: sharded(seed, m, fields, planes)),
+                pmesh.shard_fields(fields, mesh, batch))
     if not isinstance(cfg, tuple):
         fn = packed_learner_chunk if packed else learner_chunk
         return (lambda seed, m, fields:
@@ -753,6 +785,15 @@ def _td_sums(cfg, packed: bool, acc, v_chunk, q):
     if packed:
         sums = sums + cnt * (v_chunk[:, None, None] - q)
     return sums, cnt
+
+
+def _trainer_device(device, mesh) -> torch.device:
+    """The device a trainer runs on: ``device``, which under a mesh must
+    name the mesh's."""
+    if mesh is None:
+        return torch.device(device)
+    from ..parallel import mesh as pmesh
+    return pmesh.check_device(mesh, device)
 
 
 def _raise_out_of_range(out_of_range, batch: int, chunk_len: int, v):
@@ -866,6 +907,20 @@ def fused_minimax_train(cfg, batch: int, n_chunks: int,
       and fields bit for bit, and exact resume holds in each (the JAX
       package computes its grouped schedules in float32 in the graph:
       eps within an ulp of these, lr within a few).
+    * ``mesh`` (parallel/mesh ``env_mesh``): data-parallel training over
+      the global ``batch`` (a multiple of the world size, 128 lanes a rank
+      at least): each rank runs its block of the lanes with its shard seed
+      (``sharded_learner_chunk_fn``), the sums, counts and stats are
+      all-reduced, and every rank re-solves every game with R1, so every
+      rank holds the same tables, equal bit for bit to the sum of the
+      ranks' chunks; ``device`` must name the mesh's.  (JAX shards the
+      re-solve by state.  On H100s over NCCL the port's
+      ``sharded_solve_fn``, bit-equal, was slower than the replicated
+      solve at 761 and 2502 games on 2 and 4 cards and at 11705 games on
+      4, and faster only at 11705 games on 2: tools/bench_scaling.py
+      ``--solve-split``.)  ``fields_init`` and the resume dict's fields
+      are the rank's block; the grouped modes need a mesh a CUDA graph can
+      capture (NCCL on the card; ``dispatch.run`` refuses gloo there).
 
     On a CUDA device every chunk launches K5, K6 or K7 and every re-solve
     R1, and no chunk waits for the one before: the chunks' out-of-range
@@ -875,11 +930,10 @@ def fused_minimax_train(cfg, batch: int, n_chunks: int,
     with the time spent in chunk calls and between them (the per-chunk
     mode), or with ``dispatch.run``'s capture, replay and remainder times.
     """
-    check_mesh(mesh)
     g = dispatch.group_size(n_chunks, single_dispatch, chunks_per_dispatch)
     _check_seeds(seed, start_chunk, start_chunk + n_chunks)
     packed = True if packed is None else bool(packed)
-    device = torch.device(device)
+    device = _trainer_device(device, mesh)
     nS = n_states(cfg)
     f32 = dict(dtype=torch.float32, device=device)
 
@@ -896,10 +950,13 @@ def fused_minimax_train(cfg, batch: int, n_chunks: int,
         q, v, pi_a, pi_b = (_float_tensor(x, device) for x in init)
         if tuple(q.shape) != (nS, 5, 5) or tuple(v.shape) != (nS,):
             raise ValueError(f"init q must be [{nS}, 5, 5] and v [{nS}]")
-    chunk, fields = _chunk_fn(cfg, packed, batch, chunk_len, gamma, device)
+    chunk, fields = _chunk_fn(cfg, packed, batch, chunk_len, gamma, device,
+                              mesh)
     if fields_init is not None:
         fields = tuple(torch.as_tensor(f, dtype=torch.int32, device=device)
                        for f in fields_init)
+    def solve(q):
+        return solve_matrix_games(q, iters=solver_iters)
 
     def repack(pa, pb, q, v, eps_now):
         return (pack_m2(cfg, pa, pb, v, eps_now) if packed
@@ -914,7 +971,7 @@ def fused_minimax_train(cfg, batch: int, n_chunks: int,
         if count_lr_tau > 0:
             lr_cell = lr_now * (1.0 + n / count_lr_tau) ** (-count_lr_pow)
         q = q + lr_cell * sum_td / cnt.clamp_min(1.0)
-        v, pa, pb = solve_matrix_games(q, iters=solver_iters)
+        v, pa, pb = solve(q)
         return q, n, v, pa, pb, repack(pa, pb, q, v, eps_now)
 
     def decay(base, hl, k, floor=0.0):
@@ -966,7 +1023,8 @@ def fused_minimax_train(cfg, batch: int, n_chunks: int,
             sched.record(stats)
 
         dispatch.run(body, carry + sched.state(), n_chunks, g,
-                     (launch_counts, learners.launch_counts), timing)
+                     (launch_counts, learners.launch_counts), timing,
+                     mesh=mesh)
         history, out_of_range = sched.history()
     else:
         history = []
@@ -1039,8 +1097,8 @@ def fused_best_response_train(cfg: EnvConfig, opp_policy, side: str,
     ``start_chunk`` continue bit for bit.  As in the JAX package, one
     board only.  A run in which a table value left the int64 sums' exact
     range raises ValueError, and ``chunks_per_dispatch`` runs the grouped
-    mode and ``timing`` splits the time, as in ``fused_minimax_train``."""
-    check_mesh(mesh)
+    mode, ``timing`` splits the time and ``mesh`` trains data-parallel, as
+    in ``fused_minimax_train``."""
     g = dispatch.group_size(n_chunks, False, chunks_per_dispatch)
     _check_seeds(seed, start_chunk, start_chunk + n_chunks)
     if isinstance(cfg, tuple):
@@ -1048,7 +1106,7 @@ def fused_best_response_train(cfg: EnvConfig, opp_policy, side: str,
     if side not in ("player_a", "player_b"):
         raise ValueError(f"side must be 'player_a' or 'player_b', got {side!r}")
     packed = True if packed is None else bool(packed)
-    device = torch.device(device)
+    device = _trainer_device(device, mesh)
     nS = tables.build_statespace(cfg).nS
     f32 = dict(dtype=torch.float32, device=device)
     opp = torch.as_tensor(np.asarray(opp_policy), device=device).long()
@@ -1063,7 +1121,8 @@ def fused_best_response_train(cfg: EnvConfig, opp_policy, side: str,
         q = _float_tensor(init[0], device)
         if len(init) > 1:
             n = _float_tensor(init[1], device)
-    chunk, fields = _chunk_fn(cfg, packed, batch, chunk_len, gamma, device)
+    chunk, fields = _chunk_fn(cfg, packed, batch, chunk_len, gamma, device,
+                              mesh)
     if fields_init is not None:
         fields = tuple(torch.as_tensor(f, dtype=torch.int32, device=device)
                        for f in fields_init)
@@ -1143,7 +1202,7 @@ def fused_best_response_train(cfg: EnvConfig, opp_policy, side: str,
             sched.record(stats)
 
         dispatch.run(body, carry + sched.state(), n_chunks, g,
-                     (launch_counts,), timing)
+                     (launch_counts,), timing, mesh=mesh)
         history, out_of_range = sched.history()
     else:
         history = []

@@ -360,7 +360,20 @@ def test_chunk_counts_values_out_of_range(fn):
             assert out == want
 
 
-def test_trainer_refuses_a_run_out_of_range_and_unported_modes():
+def _refuse_meshes(monkeypatch):
+    """Make ``dispatch.run``'s capture check refuse every mesh it is
+    handed, as it refuses a gloo mesh on the card (which the CPU cannot
+    build)."""
+    from gym_soccer_tpu_torch.ops import dispatch
+
+    def refuse(mesh):
+        if mesh is not None:
+            raise ValueError("a gloo mesh's collectives cannot be captured")
+    monkeypatch.setattr(dispatch, "check_capture", refuse)
+
+
+def test_trainer_refuses_a_run_out_of_range_and_unported_modes(
+        monkeypatch):
     big = np.full((NS, 5), 1e9, np.float32)
     kw = dict(batch=256, n_chunks=1, chunk_len=4, device="cpu")
     for packed in (True, False):
@@ -368,10 +381,21 @@ def test_trainer_refuses_a_run_out_of_range_and_unported_modes():
             ak.fused_altq_train(CFG, init=big, packed=packed, **kw)
     with pytest.raises(ValueError, match="init q"):
         ak.fused_altq_train(CFG, init=big[:-1], **kw)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ak.fused_altq_train(CFG, mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ak.fused_altq_train(CFG, mesh=object(), chunks_per_dispatch=4, **kw)
+    # the mesh is ported: one rank equals no mesh; the grouped mode hands
+    # its mesh to dispatch.run's capture check, which refuses a gloo mesh
+    # on the card
+    from gym_soccer_tpu_torch.parallel import mesh as pmesh
+    one = pmesh.env_mesh(device="cpu")
+    for extra in (dict(), dict(chunks_per_dispatch=4)):
+        assert torch.equal(ak.fused_altq_train(CFG, **kw, **extra)[0],
+                           ak.fused_altq_train(CFG, mesh=one, **kw,
+                                               **extra)[0])
+    with monkeypatch.context() as mp:
+        _refuse_meshes(mp)
+        ak.fused_altq_train(CFG, mesh=one, chunks_per_dispatch=4, **kw)
+        with pytest.raises(ValueError, match="gloo"):
+            ak.fused_altq_train(CFG, mesh=one, chunks_per_dispatch=4,
+                                **dict(kw, n_chunks=4))
     assert len(ak.fused_altq_train(CFG, chunks_per_dispatch=4, **kw)[1]) == 1
     with pytest.raises(ValueError, match="chunks_per_dispatch"):
         ak.fused_altq_train(CFG, chunks_per_dispatch=0, **kw)

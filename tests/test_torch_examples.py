@@ -25,7 +25,8 @@ from gym_soccer_tpu.config import EnvConfig as JaxConfig
 from gym_soccer_tpu_torch.agents import learners
 from gym_soccer_tpu_torch.config import EnvConfig
 from gym_soccer_tpu_torch.core import threefry
-from gym_soccer_tpu_torch.examples import demo, train_minimax
+from gym_soccer_tpu_torch.examples import (alternating_demo, demo,
+                                           train_minimax)
 from gym_soccer_tpu_torch.ops import learner_kernel as lk
 from gym_soccer_tpu_torch.utils import checkpoint
 
@@ -121,6 +122,38 @@ def test_fused_mode_resumes_bit_for_bit(tmp_path, capsys):
 def test_device_defaults_to_cuda():
     assert train_minimax.parse_args([]).device == "cuda"
     assert train_minimax.parse_args([]).envs == 8192
+
+
+def test_alternating_demo_equals_jax(capsys):
+    """The twin of examples/alternating_demo.py with --quick on the CPU
+    passes tests/test_examples.py::test_alternating_demo's assertions,
+    and its value iteration and matches print the JAX demo's numbers (the
+    same numpy VI; ``alt_policy_rollout`` a bit twin of JAX's)."""
+    from gym_soccer_tpu.envs import soccer_alternating_env as jalt
+    alternating_demo.main(["--quick", "--device", "cpu"])
+    ev = {e["event"]: e for e in _lines(capsys) if "event" in e}
+    assert ev["tables"]["nS"] == 1521
+    assert ev["best_response_vs_random"]["losses"] == 0
+    assert ev["best_response_vs_random"]["win_rate"] > 0.95
+    assert ev["learned"]["env_steps"] == 3000 * 256
+    jcfg = JaxConfig(5, 4, 0.2)
+    tb = jalt.build_alt_tables(jcfg)
+    pi, v, _, sweeps = jalt.alt_value_iteration(tb)
+    assert ev["solved"] == {"event": "solved", "sweeps": sweeps,
+                            "v_abs_max": round(float(np.abs(v).max()), 4)}
+    w, l, tr = jalt.alt_policy_rollout(jcfg, tb.raw_to_dense, pi, pi,
+                                       batch=256, steps=400, seed=1)
+    assert ev["minimax_selfplay"] == {"event": "minimax_selfplay",
+                                      "wins_a": w, "wins_b": l,
+                                      "truncations": tr}
+    randpol = np.random.RandomState(0).randint(0, 5, tb.nS).astype(np.int32)
+    pi_br = jalt.alt_value_iteration(tb, frozen_b=randpol)[0]
+    w, l, tr = jalt.alt_policy_rollout(jcfg, tb.raw_to_dense, pi_br, randpol,
+                                       batch=256, steps=400, seed=2)
+    assert ev["best_response_vs_random"] == {
+        "event": "best_response_vs_random", "wins": w, "losses": l,
+        "truncations": tr, "win_rate": round(w / max(w + l + tr, 1), 4)}
+    assert alternating_demo.parse_args([]).device == "cuda"
 
 
 def test_demo_planners_agree(capsys, monkeypatch):

@@ -65,7 +65,12 @@ MODULES = ["gym_soccer_tpu_torch", "gym_soccer_tpu_torch.config",
            "gym_soccer_tpu_torch.entry",
            "gym_soccer_tpu_torch.tools",
            "gym_soccer_tpu_torch.tools.check_parity",
-           "gym_soccer_tpu_torch.tools.run_reference_tests"]
+           "gym_soccer_tpu_torch.tools.run_reference_tests",
+           "gym_soccer_tpu_torch.parallel",
+           "gym_soccer_tpu_torch.parallel.mesh",
+           "gym_soccer_tpu_torch.tools.demo_multihost",
+           "gym_soccer_tpu_torch.tools.bench_scaling",
+           "gym_soccer_tpu_torch.examples.alternating_demo"]
 
 
 @pytest.mark.parametrize("module", MODULES)
@@ -78,6 +83,31 @@ def test_port_never_imports_jax(module):
             "assert 'gym_soccer_tpu_torch.ops._build' not in sys.modules\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
+
+
+SOURCES = sorted(str(p.relative_to(ROOT)) for p in
+                 [*(ROOT / "gym_soccer_tpu_torch").rglob("*.py"),
+                  ROOT / "chip_smoke.py"])
+
+
+@pytest.mark.parametrize("source", SOURCES)
+def test_no_import_of_jax_in_any_function(source):
+    """No import statement of the port's sources or of chip_smoke.py, at
+    top level or inside a function (parallel/ and the tools import lazily),
+    names JAX or the JAX package."""
+    import ast
+    tree = ast.parse((ROOT / source).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "gym_soccer_tpu"), \
+                f"{source}:{node.lineno} imports {name}"
 
 
 def test_importing_builds_nothing():

@@ -386,14 +386,37 @@ def test_trainer_refuses_a_run_out_of_range():
                                init=(big, big), packed=packed, device="cpu")
 
 
-def test_unported_modes_raise():
-    """Only mesh raises; the grouped mode runs (below), and a group size
-    that is no positive integer is refused."""
+def _refuse_meshes(monkeypatch):
+    """Make ``dispatch.run``'s capture check refuse every mesh it is
+    handed, as it refuses a gloo mesh on the card (which the CPU cannot
+    build)."""
+    from gym_soccer_tpu_torch.ops import dispatch
+
+    def refuse(mesh):
+        if mesh is not None:
+            raise ValueError("a gloo mesh's collectives cannot be captured")
+    monkeypatch.setattr(dispatch, "check_capture", refuse)
+
+
+def test_unported_modes_raise(monkeypatch):
+    """No mode is left unported: a mesh of one rank (parallel/mesh) equals
+    no mesh bit for bit, per chunk and grouped; the grouped mode hands its
+    mesh to ``dispatch.run``'s capture check, which refuses a gloo mesh on
+    the card; the grouped mode runs (below), and a
+    group size that is no positive integer is refused."""
+    from gym_soccer_tpu_torch.parallel import mesh as pmesh
+    one = pmesh.env_mesh(device="cpu")
     kw = dict(batch=256, n_chunks=1, chunk_len=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ik.fused_iql_train(CFG, mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ik.fused_iql_train(CFG, mesh=object(), chunks_per_dispatch=4, **kw)
+    for extra in (dict(), dict(chunks_per_dispatch=4)):
+        want = ik.fused_iql_train(CFG, **kw, **extra)
+        got = ik.fused_iql_train(CFG, mesh=one, **kw, **extra)
+        assert all(torch.equal(a, b) for a, b in zip(want[:2], got[:2]))
+    with monkeypatch.context() as mp:
+        _refuse_meshes(mp)
+        ik.fused_iql_train(CFG, mesh=one, chunks_per_dispatch=4, **kw)
+        with pytest.raises(ValueError, match="gloo"):
+            ik.fused_iql_train(CFG, mesh=one, chunks_per_dispatch=4,
+                               **dict(kw, n_chunks=4))
     assert len(ik.fused_iql_train(CFG, chunks_per_dispatch=4, **kw)[2]) == 1
     with pytest.raises(ValueError, match="chunks_per_dispatch"):
         ik.fused_iql_train(CFG, chunks_per_dispatch=0, **kw)

@@ -351,30 +351,68 @@ def test_chunk_checks_its_arguments():
                                 [f.to("meta") for f in fields], 256, 4)
 
 
-def test_unported_modes_raise():
-    """Only mesh raises, for one board and for a mixture, packed or not;
-    the grouped dispatch modes run (below), tuples and packed=False too
-    (tests/test_torch_multigrid.py, tests/test_torch_learner_unpacked.py),
-    and a group size that is no positive integer is refused."""
+def _refuse_meshes(monkeypatch):
+    """Make ``dispatch.run``'s capture check refuse every mesh it is
+    handed, as it refuses a gloo mesh on the card (which the CPU cannot
+    build): a trainer that raises under it hands its mesh to the check
+    before any body runs."""
+    from gym_soccer_tpu_torch.ops import dispatch
+
+    def refuse(mesh):
+        if mesh is not None:
+            raise ValueError("a gloo mesh's collectives cannot be captured")
+    monkeypatch.setattr(dispatch, "check_capture", refuse)
+
+
+def test_unported_modes_raise(monkeypatch):
+    """No mode is left unported: a mesh of one rank (parallel/mesh) runs
+    every mode and equals no mesh bit for bit, for one board and for a
+    mixture, packed or not; the grouped modes hand their mesh to
+    ``dispatch.run``'s capture check, which refuses a gloo mesh on the
+    card (its collectives cannot be captured), and a device other than
+    the mesh's is refused; the grouped dispatch modes run (below), tuples
+    and packed=False too (tests/test_torch_multigrid.py,
+    tests/test_torch_learner_unpacked.py), and a group size that is no
+    positive integer is refused."""
+    from gym_soccer_tpu_torch.parallel import mesh as pmesh
+    one = pmesh.env_mesh(device="cpu")
     kw = dict(batch=256, n_chunks=1, chunk_len=4, device="cpu",
               solver_iters=2)
     for cfg in (CFG, (CFG, EnvConfig(6, 5, 0.1))):
-        for extra in (dict(mesh=object()), dict(mesh=object(), packed=False),
-                      dict(mesh=object(), chunks_per_dispatch=4)):
-            with pytest.raises(NotImplementedError, match="mesh"):
-                lk.fused_minimax_train(cfg, **kw, **extra)
+        for extra in (dict(), dict(packed=False),
+                      dict(chunks_per_dispatch=4)):
+            want = lk.fused_minimax_train(cfg, **kw, **extra)
+            got = lk.fused_minimax_train(cfg, mesh=one, **kw, **extra)
+            assert all(torch.equal(a, b) for a, b in zip(want[:4], got[:4]))
+            assert want[4] == got[4]
         for extra in (dict(single_dispatch=True), dict(chunks_per_dispatch=4),
                       dict(chunks_per_dispatch=2, packed=False)):
             assert len(lk.fused_minimax_train(cfg, **kw, **extra)[4]) == 1
+    with pytest.raises(ValueError, match="mesh"):
+        lk.fused_minimax_train(CFG, **dict(kw, device="meta"), mesh=one)
     with pytest.raises(ValueError, match="chunks_per_dispatch"):
         lk.fused_minimax_train(CFG, chunks_per_dispatch=0, **kw)
     kw.pop("solver_iters")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        lk.fused_best_response_train(CFG, np.zeros(NS, int), "player_a",
-                                     mesh=object(), **kw)
+    opp = np.zeros(NS, int)
+    want = lk.fused_best_response_train(CFG, opp, "player_a", **kw)
+    got = lk.fused_best_response_train(CFG, opp, "player_a", mesh=one, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(want[:4], got[:4]))
     assert len(lk.fused_best_response_train(
         CFG, np.zeros(NS, int), "player_a", chunks_per_dispatch=2,
         **kw)[4]) == 1
+    # per chunk, or fewer chunks than a replay, nothing is captured
+    _refuse_meshes(monkeypatch)
+    lk.fused_minimax_train(CFG, mesh=one, solver_iters=2, **kw)
+    lk.fused_minimax_train(CFG, mesh=one, chunks_per_dispatch=4,
+                           solver_iters=2, **kw)
+    lk.fused_best_response_train(CFG, opp, "player_a", mesh=one, **kw)
+    with pytest.raises(ValueError, match="gloo"):
+        lk.fused_minimax_train(CFG, mesh=one, chunks_per_dispatch=4,
+                               solver_iters=2, **dict(kw, n_chunks=4))
+    with pytest.raises(ValueError, match="gloo"):
+        lk.fused_best_response_train(CFG, opp, "player_a", mesh=one,
+                                     chunks_per_dispatch=2,
+                                     **dict(kw, n_chunks=2))
 
 
 # The grouped runs' shape (7 chunks in segments of 3: two full segments

@@ -209,10 +209,32 @@ def test_altq_equals_jax(frozen):
     _assert_env(ours.env, jst.env)
 
 
-def test_psum_axis_waits_for_the_mesh_port():
+def test_psum_axis_waits_for_the_mesh_port(monkeypatch):
+    """The mesh is ported: ``psum_axis`` takes a parallel/mesh ``Mesh``; at
+    one rank it equals no mesh bit for bit, and a gloo mesh's collectives
+    on the card are refused where a CUDA graph would capture them: the
+    ``*_train`` replays hand their mesh to ``dispatch.run``'s check, and
+    fewer steps than a replay run as they are."""
+    from gym_soccer_tpu_torch.ops import dispatch
+    from gym_soccer_tpu_torch.parallel import mesh as pmesh
+    one = pmesh.env_mesh(device="cpu")
     st = learners.iql_init(CFG, threefry.key(0), 8, "cpu")
-    with pytest.raises(NotImplementedError):
-        learners.iql_train(CFG, learners.IQLConfig(), st, 1, psum_axis="e")
+    a = learners.iql_train(CFG, learners.IQLConfig(), st, 3)
+    b = learners.iql_train(CFG, learners.IQLConfig(), st, 3, psum_axis=one)
+    assert torch.equal(a[0].q_a, b[0].q_a) and torch.equal(a[1], b[1])
+    with pytest.raises(ValueError, match="gloo"):
+        dispatch.check_capture(
+            pmesh.Mesh(0, 1, torch.device("cuda", 0), "gloo"))
+    seen, check = [], dispatch.check_capture
+    monkeypatch.setattr(dispatch, "check_capture",
+                        lambda m: (seen.append(m), check(m)))
+    lc = learners.MinimaxQConfig(resolve_every=2)
+    mst = learners.minimax_init(CFG, threefry.key(0), 8, "cpu")
+    learners.minimax_train(CFG, lc, mst, 12, psum_axis=one)
+    assert seen == []   # 6 periods: fewer than a replay's 32
+    learners.iql_train(CFG, learners.IQLConfig(), st,
+                       learners.GROUP_STEPS, psum_axis=one)
+    assert seen == [one]
 
 
 def test_initialisers_default_to_cuda():
