@@ -5,6 +5,7 @@ check it.
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 39-46  # one block alone, in a fresh process
     python3 chip_smoke.py --phases 47-48  # the data-parallel block alone
+    python3 chip_smoke.py --phases 49     # the tools' sweep alone
 
 Eight main paths, each driven with its kernels' launch counters reset just
 before it and read just after.  The rollout path is the batched random
@@ -37,7 +38,9 @@ data-parallel path (parallel/mesh) runs after it: the four trainers with
 ``mesh=`` (K5, K6, K8, K10 and R1, their all-reduces in the CUDA graphs
 on an NCCL mesh), the HBM-table learners through ``sharded_*_train_fn``,
 the sharded chunks of K5-K11 and the sharded re-solve on two ranks that
-share the card over gloo.
+share the card over gloo.  The tools run last: ``tools.bench_all``'s 24
+rows, every path through its entry timed side by side, each row with its
+launches counted, and ``tools.bench_parity_kernel``.
 Phases, each of which raises on failure:
 
 1. device: a CUDA device is present; its name and power limit;
@@ -331,11 +334,18 @@ Phases, each of which raises on failure:
     K8-K11 at 2 x 4096 lanes x 64 steps, the all-reduced sums, counts and
     stats bit-equal to the sum of the same two shard-seed chunks run in
     this process; R1's sharded solve bit-equal to the replicated one; the
-    5x4 contract at 2 x 32768 lanes per chunk, exploitability <= 0.010.
+    5x4 contract at 2 x 32768 lanes per chunk, exploitability <= 0.010;
+49. the tools: ``tools.bench_all``'s 24 rows in this process at their
+    default sizes, every kernel counter reset before each row and read
+    after it: no error row, every rate finite and > 0, every slope's long
+    leg longer than its short one, and each row's launches exactly those
+    ``BENCH_LAUNCHES`` names for its calls, chunks and steps (every other
+    counter 0); then ``tools.bench_parity_kernel`` in a subprocess: exit
+    0 with both on-card checks true.
 
 ``--phases`` runs one block of phases alone in a fresh process, building
-only its libraries: 34-38 (K5), 39-46 (S1, T1, R1, K5) or 47-48 (every
-library); it prints the block's figures but no kernels line and no
+only its libraries: 34-38 (K5), 39-46 (S1, T1, R1, K5), 47-48 or 49
+(every library); it prints the block's figures but no kernels line and no
 verdict.
 
 The second-to-last lines are the kernels' JSON record (the 14 kernel
@@ -693,6 +703,43 @@ DP_RANKS, DP_LANES, DP_STEPS = 2, 4096, 64
 DP_SEED, DP_EPS_INT, DP_OFFSET = 7, int(0.3 * 65536), 64
 DP_SOLVE = (11705, 600)
 DP_TIMEOUT = 300.0
+# Phase 49, the tools' sweep: the launches of each tools.bench_all row, as
+# {counter: (unit, n, once)}: n launches a call ("call"), a chunk of a call
+# ("chunk") or a step of a call ("step"), and ``once`` more at its set-up
+# (an engine's initial reset draw); every other counter stays at 0.
+BENCH_LAUNCHES = {
+    "facade_single_env": {},
+    "xla_batch_engine_traj": {"engine_step": ("step", 1, 0),
+                              "threefry_keyed": ("step", 1, 0),
+                              "threefry_uniforms": ("step", 0, 1)},
+    "xla_stats_threefry": {"engine_step": ("step", 1, 0),
+                           "threefry_uniforms": ("step", 1, 1)},
+    "xla_stats_counter": {"engine_step": ("step", 1, 0),
+                          "threefry_uniforms": ("step", 0, 1)},
+    "xla_multigrid_mixed": {"threefry_uniforms": ("step", 3, 1)},
+    "xla_alternating_engine": {"threefry_uniforms": ("step", 2, 1)},
+    "xla_altq_learner": {"threefry_uniforms": ("step", 3, 1)},
+    "pallas_minimax_learner": {"learner_chunk": ("chunk", 1, 0)},
+    "pallas_minimax_learner_packed": {
+        "packed_learner_chunk": ("chunk", 1, 0)},
+    "pallas_learner_11x7_packed": {"packed_learner_chunk": ("chunk", 1, 0)},
+    "pallas_br_learner": {"packed_learner_chunk": ("chunk", 1, 0)},
+    "pallas_iql_learner": {"iql_chunk": ("chunk", 1, 0)},
+    "pallas_iql_learner_packed": {"iql_packed_chunk": ("chunk", 1, 0)},
+    "pallas_multigrid_learner": {"multigrid_learner_chunk": ("chunk", 1, 0)},
+    "pallas_multigrid_learner_packed": {
+        "multigrid_packed_learner_chunk": ("chunk", 1, 0)},
+    "pallas_altq_learner": {"altq_chunk": ("chunk", 1, 0)},
+    "pallas_altq_learner_packed": {"altq_packed_chunk": ("chunk", 1, 0)},
+    "parity_bit_exact": {},
+    "parity_kernel_fused": {"parity_events": ("call", 1, 0)},
+    "pallas_fused": {"fused_rollout": ("call", 1, 0)},
+    "pallas_fused_journal": {"fused_journal_rollout": ("call", 1, 0)},
+    "pallas_multigrid_fused": {"multigrid_rollout": ("call", 1, 0)},
+    "pallas_alt_fused": {"alt_rollout": ("call", 1, 0)},
+    "table_build_native": {},
+}
+BENCH_PARITY_TIMEOUT = 300.0
 
 
 class SmokeFailure(RuntimeError):
@@ -1038,11 +1085,11 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Build and drive the port on one CUDA device.")
     parser.add_argument(
-        "--phases", choices=("34-38", "39-46", "47-48"),
+        "--phases", choices=("34-38", "39-46", "47-48", "49"),
         help="build only the block's libraries (34-38: K5; 39-46: S1, T1, "
-             "R1 and K5; 47-48: every library) and run its phases alone, "
-             "in this fresh process: their figures before any earlier "
-             "phase has run; prints no kernels line and no verdict")
+             "R1 and K5; 47-48 and 49: every library) and run its phases "
+             "alone, in this fresh process: their figures before any "
+             "earlier phase has run; prints no kernels line and no verdict")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1074,6 +1121,8 @@ def main(argv=None) -> int:
                           step_counts)),
             "47-48": (tuple(_build.LIBRARIES),
                       lambda: mesh_phases(torch, dev, card, exploitability)),
+            "49": (tuple(_build.LIBRARIES),
+                   lambda: tools_phase(torch, dev, card)),
         }[args.phases]
         t0 = time.perf_counter()
         from concurrent.futures import ThreadPoolExecutor
@@ -1383,6 +1432,7 @@ def main(argv=None) -> int:
     errs.update(t_errs)
     ms.update(t_ms)
     mesh_phases(torch, dev, card, exploitability)
+    tools_phase(torch, dev, card)
 
     # Each kernel's work at the shape its ms was timed: lane-steps (or
     # lane-events) and the bytes of its inputs and outputs, each once.
@@ -4691,6 +4741,81 @@ def two_ranks_phase(torch, dev, card, exploitability):
     check(same, "the two ranks' tables differ")
     check(ex <= CONTRACT_EXPLOITABILITY,
           f"2-rank contract: exploitability {ex} > {CONTRACT_EXPLOITABILITY}")
+
+
+# ----------------------------------------------------------------------
+# Phase 49: the tools (tools/bench_all, tools/bench_parity_kernel)
+# ----------------------------------------------------------------------
+
+def _bench_counts():
+    from gym_soccer_tpu_torch.agents import learners
+    from gym_soccer_tpu_torch.ops import (altq_kernel, engine_kernel,
+                                          iql_kernel, learner_kernel,
+                                          parity_kernel, step_kernel,
+                                          threefry_kernel)
+    return (step_kernel.launch_counts, learner_kernel.launch_counts,
+            iql_kernel.launch_counts, altq_kernel.launch_counts,
+            parity_kernel.launch_counts, threefry_kernel.launch_counts,
+            engine_kernel.launch_counts, learners.launch_counts)
+
+
+def bench_expected(name: str, row: dict) -> dict:
+    """The launches ``BENCH_LAUNCHES`` gives row ``name`` for the calls,
+    chunks and steps its result ``row`` reports."""
+    per = {"call": 1, "chunk": row.get("chunks"), "step": row.get("steps")}
+    return {k: n * row["calls"] * per[unit] + once
+            for k, (unit, n, once) in BENCH_LAUNCHES[name].items()}
+
+
+def tools_phase(torch, dev, card):
+    """Phase 49: ``tools.bench_all``'s rows on the card at their default
+    sizes, each with the kernel counters reset before it and read after
+    it, then ``tools.bench_parity_kernel`` in a subprocess."""
+    from gym_soccer_tpu_torch.tools import bench_all
+    t_all = time.perf_counter()
+    names = [name for name, _ in bench_all.ROWS]
+    check(names == list(BENCH_LAUNCHES),
+          f"bench_all's rows {names} are not BENCH_LAUNCHES'")
+    counts = _bench_counts()
+    for name, fn in bench_all.ROWS:
+        for d in counts:
+            for k in d:
+                d[k] = 0
+        t0 = time.perf_counter()
+        line = bench_all.run_row(name, fn, dev, False, card)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {k: n for d in counts for k, n in d.items() if n}
+        print(f"[phase 49] {json.dumps(line)} | launches {launched} | row "
+              f"wall {wall} s")
+        check("error" not in line, f"bench_all row {name} failed: "
+              f"{line.get('error')}")
+        v = line["env_steps_per_s"]
+        check(math.isfinite(v) and v > 0, f"{name}: rate {v}")
+        if "lengths" in line:
+            check(line["long_ms"] > line["short_ms"] > 0,
+                  f"{name}: legs {line['short_ms']} / {line['long_ms']} ms")
+        want = {k: n for k, n in bench_expected(name, line).items() if n}
+        check(launched == want, f"{name}: launches {launched}, not {want}")
+    print(f"[phase 49] bench_all: {len(names)} rows in "
+          f"{time.perf_counter() - t_all} s, no error, launches as named")
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "gym_soccer_tpu_torch.tools.bench_parity_kernel"], cwd=root, capture_output=True, text=True,
+        timeout=BENCH_PARITY_TIMEOUT)
+    lines = json_lines(proc.stdout)
+    for line in lines:
+        print(f"[phase 49] bench_parity_kernel {json.dumps(line)}")
+    checks = {d["check"]: d["ok"] for d in lines if "check" in d}
+    check(proc.returncode == 0 and checks == {
+        "on_chip_bit_exact": True, "scripted_on_chip_bit_exact": True},
+        f"bench_parity_kernel exited {proc.returncode} with checks {checks}: "
+        f"{proc.stderr[-2000:]}")
+    print(f"[phase 49] bench_parity_kernel: exit 0, both checks true, "
+          f"{time.perf_counter() - t0} s | {card}")
+    print(f"[phase 49] {time.perf_counter() - t_all} s")
 
 
 if __name__ == "__main__":

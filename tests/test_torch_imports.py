@@ -70,7 +70,11 @@ MODULES = ["gym_soccer_tpu_torch", "gym_soccer_tpu_torch.config",
            "gym_soccer_tpu_torch.parallel.mesh",
            "gym_soccer_tpu_torch.tools.demo_multihost",
            "gym_soccer_tpu_torch.tools.bench_scaling",
-           "gym_soccer_tpu_torch.examples.alternating_demo"]
+           "gym_soccer_tpu_torch.examples.alternating_demo",
+           "gym_soccer_tpu_torch.tools.bench_all",
+           "gym_soccer_tpu_torch.tools.bench_parity_kernel",
+           "gym_soccer_tpu_torch.tools.gen_golden",
+           "gym_soccer_tpu_torch.tools.gen_render_golden"]
 
 
 @pytest.mark.parametrize("module", MODULES)
