@@ -6,6 +6,7 @@ check it.
     python3 chip_smoke.py --phases 39-46  # one block alone, in a fresh process
     python3 chip_smoke.py --phases 47-48  # the data-parallel block alone
     python3 chip_smoke.py --phases 49     # the tools' sweep alone
+    python3 chip_smoke.py --phases 50     # determinism and checkpoints
 
 Eight main paths, each driven with its kernels' launch counters reset just
 before it and read just after.  The rollout path is the batched random
@@ -31,16 +32,20 @@ last: the native host libraries, the ``SoccerSimultaneousEnv`` facade,
 The threefry path runs last: the entry point
 ``gym_soccer_tpu_torch.examples.train_minimax``, whose HBM-table learner
 steps the engine through kernel S1 (the transition's and the resets'
-draws inside it), draws its actions through kernel T1 and re-solves
-through kernel R1, and whose evaluation draws its policy through T1's
-keyed entry; the learners, the engines and ``SoccerVectorEnv``.  The
+draws inside it), draws its actions through kernel T1, sums its updates
+in lane order through kernel A1 and re-solves through kernel R1, and
+whose evaluation draws its policy through T1's keyed entry; the
+learners, the engines and ``SoccerVectorEnv``.  The
 data-parallel path (parallel/mesh) runs after it: the four trainers with
 ``mesh=`` (K5, K6, K8, K10 and R1, their all-reduces in the CUDA graphs
 on an NCCL mesh), the HBM-table learners through ``sharded_*_train_fn``,
 the sharded chunks of K5-K11 and the sharded re-solve on two ranks that
-share the card over gloo.  The tools run last: ``tools.bench_all``'s 24
+share the card over gloo.  The tools run next: ``tools.bench_all``'s 24
 rows, every path through its entry timed side by side, each row with its
-launches counted, and ``tools.bench_parity_kernel``.
+launches counted, and ``tools.bench_parity_kernel``.  Determinism and
+checkpoints run last: A1 against its plain version, the HBM-table
+learners and the entry point against the CPU and against themselves,
+and ``save_orbax`` / ``load_orbax``.
 Phases, each of which raises on failure:
 
 1. device: a CUDA device is present; its name and power limit;
@@ -274,9 +279,10 @@ Phases, each of which raises on failure:
     ``gym_soccer_tpu_torch.examples.train_minimax``'s default mode (the
     HBM-table minimax-Q learner at 8192 envs, 2000 steps in chunks of 500,
     then ``eval_episode_stats`` at 1024 x 400) through ``main`` in this
-    process, S1's, T1's and R1's counters reset just before and read just
-    after (T1 ``ENTRY_T1`` launches, its keyed entry ``ENTRY_T1_KEYED``,
-    S1 ``ENTRY_S1``, R1 ``ENTRY_R1``); its JSON lines checked;
+    process, S1's, T1's, A1's and R1's counters reset just before and
+    read just after (T1 ``ENTRY_T1`` launches, its keyed entry
+    ``ENTRY_T1_KEYED``, S1 ``ENTRY_S1``, A1 ``ENTRY_A1``, R1
+    ``ENTRY_R1``); its JSON lines checked;
 40. T1 (``threefry_uniforms``, ``csrc/threefry_kernel.cu``): bit-equal to
     its plain version on the card at 8192 lanes with count 1, 2, 4 and 7,
     salt 0, 1 and 9, counters 0, 37 and 2**31 - 1, and to the plain
@@ -301,11 +307,10 @@ Phases, each of which raises on failure:
 45. the learners' CUDA-graph replays against the CPU: at 2 lanes, 162
     steps of minimax-Q, IQL, turn-based Q and mixture minimax-Q (an
     unaligned head, two replays, a period on its own, a tail) bit-equal
-    to the same calls on the CPU, with S1's, T1's and R1's launches
-    counted;
-    at 512 lanes, one 64-step minimax-Q period (one replay, the re-solve
-    on its last step) with the env and the visit counts exact and q, the
-    per-step |TD|, v and pi within stated tolerances;
+    to the same calls on the CPU, with S1's, T1's, A1's and R1's launches
+    counted; at 512 lanes, one 64-step minimax-Q period (one replay, the
+    re-solve on its last step) bit-equal in q, v, pi, n and the env
+    fields, each step's |TD| within ``GRAPH_TOL``;
 46. S1 (``batch.step`` on the card, ``csrc/engine_kernel.cu``): bit-equal
     to ``batch.step_plain`` on the card in every state and StepOut field
     at 8192 lanes on 5x4 and 11x7, slip 0.2 and 0, autoreset on and off,
@@ -335,28 +340,52 @@ Phases, each of which raises on failure:
     stats bit-equal to the sum of the same two shard-seed chunks run in
     this process; R1's sharded solve bit-equal to the replicated one; the
     5x4 contract at 2 x 32768 lanes per chunk, exploitability <= 0.010;
+    ``save_orbax`` / ``load_orbax`` under the mesh: each rank's resume
+    dict (its block of the fields) back bit-equal, the chunk resumed from
+    it equal to the uninterrupted run, and this process, with no mesh,
+    loading the global batch, the ranks' blocks in rank order;
 49. the tools: ``tools.bench_all``'s 24 rows in this process at their
     default sizes, every kernel counter reset before each row and read
     after it: no error row, every rate finite and > 0, every slope's long
     leg longer than its short one, and each row's launches exactly those
     ``BENCH_LAUNCHES`` names for its calls, chunks and steps (every other
     counter 0); then ``tools.bench_parity_kernel`` in a subprocess: exit
-    0 with both on-card checks true.
+    0 with both on-card checks true;
+50. determinism and checkpoints: A1 (``scatter_add``,
+    ``csrc/scatter_kernel.cu``) bit-equal to its plain version
+    (``index_add_`` on the CPU, lane order) in sums and counts on
+    ``SCATTER_CASES`` (65536 lanes on one cell, 8192 over the 5x4 minimax
+    table's 19025 cells, 8192 over 3, values of magnitudes 1e-6 to 1e2),
+    each run's longest run and A1's device time; A1, its kernel alone,
+    ``index_add_`` with its zero fill and the plain version timed at 8192
+    lanes (call ms, device ms by CUDA-graph replay), how many of 20
+    ``index_add_`` calls differ in a bit (recorded); minimax-Q with the
+    entry point's halflives, IQL, turn-based Q and mixture minimax-Q on
+    5x4+6x5 at 8192 lanes x 128 steps (two re-solve periods, replayed)
+    bit-equal to the CPU in every state leaf, the per-step |TD| apart by
+    at most ``GRAPH_TOL``; the entry point's default mode twice with
+    ``--ckpt``, bit-equal with the same exploitability (phase 39's too),
+    and stopped right after its step-1000 checkpoint and resumed from it,
+    bit-equal to the uninterrupted run; ``save_orbax`` / ``load_orbax`` on
+    the card: a K5 resume dict and an HBM-table learner state back
+    bit-equal on the card, the template untouched, the resumed chunk
+    equal to the uninterrupted run.
 
 ``--phases`` runs one block of phases alone in a fresh process, building
-only its libraries: 34-38 (K5), 39-46 (S1, T1, R1, K5), 47-48 or 49
-(every library); it prints the block's figures but no kernels line and no
-verdict.
+only its libraries: 34-38 (K5), 39-46 and 50 (S1, T1, A1, R1, K5), 47-48
+or 49 (every library); it prints the block's figures but no kernels line
+and no verdict.
 
 The second-to-last lines are the kernels' JSON record (the 14 kernel
-sites, R1, T1, its keyed entry and S1, with each kernel's bound: the
+sites, R1, T1, its keyed entry, S1 and A1, with each kernel's bound: the
 larger of its bytes over the HBM rate and its SASS instructions per
 step, R1's per
 game-iteration (the fewer of its lanes' and its previous design's, so
 that the shuffles and sums the split repeats in each lane do not raise
 its bound), T1's, its keyed entry's and S1's on the shortest way
 through a thread (``path_instructions``), times its steps over the
-instruction rate) and
+instruction rate; A1's its additions at the float32 rate, with
+``index_add_``'s ms as its ``library_ms``) and
 the card's name and power limit; the last line is the JSON verdict.  The whole run prints
 its wall time.  Exits non-zero, with no verdict, if anything fails or no
 CUDA device is present.
@@ -549,6 +578,7 @@ ARITH_SYMBOL = {"fused_rollout": "14rollout_kernelILb0ELb0E",
 # card starts instructions.  A kernel's operations are counted as the SASS
 # instructions a lane runs, each against that rate.
 HBM_BYTES_PER_S = 3.35e12
+FLOAT32_PER_S = 67e12
 INSTRUCTIONS_PER_S = 67e12 / 2
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                       "golden", "reference_golden.json")
@@ -656,33 +686,57 @@ S1_REPLACES = "gym_soccer_tpu/core/batch.py:227"
 S1_SYMBOL = "18engine_step_kernelILi0ELb1ELb1E"
 S1_STEPS = 6
 S1_GRAPH_CALLS, PLAIN_GRAPH_CALLS = 100, 10
+# A1: the HBM-table learners' scatter-add in lane order (no TPU kernel:
+# the JAX package's XLA scatter-add, its IQL update's first).
+SCATTER = "scatter_add"
+SCATTER_SRC = "gym_soccer_tpu_torch/ops/csrc/scatter_kernel.cu"
+SCATTER_REPLACES = "gym_soccer_tpu/agents/learners.py:193"
 # The kernels no TPU kernel precedes: their sources and the JAX functions
 # they compute.
 ADDED_SOURCE = {RMPLUS: RMPLUS_SRC, T1: T1_SRC, T1_KEYED: T1_SRC,
-                S1: S1_SRC}
+                S1: S1_SRC, SCATTER: SCATTER_SRC}
 ADDED_REPLACES = {RMPLUS: RMPLUS_REPLACES, T1: T1_REPLACES,
-                  T1_KEYED: T1_KEYED_REPLACES, S1: S1_REPLACES}
+                  T1_KEYED: T1_KEYED_REPLACES, S1: S1_REPLACES,
+                  SCATTER: SCATTER_REPLACES}
 # The entry point's default mode at its own widths (examples/
 # train_minimax_tpu.py:247-251), 2000 steps in chunks of 500: per step T1
-# draws the learner's actions and S1 steps the engine (the transition's
-# and the resets' draws inside it), R1 re-solves every 64th step; then
-# eval_episode_stats' 400 steps (T1's keyed entry and S1 a step) and the
-# two initialisations (T1).
+# draws the learner's actions, S1 steps the engine (the transition's and
+# the resets' draws inside it) and A1 sums the update, R1 re-solves every
+# 64th step; then eval_episode_stats' 400 steps (T1's keyed entry and S1 a
+# step) and the two initialisations (T1).
 ENTRY = ["--envs", "8192", "--chunk", "500", "--steps", "2000"]
 ENTRY_T1, ENTRY_T1_KEYED = 1 + 2000 + 1, 400
 ENTRY_S1 = 2000 + 400
+ENTRY_A1 = 2000
 ENTRY_R1 = 2000 // 64
-# Phase 45: two lanes keep every scatter-add cell to at most two addends
-# a step (a sum of two floats does not depend on their order), so the
-# card's tables equal the CPU's bit for bit.  GRAPH_STEPS from step
-# GRAPH_START at resolve_every 16 (4 periods a replay) run a head of 11
-# steps, two replays, one period on its own and a tail of 7.  GRAPH_WIDE:
-# the learning checks' width, for one 64-step period (one replay).
+# Phase 45: GRAPH_STEPS from step GRAPH_START at resolve_every 16 (4
+# periods a replay) run a head of 11 steps, two replays, one period on its
+# own and a tail of 7, at GRAPH_LANES lanes.  GRAPH_WIDE: the learning
+# checks' width, for one 64-step period (one replay).
 GRAPH_LANES, GRAPH_START, GRAPH_STEPS, GRAPH_WIDE = 2, 5, 162, 512
-# Phase 45's tolerances at GRAPH_WIDE, where the card's scatter-adds sum
-# by atomics in no fixed order: q and |TD| relative to 1 + |x|; v and pi
-# after the re-solve (RM+'s 200 iterations on the perturbed q) absolute.
-GRAPH_TOL, GRAPH_SOLVE_TOL = 1e-6, 1e-4
+# Phase 45's tolerance at GRAPH_WIDE for each step's mean |TD|, relative
+# to 1 + |TD|: the card's mean reduces in another order than the CPU's.
+# Every state leaf is bit-equal (A1 adds the scatter-adds in lane order).
+GRAPH_TOL = 1e-6
+# Phase 50, A1 (scatter_add, csrc/scatter_kernel.cu): its crafted inputs,
+# name -> (lanes, cells, cells hit or None for uniform over the cells):
+# every lane on one cell, the entry point's width over the 5x4 minimax
+# table's 761 x 25 cells, and over 3 cells; the values' magnitudes span
+# 10**SCATTER_MAGNITUDES with random signs.  A1 is timed on the minimax
+# table's input, index_add_'s bits compared over SCATTER_REPEATS calls,
+# and both timed by the replay of a CUDA graph of SCATTER_GRAPH_CALLS.
+SCATTER_CASES = {"one cell": (65536, 19025, 1),
+                 "minimax table": (8192, 19025, None),
+                 "3 cells": (8192, 3, 3)}
+SCATTER_TIMED = "minimax table"
+SCATTER_MAGNITUDES = (-6, 2)
+SCATTER_REPEATS, SCATTER_GRAPH_CALLS = 20, 100
+# Phase 50, the four HBM-table learners at the entry point's width: two
+# re-solve periods of 64 steps each, on the card (replays) and the CPU.
+DET_LANES, DET_STEPS = 8192, 128
+# The entry point's default mode stopped right after its checkpoint at
+# this step and resumed from --ckpt.
+ENTRY_STOP = 1000
 # --fused stopped at 640 steps and resumed to 1280 from --ckpt.
 FUSED_STEPS = (640, 1280)
 # Phases 47-48, data parallelism (parallel/mesh).  Phase 48's chunks: the
@@ -718,7 +772,8 @@ BENCH_LAUNCHES = {
                           "threefry_uniforms": ("step", 0, 1)},
     "xla_multigrid_mixed": {"threefry_uniforms": ("step", 3, 1)},
     "xla_alternating_engine": {"threefry_uniforms": ("step", 2, 1)},
-    "xla_altq_learner": {"threefry_uniforms": ("step", 3, 1)},
+    "xla_altq_learner": {"threefry_uniforms": ("step", 3, 1),
+                         "scatter_add": ("step", 1, 0)},
     "pallas_minimax_learner": {"learner_chunk": ("chunk", 1, 0)},
     "pallas_minimax_learner_packed": {
         "packed_learner_chunk": ("chunk", 1, 0)},
@@ -773,6 +828,20 @@ def max_abs_err(pairs):
             d = (a.cpu().long() - b.cpu().long()).abs().max()
             err = max(err, int(d))
     return err
+
+
+def bits_equal(a, b) -> bool:
+    """Tensors equal in dtype, shape and every bit (-0.0 and NaN
+    payloads included)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        view = {2: torch.int16, 4: torch.int32,
+                8: torch.int64}[a.element_size()]
+        return torch.equal(a.contiguous().view(view),
+                           b.contiguous().view(view))
+    return torch.equal(a, b)
 
 
 def sass_listing(path):
@@ -1085,11 +1154,12 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Build and drive the port on one CUDA device.")
     parser.add_argument(
-        "--phases", choices=("34-38", "39-46", "47-48", "49"),
+        "--phases", choices=("34-38", "39-46", "47-48", "49", "50"),
         help="build only the block's libraries (34-38: K5; 39-46: S1, T1, "
-             "R1 and K5; 47-48 and 49: every library) and run its phases "
-             "alone, in this fresh process: their figures before any "
-             "earlier phase has run; prints no kernels line and no verdict")
+             "A1, R1 and K5; 47-48 and 49: every library; 50: S1, T1, A1, "
+             "R1 and K5) and run its phases alone, in this fresh process: "
+             "their figures before any earlier phase has run; prints no "
+             "kernels line and no verdict")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1115,7 +1185,7 @@ def main(argv=None) -> int:
             "34-38": (("learner_kernel",),
                       lambda: surface_phases(torch, dev, card, lk)),
             "39-46": (("engine_kernel", "threefry_kernel", "rmplus_kernel",
-                       "learner_kernel"),
+                       "scatter_kernel", "learner_kernel"),
                       lambda: threefry_phases(
                           torch, dev, card, added_instructions(_build),
                           step_counts)),
@@ -1123,6 +1193,9 @@ def main(argv=None) -> int:
                       lambda: mesh_phases(torch, dev, card, exploitability)),
             "49": (tuple(_build.LIBRARIES),
                    lambda: tools_phase(torch, dev, card)),
+            "50": (("engine_kernel", "threefry_kernel", "rmplus_kernel",
+                    "scatter_kernel", "learner_kernel"),
+                   lambda: determinism_phase(torch, dev, card)),
         }[args.phases]
         t0 = time.perf_counter()
         from concurrent.futures import ThreadPoolExecutor
@@ -1426,13 +1499,16 @@ def main(argv=None) -> int:
 
     surface_phases(torch, dev, card, lk)
     per_step.update(added_instructions(_build))
-    t_launches, t_errs, t_ms, t_work = threefry_phases(
+    t_launches, t_errs, t_ms, t_work, entry_ex = threefry_phases(
         torch, dev, card, per_step, step_counts)
     launches.update(t_launches)
     errs.update(t_errs)
     ms.update(t_ms)
     mesh_phases(torch, dev, card, exploitability)
     tools_phase(torch, dev, card)
+    errs[SCATTER], a1_ms, a1_work = determinism_phase(torch, dev, card,
+                                                      entry_ex)
+    ms.update(a1_ms)
 
     # Each kernel's work at the shape its ms was timed: lane-steps (or
     # lane-events) and the bytes of its inputs and outputs, each once.
@@ -1456,6 +1532,7 @@ def main(argv=None) -> int:
         **alt_work,
         RMPLUS: rm_work,
         **t_work,
+        SCATTER: a1_work,
     }
     kernels = []
     for name in ("fused_rollout", "fused_journal_rollout",
@@ -1463,9 +1540,13 @@ def main(argv=None) -> int:
                  "multigrid_packed_learner_chunk", "learner_chunk",
                  "multigrid_learner_chunk", "iql_packed_chunk", "iql_chunk",
                  "altq_packed_chunk", "altq_chunk", "parity_events",
-                 "parity_scripted_events", RMPLUS, T1, T1_KEYED, S1):
+                 "parity_scripted_events", RMPLUS, T1, T1_KEYED, S1,
+                 SCATTER):
         units, nbytes = work[name]
-        bound_ms, bound_by = bound(units, per_step[name], nbytes)
+        if name == SCATTER:   # additions at the float32 rate
+            bound_ms, bound_by = scatter_bound(units, nbytes)
+        else:
+            bound_ms, bound_by = bound(units, per_step[name], nbytes)
         kernels.append(
             {"name": name, "route": "cuda",
              "source": {**SOURCE, **ADDED_SOURCE}[name],
@@ -1473,11 +1554,13 @@ def main(argv=None) -> int:
              "launches": launches[name],
              "max_abs_err": errs[name], "ms": ms[name],
              "plain_ms": ms[name + "_plain"], "bound_ms": bound_ms,
-             "bound_by": bound_by, "library_ms": None})
-        print(f"[bound] {name}: {units} units x {per_step[name]} SASS "
-              f"instructions, {nbytes} bytes -> {bound_ms} ms "
-              f"({bound_by}); measured {ms[name]} ms "
-              f"({bound_ms / ms[name] * 100} % of the bound)")
+             "bound_by": bound_by,
+             "library_ms": ms.get(name + "_library")})
+        print(f"[bound] {name}: {units} units x "
+              f"{per_step.get(name, 'one addition')} SASS instructions, "
+              f"{nbytes} bytes -> {bound_ms} ms ({bound_by}); measured "
+              f"{ms[name]} ms ({bound_ms / ms[name] * 100} % of the "
+              f"bound)")
     print(f"[done] chip_smoke.py ran {time.perf_counter() - t_start} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -3420,13 +3503,14 @@ def alt_phases(torch, dev, card, cfgs, per_step, regs):
 
 def threefry_phases(torch, dev, card, instructions, step_counts):
     """Phases 39-46, the threefry slice, each with its wall seconds.
-    Returns the launches of T1, its keyed entry and S1 on the slice's main
-    path, their max abs errors against the plain versions, their ms and
-    plain ms, and their work, each a dict by kernel name; ``instructions``
-    is ``added_instructions``."""
+    Returns the launches of T1, its keyed entry, S1 and A1 on the slice's
+    main path, the max abs errors of T1, its keyed entry and S1 against
+    their plain versions, their ms and plain ms, and their work, each a
+    dict by kernel name, and the entry point's exploitability;
+    ``instructions`` is ``added_instructions``."""
     t_all = time.perf_counter()
     t0 = time.perf_counter()
-    launches = entry_main_path(torch, dev, card)
+    launches, entry_exploitability = entry_main_path(torch, dev, card)
     print(f"[phase 39] {time.perf_counter() - t0} s")
     t0 = time.perf_counter()
     err, ms, work = t1_phase(torch, dev, card, instructions[T1])
@@ -3456,7 +3540,22 @@ def threefry_phases(torch, dev, card, instructions, step_counts):
     ms.update(keyed_ms)
     print(f"[phase 46] {time.perf_counter() - t0} s")
     print(f"[threefry] phases 39-46 ran {time.perf_counter() - t_all} s")
-    return launches, errs, ms, work
+    return launches, errs, ms, work, entry_exploitability
+
+
+def scatter_inputs(np, case: str, seed: int = 0):
+    """(idx int64 [lanes], values float32 [lanes], n_cells) of A1's crafted
+    input ``case`` (``SCATTER_CASES``, or "one lane"), from ``seed``."""
+    lanes, n_cells, hit = SCATTER_CASES.get(case, (1, 19025, 1))
+    rng = np.random.default_rng(seed)
+    if hit is None:
+        idx = rng.integers(0, n_cells, lanes)
+    else:
+        idx = rng.choice(n_cells, hit, replace=False)[
+            rng.integers(0, hit, lanes)]
+    mag = 10.0 ** rng.uniform(*SCATTER_MAGNITUDES, lanes)
+    values = (mag * rng.choice((-1.0, 1.0), lanes)).astype(np.float32)
+    return idx.astype(np.int64), values, n_cells
 
 
 def json_lines(text):
@@ -3466,22 +3565,24 @@ def json_lines(text):
 def entry_main_path(torch, dev, card):
     """Phase 39, the slice's main path: the entry point's default mode
     (``train_minimax.main``, the HBM-table minimax-Q learner, then
-    ``eval_episode_stats``) at 8192 envs in this process, S1's, T1's and
-    R1's launch counters reset just before and read just after: T1's
-    per-lane entry launched ENTRY_T1 times, its keyed entry
-    ENTRY_T1_KEYED, S1 ENTRY_S1, R1 ENTRY_R1; its lines are the JAX
-    example's, v in [-1.05, 1.05], the exploitability finite, the eval's
-    episodes counted.  Returns the launches of T1, its keyed entry and S1
-    by kernel name."""
+    ``eval_episode_stats``) at 8192 envs in this process, S1's, T1's,
+    A1's and R1's launch counters reset just before and read just after:
+    T1's per-lane entry launched ENTRY_T1 times, its keyed entry
+    ENTRY_T1_KEYED, S1 ENTRY_S1, A1 ENTRY_A1, R1 ENTRY_R1; its lines are
+    the JAX example's, v in [-1.05, 1.05], the exploitability finite, the
+    eval's episodes counted.  Returns the launches of T1, its keyed entry,
+    S1 and A1 by kernel name, and the finished line's exploitability."""
     import contextlib
     import io
     from gym_soccer_tpu_torch.agents import learners
     from gym_soccer_tpu_torch.examples import train_minimax
     from gym_soccer_tpu_torch.ops import engine_kernel as ek
+    from gym_soccer_tpu_torch.ops import scatter_kernel as sc
     from gym_soccer_tpu_torch.ops import threefry_kernel as tk
     out = io.StringIO()
     tk.reset_launch_counts()
     ek.reset_launch_counts()
+    sc.reset_launch_counts()
     learners.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3491,11 +3592,12 @@ def entry_main_path(torch, dev, card):
     wall = time.perf_counter() - t0
     t1, keyed = tk.launch_counts[T1], tk.launch_counts[T1_KEYED]
     s1, r1 = ek.launch_counts[S1], learners.launch_counts[RMPLUS]
-    check((t1, keyed, s1, r1) == (ENTRY_T1, ENTRY_T1_KEYED, ENTRY_S1,
-                                  ENTRY_R1),
+    a1 = sc.launch_counts[SCATTER]
+    check((t1, keyed, s1, a1, r1) == (ENTRY_T1, ENTRY_T1_KEYED, ENTRY_S1,
+                                      ENTRY_A1, ENTRY_R1),
           f"entry point: T1 launched {t1} + {keyed} (keyed) times, S1 {s1}, "
-          f"R1 {r1}; not {ENTRY_T1} ({ENTRY_T1_KEYED} keyed), {ENTRY_S1}, "
-          f"{ENTRY_R1}")
+          f"A1 {a1}, R1 {r1}; not {ENTRY_T1} ({ENTRY_T1_KEYED} keyed), "
+          f"{ENTRY_S1}, {ENTRY_A1}, {ENTRY_R1}")
     lines = json_lines(out.getvalue())
     events = [ln.get("event") for ln in lines]
     check(events == ["compiled", None, None, None, "finished",
@@ -3508,9 +3610,10 @@ def entry_main_path(torch, dev, card):
           f"train_minimax {' '.join(ENTRY)} (default mode) in this process: "
           f"{wall} s (host clock; the first chunk {lines[0]['seconds']} s "
           f"with the kernels' loads); T1 launched {t1} times, its keyed "
-          f"entry {keyed}, S1 {s1}, R1 {r1}; finished {fin}; "
+          f"entry {keyed}, S1 {s1}, A1 {a1}, R1 {r1}; finished {fin}; "
           f"eval_episode_stats {ev} | {card}")
-    return {T1: t1, T1_KEYED: keyed, S1: s1}
+    return {T1: t1, T1_KEYED: keyed, S1: s1, SCATTER: a1}, \
+        fin["exploitability"]
 
 
 def t1_phase(torch, dev, card, t1_instructions):
@@ -3878,19 +3981,19 @@ def graph_phase(torch, dev, card):
     both from one state.  At GRAPH_LANES lanes, from the state after
     GRAPH_START steps, GRAPH_STEPS steps of minimax-Q (lr and eps
     halflives), IQL, turn-based Q against a frozen standing B and mixture
-    minimax-Q on 5x4+6x5: every leaf and every step's |TD| bit-equal, T1
-    and S1 launched a single step's count each step and R1 once a period.
-    At GRAPH_WIDE lanes, one 64-step minimax-Q period from step 0 (one
-    replay, the re-solve on its last step): pi is uniform until then, so
-    the env fields and the visit counts equal the CPU's exactly; q and
-    each step's |TD| within GRAPH_TOL * (1 + |x|), v and pi within
-    GRAPH_SOLVE_TOL."""
+    minimax-Q on 5x4+6x5: every leaf and every step's |TD| bit-equal, T1,
+    S1 and A1 launched a single step's count each step and R1 once a
+    period.  At GRAPH_WIDE lanes, one 64-step minimax-Q period from step 0
+    (one replay, the re-solve on its last step): every state leaf (q, v,
+    pi, n and the env fields) bit-equal to the CPU's, each step's |TD|
+    within GRAPH_TOL * (1 + |TD|) (its mean reduces in another order)."""
     import numpy as np
     from gym_soccer_tpu_torch.agents import learners as L
     from gym_soccer_tpu_torch.config import EnvConfig
     from gym_soccer_tpu_torch.core import threefry
     from gym_soccer_tpu_torch.envs import soccer_alternating_env as alt
     from gym_soccer_tpu_torch.ops import engine_kernel as ek
+    from gym_soccer_tpu_torch.ops import scatter_kernel as sc
     from gym_soccer_tpu_torch.ops import threefry_kernel as tk
     cfg = EnvConfig(5, 4, SLIP)
     mix = (cfg, EnvConfig(6, 5, SLIP))
@@ -3903,6 +4006,7 @@ def graph_phase(torch, dev, card):
         torch.cuda.synchronize()
         tk.reset_launch_counts()
         ek.reset_launch_counts()
+        sc.reset_launch_counts()
         L.reset_launch_counts()
 
     mc = L.MinimaxQConfig(lr=0.3, resolve_every=16, solver_iters=50,
@@ -3928,13 +4032,14 @@ def graph_phase(torch, dev, card):
         train(to(st, dev), 1)
         torch.cuda.synchronize()
         per_step, s1_step = tk.launch_counts[T1], ek.launch_counts[S1]
+        a1_step = sc.launch_counts[SCATTER]
         reset()
         t0 = time.perf_counter()
         got, gtd = train(to(st, dev), GRAPH_STEPS)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         t1, r1 = tk.launch_counts[T1], L.launch_counts[RMPLUS]
-        s1 = ek.launch_counts[S1]
+        s1, a1 = ek.launch_counts[S1], sc.launch_counts[SCATTER]
         want, wtd = train(st, GRAPH_STEPS)
         leaves = list(zip(L._tensors(got), L._tensors(want)))
         bad = [i for i, (x, y) in enumerate(leaves)
@@ -3943,18 +4048,20 @@ def graph_phase(torch, dev, card):
         check(not bad and torch.equal(gtd.cpu(), wtd),
               f"{name}: the graph run differs from the CPU's in leaves {bad} "
               f"(max abs err {max_abs_err(leaves)}) or in |TD|")
-        check(per_step > 0 and t1 == per_step * GRAPH_STEPS
-              and s1 == s1_step * GRAPH_STEPS and r1 == resolves,
+        check(per_step > 0 and a1_step > 0 and t1 == per_step * GRAPH_STEPS
+              and s1 == s1_step * GRAPH_STEPS
+              and a1 == a1_step * GRAPH_STEPS and r1 == resolves,
               f"{name}: T1 launched {t1} times (not {per_step} x "
               f"{GRAPH_STEPS}), S1 {s1} (not {s1_step} x {GRAPH_STEPS}), "
-              f"R1 {r1} (not {resolves})")
+              f"A1 {a1} (not {a1_step} x {GRAPH_STEPS}), R1 {r1} (not "
+              f"{resolves})")
         group = -(-L.GROUP_STEPS // max(period, 1)) * max(period, 1)
         print(f"[graph] {name} {GRAPH_LANES} lanes, steps {steps.start}-"
               f"{steps.stop - 1} (replays of {group} steps, with the steps "
               f"around them on their own): all {len(leaves)} leaves "
               f"and every step's |TD| equal the CPU's bit for bit; T1 "
-              f"{t1} launches, S1 {s1}, R1 {r1}; {wall} s on the card | "
-              f"{card}")
+              f"{t1} launches, S1 {s1}, A1 {a1}, R1 {r1}; {wall} s on the "
+              f"card | {card}")
 
     wide = L.MinimaxQConfig(lr=0.3, resolve_every=64, solver_iters=200,
                             lr_halflife=400, eps_halflife=667)
@@ -3962,27 +4069,20 @@ def graph_phase(torch, dev, card):
     got, gtd = L.minimax_train(cfg, wide, to(st, dev), 64)
     want, wtd = L.minimax_train(cfg, wide, st, 64)
 
-    def rel(a, b):
-        return float(((a.cpu() - b).abs() / (1 + b.abs())).max())
-
-    env_same = all(torch.equal(x.cpu(), y) for x, y in
-                   zip(L._tensors(got.env), L._tensors(want.env)))
-    eq, etd = rel(got.q, want.q), rel(gtd, wtd)
-    ev = float((got.v.cpu() - want.v).abs().max())
-    epi = max(float((got.pi_a.cpu() - want.pi_a).abs().max()),
-              float((got.pi_b.cpu() - want.pi_b).abs().max()))
+    names = ("q", "v", "pi_a", "pi_b", "n", "env", "step")
+    bad = [f"{n}[{i}]" for n in names
+           for i, (x, y) in enumerate(zip(L._tensors((getattr(got, n),)),
+                                          L._tensors((getattr(want, n),))))
+           if not bits_equal(x.cpu(), y)]
+    etd = float(((gtd.cpu() - wtd).abs() / (1 + wtd.abs())).max())
     print(f"[graph] minimax-Q {GRAPH_WIDE} lanes, one 64-step period (one "
-          f"replay, the re-solve on step 63): env fields equal "
-          f"{env_same}, visit counts equal {torch.equal(got.n.cpu(), want.n)}"
-          f"; max |dq| / (1 + |q|) {eq}, max |d|TD|| / (1 + |TD|) {etd}, "
-          f"max |dv| {ev}, max |dpi| {epi}; q changed in "
-          f"{int((want.q != 0).sum())} cells | {card}")
-    check(env_same and torch.equal(got.n.cpu(), want.n)
-          and eq <= GRAPH_TOL and etd <= GRAPH_TOL
-          and ev <= GRAPH_SOLVE_TOL and epi <= GRAPH_SOLVE_TOL
-          and int(got.step) == 64,
+          f"replay, the re-solve on step 63): q, v, pi, n and the env "
+          f"fields bit-equal to the CPU's: {not bad} (differing: {bad}); "
+          f"max |d|TD|| / (1 + |TD|) {etd} (limit {GRAPH_TOL}); q changed "
+          f"in {int((want.q != 0).sum())} cells | {card}")
+    check(not bad and etd <= GRAPH_TOL and int(got.step) == 64,
           f"minimax-Q {GRAPH_WIDE} lanes: the graph run differs from the "
-          f"CPU's beyond the tolerances")
+          f"CPU's in {bad} or its |TD| beyond {GRAPH_TOL}")
 
 
 def device_ops(torch, fn, calls=3):
@@ -4647,11 +4747,44 @@ def _to_cpu(x):
     return x
 
 
-def dp_rank(mesh):
+def dp_orbax(torch, mesh, path):
+    """On one of phase 48's ranks: ``fused_minimax_train`` on 5x4 at
+    DP_RANKS x DP_LANES lanes, 1 chunk of DP_STEPS steps saved by
+    ``save_orbax`` under the mesh at ``path`` (the fields the rank's
+    block), loaded back into a zeroed template and resumed for 1 chunk.
+    Returns the saved dict on the CPU and whether the load was bit-equal
+    and on the rank's device and the resumed chunk equal to 2 chunks at
+    once."""
+    from gym_soccer_tpu_torch.config import EnvConfig
+    from gym_soccer_tpu_torch.ops import learner_kernel as lk
+    from gym_soccer_tpu_torch.utils import checkpoint
+    cfg, blocks = EnvConfig(5, 4, SLIP), ("fields",)
+    kw = dict(batch=DP_RANKS * DP_LANES, chunk_len=DP_STEPS, lr=1.0,
+              eps=0.2, return_state=True, device=mesh.device, mesh=mesh)
+    *_, whole = lk.fused_minimax_train(cfg, n_chunks=2, **kw)
+    *_, r = lk.fused_minimax_train(cfg, n_chunks=1, **kw)
+    checkpoint.save_orbax(path, r, mesh=mesh, blocks=blocks)
+    got = checkpoint.load_orbax(path, _zeros_tree(r), mesh=mesh,
+                                blocks=blocks)
+    *_, part = lk.fused_minimax_train(
+        cfg, n_chunks=1, init=(got["q"], got["v"], got["pi_a"], got["pi_b"],
+                               got["n"]), fields_init=got["fields"],
+        start_chunk=got["next_chunk"], **kw)
+    on_device = all(x.device == mesh.device for x in _tree_leaves(got)
+                    if isinstance(x, torch.Tensor))
+    saved = checkpoint._unflatten(r, iter(
+        x.cpu() if isinstance(x, torch.Tensor) else x
+        for x in _tree_leaves(r)))
+    return saved, (_trees_equal(got, r), on_device,
+                   _trees_equal(part, whole))
+
+
+def dp_rank(mesh, orbax_path):
     """One of phase 48's ranks (a spawned process on the card, gloo with
     CUDA tensors): the eight kernel sites' sharded chunks, the sharded
     re-solve and the 5x4 contract per chunk on its half of the 65536
-    lanes, with the kernels it launched and its walls."""
+    lanes, with the kernels it launched and its walls; then the orbax
+    pair under the mesh (``dp_orbax``)."""
     import torch
     from gym_soccer_tpu_torch.config import EnvConfig
     from gym_soccer_tpu_torch.ops import learner_kernel as lk
@@ -4676,6 +4809,7 @@ def dp_rank(mesh):
     torch.cuda.synchronize()
     out["contract"] = (pa.cpu(), pb.cpu(), hist,
                        time.perf_counter() - t0, _dp_launched())
+    out["orbax"] = dp_orbax(torch, mesh, orbax_path)
     return out
 
 
@@ -4687,14 +4821,41 @@ def two_ranks_phase(torch, dev, card, exploitability):
     the same two shard-seed chunks run here on the card, and each rank's
     fields its chunk's; R1's sharded solve equals the replicated one; the
     5x4 contract at 2 x 32768 lanes, per chunk, reads exploitability <=
-    0.010 (other shard seeds: another run than the 1-process one)."""
+    0.010 (other shard seeds: another run than the 1-process one).  The
+    orbax pair under the mesh (``dp_orbax``): each rank's resume dict
+    saved and loaded back bit-equal on its device, the resumed chunk
+    equal to the uninterrupted run; this process, with no mesh, loads the
+    global batch from the ranks' checkpoint, their blocks in rank
+    order."""
     from gym_soccer_tpu_torch.agents.learners import solve_matrix_games
     from gym_soccer_tpu_torch.config import EnvConfig
     from gym_soccer_tpu_torch.parallel import mesh as pmesh
+    from gym_soccer_tpu_torch.utils import checkpoint
     t0 = time.perf_counter()
-    ranks = pmesh.spawn(dp_rank, DP_RANKS, device="cuda", backend="gloo",
-                        timeout=DP_TIMEOUT)
-    wall = time.perf_counter() - t0
+    with build_tmpdir() as tmp:
+        path = os.path.join(tmp, "orbax")
+        ranks = pmesh.spawn(dp_rank, DP_RANKS, (path,), device="cuda",
+                            backend="gloo", timeout=DP_TIMEOUT)
+        wall = time.perf_counter() - t0
+        r0, r1 = (r["orbax"][0] for r in ranks)
+        tmpl = _zeros_tree(dict(r0, fields=tuple(
+            torch.zeros(DP_RANKS * f.shape[0], dtype=f.dtype, device=dev)
+            for f in r0["fields"])))
+        got = checkpoint.load_orbax(path, tmpl)
+        files = sorted(os.listdir(path))
+    want = dict(r0, fields=tuple(torch.cat(p) for p in zip(r0["fields"],
+                                                           r1["fields"])))
+    whole = _trees_equal(checkpoint._unflatten(got, iter(
+        x.cpu() if isinstance(x, torch.Tensor) else x
+        for x in _tree_leaves(got))), want)
+    oks = [r["orbax"][1] for r in ranks]
+    print(f"[mesh gloo] orbax pair on {DP_RANKS} ranks ({files}): each "
+          f"rank's resume dict back bit-equal, on its device, the resumed "
+          f"chunk equal to 2 chunks at once: {oks}; one process without a "
+          f"mesh loads the global batch, the ranks' blocks in rank order: "
+          f"{whole} | {card}")
+    check(all(all(ok) for ok in oks) and whole,
+          f"the orbax pair under the 2-rank mesh: {oks}, global {whole}")
     print(f"[mesh gloo] {DP_RANKS} ranks on {ranks[0]['mesh']} and "
           f"{ranks[1]['mesh']}: {wall} s from spawn to their results; the "
           f"eight chunks {[r['chunks_s'] for r in ranks]} s a rank, "
@@ -4751,12 +4912,13 @@ def _bench_counts():
     from gym_soccer_tpu_torch.agents import learners
     from gym_soccer_tpu_torch.ops import (altq_kernel, engine_kernel,
                                           iql_kernel, learner_kernel,
-                                          parity_kernel, step_kernel,
-                                          threefry_kernel)
+                                          parity_kernel, scatter_kernel,
+                                          step_kernel, threefry_kernel)
     return (step_kernel.launch_counts, learner_kernel.launch_counts,
             iql_kernel.launch_counts, altq_kernel.launch_counts,
             parity_kernel.launch_counts, threefry_kernel.launch_counts,
-            engine_kernel.launch_counts, learners.launch_counts)
+            engine_kernel.launch_counts, scatter_kernel.launch_counts,
+            learners.launch_counts)
 
 
 def bench_expected(name: str, row: dict) -> dict:
@@ -4816,6 +4978,361 @@ def tools_phase(torch, dev, card):
     print(f"[phase 49] bench_parity_kernel: exit 0, both checks true, "
           f"{time.perf_counter() - t0} s | {card}")
     print(f"[phase 49] {time.perf_counter() - t_all} s")
+
+
+# ----------------------------------------------------------------------
+# Phase 50: determinism and checkpoints (A1, the orbax pair)
+# ----------------------------------------------------------------------
+
+def determinism_phase(torch, dev, card, entry_exploitability=None):
+    """Phase 50, with its wall seconds: A1 against its plain version
+    (``scatter_phase``), the four HBM-table learners on the card against
+    the CPU (``learners_equal_cpu``), the entry point's default mode run
+    twice and resumed from ``--ckpt`` (``entry_repeats``; its
+    exploitability also equal to phase 39's, ``entry_exploitability``,
+    where given) and the orbax pair on the card (``orbax_on_card``).
+    Returns A1's max abs err, its ms and its work (lanes, bytes)."""
+    t0 = time.perf_counter()
+    err, ms, work = scatter_phase(torch, dev, card)
+    learners_equal_cpu(torch, dev, card)
+    entry_repeats(torch, dev, card, entry_exploitability)
+    orbax_on_card(torch, dev, card)
+    print(f"[phase 50] {time.perf_counter() - t0} s")
+    return err, ms, work
+
+
+def scatter_bound(lanes: int, nbytes: int):
+    """(ms, 'bytes' or 'operations'): A1's least time, its ``lanes``
+    additions at the float32 rate or its ``nbytes`` at the HBM rate."""
+    ops_ms = lanes / FLOAT32_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                               "bytes")
+
+
+def _graph_ms(torch, fn, calls):
+    """Device ms a call of ``fn``: a CUDA graph of ``calls`` calls,
+    replayed (``time_cuda``)."""
+    fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_cuda(graph.replay)[0] / calls
+
+
+def scatter_phase(torch, dev, card):
+    """A1 (``scatter_add``, csrc/scatter_kernel.cu) on each of
+    ``SCATTER_CASES``: sums and counts bit-equal to its plain version
+    (``index_add_`` on the CPU, lane order), one launch a call; how many
+    of SCATTER_REPEATS calls of ``index_add_`` on the card (the PyTorch
+    call for the same function, atomics) differ in a bit (recorded, not
+    required); each case's longest run of one cell, its serial chain at 4
+    cycles an addition and 1.98 GHz, A1's device ms by graph replay and
+    its two launches' by ``torch.profiler``.  On ``SCATTER_TIMED``: A1's
+    call ms and device ms, ``index_add_``'s call and device ms (with its
+    zero fill, the values and ones as rows), the device ms of ordering the
+    lanes by ``torch.sort`` (a design A1 does without), the plain
+    version's call ms, and A1's bound.  Returns A1's max abs err, ms,
+    work."""
+    import numpy as np
+    from gym_soccer_tpu_torch.ops import scatter_kernel as sc
+    lib = sc._library()
+    shape = (ctypes.c_int32 * 2)()
+    lib.gst_scatter_shape(ctypes.addressof(shape))
+    err, ms = 0.0, {}
+    for case in SCATTER_CASES:
+        idx, v, n = scatter_inputs(np, case)
+        gi, gv = torch.from_numpy(idx).to(dev), torch.from_numpy(v).to(dev)
+        before = sc.launch_counts[SCATTER]
+        got = sc.scatter_add(gi, gv, n)
+        torch.cuda.synchronize()
+        launched = sc.launch_counts[SCATTER] - before
+        want = sc.scatter_add_plain(gi, gv, n)
+        same = all(bits_equal(a, b) for a, b in zip(got, want))
+        e = max(float((a.double() - b.double()).abs().max())
+                for a, b in zip(got, want))
+        err = max(err, e)
+        rows = torch.stack([gv, torch.ones_like(gv)], 1)
+
+        def library():
+            return torch.zeros((n, 2), device=dev).index_add_(0, gi, rows)
+
+        differ = 0
+        for _ in range(SCATTER_REPEATS):
+            out = library()
+            differ += not (bits_equal(out[:, 0].contiguous(), want[0])
+                           and bits_equal(out[:, 1].contiguous(), want[1]))
+        longest = int(np.bincount(idx).max())
+        device = _graph_ms(torch, lambda: sc.scatter_add(gi, gv, n),
+                           SCATTER_GRAPH_CALLS)
+        for kernel in ("count_kernel", "walk_kernel"):   # the split
+            profile_window(torch, lambda: sc.scatter_add(gi, gv, n),
+                           f"A1 {case}", kernel, card)
+        print(f"[A1] {case}: {len(idx)} lanes over {n} cells "
+              f"({int((np.bincount(idx) > 0).sum())} hit, the longest run "
+              f"{longest} lanes: a serial chain of "
+              f"{longest * 4 / 1.98e9 * 1e3} ms at 4 cycles an addition): "
+              f"sums and counts bit-equal to the plain version {same} (max "
+              f"abs err {e}), {launched} launch a call; index_add_ on the "
+              f"card differed in a bit in {differ} of {SCATTER_REPEATS} "
+              f"calls; A1 {device} ms of device time a call (CUDA-graph "
+              f"replay) | {card}")
+        check(same and launched == 1,
+              f"A1 != its plain version on {case} (max abs err {e}) or "
+              f"{launched} launches")
+        if case != SCATTER_TIMED:
+            continue
+        calls = {SCATTER: lambda: sc.scatter_add(gi, gv, n),
+                 SCATTER + "_plain": lambda: sc.scatter_add_plain(gi, gv, n),
+                 SCATTER + "_library": library}
+        for name, fn in calls.items():
+            ms[name] = time_cuda(fn)[0]
+        sort_ms = _graph_ms(torch, lambda: torch.sort(gi, stable=True),
+                            SCATTER_GRAPH_CALLS)
+        lib_device = _graph_ms(torch, library, SCATTER_GRAPH_CALLS)
+        nbytes = len(idx) * 12 + n * 8
+        bound_ms, bound_by = scatter_bound(len(idx), nbytes)
+        work = (len(idx), nbytes)
+        ms[SCATTER + "_device"] = device
+        print(f"[A1] {case}: {shape[0]} threads a block, {shape[1]} lanes "
+              f"a block of the walk; A1 {ms[SCATTER]} ms a call, {device} "
+              f"ms of device time (zero fill and its two launches); "
+              f"ordering the lanes by torch.sort alone {sort_ms} ms of "
+              f"device time; index_add_ (zero fill and "
+              f"one call on [values, 1] rows) {ms[SCATTER + '_library']} ms "
+              f"a call, {lib_device} ms of device time; the plain version "
+              f"(a CPU round trip) {ms[SCATTER + '_plain']} ms; bound "
+              f"{bound_ms} ms ({bound_by}: {nbytes} B, {len(idx)} "
+              f"additions), the longest run's chain "
+              f"{longest * 4 / 1.98e9 * 1e3} ms | {card}")
+    return err, ms, work
+
+
+def _learner_runs(torch, dev):
+    """{name: (state on the CPU, train(state, n) -> (state, |TD| per
+    step), A1 launches a step)} of the four HBM-table learners at
+    DET_LANES lanes: minimax-Q with the entry point's lr, eps, re-solve
+    and halflives (for its 2000 steps), IQL, turn-based Q and mixture
+    minimax-Q on 5x4+6x5."""
+    from gym_soccer_tpu_torch.agents import learners as L
+    from gym_soccer_tpu_torch.config import EnvConfig
+    from gym_soccer_tpu_torch.core import threefry
+    cfg, cpu, key = EnvConfig(5, 4, SLIP), torch.device("cpu"), threefry.key
+    mix = (cfg, EnvConfig(6, 5, SLIP))
+    mc = L.MinimaxQConfig(lr=0.3, eps=0.3, resolve_every=64,
+                          solver_iters=200, lr_halflife=2000 // 5,
+                          eps_halflife=2000 // 3)
+    ic, ac = L.IQLConfig(lr=0.5, eps=0.25), L.AltQConfig()
+    return {
+        "minimax-Q": (L.minimax_init(cfg, key(0), DET_LANES, cpu),
+                      lambda s, n: L.minimax_train(cfg, mc, s, n), 1),
+        "IQL": (L.iql_init(cfg, key(1), DET_LANES, cpu),
+                lambda s, n: L.iql_train(cfg, ic, s, n), 2),
+        "turn-based Q": (L.altq_init(cfg, key(2), DET_LANES, cpu),
+                         lambda s, n: L.altq_train(cfg, ac, s, n), 1),
+        "mixture minimax-Q 5x4+6x5": (
+            L.multigrid_minimax_init(mix, key(3), DET_LANES, cpu),
+            lambda s, n: L.multigrid_minimax_train(mix, mc, s, n), 1),
+    }
+
+
+def learners_equal_cpu(torch, dev, card):
+    """The four HBM-table learners (``_learner_runs``) for DET_STEPS steps
+    from step 0 (two re-solve periods, each a 64-step CUDA-graph replay)
+    on the card and on the CPU from one state: every state leaf bit-equal,
+    A1 launched its count a step; each step's mean |TD| apart only in its
+    reduction's last bits (printed)."""
+    from gym_soccer_tpu_torch.agents import learners as L
+    from gym_soccer_tpu_torch.ops import scatter_kernel as sc
+    for name, (st, train, per_step) in _learner_runs(torch, dev).items():
+        card_st = L._rebuild(st, [t.to(dev) for t in L._tensors(st)])
+        torch.cuda.synchronize()
+        sc.reset_launch_counts()
+        t0 = time.perf_counter()
+        got, gtd = train(card_st, DET_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        a1 = sc.launch_counts[SCATTER]
+        t0 = time.perf_counter()
+        want, wtd = train(st, DET_STEPS)
+        cpu_wall = time.perf_counter() - t0
+        leaves = list(zip(L._tensors(got), L._tensors(want)))
+        bad = [i for i, (x, y) in enumerate(leaves)
+               if not bits_equal(x.cpu(), y)]
+        td = float(((gtd.cpu() - wtd).abs() / (1 + wtd.abs())).max())
+        td_bits = int((gtd.cpu().view(torch.int32)
+                       != wtd.view(torch.int32)).sum())
+        print(f"[determinism] {name} {DET_LANES} lanes x {DET_STEPS} steps: "
+              f"all {len(leaves)} state leaves bit-equal to the CPU's "
+              f"{not bad} (differing: {bad}); the per-step mean |TD| "
+              f"differs in {td_bits} of {DET_STEPS} steps, by at most "
+              f"{td} relative to 1 + |TD|; A1 {a1} launches; {wall} s on "
+              f"the card, {cpu_wall} s on the CPU | {card}")
+        check(not bad and a1 == per_step * DET_STEPS and td <= GRAPH_TOL,
+              f"{name}: the card's state differs from the CPU's in leaves "
+              f"{bad}, or A1 launched {a1} times, or |TD| by {td}")
+
+
+def entry_repeats(torch, dev, card, entry_exploitability=None):
+    """The entry point's default mode (``ENTRY``) with ``--ckpt``, twice in
+    this process: every leaf of the final state bit-equal and the same
+    exploitability printed (and phase 39's, where given); then a third
+    run stopped right after its checkpoint at step ENTRY_STOP, as a
+    killed run would stop, and the same command resumed from that
+    checkpoint to the end: its final state bit-equal to the uninterrupted
+    run's, its exploitability the same."""
+    import contextlib
+    import io
+    from gym_soccer_tpu_torch.agents import learners as L
+    from gym_soccer_tpu_torch.config import EnvConfig
+    from gym_soccer_tpu_torch.core import threefry
+    from gym_soccer_tpu_torch.examples import train_minimax
+    from gym_soccer_tpu_torch.utils import checkpoint
+
+    class Stopped(Exception):
+        pass
+
+    def run(ckpt, stop=None):
+        out = io.StringIO()
+        save = checkpoint.save_pytree
+
+        def save_then_stop(path, tree):
+            save(path, tree)
+            if int(tree.step) >= stop:
+                raise Stopped
+
+        if stop is not None:
+            checkpoint.save_pytree = save_then_stop
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                train_minimax.main(ENTRY + ["--ckpt", ckpt])
+        except Stopped:
+            pass
+        finally:
+            checkpoint.save_pytree = save
+        torch.cuda.synchronize()
+        lines = json_lines(out.getvalue())
+        fin = [ln for ln in lines if ln.get("event") == "finished"]
+        return lines, fin, time.perf_counter() - t0
+
+    cfg = EnvConfig(5, 4, SLIP)
+    envs, steps = (int(ENTRY[ENTRY.index(f) + 1]) for f in ("--envs",
+                                                            "--steps"))
+    tmpl = L.minimax_init(cfg, threefry.key(0), envs, dev)
+    with build_tmpdir() as tmp:
+        paths = [os.path.join(tmp, f"run{i}.npz") for i in range(3)]
+        runs = [run(paths[0]), run(paths[1])]
+        stopped = run(paths[2], stop=ENTRY_STOP)
+        runs.append(run(paths[2]))
+        states = [checkpoint.load_pytree(p, tmpl) for p in paths]
+    for lines, fin, _ in runs:
+        check(len(fin) == 1 and fin[0]["steps"] == steps,
+              f"entry point: {lines}")
+    ex = [fin[0]["exploitability"] for _, fin, _ in runs]
+    check(stopped[2] > 0 and not stopped[1]
+          and runs[2][0][0] == {"event": "resumed", "step": ENTRY_STOP},
+          f"the stopped run: {stopped[0]}; the resumed: {runs[2][0][:1]}")
+
+    def same(a, b):
+        leaves = list(zip(L._tensors(a), L._tensors(b)))
+        return [i for i, (x, y) in enumerate(leaves) if not bits_equal(x, y)]
+
+    twice, resumed = same(states[0], states[1]), same(states[0], states[2])
+    print(f"[determinism] the entry point {' '.join(ENTRY)} twice: final "
+          f"state bit-equal {not twice} (differing leaves {twice}), "
+          f"exploitability {ex[0]} and {ex[1]} (phase 39: "
+          f"{entry_exploitability}); stopped after its step-{ENTRY_STOP} "
+          f"checkpoint ({stopped[2]} s) and resumed from --ckpt: bit-equal "
+          f"to the uninterrupted run {not resumed} (differing {resumed}), "
+          f"exploitability {ex[2]}; walls {[r[2] for r in runs]} s | {card}")
+    check(not twice and not resumed and ex[0] == ex[1] == ex[2]
+          and entry_exploitability in (None, ex[0]),
+          f"the entry point is not repeatable: leaves {twice} / {resumed}, "
+          f"exploitability {ex} (phase 39 {entry_exploitability})")
+
+
+def build_tmpdir():
+    """A temporary directory under the checkout's build/ (which .gitignore
+    lists), removed when its ``with`` block ends."""
+    import tempfile
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "gym_soccer_tpu_torch")
+    os.makedirs(build, exist_ok=True)
+    return tempfile.TemporaryDirectory(dir=build)
+
+
+def _tree_leaves(tree) -> list:
+    """The leaves of a checkpoint tree, in the checkpoint's order."""
+    from gym_soccer_tpu_torch.utils import checkpoint
+    return [x for x, _ in checkpoint._flatten(tree)]
+
+
+def _trees_equal(a, b) -> bool:
+    """Two trees' leaves equal: tensors bit for bit, the rest by ==."""
+    import torch
+    la, lb = _tree_leaves(a), _tree_leaves(b)
+    return len(la) == len(lb) and all(
+        bits_equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(la, lb))
+
+
+def _zeros_tree(tree):
+    """``tree`` with every tensor zeroed, the other leaves kept."""
+    import torch
+    from gym_soccer_tpu_torch.utils import checkpoint
+    return checkpoint._unflatten(tree, iter(
+        torch.zeros_like(x) if isinstance(x, torch.Tensor) else x
+        for x in _tree_leaves(tree)))
+
+
+def orbax_on_card(torch, dev, card):
+    """``save_orbax`` / ``load_orbax`` on the card: ``fused_minimax_train``
+    (K5) at 8192 lanes, 1 chunk of 64 steps saved and loaded into a zeroed
+    CUDA template and resumed for 1, bit-equal to 2 chunks at once; the
+    loaded dict bit-equal to the saved one, on the card, the template
+    untouched; an HBM-table learner state (key words) round-trips."""
+    from gym_soccer_tpu_torch.agents import learners as L
+    from gym_soccer_tpu_torch.config import EnvConfig
+    from gym_soccer_tpu_torch.core import threefry
+    from gym_soccer_tpu_torch.ops import learner_kernel as lk
+    from gym_soccer_tpu_torch.utils import checkpoint
+    cfg = EnvConfig(5, 4, SLIP)
+    kw = dict(batch=B, chunk_len=64, lr=1.0, eps=0.2, eps_halflife=8,
+              return_state=True, device=dev)
+
+    *_, whole = lk.fused_minimax_train(cfg, n_chunks=2, **kw)
+    *_, r = lk.fused_minimax_train(cfg, n_chunks=1, **kw)
+    st = L.minimax_init(cfg, threefry.key(5), B, dev)
+    with build_tmpdir() as tmp:
+        t0 = time.perf_counter()
+        checkpoint.save_orbax(os.path.join(tmp, "fused"), r)
+        save_s = time.perf_counter() - t0
+        tmpl = _zeros_tree(r)
+        t0 = time.perf_counter()
+        got = checkpoint.load_orbax(os.path.join(tmp, "fused"), tmpl)
+        load_s = time.perf_counter() - t0
+        checkpoint.save_orbax(os.path.join(tmp, "learner"), st)
+        back = checkpoint.load_orbax(os.path.join(tmp, "learner"),
+                                     _zeros_tree(st))
+    on_card = all(x.device == dev for x in _tree_leaves(got)
+                  if isinstance(x, torch.Tensor))
+    untouched = all(not bool(x.any()) for x in _tree_leaves(tmpl)
+                    if isinstance(x, torch.Tensor))
+    *_, part = lk.fused_minimax_train(
+        cfg, n_chunks=1, init=(got["q"], got["v"], got["pi_a"], got["pi_b"],
+                               got["n"]), fields_init=got["fields"],
+        start_chunk=got["next_chunk"], **kw)
+    ok = (_trees_equal(got, r), on_card, untouched, _trees_equal(part, whole),
+          _trees_equal(back, st) and back.env.key.device == dev)
+    print(f"[orbax] fused_minimax_train {B} x 64, resume dict on the card: "
+          f"save_orbax {save_s} s, load_orbax {load_s} s; loaded bit-equal, "
+          f"on the card, template untouched, resumed chunk equal to 2 "
+          f"chunks at once, learner state with its key words round-trips: "
+          f"{ok} | {card}")
+    check(all(ok), f"the orbax pair on the card: {ok}")
 
 
 if __name__ == "__main__":

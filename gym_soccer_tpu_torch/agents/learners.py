@@ -13,14 +13,17 @@ The port of gym_soccer_tpu/agents/learners.py:
   each over the single-geometry engine (core/batch) and the first two over
   the mixed-geometry engine (core/multigrid, ``multigrid_*``): tables in
   device memory, one act/step/update a call over the whole lockstep batch,
-  the updates as count-normalized scatter-adds.  Their draws come from the
-  engines' per-instance threefry streams (kernel T1 on the card; the
-  single-geometry engine's step, its draws included, is kernel S1).  Given
-  the JAX package's state (interop.learner_state_from_numpy) they step the
-  same observations and actions on the CPU with the same tables, but for
-  the last bit where minimax-Q's schedules take a float32 power (XLA's
-  ``pow`` and the host's ``powf`` round differently); on CUDA
-  ``index_add_`` sums by atomics in no fixed order.
+  the updates as count-normalized scatter-adds in lane order (kernel A1
+  on the card, ``index_add_`` on the CPU: ops/scatter_kernel).  Their
+  draws come from the engines' per-instance threefry streams (kernel T1
+  on the card; the single-geometry engine's step, its draws included, is
+  kernel S1).  Given the JAX package's state
+  (interop.learner_state_from_numpy) they step the same observations and
+  actions on the CPU with the same tables, but for the last bit where
+  minimax-Q's schedules take a float32 power (XLA's ``pow`` and the
+  host's ``powf`` round differently); the card's states equal the CPU's
+  bit for bit, and each step's mean |TD| but for its reduction's last
+  bits.
 * ``altq_greedy_policy``: the alternating game's greedy policy.
 
 ``psum_axis`` takes a data-parallel ``Mesh`` (parallel/mesh) where the
@@ -36,19 +39,18 @@ trainers keep the step count on the host beside
 minimax-Q's re-solve cadence need no device read a step.
 
 A step is tens to hundreds of small launches: on the card a minimax-Q
-step on the single-geometry engine is 61 device operations (S1, one T1
-draw, the observation, the action sampling and the updates; 396 with
-``batch.step_plain``; chip_smoke.py phase 46 on an NVIDIA H100 80GB HBM3
-at 700 W), and the mixed-geometry and alternating engines still step as
-chains of PyTorch ops around T1's draws.  So a loop of single steps is bound by the host.
+step on the single-geometry engine is some 60 device operations (S1, one
+T1 draw, the observation, the action sampling, and the updates with A1's
+zero fill and two launches; chip_smoke.py phase 46 counts them), and the
+mixed-geometry and alternating engines still step as chains of PyTorch
+ops around T1's draws.  So a loop of single steps is bound by the host.
 The ``*_train`` functions therefore run ``GROUP_STEPS`` steps (rounded up
 to whole re-solve periods) a replay of one CUDA graph (ops/dispatch, as
 the fused trainers' grouped modes do; on the CPU the same bodies one after
 another).  Minimax-Q's steps before the first re-solve boundary and after
 the last whole period run one at a time, and its per-step lr and eps come
-from a table the host computes as a single step does.  On the CPU the
-result equals a loop of ``*_step`` calls bit for bit; on CUDA the
-scatter-adds' atomics leave the last bits of the tables free.
+from a table the host computes as a single step does.  The result equals
+a loop of ``*_step`` calls bit for bit, on the CPU and on the card.
 """
 from __future__ import annotations
 
@@ -61,7 +63,7 @@ import torch
 
 from ..config import EnvConfig
 from ..core import batch, multigrid, tables
-from ..ops import dispatch, engine_kernel, threefry_kernel
+from ..ops import dispatch, engine_kernel, scatter_kernel, threefry_kernel
 
 N_ACTIONS = 5
 
@@ -284,17 +286,6 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
-def _scatter_add(n_cells: int, idx: torch.Tensor, values) -> torch.Tensor:
-    """float32 [n_cells] of ``values`` added at flat indices ``idx`` (in
-    index order on the CPU, as XLA's scatter on the CPU adds them; by
-    atomics on CUDA)."""
-    out = torch.zeros(n_cells, dtype=torch.float32, device=idx.device)
-    if not isinstance(values, torch.Tensor):
-        values = torch.full(idx.shape, float(values), dtype=torch.float32,
-                            device=idx.device)
-    return out.index_add_(0, idx, values)
-
-
 def _policy(frozen, device):
     return None if frozen is None else torch.as_tensor(
         np.asarray(frozen), device=device).to(torch.int64)
@@ -362,14 +353,15 @@ def _iql_step_engine(eng: _Engine, lcfg: IQLConfig, state: IQLState,
     td_b = tgt_b - q_b[obs, ab]
 
     # Count-normalized scatter updates: the mean TD of the lanes that hit
-    # a cell, at learning rate lr; under a mesh the sums and counts are
-    # all-reduced before the divide.
+    # a cell, at learning rate lr, the TDs summed in lane order as XLA's
+    # CPU scatter sums them (A1 on the card); under a mesh the sums and
+    # counts are all-reduced before the divide.
     n = q_a.numel()
     ia, ib = obs * N_ACTIONS + aa, obs * N_ACTIONS + ab
     lr = _f32(lcfg.lr)
     sum_a, cnt_a, sum_b, cnt_b = _psum(
-        mesh, _scatter_add(n, ia, td_a), _scatter_add(n, ia, 1.0),
-        _scatter_add(n, ib, td_b), _scatter_add(n, ib, 1.0))
+        mesh, *scatter_kernel.scatter_add(ia, td_a, n),
+        *scatter_kernel.scatter_add(ib, td_b, n))
     delta_a = (lr * sum_a / cnt_a.clamp_min(1.0)).view_as(q_a)
     delta_b = (lr * sum_b / cnt_b.clamp_min(1.0)).view_as(q_b)
     if frozen_a is not None:
@@ -454,8 +446,8 @@ def _grouped(step, state, first: int, n_periods: int, period: int, g: int,
     """``n_periods`` x ``period`` steps from host step ``first`` (a multiple
     of ``period``) through ``dispatch.run``: the carry is a copy of the
     state's tensors, each body runs ``period`` steps and writes them back;
-    S1's, T1's and R1's launch counts are kept as the fused trainers'
-    are."""
+    S1's, T1's, A1's and R1's launch counts are kept as the fused
+    trainers' are."""
     carry = [t.clone() for t in _tensors(state)]
     dev = carry[0].device
     tds = torch.zeros(n_periods * period, dtype=torch.float32, device=dev)
@@ -477,7 +469,8 @@ def _grouped(step, state, first: int, n_periods: int, period: int, g: int,
 
     dispatch.run(body, carry + [tds, k], n_periods, g,
                  counters=(engine_kernel.launch_counts,
-                           threefry_kernel.launch_counts, launch_counts),
+                           threefry_kernel.launch_counts,
+                           scatter_kernel.launch_counts, launch_counts),
                  mesh=mesh)
     return _rebuild(state, carry), tds
 
@@ -607,8 +600,7 @@ def _minimax_step_engine(eng: _Engine, lcfg: MinimaxQConfig,
     cells = (obs * N_ACTIONS + aa) * N_ACTIONS + ab
     shape = state.q.shape
     sum_td, cnt = (x.view(shape) for x in _psum(
-        mesh, _scatter_add(state.q.numel(), cells, td),
-        _scatter_add(state.q.numel(), cells, 1.0)))
+        mesh, *scatter_kernel.scatter_add(cells, td, state.q.numel())))
     n = state.n + cnt
     if lcfg.count_lr_tau > 0:
         lr = lr * (1.0 + n / _f32(lcfg.count_lr_tau)) ** _f32(
@@ -739,8 +731,7 @@ def _altq_step(cfg: EnvConfig, lcfg: AltQConfig, state: AltQState, fa, fb,
 
     cells = obs * N_ACTIONS + a
     n = state.q.numel()
-    sum_td, cnt = _psum(mesh, _scatter_add(n, cells, td),
-                        _scatter_add(n, cells, 1.0))
+    sum_td, cnt = _psum(mesh, *scatter_kernel.scatter_add(cells, td, n))
     q = state.q + (_f32(lcfg.lr) * sum_td / cnt.clamp_min(1.0)
                    ).view_as(state.q)
     env2 = alt.alt_reset_where(cfg, mid, term)

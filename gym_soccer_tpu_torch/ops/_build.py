@@ -33,7 +33,8 @@ LIBRARIES = {"step_kernel": ("step_kernel.cu", "game.cuh", "pipeline.cuh"),
              "rmplus_kernel": ("rmplus_kernel.cu",),
              "threefry_kernel": ("threefry_kernel.cu", "threefry.cuh"),
              "engine_kernel": ("engine_kernel.cu", "game.cuh",
-                               "threefry.cuh")}
+                               "threefry.cuh"),
+             "scatter_kernel": ("scatter_kernel.cu",)}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K13, R1, T1 and S1 against their plain PyTorch
+"""The CUDA kernels K1-K13, R1, T1, S1 and A1 against their plain PyTorch
 versions on the card, bit for bit, and the trainers' grouped dispatch
 modes (CUDA-graph replays) against their per-chunk runs.  Skips without a CUDA device.  This
 file imports neither JAX nor the JAX package, so it runs where only
@@ -890,3 +890,29 @@ def test_keyed_entry_equals_its_plain_version(cuda):
                                                          100_000))
             assert torch.equal(r.cpu(), tk.keyed_randint(
                 key.cpu(), i, shape, -3, 100_000))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one cell", "minimax table", "3 cells",
+                                  "one lane"])
+def test_a1_equals_its_plain_version(cuda, case):
+    """A1 (the learners' scatter-add in lane order) bit-equal to its plain
+    version (index_add_ on the CPU) in sums and counts on chip_smoke.py
+    phase 50's crafted inputs, one launch a call, and again from the
+    replay of a CUDA graph that captured it."""
+    import numpy as np
+    from chip_smoke import bits_equal, scatter_inputs
+    from gym_soccer_tpu_torch.ops import scatter_kernel as sc
+    idx, v, n = scatter_inputs(np, case)
+    gi, gv = torch.from_numpy(idx).to(cuda), torch.from_numpy(v).to(cuda)
+    want = sc.scatter_add(torch.from_numpy(idx), torch.from_numpy(v), n)
+    sc.reset_launch_counts()
+    got = sc.scatter_add(gi, gv, n)
+    assert sc.launch_counts["scatter_add"] == 1
+    assert all(bits_equal(a.cpu(), b) for a, b in zip(got, want))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = sc.scatter_add(gi, gv, n)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(bits_equal(a.cpu(), b) for a, b in zip(out, want))

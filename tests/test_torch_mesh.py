@@ -28,7 +28,11 @@ side and hand their results back through files; the references run here.
     ``chunks_per_dispatch=3`` across a remainder, 1 + 1 chunks across a
     save and load equal to 2, and the twins of the JAX package's
     ``test_fused_train_on_mesh_learns`` and
-    ``test_fused_altq_train_on_mesh_learns``.
+    ``test_fused_altq_train_on_mesh_learns``;
+(e) the orbax pair on torch.distributed.checkpoint: both ranks save
+    their minimax resume dict (``blocks=("fields",)``) and load it back
+    bit-equal, the run resumed from it equals the uninterrupted one, and
+    one process loads the global batch, the ranks' blocks in rank order.
 """
 import os
 
@@ -47,6 +51,7 @@ from gym_soccer_tpu_torch.ops import iql_kernel as ik
 from gym_soccer_tpu_torch.ops import learner_kernel as lk
 from gym_soccer_tpu_torch.parallel import mesh as pmesh
 from gym_soccer_tpu_torch.tools.demo_multihost import initial_q
+from gym_soccer_tpu_torch.utils import checkpoint
 from gym_soccer_tpu_torch.utils.policies import get_random_policy_array
 
 # One torch intra-op thread in each xdist worker: the workers share the
@@ -223,9 +228,27 @@ def _learns(mesh):
     return v, pa, qa
 
 
-def _ranks(mesh, tables):
+def _orbax(mesh, path):
+    """A minimax resume dict after 1 chunk, saved by ``save_orbax`` under
+    the mesh, what ``load_orbax`` gives back into a zeroed template, and
+    the chunk resumed from that."""
+    blocks = ("fields",)
+    r = _trainer("minimax", mesh, n_chunks=1, return_state=True)[-1]
+    checkpoint.save_orbax(path, r, mesh=mesh, blocks=blocks)
+    zeros = {k: (torch.zeros_like(v) if isinstance(v, torch.Tensor) else v)
+             for k, v in r.items()}
+    zeros["fields"] = tuple(torch.zeros_like(f) for f in r["fields"])
+    got = checkpoint.load_orbax(path, zeros, mesh=mesh, blocks=blocks)
+    part = _trainer("minimax", mesh, n_chunks=1, return_state=True,
+                    fields_init=got["fields"], start_chunk=got["next_chunk"],
+                    **_resume_args("minimax", got))[-1]
+    return r, got, part
+
+
+def _ranks(mesh, tables, ckpt):
     """One rank's side of every 2-rank check (runs in a spawned rank)."""
     return {
+        "orbax": _orbax(mesh, ckpt),
         "chunks": {k: _run_chunk(k, mesh, tables[k]) for k in KERNELS},
         "solve": pmesh.sharded_solve_fn(mesh, SOLVE_ITERS)(_solve_q()),
         "learners": {g: _train_fn(g, mesh)(_learner_state(g, mesh))
@@ -302,10 +325,17 @@ def jax_chunks():
 
 
 @pytest.fixture(scope="module")
-def ranks(jax_chunks):
+def orbax_path(tmp_path_factory):
+    """The directory the ranks' orbax checkpoint is saved in."""
+    return str(tmp_path_factory.mktemp("orbax") / "ckpt")
+
+
+@pytest.fixture(scope="module")
+def ranks(jax_chunks, orbax_path):
     """The two ranks' results, spawned once for the module."""
     tables = {k: v[0] for k, v in jax_chunks.items()}
-    return pmesh.spawn(_ranks, W, (tables,), device="cpu", timeout=600)
+    return pmesh.spawn(_ranks, W, (tables, orbax_path), device="cpu",
+                       timeout=600)
 
 
 # ----------------------------------------------------------------------
@@ -726,3 +756,38 @@ def test_global_batch_sets_the_exact_range():
     with pytest.raises(ValueError, match="2\\*\\*29"):
         lk.packed_learner_chunk(CFG, 0, table, fields, 256, 2 ** 20,
                                 global_batch=1024)
+
+
+# ----------------------------------------------------------------------
+# (e) the orbax pair under the mesh
+# ----------------------------------------------------------------------
+
+def test_orbax_two_ranks_round_trip_and_resume(ranks):
+    """Each rank's resume dict comes back bit for bit (its block of the
+    fields, the replicated tables and scalars), and the chunk resumed from
+    it equals the uninterrupted 2-chunk run on that rank."""
+    for r in range(W):
+        saved, got, part = ranks[r]["orbax"]
+        assert _equal(got, saved)
+        assert type(got["next_chunk"]) is int and got["next_chunk"] == 1
+        whole = ranks[r]["trainers"]["minimax"][2][-1]
+        assert _equal(part, whole)
+
+
+def test_orbax_two_rank_checkpoint_loads_the_global_batch(ranks,
+                                                          orbax_path):
+    """One process, no mesh, loads the 2-rank checkpoint into a template
+    of the global batch: the fields are the ranks' blocks in rank order,
+    the tables rank 0's (equal on both)."""
+    import torch.distributed.checkpoint as dcp
+    r0, r1 = (ranks[r]["orbax"][0] for r in range(W))
+    tmpl = dict(r0, fields=tuple(torch.zeros(2 * f.shape[0], dtype=f.dtype)
+                                 for f in r0["fields"]))
+    got = checkpoint.load_orbax(orbax_path, tmpl)
+    want = dict(r0, fields=tuple(torch.cat(pair) for pair in
+                                 zip(r0["fields"], r1["fields"])))
+    assert _equal(got, want) and _equal(r0["q"], r1["q"])
+    assert sorted(os.listdir(orbax_path)) == [".metadata", "__0_0.distcp",
+                                              "__1_0.distcp"]
+    saved = dcp.FileSystemReader(orbax_path).read_metadata()
+    assert tuple(saved.state_dict_metadata["leaf_0"].size) == (TB,)

@@ -320,9 +320,9 @@ def test_generators_refuse_without_the_reference(monkeypatch, capsys,
 
 
 # The functions whose calls on the card are the launch counters phase 49
-# reads (chip_smoke.BENCH_LAUNCHES): each wrapper, T1's entries, and
-# batch.step, which launches S1 on the card (its draws inside it) and runs
-# step_plain here, whose draws call T1's wrapper: only the outermost
+# reads (chip_smoke.BENCH_LAUNCHES): each wrapper, T1's entries, A1's,
+# and batch.step, which launches S1 on the card (its draws inside it) and
+# runs step_plain here, whose draws call T1's wrapper: only the outermost
 # counted call counts.
 COUNTED = {
     "ops.step_kernel": ["fused_rollout", "fused_journal_rollout",
@@ -337,6 +337,7 @@ COUNTED = {
                             "keyed_randint"],
     "core.batch": ["step"],
     "agents.learners": ["solve_matrix_games"],
+    "ops.scatter_kernel": ["scatter_add"],
 }
 COUNTER = {"keyed_uniform": "threefry_keyed", "keyed_randint": "threefry_keyed",
            "step": "engine_step"}

@@ -4,7 +4,11 @@ test_checkpoint.py on the port (same cases and thresholds; the port's
 ``checked_step`` raises where JAX's checkify error is thrown, and a
 template mismatch raises ValueError where JAX's asserts), plus a
 checkpoint the JAX package saved, loaded into the port and resumed to
-the JAX resume's state.  All exact."""
+the JAX resume's state; and the port of the orbax pair on
+torch.distributed.checkpoint (``save_orbax`` / ``load_orbax``) in one
+process: round trips, a resumed trainer, the template untouched, the
+errors, an overwrite.  All exact.  Its two-rank cases are in
+tests/test_torch_mesh.py."""
 import json
 import os
 from types import SimpleNamespace
@@ -263,3 +267,116 @@ def test_a_jax_checkpoint_resumes_in_the_port(tmp_path):
     assert np.array_equal(np.asarray(jax.random.key_data(back.env.key)),
                           np.asarray(jax.random.key_data(jst.env.key)))
     assert np.array_equal(np.asarray(back.q), np.asarray(jst.q))
+
+
+# ---- the orbax pair (torch.distributed.checkpoint) ---------------------
+
+def _resume_dict(n_chunks, **kw):
+    from gym_soccer_tpu_torch.ops import learner_kernel as lk
+    return lk.fused_minimax_train(CFG, batch=256, n_chunks=n_chunks,
+                                  chunk_len=8, eps_halflife=8, seed=3,
+                                  return_state=True, device="cpu", **kw)
+
+
+def _orbax_trees():
+    st = learners.minimax_init(CFG, threefry.key(5), 64, "cpu")
+    st, _ = learners.minimax_train(
+        CFG, learners.MinimaxQConfig(resolve_every=4), st, 6)
+    return {"env state": _init(32, 3), "HBM-table learner": st,
+            "fused resume dict": _resume_dict(1)[-1]}
+
+
+def _zeros(tree):
+    """``tree`` with every tensor zeroed, the other leaves kept."""
+    leaves = [torch.zeros_like(x) if isinstance(x, torch.Tensor) else x
+              for x, _ in checkpoint._flatten(tree)]
+    return checkpoint._unflatten(tree, iter(leaves))
+
+
+def _clone(tree):
+    leaves = [x.clone() if isinstance(x, torch.Tensor) else x
+              for x, _ in checkpoint._flatten(tree)]
+    return checkpoint._unflatten(tree, iter(leaves))
+
+
+def _same(a, b):
+    la = [x for x, _ in checkpoint._flatten(a)]
+    lb = [x for x, _ in checkpoint._flatten(b)]
+    return len(la) == len(lb) and all(
+        type(x) is type(y) and (x.dtype == y.dtype and torch.equal(x, y)
+                                if isinstance(x, torch.Tensor) else x == y)
+        for x, y in zip(la, lb))
+
+
+@pytest.mark.parametrize("name", ["env state", "HBM-table learner",
+                                  "fused resume dict"])
+def test_orbax_round_trip(tmp_path, name):
+    """Every leaf back bit for bit with its type and dtype (the key words
+    int64, stored as uint32 key words of kind prng_key), the template's
+    structure, and the template left as it was."""
+    import torch.distributed.checkpoint as dcp
+    tree = _orbax_trees()[name]
+    path = str(tmp_path / "ckpt")
+    checkpoint.save_orbax(path, tree)
+    tmpl = _zeros(tree)
+    before = _clone(tmpl)
+    got = checkpoint.load_orbax(path, tmpl)
+    assert type(got) is type(tree) and _same(got, tree)
+    assert _same(tmpl, before)
+    saved = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    leaves = checkpoint._flatten(tree)
+    keys = [i for i, (_, k) in enumerate(leaves) if k]
+    assert set(saved) == {f"leaf_{i}" for i in range(len(leaves))} | {
+        checkpoint.META_KEY}
+    assert [saved[f"leaf_{i}"].properties.dtype for i in keys] == [
+        torch.uint32] * len(keys)
+    assert bool(keys) == (name != "fused resume dict")
+
+
+def test_orbax_resumed_trainer_equals_one_run(tmp_path):
+    """fused_minimax_train, 1 chunk saved and loaded by the orbax pair and
+    resumed for 1, equals 2 chunks run at once, bit for bit."""
+    *_, whole = _resume_dict(2)
+    r = _resume_dict(1)[-1]
+    path = str(tmp_path / "ckpt")
+    checkpoint.save_orbax(path, r)
+    r = checkpoint.load_orbax(path, _zeros(r))
+    *_, part = _resume_dict(1, init=(r["q"], r["v"], r["pi_a"], r["pi_b"],
+                                     r["n"]), fields_init=r["fields"],
+                            start_chunk=r["next_chunk"])
+    assert _same(part, whole)
+
+
+def test_orbax_mismatched_template_raises(tmp_path):
+    r = _resume_dict(1)[-1]
+    path = str(tmp_path / "ckpt")
+    checkpoint.save_orbax(path, r)
+    with pytest.raises(ValueError, match="has 13 leaves, the template has "
+                                         "14"):
+        checkpoint.load_orbax(path, dict(r, extra=0))
+    with pytest.raises(ValueError, match=r"leaf_11 is torch.float32 \[761, "
+                       r"5, 5\], the template's leaf 11 wants torch.float32 "
+                       r"\[9, 5, 5\]"):
+        checkpoint.load_orbax(path, dict(r, q=torch.zeros(9, 5, 5)))
+    with pytest.raises(ValueError, match="wants torch.float64"):
+        checkpoint.load_orbax(path, dict(r, q=r["q"].double()))
+    with pytest.raises(ValueError, match="name no top-level key"):
+        checkpoint.save_orbax(path, r, blocks=("planes",))
+    checkpoint.save_pytree(str(tmp_path / "x.npz"), r)
+    with pytest.raises(FileNotFoundError, match="no checkpoint directory"):
+        checkpoint.load_orbax(str(tmp_path / "x.npz"), r)
+
+
+def test_orbax_overwrite_leaves_no_stale_files(tmp_path):
+    """A save replaces the checkpoint whole: a shard file of an earlier
+    checkpoint (here one of another world size) and the temporary
+    directory are gone, and what loads is the new tree."""
+    path = tmp_path / "ckpt"
+    checkpoint.save_orbax(str(path), {"x": torch.arange(6)})
+    (path / "__1_0.distcp").write_bytes(b"stale")
+    checkpoint.save_orbax(str(path), {"x": torch.arange(6) * 2})
+    assert sorted(os.listdir(path)) == [".metadata", "__0_0.distcp"]
+    assert sorted(os.listdir(tmp_path)) == ["ckpt"]
+    got = checkpoint.load_orbax(str(path),
+                                {"x": torch.zeros(6, dtype=torch.int64)})
+    assert torch.equal(got["x"], torch.arange(6) * 2)
