@@ -321,7 +321,8 @@ Phases, each of which raises on failure:
     ``torch.profiler`` right after the build, the device operations of
     one engine step, one eager minimax learner step and one evaluation
     policy draw, before (``step_plain``, the plain draw) and after (S1,
-    the keyed entry); ``eval_episode_stats``' loop on both designs, in
+    the keyed entry), and of one A1 call (SCATTER_DEVICE_OPS);
+    ``eval_episode_stats``' loop on both designs, in
     turns; T1's keyed entry (``keyed_kernel``) bit-equal to its plain
     versions, timed at the evaluation's 2 x 1024 (call ms, device ms by
     CUDA-graph replay) beside its plain version, with its bound;
@@ -352,14 +353,21 @@ Phases, each of which raises on failure:
     counter 0); then ``tools.bench_parity_kernel`` in a subprocess: exit
     0 with both on-card checks true;
 50. determinism and checkpoints: A1 (``scatter_add``,
-    ``csrc/scatter_kernel.cu``) bit-equal to its plain version
-    (``index_add_`` on the CPU, lane order) in sums and counts on
-    ``SCATTER_CASES`` (65536 lanes on one cell, 8192 over the 5x4 minimax
-    table's 19025 cells, 8192 over 3, values of magnitudes 1e-6 to 1e2),
-    each run's longest run and A1's device time; A1, its kernel alone,
-    ``index_add_`` with its zero fill and the plain version timed at 8192
-    lanes (call ms, device ms by CUDA-graph replay), how many of 20
-    ``index_add_`` calls differ in a bit (recorded); minimax-Q with the
+    ``csrc/scatter_kernel.cu``, a stable radix sort by cell in one block's
+    shared memory) bit-equal to its plain version (``index_add_`` on the
+    CPU, lane order) in sums and counts, directly, from a CUDA-graph
+    replay and on its previous design (``csrc/scatter_walk_kernel.cu``),
+    on ``SCATTER_CASES`` (65536 lanes on one cell, 8192 over the 5x4
+    minimax table's 19025 cells, 8192 over 3, values of magnitudes 1e-6 to
+    1e2; the minimax learner's own cells and TDs at steps 1 and 64) and
+    ``SCATTER_CHECKED`` (a cell on every tile's edge and a run longer than
+    a tile; one lane); per timed case its design line (threads, lanes a
+    tile, shared memory, radix passes, at most two device operations a
+    call), the longest run, A1's and the previous design's device ms by
+    CUDA-graph replay in turns; ``index_add_`` with its zero fill and the
+    plain version timed at 8192 lanes (call ms, device ms by CUDA-graph
+    replay), how many of 20 ``index_add_`` calls differ in a bit
+    (recorded); minimax-Q with the
     entry point's halflives, IQL, turn-based Q and mixture minimax-Q on
     5x4+6x5 at 8192 lanes x 128 steps (two re-solve periods, replayed)
     bit-equal to the CPU in every state leaf, the per-step |TD| apart by
@@ -718,19 +726,28 @@ GRAPH_LANES, GRAPH_START, GRAPH_STEPS, GRAPH_WIDE = 2, 5, 162, 512
 # to 1 + |TD|: the card's mean reduces in another order than the CPU's.
 # Every state leaf is bit-equal (A1 adds the scatter-adds in lane order).
 GRAPH_TOL = 1e-6
-# Phase 50, A1 (scatter_add, csrc/scatter_kernel.cu): its crafted inputs,
-# name -> (lanes, cells, cells hit or None for uniform over the cells):
-# every lane on one cell, the entry point's width over the 5x4 minimax
-# table's 761 x 25 cells, and over 3 cells; the values' magnitudes span
-# 10**SCATTER_MAGNITUDES with random signs.  A1 is timed on the minimax
-# table's input, index_add_'s bits compared over SCATTER_REPEATS calls,
-# and both timed by the replay of a CUDA graph of SCATTER_GRAPH_CALLS.
+# Phase 50, A1 (scatter_add, csrc/scatter_kernel.cu): its inputs, name ->
+# (lanes, cells, cells hit: a number, None for uniform over the cells, or
+# "learner"): every lane on one cell, the entry point's width over the 5x4
+# minimax table's 761 x 25 cells, and over 3 cells, values of magnitudes
+# 10**-6 to 10**2 with random signs; and the cells and TDs of the port's
+# minimax_train at the entry point's recipe at its steps 1 and 64, from a
+# run on the CPU (ops/scatter_variants.py, whose CASES these are).  Each
+# is timed on the kernel and its previous design by the replay of a CUDA
+# graph of SCATTER_GRAPH_CALLS calls; index_add_ and the plain version on
+# SCATTER_TIMED, index_add_'s bits compared over SCATTER_REPEATS calls.
+# SCATTER_CHECKED are held bit-equal too, untimed: a cell on both sides of
+# every tile's edge and a run longer than a tile, and one lane.
 SCATTER_CASES = {"one cell": (65536, 19025, 1),
                  "minimax table": (8192, 19025, None),
-                 "3 cells": (8192, 3, 3)}
+                 "3 cells": (8192, 3, 3),
+                 "learner step 1": (8192, 19025, "learner"),
+                 "learner step 64": (8192, 19025, "learner")}
+SCATTER_CHECKED = ("tiles", "one lane")
 SCATTER_TIMED = "minimax table"
-SCATTER_MAGNITUDES = (-6, 2)
 SCATTER_REPEATS, SCATTER_GRAPH_CALLS = 20, 100
+# A1's launch: one kernel, which writes every cell (no zero fill).
+SCATTER_DEVICE_OPS = 1
 # Phase 50, the four HBM-table learners at the entry point's width: two
 # re-solve periods of 64 steps each, on the card (replays) and the CPU.
 DET_LANES, DET_STEPS = 8192, 128
@@ -1215,18 +1232,21 @@ def main(argv=None) -> int:
     # ---- 2. build -----------------------------------------------------
     from concurrent.futures import ThreadPoolExecutor
 
-    from gym_soccer_tpu_torch.ops import rmplus_variants
+    from gym_soccer_tpu_torch.ops import rmplus_variants, scatter_variants
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:   # R1's previous design, beside
+    with ThreadPoolExecutor(2) as pool:   # R1's, A1's previous designs
         thread_build = pool.submit(rmplus_variants.build_variant,
                                    rmplus_variants.PREVIOUS)
+        walk_build = pool.submit(scatter_variants.build_variant,
+                                 scatter_variants.PREVIOUS)
         built = _build.build_all()
         thread_build = thread_build.result()
+        walk_build = walk_build.result()
     for name in built:
         _build.load(name)
-    print(f"[build] {', '.join(p.name for p in built.values())} and R1's "
-          f"previous design {thread_build.name} in "
-          f"{time.perf_counter() - t0:.3f} s")
+    print(f"[build] {', '.join(p.name for p in built.values())} and the "
+          f"previous designs of R1, {thread_build.name}, and of A1, "
+          f"{walk_build.name}, in {time.perf_counter() - t0:.3f} s")
     for path in built.values():
         print(path.with_suffix(".log").read_text().strip())
     # early in the process, where the profiler records every launch
@@ -3544,18 +3564,11 @@ def threefry_phases(torch, dev, card, instructions, step_counts):
 
 
 def scatter_inputs(np, case: str, seed: int = 0):
-    """(idx int64 [lanes], values float32 [lanes], n_cells) of A1's crafted
-    input ``case`` (``SCATTER_CASES``, or "one lane"), from ``seed``."""
-    lanes, n_cells, hit = SCATTER_CASES.get(case, (1, 19025, 1))
-    rng = np.random.default_rng(seed)
-    if hit is None:
-        idx = rng.integers(0, n_cells, lanes)
-    else:
-        idx = rng.choice(n_cells, hit, replace=False)[
-            rng.integers(0, hit, lanes)]
-    mag = 10.0 ** rng.uniform(*SCATTER_MAGNITUDES, lanes)
-    values = (mag * rng.choice((-1.0, 1.0), lanes)).astype(np.float32)
-    return idx.astype(np.int64), values, n_cells
+    """(idx int64 [lanes], values float32 [lanes], n_cells) of A1's input
+    ``case`` (``SCATTER_CASES`` or ``SCATTER_CHECKED``), from ``seed``
+    (``ops/scatter_variants.case_inputs``)."""
+    from gym_soccer_tpu_torch.ops import scatter_variants
+    return scatter_variants.case_inputs(np, case, seed)
 
 
 def json_lines(text):
@@ -4109,8 +4122,9 @@ def step_kernel_counts(torch, dev, card):
     ``step_plain`` (the previous design: ~350 ops and two T1 draws) and as
     ``batch.step`` (S1); of an eager minimax learner step at the entry
     point's 8192 lanes and lr/eps (no re-solve) on ``step_plain`` and on
-    S1; and of ``eval_episode_stats``' policy draw at 2 x 1024, plain and
-    keyed.  S1's step and the keyed draw must be one operation each."""
+    S1; of ``eval_episode_stats``' policy draw at 2 x 1024, plain and
+    keyed; and of A1's call on ``SCATTER_TIMED``.  S1's step and the keyed
+    draw must be one operation each, A1's call SCATTER_DEVICE_OPS."""
     from gym_soccer_tpu_torch.agents import learners as L
     from gym_soccer_tpu_torch.config import EnvConfig
     from gym_soccer_tpu_torch.core import batch, threefry
@@ -4129,6 +4143,10 @@ def step_kernel_counts(torch, dev, card):
         return env2, out.reward_a, out.done, out.truncated, out.final_obs
 
     key = threefry.key(7, dev)
+    import numpy as np
+    from gym_soccer_tpu_torch.ops import scatter_kernel as sc
+    idx, vals, n = scatter_inputs(np, SCATTER_TIMED)
+    gi, gv = torch.from_numpy(idx).to(dev), torch.from_numpy(vals).to(dev)
     counts = {
         "engine step, step_plain": device_ops(
             torch, lambda i: batch.step_plain(cfg, st, acts[0], acts[1])),
@@ -4143,12 +4161,16 @@ def step_kernel_counts(torch, dev, card):
             torch, lambda i: tk.keyed_uniform_plain(key, i, (2, 1024))),
         "eval draw, keyed T1": device_ops(
             torch, lambda i: tk.keyed_uniform(key, i, (2, 1024))),
+        "A1 call, " + SCATTER_TIMED: device_ops(
+            torch, lambda i: sc.scatter_add(gi, gv, n)),
     }
     print(f"[S1] device operations a call (torch.profiler, 3 calls after a "
           f"warm-up, early in the process; {B} lanes, 5x4 slip 0.2, "
           f"threefry): {counts} | {card}")
     check(counts["engine step, S1"] == 1 and counts["eval draw, keyed T1"]
-          == 1, f"S1's step or the keyed draw is not one operation: {counts}")
+          == 1 and counts["A1 call, " + SCATTER_TIMED] == SCATTER_DEVICE_OPS,
+          f"S1's step or the keyed draw is not one operation, or A1's call "
+          f"not {SCATTER_DEVICE_OPS}: {counts}")
     return counts
 
 
@@ -5023,27 +5045,56 @@ def _graph_ms(torch, fn, calls):
 
 def scatter_phase(torch, dev, card):
     """A1 (``scatter_add``, csrc/scatter_kernel.cu) on each of
-    ``SCATTER_CASES``: sums and counts bit-equal to its plain version
-    (``index_add_`` on the CPU, lane order), one launch a call; how many
-    of SCATTER_REPEATS calls of ``index_add_`` on the card (the PyTorch
-    call for the same function, atomics) differ in a bit (recorded, not
-    required); each case's longest run of one cell, its serial chain at 4
-    cycles an addition and 1.98 GHz, A1's device ms by graph replay and
-    its two launches' by ``torch.profiler``.  On ``SCATTER_TIMED``: A1's
-    call ms and device ms, ``index_add_``'s call and device ms (with its
-    zero fill, the values and ones as rows), the device ms of ordering the
-    lanes by ``torch.sort`` (a design A1 does without), the plain
-    version's call ms, and A1's bound.  Returns A1's max abs err, ms,
-    work."""
+    ``SCATTER_CASES`` and ``SCATTER_CHECKED``: sums and counts bit-equal to
+    its plain version (``index_add_`` on the CPU, lane order), one launch
+    a call, bit-equal again from the replay of a CUDA graph that captured
+    it, and its previous design (csrc/scatter_walk_kernel.cu) and the
+    design measured and not kept (csrc/scatter_sort_kernel.cu: one block,
+    a stable radix sort by cell), both built by ops/scatter_variants,
+    bit-equal too; its launch's shape the one ``launch_shape`` computes.
+    On ``SCATTER_CASES``: each case's cells hit and longest run, its
+    serial chain at 4 cycles an addition and 1.98 GHz, the device
+    operations of a call (``torch.profiler``, at most SCATTER_DEVICE_OPS),
+    A1's, the previous design's and the sort design's device ms a call by
+    graph replay, timed in turns (A1, walk, sort, sort, walk, A1), the
+    kernel's time by ``torch.profiler``, and how many of SCATTER_REPEATS
+    calls of
+    ``index_add_`` on the card (the PyTorch call for the same function,
+    atomics) differ in a bit (recorded, not required).  On
+    ``SCATTER_TIMED``: A1's call ms, ``index_add_``'s call and device ms
+    (with its zero fill, the values and ones as rows), the device ms of
+    ordering the lanes by ``torch.sort`` (global passes A1 does without),
+    the plain version's call ms, and A1's bound.  Returns A1's max abs
+    err, ms, work."""
     import numpy as np
+    from gym_soccer_tpu_torch.ops import _build
     from gym_soccer_tpu_torch.ops import scatter_kernel as sc
+    from gym_soccer_tpu_torch.ops import scatter_variants as sv
     lib = sc._library()
-    shape = (ctypes.c_int32 * 2)()
-    lib.gst_scatter_shape(ctypes.addressof(shape))
+    t0 = time.perf_counter()
+    for name in (sv.PREVIOUS, sv.SORTED):
+        sv.load(name)
+    regs = re.findall(r"Used (\d+) registers", _build.library_path(
+        "scatter_kernel").with_suffix(".log").read_text())
+    print(f"[A1] the previous design (walk) and the sort design built in "
+          f"{time.perf_counter() - t0} s; the kernel's registers {regs}")
+    designs = {"A1": lambda gi, gv, n: sc.scatter_add(gi, gv, n),
+               "walk": lambda gi, gv, n: sv.scatter_add(sv.PREVIOUS, gi,
+                                                        gv, n),
+               "sort": lambda gi, gv, n: sv.scatter_add(sv.SORTED, gi, gv,
+                                                        n)}
+
     err, ms = 0.0, {}
-    for case in SCATTER_CASES:
+    for case in (*SCATTER_CASES, *SCATTER_CHECKED):
         idx, v, n = scatter_inputs(np, case)
         gi, gv = torch.from_numpy(idx).to(dev), torch.from_numpy(v).to(dev)
+        shape = (ctypes.c_int32 * 6)()
+        lib.gst_scatter_shape(len(idx), n, ctypes.addressof(shape))
+        design = dict(zip(("threads", "tile", "smem", "blocks", "cells",
+                           "cell_bits"), shape))
+        check(design == sc.launch_shape(len(idx), n),
+              f"A1's launch {design} is not launch_shape's "
+              f"{sc.launch_shape(len(idx), n)}")
         before = sc.launch_counts[SCATTER]
         got = sc.scatter_add(gi, gv, n)
         torch.cuda.synchronize()
@@ -5053,6 +5104,35 @@ def scatter_phase(torch, dev, card):
         e = max(float((a.double() - b.double()).abs().max())
                 for a, b in zip(got, want))
         err = max(err, e)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = sc.scatter_add(gi, gv, n)
+        graph.replay()
+        torch.cuda.synchronize()
+        replay_same = all(bits_equal(a, b) for a, b in zip(replayed, want))
+        others_same = all(bits_equal(a, b) for name in ("walk", "sort")
+                          for a, b in zip(designs[name](gi, gv, n), want))
+        bc = np.bincount(idx[(idx >= 0) & (idx < n)], minlength=n)
+        longest = int(bc.max())
+        chain_ms = longest * 4 / 1.98e9 * 1e3
+        stats = (f"{len(idx)} lanes over {n} cells ({int((bc > 0).sum())} "
+                 f"hit, the longest run {longest} lanes: a serial chain of "
+                 f"{chain_ms} ms at 4 cycles an addition)")
+        equal = (f"sums and counts bit-equal to the plain version {same} "
+                 f"(max abs err {e}), from a CUDA-graph replay "
+                 f"{replay_same}, the walk's and the sort design's "
+                 f"{others_same}; {launched} launch a call")
+        check(same and replay_same and others_same and launched == 1,
+              f"A1 on {case}: {equal}")
+        if case in SCATTER_CHECKED:
+            print(f"[A1] {case}: {stats}: {equal} | {card}")
+            continue
+        # Late in a long process the profiler can record no device
+        # operation at all; phase 46's count, taken early, holds then.
+        ops = device_ops(torch, lambda i: sc.scatter_add(gi, gv, n))
+        check(ops <= SCATTER_DEVICE_OPS,
+              f"A1 on {case}: {ops} device operations a call")
+        ops = ops or "not recorded (phase 46: the early count)"
         rows = torch.stack([gv, torch.ones_like(gv)], 1)
 
         def library():
@@ -5063,24 +5143,28 @@ def scatter_phase(torch, dev, card):
             out = library()
             differ += not (bits_equal(out[:, 0].contiguous(), want[0])
                            and bits_equal(out[:, 1].contiguous(), want[1]))
-        longest = int(np.bincount(idx).max())
-        device = _graph_ms(torch, lambda: sc.scatter_add(gi, gv, n),
-                           SCATTER_GRAPH_CALLS)
-        for kernel in ("count_kernel", "walk_kernel"):   # the split
-            profile_window(torch, lambda: sc.scatter_add(gi, gv, n),
-                           f"A1 {case}", kernel, card)
-        print(f"[A1] {case}: {len(idx)} lanes over {n} cells "
-              f"({int((np.bincount(idx) > 0).sum())} hit, the longest run "
-              f"{longest} lanes: a serial chain of "
-              f"{longest * 4 / 1.98e9 * 1e3} ms at 4 cycles an addition): "
-              f"sums and counts bit-equal to the plain version {same} (max "
-              f"abs err {e}), {launched} launch a call; index_add_ on the "
-              f"card differed in a bit in {differ} of {SCATTER_REPEATS} "
-              f"calls; A1 {device} ms of device time a call (CUDA-graph "
-              f"replay) | {card}")
-        check(same and launched == 1,
-              f"A1 != its plain version on {case} (max abs err {e}) or "
-              f"{launched} launches")
+        turns = {name: [] for name in designs}
+        for name in ("A1", "walk", "sort", "sort", "walk", "A1"):
+            fn = designs[name]
+            turns[name].append(_graph_ms(torch, lambda: fn(gi, gv, n),
+                                         SCATTER_GRAPH_CALLS))
+        best = {name: min(t) for name, t in turns.items()}
+        device = best["A1"]
+        profile_window(torch, lambda: sc.scatter_add(gi, gv, n),
+                       f"A1 {case}", "partition_add_kernel", card)
+        print(f"[A1] {case}: {stats}: {equal}; design: {design['blocks']} "
+              f"blocks of {design['threads']} threads, {design['cells']} "
+              f"cells a block, {design['tile']} lanes a tile, "
+              f"{design['smem']} B of shared memory, one counting-sort pass "
+              f"by cell ({design['cell_bits']} ballots a kept 32), {ops} "
+              f"device operations a call (torch.profiler); "
+              f"device ms a call (CUDA-graph replay of "
+              f"{SCATTER_GRAPH_CALLS}, in turns A1, walk, sort, sort, walk, "
+              f"A1): {turns}: A1 {device} ms, the previous design (walk) "
+              f"{best['walk']} ms ({best['walk'] / device} x A1's), the sort "
+              f"design {best['sort']} ms ({best['sort'] / device} x); "
+              f"index_add_ on the card differed in a bit in {differ} of "
+              f"{SCATTER_REPEATS} calls | {card}")
         if case != SCATTER_TIMED:
             continue
         calls = {SCATTER: lambda: sc.scatter_add(gi, gv, n),
@@ -5095,17 +5179,15 @@ def scatter_phase(torch, dev, card):
         bound_ms, bound_by = scatter_bound(len(idx), nbytes)
         work = (len(idx), nbytes)
         ms[SCATTER + "_device"] = device
-        print(f"[A1] {case}: {shape[0]} threads a block, {shape[1]} lanes "
-              f"a block of the walk; A1 {ms[SCATTER]} ms a call, {device} "
-              f"ms of device time (zero fill and its two launches); "
-              f"ordering the lanes by torch.sort alone {sort_ms} ms of "
-              f"device time; index_add_ (zero fill and "
-              f"one call on [values, 1] rows) {ms[SCATTER + '_library']} ms "
-              f"a call, {lib_device} ms of device time; the plain version "
-              f"(a CPU round trip) {ms[SCATTER + '_plain']} ms; bound "
-              f"{bound_ms} ms ({bound_by}: {nbytes} B, {len(idx)} "
-              f"additions), the longest run's chain "
-              f"{longest * 4 / 1.98e9 * 1e3} ms | {card}")
+        print(f"[A1] {case}: A1 {ms[SCATTER]} ms a call, {device} ms of "
+              f"device time (one launch); ordering the lanes "
+              f"by torch.sort alone {sort_ms} ms of device time; index_add_ "
+              f"(zero fill and one call on [values, 1] rows) "
+              f"{ms[SCATTER + '_library']} ms a call, {lib_device} ms of "
+              f"device time; the plain version (a CPU round trip) "
+              f"{ms[SCATTER + '_plain']} ms; bound {bound_ms} ms "
+              f"({bound_by}: {nbytes} B, {len(idx)} additions), the longest "
+              f"run's chain {chain_ms} ms | {card}")
     return err, ms, work
 
 

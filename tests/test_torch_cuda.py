@@ -894,12 +894,15 @@ def test_keyed_entry_equals_its_plain_version(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["one cell", "minimax table", "3 cells",
-                                  "one lane"])
+                                  "one lane", "learner step 1",
+                                  "learner step 64", "tiles"])
 def test_a1_equals_its_plain_version(cuda, case):
     """A1 (the learners' scatter-add in lane order) bit-equal to its plain
     version (index_add_ on the CPU) in sums and counts on chip_smoke.py
-    phase 50's crafted inputs, one launch a call, and again from the
-    replay of a CUDA graph that captured it."""
+    phase 50's inputs (the learner's own at its steps 1 and 64, a cell on
+    both sides of every tile's edge with a run longer than a tile), one
+    launch a call, and again from the replay of a CUDA graph that
+    captured it, replayed twice."""
     import numpy as np
     from chip_smoke import bits_equal, scatter_inputs
     from gym_soccer_tpu_torch.ops import scatter_kernel as sc
@@ -913,6 +916,33 @@ def test_a1_equals_its_plain_version(cuda, case):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = sc.scatter_add(gi, gv, n)
-    graph.replay()
-    torch.cuda.synchronize()
-    assert all(bits_equal(a.cpu(), b) for a, b in zip(out, want))
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(bits_equal(a.cpu(), b) for a, b in zip(out, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,n_cells", [(300, 19025), (257, 255),
+                                           (1000, 256), (2, 292625),
+                                           (20000, 292625), (700, 1)])
+def test_a1_small_blocks_and_dropped_cells(cuda, lanes, n_cells):
+    """A1 in blocks of fewer warps, over one, two and three radix passes,
+    bit-equal to a lane-order loop; cells outside [0, n) dropped."""
+    import numpy as np
+    from gym_soccer_tpu_torch.ops import scatter_kernel as sc
+    rng = np.random.default_rng(lanes + n_cells)
+    idx = rng.integers(-3, n_cells + 3, lanes).astype(np.int64)
+    idx[: lanes // 3] = n_cells // 2
+    v = (10.0 ** rng.uniform(-6, 2, lanes) * rng.choice(
+        (-1.0, 1.0), lanes)).astype(np.float32)
+    keep = (idx >= 0) & (idx < n_cells)
+    want = np.zeros(n_cells, np.float32)
+    for i in np.flatnonzero(keep):
+        want[idx[i]] = np.float32(want[idx[i]] + v[i])
+    sums, counts = sc.scatter_add(torch.from_numpy(idx).to(cuda),
+                                  torch.from_numpy(v).to(cuda), n_cells)
+    assert sums.cpu().numpy().view(np.uint32).tolist() == \
+        want.view(np.uint32).tolist()
+    assert counts.cpu().numpy().tolist() == np.bincount(
+        idx[keep], minlength=n_cells).astype(np.float32).tolist()

@@ -50,6 +50,8 @@ MODULES = ["gym_soccer_tpu_torch", "gym_soccer_tpu_torch.config",
            "gym_soccer_tpu_torch.ops.altq_variants",
            "gym_soccer_tpu_torch.ops.dispatch",
            "gym_soccer_tpu_torch.ops.rmplus_variants",
+           "gym_soccer_tpu_torch.ops.scatter_kernel",
+           "gym_soccer_tpu_torch.ops.scatter_variants",
            "gym_soccer_tpu_torch.spaces",
            "gym_soccer_tpu_torch.envs",
            "gym_soccer_tpu_torch.envs.soccer_alternating_env",
