@@ -7,9 +7,11 @@ check it.
     python3 chip_smoke.py --phases 47-48  # the data-parallel block alone
     python3 chip_smoke.py --phases 49     # the tools' sweep alone
     python3 chip_smoke.py --phases 50     # determinism and checkpoints
+    python3 chip_smoke.py --phases 51     # S2 and S3, the engines' steps
 
 Eight main paths, each driven with its kernels' launch counters reset just
-before it and read just after.  The rollout path is the batched random
+before it and read just after (the threefry path's learning checks
+each with S2's and S3's).  The rollout path is the batched random
 play at 8192 lanes on the 5x4 (slip 0.2) and 11x7 (slip 0.2) boards:
 ``fused_rollout`` (kernel K1), ``fused_journal_rollout`` (kernel K2) with
 ``unpack_journal``, and the batched engine ``core.batch``.  The training
@@ -35,7 +37,9 @@ steps the engine through kernel S1 (the transition's and the resets'
 draws inside it), draws its actions through kernel T1, sums its updates
 in lane order through kernel A1 and re-solves through kernel R1, and
 whose evaluation draws its policy through T1's keyed entry; the
-learners, the engines and ``SoccerVectorEnv``.  The
+learners, the engines and ``SoccerVectorEnv``; the JAX package's learning
+checks, whose mixture learner steps its engine through kernel S2 and whose
+turn-based learner steps its engine through kernel S3.  The
 data-parallel path (parallel/mesh) runs after it: the four trainers with
 ``mesh=`` (K5, K6, K8, K10 and R1, their all-reduces in the CUDA graphs
 on an NCCL mesh), the HBM-table learners through ``sharded_*_train_fn``,
@@ -43,9 +47,10 @@ the sharded chunks of K5-K11 and the sharded re-solve on two ranks that
 share the card over gloo.  The tools run next: ``tools.bench_all``'s 24
 rows, every path through its entry timed side by side, each row with its
 launches counted, and ``tools.bench_parity_kernel``.  Determinism and
-checkpoints run last: A1 against its plain version, the HBM-table
+checkpoints run next: A1 against its plain version, the HBM-table
 learners and the entry point against the CPU and against themselves,
-and ``save_orbax`` / ``load_orbax``.
+and ``save_orbax`` / ``load_orbax``.  S2 and S3 against their plain
+versions run last.
 Phases, each of which raises on failure:
 
 1. device: a CUDA device is present; its name and power limit;
@@ -377,20 +382,36 @@ Phases, each of which raises on failure:
     bit-equal to the uninterrupted run; ``save_orbax`` / ``load_orbax`` on
     the card: a K5 resume dict and an HBM-table learner state back
     bit-equal on the card, the template untouched, the resumed chunk
-    equal to the uninterrupted run.
+    equal to the uninterrupted run;
+51. S2 (``multigrid.step`` / ``step_obs`` on the card) and S3
+    (``alt_step`` / ``alt_step_obs``, ``csrc/mixed_alt_kernel.cu``):
+    bit-equal to their plain versions in every output at S23_LANES x
+    S23_STEPS (S2 on the four S2_MIXTURES, S3 on 5x4 and 11x7 at slip 0.2;
+    autoreset on and off, int32 and int64 actions, with and without the
+    observations; from goal-state, wrapping and truncating lanes), one
+    launch a step; captured in a CUDA graph and replayed, equal to the
+    eager call; S2, S3, their plain versions and S1 timed (call ms, and
+    device ms by CUDA-graph replay) with S2's and S3's bounds; counted by
+    ``torch.profiler`` right after the build, the device operations of
+    each engine's step and of a multigrid minimax-Q, multigrid IQL and
+    turn-based Q learner step before (the plain versions) and after.
 
 ``--phases`` runs one block of phases alone in a fresh process, building
-only its libraries: 34-38 (K5), 39-46 and 50 (S1, T1, A1, R1, K5), 47-48
-or 49 (every library); it prints the block's figures but no kernels line
-and no verdict.
+only its libraries: 34-38 (K5), 39-46 and 50 (S1, S2, S3, T1, A1, R1,
+K5), 47-48 or 49 (every library), 51 (S1, S2, S3, T1, A1, R1; with phase
+42's turn-based and mixture checks, phase 50's learners against the CPU
+and phase 49's three rows that step S2 or S3); it prints the block's
+figures but no kernels line and no verdict.
 
 The second-to-last lines are the kernels' JSON record (the 14 kernel
-sites, R1, T1, its keyed entry, S1 and A1, with each kernel's bound: the
+sites, R1, T1, its keyed entry, S1, S2, S3 and A1, with each kernel's
+bound: the
 larger of its bytes over the HBM rate and its SASS instructions per
 step, R1's per
 game-iteration (the fewer of its lanes' and its previous design's, so
 that the shuffles and sums the split repeats in each lane do not raise
-its bound), T1's, its keyed entry's and S1's on the shortest way
+its bound), T1's, its keyed entry's, S1's, S2's and S3's on the shortest
+way
 through a thread (``path_instructions``), times its steps over the
 instruction rate; A1's its additions at the float32 rate, with
 ``index_add_``'s ms as its ``library_ms``) and
@@ -699,12 +720,43 @@ S1_GRAPH_CALLS, PLAIN_GRAPH_CALLS = 100, 10
 SCATTER = "scatter_add"
 SCATTER_SRC = "gym_soccer_tpu_torch/ops/csrc/scatter_kernel.cu"
 SCATTER_REPLACES = "gym_soccer_tpu/agents/learners.py:193"
+# Phase 51, S2 and S3: the mixed-geometry engine's step and the
+# alternating engine's tick, their draws and autoreset inside (no TPU
+# kernel: the JAX package's XLA multigrid.step and alt_step).  Their
+# instances on the main paths (autoreset, the learners' observations,
+# int64 actions), whose SASS gives their bounds; the cases held bit-equal
+# to the plain versions at S23_LANES x S23_STEPS: mixtures of (width,
+# height, slip) boards, lane i on variant i % nV (tools/bench_all's row,
+# the --multigrid recipe's, 5x4+11x7, and slips whose two thresholds
+# round differently from S1's constants), and the alternating boards at
+# slip 0.2; the mixture and board they are timed on.
+S2, S3 = "multigrid_step", "alt_step"
+S23_SRC = "gym_soccer_tpu_torch/ops/csrc/mixed_alt_kernel.cu"
+S2_REPLACES = "gym_soccer_tpu/core/multigrid.py:186"
+S3_REPLACES = "gym_soccer_tpu/envs/soccer_alternating_env.py:94"
+S2_SYMBOL = "21multigrid_step_kernelILb1ELb1ELb1E"
+S3_SYMBOL = "15alt_step_kernelILb1ELb1E"
+S2_MIXTURES = {"bench row": ((5, 4, 0.2), (6, 5, 0.1), (9, 6, 0.3)),
+               "--multigrid recipe": ((5, 4, 0.2), (6, 5, 0.2)),
+               "5x4+11x7": ((5, 4, 0.2), (11, 7, 0.2)),
+               "slips 0.058, 0.111": ((5, 4, 0.058), (6, 5, 0.111))}
+S3_BOARDS = ((5, 4), (11, 7))
+S23_LANES, S23_STEPS = 8192, 256
+S23_TIMED = "bench row"
+# Their main paths, phase 42's learning checks: the mixture check's two
+# multigrid_minimax_train runs of 2000 steps (S2 once a step), the
+# turn-based Q checks' two altq_train runs of 15000 (against a frozen B,
+# 12000) steps and their alt_policy_rollout of 300 (S3 once a step).
+MIX_CHECK_S2 = 2 * 2000
+ALTQ_CHECK_S3 = 2 * 15000 + 300
+ALTQ_FROZEN_S3 = 2 * 12000 + 300
 # The kernels no TPU kernel precedes: their sources and the JAX functions
 # they compute.
 ADDED_SOURCE = {RMPLUS: RMPLUS_SRC, T1: T1_SRC, T1_KEYED: T1_SRC,
-                S1: S1_SRC, SCATTER: SCATTER_SRC}
+                S1: S1_SRC, S2: S23_SRC, S3: S23_SRC, SCATTER: SCATTER_SRC}
 ADDED_REPLACES = {RMPLUS: RMPLUS_REPLACES, T1: T1_REPLACES,
                   T1_KEYED: T1_KEYED_REPLACES, S1: S1_REPLACES,
+                  S2: S2_REPLACES, S3: S3_REPLACES,
                   SCATTER: SCATTER_REPLACES}
 # The entry point's default mode at its own widths (examples/
 # train_minimax_tpu.py:247-251), 2000 steps in chunks of 500: per step T1
@@ -787,9 +839,12 @@ BENCH_LAUNCHES = {
                            "threefry_uniforms": ("step", 1, 1)},
     "xla_stats_counter": {"engine_step": ("step", 1, 0),
                           "threefry_uniforms": ("step", 0, 1)},
-    "xla_multigrid_mixed": {"threefry_uniforms": ("step", 3, 1)},
-    "xla_alternating_engine": {"threefry_uniforms": ("step", 2, 1)},
-    "xla_altq_learner": {"threefry_uniforms": ("step", 3, 1),
+    "xla_multigrid_mixed": {"multigrid_step": ("step", 1, 0),
+                            "threefry_uniforms": ("step", 1, 1)},
+    "xla_alternating_engine": {"alt_step": ("step", 1, 0),
+                               "threefry_uniforms": ("step", 0, 1)},
+    "xla_altq_learner": {"alt_step": ("step", 1, 0),
+                         "threefry_uniforms": ("step", 1, 1),
                          "scatter_add": ("step", 1, 0)},
     "pallas_minimax_learner": {"learner_chunk": ("chunk", 1, 0)},
     "pallas_minimax_learner_packed": {
@@ -871,12 +926,14 @@ def sass_listing(path):
 
 def added_instructions(_build):
     """{kernel name: SASS instructions on the shortest way through a
-    thread} of T1's main path instance, its keyed entry's and S1's
-    (``path_instructions``)."""
+    thread} of T1's main path instance, its keyed entry's, S1's, S2's and
+    S3's (``path_instructions``)."""
     counts = {}
     for name, library, sym in ((T1, "threefry_kernel", T1_SYMBOL),
                                (T1_KEYED, "threefry_kernel", T1_KEYED_SYMBOL),
-                               (S1, "engine_kernel", S1_SYMBOL)):
+                               (S1, "engine_kernel", S1_SYMBOL),
+                               (S2, "mixed_alt_kernel", S2_SYMBOL),
+                               (S3, "mixed_alt_kernel", S3_SYMBOL)):
         found = path_instructions(sass_listing(_build.build(library)), [sym])
         check(len(found) == 1, f"{name}: {len(found)} kernels match {sym}")
         counts[name] = next(iter(found.values()))
@@ -1171,12 +1228,12 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Build and drive the port on one CUDA device.")
     parser.add_argument(
-        "--phases", choices=("34-38", "39-46", "47-48", "49", "50"),
-        help="build only the block's libraries (34-38: K5; 39-46: S1, T1, "
-             "A1, R1 and K5; 47-48 and 49: every library; 50: S1, T1, A1, "
-             "R1 and K5) and run its phases alone, in this fresh process: "
-             "their figures before any earlier phase has run; prints no "
-             "kernels line and no verdict")
+        "--phases", choices=("34-38", "39-46", "47-48", "49", "50", "51"),
+        help="build only the block's libraries (34-38: K5; 39-46 and 50: "
+             "S1, S2, S3, T1, A1, R1 and K5; 47-48 and 49: every library; "
+             "51: S1, S2, S3, T1, A1 and R1) and run its phases alone, in "
+             "this fresh process: their figures before any earlier phase "
+             "has run; prints no kernels line and no verdict")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1201,8 +1258,9 @@ def main(argv=None) -> int:
         libraries, run = {
             "34-38": (("learner_kernel",),
                       lambda: surface_phases(torch, dev, card, lk)),
-            "39-46": (("engine_kernel", "threefry_kernel", "rmplus_kernel",
-                       "scatter_kernel", "learner_kernel"),
+            "39-46": (("engine_kernel", "mixed_alt_kernel",
+                       "threefry_kernel", "rmplus_kernel", "scatter_kernel",
+                       "learner_kernel"),
                       lambda: threefry_phases(
                           torch, dev, card, added_instructions(_build),
                           step_counts)),
@@ -1210,9 +1268,14 @@ def main(argv=None) -> int:
                       lambda: mesh_phases(torch, dev, card, exploitability)),
             "49": (tuple(_build.LIBRARIES),
                    lambda: tools_phase(torch, dev, card)),
-            "50": (("engine_kernel", "threefry_kernel", "rmplus_kernel",
-                    "scatter_kernel", "learner_kernel"),
+            "50": (("engine_kernel", "mixed_alt_kernel", "threefry_kernel",
+                    "rmplus_kernel", "scatter_kernel", "learner_kernel"),
                    lambda: determinism_phase(torch, dev, card)),
+            "51": (("engine_kernel", "mixed_alt_kernel", "threefry_kernel",
+                    "rmplus_kernel", "scatter_kernel"),
+                   lambda: mixed_alt_block(
+                       torch, dev, card, added_instructions(_build),
+                       s23_counts)),
         }[args.phases]
         t0 = time.perf_counter()
         from concurrent.futures import ThreadPoolExecutor
@@ -1224,6 +1287,8 @@ def main(argv=None) -> int:
               f"{time.perf_counter() - t0:.3f} s")
         step_counts = (step_kernel_counts(torch, dev, card)
                        if args.phases == "39-46" else None)
+        s23_counts = (mixed_alt_counts(torch, dev, card)
+                      if args.phases == "51" else None)
         run()
         print(f"[done] chip_smoke.py --phases {args.phases} ran "
               f"{time.perf_counter() - t_start} s")
@@ -1251,6 +1316,7 @@ def main(argv=None) -> int:
         print(path.with_suffix(".log").read_text().strip())
     # early in the process, where the profiler records every launch
     step_counts = step_kernel_counts(torch, dev, card)
+    s23_counts = mixed_alt_counts(torch, dev, card)
     shape = (ctypes.c_int32 * 3)()
     sk._library().gst_rollout_shape(ctypes.addressof(shape))
     check(shape[0] == TILE_STEPS, f"K1/K2/K4 tiles of {shape[0]} steps, "
@@ -1529,6 +1595,10 @@ def main(argv=None) -> int:
     errs[SCATTER], a1_ms, a1_work = determinism_phase(torch, dev, card,
                                                       entry_ex)
     ms.update(a1_ms)
+    s23_errs, s23_ms, s23_work = mixed_alt_phase(torch, dev, card, per_step,
+                                                 s23_counts)
+    errs.update(s23_errs)
+    ms.update(s23_ms)
 
     # Each kernel's work at the shape its ms was timed: lane-steps (or
     # lane-events) and the bytes of its inputs and outputs, each once.
@@ -1553,6 +1623,7 @@ def main(argv=None) -> int:
         RMPLUS: rm_work,
         **t_work,
         SCATTER: a1_work,
+        **s23_work,
     }
     kernels = []
     for name in ("fused_rollout", "fused_journal_rollout",
@@ -1560,8 +1631,8 @@ def main(argv=None) -> int:
                  "multigrid_packed_learner_chunk", "learner_chunk",
                  "multigrid_learner_chunk", "iql_packed_chunk", "iql_chunk",
                  "altq_packed_chunk", "altq_chunk", "parity_events",
-                 "parity_scripted_events", RMPLUS, T1, T1_KEYED, S1,
-                 SCATTER):
+                 "parity_scripted_events", RMPLUS, T1, T1_KEYED, S1, S2,
+                 S3, SCATTER):
         units, nbytes = work[name]
         if name == SCATTER:   # additions at the float32 rate
             bound_ms, bound_by = scatter_bound(units, nbytes)
@@ -3524,7 +3595,7 @@ def alt_phases(torch, dev, card, cfgs, per_step, regs):
 def threefry_phases(torch, dev, card, instructions, step_counts):
     """Phases 39-46, the threefry slice, each with its wall seconds.
     Returns the launches of T1, its keyed entry, S1 and A1 on the slice's
-    main path, the max abs errors of T1, its keyed entry and S1 against
+    main path (and of S2 and S3 on phase 42's checks), the max abs errors of T1, its keyed entry and S1 against
     their plain versions, their ms and plain ms, and their work, each a
     dict by kernel name, and the entry point's exploitability;
     ``instructions`` is ``added_instructions``."""
@@ -3540,7 +3611,7 @@ def threefry_phases(torch, dev, card, instructions, step_counts):
     engine_phase(torch, dev, card)
     print(f"[phase 41] {time.perf_counter() - t0} s")
     t0 = time.perf_counter()
-    learning_checks(torch, dev, card)
+    launches.update(learning_checks(torch, dev, card))
     print(f"[phase 42] {time.perf_counter() - t0} s")
     t0 = time.perf_counter()
     entry_cli_phase(torch, dev, card)
@@ -3726,9 +3797,10 @@ def engine_phase(torch, dev, card):
               f"{int(gout.truncated.sum())}")
 
 
-def learning_checks(torch, dev, card):
+def learning_checks(torch, dev, card, only=None):
     """Phase 42: the JAX package's learning checks on the card at their
-    own sizes and thresholds, each with its wall seconds:
+    own sizes and thresholds (``only``: the labels of those to run, all by
+    default), each with its wall seconds:
     tests/test_learners.py:48 (IQL self-play: goals > truncations), :73
     (minimax-Q: |v| <= 1 + 1e-3, max |v| > 0.05, pi rows sum to 1), :87
     (IQL against a frozen random B: B untouched, win share > 0.9), :130
@@ -3736,23 +3808,38 @@ def learning_checks(torch, dev, card):
     the threefry alt_policy_rollout), :159 (against a frozen standing B),
     and tests/test_multigrid.py:206 (mixture slices match); each trains
     ``learners.GROUP_STEPS`` steps a CUDA-graph replay (single steps are
-    host-bound at ~600 launches a step)."""
+    host-bound).  S2's and S3's counters are reset before each check and
+    read after it: the mixture check launches S2 MIX_CHECK_S2 times, the
+    turn-based ones S3 ALTQ_CHECK_S3 and ALTQ_FROZEN_S3 times (every
+    other check neither).  Returns {S2: the mixture check's launches, S3:
+    the turn-based Q check's}, of the checks that ran: their main
+    paths."""
     import numpy as np
     from gym_soccer_tpu_torch.agents import learners as L
     from gym_soccer_tpu_torch.config import EnvConfig
     from gym_soccer_tpu_torch.core import batch, threefry
     from gym_soccer_tpu_torch.envs import soccer_alternating_env as alt
+    from gym_soccer_tpu_torch.ops import mixed_alt_kernel as mk
     from gym_soccer_tpu_torch.utils.policies import get_random_policy_array
     cfg = EnvConfig(5, 4, 0.2)
     key = threefry.key
+    launched = {}
 
-    def timed(label, fn):
+    def timed(label, fn, want=None):
+        if only is not None and label not in only:
+            return
         torch.cuda.synchronize()
+        mk.reset_launch_counts()
         t0 = time.perf_counter()
         msg = fn()
         torch.cuda.synchronize()
-        print(f"[learning] {label}: {msg}; {time.perf_counter() - t0} s "
-              f"| {card}")
+        wall = time.perf_counter() - t0
+        got = dict(mk.launch_counts)
+        check(got == {S2: 0, S3: 0, **(want or {})},
+              f"{label}: S2 and S3 launched {got}, not {want or 0}")
+        launched.update({k: n for k, n in got.items() if n})
+        print(f"[learning] {label}: {msg}; {wall} s; S2 and S3 launches "
+              f"{got} | {card}")
 
     def greedy_rollout(pol, seed, lanes, steps):
         st = batch.init(cfg, key(seed), lanes, dev)
@@ -3872,9 +3959,10 @@ def learning_checks(torch, dev, card):
     timed("IQL self-play", iql)
     timed("minimax-Q", minimax)
     timed("IQL vs frozen", iql_frozen)
-    timed("turn-based Q", lambda: altq(None))
-    timed("turn-based Q vs frozen", lambda: altq("b"))
-    timed("mixture minimax-Q", mixture)
+    timed("turn-based Q vs frozen", lambda: altq("b"), {S3: ALTQ_FROZEN_S3})
+    timed("turn-based Q", lambda: altq(None), {S3: ALTQ_CHECK_S3})
+    timed("mixture minimax-Q", mixture, {S2: MIX_CHECK_S2})
+    return launched
 
 
 def entry_cli_phase(torch, dev, card):
@@ -3995,8 +4083,8 @@ def graph_phase(torch, dev, card):
     GRAPH_START steps, GRAPH_STEPS steps of minimax-Q (lr and eps
     halflives), IQL, turn-based Q against a frozen standing B and mixture
     minimax-Q on 5x4+6x5: every leaf and every step's |TD| bit-equal, T1,
-    S1 and A1 launched a single step's count each step and R1 once a
-    period.  At GRAPH_WIDE lanes, one 64-step minimax-Q period from step 0
+    the engine's step (S1, S2 or S3: one a step) and A1 launched a single
+    step's count each step and R1 once a period.  At GRAPH_WIDE lanes, one 64-step minimax-Q period from step 0
     (one replay, the re-solve on its last step): every state leaf (q, v,
     pi, n and the env fields) bit-equal to the CPU's, each step's |TD|
     within GRAPH_TOL * (1 + |TD|) (its mean reduces in another order)."""
@@ -4006,6 +4094,7 @@ def graph_phase(torch, dev, card):
     from gym_soccer_tpu_torch.core import threefry
     from gym_soccer_tpu_torch.envs import soccer_alternating_env as alt
     from gym_soccer_tpu_torch.ops import engine_kernel as ek
+    from gym_soccer_tpu_torch.ops import mixed_alt_kernel as mk
     from gym_soccer_tpu_torch.ops import scatter_kernel as sc
     from gym_soccer_tpu_torch.ops import threefry_kernel as tk
     cfg = EnvConfig(5, 4, SLIP)
@@ -4019,8 +4108,13 @@ def graph_phase(torch, dev, card):
         torch.cuda.synchronize()
         tk.reset_launch_counts()
         ek.reset_launch_counts()
+        mk.reset_launch_counts()
         sc.reset_launch_counts()
         L.reset_launch_counts()
+
+    def engines():   # S1's, S2's and S3's launches
+        return ek.launch_counts[S1] + mk.launch_counts[S2] + \
+            mk.launch_counts[S3]
 
     mc = L.MinimaxQConfig(lr=0.3, resolve_every=16, solver_iters=50,
                           lr_halflife=40, eps_halflife=30, eps_min=0.05)
@@ -4044,7 +4138,7 @@ def graph_phase(torch, dev, card):
         reset()
         train(to(st, dev), 1)
         torch.cuda.synchronize()
-        per_step, s1_step = tk.launch_counts[T1], ek.launch_counts[S1]
+        per_step, s1_step = tk.launch_counts[T1], engines()
         a1_step = sc.launch_counts[SCATTER]
         reset()
         t0 = time.perf_counter()
@@ -4052,7 +4146,7 @@ def graph_phase(torch, dev, card):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         t1, r1 = tk.launch_counts[T1], L.launch_counts[RMPLUS]
-        s1, a1 = ek.launch_counts[S1], sc.launch_counts[SCATTER]
+        s1, a1 = engines(), sc.launch_counts[SCATTER]
         want, wtd = train(st, GRAPH_STEPS)
         leaves = list(zip(L._tensors(got), L._tensors(want)))
         bad = [i for i, (x, y) in enumerate(leaves)
@@ -4061,11 +4155,13 @@ def graph_phase(torch, dev, card):
         check(not bad and torch.equal(gtd.cpu(), wtd),
               f"{name}: the graph run differs from the CPU's in leaves {bad} "
               f"(max abs err {max_abs_err(leaves)}) or in |TD|")
-        check(per_step > 0 and a1_step > 0 and t1 == per_step * GRAPH_STEPS
+        check(per_step > 0 and a1_step > 0 and s1_step == 1
+              and t1 == per_step * GRAPH_STEPS
               and s1 == s1_step * GRAPH_STEPS
               and a1 == a1_step * GRAPH_STEPS and r1 == resolves,
               f"{name}: T1 launched {t1} times (not {per_step} x "
-              f"{GRAPH_STEPS}), S1 {s1} (not {s1_step} x {GRAPH_STEPS}), "
+              f"{GRAPH_STEPS}), S1, S2 or S3 {s1} (not {s1_step} x "
+              f"{GRAPH_STEPS}), "
               f"A1 {a1} (not {a1_step} x {GRAPH_STEPS}), R1 {r1} (not "
               f"{resolves})")
         group = -(-L.GROUP_STEPS // max(period, 1)) * max(period, 1)
@@ -4073,8 +4169,8 @@ def graph_phase(torch, dev, card):
               f"{steps.stop - 1} (replays of {group} steps, with the steps "
               f"around them on their own): all {len(leaves)} leaves "
               f"and every step's |TD| equal the CPU's bit for bit; T1 "
-              f"{t1} launches, S1 {s1}, A1 {a1}, R1 {r1}; {wall} s on the "
-              f"card | {card}")
+              f"{t1} launches, the engine's step (S1, S2 or S3) {s1}, A1 "
+              f"{a1}, R1 {r1}; {wall} s on the card | {card}")
 
     wide = L.MinimaxQConfig(lr=0.3, resolve_every=64, solver_iters=200,
                             lr_halflife=400, eps_halflife=667)
@@ -4934,13 +5030,14 @@ def _bench_counts():
     from gym_soccer_tpu_torch.agents import learners
     from gym_soccer_tpu_torch.ops import (altq_kernel, engine_kernel,
                                           iql_kernel, learner_kernel,
-                                          parity_kernel, scatter_kernel,
-                                          step_kernel, threefry_kernel)
+                                          mixed_alt_kernel, parity_kernel,
+                                          scatter_kernel, step_kernel,
+                                          threefry_kernel)
     return (step_kernel.launch_counts, learner_kernel.launch_counts,
             iql_kernel.launch_counts, altq_kernel.launch_counts,
             parity_kernel.launch_counts, threefry_kernel.launch_counts,
-            engine_kernel.launch_counts, scatter_kernel.launch_counts,
-            learners.launch_counts)
+            engine_kernel.launch_counts, mixed_alt_kernel.launch_counts,
+            scatter_kernel.launch_counts, learners.launch_counts)
 
 
 def bench_expected(name: str, row: dict) -> dict:
@@ -4951,10 +5048,11 @@ def bench_expected(name: str, row: dict) -> dict:
             for k, (unit, n, once) in BENCH_LAUNCHES[name].items()}
 
 
-def tools_phase(torch, dev, card):
+def tools_phase(torch, dev, card, rows=None):
     """Phase 49: ``tools.bench_all``'s rows on the card at their default
     sizes, each with the kernel counters reset before it and read after
-    it, then ``tools.bench_parity_kernel`` in a subprocess."""
+    it, then ``tools.bench_parity_kernel`` in a subprocess; with ``rows``
+    (names), those rows alone and no subprocess."""
     from gym_soccer_tpu_torch.tools import bench_all
     t_all = time.perf_counter()
     names = [name for name, _ in bench_all.ROWS]
@@ -4962,6 +5060,8 @@ def tools_phase(torch, dev, card):
           f"bench_all's rows {names} are not BENCH_LAUNCHES'")
     counts = _bench_counts()
     for name, fn in bench_all.ROWS:
+        if rows is not None and name not in rows:
+            continue
         for d in counts:
             for k in d:
                 d[k] = 0
@@ -4981,8 +5081,10 @@ def tools_phase(torch, dev, card):
                   f"{name}: legs {line['short_ms']} / {line['long_ms']} ms")
         want = {k: n for k, n in bench_expected(name, line).items() if n}
         check(launched == want, f"{name}: launches {launched}, not {want}")
-    print(f"[phase 49] bench_all: {len(names)} rows in "
+    print(f"[phase 49] bench_all: {len(rows or names)} rows in "
           f"{time.perf_counter() - t_all} s, no error, launches as named")
+    if rows is not None:
+        return
     t0 = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
     proc = subprocess.run(
@@ -5415,6 +5517,309 @@ def orbax_on_card(torch, dev, card):
           f"chunks at once, learner state with its key words round-trips: "
           f"{ok} | {card}")
     check(all(ok), f"the orbax pair on the card: {ok}")
+
+
+
+# ----------------------------------------------------------------------
+# Phase 51: S2 and S3, the mixed-geometry and alternating engines' steps
+# ----------------------------------------------------------------------
+
+def mixed_start(torch, cfgs, lanes, dev, seed):
+    """``lanes`` lanes of the mixture ``cfgs`` after 8 steps of
+    ``step_plain`` without autoreset from ``key(seed)`` (the lanes that
+    scored stay in their goal states), every 5th counter at 2**31 - 3
+    (the draws' counters wrap) and every 7th clock one step from
+    truncation; on ``dev``."""
+    import numpy as np
+    from gym_soccer_tpu_torch.core import multigrid as mg
+    from gym_soccer_tpu_torch.core import threefry
+    rng = np.random.default_rng(seed)
+    st = mg.init(tuple(cfgs), threefry.key(seed), lanes, dev)
+    for _ in range(8):
+        aa, ab = (torch.as_tensor(rng.integers(0, 5, lanes), device=dev)
+                  for _ in range(2))
+        st, _ = mg.step_plain(st, aa, ab, autoreset=False)
+    n, t = st.n.clone(), st.t.clone()
+    n[::5] = 2 ** 31 - 3
+    t[1::7] = st.geo.max_steps - 1
+    return st._replace(n=n, t=t)
+
+
+def alt_start(torch, cfg, lanes, dev, seed):
+    """``lanes`` alternating lanes after 8 ticks of ``alt_step_plain``
+    without autoreset from ``key(seed)``, the mover flipped on every 3rd
+    lane, A in its goal with the ball on every 11th (goals do not absorb
+    here), counters and clocks as ``mixed_start``'s; on ``dev``."""
+    import numpy as np
+    from gym_soccer_tpu_torch.core import threefry
+    from gym_soccer_tpu_torch.envs import soccer_alternating_env as alt
+    rng = np.random.default_rng(seed)
+    st = alt.alt_init(cfg, threefry.key(seed), lanes, seed % 2, dev)
+    for _ in range(8):
+        st, _ = alt.alt_step_plain(cfg, st, torch.as_tensor(
+            rng.integers(0, 5, lanes), device=dev), autoreset=False)
+    ra, ca, rb, cb, p, turn, t, n = (f.clone() for f in st[:8])
+    turn[::3] = 1 - turn[::3]
+    ra[::11], ca[::11], rb[::11], cb[::11], p[::11] = (
+        cfg.goal_row_bounds[0], cfg.W - 1, 0, 1, 0)
+    n[::5] = 2 ** 31 - 3
+    t[1::7] = cfg.max_steps - 1
+    return alt.AltEnvState(ra, ca, rb, cb, p, turn, t, n, st.key)
+
+
+class _PlainEngines:
+    """Within the block, ``multigrid.step_obs`` and ``alt_step_obs`` are
+    their plain versions (the learners' engines before S2 and S3)."""
+
+    def __enter__(self):
+        from gym_soccer_tpu_torch.core import multigrid as mg
+        from gym_soccer_tpu_torch.envs import soccer_alternating_env as alt
+        self.saved = mg.step_obs, alt.alt_step_obs
+        mg.step_obs, alt.alt_step_obs = mg.step_obs_plain, \
+            alt.alt_step_obs_plain
+
+    def __exit__(self, *exc):
+        from gym_soccer_tpu_torch.core import multigrid as mg
+        from gym_soccer_tpu_torch.envs import soccer_alternating_env as alt
+        mg.step_obs, alt.alt_step_obs = self.saved
+
+
+def mixed_alt_counts(torch, dev, card):
+    """Phase 51's launch counts, taken early in the process (where the
+    profiler records every launch): device operations a call
+    (``device_ops``) at 8192 lanes of the mixed-geometry engine's
+    observing step on tools/bench_all's mixture and of the alternating
+    engine's on 5x4 slip 0.2, each as its plain version (the previous
+    design) and as S2 / S3, and of an eager learner step of multigrid
+    minimax-Q (the entry point's lr and eps, no re-solve), multigrid IQL
+    and turn-based Q on their engines before (``_PlainEngines``) and after.
+    S2's and S3's steps must be one operation each."""
+    from gym_soccer_tpu_torch.agents import learners as L
+    from gym_soccer_tpu_torch.config import EnvConfig
+    from gym_soccer_tpu_torch.core import multigrid as mg
+    from gym_soccer_tpu_torch.core import threefry
+    from gym_soccer_tpu_torch.envs import soccer_alternating_env as alt
+    cfgs = tuple(EnvConfig(*b) for b in S2_MIXTURES[S23_TIMED])
+    codec = mg.build_codec(cfgs)
+    cfg = EnvConfig(5, 4, SLIP)
+    st = mixed_start(torch, cfgs, B, dev, 1)
+    ast = alt_start(torch, cfg, B, dev, 2)
+    acts = torch.randint(0, 5, (2, B), device=dev)
+    lcfg = L.MinimaxQConfig(lr=0.3, eps=0.3, resolve_every=64,
+                            solver_iters=200, lr_halflife=400,
+                            eps_halflife=666)
+    eng = L._multigrid_engine(codec)
+    mst = L.multigrid_minimax_init(cfgs, threefry.key(0), B, dev)
+    ist = L.multigrid_iql_init(cfgs, threefry.key(1), B, dev)
+    qst = L.altq_init(cfg, threefry.key(2), B, dev)
+    steps = {
+        "mixed engine step": lambda i: mg.step_obs(codec, st, *acts),
+        "alternating engine step": lambda i: alt.alt_step_obs(cfg, ast,
+                                                              acts[0]),
+        "multigrid minimax-Q step": lambda i: L._minimax_step_engine(
+            eng, lcfg, mst, i),
+        "multigrid IQL step": lambda i: L._iql_step_engine(
+            eng, L.IQLConfig(), ist),
+        "turn-based Q step": lambda i: L._altq_step(cfg, L.AltQConfig(),
+                                                    qst, None, None),
+    }
+    counts = {}
+    for name, fn in steps.items():
+        with _PlainEngines():
+            counts[name + ", plain"] = device_ops(torch, fn)
+        counts[name + ", S2/S3"] = device_ops(torch, fn)
+    print(f"[S2/S3] device operations a call (torch.profiler, 3 calls after "
+          f"a warm-up, early in the process; {B} lanes; the mixture "
+          f"{S23_TIMED}, 5x4 slip 0.2): {counts} | {card}")
+    check(counts["mixed engine step, S2/S3"] == 1
+          and counts["alternating engine step, S2/S3"] == 1,
+          f"S2's or S3's step is not one operation: {counts}")
+    return counts
+
+
+def _step_outputs(res, n_fields):
+    """The tensors an engine step computes: the new state's ``n_fields``
+    fields (not its key or geometry), the step's outputs and, from an
+    observing step, (obs, final_obs)."""
+    return [*res[0][:n_fields], *res[1], *(res[2] if len(res) > 2 else ())]
+
+
+def _same(torch, got, want):
+    """(bit-equal, max abs err) of two sequences of tensors."""
+    same = all(a.dtype == b.dtype and a.shape == b.shape
+               and torch.equal(a, b) for a, b in zip(got, want))
+    err = max(float((a.double() - b.double()).abs().max())
+              for a, b in zip(got, want))
+    return same, err
+
+
+def mixed_alt_phase(torch, dev, card, instructions, counts):
+    """Phase 51: S2 (``multigrid.step`` / ``step_obs`` on the card) and S3
+    (``alt_step`` / ``alt_step_obs``) against their plain versions on the
+    card, bit for bit in every output, at S23_LANES x S23_STEPS from
+    ``mixed_start`` / ``alt_start``, autoreset on and off, each step's
+    actions int32 and int64 in turn and S2's observations written on half
+    the steps, one launch a step: S2 on every mixture of S2_MIXTURES, S3 on
+    S3_BOARDS at slip 0.2; each captured once in a CUDA graph and replayed,
+    equal to its eager call; S2, S3, their plain versions and S1 timed
+    (call ms, and device ms by CUDA-graph replay) at 8192 lanes on the
+    S23_TIMED mixture, 5x4 and 5x4; their bounds from their SASS; the
+    launch counts of ``mixed_alt_counts``.  Returns ({S2, S3: max abs
+    err}, their ms and plain ms, {S2, S3: (lanes, bytes)})."""
+    import numpy as np
+    from gym_soccer_tpu_torch.config import EnvConfig
+    from gym_soccer_tpu_torch.core import batch, rules, threefry
+    from gym_soccer_tpu_torch.core import multigrid as mg
+    from gym_soccer_tpu_torch.envs import soccer_alternating_env as alt
+    from gym_soccer_tpu_torch.ops import mixed_alt_kernel as mk
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(51)
+    errs = {S2: 0.0, S3: 0.0}
+    seen = {"goal lanes": 0, "goals": 0, "truncated": 0}
+
+    def run(kernel, name, step, plain, start, n_acts, goal_lanes):
+        n_fields = 7 if kernel == S2 else 8
+        st = start
+        seen["goal lanes"] += goal_lanes
+        for k in range(S23_STEPS):
+            acts = torch.randint(0, 5, (n_acts, S23_LANES),
+                                 generator=gen).to(dev)
+            acts = acts if k % 2 else acts.int()
+            mk.reset_launch_counts()
+            got = step(k, st, acts)
+            check(mk.launch_counts[kernel] == 1,
+                  f"{kernel} not launched once a step")
+            want = plain(k, st, acts)
+            same, err = _same(torch, _step_outputs(got, n_fields),
+                              _step_outputs(want, n_fields))
+            errs[kernel] = max(errs[kernel], err)
+            check(same, f"{kernel} != its plain version on {name}, step "
+                        f"{k}: max abs err {err}")
+            seen["goals"] += int(got[1][1].sum())
+            seen["truncated"] += int(got[1][2].sum())
+            st = got[0]
+
+    for name, mix in S2_MIXTURES.items():
+        cfgs = tuple(EnvConfig(*b) for b in mix)
+        codec = mg.build_codec(cfgs)
+        for auto in (True, False):
+            def step(k, st, acts, plain=False):
+                if k % 4 < 2:
+                    return (mg.step_obs_plain if plain else mg.step_obs)(
+                        codec, st, acts[0], acts[1], auto)
+                return (mg.step_plain if plain else mg.step)(
+                    st, acts[0], acts[1], auto)
+            start = mixed_start(torch, cfgs, S23_LANES, dev, len(name))
+            goals = int(rules.is_goal_state(torch, *start[:5],
+                                            start.geo).sum())
+            run(S2, f"{name} autoreset {auto}", step,
+                lambda k, st, a: step(k, st, a, plain=True), start, 2,
+                goals)
+    for w, h in S3_BOARDS:
+        cfg = EnvConfig(w, h, SLIP)
+        for auto in (True, False):
+            def step(k, st, acts, plain=False):
+                if k % 4 < 2:
+                    return (alt.alt_step_obs_plain if plain
+                            else alt.alt_step_obs)(cfg, st, acts[0], auto)
+                return (alt.alt_step_plain if plain else alt.alt_step)(
+                    cfg, st, acts[0], auto)
+            start = alt_start(torch, cfg, S23_LANES, dev, w)
+            run(S3, f"{w}x{h} autoreset {auto}", step,
+                lambda k, st, a: step(k, st, a, plain=True), start, 1,
+                S23_LANES // 11 + 1)
+    check(all(seen.values()), f"S2/S3's cases missed a kind of lane: {seen}")
+    print(f"[S2/S3] bit-equal to their plain versions on the card in every "
+          f"output: S2 on {list(S2_MIXTURES)}, S3 on "
+          f"{[f'{w}x{h}' for w, h in S3_BOARDS]} slip {SLIP}, autoreset on "
+          f"and off, {S23_LANES} lanes x {S23_STEPS} steps, int32 and int64 "
+          f"actions, one launch a step; max abs err {errs}; {seen}; "
+          f"{time.perf_counter() - t0} s | {card}")
+
+    # the observing steps at 8192 lanes: eager, from a graph, timed
+    cfgs = tuple(EnvConfig(*b) for b in S2_MIXTURES[S23_TIMED])
+    codec = mg.build_codec(cfgs)
+    cfg = EnvConfig(5, 4, SLIP)
+    mst = mixed_start(torch, cfgs, B, dev, 99)
+    ast = alt_start(torch, cfg, B, dev, 98)
+    est = batch.init(cfg, threefry.key(97), B, dev)
+    aa, ab = (torch.as_tensor(x, device=dev) for x in
+              np.random.default_rng(7).integers(0, 5, (2, B)))
+    calls = {S2: lambda: mg.step_obs(codec, mst, aa, ab),
+             S2 + "_plain": lambda: mg.step_obs_plain(codec, mst, aa, ab),
+             S3: lambda: alt.alt_step_obs(cfg, ast, aa),
+             S3 + "_plain": lambda: alt.alt_step_obs_plain(cfg, ast, aa),
+             S1: lambda: batch.step(cfg, est, aa, ab)}
+    for name, n_fields in ((S2, 7), (S3, 8)):
+        eager = _step_outputs(calls[name](), n_fields)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = _step_outputs(calls[name](), n_fields)
+        for t in captured:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        check(_same(torch, captured, eager)[0],
+              f"{name} replayed from a CUDA graph != its eager call")
+        del graph
+    ms, device_ms = {}, {}
+    for name, fn in calls.items():
+        ms[name] = time_cuda(fn)[0]
+        device_ms[name] = _graph_ms(
+            torch, fn, PLAIN_GRAPH_CALLS if "plain" in name
+            else S1_GRAPH_CALLS)
+    r2d, offsets = mg._codec_on(codec.cfgs, dev)
+    maps = batch.device_maps(cfg, dev)
+    nbytes = {S2: B * (7 * 4 + 2 * 8 + 2 * 8 + 5 * 4 + 4 + 9 * 4 + 4 + 2)
+              + (r2d.numel() + offsets.numel()) * 4,
+              S3: B * (8 * 4 + 2 * 8 + 8 + 10 * 4 + 4 + 2)
+              + alt.alt_device_maps(cfg, dev).numel() * 4
+              + sum(t.numel() * t.element_size() for t in maps[1:])}
+    from gym_soccer_tpu_torch.ops import _build
+    regs = ptxas_registers(
+        _build.build("mixed_alt_kernel").with_suffix(".log").read_text())
+    shape = (ctypes.c_int32 * 2)()
+    mk._library().gst_mixed_alt_shape(ctypes.addressof(shape))
+    for name, sym, where in ((S2, S2_SYMBOL, f"the {S23_TIMED} mixture"),
+                             (S3, S3_SYMBOL, "5x4")):
+        bound_ms, bound_by = bound(B, instructions[name], nbytes[name])
+        print(f"[{'S2' if name == S2 else 'S3'}] {B} lanes on {where} "
+              f"(autoreset, observations, int64 actions): {shape[0]} lanes "
+              f"a block, {[r for k, r in regs.items() if sym in k]} "
+              f"registers, {instructions[name]} SASS instructions on the "
+              f"shortest way through a lane, {nbytes[name]} B; bound "
+              f"{bound_ms} ms ({bound_by}); {ms[name]} ms a call, "
+              f"{device_ms[name]} ms of device time (CUDA-graph replay of "
+              f"{S1_GRAPH_CALLS} calls), against the plain version's "
+              f"{ms[name + '_plain']} ms a call and "
+              f"{device_ms[name + '_plain']} ms of device time "
+              f"({PLAIN_GRAPH_CALLS} calls a replay) and S1's "
+              f"{device_ms[S1]} ms of device time ({ms[S1]} ms a call) on "
+              f"5x4 | {card}")
+    print(f"[S2/S3] device operations a call: {counts} | {card}")
+    print(f"[phase 51] {time.perf_counter() - t0} s")
+    return errs, {**{k: v for k, v in ms.items() if k != S1},
+                  S2 + "_device": device_ms[S2],
+                  S3 + "_device": device_ms[S3]}, \
+        {S2: (B, nbytes[S2]), S3: (B, nbytes[S3])}
+
+
+def mixed_alt_block(torch, dev, card, instructions, counts):
+    """``--phases 51`` alone: phase 51, then what earlier phases check of
+    S2 and S3 where the whole script runs them: phase 42's turn-based and
+    mixture learning checks (their launches counted), phase 50's four
+    HBM-table learners against the CPU (``learners_equal_cpu``) and phase
+    49's three rows that step S2 or S3 (``tools_phase``)."""
+    mixed_alt_phase(torch, dev, card, instructions, counts)
+    t0 = time.perf_counter()
+    learning_checks(torch, dev, card, only=(
+        "turn-based Q vs frozen", "turn-based Q", "mixture minimax-Q"))
+    print(f"[phase 42] S2's and S3's checks {time.perf_counter() - t0} s")
+    t0 = time.perf_counter()
+    learners_equal_cpu(torch, dev, card)
+    print(f"[phase 50] the learners {time.perf_counter() - t0} s")
+    tools_phase(torch, dev, card, rows=(
+        "xla_multigrid_mixed", "xla_alternating_engine", "xla_altq_learner"))
 
 
 if __name__ == "__main__":

@@ -16,8 +16,9 @@ The port of gym_soccer_tpu/agents/learners.py:
   the updates as count-normalized scatter-adds in lane order (kernel A1
   on the card, ``index_add_`` on the CPU: ops/scatter_kernel).  Their
   draws come from the engines' per-instance threefry streams (kernel T1
-  on the card; the single-geometry engine's step, its draws included, is
-  kernel S1).  Given the JAX package's state
+  on the card; each engine's step, its draws included, is one kernel:
+  S1 on the single-geometry engine, S2 on the mixed-geometry one and S3
+  on the alternating one).  Given the JAX package's state
   (interop.learner_state_from_numpy) they step the same observations and
   actions on the CPU with the same tables, but for the last bit where
   minimax-Q's schedules take a float32 power (XLA's ``pow`` and the
@@ -41,9 +42,9 @@ minimax-Q's re-solve cadence need no device read a step.
 A step is tens to hundreds of small launches: on the card a minimax-Q
 step on the single-geometry engine is some 60 device operations (S1, one
 T1 draw, the observation, the action sampling, and the updates with A1's
-zero fill and two launches; chip_smoke.py phase 46 counts them), and the
-mixed-geometry and alternating engines still step as chains of PyTorch
-ops around T1's draws.  So a loop of single steps is bound by the host.
+zero fill and two launches; chip_smoke.py phases 46 and 51 count them),
+and the mixed-geometry and alternating engines step in one launch each
+(S2, S3; phase 51).  So a loop of single steps is bound by the host.
 The ``*_train`` functions therefore run ``GROUP_STEPS`` steps (rounded up
 to whole re-solve periods) a replay of one CUDA graph (ops/dispatch, as
 the fused trainers' grouped modes do; on the CPU the same bodies one after
@@ -63,7 +64,8 @@ import torch
 
 from ..config import EnvConfig
 from ..core import batch, multigrid, tables
-from ..ops import dispatch, engine_kernel, scatter_kernel, threefry_kernel
+from ..ops import (dispatch, engine_kernel, mixed_alt_kernel, scatter_kernel,
+                   threefry_kernel)
 
 N_ACTIONS = 5
 
@@ -259,9 +261,8 @@ def _multigrid_engine(codec: multigrid.MultiGridCodec) -> _Engine:
     """Mixed-geometry engine: learner tables are concatenated over variants
     (index = codec.offsets[vid] + per-variant dense obs)."""
     def estep(env, aa, ab):
-        mid, (r, goal, trunc) = multigrid.step(env, aa, ab, autoreset=False)
-        final_obs = multigrid.global_obs(codec, mid)
-        env2 = multigrid.reset_where(mid, goal | trunc)
+        env2, (r, goal, trunc), (_, final_obs) = multigrid.step_obs(
+            codec, env, aa, ab)
         return env2, r, goal, trunc, final_obs
 
     return _Engine(
@@ -446,8 +447,8 @@ def _grouped(step, state, first: int, n_periods: int, period: int, g: int,
     """``n_periods`` x ``period`` steps from host step ``first`` (a multiple
     of ``period``) through ``dispatch.run``: the carry is a copy of the
     state's tensors, each body runs ``period`` steps and writes them back;
-    S1's, T1's, A1's and R1's launch counts are kept as the fused
-    trainers' are."""
+    S1's, S2's, S3's, T1's, A1's and R1's launch counts are kept as the
+    fused trainers' are."""
     carry = [t.clone() for t in _tensors(state)]
     dev = carry[0].device
     tds = torch.zeros(n_periods * period, dtype=torch.float32, device=dev)
@@ -469,6 +470,7 @@ def _grouped(step, state, first: int, n_periods: int, period: int, g: int,
 
     dispatch.run(body, carry + [tds, k], n_periods, g,
                  counters=(engine_kernel.launch_counts,
+                           mixed_alt_kernel.launch_counts,
                            threefry_kernel.launch_counts,
                            scatter_kernel.launch_counts, launch_counts),
                  mesh=mesh)
@@ -684,24 +686,17 @@ def altq_init(cfg: EnvConfig, key, n_envs: int, device="cuda") -> AltQState:
 
 
 @functools.lru_cache(maxsize=None)
-def _alt_maps(cfg: EnvConfig, device: torch.device):
+def _alt_turns(cfg: EnvConfig, device: torch.device):
     from ..envs import soccer_alternating_env as alt
-    tb = alt.build_alt_tables(cfg)
-    return (torch.as_tensor(tb.raw_to_dense, device=device).long(),
-            torch.as_tensor(tb.turn, device=device))
+    return torch.as_tensor(alt.build_alt_tables(cfg).turn, device=device)
 
 
 def _altq_step(cfg: EnvConfig, lcfg: AltQConfig, state: AltQState, fa, fb,
                mesh=None):
     from ..envs import soccer_alternating_env as alt
     st = state.env
-    r2d, turn_of = _alt_maps(cfg, state.q.device)
-
-    def dense_obs(s):
-        return r2d[alt.alt_raw_encode(torch, s.rows_a, s.cols_a, s.rows_b,
-                                      s.cols_b, s.poss, s.turn, cfg).long()]
-
-    obs = dense_obs(st)
+    turn_of = _alt_turns(cfg, state.q.device)
+    obs = alt.alt_observe(cfg, st).long()
     u = batch.per_env_uniforms(alt._env_view(st), 2, salt=1).T
     mover_is_a = st.turn == 0
     qrow = state.q[obs]
@@ -713,8 +708,9 @@ def _altq_step(cfg: EnvConfig, lcfg: AltQConfig, state: AltQState, fa, fb,
     if fb is not None:
         a = torch.where(mover_is_a, a, fb[obs])
 
-    mid, (reward_a, goal, trunc) = alt.alt_step(cfg, st, a, autoreset=False)
-    final_obs = dense_obs(mid)
+    env2, (reward_a, goal, trunc), (_, final_obs) = alt.alt_step_obs(
+        cfg, st, a)
+    final_obs = final_obs.long()
     term = goal | trunc
     cont = torch.where(term, 0.0, 1.0)
     next_is_a = turn_of[final_obs] == 0
@@ -734,7 +730,6 @@ def _altq_step(cfg: EnvConfig, lcfg: AltQConfig, state: AltQState, fa, fb,
     sum_td, cnt = _psum(mesh, *scatter_kernel.scatter_add(cells, td, n))
     q = state.q + (_f32(lcfg.lr) * sum_td / cnt.clamp_min(1.0)
                    ).view_as(state.q)
-    env2 = alt.alt_reset_where(cfg, mid, term)
     return AltQState(q=q, env=env2, step=state.step + 1), td.abs().mean()
 
 

@@ -9,8 +9,13 @@ index and its block in tables concatenated over the variants;
 
 The engine (``MultiGridState``, ``init``, ``uniforms``, ``reset_where``,
 ``step``, ``rollout``) draws from per-instance keys with JAX's threefry by
-default (``uniforms`` passes its ``rng`` to ``batch.per_env_uniforms``,
-kernel T1 on a CUDA tensor), and equals the JAX package's bit for bit.
+default, and equals the JAX package's bit for bit.  On CUDA tensors
+``step`` (and ``step_obs``, which also writes the learners'
+observations) is kernel S2 (ops/mixed_alt_kernel): the whole step, its
+transition and reset draws included, in one launch; ``step_plain`` is its
+plain version, which ``step`` runs on CPU tensors.  ``uniforms`` passes its
+``rng`` to ``batch.per_env_uniforms`` (kernel T1 on a CUDA tensor): the
+policies' draws and ``init``'s reset.
 The fused mixed-geometry kernels (ops/step_kernel ``multigrid_rollout``,
 ops/learner_kernel's tuple configs) use the counter PRNG.
 """
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 
 from ..config import EnvConfig
+from ..ops import mixed_alt_kernel
 from . import batch as corebatch
 from . import rules, tables, threefry
 
@@ -185,8 +191,55 @@ def reset_where(st: MultiGridState, mask: torch.Tensor) -> MultiGridState:
 
 def step(st: MultiGridState, actions_a: torch.Tensor,
          actions_b: torch.Tensor, autoreset: bool = True):
-    """core/batch.step with per-lane geometry.  Returns (state,
-    (reward_a, goal, truncated))."""
+    """core/batch.step with per-lane geometry: ``step_plain`` on CPU
+    tensors; on CUDA tensors one launch of kernel S2, which computes the
+    same outputs bit for bit and raises if it cannot launch.  Returns
+    (state, (reward_a, goal, truncated))."""
+    if st.key.device.type == "cpu":
+        return step_plain(st, actions_a, actions_b, autoreset)
+    return _step_on_card(st, actions_a, actions_b, autoreset, None)[:2]
+
+
+def step_obs(codec: MultiGridCodec, st: MultiGridState,
+             actions_a: torch.Tensor, actions_b: torch.Tensor,
+             autoreset: bool = True):
+    """``step`` that also observes: returns (state, (reward_a, goal,
+    truncated), (obs, final_obs)), ``obs`` the ``global_obs`` of the new
+    state and ``final_obs`` that of the state before the reset (the
+    terminal observation the learners bootstrap from).  ``step_obs_plain``
+    on CPU tensors; on CUDA tensors one launch of S2."""
+    if st.key.device.type == "cpu":
+        return step_obs_plain(codec, st, actions_a, actions_b, autoreset)
+    return _step_on_card(st, actions_a, actions_b, autoreset,
+                         _codec_on(codec.cfgs, st.key.device))
+
+
+def step_obs_plain(codec: MultiGridCodec, st: MultiGridState,
+                   actions_a: torch.Tensor, actions_b: torch.Tensor,
+                   autoreset: bool = True):
+    """Plain version of ``step_obs``, on any device: ``step_plain``
+    without reset, the observation, then ``reset_where`` on the lanes that
+    ended (the stream of ``step_plain``'s autoreset)."""
+    mid, out = step_plain(st, actions_a, actions_b, autoreset=False)
+    final_obs = global_obs(codec, mid)
+    new = _reset_where(mid, out[1] | out[2]) if autoreset else mid
+    return new, out, (global_obs(codec, new), final_obs)
+
+
+def _step_on_card(st, actions_a, actions_b, autoreset, codec_maps):
+    geo = st.geo
+    ints, reward, flags = mixed_alt_kernel.multigrid_step(
+        st[:7], st.key, actions_a, actions_b,
+        (geo.H, geo.W, geo.glo, geo.ghi, geo.vid, geo.slip), geo.max_steps,
+        autoreset, codec_maps)
+    ra, ca, rb, cb, poss, t, n, *obs = ints.unbind()
+    new = MultiGridState(ra, ca, rb, cb, poss, t, n, key=st.key, geo=geo)
+    return new, (reward, flags[0], flags[1]), tuple(obs)
+
+
+def step_plain(st: MultiGridState, actions_a: torch.Tensor,
+               actions_b: torch.Tensor, autoreset: bool = True):
+    """Plain PyTorch version of ``step``, on any device."""
     geo = st.geo
     u = uniforms(st, 4)
     actions_a = actions_a.to(torch.int32)

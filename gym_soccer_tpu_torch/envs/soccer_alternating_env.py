@@ -13,9 +13,14 @@ A-perspective reward +-1.
   byte; ``alt_value_iteration_torch`` is the twin of the JAX package's
   jitted ``alt_value_iteration_jax`` on tensors.
 * ``AltEnvState``, ``alt_init``, ``alt_step`` and ``alt_reset_where``
-  are the batched engine on per-instance threefry keys (core/batch's
-  draws, kernel T1 on a CUDA tensor), equal to the JAX package's bit for
-  bit.
+  are the batched engine on per-instance threefry keys, equal to the JAX
+  package's bit for bit.  On CUDA tensors ``alt_step`` (and
+  ``alt_step_obs``, which also writes the learners' observations) is
+  kernel S3 (ops/mixed_alt_kernel): the whole tick, its transition and
+  reset draws included, in one launch; ``alt_step_plain`` is its plain
+  version, which ``alt_step`` runs on CPU tensors.  ``alt_init`` and
+  ``alt_reset_where`` draw through core/batch (kernel T1 on a CUDA
+  tensor).
 * ``alt_policy_rollout`` plays two policy arrays against each other
   through ``alt_step`` from ``key(seed)``, as the JAX version does: the
   same (wins, losses, truncations) bit for bit.
@@ -39,6 +44,7 @@ from ..config import MOVES, N_ACTIONS, EnvConfig, orthogonal_moves
 from ..core import batch as corebatch
 from ..core import rules, threefry
 from ..core.tables import _move_variants, build_isd
+from ..ops import mixed_alt_kernel
 
 
 def alt_transition(xp, xa, ya, xb, yb, p, turn, action, mc, mr, cfg):
@@ -99,8 +105,70 @@ def alt_init(cfg: EnvConfig, key: torch.Tensor, batch: int,
 
 def alt_step(cfg: EnvConfig, state: AltEnvState, action: torch.Tensor,
              autoreset: bool = True):
-    """Batched alternating-turn step for the current mover of each lane.
-    Returns (state, (reward_a, goal, truncated))."""
+    """Batched alternating-turn step for the current mover of each lane:
+    ``alt_step_plain`` on CPU tensors; on CUDA tensors one launch of
+    kernel S3, which computes the same outputs bit for bit and raises if
+    it cannot launch.  Returns (state, (reward_a, goal, truncated))."""
+    if state.key.device.type == "cpu":
+        return alt_step_plain(cfg, state, action, autoreset)
+    return _alt_step_on_card(cfg, state, action, autoreset)[:2]
+
+
+def alt_step_obs(cfg: EnvConfig, state: AltEnvState, action: torch.Tensor,
+                 autoreset: bool = True):
+    """``alt_step`` that also observes: returns (state, (reward_a, goal,
+    truncated), (obs, final_obs)), ``obs`` the ``alt_observe`` of the new
+    state and ``final_obs`` that of the state before the reset.
+    ``alt_step_obs_plain`` on CPU tensors; on CUDA tensors one launch of
+    S3."""
+    if state.key.device.type == "cpu":
+        return alt_step_obs_plain(cfg, state, action, autoreset)
+    return _alt_step_on_card(cfg, state, action, autoreset)
+
+
+def alt_step_obs_plain(cfg: EnvConfig, state: AltEnvState,
+                       action: torch.Tensor, autoreset: bool = True):
+    """Plain version of ``alt_step_obs``, on any device: ``alt_step_plain``
+    without reset, the observation, then ``alt_reset_where`` on the lanes
+    that ended (the stream of ``alt_step_plain``'s autoreset)."""
+    mid, out = alt_step_plain(cfg, state, action, autoreset=False)
+    final_obs = alt_observe(cfg, mid)
+    new = alt_reset_where(cfg, mid, out[1] | out[2]) if autoreset else mid
+    return new, out, (alt_observe(cfg, new), final_obs)
+
+
+@functools.lru_cache(maxsize=None)
+def alt_device_maps(cfg: EnvConfig, device: torch.device) -> torch.Tensor:
+    """The alternating tables' ``raw_to_dense`` (int32 [n_raw * 2]) on
+    ``device``, cached."""
+    return torch.as_tensor(build_alt_tables(cfg).raw_to_dense, device=device)
+
+
+def alt_observe(cfg: EnvConfig, state: AltEnvState) -> torch.Tensor:
+    """Dense alternating-state index of each lane (int32 [B]; goal states
+    0, unreachable -1).  A code off the table (a lane that walked on from a
+    goal without autoreset) is read as JAX's gather reads it: a negative
+    code counts from the end, then the code is clamped to the table."""
+    r2d = alt_device_maps(cfg, state.key.device)
+    raw = alt_raw_encode(torch, state.rows_a, state.cols_a, state.rows_b,
+                         state.cols_b, state.poss, state.turn, cfg).long()
+    raw = torch.where(raw < 0, raw + len(r2d), raw).clamp(0, len(r2d) - 1)
+    return r2d[raw]
+
+
+def _alt_step_on_card(cfg, state, action, autoreset):
+    dev = state.key.device
+    ints, reward, flags = mixed_alt_kernel.alt_step(
+        cfg, state[:8], state.key, action, alt_device_maps(cfg, dev),
+        corebatch.device_maps(cfg, dev), autoreset)
+    ra, ca, rb, cb, poss, turn, t, n, obs, final_obs = ints.unbind()
+    return (AltEnvState(ra, ca, rb, cb, poss, turn, t, n, state.key),
+            (reward, flags[0], flags[1]), (obs, final_obs))
+
+
+def alt_step_plain(cfg: EnvConfig, state: AltEnvState, action: torch.Tensor,
+                   autoreset: bool = True):
+    """Plain PyTorch version of ``alt_step``, on any device."""
     u = corebatch.per_env_uniforms(_env_view(state), 2)
     action = action.to(torch.int32)
     variant = corebatch._slip_variant(cfg, u[:, 0])

@@ -34,6 +34,8 @@ LIBRARIES = {"step_kernel": ("step_kernel.cu", "game.cuh", "pipeline.cuh"),
              "threefry_kernel": ("threefry_kernel.cu", "threefry.cuh"),
              "engine_kernel": ("engine_kernel.cu", "game.cuh",
                                "threefry.cuh"),
+             "mixed_alt_kernel": ("mixed_alt_kernel.cu", "game.cuh",
+                                  "threefry.cuh"),
              "scatter_kernel": ("scatter_kernel.cu",)}
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -29,7 +29,10 @@
 //   obs = raw_to_dense of the new state
 // All integer arithmetic is on uint32/int32 with the plain version's
 // wrap-around; every float is one rounded IEEE operation, so the outputs
-// equal `step_plain`'s bit for bit.
+// equal `step_plain`'s bit for bit.  The slip variant, the slipped move and
+// the collision chain with its slot are game.cuh's `slip_variant`,
+// `variant_move` and `resolve_step`, which kernel S2 (mixed_alt_kernel.cu)
+// runs on each lane's own board.
 //
 // What bounds it: per lane it reads 52 B (seven int32 fields, the two key
 // words as int64, two int32 actions; int64 actions add 8) and writes 46 B
@@ -78,51 +81,27 @@ struct Args {
 
 enum Rng { kThreefry = 0, kCounter = 1 };
 
-// The uniform of word w at draw counter n: threefry's (under the lane's
-// key folded with n, `k`) or the counter hash's (batch.per_env_uniforms,
+// u[0..COUNT) at draw counter n for the lane's key words (kw0, kw1):
+// threefry's (threefry.cuh) or the counter hash's (batch.per_env_uniforms,
 // salt 0).
-template <int RNG>
-__device__ __forceinline__ float uniform_at(uint32_t k0, uint32_t k1,
-                                            uint32_t base2, uint32_t n,
-                                            uint32_t w) {
-  if (RNG == kThreefry) return gst::to_uniform(gst::random_bits(k0, k1, w));
-  const uint32_t c = n * 0x85EBCA77u + w * 0xC2B2AE3Du;
-  const uint32_t bits = gst::fmix32(gst::fmix32(k0 ^ c) + (c ^ base2));
-  return __fmul_rn(__uint2float_rn(bits >> 8), 1.0f / 16777216.0f);
-}
-
-// u[0..count) at draw counter n for the lane's key words (kw0, kw1).
 template <int RNG, int COUNT>
 __device__ __forceinline__ void draw(uint32_t kw0, uint32_t kw1, uint32_t n,
                                      float* u) {
-  uint32_t k0 = kw0, k1 = kw1, base2 = 0u;
-  if (RNG == kThreefry) gst::fold_in(k0, k1, n);
-  else base2 = gst::fmix32(kw1 ^ 0x3C6EF372u);
+  if (RNG == kThreefry) {
+    gst::uniforms_at<COUNT>(kw0, kw1, n, u);
+    return;
+  }
+  const uint32_t base2 = gst::fmix32(kw1 ^ 0x3C6EF372u);
 #pragma unroll
-  for (int w = 0; w < COUNT; ++w) u[w] = uniform_at<RNG>(k0, k1, base2, n, w);
+  for (int w = 0; w < COUNT; ++w) {
+    const uint32_t c = n * 0x85EBCA77u + (uint32_t)w * 0xC2B2AE3Du;
+    const uint32_t bits = gst::fmix32(gst::fmix32(kw0 ^ c) + (c ^ base2));
+    u[w] = __fmul_rn(__uint2float_rn(bits >> 8), 1.0f / 16777216.0f);
+  }
 }
 
-__device__ __forceinline__ int slip_variant(float u, const Params& g) {
-  return u < g.keep ? 0 : (u < g.first ? 1 : 2);
-}
-
-// (dcol, drow) of action a under slip variant v (batch._slipped_move_arith).
-__device__ __forceinline__ void slipped_move(int a, int v, int& mc, int& mr) {
-  const int mc0 = (a == 3) - (a == 4);
-  const int mr0 = (a == 2) - (a == 1);
-  mc = v == 0 ? mc0 : (v == 1 ? -mr0 : mr0);
-  mr = v == 0 ? mr0 : (v == 1 ? mc0 : -mc0);
-}
-
-__device__ __forceinline__ bool is_goal(int xa, int ya, int xb, int yb, int p,
-                                        const Params& g) {
-  return (p == 0 && gst::in_goal_rows(xa, g) && (ya == 0 || ya == g.W - 1)) ||
-         (p == 1 && gst::in_goal_rows(xb, g) && (yb == 0 || yb == g.W - 1));
-}
-
-__device__ __forceinline__ int dense(const Args& a, int xa, int ya, int xb,
-                                     int yb, int p) {
-  int raw = (((xa * a.g.W + ya) * a.g.H + xb) * a.g.W + yb) * 2 + p;
+__device__ __forceinline__ int dense(const Args& a, const gst::State& s) {
+  int raw = (((s.ra * a.g.W + s.ca) * a.g.H + s.rb) * a.g.W + s.cb) * 2 + s.p;
   if (raw < 0) raw += a.g.n_raw;   // a negative index counts from the end
   return a.raw_to_dense[raw];
 }
@@ -147,65 +126,25 @@ __global__ void __launch_bounds__(kThreads) engine_step_kernel(Args a) {
 
   float u[3];
   draw<RNG, 3>(kw0, kw1, n, u);
-  const int va = slip_variant(u[0], g), vb = slip_variant(u[1], g);
+  const int va = gst::slip_variant(u[0], g.keep, g.first);
+  const int vb = gst::slip_variant(u[1], g.keep, g.first);
   int mca, mra, mcb, mrb;
-  slipped_move(aa, va, mca, mra);
-  slipped_move(ab, vb, mcb, mrb);
-
-  // rules.resolve_outcomes, slot by slot.
-  int nxa, nya, nxb, nyb;
-  gst::next_cell(xa, ya, mca, mra, p == 0, g, nxa, nya);
-  gst::next_cell(xb, yb, mcb, mrb, p == 1, g, nxb, nyb);
-  const bool c1 = (xa == xb && abs(ya - yb) == 1 && nya == yb && nyb == ya) ||
-                  (ya == yb && abs(xa - xb) == 1 && nxa == xb && nxb == xa);
-  const bool c2 = !c1 && ((nxa == xb && nya == yb && ab == 0) ||
-                          (nxb == xa && nyb == ya && aa == 0));
-  const bool c3 =
-      !c1 && !c2 &&
-      ((xa == nxa && ya == nya && aa != 0 && nxb == xa && nyb == ya) ||
-       (xb == nxb && yb == nyb && ab != 0 && nxa == xb && nya == yb));
-  const bool c4 = !c1 && !c2 && !c3 && nxa == nxb && nya == nyb;
-  const bool c5 = !c1 && !c2 && !c3 && !c4;
-  const bool was_goal = is_goal(xa, ya, xb, yb, p, g);
-  float w0 = (c1 || c3) ? 0.5f : (c4 ? 0.25f : 1.0f);
-  float w1 = c4 ? 0.25f : ((c1 || c3) ? 0.5f : 0.0f);
-  float w2 = c4 ? 0.25f : 0.0f;
-  if (was_goal) w0 = 1.0f, w1 = 0.0f, w2 = 0.0f;
-  const float s1 = __fadd_rn(w0, w1), s2 = __fadd_rn(s1, w2);
-  const float s3 = __fadd_rn(s2, w2);
-  const int k = min((w0 <= u[2]) + (s1 <= u[2]) + (s2 <= u[2]) + (s3 <= u[2]),
-                    3);
-  // slot 0: A moves on a clean move, B on a race or a clean move; slot 1:
-  // both bounce (B moves on a race), B holds the ball; slots 2, 3: A moves,
-  // B bounces, the ball with A, then with B.
-  int rxa, rya, rxb, ryb, rp;
-  if (k == 0) {
-    rxa = c5 ? nxa : xa;
-    rya = c5 ? nya : ya;
-    rxb = (c4 || c5) ? nxb : xb;
-    ryb = (c4 || c5) ? nyb : yb;
-    rp = c2 ? 1 - p : (c5 ? p : 0);
-  } else if (k == 1) {
-    rxa = xa, rya = ya;
-    rxb = c4 ? nxb : xb;
-    ryb = c4 ? nyb : yb;
-    rp = 1;
-  } else {
-    rxa = nxa, rya = nya, rxb = xb, ryb = yb;
-    rp = k == 2 ? 0 : 1;
-  }
-  const float wk = k == 0 ? w0 : (k == 1 ? w1 : w2);
-  if (was_goal) rxa = xa, rya = ya, rxb = xb, ryb = yb, rp = p;
-  const bool now_goal = is_goal(rxa, rya, rxb, ryb, rp, g);
+  gst::variant_move(aa, va, mca, mra);
+  gst::variant_move(ab, vb, mcb, mrb);
+  gst::State s{xa, ya, xb, yb, p, t};
+  bool was_goal;
+  const float wk = gst::resolve_step(s, aa, ab, mca, mra, mcb, mrb, u[2], g,
+                                     was_goal);
+  const bool now_goal = gst::is_goal_state(s, g);
 
   const float pa = va == 0 ? g.keep : g.slip, pb = vb == 0 ? g.keep : g.slip;
-  const float prob = __fmul_rn(__fmul_rn(pa, pb), was_goal ? 1.0f : wk);
-  const int ball_col = rp == 0 ? rya : ryb;
+  const float prob = __fmul_rn(__fmul_rn(pa, pb), wk);
+  const int ball_col = s.p == 0 ? s.ca : s.cb;
   const float reward =
       (now_goal && !was_goal) ? (ball_col == g.W - 1 ? 1.0f : -1.0f) : 0.0f;
   const int t1 = (int)((uint32_t)t + 1u);
   const bool truncated = t1 >= g.max_steps;
-  const int final_obs = dense(a, rxa, rya, rxb, ryb, rp);
+  const int final_obs = dense(a, s);
 
   int ot = t1;
   uint32_t on = n + 1u;
@@ -218,19 +157,19 @@ __global__ void __launch_bounds__(kThreads) engine_step_kernel(Args a) {
     idx = max(min(idx, g.nI - 1), 0);
     if (now_goal || truncated) {
       const int32_t* e = a.isd_fields + 5 * idx;
-      rxa = e[0], rya = e[1], rxb = e[2], ryb = e[3], rp = e[4];
+      s = {e[0], e[1], e[2], e[3], e[4], 0};
       ot = 0;
     }
   }
   int32_t* o = a.out_i + i;
-  o[0] = rxa;
-  o[B] = rya;
-  o[2 * B] = rxb;
-  o[3 * B] = ryb;
-  o[4 * B] = rp;
+  o[0] = s.ra;
+  o[B] = s.ca;
+  o[2 * B] = s.rb;
+  o[3 * B] = s.cb;
+  o[4 * B] = s.p;
   o[5 * B] = ot;
   o[6 * B] = (int32_t)on;
-  o[7 * B] = AUTORESET ? dense(a, rxa, rya, rxb, ryb, rp) : final_obs;
+  o[7 * B] = AUTORESET ? dense(a, s) : final_obs;
   o[8 * B] = final_obs;
   a.out_f[i] = reward;
   a.out_f[B + i] = prob;

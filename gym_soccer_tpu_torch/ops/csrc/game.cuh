@@ -1,13 +1,16 @@
 // Device code of the soccer game shared by the port's CUDA kernels
 // (step_kernel.cu: K1, K2, K3, K4; learner_kernel.cu: K5, K6, K7;
-// iql_kernel.cu: K8, K9; altq_kernel.cu: K10, K11), and the host helpers
-// that describe a game to them.  The parity kernels K12/K13
+// iql_kernel.cu: K8, K9; altq_kernel.cu: K10, K11; the batched engines'
+// steps, engine_kernel.cu: S1 and mixed_alt_kernel.cu: S2, S3), and the
+// host helpers that describe a game to them.  The parity kernels K12/K13
 // (parity_kernel.cu) step by table lookup and include none of it.
 //
-// Every function here is integer arithmetic on uint32/int32, written to
-// give the same bits as gym_soccer_tpu/ops/step_kernel.py's
-// `_random_word`, `transition_core`, `alt_transition_core` and
-// `autoreset_core` and as the plain PyTorch versions in ops/step_kernel.py.
+// Every function here but the engines' step section is integer arithmetic
+// on uint32/int32, written to give the same bits as
+// gym_soccer_tpu/ops/step_kernel.py's `_random_word`, `transition_core`,
+// `alt_transition_core` and `autoreset_core` and as the plain PyTorch
+// versions in ops/step_kernel.py; that section compares float32 uniforms
+// and sums exact float32 weights as core/batch.step_plain does.
 //
 // The game functions take any geometry G with the fields H, W, glo, ghi,
 // q_int, max_steps and nI: a `Game`, one board shared by every lane (its ISD
@@ -174,6 +177,89 @@ __device__ __forceinline__ void alt_transition(State& s, int turn, int a,
   const bool gr = a_ball ? in_goal_rows(s.ra, g) : in_goal_rows(s.rb, g);
   goal = gr && (ball_col == 0 || ball_col == g.W - 1);
   r = goal ? (ball_col == g.W - 1 ? 1 : -1) : 0;
+}
+
+// ---- The batched engines' step (engine_kernel.cu: S1; mixed_alt_kernel.cu:
+// S2, S3), on float32 uniforms and thresholds as core/batch.step_plain ----
+
+// Slip variant of a uniform u (batch._slip_variant): 0 (the intended move)
+// if u < keep = f32(1 - q), 1 (the first orthogonal) if u < first =
+// f32(1 - q / 2), else 2.
+__device__ __forceinline__ int slip_variant(float u, float keep,
+                                            float first) {
+  return u < keep ? 0 : (u < first ? 1 : 2);
+}
+
+// (dcol, drow) of action a under slip variant v (batch._slipped_move_arith).
+__device__ __forceinline__ void variant_move(int a, int v, int& mc,
+                                             int& mr) {
+  const int mc0 = (a == 3) - (a == 4);
+  const int mr0 = (a == 2) - (a == 1);
+  mc = v == 0 ? mc0 : (v == 1 ? -mr0 : mr0);
+  mr = v == 0 ? mr0 : (v == 1 ? mc0 : -mc0);
+}
+
+// rules.is_goal_state: the ball's carrier on a goal row in a goal column.
+template <class G>
+__device__ __forceinline__ bool is_goal_state(const State& s, const G& g) {
+  return (s.p == 0 && in_goal_rows(s.ra, g) && (s.ca == 0 || s.ca == g.W - 1))
+      || (s.p == 1 && in_goal_rows(s.rb, g) && (s.cb == 0 || s.cb == g.W - 1));
+}
+
+// One simultaneous step of rules.resolve_outcomes under the slipped moves
+// (mca, mra), (mcb, mrb) and the original actions aa, ab, the outcome slot
+// k drawn by u2: k = the count of the float32 prefix sums of the slots'
+// weights (0, 0.25, 0.5 or 1, so the sums are exact) that are <= u2, at
+// most 3.  Slot 0: A moves on a clean move, B on a race or a clean move;
+// slot 1: both bounce (B moves on a race), B holds the ball; slots 2, 3: A
+// moves, B bounces, the ball with A, then with B.  A goal state stays put
+// (was_goal).  Writes the new cells and possession into s and returns the
+// slot's weight (1 in a goal state).
+template <class G>
+__device__ __forceinline__ float resolve_step(State& s, int aa, int ab,
+                                              int mca, int mra, int mcb,
+                                              int mrb, float u2, const G& g,
+                                              bool& was_goal) {
+  const int xa = s.ra, ya = s.ca, xb = s.rb, yb = s.cb, p = s.p;
+  int nxa, nya, nxb, nyb;
+  next_cell(xa, ya, mca, mra, p == 0, g, nxa, nya);
+  next_cell(xb, yb, mcb, mrb, p == 1, g, nxb, nyb);
+  const bool c1 = (xa == xb && abs(ya - yb) == 1 && nya == yb && nyb == ya) ||
+                  (ya == yb && abs(xa - xb) == 1 && nxa == xb && nxb == xa);
+  const bool c2 = !c1 && ((nxa == xb && nya == yb && ab == 0) ||
+                          (nxb == xa && nyb == ya && aa == 0));
+  const bool c3 =
+      !c1 && !c2 &&
+      ((xa == nxa && ya == nya && aa != 0 && nxb == xa && nyb == ya) ||
+       (xb == nxb && yb == nyb && ab != 0 && nxa == xb && nya == yb));
+  const bool c4 = !c1 && !c2 && !c3 && nxa == nxb && nya == nyb;
+  const bool c5 = !c1 && !c2 && !c3 && !c4;
+  was_goal = is_goal_state(s, g);
+  float w0 = (c1 || c3) ? 0.5f : (c4 ? 0.25f : 1.0f);
+  float w1 = c4 ? 0.25f : ((c1 || c3) ? 0.5f : 0.0f);
+  float w2 = c4 ? 0.25f : 0.0f;
+  if (was_goal) w0 = 1.0f, w1 = 0.0f, w2 = 0.0f;
+  const float s1 = __fadd_rn(w0, w1), s2 = __fadd_rn(s1, w2);
+  const float s3 = __fadd_rn(s2, w2);
+  const int k = min((w0 <= u2) + (s1 <= u2) + (s2 <= u2) + (s3 <= u2), 3);
+  if (was_goal) return 1.0f;
+  if (k == 0) {
+    s.ra = c5 ? nxa : xa;
+    s.ca = c5 ? nya : ya;
+    s.rb = (c4 || c5) ? nxb : xb;
+    s.cb = (c4 || c5) ? nyb : yb;
+    s.p = c2 ? 1 - p : (c5 ? p : 0);
+    return w0;
+  }
+  if (k == 1) {
+    s.rb = c4 ? nxb : xb;
+    s.cb = c4 ? nyb : yb;
+    s.p = 1;
+    return w1;
+  }
+  s.ra = nxa, s.ca = nya;
+  s.p = k == 2 ? 0 : 1;
+  return w2;
 }
 
 // ISD entry idx of a shared board: the listed entries.

@@ -1,5 +1,6 @@
 // JAX's threefry2x32 on the device, shared by kernel T1 (threefry_kernel.cu)
-// and kernel S1 (engine_kernel.cu).
+// and the engines' steps, kernel S1 (engine_kernel.cu) and kernels S2 and
+// S3 (mixed_alt_kernel.cu).
 //
 // The same numbers as core/threefry.py and `jax.random` (JAX 0.9.0, the
 // partitionable layout), bit for bit: `threefry2x32` is the 20-round hash
@@ -65,6 +66,18 @@ __device__ __forceinline__ uint32_t random_bits(uint32_t k0, uint32_t k1,
   uint32_t x0 = 0u, x1 = j;
   threefry2x32(k0, k1, x0, x1);
   return x0 ^ x1;
+}
+
+// u[0..COUNT) of uniform(fold_in(key, n), (m,)) for any m >= COUNT (an
+// element's bits do not depend on m), the key's words (kw0, kw1).
+template <int COUNT>
+__device__ __forceinline__ void uniforms_at(uint32_t kw0, uint32_t kw1,
+                                            uint32_t n, float* u) {
+  uint32_t k0 = kw0, k1 = kw1;
+  fold_in(k0, k1, n);
+#pragma unroll
+  for (int w = 0; w < COUNT; ++w)
+    u[w] = to_uniform(random_bits(k0, k1, (uint32_t)w));
 }
 
 // The lane's key after fold_in(key, n) and, when SALTED, fold_in(., salt).

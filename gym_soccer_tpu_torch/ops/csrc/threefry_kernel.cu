@@ -6,10 +6,11 @@
 // (gym_soccer_tpu/core/batch.py, rng="threefry", its default) and under
 // `jax.random.uniform` / `randint` of `fold_in(key, i)` (its examples'
 // policies), and the port's plain versions (ops/threefry_kernel.py) compose
-// core/threefry's functions.  The batched engine's own step draws inside
-// kernel S1 (engine_kernel.cu); T1 draws for the learners' salted action
-// draws, `batch.init`'s reset, `random_rollout_stats`' policy and the
-// mixed-geometry and alternating engines.  As PyTorch ops a threefry block
+// core/threefry's functions.  The engines' own steps draw inside kernels
+// S1 (engine_kernel.cu), S2 and S3 (mixed_alt_kernel.cu); T1 draws for the
+// learners' salted action draws, the engines' initial resets and the
+// policies' per-lane draws (`random_rollout_stats`', the mixed-geometry
+// rollouts').  As PyTorch ops a threefry block
 // is ~100 elementwise launches.
 //
 // What `threefry_uniforms_kernel` computes, one thread a lane i, all in

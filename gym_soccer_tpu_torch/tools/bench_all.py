@@ -197,8 +197,8 @@ def bench_xla_stats_counter(device, quick=False, batch=LANES_ONE_WAVE,
 
 def bench_multigrid(device, quick=False, batch=LANES_ONE_WAVE, steps=None):
     """The mixed-geometry engine on 5x4 0.2, 6x5 0.1 and 9x6 0.3 (the JAX
-    row's boards), actions from ``uniforms(s, 2, salt=9)``: an op chain
-    around three T1 draws a step."""
+    row's boards), actions from ``uniforms(s, 2, salt=9)``: S2 and the
+    policy's T1 draw a step on the card."""
     from ..core import multigrid
     T = steps or (200 if quick else 1000)
     cfgs = [EnvConfig(5, 4, 0.2), EnvConfig(6, 5, 0.1), EnvConfig(9, 6, 0.3)]
@@ -218,8 +218,8 @@ def bench_multigrid(device, quick=False, batch=LANES_ONE_WAVE, steps=None):
 
 def bench_alternating(device, quick=False, batch=LANES_ONE_WAVE, steps=None):
     """The alternating-turn engine under the minimax value iteration's
-    policy pair (``alt_value_iteration`` on the host, set-up): an op chain
-    around two T1 draws a step."""
+    policy pair (``alt_value_iteration`` on the host, set-up): S3 and the
+    policy's lookup a step on the card."""
     from ..envs.soccer_alternating_env import (
         alt_init, alt_raw_encode, alt_step, alt_value_iteration,
         build_alt_tables)
@@ -246,7 +246,8 @@ def bench_alternating(device, quick=False, batch=LANES_ONE_WAVE, steps=None):
 def bench_altq_learner(device, quick=False, batch=LANES_ONE_WAVE,
                        steps=None):
     """The HBM-table turn-based Q learner (``altq_train``, replayed as
-    64-step CUDA graphs on the card)."""
+    64-step CUDA graphs on the card: T1's action draw, S3 and A1 a
+    step)."""
     from ..agents import learners
     T = steps or (100 if quick else 500)
     lcfg = learners.AltQConfig()

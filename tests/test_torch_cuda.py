@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K13, R1, T1, S1 and A1 against their plain PyTorch
+"""The CUDA kernels K1-K13, R1, T1, S1, S2, S3 and A1 against their plain PyTorch
 versions on the card, bit for bit, and the trainers' grouped dispatch
 modes (CUDA-graph replays) against their per-chunk runs.  Skips without a CUDA device.  This
 file imports neither JAX nor the JAX package, so it runs where only
@@ -868,6 +868,117 @@ def test_s1_equals_step_plain(cuda, rng, autoreset):
                 assert a.dtype == b.dtype and torch.equal(a, b)
                 assert torch.equal(a.cpu(), c)
             st = got[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("autoreset", [True, False])
+def test_s2_equals_step_plain(cuda, autoreset):
+    """S2 (the mixed-geometry engine's step) bit-equal to step_plain and
+    step_obs_plain on the card and on the CPU in every output, on each of
+    chip_smoke's mixtures, from goal-state, wrapping and truncating lanes,
+    int32 and int64 actions, with and without the observations; one launch
+    a step."""
+    from chip_smoke import S2_MIXTURES, _step_outputs, mixed_start
+    from gym_soccer_tpu_torch.core import multigrid as mg
+    from gym_soccer_tpu_torch.ops import mixed_alt_kernel as mk
+    for k, mix in enumerate(S2_MIXTURES.values()):
+        cfgs = tuple(EnvConfig(*b) for b in mix)
+        codec = mg.build_codec(cfgs)
+        st = mixed_start(torch, cfgs, 3000, cuda, k)
+        g = torch.Generator().manual_seed(k)
+        for s in range(12):
+            aa, ab = torch.randint(0, 5, (2, 3000), generator=g).to(cuda)
+            if s % 2:
+                aa, ab = aa.int(), ab.int()
+            mk.reset_launch_counts()
+            if s % 4 < 2:
+                got = mg.step_obs(codec, st, aa, ab, autoreset)
+                want = mg.step_obs_plain(codec, st, aa, ab, autoreset)
+                cpu = mg.step_obs_plain(codec, _cpu_state(st), aa.cpu(),
+                                        ab.cpu(), autoreset)
+            else:
+                got = mg.step(st, aa, ab, autoreset)
+                want = mg.step_plain(st, aa, ab, autoreset)
+                cpu = mg.step_plain(_cpu_state(st), aa.cpu(), ab.cpu(),
+                                    autoreset)
+            assert mk.launch_counts["multigrid_step"] == 1
+            for a, b, c in zip(*(_step_outputs(r, 7)
+                                 for r in (got, want, cpu))):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+                assert torch.equal(a.cpu(), c)
+            st = got[0]
+
+
+def _cpu_state(st):
+    """A multigrid state with every tensor on the CPU."""
+    return st._replace(**{f: getattr(st, f).cpu() for f in st._fields[:8]},
+                       geo=st.geo._replace(**{
+                           f: getattr(st.geo, f).cpu()
+                           for f in st.geo._fields[:6]}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("autoreset", [True, False])
+def test_s3_equals_alt_step_plain(cuda, autoreset):
+    """S3 (the alternating engine's tick) bit-equal to alt_step_plain and
+    alt_step_obs_plain on the card and on the CPU in every output, on 5x4
+    and 11x7 at slip 0.2, from both movers, goal-state, wrapping and
+    truncating lanes, int32 and int64 actions; one launch a tick."""
+    from chip_smoke import _step_outputs, alt_start
+    from gym_soccer_tpu_torch.envs import soccer_alternating_env as alt
+    from gym_soccer_tpu_torch.ops import mixed_alt_kernel as mk
+    for w, h in BOARDS:
+        cfg = EnvConfig(width=w, height=h, slip_prob=0.2)
+        st = alt_start(torch, cfg, 3000, cuda, w)
+        g = torch.Generator().manual_seed(w)
+        for s in range(12):
+            a = torch.randint(0, 5, (3000,), generator=g).to(cuda)
+            a = a.int() if s % 2 else a
+            cst = alt.AltEnvState(*(f.cpu() for f in st))
+            mk.reset_launch_counts()
+            if s % 4 < 2:
+                got = alt.alt_step_obs(cfg, st, a, autoreset)
+                want = alt.alt_step_obs_plain(cfg, st, a, autoreset)
+                cpu = alt.alt_step_obs_plain(cfg, cst, a.cpu(), autoreset)
+            else:
+                got = alt.alt_step(cfg, st, a, autoreset)
+                want = alt.alt_step_plain(cfg, st, a, autoreset)
+                cpu = alt.alt_step_plain(cfg, cst, a.cpu(), autoreset)
+            assert mk.launch_counts["alt_step"] == 1
+            for x, y, z in zip(*(_step_outputs(r, 8)
+                                 for r in (got, want, cpu))):
+                assert x.dtype == y.dtype and torch.equal(x, y)
+                assert torch.equal(x.cpu(), z)
+            st = got[0]
+
+
+@pytest.mark.cuda
+def test_mixture_and_turn_based_learners_replay_s2_s3(cuda):
+    """The mixture minimax-Q and turn-based Q learners' grouped mode on
+    the card (150 steps: two replays of 64 steps and a tail) launch S2 or
+    S3 once a step, as single steps do, and equal the same calls on the
+    CPU in every state leaf."""
+    from gym_soccer_tpu_torch.agents import learners as L
+    from gym_soccer_tpu_torch.core import threefry
+    from gym_soccer_tpu_torch.ops import mixed_alt_kernel as mk
+    cfg = EnvConfig(width=5, height=4, slip_prob=0.2)
+    mix = (cfg, EnvConfig(width=6, height=5, slip_prob=0.2))
+    mc = L.MinimaxQConfig(resolve_every=64)
+    runs = {"multigrid_step": (
+                L.multigrid_minimax_init(mix, threefry.key(3), 256, "cpu"),
+                lambda s: L.multigrid_minimax_train(mix, mc, s, 150)),
+            "alt_step": (L.altq_init(cfg, threefry.key(2), 256, "cpu"),
+                         lambda s: L.altq_train(cfg, L.AltQConfig(), s, 150))}
+    for name, (st, train) in runs.items():
+        card = L._rebuild(st, [t.to(cuda) for t in L._tensors(st)])
+        mk.reset_launch_counts()
+        got, _ = train(card)
+        torch.cuda.synchronize()
+        assert mk.launch_counts == {"multigrid_step": 0, "alt_step": 0,
+                                    name: 150}
+        want, _ = train(st)
+        assert all(torch.equal(a.cpu(), b) for a, b in
+                   zip(L._tensors(got), L._tensors(want)))
 
 
 @pytest.mark.cuda

@@ -321,9 +321,10 @@ def test_generators_refuse_without_the_reference(monkeypatch, capsys,
 
 # The functions whose calls on the card are the launch counters phase 49
 # reads (chip_smoke.BENCH_LAUNCHES): each wrapper, T1's entries, A1's,
-# and batch.step, which launches S1 on the card (its draws inside it) and
-# runs step_plain here, whose draws call T1's wrapper: only the outermost
-# counted call counts.
+# and the engines' steps (batch.step, multigrid.step and step_obs,
+# alt_step and alt_step_obs), which launch S1, S2 and S3 on the card (their
+# draws inside them) and run their plain versions here, whose draws call
+# T1's wrapper: only the outermost counted call counts.
 COUNTED = {
     "ops.step_kernel": ["fused_rollout", "fused_journal_rollout",
                         "multigrid_rollout", "alt_rollout"],
@@ -336,11 +337,16 @@ COUNTED = {
     "ops.threefry_kernel": ["threefry_uniforms", "keyed_uniform",
                             "keyed_randint"],
     "core.batch": ["step"],
+    "core.multigrid": ["step", "step_obs"],
+    "envs.soccer_alternating_env": ["alt_step", "alt_step_obs"],
     "agents.learners": ["solve_matrix_games"],
     "ops.scatter_kernel": ["scatter_add"],
 }
 COUNTER = {"keyed_uniform": "threefry_keyed", "keyed_randint": "threefry_keyed",
-           "step": "engine_step"}
+           "core.batch.step": "engine_step",
+           "core.multigrid.step": "multigrid_step",
+           "core.multigrid.step_obs": "multigrid_step",
+           "envs.soccer_alternating_env.alt_step_obs": "alt_step"}
 
 
 @pytest.mark.parametrize("name", list(TINY))
@@ -355,8 +361,9 @@ def test_each_row_calls_what_phase_49_counts(short_legs, monkeypatch, name):
     for mod_name, fns in COUNTED.items():
         mod = importlib.import_module(f"gym_soccer_tpu_torch.{mod_name}")
         for fn in fns:
-            def counted(*a, _real=getattr(mod, fn), _k=COUNTER.get(fn, fn),
-                        **k):
+            def counted(*a, _real=getattr(mod, fn),
+                        _k=COUNTER.get(f"{mod_name}.{fn}",
+                                       COUNTER.get(fn, fn)), **k):
                 if not depth[0]:
                     calls[_k] = calls.get(_k, 0) + 1
                 depth[0] += 1
