@@ -743,6 +743,22 @@ S2_MIXTURES = {"bench row": ((5, 4, 0.2), (6, 5, 0.1), (9, 6, 0.3)),
 S3_BOARDS = ((5, 4), (11, 7))
 S23_LANES, S23_STEPS = 8192, 256
 S23_TIMED = "bench row"
+# The redesign's yardsticks, built by ops/mixed_alt_variants and timed in
+# phase 51 beside S2 and S3: their previous design (blocks of 256 lanes,
+# the observations' and the reset's reads after the draws), the kernel
+# built at each other lanes-a-block shape, and an empty kernel launched
+# with the grid and block of each shape (the floor); the widths each is
+# timed at (mixed_alt_variants.CASES: S3 at 8192 lanes, the turn-based Q
+# check's 256 and alt_policy_rollout's 128 on 5x4; S2 at 8192 on the
+# bench mixture and at the mixture check's 512 on its 5x4+6x4 and on the
+# bench mixture), the lanes-a-block shapes and the turns of the timing.
+S23_VARIANTS = "gym_soccer_tpu_torch/ops/mixed_alt_variants.py"
+S23_PREV_SRC = "gym_soccer_tpu_torch/ops/csrc/mixed_alt_prev_kernel.cu"
+S23_FLOOR_SRC = "gym_soccer_tpu_torch/ops/csrc/launch_floor_kernel.cu"
+S23_WIDTHS = {S3: (8192, 256, 128), S2: (8192, 512, 512)}
+S23_SHAPES = (32, 64, 128, 256)
+S23_ROUNDS = 4
+S23_LEG_MS = 10.0   # time_cuda's legs there: the turns give the spread
 # Their main paths, phase 42's learning checks: the mixture check's two
 # multigrid_minimax_train runs of 2000 steps (S2 once a step), the
 # turn-based Q checks' two altq_train runs of 15000 (against a frozen B,
@@ -1279,12 +1295,16 @@ def main(argv=None) -> int:
         }[args.phases]
         t0 = time.perf_counter()
         from concurrent.futures import ThreadPoolExecutor
-        with ThreadPoolExecutor(len(libraries)) as pool:   # one nvcc each
-            list(pool.map(_build.build, libraries))
+        from gym_soccer_tpu_torch.ops import mixed_alt_variants
+        extra = mixed_alt_variants.builders() if args.phases == "51" else []
+        with ThreadPoolExecutor(len(libraries) + len(extra)) as pool:
+            list(pool.map(lambda f: f(), (   # one nvcc each
+                *(lambda n=n: _build.build(n) for n in libraries), *extra)))
         for name in libraries:
             _build.load(name)
-        print(f"[build] {', '.join(libraries)} in "
-              f"{time.perf_counter() - t0:.3f} s")
+        print(f"[build] {', '.join(libraries)}"
+              f"{' and S2/S3 variants' if extra else ''}"
+              f" in {time.perf_counter() - t0:.3f} s")
         step_counts = (step_kernel_counts(torch, dev, card)
                        if args.phases == "39-46" else None)
         s23_counts = (mixed_alt_counts(torch, dev, card)
@@ -1297,21 +1317,28 @@ def main(argv=None) -> int:
     # ---- 2. build -----------------------------------------------------
     from concurrent.futures import ThreadPoolExecutor
 
-    from gym_soccer_tpu_torch.ops import rmplus_variants, scatter_variants
+    from gym_soccer_tpu_torch.ops import (mixed_alt_variants,
+                                          rmplus_variants, scatter_variants)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:   # R1's, A1's previous designs
+    s23_jobs = mixed_alt_variants.builders()
+    with ThreadPoolExecutor(2 + len(s23_jobs)) as pool:   # one nvcc each
         thread_build = pool.submit(rmplus_variants.build_variant,
                                    rmplus_variants.PREVIOUS)
         walk_build = pool.submit(scatter_variants.build_variant,
                                  scatter_variants.PREVIOUS)
+        s23_builds = [pool.submit(f) for f in s23_jobs]
         built = _build.build_all()
         thread_build = thread_build.result()
         walk_build = walk_build.result()
+        s23_builds = [f.result() for f in s23_builds]
     for name in built:
         _build.load(name)
     print(f"[build] {', '.join(p.name for p in built.values())} and the "
-          f"previous designs of R1, {thread_build.name}, and of A1, "
-          f"{walk_build.name}, in {time.perf_counter() - t0:.3f} s")
+          f"previous designs of R1, {thread_build.name}, of A1, "
+          f"{walk_build.name}, and of S2/S3, {s23_builds[0].name}, the "
+          f"empty kernel, {s23_builds[1].name}, and S2/S3 at other lanes a "
+          f"block, {', '.join(b.name for b in s23_builds[2:])}, in "
+          f"{time.perf_counter() - t0:.3f} s")
     for path in built.values():
         print(path.with_suffix(".log").read_text().strip())
     # early in the process, where the profiler records every launch
@@ -5134,15 +5161,15 @@ def scatter_bound(lanes: int, nbytes: int):
                                                                "bytes")
 
 
-def _graph_ms(torch, fn, calls):
+def _graph_ms(torch, fn, calls, min_leg_ms=50.0):
     """Device ms a call of ``fn``: a CUDA graph of ``calls`` calls,
-    replayed (``time_cuda``)."""
+    replayed (``time_cuda``, legs of at least ``min_leg_ms``)."""
     fn()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
-    return time_cuda(graph.replay)[0] / calls
+    return time_cuda(graph.replay, min_leg_ms)[0] / calls
 
 
 def scatter_phase(torch, dev, card):
@@ -5672,12 +5699,13 @@ def mixed_alt_phase(torch, dev, card, instructions, counts):
     from gym_soccer_tpu_torch.core import multigrid as mg
     from gym_soccer_tpu_torch.envs import soccer_alternating_env as alt
     from gym_soccer_tpu_torch.ops import mixed_alt_kernel as mk
+    from gym_soccer_tpu_torch.ops import mixed_alt_variants as mv
     t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(51)
     errs = {S2: 0.0, S3: 0.0}
     seen = {"goal lanes": 0, "goals": 0, "truncated": 0}
 
-    def run(kernel, name, step, plain, start, n_acts, goal_lanes):
+    def run(kernel, name, step, plain, prev, start, n_acts, goal_lanes):
         n_fields = 7 if kernel == S2 else 8
         st = start
         seen["goal lanes"] += goal_lanes
@@ -5689,12 +5717,17 @@ def mixed_alt_phase(torch, dev, card, instructions, counts):
             got = step(k, st, acts)
             check(mk.launch_counts[kernel] == 1,
                   f"{kernel} not launched once a step")
-            want = plain(k, st, acts)
-            same, err = _same(torch, _step_outputs(got, n_fields),
-                              _step_outputs(want, n_fields))
+            want = _step_outputs(plain(k, st, acts), n_fields)
+            same, err = _same(torch, _step_outputs(got, n_fields), want)
             errs[kernel] = max(errs[kernel], err)
             check(same, f"{kernel} != its plain version on {name}, step "
                         f"{k}: max abs err {err}")
+            ints, rew, flags = prev(k, st, acts)
+            obs = ints[n_fields:] if k % 4 < 2 else ()
+            same, err = _same(torch, [*ints[:n_fields], rew, *flags, *obs],
+                              want)
+            check(same, f"{kernel}'s previous design != its plain version "
+                        f"on {name}, step {k}: max abs err {err}")
             seen["goals"] += int(got[1][1].sum())
             seen["truncated"] += int(got[1][2].sum())
             st = got[0]
@@ -5709,11 +5742,18 @@ def mixed_alt_phase(torch, dev, card, instructions, counts):
                         codec, st, acts[0], acts[1], auto)
                 return (mg.step_plain if plain else mg.step)(
                     st, acts[0], acts[1], auto)
+            def prev(k, st, acts):
+                geo = st.geo
+                return mv.multigrid_step_on(
+                    mv.PREVIOUS, st[:7], st.key, acts[0], acts[1],
+                    (geo.H, geo.W, geo.glo, geo.ghi, geo.vid, geo.slip),
+                    geo.max_steps, auto,
+                    mg._codec_on(codec.cfgs, dev) if k % 4 < 2 else None)
             start = mixed_start(torch, cfgs, S23_LANES, dev, len(name))
             goals = int(rules.is_goal_state(torch, *start[:5],
                                             start.geo).sum())
             run(S2, f"{name} autoreset {auto}", step,
-                lambda k, st, a: step(k, st, a, plain=True), start, 2,
+                lambda k, st, a: step(k, st, a, plain=True), prev, start, 2,
                 goals)
     for w, h in S3_BOARDS:
         cfg = EnvConfig(w, h, SLIP)
@@ -5724,13 +5764,17 @@ def mixed_alt_phase(torch, dev, card, instructions, counts):
                             else alt.alt_step_obs)(cfg, st, acts[0], auto)
                 return (alt.alt_step_plain if plain else alt.alt_step)(
                     cfg, st, acts[0], auto)
+            def prev(k, st, acts):
+                return mv.alt_step_on(mv.PREVIOUS, cfg, st[:8], st.key,
+                                      acts[0], auto)
             start = alt_start(torch, cfg, S23_LANES, dev, w)
             run(S3, f"{w}x{h} autoreset {auto}", step,
-                lambda k, st, a: step(k, st, a, plain=True), start, 1,
+                lambda k, st, a: step(k, st, a, plain=True), prev, start, 1,
                 S23_LANES // 11 + 1)
     check(all(seen.values()), f"S2/S3's cases missed a kind of lane: {seen}")
     print(f"[S2/S3] bit-equal to their plain versions on the card in every "
-          f"output: S2 on {list(S2_MIXTURES)}, S3 on "
+          f"output, and so is their previous design ({S23_PREV_SRC}): S2 on "
+          f"{list(S2_MIXTURES)}, S3 on "
           f"{[f'{w}x{h}' for w, h in S3_BOARDS]} slip {SLIP}, autoreset on "
           f"and off, {S23_LANES} lanes x {S23_STEPS} steps, int32 and int64 "
           f"actions, one launch a step; max abs err {errs}; {seen}; "
@@ -5769,22 +5813,20 @@ def mixed_alt_phase(torch, dev, card, instructions, counts):
             torch, fn, PLAIN_GRAPH_CALLS if "plain" in name
             else S1_GRAPH_CALLS)
     r2d, offsets = mg._codec_on(codec.cfgs, dev)
-    maps = batch.device_maps(cfg, dev)
     nbytes = {S2: B * (7 * 4 + 2 * 8 + 2 * 8 + 5 * 4 + 4 + 9 * 4 + 4 + 2)
               + (r2d.numel() + offsets.numel()) * 4,
               S3: B * (8 * 4 + 2 * 8 + 8 + 10 * 4 + 4 + 2)
               + alt.alt_device_maps(cfg, dev).numel() * 4
-              + sum(t.numel() * t.element_size() for t in maps[1:])}
+              + ctypes.sizeof(mk.AltReset)}
     from gym_soccer_tpu_torch.ops import _build
     regs = ptxas_registers(
         _build.build("mixed_alt_kernel").with_suffix(".log").read_text())
-    shape = (ctypes.c_int32 * 2)()
-    mk._library().gst_mixed_alt_shape(ctypes.addressof(shape))
     for name, sym, where in ((S2, S2_SYMBOL, f"the {S23_TIMED} mixture"),
                              (S3, S3_SYMBOL, "5x4")):
         bound_ms, bound_by = bound(B, instructions[name], nbytes[name])
         print(f"[{'S2' if name == S2 else 'S3'}] {B} lanes on {where} "
-              f"(autoreset, observations, int64 actions): {shape[0]} lanes "
+              f"(autoreset, observations, int64 actions): "
+              f"{mk.LANES_PER_BLOCK} lanes "
               f"a block, {[r for k, r in regs.items() if sym in k]} "
               f"registers, {instructions[name]} SASS instructions on the "
               f"shortest way through a lane, {nbytes[name]} B; bound "
@@ -5797,11 +5839,74 @@ def mixed_alt_phase(torch, dev, card, instructions, counts):
               f"{device_ms[S1]} ms of device time ({ms[S1]} ms a call) on "
               f"5x4 | {card}")
     print(f"[S2/S3] device operations a call: {counts} | {card}")
+    redesign_timings(torch, dev, card, instructions, regs, nbytes)
     print(f"[phase 51] {time.perf_counter() - t0} s")
     return errs, {**{k: v for k, v in ms.items() if k != S1},
                   S2 + "_device": device_ms[S2],
                   S3 + "_device": device_ms[S3]}, \
         {S2: (B, nbytes[S2]), S3: (B, nbytes[S3])}
+
+
+def redesign_timings(torch, dev, card, instructions, regs, nbytes):
+    """Phase 51's timing of the redesign (ops/mixed_alt_variants): on each
+    of its CASES (S3 at S23_WIDTHS[S3] lanes, S2 at S23_WIDTHS[S2]), the
+    learners' step on S2 or S3 as the wrapper launches it, built at each
+    other of S23_SHAPES, on the previous design and as the plain version,
+    each bit-equal to the plain version; the device ms a call of each and
+    of the empty kernel at each shape by CUDA-graph replay (legs of
+    S23_LEG_MS), in S23_ROUNDS turns (every call in one order, then in the
+    other), as the mean and the range of the turns, and each design's time
+    above the floor at its own shape, turn by turn; the plain version's
+    once.  Then a design line of the
+    kernel and of the previous design: lanes a block, registers, SASS on
+    the shortest way through a lane, bytes and bound at 8192 lanes."""
+    from gym_soccer_tpu_torch.ops import mixed_alt_kernel as mk
+    from gym_soccer_tpu_torch.ops import mixed_alt_variants as mv
+    check(mv.SHAPES == S23_SHAPES and mv.ROUNDS == S23_ROUNDS and
+          {k: tuple(c[2] for c in mv.CASES.values() if c[0] == k)
+           for k in (S3, S2)} == S23_WIDTHS,
+          "mixed_alt_variants' shapes, turns or widths differ from S23_*")
+    for case in mv.CASES:
+        calls = mv.case_calls(case, dev)
+        want = mv.outputs(calls["plain"]())
+        for name, fn in calls.items():
+            if not name.startswith("floor") and name != "plain":
+                check(_same(torch, mv.outputs(fn()), want)[0],
+                      f"{case}: {name} != the plain version")
+        ms, above = mv.summary(mv.time_in_turns(
+            calls, lambda fn, n: _graph_ms(torch, fn, n, S23_LEG_MS)))
+        verdict = ("faster than" if ms["kernel"][0] < ms[mv.PREVIOUS][0]
+                   else "NOT faster than")
+        shapes = {t: ms[f"kernel, {t} lanes a block"
+                        if t != mk.LANES_PER_BLOCK else "kernel"][0]
+                  for t in mv.SHAPES}
+        print(f"[S2/S3 redesign] {case}: device ms a call by CUDA-graph "
+              f"replay, (mean, min, max) of {mv.ROUNDS} turns (the plain "
+              f"version one): the kernel "
+              f"({mk.LANES_PER_BLOCK} lanes a block) {ms['kernel']}, "
+              f"{verdict} the previous design's ({mv.PREV_THREADS}) "
+              f"{ms[mv.PREVIOUS]}; the plain version {ms['plain']}; the "
+              f"empty kernel {{lanes a block: ms}} "
+              f"{ {t: ms[f'floor, {t} lanes a block'] for t in mv.SHAPES} }; "
+              f"each shape's mean {shapes}; above the floor at the same "
+              f"lanes a block, turn by turn {above}; every design bit-equal "
+              f"to the plain version | {card}")
+    prev_path = mv.build_previous()
+    prev_regs = ptxas_registers(prev_path.with_suffix(".log").read_text())
+    prev_text = sass_listing(prev_path)
+    for name, sym in ((S2, S2_SYMBOL), (S3, S3_SYMBOL)):
+        prev_ins = next(iter(path_instructions(prev_text, [sym]).values()))
+        new_b = bound(B, instructions[name], nbytes[name])
+        prev_b = bound(B, prev_ins, nbytes[name])
+        print(f"[{'S2' if name == S2 else 'S3'} design] {B} lanes: the kernel "
+              f"{mk.LANES_PER_BLOCK} lanes a block at every width, "
+              f"{[r for k, r in regs.items() if sym in k]} registers, "
+              f"{instructions[name]} SASS on the shortest way through a "
+              f"lane, bound {new_b[0]} ms ({new_b[1]}); the previous design "
+              f"{mv.PREV_THREADS} lanes a block, "
+              f"{[r for k, r in prev_regs.items() if sym in k]} registers, "
+              f"{prev_ins} SASS, bound {prev_b[0]} ms ({prev_b[1]}); "
+              f"{nbytes[name]} B | {card}")
 
 
 def mixed_alt_block(torch, dev, card, instructions, counts):

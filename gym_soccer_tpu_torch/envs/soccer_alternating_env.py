@@ -43,7 +43,8 @@ from .. import spaces
 from ..config import MOVES, N_ACTIONS, EnvConfig, orthogonal_moves
 from ..core import batch as corebatch
 from ..core import rules, threefry
-from ..core.tables import _move_variants, build_isd
+from ..core.tables import (_move_variants, build_isd, build_statespace,
+                           isd_fields)
 from ..ops import mixed_alt_kernel
 
 
@@ -144,6 +145,32 @@ def alt_device_maps(cfg: EnvConfig, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(build_alt_tables(cfg).raw_to_dense, device=device)
 
 
+class AltResetTable(NamedTuple):
+    """The board's ISD on the host, as S3 takes it in its launch's
+    arguments: each entry's (ra, ca, rb, cb, p), the float32 cumulative
+    thresholds ``batch.device_maps`` holds (``isd_cum``, as Python floats)
+    and each entry's ``alt_observe`` at turn 0."""
+    fields: tuple
+    cum: tuple
+    obs: tuple
+
+
+@functools.lru_cache(maxsize=None)
+def alt_reset_table(cfg: EnvConfig) -> AltResetTable:
+    """The ISD of ``cfg``'s board with each entry's observation at turn 0,
+    from the host's tables, cached: what S3's reset selects from, so that
+    it reads no table on the card."""
+    ss = build_statespace(cfg)
+    fields = isd_fields(cfg)
+    cum = np.cumsum(ss.isd_probs).astype(np.float32)
+    r2d = build_alt_tables(cfg).raw_to_dense
+    raw = alt_raw_encode(np, *fields.T.astype(np.int64), 0, cfg)
+    raw = np.clip(np.where(raw < 0, raw + len(r2d), raw), 0, len(r2d) - 1)
+    return AltResetTable(tuple(tuple(int(x) for x in f) for f in fields),
+                         tuple(float(c) for c in cum),
+                         tuple(int(r2d[r]) for r in raw))
+
+
 def alt_observe(cfg: EnvConfig, state: AltEnvState) -> torch.Tensor:
     """Dense alternating-state index of each lane (int32 [B]; goal states
     0, unreachable -1).  A code off the table (a lane that walked on from a
@@ -160,7 +187,7 @@ def _alt_step_on_card(cfg, state, action, autoreset):
     dev = state.key.device
     ints, reward, flags = mixed_alt_kernel.alt_step(
         cfg, state[:8], state.key, action, alt_device_maps(cfg, dev),
-        corebatch.device_maps(cfg, dev), autoreset)
+        alt_reset_table(cfg), autoreset)
     ra, ca, rb, cb, poss, turn, t, n, obs, final_obs = ints.unbind()
     return (AltEnvState(ra, ca, rb, cb, poss, turn, t, n, state.key),
             (reward, flags[0], flags[1]), (obs, final_obs))

@@ -54,9 +54,30 @@
 // words as int64, two int32 actions, five int32 and one float32 geometry
 // planes) and writes 46 B; S3 reads 52 B and writes 46 B; the work is 4
 // (S3: 3) threefry blocks and ~150 integer operations.  At the callers'
-// 256-8192 lanes both are far below a launch's floor, so the gain is the
-// ~300-400 launches a step they replace: a block of 256 lanes, the lookup
-// tables read through L1.
+// 128-8192 lanes both are far below a launch's floor: a lane's time is one
+// dependent chain, its inputs' loads, 40 serial threefry rounds, the move,
+// the table reads that need the move's outcome, the stores.  The design
+// shortens that chain:
+//   * S3 reads no table after its draw.  The mover's next state depends
+//     on the draw only through the slip variant v in {0, 1, 2}, so the
+//     three candidates' observations are read as soon as the inputs
+//     arrive, while the rounds run, and the draw picks one in registers.
+//     The board's ISD entries, thresholds and turn-0 observations come
+//     from the host in the launch's arguments (AltReset), so the reset
+//     selects by index in registers.  (Read from the device tables before
+//     the draw instead, the observations are a second dependent read, and
+//     the step was slower.)
+//   * S2 reads the lane's offset and its board's ISD observations (the
+//     reset state depends on H, W and the drawn index alone) before its
+//     draws; its one read after them is the observation of the stepped
+//     state, whose candidates are too many to read ahead.
+//   * The transition's draw and the reset's are independent chains,
+//     drawn on every lane, which the compiler interleaves; their fold_in
+//     rounds are written before the reads and the uniforms' rounds after
+//     them, which is where the compiler then issues the reads.
+//   * Lanes spread over the SMs: kThreads = 32 lanes a block, one warp
+//     where the previous design put eight; the tables are read through
+//     the read-only path.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -65,7 +86,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // lanes a block
+constexpr int kThreads = 32;   // lanes a block
 
 // A lane's board, the geometry game.cuh's step functions read.
 struct Board {
@@ -100,18 +121,27 @@ struct Params {
   float slip;           // f32(q / 2) (not read here)
 };
 
+// The board's ISD from the host (ops/mixed_alt_kernel.AltReset): each
+// entry's fields, the float32 cumulative thresholds (+inf past the nI
+// entries) and each entry's observation at turn 0, so S3's reset reads no
+// table.
+struct AltReset {
+  int isd[gst::kMaxIsd][5];   // (ra, ca, rb, cb, p)
+  float cum[gst::kMaxIsd];
+  int obs[gst::kMaxIsd];
+};
+
 struct AltArgs {
   const int32_t* f[8];           // ra, ca, rb, cb, poss, turn, t, n  [B]
   const int64_t* key;            // [B, 2] uint32 words
   const void* a;                 // int32 or int64 [B]
   const int32_t* raw_to_dense;   // [n_raw]
-  const int32_t* isd_fields;     // [nI, 5]
-  const float* isd_cum;          // [nI]
   int32_t* out_i;   // [10, B]: ra, ca, rb, cb, poss, turn, t, n, obs,
                     // final_obs
   float* out_f;     // [B]: reward_a
   bool* out_b;      // [2, B]: goal, truncated
   Params g;
+  AltReset r;
   int lanes;
 };
 
@@ -126,19 +156,30 @@ __device__ __forceinline__ int raw_code(const gst::State& s, const G& g) {
   return (((s.ra * g.W + s.ca) * g.H + s.rb) * g.W + s.cb) * 2 + s.p;
 }
 
-// multigrid.global_obs of the lane's state on its board.
-__device__ __forceinline__ int global_obs(const MixedArgs& a,
-                                          const gst::State& s,
-                                          const Board& g, int vid) {
+// The row of multigrid.global_obs's raw_to_dense for the lane's state on
+// its board: a negative code counts from the end.
+__device__ __forceinline__ int mixed_index(const gst::State& s,
+                                           const Board& g, int max_raw) {
   int raw = raw_code(s, g);
-  if (raw < 0) raw += a.max_raw;   // a negative index counts from the end
-  return a.offsets[vid] + a.raw_to_dense[vid * a.max_raw + raw];
+  if (raw < 0) raw += max_raw;
+  return raw;
+}
+
+// ISD entry k of a lane's board (multigrid._isd_fields): players in
+// columns 2 and W - 3 on the middle rows (even H: entries 2 and 3 swap the
+// two rows), possession k % 2, t = 0.
+__device__ __forceinline__ gst::State mixed_isd(int k, const Board& g) {
+  const bool even = g.H % 2 == 0;
+  const bool swap = even && k / 2 == 1;
+  const int mid_hi = g.H / 2, mid_lo = even ? (g.H - 1) / 2 : g.H / 2;
+  return {swap ? mid_hi : mid_lo, 2, swap ? mid_lo : mid_hi, g.W - 3, k % 2,
+          0};
 }
 
 template <bool AUTORESET, bool OBS, bool ACT64>
 __global__ void __launch_bounds__(kThreads) multigrid_step_kernel(
     MixedArgs a) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.lanes) return;
   const int B = a.lanes;
   const Board g{a.geo[0][i], a.geo[1][i], a.geo[2][i], a.geo[3][i]};
@@ -148,10 +189,36 @@ __global__ void __launch_bounds__(kThreads) multigrid_step_kernel(
   const uint32_t n = (uint32_t)a.f[6][i];
   const uint32_t kw0 = (uint32_t)a.key[2 * i], kw1 = (uint32_t)a.key[2 * i + 1];
   const int aa = action<ACT64>(a.aa, i), ab = action<ACT64>(a.ab, i);
-
-  float u[3];
-  gst::uniforms_at<3>(kw0, kw1, n, u);
   const float q = a.slip[i];
+  // The draws' first rounds, fold_in(key, n) and fold_in(key, n + 1),
+  // written apart from the uniforms' rounds (threefry.cuh's uniforms_at
+  // in one piece): the compiler then issues the reads below between the
+  // two, where with uniforms_at it issues them after both.
+  uint32_t k0 = kw0, k1 = kw1, r0 = kw0, r1 = kw1;
+  gst::fold_in(k0, k1, n);
+  if (AUTORESET) gst::fold_in(r0, r1, n + 1u);
+
+  // Meanwhile, the lane's offset and its board's ISD observations.
+  const int nI = g.H % 2 == 0 ? 4 : 2;
+  const int32_t* r2d = a.raw_to_dense + (OBS ? vid * a.max_raw : 0);
+  int off = 0, reset_obs[gst::kMaxIsd] = {0, 0, 0, 0};
+  if (OBS) {
+    off = __ldg(a.offsets + vid);
+    if (AUTORESET) {
+#pragma unroll
+      for (int k = 0; k < gst::kMaxIsd; ++k)
+        if (k < nI)
+          reset_obs[k] = __ldg(r2d + mixed_index(mixed_isd(k, g), g,
+                                                 a.max_raw));
+    }
+  }
+  // The uniforms' rounds.  The reads need only arrive by the reset, after
+  // the stepped state's own read.
+  float u[3], ur = 0.0f;
+#pragma unroll
+  for (int w = 0; w < 3; ++w)
+    u[w] = gst::to_uniform(gst::random_bits(k0, k1, (uint32_t)w));
+  if (AUTORESET) ur = gst::to_uniform(gst::random_bits(r0, r1, 0u));
   const float keep = __fsub_rn(1.0f, q);
   const float first = __fsub_rn(1.0f, __fmul_rn(q, 0.5f));
   int mca, mra, mcb, mrb;
@@ -166,22 +233,20 @@ __global__ void __launch_bounds__(kThreads) multigrid_step_kernel(
   const int t1 = (int)((uint32_t)s.t + 1u);
   const bool truncated = t1 >= a.max_steps;
   s.t = t1;
+  // The one read after the draws: the stepped state's observation.
   int final_obs = 0;
-  if (OBS) final_obs = global_obs(a, s, g, vid);
+  if (OBS) final_obs = off + __ldg(r2d + mixed_index(s, g, a.max_raw));
+  int obs = final_obs;
 
   uint32_t on = n + 1u;
   if (AUTORESET) {
-    float ur;
-    gst::uniforms_at<1>(kw0, kw1, n + 1u, &ur);
     on = n + 2u;
-    const bool even = g.H % 2 == 0;
-    const int nI = even ? 4 : 2;
     const int idx = min((int)__fmul_rn(ur, (float)nI), nI - 1);
     if (now_goal || truncated) {
-      const bool swap = even && idx / 2 == 1;
-      const int mid_hi = g.H / 2, mid_lo = even ? (g.H - 1) / 2 : g.H / 2;
-      s = {swap ? mid_hi : mid_lo, 2, swap ? mid_lo : mid_hi, g.W - 3,
-           idx % 2, 0};
+      s = mixed_isd(idx, g);
+#pragma unroll
+      for (int k = 0; k < gst::kMaxIsd; ++k)
+        if (k == idx) obs = off + reset_obs[k];
     }
   }
   int32_t* o = a.out_i + i;
@@ -193,7 +258,7 @@ __global__ void __launch_bounds__(kThreads) multigrid_step_kernel(
   o[5 * B] = s.t;
   o[6 * B] = (int32_t)on;
   if (OBS) {
-    o[7 * B] = AUTORESET ? global_obs(a, s, g, vid) : final_obs;
+    o[7 * B] = obs;
     o[8 * B] = final_obs;
   }
   a.out_f[i] = reward;
@@ -201,48 +266,75 @@ __global__ void __launch_bounds__(kThreads) multigrid_step_kernel(
   a.out_b[B + i] = truncated;
 }
 
-// The alternating tables' raw_to_dense of the lane's state and turn
-// (alt_observe): a negative code counts from the end, then the code is
-// clamped to the table, as JAX's gather reads it (a lane that walked on
-// from a goal without autoreset leaves the board).
-__device__ __forceinline__ int alt_dense(const AltArgs& a,
-                                         const gst::State& s, int turn) {
-  int raw = raw_code(s, a.g) * 2 + turn;
-  if (raw < 0) raw += a.g.n_raw;
-  return a.raw_to_dense[min(max(raw, 0), a.g.n_raw - 1)];
-}
-
-template <bool AUTORESET, bool ACT64>
-__global__ void __launch_bounds__(kThreads) alt_step_kernel(AltArgs a) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= a.lanes) return;
-  const Params& g = a.g;
-  const int B = a.lanes;
-  gst::State s{a.f[0][i], a.f[1][i], a.f[2][i], a.f[3][i], a.f[4][i],
-               a.f[6][i]};
-  const int turn = a.f[5][i];
-  const uint32_t n = (uint32_t)a.f[7][i];
-  const uint32_t kw0 = (uint32_t)a.key[2 * i], kw1 = (uint32_t)a.key[2 * i + 1];
-  const int act = action<ACT64>(a.a, i);
-
-  float u0;
-  gst::uniforms_at<1>(kw0, kw1, n, &u0);
+// alt_transition's move of the mover (A at turn 0) under slip variant v:
+// stepping into the opponent bounces it back and hands the opponent the
+// ball.
+__device__ __forceinline__ gst::State alt_move(const gst::State& s, int turn,
+                                               int act, int v,
+                                               const Params& g) {
   int mc, mr;
-  gst::variant_move(act, gst::slip_variant(u0, g.keep, g.first), mc, mr);
-  // alt_transition: the mover steps; into the opponent it bounces back and
-  // the opponent takes the ball.
+  gst::variant_move(act, v, mc, mr);
   const bool a_moves = turn == 0;
   const int mx = a_moves ? s.ra : s.rb, my = a_moves ? s.ca : s.cb;
   const int ox = a_moves ? s.rb : s.ra, oy = a_moves ? s.cb : s.ca;
   int nx, ny;
   gst::next_cell(mx, my, mc, mr, s.p == turn, g, nx, ny);
+  gst::State m = s;
   if (nx == ox && ny == oy) {
     nx = mx;
     ny = my;
-    s.p = 1 - turn;
+    m.p = 1 - turn;
   }
-  if (a_moves) { s.ra = nx; s.ca = ny; } else { s.rb = nx; s.cb = ny; }
+  if (a_moves) { m.ra = nx; m.ca = ny; } else { m.rb = nx; m.cb = ny; }
+  return m;
+}
+
+// The alternating tables' row for the lane's state and turn (alt_observe):
+// a negative code counts from the end, then the code is clamped to the
+// table, as JAX's gather reads it (a lane that walked on from a goal
+// without autoreset leaves the board).
+__device__ __forceinline__ int alt_index(const gst::State& s, int turn,
+                                         const Params& g) {
+  int raw = raw_code(s, g) * 2 + turn;
+  if (raw < 0) raw += g.n_raw;
+  return min(max(raw, 0), g.n_raw - 1);
+}
+
+template <bool AUTORESET, bool ACT64>
+__global__ void __launch_bounds__(kThreads) alt_step_kernel(AltArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.lanes) return;
+  const Params& g = a.g;
+  const int B = a.lanes;
+  const gst::State s0{a.f[0][i], a.f[1][i], a.f[2][i], a.f[3][i], a.f[4][i],
+                      a.f[6][i]};
+  const int turn = a.f[5][i];
+  const uint32_t n = (uint32_t)a.f[7][i];
+  const uint32_t kw0 = (uint32_t)a.key[2 * i], kw1 = (uint32_t)a.key[2 * i + 1];
+  const int act = action<ACT64>(a.a, i);
   int nturn = 1 - turn;
+  // The draws' first rounds, fold_in(key, n) and fold_in(key, n + 1),
+  // written first, as S2's.
+  uint32_t k0 = kw0, k1 = kw1, r0 = kw0, r1 = kw1;
+  gst::fold_in(k0, k1, n);
+  if (AUTORESET) gst::fold_in(r0, r1, n + 1u);
+
+  // Meanwhile, the three candidate states, one a slip variant, and their
+  // observations, read while the rounds run.
+  gst::State cand[3];
+  int code[3];
+#pragma unroll
+  for (int v = 0; v < 3; ++v) {
+    cand[v] = alt_move(s0, turn, act, v, g);
+    code[v] = __ldg(a.raw_to_dense + alt_index(cand[v], nturn, g));
+  }
+  // The uniforms' rounds; the draw then picks a candidate in registers.
+  const float u0 = gst::to_uniform(gst::random_bits(k0, k1, 0u));
+  float ur = 0.0f;
+  if (AUTORESET) ur = gst::to_uniform(gst::random_bits(r0, r1, 0u));
+  const int v = gst::slip_variant(u0, g.keep, g.first);
+  gst::State s = v == 0 ? cand[0] : (v == 1 ? cand[1] : cand[2]);
+  const int final_obs = v == 0 ? code[0] : (v == 1 ? code[1] : code[2]);
   const bool now_goal = gst::is_goal_state(s, g);
   const int ball_col = s.p == 0 ? s.ca : s.cb;
   const float reward =
@@ -250,19 +342,23 @@ __global__ void __launch_bounds__(kThreads) alt_step_kernel(AltArgs a) {
   const int t1 = (int)((uint32_t)s.t + 1u);
   const bool truncated = t1 >= g.max_steps;
   s.t = t1;
-  const int final_obs = alt_dense(a, s, nturn);
+  int obs = final_obs;
 
   uint32_t on = n + 1u;
   if (AUTORESET) {
-    float ur;
-    gst::uniforms_at<1>(kw0, kw1, n + 1u, &ur);
     on = n + 2u;
     int idx = 0;
-    for (int j = 0; j < g.nI; ++j) idx += a.isd_cum[j] <= ur;
+#pragma unroll
+    for (int j = 0; j < gst::kMaxIsd; ++j) idx += a.r.cum[j] <= ur;
     idx = max(min(idx, g.nI - 1), 0);
     if (now_goal || truncated) {
-      const int32_t* e = a.isd_fields + 5 * idx;
-      s = {e[0], e[1], e[2], e[3], e[4], 0};
+#pragma unroll
+      for (int k = 0; k < gst::kMaxIsd; ++k)
+        if (k == idx) {
+          s = {a.r.isd[k][0], a.r.isd[k][1], a.r.isd[k][2], a.r.isd[k][3],
+               a.r.isd[k][4], 0};
+          obs = a.r.obs[k];
+        }
       nturn = 0;
     }
   }
@@ -275,7 +371,7 @@ __global__ void __launch_bounds__(kThreads) alt_step_kernel(AltArgs a) {
   o[5 * B] = nturn;
   o[6 * B] = s.t;
   o[7 * B] = (int32_t)on;
-  o[8 * B] = AUTORESET ? alt_dense(a, s, nturn) : final_obs;
+  o[8 * B] = obs;
   o[9 * B] = final_obs;
   a.out_f[i] = reward;
   a.out_b[i] = now_goal;
@@ -315,7 +411,8 @@ extern "C" {
 int gst_multigrid_step(int device, void* const* ptrs, int lanes,
                        int max_steps, int max_raw, int autoreset, int obs,
                        int act64, void* stream) {
-  if (lanes < 0 || (obs && max_raw < 1)) return (int)cudaErrorInvalidValue;
+  if (lanes < 0 || (obs && max_raw < 1))
+    return (int)cudaErrorInvalidValue;
   if (lanes == 0) return 0;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
@@ -347,19 +444,20 @@ int gst_multigrid_step(int device, void* const* ptrs, int lanes,
   return (int)cudaGetLastError();
 }
 
-// S3.  ptrs: 16 device pointers, each array contiguous: the eight int32
+// S3.  ptrs: 14 device pointers, each array contiguous: the eight int32
 // [lanes] state fields (ra, ca, rb, cb, poss, turn, t, n), the int64
 // [lanes, 2] key words, the [lanes] action array (int64 if act64, else
-// int32), the alternating tables' raw_to_dense int32 [n_raw], isd_fields
-// int32 [nI, 5], isd_cum float32 [nI], then the outputs: int32 [10, lanes],
-// float32 [lanes], bool [2, lanes].  params: the host's Params (a type
-// of this file alone, so the C entry takes it as void*).  Launches on
-// `stream` and returns its cudaError_t (0 on success); lanes == 0 launches
-// nothing.
+// int32), the alternating tables' raw_to_dense int32 [n_raw], then the
+// outputs: int32 [10, lanes], float32 [lanes], bool [2, lanes].  params:
+// the host's Params; reset: its AltReset (types of this file alone, so
+// the C entry takes them as void*).  Launches on `stream` and returns its
+// cudaError_t (0 on success); lanes == 0 launches nothing.
 int gst_alt_step(int device, void* const* ptrs, const void* params,
-                 int lanes, int autoreset, int act64, void* stream) {
+                 const void* reset, int lanes, int autoreset, int act64,
+                 void* stream) {
   const Params& g = *static_cast<const Params*>(params);
-  if (lanes < 0 || g.nI < 1) return (int)cudaErrorInvalidValue;
+  if (lanes < 0 || g.nI < 1 || g.nI > gst::kMaxIsd)
+    return (int)cudaErrorInvalidValue;
   if (lanes == 0) return 0;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
@@ -368,12 +466,11 @@ int gst_alt_step(int device, void* const* ptrs, const void* params,
   a.key = static_cast<const int64_t*>(ptrs[8]);
   a.a = ptrs[9];
   a.raw_to_dense = static_cast<const int32_t*>(ptrs[10]);
-  a.isd_fields = static_cast<const int32_t*>(ptrs[11]);
-  a.isd_cum = static_cast<const float*>(ptrs[12]);
-  a.out_i = static_cast<int32_t*>(ptrs[13]);
-  a.out_f = static_cast<float*>(ptrs[14]);
-  a.out_b = static_cast<bool*>(ptrs[15]);
+  a.out_i = static_cast<int32_t*>(ptrs[11]);
+  a.out_f = static_cast<float*>(ptrs[12]);
+  a.out_b = static_cast<bool*>(ptrs[13]);
   a.g = g;
+  a.r = *static_cast<const AltReset*>(reset);
   a.lanes = lanes;
   const int blocks = (lanes + kThreads - 1) / kThreads;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -382,10 +479,12 @@ int gst_alt_step(int device, void* const* ptrs, const void* params,
   return (int)cudaGetLastError();
 }
 
-// Lanes a block and sizeof(Params), for the wrapper's checks.
+// Lanes a block, sizeof(Params) and sizeof(AltReset), for the wrapper's
+// checks.
 void gst_mixed_alt_shape(int* shape) {
   shape[0] = kThreads;
   shape[1] = (int)sizeof(Params);
+  shape[2] = (int)sizeof(AltReset);
 }
 
 const char* gst_error_string(int code) {

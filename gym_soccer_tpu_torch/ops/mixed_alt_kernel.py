@@ -9,8 +9,10 @@ threefry draws inside it); ``envs/soccer_alternating_env.alt_step`` /
 versions are ``multigrid.step_plain`` and ``alt_step_plain``, which the
 engines run on CPU tensors; there is no fallback from one to the other.
 The lookup tables (the codec's ``raw_to_dense`` and ``offsets``, the
-alternating tables' ``raw_to_dense``, the board's ISD) are tensors cached
-once a device by the engines' modules.
+alternating tables' ``raw_to_dense``) are tensors cached once a device by
+the engines' modules; S3's board ISD, with each entry's observation, is
+``alt_reset_table``'s host tuple, passed in the launch's arguments
+(`AltReset`).  The lanes a block are `LANES_PER_BLOCK`.
 
 The launches read nothing back to the host, allocate their outputs with
 torch and run on the current stream, so a CUDA graph can capture them
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -31,7 +34,21 @@ from .engine_kernel import EngineParams, params
 launch_counts = {"multigrid_step": 0, "alt_step": 0}
 
 # The device pointers each C entry reads.
-N_PTRS = {"multigrid_step": 21, "alt_step": 16}
+N_PTRS = {"multigrid_step": 21, "alt_step": 14}
+# The lanes a block (csrc/mixed_alt_kernel.cu kThreads), at every width:
+# 32 times 2-5 % under 64 and 128 from 128 to 8192 lanes, 256 slower
+# from 256 lanes up (ops/mixed_alt_variants, phase 51 of chip_smoke.py).
+LANES_PER_BLOCK = 32
+MAX_ISD = 4   # game.cuh kMaxIsd
+
+
+class AltReset(ctypes.Structure):
+    """csrc/mixed_alt_kernel.cu's ``AltReset``, field for field: the
+    board's ISD entries, their cumulative thresholds (+inf past the last)
+    and their observations at turn 0."""
+    _fields_ = [("isd", (ctypes.c_int * 5) * MAX_ISD),
+                ("cum", ctypes.c_float * MAX_ISD),
+                ("obs", ctypes.c_int * MAX_ISD)]
 
 
 def reset_launch_counts() -> None:
@@ -136,14 +153,15 @@ def multigrid_step(fields, key: torch.Tensor, actions_a: torch.Tensor,
 
 
 def alt_step(cfg: EnvConfig, fields, key: torch.Tensor,
-             action: torch.Tensor, raw_to_dense: torch.Tensor, maps,
+             action: torch.Tensor, raw_to_dense: torch.Tensor, reset,
              autoreset: bool):
     """One tick of every lane by S3.
 
     ``fields``: the eight int32 [B] state fields (rows_a, cols_a, rows_b,
     cols_b, poss, turn, t, n); ``key``: int64 [B, 2]; ``action``: integer
     [B], the mover's; ``raw_to_dense``: the alternating tables' int32
-    [n_raw * 2]; ``maps``: ``batch.device_maps(cfg, device)`` (the ISD).
+    [n_raw * 2]; ``reset``: ``alt_reset_table(cfg)`` (the board's ISD on
+    the host: fields, cumulative thresholds, observations at turn 0).
     The board's constants are S1's (``engine_kernel.params``): the slip's
     thresholds rounded once from the float64 value, as
     ``batch._slip_variant`` rounds them.
@@ -154,40 +172,72 @@ def alt_step(cfg: EnvConfig, fields, key: torch.Tensor,
     if raw_to_dense.dim() != 1 or raw_to_dense.dtype != torch.int32 \
             or raw_to_dense.device != dev:
         raise ValueError(f"alt_step: raw_to_dense int32 [n_raw * 2] on {dev}")
+    rst = _alt_reset(reset)
     _on_card("alt_step", dev)
-    ins = [t.contiguous() for t in (*fields, key, act, raw_to_dense,
-                                    maps.isd_fields, maps.isd_cum)]
+    ins = [t.contiguous() for t in (*fields, key, act, raw_to_dense)]
     out_i = torch.empty((10, lanes), dtype=torch.int32, device=dev)
     out_f = torch.empty(lanes, dtype=torch.float32, device=dev)
     out_b = torch.empty((2, lanes), dtype=torch.bool, device=dev)
     if lanes:
-        prm = params(cfg, raw_to_dense.shape[0], maps.isd_fields.shape[0])
+        prm = params(cfg, raw_to_dense.shape[0], len(reset.fields))
         _launch("alt_step", dev, (*ins, out_i, out_f, out_b),
-                ctypes.addressof(prm), lanes, bool(autoreset), act64)
+                ctypes.addressof(prm), ctypes.addressof(rst), lanes,
+                bool(autoreset), act64)
     return out_i, out_f, out_b
 
 
 @functools.lru_cache(maxsize=None)
+def _alt_reset(reset) -> AltReset:
+    """``reset`` (an ``alt_reset_table``) as the kernel's `AltReset`, its
+    thresholds past the last entry +inf; ValueError unless it holds 1 to
+    MAX_ISD entries of five fields, a threshold and an observation each."""
+    fields, cum, obs = reset
+    n = len(fields)
+    if not 1 <= n <= MAX_ISD or len(cum) != n or len(obs) != n or any(
+            len(f) != 5 for f in fields):
+        raise ValueError(f"alt_step: 1 to {MAX_ISD} ISD entries of five "
+                         "fields, a threshold and an observation each")
+    rst = AltReset()
+    for k in range(MAX_ISD):
+        rst.cum[k] = cum[k] if k < n else math.inf
+        if k < n:
+            rst.isd[k][:] = fields[k]
+            rst.obs[k] = obs[k]
+    return rst
+
+
+@functools.lru_cache(maxsize=None)
 def _library():
-    """The built S2/S3 library with its C signatures declared, its Params
-    layout checked against ``EngineParams``."""
+    """The built S2/S3 library with its C signatures declared, its lanes a
+    block and its Params and AltReset layouts checked against
+    LANES_PER_BLOCK, ``EngineParams`` and `AltReset`."""
     from . import _build
     lib = _build.load("mixed_alt_kernel")
+    declare(lib)
+    shape = (ctypes.c_int32 * 3)()
+    lib.gst_mixed_alt_shape(ctypes.addressof(shape))
+    if tuple(shape) != (LANES_PER_BLOCK, ctypes.sizeof(EngineParams),
+                        ctypes.sizeof(AltReset)):
+        raise RuntimeError(f"mixed_alt_kernel: the library's (lanes a block, "
+                           f"Params, AltReset) are {tuple(shape)}, here "
+                           f"({LANES_PER_BLOCK}, "
+                           f"{ctypes.sizeof(EngineParams)}, "
+                           f"{ctypes.sizeof(AltReset)})")
+    return lib
+
+
+def declare(lib) -> None:
+    """Declares the C signatures of ``lib``: this module's library, or a
+    build of the same source (ops/mixed_alt_variants)."""
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     # device, ptrs, lanes, max_steps, max_raw, autoreset, obs, act64, stream
     lib.gst_multigrid_step.argtypes = [i32, vp, i32, i32, i32, i32, i32, i32,
                                        vp]
     lib.gst_multigrid_step.restype = i32
-    # device, ptrs, params, lanes, autoreset, act64, stream
-    lib.gst_alt_step.argtypes = [i32, vp, vp, i32, i32, i32, vp]
+    # device, ptrs, params, reset, lanes, autoreset, act64, stream
+    lib.gst_alt_step.argtypes = [i32, vp, vp, vp, i32, i32, i32, vp]
     lib.gst_alt_step.restype = i32
     lib.gst_mixed_alt_shape.argtypes = [vp]
     lib.gst_mixed_alt_shape.restype = None
     lib.gst_error_string.argtypes = [i32]
     lib.gst_error_string.restype = ctypes.c_char_p
-    shape = (ctypes.c_int32 * 2)()
-    lib.gst_mixed_alt_shape(ctypes.addressof(shape))
-    if shape[1] != ctypes.sizeof(EngineParams):
-        raise RuntimeError(f"mixed_alt_kernel: Params is {shape[1]} B in the "
-                           f"library, {ctypes.sizeof(EngineParams)} here")
-    return lib

@@ -877,10 +877,12 @@ def test_s2_equals_step_plain(cuda, autoreset):
     step_obs_plain on the card and on the CPU in every output, on each of
     chip_smoke's mixtures, from goal-state, wrapping and truncating lanes,
     int32 and int64 actions, with and without the observations; one launch
-    a step."""
+    a step.  Its previous design (ops/mixed_alt_variants) and the kernel at
+    each lanes-a-block shape equal them too."""
     from chip_smoke import S2_MIXTURES, _step_outputs, mixed_start
     from gym_soccer_tpu_torch.core import multigrid as mg
     from gym_soccer_tpu_torch.ops import mixed_alt_kernel as mk
+    from gym_soccer_tpu_torch.ops import mixed_alt_variants as mv
     for k, mix in enumerate(S2_MIXTURES.values()):
         cfgs = tuple(EnvConfig(*b) for b in mix)
         codec = mg.build_codec(cfgs)
@@ -906,6 +908,16 @@ def test_s2_equals_step_plain(cuda, autoreset):
                                  for r in (got, want, cpu))):
                 assert a.dtype == b.dtype and torch.equal(a, b)
                 assert torch.equal(a.cpu(), c)
+            geo = st.geo
+            planes = (geo.H, geo.W, geo.glo, geo.ghi, geo.vid, geo.slip)
+            maps = mg._codec_on(codec.cfgs, cuda) if s % 4 < 2 else None
+            for design in mv.designs():
+                ints, rew, flags = mv.multigrid_step_on(
+                    design, st[:7], st.key, aa, ab, planes, geo.max_steps,
+                    autoreset, maps)
+                other = [*ints[:7], rew, *flags, *ints[7:]]
+                assert all(torch.equal(a, b) for a, b in
+                           zip(other, _step_outputs(want, 7), strict=True))
             st = got[0]
 
 
@@ -923,10 +935,13 @@ def test_s3_equals_alt_step_plain(cuda, autoreset):
     """S3 (the alternating engine's tick) bit-equal to alt_step_plain and
     alt_step_obs_plain on the card and on the CPU in every output, on 5x4
     and 11x7 at slip 0.2, from both movers, goal-state, wrapping and
-    truncating lanes, int32 and int64 actions; one launch a tick."""
+    truncating lanes, int32 and int64 actions; one launch a tick.  Its
+    previous design (ops/mixed_alt_variants) and the kernel at each
+    lanes-a-block shape equal them too."""
     from chip_smoke import _step_outputs, alt_start
     from gym_soccer_tpu_torch.envs import soccer_alternating_env as alt
     from gym_soccer_tpu_torch.ops import mixed_alt_kernel as mk
+    from gym_soccer_tpu_torch.ops import mixed_alt_variants as mv
     for w, h in BOARDS:
         cfg = EnvConfig(width=w, height=h, slip_prob=0.2)
         st = alt_start(torch, cfg, 3000, cuda, w)
@@ -949,6 +964,13 @@ def test_s3_equals_alt_step_plain(cuda, autoreset):
                                  for r in (got, want, cpu))):
                 assert x.dtype == y.dtype and torch.equal(x, y)
                 assert torch.equal(x.cpu(), z)
+            for design in mv.designs():
+                ints, rew, flags = mv.alt_step_on(design, cfg, st[:8],
+                                                  st.key, a, autoreset)
+                obs = ints[8:] if s % 4 < 2 else ()
+                other = [*ints[:8], rew, *flags, *obs]
+                assert all(torch.equal(x, y) for x, y in
+                           zip(other, _step_outputs(want, 8), strict=True))
             st = got[0]
 
 

@@ -18,11 +18,20 @@ engine's tick), ops/csrc/mixed_alt_kernel.cu, on the CPU.
   ``alt_reset_where`` on the ended lanes, with ``final_obs`` as the
   learners computed it; ``step_plain`` / ``alt_step_plain`` against the
   JAX package's engines on these boards.
+* Scalar mirrors of the kernels' order: S3's three candidate states and
+  their observations taken before the draw, which picks one by its slip
+  variant, and its reset from the host's ISD table (``alt_reset_table``:
+  fields, thresholds, observations at turn 0); S2's reset observations
+  taken from the lane's board before the draws.  The host table equals
+  the JAX package's ISD and its observations on every board.
 * ``step`` / ``alt_step`` on CPU tensors are the plain versions; the
-  wrappers refuse devices, shapes and types the kernels do not take; the
-  ctypes struct and pointer counts match the .cu file.
+  wrappers, and the previous design's launchers in ops/mixed_alt_variants,
+  refuse devices, shapes and types the kernels do not take; the ctypes
+  structs, the lanes a block and the pointer counts match the .cu files;
+  the variants' builds at other lanes a block change that line alone.
 
 Every comparison is exact: every int, every bool and every float32 bit."""
+import math
 import os
 import re
 import struct
@@ -34,6 +43,7 @@ import pytest
 import torch
 
 from gym_soccer_tpu.config import EnvConfig as JaxConfig
+from gym_soccer_tpu.core import batch as jbatch
 from gym_soccer_tpu.core import multigrid as jmg
 from gym_soccer_tpu.envs import soccer_alternating_env as jalt
 from gym_soccer_tpu_torch.config import EnvConfig
@@ -43,6 +53,7 @@ from gym_soccer_tpu_torch.envs import soccer_alternating_env as alt
 from gym_soccer_tpu_torch.ops import _build
 from gym_soccer_tpu_torch.ops import engine_kernel as ek
 from gym_soccer_tpu_torch.ops import mixed_alt_kernel as mk
+from gym_soccer_tpu_torch.ops import mixed_alt_variants as mv
 
 # One torch intra-op thread in each xdist worker: the workers share the
 # machine's cores, and a default-sized pool in each oversubscribes them.
@@ -57,6 +68,7 @@ MIXTURES = {"bench-row": ((5, 4, 0.2), (6, 5, 0.1), (9, 6, 0.3)),
             "slips-0.058-0.111": ((5, 4, 0.058), (6, 5, 0.111))}
 ALT_BOARDS = {"5x4": (5, 4, 0.2), "11x7": (11, 7, 0.2)}
 AUTO = [True, False]
+SHAPES = (32, 64, 128, 256)   # the lanes-a-block shapes the variants time
 
 
 # ---- threefry, one lane ---------------------------------------------------
@@ -242,6 +254,94 @@ def _alt_lane(cfg, r2d, isd, f, kw, a, autoreset):
             obs(s, turn) if autoreset else final, final, reward, now, trunc)
 
 
+def _mixed_isd(k, H, W):
+    """ISD entry k of a board (multigrid._isd_fields)."""
+    even = H % 2 == 0
+    swap = even and k // 2 == 1
+    lo_row = (H - 1) // 2 if even else H // 2
+    return (H // 2 if swap else lo_row, 2, lo_row if swap else H // 2, W - 3,
+            k % 2)
+
+
+def _mixed_lane_ahead(board, q32, vid, codec, f, kw, aa, ab, autoreset):
+    """S2's program in the kernel's order: the lane's offset and its
+    board's ISD observations read first (they depend on the board alone),
+    then the draws and the step, whose observation is the one read after
+    them; the reset picks its observation by the drawn index."""
+    H, W, lo, hi = board
+    nI = 4 if H % 2 == 0 else 2
+    r2d = codec.raw_to_dense[vid]
+
+    def row(s):
+        raw = _raw(s, H, W)
+        return int(r2d[raw + (len(r2d) if raw < 0 else 0)])
+
+    off = int(codec.offsets[vid])
+    reset_obs = [row(_mixed_isd(k, H, W)) for k in range(nI)]
+    *s, t, n = f
+    u = _uniforms(kw, n, 3)
+    ur = _uniforms(kw, n + 1, 1)[0] if autoreset else None
+    keep, first = _thresholds(q32)
+    s, was = _resolve(tuple(s), aa, ab, _move(aa, _variant(u[0], keep, first)),
+                      _move(ab, _variant(u[1], keep, first)), u[2], H, W, lo,
+                      hi)
+    now = _goal(s, W, lo, hi)
+    reward = _reward(s, W, lo, hi) if now and not was else 0.0
+    t1 = _wrap32(t + 1)
+    trunc = t1 >= MAX_STEPS
+    final = off + row(s)
+    obs, n_out, t_out = final, n + 1, t1
+    if autoreset:
+        idx = min(int(ur * np.float32(nI)), nI - 1)
+        n_out = n + 2
+        if now or trunc:
+            s, t_out, obs = _mixed_isd(idx, H, W), 0, off + reset_obs[idx]
+    return (*s, t_out, _wrap32(n_out), obs, final, reward, now, trunc)
+
+
+def _alt_lane_ahead(cfg, r2d, reset, f, kw, a, autoreset):
+    """S3's program in the kernel's order: the mover's three candidate
+    states (one a slip variant) and their observations first, then the
+    draw, whose variant picks one; the reset from the host's ISD table
+    (thresholds +inf past its entries), its observation taken from it."""
+    H, W = cfg.H, cfg.W
+    lo, hi = cfg.goal_row_bounds
+    xa, ya, xb, yb, p, turn, t, n = f
+    nturn = 1 - turn
+
+    def row(s, turn):
+        raw = _raw(s, H, W) * 2 + turn
+        raw += len(r2d) if raw < 0 else 0
+        return int(r2d[min(max(raw, 0), len(r2d) - 1)])
+
+    cand = []
+    for v in range(3):
+        mover, opp = ((xa, ya), (xb, yb)) if turn == 0 else ((xb, yb),
+                                                             (xa, ya))
+        nx, ny = _next(*mover, *_move(a, v), p == turn, H, W, lo, hi)
+        pv = p
+        if (nx, ny) == opp:
+            (nx, ny), pv = mover, 1 - turn
+        s = (nx, ny, xb, yb, pv) if turn == 0 else (xa, ya, nx, ny, pv)
+        cand.append((s, row(s, nturn)))
+    keep, first, _ = ek.slip_constants(cfg.slip_prob)
+    u0 = _uniforms(kw, n, 1)[0]
+    ur = _uniforms(kw, n + 1, 1)[0] if autoreset else None
+    s, final = cand[_variant(u0, keep, first)]
+    now = _goal(s, W, lo, hi)
+    reward = _reward(s, W, lo, hi)
+    t1 = _wrap32(t + 1)
+    trunc = t1 >= MAX_STEPS
+    obs, n_out, t_out = final, n + 1, t1
+    if autoreset:
+        cum = [*reset.cum, *[math.inf] * (mk.MAX_ISD - len(reset.cum))]
+        idx = max(min(sum(c <= ur for c in cum), len(reset.fields) - 1), 0)
+        n_out = n + 2
+        if now or trunc:
+            s, nturn, t_out, obs = reset.fields[idx], 0, 0, reset.obs[idx]
+    return (*s, nturn, t_out, _wrap32(n_out), obs, final, reward, now, trunc)
+
+
 # ---- the engines' starting states -----------------------------------------
 
 def _cfgs(mix):
@@ -358,6 +458,101 @@ def test_alt_lane_mirror_equals_alt_step_plain(board, autoreset):
         seen["truncated"] += int(trunc.sum())
         st = new
     assert seen["goal"] and seen["truncated"], seen
+
+
+@pytest.mark.parametrize("autoreset", AUTO, ids=["auto", "noauto"])
+@pytest.mark.parametrize("mix", MIXTURES.values(), ids=MIXTURES.keys())
+def test_mixed_lane_in_kernel_order_equals_step_obs_plain(mix, autoreset):
+    """S2's order, the reset's observations read from the board before the
+    draws, gives step_obs's every output lane by lane."""
+    codec = mg.build_codec(_cfgs(mix))
+    st = _mixed_start(mix, 5 + len(mix))
+    geo = st.geo
+    boards = [(int(geo.H[i]), int(geo.W[i]), int(geo.glo[i]),
+               int(geo.ghi[i])) for i in range(B)]
+    seen = {"reset": 0, "odd H": 0}
+    for aa, ab in _actions(3 + len(mix), 2):
+        new, (rew, goal, trunc), (obs, final) = mg.step_obs(codec, st, aa,
+                                                            ab, autoreset)
+        cols = [_bits(x) for x in (*new[:7], obs, final, rew, goal, trunc)]
+        for i in range(B):
+            want = _mixed_lane_ahead(boards[i], geo.slip[i].numpy(),
+                                     int(geo.vid[i]), codec,
+                                     [int(x[i]) for x in st[:7]],
+                                     [int(x) for x in st.key[i]], int(aa[i]),
+                                     int(ab[i]), autoreset)
+            want = [*want[:9], np.float32(want[9]).view(np.int32),
+                    *want[10:]]
+            assert [int(c[i]) for c in cols] == [int(x) for x in want], i
+        ended = (goal | trunc) if autoreset else torch.zeros_like(goal)
+        seen["reset"] += int(ended.sum())
+        seen["odd H"] += int((ended & (geo.H % 2 == 1)).sum())
+        st = new
+    assert (seen["reset"] > 0) == autoreset, seen
+    assert (seen["odd H"] > 0) == (autoreset and any(h % 2 for _, h, _ in mix))
+
+
+@pytest.mark.parametrize("autoreset", AUTO, ids=["auto", "noauto"])
+@pytest.mark.parametrize("board", ALT_BOARDS.values(), ids=ALT_BOARDS.keys())
+def test_alt_lane_in_kernel_order_equals_alt_step_obs_plain(board,
+                                                            autoreset):
+    """S3's order, the three candidates' observations before the draw and
+    the reset from the host's table, gives alt_step_obs's every output
+    lane by lane, and each drawn variant picks a candidate."""
+    cfg, st = _alt_start(board, board[0] + 1)
+    r2d = alt.build_alt_tables(cfg).raw_to_dense
+    reset = alt.alt_reset_table(cfg)
+    keep, first, _ = ek.slip_constants(cfg.slip_prob)
+    variants = set()
+    for (a,) in _actions(board[1] + 1, 1):
+        new, (rew, goal, trunc), (obs, final) = alt.alt_step_obs(cfg, st, a,
+                                                                 autoreset)
+        cols = [_bits(x) for x in (*new[:8], obs, final, rew, goal, trunc)]
+        for i in range(B):
+            f = [int(x[i]) for x in st[:8]]
+            kw = [int(x) for x in st.key[i]]
+            want = _alt_lane_ahead(cfg, r2d, reset, f, kw, int(a[i]),
+                                   autoreset)
+            want = [*want[:10], np.float32(want[10]).view(np.int32),
+                    *want[11:]]
+            assert [int(c[i]) for c in cols] == [int(x) for x in want], i
+            variants.add(_variant(_uniforms(kw, f[7], 1)[0], keep, first))
+        st = new
+    assert variants == {0, 1, 2}
+
+
+def _all_boards():
+    """Every board of the file once: {'WxH slip q': (w, h, q)}."""
+    boards = [*ALT_BOARDS.values(), *(b for m in MIXTURES.values() for b in m)]
+    return {f"{w}x{h} slip {q}": (w, h, q) for w, h, q in boards}
+
+
+@pytest.mark.parametrize("board", _all_boards().values(),
+                         ids=_all_boards().keys())
+def test_alt_reset_table_is_the_jax_isd_and_its_observations(board):
+    """The host's ISD table S3 selects from: the JAX package's ISD fields
+    and float32 thresholds, and each entry's observation at turn 0 as the
+    JAX alternating tables give it, on every board of the file (both
+    parities of H); the kernel's struct holds them, +inf past the last
+    threshold."""
+    w, h, q = board
+    cfg = EnvConfig(width=w, height=h, slip_prob=q)
+    jcfg = JaxConfig(width=w, height=h, slip_prob=q)
+    reset = alt.alt_reset_table(cfg)
+    jmaps = jbatch.device_maps(jcfg)
+    fields = np.asarray(jmaps.isd_fields)
+    assert reset.fields == tuple(tuple(int(x) for x in f) for f in fields)
+    assert np.array_equal(np.float32(reset.cum).view(np.int32),
+                          np.asarray(jmaps.isd_cum).view(np.int32))
+    raw = np.asarray(jalt.alt_raw_encode(np, *fields.T, 0, jcfg))
+    want = np.asarray(jalt.build_alt_tables(jcfg).raw_to_dense)[raw]
+    assert reset.obs == tuple(int(x) for x in want)
+    assert len(reset.fields) == (4 if h % 2 == 0 else 2)
+    rst = mk._alt_reset(reset)
+    n = len(reset.fields)
+    assert [list(rst.isd[k]) for k in range(n)] == [list(f) for f in fields]
+    assert list(rst.cum) == [*reset.cum, *[math.inf] * (mk.MAX_ISD - n)]
+    assert list(rst.obs)[:n] == list(reset.obs)
 
 
 # ---- the per-lane thresholds ----------------------------------------------
@@ -525,10 +720,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                            torch.zeros(1, dtype=torch.int32, device="meta")))
 
     cfg, ast = _alt_start(ALT_BOARDS["5x4"], 2)
-    maps = batch.device_maps(cfg, torch.device("cpu"))
+    reset = alt.alt_reset_table(cfg)
     r2d = alt.alt_device_maps(cfg, torch.device("cpu"))
     with pytest.raises(ValueError, match="no kernel for device cpu"):
-        mk.alt_step(cfg, ast[:8], ast.key, acts, r2d, maps, True)
+        mk.alt_step(cfg, ast[:8], ast.key, acts, r2d, reset, True)
     ameta = alt.AltEnvState(*(f.to("meta") for f in ast))
     with pytest.raises(ValueError, match="no kernel for device meta"):
         alt.alt_step(cfg, ameta, a)
@@ -536,11 +731,33 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         alt.alt_step_obs(cfg, ameta, a)
     am = list(ameta[:8])
     with pytest.raises(ValueError, match="8 int32"):
-        mk.alt_step(cfg, am[:7], ameta.key, a, r2d.to("meta"), maps, True)
+        mk.alt_step(cfg, am[:7], ameta.key, a, r2d.to("meta"), reset, True)
     with pytest.raises(ValueError, match="actions"):
-        mk.alt_step(cfg, am, ameta.key, a[:5], r2d.to("meta"), maps, True)
+        mk.alt_step(cfg, am, ameta.key, a[:5], r2d.to("meta"), reset, True)
     with pytest.raises(ValueError, match="raw_to_dense int32"):
-        mk.alt_step(cfg, am, ameta.key, a, r2d.to("meta").long(), maps, True)
+        mk.alt_step(cfg, am, ameta.key, a, r2d.to("meta").long(), reset, True)
+    five = reset._replace(fields=reset.fields + reset.fields[:1],
+                          cum=reset.cum + (1.0,), obs=reset.obs + (0,))
+    for bad in (reset._replace(fields=(), cum=(), obs=()), five,
+                reset._replace(obs=reset.obs[:1]),
+                reset._replace(fields=((1, 2, 3),) * len(reset.fields))):
+        with pytest.raises(ValueError, match="ISD entries"):
+            mk.alt_step(cfg, am, ameta.key, a, r2d.to("meta"), bad, True)
+
+    # the variants' launchers (the previous design, the kernel at other
+    # lanes a block): the same checks, and no CPU tensors, before any build
+    for design in mv.designs():
+        with pytest.raises(ValueError, match="no kernel for device cpu"):
+            mv.multigrid_step_on(design, st[:7], st.key, acts, acts, planes,
+                                 6, True)
+        with pytest.raises(ValueError, match="no kernel for device cpu"):
+            mv.alt_step_on(design, cfg, ast[:8], ast.key, acts, True)
+        with pytest.raises(ValueError, match="7 int32"):
+            mv.multigrid_step_on(design, m[:6], key, a, a, mplanes, 6, True)
+        with pytest.raises(ValueError, match="actions"):
+            mv.alt_step_on(design, cfg, am, ameta.key, a[:5], True)
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        mv.launch_floor(64, 32, torch.device("cpu"))
 
 
 def _struct_fields(src, name):
@@ -549,28 +766,130 @@ def _struct_fields(src, name):
     return re.findall(r"(\w+)\s*(?:[,;])", body)
 
 
+def _c_params(src, entry):
+    """The parameters of the C entry ``entry`` in ``src``."""
+    sig = re.search(r"\b%s\((.*?)\)\s*\{" % entry, src, re.S).group(1)
+    return [p.strip() for p in sig.split(",")]
+
+
 def test_c_interface_matches_the_kernel_source():
     """The .cu file's Params is S1's field for field (ops/engine_kernel.
-    EngineParams; the library checks its size at load), the wrappers hand
-    the C entries the pointers they read, and the library builds from the
-    sources it shares with S1."""
+    EngineParams; the library checks its size at load) and its AltReset
+    the wrapper's; the wrappers hand the C entries the pointers and
+    arguments they read; the lanes a block are the wrapper's and the ISD
+    entries the .cu's bound; the library builds from the sources it shares
+    with S1.  The previous design (csrc/mixed_alt_prev_kernel.cu) keeps
+    S2's C entry and S3's without the AltReset, as ops/mixed_alt_variants
+    declares them; it and the empty kernel are built by that module
+    alone."""
     src = (_build.CSRC / "mixed_alt_kernel.cu").read_text()
     assert _struct_fields(src, "Params") == [n for n, _ in
                                              ek.EngineParams._fields_]
+    body = re.search(r"struct AltReset \{(.*?)\};", src, re.S).group(1)
+    assert re.findall(r"(\w+)((?:\[[^\]]*\])+);", body) == [
+        ("isd", "[gst::kMaxIsd][5]"), ("cum", "[gst::kMaxIsd]"),
+        ("obs", "[gst::kMaxIsd]")]
+    assert [n for n, _ in mk.AltReset._fields_] == ["isd", "cum", "obs"]
+    assert ctypes_sizes() == (4 * 5 * mk.MAX_ISD, 4 * mk.MAX_ISD,
+                              4 * mk.MAX_ISD)
+    assert mv.THREADS_LINE.format(mk.LANES_PER_BLOCK) in src
+    assert f"constexpr int kMaxIsd = {mk.MAX_ISD};" in (
+        _build.CSRC / "game.cuh").read_text()
     assert f"ptrs[{mk.N_PTRS['multigrid_step'] - 1}]" in src
     for name, n in mk.N_PTRS.items():
         c_entry = src[src.index(f"int gst_{name}("):]
         assert f"ptrs: {n} device pointers" in src
         assert f"ptrs[{n - 1}]" in c_entry[:c_entry.index("\n}")]
+    lib = _FakeLib()
+    mk.declare(lib)
+    for name in ("gst_multigrid_step", "gst_alt_step", "gst_mixed_alt_shape",
+                 "gst_error_string"):
+        assert len(getattr(lib, name).argtypes) == len(_c_params(src, name))
     assert set(_build.LIBRARIES["mixed_alt_kernel"]) == {
         "mixed_alt_kernel.cu", "game.cuh", "threefry.cuh"}
     for name in ("multigrid_step_kernel", "alt_step_kernel"):
         assert name in src
     cfg = EnvConfig(width=11, height=7, slip_prob=0.111)
-    maps = batch.device_maps(cfg, torch.device("cpu"))
+    reset = alt.alt_reset_table(cfg)
     r2d = alt.alt_device_maps(cfg, torch.device("cpu"))
-    prm = ek.params(cfg, len(r2d), maps.isd_fields.shape[0])
+    prm = ek.params(cfg, len(r2d), len(reset.fields))
     assert (prm.H, prm.W, (prm.glo, prm.ghi), prm.max_steps, prm.nI) == (
         7, 13, cfg.goal_row_bounds, 100, 2)
     assert prm.n_raw == len(r2d) == 2 * cfg.n_raw
     assert (prm.keep, prm.first) == ek.slip_constants(0.111)[:2]
+
+    prev = (_build.CSRC / mv.PREV_SOURCE).read_text()
+    assert f"constexpr int kThreads = {mv.PREV_THREADS};" in prev
+    assert "ptrs: 21 device pointers" in prev
+    assert "ptrs: 16 device pointers" in prev
+    for name in ("gst_multigrid_step", "gst_mixed_alt_shape",
+                 "gst_error_string"):
+        assert _c_params(prev, name) == _c_params(src, name)
+    assert _c_params(prev, "gst_alt_step") == [
+        p for p in _c_params(src, "gst_alt_step") if p != "const void* reset"]
+    floor = (_build.CSRC / mv.FLOOR_SOURCE).read_text()
+    lib = _FakeLib()
+    mv.declare_floor(lib)
+    assert _c_params(floor, "gst_launch_floor") == [
+        "int device", "int lanes", "int threads", "void* stream"]
+    assert len(lib.gst_launch_floor.argtypes) == 4
+    assert "__global__ void empty_kernel() {}" in floor
+    for source in (mv.PREV_SOURCE, mv.FLOOR_SOURCE):
+        assert not any(source in files for files in _build.LIBRARIES.values())
+
+
+def ctypes_sizes():
+    import ctypes
+    return tuple(ctypes.sizeof(t) for _, t in mk.AltReset._fields_)
+
+
+class _FakeLib:
+    """Stands in for a loaded library: each attribute a bare function
+    object that a declaration can give argtypes and restype."""
+
+    def __getattr__(self, name):
+        fn = type("CFunction", (), {})()
+        object.__setattr__(self, name, fn)
+        return fn
+
+
+@pytest.mark.parametrize("threads", SHAPES)
+def test_shape_builds_change_the_lanes_a_block_alone(threads):
+    """Each lanes-a-block shape the variants time is the kernel's source
+    with its kThreads line set to the shape and nothing else changed; the
+    wrapper's shape is the source itself."""
+    src = (_build.CSRC / mv.KERNEL_SOURCE).read_text()
+    text = mv.shape_source(threads)
+    assert len(src.splitlines()) == len(text.splitlines())
+    diff = [(a, b) for a, b in zip(src.splitlines(), text.splitlines())
+            if a != b]
+    if threads == mk.LANES_PER_BLOCK:
+        assert text == src
+    else:
+        assert diff == [(mv.THREADS_LINE.format(mk.LANES_PER_BLOCK),
+                         mv.THREADS_LINE.format(threads))]
+    assert text.count("__launch_bounds__(kThreads)") == 2
+    assert text.count("<<<blocks, kThreads, 0, st>>>") == 4
+
+
+def test_lanes_per_block_spread_the_lanes():
+    """The wrappers launch 32 lanes a block, one warp, one of the shapes
+    the variants time, each a multiple of 32 up to 256; the variants build
+    the others, time the previous design's 256 as a floor too, and refuse
+    a source whose lanes-a-block line is not the wrapper's."""
+    assert mk.LANES_PER_BLOCK == 32 and mk.LANES_PER_BLOCK in mv.SHAPES
+    assert SHAPES == mv.SHAPES and mv.PREV_THREADS in SHAPES
+    assert all(t % 32 == 0 and 32 <= t <= 256 for t in SHAPES)
+    assert mv.designs() == ["kernel, 64 lanes a block",
+                            "kernel, 128 lanes a block",
+                            "kernel, 256 lanes a block", mv.PREVIOUS]
+    assert len(mv.builders()) == 2 + len(SHAPES) - 1
+    assert [mv.floor_name(d) for d in ("kernel", *mv.designs())] == [
+        f"floor, {t} lanes a block" for t in (32, 64, 128, 256, 256)]
+    orig = mk.LANES_PER_BLOCK
+    try:
+        mk.LANES_PER_BLOCK = 96
+        with pytest.raises(ValueError, match="no line"):
+            mv.shape_source(32)
+    finally:
+        mk.LANES_PER_BLOCK = orig
