@@ -8,6 +8,7 @@ check it.
     python3 chip_smoke.py --phases 49     # the tools' sweep alone
     python3 chip_smoke.py --phases 50     # determinism and checkpoints
     python3 chip_smoke.py --phases 51     # S2 and S3, the engines' steps
+    python3 chip_smoke.py --phases 52     # S1's and the keyed entry's designs
 
 Eight main paths, each driven with its kernels' launch counters reset just
 before it and read just after (the threefry path's learning checks
@@ -50,7 +51,8 @@ launches counted, and ``tools.bench_parity_kernel``.  Determinism and
 checkpoints run next: A1 against its plain version, the HBM-table
 learners and the entry point against the CPU and against themselves,
 and ``save_orbax`` / ``load_orbax``.  S2 and S3 against their plain
-versions run last.
+versions run next, and S1's designs against their plain versions and
+each other, with T1's keyed entry beside the empty kernel, last.
 Phases, each of which raises on failure:
 
 1. device: a CUDA device is present; its name and power limit;
@@ -307,8 +309,8 @@ Phases, each of which raises on failure:
     mode at 8192 envs; ``--fused`` stopped at 640 steps and resumed to 1280
     from ``--ckpt``, bit-identical to one uninterrupted run; and
     ``--best-response player_a``;
-44. ``SoccerVectorEnv`` at 8192 envs x 1000 steps, the card's stream equal
-    to the CPU's;
+44. ``SoccerVectorEnv`` at 8192 envs x VEC_STEPS steps, the card's
+    stream equal to the CPU's;
 45. the learners' CUDA-graph replays against the CPU: at 2 lanes, 162
     steps of minimax-Q, IQL, turn-based Q and mixture minimax-Q (an
     unaligned head, two replays, a period on its own, a tail) bit-equal
@@ -327,8 +329,9 @@ Phases, each of which raises on failure:
     one engine step, one eager minimax learner step and one evaluation
     policy draw, before (``step_plain``, the plain draw) and after (S1,
     the keyed entry), and of one A1 call (SCATTER_DEVICE_OPS);
-    ``eval_episode_stats``' loop on both designs, in
-    turns; T1's keyed entry (``keyed_kernel``) bit-equal to its plain
+    ``eval_episode_stats``' loop on both designs, in turns (the previous
+    design's for EVAL_PLAIN_STEPS steps, its trajectory equal to S1's so
+    far); T1's keyed entry (``keyed_kernel``) bit-equal to its plain
     versions, timed at the evaluation's 2 x 1024 (call ms, device ms by
     CUDA-graph replay) beside its plain version, with its bound;
 47. data parallelism (parallel/mesh), NCCL at world size 1 in this
@@ -351,8 +354,10 @@ Phases, each of which raises on failure:
     it equal to the uninterrupted run, and this process, with no mesh,
     loading the global batch, the ranks' blocks in rank order;
 49. the tools: ``tools.bench_all``'s 24 rows in this process at their
-    default sizes, every kernel counter reset before each row and read
-    after it: no error row, every rate finite and > 0, every slope's long
+    ``--quick`` sizes (the JAX tool's reduced ones; the five slope rows,
+    BENCH_SLOPE_ROWS, at their default legs and the table build on its
+    default 11x7 board: BENCH_DEFAULT_ROWS), every kernel counter reset
+    before each row and read after it: no error row, every rate finite and > 0, every slope's long
     leg longer than its short one, and each row's launches exactly those
     ``BENCH_LAUNCHES`` names for its calls, chunks and steps (every other
     counter 0); then ``tools.bench_parity_kernel`` in a subprocess: exit
@@ -394,14 +399,29 @@ Phases, each of which raises on failure:
     device ms by CUDA-graph replay) with S2's and S3's bounds; counted by
     ``torch.profiler`` right after the build, the device operations of
     each engine's step and of a multigrid minimax-Q, multigrid IQL and
-    turn-based Q learner step before (the plain versions) and after.
+    turn-based Q learner step before (the plain versions) and after;
+52. S1's designs and T1's keyed entry (ops/engine_variants): S1 (the
+    board's reset from the host, ``batch.reset_table``), its builds at
+    each other of S1_SHAPES lanes a block and its previous design
+    (``csrc/engine_prev_kernel.cu``) bit-equal to ``batch.step_plain`` in
+    every state and StepOut field on phase 46's 16 cases x S1_STEPS
+    steps, and each replayed from a CUDA graph equal to its eager call;
+    each S1 design, the keyed entry, the plain versions and the empty
+    kernel at each design's launch shape timed on engine_variants.CASES
+    (S1 at S1_WIDTHS lanes, the keyed entry at T1_KEYED_WIDTHS) by
+    CUDA-graph replay in S23_ROUNDS turns, each bit-equal to its plain
+    version, with each design's time above its floor turn by turn; then
+    a design line of S1 and its previous design and of the keyed entry:
+    lanes (threads) a block, registers, SASS on the shortest way through
+    a lane, bytes and bound.
 
 ``--phases`` runs one block of phases alone in a fresh process, building
 only its libraries: 34-38 (K5), 39-46 and 50 (S1, S2, S3, T1, A1, R1,
 K5), 47-48 or 49 (every library), 51 (S1, S2, S3, T1, A1, R1; with phase
 42's turn-based and mixture checks, phase 50's learners against the CPU
-and phase 49's three rows that step S2 or S3); it prints the block's
-figures but no kernels line and no verdict.
+and phase 49's three rows that step S2 or S3), 52 (S1 and T1 with S1's
+designs' builds); it prints the block's figures but no kernels line and
+no verdict.
 
 The second-to-last lines are the kernels' JSON record (the 14 kernel
 sites, R1, T1, its keyed entry, S1, S2, S3 and A1, with each kernel's
@@ -715,6 +735,12 @@ S1_REPLACES = "gym_soccer_tpu/core/batch.py:227"
 S1_SYMBOL = "18engine_step_kernelILi0ELb1ELb1E"
 S1_STEPS = 6
 S1_GRAPH_CALLS, PLAIN_GRAPH_CALLS = 100, 10
+# eval_episode_stats' loop: its 400 steps on S1 and the keyed draw, the
+# previous design's first EVAL_PLAIN_STEPS of them (each ~10 ms a step).
+EVAL_STEPS, EVAL_PLAIN_STEPS = 400, 100
+# Phase 44: SoccerVectorEnv's steps on the card and the CPU, reseeded
+# half way.
+VEC_STEPS = 400
 # A1: the HBM-table learners' scatter-add in lane order (no TPU kernel:
 # the JAX package's XLA scatter-add, its IQL update's first).
 SCATTER = "scatter_add"
@@ -759,6 +785,20 @@ S23_WIDTHS = {S3: (8192, 256, 128), S2: (8192, 512, 512)}
 S23_SHAPES = (32, 64, 128, 256)
 S23_ROUNDS = 4
 S23_LEG_MS = 10.0   # time_cuda's legs there: the turns give the spread
+# Phase 52, S1's redesign and T1's keyed entry, built and launched by
+# ops/engine_variants: S1's previous design (blocks of 256 lanes, the
+# reset's thresholds, entry and observation read from the card after the
+# draws), S1 built at each other of S1_SHAPES lanes a block, and the empty
+# kernel at each design's launch shape; the widths each is timed at
+# (engine_variants.CASES: S1 at the entry point's 8192 lanes,
+# greedy_win_share's 2048 (counter rng), eval_episode_stats' 1024 and the
+# learning checks' 512; the keyed entry at the evaluation's 2 x 1024 and
+# at 2 x 8192), in S23_ROUNDS turns.
+S1_VARIANTS = "gym_soccer_tpu_torch/ops/engine_variants.py"
+S1_PREV_SRC = "gym_soccer_tpu_torch/ops/csrc/engine_prev_kernel.cu"
+S1_WIDTHS = (8192, 2048, 1024, 512)
+T1_KEYED_WIDTHS = ((2, 1024), (2, 8192))
+S1_SHAPES = (32, 64, 128, 256)
 # Their main paths, phase 42's learning checks: the mixture check's two
 # multigrid_minimax_train runs of 2000 steps (S2 once a step), the
 # turn-based Q checks' two altq_train runs of 15000 (against a frozen B,
@@ -774,6 +814,15 @@ ADDED_REPLACES = {RMPLUS: RMPLUS_REPLACES, T1: T1_REPLACES,
                   T1_KEYED: T1_KEYED_REPLACES, S1: S1_REPLACES,
                   S2: S2_REPLACES, S3: S3_REPLACES,
                   SCATTER: SCATTER_REPLACES}
+# The kernels line's entries, in its order: the fourteen kernel sites, then
+# the kernels no TPU kernel precedes.
+KERNELS_LINE = ("fused_rollout", "fused_journal_rollout", "multigrid_rollout",
+                "alt_rollout", "packed_learner_chunk",
+                "multigrid_packed_learner_chunk", "learner_chunk",
+                "multigrid_learner_chunk", "iql_packed_chunk", "iql_chunk",
+                "altq_packed_chunk", "altq_chunk", "parity_events",
+                "parity_scripted_events", RMPLUS, T1, T1_KEYED, S1, S2, S3,
+                SCATTER)
 # The entry point's default mode at its own widths (examples/
 # train_minimax_tpu.py:247-251), 2000 steps in chunks of 500: per step T1
 # draws the learner's actions, S1 steps the engine (the transition's and
@@ -883,6 +932,17 @@ BENCH_LAUNCHES = {
     "table_build_native": {},
 }
 BENCH_PARITY_TIMEOUT = 300.0
+# Phase 49 runs bench_all's rows at their --quick sizes but the slope
+# rows, which keep their default legs: at the quick ones (256 and 512
+# events) the parity row's long leg read 0.489 ms a call against the
+# short one's 0.500 on the H100, and the row failed its long-leg check.
+BENCH_SLOPE_ROWS = ("parity_kernel_fused", "pallas_fused",
+                    "pallas_fused_journal", "pallas_multigrid_fused",
+                    "pallas_alt_fused")
+# The rows phase 49 runs at their default sizes: the slope rows, and the
+# table build, whose --quick swaps its 11x7 board for 5x4 (another case,
+# not a shorter run of the same one).
+BENCH_DEFAULT_ROWS = (*BENCH_SLOPE_ROWS, "table_build_native")
 
 
 class SmokeFailure(RuntimeError):
@@ -1168,7 +1228,8 @@ def time_cuda(fn, min_leg_ms=50.0, legs=5, slow_legs=None):
     """Median ms per call of ``fn`` over ``legs`` legs, each of enough
     back-to-back calls to last at least ``min_leg_ms``; CUDA events.  With
     ``slow_legs``, a function whose call takes over a second is timed over
-    that many legs instead."""
+    that many legs instead.  Where one call lasts a leg, the call that
+    measured it is the first leg."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -1181,8 +1242,8 @@ def time_cuda(fn, min_leg_ms=50.0, legs=5, slow_legs=None):
     if slow_legs is not None and one > 1000.0:
         legs = slow_legs
     reps = max(1, math.ceil(min_leg_ms / max(one, 1e-3)))
-    per_call = []
-    for _ in range(legs):
+    per_call = [one] if reps == 1 else []
+    for _ in range(legs - len(per_call)):
         e0.record()
         for _ in range(reps):
             fn()
@@ -1244,10 +1305,12 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Build and drive the port on one CUDA device.")
     parser.add_argument(
-        "--phases", choices=("34-38", "39-46", "47-48", "49", "50", "51"),
+        "--phases",
+        choices=("34-38", "39-46", "47-48", "49", "50", "51", "52"),
         help="build only the block's libraries (34-38: K5; 39-46 and 50: "
              "S1, S2, S3, T1, A1, R1 and K5; 47-48 and 49: every library; "
-             "51: S1, S2, S3, T1, A1 and R1) and run its phases alone, in "
+             "51: S1, S2, S3, T1, A1 and R1; 52: S1 and T1 with their "
+             "designs' builds) and run its phases alone, in "
              "this fresh process: their figures before any earlier phase "
              "has run; prints no kernels line and no verdict")
     args = parser.parse_args(argv)
@@ -1292,18 +1355,22 @@ def main(argv=None) -> int:
                    lambda: mixed_alt_block(
                        torch, dev, card, added_instructions(_build),
                        s23_counts)),
+            "52": (("engine_kernel", "threefry_kernel"),
+                   lambda: engine_redesign_phase(torch, dev, card)),
         }[args.phases]
         t0 = time.perf_counter()
         from concurrent.futures import ThreadPoolExecutor
+        from gym_soccer_tpu_torch.ops import engine_variants
         from gym_soccer_tpu_torch.ops import mixed_alt_variants
-        extra = mixed_alt_variants.builders() if args.phases == "51" else []
+        extra = {"51": mixed_alt_variants.builders(),
+                 "52": engine_variants.builders()}.get(args.phases, [])
         with ThreadPoolExecutor(len(libraries) + len(extra)) as pool:
             list(pool.map(lambda f: f(), (   # one nvcc each
                 *(lambda n=n: _build.build(n) for n in libraries), *extra)))
         for name in libraries:
             _build.load(name)
         print(f"[build] {', '.join(libraries)}"
-              f"{' and S2/S3 variants' if extra else ''}"
+              f"{' and their designs' if extra else ''}"
               f" in {time.perf_counter() - t0:.3f} s")
         step_counts = (step_kernel_counts(torch, dev, card)
                        if args.phases == "39-46" else None)
@@ -1317,27 +1384,33 @@ def main(argv=None) -> int:
     # ---- 2. build -----------------------------------------------------
     from concurrent.futures import ThreadPoolExecutor
 
-    from gym_soccer_tpu_torch.ops import (mixed_alt_variants,
+    from gym_soccer_tpu_torch.ops import (engine_variants,
+                                          mixed_alt_variants,
                                           rmplus_variants, scatter_variants)
     t0 = time.perf_counter()
     s23_jobs = mixed_alt_variants.builders()
-    with ThreadPoolExecutor(2 + len(s23_jobs)) as pool:   # one nvcc each
+    s1_jobs = [f for f in engine_variants.builders() if f not in s23_jobs]
+    with ThreadPoolExecutor(2 + len(s23_jobs) + len(s1_jobs)) as pool:
         thread_build = pool.submit(rmplus_variants.build_variant,
                                    rmplus_variants.PREVIOUS)
         walk_build = pool.submit(scatter_variants.build_variant,
                                  scatter_variants.PREVIOUS)
-        s23_builds = [pool.submit(f) for f in s23_jobs]
+        s23_builds = [pool.submit(f) for f in s23_jobs]   # one nvcc each
+        s1_builds = [pool.submit(f) for f in s1_jobs]
         built = _build.build_all()
         thread_build = thread_build.result()
         walk_build = walk_build.result()
         s23_builds = [f.result() for f in s23_builds]
+        s1_builds = [f.result() for f in s1_builds]
     for name in built:
         _build.load(name)
     print(f"[build] {', '.join(p.name for p in built.values())} and the "
           f"previous designs of R1, {thread_build.name}, of A1, "
           f"{walk_build.name}, and of S2/S3, {s23_builds[0].name}, the "
           f"empty kernel, {s23_builds[1].name}, and S2/S3 at other lanes a "
-          f"block, {', '.join(b.name for b in s23_builds[2:])}, in "
+          f"block, {', '.join(b.name for b in s23_builds[2:])}; S1's "
+          f"previous design and builds, "
+          f"{', '.join(b.name for b in s1_builds)}; in "
           f"{time.perf_counter() - t0:.3f} s")
     for path in built.values():
         print(path.with_suffix(".log").read_text().strip())
@@ -1524,8 +1597,8 @@ def main(argv=None) -> int:
             lambda: sk.fused_journal_rollout_plain(cfg, 1, B, T, dev),
     }
     ms = {}
-    for name, fn in timed.items():
-        med, reps, legs = time_cuda(fn)
+    for name, fn in timed.items():   # the plain versions over 3 legs
+        med, reps, legs = time_cuda(fn, slow_legs=3)
         ms[name] = med
         print(f"[time] {name} 5x4 B={B} T={T}: {med} ms/call, "
               f"{B * T / (med / 1e3)} env-steps/s (median of {len(legs)} "
@@ -1626,6 +1699,7 @@ def main(argv=None) -> int:
                                                  s23_counts)
     errs.update(s23_errs)
     ms.update(s23_ms)
+    engine_redesign_phase(torch, dev, card)
 
     # Each kernel's work at the shape its ms was timed: lane-steps (or
     # lane-events) and the bytes of its inputs and outputs, each once.
@@ -1653,13 +1727,7 @@ def main(argv=None) -> int:
         **s23_work,
     }
     kernels = []
-    for name in ("fused_rollout", "fused_journal_rollout",
-                 "multigrid_rollout", "alt_rollout", "packed_learner_chunk",
-                 "multigrid_packed_learner_chunk", "learner_chunk",
-                 "multigrid_learner_chunk", "iql_packed_chunk", "iql_chunk",
-                 "altq_packed_chunk", "altq_chunk", "parity_events",
-                 "parity_scripted_events", RMPLUS, T1, T1_KEYED, S1, S2,
-                 S3, SCATTER):
+    for name in KERNELS_LINE:
         units, nbytes = work[name]
         if name == SCATTER:   # additions at the float32 rate
             bound_ms, bound_by = scatter_bound(units, nbytes)
@@ -4064,9 +4132,10 @@ def entry_cli_phase(torch, dev, card):
 
 
 def vector_env_phase(torch, dev, card):
-    """Phase 44: ``SoccerVectorEnv`` at 8192 envs for 1000 random-action
-    steps on the card and on the CPU from the same seed (slip 0.2, with a
-    reseed at step 500): every observation, reward, flag and info equal."""
+    """Phase 44: ``SoccerVectorEnv`` at 8192 envs for VEC_STEPS
+    random-action steps on the card and on the CPU from the same seed
+    (slip 0.2, with a reseed half way): every observation, reward, flag
+    and info equal."""
     import numpy as np
     from gym_soccer_tpu_torch.envs import SoccerVectorEnv
     envs = [SoccerVectorEnv(B, slip_prob=SLIP, seed=3, device=d)
@@ -4082,8 +4151,8 @@ def vector_env_phase(torch, dev, card):
         return a.dtype == b.dtype and np.array_equal(a, b)
 
     ended = 0
-    for k in range(1000):
-        if k % 500 == 0:
+    for k in range(VEC_STEPS):
+        if k % (VEC_STEPS // 2) == 0:
             outs = [e.reset(seed=None if k == 0 else 17) for e in envs]
             check(same(*outs), f"vector env reset {k} differs")
         acts = {a: rng.randint(0, 5, B) for a in envs[0].agents}
@@ -4095,7 +4164,8 @@ def vector_env_phase(torch, dev, card):
         check(same(*outs), f"vector env step {k} differs CUDA vs CPU")
         ended += int(outs[0][2]["player_a"].sum())
     stats = envs[0].episode_stats
-    print(f"[vector env] SoccerVectorEnv {B} envs x 1000 steps: CUDA == CPU "
+    print(f"[vector env] SoccerVectorEnv {B} envs x {VEC_STEPS} steps: CUDA "
+          f"== CPU "
           f"in every return value; {ended} goals; episode stats since the "
           f"reseed {[float(x) for x in stats]}; step wall {walls[0]} s on "
           f"the card, {walls[1]} s on the CPU (host clock) | {card}")
@@ -4238,6 +4308,30 @@ def device_ops(torch, fn, calls=3):
                if e.device_type == DeviceType.CUDA) / calls
 
 
+def graph_ops(torch, fn):
+    """Device operations one call of ``fn(1)`` makes, counted exactly: the
+    nodes (kernels, memsets, copies) of a CUDA graph that captures it,
+    after the warm-up call fn(0), read by the driver's cuGraphGetNodes.
+    ``device_ops``' profiler can drop a session's kernel records (on the
+    H100 it read S1's one-kernel step as 0 and 2/3 in some sessions while
+    the runtime recorded every launch), so the one-operation checks count
+    this way."""
+    fn(0)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn(1)
+    torch.cuda.synchronize()
+    driver = ctypes.CDLL("libcuda.so.1")
+    driver.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                       ctypes.POINTER(ctypes.c_size_t)]
+    n = ctypes.c_size_t(0)
+    rc = driver.cuGraphGetNodes(graph.raw_cuda_graph(), None,
+                                ctypes.byref(n))
+    check(rc == 0, f"cuGraphGetNodes failed ({rc})")
+    return n.value
+
+
 def step_kernel_counts(torch, dev, card):
     """Phase 46's launch counts, taken early in the process (where the
     profiler records every launch): device operations a call of the
@@ -4247,7 +4341,9 @@ def step_kernel_counts(torch, dev, card):
     point's 8192 lanes and lr/eps (no re-solve) on ``step_plain`` and on
     S1; of ``eval_episode_stats``' policy draw at 2 x 1024, plain and
     keyed; and of A1's call on ``SCATTER_TIMED``.  S1's step and the keyed
-    draw must be one operation each, A1's call SCATTER_DEVICE_OPS."""
+    draw must be one operation each, A1's call SCATTER_DEVICE_OPS, as the
+    nodes of a CUDA graph that captures one call count them
+    (``graph_ops``)."""
     from gym_soccer_tpu_torch.agents import learners as L
     from gym_soccer_tpu_torch.config import EnvConfig
     from gym_soccer_tpu_torch.core import batch, threefry
@@ -4287,13 +4383,22 @@ def step_kernel_counts(torch, dev, card):
         "A1 call, " + SCATTER_TIMED: device_ops(
             torch, lambda i: sc.scatter_add(gi, gv, n)),
     }
+    nodes = {
+        "engine step, S1": graph_ops(
+            torch, lambda i: batch.step(cfg, st, acts[0], acts[1])),
+        "eval draw, keyed T1": graph_ops(
+            torch, lambda i: tk.keyed_uniform(key, i, (2, 1024))),
+        "A1 call, " + SCATTER_TIMED: graph_ops(
+            torch, lambda i: sc.scatter_add(gi, gv, n)),
+    }
     print(f"[S1] device operations a call (torch.profiler, 3 calls after a "
           f"warm-up, early in the process; {B} lanes, 5x4 slip 0.2, "
-          f"threefry): {counts} | {card}")
-    check(counts["engine step, S1"] == 1 and counts["eval draw, keyed T1"]
-          == 1 and counts["A1 call, " + SCATTER_TIMED] == SCATTER_DEVICE_OPS,
+          f"threefry): {counts}; the nodes of a CUDA graph of one call "
+          f"{nodes} | {card}")
+    check(nodes == {"engine step, S1": 1, "eval draw, keyed T1": 1,
+                    "A1 call, " + SCATTER_TIMED: SCATTER_DEVICE_OPS},
           f"S1's step or the keyed draw is not one operation, or A1's call "
-          f"not {SCATTER_DEVICE_OPS}: {counts}")
+          f"not {SCATTER_DEVICE_OPS}: {nodes}")
     return counts
 
 
@@ -4402,16 +4507,12 @@ def s1_phase(torch, dev, card, s1_instructions, t1_device_ms, step_counts):
                 fn(cfg, st, aa, ab)
         device_ms[name] = time_cuda(graph.replay)[0] / calls
         del graph
-    maps = batch.device_maps(cfg, dev)
-    nbytes = B * (7 * 4 + 2 * 8 + 2 * 8 + 9 * 4 + 2 * 4 + 2) + sum(
-        t.numel() * t.element_size() for t in maps)
+    nbytes = s1_bytes(batch.device_maps(cfg, dev), ek, B)
     bound_ms, bound_by = bound(B, s1_instructions, nbytes)
     from gym_soccer_tpu_torch.ops import _build
     regs = ptxas_registers(
         _build.build("engine_kernel").with_suffix(".log").read_text())
-    shape = (ctypes.c_int32 * 2)()
-    ek._library().gst_engine_shape(ctypes.addressof(shape))
-    print(f"[S1] {shape[0]} lanes a block, "
+    print(f"[S1] {ek.LANES_PER_BLOCK} lanes a block, "
           f"{[r for k, r in regs.items() if S1_SYMBOL in k]} registers, "
           f"{s1_instructions} SASS instructions on the shortest way through "
           f"a lane, {nbytes} B; bound {bound_ms} ms ({bound_by}); {ms[S1]} "
@@ -4427,13 +4528,23 @@ def s1_phase(torch, dev, card, s1_instructions, t1_device_ms, step_counts):
     return err, ms, (B, nbytes)
 
 
+def s1_bytes(maps, ek, lanes):
+    """The bytes S1 moves at ``lanes`` lanes: its inputs (seven int32
+    fields, the int64 key words and actions) and outputs (nine int32, two
+    float32, two bools) a lane, the board's raw_to_dense and the reset
+    table in its arguments."""
+    return lanes * (7 * 4 + 2 * 8 + 2 * 8 + 9 * 4 + 2 * 4 + 2) + \
+        maps.raw_to_dense.numel() * 4 + ctypes.sizeof(ek.EngineReset)
+
+
 def eval_walls(torch, dev, card):
-    """The loop of ``eval_episode_stats`` (1024 lanes x 400 steps of
+    """The loop of ``eval_episode_stats`` (1024 lanes x EVAL_STEPS steps of
     uniform policies) written out, host clock, on S1 and the keyed draw
-    (``batch.step``, ``keyed_uniform``) and on the previous design
-    (``step_plain``, ``keyed_uniform_plain``), in turns previous, S1, S1,
-    previous; every run's trajectory equal, and equal to
-    ``eval_episode_stats``' statistics."""
+    (``batch.step``, ``keyed_uniform``) and, for its first
+    EVAL_PLAIN_STEPS steps, on the previous design (``step_plain``,
+    ``keyed_uniform_plain``), in turns previous, S1, S1, previous; every
+    run's trajectory equal to the first S1 run's as far as it goes, and
+    that run's equal to ``eval_episode_stats``' statistics."""
     from gym_soccer_tpu_torch.agents import learners
     from gym_soccer_tpu_torch.config import EnvConfig
     from gym_soccer_tpu_torch.core import batch, threefry
@@ -4444,10 +4555,10 @@ def eval_walls(torch, dev, card):
     pi = torch.full((761, 5), 0.2, device=dev)
     key = threefry.key(7, dev)
 
-    def run(step, draw):
+    def run(step, draw, steps):
         st = batch.init(cfg, threefry.key(8), 1024, dev)
         obs, outs = batch.observe(cfg, st), []
-        for i in range(400):
+        for i in range(steps):
             u = draw(key, i, (2, 1024))
             rows = pi[obs.long()]
             st, out = step(cfg, st, learners._sample_mixed(rows, u[0]),
@@ -4456,8 +4567,9 @@ def eval_walls(torch, dev, card):
             obs = out.obs
         return batch.StepOut(*(torch.stack(f) for f in zip(*outs)))
 
-    designs = {"previous": (batch.step_plain, tk.keyed_uniform_plain),
-               "S1": (batch.step, tk.keyed_uniform)}
+    designs = {"previous": (batch.step_plain, tk.keyed_uniform_plain,
+                            EVAL_PLAIN_STEPS),
+               "S1": (batch.step, tk.keyed_uniform, EVAL_STEPS)}
     walls, runs = {"previous": [], "S1": []}, []
     for design in ("previous", "S1", "S1", "previous"):
         torch.cuda.synchronize()
@@ -4465,17 +4577,19 @@ def eval_walls(torch, dev, card):
         runs.append(run(*designs[design]))
         torch.cuda.synchronize()
         walls[design].append(time.perf_counter() - t0)
-    check(all(torch.equal(a, b) for r in runs[1:] for a, b in zip(r, runs[0])),
+    check(all(torch.equal(a, b[:len(a)]) for r in runs for a, b in
+              zip(r, runs[1])),
           "eval_episode_stats' loop differs between the designs")
-    s = chunk_stats(runs[0])
+    s = chunk_stats(runs[1])
     ev = train_minimax.eval_episode_stats(cfg, pi, pi, device=dev)
     check((int(s.episodes), int(s.goals), int(s.truncations)) ==
           (ev["episodes"], ev["goals"], ev["truncations"]),
           f"eval_episode_stats {ev} != its loop written out {s}")
-    print(f"[S1] eval_episode_stats' loop 1024 x 400 (host clock, in "
-          f"turns): on S1 and T1's keyed entry {walls['S1']} s, on the "
-          f"previous design's step_plain and plain draw {walls['previous']} "
-          f"s; equal trajectories, eval_episode_stats {ev} | {card}")
+    print(f"[S1] eval_episode_stats' loop 1024 lanes (host clock, in "
+          f"turns): on S1 and T1's keyed entry {walls['S1']} s for "
+          f"{EVAL_STEPS} steps, on the previous design's step_plain and plain "
+          f"draw {walls['previous']} s for its first {EVAL_PLAIN_STEPS} "
+          f"steps; equal trajectories, eval_episode_stats {ev} | {card}")
 
 
 def keyed_phase(torch, dev, card, instructions):
@@ -5076,10 +5190,12 @@ def bench_expected(name: str, row: dict) -> dict:
 
 
 def tools_phase(torch, dev, card, rows=None):
-    """Phase 49: ``tools.bench_all``'s rows on the card at their default
-    sizes, each with the kernel counters reset before it and read after
-    it, then ``tools.bench_parity_kernel`` in a subprocess; with ``rows``
-    (names), those rows alone and no subprocess."""
+    """Phase 49: ``tools.bench_all``'s rows on the card at their
+    ``--quick`` sizes (the JAX tool's reduced ones; BENCH_DEFAULT_ROWS at
+    their default sizes), each with the kernel counters reset before it and
+    read after it, then
+    ``tools.bench_parity_kernel`` in a subprocess; with ``rows`` (names),
+    those rows alone and no subprocess."""
     from gym_soccer_tpu_torch.tools import bench_all
     t_all = time.perf_counter()
     names = [name for name, _ in bench_all.ROWS]
@@ -5093,7 +5209,8 @@ def tools_phase(torch, dev, card, rows=None):
             for k in d:
                 d[k] = 0
         t0 = time.perf_counter()
-        line = bench_all.run_row(name, fn, dev, False, card)
+        line = bench_all.run_row(name, fn, dev, name not in BENCH_DEFAULT_ROWS,
+                                 card)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launched = {k: n for d in counts for k, n in d.items() if n}
@@ -5620,7 +5737,8 @@ def mixed_alt_counts(torch, dev, card):
     design) and as S2 / S3, and of an eager learner step of multigrid
     minimax-Q (the entry point's lr and eps, no re-solve), multigrid IQL
     and turn-based Q on their engines before (``_PlainEngines``) and after.
-    S2's and S3's steps must be one operation each."""
+    S2's and S3's steps must be one operation each, as the nodes of a
+    CUDA graph that captures one step count them (``graph_ops``)."""
     from gym_soccer_tpu_torch.agents import learners as L
     from gym_soccer_tpu_torch.config import EnvConfig
     from gym_soccer_tpu_torch.core import multigrid as mg
@@ -5655,12 +5773,14 @@ def mixed_alt_counts(torch, dev, card):
         with _PlainEngines():
             counts[name + ", plain"] = device_ops(torch, fn)
         counts[name + ", S2/S3"] = device_ops(torch, fn)
+    nodes = {name: graph_ops(torch, steps[name])
+             for name in ("mixed engine step", "alternating engine step")}
     print(f"[S2/S3] device operations a call (torch.profiler, 3 calls after "
           f"a warm-up, early in the process; {B} lanes; the mixture "
-          f"{S23_TIMED}, 5x4 slip 0.2): {counts} | {card}")
-    check(counts["mixed engine step, S2/S3"] == 1
-          and counts["alternating engine step, S2/S3"] == 1,
-          f"S2's or S3's step is not one operation: {counts}")
+          f"{S23_TIMED}, 5x4 slip 0.2): {counts}; the nodes of a CUDA graph "
+          f"of one step of S2 and S3 {nodes} | {card}")
+    check(nodes == {"mixed engine step": 1, "alternating engine step": 1},
+          f"S2's or S3's step is not one operation: {nodes}")
     return counts
 
 
@@ -5925,6 +6045,169 @@ def mixed_alt_block(torch, dev, card, instructions, counts):
     print(f"[phase 50] the learners {time.perf_counter() - t0} s")
     tools_phase(torch, dev, card, rows=(
         "xla_multigrid_mixed", "xla_alternating_engine", "xla_altq_learner"))
+
+
+
+# ----------------------------------------------------------------------
+# Phase 52: the designs of S1 and T1's keyed entry (ops/engine_variants)
+# ----------------------------------------------------------------------
+
+def engine_redesign_phase(torch, dev, card):
+    """Phase 52, with its wall seconds: S1 ("kernel", through
+    ``batch.step``), its builds at each other of S1_SHAPES and its
+    previous design against ``batch.step_plain`` on the card, bit for bit
+    in every state and StepOut field, on phase 46's 16 cases (8192 lanes,
+    5x4 and 11x7, slip 0.2 and 0, autoreset on and off, threefry and
+    counter, S1_STEPS steps from ``engine_start``'s goal-state, wrapping
+    and truncating lanes, int32 and int64 actions in turn), and each
+    replayed from a CUDA graph equal to its eager call; the turns of
+    ``engine_variants.CASES`` (`engine_timings`) and the design lines.
+    T1's keyed entry is held to its plain versions at phase 46's shapes
+    and indices by phase 46 (`keyed_phase`), and here at the timed
+    widths."""
+    import numpy as np
+    from gym_soccer_tpu_torch.config import EnvConfig
+    from gym_soccer_tpu_torch.core import batch, rules
+    from gym_soccer_tpu_torch.ops import engine_variants as ev
+    from gym_soccer_tpu_torch.ops import mixed_alt_variants as mv
+    t0 = time.perf_counter()
+    check(ev.SHAPES == S1_SHAPES and mv.ROUNDS == S23_ROUNDS
+          and tuple(c[2] for c in ev.CASES.values() if c[0] == S1)
+          == S1_WIDTHS and tuple(c[2] for c in ev.CASES.values()
+                                 if c[0] == "keyed") == T1_KEYED_WIDTHS,
+          "engine_variants' shapes, turns or widths differ from phase 52's")
+    designs = ("kernel", *ev.designs())
+
+    def step(design, cfg, st, aa, ab, auto, rng):
+        if design == "kernel":
+            return batch.step(cfg, st, aa, ab, auto, rng)
+        return ev.engine_step_on(design, cfg, st, aa, ab, auto, rng)
+
+    cases, seen = 0, {"goal lanes": 0, "done": 0, "truncated": 0}
+    rng_np = np.random.default_rng(52)
+    for (w, h), q, auto, rng in [(b, q, a, r) for b in BOARDS
+                                 for q in (SLIP, 0.0) for a in (True, False)
+                                 for r in ("threefry", "counter")]:
+        cfg = EnvConfig(width=w, height=h, slip_prob=q)
+        st = engine_start(torch, cfg, rng, B, dev, cases)
+        seen["goal lanes"] += int(rules.is_goal_state(torch, *st[:5],
+                                                      cfg).sum())
+        for k in range(S1_STEPS):
+            acts = torch.as_tensor(rng_np.integers(0, 5, (2, B)), device=dev)
+            acts = acts if k % 2 else acts.int()
+            want = batch.step_plain(cfg, st, acts[0], acts[1], auto, rng)
+            for design in designs:
+                got = step(design, cfg, st, acts[0], acts[1], auto, rng)
+                check(_same(torch, [*got[0], *got[1]],
+                            [*want[0], *want[1]])[0],
+                      f"S1 {design} != step_plain on {w}x{h} slip {q} "
+                      f"autoreset {auto} {rng}, step {k}")
+            seen["done"] += int(want[1].done.sum())
+            seen["truncated"] += int(want[1].truncated.sum())
+            st = want[0]
+        cases += 1
+    check(all(seen.values()), f"phase 52's cases missed a kind of lane: "
+                              f"{seen}")
+    cfg = EnvConfig(5, 4, SLIP)
+    st = engine_start(torch, cfg, "threefry", B, dev, 99)
+    aa, ab = (torch.as_tensor(x, device=dev) for x in
+              np.random.default_rng(7).integers(0, 5, (2, B)))
+    for design in designs:
+        eager = step(design, cfg, st, aa, ab, True, "threefry")
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = step(design, cfg, st, aa, ab, True, "threefry")
+        for x in (*captured[0][:7], *captured[1]):
+            x.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        check(_same(torch, [*captured[0], *captured[1]],
+                    [*eager[0], *eager[1]])[0],
+              f"S1 {design} replayed from a CUDA graph != its eager call")
+        del graph
+    print(f"[S1 designs] the kernel ({S1_SRC}), its builds "
+          f"{ev.designs()[:-1]} and its previous design ({S1_PREV_SRC}) "
+          f"bit-equal to step_plain on the card in every state and StepOut "
+          f"field: {cases} cases ({B} lanes, 5x4 and 11x7, slip {SLIP} and "
+          f"0, autoreset on and off, threefry and counter) x {S1_STEPS} "
+          f"steps, int32 and int64 actions; {seen}; each replayed from a "
+          f"CUDA graph equal to its eager call | {card}")
+
+    engine_timings(torch, dev, card)
+    print(f"[phase 52] {time.perf_counter() - t0} s")
+
+
+def engine_timings(torch, dev, card):
+    """Phase 52's turns (ops/engine_variants): on each of its CASES, every
+    design bit-equal to the plain version, then each design's, the plain
+    version's and the empty kernel's device ms a call at each design's
+    launch shape by CUDA-graph replay (legs of S23_LEG_MS), in S23_ROUNDS
+    turns, as the mean and the range of the turns, and each design's time
+    above its floor turn by turn; the plain version's once; each case's
+    bound.  Then the design line of S1 beside its previous design and of
+    the keyed entry: lanes (threads) a block, registers, SASS on the
+    shortest way through a lane, bytes and bound at 8192 lanes and at the
+    evaluation's 2 x 1024."""
+    from gym_soccer_tpu_torch.config import EnvConfig
+    from gym_soccer_tpu_torch.core import batch
+    from gym_soccer_tpu_torch.ops import _build
+    from gym_soccer_tpu_torch.ops import engine_kernel as ek
+    from gym_soccer_tpu_torch.ops import engine_variants as ev
+    from gym_soccer_tpu_torch.ops import mixed_alt_variants as mv
+    from gym_soccer_tpu_torch.ops import threefry_kernel as tk
+    libs = {S1: ((_build.build("engine_kernel"), ev.build_previous()),
+                 S1_SYMBOL),
+            T1_KEYED: ((_build.build("threefry_kernel"),), T1_KEYED_SYMBOL)}
+    design = {}
+    for name, (paths, sym) in libs.items():
+        design[name] = [
+            (next(iter(path_instructions(sass_listing(p), [sym]).values())),
+             [r for k, r in ptxas_registers(
+                 p.with_suffix(".log").read_text()).items() if sym in k])
+            for p in paths]
+    maps = batch.device_maps(EnvConfig(*ev.BOARD), dev)
+    for case, (kind, _, size) in ev.CASES.items():
+        calls = ev.case_calls(case, dev)
+        want = ev.outputs(calls["plain"]())
+        for name, fn in calls.items():
+            if not name.startswith("floor") and name != "plain":
+                check(_same(torch, ev.outputs(fn()), want)[0],
+                      f"{case}: {name} != the plain version")
+        ms, above = mv.summary(mv.time_in_turns(
+            calls, lambda fn, n: _graph_ms(torch, fn, n, S23_LEG_MS)),
+            ev.floor_name)
+        if kind == S1:
+            nbytes = s1_bytes(maps, ek, size)
+            units, ins = size, design[S1][0][0]
+            verdict = ("faster than" if ms["kernel"][0] < ms[ev.PREVIOUS][0]
+                       else "NOT faster than")
+            head = (f"kernel {ms['kernel']}, {verdict} the previous design's "
+                    f"{ms[ev.PREVIOUS]}")
+        else:
+            units = math.prod(size)
+            nbytes, ins = 2 * 8 + units * 4, design[T1_KEYED][0][0]
+            head = f"keyed {ms['keyed']}"
+        print(f"[S1/T1 keyed redesign] {case}: device ms a call by CUDA-graph "
+              f"replay, (mean, min, max) of {mv.ROUNDS} turns (the plain "
+              f"version one): {head}; every design and floor {ms}; above the "
+              f"floor at the same launch shape, turn by turn {above}; bound "
+              f"{bound(units, ins, nbytes)}; every design bit-equal to the "
+              f"plain version | {card}")
+    (ins, regs), (prev_ins, prev_regs) = design[S1]
+    nbytes = s1_bytes(maps, ek, B)
+    print(f"[S1 design] {B} lanes: the kernel {ek.LANES_PER_BLOCK} lanes a "
+          f"block, {regs} registers, {ins} SASS on the shortest way through "
+          f"a lane, bound {bound(B, ins, nbytes)}; the previous design "
+          f"{ev.PREV_THREADS} lanes a block, {prev_regs} registers, "
+          f"{prev_ins} SASS, bound {bound(B, prev_ins, nbytes)}; {nbytes} B "
+          f"| {card}")
+    [(ins, regs)] = design[T1_KEYED]
+    units = math.prod(T1_KEYED_SHAPE)
+    nbytes = 2 * 8 + units * 4
+    print(f"[T1 keyed design] {units} elements: {tk.LANES_PER_BLOCK} threads "
+          f"a block, one element a thread, {regs} registers, {ins} SASS on "
+          f"the shortest way through a thread, bound "
+          f"{bound(units, ins, nbytes)}; {nbytes} B | {card}")
 
 
 if __name__ == "__main__":

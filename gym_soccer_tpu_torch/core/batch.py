@@ -83,6 +83,29 @@ def device_maps(cfg: EnvConfig, device: torch.device) -> DeviceMaps:
     )
 
 
+class ResetTable(NamedTuple):
+    """A board's initial state distribution on the host."""
+    fields: tuple   # (ra, ca, rb, cb, poss) of each ISD entry
+    cum: tuple      # the float32 cumulative probabilities, as floats
+    obs: tuple      # each entry's dense observation
+
+
+@functools.lru_cache(maxsize=None)
+def reset_table(cfg: EnvConfig) -> ResetTable:
+    """The ISD of ``cfg``'s board with each entry's dense observation, from
+    the host's tables, cached: what kernel S1's reset selects from in its
+    launch's arguments, so that it reads no table on the card.  The same
+    numbers as ``device_maps``' ``isd_fields`` and ``isd_cum`` and its
+    ``raw_to_dense`` of each entry."""
+    ss = tables.build_statespace(cfg)
+    fields = tables.isd_fields(cfg)
+    cum = np.cumsum(ss.isd_probs).astype(np.float32)
+    raw = rules.raw_encode(np, *fields.T.astype(np.int64), cfg)
+    return ResetTable(tuple(tuple(int(x) for x in f) for f in fields),
+                      tuple(float(c) for c in cum),
+                      tuple(int(ss.raw_to_dense[r]) for r in raw))
+
+
 def init(cfg: EnvConfig, key: torch.Tensor, batch: int,
          device="cuda") -> EnvState:
     """Per-instance keys and initial states on ``device``: instance i's
@@ -208,9 +231,15 @@ def step(cfg: EnvConfig, state: EnvState, actions_a: torch.Tensor,
     same outputs bit for bit and raises if it cannot launch."""
     if state.key.device.type == "cpu":
         return step_plain(cfg, state, actions_a, actions_b, autoreset, rng)
-    ints, floats, flags = engine_kernel.engine_step(
+    return step_result(state, *engine_kernel.engine_step(
         cfg, state[:7], state.key, actions_a, actions_b,
-        device_maps(cfg, state.key.device), autoreset, rng)
+        device_maps(cfg, state.key.device), autoreset, rng))
+
+
+def step_result(state: EnvState, ints: torch.Tensor, floats: torch.Tensor,
+                flags: torch.Tensor) -> tuple[EnvState, StepOut]:
+    """S1's output tensors (``engine_kernel.engine_step``'s) as the new
+    state, which keeps ``state``'s key, and the ``StepOut``."""
     ra, ca, rb, cb, poss, t, n, obs, final_obs = ints.unbind()
     return (EnvState(ra, ca, rb, cb, poss, t, n, key=state.key),
             StepOut(obs=obs, reward_a=floats[0], done=flags[0],

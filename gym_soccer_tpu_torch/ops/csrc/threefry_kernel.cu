@@ -34,7 +34,11 @@
 //             out[j] = minval + ((hi % span) * mult + lo % span) % span
 // with the span and multiplier of `jax.random.randint` from the host, all
 // in uint32 arithmetic.  Each element repeats the fold_in (and the split):
-// a draw of 2 x 1024 elements is one launch either way.
+// a draw of 2 x 1024 elements is one launch either way.  Builds that took
+// 2 to 8 elements a thread with one fold_in, or 32 to 128 threads a block,
+// were no faster on an H100 (PERF.md, the keyed entry's row): a thread's
+// chain (the key's load, 40 rounds, the store) does not shorten, and each
+// extra element adds its rounds to it.
 //
 // What bounds it: integer ALU work, 1 + (salt != 0) + count blocks of 20
 // rounds (an add, a rotate and a xor each) and 6 key injections; per lane

@@ -22,12 +22,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 
 import torch
 
 from ..config import EnvConfig
-from .engine_kernel import EngineParams, params
+from .engine_kernel import MAX_ISD  # noqa: F401 (the ISD bound S3 shares)
+from .engine_kernel import EngineParams, EngineReset, params, reset_struct
 
 # Launches of S2 and S3 in this process, counted by the wrappers where
 # they launch and nowhere else.
@@ -39,16 +39,10 @@ N_PTRS = {"multigrid_step": 21, "alt_step": 14}
 # 32 times 2-5 % under 64 and 128 from 128 to 8192 lanes, 256 slower
 # from 256 lanes up (ops/mixed_alt_variants, phase 51 of chip_smoke.py).
 LANES_PER_BLOCK = 32
-MAX_ISD = 4   # game.cuh kMaxIsd
 
 
-class AltReset(ctypes.Structure):
-    """csrc/mixed_alt_kernel.cu's ``AltReset``, field for field: the
-    board's ISD entries, their cumulative thresholds (+inf past the last)
-    and their observations at turn 0."""
-    _fields_ = [("isd", (ctypes.c_int * 5) * MAX_ISD),
-                ("cum", ctypes.c_float * MAX_ISD),
-                ("obs", ctypes.c_int * MAX_ISD)]
+# S3's ISD argument (csrc/mixed_alt_kernel.cu AltReset) has S1's layout.
+AltReset = EngineReset
 
 
 def reset_launch_counts() -> None:
@@ -186,24 +180,10 @@ def alt_step(cfg: EnvConfig, fields, key: torch.Tensor,
     return out_i, out_f, out_b
 
 
-@functools.lru_cache(maxsize=None)
 def _alt_reset(reset) -> AltReset:
-    """``reset`` (an ``alt_reset_table``) as the kernel's `AltReset`, its
-    thresholds past the last entry +inf; ValueError unless it holds 1 to
-    MAX_ISD entries of five fields, a threshold and an observation each."""
-    fields, cum, obs = reset
-    n = len(fields)
-    if not 1 <= n <= MAX_ISD or len(cum) != n or len(obs) != n or any(
-            len(f) != 5 for f in fields):
-        raise ValueError(f"alt_step: 1 to {MAX_ISD} ISD entries of five "
-                         "fields, a threshold and an observation each")
-    rst = AltReset()
-    for k in range(MAX_ISD):
-        rst.cum[k] = cum[k] if k < n else math.inf
-        if k < n:
-            rst.isd[k][:] = fields[k]
-            rst.obs[k] = obs[k]
-    return rst
+    """``reset`` (an ``alt_reset_table``) as the kernel's `AltReset`
+    (``engine_kernel.reset_struct``)."""
+    return reset_struct(reset, "alt_step")
 
 
 @functools.lru_cache(maxsize=None)

@@ -70,12 +70,13 @@ LEARNERS_INSTANCES = ("ILb1ELb1ELb1E", "alt_step_kernelILb1ELb1E",
                       "empty_kernel")
 
 
-def _compile(stem: str, text: str):
-    """``text``, a source of csrc/ (its includes pointed there), built
-    beside the port's build unless a build of the same text, headers and
-    flags exists; its path."""
+def compile_text(stem: str, text: str, folder: str = "mixed_alt_variants"):
+    """``text``, a source of csrc/ (its includes pointed there), built into
+    ``folder`` beside the port's build unless a build of the same text,
+    headers and flags exists; its path (ops/engine_variants builds its
+    designs so too)."""
     from . import _build
-    out_dir = _build.BUILD_DIR / "mixed_alt_variants"
+    out_dir = _build.BUILD_DIR / folder
     h = hashlib.sha256((" ".join(_build.NVCC_FLAGS) + text).encode())
     for header in ("game.cuh", "threefry.cuh"):
         text = text.replace(f'#include "{header}"',
@@ -105,22 +106,22 @@ def shape_source(threads: int) -> str:
 
 def build_shape(threads: int):
     """The kernel built with ``threads`` lanes a block; its path."""
-    return _compile(f"mixed_alt_kernel-{threads}-lanes",
-                    shape_source(threads))
+    return compile_text(f"mixed_alt_kernel-{threads}-lanes",
+                        shape_source(threads))
 
 
 def build_previous():
     """The previous design's library, built; its path."""
     from . import _build
-    return _compile("mixed_alt_prev_kernel",
-                    (_build.CSRC / PREV_SOURCE).read_text())
+    return compile_text("mixed_alt_prev_kernel",
+                        (_build.CSRC / PREV_SOURCE).read_text())
 
 
 def build_floor():
     """The empty kernel's library, built; its path."""
     from . import _build
-    return _compile("launch_floor_kernel",
-                    (_build.CSRC / FLOOR_SOURCE).read_text())
+    return compile_text("launch_floor_kernel",
+                        (_build.CSRC / FLOOR_SOURCE).read_text())
 
 
 def builders() -> list:
@@ -383,14 +384,15 @@ def time_in_turns(calls: dict, graph_ms, rounds: int = ROUNDS) -> dict:
     return turns
 
 
-def summary(turns: dict) -> tuple:
+def summary(turns: dict, floor_of=floor_name) -> tuple:
     """({name: (mean, min, max) ms}, {design: (mean, min, max) ms above
-    its floor, turn by turn}) of `time_in_turns`'s readings."""
+    its floor ``floor_of(design)``, turn by turn}) of `time_in_turns`'s
+    readings."""
     def stats(xs):
         return statistics.mean(xs), min(xs), max(xs)
 
     ms = {name: stats(t) for name, t in turns.items()}
-    above = {name: stats([x - f for x, f in zip(t, turns[floor_name(name)])])
+    above = {name: stats([x - f for x, f in zip(t, turns[floor_of(name)])])
              for name, t in turns.items()
              if not name.startswith("floor") and name != "plain"}
     return ms, above

@@ -12,8 +12,9 @@ policies (``jax.random.uniform(jax.random.fold_in(key, i), shape)``).
 On CPU tensors each runs its plain version, the composition of
 core/threefry's functions; on CUDA tensors it launches T1
 (``csrc/threefry_kernel.cu``: one thread a lane, or an output element,
-every round in registers; the rounds in ``csrc/threefry.cuh``, which
-kernel S1 shares).  There is no fallback from one to the other.
+every round in registers, `LANES_PER_BLOCK` lanes or elements a block;
+the rounds in ``csrc/threefry.cuh``, which kernels S1, S2 and S3 share).
+There is no fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -28,6 +29,9 @@ from ..core import threefry
 # Launches of T1 in this process (its per-lane and its keyed entry),
 # counted by the wrappers where they launch and nowhere else.
 launch_counts = {"threefry_uniforms": 0, "threefry_keyed": 0}
+# Lanes (or the keyed entry's elements) a block: csrc/threefry_kernel.cu
+# kThreads.
+LANES_PER_BLOCK = 256
 
 
 def reset_launch_counts() -> None:
@@ -155,7 +159,8 @@ def _launch_keyed(key: torch.Tensor, i: int, shape, randint):
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    """The built T1 library with its C signatures declared."""
+    """The built T1 library with its C signatures declared, its lanes a
+    block checked against LANES_PER_BLOCK."""
     from . import _build
     lib = _build.load("threefry_kernel")
     vp, i32 = ctypes.c_void_p, ctypes.c_int
@@ -172,4 +177,8 @@ def _library():
     lib.gst_threefry_block.restype = i32
     lib.gst_error_string.argtypes = [i32]
     lib.gst_error_string.restype = ctypes.c_char_p
+    if lib.gst_threefry_block() != LANES_PER_BLOCK:
+        raise RuntimeError(f"threefry_kernel: {lib.gst_threefry_block()} "
+                           f"lanes a block in the library, "
+                           f"{LANES_PER_BLOCK} here")
     return lib

@@ -1,5 +1,6 @@
 """The CUDA kernels K1-K13, R1, T1, S1, S2, S3 and A1 against their plain PyTorch
-versions on the card, bit for bit, and the trainers' grouped dispatch
+versions on the card, bit for bit (S1's builds and previous design too,
+ops/engine_variants), and the trainers' grouped dispatch
 modes (CUDA-graph replays) against their per-chunk runs.  Skips without a CUDA device.  This
 file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -868,6 +869,75 @@ def test_s1_equals_step_plain(cuda, rng, autoreset):
                 assert a.dtype == b.dtype and torch.equal(a, b)
                 assert torch.equal(a.cpu(), c)
             st = got[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rng", ["threefry", "counter"])
+@pytest.mark.parametrize("autoreset", [True, False])
+def test_s1_designs_equal_step_plain(cuda, rng, autoreset):
+    """S1's builds at each other lanes a block and its previous design
+    (ops/engine_variants) bit-equal to step_plain in every state and
+    StepOut field, on 5x4 and 11x7 at slip 0 and 0.2, from goal-state,
+    wrapping and truncating lanes, under int32 and int64 actions, and
+    each replayed from a CUDA graph equal to its eager call."""
+    from chip_smoke import engine_start
+    from gym_soccer_tpu_torch.core import batch
+    from gym_soccer_tpu_torch.ops import engine_kernel as ek
+    from gym_soccer_tpu_torch.ops import engine_variants as ev
+    for (w, h), q in [(b, q) for b in BOARDS for q in (0.0, 0.2)]:
+        cfg = EnvConfig(width=w, height=h, slip_prob=q)
+        st = engine_start(torch, cfg, rng, 3000, cuda, w + 1)
+        g = torch.Generator().manual_seed(w + 1)
+        for s in range(6):
+            acts = torch.randint(0, 5, (2, 3000), generator=g).to(cuda)
+            if s % 2:
+                acts = acts.int()
+            want = batch.step_plain(cfg, st, acts[0], acts[1], autoreset,
+                                    rng)
+            ek.reset_launch_counts()
+            for design in ev.designs():
+                got = ev.engine_step_on(design, cfg, st, acts[0], acts[1],
+                                        autoreset, rng)
+                assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b
+                           in zip((*got[0], *got[1]), (*want[0], *want[1]),
+                                  strict=True)), design
+            assert ek.launch_counts["engine_step"] == 0   # not counted
+            st = want[0]
+    aa, ab = torch.randint(0, 5, (2, 3000), generator=g).to(cuda)
+    for design in ev.designs():
+        eager = ev.engine_step_on(design, cfg, st, aa, ab, autoreset, rng)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = ev.engine_step_on(design, cfg, st, aa, ab, autoreset,
+                                         rng)
+        for x in (*captured[0][:7], *captured[1]):
+            x.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(
+            (*captured[0], *captured[1]), (*eager[0], *eager[1])))
+
+
+@pytest.mark.cuda
+def test_s1_replays_from_a_graph(cuda):
+    """S1 through batch.step captured in a CUDA graph and replayed equals
+    its eager call, the reset table riding in the captured arguments."""
+    from chip_smoke import engine_start
+    from gym_soccer_tpu_torch.core import batch
+    cfg = EnvConfig(width=5, height=4, slip_prob=0.2)
+    st = engine_start(torch, cfg, "threefry", 3000, cuda, 5)
+    aa, ab = torch.randint(0, 5, (2, 3000), device=cuda)
+    eager = batch.step(cfg, st, aa, ab)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = batch.step(cfg, st, aa, ab)
+    for x in (*captured[0][:7], *captured[1]):
+        x.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(
+        (*captured[0], *captured[1]), (*eager[0], *eager[1])))
+    assert int(eager[1].done.sum()) and int(eager[1].truncated.sum())
 
 
 @pytest.mark.cuda

@@ -29,6 +29,7 @@ MODULES = ["gym_soccer_tpu_torch", "gym_soccer_tpu_torch.config",
            "gym_soccer_tpu_torch.ops.engine_kernel",
            "gym_soccer_tpu_torch.ops.mixed_alt_kernel",
            "gym_soccer_tpu_torch.ops.mixed_alt_variants",
+           "gym_soccer_tpu_torch.ops.engine_variants",
            "gym_soccer_tpu_torch.envs.vector_env",
            "gym_soccer_tpu_torch.utils.metrics",
            "gym_soccer_tpu_torch.utils.profiling",
