@@ -1,0 +1,7 @@
+"""eval_s.contract: the host clock around each contract's exploitability call,
+ending in a synchronise, averaged over the window's untraced contracts."""
+from perfbench.harness import spans
+
+
+def read(ctx):
+    return spans.mean_span(ctx, "eval_call")
